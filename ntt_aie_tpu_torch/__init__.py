@@ -1,0 +1,23 @@
+"""ntt_aie_tpu_torch — the NTT framework on PyTorch, with CUDA kernels for
+NVIDIA Hopper.
+
+A port of ``ntt_aie_tpu`` (the JAX/Pallas reference, which stays the
+oracle). It imports torch and numpy and never jax. Ported so far: the
+single-device four-step fold plan over harvey4 fields (p < 2^29), with the
+column pass as a hand-written CUDA kernel (``ops/colpass.py``,
+``csrc/colpass.cu``) and its plain PyTorch version on the CPU.
+"""
+
+from ntt_aie_tpu_torch.fields import (  # noqa: F401
+    DILITHIUM,
+    FIELDS,
+    GOLDILOCKS,
+    KYBER,
+    P_469762049,
+    P_998244353,
+    P_2013265921,
+    PrimeField,
+)
+from ntt_aie_tpu_torch.config import NTTConfig  # noqa: F401
+from ntt_aie_tpu_torch.plan import Plan, build_plan  # noqa: F401
+from ntt_aie_tpu_torch.api import NTTContext  # noqa: F401

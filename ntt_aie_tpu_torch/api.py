@@ -1,0 +1,116 @@
+"""High-level API: NTTContext on one device.
+
+Port of ``ntt_aie_tpu.api.NTTContext`` for a single device: the context
+builds its plan lazily on first use and delegates to it; the host-oracle
+paths run the NumPy oracles in the plan's output order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ntt_aie_tpu_torch import reference as ref
+from ntt_aie_tpu_torch import twiddles as tw
+from ntt_aie_tpu_torch.config import NTTConfig
+
+
+class NTTContext:
+    """A plan on one device: forward / inverse / polymul.
+
+    Usage:
+        ctx = NTTContext(NTTConfig(field=P_469762049, log_n=20),
+                         device="cuda")
+        A = ctx.forward(a)           # flat spectral-order NTT
+        c = ctx.polymul(a, b)        # NTT -> pointwise -> INTT
+
+    Plan keyword arguments (fused, wmat_factored, wmat_fold) forward to
+    build_plan.
+    """
+
+    _PLAN_KWARGS = {"fused", "wmat_factored", "wmat_fold"}
+
+    def __init__(self, config: NTTConfig, *, device="cpu", mesh=None,
+                 **plan_kwargs):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (the distributed four-step plan) is not ported yet: "
+                "ROADMAP.md Queue 1 item 10")
+        bad = sorted(set(plan_kwargs) - self._PLAN_KWARGS)
+        if bad:
+            raise TypeError(f"unknown plan kwargs {bad}; a single-device "
+                            f"context accepts {sorted(self._PLAN_KWARGS)}")
+        self.config = config
+        self.device = device
+        self._plan_kwargs = plan_kwargs
+        self._plan = None
+
+    @property
+    def plan(self):
+        if self._plan is None:
+            from ntt_aie_tpu_torch.plan import build_plan
+
+            self._plan = build_plan(self.config, device=self.device,
+                                    **self._plan_kwargs)
+        return self._plan
+
+    # ---- host oracle paths (NumPy, any machine) ----
+
+    def _standard(self):
+        if self.config.table_convention == "reference":
+            raise NotImplementedError(
+                "the reference-parity convention is not ported yet: "
+                "ROADMAP.md Queue 1 item 4j")
+        return self.config
+
+    def forward_host(self, a) -> np.ndarray:
+        """NumPy forward transform in the plan's output order: natural for
+        ordering='natural', else the four-step spectral order."""
+        cfg = self._standard()
+        natural = ref.ntt_forward(np.asarray(a), cfg.field)
+        if cfg.ordering == "natural":
+            return natural
+        out = np.empty_like(natural)
+        out[tw.spectral_positions(*cfg.split)] = natural
+        return out
+
+    def inverse_host(self, a) -> np.ndarray:
+        cfg = self._standard()
+        a = np.asarray(a)
+        if cfg.ordering != "natural":
+            a = a[tw.spectral_positions(*cfg.split)]  # -> natural order
+        return ref.ntt_dit(a[tw.bit_reverse_indices(cfg.n)], cfg.field,
+                           inverse=True)
+
+    # ---- device paths ----
+
+    def make_batched(self, batch: int) -> dict:
+        """Batched callables over a leading batch axis: fwd/inv/polymul
+        (flat (B, n)) and the matrix-form fwd_mat/inv_mat/polymul_mat."""
+        return self.plan.make_batched(batch)
+
+    def _mat(self, name):
+        fn = getattr(self.plan, name)
+        if fn is None:
+            raise NotImplementedError(
+                f"this plan has no {name} (fwd/inv matrix-form twins need "
+                "the default spectral ordering)")
+        return fn
+
+    def forward_mat(self, a):
+        """(n1, n2) natural layout -> (n2, n1) spectral."""
+        return self._mat("fwd_mat")(a)
+
+    def inverse_mat(self, s):
+        return self._mat("inv_mat")(s)
+
+    def polymul_mat(self, a, b):
+        return self._mat("polymul_mat")(a, b)
+
+    def forward(self, a):
+        return self.plan.fwd(a)
+
+    def inverse(self, a):
+        return self.plan.inv(a)
+
+    def polymul(self, a, b):
+        return self.plan.polymul(a, b)

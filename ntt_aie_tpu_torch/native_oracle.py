@@ -1,0 +1,65 @@
+"""ctypes binding to the native C++ golden oracle (native/oracle.cc).
+
+A jax-free twin of ``ntt_aie_tpu.native_oracle`` for the two entry points
+the port's gates use: the batched forward DIF and the cyclic product. The
+library builds on demand with ``make -C native`` (g++ only, no deps).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import pathlib
+import subprocess
+
+import numpy as np
+
+_NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent / "native"
+_LIB_PATH = _NATIVE_DIR / "libnttoracle.so"
+
+
+class NativeOracleUnavailable(RuntimeError):
+    pass
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build (make is dependency-checked, so a no-op when current) and
+    load the native oracle library."""
+    if not (_NATIVE_DIR / "Makefile").exists():
+        raise NativeOracleUnavailable(
+            f"native sources not found at {_NATIVE_DIR}")
+    try:
+        subprocess.run(["make", "-C", str(_NATIVE_DIR), "libnttoracle.so"],
+                       check=True, capture_output=True, text=True)
+    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+        if not _LIB_PATH.exists():
+            raise NativeOracleUnavailable(f"native build failed: {e}") from e
+    lib = ctypes.CDLL(str(_LIB_PATH))
+    u64, i64 = ctypes.c_uint64, ctypes.c_int64
+    pu64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    lib.ntt_dif_u64_batch.restype = None
+    lib.ntt_dif_u64_batch.argtypes = [pu64, i64, i64, u64, u64]
+    lib.ntt_cyclic_polymul_u64.restype = None
+    lib.ntt_cyclic_polymul_u64.argtypes = [pu64, pu64, pu64, i64, u64, u64]
+    return lib
+
+
+def ntt_dif_batch(a, omega: int, p: int) -> np.ndarray:
+    """Batched forward DIF (natural in, bit-reversed out) over the rows of
+    a (B, n) array, in one C call."""
+    lib = load()
+    a = np.ascontiguousarray(a, dtype=np.uint64).copy()
+    B, n = a.shape
+    lib.ntt_dif_u64_batch(a, B, n, omega, p)
+    return a
+
+
+def cyclic_polymul(a, b, omega: int, p: int) -> np.ndarray:
+    """c = a * b mod (X^n - 1, p) for length-n vectors."""
+    lib = load()
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    b = np.ascontiguousarray(b, dtype=np.uint64)
+    c = np.empty_like(a)
+    lib.ntt_cyclic_polymul_u64(a, b, c, len(a), omega, p)
+    return c

@@ -1,0 +1,350 @@
+"""The four-step column pass: a CUDA kernel and its plain PyTorch version.
+
+Port of ``ntt_aie_tpu/ops/pallas_ntt.py``: the stage section
+(``run_stages``/``run_col_network``) and the Pallas kernel
+``build_colpass``/``make_colpass``, for the four configurations the fold
+plan runs (``cp1``: DIF + 'post_t' wmat + transpose_out, ``cp2``: DIF +
+canonicalize, ``icp2``: DIT + 'post_t' iwmat + transpose_out, ``icp1``:
+DIT + canonicalize), harvey4 only.
+
+``colpass(x, cp)`` is the entry point. On a CPU tensor it runs the plain
+version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
+``csrc/colpass.cu`` or raises — there is no fallback. The kernel is built
+with nvcc at first use into ``build/ntt_aie_tpu_torch/`` (keyed by a hash
+of its source and flags) and bound with ctypes.
+
+Tensors are ``torch.int32`` holding uint32 bit patterns: (B, nn, ncols)
+in, (B, nn, ncols) out, or (B, ncols, nn) with transpose_out; a 2-D
+(nn, ncols) input is a batch of one. Output domain: [0, 4p) without
+canonicalize, [0, p) with it. Both versions compute the same radix-2
+network with the same uint32 operations, so their outputs are equal bit
+for bit, lazy values included. (The reference's Pallas DIT groups stages
+with lazy subtrees, so its raw lazy bits differ; canonical values agree.)
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import torch
+
+from ntt_aie_tpu_torch import twiddles as tw
+from ntt_aie_tpu_torch.ops import modops as M
+from ntt_aie_tpu_torch.ops.reductions import Reduction, make_reduction
+
+_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "colpass.cu"
+BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
+             / "ntt_aie_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+MAX_ROWS = 8192       # csrc/colpass.cu kMaxRows
+_TILE_WORDS = 8192    # a 32 KB tile where the column allows it
+_MIN_TILE_COLS = 4
+_MAX_TILE_COLS = 32
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ColPass:
+    """One column pass: its static configuration and its tables, prepared
+    once on the plan's device as int32 tensors.
+
+    tw: (2, sum(ts)) — row 0 the stage twiddles w of every stage in
+      order, row 1 their packed Shoup halves (w'_hi << 16) | w'_lo;
+      offsets[s] is stage s's start.
+    wmid: (2, nn) nested mid multiply, or None for a plain network.
+    wmat: (2, ncols, nn) 'post_t' operand, or None.
+    """
+
+    red: Reduction
+    nn: int
+    direction: str
+    phases_ts: tuple
+    mid_rs: tuple
+    canonicalize: bool
+    transpose_out: bool
+    tw: torch.Tensor
+    offsets: tuple
+    wmid: torch.Tensor | None
+    wmat: torch.Tensor | None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return colpass(x, self)
+
+
+def _u32_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a).astype(np.uint32))
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def _pair(w, packed, device) -> torch.Tensor:
+    return torch.stack([_u32_tensor(w, device), _u32_tensor(packed, device)])
+
+
+def _pack(wh, wl) -> np.ndarray:
+    wh = np.asarray(wh).astype(np.uint32)
+    wl = np.asarray(wl).astype(np.uint32)
+    return (wh << np.uint32(16)) | wl
+
+
+def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
+              wmat_tab, canonicalize, transpose_out, device) -> ColPass:
+    """stage_tabs: per stage (w, wh, wl) host arrays; mid_tab: (w, wh, wl)
+    or None; wmat_tab: (w, packed) of shape (ncols, nn), or None."""
+    if direction not in ("dif", "dit"):
+        raise ValueError(f"direction must be 'dif' or 'dit', got {direction!r}")
+    if wmat_tab is not None and not transpose_out:
+        raise ValueError("the 'post_t' multiply needs transpose_out=True")
+    ts = [t for ph in phases_ts for t in ph]
+    if (1 << len(ts)) != nn or len(stage_tabs) != len(ts):
+        raise ValueError(f"stage list {phases_ts} does not cover {nn} rows")
+    if (len(phases_ts) == 2) != (mid_tab is not None):
+        raise ValueError("a nested network needs exactly two phases and wmid")
+    offsets = tuple(int(o) for o in np.cumsum([0] + ts[:-1]))
+    w_all = np.concatenate([np.ravel(tab[0]) for tab in stage_tabs])
+    s_all = np.concatenate([np.ravel(_pack(tab[1], tab[2]))
+                            for tab in stage_tabs])
+    wmid = None
+    if mid_tab is not None:
+        wmid = _pair(np.ravel(mid_tab[0]), np.ravel(_pack(*mid_tab[1:])),
+                     device)
+    wmat = None
+    if wmat_tab is not None:
+        wmat = _pair(wmat_tab[0], wmat_tab[1], device)
+        if wmat.shape[2] != nn:
+            raise ValueError(f"post_t operand {tuple(wmat.shape[1:])} is not "
+                             f"(ncols, {nn})")
+    return ColPass(red=red, nn=nn, direction=direction,
+                   phases_ts=tuple(tuple(int(t) for t in ph)
+                                   for ph in phases_ts),
+                   mid_rs=tuple(int(v) for v in mid_rs),
+                   canonicalize=canonicalize, transpose_out=transpose_out,
+                   tw=_pair(w_all, s_all, device), offsets=offsets,
+                   wmid=wmid, wmat=wmat)
+
+
+def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
+                 wmat: np.ndarray | None = None, canonicalize: bool = False,
+                 transpose_out: bool = False, device="cpu") -> ColPass:
+    """Build a column pass for nn-point columns from the port's own
+    twiddles.col_network. wmat: host (ncols, nn) 'post_t' operand (the
+    four-step matrix in output orientation), applied after the transpose."""
+    red = make_reduction("harvey4", field)
+    net = tw.col_network(field, nn, direction=direction, inverse=inverse_tw)
+    stage_tabs = [red.prepare_table(v)
+                  for ph in net["phases"] for v in ph["vecs"]]
+    mid_tab = (red.prepare_table(net["mid"]["wmid"])
+               if net["mid"] is not None else None)
+    wmat_tab = red.prep_mat(np.asarray(wmat)) if wmat is not None else None
+    return _assemble(red, nn, direction,
+                     [ph["ts"] for ph in net["phases"]], (net["R"], net["S"]),
+                     stage_tabs, mid_tab, wmat_tab, canonicalize,
+                     transpose_out, device)
+
+
+def colpass_from_reference(arrays: dict, *, field, direction: str,
+                           phases_ts, mid_rs, canonicalize: bool = False,
+                           transpose_out: bool = False,
+                           device="cpu") -> ColPass:
+    """Build a column pass from the reference Pallas colpass's own
+    operands: arrays["tw_cols"] is ``PallasColpass.tw_cols`` as NumPy
+    arrays (per stage (w, wh, wl), then the nested wmid's three), and
+    arrays["wmat"] its ``.wmat`` pair (w, packed) or None."""
+    red = make_reduction("harvey4", field)
+    cols = list(arrays["tw_cols"])
+    nt = red.n_tables
+    nstages = sum(len(ph) for ph in phases_ts)
+    stage_tabs = [tuple(cols[s * nt:(s + 1) * nt]) for s in range(nstages)]
+    rest = cols[nstages * nt:]
+    mid_tab = tuple(rest) if rest else None
+    wmat = arrays.get("wmat")
+    return _assemble(red, 1 << nstages, direction, phases_ts, mid_rs,
+                     stage_tabs, mid_tab, tuple(wmat) if wmat else None,
+                     canonicalize, transpose_out, device)
+
+
+# ---- plain PyTorch version -------------------------------------------------
+
+def _batched(x: torch.Tensor, cp: ColPass):
+    if x.dtype != torch.int32:
+        raise TypeError(f"colpass takes int32 tensors, got {x.dtype}")
+    squeeze = x.dim() == 2
+    xb = x.unsqueeze(0) if squeeze else x
+    if xb.dim() != 3 or xb.shape[1] != cp.nn:
+        raise ValueError(f"colpass over {cp.nn} rows takes (B, {cp.nn}, "
+                         f"ncols) or ({cp.nn}, ncols), got {tuple(x.shape)}")
+    if cp.wmat is not None and cp.wmat.shape[1] != xb.shape[2]:
+        raise ValueError(f"post_t operand has {cp.wmat.shape[1]} columns, "
+                         f"input has {xb.shape[2]}")
+    return xb, squeeze
+
+
+def _run_stages(x, w, s, ts, offsets, direction, red):
+    """Radix-2 butterfly stages over axis 1 of a (B, nn, c) carrier."""
+    B, nn, c = x.shape
+    for t, off in zip(ts, offsets):
+        xv = x.reshape(B, nn // (2 * t), 2, t, c)
+        u, v = xv[:, :, 0], xv[:, :, 1]
+        wv = w[off:off + t].view(1, 1, t, 1)
+        sv = s[off:off + t].view(1, 1, t, 1)
+        if direction == "dif":
+            hi = red.add(u, v)
+            lo = red.mulc_mat(red.sub_for_mul(u, v), wv, sv)
+        else:
+            prod = red.mulc_mat(v, wv, sv)
+            hi = red.add(u, prod)
+            lo = red.sub(u, prod)
+        x = torch.stack((hi, lo), dim=2).reshape(B, nn, c)
+    return x
+
+
+def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
+    """The column pass in plain PyTorch ops (int64 carriers), on any
+    device: the oracle the kernel is held against."""
+    xb, squeeze = _batched(x, cp)
+    red = cp.red
+    w, s = M.to_carrier(cp.tw[0]), M.to_carrier(cp.tw[1])
+    v = M.to_carrier(xb)
+    B, nn, c = v.shape
+    k0 = len(cp.phases_ts[0])
+    v = _run_stages(v, w, s, cp.phases_ts[0], cp.offsets[:k0],
+                    cp.direction, red)
+    if cp.wmid is not None:
+        R, S = cp.mid_rs
+        mw = M.to_carrier(cp.wmid[0]).view(1, nn, 1)
+        ms = M.to_carrier(cp.wmid[1]).view(1, nn, 1)
+        if cp.direction == "dif":
+            v = red.mulc_mat(v, mw, ms)
+            v = v.view(B, R, S, c).transpose(1, 2).reshape(B, nn, c)
+        else:
+            v = v.view(B, S, R, c).transpose(1, 2).reshape(B, nn, c)
+            v = red.mulc_mat(v, mw, ms)
+        v = _run_stages(v, w, s, cp.phases_ts[1], cp.offsets[k0:],
+                        cp.direction, red)
+    if cp.transpose_out:
+        v = v.transpose(1, 2)
+        if cp.wmat is not None:
+            v = red.mulc_mat(v, M.to_carrier(cp.wmat[0]),
+                             M.to_carrier(cp.wmat[1]))
+    if cp.canonicalize:
+        v = red.canonicalize(v)
+    out = M.from_carrier(v).contiguous()
+    return out[0] if squeeze else out
+
+
+# ---- CUDA kernel -----------------------------------------------------------
+
+def tile_cols(nn: int, ncols: int) -> int:
+    """Columns per thread block (TL): a tile of nn x TL uint32 takes 32 KB
+    where 4 <= TL <= 32 allows (small tiles keep more blocks per SM)."""
+    if nn > MAX_ROWS:
+        raise ValueError(f"the CUDA column pass takes at most {MAX_ROWS} "
+                         f"rows, got {nn}")
+    if ncols & (ncols - 1):
+        raise ValueError(f"ncols must be a power of two, got {ncols}")
+    return min(_MAX_TILE_COLS, ncols,
+               max(_MIN_TILE_COLS, _TILE_WORDS // nn))
+
+
+def build_library() -> pathlib.Path:
+    """Compile csrc/colpass.cu with nvcc (if not built yet) and return the
+    shared library's path. The file name carries a hash of the source and
+    flags; the library is written under a temporary name and renamed, so
+    concurrent builders never load a partial file."""
+    src = _CSRC.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"colpass-{key}.so"
+    if so.exists():
+        return so
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
+            else shutil.which("nvcc"))
+    if not nvcc or not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA column pass cannot be "
+                           "built (set CUDA_HOME)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {_CSRC}:\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library()))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib.ntt_colpass.restype = ci
+    lib.ntt_colpass.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, pi, pi,
+                                vp, vp, ci, vp, vp, vp, vp, ci, ci,
+                                ctypes.c_uint, vp]
+    lib.ntt_colpass_error_string.restype = ctypes.c_char_p
+    lib.ntt_colpass_error_string.argtypes = [ci]
+    lib.ntt_colpass_max_rows.restype = ci
+    if lib.ntt_colpass_max_rows() != MAX_ROWS:
+        raise RuntimeError("csrc/colpass.cu kMaxRows disagrees with MAX_ROWS")
+    return lib
+
+
+def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
+    for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat)):
+        if t is not None and t.device != xb.device:
+            raise ValueError(f"colpass table {name} is on {t.device}, "
+                             f"input on {xb.device}")
+    if not xb.is_contiguous():
+        raise ValueError("the CUDA column pass takes contiguous tensors")
+    B, nn, c = xb.shape
+    tl = tile_cols(nn, c)
+    out_shape = (B, c, nn) if cp.transpose_out else (B, nn, c)
+    out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
+    ts = [t for ph in cp.phases_ts for t in ph]
+    n = len(ts)
+    if cp.wmid is not None:
+        R, S = cp.mid_rs
+        log_a = (R if cp.direction == "dif" else S).bit_length() - 1
+        mid = (cp.wmid[0].data_ptr(), cp.wmid[1].data_ptr())
+    else:
+        log_a, mid = -1, (None, None)
+    mat = ((cp.wmat[0].data_ptr(), cp.wmat[1].data_ptr())
+           if cp.wmat is not None else (None, None))
+    lib = _library()
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream(xb.device).cuda_stream
+        err = lib.ntt_colpass(
+            xb.data_ptr(), out.data_ptr(), B, nn, c, tl.bit_length() - 1,
+            int(cp.direction == "dit"), n, len(cp.phases_ts[0]),
+            (ctypes.c_int * n)(*ts), (ctypes.c_int * n)(*cp.offsets),
+            cp.tw[0].data_ptr(), cp.tw[1].data_ptr(), log_a, *mid, *mat,
+            int(cp.transpose_out), int(cp.canonicalize), cp.red.p, stream)
+    if err != 0:
+        raise RuntimeError("CUDA column pass launch failed: "
+                           + lib.ntt_colpass_error_string(err).decode())
+    colpass.launches += 1
+    return out
+
+
+def colpass(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
+    """Run one column pass: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor. ``colpass.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return colpass_plain(x, cp)
+    if x.device.type != "cuda":
+        raise ValueError(f"no column pass for device {x.device}")
+    xb, squeeze = _batched(x, cp)
+    out = _launch(xb, cp)
+    return out[0] if squeeze else out
+
+
+colpass.launches = 0

@@ -1,0 +1,198 @@
+"""Plan builder: compiles an NTTConfig into callables on torch tensors.
+
+Port of ``ntt_aie_tpu.plan`` for the single-chip four-step fold
+configuration (``plan.py:269-293`` of the reference). With N = N1 x N2 and
+the input viewed row-major as an (N1, N2) matrix,
+
+    fwd = cp2 . cp1        cp1: DIF over N1, * W ('post_t'), transpose
+                           cp2: DIF over N2, canonicalize
+    inv = icp1 . icp2      icp2: DIT over N2, * W^-1/N ('post_t'), transpose
+                           icp1: DIT over N1, canonicalize
+
+each a column pass (``ops.colpass``: the CUDA kernel on a CUDA device, its
+plain PyTorch version on the CPU). The flat forward output is in the
+four-step spectral order flat[c*N1 + r] = X[s2(c)*N1 + s1(r)]
+(``twiddles.spectral_positions``); pointwise products are order-agnostic,
+so polymul never permutes.
+
+Public tensors are ``torch.int32`` holding values in [0, p).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ntt_aie_tpu_torch import twiddles as tw
+from ntt_aie_tpu_torch.config import NTTConfig
+from ntt_aie_tpu_torch.ops import modops as M
+from ntt_aie_tpu_torch.ops.colpass import make_colpass
+from ntt_aie_tpu_torch.ops.reductions import make_reduction, resolve_kind
+
+
+@dataclasses.dataclass
+class Plan:
+    """Callables of one NTTConfig on one device.
+
+    fwd/inv/polymul take and return flat (n,) tensors; fwd_mat maps
+    (n1, n2) natural layout to (n2, n1) spectral and inv_mat back
+    (spectral-order plans only; None with ordering='natural');
+    polymul_mat maps (n1, n2) operands to an (n1, n2) product.
+    make_batched(B) returns the same callables over a leading batch axis.
+    passes holds the four column passes (cp1, cp2, icp2, icp1).
+    """
+
+    config: NTTConfig
+    device: torch.device
+    fwd: Callable
+    inv: Callable
+    polymul: Callable
+    spectral_to_natural: np.ndarray
+    reduction: str
+    passes: dict
+    fwd_mat: Optional[Callable] = None
+    inv_mat: Optional[Callable] = None
+    polymul_mat: Optional[Callable] = None
+    _batched_builder: Optional[Callable] = None
+    _batched_cache: dict = dataclasses.field(default_factory=dict)
+
+    def make_batched(self, batch: int) -> dict:
+        if batch not in self._batched_cache:
+            self._batched_cache[batch] = self._batched_builder(batch)
+        return self._batched_cache[batch]
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
+
+
+def fold_passes(field, n1: int, n2: int, *, device="cpu") -> dict:
+    """The four column passes of the four-step fold plan for an (n1, n2)
+    split (reference plan.py:275-293): cp1 and icp1 over (.., n1, n2),
+    cp2 and icp2 over (.., n2, n1). The four-step multiply rides the
+    transposing passes' exit as 'post_t', with its operand in output
+    orientation: wmat.T for cp1, iwmat_scaled (1/n folded in) for icp2."""
+    tabs = tw.fourstep_tables(field, n1, n2)
+    return {
+        "cp1": make_colpass(field, n1, direction="dif", transpose_out=True,
+                            wmat=np.ascontiguousarray(tabs["wmat"].T),
+                            device=device),
+        "cp2": make_colpass(field, n2, direction="dif", canonicalize=True,
+                            device=device),
+        "icp2": make_colpass(field, n2, direction="dit", inverse_tw=True,
+                             transpose_out=True, wmat=tabs["iwmat_scaled"],
+                             device=device),
+        "icp1": make_colpass(field, n1, direction="dit", inverse_tw=True,
+                             canonicalize=True, device=device),
+    }
+
+
+def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
+               wmat_factored: bool | None = None,
+               wmat_fold: bool | None = None) -> Plan:
+    """Build the four-step fold plan of `config` on `device`.
+
+    Tables are prepared once here, on the plan's device. Configurations
+    outside the ported slice raise NotImplementedError naming the
+    ROADMAP.md item that ports them.
+    """
+    field = config.field
+    if config.table_convention == "reference":
+        _not_ported("the reference-parity convention", "Queue 1 item 4j")
+    kind = resolve_kind(config.reduction, field)
+    red = make_reduction(kind, field)  # raises for the unported kinds
+    n1, n2 = config.split
+    if n2 == 1:
+        _not_ported(f"the flat split {config.split} (pin rows_log2 for a "
+                    "four-step plan)", "Queue 1 item 4h")
+    if config.negacyclic:
+        _not_ported("negacyclic polymul", "Queue 1 item 4d")
+    if fused:
+        _not_ported("fused=True (build_fused_fourstep)", "Queue 2 item 3")
+    if wmat_factored:
+        _not_ported("wmat_factored=True", "Queue 1 item 4g")
+    if wmat_fold is False:
+        _not_ported("wmat_fold=False", "Queue 1 item 4g")
+    if config.num_shards != 1:
+        _not_ported("the distributed plan", "Queue 1 item 10")
+
+    device = torch.device(device)
+    n = config.n
+    pos = tw.spectral_positions(n1, n2)
+    passes = fold_passes(field, n1, n2, device=device)
+    cp1, cp2, icp2, icp1 = (passes[k] for k in ("cp1", "cp2", "icp2", "icp1"))
+
+    def as_i32(a) -> torch.Tensor:
+        return torch.as_tensor(a, device=device).to(torch.int32)
+
+    def pointwise(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+        return M.from_carrier(red.mul_data(M.to_carrier(fa),
+                                           M.to_carrier(fb)))
+
+    def fwd2d(a, shape):
+        return cp2(cp1(as_i32(a).reshape(shape)))
+
+    def inv2d(a, shape):
+        return icp1(icp2(as_i32(a).reshape(shape)))
+
+    def poly2d(a, b, shape):
+        return inv2d(pointwise(fwd2d(a, shape), fwd2d(b, shape)),
+                     shape[:-2] + (n2, n1))
+
+    natural = config.ordering == "natural"
+    perm = torch.from_numpy(pos.astype(np.int64)).to(device)
+    inv_perm_np = np.empty(n, dtype=np.int64)
+    inv_perm_np[pos] = np.arange(n)
+    inv_perm = torch.from_numpy(inv_perm_np).to(device)
+
+    def fwd_fn(a):
+        out = fwd2d(a, (n1, n2)).reshape(n)
+        return out[perm] if natural else out
+
+    def inv_fn(a):
+        a = as_i32(a)
+        return inv2d(a[inv_perm] if natural else a, (n2, n1)).reshape(n)
+
+    def polymul_fn(a, b):
+        return poly2d(a, b, (n1, n2)).reshape(n)
+
+    def batched_builder(B: int) -> dict:
+        bsh = (B, n1, n2)
+
+        def fwd_b(a):
+            out = fwd2d(a, bsh).reshape(B, n)
+            return out[:, perm] if natural else out
+
+        def inv_b(a):
+            a = as_i32(a).reshape(B, n)
+            return inv2d(a[:, inv_perm] if natural else a,
+                         (B, n2, n1)).reshape(B, n)
+
+        out = {
+            "fwd": fwd_b,
+            "inv": inv_b,
+            "polymul": lambda a, b: poly2d(a, b, bsh).reshape(B, n),
+            "polymul_mat": lambda a, b: poly2d(a, b, bsh),
+        }
+        if not natural:
+            out["fwd_mat"] = lambda a: fwd2d(a, bsh)
+            out["inv_mat"] = lambda a: inv2d(a, (B, n2, n1))
+        return out
+
+    return Plan(
+        config=config,
+        device=device,
+        fwd=fwd_fn,
+        inv=inv_fn,
+        polymul=polymul_fn,
+        spectral_to_natural=pos,
+        reduction=kind,
+        passes=passes,
+        fwd_mat=None if natural else (lambda a: fwd2d(a, (n1, n2))),
+        inv_mat=None if natural else (lambda a: inv2d(a, (n2, n1))),
+        polymul_mat=lambda a, b: poly2d(a, b, (n1, n2)),
+        _batched_builder=batched_builder,
+    )

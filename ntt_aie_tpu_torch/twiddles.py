@@ -1,0 +1,243 @@
+"""Twiddle-factor planning for the four-step column passes.
+
+A NumPy copy of the parts of ``ntt_aie_tpu.twiddles`` that the four-step
+fold plan needs (the port cannot import the reference package: its
+``__init__`` imports jax). The spectral order is still defined once:
+``col_network``/``spectral_positions`` here are line-for-line copies, and
+``tests/test_torch_tables.py`` pins every table to the reference with
+``np.array_equal``. Every column transform of the port — the CUDA kernel
+and its plain PyTorch version — compiles from ``col_network``; never
+hand-build stage twiddles for a four-step column.
+
+Only 32-bit word primes are planned here (values are int64 NumPy arrays);
+Goldilocks tables arrive with the Goldilocks plan.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+
+from ntt_aie_tpu_torch.fields import PrimeField
+
+
+def _check_word_prime(field: PrimeField) -> None:
+    if field.p >= (1 << 31):
+        raise NotImplementedError(
+            f"p={field.p}: the port plans 32-bit word primes only; "
+            "Goldilocks tables come with ROADMAP.md Queue 1 item 7")
+
+
+def _mulmod(field: PrimeField, a, b) -> np.ndarray:
+    """Elementwise a*b mod p on int64/uint64 arrays (exact: p < 2^31)."""
+    pu = np.uint64(field.p)
+    return np.asarray(a, np.uint64) * np.asarray(b, np.uint64) % pu
+
+
+def _power_series(field: PrimeField, w: int, n: int) -> np.ndarray:
+    """[w^i mod p for i in range(n)] as int64, by log-depth block doubling
+    (out[m:2m] = out[:m] * w^m)."""
+    _check_word_prime(field)
+    p = field.p
+    out = np.empty(n, dtype=np.uint64)
+    out[0] = 1
+    cur = w % p  # w^m for the current block width m
+    m = 1
+    while m < n:
+        step = min(m, n - m)
+        out[m:m + step] = _mulmod(field, out[:step], cur)
+        m *= 2
+        if m < n:
+            cur = cur * cur % p
+    return out.astype(np.int64)
+
+
+def root_powers(field: PrimeField, n: int) -> np.ndarray:
+    """w^i for i in [0, n), w = field.root_of_unity(n)."""
+    return _power_series(field, field.root_of_unity(n), n)
+
+
+def bit_reverse_indices(n: int) -> np.ndarray:
+    """Bit-reversal permutation of [0, n)."""
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for _ in range(bits):
+        rev = (rev << 1) | (idx & 1)
+        idx >>= 1
+    return rev
+
+
+def dif_stage_twiddles(field: PrimeField, n: int, *,
+                       inverse: bool = False) -> list[np.ndarray]:
+    """Gentleman-Sande DIF twiddles, natural in -> bit-reversed out.
+
+    Stage s works at half-block size t = n >> (s+1); butterfly
+    (u+v, (u-v)*w[jj]) with w[jj] = omega^(jj * 2^s), jj in [0, t).
+    """
+    logn = n.bit_length() - 1
+    w = field.root_of_unity(n)
+    if inverse:
+        w = field.inv(w)
+    return [_power_series(field, pow(w, 1 << s, field.p), n >> (s + 1))
+            for s in range(logn)]
+
+
+def dit_stage_twiddles(field: PrimeField, n: int, *,
+                       inverse: bool = False) -> list[np.ndarray]:
+    """Cooley-Tukey DIT twiddles, bit-reversed in -> natural out.
+
+    Stage s works at half-block size t = 2^s; butterfly
+    (u + w[jj]*v, u - w[jj]*v) with w[jj] = omega^(jj * n/(2t)).
+    """
+    logn = n.bit_length() - 1
+    w = field.root_of_unity(n)
+    if inverse:
+        w = field.inv(w)
+    return [_power_series(field, pow(w, n >> (s + 1), field.p), 1 << s)
+            for s in range(logn)]
+
+
+def nested_col_split(nn: int) -> int:
+    """R for the nested R x S column decomposition (0 = plain DIF/DIT).
+    Columns of 256 rows or more nest, with R = 2^floor(log2(nn)/2)."""
+    if nn < 256:
+        return 0
+    return 1 << ((nn.bit_length() - 1) // 2)
+
+
+def colperm(nn: int) -> np.ndarray:
+    """Output row order sigma of one length-nn column transform: out row
+    j holds X[sigma(j)]. Plain: bit reversal. Nested R x S: the composed
+    order sigma(s*R + r) = brS(s)*R + brR(r). Both are involutions."""
+    R = nested_col_split(nn)
+    if not R:
+        return bit_reverse_indices(nn)
+    S = nn // R
+    brR = bit_reverse_indices(R)
+    brS = bit_reverse_indices(S)
+    return (brS[:, None] * np.int64(R) + brR[None, :]).ravel()
+
+
+def spectral_positions(n1: int, n2: int) -> np.ndarray:
+    """pos such that natural[k] = flat[pos[k]] for the four-step flat
+    spectral output flat[c*n1 + r] = X[s2(c)*n1 + s1(r)] (s1/s2 =
+    colperm). Flat path (n2 == 1): plain bit reversal. pos is an
+    involution, so it converts in both directions."""
+    if n2 == 1:
+        return bit_reverse_indices(n1).astype(np.int32)
+    s1 = colperm(n1)
+    s2 = colperm(n2)
+    return (s2[:, None].astype(np.int32) * np.int32(n1)
+            + s1[None, :].astype(np.int32)).ravel()
+
+
+def col_network(field: PrimeField, nn: int, *, direction: str,
+                inverse: bool = False) -> dict:
+    """The complete stage schedule of one length-nn column transform.
+
+    Plain (nested_col_split(nn) == 0): one phase of standard DIF/DIT
+    stages; mid is None.
+
+    Nested R x S: two phases whose stage twiddles are expanded with
+    np.repeat so the passthrough axis rides inside each stage (repeat by S
+    in the R-phase, by R in the S-phase); a stage of half size t pairs rows
+    (b*2t + j, b*2t + t + j) and multiplies by vec[j]. Between the phases:
+      DIF:  x *= wmid (rows r*S+s hold w_nn^(+-brR(r)*s)); then the row
+            at r*S + s moves to s*R + r;
+      DIT:  the mirror — the inverse move first, then the multiply.
+
+    Returns {"phases": [{"ts": [int, ...], "vecs": [np.ndarray, ...]}],
+             "mid": None | {"wmid": (nn,) values, "kind": direction},
+             "R": R, "S": S}.
+    """
+    R = nested_col_split(nn)
+    if not R:
+        gen = dif_stage_twiddles if direction == "dif" else dit_stage_twiddles
+        vecs = gen(field, nn, inverse=inverse)
+        logn = nn.bit_length() - 1
+        ts = ([nn >> (s + 1) for s in range(logn)] if direction == "dif"
+              else [1 << s for s in range(logn)])
+        return {"phases": [{"ts": ts, "vecs": vecs}], "mid": None,
+                "R": 0, "S": 0}
+    S = nn // R
+    logR, logS = R.bit_length() - 1, S.bit_length() - 1
+    w_nn = field.root_of_unity(nn)
+    pows = _power_series(field, field.inv(w_nn) if inverse else w_nn, nn)
+    e = (bit_reverse_indices(R)[:, None] * np.arange(S)[None, :]) & (nn - 1)
+    wmid = pows[e].ravel()
+    if direction == "dif":
+        phases = [
+            {"ts": [(R >> (s + 1)) * S for s in range(logR)],
+             "vecs": [np.repeat(v, S) for v in
+                      dif_stage_twiddles(field, R, inverse=inverse)]},
+            {"ts": [(S >> (s + 1)) * R for s in range(logS)],
+             "vecs": [np.repeat(v, R) for v in
+                      dif_stage_twiddles(field, S, inverse=inverse)]},
+        ]
+    else:
+        phases = [
+            {"ts": [(1 << s) * R for s in range(logS)],
+             "vecs": [np.repeat(v, R) for v in
+                      dit_stage_twiddles(field, S, inverse=inverse)]},
+            {"ts": [(1 << s) * S for s in range(logR)],
+             "vecs": [np.repeat(v, S) for v in
+                      dit_stage_twiddles(field, R, inverse=inverse)]},
+        ]
+    return {"phases": phases, "mid": {"wmid": wmid, "kind": direction},
+            "R": R, "S": S}
+
+
+def _build_fourstep_tables(field: PrimeField, n1: int, n2: int) -> dict:
+    n = n1 * n2
+    n_inv = field.inv(n)
+    # One shared power table; the pass-1 output row order (colperm) is
+    # folded into the exponent rows, and the inverse matrix reuses the
+    # same exponents at (n - e).
+    pows = root_powers(field, n)
+    k1r = colperm(n1).astype(np.int64)
+    j2 = np.arange(n2, dtype=np.int64)
+    e = (k1r[:, None] * j2[None, :]) & (n - 1)
+    wmat = pows[e]
+    iwmat_scaled = _mulmod(field, pows[(n - e) & (n - 1)], n_inv).astype(
+        np.int64)
+    return {
+        "wmat": wmat,
+        "iwmat_scaled": iwmat_scaled,
+        "pos": spectral_positions(n1, n2),
+        "n_inv": n_inv,
+    }
+
+
+# In-process memo, as in the reference: repeated plan builds in one
+# process pay the O(n) table build once per (p, g, n1, n2). Cached arrays
+# are read-only so an accidental in-place write raises. The reference's
+# opt-in disk cache is not ported yet.
+_FOURSTEP_MEMO: OrderedDict = OrderedDict()
+_FOURSTEP_MEMO_MAX = 8
+
+
+def fourstep_tables(field: PrimeField, n1: int, n2: int) -> dict:
+    """The four-step plan's host tables:
+
+      wmat         — forward twiddle matrix W[s1(r), j2], (n1, n2) int64,
+      iwmat_scaled — inverse matrix likewise, additionally folding 1/n,
+      pos          — spectral_positions(n1, n2),
+      n_inv        — 1/n mod p.
+
+    Memoized in-process; returned arrays are read-only.
+    """
+    key = (field.p, field.g, n1, n2)
+    hit = _FOURSTEP_MEMO.get(key)
+    if hit is not None:
+        _FOURSTEP_MEMO.move_to_end(key)
+        return hit
+    tabs = _build_fourstep_tables(field, n1, n2)
+    for v in tabs.values():
+        if isinstance(v, np.ndarray):
+            v.setflags(write=False)
+    _FOURSTEP_MEMO[key] = tabs
+    while len(_FOURSTEP_MEMO) > _FOURSTEP_MEMO_MAX:
+        _FOURSTEP_MEMO.popitem(last=False)
+    return tabs

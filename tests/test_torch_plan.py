@@ -1,0 +1,210 @@
+"""The port's four-step fold plan (CPU: plain column passes) against the
+reference plan (Pallas kernels in interpret mode) and the NumPy oracles.
+Bit-exact throughout: the data are integers mod p."""
+
+import functools
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from ntt_aie_tpu import config as jcfg
+from ntt_aie_tpu import fields as jF
+from ntt_aie_tpu import plan as jplan
+
+import ntt_aie_tpu_torch as T
+from ntt_aie_tpu_torch import reference as ref
+
+P = T.P_469762049.p
+# (log_n, rows_log2): nested columns both ways, nested unequal, plain
+CONFIGS = [(16, 8), (17, 8), (11, 4)]
+B = 2
+
+
+def _cfgs(log_n, rows_log2, **kw):
+    return (jcfg.NTTConfig(field=jF.P_469762049, log_n=log_n,
+                           rows_log2=rows_log2, **kw),
+            T.NTTConfig(field=T.P_469762049, log_n=log_n,
+                        rows_log2=rows_log2, **kw))
+
+
+def _inputs(log_n, seed=0):
+    rng = np.random.default_rng([log_n, seed])
+    n = 1 << log_n
+    return rng.integers(0, P, (B, n)), rng.integers(0, P, (B, n))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_outputs(log_n, rows_log2):
+    jc, _ = _cfgs(log_n, rows_log2)
+    n1, n2 = jc.split
+    jb = jplan.build_plan(jc, engine="pallas",
+                          interpret=True).make_batched(B)
+    a, b = _inputs(log_n)
+    am, bm = (jnp.asarray(v.reshape(B, n1, n2), jnp.uint32) for v in (a, b))
+    af, bf = (jnp.asarray(v, jnp.uint32) for v in (a, b))
+    out = {
+        "fwd_mat": jb["fwd_mat"](am),
+        "polymul_mat": jb["polymul_mat"](am, bm),
+        "fwd": jb["fwd"](af),
+        "polymul": jb["polymul"](af, bf),
+    }
+    out["inv_mat"] = jb["inv_mat"](out["fwd_mat"])
+    out["inv"] = jb["inv"](out["fwd"])
+    return {k: np.asarray(v).astype(np.int64) for k, v in out.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_plan(log_n, rows_log2, ordering="bitrev"):
+    return T.build_plan(_cfgs(log_n, rows_log2, ordering=ordering)[1])
+
+
+def _np(t):
+    assert t.dtype == torch.int32
+    return t.numpy().astype(np.int64)
+
+
+@pytest.mark.parametrize("log_n,rows_log2", CONFIGS)
+@pytest.mark.parametrize("fn", ["fwd_mat", "inv_mat", "polymul_mat", "fwd",
+                                "inv", "polymul"])
+def test_batched_matches_reference_plan(log_n, rows_log2, fn):
+    want = _reference_outputs(log_n, rows_log2)
+    plan = _port_plan(log_n, rows_log2)
+    n1, n2 = plan.config.split
+    a, b = (torch.from_numpy(v) for v in _inputs(log_n))
+    bat = plan.make_batched(B)
+    assert plan.make_batched(B) is bat
+    if fn == "fwd_mat":
+        got = bat[fn](a.reshape(B, n1, n2))
+        assert tuple(got.shape) == (B, n2, n1)
+    elif fn == "inv_mat":
+        got = bat[fn](torch.from_numpy(want["fwd_mat"]))
+        assert tuple(got.shape) == (B, n1, n2)
+    elif fn == "polymul_mat":
+        got = bat[fn](a.reshape(B, n1, n2), b.reshape(B, n1, n2))
+    elif fn == "inv":
+        got = bat[fn](torch.from_numpy(want["fwd"]))
+    elif fn == "polymul":
+        got = bat[fn](a, b)
+    else:
+        got = bat[fn](a)
+    assert np.array_equal(_np(got), want[fn])
+
+
+@pytest.mark.parametrize("log_n,rows_log2", CONFIGS)
+def test_against_numpy_oracles(log_n, rows_log2):
+    plan = _port_plan(log_n, rows_log2)
+    n1, n2 = plan.config.split
+    a, b = _inputs(log_n, seed=1)
+    a0, b0 = a[0], b[0]
+    nat = ref.ntt_forward(a0, T.P_469762049)
+    # flat spectral order: natural[k] = flat[pos[k]]
+    flat = _np(plan.fwd(torch.from_numpy(a0)))
+    assert np.array_equal(flat[plan.spectral_to_natural], nat)
+    assert np.array_equal(_np(plan.inv(torch.from_numpy(flat))), a0)
+    want_c = ref.cyclic_polymul(a0, b0, T.P_469762049)
+    assert np.array_equal(
+        _np(plan.polymul(torch.from_numpy(a0), torch.from_numpy(b0))), want_c)
+    # unbatched matrix-form twins: row-major flattening == flat vectors
+    fm = plan.fwd_mat(torch.from_numpy(a0.reshape(n1, n2)))
+    assert tuple(fm.shape) == (n2, n1)
+    assert np.array_equal(_np(fm).ravel(), flat)
+    assert np.array_equal(_np(plan.inv_mat(fm)), a0.reshape(n1, n2))
+    pm = plan.polymul_mat(torch.from_numpy(a0.reshape(n1, n2)),
+                          torch.from_numpy(b0.reshape(n1, n2)))
+    assert np.array_equal(_np(pm).ravel(), want_c)
+    # batched rows agree with the unbatched callables
+    bat = plan.make_batched(B)
+    assert np.array_equal(_np(bat["fwd"](torch.from_numpy(a)))[0], flat)
+
+
+@pytest.mark.parametrize("log_n,rows_log2", [(16, 8), (11, 4)])
+def test_natural_ordering(log_n, rows_log2):
+    plan = _port_plan(log_n, rows_log2, ordering="natural")
+    assert plan.fwd_mat is None and plan.inv_mat is None
+    a, b = _inputs(log_n, seed=2)
+    want = np.stack([ref.ntt_forward(r, T.P_469762049) for r in a])
+    assert np.array_equal(_np(plan.fwd(torch.from_numpy(a[0]))), want[0])
+    assert np.array_equal(_np(plan.inv(torch.from_numpy(want[0]))), a[0])
+    assert np.array_equal(
+        _np(plan.inv(torch.from_numpy(ref.ntt_forward(b[0],
+                                                      T.P_469762049)))),
+        b[0])
+    bat = plan.make_batched(B)
+    assert "fwd_mat" not in bat and "inv_mat" not in bat
+    got = _np(bat["fwd"](torch.from_numpy(a)))
+    assert np.array_equal(got, want)
+    assert np.array_equal(_np(bat["inv"](torch.from_numpy(got))), a)
+    # polymul is order-agnostic
+    assert np.array_equal(
+        _np(bat["polymul"](torch.from_numpy(a), torch.from_numpy(b)))[1],
+        ref.cyclic_polymul(a[1], b[1], T.P_469762049))
+
+
+def test_context_delegates():
+    _, tc = _cfgs(16, 8)
+    ctx = T.NTTContext(tc, device="cpu")
+    plan = _port_plan(16, 8)
+    n1, n2 = tc.split
+    a, b = (torch.from_numpy(v[0]) for v in _inputs(16, seed=3))
+    f = ctx.forward(a)
+    assert torch.equal(f, plan.fwd(a))
+    assert torch.equal(ctx.inverse(f), a.to(torch.int32))
+    assert torch.equal(ctx.polymul(a, b), plan.polymul(a, b))
+    fm = ctx.forward_mat(a.reshape(n1, n2))
+    assert torch.equal(fm.reshape(-1), f)
+    assert torch.equal(ctx.inverse_mat(fm), a.reshape(n1, n2).int())
+    assert torch.equal(ctx.polymul_mat(a.reshape(n1, n2), b.reshape(n1, n2)),
+                       plan.polymul_mat(a.reshape(n1, n2),
+                                        b.reshape(n1, n2)))
+    bat = ctx.make_batched(1)
+    assert torch.equal(bat["fwd_mat"](a.reshape(n1, n2))[0], fm)
+    nat = T.NTTContext(_cfgs(16, 8, ordering="natural")[1])
+    with pytest.raises(NotImplementedError):
+        nat.forward_mat(a.reshape(n1, n2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.NTTContext(tc, mesh=object())
+    with pytest.raises(TypeError):
+        T.NTTContext(tc, overlap_chunks=2)
+
+
+@pytest.mark.parametrize("ordering", ["bitrev", "natural"])
+def test_context_host_paths_match_reference(ordering):
+    from ntt_aie_tpu.api import NTTContext as JContext
+
+    jc, tc = _cfgs(16, 8, ordering=ordering)
+    a = _inputs(16, seed=4)[0][0]
+    want = JContext(jc).forward_host(a)
+    ctx = T.NTTContext(tc)
+    got = ctx.forward_host(a)
+    assert np.array_equal(got, want)
+    assert np.array_equal(ctx.inverse_host(got), a)
+    if ordering == "bitrev":
+        assert np.array_equal(_np(ctx.forward(torch.from_numpy(a))), got)
+    ref_cfg = T.NTTConfig(field=T.P_469762049, log_n=11,
+                          table_convention="reference")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        T.NTTContext(ref_cfg).forward_host(a[:2048])
+
+
+@pytest.mark.parametrize("kw,build_kw", [
+    ({"log_n": 11}, {}),                          # flat split at default rows
+    ({"log_n": 11, "rows_log2": 4, "negacyclic": True}, {}),
+    ({"log_n": 11, "rows_log2": 4}, {"fused": True}),
+    ({"log_n": 11, "rows_log2": 4}, {"wmat_factored": True}),
+    ({"log_n": 11, "rows_log2": 4}, {"wmat_fold": False}),
+    ({"log_n": 11, "rows_log2": 4, "reduction": "montgomery"}, {}),
+    ({"log_n": 11, "table_convention": "reference"}, {}),
+])
+def test_out_of_slice_configs_raise(kw, build_kw):
+    cfg = T.NTTConfig(field=T.P_469762049, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        T.build_plan(cfg, **build_kw)
+
+
+def test_unported_fields_raise():
+    for field in (T.P_2013265921, T.GOLDILOCKS):
+        cfg = T.NTTConfig(field=field, log_n=12, rows_log2=6)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            T.build_plan(cfg)

@@ -1,0 +1,66 @@
+"""The port stands apart from the jax package and has no CPU route on the
+card's path."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+MODULES = [
+    "ntt_aie_tpu_torch",
+    "ntt_aie_tpu_torch.api",
+    "ntt_aie_tpu_torch.config",
+    "ntt_aie_tpu_torch.fields",
+    "ntt_aie_tpu_torch.native_oracle",
+    "ntt_aie_tpu_torch.plan",
+    "ntt_aie_tpu_torch.reference",
+    "ntt_aie_tpu_torch.twiddles",
+    "ntt_aie_tpu_torch.ops.colpass",
+    "ntt_aie_tpu_torch.ops.modops",
+    "ntt_aie_tpu_torch.ops.reductions",
+    "ntt_aie_tpu_torch.utils.timing",
+]
+
+
+def _run(args, **kw):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120, **kw)
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
+            "                                            'ntt_aie_tpu.')))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_every_port_module_is_listed():
+    pkg = ROOT / "ntt_aie_tpu_torch"
+    found = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in pkg.rglob("*.py")
+    }
+    assert found - {"ntt_aie_tpu_torch.ops", "ntt_aie_tpu_torch.utils"} \
+        == set(MODULES)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    res = _run(["chip_smoke.py"])
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+    assert "no CUDA device" in res.stderr
+
+
+def test_kernel_source_ships_with_the_package():
+    src = ROOT / "ntt_aie_tpu_torch" / "csrc" / "colpass.cu"
+    text = src.read_text()
+    assert "ntt_aie_tpu/ops/pallas_ntt.py::build_colpass" in text
+    assert "extern \"C\"" in text

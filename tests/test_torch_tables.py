@@ -1,0 +1,161 @@
+"""The port's host planner equals the reference's, table for table.
+
+ntt_aie_tpu_torch carries NumPy copies of fields/config/twiddles (it cannot
+import the jax package). These tests pin each copy to the reference with
+np.array_equal, so the spectral order keeps a single definition.
+"""
+
+import numpy as np
+import pytest
+
+from ntt_aie_tpu import config as jcfg
+from ntt_aie_tpu import fields as jF
+from ntt_aie_tpu import twiddles as jtw
+from ntt_aie_tpu.ops import reductions as jred
+
+from ntt_aie_tpu_torch import config as tcfg
+from ntt_aie_tpu_torch import fields as tF
+from ntt_aie_tpu_torch import twiddles as ttw
+from ntt_aie_tpu_torch.ops import reductions as tred
+
+FIELD_NAMES = ["kyber", "dilithium", "p998244353", "p2013265921",
+               "p469762049"]
+
+
+@pytest.mark.parametrize("name", FIELD_NAMES + ["goldilocks"])
+def test_fields_match(name):
+    j, t = jF.FIELDS[name], tF.FIELDS[name]
+    assert (t.p, t.g, t.name, t.max_n) == (j.p, j.g, j.name, j.max_n)
+    assert t.default_reduction() == j.default_reduction()
+    if t.supports_mont32:
+        assert (t.mont_neg_pinv, t.mont_r_mod_p, t.mont_r2_mod_p) == (
+            j.mont_neg_pinv, j.mont_r_mod_p, j.mont_r2_mod_p)
+    assert (t.barrett_w, t.barrett_u) == (j.barrett_w, j.barrett_u)
+    assert tred.resolve_kind("auto", t) == jred.resolve_kind("auto", j)
+
+
+@pytest.mark.parametrize("nn", [16, 128, 256, 512, 1024])
+@pytest.mark.parametrize("direction", ["dif", "dit"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_col_network_matches(nn, direction, inverse):
+    j = jtw.col_network(jF.P_469762049, nn, direction=direction,
+                        inverse=inverse)
+    t = ttw.col_network(tF.P_469762049, nn, direction=direction,
+                        inverse=inverse)
+    assert (t["R"], t["S"]) == (j["R"], j["S"])
+    assert len(t["phases"]) == len(j["phases"])
+    for pt, pj in zip(t["phases"], j["phases"]):
+        assert pt["ts"] == pj["ts"]
+        assert len(pt["vecs"]) == len(pj["vecs"])
+        for vt, vj in zip(pt["vecs"], pj["vecs"]):
+            assert vt.dtype == np.int64
+            assert np.array_equal(vt, vj)
+    if j["mid"] is None:
+        assert t["mid"] is None
+    else:
+        assert t["mid"]["kind"] == j["mid"]["kind"]
+        assert np.array_equal(t["mid"]["wmid"], j["mid"]["wmid"])
+
+
+@pytest.mark.parametrize("nn", [2, 16, 128, 256, 512, 1024, 4096])
+def test_colperm_and_bitrev_match(nn):
+    assert np.array_equal(ttw.colperm(nn), jtw.colperm(nn))
+    assert np.array_equal(ttw.bit_reverse_indices(nn),
+                          jtw.bit_reverse_indices(nn))
+    assert ttw.nested_col_split(nn) == jtw.nested_col_split(nn)
+
+
+@pytest.mark.parametrize("n1,n2", [(16, 128), (256, 256), (256, 512),
+                                   (1024, 1), (64, 1024)])
+def test_spectral_positions_match(n1, n2):
+    t = ttw.spectral_positions(n1, n2)
+    assert t.dtype == np.int32
+    assert np.array_equal(t, jtw.spectral_positions(n1, n2))
+
+
+@pytest.mark.parametrize("name", ["p469762049", "p2013265921"])
+@pytest.mark.parametrize("n1,n2", [(16, 128), (256, 256), (256, 512)])
+def test_fourstep_tables_match(name, n1, n2):
+    j = jtw.fourstep_tables(jF.FIELDS[name], n1, n2)
+    t = ttw.fourstep_tables(tF.FIELDS[name], n1, n2)
+    for k in ("wmat", "iwmat_scaled", "pos"):
+        assert np.array_equal(t[k], j[k]), k
+    assert t["n_inv"] == j["n_inv"]
+    assert not t["wmat"].flags.writeable
+    assert ttw.fourstep_tables(tF.FIELDS[name], n1, n2) is t  # memo
+
+
+@pytest.mark.parametrize("name", ["p469762049", "p2013265921"])
+def test_stage_twiddles_and_powers_match(name):
+    jf, tf = jF.FIELDS[name], tF.FIELDS[name]
+    for n in (2, 64, 1024):
+        assert np.array_equal(ttw.root_powers(tf, n), jtw.root_powers(jf, n))
+        for inverse in (False, True):
+            for tgen, jgen in ((ttw.dif_stage_twiddles,
+                                jtw.dif_stage_twiddles),
+                               (ttw.dit_stage_twiddles,
+                                jtw.dit_stage_twiddles)):
+                for vt, vj in zip(tgen(tf, n, inverse=inverse),
+                                  jgen(jf, n, inverse=inverse)):
+                    assert np.array_equal(vt, vj)
+
+
+@pytest.mark.parametrize("name", ["p469762049", "p2013265921", "goldilocks"])
+@pytest.mark.parametrize("num_shards", [1, 4])
+def test_config_split_matches(name, num_shards):
+    for log_n in range(10, 25):
+        kw = dict(log_n=log_n, num_shards=num_shards)
+        if tF.FIELDS[name].max_n < (1 << log_n):
+            continue
+        t = tcfg.NTTConfig(field=tF.FIELDS[name], **kw)
+        j = jcfg.NTTConfig(field=jF.FIELDS[name], **kw)
+        assert t.split == j.split, log_n
+        assert t.to_json() == j.to_json()
+        assert tcfg.NTTConfig.from_json(t.to_json()) == t
+
+
+def test_config_validation_matches():
+    for kw in ({"reduction": "fast"}, {"ordering": "spectral"},
+               {"table_convention": "x"}, {"num_shards": 3},
+               {"log_n": 27}):
+        args = {"log_n": 12, **kw}
+        with pytest.raises(ValueError):
+            jcfg.NTTConfig(field=jF.P_469762049, **args)
+        with pytest.raises(ValueError):
+            tcfg.NTTConfig(field=tF.P_469762049, **args)
+    assert tcfg.NTTConfig(field=tF.P_469762049,
+                          log_n=20).resolved_reduction == "harvey4"
+
+
+def test_harvey4_table_prep_matches():
+    jr = jred.make_reduction("harvey4", jF.P_469762049)
+    tr = tred.make_reduction("harvey4", tF.P_469762049)
+    rng = np.random.default_rng(3)
+    t = np.concatenate([[0, 1, tF.P_469762049.p - 1],
+                        rng.integers(0, tF.P_469762049.p, 1000)])
+    for got, want in zip(tr.prepare_table(t), jr.prepare_table(t)):
+        assert got.dtype == np.uint32
+        assert np.array_equal(got, want)
+    mat = t[:1000].reshape(20, 50)
+    for got, want in zip(tr.prep_mat(mat), jr.prep_mat(mat)):
+        assert got.dtype == np.uint32
+        assert np.array_equal(got, want)
+    assert (tr.n_tables, tr.mat_tables) == (jr.n_tables, jr.mat_tables)
+
+
+def test_native_oracle_matches_numpy_oracle():
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch import reference as tref
+
+    f = tF.P_469762049
+    rng = np.random.default_rng(37)
+    n = 1 << 10
+    a = rng.integers(0, f.p, (3, n))
+    b = rng.integers(0, f.p, n)
+    w = f.root_of_unity(n)
+    got = native_oracle.ntt_dif_batch(a, w, f.p)
+    for row, want in zip(got, a):
+        assert np.array_equal(row.astype(np.int64), tref.ntt_dif(want, f))
+    assert np.array_equal(
+        native_oracle.cyclic_polymul(a[0], b, w, f.p).astype(np.int64),
+        tref.cyclic_polymul(a[0], b, f))
