@@ -3,24 +3,41 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
-It drives the port's main path — the n = 2^20 forward NTT over
-p = 469762049 as ``build_plan(...).make_batched(256)["fwd_mat"]``, its
-inverse and the cyclic product — through the CUDA column-pass kernel, and
-exits non-zero at the first failure. Phases, one JSON object per line:
+It drives the port's two paths through their CUDA kernels and exits
+non-zero at the first failure: the n = 2^20 forward NTT over p = 469762049
+as ``build_plan(...).make_batched(256)["fwd_mat"]``, its inverse and the
+cyclic product (the column-pass kernel), and the same at n = 2^20 over
+Goldilocks p = 2^64 - 2^32 + 1 at B = 64 (the Goldilocks column-pass
+kernel and the pointwise Goldilocks product). Phases, one JSON object per
+line:
 
-  1. env     — the card (nvidia-smi's name and power limit, also printed
-               as its own line), torch and CUDA versions;
-  2. build   — compiles csrc/colpass.cu with nvcc into build/ and times it;
-  3. kernel  — the kernel against its plain PyTorch version on the card,
-               for cp1/cp2/icp2/icp1 at the 1024x1024 split and at 128x512
-               (plain and nested column networks), B = 4, bit-exact;
-  4. slice   — fwd_mat on a 1 GiB int32 batch (B = 256) gated against the
-               native C++ oracle on row 0 plus 8 random rows (the NumPy
-               oracle if the library cannot build); inv_mat(fwd_mat(x)) == x
-               on the whole batch; polymul_mat against the NumPy cyclic
-               product; kernel launch counts 2 / 2 / 6;
-  5. time    — us/NTT of fwd_mat through the kernel and through the plain
-               version, and us/pass of cp1 and cp2, on CUDA events.
+  1. env       — the card (nvidia-smi's name and power limit, also printed
+                 as its own line), torch and CUDA versions;
+  2. build     — compiles csrc/colpass.cu and csrc/gl_colpass.cu with nvcc
+                 into build/, one process each, all at once, and times it;
+  3. kernel    — the 32-bit kernel against its plain PyTorch version on the
+                 card, for cp1/cp2/icp2/icp1 at the 1024x1024 split and at
+                 128x512 (plain and nested column networks), B = 4,
+                 bit-exact;
+  4. slice     — fwd_mat on a 1 GiB int32 batch (B = 256) gated against the
+                 native C++ oracle on row 0 plus 8 random rows (the NumPy
+                 oracle if the library cannot build); inv_mat(fwd_mat(x)) ==
+                 x on the whole batch; polymul_mat against the NumPy cyclic
+                 product; kernel launch counts 2 / 2 / 6;
+  5. time      — us/NTT of fwd_mat through the kernel and through the plain
+                 version, and us/pass of cp1 and cp2, on CUDA events;
+  6. gl_kernel — the Goldilocks kernel against its plain version for
+                 cp1/cp2/icp2/icp1 at 1024x1024, 128x512 and 2048x256, B = 4,
+                 both limb planes bit-exact; the pointwise product kernel
+                 against its plain version on random values and the edges;
+  7. gl_slice  — Goldilocks fwd_mat on a B = 64 batch (512 MiB per limb
+                 pair) gated against the native oracle on row 0 plus 8
+                 random rows (the object-dtype NumPy oracle if the library
+                 cannot build); the inv_mat roundtrip on the whole batch;
+                 polymul_mat against the native cyclic product; launch
+                 counts 2 / 2 / 6 column passes and 1 pointwise product;
+  8. gl_time   — the same timings for the Goldilocks path, and the
+                 pointwise product's.
 
 Then one line {"kernels": [...]} and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -32,6 +49,12 @@ import json
 import subprocess
 import sys
 import time
+
+# The Goldilocks path: n = 2^GL_LOG_N at batch GL_BATCH (the 1024 x 1024
+# split), and the shapes the kernel is held against its plain version at.
+GL_LOG_N = 20
+GL_BATCH = 64
+GL_KERNEL_SHAPES = ((1024, 1024), (128, 512), (2048, 256))
 
 
 def emit(obj) -> None:
@@ -61,6 +84,7 @@ def main() -> int:
     from ntt_aie_tpu_torch import native_oracle, reference
     from ntt_aie_tpu_torch import twiddles as tw
     from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
     from ntt_aie_tpu_torch.plan import fold_passes
     from ntt_aie_tpu_torch.utils.timing import time_device
 
@@ -81,12 +105,14 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
-    # 2. build
+    # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    lib_path = C.build_library()
+    libs = C.build_libraries()
     C._library()
+    G._library()
     emit({"phase": "build", "ok": True,
-          "seconds": time.perf_counter() - t0, "library": lib_path.name})
+          "seconds": time.perf_counter() - t0,
+          "libraries": sorted(p.name for p in libs.values())})
 
     # 3. kernel against plain, on the card
     max_err = 0
@@ -202,6 +228,13 @@ def main() -> int:
     }
     emit(timing)
 
+    del x, bat, plan
+    torch.cuda.empty_cache()
+
+    gl_rows = goldilocks_phases(args, dev, card, rng)
+    if gl_rows is None:
+        return 1
+
     # ms per launch in the fwd_mat chain (one call is 2 launches), at the
     # batch each path was timed at
     emit({"kernels": [{
@@ -211,11 +244,199 @@ def main() -> int:
         "launches": sum(launches.values()), "max_abs_err": max_err,
         "ms": k_fwd / 2 / 1e3, "plain_ms": p_fwd / 2 / 1e3,
         "batch": B, "plain_batch": pb,
-    }]})
+    }] + gl_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _plain_batch_time(fn, x, batch):
+    """Time fn on the first pb rows of the limb pair x, halving pb on
+    device OOM (the plain version's int64 carriers take 8 bytes a limb)."""
+    import torch
+
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    pb = batch
+    while True:
+        try:
+            xp = tuple(v[:pb] for v in x)
+            return time_device(fn, xp, iters=2, repeats=3)["us_per_iter"], pb
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            if pb == 1:
+                raise
+            pb //= 2
+
+
+def goldilocks_phases(args, dev, card, rng):
+    """Phases 6-8: the Goldilocks path. Returns its rows of the kernels
+    line, or None after emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle, reference
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    field = T.GOLDILOCKS
+    p = field.p
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+
+    def planes(shape):
+        """Canonical random Goldilocks values as (hi, lo) int32 planes:
+        hi = 0xffffffff allows only lo = 0 (p - 1)."""
+        hi, lo = (M.from_carrier(torch.randint(0, 1 << 32, shape,
+                                               dtype=torch.int64, device=dev,
+                                               generator=gen))
+                  for _ in range(2))
+        return hi, torch.where(hi == -1, torch.zeros_like(lo), lo)
+
+    def pair_err(got, want):
+        return max(int((g.long() - w.long()).abs().max())
+                   for g, w in zip(got, want))
+
+    # 6. gl_kernel: kernel against plain on the card
+    max_err = 0
+    for n1, n2 in GL_KERNEL_SHAPES:
+        for name, cp in gl_fold_passes(field, n1, n2, device=dev).items():
+            rows, cols = (n1, n2) if name in ("cp1", "icp1") else (n2, n1)
+            x = planes((4, rows, cols))
+            got = G.gl_colpass(x, cp)
+            torch.cuda.synchronize()
+            err = pair_err(got, G.gl_colpass_plain(x, cp))
+            max_err = max(max_err, err)
+            emit({"phase": "gl_kernel", "pass": name,
+                  "shape": [4, rows, cols],
+                  "network": "nested" if cp.wmid is not None else "plain",
+                  "max_abs_err": err})
+            if err:
+                fail("gl_kernel", f"{name} {rows}x{cols} differs from its "
+                     "plain version")
+                return None
+    edges = np.array([0, 1, p - 1, p - 2, (1 << 32) - 1, 1 << 32,
+                      0xFFFFFFFF << 32], dtype=np.uint64)
+    ea, eb = (M.gl_from_u64(v.ravel(), dev) for v in np.meshgrid(edges, edges))
+    a, b = planes((1 << 20,)), planes((1 << 20,))
+    a = tuple(torch.cat([u, v]) for u, v in zip(a, ea))
+    b = tuple(torch.cat([u, v]) for u, v in zip(b, eb))
+    got = G.gl_mul(a, b)
+    torch.cuda.synchronize()
+    mul_err = pair_err(got, G.gl_mul_plain(a, b))
+    ua, ub = M.gl_to_u64(*ea), M.gl_to_u64(*eb)
+    edges_ok = M.gl_to_u64(*got)[-len(ua):].tolist() == [
+        int(u) * int(v) % p for u, v in zip(ua, ub)]
+    emit({"phase": "gl_kernel", "kernel": "gl_mul",
+          "n": int(got[0].numel()), "max_abs_err": mul_err,
+          "edges_ok": edges_ok})
+    if mul_err or not edges_ok:
+        fail("gl_kernel", "the pointwise product differs from its plain "
+             "version or from Python on the edges")
+        return None
+
+    # 7. gl_slice: the Goldilocks path at n = 2^20, B = 64 (rows_log2 = 10
+    # is the split NTTConfig picks for n = 2^20 on its own)
+    cfg = T.NTTConfig(field=field, log_n=GL_LOG_N, rows_log2=GL_LOG_N // 2)
+    n, (n1, n2) = cfg.n, cfg.split
+    B = GL_BATCH
+    plan = T.build_plan(cfg, device=dev)
+    bat = plan.make_batched(B)
+    x = planes((B, n1, n2))
+    launches = {}
+
+    def drive(key, fn, *operands):
+        G.gl_colpass.launches = G.gl_mul.launches = 0
+        out = fn(*operands)
+        torch.cuda.synchronize()
+        launches[key] = [G.gl_colpass.launches, G.gl_mul.launches]
+        return out
+
+    y = drive("fwd_mat", bat["fwd_mat"], x)
+    gate_rows = np.concatenate(
+        [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
+    idx = torch.from_numpy(gate_rows).to(dev)
+    got = M.gl_to_u64(*(v.reshape(B, n)[idx] for v in y))
+    rows_in = M.gl_to_u64(*(v.reshape(B, n)[idx] for v in x))
+    omega = field.root_of_unity(n)
+    try:
+        want = native_oracle.ntt_dif_batch(
+            rows_in, omega, p)[:, tw.bit_reverse_indices(n)]
+        oracle = "native"
+    except (native_oracle.NativeOracleUnavailable, OSError):
+        want = np.stack([reference.ntt_forward(r, field) for r in rows_in])
+        oracle = "numpy"
+    gate_ok = np.array_equal(got[:, plan.spectral_to_natural].astype(object),
+                             want.astype(object))
+
+    back = drive("inv_mat", bat["inv_mat"], y)
+    roundtrip_ok = all(torch.equal(u, v) for u, v in zip(back, x))
+    del back
+
+    bat2 = plan.make_batched(2)
+    pa, pb_ = tuple(v[:2] for v in x), tuple(v[2:4] for v in x)
+    c = drive("polymul_mat", bat2["polymul_mat"], pa, pb_)
+    ra, rb = (M.gl_to_u64(*(v[0].reshape(n) for v in t)) for t in (pa, pb_))
+    c0 = M.gl_to_u64(*(v[0].reshape(n) for v in c))
+    if oracle == "native":
+        want_c = native_oracle.cyclic_polymul(ra, rb, omega, p)
+    else:
+        want_c = reference.cyclic_polymul(ra, rb, field)
+    poly_ok = np.array_equal(c0.astype(object), want_c.astype(object))
+    counts_ok = launches == {"fwd_mat": [2, 0], "inv_mat": [2, 0],
+                             "polymul_mat": [6, 1]}
+    ok = bool(gate_ok and roundtrip_ok and poly_ok and counts_ok)
+    emit({"phase": "gl_slice", "n": n, "split": [n1, n2], "batch": B,
+          "reduction": plan.reduction, "oracle": oracle,
+          "gate_rows": gate_rows.tolist(), "gate_ok": bool(gate_ok),
+          "roundtrip_ok": roundtrip_ok, "polymul_ok": bool(poly_ok),
+          "launches": launches, "launches_ok": counts_ok, "ok": ok})
+    if not ok:
+        fail("gl_slice", "the Goldilocks path disagrees with its oracles")
+        return None
+
+    # 8. gl_time: kernel path at B = 64, plain path at B = 64 or less
+    cp1, cp2 = plan.passes["cp1"], plan.passes["cp2"]
+    k_fwd = time_device(bat["fwd_mat"], x)["us_per_iter"]
+    k_cp1 = time_device(cp1, x)["us_per_iter"]
+    k_cp2 = time_device(cp2, x)["us_per_iter"]
+    k_mul = time_device(lambda v: G.gl_mul(v, v), y)["us_per_iter"]
+    p_fwd, pb = _plain_batch_time(
+        lambda v: G.gl_colpass_plain(G.gl_colpass_plain(v, cp1), cp2), x, B)
+    p_cp1, _ = _plain_batch_time(lambda v: G.gl_colpass_plain(v, cp1), x, pb)
+    p_cp2, _ = _plain_batch_time(lambda v: G.gl_colpass_plain(v, cp2), x, pb)
+    p_mul, mb = _plain_batch_time(lambda v: G.gl_mul_plain(v, v), y, B)
+    emit({"phase": "gl_time", "card": card, "batch": B, "plain_batch": pb,
+          "kernel_us_per_ntt": k_fwd / B, "plain_us_per_ntt": p_fwd / pb,
+          "kernel_cp1_us_per_pass": k_cp1 / B,
+          "kernel_cp2_us_per_pass": k_cp2 / B,
+          "plain_cp1_us_per_pass": p_cp1 / pb,
+          "plain_cp2_us_per_pass": p_cp2 / pb,
+          "kernel_gl_mul_us_per_ntt": k_mul / B,
+          "plain_gl_mul_us_per_ntt": p_mul / mb, "plain_gl_mul_batch": mb,
+          "kernel_ntt_per_s": B / (k_fwd * 1e-6),
+          "method": "CUDA events; kernel: 5 repeats of a dependent chain of "
+                    "10, plain: 3 repeats of 2; trimmed mean; us per NTT = "
+                    "us per call / batch"})
+    return [
+        {"name": "gl_colpass", "route": "cuda",
+         "source": "ntt_aie_tpu_torch/csrc/gl_colpass.cu",
+         "replaces": "ntt_aie_tpu/ops/pallas_gl.py:33",
+         "launches": sum(v[0] for v in launches.values()),
+         "max_abs_err": max_err, "ms": k_fwd / 2 / 1e3,
+         "plain_ms": p_fwd / 2 / 1e3, "batch": B, "plain_batch": pb},
+        {"name": "gl_mul", "route": "cuda",
+         "source": "ntt_aie_tpu_torch/csrc/gl_colpass.cu",
+         "replaces": "ntt_aie_tpu/goldilocks_plan.py:462 (XLA pointwise "
+                     "product, not a TPU kernel)",
+         "launches": sum(v[1] for v in launches.values()),
+         "max_abs_err": mul_err, "ms": k_mul / 1e3, "plain_ms": p_mul / 1e3,
+         "batch": B, "plain_batch": mb},
+    ]
 
 
 if __name__ == "__main__":

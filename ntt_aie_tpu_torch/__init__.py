@@ -3,9 +3,11 @@ NVIDIA Hopper.
 
 A port of ``ntt_aie_tpu`` (the JAX/Pallas reference, which stays the
 oracle). It imports torch and numpy and never jax. Ported so far: the
-single-device four-step fold plan over harvey4 fields (p < 2^29), with the
-column pass as a hand-written CUDA kernel (``ops/colpass.py``,
-``csrc/colpass.cu``) and its plain PyTorch version on the CPU.
+single-device four-step fold plan over harvey4 fields (p < 2^29) and over
+Goldilocks (p = 2^64 - 2^32 + 1, as (hi, lo) limb planes), with each
+column pass as a hand-written CUDA kernel (``ops/colpass.py`` and
+``csrc/colpass.cu``; ``ops/gl_colpass.py`` and ``csrc/gl_colpass.cu``) and
+its plain PyTorch version on the CPU.
 """
 
 from ntt_aie_tpu_torch.fields import (  # noqa: F401
@@ -20,4 +22,5 @@ from ntt_aie_tpu_torch.fields import (  # noqa: F401
 )
 from ntt_aie_tpu_torch.config import NTTConfig  # noqa: F401
 from ntt_aie_tpu_torch.plan import Plan, build_plan  # noqa: F401
+from ntt_aie_tpu_torch.goldilocks_plan import build_goldilocks_plan  # noqa: F401
 from ntt_aie_tpu_torch.api import NTTContext  # noqa: F401

@@ -9,9 +9,10 @@ DIT + canonicalize), harvey4 only.
 
 ``colpass(x, cp)`` is the entry point. On a CPU tensor it runs the plain
 version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
-``csrc/colpass.cu`` or raises — there is no fallback. The kernel is built
-with nvcc at first use into ``build/ntt_aie_tpu_torch/`` (keyed by a hash
-of its source and flags) and bound with ctypes.
+``csrc/colpass.cu`` or raises — there is no fallback. Each CUDA source
+under ``csrc/`` is built with nvcc at first use into its own library in
+``build/ntt_aie_tpu_torch/`` (keyed by a hash of its source and flags) and
+bound with ctypes (``build_library``, ``build_libraries``).
 
 Tensors are ``torch.int32`` holding uint32 bit patterns: (B, nn, ncols)
 in, (B, nn, ncols) out, or (B, ncols, nn) with transpose_out; a 2-D
@@ -24,6 +25,7 @@ with lazy subtrees, so its raw lazy bits differ; canonical values agree.)
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -40,13 +42,14 @@ from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.reductions import Reduction, make_reduction
 
-_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "colpass.cu"
+CSRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "ntt_aie_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_ROWS = 8192       # csrc/colpass.cu kMaxRows
-_TILE_WORDS = 8192    # a 32 KB tile where the column allows it
+_TILE_BYTES = 32768   # a 32 KB tile where the column allows it
+_MAX_TILE_BYTES = 131072  # the widest tile: MAX_ROWS x 4 columns x 4 bytes
 _MIN_TILE_COLS = 4
 _MAX_TILE_COLS = 32
 
@@ -241,26 +244,30 @@ def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
 
 # ---- CUDA kernel -----------------------------------------------------------
 
-def tile_cols(nn: int, ncols: int) -> int:
-    """Columns per thread block (TL): a tile of nn x TL uint32 takes 32 KB
-    where 4 <= TL <= 32 allows (small tiles keep more blocks per SM)."""
-    if nn > MAX_ROWS:
-        raise ValueError(f"the CUDA column pass takes at most {MAX_ROWS} "
-                         f"rows, got {nn}")
+def tile_cols(nn: int, ncols: int, itemsize: int = 4) -> int:
+    """Columns per thread block (TL): a tile of nn x TL elements of
+    `itemsize` bytes takes 32 KB where 4 <= TL <= 32 allows (small tiles
+    keep more blocks per SM). The tallest column is the one whose
+    4-column tile takes 128 KB: 8192 rows of uint32, 4096 of uint64."""
+    max_rows = _MAX_TILE_BYTES // (_MIN_TILE_COLS * itemsize)
+    if nn > max_rows:
+        raise ValueError(f"the CUDA column pass takes at most {max_rows} "
+                         f"rows of {itemsize}-byte values, got {nn}")
     if ncols & (ncols - 1):
         raise ValueError(f"ncols must be a power of two, got {ncols}")
     return min(_MAX_TILE_COLS, ncols,
-               max(_MIN_TILE_COLS, _TILE_WORDS // nn))
+               max(_MIN_TILE_COLS, _TILE_BYTES // (itemsize * nn)))
 
 
-def build_library() -> pathlib.Path:
-    """Compile csrc/colpass.cu with nvcc (if not built yet) and return the
+def build_library(name: str = "colpass") -> pathlib.Path:
+    """Compile csrc/<name>.cu with nvcc (if not built yet) and return the
     shared library's path. The file name carries a hash of the source and
     flags; the library is written under a temporary name and renamed, so
     concurrent builders never load a partial file."""
-    src = _CSRC.read_bytes()
+    src_path = CSRC_DIR / f"{name}.cu"
+    src = src_path.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"colpass-{key}.so"
+    so = BUILD_DIR / f"{name}-{key}.so"
     if so.exists():
         return so
     from torch.utils.cpp_extension import CUDA_HOME
@@ -268,22 +275,31 @@ def build_library() -> pathlib.Path:
     nvcc = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
             else shutil.which("nvcc"))
     if not nvcc or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA column pass cannot be "
-                           "built (set CUDA_HOME)")
+        raise RuntimeError(f"nvcc not found: csrc/{name}.cu cannot be built "
+                           "(set CUDA_HOME)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src_path)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {_CSRC}:\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed on {src_path}:\n{res.stderr}")
     os.replace(tmp, so)
     return so
 
 
+def build_libraries() -> dict:
+    """Build every csrc/*.cu at once, one nvcc process each; returns
+    {name: library path}. Raises the first build's failure."""
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build_library, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
+    lib = ctypes.CDLL(str(build_library("colpass")))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pi = ctypes.POINTER(ctypes.c_int)
     lib.ntt_colpass.restype = ci

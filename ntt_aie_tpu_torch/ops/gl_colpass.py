@@ -1,0 +1,304 @@
+"""The Goldilocks column pass: a CUDA kernel and its plain PyTorch version.
+
+Port of ``ntt_aie_tpu/ops/pallas_gl.py`` (the Pallas kernel
+``build_gl_colpass`` and its wrapper ``make_gl_colpass``) for the four
+configurations the Goldilocks fold plan runs: ``cp1`` (DIF, transpose_out,
+then the 'post_t' wmat multiply), ``cp2`` (DIF), ``icp2`` (DIT,
+transpose_out, then the 'post_t' iwmat multiply) and ``icp1`` (DIT).
+
+Values mod p = 2^64 - 2^32 + 1 travel as a ``(hi, lo)`` tuple of
+``torch.int32`` planes holding uint32 bit patterns: (B, nn, ncols) in,
+(B, nn, ncols) out, or (B, ncols, nn) with transpose_out; 2-D planes are
+a batch of one. Every step keeps values canonical, [0, p), so the kernel,
+the plain version and the reference agree bit for bit, whatever exact
+method each multiplies with.
+
+``gl_colpass(x, cp)`` is the entry point: the plain version,
+``gl_colpass_plain``, for CPU tensors, the kernel in ``csrc/gl_colpass.cu``
+for CUDA tensors, and a raise otherwise. ``gl_mul(a, b)`` is the pointwise
+product between transforms on the same terms; its kernel is a helper in the
+same library (the reference leaves this product to XLA).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ntt_aie_tpu_torch import twiddles as tw
+from ntt_aie_tpu_torch.ops import colpass as C
+from ntt_aie_tpu_torch.ops import modops as M
+
+MAX_ROWS = 4096  # csrc/gl_colpass.cu kMaxRows
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GLColPass:
+    """One Goldilocks column pass: its static configuration and its tables,
+    prepared once on the plan's device as int64 tensors holding the uint64
+    field values.
+
+    tw: (sum(ts),) the stage twiddles of every stage in order; offsets[s]
+      is stage s's start.
+    wmid: (nn,) nested mid multiply, or None for a plain network.
+    wmat: (ncols, nn) 'post_t' operand, or None.
+    """
+
+    nn: int
+    direction: str
+    phases_ts: tuple
+    mid_rs: tuple
+    transpose_out: bool
+    tw: torch.Tensor
+    offsets: tuple
+    wmid: torch.Tensor | None
+    wmat: torch.Tensor | None
+
+    def __call__(self, x: tuple) -> tuple:
+        return gl_colpass(x, self)
+
+
+def _u64_tensor(a, device) -> torch.Tensor:
+    a = np.array(a, dtype=np.uint64, order="C")
+    return torch.from_numpy(a.view(np.int64)).to(device)
+
+
+def make_gl_colpass(field, nn: int, *, direction: str,
+                    inverse_tw: bool = False, wmat: np.ndarray | None = None,
+                    transpose_out: bool = False, device="cpu") -> GLColPass:
+    """Build a Goldilocks column pass for nn-point columns from the port's
+    own twiddles.col_network. wmat: host (ncols, nn) 'post_t' operand (the
+    four-step matrix in output orientation), applied after the transpose."""
+    if not field.is_goldilocks:
+        raise ValueError(f"the Goldilocks column pass needs p = 2^64 - 2^32 "
+                         f"+ 1, got p={field.p}")
+    if direction not in ("dif", "dit"):
+        raise ValueError(f"direction must be 'dif' or 'dit', got {direction!r}")
+    if wmat is not None and not transpose_out:
+        raise ValueError("the 'post_t' multiply needs transpose_out=True")
+    net = tw.col_network(field, nn, direction=direction, inverse=inverse_tw)
+    phases_ts = tuple(tuple(int(t) for t in ph["ts"]) for ph in net["phases"])
+    ts = [t for ph in phases_ts for t in ph]
+    wm = None
+    if wmat is not None:
+        wm = _u64_tensor(wmat, device)
+        if wm.dim() != 2 or wm.shape[1] != nn:
+            raise ValueError(f"post_t operand {tuple(wm.shape)} is not "
+                             f"(ncols, {nn})")
+    return GLColPass(
+        nn=nn, direction=direction, phases_ts=phases_ts,
+        mid_rs=(int(net["R"]), int(net["S"])), transpose_out=transpose_out,
+        tw=_u64_tensor(np.concatenate([np.ravel(v) for ph in net["phases"]
+                                       for v in ph["vecs"]]), device),
+        offsets=tuple(int(o) for o in np.cumsum([0] + ts[:-1])),
+        wmid=(_u64_tensor(net["mid"]["wmid"], device)
+              if net["mid"] is not None else None),
+        wmat=wm)
+
+
+# ---- plain PyTorch version -------------------------------------------------
+
+def _planes(x, what: str):
+    if not (isinstance(x, tuple) and len(x) == 2):
+        raise TypeError(f"{what} takes a (hi, lo) tuple of int32 tensors")
+    hi, lo = x
+    if hi.dtype != torch.int32 or lo.dtype != torch.int32:
+        raise TypeError(f"{what} takes int32 limb planes, got {hi.dtype} "
+                        f"and {lo.dtype}")
+    if hi.shape != lo.shape or hi.device != lo.device:
+        raise ValueError(f"{what}: hi {tuple(hi.shape)} on {hi.device} and "
+                         f"lo {tuple(lo.shape)} on {lo.device} differ")
+    return hi, lo
+
+
+def _batched(x, cp: GLColPass):
+    hi, lo = _planes(x, "gl_colpass")
+    squeeze = hi.dim() == 2
+    if squeeze:
+        hi, lo = hi.unsqueeze(0), lo.unsqueeze(0)
+    if hi.dim() != 3 or hi.shape[1] != cp.nn:
+        raise ValueError(f"gl_colpass over {cp.nn} rows takes (B, {cp.nn}, "
+                         f"ncols) or ({cp.nn}, ncols) planes, got "
+                         f"{tuple(x[0].shape)}")
+    if cp.wmat is not None and cp.wmat.shape[0] != hi.shape[2]:
+        raise ValueError(f"post_t operand has {cp.wmat.shape[0]} columns, "
+                         f"input has {hi.shape[2]}")
+    return hi, lo, squeeze
+
+
+def _limbs(t: torch.Tensor):
+    """int64 tensor of uint64 values -> (hi, lo) carriers."""
+    return (t >> 32) & M.MASK32, t & M.MASK32
+
+
+def _run_stages(h, l, w, ts, offsets, direction):
+    """Radix-2 butterfly stages over axis 1 of (B, nn, c) limb carriers."""
+    B, nn, c = h.shape
+    for t, off in zip(ts, offsets):
+        hv = h.reshape(B, nn // (2 * t), 2, t, c)
+        lv = l.reshape(B, nn // (2 * t), 2, t, c)
+        uh, ul, vh, vl = hv[:, :, 0], lv[:, :, 0], hv[:, :, 1], lv[:, :, 1]
+        wh, wl = (v[off:off + t].view(1, 1, t, 1) for v in w)
+        if direction == "dif":
+            ah, al = M.gl_add(uh, ul, vh, vl)
+            bh, bl = M.gl_mul(*M.gl_sub(uh, ul, vh, vl), wh, wl)
+        else:
+            mh, ml = M.gl_mul(vh, vl, wh, wl)
+            ah, al = M.gl_add(uh, ul, mh, ml)
+            bh, bl = M.gl_sub(uh, ul, mh, ml)
+        h = torch.stack((ah, bh), dim=2).reshape(B, nn, c)
+        l = torch.stack((al, bl), dim=2).reshape(B, nn, c)
+    return h, l
+
+
+def gl_colpass_plain(x: tuple, cp: GLColPass) -> tuple:
+    """The Goldilocks column pass in plain PyTorch ops (int64 limb
+    carriers), on any device: the oracle the kernel is held against."""
+    hi, lo, squeeze = _batched(x, cp)
+    h, l = M.to_carrier(hi), M.to_carrier(lo)
+    B, nn, c = h.shape
+    w = _limbs(cp.tw)
+    k0 = len(cp.phases_ts[0])
+    h, l = _run_stages(h, l, w, cp.phases_ts[0], cp.offsets[:k0],
+                       cp.direction)
+    if cp.wmid is not None:
+        R, S = cp.mid_rs
+        mh, ml = (v.view(1, nn, 1) for v in _limbs(cp.wmid))
+        if cp.direction == "dif":
+            h, l = M.gl_mul(h, l, mh, ml)
+            h, l = (v.view(B, R, S, c).transpose(1, 2).reshape(B, nn, c)
+                    for v in (h, l))
+        else:
+            h, l = (v.view(B, S, R, c).transpose(1, 2).reshape(B, nn, c)
+                    for v in (h, l))
+            h, l = M.gl_mul(h, l, mh, ml)
+        h, l = _run_stages(h, l, w, cp.phases_ts[1], cp.offsets[k0:],
+                           cp.direction)
+    if cp.transpose_out:
+        h, l = h.transpose(1, 2), l.transpose(1, 2)
+        if cp.wmat is not None:
+            h, l = M.gl_mul(h, l, *_limbs(cp.wmat))
+    out = tuple(M.from_carrier(v).contiguous() for v in (h, l))
+    return tuple(v[0] for v in out) if squeeze else out
+
+
+def gl_mul_plain(a: tuple, b: tuple) -> tuple:
+    """Pointwise a * b mod p on int32 limb planes, in plain PyTorch ops."""
+    ah, al = _planes(a, "gl_mul")
+    bh, bl = _planes(b, "gl_mul")
+    out = M.gl_mul(*(M.to_carrier(v) for v in (ah, al, bh, bl)))
+    return tuple(M.from_carrier(v) for v in out)
+
+
+# ---- CUDA kernels ----------------------------------------------------------
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(C.build_library("gl_colpass")))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib.ntt_gl_colpass.restype = ci
+    lib.ntt_gl_colpass.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                   ci, pi, pi, vp, ci, vp, vp, ci, vp]
+    lib.ntt_gl_mul.restype = ci
+    lib.ntt_gl_mul.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp]
+    lib.ntt_gl_error_string.restype = ctypes.c_char_p
+    lib.ntt_gl_error_string.argtypes = [ci]
+    lib.ntt_gl_colpass_max_rows.restype = ci
+    if lib.ntt_gl_colpass_max_rows() != MAX_ROWS:
+        raise RuntimeError("csrc/gl_colpass.cu kMaxRows disagrees with "
+                           "MAX_ROWS")
+    return lib
+
+
+def _check_launch(err: int, what: str, lib) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA {what} launch failed: "
+                           + lib.ntt_gl_error_string(err).decode())
+
+
+def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass) -> tuple:
+    for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat)):
+        if t is not None and t.device != hi.device:
+            raise ValueError(f"gl_colpass table {name} is on {t.device}, "
+                             f"input on {hi.device}")
+    if not (hi.is_contiguous() and lo.is_contiguous()):
+        raise ValueError("the CUDA GL column pass takes contiguous tensors")
+    B, nn, c = hi.shape
+    tl = C.tile_cols(nn, c, itemsize=8)
+    out_shape = (B, c, nn) if cp.transpose_out else (B, nn, c)
+    oh = torch.empty(out_shape, dtype=torch.int32, device=hi.device)
+    ol = torch.empty_like(oh)
+    ts = [t for ph in cp.phases_ts for t in ph]
+    n = len(ts)
+    if cp.wmid is not None:
+        R, S = cp.mid_rs
+        log_a = (R if cp.direction == "dif" else S).bit_length() - 1
+        mid = cp.wmid.data_ptr()
+    else:
+        log_a, mid = -1, None
+    mat = cp.wmat.data_ptr() if cp.wmat is not None else None
+    lib = _library()
+    with torch.cuda.device(hi.device):
+        stream = torch.cuda.current_stream(hi.device).cuda_stream
+        err = lib.ntt_gl_colpass(
+            hi.data_ptr(), lo.data_ptr(), oh.data_ptr(), ol.data_ptr(), B,
+            nn, c, tl.bit_length() - 1, int(cp.direction == "dit"), n,
+            len(cp.phases_ts[0]), (ctypes.c_int * n)(*ts),
+            (ctypes.c_int * n)(*cp.offsets), cp.tw.data_ptr(), log_a, mid,
+            mat, int(cp.transpose_out), stream)
+    _check_launch(err, "GL column pass", lib)
+    gl_colpass.launches += 1
+    return oh, ol
+
+
+def gl_colpass(x: tuple, cp: GLColPass) -> tuple:
+    """Run one Goldilocks column pass on a (hi, lo) tuple: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.
+    ``gl_colpass.launches`` counts kernel launches."""
+    device = _planes(x, "gl_colpass")[0].device
+    if device.type == "cpu":
+        return gl_colpass_plain(x, cp)
+    if device.type != "cuda":
+        raise ValueError(f"no GL column pass for device {device}")
+    hi, lo, squeeze = _batched(x, cp)
+    out = _launch(hi, lo, cp)
+    return tuple(v[0] for v in out) if squeeze else out
+
+
+gl_colpass.launches = 0
+
+
+def gl_mul(a: tuple, b: tuple) -> tuple:
+    """Pointwise a * b mod p on (hi, lo) int32 planes of one shape: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    ``gl_mul.launches`` counts kernel launches."""
+    ah, al = _planes(a, "gl_mul")
+    bh, bl = _planes(b, "gl_mul")
+    if ah.shape != bh.shape or ah.device != bh.device:
+        raise ValueError(f"gl_mul takes operands of one shape and device, "
+                         f"got {tuple(ah.shape)} on {ah.device} and "
+                         f"{tuple(bh.shape)} on {bh.device}")
+    if ah.device.type == "cpu":
+        return gl_mul_plain(a, b)
+    if ah.device.type != "cuda":
+        raise ValueError(f"no GL product for device {ah.device}")
+    if not all(v.is_contiguous() for v in (ah, al, bh, bl)):
+        raise ValueError("the CUDA GL product takes contiguous tensors")
+    oh, ol = torch.empty_like(ah), torch.empty_like(al)
+    lib = _library()
+    with torch.cuda.device(ah.device):
+        stream = torch.cuda.current_stream(ah.device).cuda_stream
+        err = lib.ntt_gl_mul(ah.data_ptr(), al.data_ptr(), bh.data_ptr(),
+                             bl.data_ptr(), oh.data_ptr(), ol.data_ptr(),
+                             ah.numel(), stream)
+    _check_launch(err, "GL product", lib)
+    gl_mul.launches += 1
+    return oh, ol
+
+
+gl_mul.launches = 0

@@ -30,7 +30,8 @@ _NOT_PORTED = {
     "barrett": "Queue 1 item 2 (barrett) and item 4i",
     "montgomery": "Queue 1 item 2 (montgomery) and item 4i",
     "harvey": "Queue 1 item 2 (harvey)",
-    "goldilocks": "Queue 1 item 7 (Goldilocks)",
+    "goldilocks": "Queue 1 item 7 (Goldilocks has no Reduction: "
+                  "build_plan routes it to goldilocks_plan)",
 }
 
 

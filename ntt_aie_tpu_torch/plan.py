@@ -15,7 +15,9 @@ four-step spectral order flat[c*N1 + r] = X[s2(c)*N1 + s1(r)]
 (``twiddles.spectral_positions``); pointwise products are order-agnostic,
 so polymul never permutes.
 
-Public tensors are ``torch.int32`` holding values in [0, p).
+Public tensors are ``torch.int32`` holding values in [0, p). Goldilocks
+configurations route to ``goldilocks_plan.build_goldilocks_plan``, which
+returns the same ``Plan`` over (hi, lo) limb planes.
 """
 
 from __future__ import annotations
@@ -93,7 +95,9 @@ def fold_passes(field, n1: int, n2: int, *, device="cpu") -> dict:
 def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
                wmat_factored: bool | None = None,
                wmat_fold: bool | None = None) -> Plan:
-    """Build the four-step fold plan of `config` on `device`.
+    """Build the four-step fold plan of `config` on `device` (for
+    Goldilocks, build_goldilocks_plan's; `fused` does not apply there, as
+    in the reference).
 
     Tables are prepared once here, on the plan's device. Configurations
     outside the ported slice raise NotImplementedError naming the
@@ -103,6 +107,12 @@ def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
     if config.table_convention == "reference":
         _not_ported("the reference-parity convention", "Queue 1 item 4j")
     kind = resolve_kind(config.reduction, field)
+    if kind == "goldilocks":
+        from ntt_aie_tpu_torch.goldilocks_plan import build_goldilocks_plan
+
+        return build_goldilocks_plan(config, device=device,
+                                     wmat_factored=wmat_factored,
+                                     wmat_fold=wmat_fold)
     red = make_reduction(kind, field)  # raises for the unported kinds
     n1, n2 = config.split
     if n2 == 1:

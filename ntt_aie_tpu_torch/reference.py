@@ -1,9 +1,10 @@
 """NumPy golden oracles: textbook DIF/DIT NTTs and the cyclic product.
 
-A copy of the true-NTT half of ``ntt_aie_tpu.reference`` (int64 NumPy,
-32-bit word primes). It shares no code with the column-pass kernel or its
-plain version, so it can judge both; ``chip_smoke.py`` falls back to it
-when the native C++ oracle cannot be built.
+A copy of the true-NTT half of ``ntt_aie_tpu.reference``: int64 NumPy for
+32-bit word primes, Python integers (object arrays) for Goldilocks. It
+shares no arithmetic with the column-pass kernels or their plain versions
+(Python's ``%`` on exact integers), so it can judge both; ``chip_smoke.py``
+falls back to it when the native C++ oracle cannot be built.
 """
 
 from __future__ import annotations
@@ -14,13 +15,18 @@ from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.fields import PrimeField
 
 
+def _work_dtype(p: int):
+    return object if p >= (1 << 31) else np.int64
+
+
 def ntt_dif(a, field: PrimeField, *, inverse: bool = False) -> np.ndarray:
     """Gentleman-Sande DIF NTT: natural-order in, bit-reversed out.
 
     Stage s: t = n >> (s+1); reshape (blocks, 2, t); butterfly
     (u+v, (u-v) * w[jj]).
     """
-    a = np.asarray(a).astype(np.int64).copy()
+    dt = _work_dtype(field.p)
+    a = np.asarray(a).astype(dt).copy()
     n = len(a)
     p = field.p
     stages_tw = tw.dif_stage_twiddles(field, n, inverse=inverse)
@@ -29,7 +35,7 @@ def ntt_dif(a, field: PrimeField, *, inverse: bool = False) -> np.ndarray:
         x = a.reshape(-1, 2, t)
         u = x[:, 0, :].copy()
         v = x[:, 1, :].copy()
-        wv = stages_tw[s].reshape(1, t)
+        wv = stages_tw[s].astype(dt).reshape(1, t)
         x[:, 0, :] = (u + v) % p
         x[:, 1, :] = ((u - v) % p) * wv % p
         a = x.reshape(n)
@@ -44,7 +50,8 @@ def ntt_dit(a, field: PrimeField, *, inverse: bool = False,
     inverse=True and scale (default: scale=inverse) also multiplies by
     n^-1, so ntt_dit(ntt_dif(a), inverse=True) == a.
     """
-    a = np.asarray(a).astype(np.int64).copy()
+    dt = _work_dtype(field.p)
+    a = np.asarray(a).astype(dt).copy()
     n = len(a)
     p = field.p
     if scale is None:
@@ -55,7 +62,7 @@ def ntt_dit(a, field: PrimeField, *, inverse: bool = False,
         x = a.reshape(-1, 2, t)
         u = x[:, 0, :].copy()
         v = x[:, 1, :].copy()
-        wvv = v * stages_tw[s].reshape(1, t) % p
+        wvv = v * stages_tw[s].astype(dt).reshape(1, t) % p
         x[:, 0, :] = (u + wvv) % p
         x[:, 1, :] = (u - wvv) % p
         a = x.reshape(n)

@@ -9,8 +9,9 @@ fold plan needs (the port cannot import the reference package: its
 and its plain PyTorch version — compiles from ``col_network``; never
 hand-build stage twiddles for a four-step column.
 
-Only 32-bit word primes are planned here (values are int64 NumPy arrays);
-Goldilocks tables arrive with the Goldilocks plan.
+Values are int64 NumPy arrays for 32-bit word primes and uint64 arrays
+for Goldilocks (p = 2^64 - 2^32 + 1), as in the reference; other primes
+of 31 bits or more are refused.
 """
 
 from __future__ import annotations
@@ -22,23 +23,72 @@ import numpy as np
 from ntt_aie_tpu_torch.fields import PrimeField
 
 
-def _check_word_prime(field: PrimeField) -> None:
-    if field.p >= (1 << 31):
-        raise NotImplementedError(
-            f"p={field.p}: the port plans 32-bit word primes only; "
-            "Goldilocks tables come with ROADMAP.md Queue 1 item 7")
+_GL_P = np.uint64((1 << 64) - (1 << 32) + 1)
 
 
-def _mulmod(field: PrimeField, a, b) -> np.ndarray:
-    """Elementwise a*b mod p on int64/uint64 arrays (exact: p < 2^31)."""
+def _tw_dtype(field: PrimeField):
+    """Value-array dtype: int64 for word primes, uint64 for Goldilocks
+    (every value is exact in uint64; only the arithmetic needs wider
+    math, which _gl_mulmod_vec supplies)."""
+    if field.p < (1 << 31):
+        return np.int64
+    if field.p == int(_GL_P):
+        return np.uint64
+    raise NotImplementedError(
+        f"p={field.p}: the port plans 32-bit word primes and Goldilocks "
+        "only (the reference's object-dtype tables for other primes feed "
+        "no plan)")
+
+
+def _gl_mulmod_vec(a, b) -> np.ndarray:
+    """Elementwise a*b mod p for Goldilocks on uint64 arrays: 4 x 32-bit
+    partial products assembled into a 128-bit (hi, lo) pair with explicit
+    carries, then reduced with 2^64 = 2^32 - 1, 2^96 = -1 (the algorithm
+    of native/oracle.cc ntt_goldilocks_reduce128)."""
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    mask = np.uint64(0xFFFFFFFF)
+    s32 = np.uint64(32)
+    ah, al = a >> s32, a & mask
+    bh, bl = b >> s32, b & mask
+    ll = al * bl
+    hh = ah * bh
+    hl = ah * bl
+    mid = hl + al * bh                       # wraps; carry below
+    mid_carry = (mid < hl).astype(np.uint64)  # in units of 2^96
+    lo = ll + (mid << s32)                   # wraps; carry below
+    lo_carry = (lo < ll).astype(np.uint64)
+    hi = hh + (mid >> s32) + (mid_carry << s32) + lo_carry
+    # x = lo + n2*(2^32 - 1) - n3 (mod p)
+    n3 = hi >> s32
+    n2_ = hi & mask
+    r = np.where(lo >= _GL_P, lo - _GL_P, lo)
+    r = np.where(r < n3, r + _GL_P, r) - n3
+    t1 = (n2_ << s32) - n2_
+    s = r + t1
+    s = np.where(s < r, s + mask, s)  # 2^64 wrap adds 2^32 - 1 back
+    return np.where(s >= _GL_P, s - _GL_P, s)
+
+
+def _vec_mulmod(field: PrimeField):
+    """Elementwise host mulmod on this field's value arrays: plain uint64
+    products for word primes (exact: p < 2^31), the limb algorithm above
+    for Goldilocks."""
+    if _tw_dtype(field) is np.uint64:
+        return _gl_mulmod_vec
     pu = np.uint64(field.p)
-    return np.asarray(a, np.uint64) * np.asarray(b, np.uint64) % pu
+
+    def mul(a, b):
+        return np.asarray(a, np.uint64) * np.asarray(b, np.uint64) % pu
+
+    return mul
 
 
 def _power_series(field: PrimeField, w: int, n: int) -> np.ndarray:
-    """[w^i mod p for i in range(n)] as int64, by log-depth block doubling
-    (out[m:2m] = out[:m] * w^m)."""
-    _check_word_prime(field)
+    """[w^i mod p for i in range(n)] in the field's value dtype, by
+    log-depth block doubling (out[m:2m] = out[:m] * w^m)."""
+    dt = _tw_dtype(field)
+    mul = _vec_mulmod(field)
     p = field.p
     out = np.empty(n, dtype=np.uint64)
     out[0] = 1
@@ -46,11 +96,11 @@ def _power_series(field: PrimeField, w: int, n: int) -> np.ndarray:
     m = 1
     while m < n:
         step = min(m, n - m)
-        out[m:m + step] = _mulmod(field, out[:step], cur)
+        out[m:m + step] = mul(out[:step], cur)
         m *= 2
         if m < n:
             cur = cur * cur % p
-    return out.astype(np.int64)
+    return out.astype(dt)
 
 
 def root_powers(field: PrimeField, n: int) -> np.ndarray:
@@ -200,8 +250,8 @@ def _build_fourstep_tables(field: PrimeField, n1: int, n2: int) -> dict:
     j2 = np.arange(n2, dtype=np.int64)
     e = (k1r[:, None] * j2[None, :]) & (n - 1)
     wmat = pows[e]
-    iwmat_scaled = _mulmod(field, pows[(n - e) & (n - 1)], n_inv).astype(
-        np.int64)
+    iwmat_scaled = _vec_mulmod(field)(pows[(n - e) & (n - 1)],
+                                      n_inv).astype(_tw_dtype(field))
     return {
         "wmat": wmat,
         "iwmat_scaled": iwmat_scaled,
@@ -221,7 +271,8 @@ _FOURSTEP_MEMO_MAX = 8
 def fourstep_tables(field: PrimeField, n1: int, n2: int) -> dict:
     """The four-step plan's host tables:
 
-      wmat         — forward twiddle matrix W[s1(r), j2], (n1, n2) int64,
+      wmat         — forward twiddle matrix W[s1(r), j2], (n1, n2) in the
+                     field's value dtype (int64, or uint64 for Goldilocks),
       iwmat_scaled — inverse matrix likewise, additionally folding 1/n,
       pos          — spectral_positions(n1, n2),
       n_inv        — 1/n mod p.

@@ -14,14 +14,16 @@ import numpy as np
 import torch
 
 
-def time_device(fn, x: torch.Tensor, *, iters: int = 10,
+def time_device(fn, x: torch.Tensor | tuple, *, iters: int = 10,
                 repeats: int = 5) -> dict:
-    """Time fn on x's CUDA device. fn's output must be a valid input (true
-    for the n1 == n2 matrix-form transforms). Returns dict(us_per_iter,
-    best_us, runs_us, result)."""
-    if x.device.type != "cuda":
+    """Time fn on x's CUDA device. x is a tensor or a tuple of tensors
+    (the Goldilocks (hi, lo) planes). fn's output must be a valid input
+    (true for the n1 == n2 matrix-form transforms). Returns
+    dict(us_per_iter, best_us, runs_us, result)."""
+    device = (x[0] if isinstance(x, tuple) else x).device
+    if device.type != "cuda":
         raise RuntimeError(f"time_device measures a CUDA device, got a "
-                           f"tensor on {x.device}")
+                           f"tensor on {device}")
 
     def run(y):
         for _ in range(iters):
@@ -29,7 +31,7 @@ def time_device(fn, x: torch.Tensor, *, iters: int = 10,
         return y
 
     out = run(x)  # warm-up: builds and loads the kernel on first use
-    torch.cuda.synchronize(x.device)
+    torch.cuda.synchronize(device)
     runs = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)

@@ -1,4 +1,5 @@
-"""The CUDA column pass against its plain PyTorch version, on the card.
+"""The CUDA column passes (32-bit and Goldilocks) and the Goldilocks
+pointwise product against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -12,11 +13,15 @@ import torch
 
 import ntt_aie_tpu_torch as T
 from ntt_aie_tpu_torch import reference as ref
+from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
 from ntt_aie_tpu_torch.ops import colpass as C
+from ntt_aie_tpu_torch.ops import gl_colpass as G
+from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.plan import fold_passes
 
 pytestmark = pytest.mark.cuda
 P = T.P_469762049.p
+GL_P = T.GOLDILOCKS.p
 
 
 @pytest.fixture
@@ -64,3 +69,70 @@ def test_kernel_rejects_non_contiguous(cuda):
     x = torch.zeros(2, 16, 128, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         C.colpass(x.transpose(1, 2), cp)
+
+
+def _gl_values(rng, shape):
+    return rng.integers(0, 1 << 64, shape, dtype=np.uint64) % np.uint64(GL_P)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n1,n2", [(16, 128), (128, 512), (256, 512),
+                                   (1024, 1024)])
+def test_gl_kernel_matches_plain(cuda, n1, n2, B):
+    rng = np.random.default_rng([n1, n2, B])
+    for name, cp in gl_fold_passes(T.GOLDILOCKS, n1, n2,
+                                   device=cuda).items():
+        rows, cols = (n1, n2) if name in ("cp1", "icp1") else (n2, n1)
+        x = M.gl_from_u64(_gl_values(rng, (B, rows, cols)), cuda)
+        before = G.gl_colpass.launches
+        got = G.gl_colpass(x, cp)
+        torch.cuda.synchronize()
+        assert G.gl_colpass.launches == before + 1
+        want = G.gl_colpass_plain(x, cp)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+def test_gl_mul_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(9)
+    edges = np.array([0, 1, GL_P - 1, GL_P - 2, (1 << 32) - 1, 1 << 32,
+                      0xFFFFFFFF << 32], dtype=np.uint64)
+    ea, eb = np.meshgrid(edges, edges)
+    a = np.concatenate([_gl_values(rng, 100000), ea.ravel()])
+    b = np.concatenate([_gl_values(rng, 100000), eb.ravel()])
+    da, db = M.gl_from_u64(a, cuda), M.gl_from_u64(b, cuda)
+    before = G.gl_mul.launches
+    got = G.gl_mul(da, db)
+    torch.cuda.synchronize()
+    assert G.gl_mul.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, G.gl_mul_plain(da, db)))
+    want = [int(x) * int(y) % GL_P for x, y in zip(a[-49:], b[-49:])]
+    assert M.gl_to_u64(*got)[-49:].tolist() == want
+
+
+def test_gl_plan_matches_oracle(cuda):
+    cfg = T.NTTConfig(field=T.GOLDILOCKS, log_n=16, rows_log2=8)
+    plan = T.build_plan(cfg, device=cuda)
+    rng = np.random.default_rng(6)
+    a, b = _gl_values(rng, (2, cfg.n))
+    G.gl_colpass.launches = 0
+    f = plan.fwd(M.gl_from_u64(a, cuda))
+    assert G.gl_colpass.launches == 2
+    assert f[0].device.type == "cuda"
+    got = M.gl_to_u64(*f)
+    assert np.array_equal(got[plan.spectral_to_natural].astype(object),
+                          ref.ntt_forward(a, T.GOLDILOCKS))
+    assert np.array_equal(plan.inv(got), a)
+    G.gl_mul.launches = 0
+    assert np.array_equal(plan.polymul(a, b).astype(object),
+                          ref.cyclic_polymul(a, b, T.GOLDILOCKS))
+    assert G.gl_mul.launches == 1
+
+
+def test_gl_kernel_rejects_non_contiguous(cuda):
+    cp = gl_fold_passes(T.GOLDILOCKS, 16, 128, device=cuda)["cp2"]
+    x = torch.zeros(2, 16, 128, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        G.gl_colpass((x.transpose(1, 2), x.transpose(1, 2)), cp)
+    y = torch.zeros(128, 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        G.gl_mul((y.t(), y.t()), (y.t(), y.t()))

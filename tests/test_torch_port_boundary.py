@@ -12,11 +12,13 @@ MODULES = [
     "ntt_aie_tpu_torch.api",
     "ntt_aie_tpu_torch.config",
     "ntt_aie_tpu_torch.fields",
+    "ntt_aie_tpu_torch.goldilocks_plan",
     "ntt_aie_tpu_torch.native_oracle",
     "ntt_aie_tpu_torch.plan",
     "ntt_aie_tpu_torch.reference",
     "ntt_aie_tpu_torch.twiddles",
     "ntt_aie_tpu_torch.ops.colpass",
+    "ntt_aie_tpu_torch.ops.gl_colpass",
     "ntt_aie_tpu_torch.ops.modops",
     "ntt_aie_tpu_torch.ops.reductions",
     "ntt_aie_tpu_torch.utils.timing",
@@ -60,7 +62,10 @@ def test_chip_smoke_refuses_without_cuda():
 
 
 def test_kernel_source_ships_with_the_package():
-    src = ROOT / "ntt_aie_tpu_torch" / "csrc" / "colpass.cu"
-    text = src.read_text()
-    assert "ntt_aie_tpu/ops/pallas_ntt.py::build_colpass" in text
-    assert "extern \"C\"" in text
+    csrc = ROOT / "ntt_aie_tpu_torch" / "csrc"
+    for name, replaces in (
+            ("colpass.cu", "ntt_aie_tpu/ops/pallas_ntt.py::build_colpass"),
+            ("gl_colpass.cu", "ntt_aie_tpu/ops/pallas_gl.py::build_gl_colpass")):
+        text = (csrc / name).read_text()
+        assert replaces in text
+        assert "extern \"C\"" in text
