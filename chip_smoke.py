@@ -3,18 +3,21 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
-It drives the port's two paths through their CUDA kernels and exits
+It drives the port's three paths through their CUDA kernels and exits
 non-zero at the first failure: the n = 2^20 forward NTT over p = 469762049
 as ``build_plan(...).make_batched(256)["fwd_mat"]``, its inverse and the
-cyclic product (the column-pass kernel), and the same at n = 2^20 over
+cyclic product (the column-pass kernel); the same at n = 2^20 over
 Goldilocks p = 2^64 - 2^32 + 1 at B = 64 (the Goldilocks column-pass
-kernel and the pointwise Goldilocks product). Phases, one JSON object per
-line:
+kernel and the pointwise Goldilocks product); and the fused plan
+``build_plan(..., fused=True)`` at n = 2^20 over p = 469762049 with its
+negacyclic product (the fused four-step kernel). Phases, one JSON object
+per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
                  as its own line), torch and CUDA versions;
-  2. build     — compiles csrc/colpass.cu and csrc/gl_colpass.cu with nvcc
-                 into build/, one process each, all at once, and times it;
+  2. build     — compiles every csrc/*.cu (colpass, gl_colpass,
+                 fused_fourstep) with nvcc into build/, one process each,
+                 all at once, and times it;
   3. kernel    — the 32-bit kernel against its plain PyTorch version on the
                  card, for cp1/cp2/icp2/icp1 at the 1024x1024 split and at
                  128x512 (plain and nested column networks), B = 4,
@@ -37,7 +40,23 @@ line:
                  polymul_mat against the native cyclic product; launch
                  counts 2 / 2 / 6 column passes and 1 pointwise product;
   8. gl_time   — the same timings for the Goldilocks path, and the
-                 pointwise product's.
+                 pointwise product's;
+  9. fused_kernel — the fused kernel against its plain version for ff, fi
+                 (no operands), nf ('pre') and ni ('post') at 1024x1024,
+                 512x2048, 2048x512, 32x64 and 64x32, B = 1 and 4,
+                 bit-exact;
+ 10. fused_slice — the fused plan (negacyclic=True): fwd_mat at B = 1 and
+                 B = 256 equal to the fold plan's and gated against the
+                 native oracle on row 0 plus 8 random rows; the inv_mat
+                 roundtrip on the whole batch; polymul_mat against the
+                 native cyclic product; negacyclic_polymul_mat (B = 2)
+                 against the native negacyclic product and a direct O(n)
+                 sum at 8 random coefficients; fused launches 1 / 1 / 1 /
+                 3 / 3 and no column-pass launch;
+ 11. fused_time — us/NTT of the fused fwd_mat at B = 1 and 256 and
+                 inv_mat at B = 1, beside the fold plan's (timed in turns:
+                 fold, fused, fused, fold) and the plain fused version's at
+                 B = 1.
 
 Then one line {"kernels": [...]} and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -55,6 +74,10 @@ import time
 GL_LOG_N = 20
 GL_BATCH = 64
 GL_KERNEL_SHAPES = ((1024, 1024), (128, 512), (2048, 256))
+# The (n1, n2) splits the fused kernel is held against its plain version
+# at: nested both sides, nested asymmetric both ways, plain both ways.
+FUSED_KERNEL_SHAPES = ((1024, 1024), (512, 2048), (2048, 512), (32, 64),
+                       (64, 32))
 
 
 def emit(obj) -> None:
@@ -84,6 +107,7 @@ def main() -> int:
     from ntt_aie_tpu_torch import native_oracle, reference
     from ntt_aie_tpu_torch import twiddles as tw
     from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
     from ntt_aie_tpu_torch.ops import gl_colpass as G
     from ntt_aie_tpu_torch.plan import fold_passes
     from ntt_aie_tpu_torch.utils.timing import time_device
@@ -110,6 +134,7 @@ def main() -> int:
     libs = C.build_libraries()
     C._library()
     G._library()
+    F._library()
     emit({"phase": "build", "ok": True,
           "seconds": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values())})
@@ -234,6 +259,10 @@ def main() -> int:
     gl_rows = goldilocks_phases(args, dev, card, rng)
     if gl_rows is None:
         return 1
+    torch.cuda.empty_cache()
+    fused_row = fused_phases(args, dev, card, rng)
+    if fused_row is None:
+        return 1
 
     # ms per launch in the fwd_mat chain (one call is 2 launches), at the
     # batch each path was timed at
@@ -244,7 +273,7 @@ def main() -> int:
         "launches": sum(launches.values()), "max_abs_err": max_err,
         "ms": k_fwd / 2 / 1e3, "plain_ms": p_fwd / 2 / 1e3,
         "batch": B, "plain_batch": pb,
-    }] + gl_rows})
+    }] + gl_rows + [fused_row]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -437,6 +466,168 @@ def goldilocks_phases(args, dev, card, rng):
          "max_abs_err": mul_err, "ms": k_mul / 1e3, "plain_ms": p_mul / 1e3,
          "batch": B, "plain_batch": mb},
     ]
+
+
+def _in_turns(fa, fb, x):
+    """us per call of fa and fb on x, timed in turns a, b, b, a; each
+    reading is time_device's trimmed mean, and each result the mean of
+    its two readings."""
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    ra, rb = [], []
+    for fn, acc in ((fa, ra), (fb, rb), (fb, rb), (fa, ra)):
+        acc.append(time_device(fn, x)["us_per_iter"])
+    return sum(ra) / 2, sum(rb) / 2
+
+
+def fused_phases(args, dev, card, rng):
+    """Phases 9-11: the fused plan. Returns its row of the kernels line,
+    or None after emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle, reference
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.plan import fused_passes
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    field = T.P_469762049
+    p = field.p
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+
+    # 9. fused_kernel: kernel against plain on the card
+    max_err = 0
+    for n1, n2 in FUSED_KERNEL_SHAPES:
+        for name, ff in fused_passes(field, n1, n2, negacyclic=True,
+                                     device=dev).items():
+            for B in (1, 4):
+                x = torch.randint(0, 4 * p, (B,) + ff.shape_in,
+                                  dtype=torch.int64, device=dev,
+                                  generator=gen).to(torch.int32)
+                got = F.fused_fourstep(x, ff)
+                torch.cuda.synchronize()
+                err = int((got.long() - F.fused_fourstep_plain(x, ff).long())
+                          .abs().max())
+                max_err = max(max_err, err)
+                emit({"phase": "fused_kernel", "transform": name,
+                      "shape": [B, *ff.shape_in],
+                      "networks": ["nested" if net.wmid is not None
+                                   else "plain"
+                                   for net in (ff.net_a, ff.net_b)],
+                      "max_abs_err": err})
+                if err:
+                    fail("fused_kernel", f"{name} {ff.shape_in} B={B} "
+                         "differs from its plain version")
+                    return None
+
+    # 10. fused_slice: the fused plan at n = 2^20 against the fold plan and
+    # the oracles
+    cfg = T.NTTConfig(field=field, log_n=20, negacyclic=True)
+    n, (n1, n2) = cfg.n, cfg.split
+    B = 256
+    plan = T.build_plan(cfg, device=dev, fused=True)
+    fold = T.build_plan(T.NTTConfig(field=field, log_n=20), device=dev)
+    bat, fold_bat = plan.make_batched(B), fold.make_batched(B)
+    bat2 = plan.make_batched(2)
+    x = torch.randint(0, p, (B, n1, n2), dtype=torch.int32, device=dev,
+                      generator=gen)
+    launches = {}
+
+    def drive(key, fn, *operands):
+        C.colpass.launches = F.fused_fourstep.launches = 0
+        out = fn(*operands)
+        torch.cuda.synchronize()
+        launches[key] = [F.fused_fourstep.launches, C.colpass.launches]
+        return out
+
+    y1 = drive("fwd_mat", plan.fwd_mat, x[0])
+    y = drive("fwd_mat_b256", bat["fwd_mat"], x)
+    back = drive("inv_mat", bat["inv_mat"], y)
+    a, b = x[:2], x[2:4]
+    c = drive("polymul_mat", bat2["polymul_mat"], a, b)
+    d = drive("negacyclic_polymul_mat", bat2["negacyclic_polymul_mat"], a, b)
+
+    fold_ok = (torch.equal(y1, fold.fwd_mat(x[0]))
+               and torch.equal(y, fold_bat["fwd_mat"](x)))
+    roundtrip_ok = bool(torch.equal(back, x))
+    del back
+    gate_rows = np.concatenate(
+        [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
+    idx = torch.from_numpy(gate_rows).to(dev)
+    got = y.reshape(B, n)[idx].cpu().numpy()
+    rows_in = x.reshape(B, n)[idx].cpu().numpy().astype(np.uint64)
+    a0, b0 = (v[0].reshape(n).cpu().numpy().astype(np.uint64)
+              for v in (a, b))
+    omega, psi = field.root_of_unity(n), field.root_of_unity(2 * n)
+    try:
+        want = native_oracle.ntt_dif_batch(
+            rows_in, omega, p)[:, tw.bit_reverse_indices(n)]
+        want_c = native_oracle.cyclic_polymul(a0, b0, omega, p)
+        want_d = native_oracle.negacyclic_polymul(a0, b0, psi, p)
+        oracle = "native"
+    except (native_oracle.NativeOracleUnavailable, OSError):
+        want = np.stack([reference.ntt_forward(r, field) for r in rows_in])
+        want_c = reference.cyclic_polymul(a0, b0, field)
+        want_d = reference.negacyclic_polymul(a0, b0, field)
+        oracle = "numpy"
+    gate_ok = np.array_equal(
+        got[:, plan.spectral_to_natural].astype(np.uint64),
+        want.astype(np.uint64))
+    poly_ok = np.array_equal(
+        c[0].reshape(n).cpu().numpy().astype(np.uint64),
+        want_c.astype(np.uint64))
+    d0 = d[0].reshape(n).cpu().numpy().astype(np.int64)
+    nega_ok = np.array_equal(d0.astype(np.uint64), want_d.astype(np.uint64))
+    # c_k = sum_{i<=k} a_i b_(k-i) - sum_{i>k} a_i b_(n+k-i): shares
+    # nothing with the psi scaling
+    ai, bi = a0.astype(np.int64), b0.astype(np.int64)
+    coeffs = rng.choice(n, size=8, replace=False)
+    direct = [int((ai[:k + 1] * bi[k::-1] % p).sum()
+                  - (ai[k + 1:] * bi[:k:-1] % p).sum()) % p for k in coeffs]
+    direct_ok = direct == [int(d0[k]) for k in coeffs]
+    counts_ok = launches == {"fwd_mat": [1, 0], "fwd_mat_b256": [1, 0],
+                             "inv_mat": [1, 0], "polymul_mat": [3, 0],
+                             "negacyclic_polymul_mat": [3, 0]}
+    ok = bool(fold_ok and roundtrip_ok and gate_ok and poly_ok and nega_ok
+              and direct_ok and counts_ok)
+    emit({"phase": "fused_slice", "n": n, "split": [n1, n2], "batch": B,
+          "reduction": plan.reduction, "oracle": oracle,
+          "equals_fold_plan": bool(fold_ok), "gate_rows": gate_rows.tolist(),
+          "gate_ok": bool(gate_ok), "roundtrip_ok": roundtrip_ok,
+          "polymul_ok": bool(poly_ok), "negacyclic_ok": bool(nega_ok),
+          "direct_coeffs": coeffs.tolist(), "direct_ok": direct_ok,
+          "launches": launches, "launches_ok": counts_ok, "ok": ok})
+    if not ok:
+        fail("fused_slice", "the fused path disagrees with its oracles")
+        return None
+
+    # 11. fused_time: fused against fold in turns, and the plain version
+    fold1, fused1 = _in_turns(fold.fwd_mat, plan.fwd_mat, x[0])
+    fold_inv1, fused_inv1 = _in_turns(fold.inv_mat, plan.inv_mat, x[0])
+    foldb, fusedb = _in_turns(fold_bat["fwd_mat"], bat["fwd_mat"], x)
+    ff = plan.passes["ff"]
+    plain1 = time_device(lambda v: F.fused_fourstep_plain(v, ff),
+                         x[0])["us_per_iter"]
+    emit({"phase": "fused_time", "card": card,
+          "fused_fwd_mat_us_per_ntt": {"1": fused1, "256": fusedb / B},
+          "fold_fwd_mat_us_per_ntt": {"1": fold1, "256": foldb / B},
+          "fused_inv_mat_us_per_ntt": {"1": fused_inv1},
+          "fold_inv_mat_us_per_ntt": {"1": fold_inv1},
+          "plain_fused_fwd_us_per_ntt": {"1": plain1},
+          "method": "CUDA events, 5 repeats of a dependent chain of 10, "
+                    "trimmed mean; fold and fused timed in turns (fold, "
+                    "fused, fused, fold), mean of the two readings; us per "
+                    "NTT = us per call / batch"})
+    return {"name": "fused_fourstep", "route": "cuda",
+            "source": "ntt_aie_tpu_torch/csrc/fused_fourstep.cu",
+            "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:693",
+            "launches": sum(v[0] for v in launches.values()),
+            "max_abs_err": max_err, "ms": fused1 / 1e3,
+            "plain_ms": plain1 / 1e3, "batch": 1, "plain_batch": 1,
+            "ms_batch_256": fusedb / 1e3}
 
 
 if __name__ == "__main__":

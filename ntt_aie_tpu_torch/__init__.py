@@ -7,7 +7,10 @@ single-device four-step fold plan over harvey4 fields (p < 2^29) and over
 Goldilocks (p = 2^64 - 2^32 + 1, as (hi, lo) limb planes), with each
 column pass as a hand-written CUDA kernel (``ops/colpass.py`` and
 ``csrc/colpass.cu``; ``ops/gl_colpass.py`` and ``csrc/gl_colpass.cu``) and
-its plain PyTorch version on the CPU.
+its plain PyTorch version on the CPU; and, for harvey4 fields, the fused
+plan (``build_plan(..., fused=True)``: one launch of
+``csrc/fused_fourstep.cu`` a transform, ``ops/fused_fourstep.py``) with
+its negacyclic product.
 """
 
 from ntt_aie_tpu_torch.fields import (  # noqa: F401

@@ -23,6 +23,9 @@ class NTTContext:
         A = ctx.forward(a)           # flat spectral-order NTT
         c = ctx.polymul(a, b)        # NTT -> pointwise -> INTT
 
+    With NTTConfig(negacyclic=True) and fused=True,
+    ctx.negacyclic_polymul(a, b) is the product mod X^n + 1.
+
     Plan keyword arguments (fused, wmat_factored, wmat_fold) forward to
     build_plan.
     """
@@ -93,7 +96,8 @@ class NTTContext:
         if fn is None:
             raise NotImplementedError(
                 f"this plan has no {name} (fwd/inv matrix-form twins need "
-                "the default spectral ordering)")
+                "the default spectral ordering; the negacyclic twin needs "
+                "NTTConfig(negacyclic=True) and fused=True)")
         return fn
 
     def forward_mat(self, a):
@@ -106,6 +110,9 @@ class NTTContext:
     def polymul_mat(self, a, b):
         return self._mat("polymul_mat")(a, b)
 
+    def negacyclic_polymul_mat(self, a, b):
+        return self._mat("negacyclic_polymul_mat")(a, b)
+
     def forward(self, a):
         return self.plan.fwd(a)
 
@@ -114,3 +121,11 @@ class NTTContext:
 
     def polymul(self, a, b):
         return self.plan.polymul(a, b)
+
+    def negacyclic_polymul(self, a, b):
+        """a * b in Z_p[X]/(X^n + 1) (RLWE-style). Requires
+        NTTConfig(negacyclic=True) so the psi tables were planned."""
+        if not self.config.negacyclic:
+            raise ValueError(
+                "negacyclic_polymul needs NTTConfig(negacyclic=True)")
+        return self.plan.negacyclic_polymul(a, b)

@@ -1,7 +1,8 @@
 """ctypes binding to the native C++ golden oracle (native/oracle.cc).
 
-A jax-free twin of ``ntt_aie_tpu.native_oracle`` for the two entry points
-the port's gates use: the batched forward DIF and the cyclic product. The
+A jax-free twin of ``ntt_aie_tpu.native_oracle`` for the entry points the
+port's gates use: the batched forward DIF and the cyclic and negacyclic
+products. The
 library builds on demand with ``make -C native`` (g++ only, no deps).
 """
 
@@ -42,6 +43,9 @@ def load() -> ctypes.CDLL:
     lib.ntt_dif_u64_batch.argtypes = [pu64, i64, i64, u64, u64]
     lib.ntt_cyclic_polymul_u64.restype = None
     lib.ntt_cyclic_polymul_u64.argtypes = [pu64, pu64, pu64, i64, u64, u64]
+    lib.ntt_negacyclic_polymul_u64.restype = None
+    lib.ntt_negacyclic_polymul_u64.argtypes = [pu64, pu64, pu64, i64, u64,
+                                               u64]
     return lib
 
 
@@ -62,4 +66,15 @@ def cyclic_polymul(a, b, omega: int, p: int) -> np.ndarray:
     b = np.ascontiguousarray(b, dtype=np.uint64)
     c = np.empty_like(a)
     lib.ntt_cyclic_polymul_u64(a, b, c, len(a), omega, p)
+    return c
+
+
+def negacyclic_polymul(a, b, psi: int, p: int) -> np.ndarray:
+    """c = a * b mod (X^n + 1, p) for length-n vectors; psi is a primitive
+    2n-th root of unity."""
+    lib = load()
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    b = np.ascontiguousarray(b, dtype=np.uint64)
+    c = np.empty_like(a)
+    lib.ntt_negacyclic_polymul_u64(a, b, c, len(a), psi, p)
     return c

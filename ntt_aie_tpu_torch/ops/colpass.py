@@ -11,8 +11,9 @@ DIT + canonicalize), harvey4 only.
 version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
 ``csrc/colpass.cu`` or raises — there is no fallback. Each CUDA source
 under ``csrc/`` is built with nvcc at first use into its own library in
-``build/ntt_aie_tpu_torch/`` (keyed by a hash of its source and flags) and
-bound with ctypes (``build_library``, ``build_libraries``).
+``build/ntt_aie_tpu_torch/`` (keyed by ``library_key``: a hash of its
+source, the shared ``csrc/*.cuh`` headers and the flags) and bound with
+ctypes (``build_library``, ``build_libraries``).
 
 Tensors are ``torch.int32`` holding uint32 bit patterns: (B, nn, ncols)
 in, (B, nn, ncols) out, or (B, ncols, nn) with transpose_out; a 2-D
@@ -208,13 +209,11 @@ def _run_stages(x, w, s, ts, offsets, direction, red):
     return x
 
 
-def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
-    """The column pass in plain PyTorch ops (int64 carriers), on any
-    device: the oracle the kernel is held against."""
-    xb, squeeze = _batched(x, cp)
+def run_network(v: torch.Tensor, cp: ColPass) -> torch.Tensor:
+    """Every stage of cp's column network (plain, or nested with its mid
+    step and row move) down axis 1 of a (B, nn, c) int64 carrier."""
     red = cp.red
     w, s = M.to_carrier(cp.tw[0]), M.to_carrier(cp.tw[1])
-    v = M.to_carrier(xb)
     B, nn, c = v.shape
     k0 = len(cp.phases_ts[0])
     v = _run_stages(v, w, s, cp.phases_ts[0], cp.offsets[:k0],
@@ -231,6 +230,15 @@ def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
             v = red.mulc_mat(v, mw, ms)
         v = _run_stages(v, w, s, cp.phases_ts[1], cp.offsets[k0:],
                         cp.direction, red)
+    return v
+
+
+def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
+    """The column pass in plain PyTorch ops (int64 carriers), on any
+    device: the oracle the kernel is held against."""
+    xb, squeeze = _batched(x, cp)
+    red = cp.red
+    v = run_network(M.to_carrier(xb), cp)
     if cp.transpose_out:
         v = v.transpose(1, 2)
         if cp.wmat is not None:
@@ -259,15 +267,24 @@ def tile_cols(nn: int, ncols: int, itemsize: int = 4) -> int:
                max(_MIN_TILE_COLS, _TILE_BYTES // (itemsize * nn)))
 
 
+def library_key(name: str, csrc_dir: pathlib.Path = CSRC_DIR) -> str:
+    """The build key of csrc/<name>.cu: a hash of its source, of every
+    csrc/*.cuh header (so a header edit rebuilds every library) and of the
+    nvcc flags."""
+    h = hashlib.sha256((csrc_dir / f"{name}.cu").read_bytes())
+    for header in sorted(csrc_dir.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build_library(name: str = "colpass") -> pathlib.Path:
     """Compile csrc/<name>.cu with nvcc (if not built yet) and return the
-    shared library's path. The file name carries a hash of the source and
-    flags; the library is written under a temporary name and renamed, so
-    concurrent builders never load a partial file."""
+    shared library's path. The file name carries library_key; the library
+    is written under a temporary name and renamed, so processes building
+    it at once never load a partial file."""
     src_path = CSRC_DIR / f"{name}.cu"
-    src = src_path.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{key}.so"
+    so = BUILD_DIR / f"{name}-{library_key(name)}.so"
     if so.exists():
         return so
     from torch.utils.cpp_extension import CUDA_HOME
@@ -314,6 +331,23 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def network_args(cp: ColPass) -> list:
+    """cp's column network as the C launchers take it: nstages, k0, ts,
+    offs, tw_w, tw_s, log_a, mid_w, mid_s (log_a = -1 and null mids for a
+    plain network)."""
+    ts = [t for ph in cp.phases_ts for t in ph]
+    n = len(ts)
+    if cp.wmid is not None:
+        R, S = cp.mid_rs
+        log_a = (R if cp.direction == "dif" else S).bit_length() - 1
+        mid = [cp.wmid[0].data_ptr(), cp.wmid[1].data_ptr()]
+    else:
+        log_a, mid = -1, [None, None]
+    return [n, len(cp.phases_ts[0]), (ctypes.c_int * n)(*ts),
+            (ctypes.c_int * n)(*cp.offsets), cp.tw[0].data_ptr(),
+            cp.tw[1].data_ptr(), log_a, *mid]
+
+
 def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat)):
         if t is not None and t.device != xb.device:
@@ -325,14 +359,6 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     tl = tile_cols(nn, c)
     out_shape = (B, c, nn) if cp.transpose_out else (B, nn, c)
     out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
-    ts = [t for ph in cp.phases_ts for t in ph]
-    n = len(ts)
-    if cp.wmid is not None:
-        R, S = cp.mid_rs
-        log_a = (R if cp.direction == "dif" else S).bit_length() - 1
-        mid = (cp.wmid[0].data_ptr(), cp.wmid[1].data_ptr())
-    else:
-        log_a, mid = -1, (None, None)
     mat = ((cp.wmat[0].data_ptr(), cp.wmat[1].data_ptr())
            if cp.wmat is not None else (None, None))
     lib = _library()
@@ -340,9 +366,7 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         err = lib.ntt_colpass(
             xb.data_ptr(), out.data_ptr(), B, nn, c, tl.bit_length() - 1,
-            int(cp.direction == "dit"), n, len(cp.phases_ts[0]),
-            (ctypes.c_int * n)(*ts), (ctypes.c_int * n)(*cp.offsets),
-            cp.tw[0].data_ptr(), cp.tw[1].data_ptr(), log_a, *mid, *mat,
+            int(cp.direction == "dit"), *network_args(cp), *mat,
             int(cp.transpose_out), int(cp.canonicalize), cp.red.p, stream)
     if err != 0:
         raise RuntimeError("CUDA column pass launch failed: "

@@ -1,8 +1,9 @@
 """Plan builder: compiles an NTTConfig into callables on torch tensors.
 
-Port of ``ntt_aie_tpu.plan`` for the single-chip four-step fold
-configuration (``plan.py:269-293`` of the reference). With N = N1 x N2 and
-the input viewed row-major as an (N1, N2) matrix,
+Port of ``ntt_aie_tpu.plan`` for the single-chip four-step configurations
+(``plan.py:269-349`` of the reference). With N = N1 x N2 and the input
+viewed row-major as an (N1, N2) matrix, the fold plan (the default) runs
+two column passes a transform,
 
     fwd = cp2 . cp1        cp1: DIF over N1, * W ('post_t'), transpose
                            cp2: DIF over N2, canonicalize
@@ -10,10 +11,14 @@ the input viewed row-major as an (N1, N2) matrix,
                            icp1: DIT over N1, canonicalize
 
 each a column pass (``ops.colpass``: the CUDA kernel on a CUDA device, its
-plain PyTorch version on the CPU). The flat forward output is in the
-four-step spectral order flat[c*N1 + r] = X[s2(c)*N1 + s1(r)]
-(``twiddles.spectral_positions``); pointwise products are order-agnostic,
-so polymul never permutes.
+plain PyTorch version on the CPU). ``fused=True`` runs each transform as
+one fused four-step launch instead (``ops.fused_fourstep``: ``ff`` forward,
+``fi`` inverse), with the same outputs bit for bit; only that plan has the
+negacyclic product (X^N + 1), whose psi^i and psi^-i scalings ride the
+fused kernels as ``pre`` (``nf``) and ``post`` (``ni``). The flat forward
+output is in the four-step spectral order flat[c*N1 + r] =
+X[s2(c)*N1 + s1(r)] (``twiddles.spectral_positions``); pointwise products
+are order-agnostic, so polymul never permutes.
 
 Public tensors are ``torch.int32`` holding values in [0, p). Goldilocks
 configurations route to ``goldilocks_plan.build_goldilocks_plan``, which
@@ -32,6 +37,7 @@ from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.colpass import make_colpass
+from ntt_aie_tpu_torch.ops.fused_fourstep import make_fused_fourstep
 from ntt_aie_tpu_torch.ops.reductions import make_reduction, resolve_kind
 
 
@@ -43,8 +49,11 @@ class Plan:
     (n1, n2) natural layout to (n2, n1) spectral and inv_mat back
     (spectral-order plans only; None with ordering='natural');
     polymul_mat maps (n1, n2) operands to an (n1, n2) product.
+    negacyclic_polymul (flat) and negacyclic_polymul_mat (matrix form)
+    exist with NTTConfig(negacyclic=True) on a fused plan, else None.
     make_batched(B) returns the same callables over a leading batch axis.
-    passes holds the four column passes (cp1, cp2, icp2, icp1).
+    passes holds the four column passes (cp1, cp2, icp2, icp1), or on a
+    fused plan the fused transforms (ff, fi, and nf, ni for negacyclic).
     """
 
     config: NTTConfig
@@ -58,6 +67,8 @@ class Plan:
     fwd_mat: Optional[Callable] = None
     inv_mat: Optional[Callable] = None
     polymul_mat: Optional[Callable] = None
+    negacyclic_polymul: Optional[Callable] = None
+    negacyclic_polymul_mat: Optional[Callable] = None
     _batched_builder: Optional[Callable] = None
     _batched_cache: dict = dataclasses.field(default_factory=dict)
 
@@ -92,12 +103,42 @@ def fold_passes(field, n1: int, n2: int, *, device="cpu") -> dict:
     }
 
 
+def fused_passes(field, n1: int, n2: int, *, negacyclic: bool = False,
+                 device="cpu") -> dict:
+    """The fused transforms of the fused plan for an (n1, n2) split
+    (reference plan.py:328-336, :685-689): ff over (.., n1, n2) with wmid
+    = wmat.T, fi over (.., n2, n1) with wmid = iwmat_scaled (1/n folded
+    in; for harvey4 the polymul inverse is the same transform), and with
+    negacyclic nf = ff with psi^i as 'pre', ni = fi with psi^-i as
+    'post'."""
+    tabs = tw.fourstep_tables(field, n1, n2)
+    wmid_fwd = np.ascontiguousarray(tabs["wmat"].T)
+    out = {
+        "ff": make_fused_fourstep(field, n1, n2, wmid=wmid_fwd,
+                                  device=device),
+        "fi": make_fused_fourstep(field, n1, n2, inverse=True,
+                                  wmid=tabs["iwmat_scaled"], device=device),
+    }
+    if negacyclic:
+        n = n1 * n2
+        out["nf"] = make_fused_fourstep(
+            field, n1, n2, wmid=wmid_fwd,
+            pre=tw.negacyclic_psi_powers(field, n).reshape(n1, n2),
+            device=device)
+        out["ni"] = make_fused_fourstep(
+            field, n1, n2, inverse=True, wmid=tabs["iwmat_scaled"],
+            post=tw.negacyclic_psi_powers(field, n,
+                                          inverse=True).reshape(n1, n2),
+            device=device)
+    return out
+
+
 def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
                wmat_factored: bool | None = None,
                wmat_fold: bool | None = None) -> Plan:
-    """Build the four-step fold plan of `config` on `device` (for
-    Goldilocks, build_goldilocks_plan's; `fused` does not apply there, as
-    in the reference).
+    """Build the four-step plan of `config` on `device`: the fold plan, or
+    with fused=True the fused plan (for Goldilocks, build_goldilocks_plan's
+    fold plan; `fused` does not apply there, as in the reference).
 
     Tables are prepared once here, on the plan's device. Configurations
     outside the ported slice raise NotImplementedError naming the
@@ -118,10 +159,9 @@ def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
     if n2 == 1:
         _not_ported(f"the flat split {config.split} (pin rows_log2 for a "
                     "four-step plan)", "Queue 1 item 4h")
-    if config.negacyclic:
-        _not_ported("negacyclic polymul", "Queue 1 item 4d")
-    if fused:
-        _not_ported("fused=True (build_fused_fourstep)", "Queue 2 item 3")
+    if config.negacyclic and not fused:
+        _not_ported("negacyclic polymul on the two-pass plan (build_plan("
+                    "..., fused=True) has it)", "Queue 1 item 4d")
     if wmat_factored:
         _not_ported("wmat_factored=True", "Queue 1 item 4g")
     if wmat_fold is False:
@@ -132,8 +172,20 @@ def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
     device = torch.device(device)
     n = config.n
     pos = tw.spectral_positions(n1, n2)
-    passes = fold_passes(field, n1, n2, device=device)
-    cp1, cp2, icp2, icp1 = (passes[k] for k in ("cp1", "cp2", "icp2", "icp1"))
+    if fused:
+        passes = fused_passes(field, n1, n2, negacyclic=config.negacyclic,
+                              device=device)
+        fwd_t, inv_t = passes["ff"], passes["fi"]
+    else:
+        passes = fold_passes(field, n1, n2, device=device)
+        cp1, cp2, icp2, icp1 = (passes[k]
+                                for k in ("cp1", "cp2", "icp2", "icp1"))
+
+        def fwd_t(x):
+            return cp2(cp1(x))
+
+        def inv_t(x):
+            return icp1(icp2(x))
 
     def as_i32(a) -> torch.Tensor:
         return torch.as_tensor(a, device=device).to(torch.int32)
@@ -143,14 +195,23 @@ def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
                                            M.to_carrier(fb)))
 
     def fwd2d(a, shape):
-        return cp2(cp1(as_i32(a).reshape(shape)))
+        return fwd_t(as_i32(a).reshape(shape))
 
     def inv2d(a, shape):
-        return icp1(icp2(as_i32(a).reshape(shape)))
+        return inv_t(as_i32(a).reshape(shape))
 
     def poly2d(a, b, shape):
         return inv2d(pointwise(fwd2d(a, shape), fwd2d(b, shape)),
                      shape[:-2] + (n2, n1))
+
+    nega2d = None
+    if config.negacyclic:
+        nf, ni = passes["nf"], passes["ni"]
+
+        def nega2d(a, b, shape):
+            fa = nf(as_i32(a).reshape(shape))
+            fb = nf(as_i32(b).reshape(shape))
+            return ni(pointwise(fa, fb))
 
     natural = config.ordering == "natural"
     perm = torch.from_numpy(pos.astype(np.int64)).to(device)
@@ -190,6 +251,10 @@ def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
         if not natural:
             out["fwd_mat"] = lambda a: fwd2d(a, bsh)
             out["inv_mat"] = lambda a: inv2d(a, (B, n2, n1))
+        if nega2d is not None:
+            out["negacyclic_polymul"] = (
+                lambda a, b: nega2d(a, b, bsh).reshape(B, n))
+            out["negacyclic_polymul_mat"] = lambda a, b: nega2d(a, b, bsh)
         return out
 
     return Plan(
@@ -204,5 +269,9 @@ def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
         fwd_mat=None if natural else (lambda a: fwd2d(a, (n1, n2))),
         inv_mat=None if natural else (lambda a: inv2d(a, (n2, n1))),
         polymul_mat=lambda a, b: poly2d(a, b, (n1, n2)),
+        negacyclic_polymul=(None if nega2d is None else
+                            lambda a, b: nega2d(a, b, (n1, n2)).reshape(n)),
+        negacyclic_polymul_mat=(None if nega2d is None else
+                                lambda a, b: nega2d(a, b, (n1, n2))),
         _batched_builder=batched_builder,
     )

@@ -1,4 +1,5 @@
-"""NumPy golden oracles: textbook DIF/DIT NTTs and the cyclic product.
+"""NumPy golden oracles: textbook DIF/DIT NTTs, the cyclic and negacyclic
+products, and the O(n^2) schoolbook negacyclic product.
 
 A copy of the true-NTT half of ``ntt_aie_tpu.reference``: int64 NumPy for
 32-bit word primes, Python integers (object arrays) for Goldilocks. It
@@ -88,3 +89,32 @@ def cyclic_polymul(a, b, field: PrimeField) -> np.ndarray:
     fa = ntt_dif(a, field)
     fb = ntt_dif(b, field)
     return ntt_dit(fa * fb % field.p, field, inverse=True)
+
+
+def negacyclic_polymul(a, b, field: PrimeField) -> np.ndarray:
+    """c = a * b mod (X^n + 1): psi-scaled NTT (RLWE-style)."""
+    p = field.p
+    n = len(a)
+    dt = _work_dtype(p)
+    psi = tw.negacyclic_psi_powers(field, n).astype(dt)
+    psi_inv = tw.negacyclic_psi_powers(field, n, inverse=True).astype(dt)
+    ta = np.asarray(a).astype(dt) * psi % p
+    tb = np.asarray(b).astype(dt) * psi % p
+    tc = cyclic_polymul(ta, tb, field)
+    return tc * psi_inv % p
+
+
+def schoolbook_negacyclic(a, b, p: int) -> np.ndarray:
+    """O(n^2) negacyclic convolution ground truth."""
+    n = len(a)
+    out = np.zeros(n, dtype=object)
+    for i in range(n):
+        ai = int(a[i])
+        for j in range(n):
+            k = i + j
+            term = ai * int(b[j])
+            if k < n:
+                out[k] = (out[k] + term) % p
+            else:
+                out[k - n] = (out[k - n] - term) % p
+    return out % p

@@ -1,7 +1,7 @@
 """Twiddle-factor planning for the four-step column passes.
 
 A NumPy copy of the parts of ``ntt_aie_tpu.twiddles`` that the four-step
-fold plan needs (the port cannot import the reference package: its
+fold and fused plans need (the port cannot import the reference package: its
 ``__init__`` imports jax). The spectral order is still defined once:
 ``col_network``/``spectral_positions`` here are line-for-line copies, and
 ``tests/test_torch_tables.py`` pins every table to the reference with
@@ -106,6 +106,16 @@ def _power_series(field: PrimeField, w: int, n: int) -> np.ndarray:
 def root_powers(field: PrimeField, n: int) -> np.ndarray:
     """w^i for i in [0, n), w = field.root_of_unity(n)."""
     return _power_series(field, field.root_of_unity(n), n)
+
+
+def negacyclic_psi_powers(field: PrimeField, n: int, *,
+                          inverse: bool = False) -> np.ndarray:
+    """psi^i for i in [0, n) where psi is a primitive 2n-th root (psi^2 =
+    omega): the pre/post scalings of the negacyclic product (X^n + 1)."""
+    psi = field.root_of_unity(2 * n)
+    if inverse:
+        psi = field.inv(psi)
+    return _power_series(field, psi, n)
 
 
 def bit_reverse_indices(n: int) -> np.ndarray:

@@ -146,3 +146,26 @@ def test_tile_cols():
     assert C.tile_cols(16, 128) == 32
     assert C.tile_cols(16, 8) == 8
     assert C.tile_cols(1024, 2) == 2
+
+
+def test_library_key_covers_shared_headers(tmp_path):
+    """A header edit changes the build key of every library, so no stale
+    library is loaded; a source edit changes only its own."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(C.CSRC_DIR, csrc)
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    assert {"colpass", "gl_colpass", "fused_fourstep"} <= set(names)
+    assert list(csrc.glob("*.cuh"))
+    before = {n: C.library_key(n, csrc) for n in names}
+    assert before["colpass"] == C.library_key("colpass")
+    with open(csrc / "colpass_tile.cuh", "a") as f:
+        f.write("// edit\n")
+    after = {n: C.library_key(n, csrc) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    with open(csrc / "colpass.cu", "a") as f:
+        f.write("// edit\n")
+    again = {n: C.library_key(n, csrc) for n in names}
+    assert again["colpass"] != after["colpass"]
+    assert all(again[n] == after[n] for n in names if n != "colpass")

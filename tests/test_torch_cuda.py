@@ -1,5 +1,6 @@
-"""The CUDA column passes (32-bit and Goldilocks) and the Goldilocks
-pointwise product against their plain PyTorch versions, on the card.
+"""The CUDA column passes (32-bit and Goldilocks), the fused four-step
+kernel and the Goldilocks pointwise product against their plain PyTorch
+versions, on the card.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -15,13 +16,16 @@ import ntt_aie_tpu_torch as T
 from ntt_aie_tpu_torch import reference as ref
 from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
 from ntt_aie_tpu_torch.ops import colpass as C
+from ntt_aie_tpu_torch.ops import fused_fourstep as FF
 from ntt_aie_tpu_torch.ops import gl_colpass as G
 from ntt_aie_tpu_torch.ops import modops as M
-from ntt_aie_tpu_torch.plan import fold_passes
+from ntt_aie_tpu_torch.plan import fold_passes, fused_passes
 
 pytestmark = pytest.mark.cuda
 P = T.P_469762049.p
 GL_P = T.GOLDILOCKS.p
+# (n1, n2): nested both sides, nested asymmetric both ways, plain both ways
+FUSED_SHAPES = [(1024, 1024), (512, 2048), (2048, 512), (32, 64), (64, 32)]
 
 
 @pytest.fixture
@@ -69,6 +73,55 @@ def test_kernel_rejects_non_contiguous(cuda):
     x = torch.zeros(2, 16, 128, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         C.colpass(x.transpose(1, 2), cp)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("n1,n2", FUSED_SHAPES)
+def test_fused_kernel_matches_plain(cuda, n1, n2, B):
+    """ff / fi without operands, nf with 'pre', ni with 'post'."""
+    g = torch.Generator(device=cuda).manual_seed(n1 + 2 * n2 + B)
+    for name, ff in fused_passes(T.P_469762049, n1, n2, negacyclic=True,
+                                 device=cuda).items():
+        x = torch.randint(0, 4 * P, (B,) + ff.shape_in, dtype=torch.int64,
+                          device=cuda, generator=g).to(torch.int32)
+        xin = x[0] if B == 1 else x
+        before = FF.fused_fourstep.launches
+        got = FF.fused_fourstep(xin, ff)
+        torch.cuda.synchronize()
+        assert FF.fused_fourstep.launches == before + 1
+        assert torch.equal(got, FF.fused_fourstep_plain(xin, ff)), name
+
+
+def test_fused_plan_matches_oracle(cuda):
+    cfg = T.NTTConfig(field=T.P_469762049, log_n=16, rows_log2=8,
+                      negacyclic=True)
+    plan = T.build_plan(cfg, device=cuda, fused=True)
+    rng = np.random.default_rng(7)
+    a, b = rng.integers(0, P, (2, cfg.n))
+    C.colpass.launches = FF.fused_fourstep.launches = 0
+    f = plan.fwd(a)
+    assert FF.fused_fourstep.launches == 1
+    got = f.cpu().numpy().astype(np.int64)
+    assert np.array_equal(got[plan.spectral_to_natural],
+                          ref.ntt_forward(a, T.P_469762049))
+    assert np.array_equal(plan.inv(f).cpu().numpy(), a)
+    assert np.array_equal(plan.polymul(a, b).cpu().numpy(),
+                          ref.cyclic_polymul(a, b, T.P_469762049))
+    FF.fused_fourstep.launches = 0
+    c = plan.negacyclic_polymul(a, b)
+    assert FF.fused_fourstep.launches == 3
+    assert np.array_equal(c.cpu().numpy(),
+                          ref.negacyclic_polymul(a, b, T.P_469762049))
+    assert C.colpass.launches == 0
+
+
+def test_fused_kernel_rejects_bad_input(cuda):
+    ff = fused_passes(T.P_469762049, 32, 64, device=cuda)["ff"]
+    x = torch.zeros(2, 64, 32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        FF.fused_fourstep(x.transpose(1, 2), ff)
+    with pytest.raises(ValueError):
+        FF.fused_fourstep(x, ff)
 
 
 def _gl_values(rng, shape):

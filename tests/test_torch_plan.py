@@ -191,7 +191,7 @@ def test_context_host_paths_match_reference(ordering):
 @pytest.mark.parametrize("kw,build_kw", [
     ({"log_n": 11}, {}),                          # flat split at default rows
     ({"log_n": 11, "rows_log2": 4, "negacyclic": True}, {}),
-    ({"log_n": 11, "rows_log2": 4}, {"fused": True}),
+    ({"log_n": 11, "rows_log2": 4}, {"fused": True, "wmat_factored": True}),
     ({"log_n": 11, "rows_log2": 4}, {"wmat_factored": True}),
     ({"log_n": 11, "rows_log2": 4}, {"wmat_fold": False}),
     ({"log_n": 11, "rows_log2": 4, "reduction": "montgomery"}, {}),

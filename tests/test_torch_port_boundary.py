@@ -18,6 +18,7 @@ MODULES = [
     "ntt_aie_tpu_torch.reference",
     "ntt_aie_tpu_torch.twiddles",
     "ntt_aie_tpu_torch.ops.colpass",
+    "ntt_aie_tpu_torch.ops.fused_fourstep",
     "ntt_aie_tpu_torch.ops.gl_colpass",
     "ntt_aie_tpu_torch.ops.modops",
     "ntt_aie_tpu_torch.ops.reductions",
@@ -65,7 +66,9 @@ def test_kernel_source_ships_with_the_package():
     csrc = ROOT / "ntt_aie_tpu_torch" / "csrc"
     for name, replaces in (
             ("colpass.cu", "ntt_aie_tpu/ops/pallas_ntt.py::build_colpass"),
-            ("gl_colpass.cu", "ntt_aie_tpu/ops/pallas_gl.py::build_gl_colpass")):
+            ("gl_colpass.cu", "ntt_aie_tpu/ops/pallas_gl.py::build_gl_colpass"),
+            ("fused_fourstep.cu",
+             "ntt_aie_tpu/ops/pallas_ntt.py::build_fused_fourstep")):
         text = (csrc / name).read_text()
         assert replaces in text
         assert "extern \"C\"" in text

@@ -100,6 +100,17 @@ def test_stage_twiddles_and_powers_match(name):
                     assert np.array_equal(vt, vj)
 
 
+@pytest.mark.parametrize("log_n", [10, 20])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_negacyclic_psi_powers_match(log_n, inverse):
+    t = ttw.negacyclic_psi_powers(tF.P_469762049, 1 << log_n,
+                                  inverse=inverse)
+    j = jtw.negacyclic_psi_powers(jF.P_469762049, 1 << log_n,
+                                  inverse=inverse)
+    assert t.dtype == np.int64
+    assert np.array_equal(t, j)
+
+
 @pytest.mark.parametrize("name", ["p469762049", "p2013265921", "goldilocks"])
 @pytest.mark.parametrize("num_shards", [1, 4])
 def test_config_split_matches(name, num_shards):
