@@ -3,21 +3,24 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
-It drives the port's three paths through their CUDA kernels and exits
+It drives the port's four paths through their CUDA kernels and exits
 non-zero at the first failure: the n = 2^20 forward NTT over p = 469762049
 as ``build_plan(...).make_batched(256)["fwd_mat"]``, its inverse and the
 cyclic product (the column-pass kernel); the same at n = 2^20 over
 Goldilocks p = 2^64 - 2^32 + 1 at B = 64 (the Goldilocks column-pass
-kernel and the pointwise Goldilocks product); and the fused plan
+kernel and the pointwise Goldilocks product); the fused plan
 ``build_plan(..., fused=True)`` at n = 2^20 over p = 469762049 with its
-negacyclic product (the fused four-step kernel). Phases, one JSON object
-per line:
+negacyclic product (the fused four-step kernel); and the nested R x S
+column pass's check and bench at 1024 x 1024 (``python -m
+ntt_aie_tpu_torch.scripts.proto_nested_colpass``: the nested kernel, the
+column-pass kernel and the butterfly probe), with the roofline probes.
+Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
                  as its own line), torch and CUDA versions;
   2. build     — compiles every csrc/*.cu (colpass, gl_colpass,
-                 fused_fourstep) with nvcc into build/, one process each,
-                 all at once, and times it;
+                 fused_fourstep, nested_colpass, bfly_probe) with nvcc into
+                 build/, one process each, all at once, and times it;
   3. kernel    — the 32-bit kernel against its plain PyTorch version on the
                  card, for cp1/cp2/icp2/icp1 at the 1024x1024 split and at
                  128x512 (plain and nested column networks), B = 4,
@@ -56,10 +59,31 @@ per line:
  11. fused_time — us/NTT of the fused fwd_mat at B = 1 and 256 and
                  inv_mat at B = 1, beside the fold plan's (timed in turns:
                  fold, fused, fused, fold) and the plain fused version's at
-                 B = 1.
+                 B = 1 and 256;
+ 12. nested_kernel — the nested kernel against its plain version,
+                 bit-exact: at the shapes phases 13-14 run it at (B = 64
+                 1024x1024 at fuse 1 to 5, the bench's; B = 1 1024x256 at
+                 fuse 3, the check's), and at B = 4 1024x1024 at fuse 1 to
+                 5, 2048x512, 256x512 with R = 8 and 64x512 (R = S = 8);
+                 at 1024x1024 also equal to the column-pass kernel;
+ 13. nested_check — the script's check mode on the card;
+ 14. nested_bench — the script's bench mode at B = 64, chain 8: the probe
+                 line, then the column-pass kernel and the nested kernel at
+                 fuse 1 to 5 (us per call, Gbf/s, % of the ideal rate);
+                 launch counts of phases 13-14 (nested, probe, column
+                 pass); the plain nested version's and the plain probe's
+                 times;
+ 15. roofline  — measure_peak, then measure_vpu_peak for harvey4 and
+                 Goldilocks at r = 64 and 128, and the probe kernel's
+                 values against its plain version at r = 64.
 
-Then one line {"kernels": [...]} and, last, the result line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Then one line {"kernels": [...]}: per kernel its time at the main path's
+shape ("ms", per launch), launches, the plain version's time, and its
+bound — the larger of the bytes it must move over the card's 3.35 TB/s and
+its butterflies over the measured ideal rate of its arithmetic (phase 15;
+its measured HBM rate is reported there, not used as a bound); library_ms
+is null (no single PyTorch call computes an NTT mod p). Last, the result
+line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
 
@@ -78,6 +102,16 @@ GL_KERNEL_SHAPES = ((1024, 1024), (128, 512), (2048, 256))
 # at: nested both sides, nested asymmetric both ways, plain both ways.
 FUSED_KERNEL_SHAPES = ((1024, 1024), (512, 2048), (2048, 512), (32, 64),
                        (64, 32))
+NESTED_BATCH, NESTED_CHAIN = 64, 8
+# (batch, n1, n2, R, fuse) the nested kernel is held against its plain
+# version at: the bench's shape at every fuse, the check's, and smaller
+# batches at shapes where the stage groups do not divide the phases
+NESTED_KERNEL_CASES = (
+    tuple((NESTED_BATCH, 1024, 1024, None, f) for f in range(1, 6))
+    + ((1, 1024, 256, None, 3),)
+    + tuple((4, 1024, 1024, None, f) for f in range(1, 6))
+    + ((4, 2048, 512, None, 3), (4, 256, 512, 8, 3), (4, 64, 512, None, 3)))
+SPEC_HBM_GBPS = 3350.0  # H100 SXM data sheet, GB/s
 
 
 def emit(obj) -> None:
@@ -109,7 +143,9 @@ def main() -> int:
     from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
     from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import nested_colpass as N
     from ntt_aie_tpu_torch.plan import fold_passes
+    from ntt_aie_tpu_torch.profiling import roofline as RL
     from ntt_aie_tpu_torch.utils.timing import time_device
 
     field = T.P_469762049
@@ -135,6 +171,8 @@ def main() -> int:
     C._library()
     G._library()
     F._library()
+    N._library()
+    RL._library()
     emit({"phase": "build", "ok": True,
           "seconds": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values())})
@@ -263,26 +301,56 @@ def main() -> int:
     fused_row = fused_phases(args, dev, card, rng)
     if fused_row is None:
         return 1
+    torch.cuda.empty_cache()
+    nested_rows = nested_phases(args, dev, card)
+    if nested_rows is None:
+        return 1
+    torch.cuda.empty_cache()
+    roof = roofline_phase(dev, card)
+    if roof is None:
+        return 1
+    # the probe's time is one launch of phase 15's harvey4 r = 64 reading
+    nested_rows[1].update(
+        ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
+        max_abs_err=max(v["max_abs_err"] for v in roof["probe"].values()))
 
     # ms per launch in the fwd_mat chain (one call is 2 launches), at the
-    # batch each path was timed at
-    emit({"kernels": [{
+    # batch each path was timed at; bytes and butterflies of one launch
+    rows = [{
         "name": "colpass", "route": "cuda",
         "source": "ntt_aie_tpu_torch/csrc/colpass.cu",
         "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:298",
         "launches": sum(launches.values()), "max_abs_err": max_err,
         "ms": k_fwd / 2 / 1e3, "plain_ms": p_fwd / 2 / 1e3,
         "batch": B, "plain_batch": pb,
-    }] + gl_rows + [fused_row]})
+        "bytes": (4 * B * n * 4 + 2 * n * 4) / 2,
+        "butterflies": B * n // 2 * 10, "arithmetic": "harvey4",
+    }] + gl_rows + [fused_row] + nested_rows
+    emit({"kernels": [_with_bound(row, roof) for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
+def _with_bound(row, roof):
+    """row with its bound: the larger of its bytes over the data sheet's
+    HBM rate and its butterflies over the measured ideal rate of its
+    arithmetic; and no library call (none computes an NTT or a product
+    mod p)."""
+    from ntt_aie_tpu_torch.profiling import roofline as RL
+
+    rate = roof["bfly_per_sec"].get(row.get("arithmetic"))
+    bound = RL.roofline_bound(row["bytes"], row["butterflies"],
+                              hbm_gbps=SPEC_HBM_GBPS, bfly_per_sec=rate)
+    return dict(row, **bound, time_over_bound=row["ms"] / bound["bound_ms"],
+                library_ms=None)
+
+
 def _plain_batch_time(fn, x, batch):
-    """Time fn on the first pb rows of the limb pair x, halving pb on
-    device OOM (the plain version's int64 carriers take 8 bytes a limb)."""
+    """Time fn on the first pb rows of x (a tensor or a limb pair),
+    halving pb on device OOM (the plain versions' int64 carriers take 8
+    bytes a word)."""
     import torch
 
     from ntt_aie_tpu_torch.utils.timing import time_device
@@ -290,7 +358,8 @@ def _plain_batch_time(fn, x, batch):
     pb = batch
     while True:
         try:
-            xp = tuple(v[:pb] for v in x)
+            xp = (tuple(v[:pb] for v in x) if isinstance(x, tuple)
+                  else x[:pb])
             return time_device(fn, xp, iters=2, repeats=3)["us_per_iter"], pb
         except torch.cuda.OutOfMemoryError:
             torch.cuda.empty_cache()
@@ -457,14 +526,18 @@ def goldilocks_phases(args, dev, card, rng):
          "replaces": "ntt_aie_tpu/ops/pallas_gl.py:33",
          "launches": sum(v[0] for v in launches.values()),
          "max_abs_err": max_err, "ms": k_fwd / 2 / 1e3,
-         "plain_ms": p_fwd / 2 / 1e3, "batch": B, "plain_batch": pb},
+         "plain_ms": p_fwd / 2 / 1e3, "batch": B, "plain_batch": pb,
+         "bytes": (4 * B * n * 8 + n * 8) / 2,
+         "butterflies": B * n // 2 * 10, "arithmetic": "goldilocks"},
         {"name": "gl_mul", "route": "cuda",
          "source": "ntt_aie_tpu_torch/csrc/gl_colpass.cu",
          "replaces": "ntt_aie_tpu/goldilocks_plan.py:462 (XLA pointwise "
                      "product, not a TPU kernel)",
          "launches": sum(v[1] for v in launches.values()),
          "max_abs_err": mul_err, "ms": k_mul / 1e3, "plain_ms": p_mul / 1e3,
-         "batch": B, "plain_batch": mb},
+         "batch": B, "plain_batch": mb,
+         "bytes": 2 * B * n * 8,  # gl_mul(v, v): one input, one output
+         "butterflies": 0, "arithmetic": None},
     ]
 
 
@@ -609,25 +682,192 @@ def fused_phases(args, dev, card, rng):
     fold_inv1, fused_inv1 = _in_turns(fold.inv_mat, plan.inv_mat, x[0])
     foldb, fusedb = _in_turns(fold_bat["fwd_mat"], bat["fwd_mat"], x)
     ff = plan.passes["ff"]
-    plain1 = time_device(lambda v: F.fused_fourstep_plain(v, ff),
-                         x[0])["us_per_iter"]
+
+    def plain(v):
+        return F.fused_fourstep_plain(v, ff)
+
+    plain1 = time_device(plain, x[0])["us_per_iter"]
+    plainb, pb = _plain_batch_time(plain, x, B)
     emit({"phase": "fused_time", "card": card,
           "fused_fwd_mat_us_per_ntt": {"1": fused1, "256": fusedb / B},
           "fold_fwd_mat_us_per_ntt": {"1": fold1, "256": foldb / B},
           "fused_inv_mat_us_per_ntt": {"1": fused_inv1},
           "fold_inv_mat_us_per_ntt": {"1": fold_inv1},
-          "plain_fused_fwd_us_per_ntt": {"1": plain1},
+          "plain_fused_fwd_us_per_ntt": {"1": plain1, str(pb): plainb / pb},
           "method": "CUDA events, 5 repeats of a dependent chain of 10, "
                     "trimmed mean; fold and fused timed in turns (fold, "
-                    "fused, fused, fold), mean of the two readings; us per "
-                    "NTT = us per call / batch"})
+                    "fused, fused, fold), mean of the two readings; plain "
+                    "at B > 1: 3 repeats of 2; us per NTT = us per call / "
+                    "batch"})
+    # the row's kernel and plain times are at B = 256: a chained B = 1
+    # reading is bound by the host's enqueue, not by the kernel (PERF.md)
     return {"name": "fused_fourstep", "route": "cuda",
             "source": "ntt_aie_tpu_torch/csrc/fused_fourstep.cu",
             "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:693",
             "launches": sum(v[0] for v in launches.values()),
-            "max_abs_err": max_err, "ms": fused1 / 1e3,
-            "plain_ms": plain1 / 1e3, "batch": 1, "plain_batch": 1,
-            "ms_batch_256": fusedb / 1e3}
+            "max_abs_err": max_err, "ms": fusedb / 1e3,
+            "plain_ms": plainb / 1e3, "batch": B, "plain_batch": pb,
+            "ms_batch_1": fused1 / 1e3, "plain_ms_batch_1": plain1 / 1e3,
+            # x and out at B = 256 and the (w, packed) wmid; the scratch
+            # between the phases is the kernel's own traffic
+            "bytes": 2 * B * n * 4 + 2 * n * 4,
+            "butterflies": B * n // 2 * 20, "arithmetic": "harvey4"}
+
+
+def nested_phases(args, dev, card):
+    """Phases 12-14: the nested R x S column pass's kernel, check and
+    bench. Returns its rows of the kernels line (nested_colpass and
+    bfly_probe), or None after emitting the failure."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import nested_colpass as N
+    from ntt_aie_tpu_torch.profiling import roofline as RL
+    from ntt_aie_tpu_torch.scripts import proto_nested_colpass as S
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    p = T.P_469762049.p
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+
+    # 12. nested_kernel: kernel against plain (and the column pass's
+    # kernel where it nests the same way)
+    max_err = 0
+    for batch, n1, n2, R, fuse in NESTED_KERNEL_CASES:
+        nc, meta = N.make_nested_colpass(n1, n2, R=R, batch=batch, fuse=fuse,
+                                         device=dev)
+        x = torch.randint(0, 4 * p, nc.shape, dtype=torch.int64, device=dev,
+                          generator=gen).to(torch.int32)
+        got = N.nested_colpass(x, nc)
+        torch.cuda.synchronize()
+        err = int((got.long() - N.nested_colpass_plain(x, nc).long())
+                  .abs().max())
+        max_err = max(max_err, err)
+        line = {"phase": "nested_kernel", "shape": list(nc.shape),
+                "R": meta["R"], "S": meta["S"], "fuse": fuse,
+                "max_abs_err": err}
+        if (n1, n2) == (1024, 1024):
+            cp = C.make_colpass(T.P_469762049, n1, direction="dif",
+                                device=dev)
+            line["equals_colpass_kernel"] = bool(torch.equal(
+                got, C.colpass(x, cp)))
+            err = err or int(not line["equals_colpass_kernel"])
+        emit(line)
+        if err:
+            fail("nested_kernel", f"B={batch} {n1}x{n2} R={meta['R']} "
+                 f"fuse={fuse} differs from its plain version or the "
+                 "column pass")
+            return None
+
+    # 13-14. the script's check and bench: the slice's main path
+    C.colpass.launches = N.nested_colpass.launches = 0
+    RL.probe_chain.launches = 0
+    check = S.check()
+    lines = S.bench(NESTED_BATCH, NESTED_CHAIN)
+    torch.cuda.synchronize()
+    launches = {"nested_colpass": N.nested_colpass.launches,
+                "bfly_probe": RL.probe_chain.launches,
+                "colpass": C.colpass.launches}
+    emit({"phase": "nested_check", "ok": check["check"] == "ok",
+          "R": check["R"], "S": check["S"]})
+    by_fuse = {ln["fuse"]: ln["us_per_call"] for ln in lines[1:]
+               if ln.get("fuse")}
+    colpass_us = next(ln["us_per_call"] for ln in lines[1:]
+                      if ln.get("fuse") is None)
+    launches_ok = all(v > 0 for v in launches.values())
+
+    # the plain versions at the bench's shapes
+    nc, _ = N.make_nested_colpass(S.BENCH_N1, S.BENCH_N2,
+                                  batch=NESTED_BATCH, device=dev)
+    x = torch.randint(0, p, nc.shape, dtype=torch.int32, device=dev,
+                      generator=gen)
+    plain_us = time_device(lambda v: N.nested_colpass_plain(v, nc), x,
+                           iters=2, repeats=3)["us_per_iter"]
+    del x
+    px, ptw = RL.probe_inputs("harvey4", 32 * 1024 * 1024 // 4, device=dev)
+    probe_r = 64
+    probe_plain_us = time_device(
+        lambda v: RL.probe_chain_plain(v, ptw, r=probe_r), px, iters=2,
+        repeats=3)["us_per_iter"]
+    ideal = lines[0]
+    emit({"phase": "nested_bench", "card": card, "batch": NESTED_BATCH,
+          "chain": NESTED_CHAIN, "probe_gbf": ideal["gbf"],
+          "probe_dispatch_us": ideal["dispatch_us"],
+          "colpass_us_per_call": colpass_us,
+          "nested_us_per_call_by_fuse": by_fuse,
+          "plain_nested_us_per_call": plain_us,
+          "plain_probe_us_per_launch": probe_plain_us,
+          "launches": launches, "launches_ok": launches_ok,
+          "method": "CUDA events; time_device(iters=3, repeats=4) of a "
+                    "dependent chain of 8 calls, trimmed mean, / 8; plain: "
+                    "iters=2, repeats=3"})
+    if not launches_ok:
+        fail("nested_bench", f"a kernel of the path did not launch: "
+             f"{launches}")
+        return None
+    n = S.BENCH_N1 * S.BENCH_N2
+    net = nc.net
+    probe_words = px.numel()
+    return [
+        {"name": "nested_colpass", "route": "cuda",
+         "source": "ntt_aie_tpu_torch/csrc/nested_colpass.cu",
+         "replaces": "scripts/proto_nested_colpass.py:48",
+         "launches": launches["nested_colpass"], "max_abs_err": max_err,
+         "ms": by_fuse[nc.fuse] / 1e3, "fuse": nc.fuse,
+         "ms_by_fuse": {f: us / 1e3 for f, us in by_fuse.items()},
+         "colpass_ms_same_shape": colpass_us / 1e3,
+         "plain_ms": plain_us / 1e3, "batch": NESTED_BATCH,
+         "plain_batch": NESTED_BATCH,
+         "bytes": 2 * NESTED_BATCH * n * 4
+         + 4 * (net.tw.numel() + net.wmid.numel()),
+         "butterflies": NESTED_BATCH * n // 2 * 10,
+         "arithmetic": "harvey4"},
+        {"name": "bfly_probe", "route": "cuda",
+         "source": "ntt_aie_tpu_torch/csrc/bfly_probe.cu",
+         "replaces": "ntt_aie_tpu/profiling/roofline.py:128 (the probe "
+                     "chain of measure_vpu_peak, under XLA: not a TPU "
+                     "kernel)",
+         "launches": launches["bfly_probe"], "max_abs_err": None,
+         "ms": None, "plain_ms": probe_plain_us / 1e3, "r": probe_r,
+         "batch": None, "plain_batch": None,
+         "bytes": 2 * probe_words * 4 + 4 * ptw.numel(),
+         "butterflies": probe_r * probe_words // 2,
+         "arithmetic": "harvey4"},
+    ]
+
+
+def roofline_phase(dev, card):
+    """Phase 15: the card's measured HBM rate and ideal butterfly rates,
+    and the probe kernel against its plain version. Returns {"hbm_gbps",
+    "bfly_per_sec": {arithmetic: rate}, "probe": {...}}, or None after
+    emitting the failure."""
+    import torch
+
+    from ntt_aie_tpu_torch.profiling import roofline as RL
+
+    peak = RL.measure_peak(device=dev)
+    emit(dict(peak, phase="roofline", probe="hbm", card=card))
+    rates, probe = {}, {}
+    for red in ("harvey4", "goldilocks"):
+        x, tw = RL.probe_inputs(red, 32 * 1024 * 1024 // 4, device=dev)
+        got = RL.probe_chain(x, tw, r=64, reduction=red)
+        torch.cuda.synchronize()
+        err = int((got.long() - RL.probe_chain_plain(
+            x, tw, r=64, reduction=red).long()).abs().max())
+        del x, got
+        for r in (64, 128):
+            out = RL.measure_vpu_peak(reduction=red, r=r, device=dev)
+            emit(dict(out, phase="roofline", probe="butterflies", card=card,
+                      max_abs_err_r64=err))
+            if r == 64:
+                rates[red] = out["butterflies_per_sec"]
+                probe[red] = dict(out, max_abs_err=err)
+        if err:
+            fail("roofline", f"the {red} probe kernel differs from its plain "
+                 "version")
+            return None
+    return {"hbm_gbps": peak["measured_hbm_gbps"], "bfly_per_sec": rates,
+            "probe": probe}
 
 
 if __name__ == "__main__":

@@ -10,7 +10,11 @@ column pass as a hand-written CUDA kernel (``ops/colpass.py`` and
 its plain PyTorch version on the CPU; and, for harvey4 fields, the fused
 plan (``build_plan(..., fused=True)``: one launch of
 ``csrc/fused_fourstep.cu`` a transform, ``ops/fused_fourstep.py``) with
-its negacyclic product.
+its negacyclic product; the round-4 nested R x S column pass
+(``ops/nested_colpass.py``, ``csrc/nested_colpass.cu``, run by
+``scripts/proto_nested_colpass.py``) and the roofline probes
+(``profiling/roofline.py``, ``csrc/bfly_probe.cu``). Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from ntt_aie_tpu_torch.fields import (  # noqa: F401

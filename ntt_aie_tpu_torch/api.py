@@ -12,14 +12,14 @@ import numpy as np
 from ntt_aie_tpu_torch import reference as ref
 from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.config import NTTConfig
+from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
 class NTTContext:
     """A plan on one device: forward / inverse / polymul.
 
     Usage:
-        ctx = NTTContext(NTTConfig(field=P_469762049, log_n=20),
-                         device="cuda")
+        ctx = NTTContext(NTTConfig(field=P_469762049, log_n=20))
         A = ctx.forward(a)           # flat spectral-order NTT
         c = ctx.polymul(a, b)        # NTT -> pointwise -> INTT
 
@@ -27,12 +27,13 @@ class NTTContext:
     ctx.negacyclic_polymul(a, b) is the product mod X^n + 1.
 
     Plan keyword arguments (fused, wmat_factored, wmat_fold) forward to
-    build_plan.
+    build_plan. device=None is the card, and raises RuntimeError without
+    one; device="cpu" runs the plain PyTorch version.
     """
 
     _PLAN_KWARGS = {"fused", "wmat_factored", "wmat_fold"}
 
-    def __init__(self, config: NTTConfig, *, device="cpu", mesh=None,
+    def __init__(self, config: NTTConfig, *, device=None, mesh=None,
                  **plan_kwargs):
         if mesh is not None:
             raise NotImplementedError(
@@ -43,7 +44,7 @@ class NTTContext:
             raise TypeError(f"unknown plan kwargs {bad}; a single-device "
                             f"context accepts {sorted(self._PLAN_KWARGS)}")
         self.config = config
-        self.device = device
+        self.device = resolve_device(device)
         self._plan_kwargs = plan_kwargs
         self._plan = None
 

@@ -1,0 +1,128 @@
+// Butterfly-rate probe for NVIDIA Hopper (sm_90a): the measured ideal
+// butterfly rate that ntt_aie_tpu_torch/profiling/roofline.py
+// measure_vpu_peak divides by.
+//
+// Replaces the probe chain of ntt_aie_tpu/profiling/roofline.py
+// measure_vpu_peak (:128-290), which runs under XLA on the TPU: per
+// element pair (u, w), r chained butterflies
+//   u, w <- add(u, w), mul_const(sub_for_mul(u, w), tw)
+// with no network around them: no shared memory, no barrier, no stage
+// table. In PyTorch ops each step would stream the buffer through device
+// memory and measure bandwidth, so this kernel holds u and w in registers
+// for all r steps. Two variants:
+//   harvey4 (p < 2^29): colpass_tile.cuh's arithmetic, values in the lazy
+//     domain [0, 4p), tw as (w, packed Shoup halves);
+//   goldilocks: gl_arith.cuh's canonical uint64 arithmetic on (hi, lo)
+//     limb planes, joined on load and split on store.
+// Layout (the reference's): u and w are (8, m) planes, one twiddle per
+// row, tw[e / m] for element e; the wrapper passes the planes back to back
+// in one buffer. The twiddle and the initial values are read from device
+// memory and both outputs are stored, so the compiler can neither fold the
+// chain nor drop it; the final values are a legal value stream, which the
+// plain version (profiling/roofline.py probe_chain_plain) reproduces bit
+// for bit.
+//
+// What bounds it: integer issue. Each thread runs one serial chain of r
+// butterflies on two registers (a harvey4 butterfly is some 15 integer
+// instructions, a Goldilocks one some 50); at r = 64 a harvey4 thread does
+// some 1 000 integer instructions per 16 bytes it moves, far above the
+// card's bytes-to-operations ridge. One thread per element pair, so the
+// serial chains' latency is hidden by the warps resident per SM. Loading
+// and storing the buffer is a fixed cost per launch, not overlapped with
+// the chain (a thread loads, runs r steps, then stores); measure_vpu_peak
+// subtracts the same launches at half the depth to remove it.
+
+#include "colpass_tile.cuh"
+#include "gl_arith.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+    probe_harvey4(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                  const uint32_t* __restrict__ tw_w,
+                  const uint32_t* __restrict__ tw_s, long long m, int r,
+                  uint32_t p) {
+  using colpass_tile::csub;
+  using colpass_tile::mulc;
+  const long long half = 8 * m;
+  const uint32_t p4 = 4u * p;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < half; e += (long long)gridDim.x * blockDim.x) {
+    const int row = static_cast<int>(e / m);
+    const uint32_t w = tw_w[row], ws = tw_s[row];
+    uint32_t a = x[e], b = x[half + e];
+    for (int k = 0; k < r; ++k) {
+      const uint32_t s = csub(a + b, p4);
+      b = mulc(a + (p4 - b), w, ws, p);
+      a = s;
+    }
+    out[e] = a;
+    out[half + e] = b;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    probe_goldilocks(const uint32_t* __restrict__ x,
+                     uint32_t* __restrict__ out,
+                     const uint32_t* __restrict__ tw_hi,
+                     const uint32_t* __restrict__ tw_lo, long long m, int r) {
+  // x: four (8, m) planes uh, ul, wh, wl back to back
+  const long long q = 8 * m;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < q; e += (long long)gridDim.x * blockDim.x) {
+    const int row = static_cast<int>(e / m);
+    const uint64_t w = ((uint64_t)tw_hi[row] << 32) | tw_lo[row];
+    uint64_t a = ((uint64_t)x[e] << 32) | x[q + e];
+    uint64_t b = ((uint64_t)x[2 * q + e] << 32) | x[3 * q + e];
+    for (int k = 0; k < r; ++k) {
+      const uint64_t s = gl_arith::gl_add(a, b);
+      b = gl_arith::gl_mul(gl_arith::gl_sub(a, b), w);
+      a = s;
+    }
+    out[e] = (uint32_t)(a >> 32);
+    out[q + e] = (uint32_t)a;
+    out[2 * q + e] = (uint32_t)(b >> 32);
+    out[3 * q + e] = (uint32_t)b;
+  }
+}
+
+int grid_for(long long n) {
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  return static_cast<int>(blocks < 132 * 256 ? blocks : 132 * 256);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ntt_probe_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Launches the probe on `stream`: r butterflies per element pair of the
+// (8, m) planes in x, into out (x's layout). goldilocks = 0: x is u, w
+// (2 * 8m uint32), tw_a / tw_b the (8,) w and packed Shoup tables, p the
+// prime; goldilocks = 1: x is uh, ul, wh, wl (4 * 8m), tw_a / tw_b the
+// (8,) hi and lo limbs. Returns cudaGetLastError() (0 = launched).
+int ntt_bfly_probe(const void* x, void* out, const void* tw_a,
+                   const void* tw_b, long long m, int r, int goldilocks,
+                   unsigned int p, void* stream) {
+  if (m < 1 || r < 0 || 8 * m > (1ll << 40))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* xi = static_cast<const uint32_t*>(x);
+  auto* o = static_cast<uint32_t*>(out);
+  const auto* ta = static_cast<const uint32_t*>(tw_a);
+  const auto* tb = static_cast<const uint32_t*>(tw_b);
+  if (goldilocks)
+    probe_goldilocks<<<grid_for(8 * m), kThreads, 0, s>>>(xi, o, ta, tb, m,
+                                                          r);
+  else
+    probe_harvey4<<<grid_for(8 * m), kThreads, 0, s>>>(xi, o, ta, tb, m, r,
+                                                       p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,7 +1,10 @@
-// Device code shared by the column pass (colpass.cu) and the fused
-// four-step kernel (fused_fourstep.cu): harvey4 arithmetic, one radix-2
-// stage on a shared-memory tile, and a whole (nn x TL) column tile — load,
-// every stage of a plain or nested network, store.
+// Device code shared by the column pass (colpass.cu), the fused four-step
+// kernel (fused_fourstep.cu), the nested column pass (nested_colpass.cu)
+// and the butterfly probe (bfly_probe.cu): harvey4 arithmetic, one radix-2
+// stage on a shared-memory tile, groups of DIF stages held in registers
+// between exchanges, and a whole (nn x TL) column tile — load, every stage
+// of a plain or nested network, store — with its load, mid step and store
+// also callable on their own.
 //
 // Arithmetic: harvey4, bit for bit the reference's uint32 operations.
 // Values travel in the lazy domain [0, 4p) (p < 2^29); the sub feeding a
@@ -78,9 +81,94 @@ __device__ __forceinline__ int row_of(int l, int log_a, int log_nn) {
   return ((l & ((1 << log_a) - 1)) << (log_nn - log_a)) | (l >> log_a);
 }
 
+// DIF stages s0 .. s0 + K - 1 of one phase (half sizes t_last << (K-1)
+// down to t_last) as radix-2^K butterflies held in registers, then one
+// barrier. Each thread loads the 2^K rows base + m * t_last (m < 2^K) of
+// one butterfly, runs the K stages on them in the same per-butterfly
+// operation order as one stage at a time — sub-stage q pairs m with
+// m + 2^(K-1-q) and takes the twiddle at ((m mod 2^(K-1-q)) * t_last + j)
+// — and writes the 2^K results back. So the outputs do not depend on how
+// the stages are grouped; K = 1 is one DIF stage per barrier. log_a: the
+// row map of this phase (-1 for phase 0).
+template <int K>
+__device__ __forceinline__ void run_group(uint32_t* tile, const Network& N,
+                                          int s0, int log_a, int log_tl,
+                                          uint32_t p) {
+  const int t_last = N.t[s0 + K - 1];
+  const int log_t = __ffs(t_last) - 1;
+  const int tl_mask = (1 << log_tl) - 1;
+  const int total = (N.nn >> K) << log_tl;
+  const uint32_t p4 = 4u * p;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i & tl_mask;
+    const int g = i >> log_tl;
+    const int j = g & (t_last - 1);
+    const int base = ((g >> log_t) << (log_t + K)) | j;
+    uint32_t v[1 << K];
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m)
+      v[m] = tile[(row_of(base + (m << log_t), log_a, N.log_nn) << log_tl)
+                  + c];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int h = 1 << (K - 1 - q);  // the pair's distance in m
+      const uint32_t* tw_w = N.tw_w + N.off[s0 + q];
+      const uint32_t* tw_s = N.tw_s + N.off[s0 + q];
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m) {
+        if (m & h) continue;
+        const int idx = ((m & (h - 1)) << log_t) | j;
+        const uint32_t a = v[m], b = v[m + h];
+        v[m] = csub(a + b, p4);
+        v[m + h] =
+            mulc(a + (p4 - b), __ldg(tw_w + idx), __ldg(tw_s + idx), p);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m)
+      tile[(row_of(base + (m << log_t), log_a, N.log_nn) << log_tl) + c] =
+          v[m];
+  }
+  __syncthreads();
+}
+
+// run_group<k> for a runtime k <= K: instantiates only groups up to K.
+template <int K>
+__device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
+                                               const Network& N, int s0,
+                                               int log_a, int log_tl,
+                                               uint32_t p) {
+  if constexpr (K > 1) {
+    if (k < K) {
+      run_group_upto<K - 1>(k, tile, N, s0, log_a, log_tl, p);
+      return;
+    }
+  }
+  run_group<K>(tile, N, s0, log_a, log_tl, p);
+}
+
+// DIF stages [s_begin, s_end) of one phase in groups of min(kFuse, stages
+// left); a group never crosses the phase's end.
+template <int kFuse>
+__device__ __forceinline__ void run_phase(uint32_t* tile, const Network& N,
+                                          int s_begin, int s_end, int log_a,
+                                          int log_tl, uint32_t p) {
+  for (int s = s_begin; s < s_end;) {
+    const int k = min(kFuse, s_end - s);
+    run_group_upto<kFuse>(k, tile, N, s, log_a, log_tl, p);
+    s += k;
+  }
+}
+
+// One radix-2 stage s (DIF: run_group<1>; DIT: the twiddle multiply
+// first), then a barrier.
 __device__ __forceinline__ void run_stage(uint32_t* tile, const Network& N,
                                           int s, int log_a, int log_tl,
                                           uint32_t p) {
+  if (!N.dit) {
+    run_group<1>(tile, N, s, log_a, log_tl, p);
+    return;
+  }
   const int t = N.t[s];
   const int log_t = __ffs(t) - 1;
   const uint32_t* tw_w = N.tw_w + N.off[s];
@@ -96,33 +184,21 @@ __device__ __forceinline__ void run_stage(uint32_t* tile, const Network& N,
     uint32_t* pu = tile + (row_of(lu, log_a, N.log_nn) << log_tl) + c;
     uint32_t* pv = tile + (row_of(lu + t, log_a, N.log_nn) << log_tl) + c;
     const uint32_t u = *pu, v = *pv;
-    const uint32_t w = __ldg(tw_w + j), ws = __ldg(tw_s + j);
-    if (!N.dit) {
-      *pu = csub(u + v, p4);
-      *pv = mulc(u + (p4 - v), w, ws, p);
-    } else {
-      const uint32_t wv = mulc(v, w, ws, p);
-      *pu = csub(u + wv, p4);
-      *pv = csub(u + (p4 - wv), p4);
-    }
+    const uint32_t wv = mulc(v, __ldg(tw_w + j), __ldg(tw_s + j), p);
+    *pu = csub(u + wv, p4);
+    *pv = csub(u + (p4 - wv), p4);
   }
   __syncthreads();
 }
 
-// Runs one tile with the whole block: load (reads along the column axis,
-// TL * 4 contiguous bytes per row), every stage of N in shared memory with
-// a barrier after each, then one store (coalesced along nn when
-// kTranspose), times mat when kMat. src and dst are this batch row's input
-// and output; col0 is the tile's first column. Output domain: [0, 4p), or
-// [0, p) with canonicalize. A caller that reuses the tile must
-// __syncthreads() first. The options that change the loops are template
-// parameters, so each kernel carries only the loops it runs.
-template <Load kLoad, bool kTranspose, bool kMat>
-__device__ __forceinline__ void column_tile(uint32_t* tile, const Network& N,
-                                            const TileOps& O,
-                                            const uint32_t* src,
-                                            uint32_t* dst, size_t col0,
-                                            uint32_t p) {
+// Loads one tile with the whole block: reads along the column axis (TL * 4
+// contiguous bytes per row), then a barrier. src is this batch row's input;
+// col0 is the tile's first column.
+template <Load kLoad>
+__device__ __forceinline__ void load_tile(uint32_t* tile, const Network& N,
+                                          const TileOps& O,
+                                          const uint32_t* src, size_t col0,
+                                          uint32_t p) {
   const int tl = 1 << O.log_tl;
   const int n_tile = N.nn << O.log_tl;
   for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
@@ -136,23 +212,35 @@ __device__ __forceinline__ void column_tile(uint32_t* tile, const Network& N,
       tile[i] = src[o];
   }
   __syncthreads();
+}
 
-  for (int s = 0; s < N.k0; ++s) run_stage(tile, N, s, -1, O.log_tl, p);
-  if (N.log_a >= 0) {
-    // mid step: DIF multiplies before the row move (physical rows), DIT
-    // after it (logical rows through the map)
-    const int map_a = N.dit ? N.log_a : -1;
-    for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
-      const int l = i >> O.log_tl;
-      uint32_t* e = tile + (row_of(l, map_a, N.log_nn) << O.log_tl)
-                    + (i & (tl - 1));
-      *e = mulc(*e, __ldg(N.mid_w + l), __ldg(N.mid_s + l), p);
-    }
-    __syncthreads();
-    for (int s = N.k0; s < N.nstages; ++s)
-      run_stage(tile, N, s, N.log_a, O.log_tl, p);
+// The nested network's mid step: DIF multiplies before the row move
+// (physical rows), DIT after it (logical rows through the map); then a
+// barrier.
+__device__ __forceinline__ void mid_step(uint32_t* tile, const Network& N,
+                                         int log_tl, uint32_t p) {
+  const int tl = 1 << log_tl;
+  const int n_tile = N.nn << log_tl;
+  const int map_a = N.dit ? N.log_a : -1;
+  for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
+    const int l = i >> log_tl;
+    uint32_t* e =
+        tile + (row_of(l, map_a, N.log_nn) << log_tl) + (i & (tl - 1));
+    *e = mulc(*e, __ldg(N.mid_w + l), __ldg(N.mid_s + l), p);
   }
+  __syncthreads();
+}
 
+// Stores one tile (logical row l from physical row row_of(l)): coalesced
+// along nn when kTranspose, times mat when kMat, then canonicalize if asked.
+// dst is this batch row's output.
+template <bool kTranspose, bool kMat>
+__device__ __forceinline__ void store_tile(const uint32_t* tile,
+                                           const Network& N, const TileOps& O,
+                                           uint32_t* dst, size_t col0,
+                                           uint32_t p) {
+  const int tl = 1 << O.log_tl;
+  const int n_tile = N.nn << O.log_tl;
   const uint32_t p2 = 2u * p;
   for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
     const int l = kTranspose ? i & (N.nn - 1) : i >> O.log_tl;
@@ -165,6 +253,28 @@ __device__ __forceinline__ void column_tile(uint32_t* tile, const Network& N,
     if (O.canonicalize) v = csub(csub(v, p2), p);
     dst[o] = v;
   }
+}
+
+// Runs one tile with the whole block: load, every stage of N in shared
+// memory with a barrier after each, then one store. src and dst are this
+// batch row's input and output; col0 is the tile's first column. Output
+// domain: [0, 4p), or [0, p) with canonicalize. A caller that reuses the
+// tile must __syncthreads() first. The options that change the loops are
+// template parameters, so each kernel carries only the loops it runs.
+template <Load kLoad, bool kTranspose, bool kMat>
+__device__ __forceinline__ void column_tile(uint32_t* tile, const Network& N,
+                                            const TileOps& O,
+                                            const uint32_t* src,
+                                            uint32_t* dst, size_t col0,
+                                            uint32_t p) {
+  load_tile<kLoad>(tile, N, O, src, col0, p);
+  for (int s = 0; s < N.k0; ++s) run_stage(tile, N, s, -1, O.log_tl, p);
+  if (N.log_a >= 0) {
+    mid_step(tile, N, O.log_tl, p);
+    for (int s = N.k0; s < N.nstages; ++s)
+      run_stage(tile, N, s, N.log_a, O.log_tl, p);
+  }
+  store_tile<kTranspose, kMat>(tile, N, O, dst, col0, p);
 }
 
 inline int ilog2(int v) {

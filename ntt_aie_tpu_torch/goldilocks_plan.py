@@ -30,15 +30,17 @@ from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.gl_colpass import gl_mul, make_gl_colpass
 from ntt_aie_tpu_torch.plan import Plan, _not_ported
+from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
-def gl_fold_passes(field, n1: int, n2: int, *, device="cpu") -> dict:
+def gl_fold_passes(field, n1: int, n2: int, *, device=None) -> dict:
     """The four Goldilocks column passes of the fold plan for an (n1, n2)
     split (reference goldilocks_plan.py:244-259): cp1 and icp1 over
     (.., n1, n2), cp2 and icp2 over (.., n2, n1). The four-step multiply
     rides the transposing passes' exit as 'post_t', with its operand in
     output orientation: wmat.T for cp1, iwmat_scaled (1/n folded in) for
-    icp2."""
+    icp2. device: None is the card."""
+    device = resolve_device(device)
     tabs = tw.fourstep_tables(field, n1, n2)
     return {
         "cp1": make_gl_colpass(field, n1, direction="dif", transpose_out=True,
@@ -53,12 +55,13 @@ def gl_fold_passes(field, n1: int, n2: int, *, device="cpu") -> dict:
     }
 
 
-def build_goldilocks_plan(config: NTTConfig, *, device="cpu",
+def build_goldilocks_plan(config: NTTConfig, *, device=None,
                           wmat_fold: bool | None = None,
                           wmat_factored: bool | None = None) -> Plan:
     """Build the Goldilocks four-step fold plan of `config` on `device`.
 
-    Tables are prepared once here, on the plan's device. The flat split,
+    Tables are prepared once here, on the plan's device (None: the card,
+    RuntimeError without one). The flat split,
     negacyclic products and the factored or unfolded wmat arms raise
     NotImplementedError naming the ROADMAP.md item that ports them.
     """
@@ -79,7 +82,7 @@ def build_goldilocks_plan(config: NTTConfig, *, device="cpu",
     if config.num_shards != 1:
         _not_ported("the distributed plan", "Queue 1 item 10")
 
-    device = torch.device(device)
+    device = resolve_device(device)
     n = config.n
     pos = tw.spectral_positions(n1, n2)
     passes = gl_fold_passes(field, n1, n2, device=device)

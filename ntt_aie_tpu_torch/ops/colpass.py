@@ -42,6 +42,7 @@ import torch
 from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.reductions import Reduction, make_reduction
+from ntt_aie_tpu_torch.utils.device import resolve_device
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
@@ -136,10 +137,12 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
 
 def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
                  wmat: np.ndarray | None = None, canonicalize: bool = False,
-                 transpose_out: bool = False, device="cpu") -> ColPass:
+                 transpose_out: bool = False, device=None) -> ColPass:
     """Build a column pass for nn-point columns from the port's own
     twiddles.col_network. wmat: host (ncols, nn) 'post_t' operand (the
-    four-step matrix in output orientation), applied after the transpose."""
+    four-step matrix in output orientation), applied after the transpose.
+    device: None is the card (utils.device.resolve_device)."""
+    device = resolve_device(device)
     red = make_reduction("harvey4", field)
     net = tw.col_network(field, nn, direction=direction, inverse=inverse_tw)
     stage_tabs = [red.prepare_table(v)
@@ -156,11 +159,13 @@ def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
 def colpass_from_reference(arrays: dict, *, field, direction: str,
                            phases_ts, mid_rs, canonicalize: bool = False,
                            transpose_out: bool = False,
-                           device="cpu") -> ColPass:
+                           device=None) -> ColPass:
     """Build a column pass from the reference Pallas colpass's own
     operands: arrays["tw_cols"] is ``PallasColpass.tw_cols`` as NumPy
     arrays (per stage (w, wh, wl), then the nested wmid's three), and
-    arrays["wmat"] its ``.wmat`` pair (w, packed) or None."""
+    arrays["wmat"] its ``.wmat`` pair (w, packed) or None. device: None
+    is the card."""
+    device = resolve_device(device)
     red = make_reduction("harvey4", field)
     cols = list(arrays["tw_cols"])
     nt = red.n_tables

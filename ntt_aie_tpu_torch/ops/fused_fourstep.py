@@ -36,6 +36,7 @@ import torch
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.reductions import Reduction
+from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -67,11 +68,12 @@ class FusedFourstep:
 def make_fused_fourstep(field, n1: int, n2: int, *, inverse: bool = False,
                         wmid: np.ndarray, pre: np.ndarray | None = None,
                         post: np.ndarray | None = None,
-                        device="cpu") -> FusedFourstep:
+                        device=None) -> FusedFourstep:
     """Build a fused transform of an n = n1 * n2 four-step split from the
     port's own twiddles.col_network. wmid / post: host (nn_b, nn_a)
     matrices; pre: host (nn_a, nn_b); (nn_a, nn_b) = (n1, n2) forward,
-    (n2, n1) inverse."""
+    (n2, n1) inverse. device: None is the card."""
+    device = resolve_device(device)
     direction = "dit" if inverse else "dif"
     nn_a, nn_b = (n2, n1) if inverse else (n1, n2)
     net_a, net_b = (C.make_colpass(field, nn, direction=direction,

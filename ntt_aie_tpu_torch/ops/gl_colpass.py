@@ -32,6 +32,7 @@ import torch
 from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import modops as M
+from ntt_aie_tpu_torch.utils.device import resolve_device
 
 MAX_ROWS = 4096  # csrc/gl_colpass.cu kMaxRows
 
@@ -69,10 +70,12 @@ def _u64_tensor(a, device) -> torch.Tensor:
 
 def make_gl_colpass(field, nn: int, *, direction: str,
                     inverse_tw: bool = False, wmat: np.ndarray | None = None,
-                    transpose_out: bool = False, device="cpu") -> GLColPass:
+                    transpose_out: bool = False, device=None) -> GLColPass:
     """Build a Goldilocks column pass for nn-point columns from the port's
     own twiddles.col_network. wmat: host (ncols, nn) 'post_t' operand (the
-    four-step matrix in output orientation), applied after the transpose."""
+    four-step matrix in output orientation), applied after the transpose.
+    device: None is the card."""
+    device = resolve_device(device)
     if not field.is_goldilocks:
         raise ValueError(f"the Goldilocks column pass needs p = 2^64 - 2^32 "
                          f"+ 1, got p={field.p}")

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ntt_aie_tpu_torch.utils.device import resolve_device
+
 MASK32 = 0xFFFFFFFF
 MASK16 = 0xFFFF
 
@@ -169,9 +171,10 @@ def gl_mul(ahi, alo, bhi, blo):
     return _gl_reduce128(r3, r2, r1, l00)
 
 
-def gl_from_u64(x, device="cpu"):
+def gl_from_u64(x, device=None):
     """NumPy uint64 array-like -> (hi, lo) torch.int32 limb planes (uint32
-    bit patterns) on `device`."""
+    bit patterns) on `device` (None: the card)."""
+    device = resolve_device(device)
     x = np.asarray(x, dtype=np.uint64)
     hi = (x >> np.uint64(32)).astype(np.uint32)
     lo = (x & np.uint64(0xFFFFFFFF)).astype(np.uint32)

@@ -39,6 +39,7 @@ from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.colpass import make_colpass
 from ntt_aie_tpu_torch.ops.fused_fourstep import make_fused_fourstep
 from ntt_aie_tpu_torch.ops.reductions import make_reduction, resolve_kind
+from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -82,12 +83,14 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
 
-def fold_passes(field, n1: int, n2: int, *, device="cpu") -> dict:
+def fold_passes(field, n1: int, n2: int, *, device=None) -> dict:
     """The four column passes of the four-step fold plan for an (n1, n2)
     split (reference plan.py:275-293): cp1 and icp1 over (.., n1, n2),
     cp2 and icp2 over (.., n2, n1). The four-step multiply rides the
     transposing passes' exit as 'post_t', with its operand in output
-    orientation: wmat.T for cp1, iwmat_scaled (1/n folded in) for icp2."""
+    orientation: wmat.T for cp1, iwmat_scaled (1/n folded in) for icp2.
+    device: None is the card (utils.device.resolve_device)."""
+    device = resolve_device(device)
     tabs = tw.fourstep_tables(field, n1, n2)
     return {
         "cp1": make_colpass(field, n1, direction="dif", transpose_out=True,
@@ -104,13 +107,14 @@ def fold_passes(field, n1: int, n2: int, *, device="cpu") -> dict:
 
 
 def fused_passes(field, n1: int, n2: int, *, negacyclic: bool = False,
-                 device="cpu") -> dict:
+                 device=None) -> dict:
     """The fused transforms of the fused plan for an (n1, n2) split
     (reference plan.py:328-336, :685-689): ff over (.., n1, n2) with wmid
     = wmat.T, fi over (.., n2, n1) with wmid = iwmat_scaled (1/n folded
     in; for harvey4 the polymul inverse is the same transform), and with
     negacyclic nf = ff with psi^i as 'pre', ni = fi with psi^-i as
-    'post'."""
+    'post'. device: None is the card."""
+    device = resolve_device(device)
     tabs = tw.fourstep_tables(field, n1, n2)
     wmid_fwd = np.ascontiguousarray(tabs["wmat"].T)
     out = {
@@ -133,15 +137,16 @@ def fused_passes(field, n1: int, n2: int, *, negacyclic: bool = False,
     return out
 
 
-def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
+def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
                wmat_factored: bool | None = None,
                wmat_fold: bool | None = None) -> Plan:
     """Build the four-step plan of `config` on `device`: the fold plan, or
     with fused=True the fused plan (for Goldilocks, build_goldilocks_plan's
     fold plan; `fused` does not apply there, as in the reference).
 
-    Tables are prepared once here, on the plan's device. Configurations
-    outside the ported slice raise NotImplementedError naming the
+    Tables are prepared once here, on the plan's device: the card when
+    device is None (RuntimeError without one; device="cpu" runs the plain
+    PyTorch version). Configurations outside the ported slice raise NotImplementedError naming the
     ROADMAP.md item that ports them.
     """
     field = config.field
@@ -169,7 +174,7 @@ def build_plan(config: NTTConfig, *, device="cpu", fused: bool = False,
     if config.num_shards != 1:
         _not_ported("the distributed plan", "Queue 1 item 10")
 
-    device = torch.device(device)
+    device = resolve_device(device)
     n = config.n
     pos = tw.spectral_positions(n1, n2)
     if fused:

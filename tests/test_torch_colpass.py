@@ -73,7 +73,7 @@ def _canon(a):
 
 def _port_pass(source, name, n1, n2, jcp):
     if source == "port":
-        return fold_passes(TFIELD, n1, n2)[name]
+        return fold_passes(TFIELD, n1, n2, device="cpu")[name]
     direction, inv, _, _, transpose, canon = SPEC[name]
     nn, _ = _geometry(name, n1, n2)
     net = jtw.col_network(JFIELD, nn, direction=direction, inverse=inv)
@@ -84,7 +84,7 @@ def _port_pass(source, name, n1, n2, jcp):
         arrays, field=TFIELD, direction=direction,
         phases_ts=[ph["ts"] for ph in net["phases"]],
         mid_rs=(net["R"], net["S"]), canonicalize=canon,
-        transpose_out=transpose)
+        transpose_out=transpose, device="cpu")
 
 
 @pytest.mark.parametrize("source", ["reference", "port"])
@@ -125,7 +125,7 @@ def test_port_tables_equal_reference_operands():
 
 
 def test_colpass_rejects_bad_input():
-    cp = fold_passes(TFIELD, 16, 128)["cp1"]
+    cp = fold_passes(TFIELD, 16, 128, device="cpu")["cp1"]
     with pytest.raises(TypeError):
         C.colpass(torch.zeros(16, 128, dtype=torch.int64), cp)
     with pytest.raises(ValueError):
@@ -134,7 +134,8 @@ def test_colpass_rejects_bad_input():
         C.colpass(torch.zeros(2, 16, 64, dtype=torch.int32), cp)
     with pytest.raises(ValueError):
         C.make_colpass(TFIELD, 16, direction="dif",
-                       wmat=np.zeros((128, 16), np.int64))  # no transpose
+                       wmat=np.zeros((128, 16), np.int64),  # no transpose
+                       device="cpu")
     with pytest.raises(ValueError):
         C.tile_cols(2 * C.MAX_ROWS, 128)
 

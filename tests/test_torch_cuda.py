@@ -1,6 +1,7 @@
 """The CUDA column passes (32-bit and Goldilocks), the fused four-step
-kernel and the Goldilocks pointwise product against their plain PyTorch
-versions, on the card.
+kernel, the Goldilocks pointwise product, the nested R x S column pass and
+the butterfly probe against their plain PyTorch versions, on the card; and
+the entry points' default device.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -19,13 +20,19 @@ from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import fused_fourstep as FF
 from ntt_aie_tpu_torch.ops import gl_colpass as G
 from ntt_aie_tpu_torch.ops import modops as M
+from ntt_aie_tpu_torch.ops import nested_colpass as N
 from ntt_aie_tpu_torch.plan import fold_passes, fused_passes
+from ntt_aie_tpu_torch.profiling import roofline as RL
 
 pytestmark = pytest.mark.cuda
 P = T.P_469762049.p
 GL_P = T.GOLDILOCKS.p
 # (n1, n2): nested both sides, nested asymmetric both ways, plain both ways
 FUSED_SHAPES = [(1024, 1024), (512, 2048), (2048, 512), (32, 64), (64, 32)]
+# (n1, n2, R, batch): the bench width, n1 != R^2, a non-default R, nesting
+# below 256 rows (R = S = 8)
+NESTED_SHAPES = [(1024, 1024, None, 4), (2048, 512, None, 2),
+                 (256, 512, 8, 2), (64, 512, None, 2)]
 
 
 @pytest.fixture
@@ -189,3 +196,71 @@ def test_gl_kernel_rejects_non_contiguous(cuda):
     y = torch.zeros(128, 16, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         G.gl_mul((y.t(), y.t()), (y.t(), y.t()))
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n1,n2,R,batch", NESTED_SHAPES)
+def test_nested_kernel_matches_plain(cuda, n1, n2, R, batch, fuse):
+    nc, meta = N.make_nested_colpass(n1, n2, R=R, batch=batch, fuse=fuse,
+                                     device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(n1 + n2 + fuse)
+    x = torch.randint(0, 4 * P, nc.shape, dtype=torch.int64, device=cuda,
+                      generator=g).to(torch.int32)
+    before = N.nested_colpass.launches
+    got = N.nested_colpass(x, nc)
+    torch.cuda.synchronize()
+    assert N.nested_colpass.launches == before + 1
+    assert torch.equal(got, N.nested_colpass_plain(x, nc))
+    if R is None and n1 >= 256:  # where the column pass nests the same way
+        cp = C.make_colpass(T.P_469762049, n1, direction="dif", device=cuda)
+        assert torch.equal(got, C.colpass(x, cp))
+
+
+def test_nested_kernel_rejects_bad_input(cuda):
+    nc, _ = N.make_nested_colpass(64, 32, batch=2, fuse=N.MAX_FUSE + 1,
+                                  device=cuda)
+    x = torch.zeros(2, 64, 32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        N.nested_colpass(x, nc)
+    nc, _ = N.make_nested_colpass(64, 64, batch=2, device=cuda)
+    y = torch.zeros(2, 64, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        N.nested_colpass(y.transpose(1, 2), nc)
+
+
+@pytest.mark.parametrize("words,r", [(4096, 4), (1 << 22, 64)])
+@pytest.mark.parametrize("reduction", ["harvey4", "goldilocks"])
+def test_probe_matches_plain(cuda, reduction, words, r):
+    x, tw = RL.probe_inputs(reduction, words, device=cuda)
+    before = RL.probe_chain.launches
+    got = RL.probe_chain(x, tw, r=r, reduction=reduction)
+    torch.cuda.synchronize()
+    assert RL.probe_chain.launches == before + 1
+    assert torch.equal(got, RL.probe_chain_plain(x, tw, r=r,
+                                                 reduction=reduction))
+
+
+def test_measurements_run_on_the_card(cuda):
+    assert RL.measure_peak(mb=64, iters=2, repeats=3,
+                           device=cuda)["measured_hbm_gbps"] > 0
+    for reduction in ("harvey4", "goldilocks"):
+        out = RL.measure_vpu_peak(reduction=reduction, mb=4, r=8, iters=2,
+                                  repeats=3)
+        assert out["butterflies_per_sec"] > 0 and out["reduction"] == reduction
+
+
+def test_default_device_is_the_card(cuda):
+    cfg = T.NTTConfig(field=T.P_469762049, log_n=16, rows_log2=8)
+    plan = T.build_plan(cfg)
+    assert plan.device.type == "cuda"
+    assert all(cp.tw.device.type == "cuda" for cp in plan.passes.values())
+    assert plan.fwd(np.arange(cfg.n)).device.type == "cuda"
+    assert T.NTTContext(cfg).device.type == "cuda"
+    assert T.build_plan(cfg, fused=True).passes["ff"].wmid.device.type == \
+        "cuda"
+    gl = T.build_plan(T.NTTConfig(field=T.GOLDILOCKS, log_n=16, rows_log2=8))
+    assert gl.passes["cp1"].tw.device.type == "cuda"
+    assert M.gl_from_u64(np.arange(4, dtype=np.uint64))[0].device.type == \
+        "cuda"
+    nc, _ = N.make_nested_colpass(64, 8)
+    assert nc.net.tw.device.type == "cuda"

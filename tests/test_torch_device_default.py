@@ -1,0 +1,109 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU: with device=None they resolve to CUDA, and without a CUDA device they
+raise RuntimeError (no CPU fallback); device="cpu" takes the plain PyTorch
+route. The CUDA check is patched here, so the tests say the same on any
+machine; the card tests (test_torch_cuda.py) build on the real card."""
+
+import numpy as np
+import pytest
+import torch
+
+import ntt_aie_tpu_torch as T
+from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
+from ntt_aie_tpu_torch.ops import colpass as C
+from ntt_aie_tpu_torch.ops import fused_fourstep as FF
+from ntt_aie_tpu_torch.ops import gl_colpass as G
+from ntt_aie_tpu_torch.ops import modops as M
+from ntt_aie_tpu_torch.ops import nested_colpass as N
+from ntt_aie_tpu_torch.plan import fold_passes, fused_passes
+from ntt_aie_tpu_torch.profiling import roofline as RL
+from ntt_aie_tpu_torch.utils.device import resolve_device
+
+F32 = T.P_469762049
+CFG = T.NTTConfig(field=F32, log_n=10, rows_log2=5)
+GL_CFG = T.NTTConfig(field=T.GOLDILOCKS, log_n=10, rows_log2=5)
+WMID = np.ones((32, 32), dtype=np.int64)
+
+# name -> entry point called with device=<value>; returns what it built
+ENTRY_POINTS = {
+    "build_plan": lambda d: T.build_plan(CFG, device=d),
+    "build_plan_fused": lambda d: T.build_plan(CFG, device=d, fused=True),
+    "build_plan_goldilocks": lambda d: T.build_plan(GL_CFG, device=d),
+    "build_goldilocks_plan": lambda d: T.build_goldilocks_plan(GL_CFG,
+                                                               device=d),
+    "NTTContext": lambda d: T.NTTContext(CFG, device=d),
+    "fold_passes": lambda d: fold_passes(F32, 32, 32, device=d),
+    "fused_passes": lambda d: fused_passes(F32, 32, 32, device=d),
+    "gl_fold_passes": lambda d: gl_fold_passes(T.GOLDILOCKS, 32, 32,
+                                               device=d),
+    "make_colpass": lambda d: C.make_colpass(F32, 32, direction="dif",
+                                             device=d),
+    "make_gl_colpass": lambda d: G.make_gl_colpass(T.GOLDILOCKS, 32,
+                                                   direction="dif", device=d),
+    "make_fused_fourstep": lambda d: FF.make_fused_fourstep(
+        F32, 32, 32, wmid=WMID, device=d),
+    "make_nested_colpass": lambda d: N.make_nested_colpass(64, 8,
+                                                           device=d)[0],
+    "gl_from_u64": lambda d: M.gl_from_u64(np.arange(4, dtype=np.uint64),
+                                           d),
+    "probe_inputs": lambda d: RL.probe_inputs("harvey4", 64, device=d)[0],
+}
+
+
+def _tensors(obj):
+    """Every tensor an entry point's result holds (one level of fields)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in _tensors(v)]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _tensors(v)]
+    if hasattr(obj, "__dataclass_fields__"):
+        return [t for k in obj.__dataclass_fields__
+                for t in _tensors(getattr(obj, k))]
+    return []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_raises_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name](None)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_explicit_cpu_builds_on_the_cpu(no_cuda, name):
+    built = ENTRY_POINTS[name]("cpu")
+    if name == "NTTContext":
+        assert built.device == torch.device("cpu")
+        built = built.plan
+    tensors = _tensors(built)
+    if hasattr(built, "passes"):
+        tensors += _tensors(built.passes)
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+def test_default_resolves_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+
+
+def test_measurements_raise_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RL.measure_peak()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RL.measure_vpu_peak(reduction="goldilocks")
+
+
+def test_cpu_plan_runs_the_plain_route(no_cuda):
+    plan = T.build_plan(CFG, device="cpu")
+    C.colpass.launches = 0
+    a = np.arange(CFG.n) % F32.p
+    assert np.array_equal(plan.inv(plan.fwd(a)).numpy(), a)
+    assert C.colpass.launches == 0

@@ -73,7 +73,7 @@ def check_plain_against_reference(n1, n2, inverse, operands, B):
         x, want = x[0], want[0]
     wmid, pre, post = _tables(ttw, TFIELD, n1, n2, inverse, operands)
     ff = FF.make_fused_fourstep(TFIELD, n1, n2, inverse=inverse, wmid=wmid,
-                                pre=pre, post=post)
+                                pre=pre, post=post, device="cpu")
     got = FF.fused_fourstep(torch.from_numpy(x.view(np.int32)), ff)
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     got = got.numpy().view(np.uint32)
@@ -95,23 +95,26 @@ def test_fused_networks_and_operands():
     n1, n2 = 32, 64
     wmid, pre, post = _tables(ttw, TFIELD, n1, n2, True, "post")
     ff = FF.make_fused_fourstep(TFIELD, n1, n2, inverse=True, wmid=wmid,
-                                post=post)
+                                post=post, device="cpu")
     assert ff.shape_in == (n2, n1)
     for net, nn in ((ff.net_a, n2), (ff.net_b, n1)):
-        own = C.make_colpass(TFIELD, nn, direction="dit", inverse_tw=True)
+        own = C.make_colpass(TFIELD, nn, direction="dit", inverse_tw=True,
+                             device="cpu")
         assert net.nn == nn and net.direction == "dit"
         assert torch.equal(net.tw, own.tw)
     assert tuple(ff.wmid.shape) == (2, n1, n2)
     assert tuple(ff.post.shape) == (2, n1, n2) and ff.pre is None
     with pytest.raises(ValueError, match="wmid"):
-        FF.make_fused_fourstep(TFIELD, n1, n2, inverse=True, wmid=wmid.T)
+        FF.make_fused_fourstep(TFIELD, n1, n2, inverse=True, wmid=wmid.T,
+                               device="cpu")
     with pytest.raises(ValueError, match="pre"):
-        FF.make_fused_fourstep(TFIELD, n1, n2, wmid=wmid.T, pre=post.T)
+        FF.make_fused_fourstep(TFIELD, n1, n2, wmid=wmid.T, pre=post.T,
+                               device="cpu")
 
 
 def test_fused_rejects_bad_input():
     ff = FF.make_fused_fourstep(TFIELD, 32, 64, wmid=_tables(
-        ttw, TFIELD, 32, 64, False, "none")[0])
+        ttw, TFIELD, 32, 64, False, "none")[0], device="cpu")
     with pytest.raises(TypeError):
         FF.fused_fourstep(torch.zeros(32, 64, dtype=torch.int64), ff)
     with pytest.raises(ValueError):

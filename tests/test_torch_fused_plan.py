@@ -83,7 +83,8 @@ def reference_outputs(log_n, rows_log2, batched):
 
 @functools.lru_cache(maxsize=None)
 def port_plan(log_n, rows_log2, **kw):
-    return T.build_plan(_cfgs(log_n, rows_log2, **kw)[1], fused=True)
+    return T.build_plan(_cfgs(log_n, rows_log2, **kw)[1], device="cpu",
+                        fused=True)
 
 
 def check_callable(log_n, rows_log2, name, batched):
@@ -133,8 +134,8 @@ def test_negacyclic_oracles_match_native():
 @pytest.mark.parametrize("log_n,rows_log2", [(16, 8), (20, 10)])
 def test_fused_equals_fold_plan(log_n, rows_log2):
     _, tc = _cfgs(log_n, rows_log2)
-    fold = T.build_plan(tc)
-    fused = T.build_plan(tc, fused=True)
+    fold = T.build_plan(tc, device="cpu")
+    fused = T.build_plan(tc, device="cpu", fused=True)
     assert set(fused.passes) == {"ff", "fi"}
     a, _ = _inputs(log_n, seed=5)
     f = fused.fwd(a[0])
@@ -164,13 +165,14 @@ def test_context_negacyclic_errors_match_reference():
     with pytest.raises(ValueError) as jerr:
         JContext(jc, fused=True).negacyclic_polymul(a[0], b[0])
     with pytest.raises(ValueError) as terr:
-        T.NTTContext(tc, fused=True).negacyclic_polymul(a[0], b[0])
+        T.NTTContext(tc, device="cpu", fused=True).negacyclic_polymul(
+            a[0], b[0])
     assert str(terr.value) == str(jerr.value)
     with pytest.raises(NotImplementedError):
-        T.NTTContext(tc, fused=True).negacyclic_polymul_mat(
+        T.NTTContext(tc, device="cpu", fused=True).negacyclic_polymul_mat(
             a[0].reshape(32, 32), b[0].reshape(32, 32))
     _, nc = _cfgs(10, 5, negacyclic=True)
-    ctx = T.NTTContext(nc, fused=True)
+    ctx = T.NTTContext(nc, device="cpu", fused=True)
     plan = port_plan(10, 5, negacyclic=True)
     assert torch.equal(ctx.negacyclic_polymul(a[0], b[0]),
                        plan.negacyclic_polymul(a[0], b[0]))
@@ -183,8 +185,9 @@ def test_context_negacyclic_errors_match_reference():
 def test_unported_fused_configs_raise():
     _, nc = _cfgs(11, 4, negacyclic=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-        T.build_plan(nc)
+        T.build_plan(nc, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-        T.NTTContext(nc).negacyclic_polymul(np.zeros(2048), np.zeros(2048))
+        T.NTTContext(nc, device="cpu").negacyclic_polymul(np.zeros(2048),
+                                                         np.zeros(2048))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4g"):
-        T.build_plan(nc, fused=True, wmat_factored=True)
+        T.build_plan(nc, device="cpu", fused=True, wmat_factored=True)

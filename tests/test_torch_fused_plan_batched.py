@@ -22,7 +22,7 @@ def test_fused_plan_matches_reference_plan_batched(name):
 def test_fused_plan_natural_ordering_matches_reference():
     jc, tc = _cfgs(10, 5, ordering="natural")
     jp = jplan.build_plan(jc, engine="pallas", interpret=True, fused=True)
-    tp = T.build_plan(tc, fused=True)
+    tp = T.build_plan(tc, device="cpu", fused=True)
     assert tp.fwd_mat is None and tp.inv_mat is None
     a, _ = _inputs(10, seed=2)
     jb, tb = jp.make_batched(B), tp.make_batched(B)

@@ -42,7 +42,8 @@ def _rand(log_n, seed, rows=2):
 @functools.lru_cache(maxsize=None)
 def _port_plan(log_n, rows_log2, ordering="bitrev"):
     return T.build_plan(T.NTTConfig(field=GL, log_n=log_n,
-                                    rows_log2=rows_log2, ordering=ordering))
+                                    rows_log2=rows_log2, ordering=ordering),
+                        device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,7 +73,7 @@ def test_unbatched_matches_reference_plan(fn):
             "fwd": (a,), "inv": (want["fwd"],), "polymul": (a, b)}[fn]
     got = getattr(plan, fn)(*args)
     assert got.dtype == np.uint64 and np.array_equal(got, want[fn])
-    pair = getattr(plan, fn)(*(tM.gl_from_u64(v) for v in args))
+    pair = getattr(plan, fn)(*(tM.gl_from_u64(v, "cpu") for v in args))
     assert np.array_equal(tM.gl_to_u64(*pair), want[fn])
 
 
@@ -116,7 +117,7 @@ def test_natural_ordering():
 def test_limb_pair_and_uint64_interfaces_agree():
     plan = _port_plan(10, 4)
     a = _rand(10, 4)[0]
-    hl = tM.gl_from_u64(a)
+    hl = tM.gl_from_u64(a, "cpu")
     out = plan.fwd(hl)
     assert isinstance(out, tuple)
     assert all(v.dtype == torch.int32 and tuple(v.shape) == (1 << 10,)
@@ -133,7 +134,7 @@ def test_context_serves_goldilocks(ordering):
     tc = T.NTTConfig(field=GL, log_n=12, rows_log2=8, ordering=ordering)
     jc = jcfg.NTTConfig(field=jF.GOLDILOCKS, log_n=12, rows_log2=8,
                         ordering=ordering)
-    ctx = T.NTTContext(tc)
+    ctx = T.NTTContext(tc, device="cpu")
     assert ctx.plan.reduction == "goldilocks"
     a, b = _rand(12, 5), _rand(12, 7)
     host = ctx.forward_host(a[0])
@@ -160,4 +161,4 @@ def test_context_serves_goldilocks(ordering):
 def test_goldilocks_configs_not_ported_raise(kw, build_kw):
     cfg = T.NTTConfig(field=GL, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        T.build_plan(cfg, **build_kw)
+        T.build_plan(cfg, device="cpu", **build_kw)

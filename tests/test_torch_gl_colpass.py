@@ -80,7 +80,7 @@ def test_plain_gl_colpass_matches_pallas(name, n1, n2, B):
     x, want = _reference(name, n1, n2)
     if B == 1:  # the 2-D (nn, ncols) entry shape
         x, want = tuple(v[0] for v in x), tuple(v[0] for v in want)
-    cp = gl_fold_passes(TGL, n1, n2)[name]
+    cp = gl_fold_passes(TGL, n1, n2, device="cpu")[name]
     got = G.gl_colpass(tuple(_t(v) for v in x), cp)
     assert isinstance(got, tuple) and len(got) == 2
     for g, w in zip(got, want):
@@ -89,7 +89,7 @@ def test_plain_gl_colpass_matches_pallas(name, n1, n2, B):
 
 
 def test_gl_colpass_rejects_bad_input():
-    cp = gl_fold_passes(TGL, 16, 64)["cp1"]
+    cp = gl_fold_passes(TGL, 16, 64, device="cpu")["cp1"]
     z = torch.zeros(2, 16, 64, dtype=torch.int32)
     with pytest.raises(TypeError):
         G.gl_colpass(z, cp)  # not a (hi, lo) tuple
@@ -105,9 +105,10 @@ def test_gl_colpass_rejects_bad_input():
         G.gl_colpass((zz, zz), cp)
     with pytest.raises(ValueError):
         G.make_gl_colpass(TGL, 16, direction="dif",
-                          wmat=np.zeros((64, 16), np.uint64))  # no transpose
+                          wmat=np.zeros((64, 16), np.uint64),  # no transpose
+                          device="cpu")
     with pytest.raises(ValueError):
-        G.make_gl_colpass(tF.P_469762049, 16, direction="dif")
+        G.make_gl_colpass(tF.P_469762049, 16, direction="dif", device="cpu")
     with pytest.raises(ValueError):  # neither CPU nor CUDA
         m = torch.zeros(2, 16, 64, dtype=torch.int32, device="meta")
         G.gl_colpass((m, m), cp)

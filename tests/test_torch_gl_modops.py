@@ -97,7 +97,7 @@ def test_limb_helpers_match_reference():
 
 def test_u64_split_and_join():
     a, _ = _operands()
-    hi, lo = tM.gl_from_u64(a)
+    hi, lo = tM.gl_from_u64(a, "cpu")
     assert hi.dtype == lo.dtype == torch.int32 and hi.shape == a.shape
     assert np.array_equal(hi.numpy().view(np.uint32), _limbs(a)[0])
     assert np.array_equal(lo.numpy().view(np.uint32), _limbs(a)[1])
@@ -108,11 +108,11 @@ def test_u64_split_and_join():
 def test_pointwise_wrapper_on_cpu_is_the_plain_product():
     a, b = _operands()
     before = G.gl_mul.launches
-    got = G.gl_mul(tM.gl_from_u64(a), tM.gl_from_u64(b))
+    got = G.gl_mul(tM.gl_from_u64(a, "cpu"), tM.gl_from_u64(b, "cpu"))
     assert G.gl_mul.launches == before  # the CPU route launches nothing
     assert all(v.dtype == torch.int32 for v in got)
     assert np.array_equal(tM.gl_to_u64(*got), _python("mul", a, b))
     with pytest.raises(ValueError):
-        G.gl_mul(tM.gl_from_u64(a), tM.gl_from_u64(b[:10]))
+        G.gl_mul(tM.gl_from_u64(a, "cpu"), tM.gl_from_u64(b[:10], "cpu"))
     with pytest.raises(TypeError):
-        G.gl_mul(tM.gl_from_u64(a)[0], tM.gl_from_u64(b))
+        G.gl_mul(tM.gl_from_u64(a, "cpu")[0], tM.gl_from_u64(b, "cpu"))

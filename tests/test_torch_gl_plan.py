@@ -56,7 +56,7 @@ def _reference_outputs(log_n, rows_log2):
 @functools.lru_cache(maxsize=None)
 def _port_plan(log_n, rows_log2):
     return T.build_plan(T.NTTConfig(field=T.GOLDILOCKS, log_n=log_n,
-                                    rows_log2=rows_log2))
+                                    rows_log2=rows_log2), device="cpu")
 
 
 @pytest.mark.parametrize("log_n,rows_log2", CONFIGS)
@@ -75,7 +75,7 @@ def test_batched_matches_reference_plan(log_n, rows_log2, fn):
             "polymul_mat": (a.reshape(B, n1, n2), b.reshape(B, n1, n2)),
             "fwd": (a,), "inv": (want["fwd"],), "polymul": (a, b)}[fn]
     # the limb-pair form: (hi, lo) int32 tensors in, a tuple out
-    got = bat[fn](*(tM.gl_from_u64(v) for v in args))
+    got = bat[fn](*(tM.gl_from_u64(v, "cpu") for v in args))
     assert isinstance(got, tuple) and len(got) == 2
     got = tM.gl_to_u64(*got)
     assert got.shape == want[fn].shape

@@ -57,7 +57,8 @@ def _reference_outputs(log_n, rows_log2):
 
 @functools.lru_cache(maxsize=None)
 def _port_plan(log_n, rows_log2, ordering="bitrev"):
-    return T.build_plan(_cfgs(log_n, rows_log2, ordering=ordering)[1])
+    return T.build_plan(_cfgs(log_n, rows_log2, ordering=ordering)[1],
+                        device="cpu")
 
 
 def _np(t):
@@ -160,13 +161,13 @@ def test_context_delegates():
                                         b.reshape(n1, n2)))
     bat = ctx.make_batched(1)
     assert torch.equal(bat["fwd_mat"](a.reshape(n1, n2))[0], fm)
-    nat = T.NTTContext(_cfgs(16, 8, ordering="natural")[1])
+    nat = T.NTTContext(_cfgs(16, 8, ordering="natural")[1], device="cpu")
     with pytest.raises(NotImplementedError):
         nat.forward_mat(a.reshape(n1, n2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.NTTContext(tc, mesh=object())
+        T.NTTContext(tc, device="cpu", mesh=object())
     with pytest.raises(TypeError):
-        T.NTTContext(tc, overlap_chunks=2)
+        T.NTTContext(tc, device="cpu", overlap_chunks=2)
 
 
 @pytest.mark.parametrize("ordering", ["bitrev", "natural"])
@@ -176,7 +177,7 @@ def test_context_host_paths_match_reference(ordering):
     jc, tc = _cfgs(16, 8, ordering=ordering)
     a = _inputs(16, seed=4)[0][0]
     want = JContext(jc).forward_host(a)
-    ctx = T.NTTContext(tc)
+    ctx = T.NTTContext(tc, device="cpu")
     got = ctx.forward_host(a)
     assert np.array_equal(got, want)
     assert np.array_equal(ctx.inverse_host(got), a)
@@ -185,7 +186,7 @@ def test_context_host_paths_match_reference(ordering):
     ref_cfg = T.NTTConfig(field=T.P_469762049, log_n=11,
                           table_convention="reference")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.NTTContext(ref_cfg).forward_host(a[:2048])
+        T.NTTContext(ref_cfg, device="cpu").forward_host(a[:2048])
 
 
 @pytest.mark.parametrize("kw,build_kw", [
@@ -200,7 +201,7 @@ def test_context_host_paths_match_reference(ordering):
 def test_out_of_slice_configs_raise(kw, build_kw):
     cfg = T.NTTConfig(field=T.P_469762049, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.build_plan(cfg, **build_kw)
+        T.build_plan(cfg, device="cpu", **build_kw)
 
 
 def test_unported_fields_raise():
@@ -209,4 +210,4 @@ def test_unported_fields_raise():
     for field, rows_log2 in ((T.P_2013265921, 6), (T.GOLDILOCKS, None)):
         cfg = T.NTTConfig(field=field, log_n=12, rows_log2=rows_log2)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            T.build_plan(cfg)
+            T.build_plan(cfg, device="cpu")

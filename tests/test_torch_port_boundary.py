@@ -21,7 +21,13 @@ MODULES = [
     "ntt_aie_tpu_torch.ops.fused_fourstep",
     "ntt_aie_tpu_torch.ops.gl_colpass",
     "ntt_aie_tpu_torch.ops.modops",
+    "ntt_aie_tpu_torch.ops.nested_colpass",
     "ntt_aie_tpu_torch.ops.reductions",
+    "ntt_aie_tpu_torch.profiling",
+    "ntt_aie_tpu_torch.profiling.roofline",
+    "ntt_aie_tpu_torch.scripts",
+    "ntt_aie_tpu_torch.scripts.proto_nested_colpass",
+    "ntt_aie_tpu_torch.utils.device",
     "ntt_aie_tpu_torch.utils.timing",
 ]
 
@@ -68,7 +74,27 @@ def test_kernel_source_ships_with_the_package():
             ("colpass.cu", "ntt_aie_tpu/ops/pallas_ntt.py::build_colpass"),
             ("gl_colpass.cu", "ntt_aie_tpu/ops/pallas_gl.py::build_gl_colpass"),
             ("fused_fourstep.cu",
-             "ntt_aie_tpu/ops/pallas_ntt.py::build_fused_fourstep")):
+             "ntt_aie_tpu/ops/pallas_ntt.py::build_fused_fourstep"),
+            ("nested_colpass.cu",
+             "scripts/proto_nested_colpass.py::nested_colpass"),
+            ("bfly_probe.cu", "ntt_aie_tpu/profiling/roofline.py")):
         text = (csrc / name).read_text()
         assert replaces in text
         assert "extern \"C\"" in text
+
+
+def test_nested_script_runs_without_jax():
+    """check runs through the plain version on request; bench needs the
+    card and says so."""
+    mod = "ntt_aie_tpu_torch.scripts.proto_nested_colpass"
+    code = ("import importlib, sys\n"
+            f"assert importlib.import_module({mod!r}).main(\n"
+            "    ['check', '--device', 'cpu']) == 0\n"
+            "bad = [m for m in sys.modules if m == 'jax'\n"
+            "       or m.startswith(('jax.', 'ntt_aie_tpu.'))]\n"
+            "sys.exit(3 if bad else 0)\n")
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert '"check": "ok"' in res.stdout
+    res = _run(["-m", mod, "bench", "2", "1"])
+    assert res.returncode != 0 and "no CUDA device" in res.stderr
