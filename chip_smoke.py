@@ -34,8 +34,10 @@ Phases, one JSON object per line:
                  version, and us/pass of cp1 and cp2, on CUDA events;
   6. gl_kernel — the Goldilocks kernel against its plain version for
                  cp1/cp2/icp2/icp1 at 1024x1024, 128x512 and 2048x256, B = 4,
-                 both limb planes bit-exact; the pointwise product kernel
-                 against its plain version on random values and the edges;
+                 and DIF and DIT over 8,192 rows (2-column tiles) at
+                 (1, 8192, 64), both limb planes bit-exact; the pointwise
+                 product kernel against its plain version on random values
+                 and the edges;
   7. gl_slice  — Goldilocks fwd_mat on a B = 64 batch (512 MiB per limb
                  pair) gated against the native oracle on row 0 plus 8
                  random rows (the object-dtype NumPy oracle if the library
@@ -47,7 +49,9 @@ Phases, one JSON object per line:
   9. fused_kernel — the fused kernel against its plain version for ff, fi
                  (no operands), nf ('pre') and ni ('post') at 1024x1024,
                  512x2048, 2048x512, 32x64 and 64x32, B = 1 and 4,
-                 bit-exact;
+                 bit-exact; and again after a chain of ten launches of the
+                 same transform at B = 1 and 4 in turn, with phase A's tile
+                 counter back at zero;
  10. fused_slice — the fused plan (negacyclic=True): fwd_mat at B = 1 and
                  B = 256 equal to the fold plan's and gated against the
                  native oracle on row 0 plus 8 random rows; the inv_mat
@@ -56,10 +60,13 @@ Phases, one JSON object per line:
                  against the native negacyclic product and a direct O(n)
                  sum at 8 random coefficients; fused launches 1 / 1 / 1 /
                  3 / 3 and no column-pass launch;
- 11. fused_time — us/NTT of the fused fwd_mat at B = 1 and 256 and
-                 inv_mat at B = 1, beside the fold plan's (timed in turns:
-                 fold, fused, fused, fold) and the plain fused version's at
-                 B = 1 and 256;
+ 11. fused_time — us/NTT of the fused fwd_mat and inv_mat at B = 1 and
+                 256, beside the fold plan's (timed in turns: fold, fused,
+                 fused, fold) and the plain fused version's at B = 1 and
+                 256; the fused kernel's register group size (kFuse), its
+                 registers and blocks per SM and its grid at B = 256; then,
+                 after those timed chains, the fused fwd_mat at B = 256
+                 against the fold plan's and the inv_mat roundtrip;
  12. nested_kernel — the nested kernel against its plain version,
                  bit-exact: at the shapes phases 13-14 run it at (B = 64
                  1024x1024 at fuse 1 to 5, the bench's; B = 1 1024x256 at
@@ -75,14 +82,19 @@ Phases, one JSON object per line:
                  times;
  15. roofline  — measure_peak, then measure_vpu_peak for harvey4 and
                  Goldilocks at r = 64 and 128, and the probe kernel's
-                 values against its plain version at r = 64.
+                 values against its plain version at r = 64;
+ 16. batch_split — the 32-bit, Goldilocks and nested column kernels at a
+                 batch of 65,537 (two launches each: one launch takes 65,535
+                 batch rows) on a 32-row column, against their plain
+                 versions, bit-exact.
 
 Then one line {"kernels": [...]}: per kernel its time at the main path's
 shape ("ms", per launch), launches, the plain version's time, and its
 bound — the larger of the bytes it must move over the card's 3.35 TB/s and
 its butterflies over the measured ideal rate of its arithmetic (phase 15;
 its measured HBM rate is reported there, not used as a bound); library_ms
-is null (no single PyTorch call computes an NTT mod p). Last, the result
+is null (no single PyTorch call computes an NTT mod p). The fused row also
+carries its inv_mat time, its kFuse and blocks per SM. Last, the result
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -309,6 +321,9 @@ def main() -> int:
     roof = roofline_phase(dev, card)
     if roof is None:
         return 1
+    torch.cuda.empty_cache()
+    if not batch_split_phase(args, dev):
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -378,6 +393,7 @@ def goldilocks_phases(args, dev, card, rng):
     from ntt_aie_tpu_torch import native_oracle, reference
     from ntt_aie_tpu_torch import twiddles as tw
     from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
+    from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import gl_colpass as G
     from ntt_aie_tpu_torch.ops import modops as M
     from ntt_aie_tpu_torch.utils.timing import time_device
@@ -417,6 +433,21 @@ def goldilocks_phases(args, dev, card, rng):
                 fail("gl_kernel", f"{name} {rows}x{cols} differs from its "
                      "plain version")
                 return None
+    for direction in ("dif", "dit"):  # 8,192 rows: 2-column tiles
+        cp = G.make_gl_colpass(field, 8192, direction=direction,
+                               inverse_tw=direction == "dit", device=dev)
+        x = planes((1, 8192, 64))
+        got = G.gl_colpass(x, cp)
+        torch.cuda.synchronize()
+        err = pair_err(got, G.gl_colpass_plain(x, cp))
+        max_err = max(max_err, err)
+        emit({"phase": "gl_kernel", "pass": direction, "shape": [1, 8192, 64],
+              "tile_cols": C.tile_cols(8192, 64, itemsize=8),
+              "max_abs_err": err})
+        if err:
+            fail("gl_kernel", f"{direction} over 8192 rows differs from its "
+                 "plain version")
+            return None
     edges = np.array([0, 1, p - 1, p - 2, (1 << 32) - 1, 1 << 32,
                       0xFFFFFFFF << 32], dtype=np.uint64)
     ea, eb = (M.gl_from_u64(v.ravel(), dev) for v in np.meshgrid(edges, edges))
@@ -595,6 +626,31 @@ def fused_phases(args, dev, card, rng):
                     fail("fused_kernel", f"{name} {ff.shape_in} B={B} "
                          "differs from its plain version")
                     return None
+            # ten more launches at B = 1 and 4 in turn: a tile counter left
+            # above zero would make the next launch skip tiles
+            xs = [torch.randint(0, 4 * p, (B,) + ff.shape_in,
+                                dtype=torch.int64, device=dev,
+                                generator=gen).to(torch.int32)
+                  for B in (1, 4)]
+            for i in range(10):
+                F.fused_fourstep(xs[i % 2], ff)
+            torch.cuda.synchronize()
+            # phase B's is reset by the next launch
+            counters = ff.counters(
+                torch.cuda.current_stream(dev).cuda_stream).tolist()
+            err = max(int((F.fused_fourstep(v, ff).long()
+                           - F.fused_fourstep_plain(v, ff).long()).abs().max())
+                      for v in xs)
+            max_err = max(max_err, err)
+            emit({"phase": "fused_kernel", "transform": name,
+                  "shape": list(ff.shape_in), "after_chain": 10,
+                  "batches": [1, 4], "counters": counters,
+                  "max_abs_err": err})
+            if err or counters[0] != 0:
+                fail("fused_kernel", f"{name} {ff.shape_in} after a chain "
+                     "differs from its plain version or left its counters "
+                     f"at {counters}")
+                return None
 
     # 10. fused_slice: the fused plan at n = 2^20 against the fold plan and
     # the oracles
@@ -681,7 +737,14 @@ def fused_phases(args, dev, card, rng):
     fold1, fused1 = _in_turns(fold.fwd_mat, plan.fwd_mat, x[0])
     fold_inv1, fused_inv1 = _in_turns(fold.inv_mat, plan.inv_mat, x[0])
     foldb, fusedb = _in_turns(fold_bat["fwd_mat"], bat["fwd_mat"], x)
+    fold_invb, fused_invb = _in_turns(fold_bat["inv_mat"], bat["inv_mat"], x)
     ff = plan.passes["ff"]
+    info = F.kernel_info(ff, B)
+    # after the timed chains: the same plan against the fold plan again
+    y = bat["fwd_mat"](x)
+    chain_ok = bool(torch.equal(y, fold_bat["fwd_mat"](x))
+                    and torch.equal(bat["inv_mat"](y), x))
+    del y
 
     def plain(v):
         return F.fused_fourstep_plain(v, ff)
@@ -691,14 +754,22 @@ def fused_phases(args, dev, card, rng):
     emit({"phase": "fused_time", "card": card,
           "fused_fwd_mat_us_per_ntt": {"1": fused1, "256": fusedb / B},
           "fold_fwd_mat_us_per_ntt": {"1": fold1, "256": foldb / B},
-          "fused_inv_mat_us_per_ntt": {"1": fused_inv1},
-          "fold_inv_mat_us_per_ntt": {"1": fold_inv1},
+          "fused_inv_mat_us_per_ntt": {"1": fused_inv1,
+                                       "256": fused_invb / B},
+          "fold_inv_mat_us_per_ntt": {"1": fold_inv1, "256": fold_invb / B},
           "plain_fused_fwd_us_per_ntt": {"1": plain1, str(pb): plainb / pb},
+          "kfuse": info["kfuse"], "blocks_per_sm": info["blocks_per_sm"],
+          "registers": info["registers"], "grid": info["grid"],
+          "equals_fold_after_chain": chain_ok,
           "method": "CUDA events, 5 repeats of a dependent chain of 10, "
                     "trimmed mean; fold and fused timed in turns (fold, "
                     "fused, fused, fold), mean of the two readings; plain "
                     "at B > 1: 3 repeats of 2; us per NTT = us per call / "
                     "batch"})
+    if not chain_ok:
+        fail("fused_time", "after the timed chains the fused plan differs "
+             "from the fold plan")
+        return None
     # the row's kernel and plain times are at B = 256: a chained B = 1
     # reading is bound by the host's enqueue, not by the kernel (PERF.md)
     return {"name": "fused_fourstep", "route": "cuda",
@@ -706,6 +777,8 @@ def fused_phases(args, dev, card, rng):
             "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:693",
             "launches": sum(v[0] for v in launches.values()),
             "max_abs_err": max_err, "ms": fusedb / 1e3,
+            "inv_ms": fused_invb / 1e3,
+            "kfuse": info["kfuse"], "blocks_per_sm": info["blocks_per_sm"],
             "plain_ms": plainb / 1e3, "batch": B, "plain_batch": pb,
             "ms_batch_1": fused1 / 1e3, "plain_ms_batch_1": plain1 / 1e3,
             # x and out at B = 256 and the (w, packed) wmid; the scratch
@@ -834,6 +907,58 @@ def nested_phases(args, dev, card):
          "butterflies": probe_r * probe_words // 2,
          "arithmetic": "harvey4"},
     ]
+
+
+def batch_split_phase(args, dev) -> bool:
+    """Phase 16: each column kernel at a batch of 65,537 (two launches)
+    against its plain version. Returns False after emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.ops import nested_colpass as N
+
+    p = T.P_469762049.p
+    batch = C.MAX_LAUNCH_BATCH + 2
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    rng = np.random.default_rng(args.seed + 4)
+
+    def lazy(shape):
+        return torch.randint(0, 4 * p, shape, dtype=torch.int64, device=dev,
+                             generator=gen).to(torch.int32)
+
+    cp = C.make_colpass(T.P_469762049, 32, direction="dif", device=dev)
+    gl = G.make_gl_colpass(T.GOLDILOCKS, 32, direction="dit",
+                           inverse_tw=True, device=dev)
+    nc, _ = N.make_nested_colpass(32, 4, batch=batch, device=dev)
+    glx = M.gl_from_u64(rng.integers(0, 1 << 64, (batch, 32, 4),
+                                     dtype=np.uint64)
+                        % np.uint64(T.GOLDILOCKS.p), dev)
+    cases = (("colpass", C.colpass, C.colpass_plain, cp, lazy((batch, 32, 4))),
+             ("gl_colpass", G.gl_colpass, G.gl_colpass_plain, gl, glx),
+             ("nested_colpass", N.nested_colpass, N.nested_colpass_plain, nc,
+              lazy(nc.shape)))
+    ok = True
+    for name, fn, plain, op, x in cases:
+        before = fn.launches
+        got = fn(x, op)
+        torch.cuda.synchronize()
+        want = plain(x, op)
+        got, want = ((got,), (want,)) if name != "gl_colpass" else (got, want)
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        launches = fn.launches - before
+        emit({"phase": "batch_split", "kernel": name,
+              "shape": list((x[0] if name == "gl_colpass" else x).shape),
+              "launches": launches, "max_abs_err": err})
+        ok = ok and not err and launches == 2
+    if not ok:
+        fail("batch_split", "a column kernel at batch 65,537 differs from "
+             "its plain version or did not take two launches")
+    return ok
 
 
 def roofline_phase(dev, card):

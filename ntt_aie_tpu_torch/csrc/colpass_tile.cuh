@@ -1,10 +1,11 @@
 // Device code shared by the column pass (colpass.cu), the fused four-step
 // kernel (fused_fourstep.cu), the nested column pass (nested_colpass.cu)
-// and the butterfly probe (bfly_probe.cu): harvey4 arithmetic, one radix-2
-// stage on a shared-memory tile, groups of DIF stages held in registers
-// between exchanges, and a whole (nn x TL) column tile — load, every stage
-// of a plain or nested network, store — with its load, mid step and store
-// also callable on their own.
+// and the butterfly probe (bfly_probe.cu): harvey4 arithmetic, groups of
+// DIF or DIT stages on a shared-memory tile held in registers between
+// exchanges (one stage a group is one stage per barrier), and a whole
+// (nn x TL) column tile — load,
+// every stage of a plain or nested network, store — with its load, mid step
+// and store also callable on their own.
 //
 // Arithmetic: harvey4, bit for bit the reference's uint32 operations.
 // Values travel in the lazy domain [0, 4p) (p < 2^29); the sub feeding a
@@ -132,63 +133,90 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Network& N,
   __syncthreads();
 }
 
-// run_group<k> for a runtime k <= K: instantiates only groups up to K.
+// DIT stages s0 .. s0 + K - 1 of one phase (half sizes t_first up to
+// t_first << (K-1)) as radix-2^K butterflies held in registers, then one
+// barrier: the mirror of run_group. Each thread loads the 2^K rows
+// base + m * t_first (m < 2^K) of one butterfly; sub-stage q pairs m with
+// m + 2^q, takes the twiddle at ((m mod 2^q) * t_first + j) and runs
+// the DIT butterfly's operations in their order (wv = v * w, then u + wv
+// and u + 4p - wv, each through csub). K = 1 is one DIT stage per barrier.
 template <int K>
+__device__ __forceinline__ void run_group_dit(uint32_t* tile,
+                                              const Network& N, int s0,
+                                              int log_a, int log_tl,
+                                              uint32_t p) {
+  const int t_first = N.t[s0];
+  const int log_t = __ffs(t_first) - 1;
+  const int tl_mask = (1 << log_tl) - 1;
+  const int total = (N.nn >> K) << log_tl;
+  const uint32_t p4 = 4u * p;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i & tl_mask;
+    const int g = i >> log_tl;
+    const int j = g & (t_first - 1);
+    const int base = ((g >> log_t) << (log_t + K)) | j;
+    uint32_t v[1 << K];
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m)
+      v[m] = tile[(row_of(base + (m << log_t), log_a, N.log_nn) << log_tl)
+                  + c];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int h = 1 << q;  // the pair's distance in m
+      const uint32_t* tw_w = N.tw_w + N.off[s0 + q];
+      const uint32_t* tw_s = N.tw_s + N.off[s0 + q];
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m) {
+        if (m & h) continue;
+        const int idx = ((m & (h - 1)) << log_t) | j;
+        const uint32_t u = v[m];
+        const uint32_t wv =
+            mulc(v[m + h], __ldg(tw_w + idx), __ldg(tw_s + idx), p);
+        v[m] = csub(u + wv, p4);
+        v[m + h] = csub(u + (p4 - wv), p4);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m)
+      tile[(row_of(base + (m << log_t), log_a, N.log_nn) << log_tl) + c] =
+          v[m];
+  }
+  __syncthreads();
+}
+
+// A group of a runtime k <= K stages (run_group, or run_group_dit when
+// kDit): instantiates only groups up to K.
+template <int K, bool kDit>
 __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
                                                const Network& N, int s0,
                                                int log_a, int log_tl,
                                                uint32_t p) {
   if constexpr (K > 1) {
     if (k < K) {
-      run_group_upto<K - 1>(k, tile, N, s0, log_a, log_tl, p);
+      run_group_upto<K - 1, kDit>(k, tile, N, s0, log_a, log_tl, p);
       return;
     }
   }
-  run_group<K>(tile, N, s0, log_a, log_tl, p);
+  if constexpr (kDit)
+    run_group_dit<K>(tile, N, s0, log_a, log_tl, p);
+  else
+    run_group<K>(tile, N, s0, log_a, log_tl, p);
 }
 
-// DIF stages [s_begin, s_end) of one phase in groups of min(kFuse, stages
-// left); a group never crosses the phase's end.
+// Stages [s_begin, s_end) of one phase, DIF or DIT as N.dit says, in groups
+// of min(kFuse, stages left); a group never crosses the phase's end.
 template <int kFuse>
 __device__ __forceinline__ void run_phase(uint32_t* tile, const Network& N,
                                           int s_begin, int s_end, int log_a,
                                           int log_tl, uint32_t p) {
   for (int s = s_begin; s < s_end;) {
     const int k = min(kFuse, s_end - s);
-    run_group_upto<kFuse>(k, tile, N, s, log_a, log_tl, p);
+    if (N.dit)
+      run_group_upto<kFuse, true>(k, tile, N, s, log_a, log_tl, p);
+    else
+      run_group_upto<kFuse, false>(k, tile, N, s, log_a, log_tl, p);
     s += k;
   }
-}
-
-// One radix-2 stage s (DIF: run_group<1>; DIT: the twiddle multiply
-// first), then a barrier.
-__device__ __forceinline__ void run_stage(uint32_t* tile, const Network& N,
-                                          int s, int log_a, int log_tl,
-                                          uint32_t p) {
-  if (!N.dit) {
-    run_group<1>(tile, N, s, log_a, log_tl, p);
-    return;
-  }
-  const int t = N.t[s];
-  const int log_t = __ffs(t) - 1;
-  const uint32_t* tw_w = N.tw_w + N.off[s];
-  const uint32_t* tw_s = N.tw_s + N.off[s];
-  const int tl_mask = (1 << log_tl) - 1;
-  const int total = (N.nn >> 1) << log_tl;
-  const uint32_t p4 = 4u * p;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i & tl_mask;
-    const int k = i >> log_tl;
-    const int j = k & (t - 1);
-    const int lu = ((k >> log_t) << (log_t + 1)) | j;
-    uint32_t* pu = tile + (row_of(lu, log_a, N.log_nn) << log_tl) + c;
-    uint32_t* pv = tile + (row_of(lu + t, log_a, N.log_nn) << log_tl) + c;
-    const uint32_t u = *pu, v = *pv;
-    const uint32_t wv = mulc(v, __ldg(tw_w + j), __ldg(tw_s + j), p);
-    *pu = csub(u + wv, p4);
-    *pv = csub(u + (p4 - wv), p4);
-  }
-  __syncthreads();
 }
 
 // Loads one tile with the whole block: reads along the column axis (TL * 4
@@ -256,23 +284,25 @@ __device__ __forceinline__ void store_tile(const uint32_t* tile,
 }
 
 // Runs one tile with the whole block: load, every stage of N in shared
-// memory with a barrier after each, then one store. src and dst are this
-// batch row's input and output; col0 is the tile's first column. Output
-// domain: [0, 4p), or [0, p) with canonicalize. A caller that reuses the
-// tile must __syncthreads() first. The options that change the loops are
-// template parameters, so each kernel carries only the loops it runs.
-template <Load kLoad, bool kTranspose, bool kMat>
+// memory, then one store. Each phase runs in register groups of up to
+// kFuse stages (run_phase), one barrier a group; kFuse = 1 is one barrier a
+// stage. Every kFuse gives the same bits.
+// src and dst are this batch row's input and output; col0 is the tile's
+// first column. Output domain: [0, 4p), or [0, p) with canonicalize. A
+// caller that reuses the tile must __syncthreads() first. The options that
+// change the loops are template parameters, so each kernel carries only the
+// loops it runs.
+template <Load kLoad, bool kTranspose, bool kMat, int kFuse = 1>
 __device__ __forceinline__ void column_tile(uint32_t* tile, const Network& N,
                                             const TileOps& O,
                                             const uint32_t* src,
                                             uint32_t* dst, size_t col0,
                                             uint32_t p) {
   load_tile<kLoad>(tile, N, O, src, col0, p);
-  for (int s = 0; s < N.k0; ++s) run_stage(tile, N, s, -1, O.log_tl, p);
+  run_phase<kFuse>(tile, N, 0, N.k0, -1, O.log_tl, p);
   if (N.log_a >= 0) {
     mid_step(tile, N, O.log_tl, p);
-    for (int s = N.k0; s < N.nstages; ++s)
-      run_stage(tile, N, s, N.log_a, O.log_tl, p);
+    run_phase<kFuse>(tile, N, N.k0, N.nstages, N.log_a, O.log_tl, p);
   }
   store_tile<kTranspose, kMat>(tile, N, O, dst, col0, p);
 }

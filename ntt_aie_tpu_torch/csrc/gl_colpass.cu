@@ -43,7 +43,9 @@
 // sizes tiles at 32 KB (TL = 4 columns of 1024 rows, seven 256-thread
 // blocks per SM), the tile size that gave the 32-bit kernel the most
 // resident warps. Grouping stages in registers is the next step. The
-// largest column the kernel takes is kMaxRows = 4096 rows (TL = 4, 128 KB).
+// largest column the kernel takes is kMaxRows = 8192 rows, in 2-column
+// tiles (TL = 2, 128 KB); up to 4096 rows the tiles are 4 or more columns
+// wide (colpass.tile_cols).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,7 +61,7 @@ using gl_arith::gl_sub;
 constexpr int kThreads = 256;
 constexpr int kMaxStages = 16;
 constexpr int kMaxSmemBytes = 227 * 1024;  // an H100 block's limit
-constexpr int kMaxRows = 4096;
+constexpr int kMaxRows = 8192;
 
 struct Params {
   const uint32_t* x_hi;

@@ -54,6 +54,10 @@ _TILE_BYTES = 32768   # a 32 KB tile where the column allows it
 _MAX_TILE_BYTES = 131072  # the widest tile: MAX_ROWS x 4 columns x 4 bytes
 _MIN_TILE_COLS = 4
 _MAX_TILE_COLS = 32
+# The most batch rows one launch of a column kernel takes (colpass.cu,
+# gl_colpass.cu and nested_colpass.cu run the batch on grid.y); the
+# wrappers split a larger batch into launches of at most this many rows.
+MAX_LAUNCH_BATCH = 65535
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -260,16 +264,27 @@ def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
 def tile_cols(nn: int, ncols: int, itemsize: int = 4) -> int:
     """Columns per thread block (TL): a tile of nn x TL elements of
     `itemsize` bytes takes 32 KB where 4 <= TL <= 32 allows (small tiles
-    keep more blocks per SM). The tallest column is the one whose
-    4-column tile takes 128 KB: 8192 rows of uint32, 4096 of uint64."""
-    max_rows = _MAX_TILE_BYTES // (_MIN_TILE_COLS * itemsize)
-    if nn > max_rows:
-        raise ValueError(f"the CUDA column pass takes at most {max_rows} "
+    keep more blocks per SM). The tallest column is MAX_ROWS rows: its
+    4-column tile takes 128 KB at uint32; at uint64, where a 4-column tile
+    of more than 4096 rows would pass 128 KB, the tile is 2 columns
+    wide."""
+    if nn > MAX_ROWS:
+        raise ValueError(f"the CUDA column pass takes at most {MAX_ROWS} "
                          f"rows of {itemsize}-byte values, got {nn}")
     if ncols & (ncols - 1):
         raise ValueError(f"ncols must be a power of two, got {ncols}")
+    min_cols = _MIN_TILE_COLS
+    if nn * min_cols * itemsize > _MAX_TILE_BYTES:
+        min_cols = 2
     return min(_MAX_TILE_COLS, ncols,
-               max(_MIN_TILE_COLS, _TILE_BYTES // (itemsize * nn)))
+               max(min_cols, _TILE_BYTES // (itemsize * nn)))
+
+
+def launch_batches(batch: int) -> list:
+    """The (start, stop) batch rows of each launch: slices of at most
+    MAX_LAUNCH_BATCH rows that cover range(batch) in order."""
+    return [(b, min(b + MAX_LAUNCH_BATCH, batch))
+            for b in range(0, batch, MAX_LAUNCH_BATCH)]
 
 
 def library_key(name: str, csrc_dir: pathlib.Path = CSRC_DIR) -> str:
@@ -366,23 +381,28 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
     mat = ((cp.wmat[0].data_ptr(), cp.wmat[1].data_ptr())
            if cp.wmat is not None else (None, None))
+    net = network_args(cp)
     lib = _library()
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
-        err = lib.ntt_colpass(
-            xb.data_ptr(), out.data_ptr(), B, nn, c, tl.bit_length() - 1,
-            int(cp.direction == "dit"), *network_args(cp), *mat,
-            int(cp.transpose_out), int(cp.canonicalize), cp.red.p, stream)
-    if err != 0:
-        raise RuntimeError("CUDA column pass launch failed: "
-                           + lib.ntt_colpass_error_string(err).decode())
-    colpass.launches += 1
+        for b0, b1 in launch_batches(B):
+            err = lib.ntt_colpass(
+                xb[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0, nn, c,
+                tl.bit_length() - 1, int(cp.direction == "dit"), *net, *mat,
+                int(cp.transpose_out), int(cp.canonicalize), cp.red.p,
+                stream)
+            if err != 0:
+                raise RuntimeError(
+                    "CUDA column pass launch failed: "
+                    + lib.ntt_colpass_error_string(err).decode())
+            colpass.launches += 1
     return out
 
 
 def colpass(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
-    """Run one column pass: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. ``colpass.launches`` counts kernel launches."""
+    """Run one column pass: the CUDA kernel for a CUDA tensor (one launch
+    per MAX_LAUNCH_BATCH batch rows), the plain version for a CPU tensor.
+    ``colpass.launches`` counts kernel launches."""
     if x.device.type == "cpu":
         return colpass_plain(x, cp)
     if x.device.type != "cuda":

@@ -21,7 +21,11 @@ plain version, ``fused_fourstep_plain``; on a CUDA tensor it launches the
 kernel in ``csrc/fused_fourstep.cu`` or raises — there is no fallback, no
 switch to two launches. Tensors are ``torch.int32`` holding uint32 bit
 patterns: (B, nn_a, nn_b) in, (B, nn_b, nn_a) canonical out; a 2-D input
-is a batch of one.
+is a batch of one. The kernel takes its tiles from two counters and
+resets them itself (phase A's is zero after every launch, phase B's is
+zeroed before phase B), so two launches that overlap must not share them:
+``FusedFourstep.counters`` keeps one pair per CUDA stream, and launches on
+one stream run one after another.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ class FusedFourstep:
     wmid: (2, nn_b, nn_a) four-step twiddle matrix (w, packed Shoup).
     pre: (2, nn_a, nn_b) multiply before side a, or None.
     post: (2, nn_b, nn_a) multiply after side b, or None.
+    streams: the kernel's tile counters, one (2,) int32 pair per CUDA
+      stream handle (``counters``).
     """
 
     red: Reduction
@@ -56,10 +62,24 @@ class FusedFourstep:
     wmid: torch.Tensor
     pre: torch.Tensor | None
     post: torch.Tensor | None
+    streams: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def shape_in(self) -> tuple:
         return (self.net_a.nn, self.net_b.nn)
+
+    def counters(self, stream: int) -> torch.Tensor:
+        """The tile counters of phases A and B for launches on the stream
+        with this handle: made zero on the plan's device at the first call
+        (on the current stream, so before any launch that uses them). Each
+        launch leaves phase A's at zero and zeroes phase B's before it takes
+        a phase-B tile."""
+        pair = self.streams.get(stream)
+        if pair is None:
+            pair = self.streams.setdefault(
+                stream, torch.zeros(2, dtype=torch.int32,
+                                    device=self.wmid.device))
+        return pair
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return fused_fourstep(x, self)
@@ -158,11 +178,40 @@ def _library() -> ctypes.CDLL:
     side = [ci, ci, pi, pi, vp, vp, ci, vp, vp]
     lib.ntt_fused_fourstep.restype = ci
     lib.ntt_fused_fourstep.argtypes = (
-        [vp, vp, vp, ci, ci, ci, ci, ci, ci] + side + side
+        [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci] + side + side
         + [vp] * 6 + [ctypes.c_uint, vp])
+    lib.ntt_fused_kernel_info.restype = ci
+    lib.ntt_fused_kernel_info.argtypes = [ci] * 6 + [pi] * 3
     lib.ntt_fused_error_string.restype = ctypes.c_char_p
     lib.ntt_fused_error_string.argtypes = [ci]
     return lib
+
+
+def _check(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA fused four-step {what} failed: "
+                           + lib.ntt_fused_error_string(err).decode())
+
+
+def kernel_info(ff: FusedFourstep, batch: int = 1) -> dict:
+    """What the card gives ff's kernel at this batch: the build's register
+    group size (kfuse), its registers a thread, its co-resident blocks per
+    SM under the cooperative launch, and the grid it launches with."""
+    nn_a, nn_b = ff.shape_in
+    tl_a, tl_b = fused_shape_check(nn_a, nn_b, batch)
+    lib = _library()
+    kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
+    with torch.cuda.device(ff.wmid.device):
+        _check(lib.ntt_fused_kernel_info(
+            int(ff.pre is not None), int(ff.post is not None), nn_a, nn_b,
+            tl_a.bit_length() - 1, tl_b.bit_length() - 1, kfuse, regs,
+            per_sm), lib, "occupancy query")
+        sms = torch.cuda.get_device_properties(
+            ff.wmid.device).multi_processor_count
+    tiles = batch * max(nn_b // tl_a, nn_a // tl_b)
+    return {"kfuse": kfuse.value, "registers": regs.value,
+            "blocks_per_sm": per_sm.value, "sms": sms,
+            "grid": min(tiles, per_sm.value * sms)}
 
 
 def _ptrs(t):
@@ -191,14 +240,13 @@ def _launch(xb: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         err = lib.ntt_fused_fourstep(
-            xb.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, nn_a, nn_b,
+            xb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            ff.counters(stream).data_ptr(), B, nn_a, nn_b,
             tl_a.bit_length() - 1, tl_b.bit_length() - 1, int(ff.inverse),
             *C.network_args(ff.net_a), *C.network_args(ff.net_b),
             *_ptrs(ff.wmid), *_ptrs(ff.pre), *_ptrs(ff.post), ff.red.p,
             stream)
-    if err != 0:
-        raise RuntimeError("CUDA fused four-step launch failed: "
-                           + lib.ntt_fused_error_string(err).decode())
+    _check(err, lib, "launch")
     fused_fourstep.launches += 1
     return out
 

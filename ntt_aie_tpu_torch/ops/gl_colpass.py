@@ -34,7 +34,7 @@ from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
-MAX_ROWS = 4096  # csrc/gl_colpass.cu kMaxRows
+MAX_ROWS = 8192  # csrc/gl_colpass.cu kMaxRows
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -245,23 +245,26 @@ def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass) -> tuple:
     else:
         log_a, mid = -1, None
     mat = cp.wmat.data_ptr() if cp.wmat is not None else None
+    ts_arr, offs_arr = (ctypes.c_int * n)(*ts), (ctypes.c_int * n)(*cp.offsets)
     lib = _library()
     with torch.cuda.device(hi.device):
         stream = torch.cuda.current_stream(hi.device).cuda_stream
-        err = lib.ntt_gl_colpass(
-            hi.data_ptr(), lo.data_ptr(), oh.data_ptr(), ol.data_ptr(), B,
-            nn, c, tl.bit_length() - 1, int(cp.direction == "dit"), n,
-            len(cp.phases_ts[0]), (ctypes.c_int * n)(*ts),
-            (ctypes.c_int * n)(*cp.offsets), cp.tw.data_ptr(), log_a, mid,
-            mat, int(cp.transpose_out), stream)
-    _check_launch(err, "GL column pass", lib)
-    gl_colpass.launches += 1
+        for b0, b1 in C.launch_batches(B):
+            err = lib.ntt_gl_colpass(
+                hi[b0:b1].data_ptr(), lo[b0:b1].data_ptr(),
+                oh[b0:b1].data_ptr(), ol[b0:b1].data_ptr(), b1 - b0, nn, c,
+                tl.bit_length() - 1, int(cp.direction == "dit"), n,
+                len(cp.phases_ts[0]), ts_arr, offs_arr, cp.tw.data_ptr(),
+                log_a, mid, mat, int(cp.transpose_out), stream)
+            _check_launch(err, "GL column pass", lib)
+            gl_colpass.launches += 1
     return oh, ol
 
 
 def gl_colpass(x: tuple, cp: GLColPass) -> tuple:
     """Run one Goldilocks column pass on a (hi, lo) tuple: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors.
+    for CUDA tensors (one launch per colpass.MAX_LAUNCH_BATCH batch rows),
+    the plain version for CPU tensors.
     ``gl_colpass.launches`` counts kernel launches."""
     device = _planes(x, "gl_colpass")[0].device
     if device.type == "cpu":

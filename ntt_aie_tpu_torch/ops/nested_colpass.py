@@ -157,22 +157,26 @@ def _launch(xb: torch.Tensor, nc: NestedColPass) -> torch.Tensor:
     B, nn, c = xb.shape
     tl = C.tile_cols(nn, c)
     out = torch.empty_like(xb)
+    args = C.network_args(net)
     lib = _library()
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
-        err = lib.ntt_nested_colpass(
-            xb.data_ptr(), out.data_ptr(), B, nn, c, tl.bit_length() - 1,
-            nc.fuse, *C.network_args(net), net.red.p, stream)
-    if err != 0:
-        raise RuntimeError("CUDA nested column pass launch failed: "
-                           + lib.ntt_nested_error_string(err).decode())
-    nested_colpass.launches += 1
+        for b0, b1 in C.launch_batches(B):
+            err = lib.ntt_nested_colpass(
+                xb[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0, nn, c,
+                tl.bit_length() - 1, nc.fuse, *args, net.red.p, stream)
+            if err != 0:
+                raise RuntimeError(
+                    "CUDA nested column pass launch failed: "
+                    + lib.ntt_nested_error_string(err).decode())
+            nested_colpass.launches += 1
     return out
 
 
 def nested_colpass(x: torch.Tensor, nc: NestedColPass) -> torch.Tensor:
-    """Run one nested column pass: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor. ``nested_colpass.launches`` counts
+    """Run one nested column pass: the CUDA kernel for a CUDA tensor (one
+    launch per colpass.MAX_LAUNCH_BATCH batch rows), the plain version for
+    a CPU tensor. ``nested_colpass.launches`` counts
     kernel launches."""
     if x.device.type == "cpu":
         return nested_colpass_plain(x, nc)

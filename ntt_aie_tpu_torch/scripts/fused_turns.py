@@ -1,0 +1,143 @@
+"""The fused and the fold transform of several checkouts, timed in turns
+on one card.
+
+    python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
+
+Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
+such as an unpacked ``git archive`` of another commit, or of this one with
+a constant changed (``kFuse`` in ``csrc/fused_fourstep.cu``). This checkout
+is the root "this". The roots' kernels are built first, all at once. Then
+one child process per reading
+imports one root's package (``PYTHONPATH``) and times, at n = 2^20 over
+p = 469762049 and batch B = 256 (the main path's), ``make_batched(B)``'s
+``fwd_mat`` and ``inv_mat`` of the fused plan and of the fold plan
+(``utils.timing.time_device``: CUDA events, 5 repeats of a dependent chain
+of 10, trimmed mean), checks that the fused ``fwd_mat`` equals the fold
+plan's bit for bit. The readings go in turns: the roots in order, then
+in reverse (a b c c b a).
+
+Prints one JSON line per reading, then one summary line: per root, the
+mean of its readings in us per NTT, and the card's name and power limit
+(nvidia-smi). Exits 1 if a reading failed or a fused output differed from
+the fold plan's. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+THIS_ROOT = pathlib.Path(__file__).resolve().parents[2]
+LOG_N = 20
+BATCH = 256
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _run_child(root: pathlib.Path) -> subprocess.CompletedProcess:
+    """One reading of root's package, in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(root))
+    return subprocess.run([sys.executable, __file__, "--child"], env=env,
+                          capture_output=True, text=True)
+
+
+def _measure() -> dict:
+    """One reading of the imported package (the child's work)."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    field = T.P_469762049
+    cfg = T.NTTConfig(field=field, log_n=LOG_N)
+    n1, n2 = cfg.split
+    fused = T.build_plan(cfg, device=dev, fused=True)
+    fold = T.build_plan(cfg, device=dev)
+    batch = BATCH
+    fused_b, fold_b = fused.make_batched(batch), fold.make_batched(batch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(0, field.p, (batch, n1, n2), dtype=torch.int32,
+                      device=dev, generator=gen)
+    equal = bool(torch.equal(fused_b["fwd_mat"](x), fold_b["fwd_mat"](x)))
+    out = {"package": str(pathlib.Path(T.__file__).parent), "batch": batch,
+           "fused_equals_fold": equal}
+    for name, bat in (("fused", fused_b), ("fold", fold_b)):
+        for key in ("fwd_mat", "inv_mat"):
+            us = time_device(bat[key], x)["us_per_iter"]
+            out[f"{name}_{key}_us_per_ntt"] = us / batch
+    return out
+
+
+def _card() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", action="append", default=[],
+                    metavar="NAME=DIR", help="another checkout to time")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        _emit(_measure())
+        return 0
+
+    roots = {}
+    for spec in args.root:
+        name, _, path = spec.partition("=")
+        if not path or not (pathlib.Path(path) / "ntt_aie_tpu_torch").is_dir():
+            ap.error(f"--root {spec}: not NAME=DIR of a checkout")
+        roots[name] = pathlib.Path(path).resolve()
+    roots["this"] = THIS_ROOT
+
+    build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
+             "[C.build_library(n) for n in ('colpass', 'fused_fourstep')]")
+    with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:
+        builds = {name: pool.submit(
+            subprocess.run, [sys.executable, "-c", build],
+            env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
+            text=True) for name, root in roots.items()}
+        for name, fut in builds.items():
+            res = fut.result()
+            if res.returncode != 0:
+                _emit({"root": name, "ok": False, "error": res.stderr[-2000:]})
+                return 1
+
+    order = list(roots) + list(reversed(roots))
+    readings = {name: [] for name in roots}
+    ok = True
+    for name in order:
+        res = _run_child(roots[name])
+        if res.returncode != 0:
+            _emit({"root": name, "ok": False, "error": res.stderr[-2000:]})
+            return 1
+        reading = json.loads(res.stdout.strip().splitlines()[-1])
+        ok = ok and reading["fused_equals_fold"]
+        readings[name].append(reading)
+        _emit(dict(reading, root=name))
+
+    keys = [k for k in readings["this"][0] if k.endswith("_us_per_ntt")]
+    summary = {name: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
+               for name, rs in readings.items()}
+    _emit({"summary": summary, "card": _card(), "batch": BATCH,
+           "order": order, "ok": ok,
+           "method": "one child process a reading; CUDA events, 5 repeats "
+                     "of a dependent chain of 10, trimmed mean; us per NTT "
+                     "= us per call / batch; each root's mean over its "
+                     "readings"})
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,9 @@
 """The CUDA column passes (32-bit and Goldilocks), the fused four-step
 kernel, the Goldilocks pointwise product, the nested R x S column pass and
-the butterfly probe against their plain PyTorch versions, on the card; and
-the entry points' default device.
+the butterfly probe against their plain PyTorch versions, on the card; the
+column kernels at a batch above one launch's 65,535 rows and the Goldilocks
+kernel at 8,192 rows; the fused kernel after a chain of launches (its tile
+counters); and the entry points' default device.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -33,6 +35,8 @@ FUSED_SHAPES = [(1024, 1024), (512, 2048), (2048, 512), (32, 64), (64, 32)]
 # below 256 rows (R = S = 8)
 NESTED_SHAPES = [(1024, 1024, None, 4), (2048, 512, None, 2),
                  (256, 512, 8, 2), (64, 512, None, 2)]
+# one launch takes 65,535 batch rows: this batch takes two
+BIG_BATCH = C.MAX_LAUNCH_BATCH + 2
 
 
 @pytest.fixture
@@ -97,6 +101,63 @@ def test_fused_kernel_matches_plain(cuda, n1, n2, B):
         torch.cuda.synchronize()
         assert FF.fused_fourstep.launches == before + 1
         assert torch.equal(got, FF.fused_fourstep_plain(xin, ff)), name
+
+
+@pytest.mark.parametrize("n1,n2", FUSED_SHAPES)
+def test_fused_kernel_matches_plain_after_a_chain(cuda, n1, n2):
+    """Ten launches of one FusedFourstep at batches 1 and 4 in turn, then
+    the kernel against its plain version: a tile counter that a launch left
+    above zero would make the next skip tiles. Phase A's counter is zero
+    after every launch; phase B's is zeroed inside the next."""
+    g = torch.Generator(device=cuda).manual_seed(n1 + 3 * n2)
+    for name, ff in fused_passes(T.P_469762049, n1, n2, negacyclic=True,
+                                 device=cuda).items():
+        xs = [torch.randint(0, 4 * P, (B,) + ff.shape_in, dtype=torch.int64,
+                            device=cuda, generator=g).to(torch.int32)
+              for B in (1, 4)]
+        before = FF.fused_fourstep.launches
+        for i in range(10):
+            FF.fused_fourstep(xs[i % 2], ff)
+        torch.cuda.synchronize()
+        assert FF.fused_fourstep.launches == before + 10
+        stream = torch.cuda.current_stream().cuda_stream
+        assert ff.counters(stream)[0].item() == 0, name
+        for x in xs:
+            got = FF.fused_fourstep(x, ff)
+            torch.cuda.synchronize()
+            assert torch.equal(got, FF.fused_fourstep_plain(x, ff)), name
+
+
+def test_fused_kernel_on_two_streams_at_once(cuda):
+    """One FusedFourstep launched on two streams with no order between
+    them: each stream takes tiles from its own counters."""
+    ff = fused_passes(T.P_469762049, 1024, 1024, device=cuda)["ff"]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xs = [torch.randint(0, 4 * P, (16,) + ff.shape_in, dtype=torch.int64,
+                        device=cuda, generator=g).to(torch.int32)
+          for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    if streams[0].cuda_stream == streams[1].cuda_stream:
+        pytest.skip("the stream pool gave one stream twice")
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(5):
+        for i, (s, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(s):
+                outs[i].append(FF.fused_fourstep(x, ff))
+    torch.cuda.synchronize()
+    for x, got in zip(xs, outs):
+        want = FF.fused_fourstep_plain(x, ff)
+        assert all(torch.equal(y, want) for y in got)
+
+
+def test_fused_kernel_info(cuda):
+    ff = fused_passes(T.P_469762049, 1024, 1024, device=cuda)["ff"]
+    info = FF.kernel_info(ff, 256)
+    assert info["kfuse"] in (3, 4)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    # 1024 x 1024 at TL = 8: 128 tiles a batch row in each phase
+    assert info["grid"] == min(256 * 128, info["blocks_per_sm"] * info["sms"])
 
 
 def test_fused_plan_matches_oracle(cuda):
@@ -188,6 +249,23 @@ def test_gl_plan_matches_oracle(cuda):
     assert G.gl_mul.launches == 1
 
 
+@pytest.mark.parametrize("direction", ["dif", "dit"])
+def test_gl_kernel_takes_8192_rows(cuda, direction):
+    """8,192 rows of uint64 in 2-column tiles (128 KB), the GL columns of
+    the default 8192 x 8192 split at n = 2^26."""
+    assert C.tile_cols(8192, 64, itemsize=8) == 2
+    cp = G.make_gl_colpass(T.GOLDILOCKS, 8192, direction=direction,
+                           inverse_tw=direction == "dit", device=cuda)
+    x = M.gl_from_u64(_gl_values(np.random.default_rng(8192), (1, 8192, 64)),
+                      cuda)
+    before = G.gl_colpass.launches
+    got = G.gl_colpass(x, cp)
+    torch.cuda.synchronize()
+    assert G.gl_colpass.launches == before + 1
+    want = G.gl_colpass_plain(x, cp)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_gl_kernel_rejects_non_contiguous(cuda):
     cp = gl_fold_passes(T.GOLDILOCKS, 16, 128, device=cuda)["cp2"]
     x = torch.zeros(2, 16, 128, dtype=torch.int32, device=cuda)
@@ -226,6 +304,44 @@ def test_nested_kernel_rejects_bad_input(cuda):
     y = torch.zeros(2, 64, 64, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         N.nested_colpass(y.transpose(1, 2), nc)
+
+
+def test_colpass_kernel_splits_a_large_batch(cuda):
+    cp = C.make_colpass(T.P_469762049, 32, direction="dif", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(65537)
+    x = torch.randint(0, 4 * P, (BIG_BATCH, 32, 4), dtype=torch.int64,
+                      device=cuda, generator=g).to(torch.int32)
+    before = C.colpass.launches
+    got = C.colpass(x, cp)
+    torch.cuda.synchronize()
+    assert C.colpass.launches == before + 2
+    assert got.shape == x.shape and got.is_contiguous()
+    assert torch.equal(got, C.colpass_plain(x, cp))
+
+
+def test_gl_kernel_splits_a_large_batch(cuda):
+    cp = G.make_gl_colpass(T.GOLDILOCKS, 32, direction="dit",
+                           inverse_tw=True, device=cuda)
+    x = M.gl_from_u64(_gl_values(np.random.default_rng(65537),
+                                 (BIG_BATCH, 32, 4)), cuda)
+    before = G.gl_colpass.launches
+    got = G.gl_colpass(x, cp)
+    torch.cuda.synchronize()
+    assert G.gl_colpass.launches == before + 2
+    want = G.gl_colpass_plain(x, cp)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_nested_kernel_splits_a_large_batch(cuda):
+    nc, _ = N.make_nested_colpass(32, 4, batch=BIG_BATCH, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(65538)
+    x = torch.randint(0, 4 * P, nc.shape, dtype=torch.int64, device=cuda,
+                      generator=g).to(torch.int32)
+    before = N.nested_colpass.launches
+    got = N.nested_colpass(x, nc)
+    torch.cuda.synchronize()
+    assert N.nested_colpass.launches == before + 2
+    assert torch.equal(got, N.nested_colpass_plain(x, nc))
 
 
 @pytest.mark.parametrize("words,r", [(4096, 4), (1 << 22, 64)])
