@@ -22,16 +22,20 @@ Phases, one JSON object per line:
                  fused_fourstep, nested_colpass, bfly_probe) with nvcc into
                  build/, one process each, all at once, and times it;
   3. kernel    — the 32-bit kernel against its plain PyTorch version on the
-                 card, for cp1/cp2/icp2/icp1 at the 1024x1024 split and at
-                 128x512 (plain and nested column networks), B = 4,
-                 bit-exact;
+                 card, bit-exact, for cp1/cp2/icp2/icp1 at the 1024x1024
+                 split, 128x512, 2048x512 and 512x2048 (nested, TL 8, 16
+                 and 4) and 32x64 and 64x32 (plain, TL 32), B = 1 and 4,
+                 and DIF and DIT over 8,192 rows at (1, 8192, 64);
   4. slice     — fwd_mat on a 1 GiB int32 batch (B = 256) gated against the
                  native C++ oracle on row 0 plus 8 random rows (the NumPy
                  oracle if the library cannot build); inv_mat(fwd_mat(x)) ==
                  x on the whole batch; polymul_mat against the NumPy cyclic
                  product; kernel launch counts 2 / 2 / 6;
   5. time      — us/NTT of fwd_mat through the kernel and through the plain
-                 version, and us/pass of cp1 and cp2, on CUDA events;
+                 version, and us/pass of cp1 and cp2, on CUDA events; the
+                 column kernel's kernel_info for cp1 and cp2 (register
+                 group size, tile layout and width, registers, blocks per
+                 SM);
   6. gl_kernel — the Goldilocks kernel against its plain version for
                  cp1/cp2/icp2/icp1 at 1024x1024, 128x512 and 2048x256, B = 4,
                  and DIF and DIT over 8,192 rows (2-column tiles) at
@@ -93,8 +97,9 @@ shape ("ms", per launch), launches, the plain version's time, and its
 bound — the larger of the bytes it must move over the card's 3.35 TB/s and
 its butterflies over the measured ideal rate of its arithmetic (phase 15;
 its measured HBM rate is reported there, not used as a bound); library_ms
-is null (no single PyTorch call computes an NTT mod p). The fused row also
-carries its inv_mat time, its kFuse and blocks per SM. Last, the result
+is null (no single PyTorch call computes an NTT mod p). The colpass row
+also carries its kFuse, registers and blocks per SM (cp1's kernel), the
+fused row its inv_mat time, its kFuse and blocks per SM. Last, the result
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -105,6 +110,11 @@ import subprocess
 import sys
 import time
 
+# The (n1, n2) splits the 32-bit column kernel is held against its plain
+# version at: nested at TL 8, 16 and 4 (asymmetric both ways), plain at
+# TL 32.
+COLPASS_KERNEL_SHAPES = ((1024, 1024), (128, 512), (2048, 512), (512, 2048),
+                         (32, 64), (64, 32))
 # The Goldilocks path: n = 2^GL_LOG_N at batch GL_BATCH (the 1024 x 1024
 # split), and the shapes the kernel is held against its plain version at.
 GL_LOG_N = 20
@@ -190,23 +200,31 @@ def main() -> int:
           "libraries": sorted(p.name for p in libs.values())})
 
     # 3. kernel against plain, on the card
+    cases = [(name, cp, (B,) + ((n1, n2) if name in ("cp1", "icp1")
+                                else (n2, n1)))
+             for n1, n2 in COLPASS_KERNEL_SHAPES
+             for name, cp in fold_passes(field, n1, n2, device=dev).items()
+             for B in (1, 4)]
+    cases += [(direction, C.make_colpass(field, 8192, direction=direction,
+                                         inverse_tw=direction == "dit",
+                                         device=dev), (1, 8192, 64))
+              for direction in ("dif", "dit")]
     max_err = 0
-    for n1, n2 in ((1024, 1024), (128, 512)):
-        for name, cp in fold_passes(field, n1, n2, device=dev).items():
-            rows, cols = (n1, n2) if name in ("cp1", "icp1") else (n2, n1)
-            x = torch.randint(0, 4 * p, (4, rows, cols), dtype=torch.int64,
-                              device=dev, generator=gen).to(torch.int32)
-            got = C.colpass(x, cp)
-            torch.cuda.synchronize()
-            want = C.colpass_plain(x, cp)
-            err = int((got.long() - want.long()).abs().max())
-            max_err = max(max_err, err)
-            emit({"phase": "kernel", "pass": name, "shape": [4, rows, cols],
-                  "network": "nested" if cp.wmid is not None else "plain",
-                  "equal": bool(torch.equal(got, want)), "max_abs_err": err})
-            if err:
-                return fail("kernel", f"{name} {rows}x{cols} differs from "
-                            "its plain version")
+    for name, cp, shape in cases:
+        x = torch.randint(0, 4 * p, shape, dtype=torch.int64, device=dev,
+                          generator=gen).to(torch.int32)
+        got = C.colpass(x, cp)
+        torch.cuda.synchronize()
+        want = C.colpass_plain(x, cp)
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        emit({"phase": "kernel", "pass": name, "shape": list(shape),
+              "network": "nested" if cp.wmid is not None else "plain",
+              "tile_cols": C.tile_cols(shape[1], shape[2]),
+              "equal": bool(torch.equal(got, want)), "max_abs_err": err})
+        if err or not torch.equal(got, want):
+            return fail("kernel", f"{name} {shape} differs from its plain "
+                        "version")
 
     # 4. slice: the main path at n = 2^20, B = 256
     cfg = T.NTTConfig(field=field, log_n=20)
@@ -270,6 +288,8 @@ def main() -> int:
     k_fwd = time_device(bat["fwd_mat"], x)["us_per_iter"]
     k_cp1 = time_device(cp1, x)["us_per_iter"]
     k_cp2 = time_device(cp2, x)["us_per_iter"]
+    info = {name: C.kernel_info(cp, x.shape[2])
+            for name, cp in (("cp1", cp1), ("cp2", cp2))}
 
     def plain_fwd(v):
         return C.colpass_plain(C.colpass_plain(v, cp1), cp2)
@@ -298,6 +318,7 @@ def main() -> int:
         "plain_cp1_us_per_pass": p_cp1 / pb,
         "plain_cp2_us_per_pass": p_cp2 / pb,
         "kernel_ntt_per_s": B / (k_fwd * 1e-6),
+        "kernel_info": info,
         "method": "CUDA events, 5 repeats of a dependent chain of 10, "
                   "trimmed mean; us per NTT = us per call / batch",
     }
@@ -340,6 +361,8 @@ def main() -> int:
         "batch": B, "plain_batch": pb,
         "bytes": (4 * B * n * 4 + 2 * n * 4) / 2,
         "butterflies": B * n // 2 * 10, "arithmetic": "harvey4",
+        "kfuse": info["cp1"]["kfuse"], "registers": info["cp1"]["registers"],
+        "blocks_per_sm": info["cp1"]["blocks_per_sm"],
     }] + gl_rows + [fused_row] + nested_rows
     emit({"kernels": [_with_bound(row, roof) for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,23 +14,45 @@
 // (ncols, nn)-oriented matrix, then canonicalize.
 // Output domain: [0, 4p) without canonicalize, [0, p) with it.
 //
-// What bounds it on an H100: the pass's floor is device-memory bytes. Each
-// pass reads and writes the 4 MB matrix of one n = 2^20 transform once,
-// plus 8 MB of (w, w') wmat for cp1/icp2 (about 2.5 and 5 us per transform
-// at 3.35 TB/s). This simple design already moves each element once per
-// pass, but does not reach that floor: it is held by the work inside the
-// SM, one shared-memory round trip and one barrier per radix-2 stage
-// (grouping stages in registers is the next step). The design: one
-// thread block per (batch row, tile of TL consecutive
-// columns) loads its nn x TL tile into shared memory with reads along the
-// column axis (TL*4 contiguous bytes per row), runs every stage there with
-// __syncthreads between stages, and writes the tile once (coalesced along
-// nn when transposed). The caller picks TL so a tile takes 32 KB where it
-// can (TL = 8 at nn = 1024: seven 256-thread blocks per SM; measured on an
-// H100 80GB HBM3 at 700 W, cp1 took 16.0 us/pass/NTT at TL = 8 against
-// 28.7 at TL = 16, whose 64 KB tiles fit three blocks per SM), and never
-// narrower than 4 columns. The largest column the kernel takes is
-// kMaxRows = 8192 rows (TL = 4, 128 KB).
+// What bounds it on an H100. A pass's floor is the larger of its bytes
+// (the 4 MB matrix of one n = 2^20 transform read and written once, plus
+// 8 MB of (w, w') wmat for cp1/icp2, held in L2 across the batch) over
+// 3.35 TB/s and its butterflies (nn/2 * log2 nn a column) over the
+// measured ideal butterfly rate: both near 2.5 us a transform at
+// 1024 x 1024. What held the first design at 6x that floor was the work
+// inside the SM: one shared-memory round trip and one barrier a radix-2
+// stage, sweeps of the tile that only moved data (load, nested mid step,
+// store), and bank conflicts where phase 1's row map and the transposed
+// store touched rows 32 apart. Timed in turns on an H100 80GB HBM3 at
+// 700 W (PERF.md section 6), the kernel turned out bound by instructions
+// issued, not by shared-memory wavefronts: a layout that removed every
+// conflict at the cost of a few instructions an element was slower. The
+// design (colpass_tile.cuh column_tile_io):
+//   - one thread block per (batch row, tile of TL consecutive columns);
+//     the caller picks TL so a tile takes 32 KB where it can (TL = 8 at
+//     nn = 1024), never narrower than 4 columns; the largest column is
+//     kMaxRows = 8192 rows (TL = 4, 128 KB);
+//   - register groups of kFuse radix-2 stages: each thread holds the 2^K
+//     values of one radix-2^K butterfly between two exchanges through the
+//     tile, one barrier a group instead of one a stage;
+//   - the first group reads its values from device memory and the last
+//     writes them there (TL*4 contiguous bytes a row; transposed, runs of
+//     32/TL values down each output column, 16 bytes at TL = 8), and the
+//     nested mid multiply rides in a group, so no sweep of the tile
+//     remains;
+//   - the tile is swizzled: row r takes slot (r XOR (r >> s)) mod 32/TL of
+//     its 32-word line, with s the row map's shift, so phase 1's rows land
+//     in distinct banks; the words of a group's rows come from one base
+//     word and K XOR offsets, computed once a group;
+//   - each (w, w') table pair is one 8-byte load (PairTables: ColPass's
+//     tw_pairs, wmid_pairs and interleaved wmat);
+//   - one kernel per direction and store options (no runtime branch on
+//     the direction), and csub as one unsigned min.
+// kFuse = 3 from readings in turns of kFuse 1-4 (PERF.md): at 4 a thread
+// holds 16 values, the registers pass 100 and 2 blocks fit an SM. At
+// kFuse 3, cp1's kernel takes 40 registers a thread and 6 blocks of 256
+// threads per SM (where the 33 KB of shared memory a block binds too),
+// cp2's 48 and 5 (registers bind; ntt_colpass_kernel_info).
 
 #include "colpass_tile.cuh"
 
@@ -42,24 +64,51 @@ using colpass_tile::TileOps;
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 227 * 1024;  // an H100 block's limit
 constexpr int kMaxRows = 8192;
+constexpr int kFuse = 3;  // radix-2 stages a register group (see above)
 
 struct Params {
-  Network net;
+  Network net;  // table pointers null: the kernel reads `tables`
   TileOps ops;
+  colpass_tile::PairTables tables;
   const uint32_t* x;
   uint32_t* out;
+  int shift;  // the swizzled tile's (colpass_tile::tile_shift)
   uint32_t p;
 };
 
 // One thread block per (batch row, tile of TL columns).
-template <bool kTranspose, bool kMat>
+template <bool kDit, bool kTranspose, bool kMat>
 __global__ void __launch_bounds__(kThreads) colpass_kernel(const Params P) {
   extern __shared__ uint32_t tile[];
   const size_t plane = (size_t)P.net.nn * P.ops.ncols;
-  colpass_tile::column_tile<colpass_tile::Load::kPlain, kTranspose, kMat>(
-      tile, P.net, P.ops, P.x + (size_t)blockIdx.y * plane,
+  colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse>(
+      tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
       P.out + (size_t)blockIdx.y * plane, (size_t)blockIdx.x << P.ops.log_tl,
-      P.p);
+      P.shift, P.p);
+}
+
+using KernelFn = void (*)(Params);
+
+template <bool kDit>
+KernelFn pick_kernel(bool transpose_out, bool mat) {
+  return !transpose_out ? (mat ? colpass_kernel<kDit, false, true>
+                               : colpass_kernel<kDit, false, false>)
+                        : (mat ? colpass_kernel<kDit, true, true>
+                               : colpass_kernel<kDit, true, false>);
+}
+
+// The instantiation for this direction and these store options.
+KernelFn pick_kernel(bool dit, bool transpose_out, bool mat) {
+  return dit ? pick_kernel<true>(transpose_out, mat)
+             : pick_kernel<false>(transpose_out, mat);
+}
+
+// Opts kernel in to smem dynamic bytes above 48 KB.
+cudaError_t allow_smem(KernelFn kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -68,48 +117,63 @@ extern "C" {
 
 int ntt_colpass_max_rows() { return kMaxRows; }
 
+// This build's register group size, and for the kernel of this direction
+// and these store options at an nn x 2^log_tl tile: its registers a thread
+// and its co-resident blocks per SM. Returns 0 or a cudaError_t.
+int ntt_colpass_kernel_info(int dit, int transpose_out, int mat, int nn,
+                            int log_tl, int* kfuse, int* regs, int* per_sm) {
+  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0, mat != 0);
+  const size_t smem = (size_t)nn << log_tl << 2;
+  cudaFuncAttributes attr = {};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        kThreads, smem);
+  *kfuse = kFuse;
+  *regs = attr.numRegs;
+  return static_cast<int>(err);
+}
+
 const char* ntt_colpass_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // Launches one column pass on `stream`. x: (batch, nn, ncols) uint32;
 // out: (batch, nn, ncols), or (batch, ncols, nn) with transpose_out. ts /
-// offs: host arrays of nstages half sizes and table offsets. log_a < 0
-// for a plain network. mat_w/mat_s null for no post_t multiply. Returns
+// offs: host arrays of nstages half sizes and table offsets (in pairs).
+// tw, mid, mat: (w, packed w') pairs, 8 bytes each: the stage twiddles,
+// the nested mid vector (null with log_a < 0, a plain network) and the
+// post_t operand indexed like out (null for none). Returns
 // cudaGetLastError() after the launch (0 = launched).
 int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
                 int log_tl, int dit, int nstages, int k0, const int* ts,
-                const int* offs, const void* tw_w, const void* tw_s,
-                int log_a, const void* mid_w, const void* mid_s,
-                const void* mat_w, const void* mat_s, int transpose_out,
-                int canonicalize, unsigned int p, void* stream) {
+                const int* offs, const void* tw, int log_a, const void* mid,
+                const void* mat, int transpose_out, int canonicalize,
+                unsigned int p, void* stream) {
   const size_t smem = (size_t)nn << log_tl << 2;
   Params P;
-  if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes ||
-      (ncols >> log_tl) < 1 || batch < 1 || batch > 65535 ||
+  if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
+      log_tl > 5 || (ncols >> log_tl) < 1 || batch < 1 || batch > 65535 ||
+      nstages < 1 ||
       !colpass_tile::make_network(&P.net, nn, dit, nstages, k0, ts, offs,
-                                  tw_w, tw_s, log_a, mid_w, mid_s))
+                                  nullptr, nullptr, log_a, nullptr, nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  P.ops.pre_w = P.ops.pre_s = nullptr;
-  P.ops.mat_w = static_cast<const uint32_t*>(mat_w);
-  P.ops.mat_s = static_cast<const uint32_t*>(mat_s);
+  P.ops.pre_w = P.ops.pre_s = P.ops.mat_w = P.ops.mat_s = nullptr;
+  P.tables.tw = static_cast<const uint2*>(tw);
+  P.tables.mid = static_cast<const uint2*>(mid);
+  P.tables.mat = static_cast<const uint2*>(mat);
   P.ops.ncols = ncols;
   P.ops.log_tl = log_tl;
   P.ops.canonicalize = canonicalize;
   P.x = static_cast<const uint32_t*>(x);
   P.out = static_cast<uint32_t*>(out);
+  P.shift = colpass_tile::tile_shift(P.net, log_tl);
   P.p = p;
-  void (*kernel)(Params) =
-      !transpose_out ? (mat_w ? colpass_kernel<false, true>
-                              : colpass_kernel<false, false>)
-                     : (mat_w ? colpass_kernel<true, true>
-                              : colpass_kernel<true, false>);
-  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const KernelFn kernel =
+      pick_kernel(dit != 0, transpose_out != 0, mat != nullptr);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(ncols >> log_tl, batch);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());

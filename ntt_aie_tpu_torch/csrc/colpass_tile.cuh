@@ -5,7 +5,9 @@
 // exchanges (one stage a group is one stage per barrier), and a whole
 // (nn x TL) column tile — load,
 // every stage of a plain or nested network, store — with its load, mid step
-// and store also callable on their own.
+// and store also callable on their own (column_tile, row-major). The last
+// section holds colpass.cu's tile (column_tile_io): a swizzled layout, and
+// groups that also load, store and carry the nested mid multiply.
 //
 // Arithmetic: harvey4, bit for bit the reference's uint32 operations.
 // Values travel in the lazy domain [0, 4p) (p < 2^29); the sub feeding a
@@ -305,6 +307,265 @@ __device__ __forceinline__ void column_tile(uint32_t* tile, const Network& N,
     run_phase<kFuse>(tile, N, N.k0, N.nstages, N.log_a, O.log_tl, p);
   }
   store_tile<kTranspose, kMat>(tile, N, O, dst, col0, p);
+}
+
+// ---- Column tiles whose groups load, multiply and store (colpass.cu) ----
+//
+// column_tile_io keeps its tile in a swizzled layout. A tile of TL =
+// 2^log_tl columns has 32-word lines of 2^b = 32 / TL rows; physical row r,
+// column c sits at word
+//   ((r XOR ((r >> s) mod 2^b)) << log_tl) + c,
+// where s, the tile's shift, is log2(nn / A), the row map's: consecutive
+// logical rows of phase 1 lie nn / A physical rows apart (row_of), so
+// row-major they share one bank group (4-way conflicts at TL = 8), and the
+// XOR with r >> s gives them distinct slots of their lines. A plain network
+// has no row map and s = log2 nn (r >> s = 0: row-major). s is at least b,
+// so the XOR keeps each row in its own line and the map is one to one.
+// ops/colpass.py tile_address models it.
+
+// The shift s of a tile of 2^log_tl columns of N (on the host: the kernel
+// takes it as a parameter, which costs it no register).
+inline int tile_shift(const Network& N, int log_tl) {
+  const int s = N.log_a >= 0 ? N.log_nn - N.log_a : N.log_nn;
+  return s > 5 - log_tl ? s : 5 - log_tl;
+}
+
+// csub as one unsigned min: x - m wraps above x exactly when x < m.
+__device__ __forceinline__ uint32_t csub_min(uint32_t x, uint32_t m) {
+  return min(x, x - m);
+}
+
+// column_tile_io's operand tables, each (w, packed w') pair one 8-byte
+// word, loaded with one instruction.
+struct PairTables {
+  const uint2* tw;   // stage twiddles, stage s from Network::off[s]
+  const uint2* mid;  // nested mid vector (nn,), or null for plain
+  const uint2* mat;  // multiply on store (kMat), indexed like the output
+};
+
+__device__ __forceinline__ uint32_t mulc(uint32_t x, uint2 w, uint32_t p) {
+  return mulc(x, w.x, w.y, p);
+}
+
+// The word of logical row l's column 0 through the row map log_a.
+__device__ __forceinline__ int word_of(int l, int log_a, int log_nn,
+                                       int log_tl, int shift) {
+  const int r = row_of(l, log_a, log_nn);
+  return (r ^ ((r >> shift) & ((32 >> log_tl) - 1))) << log_tl;
+}
+
+// dw[m] = word_of(m << log_t) for m < 2^K, from the K words of the single
+// bits: word_of is XOR-linear in l (row_of rotates l's bits, the swizzle
+// XORs them), so the row base + (m << log_t), whose bits are disjoint from
+// base's, is at word_of(base) ^ dw[m].
+template <int K>
+__device__ __forceinline__ void group_offsets(int (&dw)[1 << K], int log_t,
+                                              int log_a, int log_nn,
+                                              int log_tl, int shift) {
+  dw[0] = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int e = word_of(1 << (log_t + k), log_a, log_nn, log_tl, shift);
+#pragma unroll
+    for (int m = 0; m < (1 << k); ++m) dw[m + (1 << k)] = dw[m] ^ e;
+  }
+}
+
+// DIF stages s0 .. s0 + K - 1 of one phase (half sizes t_last << (K-1)
+// down to t_last) on the 2^K values v[m] = x[base + m * t_last] of one
+// radix-2^K butterfly, in the same per-butterfly operation order as one
+// stage at a time: sub-stage q pairs m with m + 2^(K-1-q) and takes the
+// twiddle at ((m mod 2^(K-1-q)) * t_last + j). So the outputs do not depend
+// on how the stages are grouped.
+template <int K>
+__device__ __forceinline__ void dif_stages(uint32_t (&v)[1 << K],
+                                           const Network& N,
+                                           const uint2* tw, int s0,
+                                           int log_t, int j, uint32_t p) {
+  const uint32_t p4 = 4u * p;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int h = 1 << (K - 1 - q);  // the pair's distance in m
+    const uint2* tw_q = tw + N.off[s0 + q];
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m) {
+      if (m & h) continue;
+      const int idx = ((m & (h - 1)) << log_t) | j;
+      const uint32_t a = v[m], b = v[m + h];
+      v[m] = csub_min(a + b, p4);
+      v[m + h] = mulc(a + (p4 - b), __ldg(tw_q + idx), p);
+    }
+  }
+}
+
+// DIT stages s0 .. s0 + K - 1 of one phase (half sizes t_first up to
+// t_first << (K-1)) on v[m] = x[base + m * t_first]: the mirror of
+// dif_stages. Sub-stage q pairs m with m + 2^q, takes the twiddle at
+// ((m mod 2^q) * t_first + j) and runs the DIT butterfly's operations in
+// their order (wv = v * w, then u + wv and u + 4p - wv, each through csub).
+template <int K>
+__device__ __forceinline__ void dit_stages(uint32_t (&v)[1 << K],
+                                           const Network& N,
+                                           const uint2* tw, int s0,
+                                           int log_t, int j, uint32_t p) {
+  const uint32_t p4 = 4u * p;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int h = 1 << q;  // the pair's distance in m
+    const uint2* tw_q = tw + N.off[s0 + q];
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m) {
+      if (m & h) continue;
+      const int idx = ((m & (h - 1)) << log_t) | j;
+      const uint32_t u = v[m];
+      const uint32_t wv = mulc(v[m + h], __ldg(tw_q + idx), p);
+      v[m] = csub_min(u + wv, p4);
+      v[m + h] = csub_min(u + (p4 - wv), p4);
+    }
+  }
+}
+
+// What one group of column_tile_io does beyond the tile: load its rows
+// from device memory instead of the tile (the first group: rows of phase
+// 0, where physical and logical rows agree), multiply by the nested mid
+// vector (DIF after its stages: the last group of phase 0, on physical
+// rows; DIT before them: the first group of phase 1, on logical rows), and
+// store its logical rows to device memory as store_tile would instead of
+// to the tile (the last group; then no barrier follows). Each value meets
+// the same operations in the same order as through load_tile, mid_step and
+// store_tile, so the bits do not change.
+struct GroupEnds {
+  const uint32_t* src;  // this batch row's input, or null
+  uint32_t* dst;        // this batch row's output, or null
+  bool mid;
+};
+
+// A group of K stages as run_group does it (DIT when kDit), on the
+// swizzled tile, with the ends E.
+template <int K, bool kDit, bool kTranspose, bool kMat>
+__device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
+                                             const TileOps& O,
+                                             const PairTables& T,
+                                             const GroupEnds& E, size_t col0,
+                                             int s0, int log_a, int shift,
+                                             uint32_t p) {
+  const int log_tl = O.log_tl;
+  const int t = kDit ? N.t[s0] : N.t[s0 + K - 1];
+  const int log_t = __ffs(t) - 1;
+  const int tl_mask = (1 << log_tl) - 1;
+  const int total = (N.nn >> K) << log_tl;
+  const uint32_t p2 = 2u * p;
+  int dw[1 << K];
+  group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, shift);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i & tl_mask;
+    const int g = i >> log_tl;
+    const int j = g & (t - 1);
+    const int base = ((g >> log_t) << (log_t + K)) | j;
+    const int w0 = word_of(base, log_a, N.log_nn, log_tl, shift) + c;
+    uint32_t v[1 << K];
+    if (E.src) {
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m)
+        v[m] = E.src[(size_t)(base + (m << log_t)) * O.ncols + col0 + c];
+    } else {
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m) v[m] = tile[w0 ^ dw[m]];
+    }
+    if (E.mid) {  // DIF: the stages, then mid; DIT: mid, then the stages
+      if constexpr (!kDit) dif_stages<K>(v, N, T.tw, s0, log_t, j, p);
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m)
+        v[m] = mulc(v[m], __ldg(T.mid + base + (m << log_t)), p);
+      if constexpr (kDit) dit_stages<K>(v, N, T.tw, s0, log_t, j, p);
+    } else if constexpr (kDit) {
+      dit_stages<K>(v, N, T.tw, s0, log_t, j, p);
+    } else {
+      dif_stages<K>(v, N, T.tw, s0, log_t, j, p);
+    }
+    if (E.dst) {
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m) {
+        const int l = base + (m << log_t);
+        const size_t o = kTranspose ? (col0 + c) * N.nn + l
+                                    : (size_t)l * O.ncols + col0 + c;
+        uint32_t u = v[m];
+        if constexpr (kMat) u = mulc(u, __ldg(T.mat + o), p);
+        if (O.canonicalize) u = csub_min(csub_min(u, p2), p);
+        E.dst[o] = u;
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m) tile[w0 ^ dw[m]] = v[m];
+    }
+  }
+  if (!E.dst) __syncthreads();
+}
+
+// run_group_io for a runtime k <= K stages.
+template <int K, bool kDit, bool kTranspose, bool kMat>
+__device__ __forceinline__ void run_group_io_upto(
+    int k, uint32_t* tile, const Network& N, const TileOps& O,
+    const PairTables& T, const GroupEnds& E, size_t col0, int s0, int log_a,
+    int shift, uint32_t p) {
+  if constexpr (K > 1) {
+    if (k < K) {
+      run_group_io_upto<K - 1, kDit, kTranspose, kMat>(
+          k, tile, N, O, T, E, col0, s0, log_a, shift, p);
+      return;
+    }
+  }
+  run_group_io<K, kDit, kTranspose, kMat>(tile, N, O, T, E, col0, s0, log_a,
+                                          shift, p);
+}
+
+// One phase of column_tile_io in groups of min(kFuse, stages left), each
+// with its GroupEnds: src on the phase's first group when load_src, dst on
+// its last when store_dst, the mid multiply on its last group (DIF) or its
+// first (DIT) when mid.
+template <int kFuse, bool kDit, bool kTranspose, bool kMat>
+__device__ __forceinline__ void run_phase_io(
+    uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
+    const uint32_t* src, uint32_t* dst, size_t col0, int s_begin, int s_end,
+    int log_a, int shift, bool load_src, bool store_dst, bool mid,
+    uint32_t p) {
+  for (int s = s_begin; s < s_end;) {
+    const int k = min(kFuse, s_end - s);
+    const bool first = s == s_begin, last = s + k == s_end;
+    const GroupEnds E = {load_src && first ? src : nullptr,
+                         store_dst && last ? dst : nullptr,
+                         mid && (kDit ? first : last)};
+    run_group_io_upto<kFuse, kDit, kTranspose, kMat>(k, tile, N, O, T, E,
+                                                     col0, s, log_a, shift,
+                                                     p);
+    s += k;
+  }
+}
+
+// Runs one tile with the whole block in register groups of up to kFuse
+// stages (run_phase_io), one barrier a group, on the swizzled tile: the
+// first group loads from src and the last stores to dst, and the nested
+// mid multiply rides in a group (GroupEnds), so no sweep of the tile loads,
+// multiplies or stores it. The same bits as column_tile<Load::kPlain,
+// kTranspose, kMat>. Output domain: [0, 4p), or [0, p) with canonicalize.
+// A caller that reuses the tile must __syncthreads() first. N has at least
+// one stage and is DIT exactly when kDit; shift is tile_shift(N, O.log_tl).
+template <bool kDit, bool kTranspose, bool kMat, int kFuse>
+__device__ __forceinline__ void column_tile_io(uint32_t* tile,
+                                               const Network& N,
+                                               const TileOps& O,
+                                               const PairTables& T,
+                                               const uint32_t* src,
+                                               uint32_t* dst, size_t col0,
+                                               int shift, uint32_t p) {
+  const bool nested = N.log_a >= 0;
+  run_phase_io<kFuse, kDit, kTranspose, kMat>(tile, N, O, T, src, dst, col0,
+                                              0, N.k0, -1, shift, true,
+                                              !nested, nested && !kDit, p);
+  if (nested)
+    run_phase_io<kFuse, kDit, kTranspose, kMat>(
+        tile, N, O, T, src, dst, col0, N.k0, N.nstages, N.log_a, shift,
+        false, true, kDit, p);
 }
 
 inline int ilog2(int v) {

@@ -69,7 +69,11 @@ class ColPass:
       order, row 1 their packed Shoup halves (w'_hi << 16) | w'_lo;
       offsets[s] is stage s's start.
     wmid: (2, nn) nested mid multiply, or None for a plain network.
-    wmat: (2, ncols, nn) 'post_t' operand, or None.
+    wmat: (ncols, nn, 2) 'post_t' operand, each (w, packed) pair
+      adjacent, or None.
+    tw_pairs, wmid_pairs: tw and wmid with each (w, packed) pair adjacent,
+      (sum(ts), 2) and (nn, 2) or None: the CUDA column kernel loads a pair
+      as one 8-byte word (the fused and nested kernels read tw and wmid).
     """
 
     red: Reduction
@@ -83,6 +87,8 @@ class ColPass:
     offsets: tuple
     wmid: torch.Tensor | None
     wmat: torch.Tensor | None
+    tw_pairs: torch.Tensor
+    wmid_pairs: torch.Tensor | None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return colpass(x, self)
@@ -126,17 +132,20 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
                      device)
     wmat = None
     if wmat_tab is not None:
-        wmat = _pair(wmat_tab[0], wmat_tab[1], device)
-        if wmat.shape[2] != nn:
-            raise ValueError(f"post_t operand {tuple(wmat.shape[1:])} is not "
+        wmat = _pair(wmat_tab[0], wmat_tab[1], device).movedim(0, -1)
+        if wmat.shape[1] != nn:
+            raise ValueError(f"post_t operand {tuple(wmat.shape[:2])} is not "
                              f"(ncols, {nn})")
+        wmat = wmat.contiguous()
+    tw = _pair(w_all, s_all, device)
     return ColPass(red=red, nn=nn, direction=direction,
                    phases_ts=tuple(tuple(int(t) for t in ph)
                                    for ph in phases_ts),
                    mid_rs=tuple(int(v) for v in mid_rs),
                    canonicalize=canonicalize, transpose_out=transpose_out,
-                   tw=_pair(w_all, s_all, device), offsets=offsets,
-                   wmid=wmid, wmat=wmat)
+                   tw=tw, offsets=offsets, wmid=wmid, wmat=wmat,
+                   tw_pairs=tw.t().contiguous(),
+                   wmid_pairs=None if wmid is None else wmid.t().contiguous())
 
 
 def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
@@ -193,8 +202,8 @@ def _batched(x: torch.Tensor, cp: ColPass):
     if xb.dim() != 3 or xb.shape[1] != cp.nn:
         raise ValueError(f"colpass over {cp.nn} rows takes (B, {cp.nn}, "
                          f"ncols) or ({cp.nn}, ncols), got {tuple(x.shape)}")
-    if cp.wmat is not None and cp.wmat.shape[1] != xb.shape[2]:
-        raise ValueError(f"post_t operand has {cp.wmat.shape[1]} columns, "
+    if cp.wmat is not None and cp.wmat.shape[0] != xb.shape[2]:
+        raise ValueError(f"post_t operand has {cp.wmat.shape[0]} columns, "
                          f"input has {xb.shape[2]}")
     return xb, squeeze
 
@@ -251,8 +260,8 @@ def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
     if cp.transpose_out:
         v = v.transpose(1, 2)
         if cp.wmat is not None:
-            v = red.mulc_mat(v, M.to_carrier(cp.wmat[0]),
-                             M.to_carrier(cp.wmat[1]))
+            v = red.mulc_mat(v, M.to_carrier(cp.wmat[..., 0]),
+                             M.to_carrier(cp.wmat[..., 1]))
     if cp.canonicalize:
         v = red.canonicalize(v)
     out = M.from_carrier(v).contiguous()
@@ -278,6 +287,31 @@ def tile_cols(nn: int, ncols: int, itemsize: int = 4) -> int:
         min_cols = 2
     return min(_MAX_TILE_COLS, ncols,
                max(min_cols, _TILE_BYTES // (itemsize * nn)))
+
+
+def tile_shift(cp: ColPass, log_tl: int) -> int:
+    """The shift s of cp's tile of 2^log_tl columns in the kernel's
+    swizzled layout (``csrc/colpass_tile.cuh`` tile_shift): log2(nn / A)
+    for a nested network whose row map is A (R for DIF, S for DIT), log2 nn
+    for a plain one, and at least 5 - log_tl."""
+    log_a = _log_a(cp)
+    s = cp.nn.bit_length() - 1 - (log_a if log_a >= 0 else 0)
+    return max(5 - log_tl, s)
+
+
+def tile_address(row, c, log_tl: int, shift: int):
+    """The shared-memory word of physical row ``row``, column ``c`` of a
+    column tile of 2^log_tl <= 32 columns in the kernel's swizzled layout
+    (``csrc/colpass_tile.cuh`` word_of), on NumPy integer arrays or ints:
+    the tile's 32-word lines hold 2^b = 32 / TL rows, and row r takes slot
+    (r XOR (r >> shift)) mod 2^b of its line (``tile_shift``)."""
+    b = 5 - log_tl
+    if not 0 <= b <= 5 or shift < b:
+        raise ValueError(f"no swizzled tile of 2^{log_tl} columns with "
+                         f"shift {shift}")
+    row = np.asarray(row, dtype=np.int64)
+    slot = (row ^ (row >> shift)) & ((1 << b) - 1)
+    return ((((row >> b) << b) | slot) << log_tl) | np.asarray(c, np.int64)
 
 
 def launch_batches(batch: int) -> list:
@@ -341,35 +375,67 @@ def _library() -> ctypes.CDLL:
     pi = ctypes.POINTER(ctypes.c_int)
     lib.ntt_colpass.restype = ci
     lib.ntt_colpass.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, pi, pi,
-                                vp, vp, ci, vp, vp, vp, vp, ci, ci,
-                                ctypes.c_uint, vp]
+                                vp, ci, vp, vp, ci, ci, ctypes.c_uint, vp]
     lib.ntt_colpass_error_string.restype = ctypes.c_char_p
     lib.ntt_colpass_error_string.argtypes = [ci]
     lib.ntt_colpass_max_rows.restype = ci
+    lib.ntt_colpass_kernel_info.restype = ci
+    lib.ntt_colpass_kernel_info.argtypes = [ci] * 5 + [pi] * 3
     if lib.ntt_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/colpass.cu kMaxRows disagrees with MAX_ROWS")
     return lib
 
 
-def network_args(cp: ColPass) -> list:
-    """cp's column network as the C launchers take it: nstages, k0, ts,
-    offs, tw_w, tw_s, log_a, mid_w, mid_s (log_a = -1 and null mids for a
-    plain network)."""
+def kernel_info(cp: ColPass, ncols: int) -> dict:
+    """What the card gives cp's kernel over (.., cp.nn, ncols): the build's
+    register group size (kfuse), the tile width TL, its layout and shift
+    (``tile_shift``), and the kernel's registers a thread and co-resident
+    blocks per SM."""
+    tl = tile_cols(cp.nn, ncols)
+    log_tl = tl.bit_length() - 1
+    lib = _library()
+    kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
+    with torch.cuda.device(cp.tw.device):
+        err = lib.ntt_colpass_kernel_info(
+            int(cp.direction == "dit"), int(cp.transpose_out),
+            int(cp.wmat is not None), cp.nn, log_tl, kfuse, regs, per_sm)
+    if err != 0:
+        raise RuntimeError("CUDA column pass occupancy query failed: "
+                           + lib.ntt_colpass_error_string(err).decode())
+    return {"kfuse": kfuse.value, "tile_cols": tl, "layout": "swizzled",
+            "shift": tile_shift(cp, log_tl), "registers": regs.value,
+            "blocks_per_sm": per_sm.value}
+
+
+def _log_a(cp: ColPass) -> int:
+    """log2 of the nested row map's A (R for DIF, S for DIT), -1 plain."""
+    if cp.wmid is None:
+        return -1
+    R, S = cp.mid_rs
+    return (R if cp.direction == "dif" else S).bit_length() - 1
+
+
+def _stage_args(cp: ColPass) -> list:
+    """nstages, k0, ts, offs of cp's stage list as C arrays."""
     ts = [t for ph in cp.phases_ts for t in ph]
     n = len(ts)
-    if cp.wmid is not None:
-        R, S = cp.mid_rs
-        log_a = (R if cp.direction == "dif" else S).bit_length() - 1
-        mid = [cp.wmid[0].data_ptr(), cp.wmid[1].data_ptr()]
-    else:
-        log_a, mid = -1, [None, None]
     return [n, len(cp.phases_ts[0]), (ctypes.c_int * n)(*ts),
-            (ctypes.c_int * n)(*cp.offsets), cp.tw[0].data_ptr(),
-            cp.tw[1].data_ptr(), log_a, *mid]
+            (ctypes.c_int * n)(*cp.offsets)]
+
+
+def network_args(cp: ColPass) -> list:
+    """cp's column network as the fused and nested launchers take it:
+    nstages, k0, ts, offs, tw_w, tw_s, log_a, mid_w, mid_s (log_a = -1 and
+    null mids for a plain network)."""
+    mid = ([cp.wmid[0].data_ptr(), cp.wmid[1].data_ptr()]
+           if cp.wmid is not None else [None, None])
+    return [*_stage_args(cp), cp.tw[0].data_ptr(), cp.tw[1].data_ptr(),
+            _log_a(cp), *mid]
 
 
 def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
-    for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat)):
+    for name, t in (("tw", cp.tw_pairs), ("wmid", cp.wmid_pairs),
+                    ("wmat", cp.wmat)):
         if t is not None and t.device != xb.device:
             raise ValueError(f"colpass table {name} is on {t.device}, "
                              f"input on {xb.device}")
@@ -379,18 +445,18 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     tl = tile_cols(nn, c)
     out_shape = (B, c, nn) if cp.transpose_out else (B, nn, c)
     out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
-    mat = ((cp.wmat[0].data_ptr(), cp.wmat[1].data_ptr())
-           if cp.wmat is not None else (None, None))
-    net = network_args(cp)
+    tables = [t.data_ptr() if t is not None else None
+              for t in (cp.wmid_pairs, cp.wmat)]
+    net = [*_stage_args(cp), cp.tw_pairs.data_ptr(), _log_a(cp)]
     lib = _library()
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         for b0, b1 in launch_batches(B):
             err = lib.ntt_colpass(
                 xb[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0, nn, c,
-                tl.bit_length() - 1, int(cp.direction == "dit"), *net, *mat,
-                int(cp.transpose_out), int(cp.canonicalize), cp.red.p,
-                stream)
+                tl.bit_length() - 1, int(cp.direction == "dit"), *net,
+                *tables, int(cp.transpose_out), int(cp.canonicalize),
+                cp.red.p, stream)
             if err != 0:
                 raise RuntimeError(
                     "CUDA column pass launch failed: "

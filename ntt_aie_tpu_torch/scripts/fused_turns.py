@@ -1,25 +1,29 @@
-"""The fused and the fold transform of several checkouts, timed in turns
-on one card.
+"""The fused and the fold transform, and the fold plan's two column passes,
+of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
 such as an unpacked ``git archive`` of another commit, or of this one with
-a constant changed (``kFuse`` in ``csrc/fused_fourstep.cu``). This checkout
+a constant changed (``kFuse`` in ``csrc/fused_fourstep.cu`` or
+``csrc/colpass.cu``). This checkout
 is the root "this". The roots' kernels are built first, all at once. Then
 one child process per reading
 imports one root's package (``PYTHONPATH``) and times, at n = 2^20 over
 p = 469762049 and batch B = 256 (the main path's), ``make_batched(B)``'s
-``fwd_mat`` and ``inv_mat`` of the fused plan and of the fold plan
-(``utils.timing.time_device``: CUDA events, 5 repeats of a dependent chain
-of 10, trimmed mean), checks that the fused ``fwd_mat`` equals the fold
-plan's bit for bit. The readings go in turns: the roots in order, then
-in reverse (a b c c b a).
+``fwd_mat`` and ``inv_mat`` of the fused plan and of the fold plan, and
+the fold plan's column passes cp1 and cp2 alone (``fwd_mat`` is cp1 then
+cp2; ``utils.timing.time_device``: CUDA events, 5 repeats of a dependent
+chain of 10, trimmed mean), checks that the fused ``fwd_mat`` equals the
+fold plan's bit for bit, and reads the column kernel's ``kernel_info``
+for cp1 and cp2 where the root's package has it. The readings go in
+turns: the roots in order, then in reverse (a b c c b a).
 
 Prints one JSON line per reading, then one summary line: per root, the
-mean of its readings in us per NTT, and the card's name and power limit
-(nvidia-smi). Exits 1 if a reading failed or a fused output differed from
-the fold plan's. Needs a CUDA card.
+mean of its readings in us per NTT (us per pass per NTT for cp1 and cp2),
+and the card's name and power limit (nvidia-smi). Exits 1 if a reading
+failed or a fused output differed from the fold plan's. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ def _measure() -> dict:
     import torch
 
     import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.utils.timing import time_device
 
     dev = torch.device("cuda", 0)
@@ -73,6 +78,14 @@ def _measure() -> dict:
         for key in ("fwd_mat", "inv_mat"):
             us = time_device(bat[key], x)["us_per_iter"]
             out[f"{name}_{key}_us_per_ntt"] = us / batch
+    # cp2 takes (B, n2, n1): x's shape, as n = 2^20 splits 1024 x 1024
+    for key in ("cp1", "cp2"):
+        us = time_device(fold.passes[key], x)["us_per_iter"]
+        out[f"fold_{key}_us_per_ntt"] = us / batch
+    if hasattr(C, "kernel_info"):
+        out["colpass_kernel_info"] = {
+            key: C.kernel_info(fold.passes[key], x.shape[2])
+            for key in ("cp1", "cp2")}
     return out
 
 

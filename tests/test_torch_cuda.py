@@ -37,6 +37,10 @@ NESTED_SHAPES = [(1024, 1024, None, 4), (2048, 512, None, 2),
                  (256, 512, 8, 2), (64, 512, None, 2)]
 # one launch takes 65,535 batch rows: this batch takes two
 BIG_BATCH = C.MAX_LAUNCH_BATCH + 2
+# (n1, n2) of the 32-bit column kernel against its plain version: plain
+# networks at TL 16 and 32, nested at TL 8, 16 and 4 (asymmetric both ways)
+COLPASS_SHAPES = [(16, 128), (128, 512), (256, 512), (1024, 1024),
+                  (2048, 512), (512, 2048), (32, 64), (64, 32)]
 
 
 @pytest.fixture
@@ -46,9 +50,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("n1,n2", [(16, 128), (128, 512), (256, 512),
-                                   (1024, 1024)])
+@pytest.mark.parametrize("B", [1, 3, 4])
+@pytest.mark.parametrize("n1,n2", COLPASS_SHAPES)
 def test_kernel_matches_plain(cuda, n1, n2, B):
     g = torch.Generator(device=cuda).manual_seed(n1 + n2 + B)
     for name, cp in fold_passes(T.P_469762049, n1, n2, device=cuda).items():
@@ -60,6 +63,36 @@ def test_kernel_matches_plain(cuda, n1, n2, B):
         torch.cuda.synchronize()
         assert C.colpass.launches == before + 1
         assert torch.equal(got, C.colpass_plain(x, cp)), name
+
+
+@pytest.mark.parametrize("direction", ["dif", "dit"])
+def test_kernel_takes_8192_rows(cuda, direction):
+    """8,192 rows in 4-column tiles (128 KB): the tallest column."""
+    assert C.tile_cols(8192, 64) == 4
+    cp = C.make_colpass(T.P_469762049, 8192, direction=direction,
+                        inverse_tw=direction == "dit", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(8192)
+    x = torch.randint(0, 4 * P, (1, 8192, 64), dtype=torch.int64,
+                      device=cuda, generator=g).to(torch.int32)
+    before = C.colpass.launches
+    got = C.colpass(x, cp)
+    torch.cuda.synchronize()
+    assert C.colpass.launches == before + 1
+    assert torch.equal(got, C.colpass_plain(x, cp))
+
+
+def test_colpass_kernel_info(cuda):
+    passes = fold_passes(T.P_469762049, 1024, 1024, device=cuda)
+    for name, cp in passes.items():
+        info = C.kernel_info(cp, 1024)
+        assert info["kfuse"] in (1, 2, 3, 4), name
+        assert info["layout"] == "swizzled"
+        assert info["tile_cols"] == 8
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    # a 4-column tile of 8,192 rows takes 128 KB: one block per SM
+    cp = C.make_colpass(T.P_469762049, 8192, direction="dif", device=cuda)
+    info = C.kernel_info(cp, 64)
+    assert info["tile_cols"] == 4 and info["blocks_per_sm"] == 1
 
 
 def test_kernel_plan_matches_oracle(cuda):
