@@ -76,14 +76,17 @@ Phases, one JSON object per line:
                  1024x1024 at fuse 1 to 5, the bench's; B = 1 1024x256 at
                  fuse 3, the check's), and at B = 4 1024x1024 at fuse 1 to
                  5, 2048x512, 256x512 with R = 8 and 64x512 (R = S = 8);
-                 at 1024x1024 also equal to the column-pass kernel;
+                 at B = 4 and fuse 1 to 5 with an empty phase: 256x512 with
+                 R = 1, 256x16 with R = 256 and 2x512 (R = 1); at
+                 1024x1024 also equal to the column-pass kernel;
  13. nested_check — the script's check mode on the card;
  14. nested_bench — the script's bench mode at B = 64, chain 8: the probe
                  line, then the column-pass kernel and the nested kernel at
                  fuse 1 to 5 (us per call, Gbf/s, % of the ideal rate);
                  launch counts of phases 13-14 (nested, probe, column
                  pass); the plain nested version's and the plain probe's
-                 times;
+                 times; the nested kernel's kernel_info at each fuse
+                 (tile width, shift, registers, blocks per SM);
  15. roofline  — measure_peak, then measure_vpu_peak for harvey4 and
                  Goldilocks at r = 64 and 128, and the probe kernel's
                  values against its plain version at r = 64;
@@ -99,7 +102,8 @@ its butterflies over the measured ideal rate of its arithmetic (phase 15;
 its measured HBM rate is reported there, not used as a bound); library_ms
 is null (no single PyTorch call computes an NTT mod p). The colpass row
 also carries its kFuse, registers and blocks per SM (cp1's kernel), the
-fused row its inv_mat time, its kFuse and blocks per SM. Last, the result
+fused row its inv_mat time, its kFuse and blocks per SM, the nested row
+its time, registers and blocks per SM at each fuse. Last, the result
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -126,13 +130,18 @@ FUSED_KERNEL_SHAPES = ((1024, 1024), (512, 2048), (2048, 512), (32, 64),
                        (64, 32))
 NESTED_BATCH, NESTED_CHAIN = 64, 8
 # (batch, n1, n2, R, fuse) the nested kernel is held against its plain
-# version at: the bench's shape at every fuse, the check's, and smaller
-# batches at shapes where the stage groups do not divide the phases
+# version at: the bench's shape at every fuse, the check's, smaller
+# batches at shapes where the stage groups do not divide the phases, and
+# at every fuse the networks with an empty phase: phase 0 (R = 1; n1 = 2,
+# whose default R is 1) or phase 1 (R = n1, at TL 16: the clamped shift)
 NESTED_KERNEL_CASES = (
     tuple((NESTED_BATCH, 1024, 1024, None, f) for f in range(1, 6))
     + ((1, 1024, 256, None, 3),)
     + tuple((4, 1024, 1024, None, f) for f in range(1, 6))
-    + ((4, 2048, 512, None, 3), (4, 256, 512, 8, 3), (4, 64, 512, None, 3)))
+    + ((4, 2048, 512, None, 3), (4, 256, 512, 8, 3), (4, 64, 512, None, 3))
+    + tuple((4, n1, n2, R, f) for n1, n2, R in
+            ((256, 512, 1), (256, 16, 256), (2, 512, None))
+            for f in range(1, 6)))
 SPEC_HBM_GBPS = 3350.0  # H100 SXM data sheet, GB/s
 
 
@@ -871,6 +880,9 @@ def nested_phases(args, dev, card):
     colpass_us = next(ln["us_per_call"] for ln in lines[1:]
                       if ln.get("fuse") is None)
     launches_ok = all(v > 0 for v in launches.values())
+    infos = {f: N.kernel_info(N.make_nested_colpass(
+        S.BENCH_N1, S.BENCH_N2, batch=NESTED_BATCH, fuse=f, device=dev)[0])
+        for f in by_fuse}
 
     # the plain versions at the bench's shapes
     nc, _ = N.make_nested_colpass(S.BENCH_N1, S.BENCH_N2,
@@ -891,6 +903,7 @@ def nested_phases(args, dev, card):
           "probe_dispatch_us": ideal["dispatch_us"],
           "colpass_us_per_call": colpass_us,
           "nested_us_per_call_by_fuse": by_fuse,
+          "kernel_info_by_fuse": infos,
           "plain_nested_us_per_call": plain_us,
           "plain_probe_us_per_launch": probe_plain_us,
           "launches": launches, "launches_ok": launches_ok,
@@ -912,6 +925,9 @@ def nested_phases(args, dev, card):
          "ms": by_fuse[nc.fuse] / 1e3, "fuse": nc.fuse,
          "ms_by_fuse": {f: us / 1e3 for f, us in by_fuse.items()},
          "colpass_ms_same_shape": colpass_us / 1e3,
+         "regs_by_fuse": {f: i["registers"] for f, i in infos.items()},
+         "blocks_per_sm_by_fuse": {f: i["blocks_per_sm"]
+                                   for f, i in infos.items()},
          "plain_ms": plain_us / 1e3, "batch": NESTED_BATCH,
          "plain_batch": NESTED_BATCH,
          "bytes": 2 * NESTED_BATCH * n * 4

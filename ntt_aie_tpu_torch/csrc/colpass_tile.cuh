@@ -1,13 +1,14 @@
-// Device code shared by the column pass (colpass.cu), the fused four-step
-// kernel (fused_fourstep.cu), the nested column pass (nested_colpass.cu)
-// and the butterfly probe (bfly_probe.cu): harvey4 arithmetic, groups of
-// DIF or DIT stages on a shared-memory tile held in registers between
-// exchanges (one stage a group is one stage per barrier), and a whole
-// (nn x TL) column tile — load,
-// every stage of a plain or nested network, store — with its load, mid step
-// and store also callable on their own (column_tile, row-major). The last
-// section holds colpass.cu's tile (column_tile_io): a swizzled layout, and
-// groups that also load, store and carry the nested mid multiply.
+// Device code shared by the column pass (colpass.cu), the nested column
+// pass (nested_colpass.cu), the fused four-step kernel (fused_fourstep.cu)
+// and the butterfly probe (bfly_probe.cu): harvey4 arithmetic, and two
+// ways to run a whole (nn x TL) column tile of a plain or nested network.
+// column_tile (row-major; fused_fourstep.cu's) runs groups of DIF or DIT
+// stages held in registers between exchanges through the tile (one stage
+// a group is one stage per barrier) between sweeps of the tile that load
+// it, apply the nested mid step and store it, each also callable on its
+// own. column_tile_io (the last section; colpass.cu's and
+// nested_colpass.cu's) keeps a swizzled tile, and its groups also load,
+// store and carry the nested mid multiply.
 //
 // Arithmetic: harvey4, bit for bit the reference's uint32 operations.
 // Values travel in the lazy domain [0, 4p) (p < 2^29); the sub feeding a
@@ -309,7 +310,8 @@ __device__ __forceinline__ void column_tile(uint32_t* tile, const Network& N,
   store_tile<kTranspose, kMat>(tile, N, O, dst, col0, p);
 }
 
-// ---- Column tiles whose groups load, multiply and store (colpass.cu) ----
+// ---- Column tiles whose groups load, multiply and store ----
+// (colpass.cu, nested_colpass.cu)
 //
 // column_tile_io keeps its tile in a swizzled layout. A tile of TL =
 // 2^log_tl columns has 32-word lines of 2^b = 32 / TL rows; physical row r,
@@ -426,23 +428,38 @@ __device__ __forceinline__ void dit_stages(uint32_t (&v)[1 << K],
 }
 
 // What one group of column_tile_io does beyond the tile: load its rows
-// from device memory instead of the tile (the first group: rows of phase
-// 0, where physical and logical rows agree), multiply by the nested mid
-// vector (DIF after its stages: the last group of phase 0, on physical
-// rows; DIT before them: the first group of phase 1, on logical rows), and
-// store its logical rows to device memory as store_tile would instead of
-// to the tile (the last group; then no barrier follows). Each value meets
-// the same operations in the same order as through load_tile, mid_step and
-// store_tile, so the bits do not change.
+// from device memory instead of the tile (the network's first group: rows
+// where physical and logical rows agree), multiply by the nested mid
+// vector (mid: DIF after its stages, the last group of phase 0, on
+// physical rows; DIT before them, the first group of phase 1, on logical
+// rows), and store its logical rows to device memory as store_tile would
+// instead of to the tile (the network's last group; then no barrier
+// follows). Where a DIF network's phase 0 is empty (R = 1, column_tile_io's
+// kMayEmpty), the mid multiply goes before the stages of phase 1's first
+// group instead (mid_swap); the row map is then the identity. Each value
+// meets the same operations in the same order as through load_tile,
+// mid_step and store_tile, so the bits do not change.
 struct GroupEnds {
   const uint32_t* src;  // this batch row's input, or null
   uint32_t* dst;        // this batch row's output, or null
-  bool mid;
+  bool mid, mid_swap;
 };
 
+// v[m] *= mid[base + m * 2^log_t] for the 2^K values of one group.
+template <int K>
+__device__ __forceinline__ void mid_multiply(uint32_t (&v)[1 << K],
+                                             const uint2* mid, int base,
+                                             int log_t, uint32_t p) {
+#pragma unroll
+  for (int m = 0; m < (1 << K); ++m)
+    v[m] = mulc(v[m], __ldg(mid + base + (m << log_t)), p);
+}
+
 // A group of K stages as run_group does it (DIT when kDit), on the
-// swizzled tile, with the ends E.
-template <int K, bool kDit, bool kTranspose, bool kMat>
+// swizzled tile, with the ends E. kMayEmpty (DIF): E may hold mid_swap,
+// and the stages are written once, between a mid multiply before them and
+// one after.
+template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty>
 __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
                                              const TileOps& O,
                                              const PairTables& T,
@@ -472,11 +489,13 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) v[m] = tile[w0 ^ dw[m]];
     }
-    if (E.mid) {  // DIF: the stages, then mid; DIT: mid, then the stages
+    if constexpr (kMayEmpty) {  // DIF: mid_swap, the stages, then mid
+      if (E.mid_swap) mid_multiply<K>(v, T.mid, base, log_t, p);
+      dif_stages<K>(v, N, T.tw, s0, log_t, j, p);
+      if (E.mid) mid_multiply<K>(v, T.mid, base, log_t, p);
+    } else if (E.mid) {  // DIF: the stages, then mid; DIT: mid, then the stages
       if constexpr (!kDit) dif_stages<K>(v, N, T.tw, s0, log_t, j, p);
-#pragma unroll
-      for (int m = 0; m < (1 << K); ++m)
-        v[m] = mulc(v[m], __ldg(T.mid + base + (m << log_t)), p);
+      mid_multiply<K>(v, T.mid, base, log_t, p);
       if constexpr (kDit) dit_stages<K>(v, N, T.tw, s0, log_t, j, p);
     } else if constexpr (kDit) {
       dit_stages<K>(v, N, T.tw, s0, log_t, j, p);
@@ -503,54 +522,64 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 }
 
 // run_group_io for a runtime k <= K stages.
-template <int K, bool kDit, bool kTranspose, bool kMat>
+template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty>
 __device__ __forceinline__ void run_group_io_upto(
     int k, uint32_t* tile, const Network& N, const TileOps& O,
     const PairTables& T, const GroupEnds& E, size_t col0, int s0, int log_a,
     int shift, uint32_t p) {
   if constexpr (K > 1) {
     if (k < K) {
-      run_group_io_upto<K - 1, kDit, kTranspose, kMat>(
+      run_group_io_upto<K - 1, kDit, kTranspose, kMat, kMayEmpty>(
           k, tile, N, O, T, E, col0, s0, log_a, shift, p);
       return;
     }
   }
-  run_group_io<K, kDit, kTranspose, kMat>(tile, N, O, T, E, col0, s0, log_a,
-                                          shift, p);
+  run_group_io<K, kDit, kTranspose, kMat, kMayEmpty>(
+      tile, N, O, T, E, col0, s0, log_a, shift, p);
 }
 
 // One phase of column_tile_io in groups of min(kFuse, stages left), each
 // with its GroupEnds: src on the phase's first group when load_src, dst on
 // its last when store_dst, the mid multiply on its last group (DIF) or its
-// first (DIT) when mid.
-template <int kFuse, bool kDit, bool kTranspose, bool kMat>
+// first (DIT) when mid, mid_swap on its first when mid_swap. An empty
+// phase runs no group.
+template <int kFuse, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty>
 __device__ __forceinline__ void run_phase_io(
     uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
     const uint32_t* src, uint32_t* dst, size_t col0, int s_begin, int s_end,
     int log_a, int shift, bool load_src, bool store_dst, bool mid,
-    uint32_t p) {
+    bool mid_swap, uint32_t p) {
   for (int s = s_begin; s < s_end;) {
     const int k = min(kFuse, s_end - s);
     const bool first = s == s_begin, last = s + k == s_end;
     const GroupEnds E = {load_src && first ? src : nullptr,
                          store_dst && last ? dst : nullptr,
-                         mid && (kDit ? first : last)};
-    run_group_io_upto<kFuse, kDit, kTranspose, kMat>(k, tile, N, O, T, E,
-                                                     col0, s, log_a, shift,
-                                                     p);
+                         mid && (kDit ? first : last),
+                         mid_swap && first};
+    run_group_io_upto<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
+        k, tile, N, O, T, E, col0, s, log_a, shift, p);
     s += k;
   }
 }
 
 // Runs one tile with the whole block in register groups of up to kFuse
 // stages (run_phase_io), one barrier a group, on the swizzled tile: the
-// first group loads from src and the last stores to dst, and the nested
-// mid multiply rides in a group (GroupEnds), so no sweep of the tile loads,
-// multiplies or stores it. The same bits as column_tile<Load::kPlain,
-// kTranspose, kMat>. Output domain: [0, 4p), or [0, p) with canonicalize.
-// A caller that reuses the tile must __syncthreads() first. N has at least
-// one stage and is DIT exactly when kDit; shift is tile_shift(N, O.log_tl).
-template <bool kDit, bool kTranspose, bool kMat, int kFuse>
+// network's first group loads from src and its last stores to dst, and the
+// nested mid multiply rides in a group (GroupEnds), so no sweep of the tile
+// loads, multiplies or stores it. The same bits as
+// column_tile<Load::kPlain, kTranspose, kMat>. Output domain: [0, 4p), or
+// [0, p) with canonicalize. A caller that reuses the tile must
+// __syncthreads() first. N has at least one stage and is DIT exactly when
+// kDit; shift is tile_shift(N, O.log_tl). A nested N has two phases of at
+// least one stage each, or, with kMayEmpty (DIF only; nested_colpass.cu's),
+// one of them may be empty (k0 = 0 or nstages: R = 1 or R = nn): the
+// network's first group loads, its last stores, and with phase 0 empty the
+// mid multiply rides before phase 1's first stages. colpass.cu never meets
+// an empty phase and leaves kMayEmpty off, so its groups keep the code its
+// kernels were timed with (PERF.md): kMayEmpty's group code gives them
+// other registers and other times.
+template <bool kDit, bool kTranspose, bool kMat, int kFuse,
+          bool kMayEmpty = false>
 __device__ __forceinline__ void column_tile_io(uint32_t* tile,
                                                const Network& N,
                                                const TileOps& O,
@@ -558,14 +587,19 @@ __device__ __forceinline__ void column_tile_io(uint32_t* tile,
                                                const uint32_t* src,
                                                uint32_t* dst, size_t col0,
                                                int shift, uint32_t p) {
+  static_assert(!(kMayEmpty && kDit), "an empty phase is DIF's only");
   const bool nested = N.log_a >= 0;
-  run_phase_io<kFuse, kDit, kTranspose, kMat>(tile, N, O, T, src, dst, col0,
-                                              0, N.k0, -1, shift, true,
-                                              !nested, nested && !kDit, p);
-  if (nested)
-    run_phase_io<kFuse, kDit, kTranspose, kMat>(
+  // whether phase 0 and phase 1 run a stage (without kMayEmpty both do in
+  // a nested network, and a plain one has no phase 1)
+  const bool has0 = !kMayEmpty || N.k0 > 0;
+  const bool has1 = kMayEmpty ? N.k0 < N.nstages : nested;
+  run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
+      tile, N, O, T, src, dst, col0, 0, N.k0, -1, shift, true, !has1,
+      nested && !kDit, false, p);
+  if (has1)
+    run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
         tile, N, O, T, src, dst, col0, N.k0, N.nstages, N.log_a, shift,
-        false, true, kDit, p);
+        !has0, true, kDit, !has0, p);
 }
 
 inline int ilog2(int v) {

@@ -72,8 +72,8 @@ class ColPass:
     wmat: (ncols, nn, 2) 'post_t' operand, each (w, packed) pair
       adjacent, or None.
     tw_pairs, wmid_pairs: tw and wmid with each (w, packed) pair adjacent,
-      (sum(ts), 2) and (nn, 2) or None: the CUDA column kernel loads a pair
-      as one 8-byte word (the fused and nested kernels read tw and wmid).
+      (sum(ts), 2) and (nn, 2) or None: the CUDA column and nested kernels
+      load a pair as one 8-byte word (the fused kernel reads tw and wmid).
     """
 
     red: Reduction
@@ -424,7 +424,7 @@ def _stage_args(cp: ColPass) -> list:
 
 
 def network_args(cp: ColPass) -> list:
-    """cp's column network as the fused and nested launchers take it:
+    """cp's column network as the fused launcher takes it:
     nstages, k0, ts, offs, tw_w, tw_s, log_a, mid_w, mid_s (log_a = -1 and
     null mids for a plain network)."""
     mid = ([cp.wmid[0].data_ptr(), cp.wmid[1].data_ptr()]

@@ -19,10 +19,12 @@ Output: lazy, [0, 4p), no canonicalize, rows in the order
 
 ``fuse`` groups up to that many consecutive stages of a phase into one
 radix-2^k step, as the prototype does; on the card a group is k stages
-held in registers between two shared-memory exchanges. It does not change
-the output. ``nested_colpass(x, nc)`` is the entry point: the kernel in
-``csrc/nested_colpass.cu`` on a CUDA tensor, the plain version
-``nested_colpass_plain`` on a CPU tensor, and a raise otherwise.
+held in registers between two exchanges through the column pass's
+swizzled shared-memory tile (``csrc/colpass_tile.cuh`` column_tile_io).
+It does not change the output. ``nested_colpass(x, nc)`` is the entry
+point: the kernel in ``csrc/nested_colpass.cu`` on a CUDA tensor, the
+plain version ``nested_colpass_plain`` on a CPU tensor, and a raise
+otherwise. ``kernel_info(nc)`` says what the card gives the kernel.
 """
 
 from __future__ import annotations
@@ -130,34 +132,62 @@ def _library() -> ctypes.CDLL:
     pi = ctypes.POINTER(ctypes.c_int)
     lib.ntt_nested_colpass.restype = ci
     lib.ntt_nested_colpass.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                                       pi, pi, vp, vp, ci, vp, vp,
-                                       ctypes.c_uint, vp]
+                                       pi, pi, vp, ci, vp, ctypes.c_uint,
+                                       vp]
     lib.ntt_nested_error_string.restype = ctypes.c_char_p
     lib.ntt_nested_error_string.argtypes = [ci]
     lib.ntt_nested_max_fuse.restype = ci
+    lib.ntt_nested_kernel_info.restype = ci
+    lib.ntt_nested_kernel_info.argtypes = [ci, ci, ci, pi, pi]
     if lib.ntt_nested_max_fuse() != MAX_FUSE:
         raise RuntimeError("csrc/nested_colpass.cu kMaxFuse disagrees with "
                            "MAX_FUSE")
     return lib
 
 
+def _check_fuse(nc: NestedColPass) -> None:
+    if nc.fuse > MAX_FUSE:
+        raise ValueError(f"the CUDA nested column pass groups at most "
+                         f"{MAX_FUSE} stages in registers, got fuse="
+                         f"{nc.fuse}")
+
+
+def kernel_info(nc: NestedColPass) -> dict:
+    """What the card gives nc's kernel: its fuse, the tile width TL and the
+    swizzled tile's shift (``colpass.tile_shift``), and the kernel's
+    registers a thread and co-resident blocks per SM."""
+    _check_fuse(nc)
+    net = nc.net
+    tl = C.tile_cols(net.nn, nc.n2)
+    log_tl = tl.bit_length() - 1
+    lib = _library()
+    regs, per_sm = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(net.tw.device):
+        err = lib.ntt_nested_kernel_info(nc.fuse, net.nn, log_tl, regs,
+                                         per_sm)
+    if err != 0:
+        raise RuntimeError("CUDA nested column pass occupancy query failed: "
+                           + lib.ntt_nested_error_string(err).decode())
+    return {"fuse": nc.fuse, "tile_cols": tl,
+            "shift": C.tile_shift(net, log_tl), "registers": regs.value,
+            "blocks_per_sm": per_sm.value}
+
+
 def _launch(xb: torch.Tensor, nc: NestedColPass) -> torch.Tensor:
     net = nc.net
-    for name, t in (("tw", net.tw), ("wmid", net.wmid)):
+    for name, t in (("tw", net.tw_pairs), ("wmid", net.wmid_pairs)):
         if t.device != xb.device:
             raise ValueError(f"nested_colpass table {name} is on {t.device}, "
                              f"input on {xb.device}")
     if not xb.is_contiguous():
         raise ValueError("the CUDA nested column pass takes contiguous "
                          "tensors")
-    if nc.fuse > MAX_FUSE:
-        raise ValueError(f"the CUDA nested column pass groups at most "
-                         f"{MAX_FUSE} stages in registers, got fuse="
-                         f"{nc.fuse}")
+    _check_fuse(nc)
     B, nn, c = xb.shape
     tl = C.tile_cols(nn, c)
     out = torch.empty_like(xb)
-    args = C.network_args(net)
+    args = [*C._stage_args(net), net.tw_pairs.data_ptr(), C._log_a(net),
+            net.wmid_pairs.data_ptr()]
     lib = _library()
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream

@@ -2,6 +2,7 @@
 of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
+        [--nested]
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
 such as an unpacked ``git archive`` of another commit, or of this one with
@@ -16,13 +17,20 @@ the fold plan's column passes cp1 and cp2 alone (``fwd_mat`` is cp1 then
 cp2; ``utils.timing.time_device``: CUDA events, 5 repeats of a dependent
 chain of 10, trimmed mean), checks that the fused ``fwd_mat`` equals the
 fold plan's bit for bit, and reads the column kernel's ``kernel_info``
-for cp1 and cp2 where the root's package has it. The readings go in
-turns: the roots in order, then in reverse (a b c c b a).
+for cp1 and cp2 where the root's package has it. With ``--nested`` each
+reading also times, at the nested prototype's bench shape (B = 64,
+1024 x 1024), the column pass ``make_colpass(field, 1024, "dif")`` and
+the nested R x S pass ``make_nested_colpass`` at fuse 1 to 5 (us per
+call, the same timing), checks that the nested pass at fuse 3 equals the
+column pass bit for bit, and reads ``nested_colpass.kernel_info`` per
+fuse where the root's package has it. The readings go in turns: the roots
+in order, then in reverse (a b c c b a).
 
 Prints one JSON line per reading, then one summary line: per root, the
-mean of its readings in us per NTT (us per pass per NTT for cp1 and cp2),
-and the card's name and power limit (nvidia-smi). Exits 1 if a reading
-failed or a fused output differed from the fold plan's. Needs a CUDA
+mean of its readings in us per NTT (us per pass per NTT for cp1 and cp2;
+us per call for the nested bench shape), and the card's name and power
+limit (nvidia-smi). Exits 1 if a reading failed, a fused output differed
+from the fold plan's or a nested one from the column pass's. Needs a CUDA
 card.
 """
 
@@ -39,17 +47,51 @@ import sys
 THIS_ROOT = pathlib.Path(__file__).resolve().parents[2]
 LOG_N = 20
 BATCH = 256
+NESTED_BATCH, NESTED_N = 64, 1024  # the nested prototype's bench shape
+NESTED_FUSE = (1, 2, 3, 4, 5)
 
 
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _run_child(root: pathlib.Path) -> subprocess.CompletedProcess:
+def _run_child(root: pathlib.Path, nested: bool
+               ) -> subprocess.CompletedProcess:
     """One reading of root's package, in a process of its own."""
     env = dict(os.environ, PYTHONPATH=str(root))
-    return subprocess.run([sys.executable, __file__, "--child"], env=env,
+    return subprocess.run([sys.executable, __file__, "--child"]
+                          + ["--nested"] * nested, env=env,
                           capture_output=True, text=True)
+
+
+def _measure_nested() -> dict:
+    """The column pass and the nested pass at fuse 1 to 5 at the nested
+    bench shape, us per call."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import nested_colpass as N
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    field = T.P_469762049
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randint(0, field.p, (NESTED_BATCH, NESTED_N, NESTED_N),
+                      dtype=torch.int32, device=dev, generator=gen)
+    cp = C.make_colpass(field, NESTED_N, direction="dif", device=dev)
+    out = {"nested_kernel_info": {},
+           "colpass_b64_us_per_call": time_device(cp, x)["us_per_iter"]}
+    for fuse in NESTED_FUSE:
+        nc, _ = N.make_nested_colpass(NESTED_N, NESTED_N, batch=NESTED_BATCH,
+                                      fuse=fuse, device=dev)
+        out[f"nested_fuse{fuse}_us_per_call"] = time_device(
+            nc, x)["us_per_iter"]
+        if fuse == 3:
+            out["nested_equals_colpass"] = bool(torch.equal(nc(x), cp(x)))
+        if hasattr(N, "kernel_info"):
+            out["nested_kernel_info"][fuse] = N.kernel_info(nc)
+    return out
 
 
 def _measure() -> dict:
@@ -100,10 +142,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", action="append", default=[],
                     metavar="NAME=DIR", help="another checkout to time")
+    ap.add_argument("--nested", action="store_true",
+                    help="also time the nested pass at fuse 1-5 and the "
+                         "column pass at B = 64, 1024 x 1024")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        _emit(_measure())
+        reading = _measure()
+        if args.nested:
+            reading.update(_measure_nested())
+        _emit(reading)
         return 0
 
     roots = {}
@@ -114,8 +162,9 @@ def main(argv=None) -> int:
         roots[name] = pathlib.Path(path).resolve()
     roots["this"] = THIS_ROOT
 
+    libs = ("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
-             "[C.build_library(n) for n in ('colpass', 'fused_fourstep')]")
+             f"[C.build_library(n) for n in {libs!r}]")
     with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:
         builds = {name: pool.submit(
             subprocess.run, [sys.executable, "-c", build],
@@ -131,24 +180,27 @@ def main(argv=None) -> int:
     readings = {name: [] for name in roots}
     ok = True
     for name in order:
-        res = _run_child(roots[name])
+        res = _run_child(roots[name], args.nested)
         if res.returncode != 0:
             _emit({"root": name, "ok": False, "error": res.stderr[-2000:]})
             return 1
         reading = json.loads(res.stdout.strip().splitlines()[-1])
-        ok = ok and reading["fused_equals_fold"]
+        ok = (ok and reading["fused_equals_fold"]
+              and reading.get("nested_equals_colpass", True))
         readings[name].append(reading)
         _emit(dict(reading, root=name))
 
-    keys = [k for k in readings["this"][0] if k.endswith("_us_per_ntt")]
+    keys = [k for k in readings["this"][0]
+            if k.endswith(("_us_per_ntt", "_us_per_call"))]
     summary = {name: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
                for name, rs in readings.items()}
     _emit({"summary": summary, "card": _card(), "batch": BATCH,
+           "nested_batch": NESTED_BATCH if args.nested else None,
            "order": order, "ok": ok,
            "method": "one child process a reading; CUDA events, 5 repeats "
                      "of a dependent chain of 10, trimmed mean; us per NTT "
-                     "= us per call / batch; each root's mean over its "
-                     "readings"})
+                     "= us per call / batch (the nested bench shape's in "
+                     "us per call); each root's mean over its readings"})
     return 0 if ok else 1
 
 

@@ -22,7 +22,10 @@ that one of the 32 banks serves. It holds that:
       and store the tile (the transposed store along nn).
 
 It also runs a NumPy model of those groups with the port's harvey4
-operations and holds it against ``colpass_plain`` raw, bit for bit.
+operations and holds it against ``colpass_plain`` raw, bit for bit: for
+the fold passes, and for the nested R x S pass (``csrc/nested_colpass.cu``
+runs the same groups) at every R it takes, R = 1 and R = n1 included,
+where a phase is empty, against ``nested_colpass_plain``.
 """
 
 import re
@@ -35,6 +38,7 @@ from ntt_aie_tpu_torch import fields as tF
 from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import modops as M
+from ntt_aie_tpu_torch.ops import nested_colpass as N
 from ntt_aie_tpu_torch.plan import fold_passes
 
 FIELD = tF.P_469762049
@@ -114,6 +118,14 @@ def _groups(s_begin, s_end, kfuse):
     return out
 
 
+def _network_groups(cp, kfuse):
+    """column_tile_io's groups of cp in order: (phase, first stage, stages,
+    first of its phase, last of its phase). An empty phase has none."""
+    return [(phase, s0, k, s0 == b, s0 + k == e)
+            for phase, (b, e) in enumerate(_phases(cp))
+            for s0, k in _groups(b, e, kfuse)]
+
+
 def group_accesses(cp, log_tl, kfuse, address, ends=True):
     """{access: [(warps, 32) words, ...]} of the groups of one tile of cp:
     each group reads its 2^k rows (one access per m) and writes them back,
@@ -124,22 +136,21 @@ def group_accesses(cp, log_tl, kfuse, address, ends=True):
     shift = C.tile_shift(cp, log_tl)
     ts = [t for ph in cp.phases_ts for t in ph]
     tl = 1 << log_tl
-    phases = _phases(cp)
+    groups = _network_groups(cp, kfuse)
     out = {}
-    for phase, (s_begin, s_end) in enumerate(phases):
+    for i, (phase, s0, k, _, _) in enumerate(groups):
         map_a = log_a if phase == 1 else -1
-        for s0, k in _groups(s_begin, s_end, kfuse):
-            t = ts[s0] if dit else ts[s0 + k - 1]
-            log_t = t.bit_length() - 1
-            it = np.arange((nn >> k) << log_tl)
-            c, g = it & (tl - 1), it >> log_tl
-            base = ((g >> log_t) << (log_t + k)) | (g & (t - 1))
-            words = [warps(address(row_of(base + (m << log_t), map_a, log_nn),
-                                   c, log_tl, shift)) for m in range(1 << k)]
-            if not (ends and phase == 0 and s0 == 0):
-                out[f"phase {phase} group {s0}+{k} read"] = words
-            if not (ends and phase == len(phases) - 1 and s0 + k == s_end):
-                out[f"phase {phase} group {s0}+{k} write"] = words
+        t = ts[s0] if dit else ts[s0 + k - 1]
+        log_t = t.bit_length() - 1
+        it = np.arange((nn >> k) << log_tl)
+        c, g = it & (tl - 1), it >> log_tl
+        base = ((g >> log_t) << (log_t + k)) | (g & (t - 1))
+        words = [warps(address(row_of(base + (m << log_t), map_a, log_nn),
+                               c, log_tl, shift)) for m in range(1 << k)]
+        if not (ends and i == 0):
+            out[f"phase {phase} group {s0}+{k} read"] = words
+        if not (ends and i == len(groups) - 1):
+            out[f"phase {phase} group {s0}+{k} write"] = words
     return out
 
 
@@ -272,11 +283,13 @@ def _group_rows(ts, s0, k, dit, nn):
 
 def ends_model(x, cp, kfuse):
     """colpass_tile.cuh column_tile_io on int64 carriers of x (B, nn, c),
-    every column at once, in groups of kfuse: the first group takes
-    its rows from x, the nested mid multiply rides in the last DIF group of
-    phase 0 (after its stages, physical rows) or the first DIT group of
-    phase 1 (before them, logical rows), and the last group hands its
-    logical rows to the store's transpose, 'post_t' multiply and
+    every column at once, in groups of kfuse: the network's first group
+    takes its rows from x; the nested mid multiply rides in the last DIF
+    group of phase 0 (after its stages, physical rows) or the first DIT
+    group of phase 1 (before them, logical rows), and where a DIF network's
+    phase 0 is empty (kMayEmpty), before the stages of phase 1's first
+    group (the row map is then the identity); and the network's last group
+    hands its logical rows to the store's transpose, 'post_t' multiply and
     canonicalize. No load sweep, mid step or store sweep of the tile. It
     reads the (w, packed) pair tables the kernel reads."""
     red, nn = cp.red, cp.nn
@@ -285,52 +298,43 @@ def ends_model(x, cp, kfuse):
     ts = [t for ph in cp.phases_ts for t in ph]
     w_all, s_all = (M.to_carrier(v) for v in cp.tw_pairs.unbind(-1))
     nested = cp.wmid is not None
-    log_a = -1
+    log_a = _log_a(cp)
     if nested:
-        R, S = cp.mid_rs
-        log_a = (S if dit else R).bit_length() - 1
         mw, ms = (M.to_carrier(v) for v in cp.wmid_pairs.unbind(-1))
     src = M.to_carrier(x)
     tile = torch.zeros_like(src)  # physical rows
     out = torch.empty_like(src)   # logical rows
-    k0 = len(cp.phases_ts[0])
-    bounds = [(0, k0)] + ([(k0, len(ts))] if nested else [])
-    for phase, (s_begin, s_end) in enumerate(bounds):
+    groups = _network_groups(cp, kfuse)
+    for i, (phase, s0, k, first, last) in enumerate(groups):
         map_a = log_a if phase == 1 else -1
-        mid = nested and phase == (1 if dit else 0)
-        s0 = s_begin
-        while s0 < s_end:
-            k = min(kfuse, s_end - s0)
-            first, last = s0 == s_begin, s0 + k == s_end
-            rows, j, log_t = _group_rows(ts, s0, k, dit, nn)
-            rows_t = torch.from_numpy(rows)
-            phys = torch.from_numpy(row_of(rows, map_a, log_nn))
-            v = src[:, rows_t] if phase == 0 and first else tile[:, phys]
-            if mid and dit and first:
-                v = red.mulc_mat(v, mw[rows_t].unsqueeze(-1),
-                                 ms[rows_t].unsqueeze(-1))
-            for q in range(k):
-                h = 1 << q if dit else 1 << (k - 1 - q)
-                m = np.array([m for m in range(1 << k) if not m & h])
-                idx = torch.from_numpy(((m & (h - 1)) << log_t)[None, :]
-                                       | j[:, None]) + cp.offsets[s0 + q]
-                w, ws = w_all[idx].unsqueeze(-1), s_all[idx].unsqueeze(-1)
-                mt, mh = torch.from_numpy(m), torch.from_numpy(m + h)
-                a, b = v[:, :, mt], v[:, :, mh]
-                if dit:
-                    wv = red.mulc_mat(b, w, ws)
-                    v[:, :, mt], v[:, :, mh] = red.add(a, wv), red.sub(a, wv)
-                else:
-                    v[:, :, mt] = red.add(a, b)
-                    v[:, :, mh] = red.mulc_mat(red.sub_for_mul(a, b), w, ws)
-            if mid and not dit and last:
-                v = red.mulc_mat(v, mw[rows_t].unsqueeze(-1),
-                                 ms[rows_t].unsqueeze(-1))
-            if phase == len(bounds) - 1 and last:
-                out[:, rows_t] = v
+        rows, j, log_t = _group_rows(ts, s0, k, dit, nn)
+        rows_t = torch.from_numpy(rows)
+        phys = torch.from_numpy(row_of(rows, map_a, log_nn))
+        v = src[:, rows_t] if i == 0 else tile[:, phys]
+        if nested and (dit or not cp.phases_ts[0]) and phase == 1 and first:
+            v = red.mulc_mat(v, mw[rows_t].unsqueeze(-1),
+                             ms[rows_t].unsqueeze(-1))
+        for q in range(k):
+            h = 1 << q if dit else 1 << (k - 1 - q)
+            m = np.array([m for m in range(1 << k) if not m & h])
+            idx = torch.from_numpy(((m & (h - 1)) << log_t)[None, :]
+                                   | j[:, None]) + cp.offsets[s0 + q]
+            w, ws = w_all[idx].unsqueeze(-1), s_all[idx].unsqueeze(-1)
+            mt, mh = torch.from_numpy(m), torch.from_numpy(m + h)
+            a, b = v[:, :, mt], v[:, :, mh]
+            if dit:
+                wv = red.mulc_mat(b, w, ws)
+                v[:, :, mt], v[:, :, mh] = red.add(a, wv), red.sub(a, wv)
             else:
-                tile[:, phys] = v
-            s0 += k
+                v[:, :, mt] = red.add(a, b)
+                v[:, :, mh] = red.mulc_mat(red.sub_for_mul(a, b), w, ws)
+        if nested and not dit and phase == 0 and last:
+            v = red.mulc_mat(v, mw[rows_t].unsqueeze(-1),
+                             ms[rows_t].unsqueeze(-1))
+        if i == len(groups) - 1:
+            out[:, rows_t] = v
+        else:
+            tile[:, phys] = v
     if cp.transpose_out:
         out = out.transpose(1, 2)
         if cp.wmat is not None:
@@ -351,3 +355,29 @@ def test_ends_model_equals_plain_raw(n1, n2, name):
                          .astype(np.uint32).view(np.int32))
     for kfuse in sorted({1, KFUSE}):
         assert torch.equal(ends_model(x, cp, kfuse), C.colpass_plain(x, cp))
+
+
+def _nested_splits():
+    """(n1, R) of the nested pass's networks the model is held at: R in
+    {1, 8, the default, n1} where R divides n1, each R once."""
+    out = []
+    for n1 in (2, 64, 256, 2048):
+        default = 1 << ((n1.bit_length() - 1) // 2)
+        out += [(n1, R) for R in sorted({1, 8, default, n1}) if n1 % R == 0]
+    return out
+
+
+@pytest.mark.parametrize("fuse", range(1, N.MAX_FUSE + 1))
+@pytest.mark.parametrize("n1,R", _nested_splits())
+def test_ends_model_equals_nested_plain_raw(n1, R, fuse):
+    """The nested pass's groups: loading on the network's first group and
+    storing on its last, the DIF mid before phase 1's stages when phase 0
+    is empty (R = 1) and after phase 0's when phase 1 is (R = n1)."""
+    nc, meta = N.make_nested_colpass(n1, 4, R=R, batch=2, fuse=fuse,
+                                     device="cpu")
+    assert meta["R"] == R
+    rng = np.random.default_rng([n1, R, fuse])
+    x = torch.from_numpy(rng.integers(0, 4 * FIELD.p, nc.shape)
+                         .astype(np.uint32).view(np.int32))
+    assert torch.equal(ends_model(x, nc.net, fuse),
+                       N.nested_colpass_plain(x, nc))

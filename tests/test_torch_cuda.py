@@ -32,9 +32,11 @@ GL_P = T.GOLDILOCKS.p
 # (n1, n2): nested both sides, nested asymmetric both ways, plain both ways
 FUSED_SHAPES = [(1024, 1024), (512, 2048), (2048, 512), (32, 64), (64, 32)]
 # (n1, n2, R, batch): the bench width, n1 != R^2, a non-default R, nesting
-# below 256 rows (R = S = 8)
+# below 256 rows (R = S = 8), an empty phase 0 (R = 1; n1 = 2, whose default
+# R is 1) and an empty phase 1 (R = n1, at TL 16: the clamped shift)
 NESTED_SHAPES = [(1024, 1024, None, 4), (2048, 512, None, 2),
-                 (256, 512, 8, 2), (64, 512, None, 2)]
+                 (256, 512, 8, 2), (64, 512, None, 2), (256, 512, 1, 2),
+                 (256, 16, 256, 2), (2, 512, None, 2)]
 # one launch takes 65,535 batch rows: this batch takes two
 BIG_BATCH = C.MAX_LAUNCH_BATCH + 2
 # (n1, n2) of the 32-bit column kernel against its plain version: plain
@@ -325,6 +327,23 @@ def test_nested_kernel_matches_plain(cuda, n1, n2, R, batch, fuse):
     if R is None and n1 >= 256:  # where the column pass nests the same way
         cp = C.make_colpass(T.P_469762049, n1, direction="dif", device=cuda)
         assert torch.equal(got, C.colpass(x, cp))
+
+
+def test_nested_kernel_info(cuda):
+    """One kernel per fuse at the bench shape (TL 8, shift log2 S = 5), and
+    the clamped shift of an empty phase 1 (R = n1)."""
+    regs = set()
+    for fuse in range(1, N.MAX_FUSE + 1):
+        nc, _ = N.make_nested_colpass(1024, 1024, batch=4, fuse=fuse,
+                                      device=cuda)
+        info = N.kernel_info(nc)
+        assert (info["fuse"], info["tile_cols"], info["shift"]) == (fuse, 8, 5)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+        regs.add(info["registers"])
+    assert len(regs) > 1  # each fuse is a kernel of its own
+    nc, _ = N.make_nested_colpass(256, 16, R=256, device=cuda)
+    info = N.kernel_info(nc)
+    assert (info["tile_cols"], info["shift"]) == (16, 1)
 
 
 def test_nested_kernel_rejects_bad_input(cuda):

@@ -23,11 +23,13 @@ from ntt_aie_tpu_torch.scripts import proto_nested_colpass as S
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 P = tF.P_469762049.p
 # (n1, n2, R, batch, fuse): fuse levels; nesting below 256 rows (R = S = 8);
-# a non-default R; the n = 2^20 width; n1 != R^2; a batch
+# a non-default R; the n = 2^20 width; n1 != R^2; a batch; an empty phase
+# 0 (R = 1) and an empty phase 1 (R = n1)
 CASES = [(256, 128, None, 1, 1), (256, 128, None, 1, 2),
          (256, 128, None, 1, 3), (64, 128, None, 1, 3),
          (256, 128, 8, 1, 3), (1024, 128, None, 1, 3),
-         (2048, 64, None, 1, 3), (256, 128, None, 2, 3)]
+         (2048, 64, None, 1, 3), (256, 128, None, 2, 3),
+         (256, 128, 1, 1, 3), (256, 128, 256, 1, 3)]
 
 
 @functools.cache
