@@ -39,9 +39,10 @@ Phases, one JSON object per line:
   6. gl_kernel — the Goldilocks kernel against its plain version for
                  cp1/cp2/icp2/icp1 at 1024x1024, 128x512 and 2048x256, B = 4,
                  and DIF and DIT over 8,192 rows (2-column tiles) at
-                 (1, 8192, 64), both limb planes bit-exact; the pointwise
-                 product kernel against its plain version on random values
-                 and the edges;
+                 (1, 8192, 64), both limb planes bit-exact, at the register
+                 group size the build compiles (kernel_info's kfuse, on
+                 each line); the pointwise product kernel against its
+                 plain version on random values and the edges;
   7. gl_slice  — Goldilocks fwd_mat on a B = 64 batch (512 MiB per limb
                  pair) gated against the native oracle on row 0 plus 8
                  random rows (the object-dtype NumPy oracle if the library
@@ -49,7 +50,8 @@ Phases, one JSON object per line:
                  polymul_mat against the native cyclic product; launch
                  counts 2 / 2 / 6 column passes and 1 pointwise product;
   8. gl_time   — the same timings for the Goldilocks path, and the
-                 pointwise product's;
+                 pointwise product's; the Goldilocks column kernel's
+                 kernel_info for cp1 and cp2;
   9. fused_kernel — the fused kernel against its plain version for ff, fi
                  (no operands), nf ('pre') and ni ('post') at 1024x1024,
                  512x2048, 2048x512, 32x64 and 64x32, B = 1 and 4,
@@ -100,11 +102,12 @@ shape ("ms", per launch), launches, the plain version's time, and its
 bound — the larger of the bytes it must move over the card's 3.35 TB/s and
 its butterflies over the measured ideal rate of its arithmetic (phase 15;
 its measured HBM rate is reported there, not used as a bound); library_ms
-is null (no single PyTorch call computes an NTT mod p). The colpass row
-also carries its kFuse, registers and blocks per SM (cp1's kernel), the
-fused row its inv_mat time, its kFuse and blocks per SM, the nested row
-its time, registers and blocks per SM at each fuse. Last, the result
-line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+is null (no single PyTorch call computes an NTT mod p). The colpass and
+gl_colpass rows also carry their kFuse, registers and blocks per SM (cp1's
+kernel), the fused row its inv_mat time, its kFuse and blocks per SM, the
+nested row its time, registers and blocks per SM at each fuse. Last, the
+result line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
 
@@ -447,7 +450,8 @@ def goldilocks_phases(args, dev, card, rng):
         return max(int((g.long() - w.long()).abs().max())
                    for g, w in zip(got, want))
 
-    # 6. gl_kernel: kernel against plain on the card
+    # 6. gl_kernel: kernel against plain on the card, at the build's one
+    # register group size
     max_err = 0
     for n1, n2 in GL_KERNEL_SHAPES:
         for name, cp in gl_fold_passes(field, n1, n2, device=dev).items():
@@ -460,6 +464,7 @@ def goldilocks_phases(args, dev, card, rng):
             emit({"phase": "gl_kernel", "pass": name,
                   "shape": [4, rows, cols],
                   "network": "nested" if cp.wmid is not None else "plain",
+                  "kfuse": G.kernel_info(cp, cols)["kfuse"],
                   "max_abs_err": err})
             if err:
                 fail("gl_kernel", f"{name} {rows}x{cols} differs from its "
@@ -473,8 +478,9 @@ def goldilocks_phases(args, dev, card, rng):
         torch.cuda.synchronize()
         err = pair_err(got, G.gl_colpass_plain(x, cp))
         max_err = max(max_err, err)
+        info = G.kernel_info(cp, 64)
         emit({"phase": "gl_kernel", "pass": direction, "shape": [1, 8192, 64],
-              "tile_cols": C.tile_cols(8192, 64, itemsize=8),
+              "tile_cols": info["tile_cols"], "kfuse": info["kfuse"],
               "max_abs_err": err})
         if err:
             fail("gl_kernel", f"{direction} over 8192 rows differs from its "
@@ -566,6 +572,8 @@ def goldilocks_phases(args, dev, card, rng):
     k_cp1 = time_device(cp1, x)["us_per_iter"]
     k_cp2 = time_device(cp2, x)["us_per_iter"]
     k_mul = time_device(lambda v: G.gl_mul(v, v), y)["us_per_iter"]
+    info = {name: G.kernel_info(cp, x[0].shape[2])
+            for name, cp in (("cp1", cp1), ("cp2", cp2))}
     p_fwd, pb = _plain_batch_time(
         lambda v: G.gl_colpass_plain(G.gl_colpass_plain(v, cp1), cp2), x, B)
     p_cp1, _ = _plain_batch_time(lambda v: G.gl_colpass_plain(v, cp1), x, pb)
@@ -579,7 +587,7 @@ def goldilocks_phases(args, dev, card, rng):
           "plain_cp2_us_per_pass": p_cp2 / pb,
           "kernel_gl_mul_us_per_ntt": k_mul / B,
           "plain_gl_mul_us_per_ntt": p_mul / mb, "plain_gl_mul_batch": mb,
-          "kernel_ntt_per_s": B / (k_fwd * 1e-6),
+          "kernel_ntt_per_s": B / (k_fwd * 1e-6), "kernel_info": info,
           "method": "CUDA events; kernel: 5 repeats of a dependent chain of "
                     "10, plain: 3 repeats of 2; trimmed mean; us per NTT = "
                     "us per call / batch"})
@@ -591,7 +599,9 @@ def goldilocks_phases(args, dev, card, rng):
          "max_abs_err": max_err, "ms": k_fwd / 2 / 1e3,
          "plain_ms": p_fwd / 2 / 1e3, "batch": B, "plain_batch": pb,
          "bytes": (4 * B * n * 8 + n * 8) / 2,
-         "butterflies": B * n // 2 * 10, "arithmetic": "goldilocks"},
+         "butterflies": B * n // 2 * 10, "arithmetic": "goldilocks",
+         "kfuse": info["cp1"]["kfuse"], "registers": info["cp1"]["registers"],
+         "blocks_per_sm": info["cp1"]["blocks_per_sm"]},
         {"name": "gl_mul", "route": "cuda",
          "source": "ntt_aie_tpu_torch/csrc/gl_colpass.cu",
          "replaces": "ntt_aie_tpu/goldilocks_plan.py:462 (XLA pointwise "

@@ -24,7 +24,8 @@
 //
 // What bounds it: integer issue. Each thread runs one serial chain of r
 // butterflies on two registers (a harvey4 butterfly is some 15 integer
-// instructions, a Goldilocks one some 50); at r = 64 a harvey4 thread does
+// instructions, a Goldilocks one 40 SASS instructions, gl_arith.cuh
+// counts them); at r = 64 a harvey4 thread does
 // some 1 000 integer instructions per 16 bytes it moves, far above the
 // card's bytes-to-operations ridge. One thread per element pair, so the
 // serial chains' latency is hidden by the warps resident per SM. Loading

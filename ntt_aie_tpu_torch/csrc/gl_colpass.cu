@@ -13,158 +13,300 @@
 //
 // What it computes, per column of two (B, nn, ncols) uint32 planes (hi, lo)
 // of values mod p = 2^64 - 2^32 + 1: every butterfly stage of
-// ntt_aie_tpu_torch.twiddles.col_network, as a generic stage-list executor
-// (DIF (u+v, (u-v)*w), DIT (u+w*v, u-w*v); a stage of half size t pairs
-// rows (b*2t + j, b*2t + t + j) and multiplies by tw[off + j]). The nested
-// R x S network runs phase 0, the mid step (DIF: x[r] *= wmid[r], then the
-// row at r*S + s moves to s*R + r; DIT: the inverse move, then the
-// multiply), then phase 1. As in csrc/colpass.cu the move is not done in
-// memory: phase 1 and the epilogue address logical row l at physical row
-//   (l mod A) * (nn / A) + l / A,   A = R for DIF, A = S for DIT.
-// Epilogue: optional transpose to (B, ncols, nn), then the elementwise
-// multiply by a (ncols, nn)-oriented operand.
+// ntt_aie_tpu_torch.twiddles.col_network (DIF (u+v, (u-v)*w), DIT
+// (u+w*v, u-w*v); a stage of half size t pairs rows (b*2t + j,
+// b*2t + t + j) and multiplies by tw[off + j]), with the nested R x S
+// network's mid step and row move as colpass_tile.cuh states them. Store:
+// optional transpose to (B, ncols, nn), then the elementwise multiply by a
+// (ncols, nn)-oriented operand.
 //
 // Arithmetic (csrc/gl_arith.cuh, shared with the butterfly probe): every
 // value stays canonical, [0, p), at every step, so any exact method gives
 // the plain PyTorch version's bits.
 //
-// What bounds it on an H100: the in-SM integer work, ahead of device
-// memory. A pass reads and writes the 8 MB of one n = 2^20 transform once
-// (16 MB, about 5 us per transform at 3.35 TB/s), plus the 8 MB wmat of
-// cp1/icp2, shared by the batch and mostly served from the 50 MB L2. But the
-// H100 has no 64-bit integer multiplier: a 64 x 64 -> 128-bit product takes
-// several 32-bit IMADs, and with the reduction and the carry fix-ups a
-// radix-2 butterfly costs some 50 integer instructions, 5.2 M butterflies
-// per transform and pass. The design keeps the whole column in shared
-// memory, so each element crosses device memory once per pass; holds an
-// element as one uint64 (hi and lo joined on load, split on store), so a
-// butterfly makes one shared-memory access per operand and uses the
-// hardware's wide multiply instead of the TPU's 16-bit limb products; and
-// sizes tiles at 32 KB (TL = 4 columns of 1024 rows, seven 256-thread
-// blocks per SM), the tile size that gave the 32-bit kernel the most
-// resident warps. Grouping stages in registers is the next step. The
-// largest column the kernel takes is kMaxRows = 8192 rows, in 2-column
-// tiles (TL = 2, 128 KB); up to 4096 rows the tiles are 4 or more columns
-// wide (colpass.tile_cols).
+// What bounds it on an H100: integer instructions issued in the SM, ahead
+// of device memory. A pass reads and writes the 8 MB of one n = 2^20
+// transform once (16 MB, about 5 us per transform at 3.35 TB/s), plus the
+// 8 MB wmat of cp1/icp2, shared by the batch and mostly served from the
+// 50 MB L2; but the H100 has no 64-bit integer multiplier, so a radix-2
+// butterfly is some tens of 32-bit instructions (gl_arith.cuh counts them),
+// 5.2 M butterflies per transform and pass. The first design paid on top
+// of that for what turns of the 32-bit kernel found binding: a shared-memory
+// round trip and a barrier a stage, sweeps of the tile that only loaded,
+// multiplied by the mid vector or stored, and a branch on every
+// shared-memory address (the nested row map). This design takes
+// colpass_tile.cuh column_tile_io's structure onto uint64 values:
+//   - one thread block per (batch row, tile of TL consecutive columns),
+//     the tile 8,192 values (64 KB) where the column allows it
+//     (colpass.tile_cols(itemsize=8)): TL = 8 at nn = 1024, so a row of
+//     each plane is one whole 32-byte sector of device memory (TL = 4,
+//     32 KB tiles, read 9 % slower for fwd_mat); the largest column is
+//     kMaxRows = 8192 rows, in 2-column tiles (128 KB);
+//   - register groups of kFuse radix-2 stages: each thread holds the 2^K
+//     uint64 values of one radix-2^K butterfly between two exchanges
+//     through the tile, one barrier a group instead of one a stage; every
+//     K runs each butterfly's operations in the same order, so every K
+//     gives the same bits;
+//   - the network's first group joins hi and lo from device memory into
+//     registers and its last splits and stores them (transposed, with the
+//     'post_t' multiply, for cp1 and icp2); the nested mid multiply rides
+//     in a group (DIF: after phase 0's last group's stages, physical rows;
+//     DIT: before phase 1's first group's, logical rows): no sweep of the
+//     tile remains;
+//   - the tile is two uint32 planes (hi, then lo), each on the 32-bit
+//     kernel's swizzled map (colpass_tile.cuh word_of, shift a kernel
+//     parameter), so phase 1's rows land in distinct banks; a group takes
+//     its words from one base word and K XOR offsets (group_offsets),
+//     computed once a group, with the row map's log_a a constant of the
+//     phase instead of a branch a value.
+// kFuse = 3 from readings in turns of K = 2 and 3 (PERF.md section 6; at 4
+// a thread takes 125-128 registers and a 64-byte stack frame);
+// ops.gl_colpass.kernel_info gives its registers and blocks per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "colpass_tile.cuh"
 #include "gl_arith.cuh"
 
 namespace {
 
+using colpass_tile::group_offsets;
+using colpass_tile::Network;
+using colpass_tile::word_of;
 using gl_arith::gl_add;
 using gl_arith::gl_mul;
 using gl_arith::gl_sub;
 
 constexpr int kThreads = 256;
-constexpr int kMaxStages = 16;
 constexpr int kMaxSmemBytes = 227 * 1024;  // an H100 block's limit
 constexpr int kMaxRows = 8192;
+constexpr int kFuse = 3;  // radix-2 stages a register group (see above)
+// The blocks per SM that a 64 KB tile leaves (227 KB / 64 KB), as the
+// register budget (at most 85 a thread): with it the DIF kernels take
+// 72-78 registers instead of 61-64 and fwd_mat reads 3.8 % faster
+// (PERF.md section 6).
+constexpr int kMinBlocks = 3;
 
 struct Params {
+  Network net;          // table pointers null: the kernel reads tw and mid
+  const uint64_t* tw;   // stage twiddles, stage s from net.off[s]
+  const uint64_t* mid;  // nested wmid (nn,), or null
+  const uint64_t* mat;  // post_t operand (ncols, nn), or null
   const uint32_t* x_hi;
   const uint32_t* x_lo;
   uint32_t* out_hi;
   uint32_t* out_lo;
-  const uint64_t* tw;   // stage twiddles, all stages concatenated
-  const uint64_t* mid;  // nested wmid (nn,), or null
-  const uint64_t* mat;  // post_t operand (ncols, nn), or null
-  int nn, log_nn, ncols, log_tl;
-  int nstages, k0;  // stages in all; stages in phase 0
-  int log_a;        // log2 of A for the nested row map, -1 when plain
-  int dit, transpose_out;
-  int t[kMaxStages];
-  int off[kMaxStages];
+  int ncols, log_tl;
+  int shift;  // the swizzled tile's (colpass_tile::tile_shift)
 };
 
-// Physical shared-memory row of logical row l (identity when log_a < 0);
-// the same map as csrc/colpass.cu.
-__device__ __forceinline__ int row_of(int l, int log_a, int log_nn) {
-  if (log_a < 0) return l;
-  return ((l & ((1 << log_a) - 1)) << (log_nn - log_a)) | (l >> log_a);
+// One batch row's planes: the input and the output.
+struct Rows {
+  const uint32_t* src_hi;
+  const uint32_t* src_lo;
+  uint32_t* dst_hi;
+  uint32_t* dst_lo;
+};
+
+// DIF stages s0 .. s0 + K - 1 of one phase on the 2^K values v[m] =
+// x[base + m * t_last] of one radix-2^K butterfly, in the order of one
+// stage at a time (colpass_tile.cuh dif_stages, on uint64).
+template <int K>
+__device__ __forceinline__ void dif_stages(uint64_t (&v)[1 << K],
+                                           const Network& N,
+                                           const uint64_t* tw, int s0,
+                                           int log_t, int j) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int h = 1 << (K - 1 - q);  // the pair's distance in m
+    const uint64_t* tw_q = tw + N.off[s0 + q];
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m) {
+      if (m & h) continue;
+      const int idx = ((m & (h - 1)) << log_t) | j;
+      const uint64_t a = v[m], b = v[m + h];
+      v[m] = gl_add(a, b);
+      v[m + h] = gl_mul(gl_sub(a, b), __ldg(tw_q + idx));
+    }
+  }
 }
 
-__device__ void run_stage(uint64_t* tile, const Params& P, int s, int log_a) {
-  const int t = P.t[s];
+// DIT stages s0 .. s0 + K - 1 on v[m] = x[base + m * t_first]: the mirror
+// (colpass_tile.cuh dit_stages, on uint64).
+template <int K>
+__device__ __forceinline__ void dit_stages(uint64_t (&v)[1 << K],
+                                           const Network& N,
+                                           const uint64_t* tw, int s0,
+                                           int log_t, int j) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int h = 1 << q;  // the pair's distance in m
+    const uint64_t* tw_q = tw + N.off[s0 + q];
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m) {
+      if (m & h) continue;
+      const int idx = ((m & (h - 1)) << log_t) | j;
+      const uint64_t u = v[m];
+      const uint64_t wv = gl_mul(v[m + h], __ldg(tw_q + idx));
+      v[m] = gl_add(u, wv);
+      v[m + h] = gl_sub(u, wv);
+    }
+  }
+}
+
+// What one group does beyond the tile (colpass_tile.cuh GroupEnds): load
+// its rows from device memory (the network's first group), multiply by the
+// mid vector (DIF after the stages, DIT before them), store its logical
+// rows to device memory (the network's last group; no barrier follows).
+struct Ends {
+  bool load, mid, store;
+};
+
+// A group of K stages on the swizzled two-plane tile, with the ends E.
+// log_a: the phase's row map (-1 for phase 0).
+template <int K, bool kDit, bool kTranspose, bool kMat>
+__device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
+                                          const Rows& R, const Ends E,
+                                          size_t col0, int s0, int log_a) {
+  const Network& N = P.net;
+  const int log_tl = P.log_tl;
+  const int t = kDit ? N.t[s0] : N.t[s0 + K - 1];
   const int log_t = __ffs(t) - 1;
-  const uint64_t* tw = P.tw + P.off[s];
-  const int tl_mask = (1 << P.log_tl) - 1;
-  const int total = (P.nn >> 1) << P.log_tl;
+  const int tl_mask = (1 << log_tl) - 1;
+  const int total = (N.nn >> K) << log_tl;
+  uint32_t* tile_lo = tile + (N.nn << log_tl);
+  int dw[1 << K];
+  group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, P.shift);
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int c = i & tl_mask;
-    const int k = i >> P.log_tl;
-    const int j = k & (t - 1);
-    const int lu = ((k >> log_t) << (log_t + 1)) | j;
-    uint64_t* pu = tile + (row_of(lu, log_a, P.log_nn) << P.log_tl) + c;
-    uint64_t* pv = tile + (row_of(lu + t, log_a, P.log_nn) << P.log_tl) + c;
-    const uint64_t u = *pu, v = *pv;
-    const uint64_t w = __ldg(tw + j);
-    if (!P.dit) {
-      *pu = gl_add(u, v);
-      *pv = gl_mul(gl_sub(u, v), w);
+    const int g = i >> log_tl;
+    const int j = g & (t - 1);
+    const int base = ((g >> log_t) << (log_t + K)) | j;
+    const int w0 = word_of(base, log_a, N.log_nn, log_tl, P.shift) + c;
+    uint64_t v[1 << K];
+    if (E.load) {
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m) {
+        const size_t o = (size_t)(base + (m << log_t)) * P.ncols + col0 + c;
+        v[m] = ((uint64_t)R.src_hi[o] << 32) | R.src_lo[o];
+      }
     } else {
-      const uint64_t wv = gl_mul(v, w);
-      *pu = gl_add(u, wv);
-      *pv = gl_sub(u, wv);
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m)
+        v[m] = ((uint64_t)tile[w0 ^ dw[m]] << 32) | tile_lo[w0 ^ dw[m]];
+    }
+    if (E.mid) {  // DIF: the stages, then mid; DIT: mid, then the stages
+      if constexpr (!kDit) dif_stages<K>(v, N, P.tw, s0, log_t, j);
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m)
+        v[m] = gl_mul(v[m], __ldg(P.mid + base + (m << log_t)));
+      if constexpr (kDit) dit_stages<K>(v, N, P.tw, s0, log_t, j);
+    } else if constexpr (kDit) {
+      dit_stages<K>(v, N, P.tw, s0, log_t, j);
+    } else {
+      dif_stages<K>(v, N, P.tw, s0, log_t, j);
+    }
+    if (E.store) {
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m) {
+        const int l = base + (m << log_t);
+        const size_t o = kTranspose ? (col0 + c) * N.nn + l
+                                    : (size_t)l * P.ncols + col0 + c;
+        uint64_t u = v[m];
+        if constexpr (kMat) u = gl_mul(u, __ldg(P.mat + o));
+        R.dst_hi[o] = (uint32_t)(u >> 32);
+        R.dst_lo[o] = (uint32_t)u;
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < (1 << K); ++m) {
+        tile[w0 ^ dw[m]] = (uint32_t)(v[m] >> 32);
+        tile_lo[w0 ^ dw[m]] = (uint32_t)v[m];
+      }
     }
   }
-  __syncthreads();
+  if (!E.store) __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads) gl_colpass_kernel(const Params P) {
-  extern __shared__ uint64_t tile[];
-  const int tl = 1 << P.log_tl;
-  const int n_tile = P.nn << P.log_tl;
+// run_group for a runtime k <= K stages.
+template <int K, bool kDit, bool kTranspose, bool kMat>
+__device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
+                                               const Params& P,
+                                               const Rows& R, const Ends E,
+                                               size_t col0, int s0,
+                                               int log_a) {
+  if constexpr (K > 1) {
+    if (k < K) {
+      run_group_upto<K - 1, kDit, kTranspose, kMat>(k, tile, P, R, E, col0,
+                                                    s0, log_a);
+      return;
+    }
+  }
+  run_group<K, kDit, kTranspose, kMat>(tile, P, R, E, col0, s0, log_a);
+}
+
+// Stages [s_begin, s_end) of one phase in groups of min(kFuse, stages
+// left): the first loads when load, the last stores when store, and the
+// mid multiply rides on the last (DIF) or the first (DIT) when mid.
+template <bool kDit, bool kTranspose, bool kMat>
+__device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
+                                          const Rows& R, size_t col0,
+                                          int s_begin, int s_end, int log_a,
+                                          bool load, bool store, bool mid) {
+  for (int s = s_begin; s < s_end;) {
+    const int k = min(kFuse, s_end - s);
+    const bool first = s == s_begin, last = s + k == s_end;
+    const Ends E = {load && first, mid && (kDit ? first : last),
+                    store && last};
+    run_group_upto<kFuse, kDit, kTranspose, kMat>(k, tile, P, R, E, col0, s,
+                                                  log_a);
+    s += k;
+  }
+}
+
+// One thread block per (batch row, tile of TL columns). A nested network
+// has two phases of at least one stage each; a plain one, one phase.
+template <bool kDit, bool kTranspose, bool kMat>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    gl_colpass_kernel(const Params P) {
+  extern __shared__ uint32_t tile[];
+  const size_t plane = (size_t)P.net.nn * P.ncols;
+  const size_t row = (size_t)blockIdx.y * plane;
+  const Rows R = {P.x_hi + row, P.x_lo + row, P.out_hi + row,
+                  P.out_lo + row};
   const size_t col0 = (size_t)blockIdx.x << P.log_tl;
-  const size_t plane = (size_t)P.nn * P.ncols;
-  const uint32_t* xh = P.x_hi + (size_t)blockIdx.y * plane;
-  const uint32_t* xl = P.x_lo + (size_t)blockIdx.y * plane;
-  uint32_t* oh = P.out_hi + (size_t)blockIdx.y * plane;
-  uint32_t* ol = P.out_lo + (size_t)blockIdx.y * plane;
+  const bool nested = P.net.log_a >= 0;
+  run_phase<kDit, kTranspose, kMat>(tile, P, R, col0, 0, P.net.k0, -1, true,
+                                    !nested, nested && !kDit);
+  if (nested)
+    run_phase<kDit, kTranspose, kMat>(tile, P, R, col0, P.net.k0,
+                                      P.net.nstages, P.net.log_a, false,
+                                      true, kDit);
+}
 
-  for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
-    const size_t g = (size_t)(i >> P.log_tl) * P.ncols + col0 + (i & (tl - 1));
-    tile[i] = ((uint64_t)xh[g] << 32) | xl[g];
-  }
-  __syncthreads();
+using KernelFn = void (*)(Params);
 
-  for (int s = 0; s < P.k0; ++s) run_stage(tile, P, s, -1);
-  if (P.log_a >= 0) {
-    // mid step: DIF multiplies before the row move (physical rows), DIT
-    // after it (logical rows through the map)
-    const int map_a = P.dit ? P.log_a : -1;
-    for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
-      const int l = i >> P.log_tl;
-      uint64_t* e = tile + (row_of(l, map_a, P.log_nn) << P.log_tl)
-                    + (i & (tl - 1));
-      *e = gl_mul(*e, __ldg(P.mid + l));
-    }
-    __syncthreads();
-    for (int s = P.k0; s < P.nstages; ++s) run_stage(tile, P, s, P.log_a);
-  }
+template <bool kDit>
+KernelFn pick_kernel(bool transpose_out, bool mat) {
+  return !transpose_out ? gl_colpass_kernel<kDit, false, false>
+                        : (mat ? gl_colpass_kernel<kDit, true, true>
+                               : gl_colpass_kernel<kDit, true, false>);
+}
 
-  if (!P.transpose_out) {
-    for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
-      const int l = i >> P.log_tl;
-      const int c = i & (tl - 1);
-      const uint64_t v = tile[(row_of(l, P.log_a, P.log_nn) << P.log_tl) + c];
-      const size_t o = (size_t)l * P.ncols + col0 + c;
-      oh[o] = (uint32_t)(v >> 32);
-      ol[o] = (uint32_t)v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
-      const int l = i & (P.nn - 1);
-      const int c = i >> P.log_nn;
-      uint64_t v = tile[(row_of(l, P.log_a, P.log_nn) << P.log_tl) + c];
-      const size_t o = (col0 + c) * P.nn + l;
-      if (P.mat) v = gl_mul(v, __ldg(P.mat + o));
-      oh[o] = (uint32_t)(v >> 32);
-      ol[o] = (uint32_t)v;
-    }
-  }
+// The instantiation for this direction and these store options (mat only
+// with transpose_out).
+KernelFn pick_kernel(bool dit, bool transpose_out, bool mat) {
+  return dit ? pick_kernel<true>(transpose_out, mat)
+             : pick_kernel<false>(transpose_out, mat);
+}
+
+// Opts kernel in to smem dynamic bytes above 48 KB.
+cudaError_t allow_smem(KernelFn kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 __global__ void __launch_bounds__(kThreads) gl_mul_kernel(
@@ -180,12 +322,6 @@ __global__ void __launch_bounds__(kThreads) gl_mul_kernel(
   }
 }
 
-int ilog2(int v) {
-  int r = 0;
-  while ((1 << r) < v) ++r;
-  return r;
-}
-
 }  // namespace
 
 extern "C" {
@@ -196,12 +332,33 @@ const char* ntt_gl_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// This build's register group size, and for the kernel of this direction
+// and these store options at an nn x 2^log_tl tile: its registers a thread
+// and its co-resident blocks per SM. Returns 0 or a cudaError_t.
+int ntt_gl_colpass_kernel_info(int dit, int transpose_out, int mat, int nn,
+                               int log_tl, int* kfuse, int* regs,
+                               int* per_sm) {
+  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0, mat != 0);
+  const size_t smem = (size_t)nn << log_tl << 3;
+  cudaFuncAttributes attr = {};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        kThreads, smem);
+  *kfuse = kFuse;
+  *regs = attr.numRegs;
+  return static_cast<int>(err);
+}
+
 // Launches one Goldilocks column pass on `stream`. x_hi/x_lo: (batch, nn,
 // ncols) uint32 planes; out_hi/out_lo: (batch, nn, ncols), or (batch,
 // ncols, nn) with transpose_out. ts / offs: host arrays of nstages half
 // sizes and table offsets into tw (uint64). log_a < 0 for a plain network
-// (mid null). mat null for no post_t multiply. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// (mid null); a nested one has k0 stages in phase 0 and at least one in
+// each phase. mat null for no post_t multiply (which needs
+// transpose_out). Returns cudaGetLastError() after the launch (0 =
+// launched).
 int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
                    void* out_lo, int batch, int nn, int ncols, int log_tl,
                    int dit, int nstages, int k0, const int* ts,
@@ -209,40 +366,32 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
                    const void* mid, const void* mat, int transpose_out,
                    void* stream) {
   const size_t smem = (size_t)nn << log_tl << 3;
-  if (nstages > kMaxStages || k0 > nstages || nn > kMaxRows ||
-      smem > (size_t)kMaxSmemBytes || (ncols >> log_tl) < 1 ||
-      batch < 1 || batch > 65535 || (log_a >= 0) != (mid != nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool nested = log_a >= 0;
   Params P;
+  if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
+      log_tl > 5 || (ncols >> log_tl) < 1 || batch < 1 || batch > 65535 ||
+      nstages < 1 || nested != (mid != nullptr) ||
+      (nested && (k0 < 1 || k0 >= nstages)) ||
+      (mat != nullptr && !transpose_out) ||
+      !colpass_tile::make_network(&P.net, nn, dit, nstages, k0, ts, offs,
+                                  nullptr, nullptr, log_a, nullptr, nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  P.tw = static_cast<const uint64_t*>(tw);
+  P.mid = static_cast<const uint64_t*>(mid);
+  P.mat = static_cast<const uint64_t*>(mat);
   P.x_hi = static_cast<const uint32_t*>(x_hi);
   P.x_lo = static_cast<const uint32_t*>(x_lo);
   P.out_hi = static_cast<uint32_t*>(out_hi);
   P.out_lo = static_cast<uint32_t*>(out_lo);
-  P.tw = static_cast<const uint64_t*>(tw);
-  P.mid = static_cast<const uint64_t*>(mid);
-  P.mat = static_cast<const uint64_t*>(mat);
-  P.nn = nn;
-  P.log_nn = ilog2(nn);
   P.ncols = ncols;
   P.log_tl = log_tl;
-  P.nstages = nstages;
-  P.k0 = k0;
-  P.log_a = log_a;
-  P.dit = dit;
-  P.transpose_out = transpose_out;
-  for (int s = 0; s < kMaxStages; ++s) {
-    P.t[s] = s < nstages ? ts[s] : 1;
-    P.off[s] = s < nstages ? offs[s] : 0;
-  }
-  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        gl_colpass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  P.shift = colpass_tile::tile_shift(P.net, log_tl);
+  const KernelFn kernel =
+      pick_kernel(dit != 0, transpose_out != 0, mat != nullptr);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(ncols >> log_tl, batch);
-  gl_colpass_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(P);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 

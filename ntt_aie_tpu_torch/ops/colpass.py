@@ -50,7 +50,9 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_ROWS = 8192       # csrc/colpass.cu kMaxRows
-_TILE_BYTES = 32768   # a 32 KB tile where the column allows it
+# 8,192 elements a tile where the column allows it: 32 KB of uint32, 64 KB
+# of uint64 (at 1024 rows, 8 columns: 32 bytes a row, and a plane)
+_TILE_ELEMS = 8192
 _MAX_TILE_BYTES = 131072  # the widest tile: MAX_ROWS x 4 columns x 4 bytes
 _MIN_TILE_COLS = 4
 _MAX_TILE_COLS = 32
@@ -272,8 +274,10 @@ def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
 
 def tile_cols(nn: int, ncols: int, itemsize: int = 4) -> int:
     """Columns per thread block (TL): a tile of nn x TL elements of
-    `itemsize` bytes takes 32 KB where 4 <= TL <= 32 allows (small tiles
-    keep more blocks per SM). The tallest column is MAX_ROWS rows: its
+    `itemsize` bytes holds 8,192 elements (32 KB of uint32, 64 KB of
+    uint64) where 4 <= TL <= 32 allows (small tiles keep more blocks per
+    SM; at 1024 rows both widths take TL = 8, whole 32-byte sectors a row
+    of each uint32 plane). The tallest column is MAX_ROWS rows: its
     4-column tile takes 128 KB at uint32; at uint64, where a 4-column tile
     of more than 4096 rows would pass 128 KB, the tile is 2 columns
     wide."""
@@ -286,7 +290,7 @@ def tile_cols(nn: int, ncols: int, itemsize: int = 4) -> int:
     if nn * min_cols * itemsize > _MAX_TILE_BYTES:
         min_cols = 2
     return min(_MAX_TILE_COLS, ncols,
-               max(min_cols, _TILE_BYTES // (itemsize * nn)))
+               max(min_cols, _TILE_ELEMS // nn))
 
 
 def tile_shift(cp: ColPass, log_tl: int) -> int:

@@ -18,6 +18,7 @@ method each multiplies with.
 for CUDA tensors, and a raise otherwise. ``gl_mul(a, b)`` is the pointwise
 product between transforms on the same terms; its kernel is a helper in the
 same library (the reference leaves this product to XLA).
+``kernel_info(cp, ncols)`` says what the card gives the column kernel.
 """
 
 from __future__ import annotations
@@ -212,10 +213,37 @@ def _library() -> ctypes.CDLL:
     lib.ntt_gl_error_string.restype = ctypes.c_char_p
     lib.ntt_gl_error_string.argtypes = [ci]
     lib.ntt_gl_colpass_max_rows.restype = ci
+    lib.ntt_gl_colpass_kernel_info.restype = ci
+    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 5 + [pi] * 3
     if lib.ntt_gl_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/gl_colpass.cu kMaxRows disagrees with "
                            "MAX_ROWS")
     return lib
+
+
+def kernel_info(cp: GLColPass, ncols: int) -> dict:
+    """What the card gives cp's kernel over (.., cp.nn, ncols): the build's
+    register group size (kfuse), the tile width TL, its layout and shift
+    (two uint32 planes, each on ``colpass.tile_address``'s swizzled map),
+    and the kernel's registers a thread and co-resident blocks per SM.
+    cp must lie on the card."""
+    if cp.tw.device.type != "cuda":
+        raise ValueError(f"kernel_info reads the card: cp's tables are on "
+                         f"{cp.tw.device}")
+    tl = C.tile_cols(cp.nn, ncols, itemsize=8)
+    log_tl = tl.bit_length() - 1
+    lib = _library()
+    kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
+    with torch.cuda.device(cp.tw.device):
+        err = lib.ntt_gl_colpass_kernel_info(
+            int(cp.direction == "dit"), int(cp.transpose_out),
+            int(cp.wmat is not None), cp.nn, log_tl, kfuse, regs, per_sm)
+    if err != 0:
+        raise RuntimeError("CUDA GL column pass occupancy query failed: "
+                           + lib.ntt_gl_error_string(err).decode())
+    return {"kfuse": kfuse.value, "tile_cols": tl, "layout": "swizzled",
+            "shift": C.tile_shift(cp, log_tl), "registers": regs.value,
+            "blocks_per_sm": per_sm.value}
 
 
 def _check_launch(err: int, what: str, lib) -> None:

@@ -2,7 +2,7 @@
 of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
-        [--nested]
+        [--nested] [--gl]
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
 such as an unpacked ``git archive`` of another commit, or of this one with
@@ -23,15 +23,22 @@ reading also times, at the nested prototype's bench shape (B = 64,
 the nested R x S pass ``make_nested_colpass`` at fuse 1 to 5 (us per
 call, the same timing), checks that the nested pass at fuse 3 equals the
 column pass bit for bit, and reads ``nested_colpass.kernel_info`` per
-fuse where the root's package has it. The readings go in turns: the roots
-in order, then in reverse (a b c c b a).
+fuse where the root's package has it. With ``--gl`` each reading also
+times the Goldilocks fold plan at n = 2^20 and B = 64 (the Goldilocks
+path's): ``make_batched(64)``'s ``fwd_mat``, ``inv_mat`` and
+``polymul_mat`` (of x with itself) and its column passes cp1 and cp2
+alone, hashes the three outputs' bits (which must agree across every
+reading of every root: the kernels are exact) and reads
+``gl_colpass.kernel_info`` for cp1 and cp2 where the root's package has
+it. The readings go in turns: the roots in order, then in reverse
+(a b c c b a).
 
 Prints one JSON line per reading, then one summary line: per root, the
 mean of its readings in us per NTT (us per pass per NTT for cp1 and cp2;
 us per call for the nested bench shape), and the card's name and power
 limit (nvidia-smi). Exits 1 if a reading failed, a fused output differed
-from the fold plan's or a nested one from the column pass's. Needs a CUDA
-card.
+from the fold plan's, a nested one from the column pass's, or two
+readings' Goldilocks outputs from each other. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -49,19 +56,61 @@ LOG_N = 20
 BATCH = 256
 NESTED_BATCH, NESTED_N = 64, 1024  # the nested prototype's bench shape
 NESTED_FUSE = (1, 2, 3, 4, 5)
+GL_BATCH = 64  # the Goldilocks path's batch
 
 
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _run_child(root: pathlib.Path, nested: bool
+def _run_child(root: pathlib.Path, flags: list
                ) -> subprocess.CompletedProcess:
     """One reading of root's package, in a process of its own."""
     env = dict(os.environ, PYTHONPATH=str(root))
-    return subprocess.run([sys.executable, __file__, "--child"]
-                          + ["--nested"] * nested, env=env,
-                          capture_output=True, text=True)
+    return subprocess.run([sys.executable, __file__, "--child", *flags],
+                          env=env, capture_output=True, text=True)
+
+
+def _measure_gl() -> dict:
+    """The Goldilocks fold plan's transforms and cp1, cp2 at n = 2^20,
+    B = GL_BATCH: us per NTT, the outputs' bit hashes and kernel_info."""
+    import hashlib
+
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    field = T.GOLDILOCKS
+    cfg = T.NTTConfig(field=field, log_n=LOG_N, rows_log2=LOG_N // 2)
+    n1, n2 = cfg.split
+    plan = T.build_plan(cfg, device=dev)
+    bat = plan.make_batched(GL_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    hi, lo = (M.from_carrier(torch.randint(
+        0, 1 << 32, (GL_BATCH, n1, n2), dtype=torch.int64, device=dev,
+        generator=gen)) for _ in range(2))
+    x = (hi, torch.where(hi == -1, torch.zeros_like(lo), lo))  # < p
+    fns = {"fwd_mat": bat["fwd_mat"], "inv_mat": bat["inv_mat"],
+           "polymul_mat": lambda v: bat["polymul_mat"](v, v)}
+    out = {"gl_batch": GL_BATCH, "gl_hashes": {}}
+    for key, fn in fns.items():
+        h = hashlib.sha256()
+        for v in fn(x):
+            h.update(v.cpu().numpy())
+        out["gl_hashes"][key] = h.hexdigest()
+        us = time_device(fn, x)["us_per_iter"]
+        out[f"gl_{key}_us_per_ntt"] = us / GL_BATCH
+    for key in ("cp1", "cp2"):
+        us = time_device(plan.passes[key], x)["us_per_iter"]
+        out[f"gl_{key}_us_per_ntt"] = us / GL_BATCH
+    if hasattr(G, "kernel_info"):
+        out["gl_kernel_info"] = {key: G.kernel_info(plan.passes[key], n2)
+                                 for key in ("cp1", "cp2")}
+    return out
 
 
 def _measure_nested() -> dict:
@@ -145,12 +194,17 @@ def main(argv=None) -> int:
     ap.add_argument("--nested", action="store_true",
                     help="also time the nested pass at fuse 1-5 and the "
                          "column pass at B = 64, 1024 x 1024")
+    ap.add_argument("--gl", action="store_true",
+                    help="also time the Goldilocks fold plan and its cp1 "
+                         "and cp2 at B = 64, n = 2^20")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
         reading = _measure()
         if args.nested:
             reading.update(_measure_nested())
+        if args.gl:
+            reading.update(_measure_gl())
         _emit(reading)
         return 0
 
@@ -162,12 +216,13 @@ def main(argv=None) -> int:
         roots[name] = pathlib.Path(path).resolve()
     roots["this"] = THIS_ROOT
 
-    libs = ("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
+    libs = (("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
+            + ("gl_colpass",) * args.gl)
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
              f"[C.build_library(n) for n in {libs!r}]")
     with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:
-        builds = {name: pool.submit(
-            subprocess.run, [sys.executable, "-c", build],
+        builds = {name: pool.submit(  # cwd: -c puts it first on sys.path
+            subprocess.run, [sys.executable, "-c", build], cwd=root,
             env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
             text=True) for name, root in roots.items()}
         for name, fut in builds.items():
@@ -178,15 +233,19 @@ def main(argv=None) -> int:
 
     order = list(roots) + list(reversed(roots))
     readings = {name: [] for name in roots}
+    flags = ["--nested"] * args.nested + ["--gl"] * args.gl
     ok = True
+    gl_hashes = None
     for name in order:
-        res = _run_child(roots[name], args.nested)
+        res = _run_child(roots[name], flags)
         if res.returncode != 0:
             _emit({"root": name, "ok": False, "error": res.stderr[-2000:]})
             return 1
         reading = json.loads(res.stdout.strip().splitlines()[-1])
+        gl_hashes = gl_hashes or reading.get("gl_hashes")
         ok = (ok and reading["fused_equals_fold"]
-              and reading.get("nested_equals_colpass", True))
+              and reading.get("nested_equals_colpass", True)
+              and reading.get("gl_hashes") == gl_hashes)
         readings[name].append(reading)
         _emit(dict(reading, root=name))
 
@@ -196,6 +255,10 @@ def main(argv=None) -> int:
                for name, rs in readings.items()}
     _emit({"summary": summary, "card": _card(), "batch": BATCH,
            "nested_batch": NESTED_BATCH if args.nested else None,
+           "gl_batch": GL_BATCH if args.gl else None,
+           "gl_outputs_agree": (all(r.get("gl_hashes") == gl_hashes
+                                    for rs in readings.values() for r in rs)
+                                if args.gl else None),
            "order": order, "ok": ok,
            "method": "one child process a reading; CUDA events, 5 repeats "
                      "of a dependent chain of 10, trimmed mean; us per NTT "

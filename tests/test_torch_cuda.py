@@ -301,6 +301,20 @@ def test_gl_kernel_takes_8192_rows(cuda, direction):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def test_gl_colpass_kernel_info(cuda):
+    passes = gl_fold_passes(T.GOLDILOCKS, 1024, 1024, device=cuda)
+    for name, cp in passes.items():
+        info = G.kernel_info(cp, 1024)
+        assert info["kfuse"] in (1, 2, 3, 4), name
+        assert info["layout"] == "swizzled"
+        assert info["tile_cols"] == 8 and info["shift"] == 5
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    # a 2-column tile of 8,192 rows takes 128 KB: one block per SM
+    cp = G.make_gl_colpass(T.GOLDILOCKS, 8192, direction="dit", device=cuda)
+    info = G.kernel_info(cp, 64)
+    assert info["tile_cols"] == 2 and info["blocks_per_sm"] == 1
+
+
 def test_gl_kernel_rejects_non_contiguous(cuda):
     cp = gl_fold_passes(T.GOLDILOCKS, 16, 128, device=cuda)["cp2"]
     x = torch.zeros(2, 16, 128, dtype=torch.int32, device=cuda)

@@ -115,7 +115,7 @@ def test_gl_colpass_rejects_bad_input():
 
 
 def test_tile_cols_takes_the_element_size():
-    assert C.tile_cols(1024, 1024, itemsize=8) == 4   # 32 KB tiles
+    assert C.tile_cols(1024, 1024, itemsize=8) == 8   # 64 KB tiles
     assert C.tile_cols(2048, 256, itemsize=8) == 4    # 64 KB
     assert C.tile_cols(4096, 4096, itemsize=8) == 4    # 128 KB
     assert C.tile_cols(G.MAX_ROWS, 4096, itemsize=8) == 2  # 128 KB, TL = 2

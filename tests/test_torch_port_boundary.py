@@ -28,6 +28,7 @@ MODULES = [
     "ntt_aie_tpu_torch.scripts",
     "ntt_aie_tpu_torch.scripts.fused_turns",
     "ntt_aie_tpu_torch.scripts.proto_nested_colpass",
+    "ntt_aie_tpu_torch.scripts.sass_count",
     "ntt_aie_tpu_torch.utils.device",
     "ntt_aie_tpu_torch.utils.timing",
 ]

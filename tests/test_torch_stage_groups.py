@@ -206,7 +206,7 @@ def test_tile_cols_two_columns_only_for_tall_uint64():
     assert C.tile_cols(8192, 2, itemsize=8) == 2
     assert C.tile_cols(8192, 1, itemsize=8) == 1
     assert C.tile_cols(4096, 64, itemsize=8) == 4
-    assert C.tile_cols(1024, 1024, itemsize=8) == 4
+    assert C.tile_cols(1024, 1024, itemsize=8) == 8
     assert C.tile_cols(8192, 64) == 4          # uint32: TL = 4, as before
     assert C.tile_cols(1024, 1024) == 8
     assert G.MAX_ROWS == C.MAX_ROWS == 8192
