@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
-It drives the port's four paths through their CUDA kernels and exits
+It drives the port's paths through their CUDA kernels and exits
 non-zero at the first failure: the n = 2^20 forward NTT over p = 469762049
 as ``build_plan(...).make_batched(256)["fwd_mat"]``, its inverse and the
 cyclic product (the column-pass kernel); the same at n = 2^20 over
@@ -13,14 +13,20 @@ kernel and the pointwise Goldilocks product); the fused plan
 negacyclic product (the fused four-step kernel); and the nested R x S
 column pass's check and bench at 1024 x 1024 (``python -m
 ntt_aie_tpu_torch.scripts.proto_nested_colpass``: the nested kernel, the
-column-pass kernel and the butterfly probe), with the roofline probes.
-Phases, one JSON object per line:
+column-pass kernel and the butterfly probe), with the roofline probes; and
+the fold and fused plans under the other three reductions (the column-pass
+and fused kernels' libraries of each): montgomery at n = 2^20 over
+p = 2013265921, harvey at n = 2^20 over p = 998244353, both at B = 256, and
+barrett at n = 256 over Kyber's p = 3329 on the 16 x 16 split at
+B = 16,384. Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
                  as its own line), torch and CUDA versions;
   2. build     — compiles every csrc/*.cu (colpass, gl_colpass,
-                 fused_fourstep, nested_colpass, bfly_probe) with nvcc into
-                 build/, one process each, all at once, and times it;
+                 fused_fourstep, nested_colpass, bfly_probe; colpass and
+                 fused_fourstep once for each of harvey4, harvey,
+                 montgomery and barrett) with nvcc into build/, one
+                 process each, all at once, and times it;
   3. kernel    — the 32-bit kernel against its plain PyTorch version on the
                  card, bit-exact, for cp1/cp2/icp2/icp1 at the 1024x1024
                  split, 128x512, 2048x512 and 512x2048 (nested, TL 8, 16
@@ -90,12 +96,37 @@ Phases, one JSON object per line:
                  times; the nested kernel's kernel_info at each fuse
                  (tile width, shift, registers, blocks per SM);
  15. roofline  — measure_peak, then measure_vpu_peak for harvey4 and
-                 Goldilocks at r = 64 and 128, and the probe kernel's
-                 values against its plain version at r = 64;
+                 Goldilocks at r = 64 and 128 and for harvey, montgomery
+                 (p = 998244353) and barrett (p = 3329) at r = 64, and the
+                 probe kernel's values against its plain version at
+                 r = 64;
  16. batch_split — the 32-bit, Goldilocks and nested column kernels at a
                  batch of 65,537 (two launches each: one launch takes 65,535
                  batch rows) on a 32-row column, against their plain
-                 versions, bit-exact.
+                 versions, bit-exact;
+ 17. red_kernel — for montgomery, harvey and barrett, the column kernel
+                 against its plain version, raw and bit-exact, on inputs
+                 in the reduction's domain: cp1/cp2/icp2/icp1 at
+                 1024x1024 (nested) and 32x64 (plain, TL 32), barrett at
+                 16x16 (the Kyber split; p = 3329 has no larger one) and
+                 16x8; and the fused kernel's ff/fi/nf/ni at the same shapes
+                 (barrett's nf/ni at 16x8 only: n = 128 is the largest
+                 negacyclic size of p = 3329), B = 1 and 4;
+ 18. red_slice — the three plans at full width, fold and fused:
+                 fwd_mat gated against the native oracle on row 0 plus 8
+                 random rows, the fused fwd_mat equal to the fold plan's,
+                 inv_mat(fwd_mat(x)) == x on the whole batch,
+                 polymul_mat (B = 2) against the native cyclic product on
+                 both rows, the fused negacyclic_polymul_mat (B = 2;
+                 barrett at n = 128) against the native negacyclic
+                 product; launch counts 2 / 2 / 6 column passes (fold)
+                 and 1 / 1 / 3 / 3 fused launches;
+ 19. red_time  — per reduction, us/NTT of fwd_mat, inv_mat and
+                 polymul_mat of both plans, cp1 and cp2 us/pass/NTT, the
+                 plain versions' at a batch of 4 (n = 2^20) or the full
+                 batch (n = 256), and kernel_info of cp1, cp2 and the
+                 fused ff; and harvey against harvey4 on p = 469762049
+                 (fold and fused fwd_mat at B = 256, timed in turns).
 
 Then one line {"kernels": [...]}: per kernel its time at the main path's
 shape ("ms", per launch), launches, the plain version's time, and its
@@ -105,8 +136,10 @@ its measured HBM rate is reported there, not used as a bound); library_ms
 is null (no single PyTorch call computes an NTT mod p). The colpass and
 gl_colpass rows also carry their kFuse, registers and blocks per SM (cp1's
 kernel), the fused row its inv_mat time, its kFuse and blocks per SM, the
-nested row its time, registers and blocks per SM at each fuse. Last, the
-result line
+nested row its time, registers and blocks per SM at each fuse. Phases
+17-19 add a colpass[<reduction>] and a fused_fourstep[<reduction>] row
+for each of montgomery, harvey and barrett, bound by that reduction's
+probe rate. Last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -146,6 +179,16 @@ NESTED_KERNEL_CASES = (
             ((256, 512, 1), (256, 16, 256), (2, 512, None))
             for f in range(1, 6)))
 SPEC_HBM_GBPS = 3350.0  # H100 SXM data sheet, GB/s
+# The plans of phases 17-19: (reduction, field name, log_n, rows_log2,
+# batch), the fields where 'auto' picks each; Kyber on its pinned 16 x 16
+# split at the batch of an ML-KEM endpoint batching handshakes
+RED_PLANS = (("montgomery", "p2013265921", 20, 10, 256),
+             ("harvey", "p998244353", 20, 10, 256),
+             ("barrett", "kyber", 8, 4, 16384))
+# The (n1, n2) splits phase 17 holds each reduction's kernels at
+RED_KERNEL_SHAPES = {"montgomery": ((1024, 1024), (32, 64)),
+                     "harvey": ((1024, 1024), (32, 64)),
+                     "barrett": ((16, 16), (16, 8))}
 
 
 def emit(obj) -> None:
@@ -357,6 +400,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     if not batch_split_phase(args, dev):
         return 1
+    torch.cuda.empty_cache()
+    red_rows = reduction_phases(args, dev, card, rng)
+    if red_rows is None:
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -375,7 +422,7 @@ def main() -> int:
         "butterflies": B * n // 2 * 10, "arithmetic": "harvey4",
         "kfuse": info["cp1"]["kfuse"], "registers": info["cp1"]["registers"],
         "blocks_per_sm": info["cp1"]["blocks_per_sm"],
-    }] + gl_rows + [fused_row] + nested_rows
+    }] + gl_rows + [fused_row] + nested_rows + red_rows
     emit({"kernels": [_with_bound(row, roof) for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1022,14 +1069,14 @@ def roofline_phase(dev, card):
     peak = RL.measure_peak(device=dev)
     emit(dict(peak, phase="roofline", probe="hbm", card=card))
     rates, probe = {}, {}
-    for red in ("harvey4", "goldilocks"):
+    for red in ("harvey4", "goldilocks", "harvey", "montgomery", "barrett"):
         x, tw = RL.probe_inputs(red, 32 * 1024 * 1024 // 4, device=dev)
         got = RL.probe_chain(x, tw, r=64, reduction=red)
         torch.cuda.synchronize()
         err = int((got.long() - RL.probe_chain_plain(
             x, tw, r=64, reduction=red).long()).abs().max())
         del x, got
-        for r in (64, 128):
+        for r in (64, 128) if red in ("harvey4", "goldilocks") else (64,):
             out = RL.measure_vpu_peak(reduction=red, r=r, device=dev)
             emit(dict(out, phase="roofline", probe="butterflies", card=card,
                       max_abs_err_r64=err))
@@ -1042,6 +1089,313 @@ def roofline_phase(dev, card):
             return None
     return {"hbm_gbps": peak["measured_hbm_gbps"], "bfly_per_sec": rates,
             "probe": probe}
+
+
+def _domain_top(kind: str, p: int) -> int:
+    """The top of a reduction's travel domain: a column kernel's input."""
+    return {"harvey4": 4 * p, "harvey": 2 * p}.get(kind, p)
+
+
+def red_kernel_phase(kind, field, dev, gen):
+    """Phase 17 for one reduction: its column and fused kernels against
+    their plain versions. Returns the largest error, or None after emitting
+    the failure."""
+    import torch
+
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.plan import fold_passes, fused_passes
+
+    top = _domain_top(kind, field.p)
+    max_err = 0
+
+    def held(what, name, got, want, shape):
+        nonlocal max_err
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        emit({"phase": "red_kernel", "reduction": kind, "kernel": what,
+              "pass": name, "shape": list(shape), "max_abs_err": err})
+        if err or not torch.equal(got, want):
+            fail("red_kernel", f"{kind} {what} {name} {shape} differs from "
+                 "its plain version")
+            return False
+        return True
+
+    for n1, n2 in RED_KERNEL_SHAPES[kind]:
+        n = n1 * n2
+        if n <= field.max_n:
+            for name, cp in fold_passes(field, n1, n2, reduction=kind,
+                                        device=dev).items():
+                for B in (1, 4):
+                    shape = (B,) + ((n1, n2) if name in ("cp1", "icp1")
+                                    else (n2, n1))
+                    x = torch.randint(0, top, shape, dtype=torch.int64,
+                                      device=dev, generator=gen)
+                    x = x.to(torch.int32)
+                    got = C.colpass(x, cp)
+                    torch.cuda.synchronize()
+                    if not held("colpass", name, got, C.colpass_plain(x, cp),
+                                shape):
+                        return None
+        nega = 2 * n <= field.max_n
+        fused = fused_passes(field, n1, n2, negacyclic=nega, reduction=kind,
+                             device=dev)
+        for name, ff in fused.items():
+            for B in (1, 4):
+                x = torch.randint(0, top, (B,) + ff.shape_in,
+                                  dtype=torch.int64, device=dev,
+                                  generator=gen).to(torch.int32)
+                got = F.fused_fourstep(x, ff)
+                torch.cuda.synchronize()
+                if not held("fused_fourstep", name, got,
+                            F.fused_fourstep_plain(x, ff), x.shape):
+                    return None
+    return max_err
+
+
+def red_slice_phase(kind, field, log_n, rows_log2, B, dev, gen, rng):
+    """Phase 18 for one reduction: its fold and fused plans at full width
+    against the native oracle. Returns (fold plan, fused plan, x, launch
+    counts), or None after emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+
+    p = field.p
+    cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2,
+                      reduction=kind)
+    n, (n1, n2) = cfg.n, cfg.split
+    fold = T.build_plan(cfg, device=dev)
+    fused = T.build_plan(cfg, device=dev, fused=True)
+    # the negacyclic product needs a 2n-th root: Kyber's largest is n = 128
+    nega_log_n = log_n if 2 * n <= field.max_n else log_n - 1
+    ncfg = T.NTTConfig(field=field, log_n=nega_log_n, rows_log2=rows_log2,
+                       reduction=kind, negacyclic=True)
+    nega = T.build_plan(ncfg, device=dev, fused=True)
+    x = torch.randint(0, p, (B, n1, n2), dtype=torch.int32, device=dev,
+                      generator=gen)
+    launches = {}
+
+    def drive(key, fn, *operands):
+        C.colpass.launches = F.fused_fourstep.launches = 0
+        out = fn(*operands)
+        torch.cuda.synchronize()
+        launches[key] = [C.colpass.launches, F.fused_fourstep.launches]
+        return out
+
+    fb, ub = fold.make_batched(B), fused.make_batched(B)
+    y = drive("fold_fwd_mat", fb["fwd_mat"], x)
+    yf = drive("fused_fwd_mat", ub["fwd_mat"], x)
+    fused_ok = bool(torch.equal(y, yf))
+    del yf
+    back = drive("fold_inv_mat", fb["inv_mat"], y)
+    roundtrip_ok = bool(torch.equal(back, x))
+    del back
+    back = drive("fused_inv_mat", ub["inv_mat"], y)
+    roundtrip_ok = roundtrip_ok and bool(torch.equal(back, x))
+    del back
+
+    gate_rows = np.concatenate(
+        [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
+    idx = torch.from_numpy(gate_rows).to(dev)
+    got = y.reshape(B, n)[idx].cpu().numpy().astype(np.uint64)
+    rows_in = x.reshape(B, n)[idx].cpu().numpy().astype(np.uint64)
+    omega = field.root_of_unity(n)
+    want = native_oracle.ntt_dif_batch(rows_in, omega, p)[
+        :, tw.bit_reverse_indices(n)]
+    gate_ok = np.array_equal(got[:, fold.spectral_to_natural],
+                             want.astype(np.uint64))
+    del y
+
+    a, b = x[:2], x[2:4]
+    c = drive("fold_polymul_mat", fold.make_batched(2)["polymul_mat"], a, b)
+    cf = drive("fused_polymul_mat", fused.make_batched(2)["polymul_mat"], a,
+               b)
+    poly_ok = bool(torch.equal(c, cf))
+    for r in range(2):
+        want_c = native_oracle.cyclic_polymul(
+            a[r].reshape(n).cpu().numpy(), b[r].reshape(n).cpu().numpy(),
+            omega, p)
+        poly_ok = poly_ok and np.array_equal(
+            c[r].reshape(n).cpu().numpy().astype(np.uint64),
+            want_c.astype(np.uint64))
+    nn_, (m1, m2) = ncfg.n, ncfg.split
+    na = torch.randint(0, p, (2, m1, m2), dtype=torch.int32, device=dev,
+                       generator=gen)
+    nb = torch.randint(0, p, (2, m1, m2), dtype=torch.int32, device=dev,
+                       generator=gen)
+    d = drive("fused_negacyclic_polymul_mat",
+              nega.make_batched(2)["negacyclic_polymul_mat"], na, nb)
+    psi = field.root_of_unity(2 * nn_)
+    nega_ok = all(np.array_equal(
+        d[r].reshape(nn_).cpu().numpy().astype(np.uint64),
+        native_oracle.negacyclic_polymul(
+            na[r].reshape(nn_).cpu().numpy(),
+            nb[r].reshape(nn_).cpu().numpy(), psi, p).astype(np.uint64))
+        for r in range(2))
+    counts_ok = launches == {
+        "fold_fwd_mat": [2, 0], "fused_fwd_mat": [0, 1],
+        "fold_inv_mat": [2, 0], "fused_inv_mat": [0, 1],
+        "fold_polymul_mat": [6, 0], "fused_polymul_mat": [0, 3],
+        "fused_negacyclic_polymul_mat": [0, 3]}
+    ok = bool(gate_ok and fused_ok and roundtrip_ok and poly_ok and nega_ok
+              and counts_ok)
+    emit({"phase": "red_slice", "reduction": kind, "p": p, "n": n,
+          "split": [n1, n2], "batch": B, "plan_reduction": fold.reduction,
+          "oracle": "native", "gate_rows": gate_rows.tolist(),
+          "gate_ok": bool(gate_ok), "fused_equals_fold": fused_ok,
+          "roundtrip_ok": roundtrip_ok, "polymul_ok": bool(poly_ok),
+          "negacyclic_n": nn_, "negacyclic_ok": bool(nega_ok),
+          "launches": launches, "launches_ok": counts_ok, "ok": ok})
+    if not ok or fold.reduction != kind:
+        fail("red_slice", f"the {kind} plans disagree with their oracles "
+             "or did not launch as expected")
+        return None
+    return fold, fused, x, launches
+
+
+def red_time_phase(kind, fold, fused, x, card):
+    """Phase 19 for one reduction: the kernels' and the plain versions'
+    times, and kernel_info. Returns the phase's line."""
+    import torch
+
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    B = x.shape[0]
+    n = x.shape[1] * x.shape[2]
+    pb = min(B, max(1, 4 * (1 << 20) // n))
+    fb, ub = fold.make_batched(B), fused.make_batched(B)
+    us = {}
+    for plan_name, bat in (("fold", fb), ("fused", ub)):
+        us[plan_name] = {
+            "fwd_mat": time_device(bat["fwd_mat"], x)["us_per_iter"] / B,
+            "inv_mat": time_device(bat["inv_mat"], x)["us_per_iter"] / B,
+            "polymul_mat": time_device(lambda v: bat["polymul_mat"](v, v),
+                                       x)["us_per_iter"] / B}
+    cp1, cp2 = fold.passes["cp1"], fold.passes["cp2"]
+    ff = fused.passes["ff"]
+    k_cp1 = time_device(cp1, x)["us_per_iter"]
+    k_cp2 = time_device(cp2, x)["us_per_iter"]
+    xp = x[:pb]
+    p_fwd = time_device(
+        lambda v: C.colpass_plain(C.colpass_plain(v, cp1), cp2), xp,
+        iters=2, repeats=3)["us_per_iter"]
+    p_fused = time_device(lambda v: F.fused_fourstep_plain(v, ff), xp,
+                          iters=2, repeats=3)["us_per_iter"]
+    info = {"cp1": C.kernel_info(cp1, x.shape[2]),
+            "cp2": C.kernel_info(cp2, x.shape[1]),
+            "ff": F.kernel_info(ff, B)}
+    line = {"phase": "red_time", "reduction": kind, "card": card,
+            "batch": B, "n": n, "plain_batch": pb,
+            "kernel_us_per_ntt": us,
+            "kernel_cp1_us_per_pass": k_cp1 / B,
+            "kernel_cp2_us_per_pass": k_cp2 / B,
+            "plain_fold_fwd_us_per_ntt": p_fwd / pb,
+            "plain_fused_fwd_us_per_ntt": p_fused / pb,
+            "kernel_info": info,
+            "method": "CUDA events; kernel: 5 repeats of a dependent chain "
+                      "of 10, plain: 3 repeats of 2; trimmed mean; us per "
+                      "NTT = us per call / batch; polymul_mat of x with "
+                      "itself"}
+    emit(line)
+    torch.cuda.synchronize()
+    return line
+
+
+def reduction_phases(args, dev, card, rng):
+    """Phases 17-19: the fold and fused plans under montgomery, harvey and
+    barrett, and harvey against harvey4. Returns their rows of the kernels
+    line, or None after emitting the failure."""
+    import math
+
+    import torch
+
+    import ntt_aie_tpu_torch as T
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    rows = []
+    for kind, name, log_n, rows_log2, B in RED_PLANS:
+        field = T.FIELDS[name]
+        err = red_kernel_phase(kind, field, dev, gen)
+        if err is None:
+            return None
+        torch.cuda.empty_cache()
+        got = red_slice_phase(kind, field, log_n, rows_log2, B, dev, gen,
+                              rng)
+        if got is None:
+            return None
+        fold, fused, x, launches = got
+        line = red_time_phase(kind, fold, fused, x, card)
+        n = 1 << log_n
+        log_nn = (log_n + 1) // 2  # stages a column pass of the split runs
+        per = line["kernel_us_per_ntt"]
+        pb = line["plain_batch"]
+        info = line["kernel_info"]
+        rows += [
+            {"name": f"colpass[{kind}]", "route": "cuda",
+             "source": "ntt_aie_tpu_torch/csrc/colpass.cu",
+             "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:298",
+             "launches": sum(v[0] for v in launches.values()),
+             "max_abs_err": err,
+             "ms": per["fold"]["fwd_mat"] * B / 2 / 1e3,
+             "plain_ms": line["plain_fold_fwd_us_per_ntt"] * pb / 2 / 1e3,
+             "batch": B, "plain_batch": pb,
+             "bytes": (4 * B * n * 4 + 2 * n * 4) / 2,
+             "butterflies": B * n // 2 * log_nn, "arithmetic": kind,
+             "p": field.p, "registers": info["cp1"]["registers"],
+             "blocks_per_sm": info["cp1"]["blocks_per_sm"]},
+            {"name": f"fused_fourstep[{kind}]", "route": "cuda",
+             "source": "ntt_aie_tpu_torch/csrc/fused_fourstep.cu",
+             "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:693",
+             "launches": sum(v[1] for v in launches.values()),
+             "max_abs_err": err,
+             "ms": per["fused"]["fwd_mat"] * B / 1e3,
+             "plain_ms": line["plain_fused_fwd_us_per_ntt"] * pb / 1e3,
+             "batch": B, "plain_batch": pb,
+             "bytes": 2 * B * n * 4 + 2 * n * 4,
+             "butterflies": B * n // 2 * int(math.log2(n)),
+             "arithmetic": kind, "p": field.p,
+             "registers": info["ff"]["registers"],
+             "blocks_per_sm": info["ff"]["blocks_per_sm"]},
+        ]
+        del fold, fused, x
+        torch.cuda.empty_cache()
+
+    # harvey against harvey4 on the same prime, fold and fused, in turns
+    field = T.P_469762049
+    x = torch.randint(0, field.p, (256, 1024, 1024), dtype=torch.int32,
+                      device=dev, generator=gen)
+    turns = {}
+    for fused in (False, True):
+        h4, h = (T.build_plan(T.NTTConfig(field=field, log_n=20,
+                                          reduction=kind), device=dev,
+                              fused=fused).make_batched(256)["fwd_mat"]
+                 for kind in ("harvey4", "harvey"))
+        same = bool(torch.equal(h4(x), h(x)))
+        a_us, b_us = _in_turns(h4, h, x)
+        turns["fused" if fused else "fold"] = {
+            "harvey4_us_per_ntt": a_us / 256, "harvey_us_per_ntt": b_us / 256,
+            "harvey_over_harvey4": b_us / a_us, "equal": same}
+        if not same:
+            fail("red_time", "harvey's fwd_mat differs from harvey4's on "
+                 "p = 469762049")
+            return None
+    emit({"phase": "red_time", "compare": "harvey vs harvey4",
+          "p": field.p, "n": 1 << 20, "batch": 256, "card": card,
+          "fwd_mat": turns,
+          "method": "CUDA events, 5 repeats of a dependent chain of 10, "
+                    "trimmed mean; in turns harvey4, harvey, harvey, "
+                    "harvey4; mean of the two readings"})
+    del x
+    torch.cuda.empty_cache()
+    return rows
 
 
 if __name__ == "__main__":

@@ -9,9 +9,11 @@
 // with no network around them: no shared memory, no barrier, no stage
 // table. In PyTorch ops each step would stream the buffer through device
 // memory and measure bandwidth, so this kernel holds u and w in registers
-// for all r steps. Two variants:
-//   harvey4 (p < 2^29): colpass_tile.cuh's arithmetic, values in the lazy
-//     domain [0, 4p), tw as (w, packed Shoup halves);
+// for all r steps. Variants:
+//   harvey4, harvey, montgomery, barrett: reductions.cuh's arithmetic (the
+//     column and fused kernels' policies), values in the policy's domain,
+//     tw as its (w, w2) pair, the butterfly the row-major column_tile's
+//     (conditional subtracts as selects);
 //   goldilocks: gl_arith.cuh's canonical uint64 arithmetic on (hi, lo)
 //     limb planes, joined on load and split on store.
 // Layout (the reference's): u and w are (8, m) planes, one twiddle per
@@ -33,36 +35,52 @@
 // the chain (a thread loads, runs r steps, then stores); measure_vpu_peak
 // subtracts the same launches at half the depth to remove it.
 
-#include "colpass_tile.cuh"
 #include "gl_arith.cuh"
+#include "reductions.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-    probe_harvey4(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                  const uint32_t* __restrict__ tw_w,
-                  const uint32_t* __restrict__ tw_s, long long m, int r,
-                  uint32_t p) {
-  using colpass_tile::csub;
-  using colpass_tile::mulc;
+// The chain of one 32-bit reduction R on the planes u, w of x.
+template <class Red>
+__device__ __forceinline__ void probe_chain(const uint32_t* __restrict__ x,
+                                            uint32_t* __restrict__ out,
+                                            const uint32_t* __restrict__ tw_w,
+                                            const uint32_t* __restrict__ tw_s,
+                                            long long m, int r,
+                                            Red R) {
   const long long half = 8 * m;
-  const uint32_t p4 = 4u * p;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < half; e += (long long)gridDim.x * blockDim.x) {
     const int row = static_cast<int>(e / m);
     const uint32_t w = tw_w[row], ws = tw_s[row];
     uint32_t a = x[e], b = x[half + e];
     for (int k = 0; k < r; ++k) {
-      const uint32_t s = csub(a + b, p4);
-      b = mulc(a + (p4 - b), w, ws, p);
+      const uint32_t s = R.template add<false>(a, b);
+      b = R.mulc(R.sub_for_mul(a, b), w, ws);
       a = s;
     }
     out[e] = a;
     out[half + e] = b;
   }
 }
+
+// One kernel a reduction, each under its own name (scripts/sass_count.py
+// compares kernels by name across checkouts).
+#define PROBE_KERNEL(name, Policy)                                         \
+  __global__ void __launch_bounds__(kThreads)                              \
+      name(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,     \
+           const uint32_t* __restrict__ tw_w,                              \
+           const uint32_t* __restrict__ tw_s, long long m, int r,          \
+           uint32_t p, uint32_t c1, uint32_t c2) {                         \
+    probe_chain(x, out, tw_w, tw_s, m, r, Policy::make(p, c1, c2));        \
+  }
+PROBE_KERNEL(probe_harvey4, reductions::Harvey4)
+PROBE_KERNEL(probe_harvey, reductions::Harvey)
+PROBE_KERNEL(probe_montgomery, reductions::Montgomery)
+PROBE_KERNEL(probe_barrett, reductions::Barrett)
+#undef PROBE_KERNEL
 
 __global__ void __launch_bounds__(kThreads)
     probe_goldilocks(const uint32_t* __restrict__ x,
@@ -103,26 +121,40 @@ const char* ntt_probe_error_string(int err) {
 }
 
 // Launches the probe on `stream`: r butterflies per element pair of the
-// (8, m) planes in x, into out (x's layout). goldilocks = 0: x is u, w
-// (2 * 8m uint32), tw_a / tw_b the (8,) w and packed Shoup tables, p the
-// prime; goldilocks = 1: x is uh, ul, wh, wl (4 * 8m), tw_a / tw_b the
-// (8,) hi and lo limbs. Returns cudaGetLastError() (0 = launched).
+// (8, m) planes in x, into out (x's layout). kind: 0 harvey4, 2 harvey,
+// 3 montgomery, 4 barrett: x is u, w (2 * 8m uint32), tw_a / tw_b the (8,)
+// pair tables, p, c1, c2 the prime and the reduction's constants; kind 1,
+// goldilocks: x is uh, ul, wh, wl (4 * 8m), tw_a / tw_b the (8,) hi and lo
+// limbs. Returns cudaGetLastError() (0 = launched).
 int ntt_bfly_probe(const void* x, void* out, const void* tw_a,
-                   const void* tw_b, long long m, int r, int goldilocks,
-                   unsigned int p, void* stream) {
-  if (m < 1 || r < 0 || 8 * m > (1ll << 40))
+                   const void* tw_b, long long m, int r, int kind,
+                   unsigned int p, unsigned int c1, unsigned int c2,
+                   void* stream) {
+  if (m < 1 || r < 0 || 8 * m > (1ll << 40) || kind < 0 || kind > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xi = static_cast<const uint32_t*>(x);
   auto* o = static_cast<uint32_t*>(out);
   const auto* ta = static_cast<const uint32_t*>(tw_a);
   const auto* tb = static_cast<const uint32_t*>(tw_b);
-  if (goldilocks)
-    probe_goldilocks<<<grid_for(8 * m), kThreads, 0, s>>>(xi, o, ta, tb, m,
-                                                          r);
-  else
-    probe_harvey4<<<grid_for(8 * m), kThreads, 0, s>>>(xi, o, ta, tb, m, r,
-                                                       p);
+  const int grid = grid_for(8 * m);
+  switch (kind) {
+    case 0:
+      probe_harvey4<<<grid, kThreads, 0, s>>>(xi, o, ta, tb, m, r, p, c1, c2);
+      break;
+    case 1:
+      probe_goldilocks<<<grid, kThreads, 0, s>>>(xi, o, ta, tb, m, r);
+      break;
+    case 2:
+      probe_harvey<<<grid, kThreads, 0, s>>>(xi, o, ta, tb, m, r, p, c1, c2);
+      break;
+    case 3:
+      probe_montgomery<<<grid, kThreads, 0, s>>>(xi, o, ta, tb, m, r, p, c1,
+                                                 c2);
+      break;
+    default:
+      probe_barrett<<<grid, kThreads, 0, s>>>(xi, o, ta, tb, m, r, p, c1, c2);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

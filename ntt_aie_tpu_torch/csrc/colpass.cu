@@ -1,7 +1,10 @@
 // Column-pass NTT kernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces ntt_aie_tpu/ops/pallas_ntt.py::build_colpass (the Pallas TPU
-// kernel) for the options the four-step fold plan runs:
+// kernel) for the options the four-step fold plan runs, under one of the
+// reductions of reductions.cuh (Harvey4, Harvey, Montgomery, Barrett: the
+// reference's `red` argument). Each library is built for one, with
+// -DNTT_REDUCTION=<kind> (ops/colpass.py build_library):
 //   cp1  = DIF over n1, then the 'post_t' wmat multiply, transpose_out;
 //   cp2  = DIF over n2, then canonicalize;
 //   icp2 = DIT over n2, then the 'post_t' iwmat multiply, transpose_out;
@@ -12,7 +15,8 @@
 // states the arithmetic and the nested row map). Store: optional
 // transpose to (B, ncols, nn), then the elementwise multiply by a
 // (ncols, nn)-oriented matrix, then canonicalize.
-// Output domain: [0, 4p) without canonicalize, [0, p) with it.
+// Output domain: the reduction's ([0, 4p) Harvey4, [0, 2p) Harvey, [0, p)
+// Montgomery and Barrett) without canonicalize, [0, p) with it.
 //
 // What bounds it on an H100. A pass's floor is the larger of its bytes
 // (the 4 MB matrix of one n = 2^20 transform read and written once, plus
@@ -52,14 +56,22 @@
 // holds 16 values, the registers pass 100 and 2 blocks fit an SM. At
 // kFuse 3, cp1's kernel takes 40 registers a thread and 6 blocks of 256
 // threads per SM (where the 33 KB of shared memory a block binds too),
-// cp2's 48 and 5 (registers bind; ntt_colpass_kernel_info).
+// cp2's 48 and 5 (registers bind; ntt_colpass_kernel_info). Those are
+// Harvey4's numbers, the main path's; the other reductions run the same
+// design as it stands (a Montgomery or Barrett table's second word is zero
+// and still loaded with the pair, PERF.md gives their readings).
 
 #include "colpass_tile.cuh"
+
+#ifndef NTT_REDUCTION
+#error "build with -DNTT_REDUCTION=<harvey4|harvey|montgomery|barrett>"
+#endif
 
 namespace {
 
 using colpass_tile::Network;
 using colpass_tile::TileOps;
+using Red = reductions::Built;
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 227 * 1024;  // an H100 block's limit
@@ -73,7 +85,7 @@ struct Params {
   const uint32_t* x;
   uint32_t* out;
   int shift;  // the swizzled tile's (colpass_tile::tile_shift)
-  uint32_t p;
+  Red red;    // the reduction and its constants
 };
 
 // One thread block per (batch row, tile of TL columns).
@@ -84,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) colpass_kernel(const Params P) {
   colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse>(
       tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
       P.out + (size_t)blockIdx.y * plane, (size_t)blockIdx.x << P.ops.log_tl,
-      P.shift, P.p);
+      P.shift, P.red);
 }
 
 using KernelFn = void (*)(Params);
@@ -117,6 +129,9 @@ extern "C" {
 
 int ntt_colpass_max_rows() { return kMaxRows; }
 
+// The reduction this library is built for (ops/reductions.py's kind).
+const char* ntt_reduction_name() { return reductions::kBuiltName; }
+
 // This build's register group size, and for the kernel of this direction
 // and these store options at an nn x 2^log_tl tile: its registers a thread
 // and its co-resident blocks per SM. Returns 0 or a cudaError_t.
@@ -144,13 +159,15 @@ const char* ntt_colpass_error_string(int err) {
 // offs: host arrays of nstages half sizes and table offsets (in pairs).
 // tw, mid, mat: (w, packed w') pairs, 8 bytes each: the stage twiddles,
 // the nested mid vector (null with log_a < 0, a plain network) and the
-// post_t operand indexed like out (null for none). Returns
-// cudaGetLastError() after the launch (0 = launched).
+// post_t operand indexed like out (null for none). p, c1, c2: the
+// reduction's prime and constants (Red::make). Returns cudaGetLastError()
+// after the launch (0 = launched).
 int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
                 int log_tl, int dit, int nstages, int k0, const int* ts,
                 const int* offs, const void* tw, int log_a, const void* mid,
                 const void* mat, int transpose_out, int canonicalize,
-                unsigned int p, void* stream) {
+                unsigned int p, unsigned int c1, unsigned int c2,
+                void* stream) {
   const size_t smem = (size_t)nn << log_tl << 2;
   Params P;
   if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
@@ -169,7 +186,7 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
   P.x = static_cast<const uint32_t*>(x);
   P.out = static_cast<uint32_t*>(out);
   P.shift = colpass_tile::tile_shift(P.net, log_tl);
-  P.p = p;
+  P.red = Red::make(p, c1, c2);
   const KernelFn kernel =
       pick_kernel(dit != 0, transpose_out != 0, mat != nullptr);
   const cudaError_t err = allow_smem(kernel, smem);

@@ -1,7 +1,9 @@
 // Device code shared by the column pass (colpass.cu), the nested column
 // pass (nested_colpass.cu), the fused four-step kernel (fused_fourstep.cu)
-// and the butterfly probe (bfly_probe.cu): harvey4 arithmetic, and two
-// ways to run a whole (nn x TL) column tile of a plain or nested network.
+// and the butterfly probe (bfly_probe.cu): two ways to run a whole
+// (nn x TL) column tile of a plain or nested network, under a reduction
+// policy (reductions.cuh: Harvey4, Harvey, Montgomery, Barrett) that every
+// function takes as its last argument, `R`.
 // column_tile (row-major; fused_fourstep.cu's) runs groups of DIF or DIT
 // stages held in registers between exchanges through the tile (one stage
 // a group is one stage per barrier) between sweeps of the tile that load
@@ -10,13 +12,13 @@
 // nested_colpass.cu's) keeps a swizzled tile, and its groups also load,
 // store and carry the nested mid multiply.
 //
-// Arithmetic: harvey4, bit for bit the reference's uint32 operations.
-// Values travel in the lazy domain [0, 4p) (p < 2^29); the sub feeding a
-// multiply reaches [0, 8p) < 2^32. A constant multiply is the approximate
-// Shoup product from three 16-bit partials of w' = floor(w * 2^32 / p),
-// stored packed as (w'_hi << 16) | w'_lo; it lands in [0, 4p). Keeping the
-// reference's exact operations (instead of an exact __umulhi Shoup) makes
-// raw lazy outputs equal to the plain PyTorch version's bit for bit.
+// Arithmetic: the policy's, bit for bit the uint32 operations of the
+// plain PyTorch version (reductions.cuh states each). A DIF butterfly is
+// (R.add(a, b), R.mulc(R.sub_for_mul(a, b), w)), a DIT one (R.add(u, wv),
+// R.sub(u, wv)) of wv = R.mulc(v, w); values travel in the policy's domain
+// and the store's canonicalize is R.canon. column_tile_io's conditional
+// subtracts are unsigned mins, column_tile's selects (reductions.cuh kMin).
+// Harvey4 runs the operations these kernels ran before the policies came.
 //
 // A network is a generic stage list from ntt_aie_tpu_torch.twiddles
 // .col_network: a stage of half size t pairs rows (b*2t + j, b*2t + t + j)
@@ -31,6 +33,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reductions.cuh"
 
 namespace colpass_tile {
 
@@ -67,18 +71,6 @@ struct TileOps {
 // this grid wrote).
 enum class Load { kPlain, kPre, kL2 };
 
-__device__ __forceinline__ uint32_t mulc(uint32_t x, uint32_t w, uint32_t ws,
-                                         uint32_t p) {
-  const uint32_t xl = x & 0xFFFFu, xh = x >> 16;
-  const uint32_t wh = ws >> 16, wl = ws & 0xFFFFu;
-  const uint32_t q = xh * wh + ((xl * wh) >> 16) + ((xh * wl) >> 16);
-  return x * w - q * p;
-}
-
-__device__ __forceinline__ uint32_t csub(uint32_t x, uint32_t m) {
-  return x >= m ? x - m : x;
-}
-
 // Physical shared-memory row of logical row l (identity when log_a < 0).
 __device__ __forceinline__ int row_of(int l, int log_a, int log_nn) {
   if (log_a < 0) return l;
@@ -94,15 +86,14 @@ __device__ __forceinline__ int row_of(int l, int log_a, int log_nn) {
 // — and writes the 2^K results back. So the outputs do not depend on how
 // the stages are grouped; K = 1 is one DIF stage per barrier. log_a: the
 // row map of this phase (-1 for phase 0).
-template <int K>
+template <int K, class Red>
 __device__ __forceinline__ void run_group(uint32_t* tile, const Network& N,
                                           int s0, int log_a, int log_tl,
-                                          uint32_t p) {
+                                          Red R) {
   const int t_last = N.t[s0 + K - 1];
   const int log_t = __ffs(t_last) - 1;
   const int tl_mask = (1 << log_tl) - 1;
   const int total = (N.nn >> K) << log_tl;
-  const uint32_t p4 = 4u * p;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int c = i & tl_mask;
     const int g = i >> log_tl;
@@ -123,9 +114,9 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Network& N,
         if (m & h) continue;
         const int idx = ((m & (h - 1)) << log_t) | j;
         const uint32_t a = v[m], b = v[m + h];
-        v[m] = csub(a + b, p4);
-        v[m + h] =
-            mulc(a + (p4 - b), __ldg(tw_w + idx), __ldg(tw_s + idx), p);
+        v[m] = R.template add<false>(a, b);
+        v[m + h] = R.mulc(R.sub_for_mul(a, b), __ldg(tw_w + idx),
+                          __ldg(tw_s + idx));
       }
     }
 #pragma unroll
@@ -141,18 +132,17 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Network& N,
 // barrier: the mirror of run_group. Each thread loads the 2^K rows
 // base + m * t_first (m < 2^K) of one butterfly; sub-stage q pairs m with
 // m + 2^q, takes the twiddle at ((m mod 2^q) * t_first + j) and runs
-// the DIT butterfly's operations in their order (wv = v * w, then u + wv
-// and u + 4p - wv, each through csub). K = 1 is one DIT stage per barrier.
-template <int K>
+// the DIT butterfly's operations in their order (wv = v * w, then
+// R.add(u, wv) and R.sub(u, wv)). K = 1 is one DIT stage per barrier.
+template <int K, class Red>
 __device__ __forceinline__ void run_group_dit(uint32_t* tile,
                                               const Network& N, int s0,
                                               int log_a, int log_tl,
-                                              uint32_t p) {
+                                              Red R) {
   const int t_first = N.t[s0];
   const int log_t = __ffs(t_first) - 1;
   const int tl_mask = (1 << log_tl) - 1;
   const int total = (N.nn >> K) << log_tl;
-  const uint32_t p4 = 4u * p;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int c = i & tl_mask;
     const int g = i >> log_tl;
@@ -174,9 +164,9 @@ __device__ __forceinline__ void run_group_dit(uint32_t* tile,
         const int idx = ((m & (h - 1)) << log_t) | j;
         const uint32_t u = v[m];
         const uint32_t wv =
-            mulc(v[m + h], __ldg(tw_w + idx), __ldg(tw_s + idx), p);
-        v[m] = csub(u + wv, p4);
-        v[m + h] = csub(u + (p4 - wv), p4);
+            R.mulc(v[m + h], __ldg(tw_w + idx), __ldg(tw_s + idx));
+        v[m] = R.template add<false>(u, wv);
+        v[m + h] = R.template sub<false>(u, wv);
       }
     }
 #pragma unroll
@@ -189,35 +179,35 @@ __device__ __forceinline__ void run_group_dit(uint32_t* tile,
 
 // A group of a runtime k <= K stages (run_group, or run_group_dit when
 // kDit): instantiates only groups up to K.
-template <int K, bool kDit>
+template <int K, bool kDit, class Red>
 __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
                                                const Network& N, int s0,
                                                int log_a, int log_tl,
-                                               uint32_t p) {
+                                               Red R) {
   if constexpr (K > 1) {
     if (k < K) {
-      run_group_upto<K - 1, kDit>(k, tile, N, s0, log_a, log_tl, p);
+      run_group_upto<K - 1, kDit>(k, tile, N, s0, log_a, log_tl, R);
       return;
     }
   }
   if constexpr (kDit)
-    run_group_dit<K>(tile, N, s0, log_a, log_tl, p);
+    run_group_dit<K>(tile, N, s0, log_a, log_tl, R);
   else
-    run_group<K>(tile, N, s0, log_a, log_tl, p);
+    run_group<K>(tile, N, s0, log_a, log_tl, R);
 }
 
 // Stages [s_begin, s_end) of one phase, DIF or DIT as N.dit says, in groups
 // of min(kFuse, stages left); a group never crosses the phase's end.
-template <int kFuse>
+template <int kFuse, class Red>
 __device__ __forceinline__ void run_phase(uint32_t* tile, const Network& N,
                                           int s_begin, int s_end, int log_a,
-                                          int log_tl, uint32_t p) {
+                                          int log_tl, Red R) {
   for (int s = s_begin; s < s_end;) {
     const int k = min(kFuse, s_end - s);
     if (N.dit)
-      run_group_upto<kFuse, true>(k, tile, N, s, log_a, log_tl, p);
+      run_group_upto<kFuse, true>(k, tile, N, s, log_a, log_tl, R);
     else
-      run_group_upto<kFuse, false>(k, tile, N, s, log_a, log_tl, p);
+      run_group_upto<kFuse, false>(k, tile, N, s, log_a, log_tl, R);
     s += k;
   }
 }
@@ -225,11 +215,11 @@ __device__ __forceinline__ void run_phase(uint32_t* tile, const Network& N,
 // Loads one tile with the whole block: reads along the column axis (TL * 4
 // contiguous bytes per row), then a barrier. src is this batch row's input;
 // col0 is the tile's first column.
-template <Load kLoad>
+template <Load kLoad, class Red>
 __device__ __forceinline__ void load_tile(uint32_t* tile, const Network& N,
                                           const TileOps& O,
                                           const uint32_t* src, size_t col0,
-                                          uint32_t p) {
+                                          Red R) {
   const int tl = 1 << O.log_tl;
   const int n_tile = N.nn << O.log_tl;
   for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
@@ -238,7 +228,7 @@ __device__ __forceinline__ void load_tile(uint32_t* tile, const Network& N,
     if constexpr (kLoad == Load::kL2)
       tile[i] = __ldcg(src + o);
     else if constexpr (kLoad == Load::kPre)
-      tile[i] = mulc(src[o], __ldg(O.pre_w + o), __ldg(O.pre_s + o), p);
+      tile[i] = R.mulc(src[o], __ldg(O.pre_w + o), __ldg(O.pre_s + o));
     else
       tile[i] = src[o];
   }
@@ -248,8 +238,9 @@ __device__ __forceinline__ void load_tile(uint32_t* tile, const Network& N,
 // The nested network's mid step: DIF multiplies before the row move
 // (physical rows), DIT after it (logical rows through the map); then a
 // barrier.
+template <class Red>
 __device__ __forceinline__ void mid_step(uint32_t* tile, const Network& N,
-                                         int log_tl, uint32_t p) {
+                                         int log_tl, Red R) {
   const int tl = 1 << log_tl;
   const int n_tile = N.nn << log_tl;
   const int map_a = N.dit ? N.log_a : -1;
@@ -257,7 +248,7 @@ __device__ __forceinline__ void mid_step(uint32_t* tile, const Network& N,
     const int l = i >> log_tl;
     uint32_t* e =
         tile + (row_of(l, map_a, N.log_nn) << log_tl) + (i & (tl - 1));
-    *e = mulc(*e, __ldg(N.mid_w + l), __ldg(N.mid_s + l), p);
+    *e = R.mulc(*e, __ldg(N.mid_w + l), __ldg(N.mid_s + l));
   }
   __syncthreads();
 }
@@ -265,14 +256,13 @@ __device__ __forceinline__ void mid_step(uint32_t* tile, const Network& N,
 // Stores one tile (logical row l from physical row row_of(l)): coalesced
 // along nn when kTranspose, times mat when kMat, then canonicalize if asked.
 // dst is this batch row's output.
-template <bool kTranspose, bool kMat>
+template <bool kTranspose, bool kMat, class Red>
 __device__ __forceinline__ void store_tile(const uint32_t* tile,
                                            const Network& N, const TileOps& O,
                                            uint32_t* dst, size_t col0,
-                                           uint32_t p) {
+                                           Red R) {
   const int tl = 1 << O.log_tl;
   const int n_tile = N.nn << O.log_tl;
-  const uint32_t p2 = 2u * p;
   for (int i = threadIdx.x; i < n_tile; i += blockDim.x) {
     const int l = kTranspose ? i & (N.nn - 1) : i >> O.log_tl;
     const int c = kTranspose ? i >> N.log_nn : i & (tl - 1);
@@ -280,8 +270,8 @@ __device__ __forceinline__ void store_tile(const uint32_t* tile,
     const size_t o = kTranspose ? (col0 + c) * N.nn + l
                                 : (size_t)l * O.ncols + col0 + c;
     if constexpr (kMat)
-      v = mulc(v, __ldg(O.mat_w + o), __ldg(O.mat_s + o), p);
-    if (O.canonicalize) v = csub(csub(v, p2), p);
+      v = R.mulc(v, __ldg(O.mat_w + o), __ldg(O.mat_s + o));
+    if (O.canonicalize) v = R.template canon<false>(v);
     dst[o] = v;
   }
 }
@@ -291,23 +281,23 @@ __device__ __forceinline__ void store_tile(const uint32_t* tile,
 // kFuse stages (run_phase), one barrier a group; kFuse = 1 is one barrier a
 // stage. Every kFuse gives the same bits.
 // src and dst are this batch row's input and output; col0 is the tile's
-// first column. Output domain: [0, 4p), or [0, p) with canonicalize. A
-// caller that reuses the tile must __syncthreads() first. The options that
-// change the loops are template parameters, so each kernel carries only the
-// loops it runs.
-template <Load kLoad, bool kTranspose, bool kMat, int kFuse = 1>
+// first column. Output domain: R's, or [0, p) with canonicalize. A caller
+// that reuses the tile must __syncthreads() first. The options that change
+// the loops are template parameters, so each kernel carries only the loops
+// it runs.
+template <Load kLoad, bool kTranspose, bool kMat, int kFuse = 1, class Red>
 __device__ __forceinline__ void column_tile(uint32_t* tile, const Network& N,
                                             const TileOps& O,
                                             const uint32_t* src,
                                             uint32_t* dst, size_t col0,
-                                            uint32_t p) {
-  load_tile<kLoad>(tile, N, O, src, col0, p);
-  run_phase<kFuse>(tile, N, 0, N.k0, -1, O.log_tl, p);
+                                            Red R) {
+  load_tile<kLoad>(tile, N, O, src, col0, R);
+  run_phase<kFuse>(tile, N, 0, N.k0, -1, O.log_tl, R);
   if (N.log_a >= 0) {
-    mid_step(tile, N, O.log_tl, p);
-    run_phase<kFuse>(tile, N, N.k0, N.nstages, N.log_a, O.log_tl, p);
+    mid_step(tile, N, O.log_tl, R);
+    run_phase<kFuse>(tile, N, N.k0, N.nstages, N.log_a, O.log_tl, R);
   }
-  store_tile<kTranspose, kMat>(tile, N, O, dst, col0, p);
+  store_tile<kTranspose, kMat>(tile, N, O, dst, col0, R);
 }
 
 // ---- Column tiles whose groups load, multiply and store ----
@@ -332,11 +322,6 @@ inline int tile_shift(const Network& N, int log_tl) {
   return s > 5 - log_tl ? s : 5 - log_tl;
 }
 
-// csub as one unsigned min: x - m wraps above x exactly when x < m.
-__device__ __forceinline__ uint32_t csub_min(uint32_t x, uint32_t m) {
-  return min(x, x - m);
-}
-
 // column_tile_io's operand tables, each (w, packed w') pair one 8-byte
 // word, loaded with one instruction.
 struct PairTables {
@@ -344,10 +329,6 @@ struct PairTables {
   const uint2* mid;  // nested mid vector (nn,), or null for plain
   const uint2* mat;  // multiply on store (kMat), indexed like the output
 };
-
-__device__ __forceinline__ uint32_t mulc(uint32_t x, uint2 w, uint32_t p) {
-  return mulc(x, w.x, w.y, p);
-}
 
 // The word of logical row l's column 0 through the row map log_a.
 __device__ __forceinline__ int word_of(int l, int log_a, int log_nn,
@@ -379,12 +360,11 @@ __device__ __forceinline__ void group_offsets(int (&dw)[1 << K], int log_t,
 // stage at a time: sub-stage q pairs m with m + 2^(K-1-q) and takes the
 // twiddle at ((m mod 2^(K-1-q)) * t_last + j). So the outputs do not depend
 // on how the stages are grouped.
-template <int K>
+template <int K, class Red>
 __device__ __forceinline__ void dif_stages(uint32_t (&v)[1 << K],
                                            const Network& N,
                                            const uint2* tw, int s0,
-                                           int log_t, int j, uint32_t p) {
-  const uint32_t p4 = 4u * p;
+                                           int log_t, int j, Red R) {
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int h = 1 << (K - 1 - q);  // the pair's distance in m
@@ -394,8 +374,8 @@ __device__ __forceinline__ void dif_stages(uint32_t (&v)[1 << K],
       if (m & h) continue;
       const int idx = ((m & (h - 1)) << log_t) | j;
       const uint32_t a = v[m], b = v[m + h];
-      v[m] = csub_min(a + b, p4);
-      v[m + h] = mulc(a + (p4 - b), __ldg(tw_q + idx), p);
+      v[m] = R.add(a, b);
+      v[m + h] = R.mulc(R.sub_for_mul(a, b), __ldg(tw_q + idx));
     }
   }
 }
@@ -404,13 +384,12 @@ __device__ __forceinline__ void dif_stages(uint32_t (&v)[1 << K],
 // t_first << (K-1)) on v[m] = x[base + m * t_first]: the mirror of
 // dif_stages. Sub-stage q pairs m with m + 2^q, takes the twiddle at
 // ((m mod 2^q) * t_first + j) and runs the DIT butterfly's operations in
-// their order (wv = v * w, then u + wv and u + 4p - wv, each through csub).
-template <int K>
+// their order (wv = v * w, then R.add(u, wv) and R.sub(u, wv)).
+template <int K, class Red>
 __device__ __forceinline__ void dit_stages(uint32_t (&v)[1 << K],
                                            const Network& N,
                                            const uint2* tw, int s0,
-                                           int log_t, int j, uint32_t p) {
-  const uint32_t p4 = 4u * p;
+                                           int log_t, int j, Red R) {
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int h = 1 << q;  // the pair's distance in m
@@ -420,9 +399,9 @@ __device__ __forceinline__ void dit_stages(uint32_t (&v)[1 << K],
       if (m & h) continue;
       const int idx = ((m & (h - 1)) << log_t) | j;
       const uint32_t u = v[m];
-      const uint32_t wv = mulc(v[m + h], __ldg(tw_q + idx), p);
-      v[m] = csub_min(u + wv, p4);
-      v[m + h] = csub_min(u + (p4 - wv), p4);
+      const uint32_t wv = R.mulc(v[m + h], __ldg(tw_q + idx));
+      v[m] = R.add(u, wv);
+      v[m + h] = R.sub(u, wv);
     }
   }
 }
@@ -446,32 +425,32 @@ struct GroupEnds {
 };
 
 // v[m] *= mid[base + m * 2^log_t] for the 2^K values of one group.
-template <int K>
+template <int K, class Red>
 __device__ __forceinline__ void mid_multiply(uint32_t (&v)[1 << K],
                                              const uint2* mid, int base,
-                                             int log_t, uint32_t p) {
+                                             int log_t, Red R) {
 #pragma unroll
   for (int m = 0; m < (1 << K); ++m)
-    v[m] = mulc(v[m], __ldg(mid + base + (m << log_t)), p);
+    v[m] = R.mulc(v[m], __ldg(mid + base + (m << log_t)));
 }
 
 // A group of K stages as run_group does it (DIT when kDit), on the
 // swizzled tile, with the ends E. kMayEmpty (DIF): E may hold mid_swap,
 // and the stages are written once, between a mid multiply before them and
 // one after.
-template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty>
+template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
+          class Red>
 __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
                                              const TileOps& O,
                                              const PairTables& T,
                                              const GroupEnds& E, size_t col0,
                                              int s0, int log_a, int shift,
-                                             uint32_t p) {
+                                             Red R) {
   const int log_tl = O.log_tl;
   const int t = kDit ? N.t[s0] : N.t[s0 + K - 1];
   const int log_t = __ffs(t) - 1;
   const int tl_mask = (1 << log_tl) - 1;
   const int total = (N.nn >> K) << log_tl;
-  const uint32_t p2 = 2u * p;
   int dw[1 << K];
   group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, shift);
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
@@ -490,17 +469,17 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
       for (int m = 0; m < (1 << K); ++m) v[m] = tile[w0 ^ dw[m]];
     }
     if constexpr (kMayEmpty) {  // DIF: mid_swap, the stages, then mid
-      if (E.mid_swap) mid_multiply<K>(v, T.mid, base, log_t, p);
-      dif_stages<K>(v, N, T.tw, s0, log_t, j, p);
-      if (E.mid) mid_multiply<K>(v, T.mid, base, log_t, p);
+      if (E.mid_swap) mid_multiply<K>(v, T.mid, base, log_t, R);
+      dif_stages<K>(v, N, T.tw, s0, log_t, j, R);
+      if (E.mid) mid_multiply<K>(v, T.mid, base, log_t, R);
     } else if (E.mid) {  // DIF: the stages, then mid; DIT: mid, then the stages
-      if constexpr (!kDit) dif_stages<K>(v, N, T.tw, s0, log_t, j, p);
-      mid_multiply<K>(v, T.mid, base, log_t, p);
-      if constexpr (kDit) dit_stages<K>(v, N, T.tw, s0, log_t, j, p);
+      if constexpr (!kDit) dif_stages<K>(v, N, T.tw, s0, log_t, j, R);
+      mid_multiply<K>(v, T.mid, base, log_t, R);
+      if constexpr (kDit) dit_stages<K>(v, N, T.tw, s0, log_t, j, R);
     } else if constexpr (kDit) {
-      dit_stages<K>(v, N, T.tw, s0, log_t, j, p);
+      dit_stages<K>(v, N, T.tw, s0, log_t, j, R);
     } else {
-      dif_stages<K>(v, N, T.tw, s0, log_t, j, p);
+      dif_stages<K>(v, N, T.tw, s0, log_t, j, R);
     }
     if (E.dst) {
 #pragma unroll
@@ -509,8 +488,8 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
         const size_t o = kTranspose ? (col0 + c) * N.nn + l
                                     : (size_t)l * O.ncols + col0 + c;
         uint32_t u = v[m];
-        if constexpr (kMat) u = mulc(u, __ldg(T.mat + o), p);
-        if (O.canonicalize) u = csub_min(csub_min(u, p2), p);
+        if constexpr (kMat) u = R.mulc(u, __ldg(T.mat + o));
+        if (O.canonicalize) u = R.canon(u);
         E.dst[o] = u;
       }
     } else {
@@ -522,20 +501,21 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 }
 
 // run_group_io for a runtime k <= K stages.
-template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty>
+template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
+          class Red>
 __device__ __forceinline__ void run_group_io_upto(
     int k, uint32_t* tile, const Network& N, const TileOps& O,
     const PairTables& T, const GroupEnds& E, size_t col0, int s0, int log_a,
-    int shift, uint32_t p) {
+    int shift, Red R) {
   if constexpr (K > 1) {
     if (k < K) {
       run_group_io_upto<K - 1, kDit, kTranspose, kMat, kMayEmpty>(
-          k, tile, N, O, T, E, col0, s0, log_a, shift, p);
+          k, tile, N, O, T, E, col0, s0, log_a, shift, R);
       return;
     }
   }
   run_group_io<K, kDit, kTranspose, kMat, kMayEmpty>(
-      tile, N, O, T, E, col0, s0, log_a, shift, p);
+      tile, N, O, T, E, col0, s0, log_a, shift, R);
 }
 
 // One phase of column_tile_io in groups of min(kFuse, stages left), each
@@ -543,12 +523,13 @@ __device__ __forceinline__ void run_group_io_upto(
 // its last when store_dst, the mid multiply on its last group (DIF) or its
 // first (DIT) when mid, mid_swap on its first when mid_swap. An empty
 // phase runs no group.
-template <int kFuse, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty>
+template <int kFuse, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
+          class Red>
 __device__ __forceinline__ void run_phase_io(
     uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
     const uint32_t* src, uint32_t* dst, size_t col0, int s_begin, int s_end,
     int log_a, int shift, bool load_src, bool store_dst, bool mid,
-    bool mid_swap, uint32_t p) {
+    bool mid_swap, Red R) {
   for (int s = s_begin; s < s_end;) {
     const int k = min(kFuse, s_end - s);
     const bool first = s == s_begin, last = s + k == s_end;
@@ -557,7 +538,7 @@ __device__ __forceinline__ void run_phase_io(
                          mid && (kDit ? first : last),
                          mid_swap && first};
     run_group_io_upto<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
-        k, tile, N, O, T, E, col0, s, log_a, shift, p);
+        k, tile, N, O, T, E, col0, s, log_a, shift, R);
     s += k;
   }
 }
@@ -567,7 +548,7 @@ __device__ __forceinline__ void run_phase_io(
 // network's first group loads from src and its last stores to dst, and the
 // nested mid multiply rides in a group (GroupEnds), so no sweep of the tile
 // loads, multiplies or stores it. The same bits as
-// column_tile<Load::kPlain, kTranspose, kMat>. Output domain: [0, 4p), or
+// column_tile<Load::kPlain, kTranspose, kMat>. Output domain: R's, or
 // [0, p) with canonicalize. A caller that reuses the tile must
 // __syncthreads() first. N has at least one stage and is DIT exactly when
 // kDit; shift is tile_shift(N, O.log_tl). A nested N has two phases of at
@@ -579,14 +560,14 @@ __device__ __forceinline__ void run_phase_io(
 // kernels were timed with (PERF.md): kMayEmpty's group code gives them
 // other registers and other times.
 template <bool kDit, bool kTranspose, bool kMat, int kFuse,
-          bool kMayEmpty = false>
+          bool kMayEmpty = false, class Red>
 __device__ __forceinline__ void column_tile_io(uint32_t* tile,
                                                const Network& N,
                                                const TileOps& O,
                                                const PairTables& T,
                                                const uint32_t* src,
                                                uint32_t* dst, size_t col0,
-                                               int shift, uint32_t p) {
+                                               int shift, Red R) {
   static_assert(!(kMayEmpty && kDit), "an empty phase is DIF's only");
   const bool nested = N.log_a >= 0;
   // whether phase 0 and phase 1 run a stage (without kMayEmpty both do in
@@ -595,11 +576,11 @@ __device__ __forceinline__ void column_tile_io(uint32_t* tile,
   const bool has1 = kMayEmpty ? N.k0 < N.nstages : nested;
   run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
       tile, N, O, T, src, dst, col0, 0, N.k0, -1, shift, true, !has1,
-      nested && !kDit, false, p);
+      nested && !kDit, false, R);
   if (has1)
     run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
         tile, N, O, T, src, dst, col0, N.k0, N.nstages, N.log_a, shift,
-        !has0, true, kDit, !has0, p);
+        !has0, true, kDit, !has0, R);
 }
 
 inline int ilog2(int v) {

@@ -2,7 +2,9 @@
 // transform in one cooperative launch.
 //
 // Replaces ntt_aie_tpu/ops/pallas_ntt.py::build_fused_fourstep (the Pallas
-// TPU kernel). Over an (nn_a, nn_b) matrix per batch row:
+// TPU kernel), under one of the reductions of reductions.cuh (the
+// reference's `reduction` argument; a library per reduction, built with
+// -DNTT_REDUCTION=<kind>). Over an (nn_a, nn_b) matrix per batch row:
 //   forward: [pre *] DIF down the nn_a-row columns -> transpose -> * wmid
 //            -> DIF down the nn_b-row columns -> [post *] -> canonicalize
 //   inverse: the DIT mirror with the inverse twiddles, where the caller
@@ -21,7 +23,7 @@
 //   phase A: each (batch row, TL_a-column tile of nn_b) is loaded into
 //            shared memory (times pre on load), runs side a, and is stored
 //            transposed, times wmid, into a (B, nn_b, nn_a) scratch buffer
-//            that the caller allocates (lazy, [0, 4p));
+//            that the caller allocates (in the reduction's domain);
 //   cooperative_groups grid sync, which also orders the scratch writes
 //            before the reads;
 //   phase B: each (batch row, TL_b-column tile of nn_a) of the scratch is
@@ -65,10 +67,15 @@
 
 #include "colpass_tile.cuh"
 
+#ifndef NTT_REDUCTION
+#error "build with -DNTT_REDUCTION=<harvey4|harvey|montgomery|barrett>"
+#endif
+
 namespace {
 
 using colpass_tile::Network;
 using colpass_tile::TileOps;
+using Red = reductions::Built;
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 227 * 1024;  // an H100 block's limit
@@ -85,7 +92,7 @@ struct Params {
   uint32_t* out;
   int* counters;  // the tile counters of phases A and B (A zero at launch)
   int batch;
-  uint32_t p;
+  Red red;  // the reduction and its constants
 };
 
 // The block's next tile from *counter: thread 0 takes it, the barrier hands
@@ -112,7 +119,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params P) {
     colpass_tile::column_tile<kPre ? Load::kPre : Load::kPlain, true, true,
                               kFuse>(
         tile, P.a, P.ops_a, P.x + row * plane, P.scratch + row * plane,
-        (size_t)(t % per_row_a) << P.ops_a.log_tl, P.p);
+        (size_t)(t % per_row_a) << P.ops_a.log_tl, P.red);
     __syncthreads();
   }
 
@@ -125,7 +132,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params P) {
     const size_t row = t / per_row_b;
     colpass_tile::column_tile<Load::kL2, false, kPost, kFuse>(
         tile, P.b, P.ops_b, P.scratch + row * plane, P.out + row * plane,
-        (size_t)(t % per_row_b) << P.ops_b.log_tl, P.p);
+        (size_t)(t % per_row_b) << P.ops_b.log_tl, P.red);
     __syncthreads();
   }
 }
@@ -165,6 +172,9 @@ size_t tile_smem(int nn_a, int nn_b, int log_tl_a, int log_tl_b) {
 
 extern "C" {
 
+// The reduction this library is built for (ops/reductions.py's kind).
+const char* ntt_reduction_name() { return reductions::kBuiltName; }
+
 const char* ntt_fused_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -194,7 +204,8 @@ int ntt_fused_kernel_info(int pre, int post, int nn_a, int nn_b,
 // launches that use them must not overlap. Side s in {a, b}: ts_s /
 // offs_s host arrays of nstages_s half sizes and table offsets, k0_s stages
 // in phase 0, log_a_s < 0 for a plain network (then mid pointers null).
-// pre/post pointers null when absent. Returns 0 when launched, else a
+// pre/post pointers null when absent. p, c1, c2: the reduction's prime and
+// constants (Red::make). Returns 0 when launched, else a
 // cudaError_t: cudaErrorInvalidValue for arguments the kernel does not
 // take, cudaErrorNotSupported for a device without cooperative launch, or
 // the launch's own error.
@@ -209,7 +220,7 @@ int ntt_fused_fourstep(
     const void* mid_b_w, const void* mid_b_s,
     const void* wmid_w, const void* wmid_s, const void* pre_w,
     const void* pre_s, const void* post_w, const void* post_s,
-    unsigned int p, void* stream) {
+    unsigned int p, unsigned int c1, unsigned int c2, void* stream) {
   const size_t smem = tile_smem(nn_a, nn_b, log_tl_a, log_tl_b);
   Params P;
   if (smem > (size_t)kMaxSmemBytes || batch < 1 || !counters ||
@@ -241,7 +252,7 @@ int ntt_fused_fourstep(
   P.out = static_cast<uint32_t*>(out);
   P.counters = static_cast<int*>(counters);
   P.batch = batch;
-  P.p = p;
+  P.red = Red::make(p, c1, c2);
 
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);

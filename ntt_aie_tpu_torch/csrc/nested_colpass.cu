@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(kThreads)
   colpass_tile::column_tile_io<false, false, false, kFuse, true>(
       tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
       P.out + (size_t)blockIdx.y * plane, (size_t)blockIdx.x << P.ops.log_tl,
-      P.shift, P.p);
+      P.shift, reductions::Harvey4{P.p});
 }
 
 using KernelFn = void (*)(Params);

@@ -5,7 +5,8 @@ Port of ``ntt_aie_tpu/ops/pallas_ntt.py``: the stage section
 ``build_colpass``/``make_colpass``, for the four configurations the fold
 plan runs (``cp1``: DIF + 'post_t' wmat + transpose_out, ``cp2``: DIF +
 canonicalize, ``icp2``: DIT + 'post_t' iwmat + transpose_out, ``icp1``:
-DIT + canonicalize), harvey4 only.
+DIT + canonicalize), under any ``Reduction`` (harvey4, harvey, montgomery,
+barrett).
 
 ``colpass(x, cp)`` is the entry point. On a CPU tensor it runs the plain
 version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
@@ -13,15 +14,19 @@ version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
 under ``csrc/`` is built with nvcc at first use into its own library in
 ``build/ntt_aie_tpu_torch/`` (keyed by ``library_key``: a hash of its
 source, the shared ``csrc/*.cuh`` headers and the flags) and bound with
-ctypes (``build_library``, ``build_libraries``).
+ctypes (``build_library``, ``build_libraries``). The column and fused
+kernels build one library per reduction (``-DNTT_REDUCTION=<kind>``,
+``csrc/reductions.cuh``), so a plan builds only the one it uses.
 
 Tensors are ``torch.int32`` holding uint32 bit patterns: (B, nn, ncols)
 in, (B, nn, ncols) out, or (B, ncols, nn) with transpose_out; a 2-D
-(nn, ncols) input is a batch of one. Output domain: [0, 4p) without
+(nn, ncols) input is a batch of one. Output domain: the reduction's
+([0, 4p) harvey4, [0, 2p) harvey, [0, p) montgomery and barrett) without
 canonicalize, [0, p) with it. Both versions compute the same radix-2
 network with the same uint32 operations, so their outputs are equal bit
 for bit, lazy values included. (The reference's Pallas DIT groups stages
-with lazy subtrees, so its raw lazy bits differ; canonical values agree.)
+with lazy subtrees, so its raw lazy bits differ under harvey4 and harvey;
+canonical values agree.)
 """
 
 from __future__ import annotations
@@ -56,6 +61,10 @@ _TILE_ELEMS = 8192
 _MAX_TILE_BYTES = 131072  # the widest tile: MAX_ROWS x 4 columns x 4 bytes
 _MIN_TILE_COLS = 4
 _MAX_TILE_COLS = 32
+# The reductions the 32-bit column and fused kernels are built for, one
+# library each (csrc/reductions.cuh)
+REDUCTIONS = ("harvey4", "harvey", "montgomery", "barrett")
+PER_REDUCTION = ("colpass", "fused_fourstep")
 # The most batch rows one launch of a column kernel takes (colpass.cu,
 # gl_colpass.cu and nested_colpass.cu run the batch on grid.y); the
 # wrappers split a larger batch into launches of at most this many rows.
@@ -67,13 +76,15 @@ class ColPass:
     """One column pass: its static configuration and its tables, prepared
     once on the plan's device as int32 tensors.
 
+    Every table is in the reduction's pair form (``Reduction.pair``:
+    harvey4 (w, packed Shoup halves), harvey (w, w'), montgomery (w*R mod
+    p, 0), barrett (w, 0)).
+
     tw: (2, sum(ts)) — row 0 the stage twiddles w of every stage in
-      order, row 1 their packed Shoup halves (w'_hi << 16) | w'_lo;
-      offsets[s] is stage s's start.
+      order, row 1 their second tables; offsets[s] is stage s's start.
     wmid: (2, nn) nested mid multiply, or None for a plain network.
-    wmat: (ncols, nn, 2) 'post_t' operand, each (w, packed) pair
-      adjacent, or None.
-    tw_pairs, wmid_pairs: tw and wmid with each (w, packed) pair adjacent,
+    wmat: (ncols, nn, 2) 'post_t' operand, each pair adjacent, or None.
+    tw_pairs, wmid_pairs: tw and wmid with each pair adjacent,
       (sum(ts), 2) and (nn, 2) or None: the CUDA column and nested kernels
       load a pair as one 8-byte word (the fused kernel reads tw and wmid).
     """
@@ -101,8 +112,8 @@ def _u32_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32)).to(device)
 
 
-def _pair(w, packed, device) -> torch.Tensor:
-    return torch.stack([_u32_tensor(w, device), _u32_tensor(packed, device)])
+def _pair(w, w2, device) -> torch.Tensor:
+    return torch.stack([_u32_tensor(w, device), _u32_tensor(w2, device)])
 
 
 def _pack(wh, wl) -> np.ndarray:
@@ -113,8 +124,9 @@ def _pack(wh, wl) -> np.ndarray:
 
 def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
               wmat_tab, canonicalize, transpose_out, device) -> ColPass:
-    """stage_tabs: per stage (w, wh, wl) host arrays; mid_tab: (w, wh, wl)
-    or None; wmat_tab: (w, packed) of shape (ncols, nn), or None."""
+    """stage_tabs: per stage a (w, w2) pair of host arrays
+    (``Reduction.pair``); mid_tab: a pair or None; wmat_tab: a pair of
+    shape (ncols, nn), or None."""
     if direction not in ("dif", "dit"):
         raise ValueError(f"direction must be 'dif' or 'dit', got {direction!r}")
     if wmat_tab is not None and not transpose_out:
@@ -124,14 +136,15 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
         raise ValueError(f"stage list {phases_ts} does not cover {nn} rows")
     if (len(phases_ts) == 2) != (mid_tab is not None):
         raise ValueError("a nested network needs exactly two phases and wmid")
+    tabs = list(stage_tabs) + [t for t in (mid_tab, wmat_tab) if t is not None]
+    if any(len(t) != 2 for t in tabs):
+        raise ValueError("every table is a (w, w2) pair (Reduction.pair)")
     offsets = tuple(int(o) for o in np.cumsum([0] + ts[:-1]))
     w_all = np.concatenate([np.ravel(tab[0]) for tab in stage_tabs])
-    s_all = np.concatenate([np.ravel(_pack(tab[1], tab[2]))
-                            for tab in stage_tabs])
+    s_all = np.concatenate([np.ravel(tab[1]) for tab in stage_tabs])
     wmid = None
     if mid_tab is not None:
-        wmid = _pair(np.ravel(mid_tab[0]), np.ravel(_pack(*mid_tab[1:])),
-                     device)
+        wmid = _pair(np.ravel(mid_tab[0]), np.ravel(mid_tab[1]), device)
     wmat = None
     if wmat_tab is not None:
         wmat = _pair(wmat_tab[0], wmat_tab[1], device).movedim(0, -1)
@@ -152,19 +165,20 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
 
 def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
                  wmat: np.ndarray | None = None, canonicalize: bool = False,
-                 transpose_out: bool = False, device=None) -> ColPass:
+                 transpose_out: bool = False, reduction: str = "harvey4",
+                 device=None) -> ColPass:
     """Build a column pass for nn-point columns from the port's own
-    twiddles.col_network. wmat: host (ncols, nn) 'post_t' operand (the
-    four-step matrix in output orientation), applied after the transpose.
-    device: None is the card (utils.device.resolve_device)."""
+    twiddles.col_network, under the reduction of this kind. wmat: host
+    (ncols, nn) 'post_t' operand (the four-step matrix in output
+    orientation), applied after the transpose. device: None is the card
+    (utils.device.resolve_device)."""
     device = resolve_device(device)
-    red = make_reduction("harvey4", field)
+    red = make_reduction(reduction, field)
     net = tw.col_network(field, nn, direction=direction, inverse=inverse_tw)
-    stage_tabs = [red.prepare_table(v)
-                  for ph in net["phases"] for v in ph["vecs"]]
-    mid_tab = (red.prepare_table(net["mid"]["wmid"])
+    stage_tabs = [red.pair(v) for ph in net["phases"] for v in ph["vecs"]]
+    mid_tab = (red.pair(net["mid"]["wmid"])
                if net["mid"] is not None else None)
-    wmat_tab = red.prep_mat(np.asarray(wmat)) if wmat is not None else None
+    wmat_tab = red.pair(wmat) if wmat is not None else None
     return _assemble(red, nn, direction,
                      [ph["ts"] for ph in net["phases"]], (net["R"], net["S"]),
                      stage_tabs, mid_tab, wmat_tab, canonicalize,
@@ -178,16 +192,20 @@ def colpass_from_reference(arrays: dict, *, field, direction: str,
     """Build a column pass from the reference Pallas colpass's own
     operands: arrays["tw_cols"] is ``PallasColpass.tw_cols`` as NumPy
     arrays (per stage (w, wh, wl), then the nested wmid's three), and
-    arrays["wmat"] its ``.wmat`` pair (w, packed) or None. device: None
-    is the card."""
+    arrays["wmat"] its ``.wmat`` pair (w, packed) or None; harvey4, as the
+    reference plan's tables for p < 2^29 are. device: None is the card."""
     device = resolve_device(device)
     red = make_reduction("harvey4", field)
     cols = list(arrays["tw_cols"])
     nt = red.n_tables
     nstages = sum(len(ph) for ph in phases_ts)
-    stage_tabs = [tuple(cols[s * nt:(s + 1) * nt]) for s in range(nstages)]
+
+    def pair(w, wh, wl):
+        return (np.asarray(w), _pack(wh, wl))
+
+    stage_tabs = [pair(*cols[s * nt:(s + 1) * nt]) for s in range(nstages)]
     rest = cols[nstages * nt:]
-    mid_tab = tuple(rest) if rest else None
+    mid_tab = pair(*rest) if rest else None
     wmat = arrays.get("wmat")
     return _assemble(red, 1 << nstages, direction, phases_ts, mid_rs,
                      stage_tabs, mid_tab, tuple(wmat) if wmat else None,
@@ -213,6 +231,7 @@ def _batched(x: torch.Tensor, cp: ColPass):
 def _run_stages(x, w, s, ts, offsets, direction, red):
     """Radix-2 butterfly stages over axis 1 of a (B, nn, c) carrier."""
     B, nn, c = x.shape
+    subm = red.sub_for_mul or red.sub
     for t, off in zip(ts, offsets):
         xv = x.reshape(B, nn // (2 * t), 2, t, c)
         u, v = xv[:, :, 0], xv[:, :, 1]
@@ -220,7 +239,7 @@ def _run_stages(x, w, s, ts, offsets, direction, red):
         sv = s[off:off + t].view(1, 1, t, 1)
         if direction == "dif":
             hi = red.add(u, v)
-            lo = red.mulc_mat(red.sub_for_mul(u, v), wv, sv)
+            lo = red.mulc_mat(subm(u, v), wv, sv)
         else:
             prod = red.mulc_mat(v, wv, sv)
             hi = red.add(u, prod)
@@ -325,24 +344,42 @@ def launch_batches(batch: int) -> list:
             for b in range(0, batch, MAX_LAUNCH_BATCH)]
 
 
-def library_key(name: str, csrc_dir: pathlib.Path = CSRC_DIR) -> str:
-    """The build key of csrc/<name>.cu: a hash of its source, of every
-    csrc/*.cuh header (so a header edit rebuilds every library) and of the
-    nvcc flags."""
+def _nvcc_flags(name: str, reduction: str) -> tuple:
+    """nvcc's flags for csrc/<name>.cu: NVCC_FLAGS, and for the sources
+    built once per reduction (PER_REDUCTION) the reduction's macro."""
+    if name not in PER_REDUCTION:
+        return NVCC_FLAGS
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"csrc/{name}.cu is built for {REDUCTIONS}, not "
+                         f"{reduction!r}")
+    return NVCC_FLAGS + (f"-DNTT_REDUCTION={reduction}",)
+
+
+def library_key(name: str, csrc_dir: pathlib.Path = CSRC_DIR,
+                reduction: str = "harvey4") -> str:
+    """The build key of csrc/<name>.cu (for the sources in PER_REDUCTION,
+    under this reduction): a hash of its source, of every csrc/*.cuh
+    header (so a header edit rebuilds every library) and of the nvcc
+    flags, the reduction's macro included."""
     h = hashlib.sha256((csrc_dir / f"{name}.cu").read_bytes())
     for header in sorted(csrc_dir.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_nvcc_flags(name, reduction)).encode())
     return h.hexdigest()[:16]
 
 
-def build_library(name: str = "colpass") -> pathlib.Path:
+def build_library(name: str = "colpass",
+                  reduction: str = "harvey4") -> pathlib.Path:
     """Compile csrc/<name>.cu with nvcc (if not built yet) and return the
-    shared library's path. The file name carries library_key; the library
-    is written under a temporary name and renamed, so processes building
-    it at once never load a partial file."""
+    shared library's path; a source in PER_REDUCTION is built for this
+    reduction (another reduction is another library). The file name
+    carries library_key; the library is written under a temporary name and
+    renamed, so processes building it at once never load a partial
+    file."""
     src_path = CSRC_DIR / f"{name}.cu"
-    so = BUILD_DIR / f"{name}-{library_key(name)}.so"
+    flags = _nvcc_flags(name, reduction)
+    stem = f"{name}-{reduction}" if name in PER_REDUCTION else name
+    so = BUILD_DIR / f"{stem}-{library_key(name, reduction=reduction)}.so"
     if so.exists():
         return so
     from torch.utils.cpp_extension import CUDA_HOME
@@ -354,50 +391,63 @@ def build_library(name: str = "colpass") -> pathlib.Path:
                            "(set CUDA_HOME)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src_path)],
+    res = subprocess.run([nvcc, *flags, "-o", str(tmp), str(src_path)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src_path}:\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed on {src_path} ({' '.join(flags)}):"
+                           f"\n{res.stderr}")
     os.replace(tmp, so)
     return so
 
 
 def build_libraries() -> dict:
-    """Build every csrc/*.cu at once, one nvcc process each; returns
-    {name: library path}. Raises the first build's failure."""
-    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        futures = {name: pool.submit(build_library, name) for name in names}
-        return {name: f.result() for name, f in futures.items()}
+    """Build every csrc/*.cu at once, the sources in PER_REDUCTION once per
+    reduction, one nvcc process each; returns {name: library path}, the
+    per-reduction ones named "<name>[<reduction>]". Raises the first
+    build's failure."""
+    jobs = {}
+    for name in sorted(p.stem for p in CSRC_DIR.glob("*.cu")):
+        if name in PER_REDUCTION:
+            jobs.update({f"{name}[{r}]": (name, r) for r in REDUCTIONS})
+        else:
+            jobs[name] = (name, "harvey4")
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {key: pool.submit(build_library, *job)
+                   for key, job in jobs.items()}
+        return {key: f.result() for key, f in futures.items()}
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library("colpass")))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+def _library(reduction: str = "harvey4") -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library("colpass", reduction)))
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     pi = ctypes.POINTER(ctypes.c_int)
     lib.ntt_colpass.restype = ci
     lib.ntt_colpass.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, pi, pi,
-                                vp, ci, vp, vp, ci, ci, ctypes.c_uint, vp]
+                                vp, ci, vp, vp, ci, ci, cu, cu, cu, vp]
     lib.ntt_colpass_error_string.restype = ctypes.c_char_p
     lib.ntt_colpass_error_string.argtypes = [ci]
     lib.ntt_colpass_max_rows.restype = ci
     lib.ntt_colpass_kernel_info.restype = ci
     lib.ntt_colpass_kernel_info.argtypes = [ci] * 5 + [pi] * 3
+    lib.ntt_reduction_name.restype = ctypes.c_char_p
     if lib.ntt_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/colpass.cu kMaxRows disagrees with MAX_ROWS")
+    if lib.ntt_reduction_name().decode() != reduction:
+        raise RuntimeError(f"the {reduction} column-pass library was built "
+                           f"for {lib.ntt_reduction_name().decode()}")
     return lib
 
 
 def kernel_info(cp: ColPass, ncols: int) -> dict:
-    """What the card gives cp's kernel over (.., cp.nn, ncols): the build's
-    register group size (kfuse), the tile width TL, its layout and shift
-    (``tile_shift``), and the kernel's registers a thread and co-resident
-    blocks per SM."""
+    """What the card gives cp's kernel over (.., cp.nn, ncols), in the
+    library of cp's reduction: the build's register group size (kfuse),
+    the tile width TL, its layout and shift (``tile_shift``), and the
+    kernel's registers a thread and co-resident blocks per SM."""
     tl = tile_cols(cp.nn, ncols)
     log_tl = tl.bit_length() - 1
-    lib = _library()
+    lib = _library(cp.red.name)
     kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
     with torch.cuda.device(cp.tw.device):
         err = lib.ntt_colpass_kernel_info(
@@ -452,7 +502,7 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     tables = [t.data_ptr() if t is not None else None
               for t in (cp.wmid_pairs, cp.wmat)]
     net = [*_stage_args(cp), cp.tw_pairs.data_ptr(), _log_a(cp)]
-    lib = _library()
+    lib = _library(cp.red.name)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         for b0, b1 in launch_batches(B):
@@ -460,7 +510,7 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
                 xb[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0, nn, c,
                 tl.bit_length() - 1, int(cp.direction == "dit"), *net,
                 *tables, int(cp.transpose_out), int(cp.canonicalize),
-                cp.red.p, stream)
+                cp.red.p, *cp.red.consts, stream)
             if err != 0:
                 raise RuntimeError(
                     "CUDA column pass launch failed: "

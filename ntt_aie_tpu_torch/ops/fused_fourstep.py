@@ -3,7 +3,9 @@ version.
 
 Port of ``ntt_aie_tpu/ops/pallas_ntt.py`` ``build_fused_fourstep`` /
 ``make_fused_fourstep``: both four-step passes of one transform in one
-kernel, harvey4 only. Over an (nn_a, nn_b) matrix per batch row:
+kernel, under any ``Reduction`` (harvey4, harvey, montgomery, barrett:
+the kernel's library of that kind). Over an (nn_a, nn_b) matrix per batch
+row:
 
     forward: [pre *] DIF over nn_a -> transpose -> * wmid -> DIF over nn_b
              -> [post *] -> canonicalize,          (nn_a, nn_b) = (n1, n2)
@@ -48,7 +50,8 @@ class FusedFourstep:
     """One fused transform: its two column networks and its elementwise
     operands, prepared once on the plan's device as int32 tensors.
 
-    wmid: (2, nn_b, nn_a) four-step twiddle matrix (w, packed Shoup).
+    wmid: (2, nn_b, nn_a) four-step twiddle matrix in the reduction's pair
+      form (``Reduction.pair``), as pre and post are.
     pre: (2, nn_a, nn_b) multiply before side a, or None.
     post: (2, nn_b, nn_a) multiply after side b, or None.
     streams: the kernel's tile counters, one (2,) int32 pair per CUDA
@@ -88,16 +91,19 @@ class FusedFourstep:
 def make_fused_fourstep(field, n1: int, n2: int, *, inverse: bool = False,
                         wmid: np.ndarray, pre: np.ndarray | None = None,
                         post: np.ndarray | None = None,
+                        reduction: str = "harvey4",
                         device=None) -> FusedFourstep:
     """Build a fused transform of an n = n1 * n2 four-step split from the
-    port's own twiddles.col_network. wmid / post: host (nn_b, nn_a)
-    matrices; pre: host (nn_a, nn_b); (nn_a, nn_b) = (n1, n2) forward,
-    (n2, n1) inverse. device: None is the card."""
+    port's own twiddles.col_network, under the reduction of this kind.
+    wmid / post: host (nn_b, nn_a) matrices; pre: host (nn_a, nn_b);
+    (nn_a, nn_b) = (n1, n2) forward, (n2, n1) inverse. device: None is the
+    card."""
     device = resolve_device(device)
     direction = "dit" if inverse else "dif"
     nn_a, nn_b = (n2, n1) if inverse else (n1, n2)
     net_a, net_b = (C.make_colpass(field, nn, direction=direction,
-                                   inverse_tw=inverse, device=device)
+                                   inverse_tw=inverse, reduction=reduction,
+                                   device=device)
                     for nn in (nn_a, nn_b))
     red = net_a.red
 
@@ -107,7 +113,7 @@ def make_fused_fourstep(field, n1: int, n2: int, *, inverse: bool = False,
         m = np.asarray(m)
         if m.shape != shape:
             raise ValueError(f"{name} is {m.shape}, expected {shape}")
-        return C._pair(*red.prep_mat(m), device)
+        return C._pair(*red.pair(m), device)
 
     return FusedFourstep(red=red, inverse=inverse, net_a=net_a, net_b=net_b,
                          wmid=operand(wmid, (nn_b, nn_a), "wmid"),
@@ -171,19 +177,23 @@ def fused_shape_check(nn_a: int, nn_b: int, batch: int) -> tuple:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(C.build_library("fused_fourstep")))
+def _library(reduction: str = "harvey4") -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(C.build_library("fused_fourstep", reduction)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pi = ctypes.POINTER(ctypes.c_int)
     side = [ci, ci, pi, pi, vp, vp, ci, vp, vp]
     lib.ntt_fused_fourstep.restype = ci
     lib.ntt_fused_fourstep.argtypes = (
         [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci] + side + side
-        + [vp] * 6 + [ctypes.c_uint, vp])
+        + [vp] * 6 + [ctypes.c_uint] * 3 + [vp])
     lib.ntt_fused_kernel_info.restype = ci
     lib.ntt_fused_kernel_info.argtypes = [ci] * 6 + [pi] * 3
     lib.ntt_fused_error_string.restype = ctypes.c_char_p
     lib.ntt_fused_error_string.argtypes = [ci]
+    lib.ntt_reduction_name.restype = ctypes.c_char_p
+    if lib.ntt_reduction_name().decode() != reduction:
+        raise RuntimeError(f"the {reduction} fused library was built for "
+                           f"{lib.ntt_reduction_name().decode()}")
     return lib
 
 
@@ -194,12 +204,13 @@ def _check(err: int, lib, what: str) -> None:
 
 
 def kernel_info(ff: FusedFourstep, batch: int = 1) -> dict:
-    """What the card gives ff's kernel at this batch: the build's register
-    group size (kfuse), its registers a thread, its co-resident blocks per
-    SM under the cooperative launch, and the grid it launches with."""
+    """What the card gives ff's kernel at this batch, in the library of
+    ff's reduction: the build's register group size (kfuse), its registers
+    a thread, its co-resident blocks per SM under the cooperative launch,
+    and the grid it launches with."""
     nn_a, nn_b = ff.shape_in
     tl_a, tl_b = fused_shape_check(nn_a, nn_b, batch)
-    lib = _library()
+    lib = _library(ff.red.name)
     kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
     with torch.cuda.device(ff.wmid.device):
         _check(lib.ntt_fused_kernel_info(
@@ -236,7 +247,7 @@ def _launch(xb: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
     scratch = torch.empty((B, nn_b, nn_a), dtype=torch.int32,
                           device=xb.device)
     out = torch.empty_like(scratch)
-    lib = _library()
+    lib = _library(ff.red.name)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         err = lib.ntt_fused_fourstep(
@@ -245,7 +256,7 @@ def _launch(xb: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
             tl_a.bit_length() - 1, tl_b.bit_length() - 1, int(ff.inverse),
             *C.network_args(ff.net_a), *C.network_args(ff.net_b),
             *_ptrs(ff.wmid), *_ptrs(ff.pre), *_ptrs(ff.post), ff.red.p,
-            stream)
+            *ff.red.consts, stream)
     _check(err, lib, "launch")
     fused_fourstep.launches += 1
     return out

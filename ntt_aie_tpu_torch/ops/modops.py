@@ -62,6 +62,19 @@ def sub_mod(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     return torch.where(d >= p, d - p, d)
 
 
+def barrett_mul(a: torch.Tensor, b: torch.Tensor, p: int, w: int,
+                u: int) -> torch.Tensor:
+    """a * b mod p by the reference's Barrett "2k" (src/aie_core.cc:27-39)
+    for p < 2^14: t = a*b, x1 = t >> (w-2), s = (x1*u) >> (w+2),
+    c = t - s*p, one conditional subtract. Each step is masked to 32 bits
+    as the reference's uint32 operations wrap; canonical inputs never
+    wrap."""
+    t = mullo32(a, b)
+    s = mullo32(t >> (w - 2), torch.full_like(t, u)) >> (w + 2)
+    c = (t - s * p) & MASK32
+    return torch.where(c >= p, c - p, c)
+
+
 def mont_redc(hi: torch.Tensor, lo: torch.Tensor, p: int,
               neg_pinv: int) -> torch.Tensor:
     """REDC with R = 2^32: given T = hi*2^32 + lo < p*2^32, return

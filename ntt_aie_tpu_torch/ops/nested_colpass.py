@@ -91,12 +91,11 @@ def make_nested_colpass(n1: int, n2: int, *, R: int | None = None,
         raise ValueError(f"n2 and batch must be positive, got {n2}, {batch}")
     S = n1 // R
     red = make_reduction("harvey4", FIELD)
-    stage_tabs = ([red.prepare_table(np.repeat(v, S))
+    stage_tabs = ([red.pair(np.repeat(v, S))
                    for v in tw.dif_stage_twiddles(FIELD, R)]
-                  + [red.prepare_table(np.repeat(v, R))
+                  + [red.pair(np.repeat(v, R))
                      for v in tw.dif_stage_twiddles(FIELD, S)])
-    mid_tab = red.prepare_table(tw.fourstep_tables(FIELD, R, S)["wmat"]
-                                .ravel())
+    mid_tab = red.pair(tw.fourstep_tables(FIELD, R, S)["wmat"].ravel())
     logR, logS = R.bit_length() - 1, S.bit_length() - 1
     ts_R = [(R >> (s + 1)) * S for s in range(logR)]
     ts_S = [(S >> (s + 1)) * R for s in range(logS)]

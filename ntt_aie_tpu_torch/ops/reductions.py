@@ -7,12 +7,27 @@ tensors carrying uint32 values (``ops.modops``); every function returns
 the reference's uint32 result bit for bit, except ``mul_data``, whose
 contract is the canonical product.
 
-Only harvey4 is ported: p < 2^29, values travel in the lazy domain
-[0, 4p), and a constant multiply is the approximate Shoup product from
-three 16-bit partials of w' = floor(w * 2^32 / p) (q may fall short by
-up to 2, which lands the product in [0, 4p)). ``sub_for_mul`` and
-``add_for_mul`` reach [0, 8p) < 2^32, legal only as mul_const input;
-``canonicalize`` is two conditional subtracts, 2p then p.
+- harvey4: p < 2^29, values travel in the lazy domain [0, 4p), and a
+  constant multiply is the approximate Shoup product from three 16-bit
+  partials of w' = floor(w * 2^32 / p) (q may fall short by up to 2, which
+  lands the product in [0, 4p)). ``sub_for_mul`` and ``add_for_mul``
+  reach [0, 8p) < 2^32, legal only as mul_const input; ``canonicalize``
+  is two conditional subtracts, 2p then p.
+- harvey: p < 2^30, the lazy domain [0, 2p), the exact Shoup product
+  q = umulhi(x, w'), x*w - q*p in [0, 2p) for any x < 2^32;
+  ``sub_for_mul``/``add_for_mul`` reach [0, 4p); ``canonicalize`` is one
+  conditional subtract of p.
+- montgomery: odd p < 2^31, the canonical domain; a table holds w*R mod p
+  (R = 2^32) and a constant multiply is one REDC, which returns x*w mod p.
+- barrett: p < 2^14, the canonical domain; the reference's Barrett "2k".
+
+The canonical kinds add and subtract with ``add_mod``/``sub_mod`` and
+``canonicalize`` is the identity.
+
+The kernels take every table as one (w, w2) uint32 pair a twiddle
+(``Reduction.pair``): harvey4 (w, packed w'), harvey (w, w'), montgomery
+(w*R mod p, 0), barrett (w, 0); ``mulc_mat(x, w, w2)`` multiplies by a
+pair for all four.
 """
 
 from __future__ import annotations
@@ -23,13 +38,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.modops import MASK16, MASK32
 
 # ROADMAP.md items that port the other strategies, by reduction kind.
 _NOT_PORTED = {
-    "barrett": "Queue 1 item 2 (barrett) and item 4i",
-    "montgomery": "Queue 1 item 2 (montgomery) and item 4i",
-    "harvey": "Queue 1 item 2 (harvey)",
     "goldilocks": "Queue 1 item 7 (Goldilocks has no Reduction: "
                   "build_plan routes it to goldilocks_plan)",
 }
@@ -54,6 +67,9 @@ class Reduction:
     n_tables_mat: int | None = None
     prepare_table_mat: Callable | None = None
     mul_const_mat: Callable | None = None
+    # The two constants the kernels take beside p (csrc/reductions.cuh):
+    # montgomery (-p^-1 mod 2^32, 0), barrett (w, u), else (0, 0).
+    consts: tuple = (0, 0)
 
     @property
     def mat_tables(self) -> int:
@@ -67,15 +83,114 @@ class Reduction:
     def mulc_mat(self) -> Callable:
         return self.mul_const_mat or self.mul_const
 
+    def pair(self, t) -> tuple:
+        """The kernels' form of table t: a (w, w2) pair of uint32 arrays of
+        t's shape, the second zero where the strategy needs one table."""
+        tabs = self.prep_mat(np.asarray(t))
+        if len(tabs) == 1:
+            tabs = (tabs[0], np.zeros_like(tabs[0]))
+        return tuple(np.ascontiguousarray(v) for v in tabs)
 
-def make_reduction(kind: str, field) -> Reduction:
+
+def _canonical_product(p):
+    def muld(x, y):
+        # exact canonical product: (x mod p) * (y mod p) < 2^62
+        return (x % p) * (y % p) % p
+    return muld
+
+
+def _canonical(name, field, prep, mulc, consts) -> Reduction:
+    """A strategy whose values stay canonical, [0, p): one table a
+    twiddle, add/sub by one conditional subtract."""
     p = field.p
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"reduction {kind!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED[kind]}")
-    if kind != "harvey4":
-        raise ValueError(f"unknown reduction kind {kind!r}")
+    return Reduction(
+        name=name, p=p, lazy=False, n_tables=1,
+        prepare_table=prep, mul_const=mulc,
+        mul_data=_canonical_product(p),
+        add=lambda a, b: M.add_mod(a, b, p),
+        sub=lambda a, b: M.sub_mod(a, b, p),
+        canonicalize=lambda x: x,
+        mul_const_mat=lambda x, w, _w2: mulc(x, w), consts=consts,
+    )
+
+
+def _barrett(field) -> Reduction:
+    if not field.supports_barrett32:
+        raise ValueError(f"barrett requires p < 2^14, got {field.p}")
+    p, w_, u_ = field.p, field.barrett_w, field.barrett_u
+
+    def prep(t):
+        return (np.ascontiguousarray(np.asarray(t).astype(np.uint32)),)
+
+    def mulc(x, w):
+        return M.barrett_mul(x, w, p, w_, u_)
+
+    return _canonical("barrett", field, prep, mulc, (w_, u_))
+
+
+def _montgomery(field) -> Reduction:
+    if not field.supports_mont32:
+        raise ValueError(f"montgomery requires an odd p < 2^31, got "
+                         f"{field.p}")
+    p, neg_pinv, r = field.p, field.mont_neg_pinv, field.mont_r_mod_p
+
+    def prep(t):
+        # values < p < 2^31 and r < 2^31: the uint64 product is exact
+        t64 = np.asarray(t).astype(np.uint64)
+        return (((t64 * np.uint64(r)) % np.uint64(p)).astype(np.uint32),)
+
+    def mulc(x, w):
+        return M.mont_mul(x, w, p, neg_pinv)
+
+    return _canonical("montgomery", field, prep, mulc, (neg_pinv, 0))
+
+
+def _harvey(field) -> Reduction:
+    p = field.p
+    if p >= (1 << 30):
+        raise ValueError(f"harvey requires p < 2^30, got {p}")
+    p2 = 2 * p
+
+    def prep(t):
+        # w < p < 2^30, so (w << 32) < 2^62 is exact in uint64
+        t64 = np.asarray(t).astype(np.uint64)
+        w = t64.astype(np.uint32)
+        ws = ((t64 << np.uint64(32)) // np.uint64(p)).astype(np.uint32)
+        return (np.ascontiguousarray(w), np.ascontiguousarray(ws))
+
+    def mulc(x, w, ws):
+        # exact Shoup: q = umulhi(x, w') <= x*w/p, so x*w - q*p is in
+        # [0, 2p) for any x < 2^32; x*w and q*p are below 2^62
+        return (x * w - M.umulhi32(x, ws) * p) & MASK32
+
+    def add(a, b):
+        s = (a + b) & MASK32
+        return torch.where(s >= p2, s - p2, s)
+
+    def sub(a, b):
+        d = (a + ((p2 - b) & MASK32)) & MASK32
+        return torch.where(d >= p2, d - p2, d)
+
+    def sub_lazy(a, b):
+        return (a + ((p2 - b) & MASK32)) & MASK32
+
+    def add_lazy(a, b):
+        return (a + b) & MASK32
+
+    def canon(x):
+        return torch.where(x >= p, x - p, x)
+
+    return Reduction(
+        name="harvey", p=p, lazy=True, n_tables=2,
+        prepare_table=prep, mul_const=mulc,
+        mul_data=_canonical_product(p),
+        add=add, sub=sub, canonicalize=canon, sub_for_mul=sub_lazy,
+        add_for_mul=add_lazy,
+    )
+
+
+def _harvey4(field) -> Reduction:
+    p = field.p
     if p >= (1 << 29):
         raise ValueError(f"harvey4 requires p < 2^29, got {p}")
     p2, p4 = 2 * p, 4 * p
@@ -122,17 +237,28 @@ def make_reduction(kind: str, field) -> Reduction:
         x = torch.where(x >= p2, x - p2, x)
         return torch.where(x >= p, x - p, x)
 
-    def muld(x, y):
-        # exact canonical product: (x mod p) * (y mod p) < 2^58
-        return (x % p) * (y % p) % p
-
     return Reduction(
         name="harvey4", p=p, lazy=True, n_tables=3,
-        prepare_table=prep, mul_const=mulc, mul_data=muld,
+        prepare_table=prep, mul_const=mulc,
+        mul_data=_canonical_product(p),
         add=add, sub=sub, canonicalize=canon, sub_for_mul=sub_lazy,
         add_for_mul=add_lazy,
         n_tables_mat=2, prepare_table_mat=prep_mat, mul_const_mat=mulc_mat,
     )
+
+
+_MAKERS = {"barrett": _barrett, "montgomery": _montgomery,
+           "harvey": _harvey, "harvey4": _harvey4}
+
+
+def make_reduction(kind: str, field) -> Reduction:
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"reduction {kind!r} is not ported yet: ROADMAP.md "
+            f"{_NOT_PORTED[kind]}")
+    if kind not in _MAKERS:
+        raise ValueError(f"unknown reduction kind {kind!r}")
+    return _MAKERS[kind](field)
 
 
 def resolve_kind(config_reduction: str, field) -> str:

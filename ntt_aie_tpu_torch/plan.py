@@ -20,6 +20,14 @@ output is in the four-step spectral order flat[c*N1 + r] =
 X[s2(c)*N1 + s1(r)] (``twiddles.spectral_positions``); pointwise products
 are order-agnostic, so polymul never permutes.
 
+Every reduction of ``ops.reductions`` runs both plans (harvey4, harvey,
+montgomery, barrett; ``NTTConfig.reduction``, 'auto' by the prime). The
+pointwise product is ``Reduction.mul_data``, the exact canonical product
+for every kind, so the polymul inverse is the plain inverse. (The
+reference's montgomery product is one REDC, which leaves an R^-1 that its
+polymul inverse takes back with iwmat_poly; the canonical outputs are the
+same.)
+
 Public tensors are ``torch.int32`` holding values in [0, p). Goldilocks
 configurations route to ``goldilocks_plan.build_goldilocks_plan``, which
 returns the same ``Plan`` over (hi, lo) limb planes.
@@ -83,57 +91,58 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
 
-def fold_passes(field, n1: int, n2: int, *, device=None) -> dict:
+def fold_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
+                device=None) -> dict:
     """The four column passes of the four-step fold plan for an (n1, n2)
-    split (reference plan.py:275-293): cp1 and icp1 over (.., n1, n2),
-    cp2 and icp2 over (.., n2, n1). The four-step multiply rides the
-    transposing passes' exit as 'post_t', with its operand in output
-    orientation: wmat.T for cp1, iwmat_scaled (1/n folded in) for icp2.
-    device: None is the card (utils.device.resolve_device)."""
+    split under the reduction of this kind (reference plan.py:275-293):
+    cp1 and icp1 over (.., n1, n2), cp2 and icp2 over (.., n2, n1). The
+    four-step multiply rides the transposing passes' exit as 'post_t',
+    with its operand in output orientation: wmat.T for cp1, iwmat_scaled
+    (1/n folded in) for icp2. device: None is the card
+    (utils.device.resolve_device)."""
     device = resolve_device(device)
     tabs = tw.fourstep_tables(field, n1, n2)
+    kw = dict(reduction=reduction, device=device)
     return {
         "cp1": make_colpass(field, n1, direction="dif", transpose_out=True,
-                            wmat=np.ascontiguousarray(tabs["wmat"].T),
-                            device=device),
+                            wmat=np.ascontiguousarray(tabs["wmat"].T), **kw),
         "cp2": make_colpass(field, n2, direction="dif", canonicalize=True,
-                            device=device),
+                            **kw),
         "icp2": make_colpass(field, n2, direction="dit", inverse_tw=True,
                              transpose_out=True, wmat=tabs["iwmat_scaled"],
-                             device=device),
+                             **kw),
         "icp1": make_colpass(field, n1, direction="dit", inverse_tw=True,
-                             canonicalize=True, device=device),
+                             canonicalize=True, **kw),
     }
 
 
 def fused_passes(field, n1: int, n2: int, *, negacyclic: bool = False,
-                 device=None) -> dict:
-    """The fused transforms of the fused plan for an (n1, n2) split
-    (reference plan.py:328-336, :685-689): ff over (.., n1, n2) with wmid
-    = wmat.T, fi over (.., n2, n1) with wmid = iwmat_scaled (1/n folded
-    in; for harvey4 the polymul inverse is the same transform), and with
+                 reduction: str = "harvey4", device=None) -> dict:
+    """The fused transforms of the fused plan for an (n1, n2) split under
+    the reduction of this kind (reference plan.py:328-336, :685-689): ff
+    over (.., n1, n2) with wmid = wmat.T, fi over (.., n2, n1) with wmid =
+    iwmat_scaled (1/n folded in; the polymul inverse too), and with
     negacyclic nf = ff with psi^i as 'pre', ni = fi with psi^-i as
     'post'. device: None is the card."""
     device = resolve_device(device)
     tabs = tw.fourstep_tables(field, n1, n2)
     wmid_fwd = np.ascontiguousarray(tabs["wmat"].T)
+    kw = dict(reduction=reduction, device=device)
     out = {
-        "ff": make_fused_fourstep(field, n1, n2, wmid=wmid_fwd,
-                                  device=device),
+        "ff": make_fused_fourstep(field, n1, n2, wmid=wmid_fwd, **kw),
         "fi": make_fused_fourstep(field, n1, n2, inverse=True,
-                                  wmid=tabs["iwmat_scaled"], device=device),
+                                  wmid=tabs["iwmat_scaled"], **kw),
     }
     if negacyclic:
         n = n1 * n2
         out["nf"] = make_fused_fourstep(
             field, n1, n2, wmid=wmid_fwd,
-            pre=tw.negacyclic_psi_powers(field, n).reshape(n1, n2),
-            device=device)
+            pre=tw.negacyclic_psi_powers(field, n).reshape(n1, n2), **kw)
         out["ni"] = make_fused_fourstep(
             field, n1, n2, inverse=True, wmid=tabs["iwmat_scaled"],
             post=tw.negacyclic_psi_powers(field, n,
                                           inverse=True).reshape(n1, n2),
-            device=device)
+            **kw)
     return out
 
 
@@ -159,7 +168,7 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
         return build_goldilocks_plan(config, device=device,
                                      wmat_factored=wmat_factored,
                                      wmat_fold=wmat_fold)
-    red = make_reduction(kind, field)  # raises for the unported kinds
+    red = make_reduction(kind, field)
     n1, n2 = config.split
     if n2 == 1:
         _not_ported(f"the flat split {config.split} (pin rows_log2 for a "
@@ -179,10 +188,10 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     pos = tw.spectral_positions(n1, n2)
     if fused:
         passes = fused_passes(field, n1, n2, negacyclic=config.negacyclic,
-                              device=device)
+                              reduction=kind, device=device)
         fwd_t, inv_t = passes["ff"], passes["fi"]
     else:
-        passes = fold_passes(field, n1, n2, device=device)
+        passes = fold_passes(field, n1, n2, reduction=kind, device=device)
         cp1, cp2, icp2, icp1 = (passes[k]
                                 for k in ("cp1", "cp2", "icp2", "icp1"))
 

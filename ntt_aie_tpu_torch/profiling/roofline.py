@@ -15,8 +15,15 @@ card's:
   probe chain ``u, w <- add(u, w), mul_const(sub_for_mul(u, w), tw)`` r
   deep per element with no network around it, on the kernel
   ``csrc/bfly_probe.cu`` (``probe_chain``; its plain version
-  ``probe_chain_plain``), for harvey4 or Goldilocks arithmetic, net of the
-  same launches at half the depth.
+  ``probe_chain_plain``), for the arithmetic of each 32-bit reduction or
+  Goldilocks, net of the same launches at half the depth.
+
+The probe's field per reduction (``PROBE_FIELDS``): harvey4 on
+p = 469762049; harvey and montgomery on p = 998244353, as the reference's
+probe runs them (its roofline.py:237); barrett on Kyber's p = 3329, where
+the reference's probe has no barrett: p < 2^14 is the only field where
+Barrett "2k" is defined, so its rate is Kyber's, the field the barrett
+column and fused kernels run.
 
 Neither subtracts the reference's tiny-buffer call: on the card its time
 is the host's enqueue, which a device-bound call hides. measure_vpu_peak
@@ -37,7 +44,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ntt_aie_tpu_torch.fields import GOLDILOCKS, P_469762049
+from ntt_aie_tpu_torch.fields import (GOLDILOCKS, KYBER, P_469762049,
+                                     P_998244353)
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.reductions import make_reduction
@@ -54,7 +62,13 @@ _DEVICE_PEAKS = {
 # Probe launches per timed call: the reference's K barrier-separated passes
 # per dispatch.
 PROBE_K = 4
-_PROBE_PLANES = {"harvey4": 2, "goldilocks": 4}
+# The probe's field per 32-bit reduction, and its planes per arithmetic.
+PROBE_FIELDS = {"harvey4": P_469762049, "harvey": P_998244353,
+                "montgomery": P_998244353, "barrett": KYBER}
+_PROBE_PLANES = dict.fromkeys(PROBE_FIELDS, 2) | {"goldilocks": 4}
+# csrc/bfly_probe.cu's kind codes
+_PROBE_CODES = {"harvey4": 0, "goldilocks": 1, "harvey": 2, "montgomery": 3,
+                "barrett": 4}
 
 
 def butterflies(n: int) -> int:
@@ -139,34 +153,36 @@ def measure_peak(*, mb: int = 256, iters: int = 10, repeats: int = 5,
 
 def _probe_kind(reduction: str) -> int:
     """The probe's plane count for `reduction`; raises for the others."""
-    if reduction == "harvey":
-        raise NotImplementedError(
-            "the 'harvey' probe waits for the harvey reduction: ROADMAP.md "
-            "Queue 1 item 2 (harvey)")
     if reduction not in _PROBE_PLANES:
-        raise ValueError(f"the probe runs 'harvey4' or 'goldilocks', got "
+        raise ValueError(f"the probe runs {sorted(_PROBE_PLANES)}, got "
                          f"{reduction!r}")
     return _PROBE_PLANES[reduction]
 
 
+def _probe_reduction(reduction: str):
+    """The Reduction of a 32-bit probe, on its PROBE_FIELDS field."""
+    return make_reduction(reduction, PROBE_FIELDS[reduction])
+
+
 def probe_inputs(reduction: str, words: int, *, device=None, seed: int = 0):
     """The probe's operands from a seed: x, (planes, 8, m) int32 holding
-    the (8, m) planes u, w (harvey4: values in [0, p) of p = 469762049) or
-    uh, ul, wh, wl (Goldilocks limbs, canonical), `words` uint32 in all;
-    and tw, (2, 8) int32, one twiddle per row (harvey4: w and its packed
-    Shoup halves; Goldilocks: hi and lo limbs), never 0."""
+    the (8, m) planes u, w (a 32-bit reduction: values in [0, p) of its
+    PROBE_FIELDS field) or uh, ul, wh, wl (Goldilocks limbs, canonical),
+    `words` uint32 in all; and tw, (2, 8) int32, one twiddle per row (a
+    32-bit reduction: its (w, w2) pair, ``Reduction.pair``; Goldilocks: hi
+    and lo limbs), never 0."""
     planes = _probe_kind(reduction)
     device = resolve_device(device)
     m = words // (8 * planes)
     if m < 1:
         raise ValueError(f"the probe needs at least {8 * planes} words")
     rng = np.random.default_rng(seed)
-    if reduction == "harvey4":
-        p = P_469762049.p
+    if reduction in PROBE_FIELDS:
+        p = PROBE_FIELDS[reduction].p
         vals = rng.integers(0, p, (planes, 8, m), dtype=np.int64)
         x = torch.from_numpy(vals.astype(np.uint32).view(np.int32))
-        red = make_reduction("harvey4", P_469762049)
-        tw = C._pair(*red.prep_mat(rng.integers(1, p, 8, dtype=np.int64)),
+        red = _probe_reduction(reduction)
+        tw = C._pair(*red.pair(rng.integers(1, p, 8, dtype=np.int64)),
                      device)
         return x.to(device), tw
     p = np.uint64(GOLDILOCKS.p)
@@ -182,15 +198,18 @@ def probe_chain_plain(x: torch.Tensor, tw: torch.Tensor, *, r: int,
     """r chained butterflies u, w <- add(u, w), mul_const(sub_for_mul(u,
     w), tw[row]) on the planes of x (probe_inputs' layout), in plain
     PyTorch ops on int64 carriers: the oracle the probe kernel is held
-    against. Goldilocks runs gl_add, gl_sub and gl_mul on limb pairs."""
+    against. A 32-bit reduction runs on its PROBE_FIELDS field (sub where
+    it has no sub_for_mul); Goldilocks runs gl_add, gl_sub and gl_mul on
+    limb pairs."""
     _check_probe(x, tw, reduction)
     planes = [M.to_carrier(v) for v in x]
     t0, t1 = (M.to_carrier(t).view(8, 1) for t in tw)
-    if reduction == "harvey4":
-        red = make_reduction("harvey4", P_469762049)
+    if reduction in PROBE_FIELDS:
+        red = _probe_reduction(reduction)
+        subm = red.sub_for_mul or red.sub
         u, w = planes
         for _ in range(r):
-            u, w = red.add(u, w), red.mulc_mat(red.sub_for_mul(u, w), t0, t1)
+            u, w = red.add(u, w), red.mulc_mat(subm(u, w), t0, t1)
         out = (u, w)
     else:
         uh, ul, wh, wl = planes
@@ -221,6 +240,7 @@ def _library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ntt_bfly_probe.restype = ci
     lib.ntt_bfly_probe.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, ci,
+                                   ctypes.c_uint, ctypes.c_uint,
                                    ctypes.c_uint, vp]
     lib.ntt_probe_error_string.restype = ctypes.c_char_p
     lib.ntt_probe_error_string.argtypes = [ci]
@@ -242,13 +262,16 @@ def probe_chain(x: torch.Tensor, tw: torch.Tensor, *, r: int,
     if r < 0:
         raise ValueError(f"r must be >= 0, got {r}")
     out = torch.empty_like(x)
+    consts = ((0, 0, 0) if reduction == "goldilocks" else
+              (_probe_reduction(reduction).p,
+               *_probe_reduction(reduction).consts))
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ntt_bfly_probe(x.data_ptr(), out.data_ptr(),
                                  tw[0].data_ptr(), tw[1].data_ptr(),
-                                 x.shape[2], r, int(reduction == "goldilocks"),
-                                 P_469762049.p, stream)
+                                 x.shape[2], r, _PROBE_CODES[reduction],
+                                 *consts, stream)
     if err != 0:
         raise RuntimeError("CUDA butterfly probe launch failed: "
                            + lib.ntt_probe_error_string(err).decode())
@@ -267,9 +290,8 @@ def measure_vpu_peak(*, reduction: str = "harvey4", mb: int = 32,
     launches per timed call. This is the compute denominator the HBM rate
     cannot give: a kernel at this rate runs its butterflies at issue rate,
     and a gap localizes its overhead to the network (shared memory,
-    barriers, tables, transpose). reduction 'harvey4' (p = 469762049) or
-    'goldilocks'; 'harvey' raises NotImplementedError until that reduction
-    is ported.
+    barriers, tables, transpose). reduction: a 32-bit reduction (on its
+    PROBE_FIELDS field) or 'goldilocks'.
 
     The rate is net of the same call at depth r // 2 on the same buffer:
     the difference of the two removes every fixed cost of a call (the

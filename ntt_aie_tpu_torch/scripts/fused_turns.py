@@ -2,7 +2,7 @@
 of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
-        [--nested] [--gl]
+        [--nested] [--gl] [--reduction KIND]
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
 such as an unpacked ``git archive`` of another commit, or of this one with
@@ -11,7 +11,9 @@ a constant changed (``kFuse`` in ``csrc/fused_fourstep.cu`` or
 is the root "this". The roots' kernels are built first, all at once. Then
 one child process per reading
 imports one root's package (``PYTHONPATH``) and times, at n = 2^20 over
-p = 469762049 and batch B = 256 (the main path's), ``make_batched(B)``'s
+p = 469762049 and batch B = 256 (the main path's; with ``--reduction``
+harvey or montgomery, over the prime where 'auto' picks it, p = 998244353
+or 2013265921, with that reduction's libraries), ``make_batched(B)``'s
 ``fwd_mat`` and ``inv_mat`` of the fused plan and of the fold plan, and
 the fold plan's column passes cp1 and cp2 alone (``fwd_mat`` is cp1 then
 cp2; ``utils.timing.time_device``: CUDA events, 5 repeats of a dependent
@@ -57,6 +59,9 @@ BATCH = 256
 NESTED_BATCH, NESTED_N = 64, 1024  # the nested prototype's bench shape
 NESTED_FUSE = (1, 2, 3, 4, 5)
 GL_BATCH = 64  # the Goldilocks path's batch
+# the field each reduction's transforms run on
+REDUCTION_FIELDS = {"harvey4": "p469762049", "harvey": "p998244353",
+                    "montgomery": "p2013265921"}
 
 
 def _emit(obj) -> None:
@@ -143,7 +148,7 @@ def _measure_nested() -> dict:
     return out
 
 
-def _measure() -> dict:
+def _measure(reduction: str = "harvey4") -> dict:
     """One reading of the imported package (the child's work)."""
     import torch
 
@@ -152,8 +157,8 @@ def _measure() -> dict:
     from ntt_aie_tpu_torch.utils.timing import time_device
 
     dev = torch.device("cuda", 0)
-    field = T.P_469762049
-    cfg = T.NTTConfig(field=field, log_n=LOG_N)
+    field = T.FIELDS[REDUCTION_FIELDS[reduction]]
+    cfg = T.NTTConfig(field=field, log_n=LOG_N, reduction=reduction)
     n1, n2 = cfg.split
     fused = T.build_plan(cfg, device=dev, fused=True)
     fold = T.build_plan(cfg, device=dev)
@@ -197,10 +202,13 @@ def main(argv=None) -> int:
     ap.add_argument("--gl", action="store_true",
                     help="also time the Goldilocks fold plan and its cp1 "
                          "and cp2 at B = 64, n = 2^20")
+    ap.add_argument("--reduction", default="harvey4",
+                    choices=sorted(REDUCTION_FIELDS),
+                    help="the reduction (and its field) of the transforms")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        reading = _measure()
+        reading = _measure(args.reduction)
         if args.nested:
             reading.update(_measure_nested())
         if args.gl:
@@ -218,8 +226,11 @@ def main(argv=None) -> int:
 
     libs = (("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
             + ("gl_colpass",) * args.gl)
+    red = (args.reduction,) * (args.reduction != "harvey4")
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
-             f"[C.build_library(n) for n in {libs!r}]")
+             f"[C.build_library(n) for n in {libs!r}]; "
+             f"[C.build_library(n, *{red!r}) for n in "
+             "('colpass', 'fused_fourstep')]")
     with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:
         builds = {name: pool.submit(  # cwd: -c puts it first on sys.path
             subprocess.run, [sys.executable, "-c", build], cwd=root,
@@ -233,7 +244,8 @@ def main(argv=None) -> int:
 
     order = list(roots) + list(reversed(roots))
     readings = {name: [] for name in roots}
-    flags = ["--nested"] * args.nested + ["--gl"] * args.gl
+    flags = (["--nested"] * args.nested + ["--gl"] * args.gl
+             + ["--reduction", args.reduction])
     ok = True
     gl_hashes = None
     for name in order:
@@ -254,6 +266,7 @@ def main(argv=None) -> int:
     summary = {name: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
                for name, rs in readings.items()}
     _emit({"summary": summary, "card": _card(), "batch": BATCH,
+           "reduction": args.reduction,
            "nested_batch": NESTED_BATCH if args.nested else None,
            "gl_batch": GL_BATCH if args.gl else None,
            "gl_outputs_agree": (all(r.get("gl_hashes") == gl_hashes

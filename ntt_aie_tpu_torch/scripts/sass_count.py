@@ -3,7 +3,9 @@
     python -m ntt_aie_tpu_torch.scripts.sass_count [--root NAME=DIR ...]
         [--loops SUBSTRING] LIBRARY ...
 
-Builds each named library (``csrc/<LIBRARY>.cu``) of each root — this
+Builds each named library (``csrc/<LIBRARY>.cu``, or LIBRARY:REDUCTION
+for a source built once a reduction, such as ``colpass:montgomery``; the
+root must know that reduction) of each root — this
 checkout is the root "this"; another is a directory that holds
 ``ntt_aie_tpu_torch/``, such as an unpacked ``git archive`` of another
 commit — with that root's own ``ops.colpass.build_library``, disassembles
@@ -47,9 +49,12 @@ def _tool(name: str) -> str:
 
 
 def _build(root: pathlib.Path, lib: str) -> str:
-    """The path of root's built csrc/<lib>.cu."""
+    """The path of root's built csrc/<lib>.cu (lib: NAME or
+    NAME:REDUCTION)."""
+    name, _, red = lib.partition(":")
+    call = f"{name!r}, {red!r}" if red else repr(name)
     code = ("from ntt_aie_tpu_torch.ops import colpass as C; "
-            f"print(C.build_library({lib!r}))")
+            f"print(C.build_library({call}))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=root,  # -c puts cwd first on sys.path
                          env=dict(os.environ, PYTHONPATH=str(root)),

@@ -1,6 +1,8 @@
 """The CUDA column passes (32-bit and Goldilocks), the fused four-step
 kernel, the Goldilocks pointwise product, the nested R x S column pass and
 the butterfly probe against their plain PyTorch versions, on the card; the
+32-bit column and fused kernels and the probe also under harvey,
+montgomery and barrett, and those plans against the oracles; the
 column kernels at a batch above one launch's 65,535 rows and the Goldilocks
 kernel at 8,192 rows; the fused kernel after a chain of launches (its tile
 counters); and the entry points' default device.
@@ -43,6 +45,15 @@ BIG_BATCH = C.MAX_LAUNCH_BATCH + 2
 # networks at TL 16 and 32, nested at TL 8, 16 and 4 (asymmetric both ways)
 COLPASS_SHAPES = [(16, 128), (128, 512), (256, 512), (1024, 1024),
                   (2048, 512), (512, 2048), (32, 64), (64, 32)]
+# (reduction, field, (n1, n2)) of the other reductions' kernels, as
+# chip_smoke.py's red_kernel phase: nested, plain at TL 32, and Kyber's
+# 16 x 16 split (and 16 x 8, its largest negacyclic size)
+RED_CASES = [(kind, field, shape)
+             for kind, field in (("montgomery", T.P_2013265921),
+                                 ("harvey", T.P_998244353))
+             for shape in ((1024, 1024), (32, 64))] + [
+    ("barrett", T.KYBER, (16, 16)), ("barrett", T.KYBER, (16, 8))]
+RED_TOP = {"harvey": 2, "montgomery": 1, "barrett": 1}  # domain / p
 
 
 @pytest.fixture
@@ -410,8 +421,76 @@ def test_nested_kernel_splits_a_large_batch(cuda):
     assert torch.equal(got, N.nested_colpass_plain(x, nc))
 
 
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("kind,field,shape", RED_CASES)
+def test_reduction_kernels_match_plain(cuda, kind, field, shape, B):
+    """The column kernel (cp1/cp2/icp2/icp1) and the fused kernel
+    (ff/fi, nf/ni) of each reduction's library, raw, on inputs in the
+    reduction's domain."""
+    n1, n2 = shape
+    n = n1 * n2
+    top = RED_TOP[kind] * field.p
+    g = torch.Generator(device=cuda).manual_seed(n + B)
+    for name, cp in fold_passes(field, n1, n2, reduction=kind,
+                                device=cuda).items():
+        rows, cols = (n1, n2) if name in ("cp1", "icp1") else (n2, n1)
+        x = torch.randint(0, top, (B, rows, cols), dtype=torch.int64,
+                          device=cuda, generator=g).to(torch.int32)
+        before = C.colpass.launches
+        got = C.colpass(x, cp)
+        torch.cuda.synchronize()
+        assert C.colpass.launches == before + 1
+        assert torch.equal(got, C.colpass_plain(x, cp)), name
+    for name, ff in fused_passes(field, n1, n2, reduction=kind,
+                                 negacyclic=2 * n <= field.max_n,
+                                 device=cuda).items():
+        x = torch.randint(0, top, (B,) + ff.shape_in, dtype=torch.int64,
+                          device=cuda, generator=g).to(torch.int32)
+        before = FF.fused_fourstep.launches
+        got = FF.fused_fourstep(x, ff)
+        torch.cuda.synchronize()
+        assert FF.fused_fourstep.launches == before + 1
+        assert torch.equal(got, FF.fused_fourstep_plain(x, ff)), name
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kind,field,log_n,rows_log2", [
+    ("montgomery", T.P_2013265921, 16, 8), ("harvey", T.P_998244353, 16, 8),
+    ("barrett", T.KYBER, 8, 4)])
+def test_reduction_plans_match_oracle(cuda, kind, field, log_n, rows_log2,
+                                      fused):
+    cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2)
+    plan = T.build_plan(cfg, device=cuda, fused=fused)
+    assert plan.reduction == kind
+    rng = np.random.default_rng(7)
+    a, b = rng.integers(0, field.p, (2, cfg.n))
+    f = plan.fwd(a)
+    got = f.cpu().numpy().astype(np.int64)
+    assert np.array_equal(got[plan.spectral_to_natural],
+                          ref.ntt_forward(a, field))
+    assert np.array_equal(plan.inv(f).cpu().numpy(), a)
+    counter = FF.fused_fourstep if fused else C.colpass
+    counter.launches = 0
+    c = plan.polymul(a, b)
+    assert counter.launches == (3 if fused else 6)
+    assert np.array_equal(c.cpu().numpy(), ref.cyclic_polymul(a, b, field))
+
+
+def test_reduction_kernel_info(cuda):
+    for kind, field in (("montgomery", T.P_2013265921),
+                        ("harvey", T.P_998244353)):
+        for name, cp in fold_passes(field, 1024, 1024, reduction=kind,
+                                    device=cuda).items():
+            info = C.kernel_info(cp, 1024)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+        ff = fused_passes(field, 1024, 1024, reduction=kind,
+                          device=cuda)["ff"]
+        assert FF.kernel_info(ff, 256)["blocks_per_sm"] >= 1
+
+
 @pytest.mark.parametrize("words,r", [(4096, 4), (1 << 22, 64)])
-@pytest.mark.parametrize("reduction", ["harvey4", "goldilocks"])
+@pytest.mark.parametrize("reduction", ["harvey4", "goldilocks", "harvey",
+                                       "montgomery", "barrett"])
 def test_probe_matches_plain(cuda, reduction, words, r):
     x, tw = RL.probe_inputs(reduction, words, device=cuda)
     before = RL.probe_chain.launches
@@ -425,7 +504,8 @@ def test_probe_matches_plain(cuda, reduction, words, r):
 def test_measurements_run_on_the_card(cuda):
     assert RL.measure_peak(mb=64, iters=2, repeats=3,
                            device=cuda)["measured_hbm_gbps"] > 0
-    for reduction in ("harvey4", "goldilocks"):
+    for reduction in ("harvey4", "goldilocks", "harvey", "montgomery",
+                      "barrett"):
         out = RL.measure_vpu_peak(reduction=reduction, mb=4, r=8, iters=2,
                                   repeats=3)
         assert out["butterflies_per_sec"] > 0 and out["reduction"] == reduction

@@ -195,7 +195,6 @@ def test_context_host_paths_match_reference(ordering):
     ({"log_n": 11, "rows_log2": 4}, {"fused": True, "wmat_factored": True}),
     ({"log_n": 11, "rows_log2": 4}, {"wmat_factored": True}),
     ({"log_n": 11, "rows_log2": 4}, {"wmat_fold": False}),
-    ({"log_n": 11, "rows_log2": 4, "reduction": "montgomery"}, {}),
     ({"log_n": 11, "table_convention": "reference"}, {}),
 ])
 def test_out_of_slice_configs_raise(kw, build_kw):
@@ -206,8 +205,8 @@ def test_out_of_slice_configs_raise(kw, build_kw):
 
 def test_unported_fields_raise():
     # Goldilocks has its fold plan (tests/test_torch_gl_*.py); its flat
-    # split is not ported yet
-    for field, rows_log2 in ((T.P_2013265921, 6), (T.GOLDILOCKS, None)):
-        cfg = T.NTTConfig(field=field, log_n=12, rows_log2=rows_log2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            T.build_plan(cfg, device="cpu")
+    # split is not ported yet (p = 2013265921 runs under montgomery:
+    # tests/test_torch_red_montgomery.py)
+    cfg = T.NTTConfig(field=T.GOLDILOCKS, log_n=12)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        T.build_plan(cfg, device="cpu")

@@ -1,8 +1,9 @@
 """The port's roofline module against the reference's: the cost models
 and the efficiency report equal the reference's functions, and the
 butterfly probe's plain version equals the reference probe's step
-arithmetic (harvey4 ``make_reduction`` and the ``modops.gl_*`` limbs) raw
-at r = 4. The measurements themselves are card-only and raise here."""
+arithmetic (``make_reduction`` of harvey4, harvey, montgomery and barrett,
+and the ``modops.gl_*`` limbs) raw at r = 4. The measurements themselves
+are card-only and raise here."""
 
 import numpy as np
 import pytest
@@ -91,6 +92,39 @@ def test_probe_plain_matches_reference_harvey4():
         assert np.array_equal(g.numpy().view(np.uint32), np.asarray(want))
 
 
+@pytest.mark.parametrize("kind,name", [("harvey", "p998244353"),
+                                       ("montgomery", "p998244353"),
+                                       ("barrett", "kyber")])
+def test_probe_plain_matches_reference_reductions(kind, name):
+    """The probe's plain chain under harvey, montgomery and barrett, on
+    each one's probe field, equals the reference's step arithmetic raw at
+    r = 4 (sub where the reduction has no sub_for_mul)."""
+    assert RL.PROBE_FIELDS[kind].name == name
+    x, tw = RL.probe_inputs(kind, 2 * 8 * 16, device="cpu")
+    assert tuple(x.shape) == (2, 8, 16) and tuple(tw.shape) == (2, 8)
+    f = jF.FIELDS[name]
+    assert int(x.max()) < f.p
+    red = j_make_reduction(kind, f)
+    w = tw[0].numpy().view(np.uint32).astype(np.int64)
+    if kind == "montgomery":  # the table holds w*R mod p
+        w = w * pow(f.mont_r_mod_p, -1, f.p) % f.p
+    tabs = tuple(jnp.asarray(t.reshape(8, 1)) for t in red.prepare_table(w))
+    assert np.array_equal(np.asarray(tabs[0]).ravel(),
+                          tw[0].numpy().view(np.uint32))
+    if kind == "harvey":
+        assert np.array_equal(np.asarray(tabs[1]).ravel(),
+                              tw[1].numpy().view(np.uint32))
+    else:
+        assert not tw[1].any()
+    sub = red.sub_for_mul or red.sub
+    u, v = _u32(x[0]), _u32(x[1])
+    for _ in range(4):
+        u, v = red.add(u, v), red.mul_const(sub(u, v), *tabs)
+    got = RL.probe_chain_plain(x, tw, r=4, reduction=kind)
+    for g, want in zip(got, (u, v)):
+        assert np.array_equal(g.numpy().view(np.uint32), np.asarray(want))
+
+
 def test_probe_plain_matches_reference_goldilocks():
     x, tw = RL.probe_inputs("goldilocks", 4 * 8 * 16, device="cpu")
     assert tuple(x.shape) == (4, 8, 16) and tuple(tw.shape) == (2, 8)
@@ -133,9 +167,10 @@ def test_measurements_are_card_only():
         RL.measure_peak(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         RL.measure_vpu_peak(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        RL.measure_vpu_peak(reduction="harvey", device="cpu")
+    for red in ("harvey", "montgomery", "barrett"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            RL.measure_vpu_peak(reduction=red, device="cpu")
     with pytest.raises(ValueError):
-        RL.measure_vpu_peak(reduction="barrett", device="cpu")
+        RL.measure_vpu_peak(reduction="shoup", device="cpu")
     with pytest.raises(ValueError, match="r >= 2"):
         RL.measure_vpu_peak(r=1, device="cpu")

@@ -154,6 +154,86 @@ def test_harvey4_table_prep_matches():
     assert (tr.n_tables, tr.mat_tables) == (jr.n_tables, jr.mat_tables)
 
 
+@pytest.mark.parametrize("kind,name", [("harvey", "p998244353"),
+                                       ("montgomery", "p2013265921"),
+                                       ("barrett", "kyber")])
+def test_table_prep_and_pair_form_match(kind, name):
+    """prepare_table equals the reference's, and the kernels' (w, w2) pair
+    is harvey (w, w'), montgomery (w*R mod p, 0), barrett (w, 0)."""
+    jf, tf = jF.FIELDS[name], tF.FIELDS[name]
+    jr, tr = (jred.make_reduction(kind, jf), tred.make_reduction(kind, tf))
+    p = tf.p
+    rng = np.random.default_rng(5)
+    t = np.concatenate([[0, 1, p - 1], rng.integers(0, p, 997)])
+    want = jr.prepare_table(t)
+    got = tr.prepare_table(t)
+    assert len(got) == len(want) == tr.n_tables == jr.n_tables
+    for g, w in zip(got, want):
+        assert g.dtype == np.uint32 and np.array_equal(g, w)
+    mat = t.reshape(20, 50)
+    w, w2 = tr.pair(mat)
+    assert w.shape == w2.shape == mat.shape
+    assert w.dtype == w2.dtype == np.uint32
+    if kind == "harvey":
+        assert np.array_equal(w, mat.astype(np.uint32))
+        assert np.array_equal(w2, (mat.astype(object) << 32) // p)
+    else:
+        r = tf.mont_r_mod_p if kind == "montgomery" else 1
+        assert np.array_equal(w, (mat.astype(object) * r) % p)
+        assert not w2.any()
+    # harvey4's pair is its packed matrix form
+    h4 = tred.make_reduction("harvey4", tF.P_469762049)
+    m4 = t.reshape(20, 50) % tF.P_469762049.p
+    for g, want4 in zip(h4.pair(m4), h4.prep_mat(m4)):
+        assert np.array_equal(g, want4)
+
+
+@pytest.mark.parametrize("kind", ["montgomery", "harvey"])
+def test_iwmat_poly(kind):
+    """The polymul inverse is the plain inverse under every kind: the
+    port's pointwise product is the canonical one (``mul_data``), so the
+    fold plan has the four passes and icp2 takes iwmat_scaled, in the
+    reference's table form. The reference's montgomery product is one
+    REDC, x*y*R^-1, and its polymul inverse takes iwmat_poly =
+    iwmat_scaled * R mod p instead (its build_plan formula): both give
+    the same canonical product times iwmat_scaled, pinned here in Python
+    integers on the reference's REDC bits."""
+    import jax.numpy as jnp
+    import torch
+
+    from ntt_aie_tpu.ops import modops as jmod
+    from ntt_aie_tpu_torch.ops import modops as tmod
+    from ntt_aie_tpu_torch.plan import fold_passes
+
+    f, jf = tF.P_998244353, jF.P_998244353
+    n1, n2 = 16, 32
+    iw = ttw.fourstep_tables(f, n1, n2)["iwmat_scaled"]
+    assert np.array_equal(
+        iw, jtw.fourstep_tables(jf, n1, n2)["iwmat_scaled"])
+    passes = fold_passes(f, n1, n2, reduction=kind, device="cpu")
+    assert sorted(passes) == ["cp1", "cp2", "icp1", "icp2"]
+    table = passes["icp2"].wmat.numpy().view(np.uint32)
+    for got, want in zip(np.moveaxis(table, -1, 0),
+                         tred.make_reduction(kind, f).pair(iw)):
+        assert np.array_equal(got, want)
+    want1 = jred.make_reduction(kind, jf).prep_mat(iw)[0]
+    assert np.array_equal(table[..., 0], want1)
+    if kind != "montgomery":
+        return
+    rng = np.random.default_rng(11)
+    x, y = (rng.integers(0, f.p, iw.shape) for _ in range(2))
+    x[0, :4], y[0, :4] = [0, 1, f.p - 1, f.p - 1], [f.p - 1, f.p - 1, 1,
+                                                    f.p - 1]
+    redc = np.asarray(jmod.mont_mul(jnp.asarray(x, jnp.uint32),
+                                    jnp.asarray(y, jnp.uint32), f.p,
+                                    f.mont_neg_pinv)).astype(object)
+    iwmat_poly = iw.astype(object) * f.mont_r_mod_p % f.p
+    canon = tmod.from_carrier(tred.make_reduction(kind, f).mul_data(
+        torch.from_numpy(x), torch.from_numpy(y))).numpy().astype(object)
+    assert np.array_equal(canon, x.astype(object) * y % f.p)
+    assert np.array_equal(redc * iwmat_poly % f.p, canon * iw % f.p)
+
+
 def test_native_oracle_matches_numpy_oracle():
     from ntt_aie_tpu_torch import native_oracle
     from ntt_aie_tpu_torch import reference as tref
