@@ -18,7 +18,10 @@ the fold and fused plans under the other three reductions (the column-pass
 and fused kernels' libraries of each): montgomery at n = 2^20 over
 p = 2013265921, harvey at n = 2^20 over p = 998244353, both at B = 256, and
 barrett at n = 256 over Kyber's p = 3329 on the 16 x 16 split at
-B = 16,384. Phases, one JSON object per line:
+B = 16,384; and the flat split (NTTConfig's default for a single shard up
+to n = 2^16, 2^14 for Goldilocks: the four-step kernels at an internal
+split, then one gather into bit-reversed order), F1-F5 of FLAT_PLANS.
+Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
                  as its own line), torch and CUDA versions;
@@ -126,7 +129,42 @@ B = 16,384. Phases, one JSON object per line:
                  plain versions' at a batch of 4 (n = 2^20) or the full
                  batch (n = 256), and kernel_info of cp1, cp2 and the
                  fused ff; and harvey against harvey4 on p = 469762049
-                 (fold and fused fwd_mat at B = 256, timed in turns).
+                 (fold and fused fwd_mat at B = 256, timed in turns);
+ 20. flat, flat_time — per FLAT_PLANS configuration (F1 p = 469762049
+                 at n = 2^16, B = 256, negacyclic; F2 Kyber n = 256,
+                 B = 16,384, negacyclic at n = 128; F3 Dilithium n = 256,
+                 B = 16,384, negacyclic; F4 p = 2013265921 and 998244353
+                 at n = 2^16, B = 64; F5 Goldilocks n = 2^14, B = 256,
+                 negacyclic), the fold and fused flat plans (Goldilocks:
+                 fold): the batched fwd gated bit for bit against the
+                 native oracle on row 0 plus 8 random rows, inv(fwd(x))
+                 == x on the whole batch, polymul and negacyclic_polymul
+                 against the native products on those rows, the fused
+                 fwd equal to the fold fwd, ordering='natural' equal to
+                 the gathered bit-reversed output, the plain flat stage
+                 loops (ops/stages.py) equal on 16 rows; launches per
+                 call: fold 2 / 2 / 6 / 0 column passes and 0 / 0 / 0 /
+                 3 fused launches (the negacyclic product is the fused
+                 plan's on both), fused 0 / 0 / 0 / 0 and 1 / 1 / 3 / 3,
+                 Goldilocks 2 / 2 / 6 / 6 and 0 / 0 / 1 / 4 pointwise
+                 products; then us/NTT of each callable, of the gather
+                 alone, of the internal four-step alone and of the plain
+                 stage loops at 16 rows;
+ 21. flat_route_a — route (a) of the flat forward (one column pass over
+                 (1, n, B), the batch as columns, after a torch
+                 transpose and before the colperm -> bit-reversal
+                 gather) at Kyber's n = 256, B = 16,384 and at n = 2^12,
+                 B = 4,096 over p = 469762049, held equal to the plain
+                 flat forward and the plan's, and timed beside the
+                 plans' route (b), with its parts.
+ 22. gl_negacyclic — the Goldilocks negacyclic product on the four-step
+                 split at n = 2^20, B = 64 (phase 7's plan with
+                 negacyclic=True): the device memory its batched
+                 callables hold (psi and psi^-1 copied over the batch,
+                 as gl_mul takes operands of one shape), row 0 and two
+                 random rows against the native negacyclic product,
+                 launches 6 / 4, and us/NTT of negacyclic_polymul beside
+                 polymul.
 
 Then one line {"kernels": [...]}: per kernel its time at the main path's
 shape ("ms", per launch), launches, the plain version's time, and its
@@ -139,7 +177,9 @@ kernel), the fused row its inv_mat time, its kFuse and blocks per SM, the
 nested row its time, registers and blocks per SM at each fuse. Phases
 17-19 add a colpass[<reduction>] and a fused_fourstep[<reduction>] row
 for each of montgomery, harvey and barrett, bound by that reduction's
-probe rate. Last, the result line
+probe rate. Each row's launches are its own path's; the flat phases'
+(phases 20 and 22's driven calls) are under "flat_launches". Last, the
+result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -185,6 +225,26 @@ SPEC_HBM_GBPS = 3350.0  # H100 SXM data sheet, GB/s
 RED_PLANS = (("montgomery", "p2013265921", 20, 10, 256),
              ("harvey", "p998244353", 20, 10, 256),
              ("barrett", "kyber", 8, 4, 16384))
+# The flat phases F1-F5 (phase 20): (phase, field name, log_n, batch,
+# log_n of the negacyclic product or None), each on the flat split
+# (NTTConfig's default up to n = 2^16, 2^14 for Goldilocks) through the
+# fold plan and, for the 32-bit fields, the fused plan: the largest
+# 32-bit flat ring (RNS/FHE products over p = 469762049), ML-KEM (Kyber,
+# negacyclic at n = 128, its largest) and ML-DSA (Dilithium) batches, the
+# other two RNS primes, and the largest Goldilocks flat size (STARK trace
+# columns)
+FLAT_PLANS = (("F1", "p469762049", 16, 256, 16),
+              ("F2", "kyber", 8, 16384, 7),
+              ("F3", "dilithium", 8, 16384, 8),
+              ("F4", "p2013265921", 16, 64, None),
+              ("F4", "p998244353", 16, 64, None),
+              ("F5", "goldilocks", 14, 256, 14))
+# The rows the plain flat stage loops are held and timed at
+FLAT_PLAIN_BATCH = 16
+# Route (a) of the flat forward (phase 21: the column pass over (1, n, B)
+# with the batch as columns), timed beside the plans' route (b):
+# (field name, log_n, batch)
+FLAT_ROUTE_A = (("kyber", 8, 16384), ("p469762049", 12, 4096))
 # The (n1, n2) splits phase 17 holds each reduction's kernels at
 RED_KERNEL_SHAPES = {"montgomery": ((1024, 1024), (32, 64)),
                      "harvey": ((1024, 1024), (32, 64)),
@@ -404,6 +464,10 @@ def main() -> int:
     red_rows = reduction_phases(args, dev, card, rng)
     if red_rows is None:
         return 1
+    torch.cuda.empty_cache()
+    flat_launches = flat_phases(args, dev, card, rng)
+    if flat_launches is None:
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -423,6 +487,9 @@ def main() -> int:
         "kfuse": info["cp1"]["kfuse"], "registers": info["cp1"]["registers"],
         "blocks_per_sm": info["cp1"]["blocks_per_sm"],
     }] + gl_rows + [fused_row] + nested_rows + red_rows
+    # each row's launches are its own path's; the flat phases' apart
+    for row in rows:
+        row["flat_launches"] = flat_launches.get(row["name"], 0)
     emit({"kernels": [_with_bound(row, roof) for row in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1396,6 +1463,363 @@ def reduction_phases(args, dev, card, rng):
     del x
     torch.cuda.empty_cache()
     return rows
+
+
+def _flat_ops(gl):
+    """Helpers of the flat phases over int32 tensors or, for Goldilocks,
+    (hi, lo) limb pairs: rows as uint64 host arrays, equality, a gather on
+    the last axis and a slice of the batch."""
+    import numpy as np
+    import torch
+
+    from ntt_aie_tpu_torch.ops import modops as M
+
+    if gl:
+        return (lambda v, idx: M.gl_to_u64(*(t[idx] for t in v)),
+                lambda u, v: all(torch.equal(a, b) for a, b in zip(u, v)),
+                lambda v, idx: tuple(t.index_select(-1, idx) for t in v),
+                lambda v, k: tuple(t[:k] for t in v))
+    return (lambda v, idx: v[idx].cpu().numpy().astype(np.uint64),
+            torch.equal, lambda v, idx: v.index_select(-1, idx),
+            lambda v, k: v[:k])
+
+
+def flat_phase(spec, dev, card, gen, rng):
+    """Phase 20, one configuration of FLAT_PLANS: its flat plans on the
+    card gated bit for bit against the native oracle, their launches
+    counted, and timed. Returns ({kernel row: launches}, the line), or
+    None after emitting the failure."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.ops import stages as S
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    phase, name, log_n, B, nega_log_n = spec
+    field = T.FIELDS[name]
+    p, n = field.p, 1 << log_n
+    gl = field.is_goldilocks
+    rows_u64, same, take, head = _flat_ops(gl)
+    cfg = T.NTTConfig(field=field, log_n=log_n,
+                      negacyclic=nega_log_n == log_n)
+    kind = cfg.resolved_reduction
+    if cfg.split != (n, 1):
+        fail("flat", f"{phase} {name} n = 2^{log_n} is not on the flat "
+             f"split: {cfg.split}")
+        return None
+    kinds = ("fold",) if gl else ("fold", "fused")
+    plans = {k: T.build_plan(cfg, device=dev, fused=k == "fused")
+             for k in kinds}
+    nat = T.build_plan(dataclasses.replace(cfg, ordering="natural"),
+                       device=dev)
+    if nega_log_n in (None, log_n):
+        nega = plans if nega_log_n else {}
+    else:
+        ncfg = T.NTTConfig(field=field, log_n=nega_log_n, negacyclic=True)
+        nega = {k: T.build_plan(ncfg, device=dev, fused=k == "fused")
+                for k in kinds}
+
+    def batch(rows, m):
+        if gl:
+            v = rng.integers(0, 1 << 64, (rows, m), dtype=np.uint64)
+            return M.gl_from_u64(v % np.uint64(p), dev)
+        return torch.randint(0, p, (rows, m), dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    x, x2 = batch(B, n), batch(B, n)
+    nn_ = 1 << (nega_log_n or log_n)
+    xa, xb = (x, x2) if nn_ == n else (batch(B, nn_), batch(B, nn_))
+    counters = (G.gl_colpass, G.gl_mul) if gl else (C.colpass,
+                                                    F.fused_fourstep)
+    launches = {}
+
+    def drive(key, fn, *operands):
+        for c in counters:
+            c.launches = 0
+        out = fn(*operands)
+        torch.cuda.synchronize()
+        launches[key] = [c.launches for c in counters]
+        return out
+
+    gate_rows = np.concatenate(
+        [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
+    gidx = torch.from_numpy(gate_rows).to(dev)
+    omega = field.root_of_unity(n)
+    xin, x2in = rows_u64(x, gidx), rows_u64(x2, gidx)
+    want = native_oracle.ntt_dif_batch(xin, omega, p)
+    want_c = [native_oracle.cyclic_polymul(u, v, omega, p)
+              for u, v in zip(xin, x2in)]
+    checks = {"gate": True, "roundtrip": True, "polymul": True}
+    ys = {}
+    for k in kinds:
+        bat = plans[k].make_batched(B)
+        ys[k] = y = drive(f"{k}_fwd", bat["fwd"], x)
+        checks["gate"] &= np.array_equal(rows_u64(y, gidx), want)
+        back = drive(f"{k}_inv", bat["inv"], y)
+        checks["roundtrip"] &= same(back, x)
+        del back
+        c = drive(f"{k}_polymul", bat["polymul"], x, x2)
+        checks["polymul"] &= all(np.array_equal(r, w) for r, w in
+                                 zip(rows_u64(c, gidx), want_c))
+        del c
+        if nega:
+            d = drive(f"{k}_negacyclic_polymul",
+                      nega[k].make_batched(B)["negacyclic_polymul"], xa, xb)
+            psi = field.root_of_unity(2 * nn_)
+            checks["negacyclic"] = checks.get("negacyclic", True) and all(
+                np.array_equal(r, native_oracle.negacyclic_polymul(u, v, psi,
+                                                                   p))
+                for r, u, v in zip(rows_u64(d, gidx), rows_u64(xa, gidx),
+                                   rows_u64(xb, gidx)))
+            del d
+    y = ys["fold"]
+    if "fused" in ys:
+        checks["fused_equals_fold"] = same(ys["fused"], y)
+    brev = torch.from_numpy(tw.bit_reverse_indices(n)).to(dev)
+    nbat = nat.make_batched(B)
+    yn = nbat["fwd"](x)
+    checks["natural"] = same(yn, take(y, brev)) and same(nbat["inv"](yn), x)
+    del yn
+    pb = FLAT_PLAIN_BATCH
+    fs = S.make_flat_stages(field, n, reduction=kind, device=dev)
+    checks["plain"] = (same(fs.fwd(head(x, pb)), head(y, pb))
+                       and same(fs.inv(head(y, pb)), head(x, pb)))
+    if gl:
+        expect = {"fwd": [2, 0], "inv": [2, 0], "polymul": [6, 1],
+                  "negacyclic_polymul": [6, 4]}
+        rows = {"gl_colpass": 0, "gl_mul": 1}
+    else:
+        # the negacyclic product is the fused plan's on both plans
+        expect = {"fwd": [2, 0], "inv": [2, 0], "polymul": [6, 0],
+                  "negacyclic_polymul": [0, 3]}
+        expect.update({f"fused_{k}": [0, 3 if "polymul" in k else 1]
+                       for k in list(expect)})
+        suffix = "" if kind == "harvey4" else f"[{kind}]"
+        rows = {f"colpass{suffix}": 0, f"fused_fourstep{suffix}": 1}
+    expect = {(k if k.startswith("fused_") else f"fold_{k}"): v
+              for k, v in expect.items()}
+    checks["launches"] = all(expect[k] == v for k, v in launches.items())
+    ok = all(checks.values())
+    passes = plans["fold"].passes
+    n1, n2 = passes["cp1"].nn, passes["cp2"].nn  # the internal split
+    splits = {"fold": [n1, n2]}
+    if "fused" in plans:
+        splits["fused"] = list(plans["fused"].passes["ff"].shape_in)
+    emit({"phase": "flat", "flat": phase, "field": name, "p": p, "n": n,
+          "inner_split": splits, "batch": B, "reduction": kind,
+          "negacyclic_n": nn_ if nega else None, "oracle": "native",
+          "gate_rows": gate_rows.tolist(), "checks": checks,
+          "launches": launches, "ok": ok})
+    if not ok:
+        fail("flat", f"{phase} {name} n = 2^{log_n}: the flat plans "
+             "disagree with their oracles or did not launch as expected")
+        return None
+
+    # timing: us per NTT of each callable, the gather alone, the internal
+    # four-step transform alone, and the plain flat stage loops
+    us = {}
+    for k in kinds:
+        bat = plans[k].make_batched(B)
+        us[k] = {"fwd": time_device(bat["fwd"], x)["us_per_iter"] / B,
+                 "inv": time_device(bat["inv"], x)["us_per_iter"] / B,
+                 "polymul": time_device(lambda v: bat["polymul"](v, v),
+                                        x)["us_per_iter"] / B}
+        if nega:
+            nb = nega[k].make_batched(B)
+            us[k]["negacyclic_polymul"] = time_device(
+                lambda v: nb["negacyclic_polymul"](v, v),
+                xa)["us_per_iter"] / B
+    g = torch.from_numpy(tw.flat_gather(n1, n2)).to(dev)
+    gather_us = time_device(lambda v: take(v, g), x)["us_per_iter"] / B
+
+    def fourstep(v):  # the fold plan's internal transform alone
+        out = passes["cp2"](passes["cp1"](v))
+        return (tuple(t.reshape(B, n1, n2) for t in out) if gl
+                else out.reshape(B, n1, n2))
+
+    xm = tuple(t.reshape(B, n1, n2) for t in x) if gl \
+        else x.reshape(B, n1, n2)
+    fourstep_us = time_device(fourstep, xm)["us_per_iter"] / B
+    plain_us = time_device(fs.fwd, head(x, pb), iters=2,
+                           repeats=3)["us_per_iter"] / pb
+    line = {"phase": "flat_time", "flat": phase, "field": name, "n": n,
+            "inner_split": splits, "batch": B, "reduction": kind,
+            "card": card, "us_per_ntt": us,
+            "gather_us_per_ntt": gather_us,
+            "gather_share_of_fold_fwd": gather_us / us["fold"]["fwd"],
+            "fourstep_fold_fwd_us_per_ntt": fourstep_us,
+            "plain_stages_fwd_us_per_ntt": plain_us, "plain_batch": pb,
+            "method": "CUDA events; 5 repeats of a dependent chain of 10 "
+                      "(plain: 3 of 2), trimmed mean; us per NTT = us per "
+                      "call / batch; polymul of x with itself"}
+    emit(line)
+    return {row: sum(v[i] for v in launches.values())
+            for row, i in rows.items()}, line
+
+
+def flat_route_a(spec, dev, card, gen):
+    """Phase 21, one configuration of FLAT_ROUTE_A: route (a) of the flat
+    forward (one column pass over (1, n, B), the batch as columns, after
+    one torch transpose, then the colperm -> bit-reversal gather where
+    the column nests), held equal to the plain flat forward and to the
+    plan's route (b), and timed beside it. Returns False after emitting
+    the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import stages as S
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    name, log_n, B = spec
+    field = T.FIELDS[name]
+    n = 1 << log_n
+    cfg = T.NTTConfig(field=field, log_n=log_n)
+    kind = cfg.resolved_reduction
+    cp = C.make_colpass(field, n, direction="dif", canonicalize=True,
+                        transpose_out=True, reduction=kind, device=dev)
+    order = tw.colperm(n)[tw.bit_reverse_indices(n)]
+    perm = (None if np.array_equal(order, np.arange(n))
+            else torch.from_numpy(order).to(dev))
+
+    def route_a(v):
+        out = C.colpass(v.t().contiguous().unsqueeze(0), cp)[0]
+        return out if perm is None else out.index_select(1, perm)
+
+    x = torch.randint(0, field.p, (B, n), dtype=torch.int32, device=dev,
+                      generator=gen)
+    fold = T.build_plan(cfg, device=dev).make_batched(B)
+    fused = T.build_plan(cfg, device=dev, fused=True).make_batched(B)
+    ya = route_a(x)
+    fs = S.make_flat_stages(field, n, reduction=kind, device=dev)
+    pb = FLAT_PLAIN_BATCH
+    ok = bool(torch.equal(ya, fold["fwd"](x))
+              and torch.equal(ya[:pb], fs.fwd(x[:pb])))
+    del ya
+    xc = x.t().contiguous().unsqueeze(0)
+    us = {"route_a": time_device(route_a, x)["us_per_iter"] / B,
+          "route_a_transpose": time_device(
+              lambda v: v.t().contiguous().view(B, n), x)["us_per_iter"] / B,
+          "route_a_colpass": time_device(
+              lambda v: C.colpass(v, cp).view(1, n, B), xc)["us_per_iter"]
+          / B,
+          "route_b_fold": time_device(fold["fwd"], x)["us_per_iter"] / B,
+          "route_b_fused": time_device(fused["fwd"], x)["us_per_iter"] / B}
+    if perm is not None:
+        us["route_a_gather"] = time_device(
+            lambda v: v.index_select(1, perm), x)["us_per_iter"] / B
+    emit({"phase": "flat_route_a", "field": name, "n": n, "batch": B,
+          "reduction": kind, "card": card,
+          "column": "nested" if cp.wmid is not None else "plain",
+          "equals_route_b_and_plain": ok, "us_per_ntt": us,
+          "method": "CUDA events; 5 repeats of a dependent chain of 10, "
+                    "trimmed mean; us per NTT = us per call / batch"})
+    if not ok:
+        fail("flat_route_a", f"route (a) of the flat forward over {name} "
+             f"n = 2^{log_n} differs from the plain flat forward or the "
+             "plan's")
+    return ok
+
+
+def flat_phases(args, dev, card, rng):
+    """Phases 20-22: the flat split F1-F5, route (a), and the Goldilocks
+    negacyclic product at n = 2^20. Returns phases 20 and 22's launches
+    by kernel row, or None after emitting the failure."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    launches = {}
+    for spec in FLAT_PLANS:
+        got = flat_phase(spec, dev, card, gen, rng)
+        if got is None:
+            return None
+        for row, count in got[0].items():
+            launches[row] = launches.get(row, 0) + count
+        torch.cuda.empty_cache()
+    for spec in FLAT_ROUTE_A:
+        if not flat_route_a(spec, dev, card, gen):
+            return None
+        torch.cuda.empty_cache()
+    got = gl_negacyclic_phase(dev, card, gen, rng)
+    if got is None:
+        return None
+    for row, count in got.items():
+        launches[row] = launches.get(row, 0) + count
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gl_negacyclic_phase(dev, card, gen, rng):
+    """Phase 22: the Goldilocks negacyclic product on the four-step split
+    at n = 2^GL_LOG_N, B = GL_BATCH: the device memory of its batched
+    callables (psi and psi^-1 over the whole batch), gated on the native
+    oracle, its launches counted, and timed beside the cyclic product.
+    Returns {kernel row: launches}, or None after emitting the
+    failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    field = T.GOLDILOCKS
+    p, B = field.p, GL_BATCH
+    cfg = T.NTTConfig(field=field, log_n=GL_LOG_N, rows_log2=GL_LOG_N // 2,
+                      negacyclic=True)
+    n = cfg.n
+    plan = T.build_plan(cfg, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    bat = plan.make_batched(B)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
+    v = rng.integers(0, 1 << 64, (2, B, n), dtype=np.uint64) % np.uint64(p)
+    a, b = (M.gl_from_u64(u, dev) for u in v)
+    G.gl_colpass.launches = G.gl_mul.launches = 0
+    d = bat["negacyclic_polymul"](a, b)
+    torch.cuda.synchronize()
+    launches = [G.gl_colpass.launches, G.gl_mul.launches]
+    gate_rows = np.concatenate(
+        [[0], rng.choice(np.arange(1, B), size=2, replace=False)])
+    psi = field.root_of_unity(2 * n)
+    got = M.gl_to_u64(*(t[torch.from_numpy(gate_rows).to(dev)] for t in d))
+    gate_ok = all(np.array_equal(
+        r, native_oracle.negacyclic_polymul(v[0, i], v[1, i], psi, p))
+        for r, i in zip(got, gate_rows))
+    del d
+    counts_ok = launches == [6, 4]
+    ok = bool(gate_ok and counts_ok)
+    emit({"phase": "gl_negacyclic", "n": n, "split": list(cfg.split),
+          "batch": B, "oracle": "native", "gate_rows": gate_rows.tolist(),
+          "gate_ok": bool(gate_ok), "launches": launches,
+          "launches_ok": counts_ok, "psi_tables_bytes": held, "ok": ok})
+    if not ok:
+        fail("gl_negacyclic", "the Goldilocks negacyclic product at n = "
+             f"2^{GL_LOG_N} disagrees with the native oracle or did not "
+             "launch 6 column passes and 4 products")
+        return None
+    us = {k: time_device(lambda t: bat[k](t, t), a)["us_per_iter"] / B
+          for k in ("polymul", "negacyclic_polymul")}
+    emit({"phase": "gl_negacyclic_time", "n": n, "batch": B, "card": card,
+          "us_per_ntt": us,
+          "method": "CUDA events; 5 repeats of a dependent chain of 10, "
+                    "trimmed mean; us per NTT = us per call / batch; "
+                    "product of x with itself"})
+    return {"gl_colpass": launches[0], "gl_mul": launches[1]}
 
 
 if __name__ == "__main__":

@@ -13,8 +13,12 @@ plan (``build_plan(..., fused=True)``: one launch of
 its negacyclic product; the round-4 nested R x S column pass
 (``ops/nested_colpass.py``, ``csrc/nested_colpass.cu``, run by
 ``scripts/proto_nested_colpass.py``) and the roofline probes
-(``profiling/roofline.py``, ``csrc/bfly_probe.cu``). Entry points run on
-the card unless the caller passes ``device="cpu"``.
+(``profiling/roofline.py``, ``csrc/bfly_probe.cu``); and the flat split
+(``NTTConfig.split`` = (n, 1), the default for a single shard up to
+n = 2^16, 2^14 for Goldilocks), which runs these kernels at an internal
+split and gathers into bit-reversed order, its plain version the
+reference's stage loops (``ops/stages.py``). Entry points run on the
+card unless the caller passes ``device="cpu"``.
 """
 
 from ntt_aie_tpu_torch.fields import (  # noqa: F401

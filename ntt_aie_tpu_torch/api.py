@@ -12,6 +12,7 @@ import numpy as np
 from ntt_aie_tpu_torch import reference as ref
 from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.config import NTTConfig
+from ntt_aie_tpu_torch.plan import ITEM_DISTRIBUTED, ITEM_REFERENCE_PARITY
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
@@ -23,8 +24,11 @@ class NTTContext:
         A = ctx.forward(a)           # flat spectral-order NTT
         c = ctx.polymul(a, b)        # NTT -> pointwise -> INTT
 
-    With NTTConfig(negacyclic=True) and fused=True,
-    ctx.negacyclic_polymul(a, b) is the product mod X^n + 1.
+    With NTTConfig(negacyclic=True) (32-bit four-step splits: and
+    fused=True), ctx.negacyclic_polymul(a, b) is the product mod X^n + 1.
+    A flat configuration (split (n, 1), the default up to n = 2^16, 2^14
+    for Goldilocks) has forward/inverse/polymul/negacyclic_polymul and no
+    matrix-form callables, as the reference's.
 
     Plan keyword arguments (fused, wmat_factored, wmat_fold) forward to
     build_plan. device=None is the card, and raises RuntimeError without
@@ -38,7 +42,7 @@ class NTTContext:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (the distributed four-step plan) is not ported yet: "
-                "ROADMAP.md Queue 1 item 10")
+                f"ROADMAP.md {ITEM_DISTRIBUTED}")
         bad = sorted(set(plan_kwargs) - self._PLAN_KWARGS)
         if bad:
             raise TypeError(f"unknown plan kwargs {bad}; a single-device "
@@ -63,7 +67,7 @@ class NTTContext:
         if self.config.table_convention == "reference":
             raise NotImplementedError(
                 "the reference-parity convention is not ported yet: "
-                "ROADMAP.md Queue 1 item 4j")
+                f"ROADMAP.md {ITEM_REFERENCE_PARITY}")
         return self.config
 
     def forward_host(self, a) -> np.ndarray:
@@ -96,9 +100,11 @@ class NTTContext:
         fn = getattr(self.plan, name)
         if fn is None:
             raise NotImplementedError(
-                f"this plan has no {name} (fwd/inv matrix-form twins need "
-                "the default spectral ordering; the negacyclic twin needs "
-                "NTTConfig(negacyclic=True) and fused=True)")
+                f"this plan has no {name} (a flat plan, split (n, 1), has "
+                "no matrix-form twins, as the reference's has none; the "
+                "fwd/inv twins need the default spectral ordering; the "
+                "32-bit negacyclic twin needs NTTConfig(negacyclic=True) "
+                "and fused=True)")
         return fn
 
     def forward_mat(self, a):

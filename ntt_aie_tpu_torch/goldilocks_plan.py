@@ -1,7 +1,11 @@
 """Plan for the Goldilocks field p = 2^64 - 2^32 + 1.
 
 Port of ``ntt_aie_tpu.goldilocks_plan`` for its four-step fold arm
-(``goldilocks_plan.py:244-327``, ``:454-583`` of the reference). Field
+(``goldilocks_plan.py:244-327``, ``:454-583`` of the reference), its flat
+arm (``:353-388``: here the fold plan's column passes at an internal
+split and one gather into bit-reversed order, as ``plan.py``'s flat arm;
+the plain version is ``ops.stages``) and its negacyclic product at every
+split (``:414-424``, ``:508-568``). Field
 elements travel as (hi, lo) limb planes, and the transform has the same
 four-step shape as ``plan.py``:
 
@@ -29,7 +33,9 @@ from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.gl_colpass import gl_mul, make_gl_colpass
-from ntt_aie_tpu_torch.plan import Plan, _not_ported
+from ntt_aie_tpu_torch.plan import (ITEM_DISTRIBUTED, ITEM_WMAT_ARMS, Plan,
+                                    _not_ported, flat_inner_split,
+                                    public_order)
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
@@ -58,33 +64,39 @@ def gl_fold_passes(field, n1: int, n2: int, *, device=None) -> dict:
 def build_goldilocks_plan(config: NTTConfig, *, device=None,
                           wmat_fold: bool | None = None,
                           wmat_factored: bool | None = None) -> Plan:
-    """Build the Goldilocks four-step fold plan of `config` on `device`.
+    """Build the Goldilocks plan of `config` on `device`: the four-step
+    fold plan, or for a flat configuration (config.split = (n, 1), the
+    default up to n = 2^14) the same column passes at the internal split
+    plan.flat_inner_split(log_n, goldilocks=True) with their spectrum
+    gathered into bit-reversed order, and the reference's flat callables
+    (no matrix-form twins; wmat_fold and wmat_factored do not apply).
+
+    With NTTConfig(negacyclic=True), at every split, negacyclic_polymul
+    is the reference's (goldilocks_plan.py:414-424, :508-568): gl_mul by
+    psi^i on each operand, the cyclic product, gl_mul by psi^-i.
 
     Tables are prepared once here, on the plan's device (None: the card,
-    RuntimeError without one). The flat split,
-    negacyclic products and the factored or unfolded wmat arms raise
-    NotImplementedError naming the ROADMAP.md item that ports them.
+    RuntimeError without one). The factored or unfolded wmat arms and the
+    distributed plan raise NotImplementedError naming the ROADMAP.md item
+    that ports them.
     """
     field = config.field
     if not field.is_goldilocks:
         raise ValueError(f"the Goldilocks plan needs p = 2^64 - 2^32 + 1, "
                          f"got p={field.p}")
-    n1, n2 = config.split
-    if n2 == 1:
-        _not_ported(f"the Goldilocks flat split {config.split} (pin "
-                    "rows_log2 for a four-step plan)", "Queue 1 item 4h")
-    if config.negacyclic:
-        _not_ported("Goldilocks negacyclic polymul", "Queue 1 item 4d")
-    if wmat_factored:
-        _not_ported("wmat_factored=True", "Queue 1 item 4g")
-    if wmat_fold is False:
-        _not_ported("wmat_fold=False", "Queue 1 item 4g")
+    flat = config.split[1] == 1
     if config.num_shards != 1:
-        _not_ported("the distributed plan", "Queue 1 item 10")
+        _not_ported("the distributed plan", ITEM_DISTRIBUTED)
+    if not flat:
+        if wmat_factored:
+            _not_ported("wmat_factored=True", ITEM_WMAT_ARMS)
+        if wmat_fold is False:
+            _not_ported("wmat_fold=False", ITEM_WMAT_ARMS)
 
     device = resolve_device(device)
     n = config.n
-    pos = tw.spectral_positions(n1, n2)
+    n1, n2 = (flat_inner_split(config.log_n, goldilocks=True) if flat
+              else config.split)
     passes = gl_fold_passes(field, n1, n2, device=device)
     cp1, cp2, icp2, icp1 = (passes[k] for k in ("cp1", "cp2", "icp2", "icp1"))
 
@@ -120,9 +132,6 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
     def reshape(hl, shape):
         return tuple(v.reshape(shape) for v in hl)
 
-    def take(hl, idx, dim):
-        return tuple(v.index_select(dim, idx) for v in hl)
-
     def fwd2d(hl, shape):
         return cp2(cp1(reshape(hl, shape)))
 
@@ -133,59 +142,76 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
         return inv2d(gl_mul(fwd2d(a, shape), fwd2d(b, shape)),
                      shape[:-2] + (n2, n1))
 
-    natural = config.ordering == "natural"
-    bitrev = config.ordering == "bitrev"
-    perm = torch.from_numpy(pos.astype(np.int64)).to(device)
-    inv_perm_np = np.empty(n, dtype=np.int64)
-    inv_perm_np[pos] = np.arange(n)
-    inv_perm = torch.from_numpy(inv_perm_np).to(device)
+    psi = psi_inv = None
+    if config.negacyclic:
+        psi, psi_inv = (M.gl_from_u64(tw.negacyclic_psi_powers(
+            field, n, inverse=inverse).reshape(n1, n2), device)
+            for inverse in (False, True))
 
-    def fwd_fn(a):
-        out = reshape(fwd2d(a, (n1, n2)), (n,))
-        return take(out, perm, 0) if natural else out
+    def nega2d(a, b, shape, ps, ps_inv):
+        """ps, ps_inv: the psi planes at `shape` (gl_mul takes operands of
+        one shape)."""
+        ta = gl_mul(reshape(a, shape), ps)
+        tb = gl_mul(reshape(b, shape), ps)
+        return gl_mul(poly2d(ta, tb, shape), ps_inv)
 
-    def inv_fn(a):
-        a = reshape(a, (n,))
-        return reshape(inv2d(take(a, inv_perm, 0) if natural else a,
-                             (n2, n1)), (n,))
+    spectral, out_idx, in_idx = public_order(config, n1, n2, device)
 
-    def polymul_fn(a, b):
-        return reshape(poly2d(a, b, (n1, n2)), (n,))
+    def take(hl, idx):
+        return tuple(v.index_select(-1, idx) for v in hl)
 
-    def batched_builder(B: int) -> dict:
-        bsh = (B, n1, n2)
+    def fwd_n(a, lead):
+        out = reshape(fwd2d(a, lead + (n1, n2)), lead + (n,))
+        return out if out_idx is None else take(out, out_idx)
 
-        def fwd_b(a):
-            out = reshape(fwd2d(a, bsh), (B, n))
-            return take(out, perm, 1) if natural else out
+    def inv_n(a, lead):
+        a = reshape(a, lead + (n,))
+        if out_idx is not None:
+            a = take(a, in_idx)
+        return reshape(inv2d(a, lead + (n2, n1)), lead + (n,))
 
-        def inv_b(a):
-            a = reshape(a, (B, n))
-            return reshape(inv2d(take(a, inv_perm, 1) if natural else a,
-                                 (B, n2, n1)), (B, n))
-
+    def callables(lead) -> dict:
+        """The flat callables over a leading shape `lead`, and the
+        matrix-form twins of a four-step plan, on the u64/limb-pair
+        value interface."""
+        sh = lead + (n1, n2)
+        flat_sh = lead + (n,)
         out = {
-            "fwd": wrap1(fwd_b),
-            "inv": wrap1(inv_b),
-            "polymul": wrap2(lambda a, b: reshape(poly2d(a, b, bsh), (B, n))),
-            "polymul_mat": wrap2(lambda a, b: poly2d(a, b, bsh)),
+            "fwd": wrap1(lambda a: fwd_n(a, lead)),
+            "inv": wrap1(lambda a: inv_n(a, lead)),
+            "polymul": wrap2(lambda a, b: reshape(poly2d(a, b, sh),
+                                                  flat_sh)),
         }
-        if bitrev:
-            out["fwd_mat"] = wrap1(lambda a: fwd2d(a, bsh))
-            out["inv_mat"] = wrap1(lambda a: inv2d(a, (B, n2, n1)))
+        if psi is not None:
+            ps, ps_inv = (tuple(v.expand(sh).contiguous() for v in t)
+                          for t in (psi, psi_inv))
+            out["negacyclic_polymul"] = wrap2(lambda a, b: reshape(
+                nega2d(a, b, sh, ps, ps_inv), flat_sh))
+        if flat:
+            return out
+        out["polymul_mat"] = wrap2(lambda a, b: poly2d(a, b, sh))
+        if config.ordering == "bitrev":
+            out["fwd_mat"] = wrap1(lambda a: fwd2d(a, sh))
+            out["inv_mat"] = wrap1(lambda a: inv2d(a, lead + (n2, n1)))
+        if psi is not None:
+            out["negacyclic_polymul_mat"] = wrap2(
+                lambda a, b: nega2d(a, b, sh, ps, ps_inv))
         return out
 
+    one = callables(())
     return Plan(
         config=config,
         device=device,
-        fwd=wrap1(fwd_fn),
-        inv=wrap1(inv_fn),
-        polymul=wrap2(polymul_fn),
-        spectral_to_natural=pos,
+        fwd=one["fwd"],
+        inv=one["inv"],
+        polymul=one["polymul"],
+        spectral_to_natural=spectral,
         reduction="goldilocks",
         passes=passes,
-        fwd_mat=wrap1(lambda a: fwd2d(a, (n1, n2))) if bitrev else None,
-        inv_mat=wrap1(lambda a: inv2d(a, (n2, n1))) if bitrev else None,
-        polymul_mat=wrap2(lambda a, b: poly2d(a, b, (n1, n2))),
-        _batched_builder=batched_builder,
+        fwd_mat=one.get("fwd_mat"),
+        inv_mat=one.get("inv_mat"),
+        polymul_mat=one.get("polymul_mat"),
+        negacyclic_polymul=one.get("negacyclic_polymul"),
+        negacyclic_polymul_mat=one.get("negacyclic_polymul_mat"),
+        _batched_builder=lambda B: callables((B,)),
     )

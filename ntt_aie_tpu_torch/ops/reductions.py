@@ -41,13 +41,6 @@ import torch
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.modops import MASK16, MASK32
 
-# ROADMAP.md items that port the other strategies, by reduction kind.
-_NOT_PORTED = {
-    "goldilocks": "Queue 1 item 7 (Goldilocks has no Reduction: "
-                  "build_plan routes it to goldilocks_plan)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class Reduction:
     name: str
@@ -252,10 +245,9 @@ _MAKERS = {"barrett": _barrett, "montgomery": _montgomery,
 
 
 def make_reduction(kind: str, field) -> Reduction:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"reduction {kind!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED[kind]}")
+    """The strategy of this kind over `field`. Goldilocks has none, as in
+    the reference (build_plan routes it to goldilocks_plan): 'goldilocks'
+    raises ValueError like any unknown kind."""
     if kind not in _MAKERS:
         raise ValueError(f"unknown reduction kind {kind!r}")
     return _MAKERS[kind](field)

@@ -13,12 +13,22 @@ two column passes a transform,
 each a column pass (``ops.colpass``: the CUDA kernel on a CUDA device, its
 plain PyTorch version on the CPU). ``fused=True`` runs each transform as
 one fused four-step launch instead (``ops.fused_fourstep``: ``ff`` forward,
-``fi`` inverse), with the same outputs bit for bit; only that plan has the
-negacyclic product (X^N + 1), whose psi^i and psi^-i scalings ride the
-fused kernels as ``pre`` (``nf``) and ``post`` (``ni``). The flat forward
+``fi`` inverse), with the same outputs bit for bit; of the four-step
+plans only that one has the negacyclic product (X^N + 1), whose psi^i
+and psi^-i scalings ride the fused kernels as ``pre`` (``nf``) and
+``post`` (``ni``). The flat forward
 output is in the four-step spectral order flat[c*N1 + r] =
 X[s2(c)*N1 + s1(r)] (``twiddles.spectral_positions``); pointwise products
 are order-agnostic, so polymul never permutes.
+
+A flat configuration (split (n, 1), the default up to n = 2^16, where
+the reference runs its XLA stage loops ``ops/stages.py`` with the batch
+on lanes) runs the same kernels at an internal split
+(``flat_inner_split``) and gathers their spectrum into the flat
+bit-reversed order with one index (``twiddles.flat_gather``); its
+negacyclic product is the fused plan's (``nf``/``ni``) whichever plan
+runs the transforms. Its plain version, the oracle of that route, is
+``ops.stages``.
 
 Every reduction of ``ops.reductions`` runs both plans (harvey4, harvey,
 montgomery, barrett; ``NTTConfig.reduction``, 'auto' by the prime). The
@@ -59,10 +69,14 @@ class Plan:
     (spectral-order plans only; None with ordering='natural');
     polymul_mat maps (n1, n2) operands to an (n1, n2) product.
     negacyclic_polymul (flat) and negacyclic_polymul_mat (matrix form)
-    exist with NTTConfig(negacyclic=True) on a fused plan, else None.
+    exist with NTTConfig(negacyclic=True) on a fused plan or a flat one,
+    else None. A flat plan (split (n, 1)) has no matrix-form callables.
     make_batched(B) returns the same callables over a leading batch axis.
     passes holds the four column passes (cp1, cp2, icp2, icp1), or on a
-    fused plan the fused transforms (ff, fi, and nf, ni for negacyclic).
+    fused plan the fused transforms (ff, fi), of the four-step split the
+    plan runs (for a flat plan, the internal one, ``flat_inner_split``),
+    and for negacyclic nf, ni (on a flat fold plan at the fused plan's
+    internal split).
     """
 
     config: NTTConfig
@@ -87,8 +101,75 @@ class Plan:
         return self._batched_cache[batch]
 
 
+# ROADMAP.md Queue 1 items that port what a plan does not have yet, by
+# label and title (queue numbers move when the roadmap is re-anchored;
+# the labels 4d-4j do not)
+ITEM_NEGACYCLIC_FOLD = ("Queue 1 item 4d: negacyclic on the two-pass "
+                        "four-step plan")
+ITEM_WMAT_ARMS = ("Queue 1 item 4g: the wmat_fold=False and "
+                  "wmat_factored=True arms")
+ITEM_FLAT_N2 = "Queue 1 item 4h: n = 2 on the flat split"
+ITEM_REFERENCE_PARITY = "Queue 1 item 4j: reference parity"
+ITEM_DISTRIBUTED = "Queue 1: the distributed four-step"
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
+
+
+# log2 n1 of a flat plan's internal split where another split than the
+# square measured faster (``python -m ntt_aie_tpu_torch.scripts.flat_splits``
+# on an NVIDIA H100 80GB HBM3 at 700 W, two readings each, PERF.md):
+# the fold plan at n = 2^16 (1024 x 64: 1.02 us/NTT against 256 x 256's
+# 1.95), 2^14 (512 x 32: 0.30 against 0.42) and 2^10 (8 x 128: 0.013
+# against 0.025), the fused plan at 2^16 (128 x 512: 1.40 against 1.60).
+# Goldilocks's fastest splits were the square ones.
+_FOLD_ROWS_LOG2 = {16: 10, 14: 9, 10: 3}
+_FUSED_ROWS_LOG2 = {16: 7}
+
+
+def flat_inner_split(log_n: int, *, fused: bool = False,
+                     goldilocks: bool = False) -> tuple:
+    """The four-step split (n1, n2) a flat configuration (NTTConfig.split
+    with n2 = 1) runs on the card: the square one, n1 = 2^ceil(log_n / 2)
+    (16 x 16 at n = 256), unless another measured faster for this plan
+    (_FOLD_ROWS_LOG2, _FUSED_ROWS_LOG2). n = 2 has no two-factor split and
+    raises NotImplementedError."""
+    if log_n < 2:
+        _not_ported(f"the flat split of n = {1 << log_n} (no two-factor "
+                    "split)", ITEM_FLAT_N2)
+    table = ({} if goldilocks else
+             _FUSED_ROWS_LOG2 if fused else _FOLD_ROWS_LOG2)
+    r = table.get(log_n, (log_n + 1) // 2)
+    return 1 << r, 1 << (log_n - r)
+
+
+def inverse_permutation(idx: np.ndarray) -> np.ndarray:
+    out = np.empty(len(idx), dtype=np.int64)
+    out[idx] = np.arange(len(idx))
+    return out
+
+
+def public_order(config: NTTConfig, n1: int, n2: int, device) -> tuple:
+    """The public spectral order of a plan that runs the four-step split
+    (n1, n2): (spectral_to_natural, out_idx, in_idx). out_idx gathers the
+    four-step flat spectrum into that order along the last axis (None:
+    the four-step order itself); in_idx takes it back. A flat
+    configuration (config.split = (n, 1)) is in bit-reversed order
+    (twiddles.flat_gather), as the reference's flat plan; natural order
+    gathers by spectral_positions(n1, n2) either way."""
+    pos = tw.spectral_positions(n1, n2)
+    flat = config.split[1] == 1
+    spectral = tw.spectral_positions(config.n, 1) if flat else pos
+    if config.ordering == "natural":
+        out_idx = pos
+    elif flat:
+        out_idx = tw.flat_gather(n1, n2)
+    else:
+        return spectral, None, None
+    return (spectral,
+            torch.from_numpy(out_idx.astype(np.int64)).to(device),
+            torch.from_numpy(inverse_permutation(out_idx)).to(device))
 
 
 def fold_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
@@ -122,45 +203,68 @@ def fused_passes(field, n1: int, n2: int, *, negacyclic: bool = False,
     the reduction of this kind (reference plan.py:328-336, :685-689): ff
     over (.., n1, n2) with wmid = wmat.T, fi over (.., n2, n1) with wmid =
     iwmat_scaled (1/n folded in; the polymul inverse too), and with
-    negacyclic nf = ff with psi^i as 'pre', ni = fi with psi^-i as
-    'post'. device: None is the card."""
+    negacyclic those of negacyclic_passes. device: None is the card."""
     device = resolve_device(device)
     tabs = tw.fourstep_tables(field, n1, n2)
-    wmid_fwd = np.ascontiguousarray(tabs["wmat"].T)
     kw = dict(reduction=reduction, device=device)
     out = {
-        "ff": make_fused_fourstep(field, n1, n2, wmid=wmid_fwd, **kw),
+        "ff": make_fused_fourstep(field, n1, n2,
+                                  wmid=np.ascontiguousarray(tabs["wmat"].T),
+                                  **kw),
         "fi": make_fused_fourstep(field, n1, n2, inverse=True,
                                   wmid=tabs["iwmat_scaled"], **kw),
     }
     if negacyclic:
-        n = n1 * n2
-        out["nf"] = make_fused_fourstep(
-            field, n1, n2, wmid=wmid_fwd,
-            pre=tw.negacyclic_psi_powers(field, n).reshape(n1, n2), **kw)
-        out["ni"] = make_fused_fourstep(
+        out.update(negacyclic_passes(field, n1, n2, **kw))
+    return out
+
+
+def negacyclic_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
+                      device=None) -> dict:
+    """The fused transforms of the negacyclic product for an (n1, n2)
+    split: nf = ff with psi^i as 'pre', ni = fi with psi^-i as 'post'
+    (reference plan.py:685-689). device: None is the card."""
+    device = resolve_device(device)
+    tabs = tw.fourstep_tables(field, n1, n2)
+    n = n1 * n2
+    kw = dict(reduction=reduction, device=device)
+    return {
+        "nf": make_fused_fourstep(
+            field, n1, n2, wmid=np.ascontiguousarray(tabs["wmat"].T),
+            pre=tw.negacyclic_psi_powers(field, n).reshape(n1, n2), **kw),
+        "ni": make_fused_fourstep(
             field, n1, n2, inverse=True, wmid=tabs["iwmat_scaled"],
             post=tw.negacyclic_psi_powers(field, n,
                                           inverse=True).reshape(n1, n2),
-            **kw)
-    return out
+            **kw),
+    }
 
 
 def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
                wmat_factored: bool | None = None,
                wmat_fold: bool | None = None) -> Plan:
-    """Build the four-step plan of `config` on `device`: the fold plan, or
-    with fused=True the fused plan (for Goldilocks, build_goldilocks_plan's
-    fold plan; `fused` does not apply there, as in the reference).
+    """Build the plan of `config` on `device`: the four-step fold plan, or
+    with fused=True the fused plan (for Goldilocks, build_goldilocks_plan;
+    `fused` does not apply there, as in the reference).
+
+    A flat configuration (config.split = (n, 1), the default for a single
+    shard up to n = 2^16) runs the same kernels at the internal split
+    flat_inner_split(log_n, fused=fused) and gathers their spectrum into
+    bit-reversed order (one index_select; pointwise products need none). Its
+    callables are the reference's flat ones: fwd, inv, polymul and, with
+    NTTConfig(negacyclic=True), negacyclic_polymul (psi rides the fused
+    kernels as pre/post, on a fold plan at the fused plan's internal
+    split), flat and through make_batched, and no matrix-form twins. wmat_fold and wmat_factored
+    do not apply to it, as in the reference.
 
     Tables are prepared once here, on the plan's device: the card when
     device is None (RuntimeError without one; device="cpu" runs the plain
-    PyTorch version). Configurations outside the ported slice raise NotImplementedError naming the
-    ROADMAP.md item that ports them.
+    PyTorch version). Configurations outside the ported slice raise
+    NotImplementedError naming the ROADMAP.md item that ports them.
     """
     field = config.field
     if config.table_convention == "reference":
-        _not_ported("the reference-parity convention", "Queue 1 item 4j")
+        _not_ported("the reference-parity convention", ITEM_REFERENCE_PARITY)
     kind = resolve_kind(config.reduction, field)
     if kind == "goldilocks":
         from ntt_aie_tpu_torch.goldilocks_plan import build_goldilocks_plan
@@ -169,29 +273,33 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
                                      wmat_factored=wmat_factored,
                                      wmat_fold=wmat_fold)
     red = make_reduction(kind, field)
-    n1, n2 = config.split
-    if n2 == 1:
-        _not_ported(f"the flat split {config.split} (pin rows_log2 for a "
-                    "four-step plan)", "Queue 1 item 4h")
-    if config.negacyclic and not fused:
-        _not_ported("negacyclic polymul on the two-pass plan (build_plan("
-                    "..., fused=True) has it)", "Queue 1 item 4d")
-    if wmat_factored:
-        _not_ported("wmat_factored=True", "Queue 1 item 4g")
-    if wmat_fold is False:
-        _not_ported("wmat_fold=False", "Queue 1 item 4g")
+    flat = config.split[1] == 1
     if config.num_shards != 1:
-        _not_ported("the distributed plan", "Queue 1 item 10")
+        _not_ported("the distributed plan", ITEM_DISTRIBUTED)
+    if not flat:
+        if config.negacyclic and not fused:
+            _not_ported("negacyclic polymul on the two-pass four-step plan "
+                        "(build_plan(..., fused=True) and the flat split "
+                        "have it)", ITEM_NEGACYCLIC_FOLD)
+        if wmat_factored:
+            _not_ported("wmat_factored=True", ITEM_WMAT_ARMS)
+        if wmat_fold is False:
+            _not_ported("wmat_fold=False", ITEM_WMAT_ARMS)
 
     device = resolve_device(device)
     n = config.n
-    pos = tw.spectral_positions(n1, n2)
+    n1, n2 = (flat_inner_split(config.log_n, fused=fused) if flat
+              else config.split)
     if fused:
         passes = fused_passes(field, n1, n2, negacyclic=config.negacyclic,
                               reduction=kind, device=device)
         fwd_t, inv_t = passes["ff"], passes["fi"]
     else:
         passes = fold_passes(field, n1, n2, reduction=kind, device=device)
+        if config.negacyclic:  # flat: the fused plan's product
+            passes.update(negacyclic_passes(
+                field, *flat_inner_split(config.log_n, fused=True),
+                reduction=kind, device=device))
         cp1, cp2, icp2, icp1 = (passes[k]
                                 for k in ("cp1", "cp2", "icp2", "icp1"))
 
@@ -222,70 +330,59 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     if config.negacyclic:
         nf, ni = passes["nf"], passes["ni"]
 
-        def nega2d(a, b, shape):
-            fa = nf(as_i32(a).reshape(shape))
-            fb = nf(as_i32(b).reshape(shape))
+        def nega2d(a, b, lead):
+            fa = nf(as_i32(a).reshape(lead + nf.shape_in))
+            fb = nf(as_i32(b).reshape(lead + nf.shape_in))
             return ni(pointwise(fa, fb))
 
-    natural = config.ordering == "natural"
-    perm = torch.from_numpy(pos.astype(np.int64)).to(device)
-    inv_perm_np = np.empty(n, dtype=np.int64)
-    inv_perm_np[pos] = np.arange(n)
-    inv_perm = torch.from_numpy(inv_perm_np).to(device)
+    spectral, out_idx, in_idx = public_order(config, n1, n2, device)
 
-    def fwd_fn(a):
-        out = fwd2d(a, (n1, n2)).reshape(n)
-        return out[perm] if natural else out
+    def fwd_n(a, lead):
+        out = fwd2d(a, lead + (n1, n2)).reshape(lead + (n,))
+        return out if out_idx is None else out.index_select(-1, out_idx)
 
-    def inv_fn(a):
-        a = as_i32(a)
-        return inv2d(a[inv_perm] if natural else a, (n2, n1)).reshape(n)
+    def inv_n(a, lead):
+        a = as_i32(a).reshape(lead + (n,))
+        if out_idx is not None:
+            a = a.index_select(-1, in_idx)
+        return inv2d(a, lead + (n2, n1)).reshape(lead + (n,))
 
-    def polymul_fn(a, b):
-        return poly2d(a, b, (n1, n2)).reshape(n)
-
-    def batched_builder(B: int) -> dict:
-        bsh = (B, n1, n2)
-
-        def fwd_b(a):
-            out = fwd2d(a, bsh).reshape(B, n)
-            return out[:, perm] if natural else out
-
-        def inv_b(a):
-            a = as_i32(a).reshape(B, n)
-            return inv2d(a[:, inv_perm] if natural else a,
-                         (B, n2, n1)).reshape(B, n)
-
+    def callables(lead) -> dict:
+        """The flat callables over a leading shape `lead`, and the
+        matrix-form twins of a four-step plan."""
+        sh = lead + (n1, n2)
         out = {
-            "fwd": fwd_b,
-            "inv": inv_b,
-            "polymul": lambda a, b: poly2d(a, b, bsh).reshape(B, n),
-            "polymul_mat": lambda a, b: poly2d(a, b, bsh),
+            "fwd": lambda a: fwd_n(a, lead),
+            "inv": lambda a: inv_n(a, lead),
+            "polymul": lambda a, b: poly2d(a, b, sh).reshape(lead + (n,)),
         }
-        if not natural:
-            out["fwd_mat"] = lambda a: fwd2d(a, bsh)
-            out["inv_mat"] = lambda a: inv2d(a, (B, n2, n1))
         if nega2d is not None:
             out["negacyclic_polymul"] = (
-                lambda a, b: nega2d(a, b, bsh).reshape(B, n))
-            out["negacyclic_polymul_mat"] = lambda a, b: nega2d(a, b, bsh)
+                lambda a, b: nega2d(a, b, lead).reshape(lead + (n,)))
+        if flat:
+            return out
+        out["polymul_mat"] = lambda a, b: poly2d(a, b, sh)
+        if config.ordering != "natural":
+            out["fwd_mat"] = lambda a: fwd2d(a, sh)
+            out["inv_mat"] = lambda a: inv2d(a, lead + (n2, n1))
+        if nega2d is not None:
+            out["negacyclic_polymul_mat"] = lambda a, b: nega2d(a, b, lead)
         return out
 
+    one = callables(())
     return Plan(
         config=config,
         device=device,
-        fwd=fwd_fn,
-        inv=inv_fn,
-        polymul=polymul_fn,
-        spectral_to_natural=pos,
+        fwd=one["fwd"],
+        inv=one["inv"],
+        polymul=one["polymul"],
+        spectral_to_natural=spectral,
         reduction=kind,
         passes=passes,
-        fwd_mat=None if natural else (lambda a: fwd2d(a, (n1, n2))),
-        inv_mat=None if natural else (lambda a: inv2d(a, (n2, n1))),
-        polymul_mat=lambda a, b: poly2d(a, b, (n1, n2)),
-        negacyclic_polymul=(None if nega2d is None else
-                            lambda a, b: nega2d(a, b, (n1, n2)).reshape(n)),
-        negacyclic_polymul_mat=(None if nega2d is None else
-                                lambda a, b: nega2d(a, b, (n1, n2))),
-        _batched_builder=batched_builder,
+        fwd_mat=one.get("fwd_mat"),
+        inv_mat=one.get("inv_mat"),
+        polymul_mat=one.get("polymul_mat"),
+        negacyclic_polymul=one.get("negacyclic_polymul"),
+        negacyclic_polymul_mat=one.get("negacyclic_polymul_mat"),
+        _batched_builder=lambda B: callables((B,)),
     )

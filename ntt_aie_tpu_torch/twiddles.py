@@ -1,9 +1,10 @@
 """Twiddle-factor planning for the four-step column passes.
 
 A NumPy copy of the parts of ``ntt_aie_tpu.twiddles`` that the four-step
-fold and fused plans need (the port cannot import the reference package: its
-``__init__`` imports jax). The spectral order is still defined once:
-``col_network``/``spectral_positions`` here are line-for-line copies, and
+fold and fused plans and the flat stage loops need (the port cannot
+import the reference package: its ``__init__`` imports jax). The
+spectral order is still defined once: ``col_network``/
+``spectral_positions`` here are line-for-line copies, and
 ``tests/test_torch_tables.py`` pins every table to the reference with
 ``np.array_equal``. Every column transform of the port — the CUDA kernel
 and its plain PyTorch version — compiles from ``col_network``; never
@@ -159,6 +160,19 @@ def dit_stage_twiddles(field: PrimeField, n: int, *,
             for s in range(logn)]
 
 
+def pack_stage_twiddles(stages: list[np.ndarray], n: int) -> np.ndarray:
+    """Pack per-stage vectors into one (log2 n, n//2) matrix, each stage's
+    vector tiled to length n//2 (DIF stage s has n >> (s+1) values, DIT
+    stage s has 2^s): the flat stage loops' table layout
+    (``ops.stages``)."""
+    half = n // 2
+    logn = n.bit_length() - 1
+    out = np.zeros((logn, half), dtype=stages[0].dtype)
+    for s, vec in enumerate(stages):
+        out[s] = np.tile(vec, half // len(vec))
+    return out
+
+
 def nested_col_split(nn: int) -> int:
     """R for the nested R x S column decomposition (0 = plain DIF/DIT).
     Columns of 256 rows or more nest, with R = 2^floor(log2(nn)/2)."""
@@ -191,6 +205,16 @@ def spectral_positions(n1: int, n2: int) -> np.ndarray:
     s2 = colperm(n2)
     return (s2[:, None].astype(np.int32) * np.int32(n1)
             + s1[None, :].astype(np.int32)).ravel()
+
+
+def flat_gather(n1: int, n2: int) -> np.ndarray:
+    """g such that the flat (bit-reversed) spectrum of n = n1 * n2 points
+    is the (n1, n2) four-step spectrum's flat output at g: flat[j] =
+    fourstep[g[j]], g = spectral_positions(n1, n2)[bit_reverse_indices(n)].
+    Its inverse permutation is bit_reverse_indices(n)[spectral_positions(
+    n1, n2)] (both are involutions). int64, for torch's index_select."""
+    n = n1 * n2
+    return spectral_positions(n1, n2).astype(np.int64)[bit_reverse_indices(n)]
 
 
 def col_network(field: PrimeField, nn: int, *, direction: str,

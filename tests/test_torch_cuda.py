@@ -526,3 +526,80 @@ def test_default_device_is_the_card(cuda):
         "cuda"
     nc, _ = N.make_nested_colpass(64, 8)
     assert nc.net.tw.device.type == "cuda"
+
+
+# ---- the flat split: the four-step kernels at an internal split ----------
+
+# (field, reduction): every 32-bit reduction on a field 'auto' picks it
+# for, and ML-DSA's ring
+FLAT_FIELDS = [(T.P_469762049, "harvey4"), (T.P_998244353, "harvey"),
+               (T.P_2013265921, "montgomery"), (T.KYBER, "barrett"),
+               (T.DILITHIUM, "harvey4")]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("field,kind", FLAT_FIELDS)
+def test_flat_plans_match_plain_stages(cuda, field, kind, fused):
+    """Every flat size of the field (n = 4 up to 2^16, the default flat
+    range) through the kernels, against the plain flat stage loops on the
+    same card tensors, bit for bit; the roundtrip; the negacyclic product
+    against the cyclic one's oracle form on row 0."""
+    from ntt_aie_tpu_torch.ops import stages as S
+
+    g = torch.Generator(device=cuda).manual_seed(field.p % 1000)
+    top = min(16, field.max_n.bit_length() - 1)
+    for log_n in range(2, top + 1):
+        n = 1 << log_n
+        cfg = T.NTTConfig(field=field, log_n=log_n,
+                          negacyclic=2 * n <= field.max_n)
+        assert cfg.resolved_reduction == kind and cfg.split == (n, 1)
+        bat = T.build_plan(cfg, device=cuda, fused=fused).make_batched(3)
+        fs = S.make_flat_stages(field, n, reduction=kind, device=cuda)
+        x = torch.randint(0, field.p, (3, n), dtype=torch.int32, device=cuda,
+                          generator=g)
+        before = (C.colpass.launches, FF.fused_fourstep.launches)
+        y = bat["fwd"](x)
+        torch.cuda.synchronize()
+        assert (C.colpass.launches - before[0],
+                FF.fused_fourstep.launches - before[1]) == \
+            ((0, 1) if fused else (2, 0)), log_n
+        assert torch.equal(y, fs.fwd(x)), log_n
+        assert torch.equal(bat["inv"](y), x), log_n
+        if cfg.negacyclic:  # the fused plan's product on both plans
+            before = (C.colpass.launches, FF.fused_fourstep.launches)
+            got = bat["negacyclic_polymul"](x, x)[0].cpu().numpy()
+            assert (C.colpass.launches - before[0],
+                    FF.fused_fourstep.launches - before[1]) == (0, 3), log_n
+            want = ref.negacyclic_polymul(x[0].cpu().numpy(),
+                                          x[0].cpu().numpy(), field)
+            assert np.array_equal(got.astype(np.int64), want), log_n
+
+
+def test_gl_flat_plans_match_plain_stages(cuda):
+    from ntt_aie_tpu_torch.ops import stages as S
+
+    rng = np.random.default_rng(11)
+    for log_n in range(2, 15):
+        n = 1 << log_n
+        cfg = T.NTTConfig(field=T.GOLDILOCKS, log_n=log_n, negacyclic=True)
+        assert cfg.split == (n, 1)
+        bat = T.build_plan(cfg, device=cuda).make_batched(3)
+        fs = S.make_flat_stages(T.GOLDILOCKS, n, reduction="goldilocks",
+                                device=cuda)
+        xu = rng.integers(0, 1 << 64, (3, n), dtype=np.uint64) \
+            % np.uint64(GL_P)
+        x = M.gl_from_u64(xu, cuda)
+        before = (G.gl_colpass.launches, G.gl_mul.launches)
+        y = bat["fwd"](x)
+        torch.cuda.synchronize()
+        assert (G.gl_colpass.launches - before[0],
+                G.gl_mul.launches - before[1]) == (2, 0)
+        assert all(torch.equal(u, v) for u, v in zip(y, fs.fwd(x))), log_n
+        assert np.array_equal(M.gl_to_u64(*bat["inv"](y)), xu), log_n
+        before = G.gl_mul.launches
+        got = bat["negacyclic_polymul"](x, x)
+        torch.cuda.synchronize()
+        assert G.gl_mul.launches - before == 4
+        assert np.array_equal(
+            M.gl_to_u64(*got)[0].astype(object),
+            ref.negacyclic_polymul(xu[0], xu[0], T.GOLDILOCKS)), log_n

@@ -153,8 +153,6 @@ def test_context_serves_goldilocks(ordering):
 
 
 @pytest.mark.parametrize("kw,build_kw", [
-    ({"log_n": 12}, {}),                              # flat split (n <= 2^14)
-    ({"log_n": 12, "rows_log2": 6, "negacyclic": True}, {}),
     ({"log_n": 12, "rows_log2": 6}, {"wmat_factored": True}),
     ({"log_n": 12, "rows_log2": 6}, {"wmat_fold": False}),
 ])
@@ -162,3 +160,21 @@ def test_goldilocks_configs_not_ported_raise(kw, build_kw):
     cfg = T.NTTConfig(field=GL, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         T.build_plan(cfg, device="cpu", **build_kw)
+
+
+@pytest.mark.parametrize("rows_log2", [None, 6])
+def test_goldilocks_flat_and_negacyclic_match_oracle(rows_log2):
+    """The flat split (rows_log2 None: n = 2^12 runs flat) and the
+    negacyclic product, which raised before they were ported, against
+    the object-dtype NumPy oracles (tests/test_torch_gl_flat.py holds
+    them against the reference's XLA plans)."""
+    cfg = T.NTTConfig(field=GL, log_n=12, rows_log2=rows_log2,
+                      negacyclic=True)
+    plan = T.build_plan(cfg, device="cpu")
+    a, b = _rand(12, 0)
+    got = plan.fwd(a)
+    assert np.array_equal(got.astype(object)[plan.spectral_to_natural],
+                          ref.ntt_forward(a, GL))
+    assert np.array_equal(plan.inv(got), a)
+    assert np.array_equal(plan.negacyclic_polymul(a, b).astype(object),
+                          ref.negacyclic_polymul(a, b, GL))

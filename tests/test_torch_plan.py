@@ -190,7 +190,6 @@ def test_context_host_paths_match_reference(ordering):
 
 
 @pytest.mark.parametrize("kw,build_kw", [
-    ({"log_n": 11}, {}),                          # flat split at default rows
     ({"log_n": 11, "rows_log2": 4, "negacyclic": True}, {}),
     ({"log_n": 11, "rows_log2": 4}, {"fused": True, "wmat_factored": True}),
     ({"log_n": 11, "rows_log2": 4}, {"wmat_factored": True}),
@@ -203,10 +202,19 @@ def test_out_of_slice_configs_raise(kw, build_kw):
         T.build_plan(cfg, device="cpu", **build_kw)
 
 
-def test_unported_fields_raise():
-    # Goldilocks has its fold plan (tests/test_torch_gl_*.py); its flat
-    # split is not ported yet (p = 2013265921 runs under montgomery:
-    # tests/test_torch_red_montgomery.py)
-    cfg = T.NTTConfig(field=T.GOLDILOCKS, log_n=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.build_plan(cfg, device="cpu")
+@pytest.mark.parametrize("fused", [False, True])
+def test_flat_default_split_matches_oracle(fused):
+    """n = 2^11 on its default (flat) split, which raised before the flat
+    arm was ported: bit-reversed output against the NumPy oracle, the
+    roundtrip and the cyclic product (tests/test_torch_flat_plan.py holds
+    the flat plans against the reference's)."""
+    cfg = T.NTTConfig(field=T.P_469762049, log_n=11)
+    assert cfg.split == (2048, 1)
+    plan = T.build_plan(cfg, device="cpu", fused=fused)
+    a, b = _inputs(11)
+    got = _np(plan.fwd(torch.from_numpy(a[0])))
+    assert np.array_equal(got[plan.spectral_to_natural],
+                          ref.ntt_forward(a[0], T.P_469762049))
+    assert np.array_equal(_np(plan.inv(torch.from_numpy(got))), a[0])
+    assert np.array_equal(_np(plan.polymul(a[0], b[0])),
+                          ref.cyclic_polymul(a[0], b[0], T.P_469762049))

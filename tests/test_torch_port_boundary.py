@@ -23,9 +23,11 @@ MODULES = [
     "ntt_aie_tpu_torch.ops.modops",
     "ntt_aie_tpu_torch.ops.nested_colpass",
     "ntt_aie_tpu_torch.ops.reductions",
+    "ntt_aie_tpu_torch.ops.stages",
     "ntt_aie_tpu_torch.profiling",
     "ntt_aie_tpu_torch.profiling.roofline",
     "ntt_aie_tpu_torch.scripts",
+    "ntt_aie_tpu_torch.scripts.flat_splits",
     "ntt_aie_tpu_torch.scripts.fused_turns",
     "ntt_aie_tpu_torch.scripts.proto_nested_colpass",
     "ntt_aie_tpu_torch.scripts.sass_count",

@@ -250,3 +250,37 @@ def test_native_oracle_matches_numpy_oracle():
     assert np.array_equal(
         native_oracle.cyclic_polymul(a[0], b, w, f.p).astype(np.int64),
         tref.cyclic_polymul(a[0], b, f))
+
+
+@pytest.mark.parametrize("name", ["p469762049", "kyber", "goldilocks"])
+@pytest.mark.parametrize("n", [2, 16, 256])
+def test_pack_stage_twiddles_matches(name, n):
+    tf, jf = tF.FIELDS[name], jF.FIELDS[name]
+    for inverse in (False, True):
+        for tgen, jgen in ((ttw.dif_stage_twiddles, jtw.dif_stage_twiddles),
+                           (ttw.dit_stage_twiddles, jtw.dit_stage_twiddles)):
+            t = ttw.pack_stage_twiddles(tgen(tf, n, inverse=inverse), n)
+            j = jtw.pack_stage_twiddles(jgen(jf, n, inverse=inverse), n)
+            assert t.shape == (n.bit_length() - 1, n // 2)
+            assert np.array_equal(t, j)
+
+
+@pytest.mark.parametrize("log_n", [2, 3, 8, 9, 14, 16])
+def test_flat_gather_matches(log_n):
+    """The flat plans' gather from the internal four-step spectrum into
+    bit-reversed order, composed from the reference's own orders."""
+    from ntt_aie_tpu_torch.plan import flat_inner_split, inverse_permutation
+
+    n = 1 << log_n
+    n1, n2 = flat_inner_split(log_n)
+    g = ttw.flat_gather(n1, n2)
+    want = jtw.spectral_positions(n1, n2)[jtw.bit_reverse_indices(n)]
+    assert g.dtype == np.int64
+    assert np.array_equal(g, want)
+    assert np.array_equal(inverse_permutation(g),
+                          jtw.bit_reverse_indices(n)[
+                              jtw.spectral_positions(n1, n2)])
+    # the flat spectrum, read at natural position k, is the four-step
+    # spectrum at spectral_positions(n1, n2)[k]
+    assert np.array_equal(g[jtw.spectral_positions(n, 1)],
+                          jtw.spectral_positions(n1, n2))
