@@ -20,7 +20,10 @@ p = 2013265921, harvey at n = 2^20 over p = 998244353, both at B = 256, and
 barrett at n = 256 over Kyber's p = 3329 on the 16 x 16 split at
 B = 16,384; and the flat split (NTTConfig's default for a single shard up
 to n = 2^16, 2^14 for Goldilocks: the four-step kernels at an internal
-split, then one gather into bit-reversed order), F1-F5 of FLAT_PLANS.
+split, then one gather into bit-reversed order), F1-F5 of FLAT_PLANS;
+and the column kernel's 'pre' and 'post' operands: the negacyclic
+product on the fold plan, the wmat_fold=False arm, and exact RNS products
+with the CRT combine kernel.
 Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
@@ -165,6 +168,44 @@ Phases, one JSON object per line:
                  random rows against the native negacyclic product,
                  launches 6 / 4, and us/NTT of negacyclic_polymul beside
                  polymul.
+ 23. prepost_kernel — the column kernel's instantiations with 'pre' and
+                 'post' operands (PREPOST_PASSES: the fold plan's
+                 negacyclic ncp1 and nicp1, the wmat_fold=False arm's
+                 cp2, icp1, ncp1 and nicp1) against the plain version,
+                 raw and bit-exact, under harvey4 (1024x1024, 512x2048,
+                 32x64), montgomery and harvey (1024x1024, 32x64) and
+                 barrett (Kyber, 16x8), B = 1 and 4;
+ 24. nega_fold, nega_fold_time — the negacyclic product on the
+                 four-step fold plan (NEGA_PLANS: n = 2^20 over
+                 p = 469762049 at B = 256, over p = 2013265921 and
+                 998244353 at B = 64, Kyber n = 128 at B = 16,384):
+                 negacyclic_polymul_mat gated against the native oracle
+                 on row 0 plus 8 random rows, equal to the wmat_fold=False
+                 plan's, launches 6 column passes (2 ncp1, 2 cp2, icp2,
+                 nicp1) and 0 fused; at n = 2^20 over p = 469762049 equal
+                 to the fused plan's, and us/NTT of it beside the cyclic
+                 polymul_mat and the fused negacyclic product, ncp1 and
+                 nicp1 alone beside cp1 and icp1, their plain versions at
+                 B = 4, kernel_info;
+ 25. wmat_entry, wmat_entry_time — the wmat_fold=False plan at n = 2^20,
+                 B = 256 over p = 469762049 equal to the fold plan on
+                 every callable (fwd_mat, inv_mat, polymul_mat,
+                 negacyclic_polymul_mat and the flat four); fwd_mat and
+                 inv_mat of both timed in turns, the products, and cp2,
+                 icp1, ncp1, nicp1 of the entry arm alone with their plain
+                 versions at B = 4 and kernel_info;
+ 26. rns, rns_time — RNSPolymul over the default primes (p =
+                 2013265921, 998244353, 469762049) on the card (RNS_CASES:
+                 n = 2^20 at B = 16, cyclic and negacyclic, n = 2^16 at
+                 B = 64 negacyclic): each field's residue product on row 0
+                 and 2 random rows against the native oracle, the device
+                 limbs (csrc/crt.cu) against the host's object-math CRT of
+                 the same residues on those rows and against the plain
+                 combine on every coefficient, launches (18 column passes
+                 or 9 fused launches, and 1 combine); RNSPolymul(10)
+                 against the schoolbook integer product; the host-to-limbs
+                 time of polymul_limbs, its device part and the combine
+                 alone beside its byte bound.
 
 Then one line {"kernels": [...]}: per kernel its time at the main path's
 shape ("ms", per launch), launches, the plain version's time, and its
@@ -177,7 +218,10 @@ kernel), the fused row its inv_mat time, its kFuse and blocks per SM, the
 nested row its time, registers and blocks per SM at each fuse. Phases
 17-19 add a colpass[<reduction>] and a fused_fourstep[<reduction>] row
 for each of montgomery, harvey and barrett, bound by that reduction's
-probe rate. Each row's launches are its own path's; the flat phases'
+probe rate. Phases 24-26 add a colpass[<pass>] row for each 'pre'/'post'
+instantiation at n = 2^20, B = 256 (harvey4; each timed alone, its
+launches its own path's) and the crt row (the combine at n = 2^20,
+B = 16, three primes; bound by its bytes). Each row's launches are its own path's; the flat phases'
 (phases 20 and 22's driven calls) are under "flat_launches". Last, the
 result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -249,6 +293,33 @@ FLAT_ROUTE_A = (("kyber", 8, 16384), ("p469762049", 12, 4096))
 RED_KERNEL_SHAPES = {"montgomery": ((1024, 1024), (32, 64)),
                      "harvey": ((1024, 1024), (32, 64)),
                      "barrett": ((16, 16), (16, 8))}
+# The column kernel's instantiations with 'pre' and 'post' operands, by
+# the plan passes that run them (phase 23): (fold_passes keyword
+# arguments, pass)
+PREPOST_PASSES = (({"negacyclic": True}, "ncp1"),
+                  ({"negacyclic": True}, "nicp1"),
+                  ({"wmat_fold": False}, "cp2"),
+                  ({"wmat_fold": False}, "icp1"),
+                  ({"wmat_fold": False, "negacyclic": True}, "ncp1"),
+                  ({"wmat_fold": False, "negacyclic": True}, "nicp1"))
+# (reduction, field name, (n1, n2) splits) of phase 23: the main path's
+# split, an asymmetric nested one and a plain one; Kyber at its largest
+# negacyclic size
+PREPOST_KERNEL_SHAPES = (
+    ("harvey4", "p469762049", ((1024, 1024), (512, 2048), (32, 64))),
+    ("montgomery", "p2013265921", ((1024, 1024), (32, 64))),
+    ("harvey", "p998244353", ((1024, 1024), (32, 64))),
+    ("barrett", "kyber", ((16, 8),)))
+# The negacyclic fold plans of phase 24: (field name, log_n, rows_log2,
+# batch): the main path's size over p = 469762049, the other two default
+# RNS primes at B = 64, and Kyber at n = 128 (its largest negacyclic size)
+# on a pinned split at the batch of an ML-KEM endpoint
+NEGA_PLANS = (("p469762049", 20, None, 256), ("p2013265921", 20, None, 64),
+              ("p998244353", 20, None, 64), ("kyber", 7, 3, 16384))
+# RNSPolymul on the card (phase 26): (log_n, negacyclic, batch), and the
+# log_n held against the schoolbook integer product
+RNS_CASES = ((20, False, 16), (20, True, 16), (16, True, 64))
+RNS_EXACT_LOG_N = 10
 
 
 def emit(obj) -> None:
@@ -468,6 +539,24 @@ def main() -> int:
     flat_launches = flat_phases(args, dev, card, rng)
     if flat_launches is None:
         return 1
+    torch.cuda.empty_cache()
+    prepost_errs = prepost_kernel_phase(args, dev)
+    if prepost_errs is None:
+        return 1
+    torch.cuda.empty_cache()
+    got = nega_fold_phase(args, dev, card, rng)
+    if got is None:
+        return 1
+    nega_launches, nega_time = got
+    torch.cuda.empty_cache()
+    got = wmat_entry_phase(args, dev, card)
+    if got is None:
+        return 1
+    entry_launches, entry_time = got
+    torch.cuda.empty_cache()
+    crt_row = rns_phase(args, dev, card, rng)
+    if crt_row is None:
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -487,6 +576,18 @@ def main() -> int:
         "kfuse": info["cp1"]["kfuse"], "registers": info["cp1"]["registers"],
         "blocks_per_sm": info["cp1"]["blocks_per_sm"],
     }] + gl_rows + [fused_row] + nested_rows + red_rows
+    rows += _prepost_rows(prepost_errs, nega_launches, nega_time,
+                          entry_launches, entry_time, B, n)
+    rows.append({
+        "name": "crt", "route": "cuda",
+        "source": "ntt_aie_tpu_torch/csrc/crt.cu",
+        "replaces": "ntt_aie_tpu/ops/crt.py:89 (XLA, a helper kernel)",
+        "launches": crt_row["launches"], "max_abs_err": crt_row["max_abs_err"],
+        "ms": crt_row["ms"], "plain_ms": crt_row["plain_ms"],
+        "batch": crt_row["batch"], "plain_batch": crt_row["batch"],
+        "bytes": crt_row["bytes"], "butterflies": 0,
+        "coefficients": crt_row["count"], "primes": crt_row["k"],
+        "nwords": crt_row["nwords"]})
     # each row's launches are its own path's; the flat phases' apart
     for row in rows:
         row["flat_launches"] = flat_launches.get(row["name"], 0)
@@ -495,6 +596,40 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _prepost_rows(errs, nega_launches, nega_time, entry_launches,
+                  entry_time, B, n):
+    """The kernels-line rows of the column kernel's 'pre'/'post'
+    instantiations at n = 2^20, B = 256 over p = 469762049 (harvey4): each
+    timed alone (phases 24 and 25), its launches from its own path's run
+    (the fold plan's negacyclic product; the entry arm's callables), its
+    bytes the input and output once and its operand tables ((w, w') pairs,
+    8 bytes a value), its butterflies the column network's."""
+    specs = (("ncp1", "dif+pre+post_t+T", nega_time, nega_launches, 2),
+             ("nicp1", "dit+post", nega_time, nega_launches, 1),
+             ("entry:cp2", "dif+pre", entry_time, entry_launches, 1),
+             ("entry:icp1", "dit+pre", entry_time, entry_launches, 1),
+             ("entry:ncp1", "dif+pre+T", entry_time, entry_launches, 1),
+             ("entry:nicp1", "dit+pre+post", entry_time, entry_launches, 2))
+    rows = []
+    for name, variant, line, launches, tables in specs:
+        key = name.split(":")[-1]
+        info = line["kernel_info"][key]
+        rows.append({
+            "name": f"colpass[{name}]", "route": "cuda",
+            "source": "ntt_aie_tpu_torch/csrc/colpass.cu",
+            "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:298",
+            "variant": variant, "launches": launches.get(variant, 0),
+            "max_abs_err": errs.get(variant, 0),
+            "ms": line["pass_us_per_call"][key] / 1e3,
+            "plain_ms": line["plain_us_per_call"][key] / 1e3,
+            "batch": B, "plain_batch": line["plain_batch"],
+            "bytes": 2 * B * n * 4 + tables * n * 8,
+            "butterflies": B * n // 2 * 10, "arithmetic": "harvey4",
+            "registers": info["registers"],
+            "blocks_per_sm": info["blocks_per_sm"]})
+    return rows
 
 
 def _with_bound(row, roof):
@@ -1820,6 +1955,405 @@ def gl_negacyclic_phase(dev, card, gen, rng):
                     "trimmed mean; us per NTT = us per call / batch; "
                     "product of x with itself"})
     return {"gl_colpass": launches[0], "gl_mul": launches[1]}
+
+
+def prepost_kernel_phase(args, dev):
+    """Phase 23: the column kernel's instantiations with 'pre' and 'post'
+    operands (PREPOST_PASSES) against the plain version, raw and bit-exact,
+    under all four reductions at PREPOST_KERNEL_SHAPES, B = 1 and 4.
+    Returns {instantiation: largest error}, or None after emitting the
+    failure."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.plan import fold_passes
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    errs = {}
+    for kind, name, shapes in PREPOST_KERNEL_SHAPES:
+        field = T.FIELDS[name]
+        top = _domain_top(kind, field.p)
+        for n1, n2 in shapes:
+            for kw, pname in PREPOST_PASSES:
+                cp = fold_passes(field, n1, n2, reduction=kind, device=dev,
+                                 **kw)[pname]
+                key = C.variant(cp)
+                rows, cols = (n2, n1) if pname == "cp2" else (n1, n2)
+                for B in (1, 4):
+                    x = torch.randint(0, top, (B, rows, cols),
+                                      dtype=torch.int64, device=dev,
+                                      generator=gen).to(torch.int32)
+                    got = C.colpass(x, cp)
+                    torch.cuda.synchronize()
+                    want = C.colpass_plain(x, cp)
+                    err = int((got.long() - want.long()).abs().max())
+                    errs[key] = max(errs.get(key, 0), err)
+                    if err or not torch.equal(got, want):
+                        emit({"phase": "prepost_kernel", "reduction": kind,
+                              "pass": pname, "variant": key,
+                              "shape": [B, rows, cols], "max_abs_err": err})
+                        fail("prepost_kernel", f"{kind} {pname} ({key}) "
+                             f"{[B, rows, cols]} differs from its plain "
+                             "version")
+                        return None
+        emit({"phase": "prepost_kernel", "reduction": kind,
+              "shapes": [list(s) for s in shapes],
+              "passes": [f"{pname}{'' if kw.get('wmat_fold', True) else '[entry]'}"
+                         for kw, pname in PREPOST_PASSES],
+              "batches": [1, 4], "equal": True, "max_abs_err": 0})
+    return errs
+
+
+def _gate_negacyclic(d, a, b, rows, field, dev):
+    """Rows of the (B, n1, n2) product d against the native negacyclic
+    product of the same rows of a and b."""
+    import numpy as np
+    import torch
+
+    from ntt_aie_tpu_torch import native_oracle
+
+    n = a.shape[1] * a.shape[2]
+    idx = torch.from_numpy(rows).to(dev)
+    got = d[idx].reshape(len(rows), n).cpu().numpy().astype(np.uint64)
+    ra = a[idx].reshape(len(rows), n).cpu().numpy()
+    rb = b[idx].reshape(len(rows), n).cpu().numpy()
+    psi = field.root_of_unity(2 * n)
+    return all(np.array_equal(
+        got[i], native_oracle.negacyclic_polymul(ra[i], rb[i], psi,
+                                                 field.p).astype(np.uint64))
+        for i in range(len(rows)))
+
+
+def nega_fold_phase(args, dev, card, rng):
+    """Phase 24: the negacyclic product on the four-step fold plan
+    (NEGA_PLANS), gated on the native oracle on row 0 and 8 random rows,
+    its launches counted (6 column passes, 0 fused launches; the
+    instantiations by colpass.launches_by), equal to the wmat_fold=False
+    plan's; timed beside the cyclic product and the fused plan's
+    negacyclic product; the harvey4 plan's ncp1 and nicp1 timed alone
+    beside cp1 and icp1, and their plain versions at a batch of 4.
+    Returns (launches by instantiation, timing line), or None after
+    emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+    main_launches, timing = None, None
+    for name, log_n, rows_log2, B in NEGA_PLANS:
+        field = T.FIELDS[name]
+        cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2,
+                          negacyclic=True)
+        n1, n2 = cfg.split
+        plan = T.build_plan(cfg, device=dev)
+        bat = plan.make_batched(B)
+        a, b = (torch.randint(0, field.p, (B, n1, n2), dtype=torch.int32,
+                              device=dev, generator=gen) for _ in range(2))
+        C.colpass.launches = F.fused_fourstep.launches = 0
+        C.colpass.launches_by = {}
+        d = bat["negacyclic_polymul_mat"](a, b)
+        torch.cuda.synchronize()
+        launches = [C.colpass.launches, F.fused_fourstep.launches]
+        by = dict(C.colpass.launches_by)
+        gate_rows = np.concatenate(
+            [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
+        gate_ok = _gate_negacyclic(d, a, b, gate_rows, field, dev)
+        entry = T.build_plan(cfg, device=dev, wmat_fold=False)
+        entry_ok = bool(torch.equal(
+            entry.make_batched(B)["negacyclic_polymul_mat"](a, b), d))
+        del d
+        counts_ok = launches == [6, 0] and by == {
+            "dif+pre+post_t+T": 2, "dif": 2, "dit+post_t+T": 1,
+            "dit+post": 1}
+        ok = bool(gate_ok and entry_ok and counts_ok)
+        emit({"phase": "nega_fold", "field": name, "p": field.p,
+              "n": cfg.n, "split": [n1, n2], "batch": B,
+              "reduction": plan.reduction, "oracle": "native",
+              "gate_rows": gate_rows.tolist(), "gate_ok": bool(gate_ok),
+              "entry_equals_fold": entry_ok, "launches": launches,
+              "launches_by": by, "launches_ok": counts_ok, "ok": ok})
+        if not ok:
+            fail("nega_fold", f"the fold plan's negacyclic product over "
+                 f"{name} disagrees with the native oracle or the entry "
+                 "arm, or did not launch 6 column passes")
+            return None
+        if main_launches is None:
+            main_launches = by
+            fused = T.build_plan(cfg, device=dev, fused=True)
+            fb = fused.make_batched(B)
+            fused_ok = bool(torch.equal(fb["negacyclic_polymul_mat"](a, b),
+                                        bat["negacyclic_polymul_mat"](a, b)))
+            us = {k: time_device(lambda t, f=f: f(t, t), a)["us_per_iter"]
+                  / B for k, f in (
+                      ("fold_polymul_mat", bat["polymul_mat"]),
+                      ("fold_negacyclic_polymul_mat",
+                       bat["negacyclic_polymul_mat"]),
+                      ("fused_negacyclic_polymul_mat",
+                       fb["negacyclic_polymul_mat"]))}
+            del fused, fb
+            passes = plan.passes
+            pass_us = {k: time_device(passes[k], a)["us_per_iter"]
+                       for k in ("cp1", "ncp1", "icp1", "nicp1")}
+            xp = a[:4]
+            plain_us = {k: time_device(
+                lambda t, cp=passes[k]: C.colpass_plain(t, cp), xp,
+                iters=2, repeats=3)["us_per_iter"] for k in ("ncp1", "nicp1")}
+            info = {k: C.kernel_info(passes[k], n2)
+                    for k in ("cp1", "ncp1", "icp1", "nicp1")}
+            timing = {"phase": "nega_fold_time", "field": name, "n": cfg.n,
+                      "batch": B, "card": card,
+                      "fused_equals_fold": fused_ok,
+                      "us_per_ntt": us,
+                      "pass_us_per_call": pass_us, "plain_batch": 4,
+                      "plain_us_per_call": plain_us, "kernel_info": info,
+                      "method": "CUDA events; kernel: 5 repeats of a "
+                                "dependent chain of 10, plain: 3 repeats "
+                                "of 2; trimmed mean; us per NTT = us per "
+                                "call / batch; products of x with itself"}
+            emit(timing)
+            if not fused_ok:
+                fail("nega_fold", "the fold plan's negacyclic product "
+                     "differs from the fused plan's")
+                return None
+        del plan, bat, entry, a, b
+        torch.cuda.empty_cache()
+    return main_launches, timing
+
+
+def wmat_entry_phase(args, dev, card):
+    """Phase 25: the wmat_fold=False plan (the four-step multiply at the
+    second pass's entry, 'pre') at n = 2^20, B = 256 over p = 469762049,
+    equal to the fold plan on every callable; fwd_mat and inv_mat of both
+    timed in turns (fold, entry, entry, fold), the products once each,
+    and cp2, icp1, ncp1 and nicp1 of the entry arm alone, with their plain
+    versions at a batch of 4. Returns (launches by instantiation, timing
+    line), or None after emitting the failure."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    field, B = T.P_469762049, 256
+    cfg = T.NTTConfig(field=field, log_n=20, negacyclic=True)
+    n, (n1, n2) = cfg.n, cfg.split
+    fold = T.build_plan(cfg, device=dev).make_batched(B)
+    entry_plan = T.build_plan(cfg, device=dev, wmat_fold=False)
+    entry = entry_plan.make_batched(B)
+    x, y = (torch.randint(0, field.p, (B, n1, n2), dtype=torch.int32,
+                          device=dev, generator=gen) for _ in range(2))
+    operands = {"fwd_mat": (x,), "inv_mat": (x,), "polymul_mat": (x, y),
+                "negacyclic_polymul_mat": (x, y),
+                "fwd": (x.reshape(B, n),), "inv": (x.reshape(B, n),),
+                "polymul": (x.reshape(B, n), y.reshape(B, n)),
+                "negacyclic_polymul": (x.reshape(B, n), y.reshape(B, n))}
+    equal, by = {}, {}
+    for key, ops in operands.items():
+        C.colpass.launches_by = {}
+        got = entry[key](*ops)
+        torch.cuda.synchronize()
+        for k, v in C.colpass.launches_by.items():
+            by[k] = by.get(k, 0) + v
+        equal[key] = bool(torch.equal(got, fold[key](*ops)))
+        del got
+    ok = all(equal.values())
+    emit({"phase": "wmat_entry", "n": n, "split": [n1, n2], "batch": B,
+          "equal_to_fold": equal, "launches_by": by, "ok": ok})
+    if not ok:
+        fail("wmat_entry", "the wmat_fold=False plan differs from the fold "
+             "plan")
+        return None
+    turns = {}
+    for key in ("fwd_mat", "inv_mat"):
+        f_us, e_us = _in_turns(fold[key], entry[key], x)
+        turns[key] = {"fold_us_per_ntt": f_us / B, "entry_us_per_ntt": e_us / B,
+                      "entry_over_fold": e_us / f_us}
+    for key in ("polymul_mat", "negacyclic_polymul_mat"):
+        turns[key] = {"entry_us_per_ntt": time_device(
+            lambda t, f=entry[key]: f(t, t), x)["us_per_iter"] / B}
+    passes = entry_plan.passes
+    pass_us = {k: time_device(passes[k], x)["us_per_iter"]
+               for k in ("cp2", "icp1", "ncp1", "nicp1")}
+    plain_us = {k: time_device(lambda t, cp=passes[k]: C.colpass_plain(t, cp),
+                               x[:4], iters=2, repeats=3)["us_per_iter"]
+                for k in ("cp2", "icp1", "ncp1", "nicp1")}
+    info = {k: C.kernel_info(passes[k], n1 if k == "cp2" else n2)
+            for k in ("cp2", "icp1", "ncp1", "nicp1")}
+    timing = {"phase": "wmat_entry_time", "n": n, "batch": B, "card": card,
+              "us": turns, "pass_us_per_call": pass_us, "plain_batch": 4,
+              "plain_us_per_call": plain_us, "kernel_info": info,
+              "method": "CUDA events; 5 repeats of a dependent chain of 10, "
+                        "trimmed mean; fwd_mat/inv_mat in turns fold, "
+                        "entry, entry, fold, the mean of two readings; "
+                        "products of x with itself; plain: 3 repeats of 2"}
+    emit(timing)
+    return by, timing
+
+
+def rns_phase(args, dev, card, rng):
+    """Phase 26: RNSPolymul on the card (RNS_CASES): the residue products
+    against the native oracle on row 0 and 2 random rows, the device limbs
+    against the host's object-math CRT of the same residues on those rows
+    and against the plain combine on every coefficient, and launches; the
+    exactness of RNSPolymul(RNS_EXACT_LOG_N) against the schoolbook integer
+    product; timings of polymul_limbs (host to limbs), of its device part
+    and of the combine alone. Returns the crt row's numbers, or None after
+    emitting the failure."""
+    import math
+    import time
+
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import crt
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    row = None
+    max_err = 0
+    for log_n, negacyclic, B in RNS_CASES:
+        rns = T.RNSPolymul(log_n, negacyclic=negacyclic, device=dev)
+        n, bound = rns.n, rns.max_input_bound()
+        a, b = (rng.integers(-bound, bound + 1, (B, n)) for _ in range(2))
+        ra, rb = rns._residues(a), rns._residues(b)
+        C.colpass.launches = F.fused_fourstep.launches = 0
+        crt.crt_combine.launches = 0
+        pending, mat = rns._residue_products(a, b)
+        limbs = rns._combine(*pending)
+        torch.cuda.synchronize()
+        launches = {"colpass": C.colpass.launches,
+                    "fused_fourstep": F.fused_fourstep.launches,
+                    "crt": crt.crt_combine.launches}
+        rows = np.concatenate(
+            [[0], rng.choice(np.arange(1, B), size=2, replace=False)])
+        idx = torch.from_numpy(rows).to(dev)
+        res_ok = True
+        res_rows = [r[idx].reshape(len(rows), n).cpu().numpy().view(np.uint32)
+                    for r in pending]
+        for f, got, fa, fb in zip(rns.fields, res_rows, ra, rb):
+            for i, r in enumerate(rows):
+                if negacyclic:
+                    want = native_oracle.negacyclic_polymul(
+                        fa[r], fb[r], f.root_of_unity(2 * n), f.p)
+                else:
+                    want = native_oracle.cyclic_polymul(
+                        fa[r], fb[r], f.root_of_unity(n), f.p)
+                res_ok = res_ok and np.array_equal(
+                    got[i].astype(np.uint64), want.astype(np.uint64))
+        host = np.zeros((len(rows), n), dtype=object)
+        for r, e in zip(res_rows, rns._basis):
+            host += r.astype(object) * e
+        host %= rns.modulus
+        host = np.where(host > rns.modulus >> 1, host - rns.modulus, host)
+        dev_rows = crt.limbs_to_int(limbs.reshape(B, n, rns.nwords)[idx])
+        crt_ok = np.array_equal(dev_rows, host)
+        plain = crt.crt_combine_plain(pending, rns._combine)
+        err = int((plain.long() - limbs.long()).abs().max())
+        max_err = max(max_err, err)
+        del plain
+        nf = len(rns.fields)
+        want_launches = ({"colpass": 6 * nf, "fused_fourstep": 0, "crt": 1}
+                         if mat else
+                         {"colpass": 0 if negacyclic else 6 * nf,
+                          "fused_fourstep": 3 * nf if negacyclic else 0,
+                          "crt": 1})
+        counts_ok = launches == want_launches
+        ok = bool(res_ok and crt_ok and err == 0 and counts_ok)
+        emit({"phase": "rns", "log_n": log_n, "negacyclic": negacyclic,
+              "batch": B, "primes": [f.p for f in rns.fields],
+              "modulus_bits": rns.modulus.bit_length(),
+              "nwords": rns.nwords, "matrix_form": mat,
+              "rows": rows.tolist(), "residues_ok": bool(res_ok),
+              "crt_rows_ok": bool(crt_ok), "kernel_vs_plain_max_abs_err": err,
+              "launches": launches, "launches_ok": counts_ok, "ok": ok})
+        if not ok:
+            fail("rns", f"RNSPolymul({log_n}, negacyclic={negacyclic}) at "
+                 f"B = {B} failed its residue, CRT or launch gates")
+            return None
+        # timings: host to limbs; the device part; the combine alone
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rns.polymul_limbs(a, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        tas = [torch.from_numpy(v.view(np.int32)).to(dev) for v in ra]
+        tbs = [torch.from_numpy(v.view(np.int32)).to(dev) for v in rb]
+        key = "negacyclic_polymul" if negacyclic else "polymul"
+
+        def device_part(t):
+            outs = []
+            for plan, u, v in zip(rns.plans, tas, tbs):
+                bat = plan.make_batched(B)
+                if mat:
+                    shape = (B,) + plan.config.split
+                    outs.append(bat[key + "_mat"](u.reshape(shape),
+                                                  v.reshape(shape)))
+                else:
+                    outs.append(bat[key](u, v))
+            rns._combine(*outs)
+            return t
+
+        dev_us = time_device(device_part, tas[0], iters=3,
+                             repeats=3)["us_per_iter"]
+        comb_us = time_device(lambda t: (rns._combine(*pending), t)[1],
+                              pending[0])["us_per_iter"]
+        plain_us = time_device(
+            lambda t: (crt.crt_combine_plain(pending, rns._combine), t)[1],
+            pending[0], iters=2, repeats=3)["us_per_iter"]
+        count = B * n
+        nbytes = (nf + rns.nwords) * 4 * count
+        line = {"phase": "rns_time", "log_n": log_n,
+                "negacyclic": negacyclic, "batch": B, "card": card,
+                "polymul_limbs_host_s": sorted(walls)[1],
+                "device_us_per_product": dev_us / B,
+                "combine_us": comb_us, "combine_plain_us": plain_us,
+                "combine_bytes": nbytes,
+                "combine_byte_bound_us": nbytes / (SPEC_HBM_GBPS * 1e3),
+                "method": "polymul_limbs: host clock around a synchronized "
+                          "call, median of 3 (residues on the host, "
+                          "uploads, products, combine); device part and "
+                          "combine: CUDA events, trimmed mean"}
+        emit(line)
+        if row is None:
+            row = {"launches": launches["crt"], "ms": comb_us / 1e3,
+                   "plain_ms": plain_us / 1e3, "bytes": nbytes,
+                   "count": count, "k": nf, "nwords": rns.nwords,
+                   "batch": B, "log_n": log_n}
+        del rns, pending, limbs, tas, tbs
+        torch.cuda.empty_cache()
+    # exactness against the schoolbook integer product
+    n = 1 << RNS_EXACT_LOG_N
+    for negacyclic in (False, True):
+        rns = T.RNSPolymul(RNS_EXACT_LOG_N, negacyclic=negacyclic, device=dev)
+        bound = rns.max_input_bound()
+        a, b = (rng.integers(-bound, bound + 1, (2, n)) for _ in range(2))
+        got = rns.polymul(a, b)
+        exact = True
+        for r in range(2):
+            full = np.convolve(a[r].astype(object), b[r].astype(object))
+            want = full[:n].copy()
+            want[:n - 1] += (-1 if negacyclic else 1) * full[n:]
+            exact = exact and np.array_equal(got[r], want)
+        emit({"phase": "rns", "log_n": RNS_EXACT_LOG_N,
+              "negacyclic": negacyclic, "batch": 2, "bound": bound,
+              "schoolbook_exact": bool(exact), "ok": bool(exact)})
+        if not exact:
+            fail("rns", f"RNSPolymul({RNS_EXACT_LOG_N}) differs from the "
+                 "schoolbook product")
+            return None
+    row["max_abs_err"] = max_err
+    return row
 
 
 if __name__ == "__main__":

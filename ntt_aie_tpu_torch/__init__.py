@@ -2,23 +2,35 @@
 NVIDIA Hopper.
 
 A port of ``ntt_aie_tpu`` (the JAX/Pallas reference, which stays the
-oracle). It imports torch and numpy and never jax. Ported so far: the
-single-device four-step fold plan over harvey4 fields (p < 2^29) and over
-Goldilocks (p = 2^64 - 2^32 + 1, as (hi, lo) limb planes), with each
-column pass as a hand-written CUDA kernel (``ops/colpass.py`` and
-``csrc/colpass.cu``; ``ops/gl_colpass.py`` and ``csrc/gl_colpass.cu``) and
-its plain PyTorch version on the CPU; and, for harvey4 fields, the fused
-plan (``build_plan(..., fused=True)``: one launch of
-``csrc/fused_fourstep.cu`` a transform, ``ops/fused_fourstep.py``) with
-its negacyclic product; the round-4 nested R x S column pass
-(``ops/nested_colpass.py``, ``csrc/nested_colpass.cu``, run by
-``scripts/proto_nested_colpass.py``) and the roofline probes
-(``profiling/roofline.py``, ``csrc/bfly_probe.cu``); and the flat split
-(``NTTConfig.split`` = (n, 1), the default for a single shard up to
-n = 2^16, 2^14 for Goldilocks), which runs these kernels at an internal
-split and gathers into bit-reversed order, its plain version the
-reference's stage loops (``ops/stages.py``). Entry points run on the
-card unless the caller passes ``device="cpu"``.
+oracle). It imports torch and numpy and never jax. Ported so far, on one
+device:
+
+- the four-step fold plan over the 32-bit fields under every reduction
+  (harvey4 p < 2^29, harvey p < 2^30, montgomery odd p < 2^31, barrett
+  p < 2^14; ``NTTConfig.reduction``) and over Goldilocks
+  (p = 2^64 - 2^32 + 1, as (hi, lo) limb planes), each column pass a
+  hand-written CUDA kernel (``ops/colpass.py`` and ``csrc/colpass.cu``;
+  ``ops/gl_colpass.py`` and ``csrc/gl_colpass.cu``) with its plain
+  PyTorch version on the CPU; for the 32-bit fields its ``wmat_fold=False``
+  arm and its negacyclic product, whose psi scalings ride the column
+  passes as 'pre' and 'post' operands;
+- for the 32-bit fields the fused plan (``build_plan(..., fused=True)``:
+  one launch of ``csrc/fused_fourstep.cu`` a transform,
+  ``ops/fused_fourstep.py``) with its negacyclic product;
+- the flat split (``NTTConfig.split`` = (n, 1), the default for a single
+  shard up to n = 2^16, 2^14 for Goldilocks), which runs these kernels at
+  an internal split and gathers into bit-reversed order, its plain
+  version the reference's stage loops (``ops/stages.py``);
+- exact big-integer products: ``RNSPolymul`` (``rns.py``) over several
+  word primes, recombined by ``make_crt_combine`` (``ops/crt.py``, the
+  CUDA kernel ``csrc/crt.cu``) into uint32 limbs, ``limbs_to_int`` on
+  the host;
+- the round-4 nested R x S column pass (``ops/nested_colpass.py``,
+  ``csrc/nested_colpass.cu``, run by ``scripts/proto_nested_colpass.py``)
+  and the roofline probes (``profiling/roofline.py``,
+  ``csrc/bfly_probe.cu``).
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from ntt_aie_tpu_torch.fields import (  # noqa: F401
@@ -35,3 +47,5 @@ from ntt_aie_tpu_torch.config import NTTConfig  # noqa: F401
 from ntt_aie_tpu_torch.plan import Plan, build_plan  # noqa: F401
 from ntt_aie_tpu_torch.goldilocks_plan import build_goldilocks_plan  # noqa: F401
 from ntt_aie_tpu_torch.api import NTTContext  # noqa: F401
+from ntt_aie_tpu_torch.rns import RNSPolymul  # noqa: F401
+from ntt_aie_tpu_torch.ops.crt import limbs_to_int, make_crt_combine  # noqa: F401

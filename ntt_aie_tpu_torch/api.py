@@ -24,14 +24,16 @@ class NTTContext:
         A = ctx.forward(a)           # flat spectral-order NTT
         c = ctx.polymul(a, b)        # NTT -> pointwise -> INTT
 
-    With NTTConfig(negacyclic=True) (32-bit four-step splits: and
-    fused=True), ctx.negacyclic_polymul(a, b) is the product mod X^n + 1.
+    With NTTConfig(negacyclic=True), ctx.negacyclic_polymul(a, b) is the
+    product mod X^n + 1 (on a four-step fold plan the column passes ncp1
+    and nicp1 carry psi^i and psi^-i as 'pre' and 'post' operands).
     A flat configuration (split (n, 1), the default up to n = 2^16, 2^14
     for Goldilocks) has forward/inverse/polymul/negacyclic_polymul and no
     matrix-form callables, as the reference's.
 
     Plan keyword arguments (fused, wmat_factored, wmat_fold) forward to
-    build_plan. device=None is the card, and raises RuntimeError without
+    build_plan (wmat_fold=False: the four-step multiply at the second
+    pass's entry; wmat_factored=True is not ported). device=None is the card, and raises RuntimeError without
     one; device="cpu" runs the plain PyTorch version.
     """
 
@@ -103,8 +105,7 @@ class NTTContext:
                 f"this plan has no {name} (a flat plan, split (n, 1), has "
                 "no matrix-form twins, as the reference's has none; the "
                 "fwd/inv twins need the default spectral ordering; the "
-                "32-bit negacyclic twin needs NTTConfig(negacyclic=True) "
-                "and fused=True)")
+                "negacyclic twin needs NTTConfig(negacyclic=True))")
         return fn
 
     def forward_mat(self, a):

@@ -8,13 +8,26 @@
 //   cp1  = DIF over n1, then the 'post_t' wmat multiply, transpose_out;
 //   cp2  = DIF over n2, then canonicalize;
 //   icp2 = DIT over n2, then the 'post_t' iwmat multiply, transpose_out;
-//   icp1 = DIT over n1, then canonicalize.
+//   icp1 = DIT over n1, then canonicalize;
+// and the 'pre' and 'post' operands the other plan arms run (plan.py
+// fold_passes), each a full (nn, ncols) table indexed like the input:
+//   ncp1 (negacyclic, fold)  = 'pre' psi, DIF over n1, 'post_t' wmat,
+//                              transpose_out;
+//   nicp1 (negacyclic, fold) = DIT over n1, 'post' psi^-1, canonicalize;
+//   wmat_fold=False: cp2 = 'pre' wmat, DIF over n2, canonicalize; icp1 =
+//     'pre' iwmat, DIT over n1, canonicalize; ncp1 = 'pre' psi, DIF over
+//     n1, transpose_out; nicp1 = 'pre' iwmat, DIT over n1, 'post' psi^-1,
+//     canonicalize.
+// pick_kernel instantiates those combinations and no other.
 //
-// What it computes, per column of a (B, nn, ncols) uint32 array: every
-// butterfly stage of the column network (colpass_tile.cuh, which also
-// states the arithmetic and the nested row map). Store: optional
+// What it computes, per column of a (B, nn, ncols) uint32 array: the
+// optional 'pre' multiply as the values load, every butterfly stage of the
+// column network (colpass_tile.cuh, which also states the arithmetic and
+// the nested row map), the optional 'post' multiply. Store: optional
 // transpose to (B, ncols, nn), then the elementwise multiply by a
-// (ncols, nn)-oriented matrix, then canonicalize.
+// (ncols, nn)-oriented matrix ('post_t'), then canonicalize. The order is
+// the reference's (build_colpass: pre, stages, post, transpose, post_t,
+// canonicalize).
 // Output domain: the reduction's ([0, 4p) Harvey4, [0, 2p) Harvey, [0, p)
 // Montgomery and Barrett) without canonicalize, [0, p) with it.
 //
@@ -60,6 +73,12 @@
 // Harvey4's numbers, the main path's; the other reductions run the same
 // design as it stands (a Montgomery or Barrett table's second word is zero
 // and still loaded with the pair, PERF.md gives their readings).
+// The 'pre' and 'post' instantiations add one 8-byte load and one
+// multiply a value to the loading or the storing group and leave the
+// other groups as they are: the fold's ncp1 keeps cp1's 40 registers and
+// 6 blocks per SM, the entry arm's cp2 takes cp2's 48 and 5, its ncp1 54
+// and 4, and the DIT ones 62-64 and 4, as icp1 does (harvey4, read with
+// ntt_colpass_kernel_info on an H100 80GB HBM3 at 700 W, PERF.md).
 
 #include "colpass_tile.cuh"
 
@@ -89,11 +108,13 @@ struct Params {
 };
 
 // One thread block per (batch row, tile of TL columns).
-template <bool kDit, bool kTranspose, bool kMat>
+template <bool kDit, bool kTranspose, bool kMat, bool kPre = false,
+          bool kPost = false>
 __global__ void __launch_bounds__(kThreads) colpass_kernel(const Params P) {
   extern __shared__ uint32_t tile[];
   const size_t plane = (size_t)P.net.nn * P.ops.ncols;
-  colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse>(
+  colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse, false, kPre,
+                               kPost>(
       tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
       P.out + (size_t)blockIdx.y * plane, (size_t)blockIdx.x << P.ops.log_tl,
       P.shift, P.red);
@@ -109,10 +130,25 @@ KernelFn pick_kernel(bool transpose_out, bool mat) {
                                : colpass_kernel<kDit, true, false>);
 }
 
-// The instantiation for this direction and these store options.
-KernelFn pick_kernel(bool dit, bool transpose_out, bool mat) {
-  return dit ? pick_kernel<true>(transpose_out, mat)
-             : pick_kernel<false>(transpose_out, mat);
+// The instantiation for this direction and these operands, or null for a
+// combination with 'pre' or 'post' that no plan runs (see the top).
+KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, bool pre,
+                     bool post) {
+  if (!pre && !post)
+    return dit ? pick_kernel<true>(transpose_out, mat)
+               : pick_kernel<false>(transpose_out, mat);
+  if (!dit && pre && !post) {
+    if (transpose_out)  // ncp1: with the fold's 'post_t', or without it
+      return mat ? colpass_kernel<false, true, true, true>
+                 : colpass_kernel<false, true, false, true>;
+    if (!mat) return colpass_kernel<false, false, false, true>;  // cp2
+  }
+  if (dit && !transpose_out && !mat) {
+    if (!pre) return colpass_kernel<true, false, false, false, true>;  // nicp1
+    return post ? colpass_kernel<true, false, false, true, true>  // nicp1
+                : colpass_kernel<true, false, false, true>;       // icp1
+  }
+  return nullptr;
 }
 
 // Opts kernel in to smem dynamic bytes above 48 KB.
@@ -135,9 +171,14 @@ const char* ntt_reduction_name() { return reductions::kBuiltName; }
 // This build's register group size, and for the kernel of this direction
 // and these store options at an nn x 2^log_tl tile: its registers a thread
 // and its co-resident blocks per SM. Returns 0 or a cudaError_t.
-int ntt_colpass_kernel_info(int dit, int transpose_out, int mat, int nn,
-                            int log_tl, int* kfuse, int* regs, int* per_sm) {
-  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0, mat != 0);
+int ntt_colpass_kernel_info(int dit, int transpose_out, int mat, int pre,
+                            int post, int nn, int log_tl, int* kfuse,
+                            int* regs, int* per_sm) {
+  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0, mat != 0,
+                                      pre != 0, post != 0);
+  *kfuse = kFuse;
+  *regs = 0;
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (size_t)nn << log_tl << 2;
   cudaFuncAttributes attr = {};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
@@ -145,7 +186,6 @@ int ntt_colpass_kernel_info(int dit, int transpose_out, int mat, int nn,
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
                                                         kThreads, smem);
-  *kfuse = kFuse;
   *regs = attr.numRegs;
   return static_cast<int>(err);
 }
@@ -158,16 +198,19 @@ const char* ntt_colpass_error_string(int err) {
 // out: (batch, nn, ncols), or (batch, ncols, nn) with transpose_out. ts /
 // offs: host arrays of nstages half sizes and table offsets (in pairs).
 // tw, mid, mat: (w, packed w') pairs, 8 bytes each: the stage twiddles,
-// the nested mid vector (null with log_a < 0, a plain network) and the
-// post_t operand indexed like out (null for none). p, c1, c2: the
-// reduction's prime and constants (Red::make). Returns cudaGetLastError()
-// after the launch (0 = launched).
+// the nested mid vector (null with log_a < 0, a plain network), the
+// post_t operand indexed like out, and the pre and post operands indexed
+// like x (each null for none; every batch row reads the same table). p, c1,
+// c2: the reduction's prime and constants (Red::make). Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape or an operand combination the kernels
+// do not take.
 int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
                 int log_tl, int dit, int nstages, int k0, const int* ts,
                 const int* offs, const void* tw, int log_a, const void* mid,
-                const void* mat, int transpose_out, int canonicalize,
-                unsigned int p, unsigned int c1, unsigned int c2,
-                void* stream) {
+                const void* mat, const void* pre, const void* post,
+                int transpose_out, int canonicalize, unsigned int p,
+                unsigned int c1, unsigned int c2, void* stream) {
   const size_t smem = (size_t)nn << log_tl << 2;
   Params P;
   if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
@@ -180,6 +223,8 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
   P.tables.tw = static_cast<const uint2*>(tw);
   P.tables.mid = static_cast<const uint2*>(mid);
   P.tables.mat = static_cast<const uint2*>(mat);
+  P.tables.pre = static_cast<const uint2*>(pre);
+  P.tables.post = static_cast<const uint2*>(post);
   P.ops.ncols = ncols;
   P.ops.log_tl = log_tl;
   P.ops.canonicalize = canonicalize;
@@ -188,7 +233,9 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
   P.shift = colpass_tile::tile_shift(P.net, log_tl);
   P.red = Red::make(p, c1, c2);
   const KernelFn kernel =
-      pick_kernel(dit != 0, transpose_out != 0, mat != nullptr);
+      pick_kernel(dit != 0, transpose_out != 0, mat != nullptr,
+                  pre != nullptr, post != nullptr);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(ncols >> log_tl, batch);

@@ -328,6 +328,9 @@ struct PairTables {
   const uint2* tw;   // stage twiddles, stage s from Network::off[s]
   const uint2* mid;  // nested mid vector (nn,), or null for plain
   const uint2* mat;  // multiply on store (kMat), indexed like the output
+  const uint2* pre;  // multiply on load (kPre), indexed like the input
+  const uint2* post;  // multiply after the stages (kPost), before mat and
+                      // canonicalize, indexed like the input
 };
 
 // The word of logical row l's column 0 through the row map log_a.
@@ -437,9 +440,13 @@ __device__ __forceinline__ void mid_multiply(uint32_t (&v)[1 << K],
 // A group of K stages as run_group does it (DIT when kDit), on the
 // swizzled tile, with the ends E. kMayEmpty (DIF): E may hold mid_swap,
 // and the stages are written once, between a mid multiply before them and
-// one after.
+// one after. kPre: a loading group multiplies each value by its T.pre pair
+// as it reads it from E.src; kPost: a storing group multiplies each value
+// by its T.post pair, at the input's index of its logical row, before the
+// kMat multiply and canonicalize. Both only under if constexpr, so a kernel
+// without them keeps its code.
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          class Red>
+          bool kPre, bool kPost, class Red>
 __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
                                              const TileOps& O,
                                              const PairTables& T,
@@ -462,8 +469,13 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
     uint32_t v[1 << K];
     if (E.src) {
 #pragma unroll
-      for (int m = 0; m < (1 << K); ++m)
-        v[m] = E.src[(size_t)(base + (m << log_t)) * O.ncols + col0 + c];
+      for (int m = 0; m < (1 << K); ++m) {
+        const size_t o = (size_t)(base + (m << log_t)) * O.ncols + col0 + c;
+        if constexpr (kPre)
+          v[m] = R.mulc(E.src[o], __ldg(T.pre + o));
+        else
+          v[m] = E.src[o];
+      }
     } else {
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) v[m] = tile[w0 ^ dw[m]];
@@ -488,6 +500,8 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
         const size_t o = kTranspose ? (col0 + c) * N.nn + l
                                     : (size_t)l * O.ncols + col0 + c;
         uint32_t u = v[m];
+        if constexpr (kPost)
+          u = R.mulc(u, __ldg(T.post + (size_t)l * O.ncols + col0 + c));
         if constexpr (kMat) u = R.mulc(u, __ldg(T.mat + o));
         if (O.canonicalize) u = R.canon(u);
         E.dst[o] = u;
@@ -502,19 +516,20 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 
 // run_group_io for a runtime k <= K stages.
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          class Red>
+          bool kPre, bool kPost, class Red>
 __device__ __forceinline__ void run_group_io_upto(
     int k, uint32_t* tile, const Network& N, const TileOps& O,
     const PairTables& T, const GroupEnds& E, size_t col0, int s0, int log_a,
     int shift, Red R) {
   if constexpr (K > 1) {
     if (k < K) {
-      run_group_io_upto<K - 1, kDit, kTranspose, kMat, kMayEmpty>(
-          k, tile, N, O, T, E, col0, s0, log_a, shift, R);
+      run_group_io_upto<K - 1, kDit, kTranspose, kMat, kMayEmpty, kPre,
+                        kPost>(k, tile, N, O, T, E, col0, s0, log_a, shift,
+                               R);
       return;
     }
   }
-  run_group_io<K, kDit, kTranspose, kMat, kMayEmpty>(
+  run_group_io<K, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost>(
       tile, N, O, T, E, col0, s0, log_a, shift, R);
 }
 
@@ -524,7 +539,7 @@ __device__ __forceinline__ void run_group_io_upto(
 // first (DIT) when mid, mid_swap on its first when mid_swap. An empty
 // phase runs no group.
 template <int kFuse, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          class Red>
+          bool kPre, bool kPost, class Red>
 __device__ __forceinline__ void run_phase_io(
     uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
     const uint32_t* src, uint32_t* dst, size_t col0, int s_begin, int s_end,
@@ -537,7 +552,7 @@ __device__ __forceinline__ void run_phase_io(
                          store_dst && last ? dst : nullptr,
                          mid && (kDit ? first : last),
                          mid_swap && first};
-    run_group_io_upto<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
+    run_group_io_upto<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost>(
         k, tile, N, O, T, E, col0, s, log_a, shift, R);
     s += k;
   }
@@ -558,9 +573,15 @@ __device__ __forceinline__ void run_phase_io(
 // mid multiply rides before phase 1's first stages. colpass.cu never meets
 // an empty phase and leaves kMayEmpty off, so its groups keep the code its
 // kernels were timed with (PERF.md): kMayEmpty's group code gives them
-// other registers and other times.
+// other registers and other times. kPre and kPost (colpass.cu's, not with
+// kMayEmpty) add the T.pre multiply to the loading group and the T.post
+// multiply to the storing group (run_group_io), the reference's 'pre' and
+// 'post' operands: pre on load, before the stages; post after them, in
+// the untransposed layout, before the 'post_t' (kMat) multiply and
+// canonicalize.
 template <bool kDit, bool kTranspose, bool kMat, int kFuse,
-          bool kMayEmpty = false, class Red>
+          bool kMayEmpty = false, bool kPre = false, bool kPost = false,
+          class Red>
 __device__ __forceinline__ void column_tile_io(uint32_t* tile,
                                                const Network& N,
                                                const TileOps& O,
@@ -569,16 +590,18 @@ __device__ __forceinline__ void column_tile_io(uint32_t* tile,
                                                uint32_t* dst, size_t col0,
                                                int shift, Red R) {
   static_assert(!(kMayEmpty && kDit), "an empty phase is DIF's only");
+  static_assert(!(kMayEmpty && (kPre || kPost)),
+                "pre and post ride a network with both phases");
   const bool nested = N.log_a >= 0;
   // whether phase 0 and phase 1 run a stage (without kMayEmpty both do in
   // a nested network, and a plain one has no phase 1)
   const bool has0 = !kMayEmpty || N.k0 > 0;
   const bool has1 = kMayEmpty ? N.k0 < N.nstages : nested;
-  run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
+  run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost>(
       tile, N, O, T, src, dst, col0, 0, N.k0, -1, shift, true, !has1,
       nested && !kDit, false, R);
   if (has1)
-    run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty>(
+    run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost>(
         tile, N, O, T, src, dst, col0, N.k0, N.nstages, N.log_a, shift,
         !has0, true, kDit, !has0, R);
 }

@@ -160,7 +160,7 @@ int ntt_nested_colpass(const void* x, void* out, int batch, int nn,
   P.ops.canonicalize = 0;
   P.tables.tw = static_cast<const uint2*>(tw);
   P.tables.mid = static_cast<const uint2*>(mid);
-  P.tables.mat = nullptr;
+  P.tables.mat = P.tables.pre = P.tables.post = nullptr;
   P.x = static_cast<const uint32_t*>(x);
   P.out = static_cast<uint32_t*>(out);
   P.shift = colpass_tile::tile_shift(P.net, log_tl);

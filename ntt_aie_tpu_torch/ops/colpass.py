@@ -2,11 +2,15 @@
 
 Port of ``ntt_aie_tpu/ops/pallas_ntt.py``: the stage section
 (``run_stages``/``run_col_network``) and the Pallas kernel
-``build_colpass``/``make_colpass``, for the four configurations the fold
-plan runs (``cp1``: DIF + 'post_t' wmat + transpose_out, ``cp2``: DIF +
-canonicalize, ``icp2``: DIT + 'post_t' iwmat + transpose_out, ``icp1``:
-DIT + canonicalize), under any ``Reduction`` (harvey4, harvey, montgomery,
-barrett).
+``build_colpass``/``make_colpass``, for the configurations the plans run
+(the fold plan's ``cp1``: DIF + 'post_t' wmat + transpose_out, ``cp2``:
+DIF + canonicalize, ``icp2``: DIT + 'post_t' iwmat + transpose_out,
+``icp1``: DIT + canonicalize; and with the reference's 'pre' and 'post'
+operands the negacyclic passes ``ncp1``/``nicp1`` and the
+``wmat_fold=False`` arm, ``plan.fold_passes``), under any ``Reduction``
+(harvey4, harvey, montgomery, barrett). The operands apply in the
+reference's order: 'pre' on load, the stages, 'post', then the transpose,
+'post_t' and canonicalize.
 
 ``colpass(x, cp)`` is the entry point. On a CPU tensor it runs the plain
 version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
@@ -84,6 +88,8 @@ class ColPass:
       order, row 1 their second tables; offsets[s] is stage s's start.
     wmid: (2, nn) nested mid multiply, or None for a plain network.
     wmat: (ncols, nn, 2) 'post_t' operand, each pair adjacent, or None.
+    pre, post: (nn, ncols, 2) 'pre' and 'post' operands, indexed like
+      the input, or None. Every operand is shared by every batch row.
     tw_pairs, wmid_pairs: tw and wmid with each pair adjacent,
       (sum(ts), 2) and (nn, 2) or None: the CUDA column and nested kernels
       load a pair as one 8-byte word (the fused kernel reads tw and wmid).
@@ -102,6 +108,8 @@ class ColPass:
     wmat: torch.Tensor | None
     tw_pairs: torch.Tensor
     wmid_pairs: torch.Tensor | None
+    pre: torch.Tensor | None = None
+    post: torch.Tensor | None = None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return colpass(x, self)
@@ -122,21 +130,38 @@ def _pack(wh, wl) -> np.ndarray:
     return (wh << np.uint32(16)) | wl
 
 
+POSITIONS = ("pre", "post", "post_t")
+
+
+def _present(slots):
+    """The (table, position) slots that hold a table, each position
+    checked."""
+    for tab, pos in slots:
+        if tab is None:
+            continue
+        if pos not in POSITIONS:
+            raise ValueError(f"twiddle position must be one of {POSITIONS}, "
+                             f"got {pos!r}")
+        yield tab, pos
+
+
 def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
-              wmat_tab, canonicalize, transpose_out, device) -> ColPass:
+              operands, canonicalize, transpose_out, device) -> ColPass:
     """stage_tabs: per stage a (w, w2) pair of host arrays
-    (``Reduction.pair``); mid_tab: a pair or None; wmat_tab: a pair of
-    shape (ncols, nn), or None."""
+    (``Reduction.pair``); mid_tab: a pair or None; operands: {position:
+    pair}, 'pre' and 'post' of shape (nn, ncols), 'post_t' of shape
+    (ncols, nn)."""
     if direction not in ("dif", "dit"):
         raise ValueError(f"direction must be 'dif' or 'dit', got {direction!r}")
-    if wmat_tab is not None and not transpose_out:
+    if "post_t" in operands and not transpose_out:
         raise ValueError("the 'post_t' multiply needs transpose_out=True")
     ts = [t for ph in phases_ts for t in ph]
     if (1 << len(ts)) != nn or len(stage_tabs) != len(ts):
         raise ValueError(f"stage list {phases_ts} does not cover {nn} rows")
     if (len(phases_ts) == 2) != (mid_tab is not None):
         raise ValueError("a nested network needs exactly two phases and wmid")
-    tabs = list(stage_tabs) + [t for t in (mid_tab, wmat_tab) if t is not None]
+    tabs = (list(stage_tabs) + ([mid_tab] if mid_tab is not None else [])
+            + list(operands.values()))
     if any(len(t) != 2 for t in tabs):
         raise ValueError("every table is a (w, w2) pair (Reduction.pair)")
     offsets = tuple(int(o) for o in np.cumsum([0] + ts[:-1]))
@@ -145,32 +170,45 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
     wmid = None
     if mid_tab is not None:
         wmid = _pair(np.ravel(mid_tab[0]), np.ravel(mid_tab[1]), device)
-    wmat = None
-    if wmat_tab is not None:
-        wmat = _pair(wmat_tab[0], wmat_tab[1], device).movedim(0, -1)
-        if wmat.shape[1] != nn:
-            raise ValueError(f"post_t operand {tuple(wmat.shape[:2])} is not "
-                             f"(ncols, {nn})")
-        wmat = wmat.contiguous()
+    mats = {}
+    for pos, tab in operands.items():
+        mat = _pair(tab[0], tab[1], device).movedim(0, -1).contiguous()
+        rows = mat.shape[1] if pos == "post_t" else mat.shape[0]
+        if mat.dim() != 3 or rows != nn:
+            want = f"(ncols, {nn})" if pos == "post_t" else f"({nn}, ncols)"
+            raise ValueError(f"{pos} operand {tuple(mat.shape[:-1])} is not "
+                             f"{want}")
+        mats[pos] = mat
     tw = _pair(w_all, s_all, device)
     return ColPass(red=red, nn=nn, direction=direction,
                    phases_ts=tuple(tuple(int(t) for t in ph)
                                    for ph in phases_ts),
                    mid_rs=tuple(int(v) for v in mid_rs),
                    canonicalize=canonicalize, transpose_out=transpose_out,
-                   tw=tw, offsets=offsets, wmid=wmid, wmat=wmat,
+                   tw=tw, offsets=offsets, wmid=wmid,
+                   wmat=mats.get("post_t"),
                    tw_pairs=tw.t().contiguous(),
-                   wmid_pairs=None if wmid is None else wmid.t().contiguous())
+                   wmid_pairs=None if wmid is None else wmid.t().contiguous(),
+                   pre=mats.get("pre"), post=mats.get("post"))
 
 
 def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
-                 wmat: np.ndarray | None = None, canonicalize: bool = False,
-                 transpose_out: bool = False, reduction: str = "harvey4",
-                 device=None) -> ColPass:
+                 wmat: np.ndarray | None = None, twiddle_pos: str = "post_t",
+                 wmat2: np.ndarray | None = None,
+                 twiddle_pos2: str | None = None,
+                 canonicalize: bool = False, transpose_out: bool = False,
+                 reduction: str = "harvey4", device=None) -> ColPass:
     """Build a column pass for nn-point columns from the port's own
-    twiddles.col_network, under the reduction of this kind. wmat: host
-    (ncols, nn) 'post_t' operand (the four-step matrix in output
-    orientation), applied after the transpose. device: None is the card
+    twiddles.col_network, under the reduction of this kind.
+
+    wmat, wmat2: host operands of canonical values, applied at
+    twiddle_pos and twiddle_pos2, each 'pre' (on load), 'post' (after the
+    stages, before the transpose) or 'post_t' (after the transpose): an
+    (nn, ncols) table, or (ncols, nn) for 'post_t' (the output's
+    orientation). twiddle_pos is 'post_t' unless given (the fold plan's
+    four-step matrix); wmat2 needs its position. Two operands at one
+    position are multiplied into one table mod p: the canonical outputs
+    are those of the two multiplies in turn. device: None is the card
     (utils.device.resolve_device)."""
     device = resolve_device(device)
     red = make_reduction(reduction, field)
@@ -178,22 +216,34 @@ def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
     stage_tabs = [red.pair(v) for ph in net["phases"] for v in ph["vecs"]]
     mid_tab = (red.pair(net["mid"]["wmid"])
                if net["mid"] is not None else None)
-    wmat_tab = red.pair(wmat) if wmat is not None else None
+    if wmat2 is not None and twiddle_pos2 is None:
+        raise ValueError("wmat2 needs twiddle_pos2")
+    tables = {}
+    for tab, pos in _present(((wmat, twiddle_pos), (wmat2, twiddle_pos2))):
+        if pos in tables:  # one table: the values' product mod p (< 2^62)
+            tab = (np.asarray(tables[pos]).astype(np.uint64)
+                   * np.asarray(tab).astype(np.uint64) % np.uint64(red.p))
+        tables[pos] = tab
+    operands = {pos: red.pair(tab) for pos, tab in tables.items()}
     return _assemble(red, nn, direction,
                      [ph["ts"] for ph in net["phases"]], (net["R"], net["S"]),
-                     stage_tabs, mid_tab, wmat_tab, canonicalize,
+                     stage_tabs, mid_tab, operands, canonicalize,
                      transpose_out, device)
 
 
 def colpass_from_reference(arrays: dict, *, field, direction: str,
                            phases_ts, mid_rs, canonicalize: bool = False,
                            transpose_out: bool = False,
+                           twiddle_pos: str = "post_t",
+                           twiddle_pos2: str | None = None,
                            device=None) -> ColPass:
     """Build a column pass from the reference Pallas colpass's own
     operands: arrays["tw_cols"] is ``PallasColpass.tw_cols`` as NumPy
     arrays (per stage (w, wh, wl), then the nested wmid's three), and
-    arrays["wmat"] its ``.wmat`` pair (w, packed) or None; harvey4, as the
-    reference plan's tables for p < 2^29 are. device: None is the card."""
+    arrays["wmat"] and arrays["wmat2"] its ``.wmat`` and ``.wmat2`` pairs
+    (w, packed) or None, at twiddle_pos and twiddle_pos2 (two positions)
+    as the reference pass was built; harvey4, as the reference plan's
+    tables for p < 2^29 are. device: None is the card."""
     device = resolve_device(device)
     red = make_reduction("harvey4", field)
     cols = list(arrays["tw_cols"])
@@ -206,10 +256,15 @@ def colpass_from_reference(arrays: dict, *, field, direction: str,
     stage_tabs = [pair(*cols[s * nt:(s + 1) * nt]) for s in range(nstages)]
     rest = cols[nstages * nt:]
     mid_tab = pair(*rest) if rest else None
-    wmat = arrays.get("wmat")
+    slots = list(_present(((arrays.get("wmat"), twiddle_pos),
+                           (arrays.get("wmat2"), twiddle_pos2))))
+    operands = {pos: tuple(np.asarray(t) for t in tab) for tab, pos in slots}
+    if len(operands) < len(slots):
+        raise ValueError("the reference pass's two operands are at one "
+                         "position")
     return _assemble(red, 1 << nstages, direction, phases_ts, mid_rs,
-                     stage_tabs, mid_tab, tuple(wmat) if wmat else None,
-                     canonicalize, transpose_out, device)
+                     stage_tabs, mid_tab, operands, canonicalize,
+                     transpose_out, device)
 
 
 # ---- plain PyTorch version -------------------------------------------------
@@ -222,9 +277,13 @@ def _batched(x: torch.Tensor, cp: ColPass):
     if xb.dim() != 3 or xb.shape[1] != cp.nn:
         raise ValueError(f"colpass over {cp.nn} rows takes (B, {cp.nn}, "
                          f"ncols) or ({cp.nn}, ncols), got {tuple(x.shape)}")
-    if cp.wmat is not None and cp.wmat.shape[0] != xb.shape[2]:
-        raise ValueError(f"post_t operand has {cp.wmat.shape[0]} columns, "
-                         f"input has {xb.shape[2]}")
+    for pos, cols in (("post_t", None if cp.wmat is None else
+                       cp.wmat.shape[0]),
+                      ("pre", None if cp.pre is None else cp.pre.shape[1]),
+                      ("post", None if cp.post is None else cp.post.shape[1])):
+        if cols is not None and cols != xb.shape[2]:
+            raise ValueError(f"{pos} operand has {cols} columns, input has "
+                             f"{xb.shape[2]}")
     return xb, squeeze
 
 
@@ -272,17 +331,28 @@ def run_network(v: torch.Tensor, cp: ColPass) -> torch.Tensor:
     return v
 
 
+def _mul_operand(v: torch.Tensor, mat: torch.Tensor, red) -> torch.Tensor:
+    return red.mulc_mat(v, M.to_carrier(mat[..., 0]),
+                        M.to_carrier(mat[..., 1]))
+
+
 def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
     """The column pass in plain PyTorch ops (int64 carriers), on any
-    device: the oracle the kernel is held against."""
+    device: the oracle the kernel is held against. The reference's order:
+    'pre', the network, 'post', then the transpose and 'post_t', then
+    canonicalize."""
     xb, squeeze = _batched(x, cp)
     red = cp.red
-    v = run_network(M.to_carrier(xb), cp)
+    v = M.to_carrier(xb)
+    if cp.pre is not None:
+        v = _mul_operand(v, cp.pre, red)
+    v = run_network(v, cp)
+    if cp.post is not None:
+        v = _mul_operand(v, cp.post, red)
     if cp.transpose_out:
         v = v.transpose(1, 2)
         if cp.wmat is not None:
-            v = red.mulc_mat(v, M.to_carrier(cp.wmat[..., 0]),
-                             M.to_carrier(cp.wmat[..., 1]))
+            v = _mul_operand(v, cp.wmat, red)
     if cp.canonicalize:
         v = red.canonicalize(v)
     out = M.from_carrier(v).contiguous()
@@ -425,12 +495,13 @@ def _library(reduction: str = "harvey4") -> ctypes.CDLL:
     pi = ctypes.POINTER(ctypes.c_int)
     lib.ntt_colpass.restype = ci
     lib.ntt_colpass.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, pi, pi,
-                                vp, ci, vp, vp, ci, ci, cu, cu, cu, vp]
+                                vp, ci, vp, vp, vp, vp, ci, ci, cu, cu, cu,
+                                vp]
     lib.ntt_colpass_error_string.restype = ctypes.c_char_p
     lib.ntt_colpass_error_string.argtypes = [ci]
     lib.ntt_colpass_max_rows.restype = ci
     lib.ntt_colpass_kernel_info.restype = ci
-    lib.ntt_colpass_kernel_info.argtypes = [ci] * 5 + [pi] * 3
+    lib.ntt_colpass_kernel_info.argtypes = [ci] * 7 + [pi] * 3
     lib.ntt_reduction_name.restype = ctypes.c_char_p
     if lib.ntt_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/colpass.cu kMaxRows disagrees with MAX_ROWS")
@@ -452,13 +523,25 @@ def kernel_info(cp: ColPass, ncols: int) -> dict:
     with torch.cuda.device(cp.tw.device):
         err = lib.ntt_colpass_kernel_info(
             int(cp.direction == "dit"), int(cp.transpose_out),
-            int(cp.wmat is not None), cp.nn, log_tl, kfuse, regs, per_sm)
+            int(cp.wmat is not None), int(cp.pre is not None),
+            int(cp.post is not None), cp.nn, log_tl, kfuse, regs, per_sm)
     if err != 0:
         raise RuntimeError("CUDA column pass occupancy query failed: "
                            + lib.ntt_colpass_error_string(err).decode())
-    return {"kfuse": kfuse.value, "tile_cols": tl, "layout": "swizzled",
+    return {"variant": variant(cp), "kfuse": kfuse.value, "tile_cols": tl,
+            "layout": "swizzled",
             "shift": tile_shift(cp, log_tl), "registers": regs.value,
             "blocks_per_sm": per_sm.value}
+
+
+def variant(cp: ColPass) -> str:
+    """The kernel instantiation cp launches, by its direction and
+    operands, e.g. 'dif+pre+post_t+T' (T: transpose_out):
+    ``colpass.launches_by``'s key."""
+    parts = [cp.direction]
+    parts += [pos for pos, t in (("pre", cp.pre), ("post", cp.post),
+                                 ("post_t", cp.wmat)) if t is not None]
+    return "+".join(parts + (["T"] if cp.transpose_out else []))
 
 
 def _log_a(cp: ColPass) -> int:
@@ -489,7 +572,7 @@ def network_args(cp: ColPass) -> list:
 
 def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     for name, t in (("tw", cp.tw_pairs), ("wmid", cp.wmid_pairs),
-                    ("wmat", cp.wmat)):
+                    ("wmat", cp.wmat), ("pre", cp.pre), ("post", cp.post)):
         if t is not None and t.device != xb.device:
             raise ValueError(f"colpass table {name} is on {t.device}, "
                              f"input on {xb.device}")
@@ -500,8 +583,9 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     out_shape = (B, c, nn) if cp.transpose_out else (B, nn, c)
     out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
     tables = [t.data_ptr() if t is not None else None
-              for t in (cp.wmid_pairs, cp.wmat)]
+              for t in (cp.wmid_pairs, cp.wmat, cp.pre, cp.post)]
     net = [*_stage_args(cp), cp.tw_pairs.data_ptr(), _log_a(cp)]
+    key = variant(cp)
     lib = _library(cp.red.name)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
@@ -516,13 +600,15 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
                     "CUDA column pass launch failed: "
                     + lib.ntt_colpass_error_string(err).decode())
             colpass.launches += 1
+            colpass.launches_by[key] = colpass.launches_by.get(key, 0) + 1
     return out
 
 
 def colpass(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
     """Run one column pass: the CUDA kernel for a CUDA tensor (one launch
     per MAX_LAUNCH_BATCH batch rows), the plain version for a CPU tensor.
-    ``colpass.launches`` counts kernel launches."""
+    ``colpass.launches`` counts kernel launches, ``colpass.launches_by``
+    them by instantiation (``variant``)."""
     if x.device.type == "cpu":
         return colpass_plain(x, cp)
     if x.device.type != "cuda":
@@ -533,3 +619,4 @@ def colpass(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
 
 
 colpass.launches = 0
+colpass.launches_by = {}

@@ -100,7 +100,7 @@ def make_nested_colpass(n1: int, n2: int, *, R: int | None = None,
     ts_R = [(R >> (s + 1)) * S for s in range(logR)]
     ts_S = [(S >> (s + 1)) * R for s in range(logS)]
     net = C._assemble(red, n1, "dif", [ts_R, ts_S], (R, S), stage_tabs,
-                      mid_tab, None, False, False, device)
+                      mid_tab, {}, False, False, device)
     nc = NestedColPass(n2=n2, batch=batch, fuse=fuse, net=net)
     return nc, {"R": R, "S": S}
 

@@ -11,12 +11,18 @@ two column passes a transform,
                            icp1: DIT over N1, canonicalize
 
 each a column pass (``ops.colpass``: the CUDA kernel on a CUDA device, its
-plain PyTorch version on the CPU). ``fused=True`` runs each transform as
-one fused four-step launch instead (``ops.fused_fourstep``: ``ff`` forward,
-``fi`` inverse), with the same outputs bit for bit; of the four-step
-plans only that one has the negacyclic product (X^N + 1), whose psi^i
-and psi^-i scalings ride the fused kernels as ``pre`` (``nf``) and
-``post`` (``ni``). The flat forward
+plain PyTorch version on the CPU). ``wmat_fold=False`` moves the
+four-step multiply to the entry of the second pass of each transform, as
+the column pass's 'pre' operand (cp2: * W, icp1: * W^-1/N), with the same
+outputs bit for bit. The negacyclic product (X^N + 1) scales by psi^i and
+psi^-i inside the column passes: ``ncp1`` is cp1 with psi as 'pre',
+``nicp1`` icp1 with psi^-1 as 'post' (after the fold's plain icp1, or
+after its 'pre' W^-1/N without the fold), so it is six column passes, as
+the cyclic product. ``fused=True`` runs each transform as one fused
+four-step launch instead (``ops.fused_fourstep``: ``ff`` forward, ``fi``
+inverse), with the same outputs bit for bit; its negacyclic product rides
+the fused kernels as ``pre`` (``nf``) and ``post`` (``ni``). The flat
+forward
 output is in the four-step spectral order flat[c*N1 + r] =
 X[s2(c)*N1 + s1(r)] (``twiddles.spectral_positions``); pointwise products
 are order-agnostic, so polymul never permutes.
@@ -69,14 +75,14 @@ class Plan:
     (spectral-order plans only; None with ordering='natural');
     polymul_mat maps (n1, n2) operands to an (n1, n2) product.
     negacyclic_polymul (flat) and negacyclic_polymul_mat (matrix form)
-    exist with NTTConfig(negacyclic=True) on a fused plan or a flat one,
-    else None. A flat plan (split (n, 1)) has no matrix-form callables.
-    make_batched(B) returns the same callables over a leading batch axis.
-    passes holds the four column passes (cp1, cp2, icp2, icp1), or on a
-    fused plan the fused transforms (ff, fi), of the four-step split the
-    plan runs (for a flat plan, the internal one, ``flat_inner_split``),
-    and for negacyclic nf, ni (on a flat fold plan at the fused plan's
-    internal split).
+    exist with NTTConfig(negacyclic=True), else None. A flat plan (split
+    (n, 1)) has no matrix-form callables. make_batched(B) returns the same
+    callables over a leading batch axis. passes holds the four column
+    passes (cp1, cp2, icp2, icp1), or on a fused plan the fused transforms
+    (ff, fi), of the four-step split the plan runs (for a flat plan, the
+    internal one, ``flat_inner_split``), and for negacyclic the column
+    passes ncp1, nicp1 of a four-step fold plan, or the fused nf, ni (on a
+    flat fold plan at the fused plan's internal split).
     """
 
     config: NTTConfig
@@ -104,10 +110,8 @@ class Plan:
 # ROADMAP.md Queue 1 items that port what a plan does not have yet, by
 # label and title (queue numbers move when the roadmap is re-anchored;
 # the labels 4d-4j do not)
-ITEM_NEGACYCLIC_FOLD = ("Queue 1 item 4d: negacyclic on the two-pass "
-                        "four-step plan")
-ITEM_WMAT_ARMS = ("Queue 1 item 4g: the wmat_fold=False and "
-                  "wmat_factored=True arms")
+ITEM_WMAT_ARMS = ("Queue 1 item 4g: the wmat_factored=True arm for both "
+                  "value widths, and Goldilocks wmat_fold=False")
 ITEM_FLAT_N2 = "Queue 1 item 4h: n = 2 on the flat split"
 ITEM_REFERENCE_PARITY = "Queue 1 item 4j: reference parity"
 ITEM_DISTRIBUTED = "Queue 1: the distributed four-step"
@@ -173,28 +177,53 @@ def public_order(config: NTTConfig, n1: int, n2: int, device) -> tuple:
 
 
 def fold_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
+                wmat_fold: bool = True, negacyclic: bool = False,
                 device=None) -> dict:
-    """The four column passes of the four-step fold plan for an (n1, n2)
-    split under the reduction of this kind (reference plan.py:275-293):
-    cp1 and icp1 over (.., n1, n2), cp2 and icp2 over (.., n2, n1). The
-    four-step multiply rides the transposing passes' exit as 'post_t',
-    with its operand in output orientation: wmat.T for cp1, iwmat_scaled
-    (1/n folded in) for icp2. device: None is the card
+    """The column passes of the four-step plan for an (n1, n2) split under
+    the reduction of this kind (reference plan.py:275-310): cp1 and icp1
+    over (.., n1, n2), cp2 and icp2 over (.., n2, n1). With wmat_fold (the
+    default) the four-step multiply rides the transposing passes' exit as
+    'post_t', with its operand in output orientation: wmat.T for cp1,
+    iwmat_scaled (1/n folded in) for icp2. With wmat_fold=False it rides
+    the second pass's entry as 'pre': wmat.T for cp2, iwmat_scaled for
+    icp1. The outputs are the same bit for bit.
+
+    negacyclic adds ncp1 and nicp1 over (.., n1, n2), which take the place
+    of cp1 and icp1 in the negacyclic product (reference plan.py:497-524,
+    :712-734): ncp1 is cp1 with psi^i as 'pre'; nicp1 is icp1 with psi^-i
+    as 'post'. The polymul inverse is the plain one (its pointwise product
+    is exact), so no iwmat_poly. device: None is the card
     (utils.device.resolve_device)."""
     device = resolve_device(device)
     tabs = tw.fourstep_tables(field, n1, n2)
+    wmat_t = np.ascontiguousarray(tabs["wmat"].T)
+    iwmat = tabs["iwmat_scaled"]
     kw = dict(reduction=reduction, device=device)
-    return {
-        "cp1": make_colpass(field, n1, direction="dif", transpose_out=True,
-                            wmat=np.ascontiguousarray(tabs["wmat"].T), **kw),
+    cp1_kw = dict(direction="dif", transpose_out=True, **kw)
+    icp1_kw = dict(direction="dit", inverse_tw=True, canonicalize=True, **kw)
+    if wmat_fold:
+        cp1_kw.update(wmat=wmat_t, twiddle_pos="post_t")
+        cp2_op, icp2_op = {}, dict(wmat=iwmat, twiddle_pos="post_t")
+    else:
+        icp1_kw.update(wmat=iwmat, twiddle_pos="pre")
+        cp2_op, icp2_op = dict(wmat=wmat_t, twiddle_pos="pre"), {}
+    out = {
+        "cp1": make_colpass(field, n1, **cp1_kw),
         "cp2": make_colpass(field, n2, direction="dif", canonicalize=True,
-                            **kw),
+                            **cp2_op, **kw),
         "icp2": make_colpass(field, n2, direction="dit", inverse_tw=True,
-                             transpose_out=True, wmat=tabs["iwmat_scaled"],
-                             **kw),
-        "icp1": make_colpass(field, n1, direction="dit", inverse_tw=True,
-                             canonicalize=True, **kw),
+                             transpose_out=True, **icp2_op, **kw),
+        "icp1": make_colpass(field, n1, **icp1_kw),
     }
+    if negacyclic:
+        n = n1 * n2
+        psi = tw.negacyclic_psi_powers(field, n).reshape(n1, n2)
+        ipsi = tw.negacyclic_psi_powers(field, n, inverse=True)
+        out["ncp1"] = make_colpass(field, n1, wmat2=psi, twiddle_pos2="pre",
+                                   **cp1_kw)
+        out["nicp1"] = make_colpass(field, n1, wmat2=ipsi.reshape(n1, n2),
+                                    twiddle_pos2="post", **icp1_kw)
+    return out
 
 
 def fused_passes(field, n1: int, n2: int, *, negacyclic: bool = False,
@@ -247,6 +276,13 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     with fused=True the fused plan (for Goldilocks, build_goldilocks_plan;
     `fused` does not apply there, as in the reference).
 
+    wmat_fold=False places the four-step multiply at the second pass's
+    entry ('pre') instead of the first pass's exit (fold_passes), with the
+    same outputs; it does not apply to the fused plan, as in the
+    reference. With NTTConfig(negacyclic=True) a four-step fold plan has
+    negacyclic_polymul and negacyclic_polymul_mat on the column passes
+    ncp1/nicp1 (psi as 'pre', psi^-1 as 'post'), a fused plan on nf/ni.
+
     A flat configuration (config.split = (n, 1), the default for a single
     shard up to n = 2^16) runs the same kernels at the internal split
     flat_inner_split(log_n, fused=fused) and gathers their spectrum into
@@ -254,8 +290,8 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     callables are the reference's flat ones: fwd, inv, polymul and, with
     NTTConfig(negacyclic=True), negacyclic_polymul (psi rides the fused
     kernels as pre/post, on a fold plan at the fused plan's internal
-    split), flat and through make_batched, and no matrix-form twins. wmat_fold and wmat_factored
-    do not apply to it, as in the reference.
+    split), flat and through make_batched, and no matrix-form twins.
+    wmat_fold and wmat_factored do not apply to it, as in the reference.
 
     Tables are prepared once here, on the plan's device: the card when
     device is None (RuntimeError without one; device="cpu" runs the plain
@@ -276,15 +312,8 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     flat = config.split[1] == 1
     if config.num_shards != 1:
         _not_ported("the distributed plan", ITEM_DISTRIBUTED)
-    if not flat:
-        if config.negacyclic and not fused:
-            _not_ported("negacyclic polymul on the two-pass four-step plan "
-                        "(build_plan(..., fused=True) and the flat split "
-                        "have it)", ITEM_NEGACYCLIC_FOLD)
-        if wmat_factored:
-            _not_ported("wmat_factored=True", ITEM_WMAT_ARMS)
-        if wmat_fold is False:
-            _not_ported("wmat_fold=False", ITEM_WMAT_ARMS)
+    if not flat and wmat_factored:
+        _not_ported("wmat_factored=True", ITEM_WMAT_ARMS)
 
     device = resolve_device(device)
     n = config.n
@@ -295,8 +324,11 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
                               reduction=kind, device=device)
         fwd_t, inv_t = passes["ff"], passes["fi"]
     else:
-        passes = fold_passes(field, n1, n2, reduction=kind, device=device)
-        if config.negacyclic:  # flat: the fused plan's product
+        passes = fold_passes(field, n1, n2, reduction=kind,
+                             wmat_fold=flat or wmat_fold is not False,
+                             negacyclic=config.negacyclic and not flat,
+                             device=device)
+        if config.negacyclic and flat:  # the fused plan's product
             passes.update(negacyclic_passes(
                 field, *flat_inner_split(config.log_n, fused=True),
                 reduction=kind, device=device))
@@ -327,13 +359,20 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
                      shape[:-2] + (n2, n1))
 
     nega2d = None
-    if config.negacyclic:
+    if config.negacyclic and "nf" in passes:
         nf, ni = passes["nf"], passes["ni"]
 
         def nega2d(a, b, lead):
             fa = nf(as_i32(a).reshape(lead + nf.shape_in))
             fb = nf(as_i32(b).reshape(lead + nf.shape_in))
             return ni(pointwise(fa, fb))
+    elif config.negacyclic:
+        ncp1, nicp1 = passes["ncp1"], passes["nicp1"]
+
+        def nega2d(a, b, lead):
+            fa = cp2(ncp1(as_i32(a).reshape(lead + (n1, n2))))
+            fb = cp2(ncp1(as_i32(b).reshape(lead + (n1, n2))))
+            return nicp1(icp2(pointwise(fa, fb)))
 
     spectral, out_idx, in_idx = public_order(config, n1, n2, device)
 

@@ -2,7 +2,7 @@
 of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
-        [--nested] [--gl] [--reduction KIND]
+        [--nested] [--gl] [--crt] [--reduction KIND]
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
 such as an unpacked ``git archive`` of another commit, or of this one with
@@ -32,15 +32,19 @@ path's): ``make_batched(64)``'s ``fwd_mat``, ``inv_mat`` and
 alone, hashes the three outputs' bits (which must agree across every
 reading of every root: the kernels are exact) and reads
 ``gl_colpass.kernel_info`` for cp1 and cp2 where the root's package has
-it. The readings go in turns: the roots in order, then in reverse
-(a b c c b a).
+it. With ``--crt`` each reading also times the CRT combine of the RNS
+product (``ops.crt.make_crt_combine`` over the three default RNS primes,
+on random canonical residues of B = 16 products of n = 2^20: the kernel
+``csrc/crt.cu``; us per call) and hashes its limbs, which must agree
+across every reading of every root. The readings go in turns: the roots
+in order, then in reverse (a b c c b a).
 
 Prints one JSON line per reading, then one summary line: per root, the
 mean of its readings in us per NTT (us per pass per NTT for cp1 and cp2;
 us per call for the nested bench shape), and the card's name and power
 limit (nvidia-smi). Exits 1 if a reading failed, a fused output differed
 from the fold plan's, a nested one from the column pass's, or two
-readings' Goldilocks outputs from each other. Needs a CUDA card.
+readings' Goldilocks outputs or CRT limbs from each other. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ BATCH = 256
 NESTED_BATCH, NESTED_N = 64, 1024  # the nested prototype's bench shape
 NESTED_FUSE = (1, 2, 3, 4, 5)
 GL_BATCH = 64  # the Goldilocks path's batch
+CRT_BATCH = 16  # the RNS products of chip_smoke.py's rns phase
 # the field each reduction's transforms run on
 REDUCTION_FIELDS = {"harvey4": "p469762049", "harvey": "p998244353",
                     "montgomery": "p2013265921"}
@@ -116,6 +121,30 @@ def _measure_gl() -> dict:
         out["gl_kernel_info"] = {key: G.kernel_info(plan.passes[key], n2)
                                  for key in ("cp1", "cp2")}
     return out
+
+
+def _measure_crt() -> dict:
+    """The CRT combine of CRT_BATCH products of n = 2^20 over the default
+    RNS primes: us per call and a hash of the limbs."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import crt
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    fields = (T.P_2013265921, T.P_998244353, T.P_469762049)
+    cc, _ = crt.make_crt_combine(fields, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = [torch.randint(0, f.p, (CRT_BATCH, 1 << LOG_N), dtype=torch.int32,
+                         device=dev, generator=gen) for f in fields]
+    limbs = cc(*res)
+    us = time_device(lambda t: (cc(*res), t)[1], res[0])["us_per_iter"]
+    return {"crt_batch": CRT_BATCH, "crt_us_per_call": us,
+            "crt_hash": hashlib.sha256(limbs.cpu().numpy()).hexdigest()}
 
 
 def _measure_nested() -> dict:
@@ -202,6 +231,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gl", action="store_true",
                     help="also time the Goldilocks fold plan and its cp1 "
                          "and cp2 at B = 64, n = 2^20")
+    ap.add_argument("--crt", action="store_true",
+                    help="also time the CRT combine of 16 RNS products of "
+                         "n = 2^20")
     ap.add_argument("--reduction", default="harvey4",
                     choices=sorted(REDUCTION_FIELDS),
                     help="the reduction (and its field) of the transforms")
@@ -213,6 +245,8 @@ def main(argv=None) -> int:
             reading.update(_measure_nested())
         if args.gl:
             reading.update(_measure_gl())
+        if args.crt:
+            reading.update(_measure_crt())
         _emit(reading)
         return 0
 
@@ -225,7 +259,7 @@ def main(argv=None) -> int:
     roots["this"] = THIS_ROOT
 
     libs = (("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
-            + ("gl_colpass",) * args.gl)
+            + ("gl_colpass",) * args.gl + ("crt",) * args.crt)
     red = (args.reduction,) * (args.reduction != "harvey4")
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
              f"[C.build_library(n) for n in {libs!r}]; "
@@ -245,9 +279,9 @@ def main(argv=None) -> int:
     order = list(roots) + list(reversed(roots))
     readings = {name: [] for name in roots}
     flags = (["--nested"] * args.nested + ["--gl"] * args.gl
-             + ["--reduction", args.reduction])
+             + ["--crt"] * args.crt + ["--reduction", args.reduction])
     ok = True
-    gl_hashes = None
+    gl_hashes = crt_hash = None
     for name in order:
         res = _run_child(roots[name], flags)
         if res.returncode != 0:
@@ -255,9 +289,11 @@ def main(argv=None) -> int:
             return 1
         reading = json.loads(res.stdout.strip().splitlines()[-1])
         gl_hashes = gl_hashes or reading.get("gl_hashes")
+        crt_hash = crt_hash or reading.get("crt_hash")
         ok = (ok and reading["fused_equals_fold"]
               and reading.get("nested_equals_colpass", True)
-              and reading.get("gl_hashes") == gl_hashes)
+              and reading.get("gl_hashes") == gl_hashes
+              and reading.get("crt_hash") == crt_hash)
         readings[name].append(reading)
         _emit(dict(reading, root=name))
 

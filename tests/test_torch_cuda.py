@@ -5,7 +5,11 @@ the butterfly probe against their plain PyTorch versions, on the card; the
 montgomery and barrett, and those plans against the oracles; the
 column kernels at a batch above one launch's 65,535 rows and the Goldilocks
 kernel at 8,192 rows; the fused kernel after a chain of launches (its tile
-counters); and the entry points' default device.
+counters); the entry points' default device; the column kernel's 'pre'
+and 'post' instantiations (the fold plan's negacyclic ncp1/nicp1 and the
+wmat_fold=False arm) under every reduction, those plans against the
+oracle, the CRT combine kernel against its plain version and RNSPolymul
+against the exact integer product.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -603,3 +607,130 @@ def test_gl_flat_plans_match_plain_stages(cuda):
         assert np.array_equal(
             M.gl_to_u64(*got)[0].astype(object),
             ref.negacyclic_polymul(xu[0], xu[0], T.GOLDILOCKS)), log_n
+
+
+# The column kernel's instantiations with 'pre' and 'post' operands, by
+# the plan passes that run them: (fold_passes keyword arguments, pass)
+PREPOST_PASSES = [({"negacyclic": True}, "ncp1"),
+                  ({"negacyclic": True}, "nicp1"),
+                  ({"wmat_fold": False}, "cp2"),
+                  ({"wmat_fold": False}, "icp1"),
+                  ({"wmat_fold": False, "negacyclic": True}, "ncp1"),
+                  ({"wmat_fold": False, "negacyclic": True}, "nicp1")]
+# (reduction, field, domain top / p, (n1, n2)): harvey4 at the column
+# kernel's shapes of chip_smoke.py (COLPASS_KERNEL_SHAPES), the other
+# reductions nested and plain, Kyber at its largest negacyclic size
+PREPOST_CASES = (
+    [("harvey4", T.P_469762049, 4, s)
+     for s in ((1024, 1024), (128, 512), (2048, 512), (512, 2048), (32, 64),
+               (64, 32))]
+    + [(kind, field, RED_TOP[kind], s)
+       for kind, field in (("montgomery", T.P_2013265921),
+                           ("harvey", T.P_998244353))
+       for s in ((1024, 1024), (32, 64))]
+    + [("barrett", T.KYBER, 1, (16, 8))])
+
+
+@pytest.mark.parametrize("kind,field,top,shape", PREPOST_CASES)
+def test_prepost_kernels_match_plain(cuda, kind, field, top, shape):
+    n1, n2 = shape
+    g = torch.Generator(device=cuda).manual_seed(n1 * 7 + n2)
+    for kw, name in PREPOST_PASSES:
+        cp = fold_passes(field, n1, n2, reduction=kind, device=cuda,
+                         **kw)[name]
+        rows, cols = (n1, n2) if name != "cp2" else (n2, n1)
+        for B in (1, 4):
+            x = torch.randint(0, top * field.p, (B, rows, cols),
+                              dtype=torch.int64, device=cuda,
+                              generator=g).to(torch.int32)
+            before = dict(C.colpass.launches_by)
+            got = C.colpass(x, cp)
+            torch.cuda.synchronize()
+            key = C.variant(cp)
+            assert C.colpass.launches_by[key] == before.get(key, 0) + 1
+            assert torch.equal(got, C.colpass_plain(x, cp)), (kw, name, B)
+
+
+def test_prepost_kernel_info_and_refusal(cuda):
+    for kw, name in PREPOST_PASSES:
+        cp = fold_passes(T.P_469762049, 1024, 1024, device=cuda, **kw)[name]
+        info = C.kernel_info(cp, 1024)
+        assert info["variant"] == C.variant(cp)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    # no plan runs 'post' on a DIF pass: the launcher refuses it
+    cp = C.make_colpass(T.P_469762049, 32, direction="dif",
+                        wmat=np.ones((32, 64), np.int64), twiddle_pos="post",
+                        device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        C.colpass(torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda), cp)
+    with pytest.raises(RuntimeError):
+        C.kernel_info(cp, 64)
+
+
+@pytest.mark.parametrize("wmat_fold", [True, False])
+@pytest.mark.parametrize("field,log_n,rows_log2", [
+    (T.P_469762049, 16, 8), (T.P_2013265921, 12, 5), (T.P_998244353, 12, 7),
+    (T.KYBER, 7, 3)])
+def test_negacyclic_fold_plan_matches_oracle(cuda, field, log_n, rows_log2,
+                                             wmat_fold):
+    cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2,
+                      negacyclic=True)
+    n1, n2 = cfg.split
+    plan = T.build_plan(cfg, device=cuda, wmat_fold=wmat_fold)
+    rng = np.random.default_rng(log_n)
+    a, b = rng.integers(0, field.p, (2, 2, n1, n2))
+    bat = plan.make_batched(2)
+    before = (C.colpass.launches, FF.fused_fourstep.launches)
+    got = bat["negacyclic_polymul_mat"](a, b)
+    torch.cuda.synchronize()
+    assert (C.colpass.launches - before[0],
+            FF.fused_fourstep.launches - before[1]) == (6, 0)
+    for r in range(2):
+        want = ref.negacyclic_polymul(a[r].ravel(), b[r].ravel(), field)
+        assert np.array_equal(got[r].reshape(-1).cpu().numpy(), want), r
+    fold = T.build_plan(cfg, device=cuda)
+    x = torch.from_numpy(a.astype(np.int32)).to(cuda)
+    y = torch.from_numpy(b.astype(np.int32)).to(cuda)
+    fb = fold.make_batched(2)
+    assert torch.equal(bat["fwd_mat"](x), fb["fwd_mat"](x))
+    assert torch.equal(bat["inv_mat"](x.reshape(2, n2, n1)),
+                       fb["inv_mat"](x.reshape(2, n2, n1)))
+    assert torch.equal(bat["polymul_mat"](x, y), fb["polymul_mat"](x, y))
+    assert torch.equal(got, fb["negacyclic_polymul_mat"](x, y))
+
+
+@pytest.mark.parametrize("centered", [True, False])
+@pytest.mark.parametrize("primes", [(469762049,), (998244353, 469762049),
+                                    (2013265921, 998244353, 469762049),
+                                    (2147483647, 2147483629, 2147483587,
+                                     2147483579)])
+def test_crt_kernel_matches_plain(cuda, primes, centered):
+    from ntt_aie_tpu_torch.fields import primitive_root
+    from ntt_aie_tpu_torch.ops import crt
+
+    fields = [T.PrimeField(p, primitive_root(p)) for p in primes]
+    cc, nwords = crt.make_crt_combine(fields, centered=centered, device=cuda)
+    rng = np.random.default_rng(len(primes))
+    res = [torch.from_numpy(rng.integers(0, f.p, (3, 4099)).astype(np.uint32)
+                            .view(np.int32)).to(cuda) for f in fields]
+    before = crt.crt_combine.launches
+    got = cc(*res)
+    torch.cuda.synchronize()
+    assert crt.crt_combine.launches == before + 1
+    assert got.shape == (3, 4099, nwords)
+    assert torch.equal(got, crt.crt_combine_plain(res, cc))
+
+
+@pytest.mark.parametrize("negacyclic", [False, True])
+def test_rns_polymul_is_exact_on_the_card(cuda, negacyclic):
+    n = 1 << 10
+    rns = T.RNSPolymul(10, negacyclic=negacyclic, device=cuda)
+    bound = rns.max_input_bound()
+    rng = np.random.default_rng(3)
+    a, b = (rng.integers(-bound, bound + 1, (2, n)) for _ in range(2))
+    got = rns.polymul(a, b)
+    for r in range(2):
+        full = np.convolve(a[r].astype(object), b[r].astype(object))
+        want = full[:n].copy()
+        want[:n - 1] += (-1 if negacyclic else 1) * full[n:]
+        assert np.array_equal(got[r], want), r

@@ -47,6 +47,10 @@ ENTRY_POINTS = {
     "gl_from_u64": lambda d: M.gl_from_u64(np.arange(4, dtype=np.uint64),
                                            d),
     "probe_inputs": lambda d: RL.probe_inputs("harvey4", 64, device=d)[0],
+    "RNSPolymul": lambda d: T.RNSPolymul(8, rows_log2=4, device=d).plans,
+    # the combine holds no tensor: what it makes of host residues
+    "make_crt_combine": lambda d: T.make_crt_combine(
+        [F32, T.P_998244353], device=d)[0](np.ones(4), np.ones(4)),
 }
 
 

@@ -183,11 +183,16 @@ def test_context_negacyclic_errors_match_reference():
 
 
 def test_unported_fused_configs_raise():
+    """wmat_factored stays unported (4g). The negacyclic product without
+    fused=True (4d), which raised here before, is now the fold plan's
+    (ncp1/nicp1): equal to the fused plan's."""
     _, nc = _cfgs(11, 4, negacyclic=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-        T.build_plan(nc, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4d"):
-        T.NTTContext(nc, device="cpu").negacyclic_polymul(np.zeros(2048),
-                                                         np.zeros(2048))
+    fold = T.build_plan(nc, device="cpu")
+    assert {"ncp1", "nicp1"} <= set(fold.passes)
+    a, b = _inputs(11)
+    want = port_plan(11, 4, negacyclic=True).negacyclic_polymul(a[0], b[0])
+    assert torch.equal(fold.negacyclic_polymul(a[0], b[0]), want)
+    assert torch.equal(
+        T.NTTContext(nc, device="cpu").negacyclic_polymul(a[0], b[0]), want)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4g"):
         T.build_plan(nc, device="cpu", fused=True, wmat_factored=True)

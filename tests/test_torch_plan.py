@@ -190,16 +190,38 @@ def test_context_host_paths_match_reference(ordering):
 
 
 @pytest.mark.parametrize("kw,build_kw", [
-    ({"log_n": 11, "rows_log2": 4, "negacyclic": True}, {}),
     ({"log_n": 11, "rows_log2": 4}, {"fused": True, "wmat_factored": True}),
     ({"log_n": 11, "rows_log2": 4}, {"wmat_factored": True}),
-    ({"log_n": 11, "rows_log2": 4}, {"wmat_fold": False}),
     ({"log_n": 11, "table_convention": "reference"}, {}),
 ])
 def test_out_of_slice_configs_raise(kw, build_kw):
     cfg = T.NTTConfig(field=T.P_469762049, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.build_plan(cfg, device="cpu", **build_kw)
+
+
+@pytest.mark.parametrize("kw,build_kw", [
+    ({"negacyclic": True}, {}),
+    ({"negacyclic": True}, {"wmat_fold": False}),
+])
+def test_formerly_refused_fourstep_configs_build(kw, build_kw):
+    """The two four-step configurations that raised before the column
+    pass took 'pre' and 'post' operands: the negacyclic product on the
+    fold plan, and the wmat_fold=False arm. Both against the NumPy
+    oracles (tests/test_torch_nega_fold.py and test_torch_wmat_entry.py
+    hold them against the reference's plans)."""
+    cfg = T.NTTConfig(field=T.P_469762049, log_n=11, rows_log2=4, **kw)
+    plan = T.build_plan(cfg, device="cpu", **build_kw)
+    a, b = _inputs(11)
+    got = plan.negacyclic_polymul(torch.from_numpy(a[0]),
+                                  torch.from_numpy(b[0]))
+    assert np.array_equal(got.numpy().astype(np.int64),
+                          ref.negacyclic_polymul(a[0], b[0], T.P_469762049))
+    fwd = plan.fwd(torch.from_numpy(a[1]))
+    natural = np.empty(cfg.n, dtype=np.int64)
+    natural[plan.spectral_to_natural] = fwd.numpy()
+    assert np.array_equal(natural, ref.ntt_forward(a[1], T.P_469762049))
+    assert np.array_equal(plan.inv(fwd).numpy(), a[1])
 
 
 @pytest.mark.parametrize("fused", [False, True])

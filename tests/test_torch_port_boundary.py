@@ -16,8 +16,10 @@ MODULES = [
     "ntt_aie_tpu_torch.native_oracle",
     "ntt_aie_tpu_torch.plan",
     "ntt_aie_tpu_torch.reference",
+    "ntt_aie_tpu_torch.rns",
     "ntt_aie_tpu_torch.twiddles",
     "ntt_aie_tpu_torch.ops.colpass",
+    "ntt_aie_tpu_torch.ops.crt",
     "ntt_aie_tpu_torch.ops.fused_fourstep",
     "ntt_aie_tpu_torch.ops.gl_colpass",
     "ntt_aie_tpu_torch.ops.modops",
@@ -81,7 +83,8 @@ def test_kernel_source_ships_with_the_package():
              "ntt_aie_tpu/ops/pallas_ntt.py::build_fused_fourstep"),
             ("nested_colpass.cu",
              "scripts/proto_nested_colpass.py::nested_colpass"),
-            ("bfly_probe.cu", "ntt_aie_tpu/profiling/roofline.py")):
+            ("bfly_probe.cu", "ntt_aie_tpu/profiling/roofline.py"),
+            ("crt.cu", "ntt_aie_tpu/ops/crt.py::make_crt_combine")):
         text = (csrc / name).read_text()
         assert replaces in text
         assert "extern \"C\"" in text
