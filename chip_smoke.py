@@ -23,7 +23,9 @@ to n = 2^16, 2^14 for Goldilocks: the four-step kernels at an internal
 split, then one gather into bit-reversed order), F1-F5 of FLAT_PLANS;
 and the column kernel's 'pre' and 'post' operands: the negacyclic
 product on the fold plan, the wmat_fold=False arm, and exact RNS products
-with the CRT combine kernel.
+with the CRT combine kernel; and the column kernels' factored and rank-1
+operands: the wmat_factored=True plans (32-bit and Goldilocks) and the
+Goldilocks wmat_fold=False plan.
 Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
@@ -162,19 +164,26 @@ Phases, one JSON object per line:
                  plans' route (b), with its parts.
  22. gl_negacyclic — the Goldilocks negacyclic product on the four-step
                  split at n = 2^20, B = 64 (phase 7's plan with
-                 negacyclic=True): the device memory its batched
-                 callables hold (psi and psi^-1 copied over the batch,
-                 as gl_mul takes operands of one shape), row 0 and two
-                 random rows against the native negacyclic product,
-                 launches 6 / 4, and us/NTT of negacyclic_polymul beside
-                 polymul.
+                 negacyclic=True): the device memory its plan and batched
+                 callables hold beyond the cyclic plan's (psi and psi^-1,
+                 held once and broadcast over the batch by gl_mul; at most
+                 16 MiB), row 0 and two random rows against the native
+                 negacyclic product, launches 6 / 4, and us/NTT of
+                 negacyclic_polymul beside polymul.
  23. prepost_kernel — the column kernel's instantiations with 'pre' and
                  'post' operands (PREPOST_PASSES: the fold plan's
                  negacyclic ncp1 and nicp1, the wmat_fold=False arm's
                  cp2, icp1, ncp1 and nicp1) against the plain version,
                  raw and bit-exact, under harvey4 (1024x1024, 512x2048,
                  32x64), montgomery and harvey (1024x1024, 32x64) and
-                 barrett (Kyber, 16x8), B = 1 and 4;
+                 barrett (Kyber, 16x8), B = 1 and 4; the factored and
+                 rank-1 instantiations of the wmat_factored=True arm
+                 (WFAC_PASSES: cp2, icp2, ncp1, nicp1) under the four
+                 reductions at 1024x1024, 128x512 and the 8,192-row
+                 column (Kyber 16x8), and the Goldilocks kernel's
+                 (GL_ARM_PASSES: the entry arm's cp2 and icp1 with the
+                 'pre' matrix, the factored cp2 and icp2) at 1024x1024,
+                 2048x256 and 8,192 rows, B = 1 and 4, both planes;
  24. nega_fold, nega_fold_time — the negacyclic product on the
                  four-step fold plan (NEGA_PLANS: n = 2^20 over
                  p = 469762049 at B = 256, over p = 2013265921 and
@@ -206,6 +215,25 @@ Phases, one JSON object per line:
                  against the schoolbook integer product; the host-to-limbs
                  time of polymul_limbs, its device part and the combine
                  alone beside its byte bound.
+ 27. wmat_factored, wmat_factored_time — the wmat_factored=True plan at
+                 n = 2^20, B = 256 over p = 469762049 (negacyclic): every
+                 callable equal to the fold plan's, fwd_mat gated on the
+                 native oracle on row 0 plus 8 random rows, launches by
+                 instantiation 2 / 2 / 6 / 6 (cp2 'pre' wfac, icp2 'post'
+                 wfac, ncp1/nicp1 rank-1 psi); fwd_mat and inv_mat in
+                 turns with the fold and entry arms, the products, and
+                 cp2, icp2, ncp1, nicp1 alone with their plain versions
+                 at B = 4 and kernel_info; then the montgomery plan
+                 (p = 2013265921, n = 2^20, B = 256) and barrett on Kyber
+                 (n = 256, 16 x 16, B = 16,384) equal to their fold plans
+                 on every callable (FAC_CHECKS).
+ 28. gl_arms, gl_arms_time — the Goldilocks wmat_fold=False and
+                 wmat_factored=True plans at n = 2^20, B = 64
+                 (negacyclic): every callable equal to the fold plan's,
+                 fwd_mat gated on the native oracle, launches by
+                 instantiation; fwd_mat of the three arms in turns, and
+                 the new passes alone with their plain versions at B = 4
+                 and kernel_info.
 
 Then one line {"kernels": [...]}: per kernel its time at the main path's
 shape ("ms", per launch), launches, the plain version's time, and its
@@ -221,9 +249,12 @@ for each of montgomery, harvey and barrett, bound by that reduction's
 probe rate. Phases 24-26 add a colpass[<pass>] row for each 'pre'/'post'
 instantiation at n = 2^20, B = 256 (harvey4; each timed alone, its
 launches its own path's) and the crt row (the combine at n = 2^20,
-B = 16, three primes; bound by its bytes). Each row's launches are its own path's; the flat phases'
-(phases 20 and 22's driven calls) are under "flat_launches". Last, the
-result line
+B = 16, three primes; bound by its bytes). Phases 27-28 add a
+colpass[factored:<pass>] row for each factored or rank-1 instantiation
+(harvey4, n = 2^20, B = 256) and a gl_colpass[<arm>:<pass>] row for each
+new Goldilocks one (B = 64), their bytes with their operand tables.
+Each row's launches are its own path's; the flat phases' (phases 20 and
+22's driven calls) are under "flat_launches". Last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -310,6 +341,34 @@ PREPOST_KERNEL_SHAPES = (
     ("montgomery", "p2013265921", ((1024, 1024), (32, 64))),
     ("harvey", "p998244353", ((1024, 1024), (32, 64))),
     ("barrett", "kyber", ((16, 8),)))
+# The column kernels' factored ('wfac') and rank-1 instantiations and the
+# Goldilocks kernel's 'pre' matrix (phase 23), by the plan passes that run
+# them: (fold_passes / gl_fold_passes keyword arguments, pass)
+WFAC_PASSES = (({"wmat_factored": True}, "cp2"),
+               ({"wmat_factored": True}, "icp2"),
+               ({"wmat_factored": True, "negacyclic": True}, "ncp1"),
+               ({"wmat_factored": True, "negacyclic": True}, "nicp1"))
+GL_ARM_PASSES = (({"wmat_fold": False}, "cp2"), ({"wmat_fold": False}, "icp1"),
+                 ({"wmat_factored": True}, "cp2"),
+                 ({"wmat_factored": True}, "icp2"))
+# (reduction, field name, (n1, n2) splits) of phase 23's factored passes:
+# the main path's split, 128 x 512 and the 8,192-row column (64 columns:
+# the split (8192, 64) for the passes over n1 rows, (64, 8192) for those
+# over n2); Kyber at its largest negacyclic size. Goldilocks: 1024 x 1024,
+# 2048 x 256 and the 8,192-row column.
+WFAC_KERNEL_SHAPES = tuple(
+    (kind, name, ((1024, 1024), (128, 512), (8192, 64), (64, 8192)))
+    for kind, name in (("harvey4", "p469762049"),
+                       ("montgomery", "p2013265921"),
+                       ("harvey", "p998244353"))) + (
+    ("barrett", "kyber", ((16, 8),)),)
+GL_ARM_KERNEL_SHAPES = ((1024, 1024), (2048, 256), (8192, 64), (64, 8192))
+# The other plans of phase 27 held equal to their fold plan: (reduction,
+# field name, log_n, rows_log2, batch, negacyclic); Kyber at n = 256 on its
+# pinned 16 x 16 split (no negacyclic product there: n = 128 is its
+# largest)
+FAC_CHECKS = (("montgomery", "p2013265921", 20, 10, 256, True),
+              ("barrett", "kyber", 8, 4, 16384, False))
 # The negacyclic fold plans of phase 24: (field name, log_n, rows_log2,
 # batch): the main path's size over p = 469762049, the other two default
 # RNS primes at B = 64, and Kyber at n = 128 (its largest negacyclic size)
@@ -557,6 +616,16 @@ def main() -> int:
     crt_row = rns_phase(args, dev, card, rng)
     if crt_row is None:
         return 1
+    torch.cuda.empty_cache()
+    got = wfac_phase(args, dev, card, rng)
+    if got is None:
+        return 1
+    wfac_launches, wfac_time = got
+    torch.cuda.empty_cache()
+    got = gl_arms_phase(args, dev, card, rng)
+    if got is None:
+        return 1
+    gl_arm_launches, gl_arm_time = got
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -578,6 +647,8 @@ def main() -> int:
     }] + gl_rows + [fused_row] + nested_rows + red_rows
     rows += _prepost_rows(prepost_errs, nega_launches, nega_time,
                           entry_launches, entry_time, B, n)
+    rows += _factored_rows(prepost_errs, wfac_launches, wfac_time,
+                           gl_arm_launches, gl_arm_time)
     rows.append({
         "name": "crt", "route": "cuda",
         "source": "ntt_aie_tpu_torch/csrc/crt.cu",
@@ -627,6 +698,65 @@ def _prepost_rows(errs, nega_launches, nega_time, entry_launches,
             "batch": B, "plain_batch": line["plain_batch"],
             "bytes": 2 * B * n * 4 + tables * n * 8,
             "butterflies": B * n // 2 * 10, "arithmetic": "harvey4",
+            "registers": info["registers"],
+            "blocks_per_sm": info["blocks_per_sm"]})
+    return rows
+
+
+def _factored_rows(errs, launches, line, gl_launches, gl_line):
+    """The kernels-line rows of the column kernels' factored and rank-1
+    instantiations (PERF.md row 1f: harvey4, n = 2^20, B = 256) and of
+    the Goldilocks kernel's 'pre' matrix and factored ones (row 3p:
+    n = 2^20, B = 64), one row an instantiation, each timed alone (phases 27 and 28), its launches from its
+    own phase's driven calls, its bytes the input and output once and its
+    operand tables once (pairs of 8 bytes: the factored tables (n2/S + S)
+    x n1, the rank-1 vectors n1 + n2, the Goldilocks matrix n; S = 32 at
+    1024 x 1024), its butterflies the column network's."""
+    n1 = n2 = 1024
+    n, s = n1 * n2, 32
+    fac_bytes, rank1_bytes = (n2 // s + s) * n1 * 8, (n1 + n2) * 8
+    rows = []
+    for name, variant, tables in (
+            ("cp2", "dif+wfac_pre", fac_bytes),
+            ("icp2", "dit+wfac_post+T", fac_bytes),
+            ("ncp1", "dif+rank1_pre+T", rank1_bytes),
+            ("nicp1", "dit+rank1_post", rank1_bytes)):
+        info = line["kernel_info"][name]
+        B = line["batch"]
+        rows.append({
+            "name": f"colpass[factored:{name}]", "perf_row": "1f",
+            "route": "cuda",
+            "source": "ntt_aie_tpu_torch/csrc/colpass.cu",
+            "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:298",
+            "variant": variant, "launches": launches.get(variant, 0),
+            "max_abs_err": errs.get(variant, 0),
+            "ms": line["pass_us_per_call"][name] / 1e3,
+            "plain_ms": line["plain_us_per_call"][name] / 1e3,
+            "batch": B, "plain_batch": line["plain_batch"],
+            "bytes": 2 * B * n * 4 + tables, "table_bytes": tables,
+            "butterflies": B * n // 2 * 10, "arithmetic": "harvey4",
+            "registers": info["registers"],
+            "blocks_per_sm": info["blocks_per_sm"]})
+    for key, variant, tables in (
+            ("entry:cp2", "dif+pre", n * 8),
+            ("entry:icp1", "dit+pre", n * 8),
+            ("factored:cp2", "dif+wfac_pre", fac_bytes),
+            ("factored:icp2", "dit+wfac_post+T", fac_bytes)):
+        info = gl_line["kernel_info"][key]
+        B = gl_line["batch"]
+        arm = key.split(":")[0]
+        rows.append({
+            "name": f"gl_colpass[{key}]", "perf_row": "3p", "route": "cuda",
+            "source": "ntt_aie_tpu_torch/csrc/gl_colpass.cu",
+            "replaces": "ntt_aie_tpu/ops/pallas_gl.py:33",
+            "variant": variant,
+            "launches": gl_launches.get(f"{arm}:{variant}", 0),
+            "max_abs_err": errs.get(f"gl:{variant}", 0),
+            "ms": gl_line["pass_us_per_call"][key] / 1e3,
+            "plain_ms": gl_line["plain_us_per_call"][key] / 1e3,
+            "batch": B, "plain_batch": gl_line["plain_batch"],
+            "bytes": 2 * B * n * 8 + tables, "table_bytes": tables,
+            "butterflies": B * n // 2 * 10, "arithmetic": "goldilocks",
             "registers": info["registers"],
             "blocks_per_sm": info["blocks_per_sm"]})
     return rows
@@ -863,16 +993,17 @@ def goldilocks_phases(args, dev, card, rng):
     ]
 
 
-def _in_turns(fa, fb, x):
-    """us per call of fa and fb on x, timed in turns a, b, b, a; each
-    reading is time_device's trimmed mean, and each result the mean of
-    its two readings."""
+def _turns(fns, x):
+    """us per call of each of fns on x, timed in turns 0, 1, .., k - 1,
+    k - 1, .., 0; each reading is time_device's trimmed mean, and each
+    result the mean of its two readings."""
     from ntt_aie_tpu_torch.utils.timing import time_device
 
-    ra, rb = [], []
-    for fn, acc in ((fa, ra), (fb, rb), (fb, rb), (fa, ra)):
-        acc.append(time_device(fn, x)["us_per_iter"])
-    return sum(ra) / 2, sum(rb) / 2
+    acc = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for i in order + order[::-1]:
+        acc[i].append(time_device(fns[i], x)["us_per_iter"])
+    return [sum(r) / 2 for r in acc]
 
 
 def fused_phases(args, dev, card, rng):
@@ -1025,10 +1156,10 @@ def fused_phases(args, dev, card, rng):
         return None
 
     # 11. fused_time: fused against fold in turns, and the plain version
-    fold1, fused1 = _in_turns(fold.fwd_mat, plan.fwd_mat, x[0])
-    fold_inv1, fused_inv1 = _in_turns(fold.inv_mat, plan.inv_mat, x[0])
-    foldb, fusedb = _in_turns(fold_bat["fwd_mat"], bat["fwd_mat"], x)
-    fold_invb, fused_invb = _in_turns(fold_bat["inv_mat"], bat["inv_mat"], x)
+    fold1, fused1 = _turns((fold.fwd_mat, plan.fwd_mat), x[0])
+    fold_inv1, fused_inv1 = _turns((fold.inv_mat, plan.inv_mat), x[0])
+    foldb, fusedb = _turns((fold_bat["fwd_mat"], bat["fwd_mat"]), x)
+    fold_invb, fused_invb = _turns((fold_bat["inv_mat"], bat["inv_mat"]), x)
     ff = plan.passes["ff"]
     info = F.kernel_info(ff, B)
     # after the timed chains: the same plan against the fold plan again
@@ -1581,7 +1712,7 @@ def reduction_phases(args, dev, card, rng):
                               fused=fused).make_batched(256)["fwd_mat"]
                  for kind in ("harvey4", "harvey"))
         same = bool(torch.equal(h4(x), h(x)))
-        a_us, b_us = _in_turns(h4, h, x)
+        a_us, b_us = _turns((h4, h), x)
         turns["fused" if fused else "fold"] = {
             "harvey4_us_per_ntt": a_us / 256, "harvey_us_per_ntt": b_us / 256,
             "harvey_over_harvey4": b_us / a_us, "equal": same}
@@ -1897,11 +2028,12 @@ def flat_phases(args, dev, card, rng):
 
 def gl_negacyclic_phase(dev, card, gen, rng):
     """Phase 22: the Goldilocks negacyclic product on the four-step split
-    at n = 2^GL_LOG_N, B = GL_BATCH: the device memory of its batched
-    callables (psi and psi^-1 over the whole batch), gated on the native
-    oracle, its launches counted, and timed beside the cyclic product.
-    Returns {kernel row: launches}, or None after emitting the
-    failure."""
+    at n = 2^GL_LOG_N, B = GL_BATCH: the device memory its plan and its
+    batched callables hold beyond the cyclic plan's (psi and psi^-1, held
+    once and broadcast over the batch: at most 16 MiB at n = 2^20), gated
+    on the native oracle, its launches counted, and timed beside the
+    cyclic product. Returns {kernel row: launches}, or None after emitting
+    the failure."""
     import numpy as np
     import torch
 
@@ -1916,12 +2048,19 @@ def gl_negacyclic_phase(dev, card, gen, rng):
     cfg = T.NTTConfig(field=field, log_n=GL_LOG_N, rows_log2=GL_LOG_N // 2,
                       negacyclic=True)
     n = cfg.n
-    plan = T.build_plan(cfg, device=dev)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated(dev)
-    bat = plan.make_batched(B)
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated(dev) - before
+
+    def held_by(c):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        plan = T.build_plan(c, device=dev)
+        bat = plan.make_batched(B)
+        torch.cuda.synchronize()
+        return plan, bat, torch.cuda.memory_allocated(dev) - before
+
+    cyclic = held_by(T.NTTConfig(field=field, log_n=GL_LOG_N,
+                                 rows_log2=GL_LOG_N // 2))[2]
+    plan, bat, held = held_by(cfg)
+    held -= cyclic
     v = rng.integers(0, 1 << 64, (2, B, n), dtype=np.uint64) % np.uint64(p)
     a, b = (M.gl_from_u64(u, dev) for u in v)
     G.gl_colpass.launches = G.gl_mul.launches = 0
@@ -1937,15 +2076,18 @@ def gl_negacyclic_phase(dev, card, gen, rng):
         for r, i in zip(got, gate_rows))
     del d
     counts_ok = launches == [6, 4]
-    ok = bool(gate_ok and counts_ok)
+    psi_ok = held <= 16 << 20
+    ok = bool(gate_ok and counts_ok and psi_ok)
     emit({"phase": "gl_negacyclic", "n": n, "split": list(cfg.split),
           "batch": B, "oracle": "native", "gate_rows": gate_rows.tolist(),
           "gate_ok": bool(gate_ok), "launches": launches,
-          "launches_ok": counts_ok, "psi_tables_bytes": held, "ok": ok})
+          "launches_ok": counts_ok, "psi_tables_bytes": held,
+          "psi_tables_ok": psi_ok, "ok": ok})
     if not ok:
         fail("gl_negacyclic", "the Goldilocks negacyclic product at n = "
-             f"2^{GL_LOG_N} disagrees with the native oracle or did not "
-             "launch 6 column passes and 4 products")
+             f"2^{GL_LOG_N} disagrees with the native oracle, did not "
+             "launch 6 column passes and 4 products, or holds more than "
+             "16 MiB of psi tables")
         return None
     us = {k: time_device(lambda t: bat[k](t, t), a)["us_per_iter"] / B
           for k in ("polymul", "negacyclic_polymul")}
@@ -2002,6 +2144,90 @@ def prepost_kernel_phase(args, dev):
               "passes": [f"{pname}{'' if kw.get('wmat_fold', True) else '[entry]'}"
                          for kw, pname in PREPOST_PASSES],
               "batches": [1, 4], "equal": True, "max_abs_err": 0})
+    # the factored and rank-1 instantiations, over the passes' own rows
+    for kind, name, splits in WFAC_KERNEL_SHAPES:
+        field = T.FIELDS[name]
+        top = _domain_top(kind, field.p)
+        seen = []
+        for n1, n2 in splits:
+            for kw, pname in WFAC_PASSES:
+                rows, cols = ((n2, n1) if pname in ("cp2", "icp2")
+                              else (n1, n2))
+                if rows == 64 and cols == 8192:
+                    continue  # the 8,192-row column runs on the other split
+                cp = fold_passes(field, n1, n2, reduction=kind, device=dev,
+                                 **kw)[pname]
+                key = C.variant(cp)
+                for B in (1, 4):
+                    x = torch.randint(0, top, (B, rows, cols),
+                                      dtype=torch.int64, device=dev,
+                                      generator=gen).to(torch.int32)
+                    got = C.colpass(x, cp)
+                    torch.cuda.synchronize()
+                    want = C.colpass_plain(x, cp)
+                    err = int((got.long() - want.long()).abs().max())
+                    errs[key] = max(errs.get(key, 0), err)
+                    if err or not torch.equal(got, want):
+                        fail("prepost_kernel", f"{kind} factored {pname} "
+                             f"({key}) {[B, rows, cols]} differs from its "
+                             "plain version")
+                        return None
+                seen.append([key, [rows, cols]])
+        emit({"phase": "prepost_kernel", "reduction": kind,
+              "arm": "wmat_factored",
+              "variants": sorted({v for v, _ in seen}),
+              "shapes": seen, "batches": [1, 4], "equal": True,
+              "max_abs_err": 0})
+    gl_errs = gl_arm_kernel_phase(dev, gen)
+    if gl_errs is None:
+        return None
+    errs.update(gl_errs)
+    return errs
+
+
+def gl_arm_kernel_phase(dev, gen):
+    """Phase 23, Goldilocks: the kernel's 'pre' matrix and 'wfac'
+    instantiations (GL_ARM_PASSES) against the plain version, both limb
+    planes bit-exact, at GL_ARM_KERNEL_SHAPES (the passes over 8,192 rows
+    only, on the splits with one side of 8,192), B = 1 and 4. Returns
+    {'gl:' + instantiation: largest error}, or None after emitting the
+    failure."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+
+    field = T.GOLDILOCKS
+    errs, seen = {}, []
+    for n1, n2 in GL_ARM_KERNEL_SHAPES:
+        for kw, pname in GL_ARM_PASSES:
+            rows, cols = (n2, n1) if pname in ("cp2", "icp2") else (n1, n2)
+            if rows == 64 and cols == 8192:
+                continue
+            cp = gl_fold_passes(field, n1, n2, device=dev, **kw)[pname]
+            key = "gl:" + G.variant(cp)
+            for B in (1, 4):
+                hi, lo = (M.from_carrier(torch.randint(
+                    0, 1 << 32, (B, rows, cols), dtype=torch.int64,
+                    device=dev, generator=gen)) for _ in range(2))
+                x = (hi, torch.where(hi == -1, torch.zeros_like(lo), lo))
+                got = G.gl_colpass(x, cp)
+                torch.cuda.synchronize()
+                want = G.gl_colpass_plain(x, cp)
+                err = max(int((g.long() - w.long()).abs().max())
+                          for g, w in zip(got, want))
+                errs[key] = max(errs.get(key, 0), err)
+                if err:
+                    fail("prepost_kernel", f"Goldilocks {pname} ({key}) "
+                         f"{[B, rows, cols]} differs from its plain version")
+                    return None
+            seen.append([key, [rows, cols]])
+    emit({"phase": "prepost_kernel", "reduction": "goldilocks",
+          "arm": "wmat_fold=False, wmat_factored",
+          "variants": sorted(errs), "shapes": seen, "batches": [1, 4],
+          "equal": True, "max_abs_err": 0})
     return errs
 
 
@@ -2148,20 +2374,9 @@ def wmat_entry_phase(args, dev, card):
     entry = entry_plan.make_batched(B)
     x, y = (torch.randint(0, field.p, (B, n1, n2), dtype=torch.int32,
                           device=dev, generator=gen) for _ in range(2))
-    operands = {"fwd_mat": (x,), "inv_mat": (x,), "polymul_mat": (x, y),
-                "negacyclic_polymul_mat": (x, y),
-                "fwd": (x.reshape(B, n),), "inv": (x.reshape(B, n),),
-                "polymul": (x.reshape(B, n), y.reshape(B, n)),
-                "negacyclic_polymul": (x.reshape(B, n), y.reshape(B, n))}
-    equal, by = {}, {}
-    for key, ops in operands.items():
-        C.colpass.launches_by = {}
-        got = entry[key](*ops)
-        torch.cuda.synchronize()
-        for k, v in C.colpass.launches_by.items():
-            by[k] = by.get(k, 0) + v
-        equal[key] = bool(torch.equal(got, fold[key](*ops)))
-        del got
+    per, equal = _by_callable((entry, fold), _operands_of(x, y, n),
+                              (C.colpass,))
+    by = _summed(per)
     ok = all(equal.values())
     emit({"phase": "wmat_entry", "n": n, "split": [n1, n2], "batch": B,
           "equal_to_fold": equal, "launches_by": by, "ok": ok})
@@ -2171,7 +2386,7 @@ def wmat_entry_phase(args, dev, card):
         return None
     turns = {}
     for key in ("fwd_mat", "inv_mat"):
-        f_us, e_us = _in_turns(fold[key], entry[key], x)
+        f_us, e_us = _turns((fold[key], entry[key]), x)
         turns[key] = {"fold_us_per_ntt": f_us / B, "entry_us_per_ntt": e_us / B,
                       "entry_over_fold": e_us / f_us}
     for key in ("polymul_mat", "negacyclic_polymul_mat"):
@@ -2194,6 +2409,284 @@ def wmat_entry_phase(args, dev, card):
                         "products of x with itself; plain: 3 repeats of 2"}
     emit(timing)
     return by, timing
+
+
+def _gate_fwd(y, x, rows, field, spectral_to_natural, dev):
+    """Rows of the (B, .., ..) forward y of x (32-bit int32 tensors or
+    Goldilocks limb pairs) against the native oracle's DIF of the same
+    rows of x, in natural order."""
+    import numpy as np
+    import torch
+
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.ops import modops as M
+
+    idx = torch.from_numpy(rows).to(dev)
+    if isinstance(y, tuple):
+        B, n = y[0].shape[0], y[0][0].numel()
+        got = M.gl_to_u64(*(v.reshape(B, n)[idx] for v in y))
+        rows_in = M.gl_to_u64(*(v.reshape(B, n)[idx] for v in x))
+    else:
+        B, n = y.shape[0], y[0].numel()
+        got = y.reshape(B, n)[idx].cpu().numpy().view(np.uint32)
+        rows_in = x.reshape(B, n)[idx].cpu().numpy().astype(np.uint64)
+    want = native_oracle.ntt_dif_batch(
+        rows_in, field.root_of_unity(n), field.p)[:, tw.bit_reverse_indices(n)]
+    return bool(np.array_equal(
+        got[:, spectral_to_natural].astype(np.uint64),
+        want.astype(np.uint64)))
+
+
+def _by_callable(bats, operands, counters):
+    """Drive each callable of bats[0] on its operands once: its launches
+    by instantiation (counters: the kernel wrappers, whose launches_by is
+    reset just before each call and read just after), and whether its
+    output equals that of the same callable of every other dict in bats."""
+    import torch
+
+    by, equal = {}, {}
+    for key, ops in operands.items():
+        for c in counters:
+            c.launches_by = {}
+        got = bats[0][key](*ops)
+        torch.cuda.synchronize()
+        by[key] = {k: v for c in counters for k, v in c.launches_by.items()}
+        same = True
+        for other in bats[1:]:
+            want = other[key](*ops)
+            if isinstance(got, tuple):
+                same = same and all(torch.equal(u, v)
+                                    for u, v in zip(got, want))
+            else:
+                same = same and bool(torch.equal(got, want))
+            del want
+        equal[key] = same
+        del got
+    return by, equal
+
+
+def _operands_of(x, y, n):
+    """The eight callables' operands from two (B, n1, n2) batches (or
+    Goldilocks limb pairs): inv_mat takes x read as a (B, n2, n1)
+    spectrum."""
+    def shaped(v, *shape):
+        return (tuple(t.reshape(t.shape[0], *shape) for t in v)
+                if isinstance(v, tuple) else v.reshape(v.shape[0], *shape))
+
+    first = x[0] if isinstance(x, tuple) else x
+    spec = shaped(x, first.shape[2], first.shape[1])
+    flat_x, flat_y = shaped(x, n), shaped(y, n)
+    return {"fwd_mat": (x,), "inv_mat": (spec,), "polymul_mat": (x, y),
+            "negacyclic_polymul_mat": (x, y), "fwd": (flat_x,),
+            "inv": (flat_x,), "polymul": (flat_x, flat_y),
+            "negacyclic_polymul": (flat_x, flat_y)}
+
+
+def _summed(per, prefix=""):
+    """The launches by instantiation of _by_callable summed over the
+    callables, each key prefixed."""
+    total = {}
+    for d in per.values():
+        for k, v in d.items():
+            total[prefix + k] = total.get(prefix + k, 0) + v
+    return total
+
+
+def wfac_phase(args, dev, card, rng):
+    """Phase 27: the wmat_factored=True plan at n = 2^20, B = 256 over
+    p = 469762049 (negacyclic): every callable equal to the fold plan's,
+    fwd_mat gated on the native oracle, launches by instantiation
+    (2 / 2 / 6 / 6); fwd_mat and inv_mat timed in turns with the fold and
+    the entry arm (fold, factored, entry, entry, factored, fold), the
+    products once each, and cp2, icp2, ncp1 and nicp1 alone with
+    kernel_info and their plain versions at a batch of 4; then the
+    montgomery and barrett plans of FAC_CHECKS equal to their fold plans.
+    Returns (launches by instantiation, timing line), or None after
+    emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    field, B = T.P_469762049, 256
+    cfg = T.NTTConfig(field=field, log_n=20, negacyclic=True)
+    n, (n1, n2) = cfg.n, cfg.split
+    fold_plan = T.build_plan(cfg, device=dev)
+    fold = fold_plan.make_batched(B)
+    fac_plan = T.build_plan(cfg, device=dev, wmat_factored=True)
+    fac = fac_plan.make_batched(B)
+    x, y = (torch.randint(0, field.p, (B, n1, n2), dtype=torch.int32,
+                          device=dev, generator=gen) for _ in range(2))
+    by, equal = _by_callable((fac, fold), _operands_of(x, y, n), (C.colpass,))
+    gate_rows = np.concatenate(
+        [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
+    gate_ok = _gate_fwd(fac["fwd_mat"](x), x, gate_rows, field,
+                        fac_plan.spectral_to_natural, dev)
+    want_by = {
+        "fwd_mat": {"dif+T": 1, "dif+wfac_pre": 1},
+        "inv_mat": {"dit+wfac_post+T": 1, "dit": 1},
+        "polymul_mat": {"dif+T": 2, "dif+wfac_pre": 2, "dit+wfac_post+T": 1,
+                        "dit": 1},
+        "negacyclic_polymul_mat": {"dif+rank1_pre+T": 2, "dif+wfac_pre": 2,
+                                   "dit+wfac_post+T": 1, "dit+rank1_post": 1}}
+    counts_ok = all(by[k] == v for k, v in want_by.items())
+    total = _summed(by)
+    ok = bool(all(equal.values()) and gate_ok and counts_ok
+              and fac_plan.wmat_factored and not fac_plan.wmat_fold)
+    emit({"phase": "wmat_factored", "n": n, "split": [n1, n2], "batch": B,
+          "reduction": fac_plan.reduction, "equal_to_fold": equal,
+          "oracle": "native", "gate_rows": gate_rows.tolist(),
+          "gate_ok": gate_ok, "launches_by": by, "launches_ok": counts_ok,
+          "ok": ok})
+    if not ok:
+        fail("wmat_factored", "the wmat_factored=True plan differs from the "
+             "fold plan or the native oracle, or launched other kernels")
+        return None
+    entry = T.build_plan(cfg, device=dev, wmat_fold=False).make_batched(B)
+    us = {}
+    for key in ("fwd_mat", "inv_mat"):
+        f_us, w_us, e_us = _turns((fold[key], fac[key], entry[key]), x)
+        us[key] = {"fold_us_per_ntt": f_us / B,
+                   "factored_us_per_ntt": w_us / B,
+                   "entry_us_per_ntt": e_us / B,
+                   "factored_over_fold": w_us / f_us,
+                   "factored_over_entry": w_us / e_us}
+    for key in ("polymul_mat", "negacyclic_polymul_mat"):
+        us[key] = {"factored_us_per_ntt": time_device(
+            lambda t, f=fac[key]: f(t, t), x)["us_per_iter"] / B}
+    del entry
+    # each pass alone on x: n1 == n2, so every pass takes (B, n1, n2)
+    passes = fac_plan.passes
+    names = ("cp2", "icp2", "ncp1", "nicp1")
+    pass_us = {k: time_device(passes[k], x)["us_per_iter"] for k in names}
+    plain_us = {k: time_device(lambda t, cp=passes[k]: C.colpass_plain(t, cp),
+                               x[:4], iters=2, repeats=3)["us_per_iter"]
+                for k in names}
+    info = {k: C.kernel_info(passes[k], n2) for k in names}
+    timing = {"phase": "wmat_factored_time", "n": n, "batch": B,
+              "card": card, "us": us, "pass_us_per_call": pass_us,
+              "plain_batch": 4, "plain_us_per_call": plain_us,
+              "kernel_info": info,
+              "method": "CUDA events; 5 repeats of a dependent chain of 10, "
+                        "trimmed mean; fwd_mat/inv_mat in turns fold, "
+                        "factored, entry, entry, factored, fold, the mean of "
+                        "two readings; products of x with itself; plain: 3 "
+                        "repeats of 2"}
+    emit(timing)
+    del fold, fac, fold_plan, x, y
+    torch.cuda.empty_cache()
+    for kind, name, log_n, rows_log2, Bc, nega in FAC_CHECKS:
+        f = T.FIELDS[name]
+        c = T.NTTConfig(field=f, log_n=log_n, rows_log2=rows_log2,
+                        negacyclic=nega)
+        m1, m2 = c.split
+        plan = T.build_plan(c, device=dev, wmat_factored=True)
+        a, b = (torch.randint(0, f.p, (Bc, m1, m2), dtype=torch.int32,
+                              device=dev, generator=gen) for _ in range(2))
+        ops = _operands_of(a, b, c.n)
+        if not nega:
+            ops = {k: v for k, v in ops.items() if "negacyclic" not in k}
+        cby, ceq = _by_callable(
+            (plan.make_batched(Bc), T.build_plan(c, device=dev)
+             .make_batched(Bc)), ops, (C.colpass,))
+        cok = all(ceq.values()) and plan.reduction == kind
+        emit({"phase": "wmat_factored", "reduction": plan.reduction,
+              "field": name, "n": c.n, "split": [m1, m2], "batch": Bc,
+              "equal_to_fold": ceq, "launches_by": cby, "ok": cok})
+        if not cok:
+            fail("wmat_factored", f"the {kind} wmat_factored=True plan "
+                 "differs from its fold plan")
+            return None
+        del plan, a, b, ops
+        torch.cuda.empty_cache()
+    return total, timing
+
+
+def gl_arms_phase(args, dev, card, rng):
+    """Phase 28: the Goldilocks wmat_fold=False and wmat_factored=True
+    plans at n = 2^20, B = 64 (negacyclic): every callable equal to the
+    fold plan's, fwd_mat gated on the native oracle, launches by
+    instantiation; fwd_mat timed in turns among the three arms (fold,
+    entry, factored, factored, entry, fold), and the new passes alone with
+    kernel_info and their plain versions at a batch of 4. Returns
+    (launches by instantiation, timing line), or None after emitting the
+    failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    field, B = T.GOLDILOCKS, GL_BATCH
+    cfg = T.NTTConfig(field=field, log_n=GL_LOG_N, rows_log2=GL_LOG_N // 2,
+                      negacyclic=True)
+    n, (n1, n2) = cfg.n, cfg.split
+    v = rng.integers(0, 1 << 64, (2, B, n1, n2), dtype=np.uint64) \
+        % np.uint64(field.p)
+    x, y = (M.gl_from_u64(u, dev) for u in v)
+    fold = T.build_plan(cfg, device=dev).make_batched(B)
+    plans, bats, total = {}, {}, {}
+    for arm, kw in (("entry", {"wmat_fold": False}),
+                    ("factored", {"wmat_factored": True})):
+        plans[arm] = T.build_plan(cfg, device=dev, **kw)
+        bats[arm] = plans[arm].make_batched(B)
+        by, equal = _by_callable((bats[arm], fold), _operands_of(x, y, n),
+                                 (G.gl_colpass,))
+        gate_rows = np.concatenate(
+            [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
+        gate_ok = _gate_fwd(bats[arm]["fwd_mat"](x), x, gate_rows, field,
+                            plans[arm].spectral_to_natural, dev)
+        fwd_by = ({"dif+T": 1, "dif+pre": 1} if arm == "entry"
+                  else {"dif+T": 1, "dif+wfac_pre": 1})
+        inv_by = ({"dit+T": 1, "dit+pre": 1} if arm == "entry"
+                  else {"dit+wfac_post+T": 1, "dit": 1})
+        counts_ok = by["fwd_mat"] == fwd_by and by["inv_mat"] == inv_by
+        total.update(_summed(by, f"{arm}:"))
+        ok = bool(all(equal.values()) and gate_ok and counts_ok
+                  and plans[arm].wmat_factored == (arm == "factored")
+                  and not plans[arm].wmat_fold)
+        emit({"phase": "gl_arms", "arm": arm, "n": n, "split": [n1, n2],
+              "batch": B, "equal_to_fold": equal, "oracle": "native",
+              "gate_rows": gate_rows.tolist(), "gate_ok": gate_ok,
+              "launches_by": by, "launches_ok": counts_ok, "ok": ok})
+        if not ok:
+            fail("gl_arms", f"the Goldilocks {arm} arm differs from the fold "
+                 "plan or the native oracle, or launched other kernels")
+            return None
+    f_us, e_us, w_us = _turns(
+        (fold["fwd_mat"], bats["entry"]["fwd_mat"],
+         bats["factored"]["fwd_mat"]), x)
+    us = {"fwd_mat": {"fold_us_per_ntt": f_us / B,
+                      "entry_us_per_ntt": e_us / B,
+                      "factored_us_per_ntt": w_us / B,
+                      "entry_over_fold": e_us / f_us,
+                      "factored_over_fold": w_us / f_us}}
+    # each pass alone on x: n1 == n2, so every pass takes (B, n1, n2)
+    cases = {f"{arm}:{k}": plans[arm].passes[k]
+             for arm, k in (("entry", "cp2"), ("entry", "icp1"),
+                            ("factored", "cp2"), ("factored", "icp2"))}
+    pass_us = {k: time_device(cp, x)["us_per_iter"]
+               for k, cp in cases.items()}
+    plain_us = {k: time_device(lambda u, cp=cp: G.gl_colpass_plain(u, cp),
+                               tuple(w[:4] for w in x), iters=2,
+                               repeats=3)["us_per_iter"]
+                for k, cp in cases.items()}
+    info = {k: G.kernel_info(cp, n2) for k, cp in cases.items()}
+    timing = {"phase": "gl_arms_time", "n": n, "batch": B, "card": card,
+              "us": us, "pass_us_per_call": pass_us, "plain_batch": 4,
+              "plain_us_per_call": plain_us, "kernel_info": info,
+              "method": "CUDA events; 5 repeats of a dependent chain of 10, "
+                        "trimmed mean; fwd_mat in turns fold, entry, "
+                        "factored, factored, entry, fold, the mean of two "
+                        "readings; plain: 3 repeats of 2"}
+    emit(timing)
+    return total, timing
 
 
 def rns_phase(args, dev, card, rng):

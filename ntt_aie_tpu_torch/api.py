@@ -32,8 +32,10 @@ class NTTContext:
     matrix-form callables, as the reference's.
 
     Plan keyword arguments (fused, wmat_factored, wmat_fold) forward to
-    build_plan (wmat_fold=False: the four-step multiply at the second
-    pass's entry; wmat_factored=True is not ported). device=None is the card, and raises RuntimeError without
+    build_plan, for the 32-bit plans and Goldilocks alike (wmat_fold=False:
+    the four-step multiply at the second pass's entry; wmat_factored=True:
+    from the factored tables, with rank-1 psi in the 32-bit negacyclic
+    product). device=None is the card, and raises RuntimeError without
     one; device="cpu" runs the plain PyTorch version.
     """
 

@@ -17,7 +17,14 @@
 //   wmat_fold=False: cp2 = 'pre' wmat, DIF over n2, canonicalize; icp1 =
 //     'pre' iwmat, DIT over n1, canonicalize; ncp1 = 'pre' psi, DIF over
 //     n1, transpose_out; nicp1 = 'pre' iwmat, DIT over n1, 'post' psi^-1,
-//     canonicalize.
+//     canonicalize;
+// and the wmat_factored=True arm's factored and rank-1 operands
+// (colpass_tile.cuh Operand: kOpFac, the four-step matrix as T1[c1] *
+// T2[c0] over the row c = c1*S + c0; kOpRank1, psi as row[r] * col[c]):
+//   cp2  = 'pre' wfac, DIF over n2, canonicalize;
+//   icp2 = DIT over n2, 'post' wfac^-1 (1/n folded in), transpose_out;
+//   ncp1 = 'pre' rank-1 psi, DIF over n1, transpose_out;
+//   nicp1 = DIT over n1, 'post' rank-1 psi^-1, canonicalize.
 // pick_kernel instantiates those combinations and no other.
 //
 // What it computes, per column of a (B, nn, ncols) uint32 array: the
@@ -79,6 +86,10 @@
 // 6 blocks per SM, the entry arm's cp2 takes cp2's 48 and 5, its ncp1 54
 // and 4, and the DIT ones 62-64 and 4, as icp1 does (harvey4, read with
 // ntt_colpass_kernel_info on an H100 80GB HBM3 at 700 W, PERF.md).
+// The factored and rank-1 forms add two 8-byte loads and two multiplies a
+// value to the same group. Their tables are (n2/S + S) x n1 pairs (512 KB
+// at n = 2^20, S = 32) and n1 + n2 pairs, against the full matrix's 8 MB:
+// they stay in L2, and the loads are a simple kernel's, not yet tuned.
 
 #include "colpass_tile.cuh"
 
@@ -107,9 +118,15 @@ struct Params {
   Red red;    // the reduction and its constants
 };
 
-// One thread block per (batch row, tile of TL columns).
-template <bool kDit, bool kTranspose, bool kMat, bool kPre = false,
-          bool kPost = false>
+using colpass_tile::kOpFac;
+using colpass_tile::kOpMat;
+using colpass_tile::kOpNone;
+using colpass_tile::kOpRank1;
+
+// One thread block per (batch row, tile of TL columns). kPre, kPost:
+// colpass_tile::Operand forms.
+template <bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
+          int kPost = kOpNone>
 __global__ void __launch_bounds__(kThreads) colpass_kernel(const Params P) {
   extern __shared__ uint32_t tile[];
   const size_t plane = (size_t)P.net.nn * P.ops.ncols;
@@ -130,23 +147,43 @@ KernelFn pick_kernel(bool transpose_out, bool mat) {
                                : colpass_kernel<kDit, true, false>);
 }
 
-// The instantiation for this direction and these operands, or null for a
-// combination with 'pre' or 'post' that no plan runs (see the top).
-KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, bool pre,
-                     bool post) {
-  if (!pre && !post)
+// The instantiation for this direction and these operands (pre, post:
+// Operand forms), or null for a combination with 'pre' or 'post' that no
+// plan runs (see the top).
+KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
+                     int post) {
+  if (pre == kOpNone && post == kOpNone)
     return dit ? pick_kernel<true>(transpose_out, mat)
                : pick_kernel<false>(transpose_out, mat);
-  if (!dit && pre && !post) {
-    if (transpose_out)  // ncp1: with the fold's 'post_t', or without it
-      return mat ? colpass_kernel<false, true, true, true>
-                 : colpass_kernel<false, true, false, true>;
-    if (!mat) return colpass_kernel<false, false, false, true>;  // cp2
+  if (mat) {  // ncp1 of the fold: 'pre' psi and the 'post_t' wmat
+    if (!dit && transpose_out && pre == kOpMat && post == kOpNone)
+      return colpass_kernel<false, true, true, kOpMat>;
+    return nullptr;
   }
-  if (dit && !transpose_out && !mat) {
-    if (!pre) return colpass_kernel<true, false, false, false, true>;  // nicp1
-    return post ? colpass_kernel<true, false, false, true, true>  // nicp1
-                : colpass_kernel<true, false, false, true>;       // icp1
+  if (!dit && post == kOpNone) {
+    if (transpose_out) {  // ncp1: the entry arm's, the factored arm's
+      if (pre == kOpMat) return colpass_kernel<false, true, false, kOpMat>;
+      if (pre == kOpRank1)
+        return colpass_kernel<false, true, false, kOpRank1>;
+    } else {  // cp2: the entry arm's, the factored arm's
+      if (pre == kOpMat) return colpass_kernel<false, false, false, kOpMat>;
+      if (pre == kOpFac) return colpass_kernel<false, false, false, kOpFac>;
+    }
+  }
+  if (dit && transpose_out) {  // icp2 of the factored arm
+    if (pre == kOpNone && post == kOpFac)
+      return colpass_kernel<true, true, false, kOpNone, kOpFac>;
+  } else if (dit) {
+    if (pre == kOpNone) {  // nicp1: the fold's, the factored arm's
+      if (post == kOpMat)
+        return colpass_kernel<true, false, false, kOpNone, kOpMat>;
+      if (post == kOpRank1)
+        return colpass_kernel<true, false, false, kOpNone, kOpRank1>;
+    } else if (pre == kOpMat) {  // the entry arm's icp1 and nicp1
+      if (post == kOpNone) return colpass_kernel<true, false, false, kOpMat>;
+      if (post == kOpMat)
+        return colpass_kernel<true, false, false, kOpMat, kOpMat>;
+    }
   }
   return nullptr;
 }
@@ -169,13 +206,14 @@ int ntt_colpass_max_rows() { return kMaxRows; }
 const char* ntt_reduction_name() { return reductions::kBuiltName; }
 
 // This build's register group size, and for the kernel of this direction
-// and these store options at an nn x 2^log_tl tile: its registers a thread
-// and its co-resident blocks per SM. Returns 0 or a cudaError_t.
+// and these operands (pre, post: Operand forms) at an nn x 2^log_tl tile:
+// its registers a thread and its co-resident blocks per SM. Returns 0 or a
+// cudaError_t.
 int ntt_colpass_kernel_info(int dit, int transpose_out, int mat, int pre,
                             int post, int nn, int log_tl, int* kfuse,
                             int* regs, int* per_sm) {
-  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0, mat != 0,
-                                      pre != 0, post != 0);
+  const KernelFn kernel =
+      pick_kernel(dit != 0, transpose_out != 0, mat != 0, pre, post);
   *kfuse = kFuse;
   *regs = 0;
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
@@ -199,18 +237,22 @@ const char* ntt_colpass_error_string(int err) {
 // offs: host arrays of nstages half sizes and table offsets (in pairs).
 // tw, mid, mat: (w, packed w') pairs, 8 bytes each: the stage twiddles,
 // the nested mid vector (null with log_a < 0, a plain network), the
-// post_t operand indexed like out, and the pre and post operands indexed
-// like x (each null for none; every batch row reads the same table). p, c1,
-// c2: the reduction's prime and constants (Red::make). Returns
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a shape or an operand combination the kernels
-// do not take.
+// post_t operand indexed like out (null for none). pre_form, post_form:
+// the Operand forms of the 'pre' and 'post' operands, each in one table
+// (kOpMat, indexed like x) or two (kOpFac: T1, T2 of the split 2^log_s;
+// kOpRank1: the row and the column vector), pairs too; every batch row
+// reads the same tables. p, c1, c2: the reduction's prime and constants
+// (Red::make). Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue for a shape or an operand
+// combination the kernels do not take.
 int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
                 int log_tl, int dit, int nstages, int k0, const int* ts,
                 const int* offs, const void* tw, int log_a, const void* mid,
-                const void* mat, const void* pre, const void* post,
-                int transpose_out, int canonicalize, unsigned int p,
-                unsigned int c1, unsigned int c2, void* stream) {
+                const void* mat, int pre_form, const void* pre,
+                const void* pre2, int post_form, const void* post,
+                const void* post2, int log_s, int transpose_out,
+                int canonicalize, unsigned int p, unsigned int c1,
+                unsigned int c2, void* stream) {
   const size_t smem = (size_t)nn << log_tl << 2;
   Params P;
   if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
@@ -224,7 +266,10 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
   P.tables.mid = static_cast<const uint2*>(mid);
   P.tables.mat = static_cast<const uint2*>(mat);
   P.tables.pre = static_cast<const uint2*>(pre);
+  P.tables.pre2 = static_cast<const uint2*>(pre2);
   P.tables.post = static_cast<const uint2*>(post);
+  P.tables.post2 = static_cast<const uint2*>(post2);
+  P.tables.log_s = log_s;
   P.ops.ncols = ncols;
   P.ops.log_tl = log_tl;
   P.ops.canonicalize = canonicalize;
@@ -232,9 +277,16 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
   P.out = static_cast<uint32_t*>(out);
   P.shift = colpass_tile::tile_shift(P.net, log_tl);
   P.red = Red::make(p, c1, c2);
-  const KernelFn kernel =
-      pick_kernel(dit != 0, transpose_out != 0, mat != nullptr,
-                  pre != nullptr, post != nullptr);
+  const auto tables_ok = [](int form, const void* a, const void* b) {
+    return form == kOpNone ? !a && !b
+           : form == kOpMat ? a && !b
+           : (form == kOpFac || form == kOpRank1) && a && b;
+  };
+  if (!tables_ok(pre_form, pre, pre2) || !tables_ok(post_form, post, post2) ||
+      log_s < 0 || log_s >= P.net.log_nn)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0,
+                                      mat != nullptr, pre_form, post_form);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

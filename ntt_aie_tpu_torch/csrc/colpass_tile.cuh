@@ -328,10 +328,39 @@ struct PairTables {
   const uint2* tw;   // stage twiddles, stage s from Network::off[s]
   const uint2* mid;  // nested mid vector (nn,), or null for plain
   const uint2* mat;  // multiply on store (kMat), indexed like the output
-  const uint2* pre;  // multiply on load (kPre), indexed like the input
-  const uint2* post;  // multiply after the stages (kPost), before mat and
-                      // canonicalize, indexed like the input
+  const uint2* pre;  // multiply on load (kPre's form), and its second
+  const uint2* pre2;  // table (kOpFac: T2; kOpRank1: the column vector)
+  const uint2* post;  // multiply after the stages (kPost's form), before
+  const uint2* post2;  // mat and canonicalize, and its second table
+  int log_s;  // kOpFac's split S = 2^log_s
 };
+
+// The form of a 'pre' or 'post' operand (the reference's twiddle_pos
+// matrix, wfac and rank1): kOpNone; kOpMat, a full (nn, ncols) table
+// indexed like the input; kOpFac, the factored four-step matrix, T1
+// (nn/S, ncols) at [l >> log_s][col], then T2 (S, ncols) at
+// [l & (S - 1)][col]; kOpRank1, the row vector (nn,) at [l], then the
+// column vector (ncols,) at [col]. l is the value's logical row, col its
+// column in the input.
+enum Operand : int { kOpNone = 0, kOpMat = 1, kOpFac = 2, kOpRank1 = 3 };
+
+// v times the kOpFac or kOpRank1 operand in tables a and b (the second
+// multiply after the first, as the reference's two broadcast multiplies).
+template <int kForm, class Red>
+__device__ __forceinline__ uint32_t mul_factors(uint32_t v, const uint2* a,
+                                                const uint2* b, int l,
+                                                size_t col, int ncols,
+                                                int log_s, Red R) {
+  static_assert(kForm == kOpFac || kForm == kOpRank1, "a two-table form");
+  if constexpr (kForm == kOpFac) {
+    v = R.mulc(v, __ldg(a + (size_t)(l >> log_s) * ncols + col));
+    return R.mulc(v, __ldg(b + (size_t)(l & ((1 << log_s) - 1)) * ncols +
+                           col));
+  } else {
+    v = R.mulc(v, __ldg(a + l));
+    return R.mulc(v, __ldg(b + col));
+  }
+}
 
 // The word of logical row l's column 0 through the row map log_a.
 __device__ __forceinline__ int word_of(int l, int log_a, int log_nn,
@@ -440,13 +469,14 @@ __device__ __forceinline__ void mid_multiply(uint32_t (&v)[1 << K],
 // A group of K stages as run_group does it (DIT when kDit), on the
 // swizzled tile, with the ends E. kMayEmpty (DIF): E may hold mid_swap,
 // and the stages are written once, between a mid multiply before them and
-// one after. kPre: a loading group multiplies each value by its T.pre pair
-// as it reads it from E.src; kPost: a storing group multiplies each value
-// by its T.post pair, at the input's index of its logical row, before the
-// kMat multiply and canonicalize. Both only under if constexpr, so a kernel
-// without them keeps its code.
+// one after. kPre (an Operand form): a loading group multiplies each value
+// by its 'pre' operand (T.pre, T.pre2) as it reads it from E.src; kPost: a
+// storing group multiplies each value by its 'post' operand (T.post,
+// T.post2), at the input's index of its logical row, before the kMat
+// multiply and canonicalize. Both only under if constexpr, so a kernel
+// without them keeps its code, and kMat keeps the code it had as a bool.
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          bool kPre, bool kPost, class Red>
+          int kPre, int kPost, class Red>
 __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
                                              const TileOps& O,
                                              const PairTables& T,
@@ -471,8 +501,12 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) {
         const size_t o = (size_t)(base + (m << log_t)) * O.ncols + col0 + c;
-        if constexpr (kPre)
+        if constexpr (kPre == kOpMat)
           v[m] = R.mulc(E.src[o], __ldg(T.pre + o));
+        else if constexpr (kPre != kOpNone)
+          v[m] = mul_factors<kPre>(E.src[o], T.pre, T.pre2,
+                                   base + (m << log_t), col0 + c, O.ncols,
+                                   T.log_s, R);
         else
           v[m] = E.src[o];
       }
@@ -500,8 +534,11 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
         const size_t o = kTranspose ? (col0 + c) * N.nn + l
                                     : (size_t)l * O.ncols + col0 + c;
         uint32_t u = v[m];
-        if constexpr (kPost)
+        if constexpr (kPost == kOpMat)
           u = R.mulc(u, __ldg(T.post + (size_t)l * O.ncols + col0 + c));
+        else if constexpr (kPost != kOpNone)
+          u = mul_factors<kPost>(u, T.post, T.post2, l, col0 + c, O.ncols,
+                                 T.log_s, R);
         if constexpr (kMat) u = R.mulc(u, __ldg(T.mat + o));
         if (O.canonicalize) u = R.canon(u);
         E.dst[o] = u;
@@ -516,7 +553,7 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 
 // run_group_io for a runtime k <= K stages.
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          bool kPre, bool kPost, class Red>
+          int kPre, int kPost, class Red>
 __device__ __forceinline__ void run_group_io_upto(
     int k, uint32_t* tile, const Network& N, const TileOps& O,
     const PairTables& T, const GroupEnds& E, size_t col0, int s0, int log_a,
@@ -539,7 +576,7 @@ __device__ __forceinline__ void run_group_io_upto(
 // first (DIT) when mid, mid_swap on its first when mid_swap. An empty
 // phase runs no group.
 template <int kFuse, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          bool kPre, bool kPost, class Red>
+          int kPre, int kPost, class Red>
 __device__ __forceinline__ void run_phase_io(
     uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
     const uint32_t* src, uint32_t* dst, size_t col0, int s_begin, int s_end,
@@ -574,13 +611,13 @@ __device__ __forceinline__ void run_phase_io(
 // an empty phase and leaves kMayEmpty off, so its groups keep the code its
 // kernels were timed with (PERF.md): kMayEmpty's group code gives them
 // other registers and other times. kPre and kPost (colpass.cu's, not with
-// kMayEmpty) add the T.pre multiply to the loading group and the T.post
-// multiply to the storing group (run_group_io), the reference's 'pre' and
-// 'post' operands: pre on load, before the stages; post after them, in
-// the untransposed layout, before the 'post_t' (kMat) multiply and
-// canonicalize.
+// kMayEmpty; Operand forms) add the 'pre' multiply to the loading group and
+// the 'post' multiply to the storing group (run_group_io), the reference's
+// 'pre' and 'post' operands, its wfac and its rank1: pre on load, before
+// the stages; post after them, in the untransposed layout, before the
+// 'post_t' (kMat) multiply and canonicalize.
 template <bool kDit, bool kTranspose, bool kMat, int kFuse,
-          bool kMayEmpty = false, bool kPre = false, bool kPost = false,
+          bool kMayEmpty = false, int kPre = kOpNone, int kPost = kOpNone,
           class Red>
 __device__ __forceinline__ void column_tile_io(uint32_t* tile,
                                                const Network& N,
@@ -590,7 +627,7 @@ __device__ __forceinline__ void column_tile_io(uint32_t* tile,
                                                uint32_t* dst, size_t col0,
                                                int shift, Red R) {
   static_assert(!(kMayEmpty && kDit), "an empty phase is DIF's only");
-  static_assert(!(kMayEmpty && (kPre || kPost)),
+  static_assert(!(kMayEmpty && (kPre != kOpNone || kPost != kOpNone)),
                 "pre and post ride a network with both phases");
   const bool nested = N.log_a >= 0;
   // whether phase 0 and phase 1 run a stage (without kMayEmpty both do in

@@ -2,14 +2,23 @@
 // pointwise Goldilocks product between transforms.
 //
 // Replaces ntt_aie_tpu/ops/pallas_gl.py::build_gl_colpass (the Pallas TPU
-// kernel) for the options the Goldilocks four-step fold plan runs
-// (ntt_aie_tpu/goldilocks_plan.py:244-259):
+// kernel) for the options the Goldilocks four-step plans run
+// (ntt_aie_tpu/goldilocks_plan.py:222-270):
 //   cp1  = DIF over n1, transpose_out, then the 'post_t' wmat multiply;
 //   cp2  = DIF over n2;
 //   icp2 = DIT over n2, transpose_out, then the 'post_t' iwmat multiply;
-//   icp1 = DIT over n1.
-// gl_mul_kernel is a helper, not a port of a TPU kernel: the reference
-// leaves the pointwise product of polymul to XLA (goldilocks_plan.py:462).
+//   icp1 = DIT over n1;
+// wmat_fold=False: cp2 = 'pre' wmat, DIF over n2; icp1 = 'pre' iwmat, DIT
+// over n1 (cp1 and icp2 without 'post_t');
+// wmat_factored=True: cp2 = 'pre' wfac, DIF over n2; icp2 = DIT over n2,
+// 'post' wfac^-1 (1/n folded in), transpose_out (colpass_tile.cuh Operand
+// kOpFac: T1[c1] then T2[c0] of the row c = c1*S + c0).
+// pick_kernel instantiates those and no other combination; the
+// reference's rank-1 operand, which only its distributed plan runs, is not
+// taken yet. gl_mul_kernel is a helper, not a port of a TPU kernel: the
+// reference leaves the pointwise product of polymul to XLA
+// (goldilocks_plan.py:462); its second operand may be broadcast over the
+// first's leading axes (psi over a batch).
 //
 // What it computes, per column of two (B, nn, ncols) uint32 planes (hi, lo)
 // of values mod p = 2^64 - 2^32 + 1: every butterfly stage of
@@ -62,6 +71,9 @@
 // kFuse = 3 from readings in turns of K = 2 and 3 (PERF.md section 6; at 4
 // a thread takes 125-128 registers and a 64-byte stack frame);
 // ops.gl_colpass.kernel_info gives its registers and blocks per SM.
+// The 'pre' and 'post' operands multiply in the loading and the storing
+// group, as the 32-bit kernel's (colpass_tile.cuh run_group_io), under if
+// constexpr: the fold plan's instantiations keep their code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +84,9 @@
 namespace {
 
 using colpass_tile::group_offsets;
+using colpass_tile::kOpFac;
+using colpass_tile::kOpMat;
+using colpass_tile::kOpNone;
 using colpass_tile::Network;
 using colpass_tile::word_of;
 using gl_arith::gl_add;
@@ -93,6 +108,13 @@ struct Params {
   const uint64_t* tw;   // stage twiddles, stage s from net.off[s]
   const uint64_t* mid;  // nested wmid (nn,), or null
   const uint64_t* mat;  // post_t operand (ncols, nn), or null
+  // 'pre' and 'post' operands in their Operand form's tables (kOpMat: one
+  // (nn, ncols) table; kOpFac: T1 (nn/S, ncols) and T2 (S, ncols)), or null
+  const uint64_t* pre;
+  const uint64_t* pre2;
+  const uint64_t* post;
+  const uint64_t* post2;
+  int log_s;  // kOpFac's split S = 2^log_s
   const uint32_t* x_hi;
   const uint32_t* x_lo;
   uint32_t* out_hi;
@@ -155,6 +177,23 @@ __device__ __forceinline__ void dit_stages(uint64_t (&v)[1 << K],
   }
 }
 
+// v times the kOpMat or kOpFac operand in tables a (and b) at logical row
+// l, column col (colpass_tile.cuh mul_factors, on uint64).
+template <int kForm>
+__device__ __forceinline__ uint64_t mul_operand(uint64_t v, const Params& P,
+                                                const uint64_t* a,
+                                                const uint64_t* b, int l,
+                                                size_t col) {
+  static_assert(kForm == kOpMat || kForm == kOpFac, "a GL kernel form");
+  if constexpr (kForm == kOpMat) {
+    return gl_mul(v, __ldg(a + (size_t)l * P.ncols + col));
+  } else {
+    v = gl_mul(v, __ldg(a + (size_t)(l >> P.log_s) * P.ncols + col));
+    return gl_mul(v, __ldg(b + (size_t)(l & ((1 << P.log_s) - 1)) * P.ncols
+                           + col));
+  }
+}
+
 // What one group does beyond the tile (colpass_tile.cuh GroupEnds): load
 // its rows from device memory (the network's first group), multiply by the
 // mid vector (DIF after the stages, DIT before them), store its logical
@@ -164,8 +203,10 @@ struct Ends {
 };
 
 // A group of K stages on the swizzled two-plane tile, with the ends E.
-// log_a: the phase's row map (-1 for phase 0).
-template <int K, bool kDit, bool kTranspose, bool kMat>
+// log_a: the phase's row map (-1 for phase 0). kPre, kPost: Operand forms,
+// multiplied as the loading group reads a value and before the storing
+// group's kMat multiply.
+template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost>
 __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
                                           const Rows& R, const Ends E,
                                           size_t col0, int s0, int log_a) {
@@ -190,6 +231,9 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
       for (int m = 0; m < (1 << K); ++m) {
         const size_t o = (size_t)(base + (m << log_t)) * P.ncols + col0 + c;
         v[m] = ((uint64_t)R.src_hi[o] << 32) | R.src_lo[o];
+        if constexpr (kPre != kOpNone)
+          v[m] = mul_operand<kPre>(v[m], P, P.pre, P.pre2,
+                                   base + (m << log_t), col0 + c);
       }
     } else {
 #pragma unroll
@@ -214,6 +258,8 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
         const size_t o = kTranspose ? (col0 + c) * N.nn + l
                                     : (size_t)l * P.ncols + col0 + c;
         uint64_t u = v[m];
+        if constexpr (kPost != kOpNone)
+          u = mul_operand<kPost>(u, P, P.post, P.post2, l, col0 + c);
         if constexpr (kMat) u = gl_mul(u, __ldg(P.mat + o));
         R.dst_hi[o] = (uint32_t)(u >> 32);
         R.dst_lo[o] = (uint32_t)u;
@@ -230,7 +276,7 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
 }
 
 // run_group for a runtime k <= K stages.
-template <int K, bool kDit, bool kTranspose, bool kMat>
+template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost>
 __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
                                                const Params& P,
                                                const Rows& R, const Ends E,
@@ -238,18 +284,19 @@ __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
                                                int log_a) {
   if constexpr (K > 1) {
     if (k < K) {
-      run_group_upto<K - 1, kDit, kTranspose, kMat>(k, tile, P, R, E, col0,
-                                                    s0, log_a);
+      run_group_upto<K - 1, kDit, kTranspose, kMat, kPre, kPost>(
+          k, tile, P, R, E, col0, s0, log_a);
       return;
     }
   }
-  run_group<K, kDit, kTranspose, kMat>(tile, P, R, E, col0, s0, log_a);
+  run_group<K, kDit, kTranspose, kMat, kPre, kPost>(tile, P, R, E, col0, s0,
+                                                    log_a);
 }
 
 // Stages [s_begin, s_end) of one phase in groups of min(kFuse, stages
 // left): the first loads when load, the last stores when store, and the
 // mid multiply rides on the last (DIF) or the first (DIT) when mid.
-template <bool kDit, bool kTranspose, bool kMat>
+template <bool kDit, bool kTranspose, bool kMat, int kPre, int kPost>
 __device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
                                           const Rows& R, size_t col0,
                                           int s_begin, int s_end, int log_a,
@@ -259,15 +306,16 @@ __device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
     const bool first = s == s_begin, last = s + k == s_end;
     const Ends E = {load && first, mid && (kDit ? first : last),
                     store && last};
-    run_group_upto<kFuse, kDit, kTranspose, kMat>(k, tile, P, R, E, col0, s,
-                                                  log_a);
+    run_group_upto<kFuse, kDit, kTranspose, kMat, kPre, kPost>(
+        k, tile, P, R, E, col0, s, log_a);
     s += k;
   }
 }
 
 // One thread block per (batch row, tile of TL columns). A nested network
 // has two phases of at least one stage each; a plain one, one phase.
-template <bool kDit, bool kTranspose, bool kMat>
+template <bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
+          int kPost = kOpNone>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     gl_colpass_kernel(const Params P) {
   extern __shared__ uint32_t tile[];
@@ -277,12 +325,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                   P.out_lo + row};
   const size_t col0 = (size_t)blockIdx.x << P.log_tl;
   const bool nested = P.net.log_a >= 0;
-  run_phase<kDit, kTranspose, kMat>(tile, P, R, col0, 0, P.net.k0, -1, true,
-                                    !nested, nested && !kDit);
+  run_phase<kDit, kTranspose, kMat, kPre, kPost>(
+      tile, P, R, col0, 0, P.net.k0, -1, true, !nested, nested && !kDit);
   if (nested)
-    run_phase<kDit, kTranspose, kMat>(tile, P, R, col0, P.net.k0,
-                                      P.net.nstages, P.net.log_a, false,
-                                      true, kDit);
+    run_phase<kDit, kTranspose, kMat, kPre, kPost>(
+        tile, P, R, col0, P.net.k0, P.net.nstages, P.net.log_a, false, true,
+        kDit);
 }
 
 using KernelFn = void (*)(Params);
@@ -294,11 +342,25 @@ KernelFn pick_kernel(bool transpose_out, bool mat) {
                                : gl_colpass_kernel<kDit, true, false>);
 }
 
-// The instantiation for this direction and these store options (mat only
-// with transpose_out).
-KernelFn pick_kernel(bool dit, bool transpose_out, bool mat) {
-  return dit ? pick_kernel<true>(transpose_out, mat)
-             : pick_kernel<false>(transpose_out, mat);
+// The instantiation for this direction, these store options (mat only
+// with transpose_out) and these operands (pre, post: Operand forms), or
+// null for a combination no plan runs (see the top).
+KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
+                     int post) {
+  if (pre == kOpNone && post == kOpNone)
+    return dit ? pick_kernel<true>(transpose_out, mat)
+               : pick_kernel<false>(transpose_out, mat);
+  if (mat) return nullptr;
+  if (!transpose_out && post == kOpNone) {  // the entry arm, factored cp2
+    if (pre == kOpMat)
+      return dit ? gl_colpass_kernel<true, false, false, kOpMat>
+                 : gl_colpass_kernel<false, false, false, kOpMat>;
+    if (pre == kOpFac && !dit)
+      return gl_colpass_kernel<false, false, false, kOpFac>;
+  }
+  if (dit && transpose_out && pre == kOpNone && post == kOpFac)
+    return gl_colpass_kernel<true, true, false, kOpNone, kOpFac>;  // icp2
+  return nullptr;
 }
 
 // Opts kernel in to smem dynamic bytes above 48 KB.
@@ -309,14 +371,21 @@ cudaError_t allow_smem(KernelFn kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// o = a * b over n elements; with kBroadcast b has nb elements, b[i mod
+// nb] (a mask where nb is a power of two).
+template <bool kBroadcast>
 __global__ void __launch_bounds__(kThreads) gl_mul_kernel(
     const uint32_t* __restrict__ ah, const uint32_t* __restrict__ al,
     const uint32_t* __restrict__ bh, const uint32_t* __restrict__ bl,
-    uint32_t* __restrict__ oh, uint32_t* __restrict__ ol, size_t n) {
+    uint32_t* __restrict__ oh, uint32_t* __restrict__ ol, size_t n,
+    size_t nb) {
+  const bool pow2 = (nb & (nb - 1)) == 0;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
+    size_t j = i;
+    if constexpr (kBroadcast) j = pow2 ? i & (nb - 1) : i % nb;
     const uint64_t r = gl_mul(((uint64_t)ah[i] << 32) | al[i],
-                              ((uint64_t)bh[i] << 32) | bl[i]);
+                              ((uint64_t)bh[j] << 32) | bl[j]);
     oh[i] = (uint32_t)(r >> 32);
     ol[i] = (uint32_t)r;
   }
@@ -332,13 +401,18 @@ const char* ntt_gl_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// This build's register group size, and for the kernel of this direction
-// and these store options at an nn x 2^log_tl tile: its registers a thread
-// and its co-resident blocks per SM. Returns 0 or a cudaError_t.
-int ntt_gl_colpass_kernel_info(int dit, int transpose_out, int mat, int nn,
-                               int log_tl, int* kfuse, int* regs,
-                               int* per_sm) {
-  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0, mat != 0);
+// This build's register group size, and for the kernel of this direction,
+// these store options and these operands (pre, post: Operand forms) at an
+// nn x 2^log_tl tile: its registers a thread and its co-resident blocks per
+// SM. Returns 0 or a cudaError_t.
+int ntt_gl_colpass_kernel_info(int dit, int transpose_out, int mat, int pre,
+                               int post, int nn, int log_tl, int* kfuse,
+                               int* regs, int* per_sm) {
+  const KernelFn kernel =
+      pick_kernel(dit != 0, transpose_out != 0, mat != 0, pre, post);
+  *kfuse = kFuse;
+  *regs = 0;
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (size_t)nn << log_tl << 3;
   cudaFuncAttributes attr = {};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
@@ -357,14 +431,20 @@ int ntt_gl_colpass_kernel_info(int dit, int transpose_out, int mat, int nn,
 // sizes and table offsets into tw (uint64). log_a < 0 for a plain network
 // (mid null); a nested one has k0 stages in phase 0 and at least one in
 // each phase. mat null for no post_t multiply (which needs
-// transpose_out). Returns cudaGetLastError() after the launch (0 =
-// launched).
+// transpose_out). pre_form, post_form: the Operand forms of the 'pre' and
+// 'post' operands (uint64 tables: kOpMat pre and null pre2, indexed like
+// x; kOpFac T1 and T2 of the split 2^log_s; null for kOpNone). Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape or an operand combination the kernels
+// do not take.
 int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
                    void* out_lo, int batch, int nn, int ncols, int log_tl,
                    int dit, int nstages, int k0, const int* ts,
                    const int* offs, const void* tw, int log_a,
-                   const void* mid, const void* mat, int transpose_out,
-                   void* stream) {
+                   const void* mid, const void* mat, int pre_form,
+                   const void* pre, const void* pre2, int post_form,
+                   const void* post, const void* post2, int log_s,
+                   int transpose_out, void* stream) {
   const size_t smem = (size_t)nn << log_tl << 3;
   const bool nested = log_a >= 0;
   Params P;
@@ -379,6 +459,11 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
   P.tw = static_cast<const uint64_t*>(tw);
   P.mid = static_cast<const uint64_t*>(mid);
   P.mat = static_cast<const uint64_t*>(mat);
+  P.pre = static_cast<const uint64_t*>(pre);
+  P.pre2 = static_cast<const uint64_t*>(pre2);
+  P.post = static_cast<const uint64_t*>(post);
+  P.post2 = static_cast<const uint64_t*>(post2);
+  P.log_s = log_s;
   P.x_hi = static_cast<const uint32_t*>(x_hi);
   P.x_lo = static_cast<const uint32_t*>(x_lo);
   P.out_hi = static_cast<uint32_t*>(out_hi);
@@ -386,8 +471,17 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
   P.ncols = ncols;
   P.log_tl = log_tl;
   P.shift = colpass_tile::tile_shift(P.net, log_tl);
-  const KernelFn kernel =
-      pick_kernel(dit != 0, transpose_out != 0, mat != nullptr);
+  const auto tables_ok = [](int form, const void* a, const void* b) {
+    return form == kOpNone ? !a && !b
+           : form == kOpMat ? a && !b
+           : form == kOpFac && a && b;
+  };
+  if (!tables_ok(pre_form, pre, pre2) || !tables_ok(post_form, post, post2) ||
+      log_s < 0 || log_s >= P.net.log_nn)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0,
+                                      mat != nullptr, pre_form, post_form);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(ncols >> log_tl, batch);
@@ -396,19 +490,23 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
 }
 
 // Launches the pointwise product o = a * b mod p over n elements given as
-// uint32 limb planes, on `stream`. Returns cudaGetLastError().
+// uint32 limb planes, on `stream`; b has nb elements, nb = n or a divisor
+// of n (b broadcast over a's leading axes: b[i mod nb]). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for sizes it does not take.
 int ntt_gl_mul(const void* a_hi, const void* a_lo, const void* b_hi,
                const void* b_lo, void* out_hi, void* out_lo, long long n,
-               void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+               long long nb, void* stream) {
+  if (n < 1 || nb < 1 || n % nb != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks_needed = (n + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(
       blocks_needed < 132 * 64 ? blocks_needed : 132 * 64);
-  gl_mul_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = nb == n ? &gl_mul_kernel<false> : &gl_mul_kernel<true>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a_hi), static_cast<const uint32_t*>(a_lo),
       static_cast<const uint32_t*>(b_hi), static_cast<const uint32_t*>(b_lo),
       static_cast<uint32_t*>(out_hi), static_cast<uint32_t*>(out_lo),
-      static_cast<size_t>(n));
+      static_cast<size_t>(n), static_cast<size_t>(nb));
   return static_cast<int>(cudaGetLastError());
 }
 

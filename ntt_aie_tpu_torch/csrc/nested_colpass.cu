@@ -161,6 +161,8 @@ int ntt_nested_colpass(const void* x, void* out, int batch, int nn,
   P.tables.tw = static_cast<const uint2*>(tw);
   P.tables.mid = static_cast<const uint2*>(mid);
   P.tables.mat = P.tables.pre = P.tables.post = nullptr;
+  P.tables.pre2 = P.tables.post2 = nullptr;
+  P.tables.log_s = 0;
   P.x = static_cast<const uint32_t*>(x);
   P.out = static_cast<uint32_t*>(out);
   P.shift = colpass_tile::tile_shift(P.net, log_tl);

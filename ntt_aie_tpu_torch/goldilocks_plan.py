@@ -1,11 +1,13 @@
 """Plan for the Goldilocks field p = 2^64 - 2^32 + 1.
 
-Port of ``ntt_aie_tpu.goldilocks_plan`` for its four-step fold arm
-(``goldilocks_plan.py:244-327``, ``:454-583`` of the reference), its flat
-arm (``:353-388``: here the fold plan's column passes at an internal
-split and one gather into bit-reversed order, as ``plan.py``'s flat arm;
-the plain version is ``ops.stages``) and its negacyclic product at every
-split (``:414-424``, ``:508-568``). Field
+Port of ``ntt_aie_tpu.goldilocks_plan`` for its four-step arms
+(``goldilocks_plan.py:201-327``, ``:454-583`` of the reference: the fold
+arm, ``wmat_fold=False`` with the four-step matrix as cp2's and icp1's
+'pre', ``wmat_factored=True`` with the factored tables as cp2's 'pre' and
+icp2's 'post'), its flat arm (``:353-388``: here the fold plan's column
+passes at an internal split and one gather into bit-reversed order, as
+``plan.py``'s flat arm; the plain version is ``ops.stages``) and its
+negacyclic product at every split (``:414-424``, ``:508-568``). Field
 elements travel as (hi, lo) limb planes, and the transform has the same
 four-step shape as ``plan.py``:
 
@@ -33,31 +35,50 @@ from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.gl_colpass import gl_mul, make_gl_colpass
-from ntt_aie_tpu_torch.plan import (ITEM_DISTRIBUTED, ITEM_WMAT_ARMS, Plan,
-                                    _not_ported, flat_inner_split,
-                                    public_order)
+from ntt_aie_tpu_torch.plan import (ITEM_DISTRIBUTED, Plan, _not_ported,
+                                    flat_inner_split, public_order,
+                                    wfac_tables)
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
-def gl_fold_passes(field, n1: int, n2: int, *, device=None) -> dict:
-    """The four Goldilocks column passes of the fold plan for an (n1, n2)
-    split (reference goldilocks_plan.py:244-259): cp1 and icp1 over
-    (.., n1, n2), cp2 and icp2 over (.., n2, n1). The four-step multiply
-    rides the transposing passes' exit as 'post_t', with its operand in
-    output orientation: wmat.T for cp1, iwmat_scaled (1/n folded in) for
-    icp2. device: None is the card."""
+def gl_fold_passes(field, n1: int, n2: int, *, wmat_fold: bool = True,
+                   wmat_factored: bool = False, device=None) -> dict:
+    """The four Goldilocks column passes of the four-step plan for an
+    (n1, n2) split (reference goldilocks_plan.py:222-270), with the
+    keywords of plan.fold_passes: cp1 and icp1 over (.., n1, n2), cp2 and
+    icp2 over (.., n2, n1). With wmat_fold (the default) the four-step
+    multiply rides the transposing passes' exit as 'post_t', with its
+    operand in output orientation: wmat.T for cp1, iwmat_scaled (1/n
+    folded in) for icp2. With wmat_fold=False it rides the second pass's
+    entry as 'pre': wmat.T for cp2, iwmat_scaled for icp1. With
+    wmat_factored (which overrides wmat_fold) it comes from
+    twiddles.fourstep_wfac_T's factored tables: cp2 'pre', icp2 'post'
+    before its transpose (1/n in T2); no n1 x n2 matrix is built. The
+    outputs are the same bit for bit. device: None is the card."""
     device = resolve_device(device)
-    tabs = tw.fourstep_tables(field, n1, n2)
+    cp1_op, cp2_op, icp2_op, icp1_op = {}, {}, {}, {}
+    if wmat_factored:
+        wf, wf_inv = wfac_tables(field, n1, n2)
+        cp2_op = dict(wfac=wf, wfac_pos="pre")
+        icp2_op = dict(wfac=wf_inv, wfac_pos="post")
+    else:
+        tabs = tw.fourstep_tables(field, n1, n2)
+        wmat_t = np.ascontiguousarray(tabs["wmat"].T)
+        if wmat_fold:
+            cp1_op = dict(wmat=wmat_t)
+            icp2_op = dict(wmat=tabs["iwmat_scaled"])
+        else:
+            cp2_op = dict(wmat=wmat_t, twiddle_pos="pre")
+            icp1_op = dict(wmat=tabs["iwmat_scaled"], twiddle_pos="pre")
     return {
         "cp1": make_gl_colpass(field, n1, direction="dif", transpose_out=True,
-                               wmat=np.ascontiguousarray(tabs["wmat"].T),
-                               device=device),
-        "cp2": make_gl_colpass(field, n2, direction="dif", device=device),
+                               device=device, **cp1_op),
+        "cp2": make_gl_colpass(field, n2, direction="dif", device=device,
+                               **cp2_op),
         "icp2": make_gl_colpass(field, n2, direction="dit", inverse_tw=True,
-                                transpose_out=True, wmat=tabs["iwmat_scaled"],
-                                device=device),
+                                transpose_out=True, device=device, **icp2_op),
         "icp1": make_gl_colpass(field, n1, direction="dit", inverse_tw=True,
-                                device=device),
+                                device=device, **icp1_op),
     }
 
 
@@ -65,20 +86,24 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
                           wmat_fold: bool | None = None,
                           wmat_factored: bool | None = None) -> Plan:
     """Build the Goldilocks plan of `config` on `device`: the four-step
-    fold plan, or for a flat configuration (config.split = (n, 1), the
-    default up to n = 2^14) the same column passes at the internal split
-    plan.flat_inner_split(log_n, goldilocks=True) with their spectrum
-    gathered into bit-reversed order, and the reference's flat callables
-    (no matrix-form twins; wmat_fold and wmat_factored do not apply).
+    plan (the fold arm; wmat_fold=False, the four-step multiply at the
+    second passes' entry; wmat_factored=True, from the factored tables:
+    gl_fold_passes), or for a flat configuration (config.split = (n, 1),
+    the default up to n = 2^14) the fold arm's column passes at the
+    internal split plan.flat_inner_split(log_n, goldilocks=True) with
+    their spectrum gathered into bit-reversed order, and the reference's
+    flat callables (no matrix-form twins; wmat_fold and wmat_factored do
+    not apply). Plan.wmat_fold and Plan.wmat_factored record the arm
+    built.
 
     With NTTConfig(negacyclic=True), at every split, negacyclic_polymul
     is the reference's (goldilocks_plan.py:414-424, :508-568): gl_mul by
-    psi^i on each operand, the cyclic product, gl_mul by psi^-i.
+    psi^i on each operand, the cyclic product, gl_mul by psi^-i; psi and
+    psi^-i are held once and broadcast over a batch.
 
     Tables are prepared once here, on the plan's device (None: the card,
-    RuntimeError without one). The factored or unfolded wmat arms and the
-    distributed plan raise NotImplementedError naming the ROADMAP.md item
-    that ports them.
+    RuntimeError without one). The distributed plan raises
+    NotImplementedError naming the ROADMAP.md item that ports it.
     """
     field = config.field
     if not field.is_goldilocks:
@@ -87,17 +112,17 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
     flat = config.split[1] == 1
     if config.num_shards != 1:
         _not_ported("the distributed plan", ITEM_DISTRIBUTED)
-    if not flat:
-        if wmat_factored:
-            _not_ported("wmat_factored=True", ITEM_WMAT_ARMS)
-        if wmat_fold is False:
-            _not_ported("wmat_fold=False", ITEM_WMAT_ARMS)
+    # the arm built, as the reference records it (its goldilocks_plan.py
+    # :200-203)
+    wfac_on = bool(wmat_factored) and not flat
+    fold_on = flat or (wmat_fold is not False and not wfac_on)
 
     device = resolve_device(device)
     n = config.n
     n1, n2 = (flat_inner_split(config.log_n, goldilocks=True) if flat
               else config.split)
-    passes = gl_fold_passes(field, n1, n2, device=device)
+    passes = gl_fold_passes(field, n1, n2, wmat_fold=fold_on,
+                            wmat_factored=wfac_on, device=device)
     cp1, cp2, icp2, icp1 = (passes[k] for k in ("cp1", "cp2", "icp2", "icp1"))
 
     def to_planes(x):
@@ -148,12 +173,12 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
             field, n, inverse=inverse).reshape(n1, n2), device)
             for inverse in (False, True))
 
-    def nega2d(a, b, shape, ps, ps_inv):
-        """ps, ps_inv: the psi planes at `shape` (gl_mul takes operands of
-        one shape)."""
-        ta = gl_mul(reshape(a, shape), ps)
-        tb = gl_mul(reshape(b, shape), ps)
-        return gl_mul(poly2d(ta, tb, shape), ps_inv)
+    def nega2d(a, b, shape):
+        """psi and psi^-1, (n1, n2), broadcast over shape's leading
+        axes."""
+        ta = gl_mul(reshape(a, shape), psi)
+        tb = gl_mul(reshape(b, shape), psi)
+        return gl_mul(poly2d(ta, tb, shape), psi_inv)
 
     spectral, out_idx, in_idx = public_order(config, n1, n2, device)
 
@@ -183,10 +208,8 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
                                                   flat_sh)),
         }
         if psi is not None:
-            ps, ps_inv = (tuple(v.expand(sh).contiguous() for v in t)
-                          for t in (psi, psi_inv))
             out["negacyclic_polymul"] = wrap2(lambda a, b: reshape(
-                nega2d(a, b, sh, ps, ps_inv), flat_sh))
+                nega2d(a, b, sh), flat_sh))
         if flat:
             return out
         out["polymul_mat"] = wrap2(lambda a, b: poly2d(a, b, sh))
@@ -195,7 +218,7 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
             out["inv_mat"] = wrap1(lambda a: inv2d(a, lead + (n2, n1)))
         if psi is not None:
             out["negacyclic_polymul_mat"] = wrap2(
-                lambda a, b: nega2d(a, b, sh, ps, ps_inv))
+                lambda a, b: nega2d(a, b, sh))
         return out
 
     one = callables(())
@@ -213,5 +236,7 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
         polymul_mat=one.get("polymul_mat"),
         negacyclic_polymul=one.get("negacyclic_polymul"),
         negacyclic_polymul_mat=one.get("negacyclic_polymul_mat"),
+        wmat_factored=wfac_on,
+        wmat_fold=fold_on,
         _batched_builder=lambda B: callables((B,)),
     )

@@ -7,10 +7,13 @@ Port of ``ntt_aie_tpu/ops/pallas_ntt.py``: the stage section
 DIF + canonicalize, ``icp2``: DIT + 'post_t' iwmat + transpose_out,
 ``icp1``: DIT + canonicalize; and with the reference's 'pre' and 'post'
 operands the negacyclic passes ``ncp1``/``nicp1`` and the
-``wmat_fold=False`` arm, ``plan.fold_passes``), under any ``Reduction``
-(harvey4, harvey, montgomery, barrett). The operands apply in the
-reference's order: 'pre' on load, the stages, 'post', then the transpose,
-'post_t' and canonicalize.
+``wmat_fold=False`` arm, and with its factored ``wfac`` and rank-1
+operands the ``wmat_factored=True`` arm, ``plan.fold_passes``), under any
+``Reduction`` (harvey4, harvey, montgomery, barrett). The operands apply in
+the reference's order (``pallas_ntt.py:434-470``): on load the 'pre'
+matrix, the 'pre' wfac and the 'pre' rank-1 operand, the stages, then the
+'post' matrix, wfac and rank-1 operand, then the transpose, 'post_t' and
+canonicalize.
 
 ``colpass(x, cp)`` is the entry point. On a CPU tensor it runs the plain
 version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
@@ -89,7 +92,14 @@ class ColPass:
     wmid: (2, nn) nested mid multiply, or None for a plain network.
     wmat: (ncols, nn, 2) 'post_t' operand, each pair adjacent, or None.
     pre, post: (nn, ncols, 2) 'pre' and 'post' operands, indexed like
-      the input, or None. Every operand is shared by every batch row.
+      the input, or None.
+    wfac: the factored four-step matrix (twiddles.fourstep_wfac_T), a pair
+      (T1 (nn/S, ncols, 2), T2 (S, ncols, 2)): the value at row c = c1*S +
+      c0 times T1[c1] and then T2[c0]; at wfac_pos, 'pre' or 'post'.
+    rank1: a rank-1 operand (twiddles.negacyclic_psi_factors), a pair
+      (row (nn, 2), col (ncols, 2)): the value at (r, c) times row[r] and
+      then col[c]; at rank1_pos. Every operand is shared by every batch
+      row.
     tw_pairs, wmid_pairs: tw and wmid with each pair adjacent,
       (sum(ts), 2) and (nn, 2) or None: the CUDA column and nested kernels
       load a pair as one 8-byte word (the fused kernel reads tw and wmid).
@@ -110,6 +120,10 @@ class ColPass:
     wmid_pairs: torch.Tensor | None
     pre: torch.Tensor | None = None
     post: torch.Tensor | None = None
+    wfac: tuple | None = None
+    wfac_pos: str | None = None
+    rank1: tuple | None = None
+    rank1_pos: str | None = None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return colpass(x, self)
@@ -131,6 +145,7 @@ def _pack(wh, wl) -> np.ndarray:
 
 
 POSITIONS = ("pre", "post", "post_t")
+FACTOR_POSITIONS = ("pre", "post")
 
 
 def _present(slots):
@@ -145,12 +160,44 @@ def _present(slots):
         yield tab, pos
 
 
+def check_factors(kind: str, pos: str, a: tuple, b: tuple, nn: int):
+    """Raise ValueError unless a factored ('wfac') or rank-1 ('rank1')
+    operand at pos over nn rows has tables of shapes a and b (values, no
+    pair axis): wfac (nn/S, ncols) and (S, ncols) of a power of two
+    S < nn, rank1 (nn,) and (ncols,)."""
+    if pos not in FACTOR_POSITIONS:
+        raise ValueError(f"{kind}_pos must be one of {FACTOR_POSITIONS}, "
+                         f"got {pos!r}")
+    if kind == "wfac":
+        s = b[0] if b else 0
+        if not (len(a) == len(b) == 2 and a[1] == b[1] and 0 < s < nn
+                and a[0] * s == nn and not s & (s - 1)):
+            raise ValueError(f"wfac tables {a} and {b} are not (nn/S, "
+                             f"ncols) and (S, ncols) of a power of two "
+                             f"S < {nn}")
+    elif len(a) != 1 or len(b) != 1 or a[0] != nn:
+        raise ValueError(f"rank1 vectors {a} and {b} are not ({nn},) and "
+                         "(ncols,)")
+
+
+def _factor_tensors(kind, pos, tabs, nn, device):
+    """The device pair tensors of a factored ('wfac') or rank-1 ('rank1')
+    operand: tabs holds its two tables, each a (w, w2) pair of host
+    arrays."""
+    a, b = (_pair(t[0], t[1], device).movedim(0, -1).contiguous()
+            for t in tabs)
+    check_factors(kind, pos, tuple(a.shape[:-1]), tuple(b.shape[:-1]), nn)
+    return a, b
+
+
 def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
-              operands, canonicalize, transpose_out, device) -> ColPass:
+              operands, canonicalize, transpose_out, device,
+              factors=None) -> ColPass:
     """stage_tabs: per stage a (w, w2) pair of host arrays
     (``Reduction.pair``); mid_tab: a pair or None; operands: {position:
     pair}, 'pre' and 'post' of shape (nn, ncols), 'post_t' of shape
-    (ncols, nn)."""
+    (ncols, nn); factors: {'wfac' or 'rank1': (position, (pair, pair))}."""
+    factors = factors or {}
     if direction not in ("dif", "dit"):
         raise ValueError(f"direction must be 'dif' or 'dit', got {direction!r}")
     if "post_t" in operands and not transpose_out:
@@ -179,6 +226,10 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
             raise ValueError(f"{pos} operand {tuple(mat.shape[:-1])} is not "
                              f"{want}")
         mats[pos] = mat
+    fac = {kind: (pos, _factor_tensors(kind, pos, tabs, nn, device))
+           for kind, (pos, tabs) in factors.items()}
+    wfac_pos, wfac = fac.get("wfac", (None, None))
+    rank1_pos, rank1 = fac.get("rank1", (None, None))
     tw = _pair(w_all, s_all, device)
     return ColPass(red=red, nn=nn, direction=direction,
                    phases_ts=tuple(tuple(int(t) for t in ph)
@@ -189,7 +240,9 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
                    wmat=mats.get("post_t"),
                    tw_pairs=tw.t().contiguous(),
                    wmid_pairs=None if wmid is None else wmid.t().contiguous(),
-                   pre=mats.get("pre"), post=mats.get("post"))
+                   pre=mats.get("pre"), post=mats.get("post"),
+                   wfac=wfac, wfac_pos=wfac_pos, rank1=rank1,
+                   rank1_pos=rank1_pos)
 
 
 def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
@@ -197,7 +250,10 @@ def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
                  wmat2: np.ndarray | None = None,
                  twiddle_pos2: str | None = None,
                  canonicalize: bool = False, transpose_out: bool = False,
-                 reduction: str = "harvey4", device=None) -> ColPass:
+                 reduction: str = "harvey4",
+                 wfac: tuple | None = None, wfac_pos: str | None = None,
+                 rank1: tuple | None = None, rank1_pos: str | None = None,
+                 device=None) -> ColPass:
     """Build a column pass for nn-point columns from the port's own
     twiddles.col_network, under the reduction of this kind.
 
@@ -208,8 +264,14 @@ def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
     orientation). twiddle_pos is 'post_t' unless given (the fold plan's
     four-step matrix); wmat2 needs its position. Two operands at one
     position are multiplied into one table mod p: the canonical outputs
-    are those of the two multiplies in turn. device: None is the card
-    (utils.device.resolve_device)."""
+    are those of the two multiplies in turn.
+
+    wfac: (T1 (nn/S, ncols), T2 (S, ncols)) host tables of
+    twiddles.fourstep_wfac_T, the factored four-step matrix, applied at
+    wfac_pos ('pre' or 'post') as two multiplies; rank1: (row (nn,), col
+    (ncols,)) host vectors of twiddles.negacyclic_psi_factors, applied at
+    rank1_pos as two multiplies (the reference's make_colpass wfac= and
+    rank1=). device: None is the card (utils.device.resolve_device)."""
     device = resolve_device(device)
     red = make_reduction(reduction, field)
     net = tw.col_network(field, nn, direction=direction, inverse=inverse_tw)
@@ -225,10 +287,15 @@ def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
                    * np.asarray(tab).astype(np.uint64) % np.uint64(red.p))
         tables[pos] = tab
     operands = {pos: red.pair(tab) for pos, tab in tables.items()}
+    factors = {}
+    for kind, tabs, pos in (("wfac", wfac, wfac_pos),
+                            ("rank1", rank1, rank1_pos)):
+        if tabs is not None:
+            factors[kind] = (pos, tuple(red.pair(t) for t in tabs))
     return _assemble(red, nn, direction,
                      [ph["ts"] for ph in net["phases"]], (net["R"], net["S"]),
                      stage_tabs, mid_tab, operands, canonicalize,
-                     transpose_out, device)
+                     transpose_out, device, factors)
 
 
 def colpass_from_reference(arrays: dict, *, field, direction: str,
@@ -280,7 +347,11 @@ def _batched(x: torch.Tensor, cp: ColPass):
     for pos, cols in (("post_t", None if cp.wmat is None else
                        cp.wmat.shape[0]),
                       ("pre", None if cp.pre is None else cp.pre.shape[1]),
-                      ("post", None if cp.post is None else cp.post.shape[1])):
+                      ("post", None if cp.post is None else cp.post.shape[1]),
+                      ("wfac", None if cp.wfac is None else
+                       cp.wfac[0].shape[1]),
+                      ("rank1", None if cp.rank1 is None else
+                       cp.rank1[1].shape[0])):
         if cols is not None and cols != xb.shape[2]:
             raise ValueError(f"{pos} operand has {cols} columns, input has "
                              f"{xb.shape[2]}")
@@ -336,19 +407,51 @@ def _mul_operand(v: torch.Tensor, mat: torch.Tensor, red) -> torch.Tensor:
                         M.to_carrier(mat[..., 1]))
 
 
+def mul_wfac(v: torch.Tensor, wfac: tuple, red) -> torch.Tensor:
+    """v (B, rows, c) times the factored matrix: T1[c1] broadcast over c0,
+    then T2[c0] broadcast over c1, for row c1*S + c0 (the reference's
+    apply_wfac_arrays)."""
+    t1, t2 = wfac
+    B, rr, cc = v.shape
+    s = t2.shape[0]
+    v = v.reshape(B, rr // s, s, cc)
+    v = _mul_operand(v, t1.view(1, rr // s, 1, cc, 2), red)
+    v = _mul_operand(v, t2.view(1, 1, s, cc, 2), red)
+    return v.reshape(B, rr, cc)
+
+
+def mul_rank1(v: torch.Tensor, rank1: tuple, red) -> torch.Tensor:
+    """v (B, rows, c) times row[r] broadcast over the columns, then
+    col[c] broadcast over the rows (the reference's apply_rank1)."""
+    row, col = rank1
+    v = _mul_operand(v, row.view(1, -1, 1, 2), red)
+    return _mul_operand(v, col.view(1, 1, -1, 2), red)
+
+
+def _mul_at(v: torch.Tensor, cp: ColPass, pos: str) -> torch.Tensor:
+    """v times cp's operands at 'pre' or 'post', in the reference's
+    order: the matrix, wfac, rank-1."""
+    red = cp.red
+    mat = cp.pre if pos == "pre" else cp.post
+    if mat is not None:
+        v = _mul_operand(v, mat, red)
+    if cp.wfac is not None and cp.wfac_pos == pos:
+        v = mul_wfac(v, cp.wfac, red)
+    if cp.rank1 is not None and cp.rank1_pos == pos:
+        v = mul_rank1(v, cp.rank1, red)
+    return v
+
+
 def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
     """The column pass in plain PyTorch ops (int64 carriers), on any
     device: the oracle the kernel is held against. The reference's order:
-    'pre', the network, 'post', then the transpose and 'post_t', then
-    canonicalize."""
+    the 'pre' operands, the network, the 'post' operands, then the
+    transpose and 'post_t', then canonicalize."""
     xb, squeeze = _batched(x, cp)
     red = cp.red
-    v = M.to_carrier(xb)
-    if cp.pre is not None:
-        v = _mul_operand(v, cp.pre, red)
+    v = _mul_at(M.to_carrier(xb), cp, "pre")
     v = run_network(v, cp)
-    if cp.post is not None:
-        v = _mul_operand(v, cp.post, red)
+    v = _mul_at(v, cp, "post")
     if cp.transpose_out:
         v = v.transpose(1, 2)
         if cp.wmat is not None:
@@ -495,8 +598,8 @@ def _library(reduction: str = "harvey4") -> ctypes.CDLL:
     pi = ctypes.POINTER(ctypes.c_int)
     lib.ntt_colpass.restype = ci
     lib.ntt_colpass.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, pi, pi,
-                                vp, ci, vp, vp, vp, vp, ci, ci, cu, cu, cu,
-                                vp]
+                                vp, ci, vp, vp, ci, vp, vp, ci, vp, vp, ci,
+                                ci, ci, cu, cu, cu, vp]
     lib.ntt_colpass_error_string.restype = ctypes.c_char_p
     lib.ntt_colpass_error_string.argtypes = [ci]
     lib.ntt_colpass_max_rows.restype = ci
@@ -520,11 +623,12 @@ def kernel_info(cp: ColPass, ncols: int) -> dict:
     log_tl = tl.bit_length() - 1
     lib = _library(cp.red.name)
     kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
+    (pre_form, *_), (post_form, *_) = _operand_forms(cp)
     with torch.cuda.device(cp.tw.device):
         err = lib.ntt_colpass_kernel_info(
             int(cp.direction == "dit"), int(cp.transpose_out),
-            int(cp.wmat is not None), int(cp.pre is not None),
-            int(cp.post is not None), cp.nn, log_tl, kfuse, regs, per_sm)
+            int(cp.wmat is not None), pre_form, post_form, cp.nn, log_tl,
+            kfuse, regs, per_sm)
     if err != 0:
         raise RuntimeError("CUDA column pass occupancy query failed: "
                            + lib.ntt_colpass_error_string(err).decode())
@@ -534,14 +638,52 @@ def kernel_info(cp: ColPass, ncols: int) -> dict:
             "blocks_per_sm": per_sm.value}
 
 
-def variant(cp: ColPass) -> str:
-    """The kernel instantiation cp launches, by its direction and
-    operands, e.g. 'dif+pre+post_t+T' (T: transpose_out):
-    ``colpass.launches_by``'s key."""
+def variant(cp) -> str:
+    """The kernel instantiation cp (a ColPass, or a
+    gl_colpass.GLColPass, which has no 'post' matrix) launches, by its
+    direction and operands, e.g. 'dif+pre+post_t+T' or 'dit+wfac_post+T'
+    (T: transpose_out): ``colpass.launches_by``'s and
+    ``gl_colpass.launches_by``'s key."""
     parts = [cp.direction]
-    parts += [pos for pos, t in (("pre", cp.pre), ("post", cp.post),
-                                 ("post_t", cp.wmat)) if t is not None]
+    for pos in FACTOR_POSITIONS:
+        mat = cp.pre if pos == "pre" else getattr(cp, "post", None)
+        parts += [name for name, present in (
+            (pos, mat is not None),
+            (f"wfac_{pos}", cp.wfac is not None and cp.wfac_pos == pos),
+            (f"rank1_{pos}", cp.rank1 is not None and cp.rank1_pos == pos))
+            if present]
+    if cp.wmat is not None:
+        parts.append("post_t")
     return "+".join(parts + (["T"] if cp.transpose_out else []))
+
+
+# csrc/colpass_tile.cuh Operand: the form of a 'pre' or 'post' operand
+OP_NONE, OP_MAT, OP_FAC, OP_RANK1 = range(4)
+
+
+def _operand_forms(cp: ColPass) -> tuple:
+    """(form, table, second table) of cp's 'pre' and of its 'post'
+    operand, as the kernel takes them: one form a position (the kernel
+    runs one), else ValueError."""
+    out = []
+    for pos in FACTOR_POSITIONS:
+        mat = cp.pre if pos == "pre" else cp.post
+        forms = [(OP_MAT, mat, None)] if mat is not None else []
+        if cp.wfac is not None and cp.wfac_pos == pos:
+            forms.append((OP_FAC, *cp.wfac))
+        if cp.rank1 is not None and cp.rank1_pos == pos:
+            forms.append((OP_RANK1, *cp.rank1))
+        if len(forms) > 1:
+            raise ValueError(f"the CUDA column pass takes one '{pos}' "
+                             f"operand, {variant(cp)} has {len(forms)}")
+        out.append(forms[0] if forms else (OP_NONE, None, None))
+    return tuple(out)
+
+
+def log_s(cp) -> int:
+    """log2 of cp's wfac split S (a ColPass or a GLColPass), 0 without
+    wfac."""
+    return 0 if cp.wfac is None else cp.wfac[1].shape[0].bit_length() - 1
 
 
 def _log_a(cp: ColPass) -> int:
@@ -572,7 +714,10 @@ def network_args(cp: ColPass) -> list:
 
 def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     for name, t in (("tw", cp.tw_pairs), ("wmid", cp.wmid_pairs),
-                    ("wmat", cp.wmat), ("pre", cp.pre), ("post", cp.post)):
+                    ("wmat", cp.wmat), ("pre", cp.pre), ("post", cp.post),
+                    *((f"wfac[{i}]", t) for i, t in enumerate(cp.wfac or ())),
+                    *((f"rank1[{i}]", t)
+                      for i, t in enumerate(cp.rank1 or ()))):
         if t is not None and t.device != xb.device:
             raise ValueError(f"colpass table {name} is on {t.device}, "
                              f"input on {xb.device}")
@@ -582,8 +727,12 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     tl = tile_cols(nn, c)
     out_shape = (B, c, nn) if cp.transpose_out else (B, nn, c)
     out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
-    tables = [t.data_ptr() if t is not None else None
-              for t in (cp.wmid_pairs, cp.wmat, cp.pre, cp.post)]
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    (pre_form, pre, pre2), (post_form, post, post2) = _operand_forms(cp)
+    tables = [ptr(cp.wmid_pairs), ptr(cp.wmat), pre_form, ptr(pre),
+              ptr(pre2), post_form, ptr(post), ptr(post2), log_s(cp)]
     net = [*_stage_args(cp), cp.tw_pairs.data_ptr(), _log_a(cp)]
     key = variant(cp)
     lib = _library(cp.red.name)

@@ -1,10 +1,18 @@
 """The Goldilocks column pass: a CUDA kernel and its plain PyTorch version.
 
 Port of ``ntt_aie_tpu/ops/pallas_gl.py`` (the Pallas kernel
-``build_gl_colpass`` and its wrapper ``make_gl_colpass``) for the four
-configurations the Goldilocks fold plan runs: ``cp1`` (DIF, transpose_out,
-then the 'post_t' wmat multiply), ``cp2`` (DIF), ``icp2`` (DIT,
-transpose_out, then the 'post_t' iwmat multiply) and ``icp1`` (DIT).
+``build_gl_colpass`` and its wrapper ``make_gl_colpass``) for the
+configurations the Goldilocks plans run (``goldilocks_plan.gl_fold_passes``):
+the fold arm's ``cp1`` (DIF, transpose_out, then the 'post_t' wmat
+multiply), ``cp2`` (DIF), ``icp2`` (DIT, transpose_out, then the 'post_t'
+iwmat multiply) and ``icp1`` (DIT); the ``wmat_fold=False`` arm's cp2 and
+icp1 with the matrix as 'pre'; the ``wmat_factored=True`` arm's cp2 with
+the factored ``wfac`` as 'pre' and icp2 with it as 'post'. The plain
+version also takes the reference's rank-1 operand, which only the
+distributed plan uses (the kernel does not take it yet). The operands
+apply in the reference's order (``pallas_gl.py:161-168``, ``:294-301``):
+the 'pre' matrix, wfac and rank-1 on load, the stages, the 'post' wfac and
+rank-1, the transpose, 'post_t'.
 
 Values mod p = 2^64 - 2^32 + 1 travel as a ``(hi, lo)`` tuple of
 ``torch.int32`` planes holding uint32 bit patterns: (B, nn, ncols) in,
@@ -16,8 +24,10 @@ method each multiplies with.
 ``gl_colpass(x, cp)`` is the entry point: the plain version,
 ``gl_colpass_plain``, for CPU tensors, the kernel in ``csrc/gl_colpass.cu``
 for CUDA tensors, and a raise otherwise. ``gl_mul(a, b)`` is the pointwise
-product between transforms on the same terms; its kernel is a helper in the
-same library (the reference leaves this product to XLA).
+product between transforms on the same terms, b of a's shape or of its
+trailing shape (broadcast over the leading axes, as psi over a batch); its
+kernel is a helper in the same library (the reference leaves this product
+to XLA).
 ``kernel_info(cp, ncols)`` says what the card gives the column kernel.
 """
 
@@ -48,6 +58,11 @@ class GLColPass:
       is stage s's start.
     wmid: (nn,) nested mid multiply, or None for a plain network.
     wmat: (ncols, nn) 'post_t' operand, or None.
+    pre: (nn, ncols) 'pre' operand, indexed like the input, or None.
+    wfac: (T1 (nn/S, ncols), T2 (S, ncols)), the factored four-step matrix
+      at wfac_pos ('pre' or 'post'), or None.
+    rank1: (row (nn,), col (ncols,)) at rank1_pos, or None (the plain
+      version's only).
     """
 
     nn: int
@@ -59,6 +74,11 @@ class GLColPass:
     offsets: tuple
     wmid: torch.Tensor | None
     wmat: torch.Tensor | None
+    pre: torch.Tensor | None = None
+    wfac: tuple | None = None
+    wfac_pos: str | None = None
+    rank1: tuple | None = None
+    rank1_pos: str | None = None
 
     def __call__(self, x: tuple) -> tuple:
         return gl_colpass(x, self)
@@ -69,20 +89,39 @@ def _u64_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int64)).to(device)
 
 
+def _factor_tensors(kind, pos, tabs, nn, device) -> tuple:
+    """The device tensors of a 'wfac' or 'rank1' operand's two host
+    tables, checked (colpass.check_factors)."""
+    a, b = (_u64_tensor(t, device) for t in tabs)
+    C.check_factors(kind, pos, tuple(a.shape), tuple(b.shape), nn)
+    return a, b
+
+
 def make_gl_colpass(field, nn: int, *, direction: str,
                     inverse_tw: bool = False, wmat: np.ndarray | None = None,
-                    transpose_out: bool = False, device=None) -> GLColPass:
+                    twiddle_pos: str = "post_t", transpose_out: bool = False,
+                    wfac: tuple | None = None, wfac_pos: str | None = None,
+                    rank1: tuple | None = None, rank1_pos: str | None = None,
+                    device=None) -> GLColPass:
     """Build a Goldilocks column pass for nn-point columns from the port's
-    own twiddles.col_network. wmat: host (ncols, nn) 'post_t' operand (the
-    four-step matrix in output orientation), applied after the transpose.
-    device: None is the card."""
+    own twiddles.col_network. wmat: a host operand at twiddle_pos:
+    'post_t' (the default; (ncols, nn), the four-step matrix in output
+    orientation, applied after the transpose) or 'pre' ((nn, ncols),
+    indexed like the input, applied on load). wfac: (T1 (nn/S, ncols), T2
+    (S, ncols)) of twiddles.fourstep_wfac_T at wfac_pos ('pre' or 'post');
+    rank1: (row (nn,), col (ncols,)) of twiddles.negacyclic_psi_factors at
+    rank1_pos; each applied as two multiplies, as the reference's
+    make_gl_colpass. device: None is the card."""
     device = resolve_device(device)
     if not field.is_goldilocks:
         raise ValueError(f"the Goldilocks column pass needs p = 2^64 - 2^32 "
                          f"+ 1, got p={field.p}")
     if direction not in ("dif", "dit"):
         raise ValueError(f"direction must be 'dif' or 'dit', got {direction!r}")
-    if wmat is not None and not transpose_out:
+    if twiddle_pos not in ("pre", "post_t"):
+        raise ValueError(f"twiddle_pos must be 'pre' or 'post_t', got "
+                         f"{twiddle_pos!r}")
+    if wmat is not None and twiddle_pos == "post_t" and not transpose_out:
         raise ValueError("the 'post_t' multiply needs transpose_out=True")
     net = tw.col_network(field, nn, direction=direction, inverse=inverse_tw)
     phases_ts = tuple(tuple(int(t) for t in ph["ts"]) for ph in net["phases"])
@@ -90,9 +129,18 @@ def make_gl_colpass(field, nn: int, *, direction: str,
     wm = None
     if wmat is not None:
         wm = _u64_tensor(wmat, device)
-        if wm.dim() != 2 or wm.shape[1] != nn:
-            raise ValueError(f"post_t operand {tuple(wm.shape)} is not "
-                             f"(ncols, {nn})")
+        rows = wm.shape[0] if twiddle_pos == "pre" else wm.shape[-1]
+        if wm.dim() != 2 or rows != nn:
+            want = (f"({nn}, ncols)" if twiddle_pos == "pre"
+                    else f"(ncols, {nn})")
+            raise ValueError(f"{twiddle_pos} operand {tuple(wm.shape)} is not "
+                             f"{want}")
+    fac = {kind: (pos, _factor_tensors(kind, pos, tabs, nn, device))
+           for kind, tabs, pos in (("wfac", wfac, wfac_pos),
+                                   ("rank1", rank1, rank1_pos))
+           if tabs is not None}
+    wfac_pos, wfac_t = fac.get("wfac", (None, None))
+    rank1_pos, rank1_t = fac.get("rank1", (None, None))
     return GLColPass(
         nn=nn, direction=direction, phases_ts=phases_ts,
         mid_rs=(int(net["R"]), int(net["S"])), transpose_out=transpose_out,
@@ -101,7 +149,9 @@ def make_gl_colpass(field, nn: int, *, direction: str,
         offsets=tuple(int(o) for o in np.cumsum([0] + ts[:-1])),
         wmid=(_u64_tensor(net["mid"]["wmid"], device)
               if net["mid"] is not None else None),
-        wmat=wm)
+        wmat=wm if twiddle_pos == "post_t" else None,
+        pre=wm if twiddle_pos == "pre" else None,
+        wfac=wfac_t, wfac_pos=wfac_pos, rank1=rank1_t, rank1_pos=rank1_pos)
 
 
 # ---- plain PyTorch version -------------------------------------------------
@@ -128,9 +178,16 @@ def _batched(x, cp: GLColPass):
         raise ValueError(f"gl_colpass over {cp.nn} rows takes (B, {cp.nn}, "
                          f"ncols) or ({cp.nn}, ncols) planes, got "
                          f"{tuple(x[0].shape)}")
-    if cp.wmat is not None and cp.wmat.shape[0] != hi.shape[2]:
-        raise ValueError(f"post_t operand has {cp.wmat.shape[0]} columns, "
-                         f"input has {hi.shape[2]}")
+    for pos, cols in (("post_t", None if cp.wmat is None else
+                       cp.wmat.shape[0]),
+                      ("pre", None if cp.pre is None else cp.pre.shape[1]),
+                      ("wfac", None if cp.wfac is None else
+                       cp.wfac[0].shape[1]),
+                      ("rank1", None if cp.rank1 is None else
+                       cp.rank1[1].shape[0])):
+        if cols is not None and cols != hi.shape[2]:
+            raise ValueError(f"{pos} operand has {cols} columns, input has "
+                             f"{hi.shape[2]}")
     return hi, lo, squeeze
 
 
@@ -159,11 +216,36 @@ def _run_stages(h, l, w, ts, offsets, direction):
     return h, l
 
 
+def _mul_limbs(h, l, t: torch.Tensor, shape) -> tuple:
+    return M.gl_mul(h, l, *(v.view(shape) for v in _limbs(t)))
+
+
+def _mul_at(h, l, cp: GLColPass, pos: str) -> tuple:
+    """(h, l) (B, rows, c) times cp's operands at 'pre' or 'post', in the
+    reference's order: the matrix, wfac (T1[c1] broadcast over c0, then
+    T2[c0] over c1, for row c1*S + c0), rank-1 (row[r], then col[c])."""
+    B, rr, cc = h.shape
+    if pos == "pre" and cp.pre is not None:
+        h, l = _mul_limbs(h, l, cp.pre, (1, rr, cc))
+    if cp.wfac is not None and cp.wfac_pos == pos:
+        t1, t2 = cp.wfac
+        s = t2.shape[0]
+        h, l = (v.reshape(B, rr // s, s, cc) for v in (h, l))
+        h, l = _mul_limbs(h, l, t1, (1, rr // s, 1, cc))
+        h, l = _mul_limbs(h, l, t2, (1, 1, s, cc))
+        h, l = (v.reshape(B, rr, cc) for v in (h, l))
+    if cp.rank1 is not None and cp.rank1_pos == pos:
+        row, col = cp.rank1
+        h, l = _mul_limbs(h, l, row, (1, rr, 1))
+        h, l = _mul_limbs(h, l, col, (1, 1, cc))
+    return h, l
+
+
 def gl_colpass_plain(x: tuple, cp: GLColPass) -> tuple:
     """The Goldilocks column pass in plain PyTorch ops (int64 limb
     carriers), on any device: the oracle the kernel is held against."""
     hi, lo, squeeze = _batched(x, cp)
-    h, l = M.to_carrier(hi), M.to_carrier(lo)
+    h, l = _mul_at(M.to_carrier(hi), M.to_carrier(lo), cp, "pre")
     B, nn, c = h.shape
     w = _limbs(cp.tw)
     k0 = len(cp.phases_ts[0])
@@ -182,6 +264,7 @@ def gl_colpass_plain(x: tuple, cp: GLColPass) -> tuple:
             h, l = M.gl_mul(h, l, mh, ml)
         h, l = _run_stages(h, l, w, cp.phases_ts[1], cp.offsets[k0:],
                            cp.direction)
+    h, l = _mul_at(h, l, cp, "post")
     if cp.transpose_out:
         h, l = h.transpose(1, 2), l.transpose(1, 2)
         if cp.wmat is not None:
@@ -190,11 +273,23 @@ def gl_colpass_plain(x: tuple, cp: GLColPass) -> tuple:
     return tuple(v[0] for v in out) if squeeze else out
 
 
-def gl_mul_plain(a: tuple, b: tuple) -> tuple:
-    """Pointwise a * b mod p on int32 limb planes, in plain PyTorch ops."""
+def _mul_operands(a: tuple, b: tuple) -> tuple:
+    """a's and b's planes, b of a's shape or of its trailing shape."""
     ah, al = _planes(a, "gl_mul")
     bh, bl = _planes(b, "gl_mul")
-    out = M.gl_mul(*(M.to_carrier(v) for v in (ah, al, bh, bl)))
+    if (bh.dim() > ah.dim() or ah.shape[ah.dim() - bh.dim():] != bh.shape
+            or ah.device != bh.device):
+        raise ValueError(f"gl_mul takes b of a's shape or of its trailing "
+                         f"shape, on a's device: got {tuple(ah.shape)} on "
+                         f"{ah.device} and {tuple(bh.shape)} on {bh.device}")
+    return ah, al, bh, bl
+
+
+def gl_mul_plain(a: tuple, b: tuple) -> tuple:
+    """Pointwise a * b mod p on int32 limb planes, in plain PyTorch ops;
+    b of a's shape, or of its trailing shape (broadcast over the leading
+    axes)."""
+    out = M.gl_mul(*(M.to_carrier(v) for v in _mul_operands(a, b)))
     return tuple(M.from_carrier(v) for v in out)
 
 
@@ -206,15 +301,17 @@ def _library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     pi = ctypes.POINTER(ctypes.c_int)
     lib.ntt_gl_colpass.restype = ci
+    ll = ctypes.c_longlong
     lib.ntt_gl_colpass.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                   ci, pi, pi, vp, ci, vp, vp, ci, vp]
+                                   ci, pi, pi, vp, ci, vp, vp, ci, vp, vp,
+                                   ci, vp, vp, ci, ci, vp]
     lib.ntt_gl_mul.restype = ci
-    lib.ntt_gl_mul.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp]
+    lib.ntt_gl_mul.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, vp]
     lib.ntt_gl_error_string.restype = ctypes.c_char_p
     lib.ntt_gl_error_string.argtypes = [ci]
     lib.ntt_gl_colpass_max_rows.restype = ci
     lib.ntt_gl_colpass_kernel_info.restype = ci
-    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 5 + [pi] * 3
+    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 7 + [pi] * 3
     if lib.ntt_gl_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/gl_colpass.cu kMaxRows disagrees with "
                            "MAX_ROWS")
@@ -234,16 +331,43 @@ def kernel_info(cp: GLColPass, ncols: int) -> dict:
     log_tl = tl.bit_length() - 1
     lib = _library()
     kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
+    (pre_form, *_), (post_form, *_) = _operand_forms(cp)
     with torch.cuda.device(cp.tw.device):
         err = lib.ntt_gl_colpass_kernel_info(
             int(cp.direction == "dit"), int(cp.transpose_out),
-            int(cp.wmat is not None), cp.nn, log_tl, kfuse, regs, per_sm)
+            int(cp.wmat is not None), pre_form, post_form, cp.nn, log_tl,
+            kfuse, regs, per_sm)
     if err != 0:
         raise RuntimeError("CUDA GL column pass occupancy query failed: "
                            + lib.ntt_gl_error_string(err).decode())
-    return {"kfuse": kfuse.value, "tile_cols": tl, "layout": "swizzled",
+    return {"variant": variant(cp), "kfuse": kfuse.value, "tile_cols": tl,
+            "layout": "swizzled",
             "shift": C.tile_shift(cp, log_tl), "registers": regs.value,
             "blocks_per_sm": per_sm.value}
+
+
+variant = C.variant
+
+
+def _operand_forms(cp: GLColPass) -> tuple:
+    """(form, table, second table) of cp's 'pre' and of its 'post'
+    operand, in colpass's Operand forms; the kernel takes one form a
+    position and no rank-1 yet (ValueError)."""
+    if cp.rank1 is not None:
+        raise ValueError("the CUDA GL column pass takes no rank-1 operand "
+                         "(ROADMAP.md Queue 1: the distributed four-step)")
+    pre = ((C.OP_MAT, cp.pre, None) if cp.pre is not None
+           else (C.OP_NONE, None, None))
+    post = (C.OP_NONE, None, None)
+    if cp.wfac is not None:
+        if cp.wfac_pos == "post":
+            post = (C.OP_FAC, *cp.wfac)
+        elif cp.pre is None:
+            pre = (C.OP_FAC, *cp.wfac)
+        else:
+            raise ValueError("the CUDA GL column pass takes one 'pre' "
+                             f"operand, {variant(cp)} has 2")
+    return pre, post
 
 
 def _check_launch(err: int, what: str, lib) -> None:
@@ -253,7 +377,9 @@ def _check_launch(err: int, what: str, lib) -> None:
 
 
 def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass) -> tuple:
-    for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat)):
+    for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat),
+                    ("pre", cp.pre),
+                    *((f"wfac[{i}]", t) for i, t in enumerate(cp.wfac or ()))):
         if t is not None and t.device != hi.device:
             raise ValueError(f"gl_colpass table {name} is on {t.device}, "
                              f"input on {hi.device}")
@@ -272,8 +398,14 @@ def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass) -> tuple:
         mid = cp.wmid.data_ptr()
     else:
         log_a, mid = -1, None
-    mat = cp.wmat.data_ptr() if cp.wmat is not None else None
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    (pre_form, pre, pre2), (post_form, post, post2) = _operand_forms(cp)
+    ops = [ptr(cp.wmat), pre_form, ptr(pre), ptr(pre2), post_form, ptr(post),
+           ptr(post2), C.log_s(cp)]
     ts_arr, offs_arr = (ctypes.c_int * n)(*ts), (ctypes.c_int * n)(*cp.offsets)
+    key = variant(cp)
     lib = _library()
     with torch.cuda.device(hi.device):
         stream = torch.cuda.current_stream(hi.device).cuda_stream
@@ -283,9 +415,11 @@ def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass) -> tuple:
                 oh[b0:b1].data_ptr(), ol[b0:b1].data_ptr(), b1 - b0, nn, c,
                 tl.bit_length() - 1, int(cp.direction == "dit"), n,
                 len(cp.phases_ts[0]), ts_arr, offs_arr, cp.tw.data_ptr(),
-                log_a, mid, mat, int(cp.transpose_out), stream)
+                log_a, mid, *ops, int(cp.transpose_out), stream)
             _check_launch(err, "GL column pass", lib)
             gl_colpass.launches += 1
+            gl_colpass.launches_by[key] = gl_colpass.launches_by.get(key,
+                                                                     0) + 1
     return oh, ol
 
 
@@ -293,7 +427,8 @@ def gl_colpass(x: tuple, cp: GLColPass) -> tuple:
     """Run one Goldilocks column pass on a (hi, lo) tuple: the CUDA kernel
     for CUDA tensors (one launch per colpass.MAX_LAUNCH_BATCH batch rows),
     the plain version for CPU tensors.
-    ``gl_colpass.launches`` counts kernel launches."""
+    ``gl_colpass.launches`` counts kernel launches, ``gl_colpass.launches_by``
+    them by instantiation (``variant``)."""
     device = _planes(x, "gl_colpass")[0].device
     if device.type == "cpu":
         return gl_colpass_plain(x, cp)
@@ -305,18 +440,16 @@ def gl_colpass(x: tuple, cp: GLColPass) -> tuple:
 
 
 gl_colpass.launches = 0
+gl_colpass.launches_by = {}
 
 
 def gl_mul(a: tuple, b: tuple) -> tuple:
-    """Pointwise a * b mod p on (hi, lo) int32 planes of one shape: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    """Pointwise a * b mod p on (hi, lo) int32 planes: b of a's shape, or
+    of its trailing shape, broadcast over a's leading axes (psi over a
+    batch: the kernel takes b's index modulo its size). The CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.
     ``gl_mul.launches`` counts kernel launches."""
-    ah, al = _planes(a, "gl_mul")
-    bh, bl = _planes(b, "gl_mul")
-    if ah.shape != bh.shape or ah.device != bh.device:
-        raise ValueError(f"gl_mul takes operands of one shape and device, "
-                         f"got {tuple(ah.shape)} on {ah.device} and "
-                         f"{tuple(bh.shape)} on {bh.device}")
+    ah, al, bh, bl = _mul_operands(a, b)
     if ah.device.type == "cpu":
         return gl_mul_plain(a, b)
     if ah.device.type != "cuda":
@@ -329,7 +462,7 @@ def gl_mul(a: tuple, b: tuple) -> tuple:
         stream = torch.cuda.current_stream(ah.device).cuda_stream
         err = lib.ntt_gl_mul(ah.data_ptr(), al.data_ptr(), bh.data_ptr(),
                              bl.data_ptr(), oh.data_ptr(), ol.data_ptr(),
-                             ah.numel(), stream)
+                             ah.numel(), bh.numel(), stream)
     _check_launch(err, "GL product", lib)
     gl_mul.launches += 1
     return oh, ol

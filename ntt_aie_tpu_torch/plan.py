@@ -14,11 +14,16 @@ each a column pass (``ops.colpass``: the CUDA kernel on a CUDA device, its
 plain PyTorch version on the CPU). ``wmat_fold=False`` moves the
 four-step multiply to the entry of the second pass of each transform, as
 the column pass's 'pre' operand (cp2: * W, icp1: * W^-1/N), with the same
-outputs bit for bit. The negacyclic product (X^N + 1) scales by psi^i and
-psi^-i inside the column passes: ``ncp1`` is cp1 with psi as 'pre',
-``nicp1`` icp1 with psi^-1 as 'post' (after the fold's plain icp1, or
-after its 'pre' W^-1/N without the fold), so it is six column passes, as
-the cyclic product. ``fused=True`` runs each transform as one fused
+outputs bit for bit. ``wmat_factored=True`` takes it from the factored
+tables T1[c1] * T2[c0] (``twiddles.fourstep_wfac_T``) on the passes whose
+rows are the exponent's linear axis: cp2 'pre' (* W) and icp2 'post',
+before its transpose (* W^-1/N); cp1 and icp1 carry no table. The
+negacyclic product (X^N + 1) scales by psi^i and psi^-i inside the column
+passes: ``ncp1`` is cp1 with psi as 'pre', ``nicp1`` icp1 with psi^-1 as
+'post' (after the fold's plain icp1, or after its 'pre' W^-1/N without
+the fold; under wmat_factored psi and psi^-1 are rank-1 operands,
+``twiddles.negacyclic_psi_factors``), so it is six column passes, as the
+cyclic product. ``fused=True`` runs each transform as one fused
 four-step launch instead (``ops.fused_fourstep``: ``ff`` forward, ``fi``
 inverse), with the same outputs bit for bit; its negacyclic product rides
 the fused kernels as ``pre`` (``nf``) and ``post`` (``ni``). The flat
@@ -82,7 +87,13 @@ class Plan:
     (ff, fi), of the four-step split the plan runs (for a flat plan, the
     internal one, ``flat_inner_split``), and for negacyclic the column
     passes ncp1, nicp1 of a four-step fold plan, or the fused nf, ni (on a
-    flat fold plan at the fused plan's internal split).
+    flat fold plan at the fused plan's internal split). wmat_factored and
+    wmat_fold record the arm that was built, as the reference's Plan
+    does: wmat_factored where it was asked for on a four-step split (a
+    fused plan records it too, as the reference's, and runs its fused
+    kernels), wmat_fold where the four-step multiply rides the transposing
+    passes' exit ('post_t': the fold passes, also a flat fold plan's at its
+    internal split).
     """
 
     config: NTTConfig
@@ -98,6 +109,8 @@ class Plan:
     polymul_mat: Optional[Callable] = None
     negacyclic_polymul: Optional[Callable] = None
     negacyclic_polymul_mat: Optional[Callable] = None
+    wmat_factored: bool = False
+    wmat_fold: bool = False
     _batched_builder: Optional[Callable] = None
     _batched_cache: dict = dataclasses.field(default_factory=dict)
 
@@ -110,8 +123,6 @@ class Plan:
 # ROADMAP.md Queue 1 items that port what a plan does not have yet, by
 # label and title (queue numbers move when the roadmap is re-anchored;
 # the labels 4d-4j do not)
-ITEM_WMAT_ARMS = ("Queue 1 item 4g: the wmat_factored=True arm for both "
-                  "value widths, and Goldilocks wmat_fold=False")
 ITEM_FLAT_N2 = "Queue 1 item 4h: n = 2 on the flat split"
 ITEM_REFERENCE_PARITY = "Queue 1 item 4j: reference parity"
 ITEM_DISTRIBUTED = "Queue 1: the distributed four-step"
@@ -176,37 +187,64 @@ def public_order(config: NTTConfig, n1: int, n2: int, device) -> tuple:
             torch.from_numpy(inverse_permutation(out_idx)).to(device))
 
 
+def wfac_tables(field, n1: int, n2: int) -> tuple:
+    """The factored four-step tables of an (n1, n2) split, as the
+    reference's factored plans build them (its plan.py:229-239): the
+    forward (T1, T2) and the inverse's with 1/n in T2, from one power
+    table."""
+    n_inv = tw.fourstep_tables_light(field, n1, n2)["n_inv"]
+    pows = tw.root_powers(field, n1 * n2)
+    return (tw.fourstep_wfac_T(field, n1, n2, _pows=pows),
+            tw.fourstep_wfac_T(field, n1, n2, inverse=True, scale=n_inv,
+                               _pows=pows))
+
+
 def fold_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
-                wmat_fold: bool = True, negacyclic: bool = False,
-                device=None) -> dict:
+                wmat_fold: bool = True, wmat_factored: bool = False,
+                negacyclic: bool = False, device=None) -> dict:
     """The column passes of the four-step plan for an (n1, n2) split under
-    the reduction of this kind (reference plan.py:275-310): cp1 and icp1
+    the reduction of this kind (reference plan.py:229-310): cp1 and icp1
     over (.., n1, n2), cp2 and icp2 over (.., n2, n1). With wmat_fold (the
     default) the four-step multiply rides the transposing passes' exit as
     'post_t', with its operand in output orientation: wmat.T for cp1,
     iwmat_scaled (1/n folded in) for icp2. With wmat_fold=False it rides
     the second pass's entry as 'pre': wmat.T for cp2, iwmat_scaled for
-    icp1. The outputs are the same bit for bit.
+    icp1. With wmat_factored (which overrides wmat_fold, as in the
+    reference) it comes from the factored tables of
+    twiddles.fourstep_wfac_T, on the passes whose rows are the exponent's
+    linear axis: cp2 'pre' (W), icp2 'post' before the transpose (W^-1
+    with 1/n in T2); no n1 x n2 matrix is built. The outputs are the same
+    bit for bit.
 
     negacyclic adds ncp1 and nicp1 over (.., n1, n2), which take the place
-    of cp1 and icp1 in the negacyclic product (reference plan.py:497-524,
-    :712-734): ncp1 is cp1 with psi^i as 'pre'; nicp1 is icp1 with psi^-i
-    as 'post'. The polymul inverse is the plain one (its pointwise product
-    is exact), so no iwmat_poly. device: None is the card
+    of cp1 and icp1 in the negacyclic product (reference plan.py:474-524,
+    :697-734): ncp1 is cp1 with psi^i as 'pre'; nicp1 is icp1 with psi^-i
+    as 'post' (under wmat_factored, rank-1 operands of
+    twiddles.negacyclic_psi_factors, n1 + n2 values each). The polymul
+    inverse is the plain one (its pointwise product is exact), so no
+    iwmat_poly: the same outputs as the reference's, which builds one more
+    table for montgomery. device: None is the card
     (utils.device.resolve_device)."""
     device = resolve_device(device)
-    tabs = tw.fourstep_tables(field, n1, n2)
-    wmat_t = np.ascontiguousarray(tabs["wmat"].T)
-    iwmat = tabs["iwmat_scaled"]
     kw = dict(reduction=reduction, device=device)
     cp1_kw = dict(direction="dif", transpose_out=True, **kw)
     icp1_kw = dict(direction="dit", inverse_tw=True, canonicalize=True, **kw)
-    if wmat_fold:
-        cp1_kw.update(wmat=wmat_t, twiddle_pos="post_t")
-        cp2_op, icp2_op = {}, dict(wmat=iwmat, twiddle_pos="post_t")
+    if wmat_factored:
+        wf, wf_inv = wfac_tables(field, n1, n2)
+        cp2_op = dict(wfac=wf, wfac_pos="pre")
+        icp2_op = dict(wfac=wf_inv, wfac_pos="post")
+    elif wmat_fold:
+        tabs = tw.fourstep_tables(field, n1, n2)
+        cp1_kw.update(wmat=np.ascontiguousarray(tabs["wmat"].T),
+                      twiddle_pos="post_t")
+        cp2_op = {}
+        icp2_op = dict(wmat=tabs["iwmat_scaled"], twiddle_pos="post_t")
     else:
-        icp1_kw.update(wmat=iwmat, twiddle_pos="pre")
-        cp2_op, icp2_op = dict(wmat=wmat_t, twiddle_pos="pre"), {}
+        tabs = tw.fourstep_tables(field, n1, n2)
+        icp1_kw.update(wmat=tabs["iwmat_scaled"], twiddle_pos="pre")
+        cp2_op = dict(wmat=np.ascontiguousarray(tabs["wmat"].T),
+                      twiddle_pos="pre")
+        icp2_op = {}
     out = {
         "cp1": make_colpass(field, n1, **cp1_kw),
         "cp2": make_colpass(field, n2, direction="dif", canonicalize=True,
@@ -215,7 +253,15 @@ def fold_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
                              transpose_out=True, **icp2_op, **kw),
         "icp1": make_colpass(field, n1, **icp1_kw),
     }
-    if negacyclic:
+    if negacyclic and wmat_factored:
+        out["ncp1"] = make_colpass(
+            field, n1, rank1=tw.negacyclic_psi_factors(field, n1, n2),
+            rank1_pos="pre", **cp1_kw)
+        out["nicp1"] = make_colpass(
+            field, n1, rank1=tw.negacyclic_psi_factors(field, n1, n2,
+                                                       inverse=True),
+            rank1_pos="post", **icp1_kw)
+    elif negacyclic:
         n = n1 * n2
         psi = tw.negacyclic_psi_powers(field, n).reshape(n1, n2)
         ipsi = tw.negacyclic_psi_powers(field, n, inverse=True)
@@ -279,9 +325,14 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     wmat_fold=False places the four-step multiply at the second pass's
     entry ('pre') instead of the first pass's exit (fold_passes), with the
     same outputs; it does not apply to the fused plan, as in the
-    reference. With NTTConfig(negacyclic=True) a four-step fold plan has
-    negacyclic_polymul and negacyclic_polymul_mat on the column passes
-    ncp1/nicp1 (psi as 'pre', psi^-1 as 'post'), a fused plan on nf/ni.
+    reference. wmat_factored=True takes the four-step multiply from the
+    factored tables (cp2 'pre', icp2 'post'; fold_passes) and the
+    negacyclic psi from rank-1 operands, with the same outputs; it
+    overrides wmat_fold, and a fused plan records it and keeps its fused
+    kernels, as in the reference. With NTTConfig(negacyclic=True) a
+    four-step fold plan has negacyclic_polymul and negacyclic_polymul_mat
+    on the column passes ncp1/nicp1 (psi as 'pre', psi^-1 as 'post'), a
+    fused plan on nf/ni.
 
     A flat configuration (config.split = (n, 1), the default for a single
     shard up to n = 2^16) runs the same kernels at the internal split
@@ -312,8 +363,10 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     flat = config.split[1] == 1
     if config.num_shards != 1:
         _not_ported("the distributed plan", ITEM_DISTRIBUTED)
-    if not flat and wmat_factored:
-        _not_ported("wmat_factored=True", ITEM_WMAT_ARMS)
+    # the arm built, as the reference records it (its plan.py:193-198)
+    wfac_on = bool(wmat_factored) and not flat
+    fold_on = not fused and (flat or (wmat_fold is not False
+                                      and not wfac_on))
 
     device = resolve_device(device)
     n = config.n
@@ -325,7 +378,7 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
         fwd_t, inv_t = passes["ff"], passes["fi"]
     else:
         passes = fold_passes(field, n1, n2, reduction=kind,
-                             wmat_fold=flat or wmat_fold is not False,
+                             wmat_fold=fold_on, wmat_factored=wfac_on,
                              negacyclic=config.negacyclic and not flat,
                              device=device)
         if config.negacyclic and flat:  # the fused plan's product
@@ -423,5 +476,7 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
         polymul_mat=one.get("polymul_mat"),
         negacyclic_polymul=one.get("negacyclic_polymul"),
         negacyclic_polymul_mat=one.get("negacyclic_polymul_mat"),
+        wmat_factored=wfac_on,
+        wmat_fold=fold_on,
         _batched_builder=lambda B: callables((B,)),
     )

@@ -1,8 +1,8 @@
 """Twiddle-factor planning for the four-step column passes.
 
 A NumPy copy of the parts of ``ntt_aie_tpu.twiddles`` that the four-step
-fold and fused plans and the flat stage loops need (the port cannot
-import the reference package: its ``__init__`` imports jax). The
+fold, factored and fused plans and the flat stage loops need (the port
+cannot import the reference package: its ``__init__`` imports jax). The
 spectral order is still defined once: ``col_network``/
 ``spectral_positions`` here are line-for-line copies, and
 ``tests/test_torch_tables.py`` pins every table to the reference with
@@ -326,3 +326,65 @@ def fourstep_tables(field: PrimeField, n1: int, n2: int) -> dict:
     while len(_FOURSTEP_MEMO) > _FOURSTEP_MEMO_MAX:
         _FOURSTEP_MEMO.popitem(last=False)
     return tabs
+
+
+def fourstep_tables_light(field: PrimeField, n1: int, n2: int) -> dict:
+    """pos and n_inv only: the factored plans (wmat_factored=True) take the
+    four-step multiply from fourstep_wfac_T's tables and never build the
+    n1 x n2 matrices."""
+    return {"pos": spectral_positions(n1, n2), "n_inv": field.inv(n1 * n2)}
+
+
+def default_wfac_split(n2: int) -> int:
+    """The factored four-step matrix's split S ~ sqrt(n2), which makes the
+    table rows n2/S + S fewest."""
+    return 1 << ((n2.bit_length() - 1) // 2)
+
+
+def fourstep_wfac_T(field: PrimeField, n1: int, n2: int, *,
+                    inverse: bool = False, scale: int | None = None,
+                    split: int | None = None,
+                    _pows: np.ndarray | None = None):
+    """The four-step matrix in the transposed orientation, factored.
+
+    wmat.T[c, r] = W^(+-br1(r) * c) [* scale] (rows c linear in the
+    exponent, the pass-1 row order on r) is, over c = c1*S + c0, the
+    entrywise product T1[c1, r] * T2[c0, r] mod p of
+
+        T1[c1, r] = W^(+-br1(r) * S * c1)         shape (n2/S, n1)
+        T2[c0, r] = W^(+-br1(r) * c0) [* scale]   shape (S, n1)
+
+    so a column pass multiplies by T1 and then T2 against (n2/S + S) * n1
+    entries instead of n1 * n2. `scale` (1/n for the inverse) folds into
+    T2. _pows: root_powers(field, n), to build it once for several
+    tables."""
+    n = n1 * n2
+    S = split or default_wfac_split(n2)
+    if n2 % S != 0:
+        raise ValueError(f"split {S} must divide n2={n2}")
+    pows = root_powers(field, n) if _pows is None else _pows
+    k1r = colperm(n1).astype(np.int64)
+    sgn = -1 if inverse else 1
+    c1 = (np.arange(n2 // S, dtype=np.int64) * S)[:, None]
+    c0 = np.arange(S, dtype=np.int64)[:, None]
+    t1 = pows[(sgn * k1r[None, :] * c1) % n]
+    t2 = pows[(sgn * k1r[None, :] * c0) % n]
+    if scale is not None:
+        t2 = _vec_mulmod(field)(t2, scale).astype(_tw_dtype(field),
+                                                  copy=False)
+    return np.ascontiguousarray(t1), np.ascontiguousarray(t2)
+
+
+def negacyclic_psi_factors(field: PrimeField, n1: int, n2: int, *,
+                           inverse: bool = False):
+    """The negacyclic psi matrix as a rank-1 product: the (n1, n2) reshape
+    of psi^i is psi^(r*n2 + c) = (psi^n2)^r * psi^c, so it is
+    row[r] * col[c] of two vectors of n1 and n2 entries. The psi of
+    negacyclic_psi_powers."""
+    n = n1 * n2
+    psi = field.root_of_unity(2 * n)
+    if inverse:
+        psi = field.inv(psi)
+    col = _power_series(field, psi, n2)
+    row = _power_series(field, pow(psi, n2, field.p), n1)
+    return row, col

@@ -9,7 +9,11 @@ counters); the entry points' default device; the column kernel's 'pre'
 and 'post' instantiations (the fold plan's negacyclic ncp1/nicp1 and the
 wmat_fold=False arm) under every reduction, those plans against the
 oracle, the CRT combine kernel against its plain version and RNSPolymul
-against the exact integer product.
+against the exact integer product; the factored ('wfac') and rank-1
+instantiations of the 32-bit kernel under every reduction and the
+Goldilocks kernel's 'pre' matrix and 'wfac' ones, the broadcast Goldilocks
+product, and the wmat_factored=True and Goldilocks wmat_fold=False plans
+against the fold plan.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -23,6 +27,7 @@ import torch
 
 import ntt_aie_tpu_torch as T
 from ntt_aie_tpu_torch import reference as ref
+from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import fused_fourstep as FF
@@ -734,3 +739,161 @@ def test_rns_polymul_is_exact_on_the_card(cuda, negacyclic):
         want = full[:n].copy()
         want[:n - 1] += (-1 if negacyclic else 1) * full[n:]
         assert np.array_equal(got[r], want), r
+
+
+# The column kernels' factored ('wfac') and rank-1 instantiations and the
+# Goldilocks 'pre' matrix, by the plan passes that run them:
+# (fold_passes / gl_fold_passes keyword arguments, pass)
+WFAC_PASSES = [({"wmat_factored": True}, "cp2"),
+               ({"wmat_factored": True}, "icp2"),
+               ({"wmat_factored": True, "negacyclic": True}, "ncp1"),
+               ({"wmat_factored": True, "negacyclic": True}, "nicp1")]
+GL_ARM_PASSES = [({"wmat_fold": False}, "cp2"), ({"wmat_fold": False}, "icp1"),
+                 ({"wmat_factored": True}, "cp2"),
+                 ({"wmat_factored": True}, "icp2")]
+WFAC_CASES = (
+    [("harvey4", T.P_469762049, 4, s)
+     for s in ((1024, 1024), (128, 512), (512, 2048), (32, 64))]
+    + [(kind, field, RED_TOP[kind], s)
+       for kind, field in (("montgomery", T.P_2013265921),
+                           ("harvey", T.P_998244353))
+       for s in ((1024, 1024), (32, 64))]
+    + [("barrett", T.KYBER, 1, (16, 8))])
+
+
+@pytest.mark.parametrize("kind,field,top,shape", WFAC_CASES)
+def test_wfac_kernels_match_plain(cuda, kind, field, top, shape):
+    n1, n2 = shape
+    g = torch.Generator(device=cuda).manual_seed(n1 * 5 + n2)
+    for kw, name in WFAC_PASSES:
+        cp = fold_passes(field, n1, n2, reduction=kind, device=cuda,
+                         **kw)[name]
+        rows, cols = (n2, n1) if name in ("cp2", "icp2") else (n1, n2)
+        for B in (1, 4):
+            x = torch.randint(0, top * field.p, (B, rows, cols),
+                              dtype=torch.int64, device=cuda,
+                              generator=g).to(torch.int32)
+            before = dict(C.colpass.launches_by)
+            got = C.colpass(x, cp)
+            torch.cuda.synchronize()
+            key = C.variant(cp)
+            assert C.colpass.launches_by[key] == before.get(key, 0) + 1
+            assert torch.equal(got, C.colpass_plain(x, cp)), (kw, name, B)
+
+
+@pytest.mark.parametrize("n1,n2", [(1024, 1024), (2048, 256), (128, 512)])
+def test_gl_arm_kernels_match_plain(cuda, n1, n2):
+    rng = np.random.default_rng(n1 + n2)
+    for kw, name in GL_ARM_PASSES:
+        cp = gl_fold_passes(T.GOLDILOCKS, n1, n2, device=cuda, **kw)[name]
+        rows, cols = (n2, n1) if name in ("cp2", "icp2") else (n1, n2)
+        for B in (1, 3):
+            x = M.gl_from_u64(_gl_values(rng, (B, rows, cols)), cuda)
+            before = dict(G.gl_colpass.launches_by)
+            got = G.gl_colpass(x, cp)
+            torch.cuda.synchronize()
+            key = G.variant(cp)
+            assert G.gl_colpass.launches_by[key] == before.get(key, 0) + 1
+            want = G.gl_colpass_plain(x, cp)
+            assert all(torch.equal(u, v) for u, v in zip(got, want)), (
+                kw, name, B)
+
+
+def test_gl_mul_broadcast_matches_plain(cuda):
+    rng = np.random.default_rng(11)
+    for lead, tail in (((5,), (64, 32)), ((3, 2), (48,)), ((7,), (1000,))):
+        a = M.gl_from_u64(_gl_values(rng, lead + tail), cuda)
+        b = M.gl_from_u64(_gl_values(rng, tail), cuda)
+        got = G.gl_mul(a, b)
+        torch.cuda.synchronize()
+        full = tuple(v.expand(lead + tail).contiguous() for v in b)
+        for want in (G.gl_mul_plain(a, b), G.gl_mul(a, full)):
+            assert all(torch.equal(u, v) for u, v in zip(got, want)), lead
+
+
+def test_wfac_kernel_info_and_refusal(cuda):
+    for kw, name in WFAC_PASSES:
+        cp = fold_passes(T.P_469762049, 1024, 1024, device=cuda, **kw)[name]
+        info = C.kernel_info(cp, 1024)
+        assert info["variant"] == C.variant(cp)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    for kw, name in GL_ARM_PASSES:
+        cp = gl_fold_passes(T.GOLDILOCKS, 1024, 1024, device=cuda,
+                            **kw)[name]
+        info = G.kernel_info(cp, 1024)
+        assert info["variant"] == G.variant(cp)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    # no plan runs wfac on a DIT pass's entry: the launcher refuses it
+    t1, t2 = tw.fourstep_wfac_T(T.P_469762049, 64, 32)
+    cp = C.make_colpass(T.P_469762049, 32, direction="dit", wfac=(t1, t2),
+                        wfac_pos="pre", device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        C.colpass(torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda), cp)
+    # the GL kernel takes no rank-1 operand yet: the wrapper raises
+    row, col = tw.negacyclic_psi_factors(T.GOLDILOCKS, 32, 64)
+    gcp = G.make_gl_colpass(T.GOLDILOCKS, 32, direction="dif",
+                            rank1=(row, col), rank1_pos="pre", device=cuda)
+    z = torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rank-1"):
+        G.gl_colpass((z, z), gcp)
+
+
+@pytest.mark.parametrize("field,log_n,rows_log2", [
+    (T.P_469762049, 16, 8), (T.P_2013265921, 12, 5), (T.P_998244353, 12, 7),
+    (T.KYBER, 7, 3)])
+def test_factored_plan_matches_fold(cuda, field, log_n, rows_log2):
+    cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2,
+                      negacyclic=True)
+    n1, n2 = cfg.split
+    fac = T.build_plan(cfg, device=cuda, wmat_factored=True)
+    assert fac.wmat_factored and not fac.wmat_fold
+    rng = np.random.default_rng(log_n + 1)
+    a, b = rng.integers(0, field.p, (2, 2, n1, n2))
+    x = torch.from_numpy(a.astype(np.int32)).to(cuda)
+    y = torch.from_numpy(b.astype(np.int32)).to(cuda)
+    fb = T.build_plan(cfg, device=cuda).make_batched(2)
+    gb = fac.make_batched(2)
+    before = dict(C.colpass.launches_by)
+    got = gb["negacyclic_polymul_mat"](x, y)
+    torch.cuda.synchronize()
+    by = {k: v - before.get(k, 0) for k, v in C.colpass.launches_by.items()
+          if v != before.get(k, 0)}
+    assert by == {"dif+rank1_pre+T": 2, "dif+wfac_pre": 2,
+                  "dit+wfac_post+T": 1, "dit+rank1_post": 1}
+    for r in range(2):
+        want = ref.negacyclic_polymul(a[r].ravel(), b[r].ravel(), field)
+        assert np.array_equal(got[r].reshape(-1).cpu().numpy(), want), r
+    assert torch.equal(got, fb["negacyclic_polymul_mat"](x, y))
+    assert torch.equal(gb["fwd_mat"](x), fb["fwd_mat"](x))
+    assert torch.equal(gb["inv_mat"](x.reshape(2, n2, n1)),
+                       fb["inv_mat"](x.reshape(2, n2, n1)))
+    assert torch.equal(gb["polymul_mat"](x, y), fb["polymul_mat"](x, y))
+    flat = x.reshape(2, -1)
+    assert torch.equal(gb["fwd"](flat), fb["fwd"](flat))
+    assert torch.equal(gb["negacyclic_polymul"](flat, y.reshape(2, -1)),
+                       fb["negacyclic_polymul"](flat, y.reshape(2, -1)))
+
+
+def test_gl_arms_match_fold(cuda):
+    cfg = T.NTTConfig(field=T.GOLDILOCKS, log_n=16, rows_log2=8,
+                      negacyclic=True)
+    n1, n2 = cfg.split
+    rng = np.random.default_rng(5)
+    a, b = (_gl_values(rng, (2, n1, n2)) for _ in range(2))
+    fold = T.build_plan(cfg, device=cuda).make_batched(2)
+    want = {"fwd_mat": fold["fwd_mat"](a),
+            "inv_mat": fold["inv_mat"](a.reshape(2, n2, n1)),
+            "polymul_mat": fold["polymul_mat"](a, b),
+            "negacyclic_polymul_mat": fold["negacyclic_polymul_mat"](a, b)}
+    for kw in ({"wmat_fold": False}, {"wmat_factored": True}):
+        bat = T.build_plan(cfg, device=cuda, **kw).make_batched(2)
+        assert np.array_equal(bat["fwd_mat"](a), want["fwd_mat"]), kw
+        assert np.array_equal(bat["inv_mat"](a.reshape(2, n2, n1)),
+                              want["inv_mat"]), kw
+        assert np.array_equal(bat["polymul_mat"](a, b),
+                              want["polymul_mat"]), kw
+        assert np.array_equal(bat["negacyclic_polymul_mat"](a, b),
+                              want["negacyclic_polymul_mat"]), kw
+    got = want["negacyclic_polymul_mat"][0].ravel().astype(object)
+    assert np.array_equal(got, ref.negacyclic_polymul(
+        a[0].ravel(), b[0].ravel(), T.GOLDILOCKS).astype(object))

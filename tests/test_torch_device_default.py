@@ -33,9 +33,17 @@ ENTRY_POINTS = {
                                                                device=d),
     "NTTContext": lambda d: T.NTTContext(CFG, device=d),
     "fold_passes": lambda d: fold_passes(F32, 32, 32, device=d),
+    "fold_passes_factored": lambda d: fold_passes(
+        F32, 32, 32, wmat_factored=True, negacyclic=True, device=d),
+    "build_plan_factored": lambda d: T.build_plan(CFG, device=d,
+                                                  wmat_factored=True),
+    "build_plan_goldilocks_entry": lambda d: T.build_plan(
+        GL_CFG, device=d, wmat_fold=False),
     "fused_passes": lambda d: fused_passes(F32, 32, 32, device=d),
     "gl_fold_passes": lambda d: gl_fold_passes(T.GOLDILOCKS, 32, 32,
                                                device=d),
+    "gl_fold_passes_factored": lambda d: gl_fold_passes(
+        T.GOLDILOCKS, 32, 32, wmat_factored=True, device=d),
     "make_colpass": lambda d: C.make_colpass(F32, 32, direction="dif",
                                              device=d),
     "make_gl_colpass": lambda d: G.make_gl_colpass(T.GOLDILOCKS, 32,

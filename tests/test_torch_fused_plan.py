@@ -183,9 +183,10 @@ def test_context_negacyclic_errors_match_reference():
 
 
 def test_unported_fused_configs_raise():
-    """wmat_factored stays unported (4g). The negacyclic product without
-    fused=True (4d), which raised here before, is now the fold plan's
-    (ncp1/nicp1): equal to the fused plan's."""
+    """The configurations that raised here before: the negacyclic product
+    without fused=True (4d), now the fold plan's (ncp1/nicp1), equal to the
+    fused plan's; and fused with wmat_factored=True (4g), which keeps the
+    fused kernels and records wmat_factored as the reference does."""
     _, nc = _cfgs(11, 4, negacyclic=True)
     fold = T.build_plan(nc, device="cpu")
     assert {"ncp1", "nicp1"} <= set(fold.passes)
@@ -194,5 +195,7 @@ def test_unported_fused_configs_raise():
     assert torch.equal(fold.negacyclic_polymul(a[0], b[0]), want)
     assert torch.equal(
         T.NTTContext(nc, device="cpu").negacyclic_polymul(a[0], b[0]), want)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4g"):
-        T.build_plan(nc, device="cpu", fused=True, wmat_factored=True)
+    fac = T.build_plan(nc, device="cpu", fused=True, wmat_factored=True)
+    assert set(fac.passes) == {"ff", "fi", "nf", "ni"}
+    assert (fac.wmat_factored, fac.wmat_fold) == (True, False)
+    assert torch.equal(fac.negacyclic_polymul(a[0], b[0]), want)

@@ -156,10 +156,23 @@ def test_context_serves_goldilocks(ordering):
     ({"log_n": 12, "rows_log2": 6}, {"wmat_factored": True}),
     ({"log_n": 12, "rows_log2": 6}, {"wmat_fold": False}),
 ])
-def test_goldilocks_configs_not_ported_raise(kw, build_kw):
+def test_goldilocks_arms_build(kw, build_kw):
+    """The factored and entry arms, which raised before they were
+    ported, through the context: the object-dtype oracle's transform and
+    product (tests/test_torch_gl_arms.py holds them against the fold plan
+    on every callable)."""
     cfg = T.NTTConfig(field=GL, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        T.build_plan(cfg, device="cpu", **build_kw)
+    ctx = T.NTTContext(cfg, device="cpu", **build_kw)
+    assert ctx.plan.wmat_fold is False
+    assert ctx.plan.wmat_factored == build_kw.get("wmat_factored", False)
+    rng = np.random.default_rng(cfg.log_n)
+    a, b = (rng.integers(0, 1 << 64, cfg.n, dtype=np.uint64)
+            % np.uint64(GL.p) for _ in range(2))
+    f = ctx.forward(a)
+    assert np.array_equal(f, ctx.forward_host(a).astype(np.uint64))
+    assert np.array_equal(ctx.inverse(f), a)
+    assert np.array_equal(ctx.polymul(a, b).astype(object),
+                          ref.cyclic_polymul(a, b, GL))
 
 
 @pytest.mark.parametrize("rows_log2", [None, 6])

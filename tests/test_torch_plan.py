@@ -190,14 +190,32 @@ def test_context_host_paths_match_reference(ordering):
 
 
 @pytest.mark.parametrize("kw,build_kw", [
-    ({"log_n": 11, "rows_log2": 4}, {"fused": True, "wmat_factored": True}),
-    ({"log_n": 11, "rows_log2": 4}, {"wmat_factored": True}),
     ({"log_n": 11, "table_convention": "reference"}, {}),
 ])
 def test_out_of_slice_configs_raise(kw, build_kw):
     cfg = T.NTTConfig(field=T.P_469762049, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.build_plan(cfg, device="cpu", **build_kw)
+
+
+@pytest.mark.parametrize("build_kw", [{"fused": True, "wmat_factored": True},
+                                      {"wmat_factored": True}])
+def test_factored_configs_build(build_kw):
+    """wmat_factored=True, which raised before it was ported: the
+    factored column passes, or on a fused plan its fused kernels (recorded
+    as the reference records it), with the fold plan's outputs."""
+    cfg = T.NTTConfig(field=T.P_469762049, log_n=11, rows_log2=4)
+    plan = T.build_plan(cfg, device="cpu", **build_kw)
+    assert (plan.wmat_factored, plan.wmat_fold) == (True, False)
+    fused = build_kw.get("fused", False)
+    assert (set(plan.passes) == {"ff", "fi"}) == fused
+    if not fused:
+        assert plan.passes["cp2"].wfac_pos == "pre"
+        assert plan.passes["icp2"].wfac_pos == "post"
+    a = torch.from_numpy(_inputs(11)[0][0])
+    fold = T.build_plan(cfg, device="cpu")
+    assert torch.equal(plan.fwd(a), fold.fwd(a))
+    assert torch.equal(plan.inv(plan.fwd(a)), a.to(torch.int32))
 
 
 @pytest.mark.parametrize("kw,build_kw", [

@@ -111,6 +111,54 @@ def test_negacyclic_psi_powers_match(log_n, inverse):
     assert np.array_equal(t, j)
 
 
+# (field name, n1, n2): two splits a field, Kyber's within its n <= 256
+FACTOR_SPLITS = [(name, n1, n2) for name in ("p469762049", "goldilocks")
+                 for n1, n2 in ((16, 64), (256, 32))] + [
+    ("kyber", 16, 8), ("kyber", 4, 32)]
+
+
+@pytest.mark.parametrize("name,n1,n2", FACTOR_SPLITS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fourstep_wfac_T_matches(name, n1, n2, inverse):
+    """The factored four-step tables at the default split and another,
+    with 1/n folded in for the inverse, as the plans build them."""
+    jf, tf = jF.FIELDS[name], tF.FIELDS[name]
+    n = n1 * n2
+    scale = tf.inv(n) if inverse else None
+    pows = ttw.root_powers(tf, n)
+    for split in (None, 2):
+        t = ttw.fourstep_wfac_T(tf, n1, n2, inverse=inverse, scale=scale,
+                                split=split, _pows=pows)
+        j = jtw.fourstep_wfac_T(jf, n1, n2, inverse=inverse, scale=scale,
+                                split=split)
+        for vt, vj in zip(t, j):
+            assert vt.dtype == vj.dtype
+            assert np.array_equal(vt, vj)
+    assert ttw.default_wfac_split(n2) == jtw.default_wfac_split(n2)
+    tl, jl = (m.fourstep_tables_light(f, n1, n2)
+              for m, f in ((ttw, tf), (jtw, jf)))
+    assert tl["n_inv"] == jl["n_inv"]
+    assert np.array_equal(tl["pos"], jl["pos"])
+    with pytest.raises(ValueError, match="must divide"):
+        ttw.fourstep_wfac_T(tf, n1, n2, split=3)
+
+
+@pytest.mark.parametrize("name,n1,n2", FACTOR_SPLITS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_negacyclic_psi_factors_match(name, n1, n2, inverse):
+    jf, tf = jF.FIELDS[name], tF.FIELDS[name]
+    t = ttw.negacyclic_psi_factors(tf, n1, n2, inverse=inverse)
+    j = jtw.negacyclic_psi_factors(jf, n1, n2, inverse=inverse)
+    for vt, vj in zip(t, j):
+        assert vt.dtype == vj.dtype
+        assert np.array_equal(vt, vj)
+    # the rank-1 product is the psi matrix
+    row, col = (v.astype(object) for v in t)
+    want = ttw.negacyclic_psi_powers(tf, n1 * n2, inverse=inverse)
+    assert np.array_equal((row[:, None] * col[None, :] % tf.p).ravel(),
+                          want.astype(object))
+
+
 @pytest.mark.parametrize("name", ["p469762049", "p2013265921", "goldilocks"])
 @pytest.mark.parametrize("num_shards", [1, 4])
 def test_config_split_matches(name, num_shards):

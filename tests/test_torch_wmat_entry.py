@@ -107,7 +107,8 @@ def test_entry_placement_matches_reference(name, log_n, rows_log2):
 
 def test_entry_placement_options():
     """wmat_fold=False does not apply to the fused plan or a flat split, as
-    in the reference; Goldilocks' arm and wmat_factored stay unported."""
+    in the reference; wmat_factored=True overrides it, and Goldilocks has
+    the arm too (both raised before they were ported)."""
     cfg = T.NTTConfig(field=T.P_469762049, log_n=10, rows_log2=5)
     fused = T.build_plan(cfg, device="cpu", fused=True, wmat_fold=False)
     assert set(fused.passes) == {"ff", "fi"}
@@ -117,8 +118,11 @@ def test_entry_placement_options():
     ctx = T.NTTContext(cfg, device="cpu", wmat_fold=False)
     a = np.arange(cfg.n)
     assert np.array_equal(ctx.inverse(ctx.forward(a)).numpy(), a)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4g"):
-        T.build_plan(cfg, device="cpu", wmat_factored=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4g"):
-        T.build_plan(T.NTTConfig(field=T.GOLDILOCKS, log_n=12, rows_log2=6),
-                     device="cpu", wmat_fold=False)
+    fac = T.build_plan(cfg, device="cpu", wmat_factored=True,
+                       wmat_fold=False)
+    assert (fac.wmat_factored, fac.wmat_fold) == (True, False)
+    assert fac.passes["cp2"].pre is None and fac.passes["cp2"].wfac
+    gl = T.build_plan(T.NTTConfig(field=T.GOLDILOCKS, log_n=12, rows_log2=6),
+                      device="cpu", wmat_fold=False)
+    assert (gl.wmat_factored, gl.wmat_fold) == (False, False)
+    assert gl.passes["cp2"].pre is not None
