@@ -25,13 +25,16 @@ and the column kernel's 'pre' and 'post' operands: the negacyclic
 product on the fold plan, the wmat_fold=False arm, and exact RNS products
 with the CRT combine kernel; and the column kernels' factored and rank-1
 operands: the wmat_factored=True plans (32-bit and Goldilocks) and the
-Goldilocks wmat_fold=False plan.
+Goldilocks wmat_fold=False plan; n = 2 on the flat split; the ML-KEM and
+ML-DSA rings with their serving pipelines (the FIPS layered-transform
+kernel, csrc/ring_layers.cu); and the reference-parity plan.
 Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
                  as its own line), torch and CUDA versions;
   2. build     — compiles every csrc/*.cu (colpass, gl_colpass,
-                 fused_fourstep, nested_colpass, bfly_probe; colpass and
+                 fused_fourstep, nested_colpass, bfly_probe, crt,
+                 ring_layers; colpass and
                  fused_fourstep once for each of harvey4, harvey,
                  montgomery and barrett) with nvcc into build/, one
                  process each, all at once, and times it;
@@ -154,7 +157,13 @@ Phases, one JSON object per line:
                  Goldilocks 2 / 2 / 6 / 6 and 0 / 0 / 1 / 4 pointwise
                  products; then us/NTT of each callable, of the gather
                  alone, of the internal four-step alone and of the plain
-                 stage loops at 16 rows;
+                 stage loops at 16 rows; and n = 2 (FLAT_N2: p = 469762049
+                 and Goldilocks at B = 4,096, no two-factor split: the
+                 stage loops as torch ops): fwd, inv, polymul and
+                 negacyclic_polymul batched against the native oracle on
+                 row 0 plus 8 random rows, the roundtrip, the flat
+                 callables on row 0, no column pass or fused launch
+                 (Goldilocks: 0 / 0 / 1 / 4 gl_mul);
  21. flat_route_a — route (a) of the flat forward (one column pass over
                  (1, n, B), the batch as columns, after a torch
                  transpose and before the colperm -> bit-reversal
@@ -234,6 +243,29 @@ Phases, one JSON object per line:
                  instantiation; fwd_mat of the three arms in turns, and
                  the new passes alone with their plain versions at B = 4
                  and kernel_info.
+ 29. pqc_kernel, pqc, pqc_time — the ML-KEM (q = 3329) and ML-DSA
+                 (q = 8380417) rings: the four csrc/ring_layers.cu
+                 instantiations (ML-KEM and ML-DSA forward and inverse)
+                 against their plain versions raw at B = 1, 3, 8,192 and
+                 (8, 3, 256); each scheme's make_pipeline on the card:
+                 intt(ntt(x)) == x at B = 8,192, polymul on 8 rows against
+                 the native schoolbook product, the ML-KEM-768 (A 3 x 3)
+                 and ML-DSA-65 (A 6 x 5, output (B, 6, 256)) serving
+                 steps at B = 1,024 equal to the same steps on the plain
+                 route (the CPU), A from the seeded numpy generator,
+                 launches by call (ntt 1, intt 1, polymul 2 + 1, serving
+                 step 1 + 1); us per call and polynomials per second of
+                 ntt, intt and polymul at B = 8,192 and of the serving
+                 steps at B = 1,024, each kernel alone (a CUDA graph of a
+                 chain of launches) and the plain version at B = 8,192
+                 and 64;
+ 30. reference_parity, reference_parity_time — the reference-parity plan:
+                 the paper's configuration (Kyber, n = 2048,
+                 ordering='reference', a[i] = i) equal to
+                 reference.reference_device_output and to the native
+                 network with block_permute16, and p = 469762049
+                 (harvey4) at n = 2^20 equal to the NumPy and native
+                 networks; NTTContext.forward_host equal; fwd timed.
 
 Then one line {"kernels": [...]}: per kernel its time at the main path's
 shape ("ms", per launch), launches, the plain version's time, and its
@@ -253,7 +285,11 @@ B = 16, three primes; bound by its bytes). Phases 27-28 add a
 colpass[factored:<pass>] row for each factored or rank-1 instantiation
 (harvey4, n = 2^20, B = 256) and a gl_colpass[<arm>:<pass>] row for each
 new Goldilocks one (B = 64), their bytes with their operand tables.
-Each row's launches are its own path's; the flat phases' (phases 20 and
+Phase 29 adds a ring_layers[<scheme>_<ntt|intt>] row for each of the four
+instantiations at B = 8,192: "ms" the kernel alone, "wrapper_ms" the
+pipeline's call, its launches by call, its bytes the input and output
+once, its butterflies 128 a layer a polynomial over the barrett (ML-KEM)
+or montgomery (ML-DSA) probe rate. Each row's launches are its own path's; the flat phases' (phases 20 and
 22's driven calls) are under "flat_launches". Last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
@@ -379,6 +415,22 @@ NEGA_PLANS = (("p469762049", 20, None, 256), ("p2013265921", 20, None, 64),
 # log_n held against the schoolbook integer product
 RNS_CASES = ((20, False, 16), (20, True, 16), (16, True, 64))
 RNS_EXACT_LOG_N = 10
+# n = 2 on the flat split (phase 20): the fields and the batch
+FLAT_N2 = ("p469762049", "goldilocks")
+FLAT_N2_BATCH = 4096
+# The PQC rings (phase 29): (scheme, k, l) of the serving steps (ML-KEM-768:
+# A 3 x 3; ML-DSA-65: A 6 x 5), at the reference's sizes
+# (scripts/regen_pqc_numbers.py:29-71): the transforms and the ring
+# product at PQC_BATCH, the serving steps at PQC_SERVING_BATCH; the plain
+# version also timed at PQC_PLAIN_BATCH
+PQC_SERVING = (("kyber", 3, 3), ("dilithium", 6, 5))
+PQC_BATCH = 8192
+PQC_SERVING_BATCH = 1024
+PQC_PLAIN_BATCH = 64
+# Reference parity (phase 30): (field name, log_n, ordering): the paper's
+# configuration (Kyber, n = 2048, the device's 16-block layout) and
+# harvey4 at n = 2^20
+PARITY_CASES = (("kyber", 11, "reference"), ("p469762049", 20, "bitrev"))
 
 
 def emit(obj) -> None:
@@ -440,6 +492,11 @@ def main() -> int:
     F._library()
     N._library()
     RL._library()
+    from ntt_aie_tpu_torch import dilithium, kyber
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+
+    for scheme in (kyber.SCHEME, dilithium.SCHEME):
+        LR.check_constants(scheme)
     emit({"phase": "build", "ok": True,
           "seconds": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values())})
@@ -626,6 +683,13 @@ def main() -> int:
     if got is None:
         return 1
     gl_arm_launches, gl_arm_time = got
+    torch.cuda.empty_cache()
+    pqc_rows = pqc_phases(args, dev, card, rng)
+    if pqc_rows is None:
+        return 1
+    torch.cuda.empty_cache()
+    if reference_parity_phase(args, dev, card, rng) is None:
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -659,6 +723,7 @@ def main() -> int:
         "bytes": crt_row["bytes"], "butterflies": 0,
         "coefficients": crt_row["count"], "primes": crt_row["k"],
         "nwords": crt_row["nwords"]})
+    rows += pqc_rows
     # each row's launches are its own path's; the flat phases' apart
     for row in rows:
         row["flat_launches"] = flat_launches.get(row["name"], 0)
@@ -2013,6 +2078,11 @@ def flat_phases(args, dev, card, rng):
         for row, count in got[0].items():
             launches[row] = launches.get(row, 0) + count
         torch.cuda.empty_cache()
+    got = flat_n2_phase(dev, gen, rng)
+    if got is None:
+        return None
+    for row, count in got.items():
+        launches[row] = launches.get(row, 0) + count
     for spec in FLAT_ROUTE_A:
         if not flat_route_a(spec, dev, card, gen):
             return None
@@ -2847,6 +2917,347 @@ def rns_phase(args, dev, card, rng):
             return None
     row["max_abs_err"] = max_err
     return row
+
+
+def _graph_us(fn, x, *, chain=20, repeats=5):
+    """us per call of fn in a dependent chain of `chain` calls captured in
+    one CUDA graph and replayed between CUDA events, `repeats` times,
+    trimmed mean: the device's time without the host's cost of each
+    launch (the kernel alone)."""
+    import numpy as np
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x
+        for _ in range(chain):
+            y = fn(y)
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) * 1e3 / chain)
+    del graph
+    return float(np.mean(sorted(runs)[1:-1]))
+
+
+def pqc_phases(args, dev, card, rng):
+    """Phase 29: the ML-KEM and ML-DSA rings. pqc_kernel: each of the four
+    ring_layers instantiations against its plain version raw at B = 1, 3,
+    PQC_BATCH and (8, 3, 256); pqc: each scheme's pipeline on the card
+    (the main path, counters set to 0 just before and read just after):
+    ntt and intt at PQC_BATCH (the FIPS roundtrip), polymul on 8 rows
+    against the native schoolbook product, the serving step of
+    PQC_SERVING at PQC_SERVING_BATCH against the same step on the plain
+    route (the CPU), launches by call; pqc_time: us per call and
+    polynomials per second of ntt, intt, polymul (PQC_BATCH) and the
+    serving step (PQC_SERVING_BATCH; ML-DSA's output cut to l rows for
+    the chain), each kernel alone (a CUDA graph of a dependent chain) and
+    the plain version at PQC_BATCH and PQC_PLAIN_BATCH. Returns the
+    kernels-line rows, or None after emitting the failure."""
+    import numpy as np
+    import torch
+
+    from ntt_aie_tpu_torch import dilithium, kyber, native_oracle
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 29)
+    mods = {"kyber": kyber, "dilithium": dilithium}
+    errs = {}
+    for name, mod in mods.items():
+        sch = mod.SCHEME
+        for inverse in (False, True):
+            key = f"{name}_{'intt' if inverse else 'ntt'}"
+            errs[key] = 0
+            for shape in ((1, 256), (3, 256), (PQC_BATCH, 256), (8, 3, 256)):
+                x = torch.randint(0, sch.q, shape, dtype=torch.int32,
+                                  device=dev, generator=gen)
+                got = LR.layered(x, sch, inverse=inverse)
+                torch.cuda.synchronize()
+                want = LR.layered_plain(x, sch, inverse=inverse)
+                err = int((got.long() - want.long()).abs().max())
+                errs[key] = max(errs[key], err)
+                equal = bool(torch.equal(got, want))
+                emit({"phase": "pqc_kernel", "kernel": key,
+                      "shape": list(shape), "equal": equal,
+                      "max_abs_err": err})
+                if not equal:
+                    fail("pqc_kernel", f"{key} {shape} differs from its "
+                         "plain version")
+                    return None
+
+    rows = []
+    for name, k, l in PQC_SERVING:
+        mod, sch = mods[name], mods[name].SCHEME
+        q, B, Bs = sch.q, PQC_BATCH, PQC_SERVING_BATCH
+        pipe = mod.make_pipeline(device=dev)
+        plain = mod.make_pipeline(device="cpu")
+        x, b = (torch.from_numpy(rng.integers(0, q, (B, 256))).to(dev)
+                .to(torch.int32) for _ in range(2))
+        a8, b8 = rng.integers(0, q, (2, 8, 256))
+        A = rng.integers(0, q, (k, l, 256))
+        xs = rng.integers(0, q, (Bs, l, 256))
+        by = {}
+
+        def drive(call, fn, *operands):
+            LR.layered.launches_by = {}
+            out = fn(*operands)
+            torch.cuda.synchronize()
+            by[call] = dict(LR.layered.launches_by)
+            return out
+
+        LR.layered.launches = 0
+        y = drive("ntt", pipe["ntt"], x)
+        back = drive("intt", pipe["intt"], y)
+        c8 = drive("polymul", pipe["polymul"], a8, b8)
+        A_hat = drive("ntt_A", pipe["ntt"], A)
+        step = pipe["make_serving_step"](A_hat)
+        out = drive("serving_step", step, xs)
+        total = LR.layered.launches
+        fwd, inv = f"{name}_ntt", f"{name}_intt"
+        want_by = {"ntt": {fwd: 1}, "intt": {inv: 1},
+                   "polymul": {fwd: 2, inv: 1}, "ntt_A": {fwd: 1},
+                   "serving_step": {fwd: 1, inv: 1}}
+        want_out = plain["make_serving_step"](plain["ntt"](A))(xs)
+        checks = {
+            "roundtrip": bool(torch.equal(back, x)),
+            "polymul_schoolbook": all(
+                np.array_equal(c8[r].cpu().numpy().astype(np.uint64),
+                               native_oracle.schoolbook_negacyclic(
+                                   a8[r], b8[r], q))
+                for r in range(8)),
+            "serving_shape": tuple(out.shape) == (Bs, k, 256),
+            "serving_equals_plain": bool(torch.equal(out.cpu(), want_out)),
+            "A_hat_equals_plain": bool(torch.equal(A_hat.cpu(),
+                                                   plain["ntt"](A))),
+            "launches": by == want_by,
+        }
+        ok = all(checks.values())
+        emit({"phase": "pqc", "scheme": name, "q": q, "batch": B,
+              "serving": {"k": k, "l": l, "batch": Bs},
+              "oracle": "native schoolbook", "checks": checks,
+              "launches_by_call": by, "launches": total, "ok": ok})
+        if not ok:
+            fail("pqc", f"the {name} pipeline disagrees with its oracles or "
+                 "did not launch as expected")
+            return None
+        del y, back, out
+
+        # timing: the pipeline's calls (wrapper and kernels), the kernels
+        # alone, the plain version
+        us = {"ntt": time_device(pipe["ntt"], x)["us_per_iter"],
+              "intt": time_device(pipe["intt"], x)["us_per_iter"],
+              "polymul": time_device(lambda v: pipe["polymul"](v, b),
+                                     x)["us_per_iter"]}
+        xs_dev = torch.from_numpy(xs).to(dev).to(torch.int32)
+        us["serving_step"] = time_device(lambda v: step(v)[:, :l], xs_dev,
+                                         iters=20, repeats=3)["us_per_iter"]
+        kernel_us, plain_us, small_us = {}, {}, {}
+        xp = x[:PQC_PLAIN_BATCH]
+        for inverse in (False, True):
+            key = inv if inverse else fwd
+            kernel_us[key] = _graph_us(
+                lambda v, i=inverse: LR.layered(v, sch, inverse=i), x)
+            plain_us[key] = time_device(
+                lambda v, i=inverse: LR.layered_plain(v, sch, inverse=i), x,
+                iters=2, repeats=3)["us_per_iter"]
+            small_us[key] = time_device(
+                lambda v, i=inverse: LR.layered_plain(v, sch, inverse=i), xp,
+                iters=2, repeats=3)["us_per_iter"]
+        per_s = {c: (Bs if c == "serving_step" else B) / (t * 1e-6)
+                 for c, t in us.items()}
+        emit({"phase": "pqc_time", "scheme": name, "card": card,
+              "batch": B, "serving_batch": Bs, "us_per_call": us,
+              "polys_per_s": per_s, "kernel_alone_us": kernel_us,
+              "plain_us": plain_us, "plain_small_batch": PQC_PLAIN_BATCH,
+              "plain_small_us": small_us,
+              "method": "CUDA events; calls: 5 repeats of a dependent "
+                        "chain of 10 (serving step: 3 of 20), trimmed "
+                        "mean; polymul(x, b); serving step x -> "
+                        "step(x)[:, :l]; polys_per_s = batch / us per "
+                        "call (the serving step: vectors); kernel alone: "
+                        "a CUDA graph of a chain of 20 launches, 5 "
+                        "replays, trimmed mean; plain: 3 of 2"})
+        for key in (fwd, inv):
+            rows.append({
+                "name": f"ring_layers[{key}]", "route": "cuda",
+                "source": "ntt_aie_tpu_torch/csrc/ring_layers.cu",
+                "replaces": "ntt_aie_tpu/ring_layers.py:49 (XLA, a helper "
+                            "kernel)",
+                "launches": sum(v.get(key, 0) for v in by.values()),
+                "launches_by_call": {c: v.get(key, 0) for c, v in by.items()},
+                "max_abs_err": errs[key], "ms": kernel_us[key] / 1e3,
+                "wrapper_ms": us["ntt" if key == fwd else "intt"] / 1e3,
+                "plain_ms": plain_us[key] / 1e3, "batch": B,
+                "plain_batch": B, "bytes": B * 256 * 4 * 2,
+                "butterflies": B * 128 * sch.n_layers,
+                "arithmetic": "barrett" if name == "kyber" else "montgomery"})
+        del pipe, x, b, xs_dev
+        torch.cuda.empty_cache()
+    return rows
+
+
+def reference_parity_phase(args, dev, card, rng):
+    """Phase 30: the reference-parity plan (PARITY_CASES) on the card: the
+    paper's configuration (Kyber, n = 2048, ordering='reference', a[i] =
+    i) against reference.reference_device_output and the native network
+    with block_permute16, and p = 469762049 (harvey4) at n = 2^20 against
+    the NumPy and native networks; NTTContext.forward_host against the
+    same; fwd timed. Returns True, or None after emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle, reference
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    for name, log_n, ordering in PARITY_CASES:
+        field = T.FIELDS[name]
+        p, n = field.p, 1 << log_n
+        cfg = T.NTTConfig(field=field, log_n=log_n,
+                          table_convention="reference", ordering=ordering)
+        plan = T.build_plan(cfg, device=dev)
+        a = np.arange(n) if name == "kyber" else rng.integers(0, p, n)
+        x = torch.from_numpy(a).to(dev)
+        got = plan.fwd(x).cpu().numpy().astype(np.int64)
+        want = reference.reference_network(a, tw.power_table(field, n), p)
+        native = native_oracle.reference_network(
+            a, native_oracle.make_power_table(n, p, field.g), p)
+        if ordering == "reference":
+            want = reference.block_permute(want)
+            native = native_oracle.block_permute16(native)
+        checks = {"numpy": bool(np.array_equal(got, want)),
+                  "native": bool(np.array_equal(got, native)),
+                  "forward_host": bool(np.array_equal(
+                      T.NTTContext(cfg, device=dev).forward_host(a), got))}
+        if name == "kyber":
+            checks["reference_device_output"] = bool(np.array_equal(
+                got, reference.reference_device_output(a, field, n)))
+        ok = all(checks.values())
+        emit({"phase": "reference_parity", "field": name, "p": p, "n": n,
+              "ordering": ordering, "reduction": plan.reduction,
+              "input": "a[i] = i" if name == "kyber" else "random",
+              "checks": checks, "ok": ok})
+        if not ok:
+            fail("reference_parity", f"the {name} n = 2^{log_n} parity plan "
+                 "differs from the reference network")
+            return None
+        xi = x.to(torch.int32)
+        emit({"phase": "reference_parity_time", "field": name, "n": n,
+              "card": card, "reduction": plan.reduction,
+              "fwd_us_per_call": time_device(plan.fwd, xi)["us_per_iter"],
+              "method": "CUDA events; 5 repeats of a dependent chain of 10, "
+                        "trimmed mean; torch ops, no kernel of the port"})
+        del plan, x, xi
+        torch.cuda.empty_cache()
+    return True
+
+
+def flat_n2_phase(dev, gen, rng):
+    """Phase 20, n = 2 (FLAT_N2): the flat plan of n = 2 (the stage loops
+    as torch ops) over p = 469762049 and Goldilocks at FLAT_N2_BATCH:
+    fwd, inv (the roundtrip), polymul and negacyclic_polymul through
+    make_batched against the native oracle on row 0 plus 8 random rows,
+    and the flat callables on row 0; launches (no column pass or fused
+    transform; Goldilocks' products gl_mul). Returns {kernel row:
+    launches}, or None after emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+
+    launches = {}
+    B = FLAT_N2_BATCH
+    for name in FLAT_N2:
+        field = T.FIELDS[name]
+        p, gl = field.p, field.is_goldilocks
+        rows_u64, same, _, _ = _flat_ops(gl)
+        plan = T.build_plan(T.NTTConfig(field=field, log_n=1,
+                                        negacyclic=True), device=dev)
+        bat = plan.make_batched(B)
+        if gl:
+            x, y = (M.gl_from_u64(rng.integers(0, 1 << 64, (B, 2),
+                                               dtype=np.uint64)
+                                  % np.uint64(p), dev) for _ in range(2))
+        else:
+            x, y = (torch.randint(0, p, (B, 2), dtype=torch.int32,
+                                  device=dev, generator=gen)
+                    for _ in range(2))
+        counters = (C.colpass, F.fused_fourstep, G.gl_colpass, G.gl_mul)
+        by = {}
+
+        def drive(call, fn, *operands):
+            for c in counters:
+                c.launches = 0
+            out = fn(*operands)
+            torch.cuda.synchronize()
+            by[call] = [c.launches for c in counters]
+            return out
+
+        gate = np.concatenate([[0], rng.choice(np.arange(1, B), size=8,
+                                               replace=False)])
+        gidx = torch.from_numpy(gate).to(dev)
+        xin, yin = rows_u64(x, gidx), rows_u64(y, gidx)
+        omega, psi = field.root_of_unity(2), field.root_of_unity(4)
+        f = drive("fwd", bat["fwd"], x)
+        back = drive("inv", bat["inv"], f)
+        c = drive("polymul", bat["polymul"], x, y)
+        d = drive("negacyclic_polymul", bat["negacyclic_polymul"], x, y)
+        want_f = native_oracle.ntt_dif_batch(xin, omega, p)
+        u0, v0 = ((r[0] if gl else r[0].astype(np.int64)) for r in (xin, yin))
+        host = (lambda v: np.asarray(v if gl else v.cpu().numpy())
+                .astype(np.uint64))
+        checks = {
+            "fwd": np.array_equal(rows_u64(f, gidx), want_f),
+            "roundtrip": same(back, x),
+            "polymul": all(np.array_equal(r, native_oracle.cyclic_polymul(
+                u, v, omega, p)) for r, u, v in zip(rows_u64(c, gidx), xin,
+                                                    yin)),
+            "negacyclic_polymul": all(
+                np.array_equal(r, native_oracle.negacyclic_polymul(
+                    u, v, psi, p))
+                for r, u, v in zip(rows_u64(d, gidx), xin, yin)),
+            "flat": (np.array_equal(host(plan.fwd(u0)), want_f[0])
+                     and np.array_equal(
+                         host(plan.negacyclic_polymul(u0, v0)),
+                         native_oracle.negacyclic_polymul(xin[0], yin[0],
+                                                          psi, p))),
+        }
+        gl_mul = {"fwd": 0, "inv": 0, "polymul": 1, "negacyclic_polymul": 4}
+        want = {k: [0, 0, 0, v if gl else 0] for k, v in gl_mul.items()}
+        checks["launches"] = by == want
+        checks = {k: bool(v) for k, v in checks.items()}
+        ok = all(checks.values())
+        emit({"phase": "flat", "flat": "n2", "field": name, "p": p, "n": 2,
+              "batch": B, "route": "stage loops (torch ops)",
+              "oracle": "native", "gate_rows": gate.tolist(),
+              "checks": checks, "launches": by, "ok": ok})
+        if not ok:
+            fail("flat", f"n = 2 over {name}: the flat plan disagrees with "
+                 "the native oracle or launched a kernel it should not")
+            return None
+        if gl:
+            launches["gl_mul"] = launches.get("gl_mul", 0) + sum(
+                v[3] for v in by.values())
+    return launches
 
 
 if __name__ == "__main__":

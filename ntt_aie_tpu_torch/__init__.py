@@ -25,6 +25,16 @@ device:
   word primes, recombined by ``make_crt_combine`` (``ops/crt.py``, the
   CUDA kernel ``csrc/crt.cu``) into uint32 limbs, ``limbs_to_int`` on
   the host;
+- n = 2 on the flat split (``plan.flat_n2_plan``: its one butterfly as
+  torch ops, as the reference's flat stage loops) and the reference-parity
+  convention (``NTTConfig(table_convention='reference')``: the reference
+  device's network and 16-block layout, ``ops.stages
+  .reference_network_stages``);
+- the FIPS 203/204 rings: ML-KEM (``kyber``) and ML-DSA (``dilithium``)
+  transforms, products, module-lattice matvec and serving pipelines
+  (``make_pipeline``), their layered transforms one launch of
+  ``csrc/ring_layers.cu`` each (``ops/ring_layers.py``; the plain version
+  ``ring_layers.layered_fwd``/``layered_inv``);
 - the round-4 nested R x S column pass (``ops/nested_colpass.py``,
   ``csrc/nested_colpass.cu``, run by ``scripts/proto_nested_colpass.py``)
   and the roofline probes (``profiling/roofline.py``,
@@ -49,3 +59,4 @@ from ntt_aie_tpu_torch.goldilocks_plan import build_goldilocks_plan  # noqa: F40
 from ntt_aie_tpu_torch.api import NTTContext  # noqa: F401
 from ntt_aie_tpu_torch.rns import RNSPolymul  # noqa: F401
 from ntt_aie_tpu_torch.ops.crt import limbs_to_int, make_crt_combine  # noqa: F401
+from ntt_aie_tpu_torch import dilithium, kyber, ring_layers  # noqa: F401

@@ -12,7 +12,7 @@ import numpy as np
 from ntt_aie_tpu_torch import reference as ref
 from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.config import NTTConfig
-from ntt_aie_tpu_torch.plan import ITEM_DISTRIBUTED, ITEM_REFERENCE_PARITY
+from ntt_aie_tpu_torch.plan import ITEM_DISTRIBUTED
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
@@ -29,7 +29,9 @@ class NTTContext:
     and nicp1 carry psi^i and psi^-i as 'pre' and 'post' operands).
     A flat configuration (split (n, 1), the default up to n = 2^16, 2^14
     for Goldilocks) has forward/inverse/polymul/negacyclic_polymul and no
-    matrix-form callables, as the reference's.
+    matrix-form callables, as the reference's. The reference-parity
+    convention (table_convention='reference') has forward and
+    forward_host only: the reference device's network is not a DFT.
 
     Plan keyword arguments (fused, wmat_factored, wmat_fold) forward to
     build_plan, for the 32-bit plans and Goldilocks alike (wmat_fold=False:
@@ -67,17 +69,19 @@ class NTTContext:
 
     # ---- host oracle paths (NumPy, any machine) ----
 
-    def _standard(self):
-        if self.config.table_convention == "reference":
-            raise NotImplementedError(
-                "the reference-parity convention is not ported yet: "
-                f"ROADMAP.md {ITEM_REFERENCE_PARITY}")
-        return self.config
-
     def forward_host(self, a) -> np.ndarray:
         """NumPy forward transform in the plan's output order: natural for
-        ordering='natural', else the four-step spectral order."""
-        cfg = self._standard()
+        ordering='natural', else the four-step spectral order; under the
+        reference-parity convention the reference device's network with
+        the natural-order power table, its blocks placed as the device
+        places them with ordering='reference'."""
+        cfg = self.config
+        if cfg.table_convention == "reference":
+            out = ref.reference_network(
+                a, tw.power_table(cfg.field, cfg.n), cfg.field.p)
+            if cfg.ordering == "reference":
+                out = ref.block_permute(out)
+            return out
         natural = ref.ntt_forward(np.asarray(a), cfg.field)
         if cfg.ordering == "natural":
             return natural
@@ -86,7 +90,11 @@ class NTTContext:
         return out
 
     def inverse_host(self, a) -> np.ndarray:
-        cfg = self._standard()
+        cfg = self.config
+        if cfg.table_convention == "reference":
+            raise NotImplementedError(
+                "reference table convention has no inverse (not a DFT; "
+                "SURVEY.md §0)")
         a = np.asarray(a)
         if cfg.ordering != "natural":
             a = a[tw.spectral_positions(*cfg.split)]  # -> natural order

@@ -36,8 +36,8 @@ from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.gl_colpass import gl_mul, make_gl_colpass
 from ntt_aie_tpu_torch.plan import (ITEM_DISTRIBUTED, Plan, _not_ported,
-                                    flat_inner_split, public_order,
-                                    wfac_tables)
+                                    flat_inner_split, flat_n2_plan,
+                                    public_order, wfac_tables)
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
@@ -82,48 +82,11 @@ def gl_fold_passes(field, n1: int, n2: int, *, wmat_fold: bool = True,
     }
 
 
-def build_goldilocks_plan(config: NTTConfig, *, device=None,
-                          wmat_fold: bool | None = None,
-                          wmat_factored: bool | None = None) -> Plan:
-    """Build the Goldilocks plan of `config` on `device`: the four-step
-    plan (the fold arm; wmat_fold=False, the four-step multiply at the
-    second passes' entry; wmat_factored=True, from the factored tables:
-    gl_fold_passes), or for a flat configuration (config.split = (n, 1),
-    the default up to n = 2^14) the fold arm's column passes at the
-    internal split plan.flat_inner_split(log_n, goldilocks=True) with
-    their spectrum gathered into bit-reversed order, and the reference's
-    flat callables (no matrix-form twins; wmat_fold and wmat_factored do
-    not apply). Plan.wmat_fold and Plan.wmat_factored record the arm
-    built.
-
-    With NTTConfig(negacyclic=True), at every split, negacyclic_polymul
-    is the reference's (goldilocks_plan.py:414-424, :508-568): gl_mul by
-    psi^i on each operand, the cyclic product, gl_mul by psi^-i; psi and
-    psi^-i are held once and broadcast over a batch.
-
-    Tables are prepared once here, on the plan's device (None: the card,
-    RuntimeError without one). The distributed plan raises
-    NotImplementedError naming the ROADMAP.md item that ports it.
-    """
-    field = config.field
-    if not field.is_goldilocks:
-        raise ValueError(f"the Goldilocks plan needs p = 2^64 - 2^32 + 1, "
-                         f"got p={field.p}")
-    flat = config.split[1] == 1
-    if config.num_shards != 1:
-        _not_ported("the distributed plan", ITEM_DISTRIBUTED)
-    # the arm built, as the reference records it (its goldilocks_plan.py
-    # :200-203)
-    wfac_on = bool(wmat_factored) and not flat
-    fold_on = flat or (wmat_fold is not False and not wfac_on)
-
-    device = resolve_device(device)
-    n = config.n
-    n1, n2 = (flat_inner_split(config.log_n, goldilocks=True) if flat
-              else config.split)
-    passes = gl_fold_passes(field, n1, n2, wmat_fold=fold_on,
-                            wmat_factored=wfac_on, device=device)
-    cp1, cp2, icp2, icp1 = (passes[k] for k in ("cp1", "cp2", "icp2", "icp1"))
+def value_io(device) -> tuple:
+    """(wrap1, wrap2): wrappers of one- and two-operand callables on (hi,
+    lo) planes that take the plan's value interface on `device`: a (hi,
+    lo) tuple of int32 tensors (moved to the device, a tuple back) or a
+    NumPy uint64 array (split on the host, joined back)."""
 
     def to_planes(x):
         """(hi, lo) tuple or uint64 array -> ((hi, lo) on device, as_u64)."""
@@ -153,6 +116,57 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
             return M.gl_to_u64(*out) if as_u64 else out
 
         return call
+
+    return wrap1, wrap2
+
+
+def build_goldilocks_plan(config: NTTConfig, *, device=None,
+                          wmat_fold: bool | None = None,
+                          wmat_factored: bool | None = None) -> Plan:
+    """Build the Goldilocks plan of `config` on `device`: the four-step
+    plan (the fold arm; wmat_fold=False, the four-step multiply at the
+    second passes' entry; wmat_factored=True, from the factored tables:
+    gl_fold_passes), or for a flat configuration (config.split = (n, 1),
+    the default up to n = 2^14) the fold arm's column passes at the
+    internal split plan.flat_inner_split(log_n, goldilocks=True) with
+    their spectrum gathered into bit-reversed order, and the reference's
+    flat callables (no matrix-form twins; wmat_fold and wmat_factored do
+    not apply). Plan.wmat_fold and Plan.wmat_factored record the arm
+    built. n = 2 has no two-factor split: its flat plan is
+    plan.flat_n2_plan (the stage loops as torch ops, gl_mul the product).
+
+    With NTTConfig(negacyclic=True), at every split, negacyclic_polymul
+    is the reference's (goldilocks_plan.py:414-424, :508-568): gl_mul by
+    psi^i on each operand, the cyclic product, gl_mul by psi^-i; psi and
+    psi^-i are held once and broadcast over a batch.
+
+    Tables are prepared once here, on the plan's device (None: the card,
+    RuntimeError without one). The distributed plan raises
+    NotImplementedError naming the ROADMAP.md item that ports it.
+    """
+    field = config.field
+    if not field.is_goldilocks:
+        raise ValueError(f"the Goldilocks plan needs p = 2^64 - 2^32 + 1, "
+                         f"got p={field.p}")
+    flat = config.split[1] == 1
+    if config.num_shards != 1:
+        _not_ported("the distributed plan", ITEM_DISTRIBUTED)
+    # the arm built, as the reference records it (its goldilocks_plan.py
+    # :200-203)
+    wfac_on = bool(wmat_factored) and not flat
+    fold_on = flat or (wmat_fold is not False and not wfac_on)
+
+    device = resolve_device(device)
+    n = config.n
+    wrap1, wrap2 = value_io(device)
+    if flat and n == 2:
+        return flat_n2_plan(config, "goldilocks", device, wrap1=wrap1,
+                            wrap2=wrap2)
+    n1, n2 = (flat_inner_split(config.log_n, goldilocks=True) if flat
+              else config.split)
+    passes = gl_fold_passes(field, n1, n2, wmat_fold=fold_on,
+                            wmat_factored=wfac_on, device=device)
+    cp1, cp2, icp2, icp1 = (passes[k] for k in ("cp1", "cp2", "icp2", "icp1"))
 
     def reshape(hl, shape):
         return tuple(v.reshape(shape) for v in hl)

@@ -1,8 +1,10 @@
 """ctypes binding to the native C++ golden oracle (native/oracle.cc).
 
 A jax-free twin of ``ntt_aie_tpu.native_oracle`` for the entry points the
-port's gates use: the batched forward DIF and the cyclic and negacyclic
-products. The
+port's gates use: the batched forward DIF, the cyclic and negacyclic
+products, the O(n^2) schoolbook negacyclic product (the gate of the
+ML-KEM ring, which has no 2n-th root), and the reference device's
+network, power table and 16-block placement (the parity gate). The
 library builds on demand with ``make -C native`` (g++ only, no deps).
 """
 
@@ -39,6 +41,13 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_LIB_PATH))
     u64, i64 = ctypes.c_uint64, ctypes.c_int64
     pu64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    pi64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.ntt_reference_network.restype = None
+    lib.ntt_reference_network.argtypes = [pi64, i64, pi64, i64, i64]
+    lib.ntt_make_power_table.restype = None
+    lib.ntt_make_power_table.argtypes = [pi64, i64, i64, i64]
+    lib.ntt_block_permute16.restype = None
+    lib.ntt_block_permute16.argtypes = [pi64, pi64, i64]
     lib.ntt_dif_u64_batch.restype = None
     lib.ntt_dif_u64_batch.argtypes = [pu64, i64, i64, u64, u64]
     lib.ntt_cyclic_polymul_u64.restype = None
@@ -46,7 +55,51 @@ def load() -> ctypes.CDLL:
     lib.ntt_negacyclic_polymul_u64.restype = None
     lib.ntt_negacyclic_polymul_u64.argtypes = [pu64, pu64, pu64, i64, u64,
                                                u64]
+    lib.ntt_schoolbook_negacyclic_u64.restype = None
+    lib.ntt_schoolbook_negacyclic_u64.argtypes = [pu64, pu64, pu64, i64, u64]
     return lib
+
+
+def reference_network(a, table, p: int,
+                      stages: int | None = None) -> np.ndarray:
+    """The reference device's butterfly network (increasing stride, GS
+    butterflies against table[h+i]) on a length-n vector; stages: run
+    stages 0..stages inclusive, None full depth."""
+    lib = load()
+    a = np.ascontiguousarray(a, dtype=np.int64).copy()
+    table = np.ascontiguousarray(table, dtype=np.int64)
+    lib.ntt_reference_network(a, len(a), table, p,
+                              len(a) if stages is None else stages)
+    return a
+
+
+def make_power_table(n: int, p: int, g: int) -> np.ndarray:
+    """t[i] = w^i with w = g^((p-1)/n), floor division (the reference
+    device's make_roots)."""
+    lib = load()
+    out = np.empty(n, dtype=np.int64)
+    lib.ntt_make_power_table(out, n, p, g)
+    return out
+
+
+def block_permute16(a) -> np.ndarray:
+    """The reference device's 16-block output placement."""
+    lib = load()
+    a = np.ascontiguousarray(a, dtype=np.int64)
+    out = np.empty_like(a)
+    lib.ntt_block_permute16(a, out, len(a))
+    return out
+
+
+def schoolbook_negacyclic(a, b, p: int) -> np.ndarray:
+    """The O(n^2) schoolbook product mod (X^n + 1, p): no NTT on the
+    oracle's path."""
+    lib = load()
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    b = np.ascontiguousarray(b, dtype=np.uint64)
+    c = np.empty_like(a)
+    lib.ntt_schoolbook_negacyclic_u64(a, b, c, len(a), p)
+    return c
 
 
 def ntt_dif_batch(a, omega: int, p: int) -> np.ndarray:

@@ -9,14 +9,19 @@ being independent transforms, with the stage twiddles packed as
 ``twiddles.pack_stage_twiddles`` packs them, and returns the reference's
 values bit for bit, lazy domain included.
 
+``reference_network_stages`` is the reference-parity network
+(``plan.build_plan`` with table_convention='reference' runs it; no kernel
+exists for it in the reference either).
+
 ``FlatStages`` (``make_flat_stages``) is the reference's flat plan
 (``ntt_aie_tpu/plan.py:582-655``, its Goldilocks twin ``:353-388``) on a
 (B, n) batch: the batch transposed onto the columns, DIF forward
 (natural in, bit-reversed out), DIT inverse with the 1/n scale, canonical
 outputs. It is the plain version of the flat transform, the oracle that
 the flat plans' card route (``plan.build_plan`` at n2 = 1: the four-step
-kernels at an internal split, then one gather) is held against; no plan
-runs it.
+kernels at an internal split, then one gather) is held against; only
+n = 2, which has no two-factor split, runs it as its plan
+(``plan.flat_n2_plan``), on either device.
 """
 
 from __future__ import annotations
@@ -67,6 +72,29 @@ def dit_stages(x: torch.Tensor, tw_packed: tuple,
         x = torch.stack((red.add(u, wv), red.sub(u, wv)),
                         dim=1).reshape(n, c)
     return x
+
+
+def reference_network_stages(x: torch.Tensor, table: tuple, red: Reduction,
+                             stages: int | None = None) -> torch.Tensor:
+    """The reference device's network (its src/test.cpp:34-60) on a flat
+    (n,) carrier: increasing stride t = 2^s, stage s pairing (j, j + t)
+    in each of h = n >> (s+1) groups, group i's butterfly (u + v,
+    (u - v) * table[h + i]) in the reduction's domain. table: the
+    reduction's tables of the length-n table, (n,) carriers. stages: run
+    stages 0..stages inclusive; None is full depth. Canonical output.
+    Twin of the reference's ``reference_network_stages`` (its
+    ``ops/stages.py:73-92``)."""
+    n = x.shape[0]
+    for s in range(n.bit_length() - 1):
+        t, h = 1 << s, n >> (s + 1)
+        xr = x.reshape(h, 2, t)
+        u, v = xr[:, 0], xr[:, 1]
+        roots = tuple(tp[h:2 * h].reshape(h, 1) for tp in table)
+        x = torch.stack((red.add(u, v), red.mul_const(red.sub(u, v), *roots)),
+                        dim=1).reshape(n)
+        if stages is not None and s == stages:
+            break
+    return red.canonicalize(x)
 
 
 def gl_dif_stages(h: torch.Tensor, l: torch.Tensor, twh: torch.Tensor,

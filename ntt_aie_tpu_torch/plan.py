@@ -49,6 +49,18 @@ reference's montgomery product is one REDC, which leaves an R^-1 that its
 polymul inverse takes back with iwmat_poly; the canonical outputs are the
 same.)
 
+n = 2 on the flat split has no two-factor split: its plan
+(``flat_n2_plan``) runs the one butterfly as torch ops (``ops.stages``
+``FlatStages``), as the reference's flat path runs it under XLA, with the
+same callables.
+
+The reference-parity convention (``table_convention='reference'``,
+``_build_reference_plan``) runs the reference device's own network
+(``ops.stages.reference_network_stages``: the natural-order power table,
+increasing stride; not a DFT) as torch ops, as the reference runs it
+under XLA, and with ``ordering='reference'`` places its 16 blocks as the
+device's swap network does. It has a forward transform only.
+
 Public tensors are ``torch.int32`` holding values in [0, p). Goldilocks
 configurations route to ``goldilocks_plan.build_goldilocks_plan``, which
 returns the same ``Plan`` over (hi, lo) limb planes.
@@ -62,9 +74,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ntt_aie_tpu_torch import reference as ref
 from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
+from ntt_aie_tpu_torch.ops import stages as S
 from ntt_aie_tpu_torch.ops.colpass import make_colpass
 from ntt_aie_tpu_torch.ops.fused_fourstep import make_fused_fourstep
 from ntt_aie_tpu_torch.ops.reductions import make_reduction, resolve_kind
@@ -82,10 +96,12 @@ class Plan:
     negacyclic_polymul (flat) and negacyclic_polymul_mat (matrix form)
     exist with NTTConfig(negacyclic=True), else None. A flat plan (split
     (n, 1)) has no matrix-form callables. make_batched(B) returns the same
-    callables over a leading batch axis. passes holds the four column
+    callables over a leading batch axis (a reference-parity plan has
+    none, and raises). passes holds the four column
     passes (cp1, cp2, icp2, icp1), or on a fused plan the fused transforms
     (ff, fi), of the four-step split the plan runs (for a flat plan, the
-    internal one, ``flat_inner_split``), and for negacyclic the column
+    internal one, ``flat_inner_split``; at n = 2 the stage loops,
+    "stages"), and for negacyclic the column
     passes ncp1, nicp1 of a four-step fold plan, or the fused nf, ni (on a
     flat fold plan at the fused plan's internal split). wmat_factored and
     wmat_fold record the arm that was built, as the reference's Plan
@@ -116,15 +132,13 @@ class Plan:
 
     def make_batched(self, batch: int) -> dict:
         if batch not in self._batched_cache:
+            if self._batched_builder is None:
+                raise NotImplementedError("no batched path for this plan")
             self._batched_cache[batch] = self._batched_builder(batch)
         return self._batched_cache[batch]
 
 
-# ROADMAP.md Queue 1 items that port what a plan does not have yet, by
-# label and title (queue numbers move when the roadmap is re-anchored;
-# the labels 4d-4j do not)
-ITEM_FLAT_N2 = "Queue 1 item 4h: n = 2 on the flat split"
-ITEM_REFERENCE_PARITY = "Queue 1 item 4j: reference parity"
+# The ROADMAP.md Queue 1 item that ports what a plan does not have yet
 ITEM_DISTRIBUTED = "Queue 1: the distributed four-step"
 
 
@@ -148,11 +162,11 @@ def flat_inner_split(log_n: int, *, fused: bool = False,
     """The four-step split (n1, n2) a flat configuration (NTTConfig.split
     with n2 = 1) runs on the card: the square one, n1 = 2^ceil(log_n / 2)
     (16 x 16 at n = 256), unless another measured faster for this plan
-    (_FOLD_ROWS_LOG2, _FUSED_ROWS_LOG2). n = 2 has no two-factor split and
-    raises NotImplementedError."""
+    (_FOLD_ROWS_LOG2, _FUSED_ROWS_LOG2). n = 2 has no two-factor split
+    (its plan is flat_n2_plan) and raises ValueError."""
     if log_n < 2:
-        _not_ported(f"the flat split of n = {1 << log_n} (no two-factor "
-                    "split)", ITEM_FLAT_N2)
+        raise ValueError(f"n = {1 << log_n} has no two-factor split: its "
+                         "flat plan runs the stage loops (flat_n2_plan)")
     table = ({} if goldilocks else
              _FUSED_ROWS_LOG2 if fused else _FOLD_ROWS_LOG2)
     r = table.get(log_n, (log_n + 1) // 2)
@@ -343,6 +357,12 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     kernels as pre/post, on a fold plan at the fused plan's internal
     split), flat and through make_batched, and no matrix-form twins.
     wmat_fold and wmat_factored do not apply to it, as in the reference.
+    At n = 2 it is flat_n2_plan (the stage loops as torch ops; `fused`
+    does not apply).
+
+    table_convention='reference' builds the reference-parity plan
+    (_build_reference_plan), before the Goldilocks branch, as the
+    reference does: Goldilocks then raises ValueError (no reduction).
 
     Tables are prepared once here, on the plan's device: the card when
     device is None (RuntimeError without one; device="cpu" runs the plain
@@ -350,9 +370,9 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
     NotImplementedError naming the ROADMAP.md item that ports them.
     """
     field = config.field
-    if config.table_convention == "reference":
-        _not_ported("the reference-parity convention", ITEM_REFERENCE_PARITY)
     kind = resolve_kind(config.reduction, field)
+    if config.table_convention == "reference":
+        return _build_reference_plan(config, kind, device)
     if kind == "goldilocks":
         from ntt_aie_tpu_torch.goldilocks_plan import build_goldilocks_plan
 
@@ -370,6 +390,15 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
 
     device = resolve_device(device)
     n = config.n
+
+    def as_i32(a) -> torch.Tensor:
+        return torch.as_tensor(a, device=device).to(torch.int32)
+
+    if flat and n == 2:
+        return flat_n2_plan(config, kind, device,
+                            wrap1=lambda fn: lambda a: fn(as_i32(a)),
+                            wrap2=lambda fn: lambda a, b: fn(as_i32(a),
+                                                             as_i32(b)))
     n1, n2 = (flat_inner_split(config.log_n, fused=fused) if flat
               else config.split)
     if fused:
@@ -393,9 +422,6 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
 
         def inv_t(x):
             return icp1(icp2(x))
-
-    def as_i32(a) -> torch.Tensor:
-        return torch.as_tensor(a, device=device).to(torch.int32)
 
     def pointwise(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
         return M.from_carrier(red.mul_data(M.to_carrier(fa),
@@ -480,3 +506,105 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
         wmat_fold=fold_on,
         _batched_builder=lambda B: callables((B,)),
     )
+
+
+def flat_n2_plan(config: NTTConfig, kind: str, device, *, wrap1,
+                 wrap2) -> Plan:
+    """The plan of n = 2 on the flat split, which has no two-factor split
+    for the four-step kernels: its one butterfly as torch ops on the
+    plan's device (ops.stages.FlatStages, the reference's flat stage loops
+    with the batch on the columns, as the reference's flat path runs them
+    under XLA, its plan.py:582-655), with the reference's flat callables:
+    fwd (natural in, bit-reversed out, which at n = 2 is natural), inv,
+    polymul and with NTTConfig(negacyclic=True) negacyclic_polymul (each
+    operand times psi^i, the cyclic product, times psi^-i), flat and
+    through make_batched, canonical. The pointwise products are
+    Reduction.mul_data (32-bit) or ops.gl_colpass.gl_mul (the kind
+    'goldilocks'). wrap1/wrap2 put the caller's values on the device in
+    the plan's value form (an int32 tensor, or a Goldilocks (hi, lo)
+    pair) and back."""
+    field, n = config.field, config.n
+    gl = kind == "goldilocks"
+    fs = S.make_flat_stages(field, n, reduction=kind, device=device)
+    psi = [tw.negacyclic_psi_powers(field, n, inverse=i) for i in (0, 1)]
+    if gl:
+        from ntt_aie_tpu_torch.ops.gl_colpass import gl_mul as mul
+
+        psi = [M.gl_from_u64(v, device) for v in psi]
+    else:
+        red = fs.red
+        psi = [torch.from_numpy(v.astype(np.int64)).to(device) for v in psi]
+
+        def mul(a, b):
+            return M.from_carrier(red.mul_data(M.to_carrier(a),
+                                               M.to_carrier(b)))
+
+    def polymul(a, b):
+        return fs.inv(mul(fs.fwd(a), fs.fwd(b)))
+
+    def negacyclic(a, b):
+        return mul(polymul(mul(a, psi[0]), mul(b, psi[0])), psi[1])
+
+    def callables(lead) -> dict:
+        def shaped(v):
+            if gl:
+                return tuple(t.reshape(lead + (n,)) for t in v)
+            return v.reshape(lead + (n,))
+
+        out = {"fwd": wrap1(lambda a: fs.fwd(shaped(a))),
+               "inv": wrap1(lambda a: fs.inv(shaped(a))),
+               "polymul": wrap2(lambda a, b: polymul(shaped(a), shaped(b)))}
+        if config.negacyclic:
+            out["negacyclic_polymul"] = wrap2(
+                lambda a, b: negacyclic(shaped(a), shaped(b)))
+        return out
+
+    one = callables(())
+    return Plan(
+        config=config,
+        device=device,
+        fwd=one["fwd"],
+        inv=one["inv"],
+        polymul=one["polymul"],
+        spectral_to_natural=tw.spectral_positions(n, 1),
+        reduction=kind,
+        passes={"stages": fs},
+        negacyclic_polymul=one.get("negacyclic_polymul"),
+        _batched_builder=lambda B: callables((B,)),
+    )
+
+
+def _build_reference_plan(config: NTTConfig, kind: str, device) -> Plan:
+    """Bit-exact parity with the reference device (reference
+    plan.py:801-838): its butterfly network with the natural-order power
+    table (twiddles.power_table) as torch ops
+    (ops.stages.reference_network_stages) on an (n,) vector, and with
+    ordering='reference' its 16 blocks gathered by the inverse of
+    ANS_ORDER_16 (one index_select), as the device's swap network places
+    them. No inverse and no product: the network is not a DFT. Goldilocks
+    has no reduction and raises ValueError. device: None is the card."""
+    field, n = config.field, config.n
+    red = make_reduction(kind, field)
+    device = resolve_device(device)
+    table = tuple(torch.from_numpy(np.asarray(t).astype(np.int64)).to(device)
+                  for t in red.prepare_table(tw.power_table(field, n)))
+    blocks = None
+    if config.ordering == "reference":
+        blocks = torch.from_numpy(inverse_permutation(ref.ANS_ORDER_16)).to(
+            device)
+
+    def fwd(a):
+        x = M.to_carrier(torch.as_tensor(a, device=device).reshape(n))
+        y = M.from_carrier(S.reference_network_stages(x, table, red))
+        if blocks is None:
+            return y
+        return y.reshape(16, n // 16).index_select(0, blocks).reshape(n)
+
+    def no_inverse(*_):
+        raise NotImplementedError(
+            "reference table convention has no inverse (not a DFT; "
+            "SURVEY.md §0)")
+
+    return Plan(config=config, device=device, fwd=fwd, inv=no_inverse,
+                polymul=no_inverse, spectral_to_natural=None,
+                reduction=kind, passes={})

@@ -1,11 +1,19 @@
-"""NumPy golden oracles: textbook DIF/DIT NTTs, the cyclic and negacyclic
-products, and the O(n^2) schoolbook negacyclic product.
+"""NumPy golden oracles: the reference device's butterfly network, and
+textbook DIF/DIT NTTs, the cyclic and negacyclic products, and the
+O(n^2) schoolbook negacyclic product.
 
-A copy of the true-NTT half of ``ntt_aie_tpu.reference``: int64 NumPy for
-32-bit word primes, Python integers (object arrays) for Goldilocks. It
-shares no arithmetic with the column-pass kernels or their plain versions
-(Python's ``%`` on exact integers), so it can judge both; ``chip_smoke.py``
-falls back to it when the native C++ oracle cannot be built.
+A copy of ``ntt_aie_tpu.reference``: int64 NumPy for 32-bit word primes,
+Python integers (object arrays) for Goldilocks. It shares no arithmetic
+with the column-pass kernels or their plain versions (Python's ``%`` on
+exact integers), so it can judge both; ``chip_smoke.py`` falls back to it
+when the native C++ oracle cannot be built.
+
+The reference-parity half is the reference device's CPU oracle (its
+src/test.cpp:34-60): Gentleman-Sande butterflies with increasing stride
+t = 1, 2, ..., n/2 against a caller's table indexed ``table[h+i]`` at each
+stage, and the 16-block output placement ``ANS_ORDER_16`` of its swap
+network. With the natural-order power table (``twiddles.power_table``) it
+is not a DFT; parity is defined against the network with that table.
 """
 
 from __future__ import annotations
@@ -18,6 +26,87 @@ from ntt_aie_tpu_torch.fields import PrimeField
 
 def _work_dtype(p: int):
     return object if p >= (1 << 31) else np.int64
+
+
+# The fixed output block order of the reference device's 16-tile swap
+# network (its src/test.cpp:69-71): device block i lands at position
+# ANS_ORDER_16[i] of the oracle's block order.
+ANS_ORDER_16 = np.array([0, 2, 1, 3, 8, 10, 9, 11, 4, 6, 5, 7, 12, 14, 13, 15])
+
+
+def reference_network(a, table, p: int,
+                      stages: int | None = None) -> np.ndarray:
+    """The reference oracle's butterfly network, vectorized.
+
+    Stage s (s = 0, 1, ...): m = n >> s, h = m/2 groups, stride t = 2^s;
+    group i pairs elements (2t*i + jj, 2t*i + jj + t) for jj in [0, t) and
+    applies the GS butterfly (u+v, (u-v)*table[h+i]) mod p. Any length-n
+    table is legal. stages: run only stages 0..stages inclusive (the
+    reference's partial-depth hook); None is full depth."""
+    dt = _work_dtype(p)
+    a = np.asarray(a).astype(dt).copy()
+    table = np.asarray(table).astype(dt)
+    n = len(a)
+    t, idx, m = 1, 0, n
+    while m > 1:
+        h = m // 2
+        x = a.reshape(h, 2, t)
+        u = x[:, 0, :].copy()
+        v = x[:, 1, :].copy()
+        roots = table[h: h + h].reshape(h, 1)
+        x[:, 0, :] = (u + v) % p
+        x[:, 1, :] = ((u - v) % p) * roots % p
+        a = x.reshape(n)
+        if stages is not None and idx == stages:
+            return a
+        t <<= 1
+        m >>= 1
+        idx += 1
+    return a
+
+
+def reference_network_scalar(a, table, p: int, stage: int) -> np.ndarray:
+    """Scalar transcription of the reference oracle's loops, an
+    independent cross-check of reference_network (small n only)."""
+    a = [int(v) for v in a]
+    table = [int(v) for v in table]
+    n = len(a)
+    t, idx, m = 1, 0, n
+    while m > 1:
+        j1, h = 0, m // 2
+        for i in range(h):
+            j2 = j1 + t - 1
+            for j in range(j1, j2 + 1):
+                root = table[h + i]
+                v0, v1 = a[j], a[j + t]
+                a[j] = (v0 + v1) % p
+                a[j + t] = ((v0 + p - v1) % p) * root % p
+            j1 += 2 * t
+        if idx == stage:
+            return np.array(a, dtype=object)
+        t <<= 1
+        m >>= 1
+        idx += 1
+    return np.array(a, dtype=object)
+
+
+def block_permute(a: np.ndarray,
+                  order: np.ndarray = ANS_ORDER_16) -> np.ndarray:
+    """The reference device's output block placement: oracle block i is
+    found at device position order[i]."""
+    nb = len(order)
+    bs = len(a) // nb
+    out = np.empty_like(a)
+    for i in range(nb):
+        out[order[i] * bs: order[i] * bs + bs] = a[i * bs: i * bs + bs]
+    return out
+
+
+def reference_device_output(a, field: PrimeField, n: int) -> np.ndarray:
+    """What the reference device produces for input a: the natural-order
+    power table, the full-depth network, the block placement."""
+    table = tw.power_table(field, n)
+    return block_permute(reference_network(a, table, field.p))
 
 
 def ntt_dif(a, field: PrimeField, *, inverse: bool = False) -> np.ndarray:

@@ -119,6 +119,20 @@ def negacyclic_psi_powers(field: PrimeField, n: int, *,
     return _power_series(field, psi, n)
 
 
+def power_table(field: PrimeField, n: int, *,
+                inverse: bool = False) -> np.ndarray:
+    """Natural-order table t[i] = w^i with w = g^((p-1)//n): the
+    reference device's make_roots (its src/test.cpp:27-32), integer
+    division included. At its committed configuration (p = 3329,
+    n = 2048) n does not divide p - 1, so w = g = 3 is not a 2048th root
+    of unity; the parity mode reproduces exactly that network. Use
+    root_powers / dif_stage_twiddles for true NTTs."""
+    w = pow(field.g, (field.p - 1) // n, field.p)
+    if inverse:
+        w = field.inv(w)
+    return _power_series(field, w, n)
+
+
 def bit_reverse_indices(n: int) -> np.ndarray:
     """Bit-reversal permutation of [0, n)."""
     bits = n.bit_length() - 1

@@ -13,7 +13,10 @@ against the exact integer product; the factored ('wfac') and rank-1
 instantiations of the 32-bit kernel under every reduction and the
 Goldilocks kernel's 'pre' matrix and 'wfac' ones, the broadcast Goldilocks
 product, and the wmat_factored=True and Goldilocks wmat_fold=False plans
-against the fold plan.
+against the fold plan; the four ring_layers instantiations (ML-KEM and
+ML-DSA forward and inverse) against their plain versions, the ML-KEM-768
+and ML-DSA-65 serving steps against the plain route, the reference-parity
+plan against the native network, and n = 2 on the flat split.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -897,3 +900,109 @@ def test_gl_arms_match_fold(cuda):
     got = want["negacyclic_polymul_mat"][0].ravel().astype(object)
     assert np.array_equal(got, ref.negacyclic_polymul(
         a[0].ravel(), b[0].ravel(), T.GOLDILOCKS).astype(object))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8192])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("scheme", ["kyber", "dilithium"])
+def test_ring_layers_kernel_matches_plain(cuda, scheme, inverse, batch):
+    """Each csrc/ring_layers.cu instantiation against its plain version
+    raw, and one launch a call."""
+    import importlib
+
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+
+    sch = importlib.import_module(f"ntt_aie_tpu_torch.{scheme}").SCHEME
+    rng = np.random.default_rng([batch, sch.q])
+    x = torch.from_numpy(rng.integers(0, sch.q, (batch, 256)).astype(
+        np.int32)).to(cuda)
+    before = LR.layered.launches
+    got = LR.layered(x, sch, inverse=inverse)
+    torch.cuda.synchronize()
+    assert LR.layered.launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.int32
+    assert torch.equal(got, LR.layered_plain(x, sch, inverse=inverse))
+
+
+@pytest.mark.parametrize("scheme,k,l", [("kyber", 3, 3),
+                                        ("dilithium", 6, 5)])
+def test_ring_serving_step_matches_plain(cuda, scheme, k, l):
+    """The ML-KEM-768 and ML-DSA-65 serving steps on the card equal the
+    same steps on the plain route (the CPU), through the kernels; the FIPS
+    roundtrip and the ring product against the schoolbook oracle."""
+    import importlib
+
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+
+    mod = importlib.import_module(f"ntt_aie_tpu_torch.{scheme}")
+    q = mod.Q
+    rng = np.random.default_rng([k, l])
+    A = rng.integers(0, q, (k, l, 256))
+    x = rng.integers(0, q, (64, l, 256))
+    pipe, plain = mod.make_pipeline(device=cuda), mod.make_pipeline("cpu")
+    LR.layered.launches = 0
+    got = pipe["make_serving_step"](pipe["ntt"](A))(x)
+    torch.cuda.synchronize()
+    assert LR.layered.launches == 3
+    assert got.shape == (64, k, 256)
+    want = plain["make_serving_step"](plain["ntt"](A))(x)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(pipe["intt"](pipe["ntt"](x)).cpu(),
+                       torch.from_numpy(x).to(torch.int32))
+    a, b = rng.integers(0, q, (2, 256))
+    c = pipe["polymul"](a, b).cpu().numpy().astype(np.int64)
+    assert np.array_equal(c, ref.schoolbook_negacyclic(a, b, q)
+                          .astype(np.int64))
+
+
+@pytest.mark.parametrize("name,log_n,ordering", [
+    ("kyber", 11, "reference"), ("p469762049", 16, "bitrev")])
+def test_reference_parity_plan_matches_native(cuda, name, log_n, ordering):
+    """The reference-parity plan on the card against the native network
+    (and block_permute16 under ordering='reference')."""
+    from ntt_aie_tpu_torch import native_oracle
+
+    field = T.FIELDS[name]
+    p, n = field.p, 1 << log_n
+    cfg = T.NTTConfig(field=field, log_n=log_n,
+                      table_convention="reference", ordering=ordering)
+    a = (np.arange(n) if name == "kyber"
+         else np.random.default_rng(log_n).integers(0, p, n))
+    got = T.build_plan(cfg, device=cuda).fwd(a).cpu().numpy()
+    want = native_oracle.reference_network(
+        a, native_oracle.make_power_table(n, p, field.g), p)
+    if ordering == "reference":
+        want = native_oracle.block_permute16(want)
+    assert np.array_equal(got.astype(np.int64), want)
+
+
+@pytest.mark.parametrize("name", ["p469762049", "goldilocks"])
+def test_flat_n2_on_the_card(cuda, name):
+    """n = 2 on the flat split: the stage loops on the card against the
+    native oracle, batched."""
+    from ntt_aie_tpu_torch import native_oracle
+
+    field = T.FIELDS[name]
+    p = field.p
+    plan = T.build_plan(T.NTTConfig(field=field, log_n=1, negacyclic=True),
+                        device=cuda)
+    bat = plan.make_batched(5)
+    rng = np.random.default_rng(2)
+    a, b = (rng.integers(0, 1 << 62, (5, 2), dtype=np.uint64)
+            % np.uint64(p) for _ in range(2))
+    if not field.is_goldilocks:
+        a, b = a.astype(np.int64), b.astype(np.int64)
+
+    def host(v):
+        return np.asarray(v if field.is_goldilocks else v.cpu().numpy()
+                          ).astype(np.uint64)
+
+    u, v = a.astype(np.uint64), b.astype(np.uint64)
+    assert np.array_equal(host(bat["fwd"](a)), native_oracle.ntt_dif_batch(
+        u, field.root_of_unity(2), p))
+    assert np.array_equal(host(bat["inv"](bat["fwd"](a))), u)
+    for r in range(5):
+        assert np.array_equal(
+            host(bat["negacyclic_polymul"](a, b))[r],
+            native_oracle.negacyclic_polymul(u[r], v[r],
+                                             field.root_of_unity(4), p))

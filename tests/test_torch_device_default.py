@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import ntt_aie_tpu_torch as T
+from ntt_aie_tpu_torch import dilithium, kyber
 from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import fused_fourstep as FF
@@ -23,6 +24,17 @@ F32 = T.P_469762049
 CFG = T.NTTConfig(field=F32, log_n=10, rows_log2=5)
 GL_CFG = T.NTTConfig(field=T.GOLDILOCKS, log_n=10, rows_log2=5)
 WMID = np.ones((32, 32), dtype=np.int64)
+REF_CFG = T.NTTConfig(field=T.KYBER, log_n=11, table_convention="reference",
+                      ordering="reference")
+N2_CFG = T.NTTConfig(field=F32, log_n=1, negacyclic=True)
+POLY = np.zeros((2, 256), dtype=np.int64)
+
+
+def _poly(d):
+    """A polynomial batch: on the card's default (NumPy, which the bare
+    ring functions send to the card) or a tensor on device d."""
+    return POLY if d is None else torch.zeros((2, 256), dtype=torch.int32,
+                                              device=d)
 
 # name -> entry point called with device=<value>; returns what it built
 ENTRY_POINTS = {
@@ -59,6 +71,23 @@ ENTRY_POINTS = {
     # the combine holds no tensor: what it makes of host residues
     "make_crt_combine": lambda d: T.make_crt_combine(
         [F32, T.P_998244353], device=d)[0](np.ones(4), np.ones(4)),
+    # the reference-parity plan holds its table in fwd: what fwd makes
+    "build_plan_reference": lambda d: T.build_plan(REF_CFG, device=d).fwd(
+        np.arange(2048)),
+    "build_plan_n2": lambda d: T.build_plan(N2_CFG, device=d),
+    # the ring pipelines hold callables: what their ntt makes of NumPy
+    "kyber_make_pipeline": lambda d: kyber.make_pipeline(device=d)["ntt"](
+        POLY),
+    "dilithium_make_pipeline": lambda d: dilithium.make_pipeline(
+        device=d)["make_serving_step"](np.zeros((6, 5, 256), np.int64))(
+        np.zeros((2, 5, 256), np.int64)),
+    # the bare ring functions: a tensor stays on its device, NumPy goes to
+    # the card
+    "kyber_ntt": lambda d: kyber.kyber_ntt(_poly(d)),
+    "kyber_polymul": lambda d: kyber.kyber_polymul(_poly(d), POLY),
+    "dilithium_intt": lambda d: dilithium.dilithium_intt(_poly(d)),
+    "dilithium_matvec": lambda d: dilithium.dilithium_matvec(
+        np.zeros((3, 2, 256), np.int64), _poly(d)),
 }
 
 

@@ -166,12 +166,41 @@ def test_flat_inner_split(log_n, kw, split):
 
 
 def test_flat_n2_raises():
-    """n = 2 has no two-factor split: the flat plan raises, naming its
-    ROADMAP item, rather than run a column pass over one column."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
-                                                  "4h"):
-        T.build_plan(T.NTTConfig(field=T.P_469762049, log_n=1),
-                     device="cpu")
+    """n = 2 has no two-factor split: flat_inner_split raises, and the
+    flat plan runs its one butterfly as torch ops instead, with the
+    reference's callables: fwd, inv, polymul and negacyclic_polymul, flat
+    and batched, equal to the reference's XLA flat plan and the native
+    oracle (the reference gives negacyclic_polymul([3, 5], [7, 11]) =
+    [469762015, 68])."""
+    with pytest.raises(ValueError, match="no two-factor split"):
+        flat_inner_split(1)
+    field = T.P_469762049
+    p = field.p
+    pl = T.build_plan(T.NTTConfig(field=field, log_n=1, negacyclic=True),
+                      device="cpu")
+    assert np.array_equal(_np(pl.negacyclic_polymul([3, 5], [7, 11])),
+                          [469762015, 68])
+    jbat = jplan.build_plan(jcfg.NTTConfig(field=jF.P_469762049, log_n=1,
+                                           negacyclic=True),
+                            engine="xla").make_batched(B)
+    a, b = _inputs("p469762049", 1)
+    ja, jb = (jnp.asarray(v, jnp.uint32) for v in (a, b))
+    bat = pl.make_batched(B)
+    for fn in CALLABLES:
+        args = (a, b) if "polymul" in fn else (a,)
+        jargs = (ja, jb) if "polymul" in fn else (ja,)
+        want = np.asarray(jbat[fn](*jargs)).astype(np.int64)
+        assert np.array_equal(_np(bat[fn](*args)), want), fn
+        assert np.array_equal(
+            _np(getattr(pl, fn)(*(v[0] for v in args))), want[0]), fn
+    assert np.array_equal(_np(pl.inv(pl.fwd(a[0]))), a[0])
+    want = native_oracle.ntt_dif_batch(a, field.root_of_unity(2), p)
+    assert np.array_equal(_np(bat["fwd"](a)), want.astype(np.int64))
+    assert np.array_equal(
+        _np(pl.negacyclic_polymul(a[0], b[0])),
+        native_oracle.negacyclic_polymul(
+            a[0], b[0], field.root_of_unity(4), p).astype(np.int64))
+    assert pl.fwd_mat is None and pl.polymul_mat is None
 
 
 @pytest.mark.parametrize("log_n", [2, 3, 5])

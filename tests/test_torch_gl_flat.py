@@ -31,8 +31,9 @@ P = GL.p
 B = 3
 CALLABLES = ["fwd", "inv", "polymul", "negacyclic_polymul"]
 # (log_n, rows_log2, ordering): flat at 4 and 10 (natural order at 4; the
-# four-step split (12, 6) for the negacyclic product)
-FLAT = [(4, None, "bitrev"), (10, None, "bitrev")]
+# four-step split (12, 6) for the negacyclic product), and n = 2 (no
+# two-factor split: the stage loops as torch ops)
+FLAT = [(4, None, "bitrev"), (10, None, "bitrev"), (1, None, "bitrev")]
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -183,14 +183,18 @@ def test_context_host_paths_match_reference(ordering):
     assert np.array_equal(ctx.inverse_host(got), a)
     if ordering == "bitrev":
         assert np.array_equal(_np(ctx.forward(torch.from_numpy(a))), got)
-    ref_cfg = T.NTTConfig(field=T.P_469762049, log_n=11,
-                          table_convention="reference")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.NTTContext(ref_cfg, device="cpu").forward_host(a[:2048])
+    # the reference-parity convention: its network, as the reference's
+    jref, tref = _cfgs(11, None, table_convention="reference")
+    want = JContext(jref).forward_host(a[:2048])
+    ref_ctx = T.NTTContext(tref, device="cpu")
+    assert np.array_equal(ref_ctx.forward_host(a[:2048]), want)
+    assert np.array_equal(_np(ref_ctx.forward(a[:2048])), want)
+    with pytest.raises(NotImplementedError, match="no inverse"):
+        ref_ctx.inverse_host(want)
 
 
 @pytest.mark.parametrize("kw,build_kw", [
-    ({"log_n": 11, "table_convention": "reference"}, {}),
+    ({"log_n": 11, "num_shards": 2}, {}),
 ])
 def test_out_of_slice_configs_raise(kw, build_kw):
     cfg = T.NTTConfig(field=T.P_469762049, **kw)

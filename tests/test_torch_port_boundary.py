@@ -11,11 +11,14 @@ MODULES = [
     "ntt_aie_tpu_torch",
     "ntt_aie_tpu_torch.api",
     "ntt_aie_tpu_torch.config",
+    "ntt_aie_tpu_torch.dilithium",
     "ntt_aie_tpu_torch.fields",
     "ntt_aie_tpu_torch.goldilocks_plan",
+    "ntt_aie_tpu_torch.kyber",
     "ntt_aie_tpu_torch.native_oracle",
     "ntt_aie_tpu_torch.plan",
     "ntt_aie_tpu_torch.reference",
+    "ntt_aie_tpu_torch.ring_layers",
     "ntt_aie_tpu_torch.rns",
     "ntt_aie_tpu_torch.twiddles",
     "ntt_aie_tpu_torch.ops.colpass",
@@ -25,6 +28,7 @@ MODULES = [
     "ntt_aie_tpu_torch.ops.modops",
     "ntt_aie_tpu_torch.ops.nested_colpass",
     "ntt_aie_tpu_torch.ops.reductions",
+    "ntt_aie_tpu_torch.ops.ring_layers",
     "ntt_aie_tpu_torch.ops.stages",
     "ntt_aie_tpu_torch.profiling",
     "ntt_aie_tpu_torch.profiling.roofline",
@@ -84,7 +88,8 @@ def test_kernel_source_ships_with_the_package():
             ("nested_colpass.cu",
              "scripts/proto_nested_colpass.py::nested_colpass"),
             ("bfly_probe.cu", "ntt_aie_tpu/profiling/roofline.py"),
-            ("crt.cu", "ntt_aie_tpu/ops/crt.py::make_crt_combine")):
+            ("crt.cu", "ntt_aie_tpu/ops/crt.py::make_crt_combine"),
+            ("ring_layers.cu", "ntt_aie_tpu/ring_layers.py::layered_fwd")):
         text = (csrc / name).read_text()
         assert replaces in text
         assert "extern \"C\"" in text

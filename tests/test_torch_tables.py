@@ -332,3 +332,41 @@ def test_flat_gather_matches(log_n):
     # spectrum at spectral_positions(n1, n2)[k]
     assert np.array_equal(g[jtw.spectral_positions(n, 1)],
                           jtw.spectral_positions(n1, n2))
+
+
+@pytest.mark.parametrize("name,log_n,inverse", [
+    ("kyber", 11, False), ("p469762049", 10, False),
+    ("p469762049", 10, True), ("p2013265921", 8, False)])
+def test_power_table_and_block_order_match(name, log_n, inverse):
+    """The reference-parity tables: power_table with its integer-division
+    quirk (w = g at p = 3329, n = 2048) and ANS_ORDER_16."""
+    from ntt_aie_tpu import reference as jref
+    from ntt_aie_tpu_torch import reference as tref
+
+    j = jtw.power_table(jF.FIELDS[name], 1 << log_n, inverse=inverse)
+    t = ttw.power_table(tF.FIELDS[name], 1 << log_n, inverse=inverse)
+    assert np.array_equal(t, j) and t.dtype == j.dtype
+    assert np.array_equal(tref.ANS_ORDER_16, jref.ANS_ORDER_16)
+
+
+@pytest.mark.parametrize("scheme", ["kyber", "dilithium"])
+def test_pqc_tables_match(scheme):
+    """The FIPS 203/204 rings' zeta and inverse-zeta tables (ML-DSA's in
+    Montgomery form), ML-KEM's gammas, and the n^-1 and Montgomery
+    constants."""
+    import importlib
+
+    j = importlib.import_module(f"ntt_aie_tpu.{scheme}")
+    t = importlib.import_module(f"ntt_aie_tpu_torch.{scheme}")
+    for key in ("_ZETAS", "_IZETAS"):
+        assert len(getattr(t, key)) == len(getattr(j, key))
+        for a, b in zip(getattr(t, key), getattr(j, key)):
+            assert np.array_equal(a, b) and a.dtype == b.dtype
+    assert (t.Q, t.ZETA, t.N) == (j.Q, j.ZETA, j.N)
+    if scheme == "kyber":
+        assert np.array_equal(t._GAMMAS, j._GAMMAS)
+        assert (t._N_INV, t._W, t._U) == (j._N_INV, j._W, j._U) \
+            and t._N_INV == 3303
+    else:
+        assert (int(t._N_INV_MONT), t._R2, t._NEG_PINV) == (
+            int(j._N_INV_MONT), j._R2, j._NEG_PINV)
