@@ -289,8 +289,24 @@ Phase 29 adds a ring_layers[<scheme>_<ntt|intt>] row for each of the four
 instantiations at B = 8,192: "ms" the kernel alone, "wrapper_ms" the
 pipeline's call, its launches by call, its bytes the input and output
 once, its butterflies 128 a layer a polynomial over the barrett (ML-KEM)
-or montgomery (ML-DSA) probe rate. Each row's launches are its own path's; the flat phases' (phases 20 and
-22's driven calls) are under "flat_launches". Last, the result line
+or montgomery (ML-DSA) probe rate. Phases 31-33 drive the distributed
+four-step plan (parallel/fourstep.py): phase 31 holds every column pass
+of its two arms (rank 0 of D = 4, C = 2, at the 4096 x 4096 split)
+against its plain version and times the instantiations it added; phase 32
+runs the path on four ranks that share the card (run_spmd, gloo's
+all_to_all_single on CUDA tensors): the factored and full-matrix arms at
+n = 2^24 with two chunks (fwd, inv, polymul, negacyclic_polymul), a 2 x 2
+dp mesh at n = 2^22, B = 4, a 2 x 2 hierarchical mesh and the pairwise
+mode at n = 2^24, and Goldilocks at n = 2^20 (both arms, negacyclic), each
+gathered output equal to the single-device plan's and fwd to the native
+oracle, then the "distributed" line (backend, world, mesh, shapes, ms per
+call; not a multi-chip figure); phase 33 runs one rank on NCCL at
+n = 2^20. They add a colpass[dist:...] row (1d) or gl_colpass[dist:...]
+row (3d) for each instantiation the distributed plan added: ms per launch
+at B = 8, launches summed over phase 32's ranks, launches a transform,
+bytes with the operand tables. Each row's launches are its own path's;
+the flat phases' (phases 20 and 22's driven calls) are under
+"flat_launches". Last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -690,6 +706,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     if reference_parity_phase(args, dev, card, rng) is None:
         return 1
+    torch.cuda.empty_cache()
+    dist_rows = distributed_phases(args, dev, card, rng)
+    if dist_rows is None:
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -724,6 +744,7 @@ def main() -> int:
         "coefficients": crt_row["count"], "primes": crt_row["k"],
         "nwords": crt_row["nwords"]})
     rows += pqc_rows
+    rows += dist_rows
     # each row's launches are its own path's; the flat phases' apart
     for row in rows:
         row["flat_launches"] = flat_launches.get(row["name"], 0)
@@ -3258,6 +3279,443 @@ def flat_n2_phase(dev, gen, rng):
             launches["gl_mul"] = launches.get("gl_mul", 0) + sum(
                 v[3] for v in by.values())
     return launches
+
+
+# The distributed slice (phases 31-33). The kernel phase holds every column
+# pass of the distributed plan against its plain version at the north-star
+# split (n = 2^24, 4096 x 4096) on rank 0 of D = 4 with C = 2 chunks (pass 1
+# over (B, 4096, 1024), pass 2 over (B, 4096, 512)), and times the
+# instantiations this slice added, at a batch of DIST_KERNEL_BATCH.
+DIST_N1 = DIST_N2 = 4096
+DIST_D, DIST_C = 4, 2
+DIST_KERNEL_BATCH = 8
+# (row, kernel, factored arm, pass, variant): the instantiations the
+# distributed plan added to the column kernels (PERF.md rows 1d and 3d)
+DIST_NEW = (
+    ("colpass[dist:lcp1]", "colpass", False, "lcp1", "dif+post"),
+    ("colpass[dist:lcp1n]", "colpass", False, "lcp1n", "dif+pre+post"),
+    ("colpass[dist:factored:lcp1n]", "colpass", True, "lcp1n",
+     "dif+rank1_pre"),
+    ("colpass[dist:factored:licp2]", "colpass", True, "licp2",
+     "dit+wfac_post"),
+    ("gl_colpass[dist:lcp1]", "gl_colpass", False, "lcp1", "dif+post"),
+    ("gl_colpass[dist:lcp1n]", "gl_colpass", False, "lcp1n", "dif+pre+post"),
+    ("gl_colpass[dist:licp1n]", "gl_colpass", False, "licp1n",
+     "dit+pre+post"),
+    ("gl_colpass[dist:factored:lcp1n]", "gl_colpass", True, "lcp1n",
+     "dif+rank1_pre"),
+    ("gl_colpass[dist:factored:licp1n]", "gl_colpass", True, "licp1n",
+     "dit+rank1_post"),
+    ("gl_colpass[dist:factored:licp2]", "gl_colpass", True, "licp2",
+     "dit+wfac_post"),
+)
+# The distributed path (phase 32): D = 4 ranks that share the card, gloo's
+# all_to_all_single on CUDA tensors. (name, kind, field name, log_n,
+# rows_log2, mesh, plan keywords, batch, calls)
+DIST_NEGA = ["fwd", "inv", "polymul", "negacyclic_polymul"]
+DIST_CASES = (
+    ("factored", "plan", "p469762049", 24, 12, ("flat", 4),
+     {"overlap_chunks": 2}, None, DIST_NEGA),
+    ("full", "plan", "p469762049", 24, 12, ("flat", 4),
+     {"wmat_factored": False, "overlap_chunks": 2}, None, DIST_NEGA),
+    ("dp_2x2", "plan", "p469762049", 22, 11, ("2d", 2, 2),
+     {"dp_axis": "dp", "overlap_chunks": 2}, 4, ["fwd", "inv", "polymul"]),
+    ("hier_2x2", "plan", "p469762049", 24, 12, ("hier", 2, 2),
+     {"hier_axes": ("dcn", "ici"), "overlap_chunks": 2}, None,
+     ["fwd", "inv"]),
+    ("pairwise", "pairwise", "p469762049", 24, None, ("flat", 4), {}, None,
+     ["fwd"]),
+    ("gl_factored", "gl", "goldilocks", 20, 10, ("flat", 4),
+     {"overlap_chunks": 2}, None, DIST_NEGA),
+    ("gl_full", "gl", "goldilocks", 20, 10, ("flat", 4),
+     {"wmat_factored": False, "overlap_chunks": 2}, None, DIST_NEGA),
+)
+DIST_TIME_REPEATS = 3
+# One NCCL rank (phase 33): the factored plan at n = 2^20 (1024 x 1024)
+NCCL_LOG_N = 20
+
+
+def _dist_draw(kern, shape, p, gen, dev, rng):
+    import numpy as np
+    import torch
+
+    from ntt_aie_tpu_torch.ops import modops as M
+
+    if kern == "gl_colpass":
+        vals = rng.integers(0, 1 << 64, shape, dtype=np.uint64) % np.uint64(p)
+        return M.gl_from_u64(vals, dev)
+    return torch.randint(0, 4 * p, shape, dtype=torch.int64, device=dev,
+                         generator=gen).to(torch.int32)
+
+
+def _dist_shape(name, B):
+    if name in ("lcp2", "licp2"):
+        return (B, DIST_N2, DIST_N1 // (DIST_D * DIST_C))
+    return (B, DIST_N1, DIST_N2 // DIST_D)
+
+
+def dist_kernel_phase(args, dev, card):
+    """Phase 31: every column pass of the distributed plan (dist_passes,
+    gl_dist_passes: both arms, negacyclic) of rank 0 at the 4096 x 4096
+    split, D = 4, C = 2, kernel against plain, raw, at a batch of 2; the
+    instantiations this slice added (DIST_NEW) timed alone at
+    DIST_KERNEL_BATCH with their plain versions and kernel_info. Returns
+    ({variant key: max_abs_err}, {row: timing}), or None after emitting
+    the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.parallel import fourstep as FS
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    rng = np.random.default_rng(args.seed + 31)
+    ops = {"colpass": (C.colpass, C.colpass_plain, C.kernel_info, C.variant,
+                       T.P_469762049),
+           "gl_colpass": (G.gl_colpass, G.gl_colpass_plain, G.kernel_info,
+                          G.variant, T.GOLDILOCKS)}
+    passes = {}
+    for kern, (_, _, _, _, field) in ops.items():
+        build = FS.gl_dist_passes if kern == "gl_colpass" else FS.dist_passes
+        for arm in (True, False):
+            passes[kern, arm] = build(field, DIST_N1, DIST_N2, DIST_D, DIST_C,
+                                      0, wmat_factored=arm, negacyclic=True,
+                                      device=dev)
+    errs = {}
+    for (kern, arm), ps in passes.items():
+        run, plain, _, variant, field = ops[kern]
+        for name, cps in ps.items():
+            for cp in (cps if isinstance(cps, list) else [cps]):
+                x = _dist_draw(kern, _dist_shape(name, 2), field.p, gen, dev,
+                               rng)
+                got = run(x, cp)
+                torch.cuda.synchronize()
+                want = plain(x, cp)
+                pairs = (zip(got, want) if isinstance(got, tuple)
+                         else [(got, want)])
+                err = max(int((u.long() - v.long()).abs().max())
+                          for u, v in pairs)
+                key = f"{kern}:{variant(cp)}"
+                errs[key] = max(errs.get(key, 0), err)
+                if err:
+                    emit({"phase": "dist_kernel", "kernel": kern,
+                          "factored": arm, "pass": name,
+                          "variant": variant(cp), "max_abs_err": err,
+                          "ok": False})
+                    fail("dist_kernel", f"{kern} {name} ({variant(cp)}) "
+                         "differs from its plain version")
+                    return None
+    emit({"phase": "dist_kernel", "split": [DIST_N1, DIST_N2], "D": DIST_D,
+          "C": DIST_C, "batch": 2, "max_abs_err": errs, "ok": True})
+    timing = {}
+    B = DIST_KERNEL_BATCH
+    for row, kern, arm, name, want_variant in DIST_NEW:
+        run, plain, info_of, variant, field = ops[kern]
+        cp = passes[kern, arm][name]
+        cp = cp[0] if isinstance(cp, list) else cp
+        if variant(cp) != want_variant:
+            fail("dist_kernel", f"{row} is {variant(cp)}, not "
+                 f"{want_variant}")
+            return None
+        x = _dist_draw(kern, _dist_shape(name, B), field.p, gen, dev, rng)
+        us = time_device(cp, x)["us_per_iter"]
+        plain_us, pb = _plain_batch_time(lambda v, c=cp: plain(v, c), x, 2)
+        shape = _dist_shape(name, B)
+        timing[row] = {"variant": want_variant, "shape": list(shape),
+                       "us_per_call": us, "plain_us_per_call": plain_us,
+                       "plain_batch": pb,
+                       "kernel_info": info_of(cp, shape[2])}
+    emit({"phase": "dist_kernel_time", "card": card, "batch": B,
+          "rows": timing,
+          "method": "CUDA events; 5 repeats of a dependent chain of 10, "
+                    "trimmed mean; plain: 3 repeats of 2"})
+    del passes
+    torch.cuda.empty_cache()
+    return errs, timing
+
+
+def _dist_spec(case, rng):
+    """A phase-32 case as parallel.runs takes it, inputs from rng."""
+    import numpy as np
+
+    import ntt_aie_tpu_torch as T
+
+    name, kind, field_name, log_n, rows, mesh, plan, batch, calls = case
+    p = T.FIELDS[field_name].p
+    n = 1 << log_n
+    shape = (n,) if batch is None else (batch, n)
+    if field_name == "goldilocks":
+        a, b = (rng.integers(0, p, shape, dtype=np.uint64) for _ in range(2))
+    else:
+        a, b = (rng.integers(0, p, shape).astype(np.uint32) for _ in range(2))
+    shards = {"flat": mesh[1:], "2d": mesh[2:], "hier": mesh[1:]}[mesh[0]]
+    config = {"num_shards": int(np.prod(shards)),
+              "negacyclic": "negacyclic_polymul" in calls}
+    if rows is not None:
+        config["rows_log2"] = rows
+    return dict(kind=kind, field=field_name, log_n=log_n, config=config,
+                mesh=mesh, plan=plan, a=a, b=b, calls=calls,
+                time=DIST_TIME_REPEATS)
+
+
+def _single_outputs(spec, dev):
+    """The single-device plan of a case's configuration, and its outputs on
+    the case's inputs: {call: host array}, flat per transform."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import modops as M
+
+    field = T.FIELDS[spec["field"]]
+    cfg = T.NTTConfig(field=field, log_n=spec["log_n"],
+                      **{k: v for k, v in spec["config"].items()
+                         if k != "num_shards"})
+    plan = T.build_plan(cfg, device=dev, wmat_factored=True)
+    a, b = spec["a"], spec["b"]
+    gl = field.is_goldilocks
+    lead = () if a.ndim == 1 else (a.shape[0],)
+    calls = plan.make_batched(lead[0]) if lead else {
+        "fwd": plan.fwd, "polymul": plan.polymul,
+        "negacyclic_polymul": plan.negacyclic_polymul}
+
+    def dev_in(v):
+        if gl:
+            return M.gl_from_u64(v, dev)
+        return torch.from_numpy(v.view(np.int32)).to(dev)
+
+    def host(v):
+        if gl:
+            return M.gl_to_u64(*v)
+        return v.cpu().numpy().view(np.uint32)
+
+    out = {"fwd": host(calls["fwd"](dev_in(a)))}
+    if "polymul" in spec["calls"]:
+        out["polymul"] = host(calls["polymul"](dev_in(a), dev_in(b)))
+    if "negacyclic_polymul" in spec["calls"]:
+        out["negacyclic_polymul"] = host(calls["negacyclic_polymul"](
+            dev_in(a), dev_in(b)))
+    return plan, out
+
+
+def dist_path_phase(args, dev, card, rng):
+    """Phase 32: the distributed path on DIST_D ranks that share the card
+    (run_spmd, gloo with CUDA tensors; the libraries were built in phase
+    2, before the spawn), DIST_CASES: each callable's gathered output
+    against the single-device plan at the same split (bit for bit), fwd
+    also against the native oracle, the round trip against the input, the
+    pairwise mode against the single-device spectrum in bit-reversed
+    order and the native DIF; launches by instantiation from each case's
+    driven calls (counted from 0 in every rank just before them); each
+    call timed. Returns {kernel: {variant: launches}} summed over the
+    ranks and cases, or None after emitting the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.parallel import launch, runs
+
+    specs = [_dist_spec(case, rng) for case in DIST_CASES]
+    for spec in specs:  # the pairwise mode transforms the first case's input
+        if spec["kind"] == "pairwise":
+            if spec["log_n"] != specs[0]["log_n"]:
+                raise ValueError("the pairwise case needs the first case's n")
+            spec["a"] = specs[0]["a"]
+    t0 = time.perf_counter()
+    res = launch.run_spmd(runs.run_cases, DIST_D, backend="gloo",
+                          device_type="cuda", args=(specs, "cuda"))
+    wall = time.perf_counter() - t0
+    totals = {}
+    lines = []
+    single_fwd = {}
+    for i, (case, spec) in enumerate(zip(DIST_CASES, specs)):
+        name, kind, field_name = case[:3]
+        checks = {}
+        got = {k: runs.assemble(res, i, k) for k in spec["calls"]}
+        n, a = 1 << spec["log_n"], spec["a"]
+        if kind == "pairwise":
+            # the single-device spectrum of the same input at the square
+            # split (the first case's), in bit-reversed order
+            n1 = n2 = 1 << (spec["log_n"] // 2)
+            flat = single_fwd[spec["log_n"]].reshape(-1)[
+                tw.flat_gather(n1, n2)]
+            checks["single_device_bitrev"] = bool(np.array_equal(
+                got["fwd"], flat))
+            field = T.FIELDS[field_name]
+            native = native_oracle.ntt_dif_batch(
+                a[None].astype(np.uint64), field.root_of_unity(n), field.p)[0]
+            checks["native"] = bool(np.array_equal(
+                got["fwd"].astype(np.uint64), native.astype(np.uint64)))
+        else:
+            plan, want = _single_outputs(spec, dev)
+            if spec["a"].ndim == 1 and field_name != "goldilocks":
+                single_fwd.setdefault(spec["log_n"], want["fwd"])
+            batch = a.shape[0] if a.ndim == 2 else 1
+            for k in spec["calls"]:
+                if k == "inv":
+                    checks[k] = bool(np.array_equal(
+                        got[k].reshape(a.shape), a))
+                else:
+                    checks[k] = bool(np.array_equal(
+                        got[k].reshape(-1), want[k].reshape(-1)))
+            y = got["fwd"].reshape(batch, -1)[:1]
+            x = a.reshape(batch, -1)[:1]
+            if field_name == "goldilocks":
+                from ntt_aie_tpu_torch.ops import modops as M
+
+                yd, xd = (M.gl_from_u64(v, dev) for v in (y, x))
+            else:
+                yd, xd = (torch.from_numpy(v.view(np.int32)).to(dev)
+                          for v in (y, x))
+            checks["native_fwd"] = _gate_fwd(
+                yd, xd, np.array([0]), T.FIELDS[field_name],
+                plan.spectral_to_natural, dev)
+            del plan
+            torch.cuda.empty_cache()
+        launches = {}
+        for r in res:
+            for kern, by in r[i]["launches"].items():
+                for variant, count in by.items():
+                    launches.setdefault(kern, {})
+                    launches[kern][variant] = (launches[kern].get(variant, 0)
+                                               + count)
+                    totals.setdefault(kern, {})
+                    totals[kern][variant] = (totals[kern].get(variant, 0)
+                                             + count)
+        ms = {k: max(r[i]["ms"][k] for r in res) for k in spec["calls"]}
+        line = {"case": name, "kind": kind, "field": field_name,
+                "n": n, "split": spec["config"].get("rows_log2"),
+                "mesh": list(case[5]), "plan": {k: list(v) if
+                                                isinstance(v, tuple) else v
+                                                for k, v in case[6].items()},
+                "batch": case[7], "checks": checks, "launches_by": launches,
+                "ms_per_call": ms, "ok": all(checks.values())}
+        lines.append(line)
+        emit(dict(line, phase="distributed_case"))
+        if not line["ok"]:
+            fail("distributed", f"case {name} differs from the single-device "
+                 "plan or the native oracle")
+            return None
+    backends = {r[0]["backend"] for r in res}
+    emit({"phase": "distributed", "card": card, "backend": sorted(backends),
+          "world": DIST_D, "transport": "gloo all_to_all_single on CUDA "
+          "tensors (gloo stages them through the host), the ranks sharing "
+          "one card", "spawn_and_run_s": wall,
+          "cases": [{k: line[k] for k in ("case", "n", "mesh", "plan",
+                                          "batch", "ms_per_call")}
+                    for line in lines],
+          "note": "not a multi-chip figure: the collective is gloo staged "
+                  "through the host on one shared card; ms_per_call is the "
+                  "slowest rank's median of "
+                  f"{DIST_TIME_REPEATS} calls between barriers",
+          "ok": True})
+    return totals
+
+
+def nccl_phase(args, dev, card, rng):
+    """Phase 33: one rank on NCCL (world = 1): the factored plan at
+    n = 2^NCCL_LOG_N with two chunks, its collective NCCL's
+    all_to_all_single, every callable against the single-device plan.
+    Returns its launches by instantiation, or None after emitting the
+    failure."""
+    import numpy as np
+
+    from ntt_aie_tpu_torch.parallel import launch, runs
+
+    case = ("nccl", "plan", "p469762049", NCCL_LOG_N, NCCL_LOG_N // 2,
+            ("flat", 1), {"overlap_chunks": 2}, None, DIST_NEGA)
+    spec = _dist_spec(case, rng)
+    res = launch.run_spmd(runs.run_cases, 1, backend="nccl",
+                          device_type="cuda", args=([spec], "cuda"))
+    _, want = _single_outputs(spec, dev)
+    got = {k: runs.assemble(res, 0, k) for k in spec["calls"]}
+    checks = {k: bool(np.array_equal(got[k].reshape(-1), want[k].reshape(-1))
+                      if k != "inv" else np.array_equal(got[k].reshape(-1),
+                                                        spec["a"]))
+              for k in spec["calls"]}
+    r = res[0][0]
+    ok = all(checks.values()) and r["backend"] == "nccl" and sum(
+        r["launches"]["colpass"].values()) > 0
+    emit({"phase": "nccl", "card": card, "backend": r["backend"],
+          "world": 1, "n": spec["log_n"], "checks": checks,
+          "launches_by": r["launches"], "ms_per_call": r["ms"], "ok": ok})
+    if not ok:
+        fail("nccl", "the one-rank NCCL plan differs from the single-device "
+             "plan")
+        return None
+    return r["launches"]
+
+
+def _dist_rows(errs, timing, launches):
+    """The kernels-line rows of the instantiations the distributed plan
+    added (PERF.md rows 1d and 3d): ms per launch at DIST_KERNEL_BATCH
+    (phase 31), launches from phase 32's driven calls summed over the
+    ranks, launches a transform (pass 1: one a rank; pass 2: one a chunk
+    a rank), bytes the input and output once and the operand tables once
+    (pairs of 8 bytes for the 32-bit kernel, uint64 for Goldilocks), the
+    column network's butterflies."""
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import twiddles as tw
+
+    s = tw.default_wfac_split(DIST_N2)
+    rows = []
+    for row, kern, arm, name, variant in DIST_NEW:
+        t = timing[row]
+        B, nn, cols = t["shape"]
+        gl = kern == "gl_colpass"
+        word = 8 if gl else 4
+        tables = {"dif+post": nn * cols * 8, "dif+pre+post": 2 * nn * cols * 8,
+                  "dit+pre+post": 2 * nn * cols * 8,
+                  "dif+rank1_pre": (nn + cols) * 8,
+                  "dit+rank1_post": (nn + cols) * 8,
+                  "dit+wfac_post": (DIST_N2 // s + s) * cols * 8}[variant]
+        info = t["kernel_info"]
+        rows.append({
+            "name": row, "perf_row": "3d" if gl else "1d", "route": "cuda",
+            "source": f"ntt_aie_tpu_torch/csrc/{kern}.cu",
+            "replaces": ("ntt_aie_tpu/ops/pallas_gl.py:33" if gl
+                         else "ntt_aie_tpu/ops/pallas_ntt.py:298"),
+            "variant": variant,
+            "launches": launches.get(kern, {}).get(variant, 0),
+            "launches_per_transform": (DIST_D * DIST_C if name == "licp2"
+                                       else DIST_D),
+            "max_abs_err": errs.get(f"{kern}:{variant}", 0),
+            "ms": t["us_per_call"] / 1e3,
+            "plain_ms": t["plain_us_per_call"] / 1e3,
+            "batch": B, "plain_batch": t["plain_batch"],
+            "bytes": 2 * B * nn * cols * word + tables, "table_bytes": tables,
+            "butterflies": B * cols * nn // 2 * (nn.bit_length() - 1),
+            "arithmetic": "goldilocks" if gl else "harvey4",
+            "field": (T.GOLDILOCKS if gl else T.P_469762049).name,
+            "registers": info["registers"],
+            "blocks_per_sm": info["blocks_per_sm"]})
+    return rows
+
+
+def distributed_phases(args, dev, card, rng):
+    """Phases 31-33. Returns the kernels-line rows of DIST_NEW, or None
+    after emitting the failure. Every instantiation of DIST_NEW must have
+    launched in phase 32's driven calls."""
+    got = dist_kernel_phase(args, dev, card)
+    if got is None:
+        return None
+    errs, timing = got
+    launches = dist_path_phase(args, dev, card, rng)
+    if launches is None:
+        return None
+    missing = [row for row, kern, _, _, variant in DIST_NEW
+               if not launches.get(kern, {}).get(variant)]
+    if missing:
+        fail("distributed", f"the distributed path launched none of {missing}")
+        return None
+    if nccl_phase(args, dev, card, rng) is None:
+        return None
+    return _dist_rows(errs, timing, launches)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,7 @@
 NVIDIA Hopper.
 
 A port of ``ntt_aie_tpu`` (the JAX/Pallas reference, which stays the
-oracle). It imports torch and numpy and never jax. Ported so far, on one
-device:
+oracle). It imports torch and numpy and never jax. Ported so far:
 
 - the four-step fold plan over the 32-bit fields under every reduction
   (harvey4 p < 2^29, harvey p < 2^30, montgomery odd p < 2^31, barrett
@@ -35,6 +34,11 @@ device:
   (``make_pipeline``), their layered transforms one launch of
   ``csrc/ring_layers.cu`` each (``ops/ring_layers.py``; the plain version
   ``ring_layers.layered_fwd``/``layered_inv``);
+- the distributed four-step plan on torch.distributed (``parallel``:
+  ``mesh`` builds DeviceMeshes with an explicit backend, ``launch.run_spmd``
+  spawns the ranks, ``fourstep`` the 32-bit and Goldilocks plans with
+  chunked, dp-batched and hierarchical transposes, and the pairwise
+  mode), behind ``NTTContext(mesh=)`` and ``RNSPolymul(mesh=)``;
 - the round-4 nested R x S column pass (``ops/nested_colpass.py``,
   ``csrc/nested_colpass.cu``, run by ``scripts/proto_nested_colpass.py``)
   and the roofline probes (``profiling/roofline.py``,
@@ -59,4 +63,4 @@ from ntt_aie_tpu_torch.goldilocks_plan import build_goldilocks_plan  # noqa: F40
 from ntt_aie_tpu_torch.api import NTTContext  # noqa: F401
 from ntt_aie_tpu_torch.rns import RNSPolymul  # noqa: F401
 from ntt_aie_tpu_torch.ops.crt import limbs_to_int, make_crt_combine  # noqa: F401
-from ntt_aie_tpu_torch import dilithium, kyber, ring_layers  # noqa: F401
+from ntt_aie_tpu_torch import dilithium, kyber, parallel, ring_layers  # noqa: F401

@@ -25,6 +25,13 @@
 //   icp2 = DIT over n2, 'post' wfac^-1 (1/n folded in), transpose_out;
 //   ncp1 = 'pre' rank-1 psi, DIF over n1, transpose_out;
 //   nicp1 = DIT over n1, 'post' rank-1 psi^-1, canonicalize.
+// The distributed plan (parallel/fourstep.py dist_passes) runs its passes
+// without the transpose (the transpose is the collective), which adds:
+//   lcp1 (full-matrix arm)  = DIF over n1, 'post' wmat;
+//   lcp1n (full-matrix arm) = 'pre' psi, DIF over n1, 'post' wmat;
+//   lcp1n (factored arm)    = 'pre' rank-1 psi, DIF over n1;
+//   licp2 (factored arm)    = DIT over n2, 'post' wfac^-1 (1/n folded in);
+// its other passes are instantiations above.
 // pick_kernel instantiates those combinations and no other.
 //
 // What it computes, per column of a (B, nn, ncols) uint32 array: the
@@ -165,14 +172,24 @@ KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
       if (pre == kOpMat) return colpass_kernel<false, true, false, kOpMat>;
       if (pre == kOpRank1)
         return colpass_kernel<false, true, false, kOpRank1>;
-    } else {  // cp2: the entry arm's, the factored arm's
+    } else {  // cp2: the entry arm's, the factored arm's; distributed lcp1n
       if (pre == kOpMat) return colpass_kernel<false, false, false, kOpMat>;
       if (pre == kOpFac) return colpass_kernel<false, false, false, kOpFac>;
+      if (pre == kOpRank1)
+        return colpass_kernel<false, false, false, kOpRank1>;
     }
+  }
+  if (!dit && !transpose_out && post == kOpMat) {  // distributed lcp1, lcp1n
+    if (pre == kOpNone)
+      return colpass_kernel<false, false, false, kOpNone, kOpMat>;
+    if (pre == kOpMat)
+      return colpass_kernel<false, false, false, kOpMat, kOpMat>;
   }
   if (dit && transpose_out) {  // icp2 of the factored arm
     if (pre == kOpNone && post == kOpFac)
       return colpass_kernel<true, true, false, kOpNone, kOpFac>;
+  } else if (dit && pre == kOpNone && post == kOpFac) {  // distributed licp2
+    return colpass_kernel<true, false, false, kOpNone, kOpFac>;
   } else if (dit) {
     if (pre == kOpNone) {  // nicp1: the fold's, the factored arm's
       if (post == kOpMat)

@@ -12,10 +12,16 @@
 // over n1 (cp1 and icp2 without 'post_t');
 // wmat_factored=True: cp2 = 'pre' wfac, DIF over n2; icp2 = DIT over n2,
 // 'post' wfac^-1 (1/n folded in), transpose_out (colpass_tile.cuh Operand
-// kOpFac: T1[c1] then T2[c0] of the row c = c1*S + c0).
-// pick_kernel instantiates those and no other combination; the
-// reference's rank-1 operand, which only its distributed plan runs, is not
-// taken yet. gl_mul_kernel is a helper, not a port of a TPU kernel: the
+// kOpFac: T1[c1] then T2[c0] of the row c = c1*S + c0);
+// and the distributed plan's passes (parallel/fourstep.py gl_dist_passes,
+// ntt_aie_tpu/parallel/fourstep.py:812-846), none with the transpose (the
+// transpose is the collective): full-matrix arm lcp1 = DIF over n1, 'post'
+// wmat; lcp1n = 'pre' psi, DIF over n1, 'post' wmat; licp1n = 'pre'
+// iwmat, DIT over n1, 'post' psi^-1; factored arm licp2 = DIT over n2,
+// 'post' wfac^-1; lcp1n = 'pre' rank-1 psi (kOpRank1: row[r] then
+// col[c]), DIF over n1; licp1n = DIT over n1, 'post' rank-1 psi^-1.
+// pick_kernel instantiates those and no other combination.
+// gl_mul_kernel is a helper, not a port of a TPU kernel: the
 // reference leaves the pointwise product of polymul to XLA
 // (goldilocks_plan.py:462); its second operand may be broadcast over the
 // first's leading axes (psi over a batch).
@@ -87,6 +93,7 @@ using colpass_tile::group_offsets;
 using colpass_tile::kOpFac;
 using colpass_tile::kOpMat;
 using colpass_tile::kOpNone;
+using colpass_tile::kOpRank1;
 using colpass_tile::Network;
 using colpass_tile::word_of;
 using gl_arith::gl_add;
@@ -109,7 +116,8 @@ struct Params {
   const uint64_t* mid;  // nested wmid (nn,), or null
   const uint64_t* mat;  // post_t operand (ncols, nn), or null
   // 'pre' and 'post' operands in their Operand form's tables (kOpMat: one
-  // (nn, ncols) table; kOpFac: T1 (nn/S, ncols) and T2 (S, ncols)), or null
+  // (nn, ncols) table; kOpFac: T1 (nn/S, ncols) and T2 (S, ncols);
+  // kOpRank1: the row vector (nn,) and the column vector (ncols,)), or null
   const uint64_t* pre;
   const uint64_t* pre2;
   const uint64_t* post;
@@ -177,16 +185,19 @@ __device__ __forceinline__ void dit_stages(uint64_t (&v)[1 << K],
   }
 }
 
-// v times the kOpMat or kOpFac operand in tables a (and b) at logical row
-// l, column col (colpass_tile.cuh mul_factors, on uint64).
+// v times the kOpMat, kOpFac or kOpRank1 operand in tables a (and b) at
+// logical row l, column col (colpass_tile.cuh mul_factors, on uint64).
 template <int kForm>
 __device__ __forceinline__ uint64_t mul_operand(uint64_t v, const Params& P,
                                                 const uint64_t* a,
                                                 const uint64_t* b, int l,
                                                 size_t col) {
-  static_assert(kForm == kOpMat || kForm == kOpFac, "a GL kernel form");
+  static_assert(kForm == kOpMat || kForm == kOpFac || kForm == kOpRank1,
+                "a GL kernel form");
   if constexpr (kForm == kOpMat) {
     return gl_mul(v, __ldg(a + (size_t)l * P.ncols + col));
+  } else if constexpr (kForm == kOpRank1) {
+    return gl_mul(gl_mul(v, __ldg(a + l)), __ldg(b + col));
   } else {
     v = gl_mul(v, __ldg(a + (size_t)(l >> P.log_s) * P.ncols + col));
     return gl_mul(v, __ldg(b + (size_t)(l & ((1 << P.log_s) - 1)) * P.ncols
@@ -357,9 +368,27 @@ KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
                  : gl_colpass_kernel<false, false, false, kOpMat>;
     if (pre == kOpFac && !dit)
       return gl_colpass_kernel<false, false, false, kOpFac>;
+    if (pre == kOpRank1 && !dit)  // distributed factored lcp1n
+      return gl_colpass_kernel<false, false, false, kOpRank1>;
   }
   if (dit && transpose_out && pre == kOpNone && post == kOpFac)
     return gl_colpass_kernel<true, true, false, kOpNone, kOpFac>;  // icp2
+  if (transpose_out) return nullptr;
+  // the distributed plan's passes with a 'post' operand
+  if (!dit && post == kOpMat) {  // full-matrix lcp1, lcp1n
+    if (pre == kOpNone) return gl_colpass_kernel<false, false, false,
+                                                 kOpNone, kOpMat>;
+    if (pre == kOpMat) return gl_colpass_kernel<false, false, false, kOpMat,
+                                                kOpMat>;
+  }
+  if (dit && pre == kOpMat && post == kOpMat)  // full-matrix licp1n
+    return gl_colpass_kernel<true, false, false, kOpMat, kOpMat>;
+  if (dit && pre == kOpNone) {  // factored licp2, licp1n
+    if (post == kOpFac)
+      return gl_colpass_kernel<true, false, false, kOpNone, kOpFac>;
+    if (post == kOpRank1)
+      return gl_colpass_kernel<true, false, false, kOpNone, kOpRank1>;
+  }
   return nullptr;
 }
 
@@ -433,7 +462,8 @@ int ntt_gl_colpass_kernel_info(int dit, int transpose_out, int mat, int pre,
 // each phase. mat null for no post_t multiply (which needs
 // transpose_out). pre_form, post_form: the Operand forms of the 'pre' and
 // 'post' operands (uint64 tables: kOpMat pre and null pre2, indexed like
-// x; kOpFac T1 and T2 of the split 2^log_s; null for kOpNone). Returns
+// x; kOpFac T1 and T2 of the split 2^log_s; kOpRank1 the row and the
+// column vector; null for kOpNone). Returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a shape or an operand combination the kernels
 // do not take.
@@ -474,7 +504,7 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
   const auto tables_ok = [](int form, const void* a, const void* b) {
     return form == kOpNone ? !a && !b
            : form == kOpMat ? a && !b
-           : form == kOpFac && a && b;
+           : (form == kOpFac || form == kOpRank1) && a && b;
   };
   if (!tables_ok(pre_form, pre, pre2) || !tables_ok(post_form, post, post2) ||
       log_s < 0 || log_s >= P.net.log_nn)

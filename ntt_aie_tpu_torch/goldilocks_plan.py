@@ -35,8 +35,7 @@ from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.gl_colpass import gl_mul, make_gl_colpass
-from ntt_aie_tpu_torch.plan import (ITEM_DISTRIBUTED, Plan, _not_ported,
-                                    flat_inner_split, flat_n2_plan,
+from ntt_aie_tpu_torch.plan import (Plan, flat_inner_split, flat_n2_plan,
                                     public_order, wfac_tables)
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
@@ -141,16 +140,15 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
     psi^-i are held once and broadcast over a batch.
 
     Tables are prepared once here, on the plan's device (None: the card,
-    RuntimeError without one). The distributed plan raises
-    NotImplementedError naming the ROADMAP.md item that ports it.
+    RuntimeError without one). A configuration with num_shards > 1 builds
+    the single-device plan at config.split, as the reference's does; the
+    distributed plan is parallel.fourstep.build_gl_distributed_plan.
     """
     field = config.field
     if not field.is_goldilocks:
         raise ValueError(f"the Goldilocks plan needs p = 2^64 - 2^32 + 1, "
                          f"got p={field.p}")
     flat = config.split[1] == 1
-    if config.num_shards != 1:
-        _not_ported("the distributed plan", ITEM_DISTRIBUTED)
     # the arm built, as the reference records it (its goldilocks_plan.py
     # :200-203)
     wfac_on = bool(wmat_factored) and not flat

@@ -8,7 +8,9 @@ DIF + canonicalize, ``icp2``: DIT + 'post_t' iwmat + transpose_out,
 ``icp1``: DIT + canonicalize; and with the reference's 'pre' and 'post'
 operands the negacyclic passes ``ncp1``/``nicp1`` and the
 ``wmat_fold=False`` arm, and with its factored ``wfac`` and rank-1
-operands the ``wmat_factored=True`` arm, ``plan.fold_passes``), under any
+operands the ``wmat_factored=True`` arm, ``plan.fold_passes``; and the
+distributed plan's passes, which never transpose,
+``parallel.fourstep.dist_passes``), under any
 ``Reduction`` (harvey4, harvey, montgomery, barrett). The operands apply in
 the reference's order (``pallas_ntt.py:434-470``): on load the 'pre'
 matrix, the 'pre' wfac and the 'pre' rank-1 operand, the stages, then the
@@ -639,14 +641,14 @@ def kernel_info(cp: ColPass, ncols: int) -> dict:
 
 
 def variant(cp) -> str:
-    """The kernel instantiation cp (a ColPass, or a
-    gl_colpass.GLColPass, which has no 'post' matrix) launches, by its
-    direction and operands, e.g. 'dif+pre+post_t+T' or 'dit+wfac_post+T'
+    """The kernel instantiation cp (a ColPass or a gl_colpass.GLColPass)
+    launches, by its direction and operands, e.g. 'dif+pre+post_t+T' or
+    'dit+wfac_post+T'
     (T: transpose_out): ``colpass.launches_by``'s and
     ``gl_colpass.launches_by``'s key."""
     parts = [cp.direction]
     for pos in FACTOR_POSITIONS:
-        mat = cp.pre if pos == "pre" else getattr(cp, "post", None)
+        mat = cp.pre if pos == "pre" else cp.post
         parts += [name for name, present in (
             (pos, mat is not None),
             (f"wfac_{pos}", cp.wfac is not None and cp.wfac_pos == pos),

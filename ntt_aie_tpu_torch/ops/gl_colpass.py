@@ -7,12 +7,15 @@ the fold arm's ``cp1`` (DIF, transpose_out, then the 'post_t' wmat
 multiply), ``cp2`` (DIF), ``icp2`` (DIT, transpose_out, then the 'post_t'
 iwmat multiply) and ``icp1`` (DIT); the ``wmat_fold=False`` arm's cp2 and
 icp1 with the matrix as 'pre'; the ``wmat_factored=True`` arm's cp2 with
-the factored ``wfac`` as 'pre' and icp2 with it as 'post'. The plain
-version also takes the reference's rank-1 operand, which only the
-distributed plan uses (the kernel does not take it yet). The operands
-apply in the reference's order (``pallas_gl.py:161-168``, ``:294-301``):
-the 'pre' matrix, wfac and rank-1 on load, the stages, the 'post' wfac and
-rank-1, the transpose, 'post_t'.
+the factored ``wfac`` as 'pre' and icp2 with it as 'post'; and the
+distributed plan's passes (``parallel.fourstep.gl_dist_passes``), which
+never transpose: a 'post' matrix (the full-matrix arm's wmat, after the
+stages), two matrices in one pass ('pre' psi and 'post' wmat, or 'pre'
+iwmat and 'post' psi^-1) and the reference's rank-1 operand (the
+factored arm's psi). The operands apply in the reference's order
+(``pallas_gl.py:161-168``, ``:294-301``): the 'pre' matrix, wfac and
+rank-1 on load, the stages, the 'post' matrix, wfac and rank-1, the
+transpose, 'post_t'.
 
 Values mod p = 2^64 - 2^32 + 1 travel as a ``(hi, lo)`` tuple of
 ``torch.int32`` planes holding uint32 bit patterns: (B, nn, ncols) in,
@@ -58,11 +61,11 @@ class GLColPass:
       is stage s's start.
     wmid: (nn,) nested mid multiply, or None for a plain network.
     wmat: (ncols, nn) 'post_t' operand, or None.
-    pre: (nn, ncols) 'pre' operand, indexed like the input, or None.
+    pre, post: (nn, ncols) 'pre' and 'post' operands, indexed like the
+      input, or None.
     wfac: (T1 (nn/S, ncols), T2 (S, ncols)), the factored four-step matrix
       at wfac_pos ('pre' or 'post'), or None.
-    rank1: (row (nn,), col (ncols,)) at rank1_pos, or None (the plain
-      version's only).
+    rank1: (row (nn,), col (ncols,)) at rank1_pos, or None.
     """
 
     nn: int
@@ -75,6 +78,7 @@ class GLColPass:
     wmid: torch.Tensor | None
     wmat: torch.Tensor | None
     pre: torch.Tensor | None = None
+    post: torch.Tensor | None = None
     wfac: tuple | None = None
     wfac_pos: str | None = None
     rank1: tuple | None = None
@@ -99,15 +103,21 @@ def _factor_tensors(kind, pos, tabs, nn, device) -> tuple:
 
 def make_gl_colpass(field, nn: int, *, direction: str,
                     inverse_tw: bool = False, wmat: np.ndarray | None = None,
-                    twiddle_pos: str = "post_t", transpose_out: bool = False,
+                    twiddle_pos: str = "post_t",
+                    wmat2: np.ndarray | None = None,
+                    twiddle_pos2: str | None = None,
+                    transpose_out: bool = False,
                     wfac: tuple | None = None, wfac_pos: str | None = None,
                     rank1: tuple | None = None, rank1_pos: str | None = None,
                     device=None) -> GLColPass:
     """Build a Goldilocks column pass for nn-point columns from the port's
     own twiddles.col_network. wmat: a host operand at twiddle_pos:
     'post_t' (the default; (ncols, nn), the four-step matrix in output
-    orientation, applied after the transpose) or 'pre' ((nn, ncols),
-    indexed like the input, applied on load). wfac: (T1 (nn/S, ncols), T2
+    orientation, applied after the transpose), 'pre' ((nn, ncols),
+    indexed like the input, applied on load) or 'post' ((nn, ncols),
+    after the stages, before the transpose); wmat2: a second operand at
+    twiddle_pos2, another position than wmat's (the reference's
+    twiddle_pos2). wfac: (T1 (nn/S, ncols), T2
     (S, ncols)) of twiddles.fourstep_wfac_T at wfac_pos ('pre' or 'post');
     rank1: (row (nn,), col (ncols,)) of twiddles.negacyclic_psi_factors at
     rank1_pos; each applied as two multiplies, as the reference's
@@ -118,23 +128,29 @@ def make_gl_colpass(field, nn: int, *, direction: str,
                          f"+ 1, got p={field.p}")
     if direction not in ("dif", "dit"):
         raise ValueError(f"direction must be 'dif' or 'dit', got {direction!r}")
-    if twiddle_pos not in ("pre", "post_t"):
-        raise ValueError(f"twiddle_pos must be 'pre' or 'post_t', got "
-                         f"{twiddle_pos!r}")
-    if wmat is not None and twiddle_pos == "post_t" and not transpose_out:
-        raise ValueError("the 'post_t' multiply needs transpose_out=True")
+    if wmat2 is not None and twiddle_pos2 is None:
+        raise ValueError("wmat2 needs twiddle_pos2")
+    mats = {}
+    for tab, pos in ((wmat, twiddle_pos), (wmat2, twiddle_pos2)):
+        if tab is None:
+            continue
+        if pos not in C.POSITIONS:
+            raise ValueError(f"twiddle position must be one of "
+                             f"{C.POSITIONS}, got {pos!r}")
+        if pos in mats:
+            raise ValueError(f"wmat and wmat2 are both at {pos!r}")
+        if pos == "post_t" and not transpose_out:
+            raise ValueError("the 'post_t' multiply needs transpose_out=True")
+        wm = _u64_tensor(tab, device)
+        rows = wm.shape[-1] if pos == "post_t" else wm.shape[0]
+        if wm.dim() != 2 or rows != nn:
+            want = f"(ncols, {nn})" if pos == "post_t" else f"({nn}, ncols)"
+            raise ValueError(f"{pos} operand {tuple(wm.shape)} is not "
+                             f"{want}")
+        mats[pos] = wm
     net = tw.col_network(field, nn, direction=direction, inverse=inverse_tw)
     phases_ts = tuple(tuple(int(t) for t in ph["ts"]) for ph in net["phases"])
     ts = [t for ph in phases_ts for t in ph]
-    wm = None
-    if wmat is not None:
-        wm = _u64_tensor(wmat, device)
-        rows = wm.shape[0] if twiddle_pos == "pre" else wm.shape[-1]
-        if wm.dim() != 2 or rows != nn:
-            want = (f"({nn}, ncols)" if twiddle_pos == "pre"
-                    else f"(ncols, {nn})")
-            raise ValueError(f"{twiddle_pos} operand {tuple(wm.shape)} is not "
-                             f"{want}")
     fac = {kind: (pos, _factor_tensors(kind, pos, tabs, nn, device))
            for kind, tabs, pos in (("wfac", wfac, wfac_pos),
                                    ("rank1", rank1, rank1_pos))
@@ -149,8 +165,7 @@ def make_gl_colpass(field, nn: int, *, direction: str,
         offsets=tuple(int(o) for o in np.cumsum([0] + ts[:-1])),
         wmid=(_u64_tensor(net["mid"]["wmid"], device)
               if net["mid"] is not None else None),
-        wmat=wm if twiddle_pos == "post_t" else None,
-        pre=wm if twiddle_pos == "pre" else None,
+        wmat=mats.get("post_t"), pre=mats.get("pre"), post=mats.get("post"),
         wfac=wfac_t, wfac_pos=wfac_pos, rank1=rank1_t, rank1_pos=rank1_pos)
 
 
@@ -181,6 +196,7 @@ def _batched(x, cp: GLColPass):
     for pos, cols in (("post_t", None if cp.wmat is None else
                        cp.wmat.shape[0]),
                       ("pre", None if cp.pre is None else cp.pre.shape[1]),
+                      ("post", None if cp.post is None else cp.post.shape[1]),
                       ("wfac", None if cp.wfac is None else
                        cp.wfac[0].shape[1]),
                       ("rank1", None if cp.rank1 is None else
@@ -225,8 +241,9 @@ def _mul_at(h, l, cp: GLColPass, pos: str) -> tuple:
     reference's order: the matrix, wfac (T1[c1] broadcast over c0, then
     T2[c0] over c1, for row c1*S + c0), rank-1 (row[r], then col[c])."""
     B, rr, cc = h.shape
-    if pos == "pre" and cp.pre is not None:
-        h, l = _mul_limbs(h, l, cp.pre, (1, rr, cc))
+    mat = cp.pre if pos == "pre" else cp.post
+    if mat is not None:
+        h, l = _mul_limbs(h, l, mat, (1, rr, cc))
     if cp.wfac is not None and cp.wfac_pos == pos:
         t1, t2 = cp.wfac
         s = t2.shape[0]
@@ -351,23 +368,21 @@ variant = C.variant
 
 def _operand_forms(cp: GLColPass) -> tuple:
     """(form, table, second table) of cp's 'pre' and of its 'post'
-    operand, in colpass's Operand forms; the kernel takes one form a
-    position and no rank-1 yet (ValueError)."""
-    if cp.rank1 is not None:
-        raise ValueError("the CUDA GL column pass takes no rank-1 operand "
-                         "(ROADMAP.md Queue 1: the distributed four-step)")
-    pre = ((C.OP_MAT, cp.pre, None) if cp.pre is not None
-           else (C.OP_NONE, None, None))
-    post = (C.OP_NONE, None, None)
-    if cp.wfac is not None:
-        if cp.wfac_pos == "post":
-            post = (C.OP_FAC, *cp.wfac)
-        elif cp.pre is None:
-            pre = (C.OP_FAC, *cp.wfac)
-        else:
-            raise ValueError("the CUDA GL column pass takes one 'pre' "
-                             f"operand, {variant(cp)} has 2")
-    return pre, post
+    operand, in colpass's Operand forms: one form a position (the kernel
+    runs one), else ValueError."""
+    out = []
+    for pos in C.FACTOR_POSITIONS:
+        mat = cp.pre if pos == "pre" else cp.post
+        forms = [(C.OP_MAT, mat, None)] if mat is not None else []
+        if cp.wfac is not None and cp.wfac_pos == pos:
+            forms.append((C.OP_FAC, *cp.wfac))
+        if cp.rank1 is not None and cp.rank1_pos == pos:
+            forms.append((C.OP_RANK1, *cp.rank1))
+        if len(forms) > 1:
+            raise ValueError(f"the CUDA GL column pass takes one '{pos}' "
+                             f"operand, {variant(cp)} has {len(forms)}")
+        out.append(forms[0] if forms else (C.OP_NONE, None, None))
+    return tuple(out)
 
 
 def _check_launch(err: int, what: str, lib) -> None:
@@ -378,8 +393,10 @@ def _check_launch(err: int, what: str, lib) -> None:
 
 def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass) -> tuple:
     for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat),
-                    ("pre", cp.pre),
-                    *((f"wfac[{i}]", t) for i, t in enumerate(cp.wfac or ()))):
+                    ("pre", cp.pre), ("post", cp.post),
+                    *((f"wfac[{i}]", t) for i, t in enumerate(cp.wfac or ())),
+                    *((f"rank1[{i}]", t)
+                      for i, t in enumerate(cp.rank1 or ()))):
         if t is not None and t.device != hi.device:
             raise ValueError(f"gl_colpass table {name} is on {t.device}, "
                              f"input on {hi.device}")

@@ -138,14 +138,6 @@ class Plan:
         return self._batched_cache[batch]
 
 
-# The ROADMAP.md Queue 1 item that ports what a plan does not have yet
-ITEM_DISTRIBUTED = "Queue 1: the distributed four-step"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
-
-
 # log2 n1 of a flat plan's internal split where another split than the
 # square measured faster (``python -m ntt_aie_tpu_torch.scripts.flat_splits``
 # on an NVIDIA H100 80GB HBM3 at 700 W, two readings each, PERF.md):
@@ -366,8 +358,10 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
 
     Tables are prepared once here, on the plan's device: the card when
     device is None (RuntimeError without one; device="cpu" runs the plain
-    PyTorch version). Configurations outside the ported slice raise
-    NotImplementedError naming the ROADMAP.md item that ports them.
+    PyTorch version). A configuration with num_shards > 1 builds the
+    single-device plan at its split (config.split, which num_shards
+    shapes), as the reference's build_plan does: the plan the distributed
+    plan (parallel.fourstep) equals bit for bit.
     """
     field = config.field
     kind = resolve_kind(config.reduction, field)
@@ -381,8 +375,6 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
                                      wmat_fold=wmat_fold)
     red = make_reduction(kind, field)
     flat = config.split[1] == 1
-    if config.num_shards != 1:
-        _not_ported("the distributed plan", ITEM_DISTRIBUTED)
     # the arm built, as the reference records it (its plan.py:193-198)
     wfac_on = bool(wmat_factored) and not flat
     fold_on = not fused and (flat or (wmat_fold is not False

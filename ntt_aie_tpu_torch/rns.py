@@ -1,4 +1,4 @@
-"""RNS (residue number system) polynomial multiplication on one device.
+"""RNS (residue number system) polynomial multiplication.
 
 Port of ``ntt_aie_tpu.rns``: exact convolution of polynomials whose
 coefficients pass any word prime. The product runs once in each of k
@@ -8,8 +8,10 @@ kernel ``csrc/crt.cu`` on the card). It is the exact integer product
 whenever every output coefficient lies in (-M/2, M/2], which inputs
 bounded by ``max_input_bound()`` guarantee.
 
-The distributed plans of the reference (``mesh=``, ``dp_axis=``,
-``overlap_chunks``) are not ported; its JAX knobs (``engine``,
+With ``mesh=`` every residue field's product runs on the distributed
+four-step plan (``parallel.fourstep``) over the mesh's axis 'x', and the
+CRT combine on each rank's block (``overlap_chunks`` and ``dp_axis``
+forward to the plans). The reference's JAX knobs (``engine``,
 ``interpret``) do not apply.
 """
 
@@ -24,7 +26,7 @@ import torch
 from ntt_aie_tpu_torch import fields as F
 from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops.crt import limbs_to_int, make_crt_combine
-from ntt_aie_tpu_torch.plan import ITEM_DISTRIBUTED, build_plan
+from ntt_aie_tpu_torch.plan import build_plan
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
 DEFAULT_FIELDS = (F.P_2013265921, F.P_998244353, F.P_469762049)
@@ -41,6 +43,16 @@ class RNSPolymul:
     above n = 2^16, the flat split up to it; with negacyclic=True the
     negacyclic product), on `device`: None is the card
     (utils.device.resolve_device), "cpu" the plain PyTorch route.
+
+    mesh: a parallel.mesh DeviceMesh (built on every rank) runs every
+    field's product on the distributed plan over its axis 'x' at
+    rows_log2 = max(log_n // 2, log2 D), as the reference's;
+    overlap_chunks forwards to those plans (without a mesh it is not
+    used, as in the reference). dp_axis: a 2-D mesh's data-parallel axis;
+    (B, n) inputs then split their rows over it. polymul_limbs returns
+    this rank's block of limbs, (n1, n2/D, nwords) (or (B/dp, ..)), and
+    polymul the whole product (this rank's batch rows with dp_axis),
+    gathered over the shard axis.
     """
 
     def __init__(self, log_n: int, prime_fields: Sequence = DEFAULT_FIELDS,
@@ -64,18 +76,32 @@ class RNSPolymul:
                         f"and {g.p} (duplicate/shared factor would make the "
                         "CRT basis degenerate)")
         self.negacyclic = negacyclic
+        self.mesh = mesh
+        self.dp_axis = dp_axis
         if mesh is None and dp_axis is not None:
             raise ValueError("dp_axis requires mesh= (a 2D dp x coeff mesh)")
-        if mesh is not None or overlap_chunks != 1:
-            raise NotImplementedError(
-                "mesh=, dp_axis= and overlap_chunks (the distributed RNS "
-                f"plans) are not ported yet: ROADMAP.md {ITEM_DISTRIBUTED}")
         self.device = resolve_device(device)
-        cfg_kw = {} if rows_log2 is None else {"rows_log2": rows_log2}
-        self.plans = [
-            build_plan(NTTConfig(field=f, log_n=log_n, negacyclic=negacyclic,
-                                 **cfg_kw), device=self.device)
-            for f in self.fields]
+        if mesh is None:
+            cfg_kw = {} if rows_log2 is None else {"rows_log2": rows_log2}
+            self.plans = [
+                build_plan(NTTConfig(field=f, log_n=log_n,
+                                     negacyclic=negacyclic, **cfg_kw),
+                           device=self.device)
+                for f in self.fields]
+        else:
+            from ntt_aie_tpu_torch.parallel.fourstep import (
+                build_distributed_plan)
+            from ntt_aie_tpu_torch.parallel.mesh import axis_size
+
+            D = axis_size(mesh, "x")
+            rows_log2 = max(log_n // 2, D.bit_length() - 1)
+            self.plans = [
+                build_distributed_plan(
+                    NTTConfig(field=f, log_n=log_n, negacyclic=negacyclic,
+                              num_shards=D, rows_log2=rows_log2),
+                    mesh, device=self.device, overlap_chunks=overlap_chunks,
+                    dp_axis=dp_axis)
+                for f in self.fields]
         self.modulus = math.prod(f.p for f in self.fields)
         # CRT basis e_i = M_i * (M_i^-1 mod p_i), M_i = M / p_i: the host's
         # object-math combine, which checks the device limbs
@@ -121,6 +147,21 @@ class RNSPolymul:
         ra_all, rb_all = self._residues(a), self._residues(b)
         batch = ra_all[0].shape[0] if ra_all[0].ndim == 2 else None
         key = "negacyclic_polymul" if self.negacyclic else "polymul"
+        if self.mesh is not None:
+            if batch is not None and self.dp_axis is None:
+                raise ValueError(
+                    "batched RNS polymul over a mesh needs dp_axis= "
+                    "(a 2D dp x coeff mesh); with a 1D mesh pass one "
+                    "(n,) vector per call")
+            if batch is None and self.dp_axis is not None:
+                raise ValueError(
+                    "dp_axis plans take batched (B, n) inputs with B "
+                    "divisible by the dp axis size; pass a batch or "
+                    "drop dp_axis for single-vector calls")
+            return [getattr(plan, key)(plan.shard_input(ra),
+                                       plan.shard_input(rb))
+                    for plan, ra, rb in zip(self.plans, ra_all, rb_all)], \
+                True
         fns = []
         for plan in self.plans:
             calls = (plan.make_batched(batch) if batch is not None else
@@ -153,7 +194,7 @@ class RNSPolymul:
         does)."""
         pending, mat = self._residue_products(a, b)
         out = self._combine(*pending)
-        if mat:
+        if mat and self.mesh is None:
             lead = out.shape[:-3]
             out = out.reshape(lead + (self.n, self.nwords))
         return out
@@ -161,5 +202,11 @@ class RNSPolymul:
     def polymul(self, a, b) -> np.ndarray:
         """Exact cyclic (or negacyclic) product of signed-integer-coefficient
         polynomials; inputs must be ints with |c| <= max_input_bound().
-        Output coefficients are exact signed integers (centered lift)."""
-        return limbs_to_int(self.polymul_limbs(a, b))
+        Output coefficients are exact signed integers (centered lift).
+        Over a mesh, every rank gets the whole product (of its batch rows
+        with dp_axis)."""
+        limbs = self.polymul_limbs(a, b)
+        if self.mesh is not None:
+            limbs = self.plans[0].gather(limbs, dim=-2)
+            limbs = limbs.reshape(limbs.shape[:-3] + (self.n, self.nwords))
+        return limbs_to_int(limbs)

@@ -16,7 +16,11 @@ product, and the wmat_factored=True and Goldilocks wmat_fold=False plans
 against the fold plan; the four ring_layers instantiations (ML-KEM and
 ML-DSA forward and inverse) against their plain versions, the ML-KEM-768
 and ML-DSA-65 serving steps against the plain route, the reference-parity
-plan against the native network, and n = 2 on the flat split.
+plan against the native network, and n = 2 on the flat split; the
+distributed plan's column-pass instantiations (parallel/fourstep.py
+dist_passes, gl_dist_passes: the passes without the transpose) against
+their plain versions, and the distributed plan on two ranks that share
+the card (gloo) and on one NCCL rank, against the single-device plan.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -37,6 +41,8 @@ from ntt_aie_tpu_torch.ops import fused_fourstep as FF
 from ntt_aie_tpu_torch.ops import gl_colpass as G
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops import nested_colpass as N
+from ntt_aie_tpu_torch.parallel import fourstep as FS
+from ntt_aie_tpu_torch.parallel import launch, runs
 from ntt_aie_tpu_torch.plan import fold_passes, fused_passes
 from ntt_aie_tpu_torch.profiling import roofline as RL
 
@@ -665,10 +671,11 @@ def test_prepost_kernel_info_and_refusal(cuda):
         info = C.kernel_info(cp, 1024)
         assert info["variant"] == C.variant(cp)
         assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
-    # no plan runs 'post' on a DIF pass: the launcher refuses it
+    # no plan runs 'post' on a DIF pass that transposes (the distributed
+    # plan's lcp1 runs it without the transpose): the launcher refuses it
     cp = C.make_colpass(T.P_469762049, 32, direction="dif",
                         wmat=np.ones((32, 64), np.int64), twiddle_pos="post",
-                        device=cuda)
+                        transpose_out=True, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         C.colpass(torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda), cp)
     with pytest.raises(RuntimeError):
@@ -832,12 +839,15 @@ def test_wfac_kernel_info_and_refusal(cuda):
                         wfac_pos="pre", device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         C.colpass(torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda), cp)
-    # the GL kernel takes no rank-1 operand yet: the wrapper raises
+    # the GL kernel takes rank-1 where the distributed plan runs it (DIF
+    # 'pre', DIT 'post'), and no plan runs it on a DIT pass's entry: the
+    # launcher refuses that
     row, col = tw.negacyclic_psi_factors(T.GOLDILOCKS, 32, 64)
-    gcp = G.make_gl_colpass(T.GOLDILOCKS, 32, direction="dif",
-                            rank1=(row, col), rank1_pos="pre", device=cuda)
+    gcp = G.make_gl_colpass(T.GOLDILOCKS, 32, direction="dit",
+                            inverse_tw=True, rank1=(row, col),
+                            rank1_pos="pre", device=cuda)
     z = torch.zeros(1, 32, 64, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="rank-1"):
+    with pytest.raises(RuntimeError, match="launch failed"):
         G.gl_colpass((z, z), gcp)
 
 
@@ -1006,3 +1016,117 @@ def test_flat_n2_on_the_card(cuda, name):
             host(bat["negacyclic_polymul"](a, b))[r],
             native_oracle.negacyclic_polymul(u[r], v[r],
                                              field.root_of_unity(4), p))
+
+
+# the distributed passes: (arm, pass); lcp2/licp2 are lists over chunks
+DIST_PASSES = [(arm, name) for arm in (True, False)
+               for name in ("lcp1", "lcp2", "licp2", "licp1", "lcp1n",
+                            "licp1n")]
+
+
+def _dist_inputs(cp, name, n1, n2, D, C, B, draw):
+    rows, cols = ((n1, n2 // D) if name in ("lcp1", "licp1", "lcp1n",
+                                            "licp1n")
+                  else (n2, n1 // (D * C)))
+    return draw((B, rows, cols))
+
+
+@pytest.mark.parametrize("kind,field,top,shape", WFAC_CASES)
+def test_dist_kernels_match_plain(cuda, kind, field, top, shape):
+    n1, n2 = shape
+    D, chunks = 2, 2
+    g = torch.Generator(device=cuda).manual_seed(n1 * 7 + n2)
+    for arm in (True, False):
+        passes = FS.dist_passes(field, n1, n2, D, chunks, 1, reduction=kind,
+                                wmat_factored=arm, negacyclic=True,
+                                device=cuda)
+        for name in ("lcp1", "lcp2", "licp2", "licp1", "lcp1n", "licp1n"):
+            cps = passes[name] if isinstance(passes[name], list) else [
+                passes[name]]
+            for cp in cps:
+                x = _dist_inputs(cp, name, n1, n2, D, chunks, 3, lambda sh: (
+                    torch.randint(0, top * field.p, sh, dtype=torch.int64,
+                                  device=cuda, generator=g)
+                    .to(torch.int32)))
+                before = dict(C.colpass.launches_by)
+                got = C.colpass(x, cp)
+                torch.cuda.synchronize()
+                key = C.variant(cp)
+                assert "T" not in key.split("+")
+                assert C.colpass.launches_by[key] == before.get(key, 0) + 1
+                assert torch.equal(got, C.colpass_plain(x, cp)), (arm, name)
+
+
+@pytest.mark.parametrize("n1,n2", [(1024, 1024), (2048, 256), (128, 512)])
+def test_gl_dist_kernels_match_plain(cuda, n1, n2):
+    rng = np.random.default_rng(n1 * 3 + n2)
+    D, chunks = 4, 2
+    for arm in (True, False):
+        passes = FS.gl_dist_passes(T.GOLDILOCKS, n1, n2, D, chunks, 3,
+                                   wmat_factored=arm, negacyclic=True,
+                                   device=cuda)
+        for name in ("lcp1", "lcp2", "licp2", "licp1", "lcp1n", "licp1n"):
+            cps = passes[name] if isinstance(passes[name], list) else [
+                passes[name]]
+            for cp in cps:
+                x = _dist_inputs(cp, name, n1, n2, D, chunks, 2, lambda sh: (
+                    M.gl_from_u64(_gl_values(rng, sh), cuda)))
+                before = dict(G.gl_colpass.launches_by)
+                got = G.gl_colpass(x, cp)
+                torch.cuda.synchronize()
+                key = G.variant(cp)
+                assert G.gl_colpass.launches_by[key] == before.get(key,
+                                                                   0) + 1
+                want = G.gl_colpass_plain(x, cp)
+                assert all(torch.equal(u, v) for u, v in zip(got, want)), (
+                    arm, name)
+
+
+def _dist_case(kind, field, log_n, rows, D, plan, a, b):
+    return dict(kind=kind, field=field, log_n=log_n,
+                config=dict(rows_log2=rows, num_shards=D, negacyclic=True),
+                mesh=("flat", D), plan=plan, a=a, b=b,
+                calls=["fwd", "inv", "polymul", "negacyclic_polymul"])
+
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_distributed_on_the_card(cuda, backend, world):
+    """Two gloo ranks that share the card (one NCCL rank: its collective
+    path), the factored and the full-matrix arm with two chunks, and
+    Goldilocks, against the single-device plans on the card."""
+    rng = np.random.default_rng(world)
+    n = 1 << 14
+    a, b = (rng.integers(0, P, n) for _ in range(2))
+    ga, gb = (_gl_values(rng, n) for _ in range(2))
+    cases = [
+        _dist_case("plan", "p469762049", 14, 7, world, {"overlap_chunks": 2},
+                   a, b),
+        _dist_case("plan", "p469762049", 14, 7, world,
+                   {"wmat_factored": False, "overlap_chunks": 2}, a, b),
+        _dist_case("gl", "goldilocks", 14, 7, world, {"overlap_chunks": 2},
+                   ga, gb)]
+    res = launch.run_spmd(runs.run_cases, world, backend=backend,
+                          device_type="cuda", args=(cases, "cuda"))
+    cfg = T.NTTConfig(field=T.P_469762049, log_n=14, rows_log2=7,
+                      negacyclic=True)
+    single = T.build_plan(cfg, device=cuda)
+    gsingle = T.build_plan(T.NTTConfig(field=T.GOLDILOCKS, log_n=14,
+                                       rows_log2=7, negacyclic=True),
+                           device=cuda)
+    for i, (sp, x, y) in enumerate(((single, a, b), (single, a, b),
+                                    (gsingle, ga, gb))):
+        gl = i == 2
+
+        def host(v):
+            return v if gl else v.cpu().numpy().astype(np.int64)
+
+        got = {k: runs.assemble(res, i, k).reshape(-1)
+               for k in ("fwd", "inv", "polymul", "negacyclic_polymul")}
+        assert np.array_equal(got["fwd"], host(sp.fwd(x))), i
+        assert np.array_equal(got["inv"], x), i
+        assert np.array_equal(got["polymul"], host(sp.polymul(x, y))), i
+        assert np.array_equal(got["negacyclic_polymul"],
+                              host(sp.negacyclic_polymul(x, y))), i
+        counts = res[0][i]["launches"]["gl_colpass" if gl else "colpass"]
+        assert sum(counts.values()) > 0
+

@@ -4,9 +4,13 @@ raise RuntimeError (no CPU fallback); device="cpu" takes the plain PyTorch
 route. The CUDA check is patched here, so the tests say the same on any
 machine; the card tests (test_torch_cuda.py) build on the real card."""
 
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import ntt_aie_tpu_torch as T
 from ntt_aie_tpu_torch import dilithium, kyber
@@ -16,6 +20,8 @@ from ntt_aie_tpu_torch.ops import fused_fourstep as FF
 from ntt_aie_tpu_torch.ops import gl_colpass as G
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops import nested_colpass as N
+from ntt_aie_tpu_torch.parallel import fourstep as FS
+from ntt_aie_tpu_torch.parallel import mesh as MS
 from ntt_aie_tpu_torch.plan import fold_passes, fused_passes
 from ntt_aie_tpu_torch.profiling import roofline as RL
 from ntt_aie_tpu_torch.utils.device import resolve_device
@@ -27,7 +33,25 @@ WMID = np.ones((32, 32), dtype=np.int64)
 REF_CFG = T.NTTConfig(field=T.KYBER, log_n=11, table_convention="reference",
                       ordering="reference")
 N2_CFG = T.NTTConfig(field=F32, log_n=1, negacyclic=True)
+NEGA_CFG = T.NTTConfig(field=F32, log_n=10, rows_log2=5, negacyclic=True)
 POLY = np.zeros((2, 256), dtype=np.int64)
+
+
+def _mesh1():
+    """A one-rank gloo mesh on the CPU (the group is this process's, made
+    on first use and left to the module's teardown)."""
+    if not dist.is_initialized():
+        path = os.path.join(tempfile.mkdtemp(), "store")
+        dist.init_process_group("gloo", store=dist.FileStore(path, 1),
+                                rank=0, world_size=1)
+    return MS.make_mesh(1, device="cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_rank_group():
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _poly(d):
@@ -75,6 +99,23 @@ ENTRY_POINTS = {
     "build_plan_reference": lambda d: T.build_plan(REF_CFG, device=d).fwd(
         np.arange(2048)),
     "build_plan_n2": lambda d: T.build_plan(N2_CFG, device=d),
+    # the distributed entry points, on a one-rank CPU mesh
+    "build_distributed_plan": lambda d: FS.build_distributed_plan(
+        NEGA_CFG, _mesh1(), device=d, overlap_chunks=2),
+    "build_distributed_plan_full": lambda d: FS.build_distributed_plan(
+        NEGA_CFG, _mesh1(), device=d, wmat_factored=False),
+    "build_gl_distributed_plan": lambda d: FS.build_gl_distributed_plan(
+        GL_CFG, _mesh1(), device=d),
+    "build_pairwise_plan": lambda d: FS.build_pairwise_plan(
+        CFG, _mesh1(), device=d)[1](np.arange(CFG.n)),
+    "dist_passes": lambda d: FS.dist_passes(F32, 32, 32, 2, 2, 1,
+                                            negacyclic=True, device=d),
+    "gl_dist_passes": lambda d: FS.gl_dist_passes(
+        T.GOLDILOCKS, 32, 32, 2, 2, 1, wmat_factored=False,
+        negacyclic=True, device=d),
+    "NTTContext_mesh": lambda d: T.NTTContext(CFG, mesh=_mesh1(), device=d),
+    "RNSPolymul_mesh": lambda d: T.RNSPolymul(8, mesh=_mesh1(),
+                                              device=d).plans,
     # the ring pipelines hold callables: what their ntt makes of NumPy
     "kyber_make_pipeline": lambda d: kyber.make_pipeline(device=d)["ntt"](
         POLY),
@@ -119,7 +160,7 @@ def test_default_device_raises_without_cuda(no_cuda, name):
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_explicit_cpu_builds_on_the_cpu(no_cuda, name):
     built = ENTRY_POINTS[name]("cpu")
-    if name == "NTTContext":
+    if name.startswith("NTTContext"):
         assert built.device == torch.device("cpu")
         built = built.plan
     tensors = _tensors(built)
@@ -133,6 +174,21 @@ def test_default_resolves_to_cuda(monkeypatch):
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+
+
+def test_mesh_default_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MS.make_mesh(1)
+    assert MS.make_mesh(1, device="cpu").device_type == "cpu"
+
+
+def test_nccl_refuses_ranks_that_share_a_card(monkeypatch):
+    _mesh1()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="one card a rank"):
+        MS._check_backend("nccl", "cuda")
+    with pytest.raises(ValueError, match="NCCL runs on the card"):
+        MS._check_backend("nccl", "cpu")
 
 
 def test_measurements_raise_without_cuda(no_cuda):

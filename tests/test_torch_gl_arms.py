@@ -202,7 +202,13 @@ def test_gl_fold_passes_arms():
                            device="cpu")
     assert entry["cp2"].pre.shape == (32, 16)
     assert entry["icp1"].pre.shape == (16, 32)
-    with pytest.raises(ValueError, match="twiddle_pos"):
+    # a 'post' matrix (the distributed plan's, untransposed) is taken
+    # now; a position the reference does not name is refused
+    post = G.make_gl_colpass(T.GOLDILOCKS, 16, direction="dif",
+                             wmat=np.ones((16, 8), np.uint64),
+                             twiddle_pos="post", device="cpu")
+    assert post.post.shape == (16, 8) and post.pre is None
+    with pytest.raises(ValueError, match="twiddle position"):
         G.make_gl_colpass(T.GOLDILOCKS, 16, direction="dif",
                           wmat=np.ones((16, 8), np.uint64),
-                          twiddle_pos="post", device="cpu")
+                          twiddle_pos="mid", device="cpu")

@@ -144,7 +144,7 @@ def test_natural_ordering(log_n, rows_log2):
 
 
 def test_context_delegates():
-    _, tc = _cfgs(16, 8)
+    jc, tc = _cfgs(16, 8)
     ctx = T.NTTContext(tc, device="cpu")
     plan = _port_plan(16, 8)
     n1, n2 = tc.split
@@ -164,8 +164,17 @@ def test_context_delegates():
     nat = T.NTTContext(_cfgs(16, 8, ordering="natural")[1], device="cpu")
     with pytest.raises(NotImplementedError):
         nat.forward_mat(a.reshape(n1, n2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.NTTContext(tc, device="cpu", mesh=object())
+    # a mesh= that is no mesh: the reference's context takes it and fails
+    # where it builds its plan; the port's does the same, with the same
+    # exception type (a real DeviceMesh: tests/test_torch_dist_api.py)
+    from ntt_aie_tpu.api import NTTContext as JContext
+
+    jctx = JContext(jc, mesh=object())
+    tctx = T.NTTContext(tc, device="cpu", mesh=object())
+    with pytest.raises(Exception) as jerr:
+        jctx.plan
+    with pytest.raises(type(jerr.value)):
+        tctx.plan
     with pytest.raises(TypeError):
         T.NTTContext(tc, device="cpu", overlap_chunks=2)
 
@@ -197,9 +206,23 @@ def test_context_host_paths_match_reference(ordering):
     ({"log_n": 11, "num_shards": 2}, {}),
 ])
 def test_out_of_slice_configs_raise(kw, build_kw):
+    """A configuration sharded over num_shards devices, which raised
+    before the distributed plan was ported: build_plan builds the
+    single-device plan at its split (8 x 256 here), as the reference's
+    build_plan does, and it equals the reference's bit for bit."""
     cfg = T.NTTConfig(field=T.P_469762049, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.build_plan(cfg, device="cpu", **build_kw)
+    jc = jcfg.NTTConfig(field=jF.P_469762049, **kw)
+    assert cfg.split == jc.split == (8, 256)
+    plan = T.build_plan(cfg, device="cpu", **build_kw)
+    jp = jplan.build_plan(jc, engine="xla")
+    a, b = _inputs(cfg.log_n, seed=7)
+    a, b = a[0], b[0]
+    aj, bj = (jnp.asarray(v, jnp.uint32) for v in (a, b))
+    f = _np(plan.fwd(a))
+    assert np.array_equal(f, np.asarray(jp.fwd(aj)).astype(np.int64))
+    assert np.array_equal(_np(plan.inv(f)), a)
+    assert np.array_equal(_np(plan.polymul(a, b)),
+                          np.asarray(jp.polymul(aj, bj)).astype(np.int64))
 
 
 @pytest.mark.parametrize("build_kw", [{"fused": True, "wmat_factored": True},

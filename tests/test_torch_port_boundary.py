@@ -30,6 +30,11 @@ MODULES = [
     "ntt_aie_tpu_torch.ops.reductions",
     "ntt_aie_tpu_torch.ops.ring_layers",
     "ntt_aie_tpu_torch.ops.stages",
+    "ntt_aie_tpu_torch.parallel",
+    "ntt_aie_tpu_torch.parallel.fourstep",
+    "ntt_aie_tpu_torch.parallel.launch",
+    "ntt_aie_tpu_torch.parallel.mesh",
+    "ntt_aie_tpu_torch.parallel.runs",
     "ntt_aie_tpu_torch.profiling",
     "ntt_aie_tpu_torch.profiling.roofline",
     "ntt_aie_tpu_torch.scripts",
@@ -110,3 +115,16 @@ def test_nested_script_runs_without_jax():
     assert '"check": "ok"' in res.stdout
     res = _run(["-m", mod, "bench", "2", "1"])
     assert res.returncode != 0 and "no CUDA device" in res.stderr
+
+
+def test_spawned_ranks_import_no_jax():
+    """The distributed plan's ranks (run_spmd, spawn start method) hold
+    neither jax nor the JAX package, though the process that spawns them
+    here has both."""
+    import jax  # noqa: F401 (the parent holds it)
+
+    from ntt_aie_tpu_torch.parallel import launch, runs
+
+    for got in launch.run_spmd(runs.probe, 2, backend="gloo",
+                               device_type="cpu"):
+        assert got == {"jax": False, "ntt_aie_tpu": False}

@@ -141,11 +141,23 @@ def test_rns_validation_matches_reference():
 
 
 def test_rns_distributed_and_device_options():
+    # the distributed options as the reference takes them: overlap_chunks
+    # without a mesh builds the single-device plans (and is not used); a
+    # mesh= that is no mesh fails where the plans read its axis, with the
+    # reference's exception type (a real DeviceMesh:
+    # tests/test_torch_dist_api.py)
     for kw in ({"mesh": object()}, {"overlap_chunks": 2},
                {"mesh": object(), "dp_axis": "dp"}):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1: the distributed four-step"):
-            T.RNSPolymul(8, device="cpu", **kw)
+        try:
+            jrns.RNSPolymul(8, engine="xla", **kw)
+            jerr = None
+        except Exception as e:  # noqa: BLE001 (its type is the check)
+            jerr = e
+        if jerr is None:
+            assert T.RNSPolymul(8, device="cpu", **kw).plans
+        else:
+            with pytest.raises(type(jerr)):
+                T.RNSPolymul(8, device="cpu", **kw)
     with pytest.raises(TypeError):
         T.RNSPolymul(8, device="cpu", engine="xla")
     if not torch.cuda.is_available():

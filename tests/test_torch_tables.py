@@ -143,6 +143,15 @@ def test_fourstep_wfac_T_matches(name, n1, n2, inverse):
         ttw.fourstep_wfac_T(tf, n1, n2, split=3)
 
 
+@pytest.mark.parametrize("n2,split", [(32, 4), (64, 8), (128, 8),
+                                      (1024, 32), (4096, 64)])
+def test_default_wfac_split_at_the_distributed_shapes(n2, split):
+    """The split S of the factored tables the distributed plan takes
+    (default_wfac_split(n2), reference parallel/fourstep.py:252), pinned
+    at the n2 of its tests (32-128) and chip runs (1024, 4096)."""
+    assert ttw.default_wfac_split(n2) == jtw.default_wfac_split(n2) == split
+
+
 @pytest.mark.parametrize("name,n1,n2", FACTOR_SPLITS)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_negacyclic_psi_factors_match(name, n1, n2, inverse):
