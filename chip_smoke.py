@@ -27,7 +27,10 @@ with the CRT combine kernel; and the column kernels' factored and rank-1
 operands: the wmat_factored=True plans (32-bit and Goldilocks) and the
 Goldilocks wmat_fold=False plan; n = 2 on the flat split; the ML-KEM and
 ML-DSA rings with their serving pipelines (the FIPS layered-transform
-kernel, csrc/ring_layers.cu); and the reference-parity plan.
+kernel, csrc/ring_layers.cu); and the reference-parity plan; the
+distributed four-step plan; and the entry points a user calls: the
+command line (python -m ntt_aie_tpu_torch), torch.profiler traces, the
+sweep and scaling harnesses and host streaming.
 Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
@@ -266,6 +269,38 @@ Phases, one JSON object per line:
                  network with block_permute16, and p = 469762049
                  (harvey4) at n = 2^20 equal to the NumPy and native
                  networks; NTTContext.forward_host equal; fwd timed.
+
+ 31-33. distributed — see the paragraph after the kernels line below.
+ 34. cli       — python -m ntt_aie_tpu_torch info in a subprocess; through
+                 cli.main: verify on p = 2013265921 at log-n 12, on Kyber
+                 and Dilithium at log-n 8 (each with --native, the
+                 standalone nttverify gate), on Goldilocks and --parity,
+                 every label [PASS]; bench for fwd, inv and polymul at
+                 n = 2^20 over p = 469762049 (B = 256) and Goldilocks
+                 (B = 64), each JSON line "verified": true on CUDA events,
+                 fwd with --calibrate (the measured HBM and butterfly
+                 rates);
+ 35. trace, trace_busy — the CLI's trace at n = 2^20 for fwd, inv,
+                 polymul and fwd with --no-wmat-fold and --wmat-factored:
+                 method "profiler", the derived rows naming the column
+                 passes in program order (cp1 then cp2, icp2 then icp1),
+                 each pass's traced time beside CUDA events around a chain
+                 of it (host-bound at B = 1) and behind a sleep (the
+                 device's time alone); then capture_trace over a chain of
+                 5 fwd_mat at B = 256, one B = 1 fwd and a chain of 20:
+                 the traced window, the device time and the busy share;
+ 36. sweep     — run_sweep at log-n 12-20, B = 1 and 64, its CSVs under
+                 build/chip_smoke/sweep;
+ 37. scaling   — run_scaling at D = 1, 2 with gloo (D = 2: two ranks that
+                 share the card, never a multi-chip figure) and the NCCL
+                 request (D = 2 skipped with a printed line on one card);
+ 38. stream    — stream_transform over 8 host batches of fwd_mat at
+                 n = 2^20, B = 16, each output equal to a direct call; its
+                 time beside a serial pageable loop and the same pipeline
+                 at prefetch 1, in turns.
+Each of phases 34-38 zeroes the column kernels' counts just before its
+driven calls, reads them just after and fails if none launched; the
+colpass and gl_colpass rows carry them as "entry_point_launches".
 
 Then one line {"kernels": [...]}: per kernel its time at the main path's
 shape ("ms", per launch), launches, the plain version's time, and its
@@ -710,6 +745,10 @@ def main() -> int:
     dist_rows = distributed_phases(args, dev, card, rng)
     if dist_rows is None:
         return 1
+    torch.cuda.empty_cache()
+    entry_launches = entry_point_phases(args, dev, card, rng)
+    if entry_launches is None:
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -745,6 +784,10 @@ def main() -> int:
         "nwords": crt_row["nwords"]})
     rows += pqc_rows
     rows += dist_rows
+    # the launches of the entry points of phases 34-38, by kernel
+    for row in rows:
+        if row["name"] in entry_launches:
+            row["entry_point_launches"] = entry_launches[row["name"]]
     # each row's launches are its own path's; the flat phases' apart
     for row in rows:
         row["flat_launches"] = flat_launches.get(row["name"], 0)
@@ -3716,6 +3759,452 @@ def distributed_phases(args, dev, card, rng):
     if nccl_phase(args, dev, card, rng) is None:
         return None
     return _dist_rows(errs, timing, launches)
+
+
+
+# Phases 34-38: the entry points a user calls. The CLI's verify runs
+# (argv) and bench cells ((field, log_n, batch) for each op); the trace
+# cells ((label, op, extra flags)); the sweep's grid; the scaling cells;
+# the streamed batches.
+CLI_VERIFY = (["verify", "--field", "P_2013265921", "--log-n", "12",
+               "--native"],
+              ["verify", "--field", "KYBER", "--log-n", "8", "--native"],
+              ["verify", "--field", "DILITHIUM", "--log-n", "8", "--native"],
+              ["verify", "--field", "GOLDILOCKS", "--log-n", "12"],
+              ["verify", "--parity"])
+CLI_BENCH = (("P_469762049", 20, 256), ("GOLDILOCKS", 20, 64))
+CLI_BENCH_ITERS = ("--iters", "5", "--repeats", "3")
+TRACE_LOG_N = 20
+TRACE_CELLS = (("fwd", "fwd", []), ("inv", "inv", []),
+               ("polymul", "polymul", []),
+               ("fwd_no_fold", "fwd", ["--no-wmat-fold"]),
+               ("fwd_factored", "fwd", ["--wmat-factored"]))
+# (kDit, kTranspose) of the derived rows, in program order
+TRACE_ORDER = {"fwd": [(False, True), (False, False)],
+               "inv": [(True, True), (True, False)]}
+BUSY_CHAIN, BUSY_BATCH = 5, 256
+SWEEP_LOG_NS, SWEEP_BATCHES = range(12, 21), (1, 64)
+SCALING_LOG_N, SCALING_BATCH = 20, 2
+STREAM_BATCHES, STREAM_B = 8, 16
+OUT_DIR = "build/chip_smoke"
+
+
+def _reset_counts():
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+
+    C.colpass.launches = G.gl_colpass.launches = 0
+
+
+def _counts():
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+
+    return {"colpass": C.colpass.launches,
+            "gl_colpass": G.gl_colpass.launches}
+
+
+def _run_cli(argv):
+    """cli.main(argv) in this process: (exit code, its standard output)."""
+    import contextlib
+    import io
+
+    from ntt_aie_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _pass_bools(symbol):
+    """(kDit, kTranspose) of a column-pass kernel's symbol in a trace."""
+    import re
+
+    m = re.search(r"colpass_kernel<(\w+), (\w+)", symbol)
+    return None if m is None else tuple(v in ("true", "1")
+                                        for v in m.groups())
+
+
+def cli_phase(dev, card):
+    """Phase 34: python -m ntt_aie_tpu_torch info in a subprocess; verify
+    (CLI_VERIFY) and bench (CLI_BENCH, fwd / inv / polymul) through
+    cli.main, each with the column kernels' counts zeroed just before it.
+    Returns the launches by kernel, or None after emitting the failure."""
+    import torch
+
+    res = subprocess.run([sys.executable, "-m", "ntt_aie_tpu_torch", "info"],
+                         capture_output=True, text=True, timeout=300)
+    print(res.stdout, end="", flush=True)
+    info_ok = (res.returncode == 0
+               and torch.cuda.get_device_name(0) in res.stdout
+               and f"devices: {torch.cuda.device_count()}" in res.stdout)
+    emit({"phase": "cli", "command": "info", "rc": res.returncode,
+          "ok": info_ok})
+    if not info_ok:
+        fail("cli", "python -m ntt_aie_tpu_torch info failed: "
+                    + res.stderr[-2000:])
+        return None
+    totals = {"colpass": 0, "gl_colpass": 0}
+    for argv in CLI_VERIFY:
+        _reset_counts()
+        rc, out = _run_cli(argv)
+        torch.cuda.synchronize()
+        counts = _counts()
+        print(out, end="", flush=True)
+        labels = [ln.strip() for ln in out.splitlines()
+                  if ln.strip().startswith("[")]
+        ok = rc == 0 and out.rstrip().endswith("PASS!") and all(
+            ln.startswith("[PASS]") for ln in labels)
+        emit({"phase": "cli", "command": " ".join(argv), "rc": rc,
+              "labels": labels, "launches": counts, "ok": ok})
+        if not ok:
+            fail("cli", f"{' '.join(argv)} did not pass")
+            return None
+        for k, v in counts.items():
+            totals[k] += v
+    for field, log_n, B in CLI_BENCH:
+        for op in ("fwd", "inv", "polymul"):
+            argv = ["bench", "--field", field, "--log-n", str(log_n),
+                    "--batch", str(B), "--op", op, *CLI_BENCH_ITERS]
+            if op == "fwd":  # the measured denominators of the arithmetic
+                argv.append("--calibrate")
+            _reset_counts()
+            rc, out = _run_cli(argv)
+            torch.cuda.synchronize()
+            counts = _counts()
+            print(out, end="", flush=True)
+            rep = json.loads(out.strip().splitlines()[-1])
+            kern = "gl_colpass" if field == "GOLDILOCKS" else "colpass"
+            ok = (rc == 0 and rep.get("verified") is True
+                  and rep.get("engine") == "cuda"
+                  and rep.get("clock") == "cuda_events" and counts[kern] > 0)
+            emit({"phase": "cli", "command": " ".join(argv), "rc": rc,
+                  "card": card, "us_per_transform": rep["us_per_transform"],
+                  "verified": rep.get("verified"), "launches": counts,
+                  **{k: rep[k] for k in ("measured_hbm_gbps",
+                                         "measured_vpu_bfly_per_sec",
+                                         "vpu_efficiency_measured")
+                     if k in rep},
+                  "ok": ok})
+            if not ok:
+                fail("cli", f"{' '.join(argv)}: not verified or no "
+                            "kernel launched")
+                return None
+            for k, v in counts.items():
+                totals[k] += v
+    return totals
+
+
+def _sleep_ahead_us(fn, x, *, iters=20, repeats=3, cycles=20_000_000):
+    """Device µs a call of fn, the host's enqueue hidden: a chain of
+    `iters` calls is enqueued behind a sleep kernel (torch.cuda._sleep,
+    ~10 ms at the card's clock) and timed between two CUDA events recorded
+    after it. Returns (median µs a call, whether every repeat's enqueue
+    finished inside the sleep)."""
+    import torch
+
+    fn(x)
+    torch.cuda.synchronize()
+    runs, hidden = [], True
+    for _ in range(repeats):
+        e0, start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        y = x
+        for _ in range(iters):
+            y = fn(y)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        hidden = hidden and enqueue_ms < e0.elapsed_time(start)
+        runs.append(start.elapsed_time(end) * 1e3 / iters)
+    return sorted(runs)[len(runs) // 2], hidden
+
+
+def trace_phase(dev, card, rng):
+    """Phase 35: the CLI's trace at n = 2^TRACE_LOG_N (TRACE_CELLS), each
+    summary read back: method 'profiler', the two derived rows naming the
+    column passes in program order, each pass's traced time beside
+    CUDA-event times of the same pass at B = 1; then capture_trace over a
+    chain of BUSY_CHAIN fwd_mat calls at B = BUSY_BATCH and over one B = 1
+    fwd, with the traced window, the device time and the busy share.
+    Returns the launches by kernel, or None after emitting the failure."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.profiling import trace as TR
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    totals = {"colpass": 0, "gl_colpass": 0}
+    plan = T.build_plan(T.NTTConfig(field=T.P_469762049, log_n=TRACE_LOG_N),
+                        device=dev)
+    n1, n2 = plan.config.split
+    x1 = torch.randint(0, T.P_469762049.p, (1, n1, n2), dtype=torch.int32,
+                       device=dev)
+    # CUDA events around a chain of each pass (host-bound at B = 1: the
+    # wrapper's enqueue is longer than the kernel) and behind a sleep (the
+    # device's time alone)
+    event_us = {k: time_device(plan.passes[k], x1)["us_per_iter"]
+                for k in ("cp1", "cp2", "icp2", "icp1")}
+    ahead = {k: _sleep_ahead_us(plan.passes[k], x1)
+             for k in ("cp1", "cp2", "icp2", "icp1")}
+    for label, op, extra in TRACE_CELLS:
+        summary = f"{OUT_DIR}/trace/{label}.json"
+        argv = ["trace", "--log-n", str(TRACE_LOG_N), "--op", op, "--out",
+                f"{OUT_DIR}/trace/{label}", "--summary-out", summary, *extra]
+        _reset_counts()
+        rc, out = _run_cli(argv)
+        torch.cuda.synchronize()
+        counts = _counts()
+        print(out, end="", flush=True)
+        if rc != 0:
+            fail("trace", f"{' '.join(argv)} exited {rc}")
+            return None
+        with open(summary) as f:
+            payload = json.load(f)
+        derived = payload.get("derived", [])
+        order = [_pass_bools(r["op"]) for r in derived]
+        ok = payload["method"] == "profiler" and counts["colpass"] > 0
+        if op in TRACE_ORDER:
+            ok = ok and order == TRACE_ORDER[op]
+        else:  # polymul: two forward transforms and one inverse
+            ok = ok and sum(r["count"] for r in payload["ops"]
+                            if _pass_bools(r["op"])) == 6
+        names = ("cp1", "cp2") if op == "fwd" else ("icp2", "icp1")
+        line = {"phase": "trace", "cell": label, "card": card,
+                "method": payload["method"], "launches": counts,
+                "ops": [{k: r[k] for k in ("op", "total_us", "count")}
+                        for r in payload["ops"][:6]],
+                "ok": ok}
+        if op in TRACE_ORDER:
+            line["passes"] = [
+                {"pass": name, "kernel": r["op"], "trace_us": r["us"],
+                 "cuda_events_chain_us": (event_us[name] if not extra
+                                          else None),
+                 "cuda_events_sleep_ahead_us": (ahead[name][0] if not extra
+                                                else None),
+                 "enqueue_hidden": ahead[name][1] if not extra else None,
+                 "gbf_per_sec": r["gbf_per_sec"],
+                 "hbm_utilization": r["hbm_utilization"],
+                 "vpu_utilization": r["vpu_utilization"], "bound": r["bound"]}
+                for name, r in zip(names, derived)]
+        emit(line)
+        if not ok:
+            fail("trace", f"{label}: no profiler rows, or the passes "
+                          f"out of order: {order}")
+            return None
+        for k, v in counts.items():
+            totals[k] += v
+    # the busy share: a chain of fwd_mat at B = BUSY_BATCH, one B = 1 fwd
+    fwd_mat = plan.make_batched(BUSY_BATCH)["fwd_mat"]
+    xb = torch.randint(0, T.P_469762049.p, (BUSY_BATCH, n1, n2),
+                       dtype=torch.int32, device=dev)
+
+    def chain(call, times):
+        def run(v):
+            for _ in range(times):
+                v = call(v)
+            return v
+        return run
+
+    for label, fn, x in (
+            ("fwd_mat_chain_b256", chain(fwd_mat, BUSY_CHAIN), xb),
+            ("fwd_b1", plan.fwd, x1.reshape(-1)),
+            ("fwd_b1_chain20", chain(plan.fwd, 20), x1.reshape(-1))):
+        _reset_counts()
+        d = TR.capture_trace(fn, x, trace_dir=f"{OUT_DIR}/busy/{label}")
+        counts = _counts()
+        busy = TR.device_busy(d)
+        rows = TR.summarize_trace(d)
+        kernel_us = sum(r["total_us"] for r in rows if _pass_bools(r["op"]))
+        ok = busy["device_events"] > 0 and counts["colpass"] > 0
+        emit({"phase": "trace_busy", "cell": label, "card": card,
+              "window_us": busy["window_us"], "device_us": busy["device_us"],
+              "kernel_sum_us": busy["kernel_sum_us"],
+              "colpass_us": kernel_us, "busy_share": busy["busy_share"],
+              "launches": counts, "ok": ok,
+              "note": "window: the traced call's first event to its last "
+                      "(host ops, launches and the closing synchronize); "
+                      "device_us: the union of kernel, memcpy and memset "
+                      "intervals"})
+        if not ok:
+            fail("trace", f"{label}: the trace holds no device "
+                          "event")
+            return None
+        for k, v in counts.items():
+            totals[k] += v
+    return totals
+
+
+def sweep_phase(dev, card):
+    """Phase 36: run_sweep over SWEEP_LOG_NS x SWEEP_BATCHES with its CSVs
+    under OUT_DIR/sweep. Returns the launches, or None after the
+    failure."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.profiling.sweep import run_sweep
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    rows = run_sweep(T.P_469762049, SWEEP_LOG_NS, SWEEP_BATCHES,
+                     out_dir=f"{OUT_DIR}/sweep", device=dev)
+    torch.cuda.synchronize()
+    counts = _counts()
+    ok = (len(rows) == len(SWEEP_LOG_NS) * len(SWEEP_BATCHES)
+          and counts["colpass"] > 0
+          and all(r["clock"] == "cuda_events" for r in rows))
+    emit({"phase": "sweep", "card": card, "seconds": time.perf_counter() - t0,
+          "rows": [{k: v for k, v in r.items() if k != "runs_us"}
+                   for r in rows], "launches": counts, "ok": ok})
+    if not ok:
+        fail("sweep", "the sweep is incomplete or launched no "
+                      "kernel")
+        return None
+    return counts
+
+
+def scaling_phase(dev, card):
+    """Phase 37: run_scaling at D = 1, 2 with gloo on the card (D = 2: two
+    ranks that share it, never a multi-chip figure), then the NCCL request
+    at D = 1, 2 (D = 2 skipped with a printed line where the machine has
+    one card). Returns the launches (summed over the ranks), or None."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.profiling.scaling import run_scaling
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    rows = []
+    for backend in ("gloo", "nccl"):
+        rows += run_scaling(T.P_469762049, SCALING_LOG_N, (1, 2),
+                            batch=SCALING_BATCH, iters=3, repeats=3,
+                            device=dev, backend=backend)
+    want = [("gloo", 1), ("gloo", 2), ("nccl", 1)] + (
+        [("nccl", 2)] if cards >= 2 else [])
+    ok = ([(r["backend"], r["devices"]) for r in rows] == want
+          and all(r["launches"] > 0 for r in rows)
+          and all(r["placement"] == ("ranks share one card"
+                                     if r["devices"] > cards
+                                     else "a card a rank") for r in rows))
+    for r in rows:
+        emit(dict(r, phase="scaling", card=card,
+                  note=("not a multi-chip figure: the ranks share one card "
+                        "and gloo stages the collective through the host")
+                  if r["placement"] == "ranks share one card" else None))
+    emit({"phase": "scaling_done", "seconds": time.perf_counter() - t0,
+          "ok": ok})
+    if not ok:
+        fail("scaling", "missing rows, a wrong placement or no "
+                        "kernel launched")
+        return None
+    return {"colpass": sum(r["launches"] for r in rows), "gl_colpass": 0}
+
+
+def stream_phase(dev, card, rng):
+    """Phase 38: stream_transform over STREAM_BATCHES host batches of
+    fwd_mat at n = 2^20, B = STREAM_B: every output equal to a direct call
+    on the card; the streamed time (prefetch 2) beside a serial loop
+    (pageable upload, compute, download, one batch at a time) and beside
+    the same pinned pipeline at prefetch 1 (no overlap), in turns, with
+    the parts of the serial loop alone. Returns the launches, or None
+    after the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.utils.streaming import stream_transform
+
+    plan = T.build_plan(T.NTTConfig(field=T.P_469762049, log_n=20),
+                        device=dev)
+    n1, n2 = plan.config.split
+    fwd_mat = plan.make_batched(STREAM_B)["fwd_mat"]
+    batches = [rng.integers(0, T.P_469762049.p, (STREAM_B, n1, n2))
+               .astype(np.uint32) for _ in range(STREAM_BATCHES)]
+    _reset_counts()
+    got = list(stream_transform(fwd_mat, batches))
+    torch.cuda.synchronize()
+    counts = _counts()
+    equal = all(np.array_equal(
+        y, fwd_mat(torch.from_numpy(x.view(np.int32)).to(dev)).cpu().numpy()
+        .view(np.uint32)) for x, y in zip(batches, got))
+    del got
+
+    def serial():
+        return [fwd_mat(torch.from_numpy(x.view(np.int32)).to(dev)).cpu()
+                .numpy() for x in batches]
+
+    def streamed():
+        return list(stream_transform(fwd_mat, batches))
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def prefetch1():  # the same pinned pipeline, one batch at a time
+        return list(stream_transform(fwd_mat, batches, prefetch=1))
+
+    serial()  # warm-up of the pageable path
+    runs = {"serial": serial, "streamed": streamed, "prefetch1": prefetch1}
+    times = {name: [] for name in runs}
+    for name in ("serial", "streamed", "prefetch1", "prefetch1", "streamed",
+                 "serial"):
+        times[name].append(wall(runs[name]))
+    # the serial loop's parts, one batch at a time
+    xs = [torch.from_numpy(x.view(np.int32)) for x in batches]
+    up = wall(lambda: [x.to(dev) for x in xs]) / STREAM_BATCHES
+    xd = xs[0].to(dev)
+    compute = wall(lambda: [fwd_mat(xd) for _ in batches]) / STREAM_BATCHES
+    yd = fwd_mat(xd)
+    down = wall(lambda: [yd.cpu() for _ in batches]) / STREAM_BATCHES
+    ser = min(times["serial"])
+    st = min(times["streamed"])
+    one = min(times["prefetch1"])
+    ok = equal and counts["colpass"] == 2 * STREAM_BATCHES
+    emit({"phase": "stream", "card": card, "batches": STREAM_BATCHES,
+          "batch": STREAM_B, "n": n1 * n2, "equal": equal,
+          "launches": counts, "serial_ms": times["serial"],
+          "streamed_ms": times["streamed"],
+          "prefetch1_ms": times["prefetch1"],
+          "overlap_saved_share": 1 - st / one,
+          "per_batch_ms": {"upload": up, "compute": compute,
+                           "download": down},
+          "serial_over_streamed": ser / st,
+          "time_saved_share": 1 - st / ser,
+          "bytes_per_batch": STREAM_B * n1 * n2 * 4, "ok": ok})
+    if not ok:
+        fail("stream", "streamed outputs differ from direct calls or "
+                       "the launches are off")
+        return None
+    return counts
+
+
+def entry_point_phases(args, dev, card, rng):
+    """Phases 34-38. Returns the column kernels' launches of each phase's
+    driven calls {kernel: {phase: count}}, or None after the failure."""
+    import torch
+
+    out = {"colpass": {}, "gl_colpass": {}}
+    for name, run in (("cli", lambda: cli_phase(dev, card)),
+                      ("trace", lambda: trace_phase(dev, card, rng)),
+                      ("sweep", lambda: sweep_phase(dev, card)),
+                      ("scaling", lambda: scaling_phase(dev, card)),
+                      ("stream", lambda: stream_phase(dev, card, rng))):
+        counts = run()
+        if counts is None:
+            return None
+        for kern, v in counts.items():
+            out[kern][name] = v
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -42,7 +42,16 @@ oracle). It imports torch and numpy and never jax. Ported so far:
 - the round-4 nested R x S column pass (``ops/nested_colpass.py``,
   ``csrc/nested_colpass.cu``, run by ``scripts/proto_nested_colpass.py``)
   and the roofline probes (``profiling/roofline.py``,
-  ``csrc/bfly_probe.cu``).
+  ``csrc/bfly_probe.cu``);
+- observability: torch.profiler traces with per-pass counters
+  (``profiling/trace.py``, ``roofline.derive_trace_counters``), device
+  and host-dispatch timing (``utils/timing.py``), the sweep, plot and
+  scaling harnesses (``profiling/sweep.py``, ``plots.py``,
+  ``scaling.py``);
+- the command line, ``python -m ntt_aie_tpu_torch
+  info|verify|bench|sweep|trace|scaling|plot`` (``cli.py``), and host
+  streaming that overlaps copies with compute
+  (``utils/streaming.stream_transform``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -64,3 +73,5 @@ from ntt_aie_tpu_torch.api import NTTContext  # noqa: F401
 from ntt_aie_tpu_torch.rns import RNSPolymul  # noqa: F401
 from ntt_aie_tpu_torch.ops.crt import limbs_to_int, make_crt_combine  # noqa: F401
 from ntt_aie_tpu_torch import dilithium, kyber, parallel, ring_layers  # noqa: F401
+
+__version__ = "0.1.0"

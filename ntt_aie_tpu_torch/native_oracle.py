@@ -1,11 +1,14 @@
 """ctypes binding to the native C++ golden oracle (native/oracle.cc).
 
 A jax-free twin of ``ntt_aie_tpu.native_oracle`` for the entry points the
-port's gates use: the batched forward DIF, the cyclic and negacyclic
-products, the O(n^2) schoolbook negacyclic product (the gate of the
-ML-KEM ring, which has no 2n-th root), and the reference device's
-network, power table and 16-block placement (the parity gate). The
-library builds on demand with ``make -C native`` (g++ only, no deps).
+port's gates use: the forward DIF (one vector or a batch), the inverse
+DIT, the cyclic and negacyclic products, the O(n^2) schoolbook negacyclic
+product (the gate of the ML-KEM ring, which has no 2n-th root), and the
+reference device's network, power table and 16-block placement (the
+parity gate). The library builds on demand with ``make -C native`` (g++
+only, no deps). ``write_vectors`` and ``run_verify_gate`` drive the
+standalone gate ``native/nttverify`` (``native/verify_main.cc``), which
+re-derives a claimed result in a process of its own.
 """
 
 from __future__ import annotations
@@ -48,6 +51,10 @@ def load() -> ctypes.CDLL:
     lib.ntt_make_power_table.argtypes = [pi64, i64, i64, i64]
     lib.ntt_block_permute16.restype = None
     lib.ntt_block_permute16.argtypes = [pi64, pi64, i64]
+    lib.ntt_dif_u64.restype = None
+    lib.ntt_dif_u64.argtypes = [pu64, i64, u64, u64]
+    lib.ntt_dit_u64.restype = None
+    lib.ntt_dit_u64.argtypes = [pu64, i64, u64, u64, ctypes.c_int]
     lib.ntt_dif_u64_batch.restype = None
     lib.ntt_dif_u64_batch.argtypes = [pu64, i64, i64, u64, u64]
     lib.ntt_cyclic_polymul_u64.restype = None
@@ -102,6 +109,23 @@ def schoolbook_negacyclic(a, b, p: int) -> np.ndarray:
     return c
 
 
+def ntt_dif(a, omega: int, p: int) -> np.ndarray:
+    """Forward DIF of one length-n vector: natural in, bit-reversed out."""
+    lib = load()
+    a = np.ascontiguousarray(a, dtype=np.uint64).copy()
+    lib.ntt_dif_u64(a, len(a), omega, p)
+    return a
+
+
+def ntt_dit(a, omega: int, p: int, scale: bool = False) -> np.ndarray:
+    """DIT of one length-n vector: bit-reversed in, natural out; with
+    scale=True times 1/n (the inverse transform, given omega^-1)."""
+    lib = load()
+    a = np.ascontiguousarray(a, dtype=np.uint64).copy()
+    lib.ntt_dit_u64(a, len(a), omega, p, 1 if scale else 0)
+    return a
+
+
 def ntt_dif_batch(a, omega: int, p: int) -> np.ndarray:
     """Batched forward DIF (natural in, bit-reversed out) over the rows of
     a (B, n) array, in one C call."""
@@ -131,3 +155,53 @@ def negacyclic_polymul(a, b, psi: int, p: int) -> np.ndarray:
     c = np.empty_like(a)
     lib.ntt_negacyclic_polymul_u64(a, b, c, len(a), psi, p)
     return c
+
+
+# ---- the standalone verification gate (native/verify_main.cc) ----
+
+_BIN_PATH = _NATIVE_DIR / "nttverify"
+
+# the vector file's kind codes (native/verify_main.cc)
+_KINDS = {"forward": 0, "cyclic_polymul": 1, "negacyclic_polymul": 2,
+          "negacyclic_schoolbook": 3}
+
+
+def write_vectors(path, kind: str, p: int, n: int, root: int, a, claimed,
+                  b=None) -> None:
+    """Write a .nttv vector file for nttverify: the magic "NTTV", then
+    (version 1, kind, p, n, root) little-endian, the input a, the second
+    operand b of a product, and the claimed result, each n uint64
+    (native/verify_main.cc documents the format)."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(b"NTTV")
+        f.write(struct.pack("<IIQQQ", 1, _KINDS[kind], p, n, root))
+        f.write(np.ascontiguousarray(a, dtype=np.uint64).tobytes())
+        if b is not None:
+            f.write(np.ascontiguousarray(b, dtype=np.uint64).tobytes())
+        f.write(np.ascontiguousarray(claimed, dtype=np.uint64).tobytes())
+
+
+def run_verify_gate(path) -> bool:
+    """Run the separately compiled gate native/nttverify on a vector file
+    and return True on PASS. It runs ``make -C native nttverify`` first
+    (dependency-checked, so a no-op when current), so a stale binary never
+    serves as the independent gate; a failed build raises
+    NativeOracleUnavailable. The binary's mismatch report is printed."""
+    if not (_NATIVE_DIR / "Makefile").exists():
+        raise NativeOracleUnavailable(
+            f"native sources not found at {_NATIVE_DIR}")
+    try:
+        subprocess.run(["make", "-C", str(_NATIVE_DIR), "nttverify"],
+                       check=True, capture_output=True, text=True)
+    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+        raise NativeOracleUnavailable(f"nttverify build failed: {e}") from e
+    res = subprocess.run([str(_BIN_PATH), str(path)], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        if res.stdout:
+            print(res.stdout.strip())
+        if res.stderr:
+            print(res.stderr.strip())
+    return res.returncode == 0

@@ -30,8 +30,11 @@ is the host's enqueue, which a device-bound call hides. measure_vpu_peak
 still times it once, as the script bench's ``dispatch_us``.
 
 ``roofline_bound`` turns bytes and butterflies into the least time the card
-could take. The measurements are card-only: they raise for the CPU, as
-``utils.timing.time_device`` does. No TPU calibration is carried over.
+could take. The measurements are card-only: they raise for the CPU. No TPU
+calibration is carried over: ``CAL_H100`` holds the card's denominators
+(its spec-sheet HBM rate and the probe's measured butterfly rates), and
+``derive_trace_counters`` (reference ``roofline.py:314-396``) reads a
+trace's column passes against them.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 from typing import Optional
 
 import numpy as np
@@ -336,6 +340,91 @@ def measure_vpu_peak(*, reduction: str = "harvey4", mb: int = 32,
         "r": r,
         "buffer_mb": mb,
     }
+
+
+# The card's denominators, beside the card they were taken on: the HBM rate
+# of NVIDIA's H100 SXM data sheet, and the ideal butterfly rate of each
+# arithmetic that measure_vpu_peak measured there (chip_smoke.py phase 15,
+# PERF.md section 6).
+CAL_H100 = {
+    "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+    "hbm_gbps": 3350.0,
+    "bfly_per_sec": {"harvey4": 2.122e12, "harvey": 2.614e12,
+                     "montgomery": 1.643e12, "barrett": 2.078e12,
+                     "goldilocks": 0.517e12},
+}
+
+# The column-pass kernels' symbols (csrc/colpass.cu colpass_kernel<...>,
+# csrc/gl_colpass.cu gl_colpass_kernel<...>), as the trace names them;
+# nested_colpass_kernel, the fused kernel and torch's own kernels are not
+# passes of a plan.
+_PASS_KERNEL = re.compile(r"(?<!\w)(?:gl_)?colpass_kernel\b")
+
+
+def derive_trace_counters(rows: list[dict], *, n: int, batch: int = 1,
+                          itemsize: int = 4,
+                          stages_per_pass=None,
+                          pass_table_bytes: tuple = (0, 0),
+                          hbm_gbps: Optional[float] = None,
+                          vpu_bfly: Optional[float] = None) -> list[dict]:
+    """Derived utilization planes per column pass of a fwd/inv trace
+    summary (reference roofline.py:314-396): the achieved butterfly rate
+    against the measured ideal rate (compute utilization) and the achieved
+    HBM bandwidth against the card's rate.
+
+    rows: summarize_trace output. The two passes are the two largest
+    single-count rows whose op is a column-pass kernel (_PASS_KERNEL:
+    the trace's demangled colpass_kernel<...> and gl_colpass_kernel<...>
+    symbols), in program order by their first timestamp (summarize_trace's
+    first_ts). Returns [] when no two such rows exist (e.g. the
+    marker-pair rows of a CPU run).
+
+    pass_table_bytes: extra HBM bytes per pass beyond the 2 * n * itemsize
+    read and write (twiddle-matrix operands), in time order (pass 1, pass
+    2). stages_per_pass: butterfly stages per pass in time order, an
+    (s1, s2) tuple or an int for both; None is the even forward split
+    (log2(n) // 2, log2(n) - log2(n) // 2). The denominators default to
+    the card's (CAL_H100: 3.35 TB/s and harvey4's measured rate); pass
+    the rate of the plan's arithmetic (CAL_H100["bfly_per_sec"]), or
+    vpu_bfly=0 to omit the compute plane."""
+    cand = [r for r in rows
+            if r.get("count") == 1 and _PASS_KERNEL.search(r["op"])]
+    cand = sorted(cand, key=lambda r: -r["total_us"])[:2]
+    if len(cand) < 2:
+        return []
+    cand.sort(key=lambda r: r["first_ts"])
+    hbm = hbm_gbps or CAL_H100["hbm_gbps"]
+    vpu = (vpu_bfly if vpu_bfly is not None
+           else CAL_H100["bfly_per_sec"]["harvey4"])
+    logn = int(math.log2(n))
+    if stages_per_pass is None:
+        stages = (logn // 2, logn - logn // 2)
+    elif isinstance(stages_per_pass, int):
+        stages = (stages_per_pass, stages_per_pass)
+    else:
+        stages = tuple(stages_per_pass)
+    out = []
+    for i, r in enumerate(cand):
+        t = r["total_us"] * 1e-6
+        bfly_pass = batch * (n // 2) * stages[i]
+        data_bytes = batch * 2 * n * itemsize + pass_table_bytes[i]
+        gbf = bfly_pass / t / 1e9
+        gbps = data_bytes / t / 1e9
+        d = {
+            "op": r["op"],
+            "us": r["total_us"],
+            "butterflies": bfly_pass,
+            "gbf_per_sec": round(gbf, 2),
+            "hbm_bytes": data_bytes,
+            "achieved_gbps": round(gbps, 2),
+            "hbm_utilization": round(gbps / hbm, 4),
+        }
+        if vpu:
+            d["vpu_utilization"] = round(gbf * 1e9 / vpu, 4)
+            d["bound"] = ("vpu" if gbf * 1e9 / vpu >= gbps / hbm
+                          else "hbm")
+        out.append(d)
+    return out
 
 
 def efficiency_report(seconds_per_transform: float, n: int, *,

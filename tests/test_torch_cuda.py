@@ -20,7 +20,10 @@ plan against the native network, and n = 2 on the flat split; the
 distributed plan's column-pass instantiations (parallel/fourstep.py
 dist_passes, gl_dist_passes: the passes without the transpose) against
 their plain versions, and the distributed plan on two ranks that share
-the card (gloo) and on one NCCL rank, against the single-device plan.
+the card (gloo) and on one NCCL rank, against the single-device plan;
+host streaming (utils/streaming.stream_transform: copy streams, pinned
+buffers) against direct calls, and a torch.profiler trace that names the
+column-pass kernels in program order.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -1130,3 +1133,76 @@ def test_distributed_on_the_card(cuda, backend, world):
         counts = res[0][i]["launches"]["gl_colpass" if gl else "colpass"]
         assert sum(counts.values()) > 0
 
+
+
+def _bools(symbol):
+    """(kDit, kTranspose) of a column-pass kernel's demangled symbol."""
+    import re
+
+    m = re.search(r"colpass_kernel<(\w+), (\w+)", symbol)
+    assert m, symbol
+    return tuple(v in ("true", "1") for v in m.groups())
+
+
+@pytest.mark.parametrize("op", ["fwd", "inv"])
+def test_trace_names_the_column_passes_in_order(cuda, tmp_path, op):
+    """The profiler sees both passes of a B = 1 transform at n = 2^20:
+    cp1 (DIF + transpose) before cp2, icp2 (DIT + transpose) before icp1;
+    the derived rows carry them in that order."""
+    from ntt_aie_tpu_torch.profiling import trace as TR
+
+    cfg = T.NTTConfig(field=T.P_469762049, log_n=20)
+    plan = T.build_plan(cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(20)
+    a = torch.randint(0, P, (cfg.n,), dtype=torch.int32, device=cuda,
+                      generator=g)
+    fn, x = (plan.fwd, a) if op == "fwd" else (plan.inv, plan.fwd(a))
+    d = TR.capture_trace(fn, x, trace_dir=str(tmp_path))
+    rows = TR.summarize_trace(d)
+    derived = RL.derive_trace_counters(rows, n=cfg.n)
+    assert len(derived) == 2, rows
+    dit = op == "inv"
+    assert [_bools(r["op"]) for r in derived] == [(dit, True), (dit, False)]
+    assert all(r["us"] > 0 for r in derived)
+    busy = TR.device_busy(d)
+    assert 0 < busy["device_us"] <= busy["window_us"]
+
+
+def test_stream_transform_on_the_card(cuda):
+    """The streamed outputs equal direct calls, in order, for the 32-bit
+    fwd_mat and Goldilocks tuples, with every batch's kernels launched;
+    to_host=False yields the device tensors."""
+    from ntt_aie_tpu_torch.utils.streaming import stream_transform
+
+    rng = np.random.default_rng(0)
+    plan = T.build_plan(T.NTTConfig(field=T.P_469762049, log_n=12,
+                                    rows_log2=6), device=cuda)
+    fwd_mat = plan.make_batched(4)["fwd_mat"]
+    batches = [rng.integers(0, P, (4, 64, 64)).astype(np.uint32)
+               for _ in range(5)]
+    C.colpass.launches = 0
+    got = list(stream_transform(fwd_mat, batches, prefetch=2))
+    assert C.colpass.launches == 2 * len(batches)
+    for x, y in zip(batches, got):
+        want = fwd_mat(torch.from_numpy(x.view(np.int32)).to(cuda))
+        assert np.array_equal(y, want.cpu().numpy().view(np.uint32))
+    on_card = list(stream_transform(fwd_mat, batches[:3], prefetch=3,
+                                    to_host=False))
+    for x, y in zip(batches, on_card):
+        assert y.device.type == "cuda"
+        assert torch.equal(y, fwd_mat(torch.from_numpy(
+            x.view(np.int32)).to(cuda)))
+    gplan = T.build_plan(T.NTTConfig(field=T.GOLDILOCKS, log_n=12,
+                                     rows_log2=6), device=cuda)
+    gfwd = gplan.make_batched(2)["fwd_mat"]
+    gb = []
+    for _ in range(3):
+        v = rng.integers(0, 1 << 63, (2, 64, 64), dtype=np.uint64) % \
+            np.uint64(GL_P)
+        hi, lo = M.gl_from_u64(v, "cpu")
+        gb.append((hi.numpy(), lo.numpy()))
+    for (hi, lo), out in zip(gb, stream_transform(gfwd, gb)):
+        want = gfwd((torch.from_numpy(hi).to(cuda),
+                     torch.from_numpy(lo).to(cuda)))
+        for got_p, want_p in zip(out, want):
+            assert np.array_equal(got_p, want_p.cpu().numpy().view(np.uint32))

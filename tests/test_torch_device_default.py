@@ -24,7 +24,10 @@ from ntt_aie_tpu_torch.parallel import fourstep as FS
 from ntt_aie_tpu_torch.parallel import mesh as MS
 from ntt_aie_tpu_torch.plan import fold_passes, fused_passes
 from ntt_aie_tpu_torch.profiling import roofline as RL
+from ntt_aie_tpu_torch.profiling.scaling import run_scaling
+from ntt_aie_tpu_torch.profiling.sweep import run_sweep
 from ntt_aie_tpu_torch.utils.device import resolve_device
+from ntt_aie_tpu_torch.utils.streaming import stream_transform
 
 F32 = T.P_469762049
 CFG = T.NTTConfig(field=F32, log_n=10, rows_log2=5)
@@ -129,6 +132,10 @@ ENTRY_POINTS = {
     "dilithium_intt": lambda d: dilithium.dilithium_intt(_poly(d)),
     "dilithium_matvec": lambda d: dilithium.dilithium_matvec(
         np.zeros((3, 2, 256), np.int64), _poly(d)),
+    # the streaming pipeline resolves its device at the call: what it
+    # yields for NumPy batches
+    "stream_transform": lambda d: list(stream_transform(
+        lambda v: v + 1, [np.zeros(4, np.int64)], to_host=False, device=d)),
 }
 
 
@@ -196,6 +203,17 @@ def test_measurements_raise_without_cuda(no_cuda):
         RL.measure_peak()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RL.measure_vpu_peak(reduction="goldilocks")
+
+
+@pytest.mark.parametrize("name", ["run_sweep", "run_scaling"])
+def test_harnesses_default_to_the_card(no_cuda, name):
+    """The sweep and scaling harnesses run on the card unless asked for
+    the CPU: without one they raise before timing or spawning anything
+    (their CPU runs are in test_torch_profiling.py)."""
+    run = {"run_sweep": lambda: run_sweep(F32, [4], [1], verbose=False),
+           "run_scaling": lambda: run_scaling(F32, 4, (1,), verbose=False)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run[name]()
 
 
 def test_cpu_plan_runs_the_plain_route(no_cuda):

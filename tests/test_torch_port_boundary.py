@@ -1,5 +1,7 @@
-"""The port stands apart from the jax package and has no CPU route on the
-card's path."""
+"""The port stands apart from the jax package: no module of it, its
+command line or its spawned ranks loads jax; and a kernel's wrapper has no
+CPU route for a CUDA tensor (the plain version runs only on tensors the
+caller put on the CPU)."""
 
 import os
 import pathlib
@@ -9,7 +11,9 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 MODULES = [
     "ntt_aie_tpu_torch",
+    "ntt_aie_tpu_torch.__main__",
     "ntt_aie_tpu_torch.api",
+    "ntt_aie_tpu_torch.cli",
     "ntt_aie_tpu_torch.config",
     "ntt_aie_tpu_torch.dilithium",
     "ntt_aie_tpu_torch.fields",
@@ -36,13 +40,18 @@ MODULES = [
     "ntt_aie_tpu_torch.parallel.mesh",
     "ntt_aie_tpu_torch.parallel.runs",
     "ntt_aie_tpu_torch.profiling",
+    "ntt_aie_tpu_torch.profiling.plots",
     "ntt_aie_tpu_torch.profiling.roofline",
+    "ntt_aie_tpu_torch.profiling.scaling",
+    "ntt_aie_tpu_torch.profiling.sweep",
+    "ntt_aie_tpu_torch.profiling.trace",
     "ntt_aie_tpu_torch.scripts",
     "ntt_aie_tpu_torch.scripts.flat_splits",
     "ntt_aie_tpu_torch.scripts.fused_turns",
     "ntt_aie_tpu_torch.scripts.proto_nested_colpass",
     "ntt_aie_tpu_torch.scripts.sass_count",
     "ntt_aie_tpu_torch.utils.device",
+    "ntt_aie_tpu_torch.utils.streaming",
     "ntt_aie_tpu_torch.utils.timing",
 ]
 
@@ -74,6 +83,22 @@ def test_every_port_module_is_listed():
     }
     assert found - {"ntt_aie_tpu_torch.ops", "ntt_aie_tpu_torch.utils"} \
         == set(MODULES)
+
+
+def test_cli_runs_without_jax_and_without_a_card():
+    """python -m ntt_aie_tpu_torch info lists no card here and exits 0;
+    the interpreter's import log holds neither jax nor the JAX package."""
+    res = _run(["-X", "importtime", "-m", "ntt_aie_tpu_torch", "info"])
+    assert res.returncode == 0, res.stderr
+    assert "devices: 0" in res.stdout and "p469762049" in res.stdout
+    imported = [line.rsplit("|", 1)[-1].strip()
+                for line in res.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert "ntt_aie_tpu_torch.cli" in imported
+    bad = [m for m in imported
+           if m == "jax" or m.startswith(("jax.", "jaxlib", "ntt_aie_tpu."))
+           or m == "ntt_aie_tpu"]
+    assert not bad, bad
 
 
 def test_chip_smoke_refuses_without_cuda():
