@@ -30,7 +30,8 @@ ML-DSA rings with their serving pipelines (the FIPS layered-transform
 kernel, csrc/ring_layers.cu); and the reference-parity plan; the
 distributed four-step plan; and the entry points a user calls: the
 command line (python -m ntt_aie_tpu_torch), torch.profiler traces, the
-sweep and scaling harnesses and host streaming.
+sweep and scaling harnesses and host streaming; and the five worked
+examples (python -m ntt_aie_tpu_torch.examples.<name>).
 Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
@@ -301,6 +302,25 @@ Phases, one JSON object per line:
 Each of phases 34-38 zeroes the column kernels' counts just before its
 driven calls, reads them just after and fails if none launched; the
 colpass and gl_colpass rows carry them as "entry_point_launches".
+ 39. examples  — the worked examples (ntt_aie_tpu_torch/examples), each
+                 run() on the card with its own checks (EXAMPLE_RUNS):
+                 rlwe at log-n 10 and 16 (the fused kernel's negacyclic
+                 product on the flat split), bigint at 4,096 and 2^20
+                 bits (RNS: column passes and the CRT combine), matform at
+                 n = 2^12, B = 4 and at the main path's n = 2^20, B = 256
+                 (the cached-spectrum loop equal to polymul_mat on every
+                 row, row 0 and 8 random rows on the native oracle, the
+                 loop and polymul_mat timed in turns, us per
+                 NTT-product), pqc at B = 64 and 1,024 (ring_layers.cu),
+                 distributed at its default world (one NCCL rank a card)
+                 and at four gloo ranks that share the card (the
+                 hierarchical branch; not a multi-chip figure); one line
+                 an example with its sizes, seconds and kernel launches
+                 (counted from 0 just before the run, the distributed
+                 demo's in its ranks), failing when a check fails or a
+                 listed kernel did not launch. The colpass,
+                 fused_fourstep, crt and ring_layers rows carry them as
+                 "examples_launches".
 
 Then one line {"kernels": [...]}: per kernel its time at the main path's
 shape ("ms", per launch), launches, the plain version's time, and its
@@ -746,8 +766,12 @@ def main() -> int:
     if dist_rows is None:
         return 1
     torch.cuda.empty_cache()
-    entry_launches = entry_point_phases(args, dev, card, rng)
-    if entry_launches is None:
+    entry_point_launches = entry_point_phases(args, dev, card, rng)
+    if entry_point_launches is None:
+        return 1
+    torch.cuda.empty_cache()
+    example_launches = examples_phase(dev, card, rng)
+    if example_launches is None:
         return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
@@ -786,8 +810,12 @@ def main() -> int:
     rows += dist_rows
     # the launches of the entry points of phases 34-38, by kernel
     for row in rows:
-        if row["name"] in entry_launches:
-            row["entry_point_launches"] = entry_launches[row["name"]]
+        if row["name"] in entry_point_launches:
+            row["entry_point_launches"] = entry_point_launches[row["name"]]
+    # the launches of the worked examples of phase 39, by kernel
+    for row in rows:
+        if row["name"] in example_launches:
+            row["examples_launches"] = example_launches[row["name"]]
     # each row's launches are its own path's; the flat phases' apart
     for row in rows:
         row["flat_launches"] = flat_launches.get(row["name"], 0)
@@ -3789,19 +3817,25 @@ STREAM_BATCHES, STREAM_B = 8, 16
 OUT_DIR = "build/chip_smoke"
 
 
-def _reset_counts():
-    from ntt_aie_tpu_torch.ops import colpass as C
-    from ntt_aie_tpu_torch.ops import gl_colpass as G
+def _counters():
+    """The kernel wrappers' launch counters, by their kernels-line row
+    name (the ring layers' per-instantiation counts are
+    ring_layers.layered.launches_by)."""
+    from ntt_aie_tpu_torch.ops import launch_counters
 
-    C.colpass.launches = G.gl_colpass.launches = 0
+    return launch_counters()
+
+
+def _reset_counts():
+    from ntt_aie_tpu_torch.ops import reset_launches
+
+    reset_launches()
 
 
 def _counts():
-    from ntt_aie_tpu_torch.ops import colpass as C
-    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import read_launches
 
-    return {"colpass": C.colpass.launches,
-            "gl_colpass": G.gl_colpass.launches}
+    return read_launches()
 
 
 def _run_cli(argv):
@@ -3845,7 +3879,7 @@ def cli_phase(dev, card):
         fail("cli", "python -m ntt_aie_tpu_torch info failed: "
                     + res.stderr[-2000:])
         return None
-    totals = {"colpass": 0, "gl_colpass": 0}
+    totals = dict.fromkeys(_counters(), 0)
     for argv in CLI_VERIFY:
         _reset_counts()
         rc, out = _run_cli(argv)
@@ -3939,7 +3973,7 @@ def trace_phase(dev, card, rng):
     from ntt_aie_tpu_torch.profiling import trace as TR
     from ntt_aie_tpu_torch.utils.timing import time_device
 
-    totals = {"colpass": 0, "gl_colpass": 0}
+    totals = dict.fromkeys(_counters(), 0)
     plan = T.build_plan(T.NTTConfig(field=T.P_469762049, log_n=TRACE_LOG_N),
                         device=dev)
     n1, n2 = plan.config.split
@@ -4192,7 +4226,7 @@ def entry_point_phases(args, dev, card, rng):
     driven calls {kernel: {phase: count}}, or None after the failure."""
     import torch
 
-    out = {"colpass": {}, "gl_colpass": {}}
+    out = {}
     for name, run in (("cli", lambda: cli_phase(dev, card)),
                       ("trace", lambda: trace_phase(dev, card, rng)),
                       ("sweep", lambda: sweep_phase(dev, card)),
@@ -4202,9 +4236,156 @@ def entry_point_phases(args, dev, card, rng):
         if counts is None:
             return None
         for kern, v in counts.items():
-            out[kern][name] = v
+            out.setdefault(kern, {})[name] = v
         torch.cuda.empty_cache()
     return out
+
+
+# Phase 39: the worked examples (ntt_aie_tpu_torch/examples), each
+# example's run() on the card at the sizes listed ((example, keyword
+# arguments)): the reference's sizes, the largest flat single-shard ring
+# (rlwe 2^16), 2^20-bit integers (n = 2^17, four-step), the main path's
+# n = 2^20, B = 256 (matform, its rows gated here on the native oracle),
+# and the distributed demo at its default world and at four gloo ranks
+# that share the card (the hierarchical branch; not a multi-chip figure).
+EXAMPLE_MODULES = {"rlwe": "rlwe_demo", "bigint": "bigint_multiply",
+                   "matform": "serving_matform_demo",
+                   "pqc": "pqc_serving_demo",
+                   "distributed": "distributed_demo"}
+EXAMPLE_RUNS = (("rlwe", {"log_n": 10}), ("rlwe", {"log_n": 16}),
+                ("bigint", {"bits": 4096}), ("bigint", {"bits": 1 << 20}),
+                ("matform", {"log_n": 12, "batch": 4}),
+                ("matform", {"log_n": 20, "batch": 256, "oracle_rows": ()}),
+                ("pqc", {"batch": 64}), ("pqc", {"batch": 1024}),
+                ("distributed", {}),
+                ("distributed", {"world": 4, "backend": "gloo"}))
+# the kernels each example must launch (its kernels-line rows)
+EXAMPLE_KERNELS = {"rlwe": ("fused_fourstep",), "bigint": ("colpass", "crt"),
+                   "matform": ("colpass",), "pqc": ("ring_layers",),
+                   "distributed": ("colpass", "fused_fourstep", "crt")}
+EXAMPLE_ORACLE_ROWS = 8  # random rows beside row 0 at the main path's size
+EXAMPLE_TIME_ITERS, EXAMPLE_TIME_REPEATS = 5, 5
+
+
+def _matform_native_gate(out, rng):
+    """Row 0 and EXAMPLE_ORACLE_ROWS random rows of the matrix-form
+    example's output against the native oracle's cyclic product."""
+    import numpy as np
+
+    from ntt_aie_tpu_torch import native_oracle
+    from ntt_aie_tpu_torch.fields import P_469762049 as field
+
+    B, n = out["out"].shape
+    rows = [0] + sorted(int(r) for r in rng.choice(
+        np.arange(1, B), size=min(EXAMPLE_ORACLE_ROWS, B - 1),
+        replace=False))
+    got = out["out"][rows].cpu().numpy().astype(np.uint64)
+    omega = field.root_of_unity(n)
+    return rows, all(np.array_equal(
+        got[i], native_oracle.cyclic_polymul(out["msgs"][r], out["kern"][r],
+                                             omega, field.p))
+        for i, r in enumerate(rows))
+
+
+def _matform_turns(out, dev):
+    """us per NTT-product of one B-row request through the example's
+    cached loop and through polymul_mat, and of the loop's two parts alone
+    (fwd_mat, the pointwise product against the cached spectra), in turns
+    on CUDA events (each in the order of TURNS and then back), each
+    reading time_device's trimmed mean over a dependent chain."""
+    import numpy as np
+    import torch
+
+    from ntt_aie_tpu_torch.examples import serving_matform_demo as SM
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    ctx, k_spec = out["context"], out["k_spec"]
+    B, (n1, n2) = out["batch"], out["split"]
+    bat = ctx.make_batched(B)
+    m2d, k2d = (torch.from_numpy(v.reshape(B, n1, n2).view(np.int32)).to(dev)
+                for v in (out["msgs"], out["kern"]))
+    fns = {"cached_loop": lambda x: SM.serve(bat, ctx.plan.pointwise,
+                                             k_spec, x),
+           "polymul_mat": lambda x: bat["polymul_mat"](x, k2d),
+           "fwd_mat": bat["fwd_mat"],
+           "pointwise": lambda x: ctx.plan.pointwise(x, k_spec)}
+    turns = tuple(fns)
+    runs = {k: [] for k in fns}
+    for k in turns + turns[::-1]:
+        runs[k].append(time_device(fns[k], m2d, iters=EXAMPLE_TIME_ITERS,
+                                   repeats=EXAMPLE_TIME_REPEATS)
+                       ["us_per_iter"] / B)
+    us = {k: sum(v) / len(v) for k, v in runs.items()}
+    return {"us_per_product": us, "readings": runs,
+            "loop_over_polymul_mat": us["cached_loop"] / us["polymul_mat"]}
+
+
+def examples_phase(dev, card, rng):
+    """Phase 39: each example's run() on the card (EXAMPLE_RUNS), its
+    checks its own (AssertionError fails the phase), its kernels' launches
+    counted from 0 just before the run (the distributed demo's in its
+    ranks, summed), each of EXAMPLE_KERNELS[example] launched; matform at
+    n = 2^20 also gated on the native oracle and timed against
+    polymul_mat. Returns the launches by kernels-line row name, summed
+    over the runs, or None after the failure."""
+    import importlib
+
+    import torch
+
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+
+    t_phase = time.perf_counter()
+    totals = {}
+    for name, kw in EXAMPLE_RUNS:
+        mod = importlib.import_module(
+            f"ntt_aie_tpu_torch.examples.{EXAMPLE_MODULES[name]}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = mod.run(**kw)
+        except AssertionError as e:
+            fail("examples", f"{name} {kw}: {e}")
+            return None
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # the distributed demo's launches are counted in its spawned ranks
+        got = out["launches"] if name == "distributed" else _counts()
+        counts = {k: v for k, v in got.items() if v}
+        by_key = dict(LR.layered.launches_by)
+        line = {"phase": "examples", "example": name,
+                "module": f"ntt_aie_tpu_torch.examples.{EXAMPLE_MODULES[name]}",
+                "sizes": {k: v for k, v in kw.items() if k != "oracle_rows"},
+                "seconds": seconds, "launches": counts,
+                "ring_layers_by": by_key, "lines": out["lines"]}
+        if name == "distributed":
+            line.update(world=out["world"], backend=out["backend"])
+            if out["backend"] == "gloo" and out["world"] > 1:
+                line["note"] = ("ranks share one card (gloo staged through "
+                                "the host): not a multi-chip figure")
+        ok = all(counts.get(k) for k in EXAMPLE_KERNELS[name])
+        if name == "matform" and kw["log_n"] == 20:
+            rows, gate = _matform_native_gate(out, rng)
+            line.update(native_rows=rows, native_oracle=gate, card=card,
+                        **_matform_turns(out, dev))
+            ok = ok and gate
+        line["ok"] = ok
+        emit(line)
+        if not ok:
+            fail("examples", f"{name} {kw}: a check failed or a listed "
+                 f"kernel ({', '.join(EXAMPLE_KERNELS[name])}) did not "
+                 "launch")
+            return None
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        for k, v in by_key.items():
+            key = f"ring_layers[{k}]"
+            totals[key] = totals.get(key, 0) + v
+        del out
+        torch.cuda.empty_cache()
+    emit({"phase": "examples_done", "seconds": time.perf_counter() - t_phase,
+          "launches": totals, "ok": True})
+    return totals
 
 
 if __name__ == "__main__":

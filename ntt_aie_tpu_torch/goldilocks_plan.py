@@ -248,6 +248,7 @@ def build_goldilocks_plan(config: NTTConfig, *, device=None,
         polymul_mat=one.get("polymul_mat"),
         negacyclic_polymul=one.get("negacyclic_polymul"),
         negacyclic_polymul_mat=one.get("negacyclic_polymul_mat"),
+        pointwise=gl_mul,
         wmat_factored=wfac_on,
         wmat_fold=fold_on,
         _batched_builder=lambda B: callables((B,)),

@@ -103,8 +103,15 @@ class Plan:
     internal one, ``flat_inner_split``; at n = 2 the stage loops,
     "stages"), and for negacyclic the column
     passes ncp1, nicp1 of a four-step fold plan, or the fused nf, ni (on a
-    flat fold plan at the fused plan's internal split). wmat_factored and
-    wmat_fold record the arm that was built, as the reference's Plan
+    flat fold plan at the fused plan's internal split). pointwise(x, y)
+    is the spectral product polymul runs between its transforms: x * y
+    mod p of canonical spectra of any one shape (Reduction.mul_data for
+    the 32-bit kinds, ops.gl_colpass.gl_mul on (hi, lo) pairs for
+    Goldilocks), so inv(pointwise(fwd(a), fwd(b))) is polymul(a, b) bit
+    for bit, and inv_mat(pointwise(fwd_mat(a), fwd_mat(b))) polymul_mat(a,
+    b) where the plan has the matrix-form callables, and a caller may keep
+    one operand's spectrum (a reference-parity plan has none).
+    wmat_factored and wmat_fold record the arm that was built, as the reference's Plan
     does: wmat_factored where it was asked for on a four-step split (a
     fused plan records it too, as the reference's, and runs its fused
     kernels), wmat_fold where the four-step multiply rides the transposing
@@ -125,6 +132,7 @@ class Plan:
     polymul_mat: Optional[Callable] = None
     negacyclic_polymul: Optional[Callable] = None
     negacyclic_polymul_mat: Optional[Callable] = None
+    pointwise: Optional[Callable] = None
     wmat_factored: bool = False
     wmat_fold: bool = False
     _batched_builder: Optional[Callable] = None
@@ -494,6 +502,7 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
         polymul_mat=one.get("polymul_mat"),
         negacyclic_polymul=one.get("negacyclic_polymul"),
         negacyclic_polymul_mat=one.get("negacyclic_polymul_mat"),
+        pointwise=pointwise,
         wmat_factored=wfac_on,
         wmat_fold=fold_on,
         _batched_builder=lambda B: callables((B,)),
@@ -562,6 +571,7 @@ def flat_n2_plan(config: NTTConfig, kind: str, device, *, wrap1,
         reduction=kind,
         passes={"stages": fs},
         negacyclic_polymul=one.get("negacyclic_polymul"),
+        pointwise=mul,
         _batched_builder=lambda B: callables((B,)),
     )
 

@@ -194,16 +194,15 @@ def negacyclic_polymul(a, b, field: PrimeField) -> np.ndarray:
 
 
 def schoolbook_negacyclic(a, b, p: int) -> np.ndarray:
-    """O(n^2) negacyclic convolution ground truth."""
+    """O(n^2) negacyclic convolution ground truth, in exact (object)
+    integers: a[i] * b lands on coefficients i..n-1 and, negated, wraps
+    onto 0..i-1; reduced mod p once at the end."""
     n = len(a)
+    a = np.array([int(v) for v in a], dtype=object)
+    b = np.array([int(v) for v in b], dtype=object)
     out = np.zeros(n, dtype=object)
     for i in range(n):
-        ai = int(a[i])
-        for j in range(n):
-            k = i + j
-            term = ai * int(b[j])
-            if k < n:
-                out[k] = (out[k] + term) % p
-            else:
-                out[k - n] = (out[k - n] - term) % p
+        term = a[i] * b
+        out[i:] += term[:n - i]
+        out[:i] -= term[n - i:]
     return out % p

@@ -22,8 +22,9 @@ dist_passes, gl_dist_passes: the passes without the transpose) against
 their plain versions, and the distributed plan on two ranks that share
 the card (gloo) and on one NCCL rank, against the single-device plan;
 host streaming (utils/streaming.stream_transform: copy streams, pinned
-buffers) against direct calls, and a torch.profiler trace that names the
-column-pass kernels in program order.
+buffers) against direct calls, a torch.profiler trace that names the
+column-pass kernels in program order, and the five worked examples
+(ntt_aie_tpu_torch/examples) with the kernels each launches.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -1206,3 +1207,33 @@ def test_stream_transform_on_the_card(cuda):
                      torch.from_numpy(lo).to(cuda)))
         for got_p, want_p in zip(out, want):
             assert np.array_equal(got_p, want_p.cpu().numpy().view(np.uint32))
+
+
+# the worked examples (ntt_aie_tpu_torch/examples) at the CPU tests'
+# sizes: (run, the launch counters that must move)
+EXAMPLE_CASES = {
+    "rlwe_demo": (lambda ex: ex.run(), ("fused_fourstep",)),
+    "bigint_multiply": (lambda ex: ex.run(4096), ("colpass", "crt")),
+    "serving_matform_demo": (lambda ex: ex.run(8, 4), ("colpass",)),
+    "pqc_serving_demo": (lambda ex: ex.run(4), ("ring_layers",)),
+    "distributed_demo": (lambda ex: ex.run(10, world=4, backend="gloo"),
+                         ("colpass", "fused_fourstep", "crt")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_CASES))
+def test_example_on_the_card(cuda, name):
+    """The example's own checks hold on the card and it launches its
+    kernels (the distributed demo's counted in its ranks, four gloo
+    ranks that share the card)."""
+    import importlib
+
+    from ntt_aie_tpu_torch.ops import read_launches, reset_launches
+
+    run, kernels = EXAMPLE_CASES[name]
+    reset_launches()
+    out = run(importlib.import_module(f"ntt_aie_tpu_torch.examples.{name}"))
+    torch.cuda.synchronize()
+    counts = out.get("launches") or read_launches()
+    assert out["lines"] and all("✓" in line for line in out["lines"])
+    assert all(counts[k] > 0 for k in kernels), counts

@@ -14,6 +14,9 @@ import torch.distributed as dist
 
 import ntt_aie_tpu_torch as T
 from ntt_aie_tpu_torch import dilithium, kyber
+from ntt_aie_tpu_torch.examples import (bigint_multiply, distributed_demo,
+                                        pqc_serving_demo, rlwe_demo,
+                                        serving_matform_demo)
 from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import fused_fourstep as FF
@@ -214,6 +217,23 @@ def test_harnesses_default_to_the_card(no_cuda, name):
            "run_scaling": lambda: run_scaling(F32, 4, (1,), verbose=False)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run[name]()
+
+
+# the worked examples' run(), device None (their CPU runs, on the plain
+# route, are in test_torch_examples.py)
+EXAMPLES = {"bigint_multiply": bigint_multiply.run,
+            "distributed_demo": distributed_demo.run,
+            "pqc_serving_demo": pqc_serving_demo.run,
+            "rlwe_demo": rlwe_demo.run,
+            "serving_matform_demo": serving_matform_demo.run}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_examples_default_to_the_card(no_cuda, name):
+    """Without a card an example raises before it computes or spawns
+    anything; it never runs on the CPU unless asked."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EXAMPLES[name]()
 
 
 def test_cpu_plan_runs_the_plain_route(no_cuda):

@@ -16,6 +16,12 @@ MODULES = [
     "ntt_aie_tpu_torch.cli",
     "ntt_aie_tpu_torch.config",
     "ntt_aie_tpu_torch.dilithium",
+    "ntt_aie_tpu_torch.examples",
+    "ntt_aie_tpu_torch.examples.bigint_multiply",
+    "ntt_aie_tpu_torch.examples.distributed_demo",
+    "ntt_aie_tpu_torch.examples.pqc_serving_demo",
+    "ntt_aie_tpu_torch.examples.rlwe_demo",
+    "ntt_aie_tpu_torch.examples.serving_matform_demo",
     "ntt_aie_tpu_torch.fields",
     "ntt_aie_tpu_torch.goldilocks_plan",
     "ntt_aie_tpu_torch.kyber",
