@@ -249,19 +249,30 @@ Phases, one JSON object per line:
                  and kernel_info.
  29. pqc_kernel, pqc, pqc_time — the ML-KEM (q = 3329) and ML-DSA
                  (q = 8380417) rings: the four csrc/ring_layers.cu
-                 instantiations (ML-KEM and ML-DSA forward and inverse)
-                 against their plain versions raw at B = 1, 3, 8,192 and
-                 (8, 3, 256); each scheme's make_pipeline on the card:
-                 intt(ntt(x)) == x at B = 8,192, polymul on 8 rows against
-                 the native schoolbook product, the ML-KEM-768 (A 3 x 3)
-                 and ML-DSA-65 (A 6 x 5, output (B, 6, 256)) serving
-                 steps at B = 1,024 equal to the same steps on the plain
-                 route (the CPU), A from the seeded numpy generator,
-                 launches by call (ntt 1, intt 1, polymul 2 + 1, serving
-                 step 1 + 1); us per call and polynomials per second of
-                 ntt, intt and polymul at B = 8,192 and of the serving
-                 steps at B = 1,024, each kernel alone (a CUDA graph of a
-                 chain of launches) and the plain version at B = 8,192
+                 transforms (ML-KEM and ML-DSA forward and inverse)
+                 against their plain versions raw at B = 1, 3, 13 (a
+                 part-filled block), 8,192 and (8, 3, 256), and the
+                 seven fused ring-product instantiations a scheme
+                 (PQC_PRODUCTS: polymul, pointwise, matvec and the
+                 serving step with a shared and with a batched matrix,
+                 the serving step with a fresh batched matrix) against
+                 ring_product_plain raw at B = 1, 3, 13, (8, 3) and
+                 8,192 (vectors, a shared matrix) or 1,024 (matrices);
+                 each scheme's make_pipeline on the card: intt(ntt(x)) ==
+                 x at B = 8,192, polymul on 8 rows against the native
+                 schoolbook product, pointwise at B = 8,192, matvec,
+                 make_serving_step(A_hat)(x) and serving_step(A, x) at
+                 ML-KEM-768 (A 3 x 3) and ML-DSA-65 (A 6 x 5, output
+                 (B, 6, 256)), B = 1,024, and matvec, the serving step
+                 and serving_step with a matrix a row at B = 64, equal to
+                 the plain route (the CPU), A
+                 from the seeded numpy generator, launches by call
+                 (PQC_LAUNCHES: one a call, serving_step with one
+                 matrix two); us per call of the pipeline's calls, each
+                 kernel alone (a CUDA graph of a chain of launches), the
+                 plain version and the unfused route (the layered kernel
+                 and torch ops, as before the fused kernel) of each
+                 fused instantiation, the plain transforms at B = 8,192
                  and 64;
  30. reference_parity, reference_parity_time — the reference-parity plan:
                  the paper's configuration (Kyber, n = 2048,
@@ -284,7 +295,9 @@ Phases, one JSON object per line:
  35. trace, trace_busy — the CLI's trace at n = 2^20 for fwd, inv,
                  polymul and fwd with --no-wmat-fold and --wmat-factored:
                  method "profiler", the derived rows naming the column
-                 passes in program order (cp1 then cp2, icp2 then icp1),
+                 passes in program order (cp1 then cp2, icp2 then icp1;
+                 a capture that misses a pass taken again, up to
+                 TRACE_ATTEMPTS times, its attempts in the line),
                  each pass's traced time beside CUDA events around a chain
                  of it (host-bound at B = 1) and behind a sleep (the
                  device's time alone); then capture_trace over a chain of
@@ -311,7 +324,8 @@ colpass and gl_colpass rows carry them as "entry_point_launches".
                  (the cached-spectrum loop equal to polymul_mat on every
                  row, row 0 and 8 random rows on the native oracle, the
                  loop and polymul_mat timed in turns, us per
-                 NTT-product), pqc at B = 64 and 1,024 (ring_layers.cu),
+                 NTT-product), pqc at B = 64 and 1,024 (ring_layers.cu,
+                 EXAMPLE_RING_LAUNCHES a run),
                  distributed at its default world (one NCCL rank a card)
                  and at four gloo ranks that share the card (the
                  hierarchical branch; not a multi-chip figure); one line
@@ -498,6 +512,42 @@ PQC_SERVING = (("kyber", 3, 3), ("dilithium", 6, 5))
 PQC_BATCH = 8192
 PQC_SERVING_BATCH = 1024
 PQC_PLAIN_BATCH = 64
+PQC_ODD_BATCH = 13  # leaves a block of 8 rows part-filled
+PQC_BATCHED_ROWS = 64  # serving_step with a matrix a row, on the main path
+# A cold reading cycles over input copies that move at least this many
+# bytes between two uses of one copy (4x the H100's 50 MB L2)
+PQC_COLD_BYTES = 200_000_000
+# The fused ring products' instantiations (ops.ring_layers.ring_product):
+# (mode, matrix form), None for two vectors, "shared" one (k, l, 256)
+# matrix for the whole batch, "batched" a matrix a batch row
+PQC_PRODUCTS = (("product", None), ("pointwise", None),
+                ("matvec", "shared"), ("matvec", "batched"),
+                ("serve", "shared"), ("serve", "batched"),
+                ("serve_fresh", "batched"))
+# The launches of each pipeline call on the main path, by instantiation
+# (the scheme's name before each key)
+PQC_LAUNCHES = {"ntt": {"ntt": 1}, "intt": {"intt": 1},
+                "polymul": {"product": 1}, "pointwise": {"pointwise": 1},
+                "ntt_A": {"ntt": 1}, "matvec": {"matvec": 1},
+                "make_serving_step": {"serve": 1},
+                "serving_step": {"ntt": 1, "serve": 1},
+                "matvec[batched A]": {"matvec_batched": 1},
+                "make_serving_step[batched A]": {"serve_batched": 1},
+                "serving_step[batched A]": {"serve_fresh": 1}}
+# What each fused instantiation replaces: the reference's callable, which
+# its jit_pipeline (ntt_aie_tpu/ring_layers.py:82) compiles under XLA
+PQC_REPLACES = {
+    name: {"product": f"ntt_aie_tpu/{name}.py:{lines[0]} (XLA, a helper "
+                      "kernel)",
+           "pointwise": f"ntt_aie_tpu/{name}.py:{lines[1]} (XLA, a helper "
+                        "kernel)",
+           "matvec": f"ntt_aie_tpu/{name}.py:{lines[2]} (XLA, a helper "
+                     "kernel)",
+           "serve": "ntt_aie_tpu/ring_layers.py:103 (XLA, a helper kernel)",
+           "serve_fresh": "ntt_aie_tpu/ring_layers.py:100 (XLA, a helper "
+                          "kernel)"}
+    for name, lines in (("kyber", (84, 68, 101)),
+                        ("dilithium", (70, 61, 87)))}
 # Reference parity (phase 30): (field name, log_n, ordering): the paper's
 # configuration (Kyber, n = 2048, the device's 16-block layout) and
 # harvey4 at n = 2^20
@@ -3011,59 +3061,73 @@ def rns_phase(args, dev, card, rng):
     return row
 
 
-def _graph_us(fn, x, *, chain=20, repeats=5):
-    """us per call of fn in a dependent chain of `chain` calls captured in
-    one CUDA graph and replayed between CUDA events, `repeats` times,
-    trimmed mean: the device's time without the host's cost of each
-    launch (the kernel alone)."""
-    import numpy as np
+def _pqc_product_key(name, mode, form):
+    """The launch counters' key of a fused instantiation."""
+    batched = form == "batched" and mode != "serve_fresh"
+    return f"{name}_{mode}{'_batched' * batched}"
+
+
+def _pqc_operands(sch, k, l, form, batch, gen, dev):
+    """Random canonical operands (x, a) of a fused instantiation: vectors
+    (form None: batch + (256,) both) or vectors batch + (l, 256) against a
+    (k, l, 256) matrix shared by the batch or batch + (k, l, 256)."""
     import torch
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(x)  # warm-up outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        y = x
-        for _ in range(chain):
-            y = fn(y)
-    graph.replay()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end) * 1e3 / chain)
-    del graph
-    return float(np.mean(sorted(runs)[1:-1]))
+    bdims = batch if isinstance(batch, tuple) else (batch,)
+    if form is None:
+        shapes = (bdims + (256,), bdims + (256,))
+    else:
+        shapes = (bdims + (l, 256),
+                  (k, l, 256) if form == "shared" else bdims + (k, l, 256))
+    return tuple(torch.randint(0, sch.q, s, dtype=torch.int32, device=dev,
+                               generator=gen) for s in shapes)
+
+
+def _pqc_unfused(x, a, sch, mode):
+    """The product as the pipelines ran it before the fused kernel: the
+    layered kernel for the transforms, the plain products (torch ops)."""
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+
+    fwd_x, fwd_a, inv, matrix = LR.MODES[mode]
+    if fwd_x:
+        x = LR.layered(x, sch)
+    if fwd_a:
+        a = LR.layered(a, sch)
+    y = sch.matvec_plain(a, x) if matrix else sch.pointwise_plain(x, a)
+    return LR.layered(y, sch, inverse=True) if inv else y
+
+
+def _cold_copies(nbytes_per_call):
+    """The number of input copies a cold reading (utils.timing.time_graph)
+    cycles over: copies whose traffic exceeds the 50 MB L2 between two
+    uses of one copy."""
+    return min(32, max(2, -(-PQC_COLD_BYTES // nbytes_per_call)))
 
 
 def pqc_phases(args, dev, card, rng):
     """Phase 29: the ML-KEM and ML-DSA rings. pqc_kernel: each of the four
-    ring_layers instantiations against its plain version raw at B = 1, 3,
-    PQC_BATCH and (8, 3, 256); pqc: each scheme's pipeline on the card
-    (the main path, counters set to 0 just before and read just after):
-    ntt and intt at PQC_BATCH (the FIPS roundtrip), polymul on 8 rows
-    against the native schoolbook product, the serving step of
-    PQC_SERVING at PQC_SERVING_BATCH against the same step on the plain
-    route (the CPU), launches by call; pqc_time: us per call and
-    polynomials per second of ntt, intt, polymul (PQC_BATCH) and the
-    serving step (PQC_SERVING_BATCH; ML-DSA's output cut to l rows for
-    the chain), each kernel alone (a CUDA graph of a dependent chain) and
-    the plain version at PQC_BATCH and PQC_PLAIN_BATCH. Returns the
-    kernels-line rows, or None after emitting the failure."""
+    layered transforms against its plain version raw at B = 1, 3,
+    PQC_ODD_BATCH, PQC_BATCH and (8, 3, 256), and each fused ring-product
+    instantiation (PQC_PRODUCTS) against ring_product_plain raw at B = 1,
+    3, PQC_ODD_BATCH, PQC_BATCH (vectors and a shared matrix),
+    PQC_SERVING_BATCH (matrices) and batch (8, 3); pqc: each scheme's
+    pipeline on the card (the main path, counters set to 0 just before
+    and read just after): ntt and intt at PQC_BATCH (the FIPS roundtrip),
+    polymul on 8 rows against the native schoolbook product, pointwise at
+    PQC_BATCH and matvec, make_serving_step(A_hat)(x) and serving_step
+    (A, x) of PQC_SERVING at PQC_SERVING_BATCH against the plain route
+    (the CPU), matvec, make_serving_step and serving_step with a matrix a
+    row at PQC_BATCHED_ROWS, launches by call (PQC_LAUNCHES); pqc_time: us per call of the
+    pipeline's calls, each kernel alone (a CUDA graph of a chain), the
+    plain version and the unfused route (the layered kernel and torch
+    ops, as the pipelines ran before) of each fused instantiation.
+    Returns the kernels-line rows, or None after emitting the failure."""
     import numpy as np
     import torch
 
     from ntt_aie_tpu_torch import dilithium, kyber, native_oracle
     from ntt_aie_tpu_torch.ops import ring_layers as LR
-    from ntt_aie_tpu_torch.utils.timing import time_device
+    from ntt_aie_tpu_torch.utils.timing import time_device, time_graph
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 29)
     mods = {"kyber": kyber, "dilithium": dilithium}
@@ -3073,7 +3137,8 @@ def pqc_phases(args, dev, card, rng):
         for inverse in (False, True):
             key = f"{name}_{'intt' if inverse else 'ntt'}"
             errs[key] = 0
-            for shape in ((1, 256), (3, 256), (PQC_BATCH, 256), (8, 3, 256)):
+            for shape in ((1, 256), (3, 256), (PQC_ODD_BATCH, 256),
+                          (PQC_BATCH, 256), (8, 3, 256)):
                 x = torch.randint(0, sch.q, shape, dtype=torch.int32,
                                   device=dev, generator=gen)
                 got = LR.layered(x, sch, inverse=inverse)
@@ -3089,6 +3154,34 @@ def pqc_phases(args, dev, card, rng):
                     fail("pqc_kernel", f"{key} {shape} differs from its "
                          "plain version")
                     return None
+    for name, k, l in PQC_SERVING:
+        sch = mods[name].SCHEME
+        for mode, form in PQC_PRODUCTS:
+            key = _pqc_product_key(name, mode, form)
+            errs[key] = 0
+            batches = (1, 3, PQC_ODD_BATCH, (8, 3))
+            batches += ((PQC_BATCH,) if form is None
+                        else (PQC_SERVING_BATCH,) + (PQC_BATCH,)
+                        * (form == "shared"))
+            for batch in batches:
+                x, a = _pqc_operands(sch, k, l, form, batch, gen, dev)
+                got = LR.ring_product(x, a, sch, mode)
+                torch.cuda.synchronize()
+                want = LR.ring_product_plain(x, a, sch, mode)
+                equal = bool(got.shape == want.shape
+                             and torch.equal(got, want))
+                err = (int((got.long() - want.long()).abs().max())
+                       if got.shape == want.shape else -1)
+                errs[key] = max(errs[key], err)
+                emit({"phase": "pqc_kernel", "kernel": key,
+                      "x": list(x.shape), "a": list(a.shape),
+                      "equal": equal, "max_abs_err": err})
+                if not equal:
+                    fail("pqc_kernel", f"{key} x {tuple(x.shape)} a "
+                         f"{tuple(a.shape)} differs from its plain version")
+                    return None
+            del x, a, got, want
+    torch.cuda.empty_cache()
 
     rows = []
     for name, k, l in PQC_SERVING:
@@ -3100,6 +3193,7 @@ def pqc_phases(args, dev, card, rng):
                 .to(torch.int32) for _ in range(2))
         a8, b8 = rng.integers(0, q, (2, 8, 256))
         A = rng.integers(0, q, (k, l, 256))
+        bA = rng.integers(0, q, (PQC_BATCHED_ROWS, k, l, 256))
         xs = rng.integers(0, q, (Bs, l, 256))
         by = {}
 
@@ -3114,14 +3208,21 @@ def pqc_phases(args, dev, card, rng):
         y = drive("ntt", pipe["ntt"], x)
         back = drive("intt", pipe["intt"], y)
         c8 = drive("polymul", pipe["polymul"], a8, b8)
+        pw = drive("pointwise", pipe["pointwise"], y, b)
         A_hat = drive("ntt_A", pipe["ntt"], A)
+        mv = drive("matvec", pipe["matvec"], A_hat, xs)
         step = pipe["make_serving_step"](A_hat)
-        out = drive("serving_step", step, xs)
+        out = drive("make_serving_step", step, xs)
+        fresh = drive("serving_step", pipe["serving_step"], A, xs)
+        xb = xs[:PQC_BATCHED_ROWS]
+        mv_b = drive("matvec[batched A]", pipe["matvec"], bA, xb)
+        step_b = drive("make_serving_step[batched A]",
+                       pipe["make_serving_step"](bA), xb)
+        fresh_b = drive("serving_step[batched A]", pipe["serving_step"], bA,
+                        xb)
         total = LR.layered.launches
-        fwd, inv = f"{name}_ntt", f"{name}_intt"
-        want_by = {"ntt": {fwd: 1}, "intt": {inv: 1},
-                   "polymul": {fwd: 2, inv: 1}, "ntt_A": {fwd: 1},
-                   "serving_step": {fwd: 1, inv: 1}}
+        want_by = {call: {f"{name}_{key}": n for key, n in want.items()}
+                   for call, want in PQC_LAUNCHES.items()}
         want_out = plain["make_serving_step"](plain["ntt"](A))(xs)
         checks = {
             "roundtrip": bool(torch.equal(back, x)),
@@ -3130,58 +3231,114 @@ def pqc_phases(args, dev, card, rng):
                                native_oracle.schoolbook_negacyclic(
                                    a8[r], b8[r], q))
                 for r in range(8)),
-            "serving_shape": tuple(out.shape) == (Bs, k, 256),
-            "serving_equals_plain": bool(torch.equal(out.cpu(), want_out)),
+            "pointwise_equals_plain": bool(torch.equal(
+                pw.cpu(), plain["pointwise"](y.cpu(), b.cpu()))),
             "A_hat_equals_plain": bool(torch.equal(A_hat.cpu(),
                                                    plain["ntt"](A))),
+            "matvec_equals_plain": bool(torch.equal(
+                mv.cpu(), plain["matvec"](A_hat.cpu(), xs))),
+            "serving_shape": tuple(out.shape) == (Bs, k, 256),
+            "serving_equals_plain": bool(torch.equal(out.cpu(), want_out)),
+            "serving_step_equals_plain": bool(torch.equal(fresh.cpu(),
+                                                          want_out)),
+            "matvec_batched_equals_plain": bool(torch.equal(
+                mv_b.cpu(), plain["matvec"](bA, xb))),
+            "serving_batched_equals_plain": bool(torch.equal(
+                step_b.cpu(), plain["make_serving_step"](bA)(xb))),
+            "serving_step_batched_equals_plain": bool(torch.equal(
+                fresh_b.cpu(), plain["serving_step"](bA, xb))),
             "launches": by == want_by,
         }
         ok = all(checks.values())
         emit({"phase": "pqc", "scheme": name, "q": q, "batch": B,
-              "serving": {"k": k, "l": l, "batch": Bs},
+              "serving": {"k": k, "l": l, "batch": Bs,
+                          "batched_rows": PQC_BATCHED_ROWS},
               "oracle": "native schoolbook", "checks": checks,
               "launches_by_call": by, "launches": total, "ok": ok})
         if not ok:
             fail("pqc", f"the {name} pipeline disagrees with its oracles or "
                  "did not launch as expected")
             return None
-        del y, back, out
+        del y, back, pw, mv, out, fresh, mv_b, step_b, fresh_b
 
-        # timing: the pipeline's calls (wrapper and kernels), the kernels
-        # alone, the plain version
+        # timing: the pipeline's calls (wrapper and kernels), each kernel
+        # alone, the plain versions, the unfused route
+        xs_dev = torch.from_numpy(xs).to(dev).to(torch.int32)
+        A_dev = torch.from_numpy(A).to(dev).to(torch.int32)
         us = {"ntt": time_device(pipe["ntt"], x)["us_per_iter"],
               "intt": time_device(pipe["intt"], x)["us_per_iter"],
               "polymul": time_device(lambda v: pipe["polymul"](v, b),
-                                     x)["us_per_iter"]}
-        xs_dev = torch.from_numpy(xs).to(dev).to(torch.int32)
-        us["serving_step"] = time_device(lambda v: step(v)[:, :l], xs_dev,
-                                         iters=20, repeats=3)["us_per_iter"]
-        kernel_us, plain_us, small_us = {}, {}, {}
+                                     x)["us_per_iter"],
+              "pointwise": time_device(lambda v: pipe["pointwise"](v, b),
+                                       x)["us_per_iter"]}
+        for call, fn in (("make_serving_step", step),
+                         ("serving_step",
+                          lambda v: pipe["serving_step"](A_dev, v))):
+            us[call] = time_device(lambda v, f=fn: f(v)[:, :l], xs_dev,
+                                   iters=20, repeats=3)["us_per_iter"]
+        kernel_us, warm_us, plain_us, small_us, unfused_us = {}, {}, {}, {}, {}
         xp = x[:PQC_PLAIN_BATCH]
+        fwd, inv = f"{name}_ntt", f"{name}_intt"
+        xc = [x] + [x.clone() for _ in range(_cold_copies(8 * x.numel()) - 1)]
         for inverse in (False, True):
             key = inv if inverse else fwd
-            kernel_us[key] = _graph_us(
-                lambda v, i=inverse: LR.layered(v, sch, inverse=i), x)
+            kernel_us[key] = time_graph(
+                lambda v, i=inverse: LR.layered(v, sch, inverse=i), xc)
+            warm_us[key] = time_graph(
+                lambda v, i=inverse: LR.layered(v, sch, inverse=i), [x])
             plain_us[key] = time_device(
                 lambda v, i=inverse: LR.layered_plain(v, sch, inverse=i), x,
                 iters=2, repeats=3)["us_per_iter"]
             small_us[key] = time_device(
                 lambda v, i=inverse: LR.layered_plain(v, sch, inverse=i), xp,
                 iters=2, repeats=3)["us_per_iter"]
-        per_s = {c: (Bs if c == "serving_step" else B) / (t * 1e-6)
+        del xc
+        for mode, form in PQC_PRODUCTS:
+            key = _pqc_product_key(name, mode, form)
+            xf, af = _pqc_operands(sch, k, l, form,
+                                   B if form is None else Bs, gen, dev)
+            out_bytes = 4 * xf.numel() // xf.shape[-2] * k if form else \
+                4 * xf.numel()
+            copies = _cold_copies(4 * xf.numel() + out_bytes
+                                  + (0 if form == "shared" else 4 * af.numel()))
+            pairs = [(xf, af)] + [
+                (xf.clone(), af if form == "shared" else af.clone())
+                for _ in range(copies - 1)]
+            kernel_us[key] = time_graph(
+                lambda v, m=mode: LR.ring_product(*v, sch, m), pairs)
+            warm_us[key] = time_graph(
+                lambda v, m=mode: LR.ring_product(*v, sch, m), pairs[:1])
+            del pairs
+            plain_us[key] = time_device(
+                lambda v, m=mode: LR.ring_product_plain(xf, af, sch, m), xf,
+                iters=2, repeats=3)["us_per_iter"]
+            unfused_us[key] = time_device(
+                lambda v, m=mode: _pqc_unfused(xf, af, sch, m), xf,
+                iters=2, repeats=3)["us_per_iter"]
+            del xf, af
+        per_s = {c: (Bs if "serving" in c else B) / (t * 1e-6)
                  for c, t in us.items()}
         emit({"phase": "pqc_time", "scheme": name, "card": card,
               "batch": B, "serving_batch": Bs, "us_per_call": us,
               "polys_per_s": per_s, "kernel_alone_us": kernel_us,
-              "plain_us": plain_us, "plain_small_batch": PQC_PLAIN_BATCH,
+              "kernel_alone_l2_warm_us": warm_us,
+              "plain_us": plain_us, "unfused_us": unfused_us,
+              "plain_small_batch": PQC_PLAIN_BATCH,
               "plain_small_us": small_us,
               "method": "CUDA events; calls: 5 repeats of a dependent "
-                        "chain of 10 (serving step: 3 of 20), trimmed "
-                        "mean; polymul(x, b); serving step x -> "
-                        "step(x)[:, :l]; polys_per_s = batch / us per "
-                        "call (the serving step: vectors); kernel alone: "
-                        "a CUDA graph of a chain of 20 launches, 5 "
-                        "replays, trimmed mean; plain: 3 of 2"})
+                        "chain of 10 (serving steps: 3 of 20), trimmed "
+                        "mean; polymul(x, b), pointwise(x, b); serving "
+                        "steps x -> step(x)[:, :l]; polys_per_s = batch "
+                        "/ us per call (the serving steps: vectors); "
+                        "kernel alone: a CUDA graph of max(20, copies) "
+                        "launches cycling over copies of the inputs "
+                        "whose traffic exceeds the L2 between two uses "
+                        "of a copy (cold), 5 replays, trimmed mean (the "
+                        "fused products at B = batch for vectors, "
+                        "serving_batch for matrices; a shared matrix "
+                        "stays one copy); l2 warm: the same graph on one "
+                        "input; plain and unfused (the layered kernel "
+                        "and torch ops): 3 of 2"})
         for key in (fwd, inv):
             rows.append({
                 "name": f"ring_layers[{key}]", "route": "cuda",
@@ -3191,12 +3348,36 @@ def pqc_phases(args, dev, card, rng):
                 "launches": sum(v.get(key, 0) for v in by.values()),
                 "launches_by_call": {c: v.get(key, 0) for c, v in by.items()},
                 "max_abs_err": errs[key], "ms": kernel_us[key] / 1e3,
+                "l2_warm_ms": warm_us[key] / 1e3,
                 "wrapper_ms": us["ntt" if key == fwd else "intt"] / 1e3,
                 "plain_ms": plain_us[key] / 1e3, "batch": B,
                 "plain_batch": B, "bytes": B * 256 * 4 * 2,
                 "butterflies": B * 128 * sch.n_layers,
                 "arithmetic": "barrett" if name == "kyber" else "montgomery"})
-        del pipe, x, b, xs_dev
+        for mode, form in PQC_PRODUCTS:
+            key = _pqc_product_key(name, mode, form)
+            fwd_x, fwd_a, inverse, _ = LR.MODES[mode]
+            rb, kk, ll = (B, 1, 1) if form is None else (Bs, k, l)
+            a_polys = kk * ll * (1 if form == "shared" else rb)
+            transform = rb * 128 * sch.n_layers * (
+                fwd_x * ll + fwd_a * kk * ll + inverse * kk)
+            products = rb * kk * ll * 256
+            rows.append({
+                "name": f"ring_layers[{key}]", "route": "cuda",
+                "source": "ntt_aie_tpu_torch/csrc/ring_layers.cu",
+                "replaces": PQC_REPLACES[name][mode],
+                "launches": sum(v.get(key, 0) for v in by.values()),
+                "launches_by_call": {c: v.get(key, 0) for c, v in by.items()},
+                "max_abs_err": errs[key], "ms": kernel_us[key] / 1e3,
+                "l2_warm_ms": warm_us[key] / 1e3,
+                "plain_ms": plain_us[key] / 1e3,
+                "unfused_ms": unfused_us[key] / 1e3, "batch": rb,
+                "plain_batch": rb, "k": kk, "l": ll, "a": form or "batched",
+                "bytes": 1024 * (rb * ll + a_polys + rb * kk),
+                "butterflies": transform + products,
+                "transform_butterflies": transform, "products": products,
+                "arithmetic": "barrett" if name == "kyber" else "montgomery"})
+        del pipe, x, b, xs_dev, A_dev
         torch.cuda.empty_cache()
     return rows
 
@@ -3803,6 +3984,11 @@ CLI_VERIFY = (["verify", "--field", "P_2013265921", "--log-n", "12",
 CLI_BENCH = (("P_469762049", 20, 256), ("GOLDILOCKS", 20, 64))
 CLI_BENCH_ITERS = ("--iters", "5", "--repeats", "3")
 TRACE_LOG_N = 20
+# The profiler has once dropped the first kernel event of a capture (one
+# of six whole runs of phase 35 on the H100): a capture whose rows miss a
+# pass is taken again, up to this many times, and its attempts reported;
+# every check applies unchanged to the capture that is kept.
+TRACE_ATTEMPTS = 3
 TRACE_CELLS = (("fwd", "fwd", []), ("inv", "inv", []),
                ("polymul", "polymul", []),
                ("fwd_no_fold", "fwd", ["--no-wmat-fold"]),
@@ -3990,30 +4176,33 @@ def trace_phase(dev, card, rng):
         summary = f"{OUT_DIR}/trace/{label}.json"
         argv = ["trace", "--log-n", str(TRACE_LOG_N), "--op", op, "--out",
                 f"{OUT_DIR}/trace/{label}", "--summary-out", summary, *extra]
-        _reset_counts()
-        rc, out = _run_cli(argv)
-        torch.cuda.synchronize()
-        counts = _counts()
-        print(out, end="", flush=True)
-        if rc != 0:
-            fail("trace", f"{' '.join(argv)} exited {rc}")
-            return None
-        with open(summary) as f:
-            payload = json.load(f)
-        derived = payload.get("derived", [])
-        order = [_pass_bools(r["op"]) for r in derived]
-        ok = payload["method"] == "profiler" and counts["colpass"] > 0
-        if op in TRACE_ORDER:
-            ok = ok and order == TRACE_ORDER[op]
-        else:  # polymul: two forward transforms and one inverse
-            ok = ok and sum(r["count"] for r in payload["ops"]
-                            if _pass_bools(r["op"])) == 6
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            _reset_counts()
+            rc, out = _run_cli(argv)
+            torch.cuda.synchronize()
+            counts = _counts()
+            print(out, end="", flush=True)
+            if rc != 0:
+                fail("trace", f"{' '.join(argv)} exited {rc}")
+                return None
+            with open(summary) as f:
+                payload = json.load(f)
+            derived = payload.get("derived", [])
+            order = [_pass_bools(r["op"]) for r in derived]
+            ok = payload["method"] == "profiler" and counts["colpass"] > 0
+            if op in TRACE_ORDER:
+                ok = ok and order == TRACE_ORDER[op]
+            else:  # polymul: two forward transforms and one inverse
+                ok = ok and sum(r["count"] for r in payload["ops"]
+                                if _pass_bools(r["op"])) == 6
+            if ok:
+                break
         names = ("cp1", "cp2") if op == "fwd" else ("icp2", "icp1")
         line = {"phase": "trace", "cell": label, "card": card,
                 "method": payload["method"], "launches": counts,
                 "ops": [{k: r[k] for k in ("op", "total_us", "count")}
                         for r in payload["ops"][:6]],
-                "ok": ok}
+                "attempts": attempt, "ok": ok}
         if op in TRACE_ORDER:
             line["passes"] = [
                 {"pass": name, "kernel": r["op"], "trace_us": r["us"],
@@ -4263,6 +4452,11 @@ EXAMPLE_RUNS = (("rlwe", {"log_n": 10}), ("rlwe", {"log_n": 16}),
 EXAMPLE_KERNELS = {"rlwe": ("fused_fourstep",), "bigint": ("colpass", "crt"),
                    "matform": ("colpass",), "pqc": ("ring_layers",),
                    "distributed": ("colpass", "fused_fourstep", "crt")}
+# the pqc example's ring-kernel launches a run, by instantiation: each
+# scheme's serving_step with a batch of matrices one fused launch, ML-KEM's
+# fixed-A step the key's transform and one fused launch
+EXAMPLE_RING_LAUNCHES = {"kyber_serve_fresh": 1, "dilithium_serve_fresh": 1,
+                         "kyber_ntt": 1, "kyber_serve": 1}
 EXAMPLE_ORACLE_ROWS = 8  # random rows beside row 0 at the main path's size
 EXAMPLE_TIME_ITERS, EXAMPLE_TIME_REPEATS = 5, 5
 
@@ -4364,6 +4558,9 @@ def examples_phase(dev, card, rng):
                 line["note"] = ("ranks share one card (gloo staged through "
                                 "the host): not a multi-chip figure")
         ok = all(counts.get(k) for k in EXAMPLE_KERNELS[name])
+        if name == "pqc":
+            line["ring_layers_expected"] = EXAMPLE_RING_LAUNCHES
+            ok = ok and by_key == EXAMPLE_RING_LAUNCHES
         if name == "matform" and kw["log_n"] == 20:
             rows, gate = _matform_native_gate(out, rng)
             line.update(native_rows=rows, native_oracle=gate, card=card,
@@ -4374,7 +4571,7 @@ def examples_phase(dev, card, rng):
         if not ok:
             fail("examples", f"{name} {kw}: a check failed or a listed "
                  f"kernel ({', '.join(EXAMPLE_KERNELS[name])}) did not "
-                 "launch")
+                 "launch as expected")
             return None
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v

@@ -31,9 +31,10 @@ oracle). It imports torch and numpy and never jax. Ported so far:
   .reference_network_stages``);
 - the FIPS 203/204 rings: ML-KEM (``kyber``) and ML-DSA (``dilithium``)
   transforms, products, module-lattice matvec and serving pipelines
-  (``make_pipeline``), their layered transforms one launch of
-  ``csrc/ring_layers.cu`` each (``ops/ring_layers.py``; the plain version
-  ``ring_layers.layered_fwd``/``layered_inv``);
+  (``make_pipeline``), each call one launch of a kernel of
+  ``csrc/ring_layers.cu`` (``ops/ring_layers.py``: ``layered`` and the
+  fused ``ring_product``; the plain versions ``layered_plain`` and
+  ``ring_product_plain``);
 - the distributed four-step plan on torch.distributed (``parallel``:
   ``mesh`` builds DeviceMeshes with an explicit backend, ``launch.run_spmd``
   spawns the ranks, ``fourstep`` the 32-bit and Goldilocks plans with

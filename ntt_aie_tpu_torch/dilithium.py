@@ -10,13 +10,17 @@ Arithmetic: Montgomery REDC (R = 2^32, ``ops.modops.mont_mul``) against
 zeta tables premultiplied into Montgomery form, so mont_mul(value,
 zeta R) = value zeta mod q.
 
-``dilithium_ntt``/``dilithium_intt`` are one launch each of the CUDA
-kernel ``csrc/ring_layers.cu`` on a CUDA tensor
-(``ops.ring_layers.layered``) and its plain version
-(``ring_layers.layered_fwd``/``layered_inv``) on a CPU tensor; the
-pointwise product and matvec are torch ops on int64 carriers. Every
-function takes (..., 256) values in [0, q), batched or single, and
-returns an int32 tensor; the device rule is ``ring_layers``'s.
+On a CUDA tensor each function is one launch of a kernel of
+``csrc/ring_layers.cu``: ``dilithium_ntt``/``dilithium_intt`` the layered
+transform (``ops.ring_layers.layered``), ``dilithium_pointwise``,
+``dilithium_polymul``, ``dilithium_matvec``, ``dilithium_serve`` and
+``dilithium_serving_step`` the fused ring product
+(``ops.ring_layers.ring_product``; the serving step with one matrix for
+the whole batch is two launches). On a CPU tensor they run the plain
+versions (``ring_layers.layered_fwd``/``layered_inv``, the pointwise
+product and matvec as torch ops on int64 carriers). Every function takes
+(..., 256) values in [0, q), batched or single, and returns an int32
+tensor; the device rule is ``ring_layers``'s.
 """
 
 from __future__ import annotations
@@ -48,9 +52,35 @@ def _mulz(a, z):
     return M.mont_mul(a, z, Q, _NEG_PINV)
 
 
+def _fixup(raw: torch.Tensor) -> torch.Tensor:
+    """raw * R^2 * R^-1: takes back the R^-1 of one raw mont_mul."""
+    return M.mont_mul(raw, torch.full_like(raw, _R2), Q, _NEG_PINV)
+
+
+def _pointwise_plain(ahat: torch.Tensor, bhat: torch.Tensor) -> torch.Tensor:
+    """mont_mul, then the R^2 fix-up, in torch ops on int32 tensors (the
+    plain version)."""
+    a, b = M.to_carrier(ahat), M.to_carrier(bhat)
+    return M.from_carrier(_fixup(M.mont_mul(a, b, Q, _NEG_PINV)))
+
+
+def _matvec_plain(ahat: torch.Tensor, yhat: torch.Tensor) -> torch.Tensor:
+    """The NTT-domain matvec in torch ops (the plain version). The R^-1
+    of a raw mont_mul commutes with the sum, so the terms accumulate
+    unfixed and the R^2 fix-up runs once on the sum (l + 1 multiplies a
+    coefficient instead of 2l)."""
+    a, y = M.to_carrier(ahat), M.to_carrier(yhat)
+    raw = RL.matvec_terms(a, y, lambda u, v: M.mont_mul(u, v, Q, _NEG_PINV),
+                          lambda u, v: M.add_mod(u, v, Q))
+    return M.from_carrier(_fixup(raw))
+
+
 SCHEME = LR.Scheme(name="dilithium", q=Q, n=N, zetas=tuple(_ZETAS),
                    izetas=tuple(_IZETAS), scale=int(_N_INV_MONT),
-                   mulz=_mulz, neg_pinv=_NEG_PINV)
+                   mulz=_mulz, pointwise_plain=_pointwise_plain,
+                   matvec_plain=_matvec_plain,
+                   product_scale=_FIELD.to_mont(int(_N_INV_MONT)),
+                   fixup=_R2, neg_pinv=_NEG_PINV)
 
 
 def dilithium_ntt(f) -> torch.Tensor:
@@ -63,24 +93,16 @@ def dilithium_intt(fhat) -> torch.Tensor:
     return LR.layered(fhat, SCHEME, inverse=True)
 
 
-def _fixup(raw: torch.Tensor) -> torch.Tensor:
-    """raw * R^2 * R^-1: takes back the R^-1 of one raw mont_mul."""
-    return M.mont_mul(raw, torch.full_like(raw, _R2), Q, _NEG_PINV)
-
-
 def dilithium_pointwise(ahat, bhat) -> torch.Tensor:
     """Coefficient-wise product in the NTT domain (FIPS 204 Algorithm 45;
-    the complete NTT needs no basemul): mont_mul, then the R^2 fix-up."""
-    dev = RL.operand_device(ahat, bhat)
-    a, b = (M.to_carrier(RL.as_i32(v, dev)) for v in (ahat, bhat))
-    return M.from_carrier(_fixup(M.mont_mul(a, b, Q, _NEG_PINV)))
+    the complete NTT needs no basemul)."""
+    return LR.ring_product(ahat, bhat, SCHEME, "pointwise")
 
 
 def dilithium_polymul(a, b) -> torch.Tensor:
-    """a * b in Z_8380417[X]/(X^256 + 1) via the ML-DSA pipeline."""
-    dev = RL.operand_device(a, b)
-    return dilithium_intt(dilithium_pointwise(
-        dilithium_ntt(RL.as_i32(a, dev)), dilithium_ntt(RL.as_i32(b, dev))))
+    """a * b in Z_8380417[X]/(X^256 + 1) via the ML-DSA pipeline:
+    intt(pointwise(ntt(a), ntt(b)))."""
+    return LR.ring_product(a, b, SCHEME, "product")
 
 
 def dilithium_matvec(ahat, yhat) -> torch.Tensor:
@@ -88,15 +110,19 @@ def dilithium_matvec(ahat, yhat) -> torch.Tensor:
     serving primitive (w = A y in Sign, A z in Verify; FIPS 204
     Algorithms 7-8). ahat: (..., k, l, 256), yhat: (..., l, 256); returns
     (..., k, 256) = sum_j ahat[..., i, j, :] * yhat[..., j, :]
-    coefficient-wise. The R^-1 of a raw mont_mul commutes with the sum,
-    so the terms accumulate unfixed and the R^2 fix-up runs once on the
-    sum (l + 1 multiplies a coefficient instead of 2l)."""
-    dev = RL.operand_device(ahat, yhat)
-    a = M.to_carrier(RL.as_i32(ahat, dev))
-    y = M.to_carrier(RL.as_i32(yhat, dev))
-    raw = RL.matvec_terms(a, y, lambda u, v: M.mont_mul(u, v, Q, _NEG_PINV),
-                          lambda u, v: M.add_mod(u, v, Q))
-    return M.from_carrier(_fixup(raw))
+    coefficient-wise."""
+    return LR.ring_product(yhat, ahat, SCHEME, "matvec")
+
+
+def dilithium_serve(ahat, y) -> torch.Tensor:
+    """intt(matvec(ahat, ntt(y))): the serving step against an NTT-domain
+    matrix (one key's A_hat against a batch of vectors)."""
+    return LR.ring_product(y, ahat, SCHEME, "serve")
+
+
+def dilithium_serving_step(A, y) -> torch.Tensor:
+    """intt(matvec(ntt(A), ntt(y))): the serving step with a fresh A."""
+    return LR.ring_product(y, A, SCHEME, "serve_fresh")
 
 
 def make_pipeline(device=None) -> dict:
@@ -107,4 +133,5 @@ def make_pipeline(device=None) -> dict:
     (B, 6, 256)."""
     return RL.make_pipeline(dilithium_ntt, dilithium_intt, dilithium_matvec,
                             dilithium_polymul, dilithium_pointwise,
+                            dilithium_serve, dilithium_serving_step,
                             resolve_device(device))

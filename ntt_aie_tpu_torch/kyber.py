@@ -13,13 +13,18 @@ device.
 - ``kyber_matvec``: the NTT-domain module-lattice A s (the K-PKE shape),
 - ``make_pipeline``: the serving bundle.
 
-``kyber_ntt``/``kyber_intt`` are one launch each of the CUDA kernel
-``csrc/ring_layers.cu`` on a CUDA tensor (``ops.ring_layers.layered``)
-and its plain version, ``ring_layers.layered_fwd``/``layered_inv`` with
-the reference's Barrett multiply (``ops.modops.barrett_mul``), on a CPU
-tensor. basemul and matvec are torch ops on int64 carriers on either
-device. Every function takes (..., 256) values in [0, 3329), batched or
-single, and returns an int32 tensor; the device rule is
+On a CUDA tensor each function is one launch of a kernel of
+``csrc/ring_layers.cu``: ``kyber_ntt``/``kyber_intt`` the layered
+transform (``ops.ring_layers.layered``), ``kyber_basemul``,
+``kyber_polymul``, ``kyber_matvec``, ``kyber_serve`` and
+``kyber_serving_step`` the fused ring product
+(``ops.ring_layers.ring_product``; ``kyber_serving_step`` with one
+matrix for the whole batch is two: the matrix's transform, then the
+product). On a CPU tensor they run the plain versions:
+``ring_layers.layered_fwd``/``layered_inv`` with the reference's Barrett
+multiply (``ops.modops.barrett_mul``) and basemul and matvec as torch ops
+on int64 carriers. Every function takes (..., 256) values in [0, 3329),
+batched or single, and returns an int32 tensor; the device rule is
 ``ring_layers``'s (a tensor stays on its device, other arrays go to the
 card).
 """
@@ -57,14 +62,38 @@ def _mul(a, b):
     return M.barrett_mul(a, b, Q, _W, _U)
 
 
-SCHEME = LR.Scheme(name="kyber", q=Q, n=N, zetas=tuple(_ZETAS),
-                   izetas=tuple(_IZETAS), scale=_N_INV, mulz=_mul)
-
-
 @functools.lru_cache(maxsize=None)
 def _gammas(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_GAMMAS.astype(np.int64)).to(device).reshape(
         1, 128)
+
+
+def _basemul_plain(ahat: torch.Tensor, bhat: torch.Tensor) -> torch.Tensor:
+    """MultiplyNTTs in torch ops on int32 tensors on their device (the
+    plain version; the result has ahat's shape)."""
+    a, b = M.to_carrier(ahat), M.to_carrier(bhat)
+    shape = a.shape
+    a2, b2 = a.reshape(-1, 128, 2), b.reshape(-1, 128, 2)
+    a0, a1 = a2[..., 0], a2[..., 1]
+    b0, b1 = b2[..., 0], b2[..., 1]
+    g = _gammas(a.device)
+    c0 = M.add_mod(_mul(a0, b0), _mul(_mul(a1, b1), g), Q)
+    c1 = M.add_mod(_mul(a0, b1), _mul(a1, b0), Q)
+    return M.from_carrier(torch.stack((c0, c1), dim=-1).reshape(shape))
+
+
+def _matvec_plain(ahat: torch.Tensor, shat: torch.Tensor) -> torch.Tensor:
+    """The NTT-domain matvec in torch ops (the plain version)."""
+    return RL.matvec_terms(
+        ahat, shat, _basemul_plain,
+        lambda u, v: M.from_carrier(M.add_mod(M.to_carrier(u),
+                                              M.to_carrier(v), Q)))
+
+
+SCHEME = LR.Scheme(name="kyber", q=Q, n=N, zetas=tuple(_ZETAS),
+                   izetas=tuple(_IZETAS), scale=_N_INV, mulz=_mul,
+                   pointwise_plain=_basemul_plain, matvec_plain=_matvec_plain,
+                   product_scale=_N_INV, gammas=tuple(int(g) for g in _GAMMAS))
 
 
 def kyber_ntt(f) -> torch.Tensor:
@@ -81,23 +110,13 @@ def kyber_intt(fhat) -> torch.Tensor:
 def kyber_basemul(ahat, bhat) -> torch.Tensor:
     """MultiplyNTTs (FIPS 203 Algorithms 11-12): pairwise products of
     degree-1 polynomials mod (X^2 - gamma_i). Operands of one shape."""
-    dev = RL.operand_device(ahat, bhat)
-    a, b = (M.to_carrier(RL.as_i32(v, dev)) for v in (ahat, bhat))
-    shape = a.shape
-    a2, b2 = a.reshape(-1, 128, 2), b.reshape(-1, 128, 2)
-    a0, a1 = a2[..., 0], a2[..., 1]
-    b0, b1 = b2[..., 0], b2[..., 1]
-    g = _gammas(dev)
-    c0 = M.add_mod(_mul(a0, b0), _mul(_mul(a1, b1), g), Q)
-    c1 = M.add_mod(_mul(a0, b1), _mul(a1, b0), Q)
-    return M.from_carrier(torch.stack((c0, c1), dim=-1).reshape(shape))
+    return LR.ring_product(ahat, bhat, SCHEME, "pointwise")
 
 
 def kyber_polymul(a, b) -> torch.Tensor:
-    """a * b in Z_3329[X]/(X^256 + 1) via the ML-KEM pipeline."""
-    dev = RL.operand_device(a, b)
-    return kyber_intt(kyber_basemul(kyber_ntt(RL.as_i32(a, dev)),
-                                    kyber_ntt(RL.as_i32(b, dev))))
+    """a * b in Z_3329[X]/(X^256 + 1) via the ML-KEM pipeline:
+    intt(basemul(ntt(a), ntt(b)))."""
+    return LR.ring_product(a, b, SCHEME, "product")
 
 
 def kyber_matvec(ahat, shat) -> torch.Tensor:
@@ -107,11 +126,18 @@ def kyber_matvec(ahat, shat) -> torch.Tensor:
     (..., k, 256) = sum_j ahat[..., i, j, :] o shat[..., j, :]. Either
     side may carry extra batch dims (one key's A against a batch of
     vectors, or batched A)."""
-    dev = RL.operand_device(ahat, shat)
-    return RL.matvec_terms(
-        RL.as_i32(ahat, dev), RL.as_i32(shat, dev), kyber_basemul,
-        lambda u, v: M.from_carrier(M.add_mod(M.to_carrier(u),
-                                              M.to_carrier(v), Q)))
+    return LR.ring_product(shat, ahat, SCHEME, "matvec")
+
+
+def kyber_serve(ahat, x) -> torch.Tensor:
+    """intt(matvec(ahat, ntt(x))): the serving step against an NTT-domain
+    matrix (one key's A_hat against a batch of vectors)."""
+    return LR.ring_product(x, ahat, SCHEME, "serve")
+
+
+def kyber_serving_step(A, x) -> torch.Tensor:
+    """intt(matvec(ntt(A), ntt(x))): the serving step with a fresh A."""
+    return LR.ring_product(x, A, SCHEME, "serve_fresh")
 
 
 def make_pipeline(device=None) -> dict:
@@ -121,5 +147,5 @@ def make_pipeline(device=None) -> dict:
     ML-KEM-768 serving step is make_pipeline()["make_serving_step"](A_hat)
     with A_hat (k=3, l=3, 256) applied to (B, 3, 256) batches."""
     return RL.make_pipeline(kyber_ntt, kyber_intt, kyber_matvec,
-                            kyber_polymul, kyber_basemul,
-                            resolve_device(device))
+                            kyber_polymul, kyber_basemul, kyber_serve,
+                            kyber_serving_step, resolve_device(device))

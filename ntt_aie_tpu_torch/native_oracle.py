@@ -1,11 +1,11 @@
 """ctypes binding to the native C++ golden oracle (native/oracle.cc).
 
-A jax-free twin of ``ntt_aie_tpu.native_oracle`` for the entry points the
-port's gates use: the forward DIF (one vector or a batch), the inverse
-DIT, the cyclic and negacyclic products, the O(n^2) schoolbook negacyclic
-product (the gate of the ML-KEM ring, which has no 2n-th root), and the
-reference device's network, power table and 16-block placement (the
-parity gate). The library builds on demand with ``make -C native`` (g++
+A jax-free twin of ``ntt_aie_tpu.native_oracle``: the forward DIF (one
+vector or a batch), the inverse DIT, the cyclic and negacyclic products,
+the O(n^2) schoolbook negacyclic product (the gate of the ML-KEM ring,
+which has no 2n-th root), the reference device's network, power table and
+16-block placement (the parity gate), and the scalar modular multiplies
+(Barrett, Montgomery, Goldilocks and its 128-bit reduction). The library builds on demand with ``make -C native`` (g++
 only, no deps). ``write_vectors`` and ``run_verify_gate`` drive the
 standalone gate ``native/nttverify`` (``native/verify_main.cc``), which
 re-derives a claimed result in a process of its own.
@@ -42,9 +42,17 @@ def load() -> ctypes.CDLL:
         if not _LIB_PATH.exists():
             raise NativeOracleUnavailable(f"native build failed: {e}") from e
     lib = ctypes.CDLL(str(_LIB_PATH))
-    u64, i64 = ctypes.c_uint64, ctypes.c_int64
+    u64, u32, i64 = ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int64
     pu64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
     pi64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.ntt_barrett_mulmod.restype = u32
+    lib.ntt_barrett_mulmod.argtypes = [u32, u32, u32, u32, u32]
+    lib.ntt_mont_mulmod.restype = u32
+    lib.ntt_mont_mulmod.argtypes = [u32, u32, u32, u32]
+    lib.ntt_goldilocks_mulmod.restype = u64
+    lib.ntt_goldilocks_mulmod.argtypes = [u64, u64]
+    lib.ntt_goldilocks_reduce128.restype = u64
+    lib.ntt_goldilocks_reduce128.argtypes = [u64, u64]
     lib.ntt_reference_network.restype = None
     lib.ntt_reference_network.argtypes = [pi64, i64, pi64, i64, i64]
     lib.ntt_make_power_table.restype = None
@@ -155,6 +163,27 @@ def negacyclic_polymul(a, b, psi: int, p: int) -> np.ndarray:
     c = np.empty_like(a)
     lib.ntt_negacyclic_polymul_u64(a, b, c, len(a), psi, p)
     return c
+
+
+def barrett_mulmod(a: int, b: int, p: int, w: int, u: int) -> int:
+    """a b mod p by the oracle's Barrett reduction (w, u: the field's
+    barrett_w and barrett_u)."""
+    return int(load().ntt_barrett_mulmod(a, b, p, w, u))
+
+
+def mont_mulmod(a: int, b: int, p: int, neg_pinv: int) -> int:
+    """a b R^-1 mod p, R = 2^32, by the oracle's Montgomery REDC."""
+    return int(load().ntt_mont_mulmod(a, b, p, neg_pinv))
+
+
+def goldilocks_mulmod(a: int, b: int) -> int:
+    """a b mod 2^64 - 2^32 + 1."""
+    return int(load().ntt_goldilocks_mulmod(a, b))
+
+
+def goldilocks_reduce128(x: int) -> int:
+    """A 128-bit x mod 2^64 - 2^32 + 1."""
+    return int(load().ntt_goldilocks_reduce128(x >> 64, x & ((1 << 64) - 1)))
 
 
 # ---- the standalone verification gate (native/verify_main.cc) ----

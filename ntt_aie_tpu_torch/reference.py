@@ -1,6 +1,6 @@
-"""NumPy golden oracles: the reference device's butterfly network, and
-textbook DIF/DIT NTTs, the cyclic and negacyclic products, and the
-O(n^2) schoolbook negacyclic product.
+"""NumPy golden oracles: the reference device's butterfly network, the
+O(n^2) DFT, textbook DIF/DIT NTTs, the cyclic and negacyclic products, and
+the O(n^2) schoolbook cyclic and negacyclic products.
 
 A copy of ``ntt_aie_tpu.reference``: int64 NumPy for 32-bit word primes,
 Python integers (object arrays) for Goldilocks. It shares no arithmetic
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from ntt_aie_tpu_torch import twiddles as tw
-from ntt_aie_tpu_torch.fields import PrimeField
+from ntt_aie_tpu_torch.fields import PrimeField, modpow
 
 
 def _work_dtype(p: int):
@@ -107,6 +107,28 @@ def reference_device_output(a, field: PrimeField, n: int) -> np.ndarray:
     power table, the full-depth network, the block placement."""
     table = tw.power_table(field, n)
     return block_permute(reference_network(a, table, field.p))
+
+
+def naive_dft(a, field: PrimeField, *, inverse: bool = False) -> np.ndarray:
+    """O(n^2) ground truth in exact integers: A[k] = sum_j a[j] w^(jk) mod
+    p, natural order in and out (the inverse with w^-1 and the 1/n
+    scale)."""
+    a = np.asarray(a)
+    n = len(a)
+    p = field.p
+    w = field.root_of_unity(n)
+    if inverse:
+        w = field.inv(w)
+    out = np.zeros(n, dtype=object)
+    for k in range(n):
+        acc, cur, wk = 0, 1, modpow(w, k, p)
+        for j in range(n):
+            acc = (acc + int(a[j]) * cur) % p
+            cur = cur * wk % p
+        out[k] = acc
+    if inverse:
+        out = out * field.inv(n) % p
+    return out
 
 
 def ntt_dif(a, field: PrimeField, *, inverse: bool = False) -> np.ndarray:
@@ -205,4 +227,16 @@ def schoolbook_negacyclic(a, b, p: int) -> np.ndarray:
         term = a[i] * b
         out[i:] += term[:n - i]
         out[:i] -= term[n - i:]
+    return out % p
+
+
+def schoolbook_cyclic(a, b, p: int) -> np.ndarray:
+    """O(n^2) cyclic convolution ground truth in exact (object) integers:
+    a[i] * b lands on coefficients (i + j) mod n; reduced mod p."""
+    n = len(a)
+    a = np.array([int(v) for v in a], dtype=object)
+    b = np.array([int(v) for v in b], dtype=object)
+    out = np.zeros(n, dtype=object)
+    for i in range(n):
+        out += a[i] * np.roll(b, i)
     return out % p

@@ -118,28 +118,28 @@ def matvec_terms(ahat: torch.Tensor, xhat: torch.Tensor, pointwise,
     return acc
 
 
-def make_pipeline(ntt, intt, matvec, polymul, pointwise, device) -> dict:
+def make_pipeline(ntt, intt, matvec, polymul, pointwise, serve,
+                  serving_step, device) -> dict:
     """The serving-pipeline bundle on `device`, the twin of the
     reference's ``jit_pipeline`` (its ring_layers.py:82-115) with the
     same keys; no jit: plain callables whose operands go to the device
-    (a tensor elsewhere is moved there).
+    (a tensor elsewhere is moved there). On the card each callable is
+    one kernel launch (serving_step with one matrix for the batch two),
+    as each of the reference's is one compiled program.
 
       ntt / intt / polymul / pointwise / matvec: the module functions;
       serving_step(A, x): intt(matvec(ntt(A), ntt(x))), a fresh A a call;
       make_serving_step(A_hat): A_hat moved to the device once; returns
-        x -> intt(matvec(A_hat, ntt(x))) (the serving shape: one key's A
-        against a batch of vectors).
+        x -> serve(A_hat, x) = intt(matvec(A_hat, ntt(x))) (the serving
+        shape: one key's A against a batch of vectors).
     """
 
     def on_device(fn):
         return lambda *args: fn(*(as_i32(a, device) for a in args))
 
-    def serving_step(A, x):
-        return intt(matvec(ntt(A), ntt(x)))
-
     def make_serving_step(A_hat):
         A_hat = as_i32(A_hat, device)
-        return lambda x: intt(matvec(A_hat, ntt(as_i32(x, device))))
+        return lambda x: serve(A_hat, as_i32(x, device))
 
     return {
         "ntt": on_device(ntt),

@@ -2,7 +2,7 @@
 of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
-        [--nested] [--gl] [--crt] [--reduction KIND]
+        [--nested] [--gl] [--crt] [--ring] [--reduction KIND]
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
 such as an unpacked ``git archive`` of another commit, or of this one with
@@ -36,15 +36,25 @@ it. With ``--crt`` each reading also times the CRT combine of the RNS
 product (``ops.crt.make_crt_combine`` over the three default RNS primes,
 on random canonical residues of B = 16 products of n = 2^20: the kernel
 ``csrc/crt.cu``; us per call) and hashes its limbs, which must agree
-across every reading of every root. The readings go in turns: the roots
-in order, then in reverse (a b c c b a).
+across every reading of every root. With ``--ring`` each reading also
+times the FIPS 203/204 rings (``csrc/ring_layers.cu``) through the
+pipelines (``kyber.make_pipeline``, ``dilithium.make_pipeline``):
+``ntt``, ``intt`` and ``polymul`` at B = 8,192 and the ML-KEM-768 and
+ML-DSA-65 serving steps ``make_serving_step(A_hat)(x)`` at B = 1,024,
+each as a call (the wrapper's host work included) and on the card alone
+(a CUDA graph of calls cycling over copies of the input, so that the
+input comes cold from device memory, not from L2), and hashes the
+outputs, which must
+agree across every reading of every root. The readings go in turns: the
+roots in order, then in reverse (a b c c b a).
 
 Prints one JSON line per reading, then one summary line: per root, the
 mean of its readings in us per NTT (us per pass per NTT for cp1 and cp2;
 us per call for the nested bench shape), and the card's name and power
 limit (nvidia-smi). Exits 1 if a reading failed, a fused output differed
 from the fold plan's, a nested one from the column pass's, or two
-readings' Goldilocks outputs or CRT limbs from each other. Needs a CUDA card.
+readings' Goldilocks outputs, CRT limbs or ring outputs from each other.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -64,6 +74,12 @@ NESTED_BATCH, NESTED_N = 64, 1024  # the nested prototype's bench shape
 NESTED_FUSE = (1, 2, 3, 4, 5)
 GL_BATCH = 64  # the Goldilocks path's batch
 CRT_BATCH = 16  # the RNS products of chip_smoke.py's rns phase
+# the rings' batches (chip_smoke.py's phase 29) and serving shapes
+RING_BATCH, RING_SERVING_BATCH = 8192, 1024
+RING_SERVING = {"kyber": (3, 3), "dilithium": (6, 5)}
+# the alone readings cycle over input copies that move at least this many
+# bytes between two uses of one copy (4x the H100's 50 MB L2)
+RING_COLD_BYTES = 200_000_000
 # the field each reduction's transforms run on
 REDUCTION_FIELDS = {"harvey4": "p469762049", "harvey": "p998244353",
                     "montgomery": "p2013265921"}
@@ -145,6 +161,79 @@ def _measure_crt() -> dict:
     us = time_device(lambda t: (cc(*res), t)[1], res[0])["us_per_iter"]
     return {"crt_batch": CRT_BATCH, "crt_us_per_call": us,
             "crt_hash": hashlib.sha256(limbs.cpu().numpy()).hexdigest()}
+
+
+def _graph_us(fn, inputs, repeats=5) -> float:
+    """us per call of fn(v) on the card alone with its inputs cold in L2:
+    a CUDA graph of max(20, len(inputs)) calls cycling over `inputs`,
+    replayed between CUDA events `repeats` times, trimmed mean. The
+    script's own copy of utils.timing.time_graph: a reading imports
+    another checkout's package, which may predate it."""
+    import numpy as np
+    import torch
+
+    chain = max(20, len(inputs))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(inputs[0])  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(chain):
+            fn(inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) * 1e3 / chain)
+    return float(np.mean(sorted(runs)[1:-1]))
+
+
+def _measure_ring() -> dict:
+    """The rings' ntt, intt, polymul (RING_BATCH) and serving steps
+    (RING_SERVING_BATCH) through the pipelines: us per call, us on the
+    card alone, and the outputs' hashes."""
+    import hashlib
+
+    import torch
+
+    from ntt_aie_tpu_torch import dilithium, kyber
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {"ring_hashes": {}}
+    for name, mod in (("kyber", kyber), ("dilithium", dilithium)):
+        k, l = RING_SERVING[name]
+        pipe = mod.make_pipeline(device=dev)
+
+        def draw(*shape):
+            return torch.randint(0, mod.Q, shape, dtype=torch.int32,
+                                 device=dev, generator=gen)
+
+        x, b = draw(RING_BATCH, 256), draw(RING_BATCH, 256)
+        xs, A = draw(RING_SERVING_BATCH, l, 256), draw(k, l, 256)
+        step = pipe["make_serving_step"](pipe["ntt"](A))
+        calls = {"ntt": (pipe["ntt"], x), "intt": (pipe["intt"], x),
+                 "polymul": (lambda v: pipe["polymul"](v, b), x),
+                 "serving_step": (lambda v: step(v)[:, :l], xs)}
+        for call, (fn, arg) in calls.items():
+            key = f"ring_{name}_{call}"
+            out["ring_hashes"][key] = hashlib.sha256(
+                fn(arg).cpu().numpy()).hexdigest()
+            out[f"{key}_us_per_call"] = time_device(fn, arg)["us_per_iter"]
+            copies = [arg] + [arg.clone() for _ in range(
+                min(31, RING_COLD_BYTES // (8 * arg.numel())))]
+            out[f"{key}_alone_us_per_call"] = _graph_us(fn, copies)
+            del copies
+    return out
 
 
 def _measure_nested() -> dict:
@@ -234,6 +323,10 @@ def main(argv=None) -> int:
     ap.add_argument("--crt", action="store_true",
                     help="also time the CRT combine of 16 RNS products of "
                          "n = 2^20")
+    ap.add_argument("--ring", action="store_true",
+                    help="also time the ML-KEM / ML-DSA transforms and "
+                         "polymul at B = 8,192 and their serving steps at "
+                         "B = 1,024")
     ap.add_argument("--reduction", default="harvey4",
                     choices=sorted(REDUCTION_FIELDS),
                     help="the reduction (and its field) of the transforms")
@@ -247,6 +340,8 @@ def main(argv=None) -> int:
             reading.update(_measure_gl())
         if args.crt:
             reading.update(_measure_crt())
+        if args.ring:
+            reading.update(_measure_ring())
         _emit(reading)
         return 0
 
@@ -259,7 +354,8 @@ def main(argv=None) -> int:
     roots["this"] = THIS_ROOT
 
     libs = (("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
-            + ("gl_colpass",) * args.gl + ("crt",) * args.crt)
+            + ("gl_colpass",) * args.gl + ("crt",) * args.crt
+            + ("ring_layers",) * args.ring)
     red = (args.reduction,) * (args.reduction != "harvey4")
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
              f"[C.build_library(n) for n in {libs!r}]; "
@@ -279,9 +375,10 @@ def main(argv=None) -> int:
     order = list(roots) + list(reversed(roots))
     readings = {name: [] for name in roots}
     flags = (["--nested"] * args.nested + ["--gl"] * args.gl
-             + ["--crt"] * args.crt + ["--reduction", args.reduction])
+             + ["--crt"] * args.crt + ["--ring"] * args.ring
+             + ["--reduction", args.reduction])
     ok = True
-    gl_hashes = crt_hash = None
+    gl_hashes = crt_hash = ring_hashes = None
     for name in order:
         res = _run_child(roots[name], flags)
         if res.returncode != 0:
@@ -290,10 +387,12 @@ def main(argv=None) -> int:
         reading = json.loads(res.stdout.strip().splitlines()[-1])
         gl_hashes = gl_hashes or reading.get("gl_hashes")
         crt_hash = crt_hash or reading.get("crt_hash")
+        ring_hashes = ring_hashes or reading.get("ring_hashes")
         ok = (ok and reading["fused_equals_fold"]
               and reading.get("nested_equals_colpass", True)
               and reading.get("gl_hashes") == gl_hashes
-              and reading.get("crt_hash") == crt_hash)
+              and reading.get("crt_hash") == crt_hash
+              and reading.get("ring_hashes") == ring_hashes)
         readings[name].append(reading)
         _emit(dict(reading, root=name))
 
@@ -305,6 +404,8 @@ def main(argv=None) -> int:
            "reduction": args.reduction,
            "nested_batch": NESTED_BATCH if args.nested else None,
            "gl_batch": GL_BATCH if args.gl else None,
+           "ring_batch": ([RING_BATCH, RING_SERVING_BATCH] if args.ring
+                          else None),
            "gl_outputs_agree": (all(r.get("gl_hashes") == gl_hashes
                                     for rs in readings.values() for r in rs)
                                 if args.gl else None),

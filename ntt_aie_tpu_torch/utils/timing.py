@@ -15,6 +15,9 @@ input the caller passes:
 The result says which (``"clock": "cuda_events"`` or ``"host"``).
 ``time_host_dispatch`` is the reference's other metric: the wall clock
 around one call and its synchronize, the latency a B = 1 caller sees.
+``time_graph`` times the card alone: calls captured in one CUDA graph and
+replayed, without the host's cost of each launch, cycling over copies of
+the inputs so that they can come cold from device memory.
 """
 
 from __future__ import annotations
@@ -101,3 +104,33 @@ def time_host_dispatch(fn, x, *, runs: int = 10) -> dict:
         synchronize(device)
         ts.append((time.perf_counter() - t0) * 1e6)
     return {"us_trimmed_mean": trimmed_mean(ts), "runs_us": ts}
+
+
+def time_graph(fn, inputs: list, *, repeats: int = 5) -> float:
+    """us per call of fn(v) on the card alone: one CUDA graph of
+    max(20, len(inputs)) calls cycling over `inputs`, replayed between
+    CUDA events `repeats` times, trimmed mean. Copies whose traffic exceeds
+    the card's L2 between two uses of one copy are read cold from device
+    memory; a single input is read from L2 after the first call."""
+    chain = max(20, len(inputs))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(inputs[0])  # a kernel's first call builds it: outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(chain):
+            fn(inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) * 1e3 / chain)
+    return trimmed_mean(runs)

@@ -957,7 +957,7 @@ def test_ring_serving_step_matches_plain(cuda, scheme, k, l):
     LR.layered.launches = 0
     got = pipe["make_serving_step"](pipe["ntt"](A))(x)
     torch.cuda.synchronize()
-    assert LR.layered.launches == 3
+    assert LR.layered.launches == 2  # ntt(A), then the fused serving step
     assert got.shape == (64, k, 256)
     want = plain["make_serving_step"](plain["ntt"](A))(x)
     assert torch.equal(got.cpu(), want)
@@ -967,6 +967,92 @@ def test_ring_serving_step_matches_plain(cuda, scheme, k, l):
     c = pipe["polymul"](a, b).cpu().numpy().astype(np.int64)
     assert np.array_equal(c, ref.schoolbook_negacyclic(a, b, q)
                           .astype(np.int64))
+
+
+# the fused ring product's instantiations on the card: (mode, x shape, a
+# shape), "x" (B, l, 256) vectors, "A" the (k, l, 256) matrix shared by
+# the batch, "bA" (B, k, l, 256), at ML-KEM-768's and ML-DSA-65's k x l
+RING_PRODUCT_CASES = (
+    [("product", (B, 256), (B, 256)) for B in (1, 3, 13, 8192)]
+    + [("product", (8, 3, 256), (8, 3, 256)),
+       ("pointwise", (13, 256), (13, 256)), ("pointwise", (13, 256), (256,))]
+    + [(mode, ("x", B), (a, B)) for mode in ("matvec", "serve")
+       for a in ("A", "bA") for B in (1, 13, 1024)]
+    + [("serve_fresh", ("x", B), ("bA", B)) for B in (1, 13)]
+    + [("serve_fresh", ("x", 13), ("A", 13))])
+
+
+def _ring_shape(spec, k, l):
+    if isinstance(spec[0], int):
+        return spec
+    name, B = spec
+    return {"x": (B, l, 256), "A": (k, l, 256), "bA": (B, k, l, 256)}[name]
+
+
+@pytest.mark.parametrize("case", RING_PRODUCT_CASES, ids=str)
+@pytest.mark.parametrize("scheme,k,l", [("kyber", 3, 3),
+                                        ("dilithium", 6, 5)])
+def test_ring_product_kernel_matches_plain(cuda, scheme, k, l, case):
+    """Each fused ring-product instantiation (csrc/ring_layers.cu
+    ring_product_kernel) against its plain version raw: one launch a call
+    (one fresh matrix for the batch, a batch of one included: its
+    transform, then the product)."""
+    import importlib
+
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+
+    mode, x_spec, a_spec = case
+    sch = importlib.import_module(f"ntt_aie_tpu_torch.{scheme}").SCHEME
+    rng = np.random.default_rng([k, l, len(str(case))])
+    x, a = (torch.from_numpy(rng.integers(0, sch.q, _ring_shape(v, k, l))
+                             .astype(np.int32)).to(cuda)
+            for v in (x_spec, a_spec))
+    before = LR.layered.launches
+    got = LR.ring_product(x, a, sch, mode)
+    torch.cuda.synchronize()
+    one_matrix = LR.MODES[mode][3] and a[..., 0, 0, 0].numel() == 1
+    two = mode == "serve_fresh" and one_matrix
+    assert LR.layered.launches == before + 1 + two
+    assert got.dtype == torch.int32
+    assert torch.equal(got, LR.ring_product_plain(x, a, sch, mode))
+
+
+@pytest.mark.parametrize("scheme,k,l", [("kyber", 3, 3),
+                                        ("dilithium", 6, 5)])
+def test_ring_pipeline_launches_per_call(cuda, scheme, k, l):
+    """The pipeline's launches a call on the card, by instantiation: ntt,
+    intt, polymul, pointwise, matvec and make_serving_step(A_hat)(x) one
+    each; serving_step(A, x) two with one matrix (ntt of A, then the
+    fused step) and one with a matrix a batch row."""
+    import importlib
+
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+
+    mod = importlib.import_module(f"ntt_aie_tpu_torch.{scheme}")
+    pipe = mod.make_pipeline(device=cuda)
+    rng = np.random.default_rng([k, l, 9])
+    a, b = rng.integers(0, mod.Q, (2, 4, 256))
+    A = rng.integers(0, mod.Q, (k, l, 256))
+    bA = rng.integers(0, mod.Q, (4, k, l, 256))
+    x = rng.integers(0, mod.Q, (4, l, 256))
+    A_hat = pipe["ntt"](A)
+    step = pipe["make_serving_step"](A_hat)
+    calls = {"ntt": (lambda: pipe["ntt"](a), {"ntt": 1}),
+             "intt": (lambda: pipe["intt"](a), {"intt": 1}),
+             "polymul": (lambda: pipe["polymul"](a, b), {"product": 1}),
+             "pointwise": (lambda: pipe["pointwise"](a, b), {"pointwise": 1}),
+             "matvec": (lambda: pipe["matvec"](A_hat, x), {"matvec": 1}),
+             "make_serving_step": (lambda: step(x), {"serve": 1}),
+             "serving_step": (lambda: pipe["serving_step"](A, x),
+                              {"ntt": 1, "serve": 1}),
+             "serving_step[batched A]": (lambda: pipe["serving_step"](bA, x),
+                                         {"serve_fresh": 1})}
+    for call, (fn, want) in calls.items():
+        LR.layered.launches_by = {}
+        fn()
+        torch.cuda.synchronize()
+        assert LR.layered.launches_by == {f"{scheme}_{key}": n
+                                          for key, n in want.items()}, call
 
 
 @pytest.mark.parametrize("name,log_n,ordering", [
@@ -1237,3 +1323,18 @@ def test_example_on_the_card(cuda, name):
     counts = out.get("launches") or read_launches()
     assert out["lines"] and all("✓" in line for line in out["lines"])
     assert all(counts[k] > 0 for k in kernels), counts
+
+
+def test_time_graph_on_the_card(cuda):
+    """utils.timing.time_graph: a positive time a call for one input (L2
+    warm) and for copies cycled cold, and the calls ran (the output of
+    the last replay is the function's)."""
+    from ntt_aie_tpu_torch.utils.timing import time_graph
+
+    x = torch.ones((1 << 20,), dtype=torch.int32, device=cuda)
+    copies = [x] + [x.clone() for _ in range(7)]
+    out = []
+    warm = time_graph(lambda v: out.append(v + 1), [x])
+    cold = time_graph(lambda v: v * 3, copies)
+    assert warm > 0 and cold > 0
+    assert torch.equal(out[-1], x + 1)

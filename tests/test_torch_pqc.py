@@ -292,3 +292,98 @@ def test_layered_plain_is_the_reference_structure():
         jnp.asarray(x.T, jnp.uint32), JK._ZETAS,
         lambda a, b: JM.barrett_mul(a, b, q, JK._W, JK._U), q)
     assert np.array_equal(got.numpy(), np.asarray(want).T.astype(np.int64))
+
+
+# ring_product_plain in every mode: (mode, x shape, a shape), with k and l
+# of SERVING; "A" stands for the scheme's (k, l, 256) matrix, "bA" for a
+# batch of 2 of them, "x" for (2, l, 256) vectors
+PRODUCT_CASES = [
+    ("product", (3, 256), (3, 256)),
+    ("pointwise", (2, 3, 256), (2, 3, 256)),
+    ("pointwise", (2, 3, 256), (256,)),  # one operand broadcast
+    ("matvec", "x", "A"),
+    ("matvec", "x", "bA"),
+    ("serve", "x", "A"),
+    ("serve_fresh", "x", "A"),
+    ("serve_fresh", "x", "bA"),
+]
+
+
+def _product_operands(scheme, x_shape, a_shape):
+    mod = SCHEMES[scheme][0]
+    k, l = SERVING[scheme]
+    named = {"x": (2, l, 256), "A": (k, l, 256), "bA": (2, k, l, 256)}
+    x_shape, a_shape = named.get(x_shape, x_shape), named.get(a_shape, a_shape)
+    rng = np.random.default_rng([len(x_shape), len(a_shape), mod.Q])
+    return (rng.integers(0, mod.Q, x_shape), rng.integers(0, mod.Q, a_shape))
+
+
+def _product_reference(scheme, mode, x, a):
+    """The JAX package's pipeline callable of `mode`."""
+    if mode == "product":
+        return _jax(scheme, "polymul", x, a)
+    if mode == "pointwise":
+        return _jax(scheme, "pointwise", x, a)
+    if mode == "matvec":
+        return _jax(scheme, "matvec", a, x)
+    if mode == "serve_fresh":
+        return _jax(scheme, "serving_step", a, x)
+    step = _jax_pipeline(scheme)["make_serving_step"](np.asarray(a, np.uint32))
+    return np.asarray(step(np.asarray(x, np.uint32))).astype(np.int64)
+
+
+@pytest.mark.parametrize("case", PRODUCT_CASES, ids=str)
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_ring_product_plain_matches_reference(scheme, case):
+    """ring_product_plain (the fused kernel's plain version) in every mode,
+    with a shared and a batched matrix and a broadcast operand, equal to
+    the JAX package bit for bit; ring_product on CPU tensors takes it and
+    launches nothing."""
+    mode, x_shape, a_shape = case
+    sch = SCHEMES[scheme][0].SCHEME
+    x, a = _product_operands(scheme, x_shape, a_shape)
+    want = _product_reference(scheme, mode, x, a)
+    got = LR.ring_product_plain(_t(x).to(torch.int32), _t(a).to(torch.int32),
+                                sch, mode)
+    assert tuple(got.shape) == want.shape and np.array_equal(_np(got), want)
+    LR.layered.launches = 0
+    assert torch.equal(LR.ring_product(_t(x), _t(a), sch, mode), got)
+    assert LR.layered.launches == 0
+
+
+@pytest.mark.parametrize("case", PRODUCT_CASES, ids=str)
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_product_operands_batched_form(scheme, case):
+    """The kernel route's operands (product_operands: expanded on the host
+    to x (B, l, 256) and a shared (k, l, 256) or batched (B, k, l, 256))
+    give the broadcasting call's result: ring_product_plain on the batched
+    form, reshaped, equals it on the call's operands; a matrix is shared
+    exactly where its batch holds one."""
+    mode, x_shape, a_shape = case
+    sch = SCHEMES[scheme][0].SCHEME
+    matrix = LR.MODES[mode][3]
+    x, a = (_t(v).to(torch.int32)
+            for v in _product_operands(scheme, x_shape, a_shape))
+    ops = LR.product_operands(x, a, 256, matrix)
+    assert ops.x.shape == (ops.x.shape[0], ops.l, 256)
+    assert ops.shared == (matrix and a.dim() == 3)
+    if matrix:
+        got = LR.ring_product_plain(ops.x, ops.a, sch, mode)
+    else:
+        got = LR.ring_product_plain(ops.x.reshape(-1, 256),
+                                    ops.a.reshape(-1, 256), sch, mode)
+    got = got.reshape(ops.out_shape)
+    assert torch.equal(got, LR.ring_product_plain(x, a, sch, mode))
+
+
+def test_ring_product_rejects_unknown_modes_and_shapes():
+    """A mode outside MODES and a matvec whose l disagrees raise; the
+    kernel's rank limit is the source's."""
+    sch = K.SCHEME
+    x = torch.zeros((2, 3, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="mode"):
+        LR.ring_product(x, x, sch, "convolve")
+    with pytest.raises(ValueError, match="matvec"):
+        LR.product_operands(x, torch.zeros((3, 2, 256), dtype=torch.int32),
+                            256, True)
+    assert LR.MAX_RANK == 8

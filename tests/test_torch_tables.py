@@ -379,3 +379,29 @@ def test_pqc_tables_match(scheme):
     else:
         assert (int(t._N_INV_MONT), t._R2, t._NEG_PINV) == (
             int(j._N_INV_MONT), j._R2, j._NEG_PINV)
+
+
+@pytest.mark.parametrize("scheme", ["kyber", "dilithium"])
+def test_pqc_product_table_layout(scheme):
+    """The fused ring-product kernel's table (Scheme.product_table): the
+    forward flat zeta table, the inverse's, then ML-KEM's gammas (entry
+    2^8 + i: zeta^(2 BitRev7(i) + 1)), pinned to the JAX package's
+    per-layer tables and _GAMMAS; ML-DSA has no gammas."""
+    import importlib
+
+    j = importlib.import_module(f"ntt_aie_tpu.{scheme}")
+    t = importlib.import_module(f"ntt_aie_tpu_torch.{scheme}")
+    table = t.SCHEME.product_table()
+    words = 1 << len(j._ZETAS)
+    assert table.dtype == np.uint32
+    for half, layers in ((0, j._ZETAS), (words, j._IZETAS)):
+        assert table[half] == 0
+        for L, z in enumerate(layers):
+            assert np.array_equal(table[half + (1 << L): half + (2 << L)], z)
+    if scheme == "kyber":
+        assert table.size == 2 * words + 128
+        assert np.array_equal(table[2 * words:], j._GAMMAS)
+        assert np.array_equal(np.asarray(t.SCHEME.gammas, np.uint32),
+                              j._GAMMAS)
+    else:
+        assert table.size == 2 * words and t.SCHEME.gammas == ()
