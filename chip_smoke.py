@@ -31,7 +31,9 @@ kernel, csrc/ring_layers.cu); and the reference-parity plan; the
 distributed four-step plan; and the entry points a user calls: the
 command line (python -m ntt_aie_tpu_torch), torch.profiler traces, the
 sweep and scaling harnesses and host streaming; and the five worked
-examples (python -m ntt_aie_tpu_torch.examples.<name>).
+examples (python -m ntt_aie_tpu_torch.examples.<name>); and the
+tall route of the column passes at BabyBear's and Goldilocks's largest
+transforms (n = 2^27, 2^28).
 Phases, one JSON object per line:
 
   1. env       — the card (nvidia-smi's name and power limit, also printed
@@ -375,7 +377,20 @@ row (3d) for each instantiation the distributed plan added: ms per launch
 at B = 8, launches summed over phase 32's ranks, launches a transform,
 bytes with the operand tables. Each row's launches are its own path's;
 the flat phases' (phases 20 and 22's driven calls) are under
-"flat_launches". Last, the result line
+"flat_launches". Phase 40 (tall, tall_done) runs the column passes
+above 8,192 rows, each as its two launches (ops/colpass.py tall_phases),
+on BabyBear at n = 2^27 and Goldilocks at n = 2^27 (8192 x 16384) and at
+2^28 on the factored arm (16384 x 16384, dropped if its set-up passes
+60 s), B = 1, through make_batched(1)'s fwd_mat, inv_mat and polymul_mat:
+launches by instantiation counted from 0 a call, every tall launch on the
+path's own input equal to its plain version raw and the pair to the
+whole pass's, BabyBear's fwd_mat on the native oracle (row 0) and
+Goldilocks's on the plain passes on the card, the round trip and
+polymul_mat exact, µs a call and ms a launch; it adds a
+colpass[tall:<case>:<pass><A|B>] row (PERF.md 1t) or a gl_colpass[...]
+row (3t) for each launch, its bound its own (the launch reads and writes
+the array once), the pass's bytes and butterflies beside it. Last, the
+result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -823,6 +838,10 @@ def main() -> int:
     example_launches = examples_phase(dev, card, rng)
     if example_launches is None:
         return 1
+    torch.cuda.empty_cache()
+    tall_rows = tall_phase(dev, card, gen)
+    if tall_rows is None:
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -858,6 +877,7 @@ def main() -> int:
         "nwords": crt_row["nwords"]})
     rows += pqc_rows
     rows += dist_rows
+    rows += tall_rows
     # the launches of the entry points of phases 34-38, by kernel
     for row in rows:
         if row["name"] in entry_point_launches:
@@ -4583,6 +4603,355 @@ def examples_phase(dev, card, rng):
     emit({"phase": "examples_done", "seconds": time.perf_counter() - t_phase,
           "launches": totals, "ok": True})
     return totals
+
+
+# Phase 40: the tall route (a column pass above 8,192 rows as two launches,
+# ops/colpass.py tall_phases) on the largest transforms of BabyBear and
+# Goldilocks, through build_plan and make_batched(1) at their default
+# splits: (label, field name, log_n, plan keywords, PERF.md row, dropped
+# when its set-up passes TALL_SETUP_LIMIT_S). BabyBear and Goldilocks at
+# 2^27 run 8192 x 16384 (cp2 and icp2 tall); Goldilocks at 2^28 runs
+# 16384 x 16384 on the factored arm (all four passes tall, no n1 x n2 host
+# matrix).
+TALL_CASES = (("babybear", "p2013265921", 27, {}, "1t", False),
+              ("goldilocks", "goldilocks", 27, {}, "3t", False),
+              ("goldilocks_factored", "goldilocks", 28,
+               {"wmat_factored": True}, "3t", True))
+TALL_SETUP_LIMIT_S = 60.0
+# the plain versions run on 2^TALL_PLAIN_LOG-point column slices: at 2^28
+# their int64 carriers would not fit the card's 80 GB at once
+TALL_PLAIN_LOG = 26
+# each call's passes, in order (polymul_mat: both operands' fwd, the
+# pointwise product, inv)
+TALL_CALL_PASSES = {"fwd_mat": ("cp1", "cp2"), "inv_mat": ("icp2", "icp1"),
+                    "polymul_mat": ("cp1", "cp2", "cp1", "cp2", "icp2",
+                                    "icp1")}
+
+
+def _tall_ops(gl):
+    """The column-pass module's entry points a tall pass is checked
+    through: its phase launch, the phase's plain version, the whole pass's
+    plain version, kernel_info, the wrapper and its kernels-line row."""
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+
+    if gl:
+        return dict(phase=G.gl_colpass_phase, phase_plain=G.gl_tall_phase_plain,
+                    plain=G.gl_colpass_plain, info=G.kernel_info,
+                    counter=G.gl_colpass, name="gl_colpass", itemsize=8,
+                    source="ntt_aie_tpu_torch/csrc/gl_colpass.cu",
+                    replaces="ntt_aie_tpu/ops/pallas_gl.py:33")
+    return dict(phase=C.colpass_phase, phase_plain=C.tall_phase_plain,
+                plain=C.colpass_plain, info=C.kernel_info, counter=C.colpass,
+                name="colpass", itemsize=4,
+                source="ntt_aie_tpu_torch/csrc/colpass.cu",
+                replaces="ntt_aie_tpu/ops/pallas_ntt.py:298")
+
+
+def _max_err(a, b) -> int:
+    """The largest absolute difference between two outputs' words (int32
+    tensors or (hi, lo) planes), as uint32 bit patterns."""
+    pa = a if isinstance(a, tuple) else (a,)
+    pb = b if isinstance(b, tuple) else (b,)
+    return max(int(((u.long() & 0xFFFFFFFF) - (w.long() & 0xFFFFFFFF))
+                   .abs().max()) for u, w in zip(pa, pb))
+
+
+def _tall_input(field, shape, dev, gen):
+    """Canonical values of field drawn on the card: an int32 tensor, or
+    Goldilocks (hi, lo) planes with hi < 2^32 - 1 (so below p)."""
+    import torch
+
+    def draw(top):
+        return torch.randint(0, top, shape, dtype=torch.int64, device=dev,
+                             generator=gen).to(torch.int32)
+
+    if field.is_goldilocks:
+        return draw((1 << 32) - 1), draw(1 << 32)
+    return draw(field.p)
+
+
+def _column_slice(cp, cols):
+    """cp (a ColPass or a GLColPass) over the columns `cols` of its
+    array: a column's pass reads only its own column of each operand."""
+    import dataclasses
+
+    cut = {}
+    if cp.pre is not None:
+        cut["pre"] = cp.pre[:, cols]
+    if cp.post is not None:
+        cut["post"] = cp.post[:, cols]
+    if cp.wmat is not None:
+        cut["wmat"] = cp.wmat[cols]
+    if cp.wfac is not None:
+        cut["wfac"] = tuple(t[:, cols].contiguous() for t in cp.wfac)
+    if cp.rank1 is not None:
+        cut["rank1"] = (cp.rank1[0], cp.rank1[1][cols])
+    return dataclasses.replace(cp, **cut)
+
+
+def _by_columns(fn, v, cp, chunks, transposed, *args):
+    """fn(v, cp, *args), a plain version, over `chunks` slices of v's
+    columns, joined (the output's rows where transposed): the plain
+    versions' int64 carriers of a 2^28-point array would not fit the
+    card at once."""
+    import torch
+
+    planes = v if isinstance(v, tuple) else (v,)
+    ncols = planes[0].shape[-1]
+    step = max(1, ncols // chunks)
+    parts = []
+    for c0 in range(0, ncols, step):
+        cols = slice(c0, c0 + step)
+        part = tuple(t[..., cols].contiguous() for t in planes)
+        out = fn(part if isinstance(v, tuple) else part[0],
+                 _column_slice(cp, cols), *args)
+        parts.append(out if isinstance(out, tuple) else (out,))
+    dim = -2 if transposed else -1
+    joined = tuple(torch.cat(ps, dim=dim) for ps in zip(*parts))
+    return joined if isinstance(v, tuple) else joined[0]
+
+
+def _table_bytes(cp, phase=None) -> int:
+    """The bytes of the tables a launch of cp's tall route reads once
+    (phase 'A': the mid vector and the 'pre' operands; 'B': the 'post'
+    and 'post_t' ones; None: the whole pass's)."""
+    def at(pos):
+        return ([cp.pre if pos == "pre" else cp.post]
+                + list(cp.wfac or () if cp.wfac_pos == pos else ())
+                + list(cp.rank1 or () if cp.rank1_pos == pos else ()))
+
+    tabs = {"A": [cp.wmid] + at("pre"), "B": at("post") + [cp.wmat],
+            None: [cp.wmid, cp.wmat] + at("pre") + at("post")}[phase]
+    return sum(t.numel() * t.element_size() for t in tabs if t is not None)
+
+
+def _tall_case(spec, dev, card, gen):
+    """One TALL_CASES plan at B = 1: set-up; fwd_mat, inv_mat and
+    polymul_mat with launches counted from 0 just before each call and
+    read just after, equal to the passes' instantiations (a tall pass's
+    two keys); every tall launch on the path's own input against its
+    plain version, raw, and the two against the whole pass's plain
+    version; fwd_mat gated (BabyBear: row 0 on the native oracle;
+    Goldilocks: the plain passes' chain on the card), the round trip and
+    polymul_mat against the plain passes' chain; µs a call and ms a
+    launch on CUDA events. Returns (its line, its kernels-line rows), ([],
+    []) when dropped, or None after the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import native_oracle, reference
+    from ntt_aie_tpu_torch import twiddles as tw
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    label, name, log_n, kw, perf_row, optional = spec
+    field = T.FIELDS[name]
+    gl = field.is_goldilocks
+    ops = _tall_ops(gl)
+    cfg = T.NTTConfig(field=field, log_n=log_n)
+    n, (n1, n2) = cfg.n, cfg.split
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = T.build_plan(cfg, device=dev, **kw)
+    bat = plan.make_batched(1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    line = {"phase": "tall", "case": label, "field": name, "n": n,
+            "split": [n1, n2], "batch": 1, "plan": kw, "card": card,
+            "reduction": plan.reduction, "setup_s": setup_s}
+    if optional and setup_s > TALL_SETUP_LIMIT_S:
+        emit(dict(line, ok=True, dropped=f"set-up took {setup_s:.1f} s, "
+                  f"above {TALL_SETUP_LIMIT_S:.0f} s: not run"))
+        return [], []
+    passes = {k: plan.passes[k] for k in ("cp1", "cp2", "icp2", "icp1")}
+    tall = [k for k, cp in passes.items() if cp.tall is not None]
+    x = _tall_input(field, (1, n1, n2), dev, gen)
+    y = _tall_input(field, (1, n1, n2), dev, gen)
+
+    # the main path, each call's launches counted from 0
+    by, outs = {}, {}
+    for key in TALL_CALL_PASSES:
+        args = {"fwd_mat": (x,), "inv_mat": (outs.get("fwd_mat"),),
+                "polymul_mat": (x, y)}[key]
+        torch.cuda.synchronize()
+        _reset_counts()
+        G.gl_mul.launches = 0
+        outs[key] = bat[key](*args)
+        torch.cuda.synchronize()
+        by[key] = dict(ops["counter"].launches_by)
+        if gl and key == "polymul_mat":
+            by[key]["gl_mul"] = G.gl_mul.launches
+    want_by = {}
+    for key, names in TALL_CALL_PASSES.items():
+        want = want_by.setdefault(key, {})
+        for k in names:
+            cp = passes[k]
+            for v in ([C.variant(cp, ph) for ph in "AB"]
+                      if cp.tall is not None else [C.variant(cp)]):
+                want[v] = want.get(v, 0) + 1
+    if gl:
+        want_by["polymul_mat"]["gl_mul"] = 1
+    counts_ok = by == want_by
+
+    # every tall launch on the path's own input against its plain version
+    # (timed by CUDA events around that one call), the two against the
+    # whole pass's plain version (the plain chain's output)
+    chunks = max(1, n >> TALL_PLAIN_LOG)
+
+    def pointwise(a, b):
+        if not gl:
+            return plan.pointwise(a, b)
+        return tuple(torch.cat(ps, dim=-1) for ps in zip(*(
+            G.gl_mul_plain(tuple(t[..., c] for t in a),
+                           tuple(t[..., c] for t in b))
+            for c in torch.arange(a[0].shape[-1], device=dev).chunk(chunks))))
+
+    def run_plain(k, v):
+        cp = passes[k]
+        return _by_columns(ops["plain"], v, cp, chunks, cp.transpose_out)
+
+    def phase_plain(v, cp, ph):
+        return _by_columns(ops["phase_plain"], v, cp, chunks,
+                           ph == "B" and cp.transpose_out, ph)
+
+    def timed(fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    f1 = run_plain("cp1", x)
+    plain_fwd = run_plain("cp2", f1)
+    i2 = run_plain("icp2", outs["fwd_mat"])
+    inputs = {"cp1": x, "cp2": f1, "icp2": outs["fwd_mat"], "icp1": i2}
+    wholes = {"cp1": f1, "cp2": plain_fwd, "icp2": i2}
+    errs, launch_ms, plain_ms, infos, pass_equal = {}, {}, {}, {}, {}
+    for k in tall:
+        cp, v = passes[k], inputs[k]
+        a = ops["phase"](v, cp, "A")
+        torch.cuda.synchronize()
+        want_a, plain_ms[f"{k}A"] = timed(phase_plain, v, cp, "A")
+        b = ops["phase"](a, cp, "B")
+        torch.cuda.synchronize()
+        want_b, plain_ms[f"{k}B"] = timed(phase_plain, a, cp, "B")
+        whole = wholes[k] if k in wholes else run_plain(k, v)
+        errs[k] = {"A": _max_err(a, want_a), "B": _max_err(b, want_b),
+                   "pass": _max_err(b, whole)}
+        pass_equal[k] = not any(errs[k].values())
+        del want_a, want_b, whole
+        for ph, u in (("A", v), ("B", a)):
+            launch_ms[f"{k}{ph}"] = time_device(
+                lambda _, u=u, ph=ph, cp=cp: ops["phase"](u, cp, ph), u,
+                iters=5, repeats=3)["us_per_iter"] / 1e3
+        infos[k] = ops["info"](cp, n2 if k in ("cp1", "icp1") else n1)
+        del a, b
+        torch.cuda.empty_cache()
+
+    # the gates: fwd_mat, the round trip, polymul_mat
+    y_fwd = outs["fwd_mat"]
+    if gl:
+        gate = "plain passes on the card"
+        gate_ok = _max_err(y_fwd, plain_fwd) == 0
+    else:
+        row_in = x.reshape(1, n).cpu().numpy().astype(np.uint64)
+        try:
+            want = native_oracle.ntt_dif_batch(
+                row_in, field.root_of_unity(n), field.p)[
+                    :, tw.bit_reverse_indices(n)]
+            gate = "native"
+        except (native_oracle.NativeOracleUnavailable, OSError):
+            want = reference.ntt_forward(row_in[0], field)[None]
+            gate = "numpy"
+        got = y_fwd.reshape(n).cpu().numpy()[plan.spectral_to_natural]
+        gate_ok = bool(np.array_equal(got.astype(np.uint64),
+                                      np.asarray(want, np.uint64)[0]))
+        del row_in, want, got
+    roundtrip_ok = _max_err(outs["inv_mat"], x) == 0
+    fb = run_plain("cp2", run_plain("cp1", y))
+    prod = run_plain("icp1", run_plain("icp2", pointwise(plain_fwd, fb)))
+    polymul_ok = _max_err(outs["polymul_mat"], prod) == 0
+    del fb, prod, f1, i2, plain_fwd, inputs, wholes
+    torch.cuda.empty_cache()
+
+    # µs a call on CUDA events (each call on the same inputs)
+    call_us = {key: time_device(
+        lambda _, key=key: bat[key](*({"fwd_mat": (x,),
+                                       "inv_mat": (y_fwd,),
+                                       "polymul_mat": (x, y)}[key])),
+        x, iters=3, repeats=3)["us_per_iter"] for key in TALL_CALL_PASSES}
+
+    ok = bool(counts_ok and gate_ok and roundtrip_ok and polymul_ok
+              and all(pass_equal.values()))
+    line.update({"tall_passes": tall, "launches_by": by,
+                 "launches_ok": counts_ok, "launch_max_abs_err": errs,
+                 "oracle": gate, "gate_ok": gate_ok,
+                 "roundtrip_ok": roundtrip_ok, "polymul_ok": polymul_ok,
+                 "us_per_call": call_us, "launch_ms": launch_ms,
+                 "plain_launch_ms": plain_ms, "kernel_info": infos,
+                 "plain_chunks": chunks,
+                 "method": "CUDA events (utils/timing.time_device), each "
+                           "call on the same inputs: calls 3 repeats of "
+                           "3, a launch 3 of 5, trimmed mean; a plain "
+                           "launch one reading, its check's own call, over "
+                           "plain_chunks column slices",
+                 "ok": ok})
+    emit(line)
+    if not ok:
+        fail("tall", f"{label}: a tall launch, a gate or the launch counts "
+             "failed")
+        return None
+
+    rows = []
+    arithmetic = "goldilocks" if gl else plan.reduction
+    item = ops["itemsize"]
+    for k in tall:
+        cp = passes[k]
+        ncols = n2 if k in ("cp1", "icp1") else n1
+        pass_bytes = 2 * n * item + _table_bytes(cp)
+        pass_bfly = n // 2 * (cp.nn.bit_length() - 1)
+        for ph, info in zip("AB", infos[k]["phases"]):
+            key = C.variant(cp, ph)
+            stages = len(cp.tall["AB".index(ph)].ts)
+            rows.append({
+                "name": f"{ops['name']}[tall:{label}:{k}{ph}]",
+                "perf_row": perf_row, "route": "cuda",
+                "source": ops["source"], "replaces": ops["replaces"],
+                "variant": key,
+                "launches": sum(v.get(key, 0) for v in by.values()),
+                "max_abs_err": errs[k][ph], "ms": launch_ms[f"{k}{ph}"],
+                "plain_ms": plain_ms[f"{k}{ph}"], "batch": 1,
+                "plain_batch": 1, "n": n, "split": [n1, n2],
+                "bytes": 2 * n * item + _table_bytes(cp, ph),
+                "butterflies": n // 2 * stages, "arithmetic": arithmetic,
+                "tile_cols": info["tile_cols"],
+                "registers": info["registers"],
+                "blocks_per_sm": info["blocks_per_sm"],
+                "pass_bytes": pass_bytes, "pass_butterflies": pass_bfly})
+    return line, rows
+
+
+def tall_phase(dev, card, gen):
+    """Phase 40: TALL_CASES (_tall_case), each pass's pass bound beside its
+    launches' own (the pass reads and writes its array once; its two
+    launches each do). Returns the kernels-line rows, or None after the
+    failure."""
+    import torch
+
+    rows = []
+    for spec in TALL_CASES:
+        got = _tall_case(spec, dev, card, gen)
+        if got is None:
+            return None
+        rows += got[1]
+        torch.cuda.empty_cache()
+    emit({"phase": "tall_done", "ok": True, "rows": len(rows)})
+    return rows
 
 
 if __name__ == "__main__":

@@ -34,6 +34,31 @@
 // its other passes are instantiations above.
 // pick_kernel instantiates those combinations and no other.
 //
+// The tall route. A column of more than kMaxRows rows (BabyBear's and
+// Goldilocks's largest transforms: nn = 16,384 and 32,768 at n = 2^27 -
+// 2^30, or any pinned split with a side above 8,192) does not fit one
+// block's tile. Its nested R x S network (the reference's, nn >= 256) is
+// run as two launches of plain networks (colpass_tile.cuh Tall):
+//   launch A, phase 0 over the view (B, rows0, inner0 * ncols) of the
+//     (B, nn, ncols) input, which has its memory layout: 'pre' on load,
+//     the mid multiply and the row move on the store;
+//   launch B, phase 1 over the view (B, rows1, inner1 * ncols) of A's
+//     output: 'post', the transpose, 'post_t' and canonicalize on store.
+// Each phase is a plain network of R or S points (at most kMaxRows), so
+// its tiles are the kernels' own and every group is column_tile_io's.
+// pick_tall takes the combinations pick_kernel takes, with their phase
+// A by the direction and 'pre' form and their phase B by the direction,
+// store options and 'post' form. Each launch reads and writes the whole
+// array once and runs half the butterflies: its bound is the array's
+// bytes over 3.35 TB/s (0.32 ms at n = 2^27 in uint32) where a whole
+// pass's is its butterflies (0.571 ms under montgomery), so the route
+// pays one extra sweep of device memory. Launch A's store writes runs of
+// ncols words (whole 32-byte sectors from ncols = 8). A transposing
+// launch B writes tall rows rows0 apart in the view's columns; its tile
+// is 8 of them by 4 columns (colpass_tile.cuh tile_col0, kTallStoreLogCols)
+// so a warp writes whole sectors: with the plain tile, one word a
+// sector, it took 13.9 ms at n = 2^27, 13x the other launches (PERF.md).
+//
 // What it computes, per column of a (B, nn, ncols) uint32 array: the
 // optional 'pre' multiply as the values load, every butterfly stage of the
 // column network (colpass_tile.cuh, which also states the arithmetic and
@@ -114,6 +139,10 @@ constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 227 * 1024;  // an H100 block's limit
 constexpr int kMaxRows = 8192;
 constexpr int kFuse = 3;  // radix-2 stages a register group (see above)
+// log2 of the tall columns of a transposing phase B's tile
+// (colpass_tile.cuh tile_col0): 4 columns by 8 consecutive moved rows at
+// TL = 32, so its store writes whole 32-byte sectors
+constexpr int kTallStoreLogCols = 2;
 
 struct Params {
   Network net;  // table pointers null: the kernel reads `tables`
@@ -129,18 +158,24 @@ using colpass_tile::kOpFac;
 using colpass_tile::kOpMat;
 using colpass_tile::kOpNone;
 using colpass_tile::kOpRank1;
+using colpass_tile::kTallA;
+using colpass_tile::kTallB;
+using colpass_tile::kWhole;
 
 // One thread block per (batch row, tile of TL columns). kPre, kPost:
-// colpass_tile::Operand forms.
+// colpass_tile::Operand forms; kTall: colpass_tile::Tall.
 template <bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
-          int kPost = kOpNone>
+          int kPost = kOpNone, int kTall = kWhole>
 __global__ void __launch_bounds__(kThreads) colpass_kernel(const Params P) {
   extern __shared__ uint32_t tile[];
   const size_t plane = (size_t)P.net.nn * P.ops.ncols;
   colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse, false, kPre,
-                               kPost>(
+                               kPost, kTall>(
       tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
-      P.out + (size_t)blockIdx.y * plane, (size_t)blockIdx.x << P.ops.log_tl,
+      P.out + (size_t)blockIdx.y * plane,
+      colpass_tile::tile_col0<kTall == kTallB && kTranspose>(
+          blockIdx.x, P.ops.log_tl, P.tables.log_inner, P.tables.log_ncols,
+          P.tables.log_tlc),
       P.shift, P.red);
 }
 
@@ -205,6 +240,67 @@ KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
   return nullptr;
 }
 
+// The tall route's launch `tall` (kTallA or kTallB) of a combination
+// pick_kernel takes, or null: phase A by the direction and the 'pre'
+// form, phase B by the direction, the store options and the 'post' form;
+// each launch is given the whole pass's operands and applies its own.
+KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
+                   int post) {
+  if (!pick_kernel(dit, transpose_out, mat, pre, post)) return nullptr;
+  if (tall == kTallA) {
+    if (dit) {
+      if (pre == kOpNone)
+        return colpass_kernel<true, false, false, kOpNone, kOpNone, kTallA>;
+      if (pre == kOpMat)
+        return colpass_kernel<true, false, false, kOpMat, kOpNone, kTallA>;
+      return nullptr;
+    }
+    switch (pre) {
+      case kOpNone:
+        return colpass_kernel<false, false, false, kOpNone, kOpNone, kTallA>;
+      case kOpMat:
+        return colpass_kernel<false, false, false, kOpMat, kOpNone, kTallA>;
+      case kOpFac:
+        return colpass_kernel<false, false, false, kOpFac, kOpNone, kTallA>;
+      case kOpRank1:
+        return colpass_kernel<false, false, false, kOpRank1, kOpNone,
+                              kTallA>;
+    }
+    return nullptr;
+  }
+  if (tall != kTallB) return nullptr;
+  if (post == kOpNone) {
+    if (dit)
+      return !transpose_out ? colpass_kernel<true, false, false, kOpNone,
+                                             kOpNone, kTallB>
+             : mat ? colpass_kernel<true, true, true, kOpNone, kOpNone, kTallB>
+                   : colpass_kernel<true, true, false, kOpNone, kOpNone,
+                                    kTallB>;
+    return !transpose_out ? colpass_kernel<false, false, false, kOpNone,
+                                           kOpNone, kTallB>
+           : mat ? colpass_kernel<false, true, true, kOpNone, kOpNone, kTallB>
+                 : colpass_kernel<false, true, false, kOpNone, kOpNone,
+                                  kTallB>;
+  }
+  if (post == kOpMat)  // distributed lcp1, lcp1n; nicp1
+    return dit ? colpass_kernel<true, false, false, kOpNone, kOpMat, kTallB>
+               : colpass_kernel<false, false, false, kOpNone, kOpMat, kTallB>;
+  if (post == kOpRank1)  // the factored arm's nicp1
+    return colpass_kernel<true, false, false, kOpNone, kOpRank1, kTallB>;
+  if (post == kOpFac)  // the factored arm's icp2; distributed licp2
+    return transpose_out
+               ? colpass_kernel<true, true, false, kOpNone, kOpFac, kTallB>
+               : colpass_kernel<true, false, false, kOpNone, kOpFac, kTallB>;
+  return nullptr;
+}
+
+// pick_kernel for a whole column (tall = kWhole), pick_tall for a phase.
+KernelFn pick(int tall, bool dit, bool transpose_out, bool mat, int pre,
+              int post) {
+  return tall == kWhole ? pick_kernel(dit, transpose_out, mat, pre, post)
+                        : pick_tall(tall, dit, transpose_out, mat, pre, post);
+}
+
 // Opts kernel in to smem dynamic bytes above 48 KB.
 cudaError_t allow_smem(KernelFn kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -223,14 +319,15 @@ int ntt_colpass_max_rows() { return kMaxRows; }
 const char* ntt_reduction_name() { return reductions::kBuiltName; }
 
 // This build's register group size, and for the kernel of this direction
-// and these operands (pre, post: Operand forms) at an nn x 2^log_tl tile:
-// its registers a thread and its co-resident blocks per SM. Returns 0 or a
-// cudaError_t.
-int ntt_colpass_kernel_info(int dit, int transpose_out, int mat, int pre,
-                            int post, int nn, int log_tl, int* kfuse,
-                            int* regs, int* per_sm) {
+// and these operands (pre, post: Operand forms), of a whole column or one
+// phase of a tall one (tall: colpass_tile::Tall), at an nn x 2^log_tl tile
+// (a phase's rows): its registers a thread and its co-resident blocks per
+// SM. Returns 0 or a cudaError_t.
+int ntt_colpass_kernel_info(int tall, int dit, int transpose_out, int mat,
+                            int pre, int post, int nn, int log_tl,
+                            int* kfuse, int* regs, int* per_sm) {
   const KernelFn kernel =
-      pick_kernel(dit != 0, transpose_out != 0, mat != 0, pre, post);
+      pick(tall, dit != 0, transpose_out != 0, mat != 0, pre, post);
   *kfuse = kFuse;
   *regs = 0;
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
@@ -259,22 +356,31 @@ const char* ntt_colpass_error_string(int err) {
 // (kOpMat, indexed like x) or two (kOpFac: T1, T2 of the split 2^log_s;
 // kOpRank1: the row and the column vector), pairs too; every batch row
 // reads the same tables. p, c1, c2: the reduction's prime and constants
-// (Red::make). Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for a shape or an operand
-// combination the kernels do not take.
+// (Red::make). tall (colpass_tile::Tall): kWhole, one launch of the whole
+// column; kTallA or kTallB, one phase of a tall column's route: then nn,
+// ncols and the stage list are the phase's (a plain network, log_a < 0)
+// over its view, log_inner is log2 of the factor of the tall nn that rides
+// the view's columns, the operands are the whole tall pass's (each phase
+// applies its own; phase A never canonicalizes), and mid is the tall
+// network's (nn * 2^log_inner,) vector. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape or an operand combination the kernels
+// do not take.
 int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
                 int log_tl, int dit, int nstages, int k0, const int* ts,
                 const int* offs, const void* tw, int log_a, const void* mid,
                 const void* mat, int pre_form, const void* pre,
                 const void* pre2, int post_form, const void* post,
                 const void* post2, int log_s, int transpose_out,
-                int canonicalize, unsigned int p, unsigned int c1,
-                unsigned int c2, void* stream) {
+                int canonicalize, int tall, int log_inner, unsigned int p,
+                unsigned int c1, unsigned int c2, void* stream) {
   const size_t smem = (size_t)nn << log_tl << 2;
+  const bool phase = tall != kWhole;
   Params P;
   if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
       log_tl > 5 || (ncols >> log_tl) < 1 || batch < 1 || batch > 65535 ||
-      nstages < 1 ||
+      nstages < 1 || (phase && (log_a >= 0 || log_inner < 1 ||
+                                (ncols >> log_inner) < 1 || !mid)) ||
       !colpass_tile::make_network(&P.net, nn, dit, nstages, k0, ts, offs,
                                   nullptr, nullptr, log_a, nullptr, nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -287,9 +393,13 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
   P.tables.post = static_cast<const uint2*>(post);
   P.tables.post2 = static_cast<const uint2*>(post2);
   P.tables.log_s = log_s;
+  P.tables.log_inner = phase ? log_inner : 0;
+  P.tables.log_ncols = phase ? colpass_tile::ilog2(ncols) - log_inner : 0;
+  P.tables.log_tlc = colpass_tile::tall_store_log_cols(
+      kTallStoreLogCols, log_tl, P.tables.log_inner, P.tables.log_ncols);
   P.ops.ncols = ncols;
   P.ops.log_tl = log_tl;
-  P.ops.canonicalize = canonicalize;
+  P.ops.canonicalize = tall == kTallA ? 0 : canonicalize;
   P.x = static_cast<const uint32_t*>(x);
   P.out = static_cast<uint32_t*>(out);
   P.shift = colpass_tile::tile_shift(P.net, log_tl);
@@ -300,10 +410,11 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
            : (form == kOpFac || form == kOpRank1) && a && b;
   };
   if (!tables_ok(pre_form, pre, pre2) || !tables_ok(post_form, post, post2) ||
-      log_s < 0 || log_s >= P.net.log_nn)
+      log_s < 0 || log_s >= P.net.log_nn + (phase ? log_inner : 0) ||
+      (phase && log_tl - P.tables.log_tlc > log_inner))
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0,
-                                      mat != nullptr, pre_form, post_form);
+  const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0,
+                               mat != nullptr, pre_form, post_form);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -333,6 +333,10 @@ struct PairTables {
   const uint2* post;  // multiply after the stages (kPost's form), before
   const uint2* post2;  // mat and canonicalize, and its second table
   int log_s;  // kOpFac's split S = 2^log_s
+  // A tall phase's view (kTallA, kTallB): log2 of the factor of the tall
+  // nn that rides its columns, and of the tall array's columns; and log2
+  // of the tall columns a transposing phase B's tile takes (tile_col0).
+  int log_inner, log_ncols, log_tlc;
 };
 
 // The form of a 'pre' or 'post' operand (the reference's twiddle_pos
@@ -343,6 +347,85 @@ struct PairTables {
 // column vector (ncols,) at [col]. l is the value's logical row, col its
 // column in the input.
 enum Operand : int { kOpNone = 0, kOpMat = 1, kOpFac = 2, kOpRank1 = 3 };
+
+// A tall column: a nested network of nn rows, above one tile's, runs as
+// two launches of plain networks (ops/colpass.py tall_phases), each over a
+// view of the (nn, ncols) array in which the other factor of nn rides the
+// columns: a launch's element (l, col) is the tall array's row
+// l * inner + col / ncols, column col mod ncols (tall_row, tall_col).
+// kTallA runs the network's phase 0 over the view (rows0, inner0 * ncols):
+// the 'pre' operand on load, the nested mid multiply and the row move on
+// store (row r * S + s to s * R + r for DIF, the inverse move for DIT:
+// in the launch's terms, tall row l * inner + q goes to q * rows + l).
+// kTallB runs phase 1 over (rows1, inner1 * ncols) of the moved array,
+// whose layout the output keeps: the 'post' operand, the transpose, the
+// 'post_t' multiply and canonicalize on store. kWhole is one launch of the
+// whole column.
+enum Tall : int { kWhole = 0, kTallA = 1, kTallB = 2 };
+
+__device__ __forceinline__ int tall_row(int l, size_t col,
+                                        const PairTables& T) {
+  return (l << T.log_inner) | (int)(col >> T.log_ncols);
+}
+
+__device__ __forceinline__ size_t tall_col(size_t col, const PairTables& T) {
+  return col & (((size_t)1 << T.log_ncols) - 1);
+}
+
+// A transposing phase B (kTallB with kTranspose) stores tall row
+// l * inner + p of column c to word c * nn + l * inner + p: consecutive
+// words are consecutive p, the view's columns ncols apart. Its tile is
+// therefore 2^(log_tl - log_tlc) consecutive p by 2^log_tlc consecutive
+// tall columns (tile column t = pl * 2^log_tlc + cl, view column col0 +
+// pl * ncols + cl), its blocks enumerate the p blocks first, and its
+// storing group gives consecutive threads consecutive p (tile_thread):
+// a warp stores whole 32-byte runs of eight p where a plain tile stored one
+// word a sector. Its loading group reads runs of 2^log_tlc words, the rest
+// of each sector read by the next c block's blocks, inner / 2^(log_tl -
+// log_tlc) blocks later, from L2.
+// (gl_colpass.cu's kernels take the same three logs from their Params.)
+template <bool kSplit>
+__device__ __forceinline__ size_t tile_col0(int block, int log_tl,
+                                            int log_inner, int log_ncols,
+                                            int log_tlc) {
+  if constexpr (kSplit) {
+    const int log_tlp = log_tl - log_tlc;
+    const int log_pb = log_inner - log_tlp;  // p blocks
+    const size_t pb = block & ((1 << log_pb) - 1);
+    const size_t cb = block >> log_pb;
+    return ((pb << log_tlp) << log_ncols) | (cb << log_tlc);
+  } else {
+    return (size_t)block << log_tl;
+  }
+}
+
+// log_tlc for a phase over 2^log_tl-column tiles (on the host): want's
+// columns, fewer where the tall array has fewer, more where the phase's
+// inner factor is under the tile's rest.
+inline int tall_store_log_cols(int want, int log_tl, int log_inner,
+                               int log_ncols) {
+  int c = want < log_tl ? want : log_tl;
+  if (log_tl - c > log_inner) c = log_tl - log_inner;
+  return c < log_ncols ? c : log_ncols;
+}
+
+// The offset of a split tile's column c from col0 (tile_col0): the view
+// column is col0 + tile_off(c).
+__device__ __forceinline__ size_t tile_off(int c, int log_ncols,
+                                           int log_tlc) {
+  return ((size_t)(c >> log_tlc) << log_ncols) + (c & ((1 << log_tlc) - 1));
+}
+
+// The tile column of thread index i in a split tile: its loading group's
+// i mod TL (consecutive tall columns), its storing group's with
+// consecutive p at consecutive i.
+__device__ __forceinline__ int tile_thread(int i, int log_tl, bool store,
+                                           int log_tlc) {
+  if (!store) return i & ((1 << log_tl) - 1);
+  const int log_tlp = log_tl - log_tlc;
+  return ((i & ((1 << log_tlp) - 1)) << log_tlc) |
+         ((i >> log_tlp) & ((1 << log_tlc) - 1));
+}
 
 // v times the kOpFac or kOpRank1 operand in tables a and b (the second
 // multiply after the first, as the reference's two broadcast multiplies).
@@ -438,6 +521,38 @@ __device__ __forceinline__ void dit_stages(uint32_t (&v)[1 << K],
   }
 }
 
+// The output word of logical row l, column col of a storing group: the
+// launch's own index (transposed: (col, l) of (ncols, nn)); under kTallA
+// the moved row's, q * rows + l of the tall array for q = col / ncols;
+// under kTallB with the transpose the tall array's (col mod ncols,
+// tall_row) of (ncols, nn * inner). Untransposed, phase B's view and the
+// tall array share their index.
+template <bool kDit, bool kTranspose, int kTall>
+__device__ __forceinline__ size_t store_index(int l, size_t col,
+                                              const Network& N,
+                                              const TileOps& O,
+                                              const PairTables& T) {
+  if constexpr (kTall == kTallA) {
+    const size_t to = ((col >> T.log_ncols) << N.log_nn) | l;
+    return (to << T.log_ncols) | tall_col(col, T);
+  } else if constexpr (kTall == kTallB && kTranspose) {
+    return tall_col(col, T) * ((size_t)N.nn << T.log_inner) +
+           tall_row(l, col, T);
+  } else {
+    return kTranspose ? col * N.nn + l : (size_t)l * O.ncols + col;
+  }
+}
+
+// The nested mid vector's row for phase A's element (l, col): DIF
+// multiplies before the move, at the tall row it comes from; DIT after
+// the inverse move, at the row it goes to.
+template <bool kDit>
+__device__ __forceinline__ int mid_row(int l, size_t col, const Network& N,
+                                       const PairTables& T) {
+  return kDit ? (int)((col >> T.log_ncols) << N.log_nn) | l
+              : tall_row(l, col, T);
+}
+
 // What one group of column_tile_io does beyond the tile: load its rows
 // from device memory instead of the tile (the network's first group: rows
 // where physical and logical rows agree), multiply by the nested mid
@@ -475,14 +590,19 @@ __device__ __forceinline__ void mid_multiply(uint32_t (&v)[1 << K],
 // T.post2), at the input's index of its logical row, before the kMat
 // multiply and canonicalize. Both only under if constexpr, so a kernel
 // without them keeps its code, and kMat keeps the code it had as a bool.
+// kTall (a Tall): a phase of a tall column, whose factored and rank-1
+// operands take the tall array's rows and columns, phase A's store the
+// mid multiply and the row move, phase B's transposed store the tall
+// array's index.
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, class Red>
+          int kPre, int kPost, int kTall, class Red>
 __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
                                              const TileOps& O,
                                              const PairTables& T,
                                              const GroupEnds& E, size_t col0,
                                              int s0, int log_a, int shift,
                                              Red R) {
+  constexpr bool kSplit = kTall == kTallB && kTranspose;
   const int log_tl = O.log_tl;
   const int t = kDit ? N.t[s0] : N.t[s0 + K - 1];
   const int log_t = __ffs(t) - 1;
@@ -491,7 +611,15 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
   int dw[1 << K];
   group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, shift);
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i & tl_mask;
+    // the tile column c, and the launch's column col0 + cc
+    const int c = kSplit ? tile_thread(i, log_tl, E.dst, T.log_tlc)
+                         : i & tl_mask;
+    const auto cc = [&] {
+      if constexpr (kSplit)
+        return tile_off(c, T.log_ncols, T.log_tlc);
+      else
+        return c;
+    }();
     const int g = i >> log_tl;
     const int j = g & (t - 1);
     const int base = ((g >> log_t) << (log_t + K)) | j;
@@ -500,12 +628,17 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
     if (E.src) {
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) {
-        const size_t o = (size_t)(base + (m << log_t)) * O.ncols + col0 + c;
+        const size_t o = (size_t)(base + (m << log_t)) * O.ncols + col0 + cc;
         if constexpr (kPre == kOpMat)
           v[m] = R.mulc(E.src[o], __ldg(T.pre + o));
+        else if constexpr (kPre != kOpNone && kTall != kWhole)
+          v[m] = mul_factors<kPre>(
+              E.src[o], T.pre, T.pre2, tall_row(base + (m << log_t),
+                                                col0 + cc, T),
+              tall_col(col0 + cc, T), 1 << T.log_ncols, T.log_s, R);
         else if constexpr (kPre != kOpNone)
           v[m] = mul_factors<kPre>(E.src[o], T.pre, T.pre2,
-                                   base + (m << log_t), col0 + c, O.ncols,
+                                   base + (m << log_t), col0 + cc, O.ncols,
                                    T.log_s, R);
         else
           v[m] = E.src[o];
@@ -531,13 +664,20 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) {
         const int l = base + (m << log_t);
-        const size_t o = kTranspose ? (col0 + c) * N.nn + l
-                                    : (size_t)l * O.ncols + col0 + c;
+        const size_t o =
+            store_index<kDit, kTranspose, kTall>(l, col0 + cc, N, O, T);
         uint32_t u = v[m];
+        if constexpr (kTall == kTallA)  // the mid multiply, then the move
+          u = R.mulc(u, __ldg(T.mid + mid_row<kDit>(l, col0 + cc, N, T)));
         if constexpr (kPost == kOpMat)
-          u = R.mulc(u, __ldg(T.post + (size_t)l * O.ncols + col0 + c));
+          u = R.mulc(u, __ldg(T.post + (size_t)l * O.ncols + col0 + cc));
+        else if constexpr (kPost != kOpNone && kTall != kWhole)
+          u = mul_factors<kPost>(u, T.post, T.post2,
+                                 tall_row(l, col0 + cc, T),
+                                 tall_col(col0 + cc, T), 1 << T.log_ncols,
+                                 T.log_s, R);
         else if constexpr (kPost != kOpNone)
-          u = mul_factors<kPost>(u, T.post, T.post2, l, col0 + c, O.ncols,
+          u = mul_factors<kPost>(u, T.post, T.post2, l, col0 + cc, O.ncols,
                                  T.log_s, R);
         if constexpr (kMat) u = R.mulc(u, __ldg(T.mat + o));
         if (O.canonicalize) u = R.canon(u);
@@ -553,7 +693,7 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 
 // run_group_io for a runtime k <= K stages.
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, class Red>
+          int kPre, int kPost, int kTall, class Red>
 __device__ __forceinline__ void run_group_io_upto(
     int k, uint32_t* tile, const Network& N, const TileOps& O,
     const PairTables& T, const GroupEnds& E, size_t col0, int s0, int log_a,
@@ -561,12 +701,12 @@ __device__ __forceinline__ void run_group_io_upto(
   if constexpr (K > 1) {
     if (k < K) {
       run_group_io_upto<K - 1, kDit, kTranspose, kMat, kMayEmpty, kPre,
-                        kPost>(k, tile, N, O, T, E, col0, s0, log_a, shift,
-                               R);
+                        kPost, kTall>(k, tile, N, O, T, E, col0, s0, log_a,
+                                      shift, R);
       return;
     }
   }
-  run_group_io<K, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost>(
+  run_group_io<K, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost, kTall>(
       tile, N, O, T, E, col0, s0, log_a, shift, R);
 }
 
@@ -576,7 +716,7 @@ __device__ __forceinline__ void run_group_io_upto(
 // first (DIT) when mid, mid_swap on its first when mid_swap. An empty
 // phase runs no group.
 template <int kFuse, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, class Red>
+          int kPre, int kPost, int kTall, class Red>
 __device__ __forceinline__ void run_phase_io(
     uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
     const uint32_t* src, uint32_t* dst, size_t col0, int s_begin, int s_end,
@@ -589,8 +729,8 @@ __device__ __forceinline__ void run_phase_io(
                          store_dst && last ? dst : nullptr,
                          mid && (kDit ? first : last),
                          mid_swap && first};
-    run_group_io_upto<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost>(
-        k, tile, N, O, T, E, col0, s, log_a, shift, R);
+    run_group_io_upto<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost,
+                      kTall>(k, tile, N, O, T, E, col0, s, log_a, shift, R);
     s += k;
   }
 }
@@ -615,10 +755,13 @@ __device__ __forceinline__ void run_phase_io(
 // the 'post' multiply to the storing group (run_group_io), the reference's
 // 'pre' and 'post' operands, its wfac and its rank1: pre on load, before
 // the stages; post after them, in the untransposed layout, before the
-// 'post_t' (kMat) multiply and canonicalize.
+// 'post_t' (kMat) multiply and canonicalize. kTall (colpass.cu's tall
+// route): N is one phase of a tall column, a plain network, run as Tall
+// says, with kTallA taking no 'post' operand nor store option and
+// kTallB no 'pre' operand.
 template <bool kDit, bool kTranspose, bool kMat, int kFuse,
           bool kMayEmpty = false, int kPre = kOpNone, int kPost = kOpNone,
-          class Red>
+          int kTall = kWhole, class Red>
 __device__ __forceinline__ void column_tile_io(uint32_t* tile,
                                                const Network& N,
                                                const TileOps& O,
@@ -629,16 +772,23 @@ __device__ __forceinline__ void column_tile_io(uint32_t* tile,
   static_assert(!(kMayEmpty && kDit), "an empty phase is DIF's only");
   static_assert(!(kMayEmpty && (kPre != kOpNone || kPost != kOpNone)),
                 "pre and post ride a network with both phases");
+  static_assert(!(kMayEmpty && kTall != kWhole), "a tall phase is plain");
+  static_assert(kTall != kTallA ||
+                    (!kTranspose && !kMat && kPost == kOpNone),
+                "phase A stores the moved array");
+  static_assert(kTall != kTallB || kPre == kOpNone,
+                "phase B loads phase A's output");
   const bool nested = N.log_a >= 0;
   // whether phase 0 and phase 1 run a stage (without kMayEmpty both do in
   // a nested network, and a plain one has no phase 1)
   const bool has0 = !kMayEmpty || N.k0 > 0;
   const bool has1 = kMayEmpty ? N.k0 < N.nstages : nested;
-  run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost>(
+  run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost, kTall>(
       tile, N, O, T, src, dst, col0, 0, N.k0, -1, shift, true, !has1,
       nested && !kDit, false, R);
   if (has1)
-    run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost>(
+    run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost,
+                 kTall>(
         tile, N, O, T, src, dst, col0, N.k0, N.nstages, N.log_a, shift,
         !has0, true, kDit, !has0, R);
 }

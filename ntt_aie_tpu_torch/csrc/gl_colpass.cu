@@ -80,6 +80,16 @@
 // The 'pre' and 'post' operands multiply in the loading and the storing
 // group, as the 32-bit kernel's (colpass_tile.cuh run_group_io), under if
 // constexpr: the fold plan's instantiations keep their code.
+//
+// The tall route (colpass.cu states it; colpass_tile.cuh Tall): a column of
+// more than kMaxRows rows runs as two launches of its nested network's
+// phases, each a plain network over a view of the (nn, ncols) planes in
+// which the other factor of nn rides the columns; launch A applies 'pre'
+// on load and the mid multiply and the row move on store, launch B the
+// rest on store. Goldilocks needs it most: a 16,384-row column is 128 KB a
+// column, and a 32,768-row one (n = 2^29, 2^30) 256 KB, more than a
+// block's 227 KB of shared memory, so no one-block tile holds it; a phase
+// of 128 or 256 rows takes a tile of 32 columns (32 or 64 KB).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +104,9 @@ using colpass_tile::kOpFac;
 using colpass_tile::kOpMat;
 using colpass_tile::kOpNone;
 using colpass_tile::kOpRank1;
+using colpass_tile::kTallA;
+using colpass_tile::kTallB;
+using colpass_tile::kWhole;
 using colpass_tile::Network;
 using colpass_tile::word_of;
 using gl_arith::gl_add;
@@ -109,6 +122,8 @@ constexpr int kFuse = 3;  // radix-2 stages a register group (see above)
 // 72-78 registers instead of 61-64 and fwd_mat reads 3.8 % faster
 // (PERF.md section 6).
 constexpr int kMinBlocks = 3;
+// log2 of the tall columns of a transposing phase B's tile (colpass.cu's)
+constexpr int kTallStoreLogCols = 2;
 
 struct Params {
   Network net;          // table pointers null: the kernel reads tw and mid
@@ -123,6 +138,11 @@ struct Params {
   const uint64_t* post;
   const uint64_t* post2;
   int log_s;  // kOpFac's split S = 2^log_s
+  // A tall phase's view (colpass_tile.cuh Tall): log2 of the factor of the
+  // tall nn that rides its columns, and of the tall planes' columns; and
+  // log2 of the tall columns a transposing phase B's tile takes
+  // (colpass_tile.cuh tile_col0).
+  int log_inner, log_ncols, log_tlc;
   const uint32_t* x_hi;
   const uint32_t* x_lo;
   uint32_t* out_hi;
@@ -186,22 +206,61 @@ __device__ __forceinline__ void dit_stages(uint64_t (&v)[1 << K],
 }
 
 // v times the kOpMat, kOpFac or kOpRank1 operand in tables a (and b) at
-// logical row l, column col (colpass_tile.cuh mul_factors, on uint64).
+// logical row l, column col of an array of ncols columns
+// (colpass_tile.cuh mul_factors, on uint64).
 template <int kForm>
 __device__ __forceinline__ uint64_t mul_operand(uint64_t v, const Params& P,
                                                 const uint64_t* a,
                                                 const uint64_t* b, int l,
-                                                size_t col) {
+                                                size_t col, int ncols) {
   static_assert(kForm == kOpMat || kForm == kOpFac || kForm == kOpRank1,
                 "a GL kernel form");
   if constexpr (kForm == kOpMat) {
-    return gl_mul(v, __ldg(a + (size_t)l * P.ncols + col));
+    return gl_mul(v, __ldg(a + (size_t)l * ncols + col));
   } else if constexpr (kForm == kOpRank1) {
     return gl_mul(gl_mul(v, __ldg(a + l)), __ldg(b + col));
   } else {
-    v = gl_mul(v, __ldg(a + (size_t)(l >> P.log_s) * P.ncols + col));
-    return gl_mul(v, __ldg(b + (size_t)(l & ((1 << P.log_s) - 1)) * P.ncols
+    v = gl_mul(v, __ldg(a + (size_t)(l >> P.log_s) * ncols + col));
+    return gl_mul(v, __ldg(b + (size_t)(l & ((1 << P.log_s) - 1)) * ncols
                            + col));
+  }
+}
+
+// v times an operand (kForm) at the launch's element (l, col): a kOpMat
+// table shares the launch's index; under kTall the factored and rank-1
+// forms take the tall planes' row l * inner + col / ncols and column
+// col mod ncols (colpass_tile.cuh tall_row, tall_col).
+template <int kForm, int kTall>
+__device__ __forceinline__ uint64_t mul_at(uint64_t v, const Params& P,
+                                           const uint64_t* a,
+                                           const uint64_t* b, int l,
+                                           size_t col) {
+  if constexpr (kTall != kWhole && kForm != kOpMat)
+    return mul_operand<kForm>(
+        v, P, a, b, (l << P.log_inner) | (int)(col >> P.log_ncols),
+        col & (((size_t)1 << P.log_ncols) - 1), 1 << P.log_ncols);
+  else
+    return mul_operand<kForm>(v, P, a, b, l, col, P.ncols);
+}
+
+// The output word of the launch's element (l, col) (colpass_tile.cuh
+// store_index): its own index (transposed: (col, l) of (ncols, nn));
+// under kTallA the moved row's, q * rows + l of the tall planes for
+// q = col / ncols; under kTallB with the transpose the tall planes' (col
+// mod ncols, l * inner + col / ncols) of (ncols, nn * inner).
+template <bool kTranspose, int kTall>
+__device__ __forceinline__ size_t store_index(int l, size_t col,
+                                              const Params& P) {
+  const int log_nn = P.net.log_nn;
+  if constexpr (kTall == kTallA) {
+    const size_t to = ((col >> P.log_ncols) << log_nn) | l;
+    return (to << P.log_ncols) | (col & (((size_t)1 << P.log_ncols) - 1));
+  } else if constexpr (kTall == kTallB && kTranspose) {
+    return (col & (((size_t)1 << P.log_ncols) - 1)) *
+               ((size_t)P.net.nn << P.log_inner) +
+           ((l << P.log_inner) | (int)(col >> P.log_ncols));
+  } else {
+    return kTranspose ? col * P.net.nn + l : (size_t)l * P.ncols + col;
   }
 }
 
@@ -216,11 +275,15 @@ struct Ends {
 // A group of K stages on the swizzled two-plane tile, with the ends E.
 // log_a: the phase's row map (-1 for phase 0). kPre, kPost: Operand forms,
 // multiplied as the loading group reads a value and before the storing
-// group's kMat multiply.
-template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost>
+// group's kMat multiply. kTall: a phase of a tall column (colpass_tile.cuh
+// Tall): phase A's store multiplies by the mid vector (DIF at the row the
+// value leaves, DIT at the row it reaches) and moves the row.
+template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
+          int kTall>
 __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
                                           const Rows& R, const Ends E,
                                           size_t col0, int s0, int log_a) {
+  constexpr bool kSplit = kTall == kTallB && kTranspose;
   const Network& N = P.net;
   const int log_tl = P.log_tl;
   const int t = kDit ? N.t[s0] : N.t[s0 + K - 1];
@@ -231,7 +294,16 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
   int dw[1 << K];
   group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, P.shift);
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i & tl_mask;
+    // the tile column c, and the launch's column col0 + cc
+    const int c = kSplit ? colpass_tile::tile_thread(i, log_tl, E.store,
+                                                     P.log_tlc)
+                         : i & tl_mask;
+    const auto cc = [&] {
+      if constexpr (kSplit)
+        return colpass_tile::tile_off(c, P.log_ncols, P.log_tlc);
+      else
+        return c;
+    }();
     const int g = i >> log_tl;
     const int j = g & (t - 1);
     const int base = ((g >> log_t) << (log_t + K)) | j;
@@ -240,11 +312,11 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
     if (E.load) {
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) {
-        const size_t o = (size_t)(base + (m << log_t)) * P.ncols + col0 + c;
+        const size_t o = (size_t)(base + (m << log_t)) * P.ncols + col0 + cc;
         v[m] = ((uint64_t)R.src_hi[o] << 32) | R.src_lo[o];
         if constexpr (kPre != kOpNone)
-          v[m] = mul_operand<kPre>(v[m], P, P.pre, P.pre2,
-                                   base + (m << log_t), col0 + c);
+          v[m] = mul_at<kPre, kTall>(v[m], P, P.pre, P.pre2,
+                                     base + (m << log_t), col0 + cc);
       }
     } else {
 #pragma unroll
@@ -266,11 +338,15 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) {
         const int l = base + (m << log_t);
-        const size_t o = kTranspose ? (col0 + c) * N.nn + l
-                                    : (size_t)l * P.ncols + col0 + c;
+        const size_t o = store_index<kTranspose, kTall>(l, col0 + cc, P);
         uint64_t u = v[m];
+        if constexpr (kTall == kTallA) {  // the mid multiply, then the move
+          const int q = (int)((col0 + cc) >> P.log_ncols);
+          u = gl_mul(u, __ldg(P.mid + (kDit ? (q << N.log_nn) | l
+                                            : (l << P.log_inner) | q)));
+        }
         if constexpr (kPost != kOpNone)
-          u = mul_operand<kPost>(u, P, P.post, P.post2, l, col0 + c);
+          u = mul_at<kPost, kTall>(u, P, P.post, P.post2, l, col0 + cc);
         if constexpr (kMat) u = gl_mul(u, __ldg(P.mat + o));
         R.dst_hi[o] = (uint32_t)(u >> 32);
         R.dst_lo[o] = (uint32_t)u;
@@ -287,7 +363,8 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
 }
 
 // run_group for a runtime k <= K stages.
-template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost>
+template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
+          int kTall>
 __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
                                                const Params& P,
                                                const Rows& R, const Ends E,
@@ -295,19 +372,20 @@ __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
                                                int log_a) {
   if constexpr (K > 1) {
     if (k < K) {
-      run_group_upto<K - 1, kDit, kTranspose, kMat, kPre, kPost>(
+      run_group_upto<K - 1, kDit, kTranspose, kMat, kPre, kPost, kTall>(
           k, tile, P, R, E, col0, s0, log_a);
       return;
     }
   }
-  run_group<K, kDit, kTranspose, kMat, kPre, kPost>(tile, P, R, E, col0, s0,
-                                                    log_a);
+  run_group<K, kDit, kTranspose, kMat, kPre, kPost, kTall>(tile, P, R, E,
+                                                           col0, s0, log_a);
 }
 
 // Stages [s_begin, s_end) of one phase in groups of min(kFuse, stages
 // left): the first loads when load, the last stores when store, and the
 // mid multiply rides on the last (DIF) or the first (DIT) when mid.
-template <bool kDit, bool kTranspose, bool kMat, int kPre, int kPost>
+template <bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
+          int kTall>
 __device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
                                           const Rows& R, size_t col0,
                                           int s_begin, int s_end, int log_a,
@@ -317,29 +395,35 @@ __device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
     const bool first = s == s_begin, last = s + k == s_end;
     const Ends E = {load && first, mid && (kDit ? first : last),
                     store && last};
-    run_group_upto<kFuse, kDit, kTranspose, kMat, kPre, kPost>(
+    run_group_upto<kFuse, kDit, kTranspose, kMat, kPre, kPost, kTall>(
         k, tile, P, R, E, col0, s, log_a);
     s += k;
   }
 }
 
 // One thread block per (batch row, tile of TL columns). A nested network
-// has two phases of at least one stage each; a plain one, one phase.
+// has two phases of at least one stage each; a plain one, one phase (a
+// tall column's phase A or B under kTall).
 template <bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
-          int kPost = kOpNone>
+          int kPost = kOpNone, int kTall = kWhole>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     gl_colpass_kernel(const Params P) {
+  static_assert(kTall != kTallA || (!kTranspose && !kMat && kPost == kOpNone),
+                "phase A stores the moved planes");
+  static_assert(kTall != kTallB || kPre == kOpNone,
+                "phase B loads phase A's output");
   extern __shared__ uint32_t tile[];
   const size_t plane = (size_t)P.net.nn * P.ncols;
   const size_t row = (size_t)blockIdx.y * plane;
   const Rows R = {P.x_hi + row, P.x_lo + row, P.out_hi + row,
                   P.out_lo + row};
-  const size_t col0 = (size_t)blockIdx.x << P.log_tl;
+  const size_t col0 = colpass_tile::tile_col0<kTall == kTallB && kTranspose>(
+      blockIdx.x, P.log_tl, P.log_inner, P.log_ncols, P.log_tlc);
   const bool nested = P.net.log_a >= 0;
-  run_phase<kDit, kTranspose, kMat, kPre, kPost>(
+  run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall>(
       tile, P, R, col0, 0, P.net.k0, -1, true, !nested, nested && !kDit);
   if (nested)
-    run_phase<kDit, kTranspose, kMat, kPre, kPost>(
+    run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall>(
         tile, P, R, col0, P.net.k0, P.net.nstages, P.net.log_a, false, true,
         kDit);
 }
@@ -392,6 +476,72 @@ KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
   return nullptr;
 }
 
+// The tall route's launch `tall` (kTallA or kTallB) of a combination
+// pick_kernel takes, or null: phase A by the direction and the 'pre'
+// form, phase B by the direction, the store options and the 'post' form;
+// each launch is given the whole pass's operands and applies its own.
+KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
+                   int post) {
+  if (!pick_kernel(dit, transpose_out, mat, pre, post)) return nullptr;
+  if (tall == kTallA) {
+    if (dit) {
+      if (pre == kOpNone)
+        return gl_colpass_kernel<true, false, false, kOpNone, kOpNone, kTallA>;
+      if (pre == kOpMat)
+        return gl_colpass_kernel<true, false, false, kOpMat, kOpNone, kTallA>;
+      return nullptr;
+    }
+    switch (pre) {
+      case kOpNone:
+        return gl_colpass_kernel<false, false, false, kOpNone, kOpNone,
+                                 kTallA>;
+      case kOpMat:
+        return gl_colpass_kernel<false, false, false, kOpMat, kOpNone, kTallA>;
+      case kOpFac:
+        return gl_colpass_kernel<false, false, false, kOpFac, kOpNone, kTallA>;
+      case kOpRank1:
+        return gl_colpass_kernel<false, false, false, kOpRank1, kOpNone,
+                                 kTallA>;
+    }
+    return nullptr;
+  }
+  if (tall != kTallB) return nullptr;
+  if (post == kOpNone) {
+    if (dit)
+      return !transpose_out ? gl_colpass_kernel<true, false, false, kOpNone,
+                                                kOpNone, kTallB>
+             : mat ? gl_colpass_kernel<true, true, true, kOpNone, kOpNone,
+                                       kTallB>
+                   : gl_colpass_kernel<true, true, false, kOpNone, kOpNone,
+                                       kTallB>;
+    return !transpose_out ? gl_colpass_kernel<false, false, false, kOpNone,
+                                              kOpNone, kTallB>
+           : mat ? gl_colpass_kernel<false, true, true, kOpNone, kOpNone,
+                                     kTallB>
+                 : gl_colpass_kernel<false, true, false, kOpNone, kOpNone,
+                                     kTallB>;
+  }
+  if (post == kOpMat)  // distributed lcp1, lcp1n, licp1n
+    return dit ? gl_colpass_kernel<true, false, false, kOpNone, kOpMat, kTallB>
+               : gl_colpass_kernel<false, false, false, kOpNone, kOpMat,
+                                   kTallB>;
+  if (post == kOpRank1)  // distributed factored licp1n
+    return gl_colpass_kernel<true, false, false, kOpNone, kOpRank1, kTallB>;
+  if (post == kOpFac)  // the factored arm's icp2; distributed licp2
+    return transpose_out
+               ? gl_colpass_kernel<true, true, false, kOpNone, kOpFac, kTallB>
+               : gl_colpass_kernel<true, false, false, kOpNone, kOpFac,
+                                   kTallB>;
+  return nullptr;
+}
+
+// pick_kernel for a whole column (tall = kWhole), pick_tall for a phase.
+KernelFn pick(int tall, bool dit, bool transpose_out, bool mat, int pre,
+              int post) {
+  return tall == kWhole ? pick_kernel(dit, transpose_out, mat, pre, post)
+                        : pick_tall(tall, dit, transpose_out, mat, pre, post);
+}
+
 // Opts kernel in to smem dynamic bytes above 48 KB.
 cudaError_t allow_smem(KernelFn kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -431,14 +581,16 @@ const char* ntt_gl_error_string(int err) {
 }
 
 // This build's register group size, and for the kernel of this direction,
-// these store options and these operands (pre, post: Operand forms) at an
-// nn x 2^log_tl tile: its registers a thread and its co-resident blocks per
-// SM. Returns 0 or a cudaError_t.
-int ntt_gl_colpass_kernel_info(int dit, int transpose_out, int mat, int pre,
-                               int post, int nn, int log_tl, int* kfuse,
-                               int* regs, int* per_sm) {
+// these store options and these operands (pre, post: Operand forms), of a
+// whole column or one phase of a tall one (tall: colpass_tile::Tall), at
+// an nn x 2^log_tl tile (a phase's rows): its registers a thread and its
+// co-resident blocks per SM. Returns 0 or a cudaError_t.
+int ntt_gl_colpass_kernel_info(int tall, int dit, int transpose_out,
+                               int mat, int pre, int post, int nn,
+                               int log_tl, int* kfuse, int* regs,
+                               int* per_sm) {
   const KernelFn kernel =
-      pick_kernel(dit != 0, transpose_out != 0, mat != 0, pre, post);
+      pick(tall, dit != 0, transpose_out != 0, mat != 0, pre, post);
   *kfuse = kFuse;
   *regs = 0;
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
@@ -463,7 +615,13 @@ int ntt_gl_colpass_kernel_info(int dit, int transpose_out, int mat, int pre,
 // transpose_out). pre_form, post_form: the Operand forms of the 'pre' and
 // 'post' operands (uint64 tables: kOpMat pre and null pre2, indexed like
 // x; kOpFac T1 and T2 of the split 2^log_s; kOpRank1 the row and the
-// column vector; null for kOpNone). Returns
+// column vector; null for kOpNone). tall (colpass_tile::Tall): kWhole,
+// one launch of the whole column; kTallA or kTallB, one phase of a tall
+// column's route: nn, ncols and the stage list are the phase's (a plain
+// network, log_a < 0) over its view, log_inner is log2 of the factor of
+// the tall nn that rides the view's columns, the operands are the whole
+// tall pass's (each phase applies its own), and mid is the tall network's
+// (nn * 2^log_inner,) vector. Returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a shape or an operand combination the kernels
 // do not take.
@@ -474,13 +632,16 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
                    const void* mid, const void* mat, int pre_form,
                    const void* pre, const void* pre2, int post_form,
                    const void* post, const void* post2, int log_s,
-                   int transpose_out, void* stream) {
+                   int transpose_out, int tall, int log_inner,
+                   void* stream) {
   const size_t smem = (size_t)nn << log_tl << 3;
   const bool nested = log_a >= 0;
+  const bool phase = tall != kWhole;
   Params P;
   if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
       log_tl > 5 || (ncols >> log_tl) < 1 || batch < 1 || batch > 65535 ||
-      nstages < 1 || nested != (mid != nullptr) ||
+      nstages < 1 || (nested || phase) != (mid != nullptr) ||
+      (phase && (nested || log_inner < 1 || (ncols >> log_inner) < 1)) ||
       (nested && (k0 < 1 || k0 >= nstages)) ||
       (mat != nullptr && !transpose_out) ||
       !colpass_tile::make_network(&P.net, nn, dit, nstages, k0, ts, offs,
@@ -494,6 +655,10 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
   P.post = static_cast<const uint64_t*>(post);
   P.post2 = static_cast<const uint64_t*>(post2);
   P.log_s = log_s;
+  P.log_inner = phase ? log_inner : 0;
+  P.log_ncols = phase ? colpass_tile::ilog2(ncols) - log_inner : 0;
+  P.log_tlc = colpass_tile::tall_store_log_cols(kTallStoreLogCols, log_tl,
+                                                P.log_inner, P.log_ncols);
   P.x_hi = static_cast<const uint32_t*>(x_hi);
   P.x_lo = static_cast<const uint32_t*>(x_lo);
   P.out_hi = static_cast<uint32_t*>(out_hi);
@@ -507,10 +672,11 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
            : (form == kOpFac || form == kOpRank1) && a && b;
   };
   if (!tables_ok(pre_form, pre, pre2) || !tables_ok(post_form, post, post2) ||
-      log_s < 0 || log_s >= P.net.log_nn)
+      log_s < 0 || log_s >= P.net.log_nn + P.log_inner ||
+      (phase && log_tl - P.log_tlc > log_inner))
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kernel = pick_kernel(dit != 0, transpose_out != 0,
-                                      mat != nullptr, pre_form, post_form);
+  const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0,
+                               mat != nullptr, pre_form, post_form);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -17,6 +17,15 @@ matrix, the 'pre' wfac and the 'pre' rank-1 operand, the stages, then the
 'post' matrix, wfac and rank-1 operand, then the transpose, 'post_t' and
 canonicalize.
 
+A column of more than MAX_ROWS rows (a tall column: nn = 16,384 and up,
+BabyBear's and Goldilocks's largest transforms, or a pinned split) does
+not fit one block's tile. ``make_colpass`` gives its ColPass the two
+phases of its nested R x S network (``tall_phases``), and on the card
+the pass runs as two launches, phase A over the view (B, rows, inner *
+ncols) of the input and phase B over the same kind of view of A's
+output (``csrc/colpass_tile.cuh`` Tall); ``tall_phase_plain`` is each
+launch's plain version. Nothing runs between them.
+
 ``colpass(x, cp)`` is the entry point. On a CPU tensor it runs the plain
 version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
 ``csrc/colpass.cu`` or raises — there is no fallback. Each CUDA source
@@ -105,6 +114,8 @@ class ColPass:
     tw_pairs, wmid_pairs: tw and wmid with each pair adjacent,
       (sum(ts), 2) and (nn, 2) or None: the CUDA column and nested kernels
       load a pair as one 8-byte word (the fused kernel reads tw and wmid).
+    tall: for nn > MAX_ROWS, the two phases of the tall route
+      (``tall_phases``), else None.
     """
 
     red: Reduction
@@ -126,9 +137,66 @@ class ColPass:
     wfac_pos: str | None = None
     rank1: tuple | None = None
     rank1_pos: str | None = None
+    tall: tuple | None = None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return colpass(x, self)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TallPhase:
+    """One launch of a tall column's route: one phase of its nested
+    network as a plain network of ``rows`` points down each column of the
+    view (B, rows, inner * ncols) of a (B, nn, ncols) array, in which the
+    other factor of nn, ``inner``, rides the columns: the view's element
+    (l, j) is the array's row l * inner + j // ncols, column j % ncols.
+
+    phase: 'A' (the network's first phase: the 'pre' operands on load,
+      the mid multiply and the row move on store) or 'B' (its second, over
+      A's output: the 'post' operands, the transpose, 'post_t' and
+      canonicalize on store).
+    ts, offsets: the phase's stage half sizes and table offsets; tw (2,
+      sum(ts)) its stage twiddles in the pass's table form (a ColPass's
+      pairs, or a GLColPass's (sum(ts),) values), and tw_pairs the pairs
+      adjacent (None for Goldilocks).
+    """
+
+    phase: str
+    rows: int
+    inner: int
+    ts: tuple
+    offsets: tuple
+    tw: torch.Tensor
+    tw_pairs: torch.Tensor | None
+
+
+def tall_phases(cp) -> tuple:
+    """The two TallPhases of a nested column pass cp (a ColPass or a
+    gl_colpass.GLColPass): the tall network's own phases, each of its
+    stages' twiddles taken every inner-th (twiddles.col_network repeats
+    each phase's vectors by the other factor, so that a stage of half size
+    t * inner pairs the view's rows t apart)."""
+    if cp.wmid is None:
+        raise ValueError(f"a {cp.nn}-row column pass is a plain network; "
+                         "only a nested one has phases")
+    out, k = [], 0
+    for phase, ts in zip("AB", cp.phases_ts):
+        rows = 1 << len(ts)
+        inner = cp.nn // rows
+        if any(t % inner for t in ts):
+            raise ValueError(f"phase {phase}'s stages {ts} do not carry "
+                             f"{inner} columns")
+        tabs = [cp.tw[..., off:off + t:inner]
+                for t, off in zip(ts, cp.offsets[k:k + len(ts)])]
+        k += len(ts)
+        ts_p = tuple(t // inner for t in ts)
+        tw_p = torch.cat(tabs, dim=-1).contiguous()
+        out.append(TallPhase(
+            phase=phase, rows=rows, inner=inner, ts=ts_p,
+            offsets=tuple(int(o) for o in np.cumsum((0,) + ts_p[:-1])),
+            tw=tw_p, tw_pairs=tw_p.t().contiguous() if tw_p.dim() == 2
+            else None))
+    return tuple(out)
 
 
 def _u32_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -233,18 +301,21 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
     wfac_pos, wfac = fac.get("wfac", (None, None))
     rank1_pos, rank1 = fac.get("rank1", (None, None))
     tw = _pair(w_all, s_all, device)
-    return ColPass(red=red, nn=nn, direction=direction,
-                   phases_ts=tuple(tuple(int(t) for t in ph)
-                                   for ph in phases_ts),
-                   mid_rs=tuple(int(v) for v in mid_rs),
-                   canonicalize=canonicalize, transpose_out=transpose_out,
-                   tw=tw, offsets=offsets, wmid=wmid,
-                   wmat=mats.get("post_t"),
-                   tw_pairs=tw.t().contiguous(),
-                   wmid_pairs=None if wmid is None else wmid.t().contiguous(),
-                   pre=mats.get("pre"), post=mats.get("post"),
-                   wfac=wfac, wfac_pos=wfac_pos, rank1=rank1,
-                   rank1_pos=rank1_pos)
+    cp = ColPass(red=red, nn=nn, direction=direction,
+                 phases_ts=tuple(tuple(int(t) for t in ph)
+                                 for ph in phases_ts),
+                 mid_rs=tuple(int(v) for v in mid_rs),
+                 canonicalize=canonicalize, transpose_out=transpose_out,
+                 tw=tw, offsets=offsets, wmid=wmid,
+                 wmat=mats.get("post_t"),
+                 tw_pairs=tw.t().contiguous(),
+                 wmid_pairs=None if wmid is None else wmid.t().contiguous(),
+                 pre=mats.get("pre"), post=mats.get("post"),
+                 wfac=wfac, wfac_pos=wfac_pos, rank1=rank1,
+                 rank1_pos=rank1_pos)
+    if nn > MAX_ROWS:
+        cp = dataclasses.replace(cp, tall=tall_phases(cp))
+    return cp
 
 
 def make_colpass(field, nn: int, *, direction: str, inverse_tw: bool = False,
@@ -380,25 +451,32 @@ def _run_stages(x, w, s, ts, offsets, direction, red):
     return x
 
 
+def _mid_move(v: torch.Tensor, cp: ColPass) -> torch.Tensor:
+    """The nested network's mid step on a (B, nn, c) carrier: DIF
+    multiplies by wmid, then moves the row at r*S + s to s*R + r; DIT
+    makes the inverse move, then multiplies."""
+    red = cp.red
+    B, nn, c = v.shape
+    R, S = cp.mid_rs
+    mw = M.to_carrier(cp.wmid[0]).view(1, nn, 1)
+    ms = M.to_carrier(cp.wmid[1]).view(1, nn, 1)
+    if cp.direction == "dif":
+        v = red.mulc_mat(v, mw, ms)
+        return v.view(B, R, S, c).transpose(1, 2).reshape(B, nn, c)
+    v = v.view(B, S, R, c).transpose(1, 2).reshape(B, nn, c)
+    return red.mulc_mat(v, mw, ms)
+
+
 def run_network(v: torch.Tensor, cp: ColPass) -> torch.Tensor:
     """Every stage of cp's column network (plain, or nested with its mid
     step and row move) down axis 1 of a (B, nn, c) int64 carrier."""
     red = cp.red
     w, s = M.to_carrier(cp.tw[0]), M.to_carrier(cp.tw[1])
-    B, nn, c = v.shape
     k0 = len(cp.phases_ts[0])
     v = _run_stages(v, w, s, cp.phases_ts[0], cp.offsets[:k0],
                     cp.direction, red)
     if cp.wmid is not None:
-        R, S = cp.mid_rs
-        mw = M.to_carrier(cp.wmid[0]).view(1, nn, 1)
-        ms = M.to_carrier(cp.wmid[1]).view(1, nn, 1)
-        if cp.direction == "dif":
-            v = red.mulc_mat(v, mw, ms)
-            v = v.view(B, R, S, c).transpose(1, 2).reshape(B, nn, c)
-        else:
-            v = v.view(B, S, R, c).transpose(1, 2).reshape(B, nn, c)
-            v = red.mulc_mat(v, mw, ms)
+        v = _mid_move(v, cp)
         v = _run_stages(v, w, s, cp.phases_ts[1], cp.offsets[k0:],
                         cp.direction, red)
     return v
@@ -444,15 +522,10 @@ def _mul_at(v: torch.Tensor, cp: ColPass, pos: str) -> torch.Tensor:
     return v
 
 
-def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
-    """The column pass in plain PyTorch ops (int64 carriers), on any
-    device: the oracle the kernel is held against. The reference's order:
-    the 'pre' operands, the network, the 'post' operands, then the
-    transpose and 'post_t', then canonicalize."""
-    xb, squeeze = _batched(x, cp)
+def _store_ops(v: torch.Tensor, cp: ColPass) -> torch.Tensor:
+    """What follows the network: the 'post' operands, the transpose and
+    'post_t', canonicalize."""
     red = cp.red
-    v = _mul_at(M.to_carrier(xb), cp, "pre")
-    v = run_network(v, cp)
     v = _mul_at(v, cp, "post")
     if cp.transpose_out:
         v = v.transpose(1, 2)
@@ -460,6 +533,41 @@ def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
             v = _mul_operand(v, cp.wmat, red)
     if cp.canonicalize:
         v = red.canonicalize(v)
+    return v
+
+
+def colpass_plain(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
+    """The column pass in plain PyTorch ops (int64 carriers), on any
+    device: the oracle the kernel is held against. The reference's order:
+    the 'pre' operands, the network, the 'post' operands, then the
+    transpose and 'post_t', then canonicalize."""
+    xb, squeeze = _batched(x, cp)
+    v = _mul_at(M.to_carrier(xb), cp, "pre")
+    v = _store_ops(run_network(v, cp), cp)
+    out = M.from_carrier(v).contiguous()
+    return out[0] if squeeze else out
+
+
+def tall_phase_plain(x: torch.Tensor, cp: ColPass,
+                     phase: str) -> torch.Tensor:
+    """One launch of cp's tall route in plain PyTorch ops: phase 'A'
+    takes the (B, nn, ncols) input to the moved array, (B, nn, ncols) of
+    the same layout (the 'pre' operands, phase 0 over the view (B, rows,
+    inner * ncols), the mid multiply and the row move); phase 'B' takes
+    that array to the pass's output (phase 1 over its view, then the
+    'post' operands, the transpose and 'post_t', canonicalize). B's of
+    A's output is colpass_plain's output bit for bit. cp: a nested pass of
+    any height (its tall_phases where it has no tall route)."""
+    xb, squeeze = _batched(x, cp)
+    ph = (cp.tall or tall_phases(cp))["AB".index(phase)]
+    B, nn, c = xb.shape
+    v = M.to_carrier(xb)
+    if phase == "A":
+        v = _mul_at(v, cp, "pre")
+    v = _run_stages(v.reshape(B, ph.rows, ph.inner * c),
+                    M.to_carrier(ph.tw[0]), M.to_carrier(ph.tw[1]), ph.ts,
+                    ph.offsets, cp.direction, cp.red).reshape(B, nn, c)
+    v = _mid_move(v, cp) if phase == "A" else _store_ops(v, cp)
     out = M.from_carrier(v).contiguous()
     return out[0] if squeeze else out
 
@@ -601,12 +709,12 @@ def _library(reduction: str = "harvey4") -> ctypes.CDLL:
     lib.ntt_colpass.restype = ci
     lib.ntt_colpass.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, pi, pi,
                                 vp, ci, vp, vp, ci, vp, vp, ci, vp, vp, ci,
-                                ci, ci, cu, cu, cu, vp]
+                                ci, ci, ci, ci, cu, cu, cu, vp]
     lib.ntt_colpass_error_string.restype = ctypes.c_char_p
     lib.ntt_colpass_error_string.argtypes = [ci]
     lib.ntt_colpass_max_rows.restype = ci
     lib.ntt_colpass_kernel_info.restype = ci
-    lib.ntt_colpass_kernel_info.argtypes = [ci] * 7 + [pi] * 3
+    lib.ntt_colpass_kernel_info.argtypes = [ci] * 8 + [pi] * 3
     lib.ntt_reduction_name.restype = ctypes.c_char_p
     if lib.ntt_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/colpass.cu kMaxRows disagrees with MAX_ROWS")
@@ -620,32 +728,48 @@ def kernel_info(cp: ColPass, ncols: int) -> dict:
     """What the card gives cp's kernel over (.., cp.nn, ncols), in the
     library of cp's reduction: the build's register group size (kfuse),
     the tile width TL, its layout and shift (``tile_shift``), and the
-    kernel's registers a thread and co-resident blocks per SM."""
-    tl = tile_cols(cp.nn, ncols)
-    log_tl = tl.bit_length() - 1
+    kernel's registers a thread and co-resident blocks per SM. A tall cp
+    reports each of its two launches under "phases" (``launch_plan``)."""
     lib = _library(cp.red.name)
-    kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
-    (pre_form, *_), (post_form, *_) = _operand_forms(cp)
-    with torch.cuda.device(cp.tw.device):
-        err = lib.ntt_colpass_kernel_info(
-            int(cp.direction == "dit"), int(cp.transpose_out),
-            int(cp.wmat is not None), pre_form, post_form, cp.nn, log_tl,
-            kfuse, regs, per_sm)
-    if err != 0:
-        raise RuntimeError("CUDA column pass occupancy query failed: "
-                           + lib.ntt_colpass_error_string(err).decode())
-    return {"variant": variant(cp), "kfuse": kfuse.value, "tile_cols": tl,
-            "layout": "swizzled",
-            "shift": tile_shift(cp, log_tl), "registers": regs.value,
-            "blocks_per_sm": per_sm.value}
+    return launch_info(cp, ncols, lib.ntt_colpass_kernel_info,
+                       lib.ntt_colpass_error_string)
 
 
-def variant(cp) -> str:
+def launch_info(cp, ncols: int, query, error_string, *,
+                itemsize: int = 4) -> dict:
+    """kernel_info of a ColPass or a GLColPass from its library's
+    kernel-info query and error-string functions."""
+    infos = []
+    for launch in launch_plan(cp, ncols, itemsize=itemsize):
+        log_tl = launch["tile_cols"].bit_length() - 1
+        kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
+        with torch.cuda.device(cp.tw.device):
+            err = query(launch["tall"], int(cp.direction == "dit"),
+                        int(launch["transpose_out"]),
+                        int(launch["mat"] is not None), launch["pre_form"],
+                        launch["post_form"], launch["rows"], log_tl, kfuse,
+                        regs, per_sm)
+        if err != 0:
+            raise RuntimeError(f"CUDA column pass occupancy query failed "
+                               f"({launch['key']}): "
+                               + error_string(err).decode())
+        infos.append({"variant": launch["key"], "kfuse": kfuse.value,
+                      "tile_cols": launch["tile_cols"], "layout": "swizzled",
+                      "shift": launch["shift"], "registers": regs.value,
+                      "blocks_per_sm": per_sm.value})
+    if cp.tall is None:
+        return infos[0]
+    return {"variant": variant(cp), "phases": infos}
+
+
+def variant(cp, phase: str | None = None) -> str:
     """The kernel instantiation cp (a ColPass or a gl_colpass.GLColPass)
     launches, by its direction and operands, e.g. 'dif+pre+post_t+T' or
     'dit+wfac_post+T'
     (T: transpose_out): ``colpass.launches_by``'s and
-    ``gl_colpass.launches_by``'s key."""
+    ``gl_colpass.launches_by``'s key. phase 'A' or 'B': the key of that
+    launch of a tall cp's route, the pass's own with '+tallA' or
+    '+tallB'."""
     parts = [cp.direction]
     for pos in FACTOR_POSITIONS:
         mat = cp.pre if pos == "pre" else cp.post
@@ -656,7 +780,8 @@ def variant(cp) -> str:
             if present]
     if cp.wmat is not None:
         parts.append("post_t")
-    return "+".join(parts + (["T"] if cp.transpose_out else []))
+    parts += ["T"] if cp.transpose_out else []
+    return "+".join(parts + ([f"tall{phase}"] if phase else []))
 
 
 # csrc/colpass_tile.cuh Operand: the form of a 'pre' or 'post' operand
@@ -714,7 +839,62 @@ def network_args(cp: ColPass) -> list:
             _log_a(cp), *mid]
 
 
-def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
+# csrc/colpass_tile.cuh Tall: one launch of a whole column, or a phase
+TALL_WHOLE, TALL_A, TALL_B = range(3)
+
+
+def launch_plan(cp, ncols: int, *, itemsize: int = 4) -> list:
+    """The launches of one pass of cp (a ColPass or a GLColPass) over
+    (.., cp.nn, ncols), each a dict of what the kernel takes: "tall"
+    (TALL_WHOLE, TALL_A, TALL_B), "key" (``variant``), "rows" and "ncols"
+    (the launch's view), "inner" (the factor of nn on the view's columns,
+    1 for a whole column), "phase" (its TallPhase, or None), "tile_cols",
+    "shift", and the pass's operands: "pre_form"/"pre"/"pre2",
+    "post_form"/"post"/"post2" (``_operand_forms``), "mat", "mid",
+    "transpose_out" and "canonicalize". One launch for a column of up
+    to MAX_ROWS rows; a tall cp's two, each given the whole pass's
+    operands, of which its kernel applies its phase's (phase A the 'pre'
+    operands and the mid step, phase B the rest); ValueError where a
+    phase has more than MAX_ROWS rows (a tall column above MAX_ROWS^2 =
+    2^26 rows)."""
+    (pre_form, pre, pre2), (post_form, post, post2) = _operand_forms(cp)
+    mid = cp.wmid_pairs if isinstance(cp, ColPass) else cp.wmid
+    whole = dict(pre_form=pre_form, pre=pre, pre2=pre2, post_form=post_form,
+                 post=post, post2=post2, mat=cp.wmat, mid=mid,
+                 transpose_out=cp.transpose_out,
+                 canonicalize=getattr(cp, "canonicalize", False))
+    if cp.tall is None:
+        tl = tile_cols(cp.nn, ncols, itemsize)
+        return [dict(whole, tall=TALL_WHOLE, key=variant(cp), rows=cp.nn,
+                     ncols=ncols, inner=1, phase=None, tile_cols=tl,
+                     shift=tile_shift(cp, tl.bit_length() - 1))]
+    if ncols & (ncols - 1):
+        raise ValueError(f"ncols must be a power of two, got {ncols}")
+    out = []
+    for ph in cp.tall:
+        if ph.rows > MAX_ROWS:
+            raise ValueError(
+                f"the CUDA column pass runs a {cp.nn}-row column as two "
+                f"phases of at most {MAX_ROWS} rows; its phase {ph.phase} "
+                f"has {ph.rows}")
+        tl = tile_cols(ph.rows, ph.inner * ncols, itemsize)
+        launch = dict(whole, tall=TALL_A if ph.phase == "A" else TALL_B,
+                      key=variant(cp, ph.phase), rows=ph.rows,
+                      ncols=ph.inner * ncols, inner=ph.inner, phase=ph,
+                      tile_cols=tl, shift=max(5 - (tl.bit_length() - 1),
+                                              ph.rows.bit_length() - 1))
+        out.append(launch)
+    return out
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch(xb: torch.Tensor, cp: ColPass,
+            phase: str | None = None) -> torch.Tensor:
+    """cp's launches on xb (B, nn, ncols), or the one launch of a tall
+    cp's phase 'A' or 'B'."""
     for name, t in (("tw", cp.tw_pairs), ("wmid", cp.wmid_pairs),
                     ("wmat", cp.wmat), ("pre", cp.pre), ("post", cp.post),
                     *((f"wfac[{i}]", t) for i, t in enumerate(cp.wfac or ())),
@@ -726,40 +906,55 @@ def _launch(xb: torch.Tensor, cp: ColPass) -> torch.Tensor:
     if not xb.is_contiguous():
         raise ValueError("the CUDA column pass takes contiguous tensors")
     B, nn, c = xb.shape
-    tl = tile_cols(nn, c)
-    out_shape = (B, c, nn) if cp.transpose_out else (B, nn, c)
-    out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    (pre_form, pre, pre2), (post_form, post, post2) = _operand_forms(cp)
-    tables = [ptr(cp.wmid_pairs), ptr(cp.wmat), pre_form, ptr(pre),
-              ptr(pre2), post_form, ptr(post), ptr(post2), log_s(cp)]
-    net = [*_stage_args(cp), cp.tw_pairs.data_ptr(), _log_a(cp)]
-    key = variant(cp)
+    launches = [launch for launch in launch_plan(cp, c)
+                if phase is None or launch["key"] == variant(cp, phase)]
     lib = _library(cp.red.name)
-    with torch.cuda.device(xb.device):
-        stream = torch.cuda.current_stream(xb.device).cuda_stream
-        for b0, b1 in launch_batches(B):
-            err = lib.ntt_colpass(
-                xb[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0, nn, c,
-                tl.bit_length() - 1, int(cp.direction == "dit"), *net,
-                *tables, int(cp.transpose_out), int(cp.canonicalize),
-                cp.red.p, *cp.red.consts, stream)
-            if err != 0:
-                raise RuntimeError(
-                    "CUDA column pass launch failed: "
-                    + lib.ntt_colpass_error_string(err).decode())
-            colpass.launches += 1
-            colpass.launches_by[key] = colpass.launches_by.get(key, 0) + 1
+    src = xb
+    for launch in launches:
+        transposed = cp.transpose_out and launch["tall"] != TALL_A
+        out_shape = (B, c, nn) if transposed else (B, nn, c)
+        out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
+        ph = launch["phase"]
+        if ph is None:
+            net = [*_stage_args(cp), cp.tw_pairs.data_ptr(), _log_a(cp)]
+        else:
+            n = len(ph.ts)
+            net = [n, n, (ctypes.c_int * n)(*ph.ts),
+                   (ctypes.c_int * n)(*ph.offsets), ph.tw_pairs.data_ptr(),
+                   -1]
+        tables = [_ptr(launch["mid"]), _ptr(launch["mat"]),
+                  launch["pre_form"], _ptr(launch["pre"]),
+                  _ptr(launch["pre2"]), launch["post_form"],
+                  _ptr(launch["post"]), _ptr(launch["post2"]), log_s(cp)]
+        key = launch["key"]
+        with torch.cuda.device(xb.device):
+            stream = torch.cuda.current_stream(xb.device).cuda_stream
+            for b0, b1 in launch_batches(B):
+                err = lib.ntt_colpass(
+                    src[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0,
+                    launch["rows"], launch["ncols"],
+                    launch["tile_cols"].bit_length() - 1,
+                    int(cp.direction == "dit"), *net, *tables,
+                    int(launch["transpose_out"]), int(launch["canonicalize"]),
+                    launch["tall"], launch["inner"].bit_length() - 1,
+                    cp.red.p, *cp.red.consts, stream)
+                if err != 0:
+                    raise RuntimeError(
+                        f"CUDA column pass launch failed ({key}): "
+                        + lib.ntt_colpass_error_string(err).decode())
+                colpass.launches += 1
+                colpass.launches_by[key] = colpass.launches_by.get(key, 0) + 1
+        src = out
     return out
 
 
 def colpass(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
     """Run one column pass: the CUDA kernel for a CUDA tensor (one launch
-    per MAX_LAUNCH_BATCH batch rows), the plain version for a CPU tensor.
+    per MAX_LAUNCH_BATCH batch rows; a tall column's two phases, each so),
+    the plain version for a CPU tensor.
     ``colpass.launches`` counts kernel launches, ``colpass.launches_by``
-    them by instantiation (``variant``)."""
+    them by instantiation (``variant``: a tall pass's under its two
+    '+tallA' and '+tallB' keys)."""
     if x.device.type == "cpu":
         return colpass_plain(x, cp)
     if x.device.type != "cuda":
@@ -771,3 +966,19 @@ def colpass(x: torch.Tensor, cp: ColPass) -> torch.Tensor:
 
 colpass.launches = 0
 colpass.launches_by = {}
+
+
+def colpass_phase(x: torch.Tensor, cp: ColPass, phase: str) -> torch.Tensor:
+    """One launch of a tall cp's route, phase 'A' or 'B' (the input and
+    output of ``tall_phase_plain``): the kernel for a CUDA tensor, counted
+    in ``colpass.launches`` as colpass counts it, the plain version for a
+    CPU tensor. The card's checks hold each launch against its plain
+    version with it; the plans run both through ``colpass``."""
+    if cp.tall is None or phase not in ("A", "B"):
+        raise ValueError(f"no phase {phase!r} of a {cp.nn}-row column pass "
+                         f"(a tall route's are 'A' and 'B')")
+    if x.device.type == "cpu":
+        return tall_phase_plain(x, cp, phase)
+    xb, squeeze = _batched(x, cp)
+    out = _launch(xb, cp, phase)
+    return out[0] if squeeze else out

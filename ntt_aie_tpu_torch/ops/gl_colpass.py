@@ -32,6 +32,12 @@ trailing shape (broadcast over the leading axes, as psi over a batch); its
 kernel is a helper in the same library (the reference leaves this product
 to XLA).
 ``kernel_info(cp, ncols)`` says what the card gives the column kernel.
+
+A column of more than MAX_ROWS rows runs on the card as two launches, the
+two phases of its nested network, as the 32-bit pass's tall route
+(``colpass.tall_phases``; ``gl_tall_phase_plain`` is each launch's plain
+version). Goldilocks needs it most: a 32,768-row column of uint64 values
+takes 256 KB, more than a block's shared memory.
 """
 
 from __future__ import annotations
@@ -66,6 +72,8 @@ class GLColPass:
     wfac: (T1 (nn/S, ncols), T2 (S, ncols)), the factored four-step matrix
       at wfac_pos ('pre' or 'post'), or None.
     rank1: (row (nn,), col (ncols,)) at rank1_pos, or None.
+    tall: for nn > MAX_ROWS, the two phases of the tall route
+      (``colpass.tall_phases``), else None.
     """
 
     nn: int
@@ -83,6 +91,7 @@ class GLColPass:
     wfac_pos: str | None = None
     rank1: tuple | None = None
     rank1_pos: str | None = None
+    tall: tuple | None = None
 
     def __call__(self, x: tuple) -> tuple:
         return gl_colpass(x, self)
@@ -157,7 +166,7 @@ def make_gl_colpass(field, nn: int, *, direction: str,
            if tabs is not None}
     wfac_pos, wfac_t = fac.get("wfac", (None, None))
     rank1_pos, rank1_t = fac.get("rank1", (None, None))
-    return GLColPass(
+    cp = GLColPass(
         nn=nn, direction=direction, phases_ts=phases_ts,
         mid_rs=(int(net["R"]), int(net["S"])), transpose_out=transpose_out,
         tw=_u64_tensor(np.concatenate([np.ravel(v) for ph in net["phases"]
@@ -167,6 +176,9 @@ def make_gl_colpass(field, nn: int, *, direction: str,
               if net["mid"] is not None else None),
         wmat=mats.get("post_t"), pre=mats.get("pre"), post=mats.get("post"),
         wfac=wfac_t, wfac_pos=wfac_pos, rank1=rank1_t, rank1_pos=rank1_pos)
+    if nn > MAX_ROWS:
+        cp = dataclasses.replace(cp, tall=C.tall_phases(cp))
+    return cp
 
 
 # ---- plain PyTorch version -------------------------------------------------
@@ -258,34 +270,68 @@ def _mul_at(h, l, cp: GLColPass, pos: str) -> tuple:
     return h, l
 
 
-def gl_colpass_plain(x: tuple, cp: GLColPass) -> tuple:
-    """The Goldilocks column pass in plain PyTorch ops (int64 limb
-    carriers), on any device: the oracle the kernel is held against."""
-    hi, lo, squeeze = _batched(x, cp)
-    h, l = _mul_at(M.to_carrier(hi), M.to_carrier(lo), cp, "pre")
+def _mid_move(h, l, cp: GLColPass) -> tuple:
+    """The nested network's mid step on (B, nn, c) limb carriers: DIF
+    multiplies by wmid, then moves the row at r*S + s to s*R + r; DIT
+    makes the inverse move, then multiplies."""
     B, nn, c = h.shape
-    w = _limbs(cp.tw)
-    k0 = len(cp.phases_ts[0])
-    h, l = _run_stages(h, l, w, cp.phases_ts[0], cp.offsets[:k0],
-                       cp.direction)
-    if cp.wmid is not None:
-        R, S = cp.mid_rs
-        mh, ml = (v.view(1, nn, 1) for v in _limbs(cp.wmid))
-        if cp.direction == "dif":
-            h, l = M.gl_mul(h, l, mh, ml)
-            h, l = (v.view(B, R, S, c).transpose(1, 2).reshape(B, nn, c)
-                    for v in (h, l))
-        else:
-            h, l = (v.view(B, S, R, c).transpose(1, 2).reshape(B, nn, c)
-                    for v in (h, l))
-            h, l = M.gl_mul(h, l, mh, ml)
-        h, l = _run_stages(h, l, w, cp.phases_ts[1], cp.offsets[k0:],
-                           cp.direction)
+    R, S = cp.mid_rs
+    mh, ml = (v.view(1, nn, 1) for v in _limbs(cp.wmid))
+    if cp.direction == "dif":
+        h, l = M.gl_mul(h, l, mh, ml)
+        return tuple(v.view(B, R, S, c).transpose(1, 2).reshape(B, nn, c)
+                     for v in (h, l))
+    h, l = (v.view(B, S, R, c).transpose(1, 2).reshape(B, nn, c)
+            for v in (h, l))
+    return M.gl_mul(h, l, mh, ml)
+
+
+def _store_ops(h, l, cp: GLColPass) -> tuple:
+    """What follows the network: the 'post' operands, the transpose and
+    'post_t'."""
     h, l = _mul_at(h, l, cp, "post")
     if cp.transpose_out:
         h, l = h.transpose(1, 2), l.transpose(1, 2)
         if cp.wmat is not None:
             h, l = M.gl_mul(h, l, *_limbs(cp.wmat))
+    return h, l
+
+
+def gl_colpass_plain(x: tuple, cp: GLColPass) -> tuple:
+    """The Goldilocks column pass in plain PyTorch ops (int64 limb
+    carriers), on any device: the oracle the kernel is held against."""
+    hi, lo, squeeze = _batched(x, cp)
+    h, l = _mul_at(M.to_carrier(hi), M.to_carrier(lo), cp, "pre")
+    w = _limbs(cp.tw)
+    k0 = len(cp.phases_ts[0])
+    h, l = _run_stages(h, l, w, cp.phases_ts[0], cp.offsets[:k0],
+                       cp.direction)
+    if cp.wmid is not None:
+        h, l = _mid_move(h, l, cp)
+        h, l = _run_stages(h, l, w, cp.phases_ts[1], cp.offsets[k0:],
+                           cp.direction)
+    h, l = _store_ops(h, l, cp)
+    out = tuple(M.from_carrier(v).contiguous() for v in (h, l))
+    return tuple(v[0] for v in out) if squeeze else out
+
+
+def gl_tall_phase_plain(x: tuple, cp: GLColPass, phase: str) -> tuple:
+    """One launch of cp's tall route in plain PyTorch ops
+    (colpass.tall_phase_plain on limb planes): phase 'A' takes the input
+    planes to the moved ones, phase 'B' those to the pass's output; B's of
+    A's output is gl_colpass_plain's output bit for bit. cp: a nested pass
+    of any height."""
+    hi, lo, squeeze = _batched(x, cp)
+    ph = (cp.tall or C.tall_phases(cp))["AB".index(phase)]
+    B, nn, c = hi.shape
+    h, l = M.to_carrier(hi), M.to_carrier(lo)
+    if phase == "A":
+        h, l = _mul_at(h, l, cp, "pre")
+    h, l = _run_stages(h.reshape(B, ph.rows, ph.inner * c),
+                       l.reshape(B, ph.rows, ph.inner * c), _limbs(ph.tw),
+                       ph.ts, ph.offsets, cp.direction)
+    h, l = h.reshape(B, nn, c), l.reshape(B, nn, c)
+    h, l = _mid_move(h, l, cp) if phase == "A" else _store_ops(h, l, cp)
     out = tuple(M.from_carrier(v).contiguous() for v in (h, l))
     return tuple(v[0] for v in out) if squeeze else out
 
@@ -321,14 +367,14 @@ def _library() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.ntt_gl_colpass.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                    ci, pi, pi, vp, ci, vp, vp, ci, vp, vp,
-                                   ci, vp, vp, ci, ci, vp]
+                                   ci, vp, vp, ci, ci, ci, ci, vp]
     lib.ntt_gl_mul.restype = ci
     lib.ntt_gl_mul.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, vp]
     lib.ntt_gl_error_string.restype = ctypes.c_char_p
     lib.ntt_gl_error_string.argtypes = [ci]
     lib.ntt_gl_colpass_max_rows.restype = ci
     lib.ntt_gl_colpass_kernel_info.restype = ci
-    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 7 + [pi] * 3
+    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 8 + [pi] * 3
     if lib.ntt_gl_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/gl_colpass.cu kMaxRows disagrees with "
                            "MAX_ROWS")
@@ -339,28 +385,15 @@ def kernel_info(cp: GLColPass, ncols: int) -> dict:
     """What the card gives cp's kernel over (.., cp.nn, ncols): the build's
     register group size (kfuse), the tile width TL, its layout and shift
     (two uint32 planes, each on ``colpass.tile_address``'s swizzled map),
-    and the kernel's registers a thread and co-resident blocks per SM.
-    cp must lie on the card."""
+    and the kernel's registers a thread and co-resident blocks per SM; a
+    tall cp's two launches under "phases" (colpass.launch_plan). cp must
+    lie on the card."""
     if cp.tw.device.type != "cuda":
         raise ValueError(f"kernel_info reads the card: cp's tables are on "
                          f"{cp.tw.device}")
-    tl = C.tile_cols(cp.nn, ncols, itemsize=8)
-    log_tl = tl.bit_length() - 1
     lib = _library()
-    kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
-    (pre_form, *_), (post_form, *_) = _operand_forms(cp)
-    with torch.cuda.device(cp.tw.device):
-        err = lib.ntt_gl_colpass_kernel_info(
-            int(cp.direction == "dit"), int(cp.transpose_out),
-            int(cp.wmat is not None), pre_form, post_form, cp.nn, log_tl,
-            kfuse, regs, per_sm)
-    if err != 0:
-        raise RuntimeError("CUDA GL column pass occupancy query failed: "
-                           + lib.ntt_gl_error_string(err).decode())
-    return {"variant": variant(cp), "kfuse": kfuse.value, "tile_cols": tl,
-            "layout": "swizzled",
-            "shift": C.tile_shift(cp, log_tl), "registers": regs.value,
-            "blocks_per_sm": per_sm.value}
+    return C.launch_info(cp, ncols, lib.ntt_gl_colpass_kernel_info,
+                         lib.ntt_gl_error_string, itemsize=8)
 
 
 variant = C.variant
@@ -391,7 +424,10 @@ def _check_launch(err: int, what: str, lib) -> None:
                            + lib.ntt_gl_error_string(err).decode())
 
 
-def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass) -> tuple:
+def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass,
+            phase: str | None = None) -> tuple:
+    """cp's launches on the (B, nn, ncols) planes, or the one launch of a
+    tall cp's phase 'A' or 'B'."""
     for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat),
                     ("pre", cp.pre), ("post", cp.post),
                     *((f"wfac[{i}]", t) for i, t in enumerate(cp.wfac or ())),
@@ -403,47 +439,53 @@ def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass) -> tuple:
     if not (hi.is_contiguous() and lo.is_contiguous()):
         raise ValueError("the CUDA GL column pass takes contiguous tensors")
     B, nn, c = hi.shape
-    tl = C.tile_cols(nn, c, itemsize=8)
-    out_shape = (B, c, nn) if cp.transpose_out else (B, nn, c)
-    oh = torch.empty(out_shape, dtype=torch.int32, device=hi.device)
-    ol = torch.empty_like(oh)
-    ts = [t for ph in cp.phases_ts for t in ph]
-    n = len(ts)
-    if cp.wmid is not None:
-        R, S = cp.mid_rs
-        log_a = (R if cp.direction == "dif" else S).bit_length() - 1
-        mid = cp.wmid.data_ptr()
-    else:
-        log_a, mid = -1, None
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    (pre_form, pre, pre2), (post_form, post, post2) = _operand_forms(cp)
-    ops = [ptr(cp.wmat), pre_form, ptr(pre), ptr(pre2), post_form, ptr(post),
-           ptr(post2), C.log_s(cp)]
-    ts_arr, offs_arr = (ctypes.c_int * n)(*ts), (ctypes.c_int * n)(*cp.offsets)
-    key = variant(cp)
+    launches = [launch for launch in C.launch_plan(cp, c, itemsize=8)
+                if phase is None or launch["key"] == variant(cp, phase)]
     lib = _library()
-    with torch.cuda.device(hi.device):
-        stream = torch.cuda.current_stream(hi.device).cuda_stream
-        for b0, b1 in C.launch_batches(B):
-            err = lib.ntt_gl_colpass(
-                hi[b0:b1].data_ptr(), lo[b0:b1].data_ptr(),
-                oh[b0:b1].data_ptr(), ol[b0:b1].data_ptr(), b1 - b0, nn, c,
-                tl.bit_length() - 1, int(cp.direction == "dit"), n,
-                len(cp.phases_ts[0]), ts_arr, offs_arr, cp.tw.data_ptr(),
-                log_a, mid, *ops, int(cp.transpose_out), stream)
-            _check_launch(err, "GL column pass", lib)
-            gl_colpass.launches += 1
-            gl_colpass.launches_by[key] = gl_colpass.launches_by.get(key,
-                                                                     0) + 1
-    return oh, ol
+    src = hi, lo
+    for launch in launches:
+        transposed = cp.transpose_out and launch["tall"] != C.TALL_A
+        out_shape = (B, c, nn) if transposed else (B, nn, c)
+        oh = torch.empty(out_shape, dtype=torch.int32, device=hi.device)
+        ol = torch.empty_like(oh)
+        ph = launch["phase"]
+        if ph is None:
+            ts, offs, k0 = ([t for p in cp.phases_ts for t in p], cp.offsets,
+                            len(cp.phases_ts[0]))
+            tw_ptr, log_a = cp.tw.data_ptr(), C._log_a(cp)
+        else:
+            ts, offs, k0 = list(ph.ts), ph.offsets, len(ph.ts)
+            tw_ptr, log_a = ph.tw.data_ptr(), -1
+        n = len(ts)
+        ops = [C._ptr(launch["mid"]), C._ptr(launch["mat"]),
+               launch["pre_form"], C._ptr(launch["pre"]),
+               C._ptr(launch["pre2"]), launch["post_form"],
+               C._ptr(launch["post"]), C._ptr(launch["post2"]), C.log_s(cp)]
+        key = launch["key"]
+        with torch.cuda.device(hi.device):
+            stream = torch.cuda.current_stream(hi.device).cuda_stream
+            for b0, b1 in C.launch_batches(B):
+                err = lib.ntt_gl_colpass(
+                    src[0][b0:b1].data_ptr(), src[1][b0:b1].data_ptr(),
+                    oh[b0:b1].data_ptr(), ol[b0:b1].data_ptr(), b1 - b0,
+                    launch["rows"], launch["ncols"],
+                    launch["tile_cols"].bit_length() - 1,
+                    int(cp.direction == "dit"), n, k0,
+                    (ctypes.c_int * n)(*ts), (ctypes.c_int * n)(*offs),
+                    tw_ptr, log_a, *ops, int(cp.transpose_out),
+                    launch["tall"], launch["inner"].bit_length() - 1, stream)
+                _check_launch(err, f"GL column pass ({key})", lib)
+                gl_colpass.launches += 1
+                gl_colpass.launches_by[key] = (
+                    gl_colpass.launches_by.get(key, 0) + 1)
+        src = oh, ol
+    return src
 
 
 def gl_colpass(x: tuple, cp: GLColPass) -> tuple:
     """Run one Goldilocks column pass on a (hi, lo) tuple: the CUDA kernel
-    for CUDA tensors (one launch per colpass.MAX_LAUNCH_BATCH batch rows),
-    the plain version for CPU tensors.
+    for CUDA tensors (one launch per colpass.MAX_LAUNCH_BATCH batch rows; a
+    tall column's two phases, each so), the plain version for CPU tensors.
     ``gl_colpass.launches`` counts kernel launches, ``gl_colpass.launches_by``
     them by instantiation (``variant``)."""
     device = _planes(x, "gl_colpass")[0].device
@@ -458,6 +500,22 @@ def gl_colpass(x: tuple, cp: GLColPass) -> tuple:
 
 gl_colpass.launches = 0
 gl_colpass.launches_by = {}
+
+
+def gl_colpass_phase(x: tuple, cp: GLColPass, phase: str) -> tuple:
+    """One launch of a tall cp's route, phase 'A' or 'B'
+    (``colpass.colpass_phase`` on limb planes): the kernel for CUDA
+    tensors, counted as gl_colpass counts it, the plain version
+    (``gl_tall_phase_plain``) for CPU tensors."""
+    if cp.tall is None or phase not in ("A", "B"):
+        raise ValueError(f"no phase {phase!r} of a {cp.nn}-row column pass "
+                         f"(a tall route's are 'A' and 'B')")
+    device = _planes(x, "gl_colpass")[0].device
+    if device.type == "cpu":
+        return gl_tall_phase_plain(x, cp, phase)
+    hi, lo, squeeze = _batched(x, cp)
+    out = _launch(hi, lo, cp, phase)
+    return tuple(v[0] for v in out) if squeeze else out
 
 
 def gl_mul(a: tuple, b: tuple) -> tuple:

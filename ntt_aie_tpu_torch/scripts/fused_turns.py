@@ -2,7 +2,7 @@
 of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
-        [--nested] [--gl] [--crt] [--ring] [--reduction KIND]
+        [--nested] [--gl] [--crt] [--ring] [--tall] [--reduction KIND]
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
 such as an unpacked ``git archive`` of another commit, or of this one with
@@ -45,7 +45,15 @@ each as a call (the wrapper's host work included) and on the card alone
 (a CUDA graph of calls cycling over copies of the input, so that the
 input comes cold from device memory, not from L2), and hashes the
 outputs, which must
-agree across every reading of every root. The readings go in turns: the
+agree across every reading of every root. With ``--tall`` each reading
+also times the tall route of the column passes (a column above 8,192
+rows as two launches, ``colpass.tall_phases``) at the 8192 x 16384 split
+of n = 2^27, B = 1: cp2 (DIF) and icp2 (DIT, transpose_out, a 'post_t'
+operand of random canonical values in the plan's (n1, n2) shape) over
+16,384 rows, under BabyBear's montgomery and over Goldilocks, each launch
+alone (``colpass_phase``, ``gl_colpass_phase``) and the whole pass, us
+per call, and hashes the passes' outputs, which must agree across every
+reading of every root that has the route. The readings go in turns: the
 roots in order, then in reverse (a b c c b a).
 
 Prints one JSON line per reading, then one summary line: per root, the
@@ -83,6 +91,8 @@ RING_COLD_BYTES = 200_000_000
 # the field each reduction's transforms run on
 REDUCTION_FIELDS = {"harvey4": "p469762049", "harvey": "p998244353",
                     "montgomery": "p2013265921"}
+# the tall route's split: n = 2^27 at 8192 x 16384, cp2 and icp2 tall
+TALL_N1, TALL_N2 = 8192, 16384
 
 
 def _emit(obj) -> None:
@@ -236,6 +246,70 @@ def _measure_ring() -> dict:
     return out
 
 
+def _measure_tall() -> dict:
+    """The tall passes cp2 and icp2 at TALL_N1 x TALL_N2, B = 1, under
+    BabyBear's montgomery and over Goldilocks: us per call of each launch
+    and of the pass, and the passes' output hashes."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"tall_hashes": {}}
+    for name, field in (("babybear", T.P_2013265921),
+                        ("goldilocks", T.GOLDILOCKS)):
+        gl = field.is_goldilocks
+        wmat = rng.integers(0, field.p if not gl else 1 << 63,
+                            (TALL_N1, TALL_N2), dtype=np.uint64)
+        if gl:
+            make, phase, kw = G.make_gl_colpass, G.gl_colpass_phase, {}
+        else:
+            make, phase = C.make_colpass, C.colpass_phase
+            kw = {"reduction": "montgomery"}
+        passes = {"cp2": make(field, TALL_N2, direction="dif", device=dev,
+                              **kw),
+                  "icp2": make(field, TALL_N2, direction="dit",
+                               inverse_tw=True, transpose_out=True,
+                               wmat=wmat, device=dev, **kw)}
+        del wmat
+        hi = torch.randint(0, (1 << 32) - 1, (1, TALL_N2, TALL_N1),
+                           dtype=torch.int64, device=dev, generator=gen)
+        if gl:
+            x = (M.from_carrier(hi), M.from_carrier(torch.randint(
+                0, 1 << 32, hi.shape, dtype=torch.int64, device=dev,
+                generator=gen)))
+        else:
+            x = (hi % field.p).to(torch.int32)
+        del hi
+        for key, cp in passes.items():
+            tag = f"tall_{name}_{key}"
+            y = cp(x)
+            h = hashlib.sha256()
+            for v in (y if gl else (y,)):
+                h.update(v.cpu().numpy())
+            out["tall_hashes"][tag] = h.hexdigest()
+            a = phase(x, cp, "A")
+            for ph, v in (("A", x), ("B", a)):
+                out[f"{tag}_{ph}_us_per_call"] = time_device(
+                    lambda _, v=v, ph=ph, cp=cp: phase(v, cp, ph), v,
+                    iters=5, repeats=5)["us_per_iter"]
+            out[f"{tag}_us_per_call"] = time_device(
+                lambda _, cp=cp: cp(x), x, iters=5, repeats=5)["us_per_iter"]
+            del y, a
+        del passes, x
+        torch.cuda.empty_cache()
+    return out
+
+
 def _measure_nested() -> dict:
     """The column pass and the nested pass at fuse 1 to 5 at the nested
     bench shape, us per call."""
@@ -327,6 +401,10 @@ def main(argv=None) -> int:
                     help="also time the ML-KEM / ML-DSA transforms and "
                          "polymul at B = 8,192 and their serving steps at "
                          "B = 1,024")
+    ap.add_argument("--tall", action="store_true",
+                    help="also time the tall route's launches at the "
+                         "8192 x 16384 split of n = 2^27, B = 1 (roots "
+                         "with the route)")
     ap.add_argument("--reduction", default="harvey4",
                     choices=sorted(REDUCTION_FIELDS),
                     help="the reduction (and its field) of the transforms")
@@ -342,6 +420,11 @@ def main(argv=None) -> int:
             reading.update(_measure_crt())
         if args.ring:
             reading.update(_measure_ring())
+        if args.tall:
+            from ntt_aie_tpu_torch.ops import colpass as C
+
+            if hasattr(C, "colpass_phase"):
+                reading.update(_measure_tall())
         _emit(reading)
         return 0
 
@@ -354,12 +437,13 @@ def main(argv=None) -> int:
     roots["this"] = THIS_ROOT
 
     libs = (("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
-            + ("gl_colpass",) * args.gl + ("crt",) * args.crt
+            + ("gl_colpass",) * (args.gl or args.tall) + ("crt",) * args.crt
             + ("ring_layers",) * args.ring)
-    red = (args.reduction,) * (args.reduction != "harvey4")
+    reds = {args.reduction} | ({"montgomery"} if args.tall else set())
+    reds = sorted(reds - {"harvey4"})
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
              f"[C.build_library(n) for n in {libs!r}]; "
-             f"[C.build_library(n, *{red!r}) for n in "
+             f"[C.build_library(n, r) for r in {reds!r} for n in "
              "('colpass', 'fused_fourstep')]")
     with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:
         builds = {name: pool.submit(  # cwd: -c puts it first on sys.path
@@ -376,9 +460,9 @@ def main(argv=None) -> int:
     readings = {name: [] for name in roots}
     flags = (["--nested"] * args.nested + ["--gl"] * args.gl
              + ["--crt"] * args.crt + ["--ring"] * args.ring
-             + ["--reduction", args.reduction])
+             + ["--tall"] * args.tall + ["--reduction", args.reduction])
     ok = True
-    gl_hashes = crt_hash = ring_hashes = None
+    gl_hashes = crt_hash = ring_hashes = tall_hashes = None
     for name in order:
         res = _run_child(roots[name], flags)
         if res.returncode != 0:
@@ -388,17 +472,20 @@ def main(argv=None) -> int:
         gl_hashes = gl_hashes or reading.get("gl_hashes")
         crt_hash = crt_hash or reading.get("crt_hash")
         ring_hashes = ring_hashes or reading.get("ring_hashes")
+        tall_hashes = tall_hashes or reading.get("tall_hashes")
         ok = (ok and reading["fused_equals_fold"]
               and reading.get("nested_equals_colpass", True)
               and reading.get("gl_hashes") == gl_hashes
               and reading.get("crt_hash") == crt_hash
-              and reading.get("ring_hashes") == ring_hashes)
+              and reading.get("ring_hashes") == ring_hashes
+              and reading.get("tall_hashes", tall_hashes) == tall_hashes)
         readings[name].append(reading)
         _emit(dict(reading, root=name))
 
     keys = [k for k in readings["this"][0]
             if k.endswith(("_us_per_ntt", "_us_per_call"))]
-    summary = {name: {k: sum(r[k] for r in rs) / len(rs) for k in keys}
+    summary = {name: {k: sum(r[k] for r in rs) / len(rs) for k in keys
+                      if all(k in r for r in rs)}
                for name, rs in readings.items()}
     _emit({"summary": summary, "card": _card(), "batch": BATCH,
            "reduction": args.reduction,

@@ -23,8 +23,13 @@ their plain versions, and the distributed plan on two ranks that share
 the card (gloo) and on one NCCL rank, against the single-device plan;
 host streaming (utils/streaming.stream_transform: copy streams, pinned
 buffers) against direct calls, a torch.profiler trace that names the
-column-pass kernels in program order, and the five worked examples
-(ntt_aie_tpu_torch/examples) with the kernels each launches.
+column-pass kernels in program order, the five worked examples
+(ntt_aie_tpu_torch/examples) with the kernels each launches; and the tall
+route of both column kernels (columns above 8,192 rows as two launches):
+each launch of every instantiation the plans run against its plain
+version raw at 16,384 and 32,768 rows, a pass exactly its two launches,
+and BabyBear's and Goldilocks's plans at pinned tall splits against the
+plain plans.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -1338,3 +1343,137 @@ def test_time_graph_on_the_card(cuda):
     cold = time_graph(lambda v: v * 3, copies)
     assert warm > 0 and cold > 0
     assert torch.equal(out[-1], x + 1)
+
+
+# ---- the tall route: columns above 8,192 rows as two launches ----------
+
+TALL_ARMS = ["fold", "entry", "factored", "dist_full", "dist_factored"]
+
+
+def _tall_passes(make_fold, make_dist, field, nn, arm, cols, **kw):
+    """{name: (pass, ncols)} of one arm's passes whose columns are nn
+    rows tall (tests/test_torch_tall_colpass.py's catalogue): the fold
+    plan's arms (negacyclic where the 32-bit kernel has it) and the
+    distributed plan's, rank 0 of 2."""
+    if arm.startswith("dist"):
+        fac = dict(wmat_factored=arm == "dist_factored", negacyclic=True)
+        one = make_dist(field, nn, 2 * cols, 2, 1, 0, **fac, **kw)
+        two = make_dist(field, 2 * cols, nn, 2, 1, 0, **fac, **kw)
+        out = {k: (one[k], cols) for k in ("lcp1", "licp1", "lcp1n",
+                                           "licp1n")}
+        out.update({k: (two[k][0], cols) for k in ("lcp2", "licp2")})
+        return out
+    fac = dict(wmat_fold=arm == "fold", wmat_factored=arm == "factored")
+    one = make_fold(field, nn, cols, **fac, **kw)
+    two = make_fold(field, cols, nn, **fac, **kw)
+    out = {k: (v, cols) for k, v in one.items() if k not in ("cp2", "icp2")}
+    out.update({k: (two[k], cols) for k in ("cp2", "icp2")})
+    return out
+
+
+@pytest.mark.parametrize("nn", [16384, 32768])
+@pytest.mark.parametrize("arm", TALL_ARMS)
+@pytest.mark.parametrize("kind,field", [("harvey4", T.P_469762049),
+                                        ("montgomery", T.P_2013265921)])
+def test_tall_launches_match_plain(cuda, kind, field, nn, arm):
+    """Each launch of the tall route (every instantiation the plans run)
+    equals its plain version raw, and a pass is exactly its two launches,
+    counted under their '+tallA' and '+tallB' keys."""
+    g = torch.Generator(device=cuda).manual_seed(nn + TALL_ARMS.index(arm))
+
+    def fold(field, n1, n2, **kw):
+        return fold_passes(field, n1, n2, negacyclic=True, **kw)
+
+    passes = _tall_passes(fold, FS.dist_passes, field, nn, arm, 8,
+                          reduction=kind, device=cuda)
+    for name, (cp, nc) in passes.items():
+        x = torch.randint(0, RED_TOP.get(kind, 4) * field.p, (2, nn, nc),
+                          dtype=torch.int64, device=cuda,
+                          generator=g).to(torch.int32)
+        a = C.colpass_phase(x, cp, "A")
+        torch.cuda.synchronize()
+        assert torch.equal(a, C.tall_phase_plain(x, cp, "A")), name
+        b = C.colpass_phase(a, cp, "B")
+        torch.cuda.synchronize()
+        assert torch.equal(b, C.tall_phase_plain(a, cp, "B")), name
+        before, total = dict(C.colpass.launches_by), C.colpass.launches
+        got = C.colpass(x, cp)
+        torch.cuda.synchronize()
+        assert C.colpass.launches == total + 2
+        for phase in "AB":
+            key = C.variant(cp, phase)
+            assert C.colpass.launches_by[key] == before.get(key, 0) + 1
+        assert torch.equal(got, C.colpass_plain(x, cp)), name
+
+
+@pytest.mark.parametrize("nn", [16384, 32768])
+@pytest.mark.parametrize("arm", TALL_ARMS)
+def test_gl_tall_launches_match_plain(cuda, nn, arm):
+    rng = np.random.default_rng([nn, TALL_ARMS.index(arm)])
+    passes = _tall_passes(gl_fold_passes, FS.gl_dist_passes, T.GOLDILOCKS,
+                          nn, arm, 8, device=cuda)
+    for name, (cp, nc) in passes.items():
+        x = M.gl_from_u64(_gl_values(rng, (2, nn, nc)), cuda)
+        a = G.gl_colpass_phase(x, cp, "A")
+        torch.cuda.synchronize()
+        want = G.gl_tall_phase_plain(x, cp, "A")
+        assert all(torch.equal(u, v) for u, v in zip(a, want)), name
+        b = G.gl_colpass_phase(a, cp, "B")
+        torch.cuda.synchronize()
+        want = G.gl_tall_phase_plain(a, cp, "B")
+        assert all(torch.equal(u, v) for u, v in zip(b, want)), name
+        before, total = dict(G.gl_colpass.launches_by), G.gl_colpass.launches
+        got = G.gl_colpass(x, cp)
+        torch.cuda.synchronize()
+        assert G.gl_colpass.launches == total + 2
+        for phase in "AB":
+            key = G.variant(cp, phase)
+            assert G.gl_colpass.launches_by[key] == before.get(key, 0) + 1
+        want = G.gl_colpass_plain(x, cp)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), name
+
+
+def test_tall_kernel_info(cuda):
+    for make, mod in ((C.make_colpass, C), (G.make_gl_colpass, G)):
+        field = T.GOLDILOCKS if mod is G else T.P_469762049
+        cp = make(field, 32768, direction="dit", inverse_tw=True, device=cuda)
+        info = mod.kernel_info(cp, 64)
+        assert info["variant"] == "dit"
+        assert [p["variant"] for p in info["phases"]] == ["dit+tallA",
+                                                          "dit+tallB"]
+        for p in info["phases"]:
+            assert p["tile_cols"] == 32
+            assert p["registers"] > 0 and p["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("name,log_n,rows_log2", [
+    ("p2013265921", 17, 3), ("p2013265921", 17, 14), ("goldilocks", 16, 2)])
+def test_tall_split_plan_matches_plain(cuda, name, log_n, rows_log2):
+    """BabyBear's and Goldilocks's plans at pinned tall splits on the card
+    equal the plain plans (the same plans on the CPU); fwd_mat is three
+    launches, the tall pass two of them."""
+    cfg = T.NTTConfig(field=T.FIELDS[name], log_n=log_n, rows_log2=rows_log2)
+    n1, n2 = cfg.split
+    card = T.build_plan(cfg, device=cuda).make_batched(2)
+    plain = T.build_plan(cfg, device="cpu").make_batched(2)
+    rng = np.random.default_rng(log_n + rows_log2)
+    if name == "goldilocks":
+        x, y = (M.gl_from_u64(_gl_values(rng, (2, n1, n2)), cuda)
+                for _ in range(2))
+        kernel, same = G.gl_colpass, (lambda u, v: all(
+            torch.equal(a.cpu(), b) for a, b in zip(u, v)))
+        cpu = (lambda v: tuple(t.cpu() for t in v))
+    else:
+        x, y = (torch.from_numpy(rng.integers(0, T.FIELDS[name].p,
+                                              (2, n1, n2)).astype(np.int32))
+                .to(cuda) for _ in range(2))
+        kernel, same = C.colpass, (lambda u, v: torch.equal(u.cpu(), v))
+        cpu = (lambda v: v.cpu())
+    kernel.launches = 0
+    f = card["fwd_mat"](x)
+    torch.cuda.synchronize()
+    assert kernel.launches == 3
+    assert same(f, plain["fwd_mat"](cpu(x)))
+    assert same(card["inv_mat"](f), cpu(x))
+    assert same(card["polymul_mat"](x, y),
+                plain["polymul_mat"](cpu(x), cpu(y)))

@@ -100,6 +100,34 @@ def test_stage_twiddles_and_powers_match(name):
                     assert np.array_equal(vt, vj)
 
 
+@pytest.mark.parametrize("nn", [16384, 32768])
+@pytest.mark.parametrize("direction", ["dif", "dit"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_tall_phase_twiddles_match(nn, direction, inverse):
+    """The two phases of a tall column's route (colpass.tall_phases, taken
+    out of the port's col_network): each stage's twiddles are the
+    reference's stage twiddles of the phase's R or S points, and the
+    nested mid vector is the reference's."""
+    from ntt_aie_tpu_torch.ops import colpass as C
+
+    jf = jF.P_469762049
+    cp = C.make_colpass(tF.P_469762049, nn, direction=direction,
+                        inverse_tw=inverse, device="cpu")
+    j = jtw.col_network(jf, nn, direction=direction, inverse=inverse)
+    gen = (jtw.dif_stage_twiddles if direction == "dif"
+           else jtw.dit_stage_twiddles)
+    sizes = (j["R"], j["S"]) if direction == "dif" else (j["S"], j["R"])
+    for ph, size in zip(cp.tall, sizes):
+        assert (ph.rows, ph.inner) == (size, nn // size)
+        w = ph.tw[0].numpy().astype(np.int64)  # harvey4: (w, Shoup pair)
+        want = gen(jf, size, inverse=inverse)
+        assert len(ph.ts) == len(want)
+        for t, off, vj in zip(ph.ts, ph.offsets, want):
+            assert np.array_equal(w[off:off + t], vj)
+    assert np.array_equal(cp.wmid[0].numpy().astype(np.int64),
+                          j["mid"]["wmid"])
+
+
 @pytest.mark.parametrize("log_n", [10, 20])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_negacyclic_psi_powers_match(log_n, inverse):
