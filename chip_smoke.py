@@ -389,8 +389,25 @@ Goldilocks's on the plain passes on the card, the round trip and
 polymul_mat exact, µs a call and ms a launch; it adds a
 colpass[tall:<case>:<pass><A|B>] row (PERF.md 1t) or a gl_colpass[...]
 row (3t) for each launch, its bound its own (the launch reads and writes
-the array once), the pass's bytes and butterflies beside it. Last, the
-result line
+the array once), the pass's bytes and butterflies beside it. Phase 41
+(splits, splits_done) runs every split the JAX package computes that
+raised on the card before: the split (1, n) (a column pass of one row, no
+stage: colpass_empty_kernel) at n = 2^20 over p = 469762049 on the fold
+and fused plans and over Goldilocks at n = 2^16; the fused plan's sides
+above 8,192 rows (its step list) at n = 2^17, 8 x 16384 and 16384 x 8,
+B = 2, on every callable, and BabyBear n = 2^27 at 8192 x 16384; and tall
+phases above 8,192 rows (two launches split by stage group) on
+Goldilocks n = 2^28 at (2, 2^27) on the factored arm and BabyBear (1,
+2^27): launches counted from 0 a call, every column-pass launch on the
+path's own input equal to its plain version raw (column slices) and the
+launches to the whole pass's, every fused transform to
+fused_fourstep_plain, every callable to the plain passes' chain, fwd's
+rows on the native oracle (in worker threads beside the card's work),
+the round trips; ms a launch or a fused call, and the fused BabyBear 2^27
+fwd_mat in turns with the fold plan's. It adds a
+colpass[split:<case>:<pass><launch>] row (PERF.md 1s, 1t),
+gl_colpass[...] row (3s, 3t) or fused_fourstep[split:<case>:<ff|fi|nf|ni>]
+row (2t) for each. Last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -842,6 +859,10 @@ def main() -> int:
     tall_rows = tall_phase(dev, card, gen)
     if tall_rows is None:
         return 1
+    torch.cuda.empty_cache()
+    split_rows = split_phase(dev, card, gen)
+    if split_rows is None:
+        return 1
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -878,6 +899,7 @@ def main() -> int:
     rows += pqc_rows
     rows += dist_rows
     rows += tall_rows
+    rows += split_rows
     # the launches of the entry points of phases 34-38, by kernel
     for row in rows:
         if row["name"] in entry_point_launches:
@@ -4953,6 +4975,413 @@ def tall_phase(dev, card, gen):
     emit({"phase": "tall_done", "ok": True, "rows": len(rows)})
     return rows
 
+
+
+# Phase 41: every split the JAX package computes, on the card (a column of
+# one row: a pass of zero stages; the fused plan's sides above 8,192 rows:
+# its step list; a tall phase above 8,192 rows: two launches split by stage
+# group). (label, field name, log_n, rows_log2 (None: the default split),
+# plan keywords, negacyclic, batch, callables, PERF.md row, whether its
+# fwd_mat is timed in turns with the fold plan's.) The largest first, so
+# their oracles' threads run beside the others; cases of one field, n and
+# batch share their inputs and oracle rows.
+_MAT3 = ("fwd_mat", "inv_mat", "polymul_mat")
+_EVERY = ("fwd", "inv", "polymul", "negacyclic_polymul", "fwd_mat",
+          "inv_mat", "polymul_mat", "negacyclic_polymul_mat")
+SPLIT_CASES = (
+    ("gl_2x2^27", "goldilocks", 28, 1, {"wmat_factored": True}, False, 1,
+     _MAT3, "3t", False),
+    ("babybear_one_row", "p2013265921", 27, 0, {}, False, 1, _MAT3, "1t",
+     False),
+    ("fused_babybear", "p2013265921", 27, None, {"fused": True}, False, 1,
+     _MAT3, "2t", True),
+    ("one_row", "p469762049", 20, 0, {}, True, 1,
+     _MAT3 + ("negacyclic_polymul_mat",), "1s", False),
+    ("one_row_fused", "p469762049", 20, 0, {"fused": True}, True, 1,
+     _MAT3 + ("negacyclic_polymul_mat",), "2t", False),
+    ("gl_one_row", "goldilocks", 16, 0, {}, False, 1, _MAT3, "3s", False),
+    ("fused_8x16384", "p2013265921", 17, 3, {"fused": True}, True, 2,
+     _EVERY, "2t", False),
+    ("fused_16384x8", "p2013265921", 17, 14, {"fused": True}, True, 2,
+     _EVERY, "2t", False),
+)
+# each plan's chains: the forward and inverse transforms' passes (or fused
+# transforms), and the negacyclic product's; a callable runs fwd (fwd_mat,
+# fwd), inv, or two of fwd then inv (polymul, negacyclic with nfwd, ninv)
+SPLIT_CHAINS = {
+    "fold": {"fwd": ("cp1", "cp2"), "inv": ("icp2", "icp1"),
+             "nfwd": ("ncp1", "cp2"), "ninv": ("icp2", "nicp1")},
+    "fused": {"fwd": ("ff",), "inv": ("fi",), "nfwd": ("nf",),
+              "ninv": ("ni",)}}
+
+
+def _split_chains(key: str) -> tuple:
+    """The chains a callable runs, in order."""
+    base = key[:-4] if key.endswith("_mat") else key
+    return {"fwd": ("fwd",), "inv": ("inv",),
+            "polymul": ("fwd", "fwd", "inv"),
+            "negacyclic_polymul": ("nfwd", "nfwd", "ninv")}[base]
+
+
+def _split_keys(cp):
+    """The launches_by keys of one pass of cp, in order."""
+    from ntt_aie_tpu_torch.ops import colpass as C
+
+    suffixes = C.launch_keys(cp)
+    return ([C.variant(cp, s) for s in suffixes] if suffixes
+            else [C.variant(cp)])
+
+
+def _launch_bytes(launch, item):
+    """The bytes of the operand tables a column-pass launch reads once."""
+    from ntt_aie_tpu_torch.ops import colpass as C
+
+    tabs = [launch[k] for k in ("pre", "pre2", "post", "post2", "mat")]
+    if launch["tall"] == C.TALL_A:
+        tabs.append(launch["mid"])
+    return sum(t.numel() * t.element_size() for t in tabs if t is not None)
+
+
+def _split_oracle(field, row):
+    """The forward transform of one row (natural in, bit-reversed out) on
+    the native oracle (the NumPy one where the library cannot build):
+    (values, oracle name)."""
+    import numpy as np
+
+    from ntt_aie_tpu_torch import native_oracle, reference
+    from ntt_aie_tpu_torch import twiddles as tw
+
+    n = len(row)
+    try:
+        want = native_oracle.ntt_dif_batch(
+            row[None], field.root_of_unity(n), field.p)[0]
+        return want[tw.bit_reverse_indices(n)], "native"
+    except (native_oracle.NativeOracleUnavailable, OSError):
+        return np.asarray(reference.ntt_forward(row, field),
+                          np.uint64), "numpy"
+
+
+def _split_case(spec, dev, card, gen, pool, shared):
+    """One SPLIT_CASES plan: set-up; each callable driven once with the
+    launches counted from 0 just before it and read just after, equal to
+    its passes' launches (a tall pass's every launch, a fused transform's
+    one under its step list's key); every column-pass launch on the path's
+    own input against its plain version raw (column slices) and the
+    launches against the whole pass's plain version, every fused transform
+    against fused_fourstep_plain; each callable against the plain passes'
+    chain; fwd on the native oracle (row 0, and row 1 at B = 2: in worker
+    threads from the case's start, beside its set-up and the card's
+    work); the round trip; ms a launch or a
+    fused call on CUDA events; where the spec asks, fwd_mat in turns with
+    the fold plan's (fold, fused, fused, fold). shared: inputs and oracle
+    rows by (field, n, batch). Returns (its line, its kernels-line rows,
+    the oracle's futures and what they are compared with), or None after
+    the failure."""
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    (label, name, log_n, rows_log2, kw, nega, B, calls, perf_row,
+     turns) = spec
+    field = T.FIELDS[name]
+    gl = field.is_goldilocks
+    ops = _tall_ops(gl)
+    cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2,
+                      negacyclic=nega)
+    n, (n1, n2) = cfg.n, cfg.split
+    kind = "fused" if kw.get("fused") else "fold"
+    t_case = time.perf_counter()
+    # the inputs, and their rows' forward transforms on the oracle in
+    # worker threads from here on (beside the set-up and the card's work)
+    key_in = (name, log_n, B)
+    if key_in not in shared:
+        x = _tall_input(field, (B, n), dev, gen)
+        rows_in = [(M.gl_to_u64(*(t[r] for t in x)) if gl
+                    else x[r].cpu().numpy().astype(np.uint64))
+                   for r in range(B)]
+        shared[key_in] = {
+            "x": x, "y": _tall_input(field, (B, n), dev, gen),
+            "oracles": [pool.submit(_split_oracle, field, r)
+                        for r in rows_in]}
+        del rows_in
+    x, y = (shared[key_in][k] for k in ("x", "y"))
+    x, y = ((tuple(t.reshape(B, n1, n2) for t in v) if gl
+             else v.reshape(B, n1, n2)) for v in (x, y))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = T.build_plan(cfg, device=dev, **kw)
+    bat = plan.make_batched(B)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    line = {"phase": "splits", "case": label, "field": name, "n": n,
+            "split": [n1, n2], "batch": B, "plan": kw, "card": card,
+            "reduction": plan.reduction, "setup_s": setup_s}
+    chunks = max(1, (B * n) >> TALL_PLAIN_LOG)
+    counters = ((F.fused_fourstep,) if kind == "fused"
+                else (G.gl_colpass, G.gl_mul) if gl else (C.colpass,))
+
+    def flat(v):
+        return (tuple(t.reshape(B, n) for t in v) if gl
+                else v.reshape(B, n))
+
+    def mat(v, shape):
+        return (tuple(t.reshape(shape) for t in v) if gl
+                else v.reshape(shape))
+
+    # the main path: each callable's launches counted from 0
+    outs, by = {}, {}
+    for key in calls:
+        base = key[:-4] if key.endswith("_mat") else key
+        if base in ("fwd", "inv"):
+            src = x if base == "fwd" else outs.get("fwd_mat",
+                                                   outs.get("fwd"))
+            if base == "inv" and not key.endswith("_mat"):
+                src = flat(src)
+            elif base == "inv":
+                src = mat(src, (B, n2, n1))
+            args = (src if key.endswith("_mat") or base == "inv"
+                    else flat(src),)
+        else:
+            args = ((x, y) if key.endswith("_mat") else (flat(x), flat(y)))
+        torch.cuda.synchronize()
+        _reset_counts()
+        G.gl_mul.launches = 0
+        outs[key] = bat[key](*args)
+        torch.cuda.synchronize()
+        by[key] = {k: v for c in counters for k, v in
+                   (c.launches_by.items() if hasattr(c, "launches_by")
+                    else [("gl_mul", c.launches)]) if v}
+    passes = plan.passes
+    chains = SPLIT_CHAINS[kind]
+    want_by = {}
+    for key in calls:
+        want = want_by.setdefault(key, {})
+        for c in _split_chains(key):
+            for p in chains[c]:
+                keys = ([F.fused_key(passes[p])] if kind == "fused"
+                        else _split_keys(passes[p]))
+                for k in keys:
+                    want[k] = want.get(k, 0) + 1
+        if gl and "polymul" in key:
+            want["gl_mul"] = 1
+    counts_ok = by == want_by
+
+    def pointwise(a, b):
+        if not gl:
+            return plan.pointwise(a, b)
+        return tuple(torch.cat(ps, dim=-1) for ps in zip(*(
+            G.gl_mul_plain(tuple(t[..., c] for t in a),
+                           tuple(t[..., c] for t in b))
+            for c in torch.arange(a[0].shape[-1], device=dev).chunk(
+                chunks))))
+
+    def timed(fn, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    launch_fn = G.gl_colpass_launch if gl else C.colpass_launch
+    launch_plain = G.gl_launch_plain if gl else C.launch_plain
+    item = ops["itemsize"]
+    errs, launch_ms, plain_ms, infos, rows = {}, {}, {}, {}, []
+
+    def check_pass(k, v):
+        """Every launch of pass k on its input v on the card against its
+        plain version (column slices), timed; the launches against the
+        pass's plain version. Returns that plain output."""
+        cp = passes[k]
+        ncols = v[0].shape[-1] if gl else v.shape[-1]
+        whole = _by_columns(ops["plain"], v, cp, chunks, cp.transpose_out)
+        u = v
+        for launch in C.launch_plan(cp, ncols, itemsize=item):
+            got = launch_fn(u, cp, launch)
+            torch.cuda.synchronize()
+            want, ms_p = timed(_by_columns, launch_plain, u, cp, chunks,
+                               launch["transpose_out"], launch)
+            tag = k + (launch["key"].rpartition("+tall")[2]
+                       if launch["phase"] is not None else "")
+            errs[tag] = _max_err(got, want)
+            plain_ms[tag] = ms_p
+            launch_ms[tag] = time_device(
+                lambda _, u=u, launch=launch: launch_fn(u, cp, launch), u,
+                iters=5, repeats=3)["us_per_iter"] / 1e3
+            rows.append({"tag": tag, "launch": launch})
+            del want
+            u = got
+        errs[f"{k}:pass"] = _max_err(u, whole)
+        return whole
+
+    def check_fused(k, v):
+        """Fused transform k on v on the card against its plain version,
+        timed. Returns the plain output."""
+        ff = passes[k]
+        got = F.fused_fourstep(v, ff)
+        torch.cuda.synchronize()
+        want, ms_p = timed(F.fused_fourstep_plain, v, ff)
+        errs[k] = _max_err(got, want)
+        plain_ms[k] = ms_p
+        launch_ms[k] = time_device(lambda _, v=v: F.fused_fourstep(v, ff),
+                                   v, iters=5, repeats=3)["us_per_iter"] / 1e3
+        infos[k] = F.kernel_info(ff, B)
+        rows.append({"tag": k, "ff": ff})
+        return want
+
+    checked = set()
+
+    def chain(c, v):
+        """Chain c's plain version on v; each pass or fused transform the
+        first time it runs is checked launch by launch on this input."""
+        for k in chains[c]:
+            if k in checked:
+                v = (F.fused_fourstep_plain(v, passes[k]) if kind == "fused"
+                     else _by_columns(ops["plain"], v, passes[k], chunks,
+                                      passes[k].transpose_out))
+            else:
+                checked.add(k)
+                v = (check_fused if kind == "fused" else check_pass)(k, v)
+        return v
+
+    results = {}
+    fwd_out = mat(outs.get("fwd_mat", outs.get("fwd")), (B, n2, n1))
+    plain_fwd = chain("fwd", x)
+    if any(k.startswith("inv") for k in calls):
+        chain("inv", fwd_out)
+    for key in calls:
+        if key.startswith("fwd"):
+            results[key] = _max_err(mat(outs[key], (B, n2, n1)), plain_fwd)
+        elif key.startswith("inv"):
+            results[key] = _max_err(mat(outs[key], (B, n1, n2)), x)
+        else:
+            fc, _, ic = _split_chains(key)
+            want = chain(ic, pointwise(chain(fc, x), chain(fc, y)))
+            results[key] = _max_err(mat(outs[key], (B, n1, n2)),
+                                    mat(want, (B, n1, n2)))
+            del want
+    del plain_fwd
+    torch.cuda.empty_cache()
+
+    # fwd on the native oracle: row 0 (and row 1 at B = 2), in a worker
+    # thread where n is large
+    oracles = shared[key_in]["oracles"]
+    got_rows = [(M.gl_to_u64(*(t[r].reshape(n) for t in fwd_out)) if gl
+                 else fwd_out[r].reshape(n).cpu().numpy().astype(np.uint64))
+                [plan.spectral_to_natural] for r in range(B)]
+    if turns:  # fwd_mat in turns with the fold plan's at this split
+        fold = T.build_plan(cfg, device=dev).make_batched(B)
+        both = {"fold": fold, "fused": bat}
+        line["fwd_mat_ms_in_turns"] = {"fold": [], "fused": []}
+        for k in ("fold", "fused", "fused", "fold"):
+            line["fwd_mat_ms_in_turns"][k].append(time_device(
+                lambda _, k=k: both[k]["fwd_mat"](x), x, iters=3,
+                repeats=3)["us_per_iter"] / 1e3)
+        del fold, both
+
+    ok_launches = not any(errs.values())
+    ok_calls = not any(results.values())
+    line.update({"launches_by": by, "launches_ok": counts_ok,
+                 "launch_max_abs_err": errs, "callable_max_abs_err": results,
+                 "roundtrip_ok": all(results[k] == 0 for k in results
+                                     if k.startswith("inv")),
+                 "launch_ms": launch_ms, "plain_launch_ms": plain_ms,
+                 "kernel_info": infos, "plain_chunks": chunks,
+                 "method": "CUDA events (utils/timing.time_device), a "
+                           "launch or a fused call 3 repeats of 5, "
+                           "trimmed mean, on the path's own input; a "
+                           "plain launch one reading, its check's own "
+                           "call, over plain_chunks column slices",
+                 "seconds": time.perf_counter() - t_case})
+    ok = bool(counts_ok and ok_launches and ok_calls)
+    if not ok:
+        emit(dict(line, ok=False))
+        fail("splits", f"{label}: a launch, a callable or the launch "
+             "counts failed")
+        return None
+
+    arithmetic = "goldilocks" if gl else plan.reduction
+    krows = []
+    for r in rows:
+        tag = r["tag"]
+        base = dict(perf_row=perf_row, route="cuda", max_abs_err=errs[tag],
+                    ms=launch_ms[tag], plain_ms=plain_ms[tag], batch=B,
+                    plain_batch=B, n=n, split=[n1, n2],
+                    arithmetic=arithmetic)
+        if "ff" in r:
+            ff = r["ff"]
+            key = F.fused_key(ff)
+            tables = sum(t.numel() * t.element_size()
+                         for t in (ff.wmid, ff.pre, ff.post)
+                         if t is not None)
+            krows.append(dict(
+                base, name=f"fused_fourstep[split:{label}:{tag}]",
+                source="ntt_aie_tpu_torch/csrc/fused_fourstep.cu",
+                replaces="ntt_aie_tpu/ops/pallas_ntt.py:693", variant=key,
+                launches=sum(v.get(key, 0) for v in by.values()),
+                bytes=2 * B * n * 4 + tables,
+                butterflies=B * n // 2 * log_n, steps=infos[tag]["steps"],
+                registers=infos[tag]["registers"],
+                blocks_per_sm=infos[tag]["blocks_per_sm"],
+                grid=infos[tag]["grid"]))
+            continue
+        launch = r["launch"]
+        key = launch["key"]
+        krows.append(dict(
+            base, name=f"{ops['name']}[split:{label}:{tag}]",
+            source=ops["source"], replaces=ops["replaces"], variant=key,
+            launches=sum(v.get(key, 0) for v in by.values()),
+            bytes=2 * B * n * item + _launch_bytes(launch, item),
+            butterflies=B * n // 2 * len(launch["ts"]),
+            rows=launch["rows"], view_cols=launch["ncols"],
+            batch_mult=launch["batch_mult"], group=launch["group"],
+            tile_cols=launch["tile_cols"]))
+    return line, krows, (oracles, got_rows)
+
+
+def split_phase(dev, card, gen):
+    """Phase 41: SPLIT_CASES (_split_case); the oracles' rows gathered at
+    the end (their threads run beside the card's work). Returns the
+    kernels-line rows, or None after the failure."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    rows, pending, shared = [], [], {}
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for spec in SPLIT_CASES:
+            got = _split_case(spec, dev, card, gen, pool, shared)
+            if got is None:
+                return None
+            line, krows, oracle = got
+            pending.append((line, oracle))
+            rows += krows
+            torch.cuda.empty_cache()
+        shared.clear()
+        gates = []
+        for line, (futures, got_rows) in pending:
+            oks = []
+            for fut, got in zip(futures, got_rows):
+                want, oracle = fut.result()
+                oks.append(bool(np.array_equal(got, want)))
+            gates.append(all(oks))
+            emit(dict(line, oracle=oracle, gate_ok=all(oks), ok=all(oks)))
+    if not all(gates):
+        fail("splits", "a forward transform disagrees with the native "
+             "oracle")
+        return None
+    emit({"phase": "splits_done", "ok": True, "rows": len(rows),
+          "seconds": time.perf_counter() - t_phase})
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main())

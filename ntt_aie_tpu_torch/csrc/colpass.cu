@@ -58,6 +58,22 @@
 // is 8 of them by 4 columns (colpass_tile.cuh tile_col0, kTallStoreLogCols)
 // so a warp writes whole sectors: with the plain tile, one word a
 // sector, it took 13.9 ms at n = 2^27, 13x the other launches (PERF.md).
+// A phase of more than kMaxRows rows (a column above 2^26 rows: Goldilocks
+// n = 2^28 - 2^30 at a split with a side of at most 8, BabyBear (1, 2^27))
+// runs as two launches of its own, split by stage group (colpass_tile.cuh
+// Tall, ops/colpass.py phase_groups): its rows p * Q + q, the stages of
+// half size t >= Q a P-row network over the view (P, Q * inner * ncols)
+// with the twiddle taken by the view column, the stages t < Q a Q-row
+// network over P arrays a batch row (the launch's batch B * P). Every
+// launch of the route reads and writes the array once, so a split phase
+// pays one more sweep of device memory.
+//
+// A column of one row (the split (1, n): cp1, icp1, ncp1, nicp1 over one
+// row) is a network of zero stages: colpass_empty_kernel applies its
+// operands, 'pre', 'post', 'post_t' and canonicalize, to each value
+// (colpass_tile.cuh column_empty), one launch like any pass: the reference
+// runs the same pass, its multiply and canonicalize included. Its bound is
+// its bytes.
 //
 // What it computes, per column of a (B, nn, ncols) uint32 array: the
 // optional 'pre' multiply as the values load, every butterfly stage of the
@@ -143,6 +159,9 @@ constexpr int kFuse = 3;  // radix-2 stages a register group (see above)
 // (colpass_tile.cuh tile_col0): 4 columns by 8 consecutive moved rows at
 // TL = 32, so its store writes whole 32-byte sectors
 constexpr int kTallStoreLogCols = 2;
+// The most blocks a batch row of a one-row column's launch takes (grid.x;
+// each thread then loops over its columns): 8 blocks of 256 threads an SM
+constexpr int kEmptyBlocks = 132 * 8;
 
 struct Params {
   Network net;  // table pointers null: the kernel reads `tables`
@@ -152,6 +171,11 @@ struct Params {
   uint32_t* out;
   int shift;  // the swizzled tile's (colpass_tile::tile_shift)
   Red red;    // the reduction and its constants
+  // after every field a whole column's kernel reads, so its code keeps its
+  // parameter offsets: a tall launch's view, and the operand forms of a
+  // one-row column's launch (colpass_empty_kernel)
+  colpass_tile::TallView view;
+  int pre_form, post_form;
 };
 
 using colpass_tile::kOpFac;
@@ -160,23 +184,46 @@ using colpass_tile::kOpNone;
 using colpass_tile::kOpRank1;
 using colpass_tile::kTallA;
 using colpass_tile::kTallB;
+using colpass_tile::kTallPre;
 using colpass_tile::kWhole;
 
 // One thread block per (batch row, tile of TL columns). kPre, kPost:
-// colpass_tile::Operand forms; kTall: colpass_tile::Tall.
+// colpass_tile::Operand forms; kTall: colpass_tile::Tall; kGroup: a launch
+// of a split phase (column_tile_io's).
 template <bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
-          int kPost = kOpNone, int kTall = kWhole>
+          int kPost = kOpNone, int kTall = kWhole, bool kGroup = false>
 __global__ void __launch_bounds__(kThreads) colpass_kernel(const Params P) {
   extern __shared__ uint32_t tile[];
   const size_t plane = (size_t)P.net.nn * P.ops.ncols;
-  colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse, false, kPre,
-                               kPost, kTall>(
-      tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
-      P.out + (size_t)blockIdx.y * plane,
-      colpass_tile::tile_col0<kTall == kTallB && kTranspose>(
-          blockIdx.x, P.ops.log_tl, P.tables.log_inner, P.tables.log_ncols,
-          P.tables.log_tlc),
-      P.shift, P.red);
+  if constexpr (kTall == kWhole) {
+    colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse, false, kPre,
+                                 kPost, kTall>(
+        tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
+        P.out + (size_t)blockIdx.y * plane,
+        colpass_tile::tile_col0<kTall == kTallB && kTranspose>(
+            blockIdx.x, P.ops.log_tl, P.tables.log_inner, P.tables.log_ncols,
+            P.tables.log_tlc),
+        P.shift, P.red);
+  } else {  // a 'lo' launch's array p of its batch row: batch row b * P + p
+    const int p =
+        kGroup ? (int)(blockIdx.y & ((1u << P.view.log_lp) - 1)) : 0;
+    colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse, false, kPre,
+                                 kPost, kTall, false, kGroup>(
+        tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
+        P.out + (size_t)blockIdx.y * plane,
+        colpass_tile::tall_col0<kTall, kTranspose, kGroup>(
+            blockIdx.x, P.ops.log_tl, P.tables, P.view),
+        P.shift, P.red, P.view, p);
+  }
+}
+
+// A one-row column's pass (colpass_tile::column_empty): blocks on grid.x
+// over the row's columns, batch rows on grid.y; no shared memory.
+__global__ void __launch_bounds__(kThreads) colpass_empty_kernel(
+    const Params P) {
+  const size_t row = (size_t)blockIdx.y * P.ops.ncols;
+  colpass_tile::column_empty(P.ops, P.tables, P.pre_form, P.post_form,
+                             P.x + row, P.out + row, P.red);
 }
 
 using KernelFn = void (*)(Params);
@@ -240,65 +287,109 @@ KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
   return nullptr;
 }
 
-// The tall route's launch `tall` (kTallA or kTallB) of a combination
-// pick_kernel takes, or null: phase A by the direction and the 'pre'
-// form, phase B by the direction, the store options and the 'post' form;
-// each launch is given the whole pass's operands and applies its own.
+// The tall route's launch `tall` (kTallA, kTallB or kTallPre) of these
+// options, the launch's own (ops/colpass.py launch_plan), or null: kTallA
+// by the direction and its 'pre' form (the whole phase A's; a split phase
+// A's last takes none); kTallPre, a split phase A's first, by the
+// direction and its 'pre' form; kTallB by the direction, the store options
+// and the 'post' form (a split phase's in-place launch has none). Every
+// 'pre' and 'post' form and store option a plan's pass runs has its
+// launches here. kG: a launch of a split phase (colpass_kernel's kGroup).
+template <bool kG>
 KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
                    int post) {
-  if (!pick_kernel(dit, transpose_out, mat, pre, post)) return nullptr;
-  if (tall == kTallA) {
+  if (tall == kTallA || tall == kTallPre) {
+    if (transpose_out || mat || post != kOpNone) return nullptr;
+    if (tall == kTallPre) {  // a split phase A's first launch only
+      if constexpr (!kG) return nullptr;
+      if (dit)
+        return pre == kOpMat ? colpass_kernel<true, false, false, kOpMat,
+                                              kOpNone, kTallPre, kG>
+                             : nullptr;
+      switch (pre) {
+        case kOpMat:
+          return colpass_kernel<false, false, false, kOpMat, kOpNone,
+                                kTallPre, kG>;
+        case kOpFac:
+          return colpass_kernel<false, false, false, kOpFac, kOpNone,
+                                kTallPre, kG>;
+        case kOpRank1:
+          return colpass_kernel<false, false, false, kOpRank1, kOpNone,
+                                kTallPre, kG>;
+      }
+      return nullptr;
+    }
     if (dit) {
       if (pre == kOpNone)
-        return colpass_kernel<true, false, false, kOpNone, kOpNone, kTallA>;
+        return colpass_kernel<true, false, false, kOpNone, kOpNone, kTallA,
+                              kG>;
       if (pre == kOpMat)
-        return colpass_kernel<true, false, false, kOpMat, kOpNone, kTallA>;
+        return colpass_kernel<true, false, false, kOpMat, kOpNone, kTallA,
+                              kG>;
       return nullptr;
     }
     switch (pre) {
       case kOpNone:
-        return colpass_kernel<false, false, false, kOpNone, kOpNone, kTallA>;
+        return colpass_kernel<false, false, false, kOpNone, kOpNone, kTallA,
+                              kG>;
       case kOpMat:
-        return colpass_kernel<false, false, false, kOpMat, kOpNone, kTallA>;
+        return colpass_kernel<false, false, false, kOpMat, kOpNone, kTallA,
+                              kG>;
       case kOpFac:
-        return colpass_kernel<false, false, false, kOpFac, kOpNone, kTallA>;
+        return colpass_kernel<false, false, false, kOpFac, kOpNone, kTallA,
+                              kG>;
       case kOpRank1:
         return colpass_kernel<false, false, false, kOpRank1, kOpNone,
-                              kTallA>;
+                              kTallA, kG>;
     }
     return nullptr;
   }
-  if (tall != kTallB) return nullptr;
+  if (tall != kTallB || pre != kOpNone || (mat && !transpose_out))
+    return nullptr;
   if (post == kOpNone) {
     if (dit)
       return !transpose_out ? colpass_kernel<true, false, false, kOpNone,
-                                             kOpNone, kTallB>
-             : mat ? colpass_kernel<true, true, true, kOpNone, kOpNone, kTallB>
+                                             kOpNone, kTallB, kG>
+             : mat ? colpass_kernel<true, true, true, kOpNone, kOpNone, kTallB,
+                                    kG>
                    : colpass_kernel<true, true, false, kOpNone, kOpNone,
-                                    kTallB>;
+                                    kTallB, kG>;
     return !transpose_out ? colpass_kernel<false, false, false, kOpNone,
-                                           kOpNone, kTallB>
-           : mat ? colpass_kernel<false, true, true, kOpNone, kOpNone, kTallB>
+                                           kOpNone, kTallB, kG>
+           : mat ? colpass_kernel<false, true, true, kOpNone, kOpNone, kTallB,
+                                  kG>
                  : colpass_kernel<false, true, false, kOpNone, kOpNone,
-                                  kTallB>;
+                                  kTallB, kG>;
   }
-  if (post == kOpMat)  // distributed lcp1, lcp1n; nicp1
-    return dit ? colpass_kernel<true, false, false, kOpNone, kOpMat, kTallB>
-               : colpass_kernel<false, false, false, kOpNone, kOpMat, kTallB>;
-  if (post == kOpRank1)  // the factored arm's nicp1
-    return colpass_kernel<true, false, false, kOpNone, kOpRank1, kTallB>;
-  if (post == kOpFac)  // the factored arm's icp2; distributed licp2
+  if (mat) return nullptr;
+  if (post == kOpMat && !transpose_out)  // distributed lcp1, lcp1n; nicp1
+    return dit ? colpass_kernel<true, false, false, kOpNone, kOpMat, kTallB,
+                                kG>
+               : colpass_kernel<false, false, false, kOpNone, kOpMat, kTallB,
+                                kG>;
+  if (post == kOpRank1 && dit && !transpose_out)  // the factored nicp1
+    return colpass_kernel<true, false, false, kOpNone, kOpRank1, kTallB, kG>;
+  if (post == kOpFac && dit)  // the factored arm's icp2; distributed licp2
     return transpose_out
-               ? colpass_kernel<true, true, false, kOpNone, kOpFac, kTallB>
-               : colpass_kernel<true, false, false, kOpNone, kOpFac, kTallB>;
+               ? colpass_kernel<true, true, false, kOpNone, kOpFac, kTallB,
+                                kG>
+               : colpass_kernel<true, false, false, kOpNone, kOpFac, kTallB,
+                                kG>;
   return nullptr;
 }
 
-// pick_kernel for a whole column (tall = kWhole), pick_tall for a phase.
+// The kernel of a launch: a one-row column's (nn = 1) colpass_empty_kernel,
+// pick_kernel for a whole column (tall = kWhole), pick_tall for a launch of
+// a tall one.
 KernelFn pick(int tall, bool dit, bool transpose_out, bool mat, int pre,
-              int post) {
-  return tall == kWhole ? pick_kernel(dit, transpose_out, mat, pre, post)
-                        : pick_tall(tall, dit, transpose_out, mat, pre, post);
+              int post, int nn, bool group) {
+  if (nn == 1)
+    return tall == kWhole && pick_kernel(dit, transpose_out, mat, pre, post)
+               ? colpass_empty_kernel
+               : nullptr;
+  if (tall == kWhole) return pick_kernel(dit, transpose_out, mat, pre, post);
+  return group ? pick_tall<true>(tall, dit, transpose_out, mat, pre, post)
+               : pick_tall<false>(tall, dit, transpose_out, mat, pre, post);
 }
 
 // Opts kernel in to smem dynamic bytes above 48 KB.
@@ -320,18 +411,18 @@ const char* ntt_reduction_name() { return reductions::kBuiltName; }
 
 // This build's register group size, and for the kernel of this direction
 // and these operands (pre, post: Operand forms), of a whole column or one
-// phase of a tall one (tall: colpass_tile::Tall), at an nn x 2^log_tl tile
-// (a phase's rows): its registers a thread and its co-resident blocks per
-// SM. Returns 0 or a cudaError_t.
-int ntt_colpass_kernel_info(int tall, int dit, int transpose_out, int mat,
-                            int pre, int post, int nn, int log_tl,
+// launch of a tall one (tall: colpass_tile::Tall; group: of a split phase),
+// at an nn x 2^log_tl tile (a launch's rows): its registers a thread and
+// its co-resident blocks per SM. Returns 0 or a cudaError_t.
+int ntt_colpass_kernel_info(int tall, int group, int dit, int transpose_out,
+                            int mat, int pre, int post, int nn, int log_tl,
                             int* kfuse, int* regs, int* per_sm) {
-  const KernelFn kernel =
-      pick(tall, dit != 0, transpose_out != 0, mat != 0, pre, post);
+  const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0, mat != 0,
+                               pre, post, nn, group != 0);
   *kfuse = kFuse;
   *regs = 0;
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)nn << log_tl << 2;
+  const size_t smem = nn == 1 ? 0 : (size_t)nn << log_tl << 2;
   cudaFuncAttributes attr = {};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) err = allow_smem(kernel, smem);
@@ -356,14 +447,17 @@ const char* ntt_colpass_error_string(int err) {
 // (kOpMat, indexed like x) or two (kOpFac: T1, T2 of the split 2^log_s;
 // kOpRank1: the row and the column vector), pairs too; every batch row
 // reads the same tables. p, c1, c2: the reduction's prime and constants
-// (Red::make). tall (colpass_tile::Tall): kWhole, one launch of the whole
-// column; kTallA or kTallB, one phase of a tall column's route: then nn,
-// ncols and the stage list are the phase's (a plain network, log_a < 0)
-// over its view, log_inner is log2 of the factor of the tall nn that rides
-// the view's columns, the operands are the whole tall pass's (each phase
-// applies its own; phase A never canonicalizes), and mid is the tall
-// network's (nn * 2^log_inner,) vector. Returns
-// cudaGetLastError() after the launch (0 = launched), or
+// (Red::make). A one-row column (nn = 1) has no stage (nstages = 0): its
+// launch applies the operands alone. tall (colpass_tile::Tall): kWhole,
+// one launch of the whole column; kTallA, kTallB or kTallPre, one launch
+// of a tall column's route (ops/colpass.py launch_plan): then nn, ncols
+// and the stage list are the launch's (a plain network, log_a < 0) over
+// its view, log_inner is log2 of the factor of the tall nn that rides the
+// view's columns, the operands are those the launch applies, and mid is
+// the tall network's (nn_tall,) vector; a launch of a split phase has
+// log_hq (a 'hi' launch: log2 Q, its twiddle by the view column) or log_lp
+// (a 'lo' launch: log2 P, batch the tall array's batch rows times P).
+// Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a shape or an operand combination the kernels
 // do not take.
 int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
@@ -372,15 +466,21 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
                 const void* mat, int pre_form, const void* pre,
                 const void* pre2, int post_form, const void* post,
                 const void* post2, int log_s, int transpose_out,
-                int canonicalize, int tall, int log_inner, unsigned int p,
-                unsigned int c1, unsigned int c2, void* stream) {
-  const size_t smem = (size_t)nn << log_tl << 2;
+                int canonicalize, int tall, int log_inner, int log_hq,
+                int log_lp, unsigned int p, unsigned int c1, unsigned int c2,
+                void* stream) {
+  const bool empty = nn == 1;
+  const size_t smem = empty ? 0 : (size_t)nn << log_tl << 2;
   const bool phase = tall != kWhole;
   Params P;
   if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
       log_tl > 5 || (ncols >> log_tl) < 1 || batch < 1 || batch > 65535 ||
-      nstages < 1 || (phase && (log_a >= 0 || log_inner < 1 ||
-                                (ncols >> log_inner) < 1 || !mid)) ||
+      nstages != colpass_tile::ilog2(nn) ||
+      (empty && (phase || log_a >= 0)) || log_hq < 0 || log_lp < 0 ||
+      (!phase && (log_hq || log_lp)) || (log_hq && log_lp) ||
+      log_hq > log_inner || (batch & ((1 << log_lp) - 1)) ||
+      (phase && (log_a >= 0 || log_inner < 1 || (ncols >> log_inner) < 1 ||
+                 !mid)) ||
       !colpass_tile::make_network(&P.net, nn, dit, nstages, k0, ts, offs,
                                   nullptr, nullptr, log_a, nullptr, nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -395,11 +495,24 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
   P.tables.log_s = log_s;
   P.tables.log_inner = phase ? log_inner : 0;
   P.tables.log_ncols = phase ? colpass_tile::ilog2(ncols) - log_inner : 0;
+  P.view.log_vc = P.tables.log_ncols + P.tables.log_inner - log_hq;
+  P.view.log_iq = P.tables.log_inner - log_hq;
+  // the split tile's q by columns (tall_col0): a transposing phase B's
+  // over inner and ncols, a 'hi' phase A's over Q and vc
+  const bool hi_a = tall == kTallA && log_hq > 0;
+  const int split_inner = hi_a ? log_hq : P.tables.log_inner;
   P.tables.log_tlc = colpass_tile::tall_store_log_cols(
-      kTallStoreLogCols, log_tl, P.tables.log_inner, P.tables.log_ncols);
+      kTallStoreLogCols, log_tl, split_inner,
+      hi_a ? P.view.log_vc : P.tables.log_ncols);
+  P.view.log_hq = log_hq;
+  P.view.log_lp = log_lp;
+  P.view.log_rows = P.net.log_nn + log_hq + log_lp;
+  P.view.log_tall = P.view.log_rows + P.view.log_vc - P.tables.log_ncols;
+  P.pre_form = pre_form;
+  P.post_form = post_form;
   P.ops.ncols = ncols;
   P.ops.log_tl = log_tl;
-  P.ops.canonicalize = tall == kTallA ? 0 : canonicalize;
+  P.ops.canonicalize = tall == kTallA || tall == kTallPre ? 0 : canonicalize;
   P.x = static_cast<const uint32_t*>(x);
   P.out = static_cast<uint32_t*>(out);
   P.shift = colpass_tile::tile_shift(P.net, log_tl);
@@ -409,13 +522,21 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
            : form == kOpMat ? a && !b
            : (form == kOpFac || form == kOpRank1) && a && b;
   };
+  const bool fac = pre_form == kOpFac || post_form == kOpFac;
   if (!tables_ok(pre_form, pre, pre2) || !tables_ok(post_form, post, post2) ||
-      log_s < 0 || log_s >= P.net.log_nn + (phase ? log_inner : 0) ||
-      (phase && log_tl - P.tables.log_tlc > log_inner))
+      log_s < 0 || (fac && (log_s < 1 || log_s >= P.view.log_tall)) ||
+      (phase && log_tl - P.tables.log_tlc > split_inner))
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0,
-                               mat != nullptr, pre_form, post_form);
+  const KernelFn kernel =
+      pick(tall, dit != 0, transpose_out != 0, mat != nullptr, pre_form,
+           post_form, nn, log_hq != 0 || log_lp != 0);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+  if (empty) {
+    const int blocks = (ncols + kThreads - 1) / kThreads;
+    dim3 grid(blocks < kEmptyBlocks ? blocks : kEmptyBlocks, batch);
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(ncols >> log_tl, batch);

@@ -8,9 +8,12 @@
 // stages held in registers between exchanges through the tile (one stage
 // a group is one stage per barrier) between sweeps of the tile that load
 // it, apply the nested mid step and store it, each also callable on its
-// own. column_tile_io (the last section; colpass.cu's and
-// nested_colpass.cu's) keeps a swizzled tile, and its groups also load,
-// store and carry the nested mid multiply.
+// own. column_tile_io (colpass.cu's, nested_colpass.cu's, and the fused
+// kernel's tall steps) keeps a swizzled tile, and its groups also load,
+// store and carry the nested mid multiply. column_empty (the last section)
+// runs a network of zero stages, a one-row column's. column_tile runs one
+// too: its loops over the stages do nothing, and its load and store keep
+// row 0.
 //
 // Arithmetic: the policy's, bit for bit the uint32 operations of the
 // plain PyTorch version (reductions.cuh states each). A DIF butterfly is
@@ -361,15 +364,71 @@ enum Operand : int { kOpNone = 0, kOpMat = 1, kOpFac = 2, kOpRank1 = 3 };
 // whose layout the output keeps: the 'post' operand, the transpose, the
 // 'post_t' multiply and canonicalize on store. kWhole is one launch of the
 // whole column.
-enum Tall : int { kWhole = 0, kTallA = 1, kTallB = 2 };
+// A phase of more than a tile's rows (a column above 2^26 rows) runs as two
+// launches of its own, split by stage group (ops/colpass.py phase_groups):
+// with its rows numbered p * Q + q (P * Q rows, P and Q at most a tile's),
+// the stages of half size t >= Q pair rows that share q: they are a P-row
+// network ('hi') over the view (P, Q * inner * ncols), each half size t / Q,
+// whose twiddle for the plain network's index idx at view column j is
+// tw[off + idx * Q + j / (inner * ncols)] (the first launch whose twiddle
+// depends on the column); the stages t < Q are a Q-row network ('lo') over
+// P arrays (Q, inner * ncols) a batch row, array p of batch row b at the
+// launch's batch row b * P + p, with the ordinary tables. DIF runs hi then
+// lo, DIT lo then hi. A split phase A's first launch takes the 'pre'
+// operand on load and stores in place (kTallPre; kTallB without store
+// options where there is no 'pre'), its last stores the mid step (kTallA
+// without 'pre'); a split phase B's first stores in place, its last with
+// the store options.
+enum Tall : int { kWhole = 0, kTallA = 1, kTallB = 2, kTallPre = 3 };
 
-__device__ __forceinline__ int tall_row(int l, size_t col,
-                                        const PairTables& T) {
-  return (l << T.log_inner) | (int)(col >> T.log_ncols);
+// What a tall launch knows of its view beyond PairTables (a kernel
+// parameter after every field that a whole column's kernel reads).
+struct TallView {
+  int log_vc;    // log2 of the phase's view columns, inner * ncols
+  int log_iq;    // log2 of the phase's inner (log_vc - PairTables log_ncols)
+  int log_hq;    // a 'hi' launch's log2 Q, else 0
+  int log_lp;    // a 'lo' launch's log2 P, else 0
+  int log_rows;  // log2 of the phase's rows
+  int log_tall;  // log2 of the tall column's rows
+};
+
+// Where a tall launch's element (l, col) lies: every launch's view is a
+// reshape of the (nn, ncols) array, so the element at index F = sub +
+// l * O.ncols + col of its batch row (sub: a 'lo' launch's array offset p
+// * Q * inner * ncols) is the phase's row lp = F / (inner * ncols) and
+// view column jv = F mod (inner * ncols), and the tall array's row
+// lp * inner + iq (iq = jv / ncols) and column tc = jv mod ncols. A 'hi'
+// launch's row l and column q * vc + jv are the phase's row l * Q + q; a
+// 'lo' launch's array p, row l is the phase's row p * Q + l. The column
+// parts are a thread's for a whole group (tall_cols); the row, a value's
+// (tall_row).
+struct TallCols {
+  int q;      // a 'hi' launch's twiddle column (0 for every other launch)
+  int iq;     // the view column's part of the tall row
+  size_t tc;  // the tall array's column
+};
+
+// kGroup: a launch of a split phase; any other's column lies in its
+// phase's view (q = 0, jv = col).
+template <bool kGroup>
+__device__ __forceinline__ TallCols tall_cols(size_t col, const PairTables& T,
+                                              const TallView& V) {
+  const size_t jv = kGroup ? col & (((size_t)1 << V.log_vc) - 1) : col;
+  return {kGroup ? (int)(col >> V.log_vc) : 0, (int)(jv >> T.log_ncols),
+          jv & (((size_t)1 << T.log_ncols) - 1)};
 }
 
-__device__ __forceinline__ size_t tall_col(size_t col, const PairTables& T) {
-  return col & (((size_t)1 << T.log_ncols) - 1);
+// The phase's row of a launch's row l (row_base: a 'lo' launch's p * Q;
+// log_hq: a 'hi' launch's log2 Q).
+__device__ __forceinline__ int phase_row(int l, int row_base, int log_hq,
+                                         const TallCols& X) {
+  return ((row_base + l) << log_hq) | X.q;
+}
+
+// (32-bit: a tall column has at most 2^32 rows)
+__device__ __forceinline__ unsigned tall_row(int lp, const TallCols& X,
+                                             const TallView& V) {
+  return ((unsigned)lp << V.log_iq) | X.iq;
 }
 
 // A transposing phase B (kTallB with kTranspose) stores tall row
@@ -414,6 +473,31 @@ inline int tall_store_log_cols(int want, int log_tl, int log_inner,
 __device__ __forceinline__ size_t tile_off(int c, int log_ncols,
                                            int log_tlc) {
   return ((size_t)(c >> log_tlc) << log_ncols) + (c & ((1 << log_tlc) - 1));
+}
+
+// A 'hi' launch of phase A (split by stage group) moves the phase's row
+// l * Q + q of view column jv to word (jv / ncols) * rows + l * Q + q
+// (times ncols): consecutive words are consecutive q, the launch's columns
+// q * vc + jv vc apart. It takes the same split tile with vc for ncols and
+// Q for inner: 2^(log_tl - log_tlc) consecutive q by 2^log_tlc consecutive
+// jv, so a warp's store writes whole runs of eight q (tall_col0).
+
+// The first launch column of block `block` of a tall launch: the split
+// tile's (tile_col0) for a transposing phase B and for a 'hi' launch of
+// phase A, the plain tile's for the others.
+template <int kTall, bool kTranspose, bool kGroup>
+__device__ __forceinline__ size_t tall_col0(int block, int log_tl,
+                                            const PairTables& T,
+                                            const TallView& V) {
+  if constexpr (kTall == kTallB && kTranspose)
+    return tile_col0<true>(block, log_tl, T.log_inner, T.log_ncols,
+                           T.log_tlc);
+  else if constexpr (kTall == kTallA && kGroup)
+    return V.log_hq > 0 ? tile_col0<true>(block, log_tl, V.log_hq, V.log_vc,
+                                          T.log_tlc)
+                        : tile_col0<false>(block, log_tl, 0, 0, 0);
+  else
+    return tile_col0<false>(block, log_tl, 0, 0, 0);
 }
 
 // The tile column of thread index i in a split tile: its loading group's
@@ -474,12 +558,14 @@ __device__ __forceinline__ void group_offsets(int (&dw)[1 << K], int log_t,
 // radix-2^K butterfly, in the same per-butterfly operation order as one
 // stage at a time: sub-stage q pairs m with m + 2^(K-1-q) and takes the
 // twiddle at ((m mod 2^(K-1-q)) * t_last + j). So the outputs do not depend
-// on how the stages are grouped.
-template <int K, class Red>
+// on how the stages are grouped. kCol: a 'hi' launch's, the twiddle at
+// idx * 2^log_hq + tq for its view column's tq.
+template <int K, bool kCol = false, class Red>
 __device__ __forceinline__ void dif_stages(uint32_t (&v)[1 << K],
                                            const Network& N,
                                            const uint2* tw, int s0,
-                                           int log_t, int j, Red R) {
+                                           int log_t, int j, Red R,
+                                           int log_hq = 0, int tq = 0) {
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int h = 1 << (K - 1 - q);  // the pair's distance in m
@@ -487,7 +573,8 @@ __device__ __forceinline__ void dif_stages(uint32_t (&v)[1 << K],
 #pragma unroll
     for (int m = 0; m < (1 << K); ++m) {
       if (m & h) continue;
-      const int idx = ((m & (h - 1)) << log_t) | j;
+      int idx = ((m & (h - 1)) << log_t) | j;
+      if constexpr (kCol) idx = (idx << log_hq) | tq;
       const uint32_t a = v[m], b = v[m + h];
       v[m] = R.add(a, b);
       v[m + h] = R.mulc(R.sub_for_mul(a, b), __ldg(tw_q + idx));
@@ -499,12 +586,14 @@ __device__ __forceinline__ void dif_stages(uint32_t (&v)[1 << K],
 // t_first << (K-1)) on v[m] = x[base + m * t_first]: the mirror of
 // dif_stages. Sub-stage q pairs m with m + 2^q, takes the twiddle at
 // ((m mod 2^q) * t_first + j) and runs the DIT butterfly's operations in
-// their order (wv = v * w, then R.add(u, wv) and R.sub(u, wv)).
-template <int K, class Red>
+// their order (wv = v * w, then R.add(u, wv) and R.sub(u, wv)). kCol as
+// dif_stages'.
+template <int K, bool kCol = false, class Red>
 __device__ __forceinline__ void dit_stages(uint32_t (&v)[1 << K],
                                            const Network& N,
                                            const uint2* tw, int s0,
-                                           int log_t, int j, Red R) {
+                                           int log_t, int j, Red R,
+                                           int log_hq = 0, int tq = 0) {
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int h = 1 << q;  // the pair's distance in m
@@ -512,7 +601,8 @@ __device__ __forceinline__ void dit_stages(uint32_t (&v)[1 << K],
 #pragma unroll
     for (int m = 0; m < (1 << K); ++m) {
       if (m & h) continue;
-      const int idx = ((m & (h - 1)) << log_t) | j;
+      int idx = ((m & (h - 1)) << log_t) | j;
+      if constexpr (kCol) idx = (idx << log_hq) | tq;
       const uint32_t u = v[m];
       const uint32_t wv = R.mulc(v[m + h], __ldg(tw_q + idx));
       v[m] = R.add(u, wv);
@@ -521,36 +611,27 @@ __device__ __forceinline__ void dit_stages(uint32_t (&v)[1 << K],
   }
 }
 
-// The output word of logical row l, column col of a storing group: the
-// launch's own index (transposed: (col, l) of (ncols, nn)); under kTallA
-// the moved row's, q * rows + l of the tall array for q = col / ncols;
-// under kTallB with the transpose the tall array's (col mod ncols,
-// tall_row) of (ncols, nn * inner). Untransposed, phase B's view and the
-// tall array share their index.
-template <bool kDit, bool kTranspose, int kTall>
-__device__ __forceinline__ size_t store_index(int l, size_t col,
-                                              const Network& N,
-                                              const TileOps& O,
-                                              const PairTables& T) {
-  if constexpr (kTall == kTallA) {
-    const size_t to = ((col >> T.log_ncols) << N.log_nn) | l;
-    return (to << T.log_ncols) | tall_col(col, T);
-  } else if constexpr (kTall == kTallB && kTranspose) {
-    return tall_col(col, T) * ((size_t)N.nn << T.log_inner) +
-           tall_row(l, col, T);
-  } else {
-    return kTranspose ? col * N.nn + l : (size_t)l * O.ncols + col;
-  }
+// The row that phase A's store moves tall row lp * inner + iq to (DIF:
+// row r * S + s to s * R + r; DIT: the inverse move): iq * rows + lp.
+__device__ __forceinline__ unsigned moved_row(int lp, const TallCols& X,
+                                              const TallView& V) {
+  return ((unsigned)X.iq << V.log_rows) | lp;
 }
 
-// The nested mid vector's row for phase A's element (l, col): DIF
-// multiplies before the move, at the tall row it comes from; DIT after
-// the inverse move, at the row it goes to.
-template <bool kDit>
-__device__ __forceinline__ int mid_row(int l, size_t col, const Network& N,
-                                       const PairTables& T) {
-  return kDit ? (int)((col >> T.log_ncols) << N.log_nn) | l
-              : tall_row(l, col, T);
+// The output word of a tall launch's element in its batch row of the tall
+// array, moved (kTallA) or transposed (kTallB with the transpose: (column,
+// row) of (ncols, nn)); every other launch keeps the layout and stores at
+// the element's own index.
+template <bool kTranspose, int kTall>
+__device__ __forceinline__ size_t tall_store_index(int lp, const TallCols& X,
+                                                   const PairTables& T,
+                                                   const TallView& V) {
+  static_assert(kTall == kTallA || (kTall == kTallB && kTranspose),
+                "a store that moves the element");
+  if constexpr (kTall == kTallA)
+    return ((size_t)moved_row(lp, X, V) << T.log_ncols) | X.tc;
+  else
+    return (X.tc << V.log_tall) + tall_row(lp, X, V);
 }
 
 // What one group of column_tile_io does beyond the tile: load its rows
@@ -590,19 +671,32 @@ __device__ __forceinline__ void mid_multiply(uint32_t (&v)[1 << K],
 // T.post2), at the input's index of its logical row, before the kMat
 // multiply and canonicalize. Both only under if constexpr, so a kernel
 // without them keeps its code, and kMat keeps the code it had as a bool.
-// kTall (a Tall): a phase of a tall column, whose factored and rank-1
-// operands take the tall array's rows and columns, phase A's store the
-// mid multiply and the row move, phase B's transposed store the tall
-// array's index.
+// kTall (a Tall): a launch of a tall column's route over the view V (p: a
+// 'lo' launch's array of its batch row, else 0), whose operands and stores
+// take each element's place in the tall array (tall_cols, phase_row): the
+// matrix operands at its index there, the factored and rank-1 ones at its
+// tall row and column, phase A's store the mid multiply and the row move,
+// phase B's transposed store the tall array's index; a 'hi' launch's
+// twiddle by its view column. kGroup: a launch of a split phase (a 'hi' or
+// 'lo' group); without it the view's group parts are zero at compile time,
+// so PR 19's tall launches keep their code. kL2: the
+// loading group reads through L2 only (__ldcg: data that other blocks of
+// the same launch wrote, the fused kernel's steps).
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, int kTall, class Red>
+          int kPre, int kPost, int kTall, bool kL2, bool kGroup, class Red>
 __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
                                              const TileOps& O,
                                              const PairTables& T,
                                              const GroupEnds& E, size_t col0,
                                              int s0, int log_a, int shift,
+                                             const TallView& V, int p,
                                              Red R) {
   constexpr bool kSplit = kTall == kTallB && kTranspose;
+  // a split phase's launch: a 'hi' launch's log2 Q; a 'lo' launch's array,
+  // its offset in the batch row and its first row
+  const int log_hq = kGroup ? V.log_hq : 0;
+  const size_t sub = kGroup ? (size_t)p * ((size_t)N.nn * O.ncols) : 0;
+  const int row_base = kGroup ? p << N.log_nn : 0;
   const int log_tl = O.log_tl;
   const int t = kDit ? N.t[s0] : N.t[s0 + K - 1];
   const int log_t = __ffs(t) - 1;
@@ -611,12 +705,16 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
   int dw[1 << K];
   group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, shift);
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    // the tile column c, and the launch's column col0 + cc
-    const int c = kSplit ? tile_thread(i, log_tl, E.dst, T.log_tlc)
-                         : i & tl_mask;
+    // the tile column c, and the launch's column col0 + cc (a split tile
+    // where tall_col0 takes one: a transposing phase B, a 'hi' phase A)
+    const int c = kSplit || (kTall == kTallA && log_hq > 0)
+                      ? tile_thread(i, log_tl, E.dst, T.log_tlc)
+                      : i & tl_mask;
     const auto cc = [&] {
       if constexpr (kSplit)
         return tile_off(c, T.log_ncols, T.log_tlc);
+      else if constexpr (kTall == kTallA && kGroup)
+        return log_hq > 0 ? tile_off(c, V.log_vc, T.log_tlc) : (size_t)c;
       else
         return c;
     }();
@@ -629,25 +727,46 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) {
         const size_t o = (size_t)(base + (m << log_t)) * O.ncols + col0 + cc;
-        if constexpr (kPre == kOpMat)
+        if constexpr (kTall != kWhole) {
+          uint32_t x;
+          if constexpr (kL2)
+            x = __ldcg(E.src + o);
+          else
+            x = E.src[o];
+          if constexpr (kPre == kOpMat) {
+            x = R.mulc(x, __ldg(T.pre + sub + o));
+          } else if constexpr (kPre != kOpNone) {
+            const TallCols X = tall_cols<kGroup>(col0 + cc, T, V);
+            x = mul_factors<kPre>(
+                x, T.pre, T.pre2,
+                (int)tall_row(
+                    phase_row(base + (m << log_t), row_base, log_hq, X), X,
+                    V),
+                X.tc, 1 << T.log_ncols, T.log_s, R);
+          }
+          v[m] = x;
+        } else if constexpr (kPre == kOpMat) {
           v[m] = R.mulc(E.src[o], __ldg(T.pre + o));
-        else if constexpr (kPre != kOpNone && kTall != kWhole)
-          v[m] = mul_factors<kPre>(
-              E.src[o], T.pre, T.pre2, tall_row(base + (m << log_t),
-                                                col0 + cc, T),
-              tall_col(col0 + cc, T), 1 << T.log_ncols, T.log_s, R);
-        else if constexpr (kPre != kOpNone)
+        } else if constexpr (kPre != kOpNone) {
           v[m] = mul_factors<kPre>(E.src[o], T.pre, T.pre2,
                                    base + (m << log_t), col0 + cc, O.ncols,
                                    T.log_s, R);
-        else
+        } else {
           v[m] = E.src[o];
+        }
       }
     } else {
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) v[m] = tile[w0 ^ dw[m]];
     }
-    if constexpr (kMayEmpty) {  // DIF: mid_swap, the stages, then mid
+    if constexpr (kTall != kWhole) {  // a plain network: no mid in a group
+      // a 'hi' launch's twiddle column (tall_cols' q)
+      const int q = kGroup ? (int)((col0 + cc) >> V.log_vc) : 0;
+      if constexpr (kDit)
+        dit_stages<K, kGroup>(v, N, T.tw, s0, log_t, j, R, log_hq, q);
+      else
+        dif_stages<K, kGroup>(v, N, T.tw, s0, log_t, j, R, log_hq, q);
+    } else if constexpr (kMayEmpty) {  // DIF: mid_swap, the stages, then mid
       if (E.mid_swap) mid_multiply<K>(v, T.mid, base, log_t, R);
       dif_stages<K>(v, N, T.tw, s0, log_t, j, R);
       if (E.mid) mid_multiply<K>(v, T.mid, base, log_t, R);
@@ -661,27 +780,46 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
       dif_stages<K>(v, N, T.tw, s0, log_t, j, R);
     }
     if (E.dst) {
+      TallCols X = {};  // the storing thread's column parts (tall_cols)
+      if constexpr (kTall != kWhole) X = tall_cols<kGroup>(col0 + cc, T, V);
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) {
         const int l = base + (m << log_t);
-        const size_t o =
-            store_index<kDit, kTranspose, kTall>(l, col0 + cc, N, O, T);
-        uint32_t u = v[m];
-        if constexpr (kTall == kTallA)  // the mid multiply, then the move
-          u = R.mulc(u, __ldg(T.mid + mid_row<kDit>(l, col0 + cc, N, T)));
-        if constexpr (kPost == kOpMat)
-          u = R.mulc(u, __ldg(T.post + (size_t)l * O.ncols + col0 + cc));
-        else if constexpr (kPost != kOpNone && kTall != kWhole)
-          u = mul_factors<kPost>(u, T.post, T.post2,
-                                 tall_row(l, col0 + cc, T),
-                                 tall_col(col0 + cc, T), 1 << T.log_ncols,
-                                 T.log_s, R);
-        else if constexpr (kPost != kOpNone)
-          u = mul_factors<kPost>(u, T.post, T.post2, l, col0 + cc, O.ncols,
-                                 T.log_s, R);
-        if constexpr (kMat) u = R.mulc(u, __ldg(T.mat + o));
-        if (O.canonicalize) u = R.canon(u);
-        E.dst[o] = u;
+        if constexpr (kTall != kWhole) {
+          const size_t f = (size_t)l * O.ncols + col0 + cc;
+          const int lp = phase_row(l, row_base, log_hq, X);
+          uint32_t u = v[m];
+          if constexpr (kTall == kTallA)  // the mid multiply, then the move
+            u = R.mulc(u, __ldg(T.mid + (kDit ? moved_row(lp, X, V)
+                                              : tall_row(lp, X, V))));
+          if constexpr (kPost == kOpMat)
+            u = R.mulc(u, __ldg(T.post + sub + f));
+          else if constexpr (kPost != kOpNone)
+            u = mul_factors<kPost>(u, T.post, T.post2,
+                                   (int)tall_row(lp, X, V), X.tc,
+                                   1 << T.log_ncols, T.log_s, R);
+          if constexpr (kTall == kTallA || kSplit) {  // the tall batch row
+            const size_t o = tall_store_index<kTranspose, kTall>(lp, X, T, V);
+            if constexpr (kMat) u = R.mulc(u, __ldg(T.mat + o));
+            if (O.canonicalize) u = R.canon(u);
+            (E.dst - sub)[o] = u;
+          } else {  // in place
+            if (O.canonicalize) u = R.canon(u);
+            E.dst[f] = u;
+          }
+        } else {
+          const size_t o = kTranspose ? (col0 + cc) * N.nn + l
+                                      : (size_t)l * O.ncols + col0 + cc;
+          uint32_t u = v[m];
+          if constexpr (kPost == kOpMat)
+            u = R.mulc(u, __ldg(T.post + (size_t)l * O.ncols + col0 + cc));
+          else if constexpr (kPost != kOpNone)
+            u = mul_factors<kPost>(u, T.post, T.post2, l, col0 + cc, O.ncols,
+                                   T.log_s, R);
+          if constexpr (kMat) u = R.mulc(u, __ldg(T.mat + o));
+          if (O.canonicalize) u = R.canon(u);
+          E.dst[o] = u;
+        }
       }
     } else {
 #pragma unroll
@@ -693,21 +831,21 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
 
 // run_group_io for a runtime k <= K stages.
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, int kTall, class Red>
+          int kPre, int kPost, int kTall, bool kL2, bool kGroup, class Red>
 __device__ __forceinline__ void run_group_io_upto(
     int k, uint32_t* tile, const Network& N, const TileOps& O,
     const PairTables& T, const GroupEnds& E, size_t col0, int s0, int log_a,
-    int shift, Red R) {
+    int shift, const TallView& V, int p, Red R) {
   if constexpr (K > 1) {
     if (k < K) {
       run_group_io_upto<K - 1, kDit, kTranspose, kMat, kMayEmpty, kPre,
-                        kPost, kTall>(k, tile, N, O, T, E, col0, s0, log_a,
-                                      shift, R);
+                        kPost, kTall, kL2, kGroup>(k, tile, N, O, T, E, col0,
+                                                   s0, log_a, shift, V, p, R);
       return;
     }
   }
-  run_group_io<K, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost, kTall>(
-      tile, N, O, T, E, col0, s0, log_a, shift, R);
+  run_group_io<K, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost, kTall, kL2,
+               kGroup>(tile, N, O, T, E, col0, s0, log_a, shift, V, p, R);
 }
 
 // One phase of column_tile_io in groups of min(kFuse, stages left), each
@@ -716,12 +854,12 @@ __device__ __forceinline__ void run_group_io_upto(
 // first (DIT) when mid, mid_swap on its first when mid_swap. An empty
 // phase runs no group.
 template <int kFuse, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, int kTall, class Red>
+          int kPre, int kPost, int kTall, bool kL2, bool kGroup, class Red>
 __device__ __forceinline__ void run_phase_io(
     uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
     const uint32_t* src, uint32_t* dst, size_t col0, int s_begin, int s_end,
     int log_a, int shift, bool load_src, bool store_dst, bool mid,
-    bool mid_swap, Red R) {
+    bool mid_swap, const TallView& V, int p, Red R) {
   for (int s = s_begin; s < s_end;) {
     const int k = min(kFuse, s_end - s);
     const bool first = s == s_begin, last = s + k == s_end;
@@ -730,7 +868,8 @@ __device__ __forceinline__ void run_phase_io(
                          mid && (kDit ? first : last),
                          mid_swap && first};
     run_group_io_upto<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost,
-                      kTall>(k, tile, N, O, T, E, col0, s, log_a, shift, R);
+                      kTall, kL2, kGroup>(k, tile, N, O, T, E, col0, s, log_a,
+                                          shift, V, p, R);
     s += k;
   }
 }
@@ -742,9 +881,10 @@ __device__ __forceinline__ void run_phase_io(
 // loads, multiplies or stores it. The same bits as
 // column_tile<Load::kPlain, kTranspose, kMat>. Output domain: R's, or
 // [0, p) with canonicalize. A caller that reuses the tile must
-// __syncthreads() first. N has at least one stage and is DIT exactly when
-// kDit; shift is tile_shift(N, O.log_tl). A nested N has two phases of at
-// least one stage each, or, with kMayEmpty (DIF only; nested_colpass.cu's),
+// __syncthreads() first. N has at least one stage (a network of none is
+// column_empty's) and is DIT exactly when kDit; shift is tile_shift(N,
+// O.log_tl). A nested N has two phases of
+// at least one stage each, or, with kMayEmpty (DIF only; nested_colpass.cu's),
 // one of them may be empty (k0 = 0 or nstages: R = 1 or R = nn): the
 // network's first group loads, its last stores, and with phase 0 empty the
 // mid multiply rides before phase 1's first stages. colpass.cu never meets
@@ -756,41 +896,85 @@ __device__ __forceinline__ void run_phase_io(
 // 'pre' and 'post' operands, its wfac and its rank1: pre on load, before
 // the stages; post after them, in the untransposed layout, before the
 // 'post_t' (kMat) multiply and canonicalize. kTall (colpass.cu's tall
-// route): N is one phase of a tall column, a plain network, run as Tall
-// says, with kTallA taking no 'post' operand nor store option and
-// kTallB no 'pre' operand.
+// route, the fused kernel's tall steps): N is one launch of a tall
+// column's route, a plain network, run as Tall says over the view V (p:
+// this block's 'lo' array of its batch row), with kTallA taking no 'post'
+// operand nor
+// store option, kTallB no 'pre' operand, kTallPre neither. kL2: read src
+// through L2 only. kGroup: a launch of a split phase (run_group_io).
 template <bool kDit, bool kTranspose, bool kMat, int kFuse,
           bool kMayEmpty = false, int kPre = kOpNone, int kPost = kOpNone,
-          int kTall = kWhole, class Red>
-__device__ __forceinline__ void column_tile_io(uint32_t* tile,
-                                               const Network& N,
-                                               const TileOps& O,
-                                               const PairTables& T,
-                                               const uint32_t* src,
-                                               uint32_t* dst, size_t col0,
-                                               int shift, Red R) {
+          int kTall = kWhole, bool kL2 = false, bool kGroup = false,
+          class Red>
+__device__ __forceinline__ void column_tile_io(
+    uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
+    const uint32_t* src, uint32_t* dst, size_t col0, int shift, Red R,
+    const TallView& V = TallView{}, int p = 0) {
   static_assert(!(kMayEmpty && kDit), "an empty phase is DIF's only");
   static_assert(!(kMayEmpty && (kPre != kOpNone || kPost != kOpNone)),
                 "pre and post ride a network with both phases");
   static_assert(!(kMayEmpty && kTall != kWhole), "a tall phase is plain");
-  static_assert(kTall != kTallA ||
+  static_assert((kTall != kTallA && kTall != kTallPre) ||
                     (!kTranspose && !kMat && kPost == kOpNone),
-                "phase A stores the moved array");
+                "phase A stores the moved array, or in place");
   static_assert(kTall != kTallB || kPre == kOpNone,
                 "phase B loads phase A's output");
+  static_assert(!kL2 || kTall != kWhole, "L2 loads are the tall steps'");
+  static_assert(kTall == kWhole || !kMat || kTranspose,
+                "a tall launch's 'post_t' rides its transposing store");
   const bool nested = N.log_a >= 0;
   // whether phase 0 and phase 1 run a stage (without kMayEmpty both do in
   // a nested network, and a plain one has no phase 1)
   const bool has0 = !kMayEmpty || N.k0 > 0;
   const bool has1 = kMayEmpty ? N.k0 < N.nstages : nested;
-  run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost, kTall>(
-      tile, N, O, T, src, dst, col0, 0, N.k0, -1, shift, true, !has1,
-      nested && !kDit, false, R);
+  run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost, kTall,
+               kL2, kGroup>(tile, N, O, T, src, dst, col0, 0, N.k0, -1, shift,
+                            true, !has1, nested && !kDit, false, V, p, R);
   if (has1)
     run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost,
-                 kTall>(
+                 kTall, kL2, kGroup>(
         tile, N, O, T, src, dst, col0, N.k0, N.nstages, N.log_a, shift,
-        !has0, true, kDit, !has0, R);
+        !has0, true, kDit, !has0, V, p, R);
+}
+
+// ---- A column of one row (colpass.cu) ----
+//
+// A network of zero stages: the split (1, n)'s one-row side (cp1, icp1 and
+// their negacyclic twins). Each value meets its pass's operands in the
+// reference's order ('pre', 'post', the 'post_t' matrix, canonicalize) and
+// nothing else; with one row the transposed output keeps the input's index
+// c, and every operand of row 0 is indexed by c (kOpFac: T1[0][c] and
+// T2[0][c]; kOpRank1: row[0] and col[c]). The forms are runtime values:
+// the launch moves bytes, one multiply or two a value.
+
+// v times the operand of this form in tables a and b at row 0, column c.
+template <class Red>
+__device__ __forceinline__ uint32_t mul_row0(uint32_t v, int form,
+                                             const uint2* a, const uint2* b,
+                                             size_t c, Red R) {
+  if (form == kOpMat) return R.mulc(v, __ldg(a + c));
+  if (form == kOpFac) return R.mulc(R.mulc(v, __ldg(a + c)), __ldg(b + c));
+  if (form == kOpRank1) return R.mulc(R.mulc(v, __ldg(a)), __ldg(b + c));
+  return v;
+}
+
+// One batch row's ncols values (src, dst: that row's input and output) in
+// a grid-stride loop over the launch's blocks on grid.x.
+template <class Red>
+__device__ __forceinline__ void column_empty(const TileOps& O,
+                                             const PairTables& T,
+                                             int pre_form, int post_form,
+                                             const uint32_t* src,
+                                             uint32_t* dst, Red R) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t c = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       c < (size_t)O.ncols; c += stride) {
+    uint32_t v = mul_row0(src[c], pre_form, T.pre, T.pre2, c, R);
+    v = mul_row0(v, post_form, T.post, T.post2, c, R);
+    if (T.mat) v = R.mulc(v, __ldg(T.mat + c));
+    if (O.canonicalize) v = R.canon(v);
+    dst[c] = v;
+  }
 }
 
 inline int ilog2(int v) {

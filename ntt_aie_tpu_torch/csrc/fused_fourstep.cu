@@ -62,6 +62,37 @@
 //     at 4 the registers a thread rise and the blocks per SM fall, and it
 //     is slower than 3 (PERF.md section 6 gives the readings and how they
 //     were taken).
+//
+// Sides above one tile (a side of more than kMaxRows = 8,192 rows:
+// BabyBear n = 2^27 at 8192 x 16384, n = 2^17 at 8 x 16384 or 16384 x 8,
+// a flat split's inner 2^14 x 2^13 from n = 2^27) do not fit a block's
+// shared memory. Then the launch runs a short list of steps instead of
+// the two phases above, with a grid sync between consecutive steps
+// (fused_steps_kernel). Each side runs the launches its column pass would
+// run on the card (ops/colpass.py launch_plan, ops/fused_fourstep.py
+// fused_steps): one whole-column step (column_tile, as above), or its
+// tall route's phase A and phase B, each one step or, above 8,192 rows,
+// two (colpass_tile.cuh Tall), on column_tile_io's swizzled tile. Side a
+// is DIF (DIT) over nn_a with 'pre' on its first step's load and wmid, the
+// transposing store's 'post_t', on its last step's; side b over nn_b with
+// 'post' and canonicalize on its last step's store. The buffers
+// ping-pong between out and scratch so that the last step writes out
+// (forward with side b tall: a: x -> out, bA: out -> scratch, bB: scratch
+// -> out). Every step after the first reads what other blocks of the
+// launch wrote, through L2 only (Load::kL2, column_tile_io's kL2:
+// __ldcg): L1 keeps no line of it across the grid sync. A side of one row
+// (the split (1, n)) is a whole step of zero stages (column_tile's loops
+// run none). The launch with two whole sides is fused_kernel, whose code
+// and times are the ones above.
+//
+// The tile counters. fused_kernel's two, and fused_steps_kernel's one a
+// step (the wrapper's buffer, at most kMaxSteps), follow one rule: block 0
+// zeroes every counter but step 0's as the launch starts (no block takes
+// a tile of step k >= 1 before the grid sync that ends step k - 1, which
+// block 0 reaches after its zeroing), and step 0's right after the first
+// grid sync (every block has left step 0). So every launch finds step 0's
+// counter at zero and leaves it so; launches that share the buffer must
+// not overlap, which launches on one stream never do.
 
 #include <cooperative_groups.h>
 
@@ -80,6 +111,8 @@ using Red = reductions::Built;
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 227 * 1024;  // an H100 block's limit
 constexpr int kFuse = 3;  // radix-2 stages a register group (see above)
+constexpr int kMaxSteps = 8;  // a side's launches: at most 4 (two split
+                              // phases)
 
 struct Params {
   Network a, b;     // side a over nn_a rows, side b over nn_b rows
@@ -139,6 +172,175 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params P) {
 
 using KernelFn = void (*)(Params);
 
+// ---- the step list (sides above one tile) ----
+
+// What a step runs: a whole side (column_tile: side a with or without the
+// 'pre' operand, side b with or without 'post'), or one launch of a side's
+// tall route (column_tile_io with colpass_tile::Tall): A with or without
+// the 'pre' operand, a split A's first launch with it, an in-place launch
+// (a split phase's first; side b's last without 'post', canonicalizing),
+// side a's transposing last launch (wmid as 'post_t'), side b's last with
+// 'post' and canonicalize. Whether the transform has 'pre' and 'post' is a
+// code, not a template parameter: one kernel a direction.
+enum StepCode : int {
+  kStepWholeA = 0,
+  kStepWholeAPre = 1,
+  kStepWholeB = 2,
+  kStepWholeBPost = 3,
+  kStepTallAPre = 4,
+  kStepTallA = 5,
+  kStepTallPre = 6,
+  kStepInPlace = 7,
+  kStepTallBT = 8,
+  kStepTallBPost = 9,
+};
+
+enum StepBuf : int { kBufX = 0, kBufOut = 1, kBufScratch = 2 };
+
+// One step: a whole side's network with its table planes and TileOps
+// (column_tile's), or a tall launch's network over its view with its pair
+// tables (column_tile_io's).
+struct Step {
+  Network net;
+  TileOps ops;
+  colpass_tile::PairTables tables;
+  colpass_tile::TallView view;
+  int code, src, dst;
+  int batch_mult;  // the launch's batch rows a batch row: a 'lo' launch's P
+  int shift;       // the swizzled tile's (column_tile_io's)
+};
+
+struct StepParams {
+  Step steps[kMaxSteps];
+  int nsteps;
+  const uint32_t* x;
+  uint32_t* scratch;
+  uint32_t* out;
+  int* counters;  // one a step (step 0's zero at launch)
+  int batch;
+  Red red;
+};
+
+// One tile (block x of batch row y of the step's launch view) of a tall
+// step.
+template <bool kDit>
+__device__ __forceinline__ void tall_tile(uint32_t* tile, const Step& S,
+                                          const uint32_t* src, uint32_t* dst,
+                                          int bx, int y, Red R) {
+  using colpass_tile::column_tile_io;
+  using colpass_tile::kOpMat;
+  using colpass_tile::kOpNone;
+  using colpass_tile::kTallA;
+  using colpass_tile::kTallB;
+  using colpass_tile::kTallPre;
+  const int p = y & ((1 << S.view.log_lp) - 1);  // a 'lo' launch's array
+  const size_t col0 = colpass_tile::tall_col0<kTallB, false, true>(
+      bx, S.ops.log_tl, S.tables, S.view);
+  const size_t col0_a =  // a 'hi' phase A's split tile
+      colpass_tile::tall_col0<kTallA, false, true>(bx, S.ops.log_tl,
+                                                   S.tables, S.view);
+  const auto& N = S.net;
+  const auto& O = S.ops;
+  const auto& T = S.tables;
+  // every step's launch is a split phase's kind (kGroup): one instantiation
+  // takes a whole phase's and a split one's
+  switch (S.code) {
+    case kStepTallAPre:
+      column_tile_io<kDit, false, false, kFuse, false, kOpMat, kOpNone,
+                     kTallA, true, true>(tile, N, O, T, src, dst, col0_a,
+                                         S.shift, R, S.view, p);
+      break;
+    case kStepTallA:
+      column_tile_io<kDit, false, false, kFuse, false, kOpNone, kOpNone,
+                     kTallA, true, true>(tile, N, O, T, src, dst, col0_a,
+                                         S.shift, R, S.view, p);
+      break;
+    case kStepTallPre:
+      column_tile_io<kDit, false, false, kFuse, false, kOpMat, kOpNone,
+                     kTallPre, true, true>(tile, N, O, T, src, dst, col0,
+                                           S.shift, R, S.view, p);
+      break;
+    case kStepInPlace:
+      column_tile_io<kDit, false, false, kFuse, false, kOpNone, kOpNone,
+                     kTallB, true, true>(tile, N, O, T, src, dst, col0,
+                                         S.shift, R, S.view, p);
+      break;
+    case kStepTallBT:
+      column_tile_io<kDit, true, true, kFuse, false, kOpNone, kOpNone,
+                     kTallB, true, true>(
+          tile, N, O, T, src, dst,
+          colpass_tile::tall_col0<kTallB, true, true>(bx, O.log_tl, T,
+                                                      S.view),
+          S.shift, R, S.view, p);
+      break;
+    case kStepTallBPost:
+      column_tile_io<kDit, false, false, kFuse, false, kOpNone, kOpMat,
+                     kTallB, true, true>(tile, N, O, T, src, dst, col0,
+                                         S.shift, R, S.view, p);
+      break;
+  }
+}
+
+// The launch of a step list: each step's tiles from its own counter, a grid
+// sync between steps (the counters' rule: the top of this file).
+template <bool kDit>
+__global__ void __launch_bounds__(kThreads)
+    fused_steps_kernel(const __grid_constant__ StepParams P) {
+  using colpass_tile::Load;
+  extern __shared__ uint32_t tile[];
+  __shared__ int slot;
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    for (int k = 1; k < P.nsteps; ++k) atomicExch(P.counters + k, 0);
+  for (int k = 0; k < P.nsteps; ++k) {
+    if (k > 0) {
+      cooperative_groups::this_grid().sync();
+      if (k == 1 && blockIdx.x == 0 && threadIdx.x == 0)
+        atomicExch(P.counters, 0);
+    }
+    const Step& S = P.steps[k];
+    const uint32_t* src = S.src == kBufX     ? P.x
+                          : S.src == kBufOut ? P.out
+                                             : P.scratch;
+    uint32_t* dst = S.dst == kBufOut ? P.out : P.scratch;
+    const size_t plane = (size_t)S.net.nn * S.ops.ncols;
+    const int per_row = S.ops.ncols >> S.ops.log_tl;
+    const int tiles = P.batch * S.batch_mult * per_row;
+    for (int t; (t = take_tile(P.counters + k, &slot)) < tiles;) {
+      const int y = t / per_row, bx = t % per_row;
+      const uint32_t* s = src + (size_t)y * plane;
+      uint32_t* d = dst + (size_t)y * plane;
+      const size_t col0 = (size_t)bx << S.ops.log_tl;
+      switch (S.code) {
+        case kStepWholeA:
+          colpass_tile::column_tile<Load::kPlain, true, true, kFuse>(
+              tile, S.net, S.ops, s, d, col0, P.red);
+          break;
+        case kStepWholeAPre:
+          colpass_tile::column_tile<Load::kPre, true, true, kFuse>(
+              tile, S.net, S.ops, s, d, col0, P.red);
+          break;
+        case kStepWholeB:
+          colpass_tile::column_tile<Load::kL2, false, false, kFuse>(
+              tile, S.net, S.ops, s, d, col0, P.red);
+          break;
+        case kStepWholeBPost:
+          colpass_tile::column_tile<Load::kL2, false, true, kFuse>(
+              tile, S.net, S.ops, s, d, col0, P.red);
+          break;
+        default:
+          tall_tile<kDit>(tile, S, s, d, bx, y, P.red);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+using StepsFn = void (*)(StepParams);
+
+StepsFn pick_steps(bool dit) {
+  return dit ? fused_steps_kernel<true> : fused_steps_kernel<false>;
+}
+
 // The instantiation for these operands.
 KernelFn pick_kernel(bool pre, bool post) {
   return !pre ? (post ? fused_kernel<false, true> : fused_kernel<false, false>)
@@ -147,7 +349,8 @@ KernelFn pick_kernel(bool pre, bool post) {
 
 // Opts the kernel in to smem dynamic bytes and returns its co-resident
 // blocks per SM (*per_sm) and the SM count; a cudaError_t on failure.
-cudaError_t occupancy(KernelFn kernel, size_t smem, int* per_sm, int* sms) {
+template <class Fn>
+cudaError_t occupancy(Fn kernel, size_t smem, int* per_sm, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -166,6 +369,107 @@ size_t tile_smem(int nn_a, int nn_b, int log_tl_a, int log_tl_b) {
   const size_t smem_a = (size_t)nn_a << log_tl_a << 2;
   const size_t smem_b = (size_t)nn_b << log_tl_b << 2;
   return smem_a > smem_b ? smem_a : smem_b;
+}
+
+// A step's host description (ops/fused_fourstep.py _step_args): kStepInts
+// ints and kStepPtrs pointers a step, in these slots.
+enum StepInt : int {
+  kICode, kISrc, kIDst, kIRows, kINcols, kILogTl, kIBatchMult, kINstages,
+  kIK0, kILogA, kICanon, kILogInner, kILogHq, kILogLp, kIShift, kITs,
+  kIOffs = kITs + colpass_tile::kMaxStages,
+  kStepInts = kIOffs + colpass_tile::kMaxStages,
+};
+enum StepPtr : int {
+  // a whole step's planes (column_tile)
+  kPTwW, kPTwS, kPMidW, kPMidS, kPPreW, kPPreS, kPMatW, kPMatS,
+  // a tall step's pairs (column_tile_io)
+  kPTw, kPMid, kPMat, kPPre, kPPost,
+  kStepPtrs,
+};
+
+bool is_tall(int code) { return code >= kStepTallAPre; }
+
+// Fills P's steps from the host description; false for one the kernel
+// does not take (then P is not launched).
+bool make_steps(StepParams* P, int dit, int nsteps, const int* ints,
+                const void* const* ptrs, int batch, size_t* smem,
+                long long* tiles) {
+  if (nsteps < 2 || nsteps > kMaxSteps || batch < 1) return false;
+  *smem = 0;
+  *tiles = 0;
+  for (int k = 0; k < nsteps; ++k) {
+    const int* I = ints + k * kStepInts;
+    const void* const* Q = ptrs + k * kStepPtrs;
+    Step& S = P->steps[k];
+    const int code = I[kICode], rows = I[kIRows], ncols = I[kINcols];
+    const int log_tl = I[kILogTl];
+    const bool tall = is_tall(code);
+    if (code < kStepWholeA || code > kStepTallBPost || rows > 8192 ||
+        log_tl < 0 || log_tl > 5 || (ncols >> log_tl) < 1 ||
+        I[kIBatchMult] < 1 || I[kISrc] < kBufX || I[kISrc] > kBufScratch ||
+        I[kIDst] < kBufOut || I[kIDst] > kBufScratch ||
+        (k == 0) != (I[kISrc] == kBufX) || I[kISrc] == I[kIDst] ||
+        I[kINstages] != colpass_tile::ilog2(rows) ||
+        (tall && (I[kILogA] >= 0 || rows < 2)) ||
+        !colpass_tile::make_network(
+            &S.net, rows, dit, I[kINstages], I[kIK0],
+            I + kITs, I + kIOffs, tall ? nullptr : Q[kPTwW],
+            tall ? nullptr : Q[kPTwS], I[kILogA],
+            tall ? nullptr : Q[kPMidW], tall ? nullptr : Q[kPMidS]))
+      return false;
+    S.code = code;
+    S.src = I[kISrc];
+    S.dst = I[kIDst];
+    S.batch_mult = I[kIBatchMult];
+    S.shift = I[kIShift];
+    S.ops.pre_w = static_cast<const uint32_t*>(Q[kPPreW]);
+    S.ops.pre_s = static_cast<const uint32_t*>(Q[kPPreS]);
+    S.ops.mat_w = static_cast<const uint32_t*>(Q[kPMatW]);
+    S.ops.mat_s = static_cast<const uint32_t*>(Q[kPMatS]);
+    S.ops.ncols = ncols;
+    S.ops.log_tl = log_tl;
+    S.ops.canonicalize = I[kICanon];
+    const int log_inner = tall ? I[kILogInner] : 0;
+    const int log_hq = I[kILogHq], log_lp = I[kILogLp];
+    S.tables.tw = static_cast<const uint2*>(Q[kPTw]);
+    S.tables.mid = static_cast<const uint2*>(Q[kPMid]);
+    S.tables.mat = static_cast<const uint2*>(Q[kPMat]);
+    S.tables.pre = static_cast<const uint2*>(Q[kPPre]);
+    S.tables.post = static_cast<const uint2*>(Q[kPPost]);
+    S.tables.pre2 = S.tables.post2 = nullptr;
+    S.tables.log_s = 0;
+    S.tables.log_inner = log_inner;
+    S.tables.log_ncols = tall ? colpass_tile::ilog2(ncols) - log_inner : 0;
+    S.view.log_vc = S.tables.log_ncols + log_inner - log_hq;
+    S.view.log_iq = log_inner - log_hq;
+    // the split tile's (colpass.cu's ntt_colpass): a 'hi' phase A's over Q
+    // and vc, a transposing phase B's over inner and ncols
+    const bool hi_a =
+        (code == kStepTallA || code == kStepTallAPre) && log_hq > 0;
+    const int split_inner = hi_a ? log_hq : log_inner;
+    S.tables.log_tlc = colpass_tile::tall_store_log_cols(
+        2, log_tl, split_inner,
+        hi_a ? S.view.log_vc : S.tables.log_ncols);
+    S.view.log_hq = log_hq;
+    S.view.log_lp = log_lp;
+    S.view.log_rows = S.net.log_nn + log_hq + log_lp;
+    S.view.log_tall = S.view.log_rows + S.view.log_vc - S.tables.log_ncols;
+    if (tall && (log_inner < 1 || (ncols >> log_inner) < 1 || !Q[kPTw] ||
+                 !Q[kPMid] || log_hq < 0 || log_lp < 0 ||
+                 (log_hq && log_lp) || log_hq > log_inner ||
+                 (1 << log_lp) != I[kIBatchMult] ||
+                 log_tl - S.tables.log_tlc > split_inner))
+      return false;
+    if (!tall && (log_hq || log_lp || I[kIBatchMult] != 1)) return false;
+    const size_t step_smem = (size_t)rows << log_tl << 2;
+    if (step_smem > *smem) *smem = step_smem;
+    const long long t = (long long)batch * I[kIBatchMult] * (ncols >> log_tl);
+    if (t > (1ll << 30)) return false;
+    if (t > *tiles) *tiles = t;
+  }
+  P->nsteps = nsteps;
+  P->batch = batch;
+  return *smem <= (size_t)kMaxSmemBytes;
 }
 
 }  // namespace
@@ -195,6 +499,74 @@ int ntt_fused_kernel_info(int pre, int post, int nn_a, int nn_b,
   *kfuse = kFuse;
   *regs = attr.numRegs;
   return static_cast<int>(err);
+}
+
+// This build's register group size, and for the step kernel of this
+// direction over these steps (the host description of ntt_fused_steps):
+// its registers a thread and its co-resident blocks per SM at the steps'
+// largest tile. Returns 0 or a cudaError_t.
+int ntt_fused_steps_info(int dit, int nsteps, const int* ints,
+                         const void* const* ptrs, int* kfuse, int* regs,
+                         int* per_sm) {
+  StepParams P;  // the host description's check only
+  size_t smem = 0;
+  long long tiles = 0;
+  *kfuse = kFuse;
+  *regs = 0;
+  if (!make_steps(&P, dit, nsteps, ints, ptrs, 1, &smem, &tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StepsFn kernel = pick_steps(dit != 0);
+  cudaFuncAttributes attr = {};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int sms = 0;
+  if (err == cudaSuccess) err = occupancy(kernel, smem, per_sm, &sms);
+  *regs = attr.numRegs;
+  return static_cast<int>(err);
+}
+
+// Launches one fused transform of sides above one tile on `stream`,
+// cooperatively, as a step list (fused_steps_kernel). x: (batch, nn_a,
+// nn_b) uint32; scratch and out: (batch, nn_b, nn_a). counters: one int32 a
+// step on the device, zero before the first launch (the rule at the top).
+// nsteps steps, each kStepInts ints and kStepPtrs pointers (StepInt,
+// StepPtr; ops/fused_fourstep.py _step_args); dit: the transform's
+// direction. p, c1, c2: the reduction's prime and constants. Returns 0
+// when launched, else a cudaError_t: cudaErrorInvalidValue for steps the
+// kernel does not take, cudaErrorNotSupported for a device without
+// cooperative launch, or the launch's own error.
+int ntt_fused_steps(const void* x, void* scratch, void* out, void* counters,
+                    int batch, int dit, int nsteps, const int* ints,
+                    const void* const* ptrs, unsigned int p, unsigned int c1,
+                    unsigned int c2, void* stream) {
+  StepParams P;  // the launch copies its arguments
+  size_t smem = 0;
+  long long tiles = 0;
+  if (!counters ||
+      !make_steps(&P, dit, nsteps, ints, ptrs, batch, &smem, &tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  P.x = static_cast<const uint32_t*>(x);
+  P.scratch = static_cast<uint32_t*>(scratch);
+  P.out = static_cast<uint32_t*>(out);
+  P.counters = static_cast<int*>(counters);
+  P.red = Red::make(p, c1, c2);
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const StepsFn kernel = pick_steps(dit != 0);
+  err = occupancy(kernel, smem, &per_sm, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const long long capacity = (long long)per_sm * sms;
+  const int grid = static_cast<int>(tiles < capacity ? tiles : capacity);
+  void* args[] = {&P};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kThreads),
+      args, smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches one fused transform on `stream`, cooperatively. x: (batch,

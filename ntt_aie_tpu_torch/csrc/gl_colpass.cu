@@ -89,7 +89,12 @@
 // rest on store. Goldilocks needs it most: a 16,384-row column is 128 KB a
 // column, and a 32,768-row one (n = 2^29, 2^30) 256 KB, more than a
 // block's 227 KB of shared memory, so no one-block tile holds it; a phase
-// of 128 or 256 rows takes a tile of 32 columns (32 or 64 KB).
+// of 128 or 256 rows takes a tile of 32 columns (32 or 64 KB). A phase of
+// more than kMaxRows rows (Goldilocks n = 2^28 - 2^30 at a split with a
+// side of at most 8) runs as two launches split by stage group, as
+// colpass.cu's (colpass_tile.cuh Tall: the 'hi' launch's twiddle by its
+// view column, the 'lo' launch's P arrays a batch row), and a one-row
+// column (the split (1, n)) as gl_colpass_empty_kernel, its operands alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +111,7 @@ using colpass_tile::kOpNone;
 using colpass_tile::kOpRank1;
 using colpass_tile::kTallA;
 using colpass_tile::kTallB;
+using colpass_tile::kTallPre;
 using colpass_tile::kWhole;
 using colpass_tile::Network;
 using colpass_tile::word_of;
@@ -124,6 +130,8 @@ constexpr int kFuse = 3;  // radix-2 stages a register group (see above)
 constexpr int kMinBlocks = 3;
 // log2 of the tall columns of a transposing phase B's tile (colpass.cu's)
 constexpr int kTallStoreLogCols = 2;
+// The most blocks a batch row of a one-row column's launch takes (grid.x)
+constexpr int kEmptyBlocks = 132 * 8;
 
 struct Params {
   Network net;          // table pointers null: the kernel reads tw and mid
@@ -149,6 +157,10 @@ struct Params {
   uint32_t* out_lo;
   int ncols, log_tl;
   int shift;  // the swizzled tile's (colpass_tile::tile_shift)
+  // after every field a whole column's kernel reads: a tall launch's view
+  // (colpass_tile::TallView's fields), and a one-row column's operand forms
+  int log_vc, log_iq, log_hq, log_lp, log_rows, log_tall;
+  int pre_form, post_form;
 };
 
 // One batch row's planes: the input and the output.
@@ -161,12 +173,14 @@ struct Rows {
 
 // DIF stages s0 .. s0 + K - 1 of one phase on the 2^K values v[m] =
 // x[base + m * t_last] of one radix-2^K butterfly, in the order of one
-// stage at a time (colpass_tile.cuh dif_stages, on uint64).
-template <int K>
+// stage at a time (colpass_tile.cuh dif_stages, on uint64; kCol: a 'hi'
+// launch's twiddle at idx * 2^log_hq + tq).
+template <int K, bool kCol = false>
 __device__ __forceinline__ void dif_stages(uint64_t (&v)[1 << K],
                                            const Network& N,
                                            const uint64_t* tw, int s0,
-                                           int log_t, int j) {
+                                           int log_t, int j, int log_hq = 0,
+                                           int tq = 0) {
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int h = 1 << (K - 1 - q);  // the pair's distance in m
@@ -174,7 +188,8 @@ __device__ __forceinline__ void dif_stages(uint64_t (&v)[1 << K],
 #pragma unroll
     for (int m = 0; m < (1 << K); ++m) {
       if (m & h) continue;
-      const int idx = ((m & (h - 1)) << log_t) | j;
+      int idx = ((m & (h - 1)) << log_t) | j;
+      if constexpr (kCol) idx = (idx << log_hq) | tq;
       const uint64_t a = v[m], b = v[m + h];
       v[m] = gl_add(a, b);
       v[m + h] = gl_mul(gl_sub(a, b), __ldg(tw_q + idx));
@@ -183,12 +198,13 @@ __device__ __forceinline__ void dif_stages(uint64_t (&v)[1 << K],
 }
 
 // DIT stages s0 .. s0 + K - 1 on v[m] = x[base + m * t_first]: the mirror
-// (colpass_tile.cuh dit_stages, on uint64).
-template <int K>
+// (colpass_tile.cuh dit_stages, on uint64; kCol as dif_stages').
+template <int K, bool kCol = false>
 __device__ __forceinline__ void dit_stages(uint64_t (&v)[1 << K],
                                            const Network& N,
                                            const uint64_t* tw, int s0,
-                                           int log_t, int j) {
+                                           int log_t, int j, int log_hq = 0,
+                                           int tq = 0) {
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int h = 1 << q;  // the pair's distance in m
@@ -196,7 +212,8 @@ __device__ __forceinline__ void dit_stages(uint64_t (&v)[1 << K],
 #pragma unroll
     for (int m = 0; m < (1 << K); ++m) {
       if (m & h) continue;
-      const int idx = ((m & (h - 1)) << log_t) | j;
+      int idx = ((m & (h - 1)) << log_t) | j;
+      if constexpr (kCol) idx = (idx << log_hq) | tq;
       const uint64_t u = v[m];
       const uint64_t wv = gl_mul(v[m + h], __ldg(tw_q + idx));
       v[m] = gl_add(u, wv);
@@ -226,42 +243,65 @@ __device__ __forceinline__ uint64_t mul_operand(uint64_t v, const Params& P,
   }
 }
 
-// v times an operand (kForm) at the launch's element (l, col): a kOpMat
-// table shares the launch's index; under kTall the factored and rank-1
-// forms take the tall planes' row l * inner + col / ncols and column
-// col mod ncols (colpass_tile.cuh tall_row, tall_col).
-template <int kForm, int kTall>
-__device__ __forceinline__ uint64_t mul_at(uint64_t v, const Params& P,
-                                           const uint64_t* a,
-                                           const uint64_t* b, int l,
-                                           size_t col) {
-  if constexpr (kTall != kWhole && kForm != kOpMat)
-    return mul_operand<kForm>(
-        v, P, a, b, (l << P.log_inner) | (int)(col >> P.log_ncols),
-        col & (((size_t)1 << P.log_ncols) - 1), 1 << P.log_ncols);
-  else
-    return mul_operand<kForm>(v, P, a, b, l, col, P.ncols);
+// A tall launch's element's place in the tall planes (colpass_tile.cuh
+// TallCols, tall_cols, phase_row, tall_row, moved_row, on these Params):
+// the column parts a thread's, the phase's row a value's.
+struct TallCols {
+  int q, iq;
+  size_t tc;
+};
+
+template <bool kGroup>
+__device__ __forceinline__ TallCols tall_cols(size_t col, const Params& P) {
+  const size_t jv = kGroup ? col & (((size_t)1 << P.log_vc) - 1) : col;
+  return {kGroup ? (int)(col >> P.log_vc) : 0, (int)(jv >> P.log_ncols),
+          jv & (((size_t)1 << P.log_ncols) - 1)};
 }
 
-// The output word of the launch's element (l, col) (colpass_tile.cuh
-// store_index): its own index (transposed: (col, l) of (ncols, nn));
-// under kTallA the moved row's, q * rows + l of the tall planes for
-// q = col / ncols; under kTallB with the transpose the tall planes' (col
-// mod ncols, l * inner + col / ncols) of (ncols, nn * inner).
-template <bool kTranspose, int kTall>
+__device__ __forceinline__ int phase_row(int l, int row_base, int log_hq,
+                                         const TallCols& X) {
+  return ((row_base + l) << log_hq) | X.q;
+}
+
+__device__ __forceinline__ unsigned tall_row(int lp, const TallCols& X,
+                                             const Params& P) {
+  return ((unsigned)lp << P.log_iq) | X.iq;
+}
+
+__device__ __forceinline__ unsigned moved_row(int lp, const TallCols& X,
+                                              const Params& P) {
+  return ((unsigned)X.iq << P.log_rows) | lp;
+}
+
+// v times a factored or rank-1 operand (kForm) at a tall launch's
+// element's tall row and column.
+template <int kForm>
+__device__ __forceinline__ uint64_t mul_tall(uint64_t v, const Params& P,
+                                             const uint64_t* a,
+                                             const uint64_t* b, int lp,
+                                             const TallCols& X) {
+  return mul_operand<kForm>(v, P, a, b, (int)tall_row(lp, X, P), X.tc,
+                            1 << P.log_ncols);
+}
+
+// The output word of a whole column's element (l, col): its own index
+// (transposed: (col, l) of (ncols, nn)).
+template <bool kTranspose>
 __device__ __forceinline__ size_t store_index(int l, size_t col,
                                               const Params& P) {
-  const int log_nn = P.net.log_nn;
-  if constexpr (kTall == kTallA) {
-    const size_t to = ((col >> P.log_ncols) << log_nn) | l;
-    return (to << P.log_ncols) | (col & (((size_t)1 << P.log_ncols) - 1));
-  } else if constexpr (kTall == kTallB && kTranspose) {
-    return (col & (((size_t)1 << P.log_ncols) - 1)) *
-               ((size_t)P.net.nn << P.log_inner) +
-           ((l << P.log_inner) | (int)(col >> P.log_ncols));
-  } else {
-    return kTranspose ? col * P.net.nn + l : (size_t)l * P.ncols + col;
-  }
+  return kTranspose ? col * P.net.nn + l : (size_t)l * P.ncols + col;
+}
+
+// The output word of a tall launch's element that its store moves
+// (kTallA) or transposes (kTallB with the transpose), in its batch row of
+// the tall planes (colpass_tile.cuh tall_store_index).
+template <bool kTranspose, int kTall>
+__device__ __forceinline__ size_t tall_store_index(int lp, const TallCols& X,
+                                                   const Params& P) {
+  if constexpr (kTall == kTallA)
+    return ((size_t)moved_row(lp, X, P) << P.log_ncols) | X.tc;
+  else
+    return (X.tc << P.log_tall) + tall_row(lp, X, P);
 }
 
 // What one group does beyond the tile (colpass_tile.cuh GroupEnds): load
@@ -277,13 +317,20 @@ struct Ends {
 // multiplied as the loading group reads a value and before the storing
 // group's kMat multiply. kTall: a phase of a tall column (colpass_tile.cuh
 // Tall): phase A's store multiplies by the mid vector (DIF at the row the
-// value leaves, DIT at the row it reaches) and moves the row.
+// value leaves, DIT at the row it reaches) and moves the row; kGroup: a
+// launch of a split phase (colpass_tile.cuh run_group_io's).
 template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
-          int kTall>
+          int kTall, bool kGroup>
 __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
                                           const Rows& R, const Ends E,
-                                          size_t col0, int s0, int log_a) {
+                                          size_t col0, int s0, int log_a,
+                                          int p) {
   constexpr bool kSplit = kTall == kTallB && kTranspose;
+  // a split phase's launch: a 'hi' launch's log2 Q; a 'lo' launch's array
+  // p, its offset in the batch row and its first row
+  const int log_hq = kGroup ? P.log_hq : 0;
+  const size_t sub = kGroup ? (size_t)p * ((size_t)P.net.nn * P.ncols) : 0;
+  const int row_base = kGroup ? p << P.net.log_nn : 0;
   const Network& N = P.net;
   const int log_tl = P.log_tl;
   const int t = kDit ? N.t[s0] : N.t[s0 + K - 1];
@@ -295,12 +342,16 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
   group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, P.shift);
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     // the tile column c, and the launch's column col0 + cc
-    const int c = kSplit ? colpass_tile::tile_thread(i, log_tl, E.store,
-                                                     P.log_tlc)
-                         : i & tl_mask;
+    const int c = kSplit || (kTall == kTallA && log_hq > 0)
+                      ? colpass_tile::tile_thread(i, log_tl, E.store,
+                                                  P.log_tlc)
+                      : i & tl_mask;
     const auto cc = [&] {
       if constexpr (kSplit)
         return colpass_tile::tile_off(c, P.log_ncols, P.log_tlc);
+      else if constexpr (kTall == kTallA && kGroup)
+        return log_hq > 0 ? colpass_tile::tile_off(c, P.log_vc, P.log_tlc)
+                          : (size_t)c;
       else
         return c;
     }();
@@ -314,16 +365,31 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
       for (int m = 0; m < (1 << K); ++m) {
         const size_t o = (size_t)(base + (m << log_t)) * P.ncols + col0 + cc;
         v[m] = ((uint64_t)R.src_hi[o] << 32) | R.src_lo[o];
-        if constexpr (kPre != kOpNone)
-          v[m] = mul_at<kPre, kTall>(v[m], P, P.pre, P.pre2,
-                                     base + (m << log_t), col0 + cc);
+        if constexpr (kPre == kOpMat && kTall != kWhole)
+          v[m] = gl_mul(v[m], __ldg(P.pre + sub + o));
+        else if constexpr (kPre != kOpNone && kTall != kWhole)
+          v[m] = mul_tall<kPre>(
+              v[m], P, P.pre, P.pre2,
+              phase_row(base + (m << log_t), row_base, log_hq,
+                        tall_cols<kGroup>(col0 + cc, P)),
+              tall_cols<kGroup>(col0 + cc, P));
+        else if constexpr (kPre != kOpNone)
+          v[m] = mul_operand<kPre>(v[m], P, P.pre, P.pre2,
+                                   base + (m << log_t), col0 + cc, P.ncols);
       }
     } else {
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m)
         v[m] = ((uint64_t)tile[w0 ^ dw[m]] << 32) | tile_lo[w0 ^ dw[m]];
     }
-    if (E.mid) {  // DIF: the stages, then mid; DIT: mid, then the stages
+    if constexpr (kTall != kWhole) {  // a plain network: no mid in a group
+      // a 'hi' launch's twiddle column (tall_cols' q)
+      const int q = kGroup ? (int)((col0 + cc) >> P.log_vc) : 0;
+      if constexpr (kDit)
+        dit_stages<K, kGroup>(v, N, P.tw, s0, log_t, j, log_hq, q);
+      else
+        dif_stages<K, kGroup>(v, N, P.tw, s0, log_t, j, log_hq, q);
+    } else if (E.mid) {  // DIF: the stages, then mid; DIT: mid, the stages
       if constexpr (!kDit) dif_stages<K>(v, N, P.tw, s0, log_t, j);
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m)
@@ -335,21 +401,41 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
       dif_stages<K>(v, N, P.tw, s0, log_t, j);
     }
     if (E.store) {
+      TallCols X = {};  // the storing thread's column parts (tall_cols)
+      if constexpr (kTall != kWhole) X = tall_cols<kGroup>(col0 + cc, P);
 #pragma unroll
       for (int m = 0; m < (1 << K); ++m) {
         const int l = base + (m << log_t);
-        const size_t o = store_index<kTranspose, kTall>(l, col0 + cc, P);
-        uint64_t u = v[m];
-        if constexpr (kTall == kTallA) {  // the mid multiply, then the move
-          const int q = (int)((col0 + cc) >> P.log_ncols);
-          u = gl_mul(u, __ldg(P.mid + (kDit ? (q << N.log_nn) | l
-                                            : (l << P.log_inner) | q)));
+        if constexpr (kTall != kWhole) {
+          const size_t f = (size_t)l * P.ncols + col0 + cc;
+          const int lp = phase_row(l, row_base, log_hq, X);
+          uint64_t u = v[m];
+          if constexpr (kTall == kTallA)  // the mid multiply, then the move
+            u = gl_mul(u, __ldg(P.mid + (kDit ? moved_row(lp, X, P)
+                                              : tall_row(lp, X, P))));
+          if constexpr (kPost == kOpMat)
+            u = gl_mul(u, __ldg(P.post + sub + f));
+          else if constexpr (kPost != kOpNone)
+            u = mul_tall<kPost>(u, P, P.post, P.post2, lp, X);
+          if constexpr (kTall == kTallA || kSplit) {  // the tall batch row
+            const size_t o = tall_store_index<kTranspose, kTall>(lp, X, P);
+            if constexpr (kMat) u = gl_mul(u, __ldg(P.mat + o));
+            (R.dst_hi - sub)[o] = (uint32_t)(u >> 32);
+            (R.dst_lo - sub)[o] = (uint32_t)u;
+          } else {  // in place
+            R.dst_hi[f] = (uint32_t)(u >> 32);
+            R.dst_lo[f] = (uint32_t)u;
+          }
+        } else {
+          const size_t o = store_index<kTranspose>(l, col0 + cc, P);
+          uint64_t u = v[m];
+          if constexpr (kPost != kOpNone)
+            u = mul_operand<kPost>(u, P, P.post, P.post2, l, col0 + cc,
+                                   P.ncols);
+          if constexpr (kMat) u = gl_mul(u, __ldg(P.mat + o));
+          R.dst_hi[o] = (uint32_t)(u >> 32);
+          R.dst_lo[o] = (uint32_t)u;
         }
-        if constexpr (kPost != kOpNone)
-          u = mul_at<kPost, kTall>(u, P, P.post, P.post2, l, col0 + cc);
-        if constexpr (kMat) u = gl_mul(u, __ldg(P.mat + o));
-        R.dst_hi[o] = (uint32_t)(u >> 32);
-        R.dst_lo[o] = (uint32_t)u;
       }
     } else {
 #pragma unroll
@@ -364,52 +450,55 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
 
 // run_group for a runtime k <= K stages.
 template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
-          int kTall>
+          int kTall, bool kGroup>
 __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
                                                const Params& P,
                                                const Rows& R, const Ends E,
                                                size_t col0, int s0,
-                                               int log_a) {
+                                               int log_a, int p) {
   if constexpr (K > 1) {
     if (k < K) {
-      run_group_upto<K - 1, kDit, kTranspose, kMat, kPre, kPost, kTall>(
-          k, tile, P, R, E, col0, s0, log_a);
+      run_group_upto<K - 1, kDit, kTranspose, kMat, kPre, kPost, kTall,
+                     kGroup>(k, tile, P, R, E, col0, s0, log_a, p);
       return;
     }
   }
-  run_group<K, kDit, kTranspose, kMat, kPre, kPost, kTall>(tile, P, R, E,
-                                                           col0, s0, log_a);
+  run_group<K, kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup>(
+      tile, P, R, E, col0, s0, log_a, p);
 }
 
 // Stages [s_begin, s_end) of one phase in groups of min(kFuse, stages
 // left): the first loads when load, the last stores when store, and the
 // mid multiply rides on the last (DIF) or the first (DIT) when mid.
 template <bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
-          int kTall>
+          int kTall, bool kGroup>
 __device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
                                           const Rows& R, size_t col0,
                                           int s_begin, int s_end, int log_a,
-                                          bool load, bool store, bool mid) {
+                                          bool load, bool store, bool mid,
+                                          int p) {
   for (int s = s_begin; s < s_end;) {
     const int k = min(kFuse, s_end - s);
     const bool first = s == s_begin, last = s + k == s_end;
     const Ends E = {load && first, mid && (kDit ? first : last),
                     store && last};
-    run_group_upto<kFuse, kDit, kTranspose, kMat, kPre, kPost, kTall>(
-        k, tile, P, R, E, col0, s, log_a);
+    run_group_upto<kFuse, kDit, kTranspose, kMat, kPre, kPost, kTall,
+                   kGroup>(k, tile, P, R, E, col0, s, log_a, p);
     s += k;
   }
 }
 
 // One thread block per (batch row, tile of TL columns). A nested network
 // has two phases of at least one stage each; a plain one, one phase (a
-// tall column's phase A or B under kTall).
+// launch of a tall column's route under kTall: a 'lo' launch's block
+// takes array p = blockIdx.y mod P of its batch row).
 template <bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
-          int kPost = kOpNone, int kTall = kWhole>
+          int kPost = kOpNone, int kTall = kWhole, bool kGroup = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     gl_colpass_kernel(const Params P) {
-  static_assert(kTall != kTallA || (!kTranspose && !kMat && kPost == kOpNone),
-                "phase A stores the moved planes");
+  static_assert((kTall != kTallA && kTall != kTallPre) ||
+                    (!kTranspose && !kMat && kPost == kOpNone),
+                "phase A stores the moved planes, or in place");
   static_assert(kTall != kTallB || kPre == kOpNone,
                 "phase B loads phase A's output");
   extern __shared__ uint32_t tile[];
@@ -417,15 +506,54 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const size_t row = (size_t)blockIdx.y * plane;
   const Rows R = {P.x_hi + row, P.x_lo + row, P.out_hi + row,
                   P.out_lo + row};
-  const size_t col0 = colpass_tile::tile_col0<kTall == kTallB && kTranspose>(
-      blockIdx.x, P.log_tl, P.log_inner, P.log_ncols, P.log_tlc);
+  size_t col0;  // a split tile (colpass_tile.cuh tall_col0) where it takes one
+  if constexpr (kTall == kTallA && kGroup)
+    col0 = P.log_hq > 0
+               ? colpass_tile::tile_col0<true>(blockIdx.x, P.log_tl, P.log_hq,
+                                               P.log_vc, P.log_tlc)
+               : colpass_tile::tile_col0<false>(blockIdx.x, P.log_tl, 0, 0,
+                                                0);
+  else
+    col0 = colpass_tile::tile_col0<kTall == kTallB && kTranspose>(
+        blockIdx.x, P.log_tl, P.log_inner, P.log_ncols, P.log_tlc);
   const bool nested = P.net.log_a >= 0;
-  run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall>(
-      tile, P, R, col0, 0, P.net.k0, -1, true, !nested, nested && !kDit);
+  int p = 0;  // a 'lo' launch's array p of its batch row: row b * P + p
+  if constexpr (kGroup) p = (int)(blockIdx.y & ((1u << P.log_lp) - 1));
+  run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup>(
+      tile, P, R, col0, 0, P.net.k0, -1, true, !nested, nested && !kDit, p);
   if (nested)
-    run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall>(
+    run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup>(
         tile, P, R, col0, P.net.k0, P.net.nstages, P.net.log_a, false, true,
-        kDit);
+        kDit, p);
+}
+
+// v times the operand of this form in tables a and b at row 0, column c
+// (colpass_tile.cuh mul_row0, on uint64).
+__device__ __forceinline__ uint64_t mul_row0(uint64_t v, int form,
+                                             const uint64_t* a,
+                                             const uint64_t* b, size_t c) {
+  if (form == kOpMat) return gl_mul(v, __ldg(a + c));
+  if (form == kOpFac) return gl_mul(gl_mul(v, __ldg(a + c)), __ldg(b + c));
+  if (form == kOpRank1) return gl_mul(gl_mul(v, __ldg(a)), __ldg(b + c));
+  return v;
+}
+
+// A one-row column's pass (colpass_tile.cuh column_empty on uint64): each
+// value times its 'pre', 'post' and 'post_t' operands, blocks on grid.x
+// over the row's columns, batch rows on grid.y; no shared memory.
+__global__ void __launch_bounds__(kThreads) gl_colpass_empty_kernel(
+    const Params P) {
+  const size_t row = (size_t)blockIdx.y * P.ncols;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t c = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       c < (size_t)P.ncols; c += stride) {
+    uint64_t v = ((uint64_t)P.x_hi[row + c] << 32) | P.x_lo[row + c];
+    v = mul_row0(v, P.pre_form, P.pre, P.pre2, c);
+    v = mul_row0(v, P.post_form, P.post, P.post2, c);
+    if (P.mat) v = gl_mul(v, __ldg(P.mat + c));
+    P.out_hi[row + c] = (uint32_t)(v >> 32);
+    P.out_lo[row + c] = (uint32_t)v;
+  }
 }
 
 using KernelFn = void (*)(Params);
@@ -476,70 +604,105 @@ KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
   return nullptr;
 }
 
-// The tall route's launch `tall` (kTallA or kTallB) of a combination
-// pick_kernel takes, or null: phase A by the direction and the 'pre'
-// form, phase B by the direction, the store options and the 'post' form;
-// each launch is given the whole pass's operands and applies its own.
+// The tall route's launch `tall` (kTallA, kTallB or kTallPre) of these
+// options, the launch's own (ops/colpass.py launch_plan), or null; as
+// colpass.cu's pick_tall (kG: a launch of a split phase).
+template <bool kG>
 KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
                    int post) {
-  if (!pick_kernel(dit, transpose_out, mat, pre, post)) return nullptr;
-  if (tall == kTallA) {
+  if (tall == kTallA || tall == kTallPre) {
+    if (transpose_out || mat || post != kOpNone) return nullptr;
+    if (tall == kTallPre) {  // a split phase A's first launch only
+      if constexpr (!kG) return nullptr;
+      if (dit)
+        return pre == kOpMat ? gl_colpass_kernel<true, false, false, kOpMat,
+                                                 kOpNone, kTallPre, kG>
+                             : nullptr;
+      switch (pre) {
+        case kOpMat:
+          return gl_colpass_kernel<false, false, false, kOpMat, kOpNone,
+                                   kTallPre, kG>;
+        case kOpFac:
+          return gl_colpass_kernel<false, false, false, kOpFac, kOpNone,
+                                   kTallPre, kG>;
+        case kOpRank1:
+          return gl_colpass_kernel<false, false, false, kOpRank1, kOpNone,
+                                   kTallPre, kG>;
+      }
+      return nullptr;
+    }
     if (dit) {
       if (pre == kOpNone)
-        return gl_colpass_kernel<true, false, false, kOpNone, kOpNone, kTallA>;
+        return gl_colpass_kernel<true, false, false, kOpNone, kOpNone, kTallA,
+                                 kG>;
       if (pre == kOpMat)
-        return gl_colpass_kernel<true, false, false, kOpMat, kOpNone, kTallA>;
+        return gl_colpass_kernel<true, false, false, kOpMat, kOpNone, kTallA,
+                                 kG>;
       return nullptr;
     }
     switch (pre) {
       case kOpNone:
         return gl_colpass_kernel<false, false, false, kOpNone, kOpNone,
-                                 kTallA>;
+                                 kTallA, kG>;
       case kOpMat:
-        return gl_colpass_kernel<false, false, false, kOpMat, kOpNone, kTallA>;
+        return gl_colpass_kernel<false, false, false, kOpMat, kOpNone, kTallA,
+                                 kG>;
       case kOpFac:
-        return gl_colpass_kernel<false, false, false, kOpFac, kOpNone, kTallA>;
+        return gl_colpass_kernel<false, false, false, kOpFac, kOpNone, kTallA,
+                                 kG>;
       case kOpRank1:
         return gl_colpass_kernel<false, false, false, kOpRank1, kOpNone,
-                                 kTallA>;
+                                 kTallA, kG>;
     }
     return nullptr;
   }
-  if (tall != kTallB) return nullptr;
+  if (tall != kTallB || pre != kOpNone || (mat && !transpose_out))
+    return nullptr;
   if (post == kOpNone) {
     if (dit)
       return !transpose_out ? gl_colpass_kernel<true, false, false, kOpNone,
-                                                kOpNone, kTallB>
+                                                kOpNone, kTallB, kG>
              : mat ? gl_colpass_kernel<true, true, true, kOpNone, kOpNone,
-                                       kTallB>
+                                       kTallB, kG>
                    : gl_colpass_kernel<true, true, false, kOpNone, kOpNone,
-                                       kTallB>;
+                                       kTallB, kG>;
     return !transpose_out ? gl_colpass_kernel<false, false, false, kOpNone,
-                                              kOpNone, kTallB>
+                                              kOpNone, kTallB, kG>
            : mat ? gl_colpass_kernel<false, true, true, kOpNone, kOpNone,
-                                     kTallB>
+                                     kTallB, kG>
                  : gl_colpass_kernel<false, true, false, kOpNone, kOpNone,
-                                     kTallB>;
+                                     kTallB, kG>;
   }
-  if (post == kOpMat)  // distributed lcp1, lcp1n, licp1n
-    return dit ? gl_colpass_kernel<true, false, false, kOpNone, kOpMat, kTallB>
+  if (mat) return nullptr;
+  if (post == kOpMat && !transpose_out)  // distributed lcp1, lcp1n, licp1n
+    return dit ? gl_colpass_kernel<true, false, false, kOpNone, kOpMat, kTallB,
+                                   kG>
                : gl_colpass_kernel<false, false, false, kOpNone, kOpMat,
-                                   kTallB>;
-  if (post == kOpRank1)  // distributed factored licp1n
-    return gl_colpass_kernel<true, false, false, kOpNone, kOpRank1, kTallB>;
-  if (post == kOpFac)  // the factored arm's icp2; distributed licp2
+                                   kTallB, kG>;
+  if (post == kOpRank1 && dit && !transpose_out)  // distributed licp1n
+    return gl_colpass_kernel<true, false, false, kOpNone, kOpRank1, kTallB,
+                             kG>;
+  if (post == kOpFac && dit)  // the factored arm's icp2; distributed licp2
     return transpose_out
-               ? gl_colpass_kernel<true, true, false, kOpNone, kOpFac, kTallB>
+               ? gl_colpass_kernel<true, true, false, kOpNone, kOpFac, kTallB,
+                                   kG>
                : gl_colpass_kernel<true, false, false, kOpNone, kOpFac,
-                                   kTallB>;
+                                   kTallB, kG>;
   return nullptr;
 }
 
-// pick_kernel for a whole column (tall = kWhole), pick_tall for a phase.
+// The kernel of a launch: a one-row column's (nn = 1)
+// gl_colpass_empty_kernel, pick_kernel for a whole column (tall = kWhole),
+// pick_tall for a launch of a tall one.
 KernelFn pick(int tall, bool dit, bool transpose_out, bool mat, int pre,
-              int post) {
-  return tall == kWhole ? pick_kernel(dit, transpose_out, mat, pre, post)
-                        : pick_tall(tall, dit, transpose_out, mat, pre, post);
+              int post, int nn, bool group) {
+  if (nn == 1)
+    return tall == kWhole && pick_kernel(dit, transpose_out, mat, pre, post)
+               ? gl_colpass_empty_kernel
+               : nullptr;
+  if (tall == kWhole) return pick_kernel(dit, transpose_out, mat, pre, post);
+  return group ? pick_tall<true>(tall, dit, transpose_out, mat, pre, post)
+               : pick_tall<false>(tall, dit, transpose_out, mat, pre, post);
 }
 
 // Opts kernel in to smem dynamic bytes above 48 KB.
@@ -582,19 +745,20 @@ const char* ntt_gl_error_string(int err) {
 
 // This build's register group size, and for the kernel of this direction,
 // these store options and these operands (pre, post: Operand forms), of a
-// whole column or one phase of a tall one (tall: colpass_tile::Tall), at
-// an nn x 2^log_tl tile (a phase's rows): its registers a thread and its
-// co-resident blocks per SM. Returns 0 or a cudaError_t.
-int ntt_gl_colpass_kernel_info(int tall, int dit, int transpose_out,
-                               int mat, int pre, int post, int nn,
-                               int log_tl, int* kfuse, int* regs,
+// whole column or one launch of a tall one (tall: colpass_tile::Tall;
+// group: of a split phase), at an nn x 2^log_tl tile (a launch's rows):
+// its registers a thread and its co-resident blocks per SM. Returns 0 or a
+// cudaError_t.
+int ntt_gl_colpass_kernel_info(int tall, int group, int dit,
+                               int transpose_out, int mat, int pre, int post,
+                               int nn, int log_tl, int* kfuse, int* regs,
                                int* per_sm) {
-  const KernelFn kernel =
-      pick(tall, dit != 0, transpose_out != 0, mat != 0, pre, post);
+  const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0, mat != 0,
+                               pre, post, nn, group != 0);
   *kfuse = kFuse;
   *regs = 0;
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)nn << log_tl << 3;
+  const size_t smem = nn == 1 ? 0 : (size_t)nn << log_tl << 3;
   cudaFuncAttributes attr = {};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) err = allow_smem(kernel, smem);
@@ -611,20 +775,22 @@ int ntt_gl_colpass_kernel_info(int tall, int dit, int transpose_out,
 // ncols, nn) with transpose_out. ts / offs: host arrays of nstages half
 // sizes and table offsets into tw (uint64). log_a < 0 for a plain network
 // (mid null); a nested one has k0 stages in phase 0 and at least one in
-// each phase. mat null for no post_t multiply (which needs
+// each phase; a one-row column (nn = 1) none (its launch applies the
+// operands alone). mat null for no post_t multiply (which needs
 // transpose_out). pre_form, post_form: the Operand forms of the 'pre' and
 // 'post' operands (uint64 tables: kOpMat pre and null pre2, indexed like
 // x; kOpFac T1 and T2 of the split 2^log_s; kOpRank1 the row and the
 // column vector; null for kOpNone). tall (colpass_tile::Tall): kWhole,
-// one launch of the whole column; kTallA or kTallB, one phase of a tall
-// column's route: nn, ncols and the stage list are the phase's (a plain
-// network, log_a < 0) over its view, log_inner is log2 of the factor of
-// the tall nn that rides the view's columns, the operands are the whole
-// tall pass's (each phase applies its own), and mid is the tall network's
-// (nn * 2^log_inner,) vector. Returns
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a shape or an operand combination the kernels
-// do not take.
+// one launch of the whole column; kTallA, kTallB or kTallPre, one launch
+// of a tall column's route (ops/colpass.py launch_plan): nn, ncols and the
+// stage list are the launch's (a plain network, log_a < 0) over its view,
+// log_inner is log2 of the factor of the tall nn that rides the view's
+// columns, the operands are those the launch applies, and mid is the tall
+// network's (nn_tall,) vector; a split phase's launch has log_hq ('hi')
+// or log_lp ('lo', batch the planes' batch rows times P), as colpass.cu's
+// ntt_colpass. Returns cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue for a shape or an operand
+// combination the kernels do not take.
 int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
                    void* out_lo, int batch, int nn, int ncols, int log_tl,
                    int dit, int nstages, int k0, const int* ts,
@@ -632,15 +798,20 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
                    const void* mid, const void* mat, int pre_form,
                    const void* pre, const void* pre2, int post_form,
                    const void* post, const void* post2, int log_s,
-                   int transpose_out, int tall, int log_inner,
-                   void* stream) {
-  const size_t smem = (size_t)nn << log_tl << 3;
+                   int transpose_out, int tall, int log_inner, int log_hq,
+                   int log_lp, void* stream) {
+  const bool empty = nn == 1;
+  const size_t smem = empty ? 0 : (size_t)nn << log_tl << 3;
   const bool nested = log_a >= 0;
   const bool phase = tall != kWhole;
   Params P;
   if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
       log_tl > 5 || (ncols >> log_tl) < 1 || batch < 1 || batch > 65535 ||
-      nstages < 1 || (nested || phase) != (mid != nullptr) ||
+      nstages != colpass_tile::ilog2(nn) || (empty && (phase || nested)) ||
+      (!empty && (nested || phase) != (mid != nullptr)) ||
+      log_hq < 0 || log_lp < 0 || (!phase && (log_hq || log_lp)) ||
+      (log_hq && log_lp) || log_hq > log_inner ||
+      (batch & ((1 << log_lp) - 1)) ||
       (phase && (nested || log_inner < 1 || (ncols >> log_inner) < 1)) ||
       (nested && (k0 < 1 || k0 >= nstages)) ||
       (mat != nullptr && !transpose_out) ||
@@ -657,8 +828,19 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
   P.log_s = log_s;
   P.log_inner = phase ? log_inner : 0;
   P.log_ncols = phase ? colpass_tile::ilog2(ncols) - log_inner : 0;
-  P.log_tlc = colpass_tile::tall_store_log_cols(kTallStoreLogCols, log_tl,
-                                                P.log_inner, P.log_ncols);
+  P.log_vc = P.log_ncols + P.log_inner - log_hq;
+  P.log_iq = P.log_inner - log_hq;
+  // the split tile's q by columns (colpass.cu's ntt_colpass)
+  const bool hi_a = tall == kTallA && log_hq > 0;
+  const int split_inner = hi_a ? log_hq : P.log_inner;
+  P.log_tlc = colpass_tile::tall_store_log_cols(
+      kTallStoreLogCols, log_tl, split_inner, hi_a ? P.log_vc : P.log_ncols);
+  P.log_hq = log_hq;
+  P.log_lp = log_lp;
+  P.log_rows = P.net.log_nn + log_hq + log_lp;
+  P.log_tall = P.log_rows + P.log_vc - P.log_ncols;
+  P.pre_form = pre_form;
+  P.post_form = post_form;
   P.x_hi = static_cast<const uint32_t*>(x_hi);
   P.x_lo = static_cast<const uint32_t*>(x_lo);
   P.out_hi = static_cast<uint32_t*>(out_hi);
@@ -671,13 +853,21 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
            : form == kOpMat ? a && !b
            : (form == kOpFac || form == kOpRank1) && a && b;
   };
+  const bool fac = pre_form == kOpFac || post_form == kOpFac;
   if (!tables_ok(pre_form, pre, pre2) || !tables_ok(post_form, post, post2) ||
-      log_s < 0 || log_s >= P.net.log_nn + P.log_inner ||
-      (phase && log_tl - P.log_tlc > log_inner))
+      log_s < 0 || (fac && (log_s < 1 || log_s >= P.log_tall)) ||
+      (phase && log_tl - P.log_tlc > split_inner))
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0,
-                               mat != nullptr, pre_form, post_form);
+  const KernelFn kernel =
+      pick(tall, dit != 0, transpose_out != 0, mat != nullptr, pre_form,
+           post_form, nn, log_hq != 0 || log_lp != 0);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+  if (empty) {
+    const int blocks = (ncols + kThreads - 1) / kThreads;
+    dim3 grid(blocks < kEmptyBlocks ? blocks : kEmptyBlocks, batch);
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(P);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(ncols >> log_tl, batch);

@@ -24,7 +24,18 @@ phases of its nested R x S network (``tall_phases``), and on the card
 the pass runs as two launches, phase A over the view (B, rows, inner *
 ncols) of the input and phase B over the same kind of view of A's
 output (``csrc/colpass_tile.cuh`` Tall); ``tall_phase_plain`` is each
-launch's plain version. Nothing runs between them.
+launch's plain version. Nothing runs between them. A phase of more than
+MAX_ROWS rows (a column above MAX_ROWS^2 = 2^26 rows) runs as two
+launches of its own, split by stage group (``phase_groups``): the stages
+whose half size is at least Q over the view (B, P, Q * inner * ncols),
+their twiddle taken by the view's column, and the others over B * P
+arrays of (Q, inner * ncols). ``launch_plan`` lists a pass's launches and
+``launch_plain`` is any launch's plain version.
+
+A column of one row (the split (1, n)) is a network of zero stages: its
+pass still multiplies by its operands, transposes and canonicalizes, one
+launch of an elementwise kernel (``csrc/colpass_tile.cuh``
+``column_empty``).
 
 ``colpass(x, cp)`` is the entry point. On a CPU tensor it runs the plain
 version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
@@ -260,6 +271,12 @@ def _factor_tensors(kind, pos, tabs, nn, device):
     return a, b
 
 
+def stage_offsets(ts) -> tuple:
+    """Each stage's start in the concatenated stage tables (an empty
+    network, a one-row column's, has none)."""
+    return tuple(int(o) for o in np.cumsum([0] + list(ts[:-1])))[:len(ts)]
+
+
 def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
               operands, canonicalize, transpose_out, device,
               factors=None) -> ColPass:
@@ -281,9 +298,11 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
             + list(operands.values()))
     if any(len(t) != 2 for t in tabs):
         raise ValueError("every table is a (w, w2) pair (Reduction.pair)")
-    offsets = tuple(int(o) for o in np.cumsum([0] + ts[:-1]))
-    w_all = np.concatenate([np.ravel(tab[0]) for tab in stage_tabs])
-    s_all = np.concatenate([np.ravel(tab[1]) for tab in stage_tabs])
+    offsets = stage_offsets(ts)
+    w_all = np.concatenate([np.ravel(tab[0]) for tab in stage_tabs]
+                           or [np.zeros(0, np.uint32)])
+    s_all = np.concatenate([np.ravel(tab[1]) for tab in stage_tabs]
+                           or [np.zeros(0, np.uint32)])
     wmid = None
     if mid_tab is not None:
         wmid = _pair(np.ravel(mid_tab[0]), np.ravel(mid_tab[1]), device)
@@ -558,16 +577,30 @@ def tall_phase_plain(x: torch.Tensor, cp: ColPass,
     'post' operands, the transpose and 'post_t', canonicalize). B's of
     A's output is colpass_plain's output bit for bit. cp: a nested pass of
     any height (its tall_phases where it has no tall route)."""
-    xb, squeeze = _batched(x, cp)
     ph = (cp.tall or tall_phases(cp))["AB".index(phase)]
+    return _phase_plain(x, cp, ph, (0, len(ph.ts)), pre=phase == "A",
+                        mid=phase == "A", store=phase == "B")
+
+
+def _phase_plain(x, cp, ph, stages, *, pre, mid, store):
+    """Stages s0 .. s1 - 1 of tall phase ph over its view (B, rows, inner
+    * ncols) of x, in plain PyTorch ops: the 'pre' operands first where
+    pre, then the mid step where mid, or the store operations where store
+    (tall_phase_plain's and launch_plain's)."""
+    xb, squeeze = _batched(x, cp)
+    s0, s1 = stages
     B, nn, c = xb.shape
     v = M.to_carrier(xb)
-    if phase == "A":
+    if pre:
         v = _mul_at(v, cp, "pre")
     v = _run_stages(v.reshape(B, ph.rows, ph.inner * c),
-                    M.to_carrier(ph.tw[0]), M.to_carrier(ph.tw[1]), ph.ts,
-                    ph.offsets, cp.direction, cp.red).reshape(B, nn, c)
-    v = _mid_move(v, cp) if phase == "A" else _store_ops(v, cp)
+                    M.to_carrier(ph.tw[0]), M.to_carrier(ph.tw[1]),
+                    ph.ts[s0:s1], ph.offsets[s0:s1], cp.direction,
+                    cp.red).reshape(B, nn, c)
+    if mid:
+        v = _mid_move(v, cp)
+    elif store:
+        v = _store_ops(v, cp)
     out = M.from_carrier(v).contiguous()
     return out[0] if squeeze else out
 
@@ -618,13 +651,6 @@ def tile_address(row, c, log_tl: int, shift: int):
     row = np.asarray(row, dtype=np.int64)
     slot = (row ^ (row >> shift)) & ((1 << b) - 1)
     return ((((row >> b) << b) | slot) << log_tl) | np.asarray(c, np.int64)
-
-
-def launch_batches(batch: int) -> list:
-    """The (start, stop) batch rows of each launch: slices of at most
-    MAX_LAUNCH_BATCH rows that cover range(batch) in order."""
-    return [(b, min(b + MAX_LAUNCH_BATCH, batch))
-            for b in range(0, batch, MAX_LAUNCH_BATCH)]
 
 
 def _nvcc_flags(name: str, reduction: str) -> tuple:
@@ -709,12 +735,12 @@ def _library(reduction: str = "harvey4") -> ctypes.CDLL:
     lib.ntt_colpass.restype = ci
     lib.ntt_colpass.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, pi, pi,
                                 vp, ci, vp, vp, ci, vp, vp, ci, vp, vp, ci,
-                                ci, ci, ci, ci, cu, cu, cu, vp]
+                                ci, ci, ci, ci, ci, ci, cu, cu, cu, vp]
     lib.ntt_colpass_error_string.restype = ctypes.c_char_p
     lib.ntt_colpass_error_string.argtypes = [ci]
     lib.ntt_colpass_max_rows.restype = ci
     lib.ntt_colpass_kernel_info.restype = ci
-    lib.ntt_colpass_kernel_info.argtypes = [ci] * 8 + [pi] * 3
+    lib.ntt_colpass_kernel_info.argtypes = [ci] * 9 + [pi] * 3
     lib.ntt_reduction_name.restype = ctypes.c_char_p
     if lib.ntt_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/colpass.cu kMaxRows disagrees with MAX_ROWS")
@@ -744,7 +770,9 @@ def launch_info(cp, ncols: int, query, error_string, *,
         log_tl = launch["tile_cols"].bit_length() - 1
         kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
         with torch.cuda.device(cp.tw.device):
-            err = query(launch["tall"], int(cp.direction == "dit"),
+            err = query(launch["tall"],
+                        int(bool(launch["log_hq"] or launch["log_lp"])),
+                        int(cp.direction == "dit"),
                         int(launch["transpose_out"]),
                         int(launch["mat"] is not None), launch["pre_form"],
                         launch["post_form"], launch["rows"], log_tl, kfuse,
@@ -767,9 +795,10 @@ def variant(cp, phase: str | None = None) -> str:
     launches, by its direction and operands, e.g. 'dif+pre+post_t+T' or
     'dit+wfac_post+T'
     (T: transpose_out): ``colpass.launches_by``'s and
-    ``gl_colpass.launches_by``'s key. phase 'A' or 'B': the key of that
-    launch of a tall cp's route, the pass's own with '+tallA' or
-    '+tallB'."""
+    ``gl_colpass.launches_by``'s key. phase 'A' or 'B' (or, of a split
+    phase, 'A1', 'A2', 'B1', 'B2': ``launch_keys``): the key of that
+    launch of a tall cp's route, the pass's own with '+tallA' (and so
+    on)."""
     parts = [cp.direction]
     for pos in FACTOR_POSITIONS:
         mat = cp.pre if pos == "pre" else cp.post
@@ -839,62 +868,216 @@ def network_args(cp: ColPass) -> list:
             _log_a(cp), *mid]
 
 
-# csrc/colpass_tile.cuh Tall: one launch of a whole column, or a phase
-TALL_WHOLE, TALL_A, TALL_B = range(3)
+# csrc/colpass_tile.cuh Tall: one launch of a whole column; a phase's
+# launch that loads with its 'pre' operands and stores the mid multiply and
+# the row move (A), or stores with the pass's store operations or in place
+# (B); a split phase A's first launch, 'pre' on load and stored in place
+# (PRE)
+TALL_WHOLE, TALL_A, TALL_B, TALL_PRE = range(4)
 
 
-def launch_plan(cp, ncols: int, *, itemsize: int = 4) -> list:
+def tall_shape(nn: int, direction: str) -> tuple:
+    """((rows, inner) of phase A, (rows, inner) of phase B) of a tall
+    column of nn rows, from the shape of its nested network alone
+    (twiddles.nested_col_split: R = 2^floor(log2(nn) / 2) rows in the DIF
+    network's phase 0, S = nn / R in the DIT network's)."""
+    R = tw.nested_col_split(nn)
+    S = nn // R
+    a, b = (R, S) if direction == "dif" else (S, R)
+    return (a, nn // a), (b, nn // b)
+
+
+def phase_groups(rows: int, direction: str,
+                 max_rows: int = MAX_ROWS) -> list:
+    """The launches of one tall phase, a plain network of `rows` points:
+    [(group, s0, s1, log_p, log_q)], stages s0 .. s1 - 1 of the phase
+    each. A phase of at most max_rows rows is one launch (group None,
+    every stage). A taller one, rows = P * Q (P = 2^floor(log2(rows) / 2),
+    Q = rows / P, both at most max_rows for rows up to max_rows^2), is two:
+    'hi', the stages of half size t >= Q, which pair rows p * Q + q that
+    share q, a P-row network over the view (B, P, Q * cols) with the
+    twiddle of (p, view column j) at t's table offset + (p mod t / Q) * Q +
+    j / cols; and 'lo', the stages t < Q, a Q-row network over B * P
+    arrays (Q, cols) with the ordinary tables. DIF runs hi then lo, DIT lo
+    then hi."""
+    log_r = rows.bit_length() - 1
+    if rows <= max_rows:
+        return [(None, 0, log_r, 0, log_r)]
+    log_p = log_r // 2
+    log_q = log_r - log_p
+    if (1 << log_p) > max_rows or (1 << log_q) > max_rows:
+        raise ValueError(f"a {rows}-row phase does not split into launches "
+                         f"of at most {max_rows} rows")
+    if direction == "dif":  # ts = rows/2 .. 1: the first log_p are >= Q
+        return [("hi", 0, log_p, log_p, log_q),
+                ("lo", log_p, log_r, log_p, log_q)]
+    return [("lo", 0, log_q, log_p, log_q),  # ts = 1 .. rows/2
+            ("hi", log_q, log_r, log_p, log_q)]
+
+
+def launch_shapes(nn: int, ncols: int, direction: str, *, itemsize: int = 4,
+                  max_rows: int = MAX_ROWS) -> list:
+    """[(rows, ncols, batch multiple, tile columns)] of each launch of a
+    pass over (.., nn, ncols), from the shapes alone (``launch_plan``'s
+    launches, without building a pass): a column of at most MAX_ROWS rows
+    is one launch, a taller one its phases' groups (``phase_groups``).
+    Raises ValueError for a non-power-of-two side."""
+    for what, v in (("nn", nn), ("ncols", ncols)):
+        if v < 1 or v & (v - 1):
+            raise ValueError(f"{what} must be a power of two, got {v}")
+    if nn <= MAX_ROWS:
+        return [(nn, ncols, 1, tile_cols(nn, ncols, itemsize))]
+    out = []
+    for rows, inner in tall_shape(nn, direction):
+        for group, _, _, log_p, log_q in phase_groups(rows, direction,
+                                                      max_rows):
+            r, c, mult = rows, inner * ncols, 1
+            if group == "hi":
+                r, c = 1 << log_p, (inner * ncols) << log_q
+            elif group == "lo":
+                r, mult = 1 << log_q, 1 << log_p
+            out.append((r, c, mult, tile_cols(r, c, itemsize)))
+    return out
+
+
+def launch_plan(cp, ncols: int, *, itemsize: int = 4,
+                max_rows: int = MAX_ROWS) -> list:
     """The launches of one pass of cp (a ColPass or a GLColPass) over
-    (.., cp.nn, ncols), each a dict of what the kernel takes: "tall"
-    (TALL_WHOLE, TALL_A, TALL_B), "key" (``variant``), "rows" and "ncols"
-    (the launch's view), "inner" (the factor of nn on the view's columns,
-    1 for a whole column), "phase" (its TallPhase, or None), "tile_cols",
-    "shift", and the pass's operands: "pre_form"/"pre"/"pre2",
-    "post_form"/"post"/"post2" (``_operand_forms``), "mat", "mid",
-    "transpose_out" and "canonicalize". One launch for a column of up
-    to MAX_ROWS rows; a tall cp's two, each given the whole pass's
-    operands, of which its kernel applies its phase's (phase A the 'pre'
-    operands and the mid step, phase B the rest); ValueError where a
-    phase has more than MAX_ROWS rows (a tall column above MAX_ROWS^2 =
-    2^26 rows)."""
+    (.., cp.nn, ncols), each a dict of what its kernel takes: "tall"
+    (TALL_WHOLE, TALL_A, TALL_B, TALL_PRE), "key" (``variant``), "rows"
+    and "ncols" (the launch's view), "inner" (the factor of nn on the
+    view's columns, 1 for a whole column), "batch_mult" (the launch's
+    batch rows a row of the pass's: a 'lo' group's P, else 1), "phase"
+    (its TallPhase, or None), "group", "stages" (the phase's stages it
+    runs), "ts"/"offsets" (its network: a 'hi' group's half sizes t / Q
+    at the phase table's offsets), "log_hq"/"log_lp" (a 'hi' group's
+    log2 Q, a 'lo' group's log2 P, else 0), "tile_cols", "shift", and the
+    operands it applies: "pre_form"/"pre"/"pre2" on load,
+    "post_form"/"post"/"post2", "mat", "transpose_out" and
+    "canonicalize" on store (``_operand_forms``), "mid" (the tall
+    network's mid vector, which a TALL_A launch's store multiplies by),
+    and "store_ops" (whether it stores with the pass's store operations).
+
+    One launch for a column of up to MAX_ROWS rows (a one-row column's
+    is its operands alone); a tall cp's phases' launches: a phase of up
+    to max_rows rows is one (A: the 'pre' operands on load, the mid
+    multiply and the row move on store; B: the 'post' operands, the
+    transpose, 'post_t' and canonicalize on store), a taller one two
+    (``phase_groups``; A's first takes the 'pre' operands and stores in
+    place, its last the mid step; B's first stores in place, its last
+    the store operations). max_rows: the limit on a phase's launch (the
+    kernels' MAX_ROWS; the CPU tests lower it)."""
     (pre_form, pre, pre2), (post_form, post, post2) = _operand_forms(cp)
     mid = cp.wmid_pairs if isinstance(cp, ColPass) else cp.wmid
-    whole = dict(pre_form=pre_form, pre=pre, pre2=pre2, post_form=post_form,
-                 post=post, post2=post2, mat=cp.wmat, mid=mid,
-                 transpose_out=cp.transpose_out,
-                 canonicalize=getattr(cp, "canonicalize", False))
+    canon = getattr(cp, "canonicalize", False)
+    loads = dict(pre_form=pre_form, pre=pre, pre2=pre2)
+    no_load = dict(pre_form=OP_NONE, pre=None, pre2=None)
+    stores = dict(post_form=post_form, post=post, post2=post2, mat=cp.wmat,
+                  transpose_out=cp.transpose_out, canonicalize=canon,
+                  store_ops=True)
+    in_place = dict(post_form=OP_NONE, post=None, post2=None, mat=None,
+                    transpose_out=False, canonicalize=False, store_ops=False)
+    ts_all = tuple(t for ph in cp.phases_ts for t in ph)
     if cp.tall is None:
         tl = tile_cols(cp.nn, ncols, itemsize)
-        return [dict(whole, tall=TALL_WHOLE, key=variant(cp), rows=cp.nn,
-                     ncols=ncols, inner=1, phase=None, tile_cols=tl,
+        return [dict(loads, **stores, mid=mid, tall=TALL_WHOLE,
+                     key=variant(cp), rows=cp.nn, ncols=ncols, inner=1,
+                     batch_mult=1, phase=None, group=None,
+                     stages=(0, len(ts_all)), ts=ts_all, offsets=cp.offsets,
+                     log_hq=0, log_lp=0, tile_cols=tl,
                      shift=tile_shift(cp, tl.bit_length() - 1))]
     if ncols & (ncols - 1):
         raise ValueError(f"ncols must be a power of two, got {ncols}")
     out = []
     for ph in cp.tall:
-        if ph.rows > MAX_ROWS:
-            raise ValueError(
-                f"the CUDA column pass runs a {cp.nn}-row column as two "
-                f"phases of at most {MAX_ROWS} rows; its phase {ph.phase} "
-                f"has {ph.rows}")
-        tl = tile_cols(ph.rows, ph.inner * ncols, itemsize)
-        launch = dict(whole, tall=TALL_A if ph.phase == "A" else TALL_B,
-                      key=variant(cp, ph.phase), rows=ph.rows,
-                      ncols=ph.inner * ncols, inner=ph.inner, phase=ph,
-                      tile_cols=tl, shift=max(5 - (tl.bit_length() - 1),
-                                              ph.rows.bit_length() - 1))
-        out.append(launch)
+        groups = phase_groups(ph.rows, cp.direction, max_rows)
+        for i, (group, s0, s1, log_p, log_q) in enumerate(groups):
+            first, last = i == 0, i == len(groups) - 1
+            rows, vc, inner, mult = ph.rows, ph.inner * ncols, ph.inner, 1
+            ts = ph.ts[s0:s1]
+            log_hq = log_lp = 0
+            if group == "hi":
+                rows, vc, inner = 1 << log_p, vc << log_q, inner << log_q
+                ts, log_hq = tuple(t >> log_q for t in ts), log_q
+            elif group == "lo":
+                rows, mult, log_lp = 1 << log_q, 1 << log_p, log_p
+            if ph.phase == "A":
+                tall = (TALL_A if last
+                        else TALL_PRE if pre_form != OP_NONE else TALL_B)
+                ops = dict(loads if first else no_load, **in_place)
+            else:
+                tall = TALL_B
+                ops = dict(no_load, **(stores if last else in_place))
+            tl = tile_cols(rows, vc, itemsize)
+            name = ph.phase + ("" if len(groups) == 1 else str(i + 1))
+            out.append(dict(
+                ops, mid=mid, tall=tall, key=variant(cp, name), rows=rows,
+                ncols=vc, inner=inner, batch_mult=mult, phase=ph,
+                group=group, stages=(s0, s1), ts=ts,
+                offsets=ph.offsets[s0:s1], log_hq=log_hq, log_lp=log_lp,
+                tile_cols=tl, shift=max(5 - (tl.bit_length() - 1),
+                                        rows.bit_length() - 1)))
     return out
+
+
+def launch_keys(cp) -> list:
+    """The suffixes of cp's tall launches ('A', 'B', or 'A1', 'A2', 'B1',
+    'B2' where a phase is split), in order: ``variant(cp, suffix)`` is each
+    launch's key."""
+    if cp.tall is None:
+        return []
+    out = []
+    for ph in cp.tall:
+        n = len(phase_groups(ph.rows, cp.direction))
+        out += [ph.phase] if n == 1 else [f"{ph.phase}{i + 1}"
+                                          for i in range(n)]
+    return out
+
+
+def _launch_of(cp, ncols: int, phase: str, *, itemsize: int = 4) -> dict:
+    """The launch of cp's plan whose key is variant(cp, phase)."""
+    key = variant(cp, phase)
+    for launch in launch_plan(cp, ncols, itemsize=itemsize):
+        if launch["key"] == key:
+            return launch
+    raise ValueError(f"no launch {phase!r} of a {cp.nn}-row column pass "
+                     f"(its launches: {launch_keys(cp)})")
+
+
+def launch_plain(x: torch.Tensor, cp: ColPass, launch: dict) -> torch.Tensor:
+    """One launch of launch_plan(cp, ncols) in plain PyTorch ops, on its
+    input, (B, nn, ncols) (or a 2-D one): the whole pass
+    (colpass_plain), or the launch's stages over its phase's view (B,
+    rows, inner * ncols), with the operands it applies: the 'pre' ones
+    before, after them the mid step (TALL_A) or the store operations
+    (store_ops). Its output is (B, nn, ncols), or (B, ncols, nn) where it
+    transposes; the launches of a plan compose to colpass_plain bit for
+    bit."""
+    if launch["tall"] == TALL_WHOLE:
+        return colpass_plain(x, cp)
+    return _phase_plain(x, cp, launch["phase"], launch["stages"],
+                        pre=launch["pre_form"] != OP_NONE,
+                        mid=launch["tall"] == TALL_A,
+                        store=launch["store_ops"])
 
 
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def launch_batches(batch: int, mult: int = 1) -> list:
+    """The (start, stop) batch rows of each launch: slices of at most
+    MAX_LAUNCH_BATCH launch rows that cover range(batch) in order, where a
+    batch row is `mult` launch rows (a 'lo' group's P arrays: a slice
+    keeps each row's whole)."""
+    step = max(1, MAX_LAUNCH_BATCH // mult)
+    return [(b, min(b + step, batch)) for b in range(0, batch, step)]
+
+
 def _launch(xb: torch.Tensor, cp: ColPass,
-            phase: str | None = None) -> torch.Tensor:
-    """cp's launches on xb (B, nn, ncols), or the one launch of a tall
-    cp's phase 'A' or 'B'."""
+            launches: list | None = None) -> torch.Tensor:
+    """cp's launches on xb (B, nn, ncols) (launch_plan's, or these of
+    them, in turn)."""
     for name, t in (("tw", cp.tw_pairs), ("wmid", cp.wmid_pairs),
                     ("wmat", cp.wmat), ("pre", cp.pre), ("post", cp.post),
                     *((f"wfac[{i}]", t) for i, t in enumerate(cp.wfac or ())),
@@ -906,38 +1089,39 @@ def _launch(xb: torch.Tensor, cp: ColPass,
     if not xb.is_contiguous():
         raise ValueError("the CUDA column pass takes contiguous tensors")
     B, nn, c = xb.shape
-    launches = [launch for launch in launch_plan(cp, c)
-                if phase is None or launch["key"] == variant(cp, phase)]
+    if launches is None:
+        launches = launch_plan(cp, c)
     lib = _library(cp.red.name)
     src = xb
     for launch in launches:
-        transposed = cp.transpose_out and launch["tall"] != TALL_A
-        out_shape = (B, c, nn) if transposed else (B, nn, c)
+        out_shape = (B, c, nn) if launch["transpose_out"] else (B, nn, c)
         out = torch.empty(out_shape, dtype=torch.int32, device=xb.device)
         ph = launch["phase"]
-        if ph is None:
-            net = [*_stage_args(cp), cp.tw_pairs.data_ptr(), _log_a(cp)]
-        else:
-            n = len(ph.ts)
-            net = [n, n, (ctypes.c_int * n)(*ph.ts),
-                   (ctypes.c_int * n)(*ph.offsets), ph.tw_pairs.data_ptr(),
-                   -1]
+        n = len(launch["ts"])
+        tw_pairs = cp.tw_pairs if ph is None else ph.tw_pairs
+        net = [n, len(cp.phases_ts[0]) if ph is None else n,
+               (ctypes.c_int * n)(*launch["ts"]),
+               (ctypes.c_int * n)(*launch["offsets"]), tw_pairs.data_ptr(),
+               _log_a(cp) if ph is None else -1]
         tables = [_ptr(launch["mid"]), _ptr(launch["mat"]),
                   launch["pre_form"], _ptr(launch["pre"]),
                   _ptr(launch["pre2"]), launch["post_form"],
                   _ptr(launch["post"]), _ptr(launch["post2"]), log_s(cp)]
-        key = launch["key"]
+        key, mult = launch["key"], launch["batch_mult"]
+        plane = nn * c
         with torch.cuda.device(xb.device):
             stream = torch.cuda.current_stream(xb.device).cuda_stream
-            for b0, b1 in launch_batches(B):
+            for b0, b1 in launch_batches(B, mult):
                 err = lib.ntt_colpass(
-                    src[b0:b1].data_ptr(), out[b0:b1].data_ptr(), b1 - b0,
+                    src.data_ptr() + 4 * b0 * plane,
+                    out.data_ptr() + 4 * b0 * plane, (b1 - b0) * mult,
                     launch["rows"], launch["ncols"],
                     launch["tile_cols"].bit_length() - 1,
                     int(cp.direction == "dit"), *net, *tables,
                     int(launch["transpose_out"]), int(launch["canonicalize"]),
                     launch["tall"], launch["inner"].bit_length() - 1,
-                    cp.red.p, *cp.red.consts, stream)
+                    launch["log_hq"], launch["log_lp"], cp.red.p,
+                    *cp.red.consts, stream)
                 if err != 0:
                     raise RuntimeError(
                         f"CUDA column pass launch failed ({key}): "
@@ -969,16 +1153,29 @@ colpass.launches_by = {}
 
 
 def colpass_phase(x: torch.Tensor, cp: ColPass, phase: str) -> torch.Tensor:
-    """One launch of a tall cp's route, phase 'A' or 'B' (the input and
-    output of ``tall_phase_plain``): the kernel for a CUDA tensor, counted
-    in ``colpass.launches`` as colpass counts it, the plain version for a
-    CPU tensor. The card's checks hold each launch against its plain
-    version with it; the plans run both through ``colpass``."""
-    if cp.tall is None or phase not in ("A", "B"):
+    """One launch of a tall cp's route, the one whose key is variant(cp,
+    phase) (``launch_keys``: phase 'A' or 'B', the input and output of
+    ``tall_phase_plain``, or of a split phase 'A1', 'A2', 'B1', 'B2'): the
+    kernel for a CUDA tensor, counted in ``colpass.launches`` as colpass
+    counts it, its plain version (``launch_plain``) for a CPU tensor. The
+    card's checks hold each launch against its plain version with it; the
+    plans run them all through ``colpass``."""
+    if phase not in launch_keys(cp):
         raise ValueError(f"no phase {phase!r} of a {cp.nn}-row column pass "
-                         f"(a tall route's are 'A' and 'B')")
-    if x.device.type == "cpu":
-        return tall_phase_plain(x, cp, phase)
+                         f"(its launches: {launch_keys(cp)})")
+    ncols = x.shape[-1]
+    return colpass_launch(x, cp, _launch_of(cp, ncols, phase))
+
+
+def colpass_launch(x: torch.Tensor, cp: ColPass,
+                   launch: dict) -> torch.Tensor:
+    """One launch of launch_plan(cp, ncols, ...) on its input (also of a
+    plan with a lower max_rows, whose launches the kernels take as well):
+    the kernel for a CUDA tensor, counted in ``colpass.launches`` as
+    colpass counts it, ``launch_plain`` for a CPU tensor."""
     xb, squeeze = _batched(x, cp)
-    out = _launch(xb, cp, phase)
+    if xb.device.type == "cpu":
+        out = launch_plain(xb, cp, launch)
+    else:
+        out = _launch(xb, cp, [launch])
     return out[0] if squeeze else out

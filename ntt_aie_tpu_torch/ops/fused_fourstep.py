@@ -23,11 +23,20 @@ plain version, ``fused_fourstep_plain``; on a CUDA tensor it launches the
 kernel in ``csrc/fused_fourstep.cu`` or raises — there is no fallback, no
 switch to two launches. Tensors are ``torch.int32`` holding uint32 bit
 patterns: (B, nn_a, nn_b) in, (B, nn_b, nn_a) canonical out; a 2-D input
-is a batch of one. The kernel takes its tiles from two counters and
-resets them itself (phase A's is zero after every launch, phase B's is
-zeroed before phase B), so two launches that overlap must not share them:
-``FusedFourstep.counters`` keeps one pair per CUDA stream, and launches on
-one stream run one after another.
+is a batch of one.
+
+A side above one tile (more than colpass.MAX_ROWS rows) does not fit a
+block's shared memory: the one cooperative launch then runs a short list
+of steps with a grid sync between them (``fused_steps``): each side the
+launches its column pass would run on the card (``colpass.launch_plan``:
+a whole column, or its tall route's phases, a phase above MAX_ROWS rows
+split in two), side a with 'pre' on its first load and wmid on its
+transposing store, side b with 'post' and canonicalize on its last store.
+``fused_step_plain`` is one step's plain version. The kernel takes each
+step's tiles from its own counter and resets them itself (step 0's is zero
+after every launch, the others are zeroed as it starts), so two launches
+that overlap must not share them: ``FusedFourstep.counters`` keeps one
+buffer per CUDA stream, and launches on one stream run one after another.
 """
 
 from __future__ import annotations
@@ -44,6 +53,17 @@ from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.reductions import Reduction
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
+# csrc/fused_fourstep.cu StepCode
+(STEP_WHOLE_A, STEP_WHOLE_A_PRE, STEP_WHOLE_B, STEP_WHOLE_B_POST,
+ STEP_TALL_A_PRE, STEP_TALL_A, STEP_TALL_PRE, STEP_IN_PLACE, STEP_TALL_BT,
+ STEP_TALL_B_POST) = range(10)
+_WHOLE = (STEP_WHOLE_A, STEP_WHOLE_A_PRE, STEP_WHOLE_B, STEP_WHOLE_B_POST)
+# csrc/fused_fourstep.cu StepBuf
+_BUFS = {"x": 0, "out": 1, "scratch": 2}
+_STAGES = 16  # colpass_tile.cuh kMaxStages
+_STEP_INTS = 15 + 2 * _STAGES
+_STEP_PTRS = 13
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class FusedFourstep:
@@ -54,8 +74,16 @@ class FusedFourstep:
       form (``Reduction.pair``), as pre and post are.
     pre: (2, nn_a, nn_b) multiply before side a, or None.
     post: (2, nn_b, nn_a) multiply after side b, or None.
-    streams: the kernel's tile counters, one (2,) int32 pair per CUDA
-      stream handle (``counters``).
+    sides: the two sides as column passes with their operands (side a:
+      net_a with pre as 'pre', wmid as 'post_t', transposing; side b:
+      net_b with post as 'post', canonicalize), the passes whose launches
+      are the kernel's steps (``fused_steps``); a tall side's operands are
+      contiguous pairs (the steps' tables), a whole side's views of the
+      planes above.
+    streams: the kernel's tile counters, one int32 buffer (a counter a
+      step) per CUDA stream handle (``counters``).
+    steps: ``fused_steps``' lists by row limit, and each list's launch
+      arguments, made at first use.
     """
 
     red: Reduction
@@ -65,24 +93,27 @@ class FusedFourstep:
     wmid: torch.Tensor
     pre: torch.Tensor | None
     post: torch.Tensor | None
+    sides: tuple = ()
     streams: dict = dataclasses.field(default_factory=dict, repr=False)
+    steps: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def shape_in(self) -> tuple:
         return (self.net_a.nn, self.net_b.nn)
 
-    def counters(self, stream: int) -> torch.Tensor:
-        """The tile counters of phases A and B for launches on the stream
-        with this handle: made zero on the plan's device at the first call
-        (on the current stream, so before any launch that uses them). Each
-        launch leaves phase A's at zero and zeroes phase B's before it takes
-        a phase-B tile."""
-        pair = self.streams.get(stream)
-        if pair is None:
-            pair = self.streams.setdefault(
-                stream, torch.zeros(2, dtype=torch.int32,
-                                    device=self.wmid.device))
-        return pair
+    def counters(self, stream: int, steps: int = 2) -> torch.Tensor:
+        """The tile counters of a launch of `steps` steps (two for two
+        whole sides, one a step) on the stream with this handle: made zero
+        on the plan's device at the first call, or where the buffer has
+        fewer counters (on the current stream, so before any launch that
+        uses them). Each launch leaves step 0's at zero and zeroes the
+        others before it takes their tiles."""
+        buf = self.streams.get(stream)
+        if buf is None or buf.numel() < steps:
+            buf = torch.zeros(steps, dtype=torch.int32,
+                              device=self.wmid.device)
+            self.streams[stream] = buf
+        return buf
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return fused_fourstep(x, self)
@@ -115,10 +146,23 @@ def make_fused_fourstep(field, n1: int, n2: int, *, inverse: bool = False,
             raise ValueError(f"{name} is {m.shape}, expected {shape}")
         return C._pair(*red.pair(m), device)
 
+    wmid_t = operand(wmid, (nn_b, nn_a), "wmid")
+    pre_t = operand(pre, (nn_a, nn_b), "pre")
+    post_t = operand(post, (nn_b, nn_a), "post")
+
+    def pairs(t, net):  # (2, r, c) -> (r, c, 2), contiguous for a tall side
+        if t is None:
+            return None
+        t = t.movedim(0, -1)
+        return t.contiguous() if net.tall is not None else t
+
+    sides = (dataclasses.replace(net_a, pre=pairs(pre_t, net_a),
+                                 wmat=pairs(wmid_t, net_a),
+                                 transpose_out=True),
+             dataclasses.replace(net_b, post=pairs(post_t, net_b),
+                                 canonicalize=True))
     return FusedFourstep(red=red, inverse=inverse, net_a=net_a, net_b=net_b,
-                         wmid=operand(wmid, (nn_b, nn_a), "wmid"),
-                         pre=operand(pre, (nn_a, nn_b), "pre"),
-                         post=operand(post, (nn_b, nn_a), "post"))
+                         wmid=wmid_t, pre=pre_t, post=post_t, sides=sides)
 
 
 def _batched(x: torch.Tensor, ff: FusedFourstep):
@@ -152,28 +196,104 @@ def fused_fourstep_plain(x: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
+def fused_steps(ff: FusedFourstep, *, max_rows: int = C.MAX_ROWS) -> list:
+    """The steps of ff's launch, in order: side a's launches
+    (colpass.launch_plan of ff.sides[0] over nn_b columns), then side b's
+    (of ff.sides[1] over nn_a): two whole-side steps where both sides fit
+    a tile, else a side's tall route's. Each a dict: "name" (the side, and
+    a tall launch's suffix: 'a', 'bA', 'bB1', ...), "side", "cp" (the
+    side's pass), "launch", "code" (csrc/fused_fourstep.cu StepCode), and
+    its buffers "src" ('x', then the previous step's "dst") and "dst"
+    ('out' and 'scratch' in turn, so the last step writes 'out').
+    max_rows: launch_plan's (the card's checks lower it to run split
+    phases at small sizes). Made once a row limit (ff.steps)."""
+    if max_rows in ff.steps:
+        return ff.steps[max_rows]
+    nn_a, nn_b = ff.shape_in
+    side_a, side_b = ff.sides
+    plan = ([("a", side_a, launch)
+             for launch in C.launch_plan(side_a, nn_b, max_rows=max_rows)]
+            + [("b", side_b, launch)
+               for launch in C.launch_plan(side_b, nn_a, max_rows=max_rows)])
+    out = []
+    for k, (side, cp, launch) in enumerate(plan):
+        tall = launch["tall"]
+        if tall == C.TALL_WHOLE and side == "a":
+            code = STEP_WHOLE_A_PRE if ff.pre is not None else STEP_WHOLE_A
+        elif tall == C.TALL_WHOLE:
+            code = STEP_WHOLE_B_POST if ff.post is not None else STEP_WHOLE_B
+        elif tall == C.TALL_A:
+            code = (STEP_TALL_A_PRE if launch["pre_form"] != C.OP_NONE
+                    else STEP_TALL_A)
+        elif tall == C.TALL_PRE:
+            code = STEP_TALL_PRE
+        elif side == "a" and launch["store_ops"]:
+            code = STEP_TALL_BT
+        elif launch["post_form"] != C.OP_NONE:
+            code = STEP_TALL_B_POST
+        else:  # in place, or side b's last without 'post'
+            code = STEP_IN_PLACE
+        suffix = launch["key"].rpartition("+tall")[2] if tall else ""
+        out.append({"name": side + suffix, "side": side, "cp": cp,
+                    "launch": launch, "code": code,
+                    "src": out[-1]["dst"] if out else "x",
+                    "dst": "out" if (len(plan) - 1 - k) % 2 == 0
+                    else "scratch"})
+    return ff.steps.setdefault(max_rows, out)
+
+
+def fused_key(ff: FusedFourstep, steps: list | None = None) -> str:
+    """``fused_fourstep.launches_by``'s key of a launch of ff: its
+    direction and operands, and its steps' names (fused_steps, or these),
+    e.g. 'dif+pre:a,b' or 'dit:aA,aB,b'."""
+    parts = ["dit" if ff.inverse else "dif"]
+    parts += [name for name, t in (("pre", ff.pre), ("post", ff.post))
+              if t is not None]
+    names = [st["name"] for st in (steps or fused_steps(ff))]
+    return "+".join(parts) + ":" + ",".join(names)
+
+
+def fused_step_plain(x: torch.Tensor, ff: FusedFourstep, k: int, *,
+                     max_rows: int = C.MAX_ROWS) -> torch.Tensor:
+    """Step k of ff's launch (``fused_steps``) in plain PyTorch ops, in its
+    own view: x holds the step's input (B * n values: the transform's
+    input for step 0, the previous step's output after it), viewed as its
+    side's (B, nn, ncols); the output is colpass.launch_plain's, (B, nn,
+    ncols), or (B, ncols, nn) where the step transposes. The steps compose
+    to fused_fourstep_plain bit for bit (at any max_rows of
+    fused_steps)."""
+    step = fused_steps(ff, max_rows=max_rows)[k]
+    cp = step["cp"]
+    ncols = ff.net_b.nn if step["side"] == "a" else ff.net_a.nn
+    return C.launch_plain(x.reshape(-1, cp.nn, ncols), cp, step["launch"])
+
+
 # ---- CUDA kernel -----------------------------------------------------------
 
-def fused_shape_check(nn_a: int, nn_b: int, batch: int) -> tuple:
+def fused_shape_check(nn_a: int, nn_b: int, batch: int, *,
+                      inverse: bool = False) -> tuple:
     """The H100 route's limits, checked before a launch: each side a power
-    of two of at most colpass.MAX_ROWS rows (one column tile in an H100
-    block's 227 KB of shared memory, colpass.tile_cols' rules), and at most
-    2^30 tiles a phase. Returns the tile widths (TL_a, TL_b) of phases A
-    and B; raises ValueError above the limits."""
+    of two, and at most 2^30 tiles a step. Returns the tile width (TL) of
+    each step (``fused_steps``: (TL_a, TL_b) where each side fits a tile,
+    colpass.tile_cols' rules; a tall side's launches' otherwise,
+    colpass.launch_shapes of the forward (DIF) or inverse (DIT) network);
+    raises ValueError above the limits."""
     if batch < 1:
         raise ValueError(f"batch must be at least 1, got {batch}")
+    direction = "dit" if inverse else "dif"
     try:
-        tl_a, tl_b = C.tile_cols(nn_a, nn_b), C.tile_cols(nn_b, nn_a)
+        shapes = (C.launch_shapes(nn_a, nn_b, direction)
+                  + C.launch_shapes(nn_b, nn_a, direction))
     except ValueError as e:
         raise ValueError(
             f"the fused four-step kernel does not take ({nn_a}, {nn_b}): "
-            f"each side must be a power of two of at most {C.MAX_ROWS} rows "
-            f"on an H100 ({e})") from None
-    if batch * max(nn_b // tl_a, nn_a // tl_b) > (1 << 30):
+            f"each side must be a power of two ({e})") from None
+    if max(batch * mult * ncols // tl
+           for _, ncols, mult, tl in shapes) > (1 << 30):
         raise ValueError(f"the fused four-step kernel takes at most 2^30 "
-                         f"tiles a phase; batch {batch} of ({nn_a}, {nn_b}) "
+                         f"tiles a step; batch {batch} of ({nn_a}, {nn_b}) "
                          "is more")
-    return tl_a, tl_b
+    return tuple(tl for *_, tl in shapes)
 
 
 @functools.cache
@@ -188,6 +308,11 @@ def _library(reduction: str = "harvey4") -> ctypes.CDLL:
         + [vp] * 6 + [ctypes.c_uint] * 3 + [vp])
     lib.ntt_fused_kernel_info.restype = ci
     lib.ntt_fused_kernel_info.argtypes = [ci] * 6 + [pi] * 3
+    lib.ntt_fused_steps.restype = ci
+    lib.ntt_fused_steps.argtypes = ([vp] * 4 + [ci] * 3 + [pi, vp]
+                                    + [ctypes.c_uint] * 3 + [vp])
+    lib.ntt_fused_steps_info.restype = ci
+    lib.ntt_fused_steps_info.argtypes = [ci, ci, pi, vp] + [pi] * 3
     lib.ntt_fused_error_string.restype = ctypes.c_char_p
     lib.ntt_fused_error_string.argtypes = [ci]
     lib.ntt_reduction_name.restype = ctypes.c_char_p
@@ -203,33 +328,94 @@ def _check(err: int, lib, what: str) -> None:
                            + lib.ntt_fused_error_string(err).decode())
 
 
+def _whole(steps) -> bool:
+    """Whether a step list is two whole sides (fused_kernel's launch)."""
+    return all(st["code"] in _WHOLE for st in steps)
+
+
+def _planes(t):
+    return [None, None] if t is None else [t[0].data_ptr(), t[1].data_ptr()]
+
+
+def _step_args(ff: FusedFourstep, steps: list) -> tuple:
+    """The step list as csrc/fused_fourstep.cu's host description: a C
+    array of _STEP_INTS ints a step and one of _STEP_PTRS pointers
+    (StepInt, StepPtr); made once a list (ff.steps)."""
+    key = ("args", id(steps))
+    got = ff.steps.get(key)
+    if got is not None and got[0] is steps:
+        return got[1]
+    ints, ptrs = [], []
+    for st in steps:
+        cp, launch, code = st["cp"], st["launch"], st["code"]
+        whole = code in _WHOLE
+        ts, offs = list(launch["ts"]), list(launch["offsets"])
+        n = len(ts)
+        ints += [code, _BUFS[st["src"]], _BUFS[st["dst"]], launch["rows"],
+                 launch["ncols"], launch["tile_cols"].bit_length() - 1,
+                 launch["batch_mult"], n,
+                 len(cp.phases_ts[0]) if whole else n,
+                 C._log_a(cp) if whole else -1,
+                 int(launch["canonicalize"]),
+                 launch["inner"].bit_length() - 1, launch["log_hq"],
+                 launch["log_lp"], launch["shift"]]
+        ints += ts + [1] * (_STAGES - n) + offs + [0] * (_STAGES - n)
+        if whole:
+            mats = ff.wmid if st["side"] == "a" else ff.post
+            ptrs += (_planes(cp.tw) + _planes(cp.wmid)
+                     + _planes(ff.pre if st["side"] == "a" else None)
+                     + _planes(mats) + [None] * 5)
+        else:
+            ptrs += [None] * 8 + [
+                launch["phase"].tw_pairs.data_ptr(), cp.wmid_pairs.data_ptr(),
+                C._ptr(launch["mat"]), C._ptr(launch["pre"]),
+                C._ptr(launch["post"])]
+    if (len(ints), len(ptrs)) != (_STEP_INTS * len(steps),
+                                   _STEP_PTRS * len(steps)):
+        raise RuntimeError("the step description disagrees with "
+                           "csrc/fused_fourstep.cu StepInt/StepPtr")
+    args = ((ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_void_p * len(ptrs))(*ptrs))
+    ff.steps[key] = (steps, args)
+    return args
+
+
 def kernel_info(ff: FusedFourstep, batch: int = 1) -> dict:
     """What the card gives ff's kernel at this batch, in the library of
     ff's reduction: the build's register group size (kfuse), its registers
     a thread, its co-resident blocks per SM under the cooperative launch,
-    and the grid it launches with."""
+    the grid it launches with, and its steps' names (``fused_steps``; two
+    whole sides run fused_kernel, any other list fused_steps_kernel)."""
     nn_a, nn_b = ff.shape_in
-    tl_a, tl_b = fused_shape_check(nn_a, nn_b, batch)
+    tls = fused_shape_check(nn_a, nn_b, batch, inverse=ff.inverse)
+    steps = fused_steps(ff)
     lib = _library(ff.red.name)
     kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
     with torch.cuda.device(ff.wmid.device):
-        _check(lib.ntt_fused_kernel_info(
-            int(ff.pre is not None), int(ff.post is not None), nn_a, nn_b,
-            tl_a.bit_length() - 1, tl_b.bit_length() - 1, kfuse, regs,
-            per_sm), lib, "occupancy query")
+        if _whole(steps):
+            _check(lib.ntt_fused_kernel_info(
+                int(ff.pre is not None), int(ff.post is not None), nn_a,
+                nn_b, tls[0].bit_length() - 1, tls[1].bit_length() - 1,
+                kfuse, regs, per_sm), lib, "occupancy query")
+        else:
+            ints, ptrs = _step_args(ff, steps)
+            _check(lib.ntt_fused_steps_info(
+                int(ff.inverse), len(steps), ints, ptrs, kfuse, regs,
+                per_sm), lib, "occupancy query")
         sms = torch.cuda.get_device_properties(
             ff.wmid.device).multi_processor_count
-    tiles = batch * max(nn_b // tl_a, nn_a // tl_b)
+    tiles = max(batch * st["launch"]["batch_mult"] * st["launch"]["ncols"]
+                // st["launch"]["tile_cols"] for st in steps)
     return {"kfuse": kfuse.value, "registers": regs.value,
             "blocks_per_sm": per_sm.value, "sms": sms,
-            "grid": min(tiles, per_sm.value * sms)}
+            "grid": min(tiles, per_sm.value * sms),
+            "steps": [st["name"] for st in steps]}
 
 
-def _ptrs(t):
-    return [None, None] if t is None else [t[0].data_ptr(), t[1].data_ptr()]
-
-
-def _launch(xb: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
+def _launch(xb: torch.Tensor, ff: FusedFourstep,
+            steps: list | None = None) -> torch.Tensor:
+    """ff's launch on xb: its fused_steps, or these (a list of
+    fused_steps(ff, max_rows=...), which the card's checks run)."""
     tables = {"net_a.tw": ff.net_a.tw, "net_a.wmid": ff.net_a.wmid,
               "net_b.tw": ff.net_b.tw, "net_b.wmid": ff.net_b.wmid,
               "wmid": ff.wmid, "pre": ff.pre, "post": ff.post}
@@ -240,7 +426,9 @@ def _launch(xb: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
     if not xb.is_contiguous():
         raise ValueError("the fused four-step kernel takes contiguous tensors")
     B, nn_a, nn_b = xb.shape
-    tl_a, tl_b = fused_shape_check(nn_a, nn_b, B)
+    tls = fused_shape_check(nn_a, nn_b, B, inverse=ff.inverse)
+    if steps is None:
+        steps = fused_steps(ff)
     # The scratch is released on return, while the kernel may still run:
     # the caching allocator hands its memory out again only in the order
     # of the stream the kernel runs on.
@@ -250,22 +438,37 @@ def _launch(xb: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
     lib = _library(ff.red.name)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
-        err = lib.ntt_fused_fourstep(
-            xb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            ff.counters(stream).data_ptr(), B, nn_a, nn_b,
-            tl_a.bit_length() - 1, tl_b.bit_length() - 1, int(ff.inverse),
-            *C.network_args(ff.net_a), *C.network_args(ff.net_b),
-            *_ptrs(ff.wmid), *_ptrs(ff.pre), *_ptrs(ff.post), ff.red.p,
-            *ff.red.consts, stream)
+        if _whole(steps):
+            err = lib.ntt_fused_fourstep(
+                xb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                ff.counters(stream).data_ptr(), B, nn_a, nn_b,
+                tls[0].bit_length() - 1, tls[1].bit_length() - 1,
+                int(ff.inverse), *C.network_args(ff.net_a),
+                *C.network_args(ff.net_b), *_planes(ff.wmid),
+                *_planes(ff.pre), *_planes(ff.post), ff.red.p,
+                *ff.red.consts, stream)
+        else:
+            ints, ptrs = _step_args(ff, steps)
+            err = lib.ntt_fused_steps(
+                xb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                ff.counters(stream, len(steps)).data_ptr(), B,
+                int(ff.inverse), len(steps), ints, ptrs, ff.red.p,
+                *ff.red.consts, stream)
     _check(err, lib, "launch")
+    key = fused_key(ff, steps)
     fused_fourstep.launches += 1
+    by = fused_fourstep.launches_by
+    by[key] = by.get(key, 0) + 1
     return out
 
 
 def fused_fourstep(x: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
     """Run one fused transform: the CUDA kernel (one cooperative launch)
     for a CUDA tensor, the plain version for a CPU tensor.
-    ``fused_fourstep.launches`` counts kernel launches."""
+    ``fused_fourstep.launches`` counts kernel launches,
+    ``fused_fourstep.launches_by`` them by transform and step list
+    (``fused_key``: 'dif:a,b' for two whole sides, 'dif:a,bA,bB' with side
+    b tall)."""
     if x.device.type == "cpu":
         return fused_fourstep_plain(x, ff)
     if x.device.type != "cuda":
@@ -276,3 +479,4 @@ def fused_fourstep(x: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
 
 
 fused_fourstep.launches = 0
+fused_fourstep.launches_by = {}

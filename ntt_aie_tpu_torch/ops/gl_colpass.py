@@ -36,8 +36,12 @@ to XLA).
 A column of more than MAX_ROWS rows runs on the card as two launches, the
 two phases of its nested network, as the 32-bit pass's tall route
 (``colpass.tall_phases``; ``gl_tall_phase_plain`` is each launch's plain
-version). Goldilocks needs it most: a 32,768-row column of uint64 values
-takes 256 KB, more than a block's shared memory.
+version), a phase above MAX_ROWS rows as two launches of its own, split
+by stage group (``colpass.phase_groups``; ``gl_launch_plain`` is any
+launch's plain version). Goldilocks needs it most: a 32,768-row column of
+uint64 values takes 256 KB, more than a block's shared memory. A column
+of one row (the split (1, n)) has no stage: its pass is one elementwise
+launch of its operands.
 """
 
 from __future__ import annotations
@@ -170,8 +174,9 @@ def make_gl_colpass(field, nn: int, *, direction: str,
         nn=nn, direction=direction, phases_ts=phases_ts,
         mid_rs=(int(net["R"]), int(net["S"])), transpose_out=transpose_out,
         tw=_u64_tensor(np.concatenate([np.ravel(v) for ph in net["phases"]
-                                       for v in ph["vecs"]]), device),
-        offsets=tuple(int(o) for o in np.cumsum([0] + ts[:-1])),
+                                       for v in ph["vecs"]]
+                                      or [np.zeros(0, np.uint64)]), device),
+        offsets=C.stage_offsets(ts),
         wmid=(_u64_tensor(net["mid"]["wmid"], device)
               if net["mid"] is not None else None),
         wmat=mats.get("post_t"), pre=mats.get("pre"), post=mats.get("post"),
@@ -321,19 +326,42 @@ def gl_tall_phase_plain(x: tuple, cp: GLColPass, phase: str) -> tuple:
     planes to the moved ones, phase 'B' those to the pass's output; B's of
     A's output is gl_colpass_plain's output bit for bit. cp: a nested pass
     of any height."""
-    hi, lo, squeeze = _batched(x, cp)
     ph = (cp.tall or C.tall_phases(cp))["AB".index(phase)]
+    return _phase_plain(x, cp, ph, (0, len(ph.ts)), pre=phase == "A",
+                        mid=phase == "A", store=phase == "B")
+
+
+def _phase_plain(x, cp, ph, stages, *, pre, mid, store):
+    """colpass._phase_plain on limb planes (gl_tall_phase_plain's and
+    gl_launch_plain's)."""
+    hi, lo, squeeze = _batched(x, cp)
+    s0, s1 = stages
     B, nn, c = hi.shape
     h, l = M.to_carrier(hi), M.to_carrier(lo)
-    if phase == "A":
+    if pre:
         h, l = _mul_at(h, l, cp, "pre")
     h, l = _run_stages(h.reshape(B, ph.rows, ph.inner * c),
                        l.reshape(B, ph.rows, ph.inner * c), _limbs(ph.tw),
-                       ph.ts, ph.offsets, cp.direction)
+                       ph.ts[s0:s1], ph.offsets[s0:s1], cp.direction)
     h, l = h.reshape(B, nn, c), l.reshape(B, nn, c)
-    h, l = _mid_move(h, l, cp) if phase == "A" else _store_ops(h, l, cp)
+    if mid:
+        h, l = _mid_move(h, l, cp)
+    elif store:
+        h, l = _store_ops(h, l, cp)
     out = tuple(M.from_carrier(v).contiguous() for v in (h, l))
     return tuple(v[0] for v in out) if squeeze else out
+
+
+def gl_launch_plain(x: tuple, cp: GLColPass, launch: dict) -> tuple:
+    """One launch of colpass.launch_plan(cp, ncols) in plain PyTorch ops
+    on limb planes (colpass.launch_plain's twin): the whole pass, or the
+    launch's stages over its phase's view with the operands it applies."""
+    if launch["tall"] == C.TALL_WHOLE:
+        return gl_colpass_plain(x, cp)
+    return _phase_plain(x, cp, launch["phase"], launch["stages"],
+                        pre=launch["pre_form"] != C.OP_NONE,
+                        mid=launch["tall"] == C.TALL_A,
+                        store=launch["store_ops"])
 
 
 def _mul_operands(a: tuple, b: tuple) -> tuple:
@@ -367,14 +395,14 @@ def _library() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.ntt_gl_colpass.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                    ci, pi, pi, vp, ci, vp, vp, ci, vp, vp,
-                                   ci, vp, vp, ci, ci, ci, ci, vp]
+                                   ci, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.ntt_gl_mul.restype = ci
     lib.ntt_gl_mul.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, vp]
     lib.ntt_gl_error_string.restype = ctypes.c_char_p
     lib.ntt_gl_error_string.argtypes = [ci]
     lib.ntt_gl_colpass_max_rows.restype = ci
     lib.ntt_gl_colpass_kernel_info.restype = ci
-    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 8 + [pi] * 3
+    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 9 + [pi] * 3
     if lib.ntt_gl_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/gl_colpass.cu kMaxRows disagrees with "
                            "MAX_ROWS")
@@ -425,9 +453,9 @@ def _check_launch(err: int, what: str, lib) -> None:
 
 
 def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass,
-            phase: str | None = None) -> tuple:
-    """cp's launches on the (B, nn, ncols) planes, or the one launch of a
-    tall cp's phase 'A' or 'B'."""
+            launches: list | None = None) -> tuple:
+    """cp's launches on the (B, nn, ncols) planes (colpass.launch_plan's,
+    or these of them, in turn)."""
     for name, t in (("tw", cp.tw), ("wmid", cp.wmid), ("wmat", cp.wmat),
                     ("pre", cp.pre), ("post", cp.post),
                     *((f"wfac[{i}]", t) for i, t in enumerate(cp.wfac or ())),
@@ -439,41 +467,42 @@ def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass,
     if not (hi.is_contiguous() and lo.is_contiguous()):
         raise ValueError("the CUDA GL column pass takes contiguous tensors")
     B, nn, c = hi.shape
-    launches = [launch for launch in C.launch_plan(cp, c, itemsize=8)
-                if phase is None or launch["key"] == variant(cp, phase)]
+    if launches is None:
+        launches = C.launch_plan(cp, c, itemsize=8)
     lib = _library()
     src = hi, lo
+    plane = 4 * nn * c
     for launch in launches:
-        transposed = cp.transpose_out and launch["tall"] != C.TALL_A
-        out_shape = (B, c, nn) if transposed else (B, nn, c)
+        out_shape = (B, c, nn) if launch["transpose_out"] else (B, nn, c)
         oh = torch.empty(out_shape, dtype=torch.int32, device=hi.device)
         ol = torch.empty_like(oh)
         ph = launch["phase"]
+        ts, offs = launch["ts"], launch["offsets"]
         if ph is None:
-            ts, offs, k0 = ([t for p in cp.phases_ts for t in p], cp.offsets,
-                            len(cp.phases_ts[0]))
-            tw_ptr, log_a = cp.tw.data_ptr(), C._log_a(cp)
+            k0, tw_ptr, log_a = len(cp.phases_ts[0]), cp.tw.data_ptr(), \
+                C._log_a(cp)
         else:
-            ts, offs, k0 = list(ph.ts), ph.offsets, len(ph.ts)
-            tw_ptr, log_a = ph.tw.data_ptr(), -1
+            k0, tw_ptr, log_a = len(ts), ph.tw.data_ptr(), -1
         n = len(ts)
         ops = [C._ptr(launch["mid"]), C._ptr(launch["mat"]),
                launch["pre_form"], C._ptr(launch["pre"]),
                C._ptr(launch["pre2"]), launch["post_form"],
                C._ptr(launch["post"]), C._ptr(launch["post2"]), C.log_s(cp)]
-        key = launch["key"]
+        key, mult = launch["key"], launch["batch_mult"]
         with torch.cuda.device(hi.device):
             stream = torch.cuda.current_stream(hi.device).cuda_stream
-            for b0, b1 in C.launch_batches(B):
+            for b0, b1 in C.launch_batches(B, mult):
                 err = lib.ntt_gl_colpass(
-                    src[0][b0:b1].data_ptr(), src[1][b0:b1].data_ptr(),
-                    oh[b0:b1].data_ptr(), ol[b0:b1].data_ptr(), b1 - b0,
-                    launch["rows"], launch["ncols"],
+                    src[0].data_ptr() + b0 * plane,
+                    src[1].data_ptr() + b0 * plane,
+                    oh.data_ptr() + b0 * plane, ol.data_ptr() + b0 * plane,
+                    (b1 - b0) * mult, launch["rows"], launch["ncols"],
                     launch["tile_cols"].bit_length() - 1,
                     int(cp.direction == "dit"), n, k0,
                     (ctypes.c_int * n)(*ts), (ctypes.c_int * n)(*offs),
-                    tw_ptr, log_a, *ops, int(cp.transpose_out),
-                    launch["tall"], launch["inner"].bit_length() - 1, stream)
+                    tw_ptr, log_a, *ops, int(launch["transpose_out"]),
+                    launch["tall"], launch["inner"].bit_length() - 1,
+                    launch["log_hq"], launch["log_lp"], stream)
                 _check_launch(err, f"GL column pass ({key})", lib)
                 gl_colpass.launches += 1
                 gl_colpass.launches_by[key] = (
@@ -503,18 +532,28 @@ gl_colpass.launches_by = {}
 
 
 def gl_colpass_phase(x: tuple, cp: GLColPass, phase: str) -> tuple:
-    """One launch of a tall cp's route, phase 'A' or 'B'
-    (``colpass.colpass_phase`` on limb planes): the kernel for CUDA
-    tensors, counted as gl_colpass counts it, the plain version
-    (``gl_tall_phase_plain``) for CPU tensors."""
-    if cp.tall is None or phase not in ("A", "B"):
+    """One launch of a tall cp's route, the one whose key is variant(cp,
+    phase) (``colpass.colpass_phase`` on limb planes): the kernel for CUDA
+    tensors, counted as gl_colpass counts it, its plain version
+    (``gl_launch_plain``) for CPU tensors."""
+    if phase not in C.launch_keys(cp):
         raise ValueError(f"no phase {phase!r} of a {cp.nn}-row column pass "
-                         f"(a tall route's are 'A' and 'B')")
-    device = _planes(x, "gl_colpass")[0].device
-    if device.type == "cpu":
-        return gl_tall_phase_plain(x, cp, phase)
+                         f"(its launches: {C.launch_keys(cp)})")
+    ncols = _planes(x, "gl_colpass")[0].shape[-1]
+    return gl_colpass_launch(x, cp, C._launch_of(cp, ncols, phase,
+                                                 itemsize=8))
+
+
+def gl_colpass_launch(x: tuple, cp: GLColPass, launch: dict) -> tuple:
+    """One launch of colpass.launch_plan(cp, ncols, itemsize=8, ...) on
+    its input planes (colpass.colpass_launch's twin): the kernel for CUDA
+    tensors, counted as gl_colpass counts it, ``gl_launch_plain`` for CPU
+    tensors."""
     hi, lo, squeeze = _batched(x, cp)
-    out = _launch(hi, lo, cp, phase)
+    if hi.device.type == "cpu":
+        out = gl_launch_plain((hi, lo), cp, launch)
+    else:
+        out = _launch(hi, lo, cp, [launch])
     return tuple(v[0] for v in out) if squeeze else out
 
 

@@ -69,6 +69,7 @@ returns the same ``Plan`` over (hi, lo) limb planes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -201,13 +202,23 @@ def public_order(config: NTTConfig, n1: int, n2: int, device) -> tuple:
             torch.from_numpy(inverse_permutation(out_idx)).to(device))
 
 
+@functools.lru_cache(maxsize=1)
+def _root_powers(field, n: int) -> np.ndarray:
+    """twiddles.root_powers(field, n), read-only, kept for the next plan
+    of the same n (the factored arms of two splits of one n, such as
+    Goldilocks 2^28's, share it: at n = 2^28 it takes tens of seconds)."""
+    pows = tw.root_powers(field, n)
+    pows.setflags(write=False)
+    return pows
+
+
 def wfac_tables(field, n1: int, n2: int) -> tuple:
     """The factored four-step tables of an (n1, n2) split, as the
     reference's factored plans build them (its plan.py:229-239): the
     forward (T1, T2) and the inverse's with 1/n in T2, from one power
     table."""
     n_inv = tw.fourstep_tables_light(field, n1, n2)["n_inv"]
-    pows = tw.root_powers(field, n1 * n2)
+    pows = _root_powers(field, n1 * n2)
     return (tw.fourstep_wfac_T(field, n1, n2, _pows=pows),
             tw.fourstep_wfac_T(field, n1, n2, inverse=True, scale=n_inv,
                                _pows=pows))

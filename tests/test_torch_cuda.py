@@ -29,7 +29,12 @@ route of both column kernels (columns above 8,192 rows as two launches):
 each launch of every instantiation the plans run against its plain
 version raw at 16,384 and 32,768 rows, a pass exactly its two launches,
 and BabyBear's and Goldilocks's plans at pinned tall splits against the
-plain plans.
+plain plans; and every split: the split launches of tall phases (at a
+row limit of 64, so at 16,384 and 32,768 rows) and the one-row passes of
+the split (1, n) against their plain versions, its plans against the
+plain plans on every callable, and the fused kernel's step lists (a tall
+side's phases, split ones too) against the plain transform over a chain
+of launches, with the fused plan at n = 2^17 (8 x 16384, 16384 x 8).
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -1477,3 +1482,237 @@ def test_tall_split_plan_matches_plain(cuda, name, log_n, rows_log2):
     assert same(card["inv_mat"](f), cpu(x))
     assert same(card["polymul_mat"](x, y),
                 plain["polymul_mat"](cpu(x), cpu(y)))
+
+
+# ---- every split: a phase above 8,192 rows, a one-row column, the fused
+# kernel's tall sides -----------------------------------------------------
+
+SPLIT_LIMIT = 64  # launch_plan's row limit here: split phases at small sizes
+
+
+@pytest.mark.parametrize("nn", [16384, 32768])
+@pytest.mark.parametrize("arm", TALL_ARMS)
+@pytest.mark.parametrize("kind,field", [("harvey4", T.P_469762049),
+                                        ("montgomery", T.P_2013265921)])
+def test_split_launches_match_plain(cuda, kind, field, nn, arm):
+    """Each launch of a tall route whose phases split by stage group
+    (launch_plan with a row limit of 64: the 'hi' launches' twiddle by the
+    view column, the 'lo' launches' P arrays a batch row, a split phase
+    A's first launch with 'pre', the in-place launches) equals its plain
+    version raw, and the four compose to the whole pass."""
+    g = torch.Generator(device=cuda).manual_seed(nn + 7 * TALL_ARMS.index(arm))
+
+    def fold(field, n1, n2, **kw):
+        return fold_passes(field, n1, n2, negacyclic=True, **kw)
+
+    passes = _tall_passes(fold, FS.dist_passes, field, nn, arm, 8,
+                          reduction=kind, device=cuda)
+    for name, (cp, nc) in passes.items():
+        x = torch.randint(0, RED_TOP.get(kind, 4) * field.p, (3, nn, nc),
+                          dtype=torch.int64, device=cuda,
+                          generator=g).to(torch.int32)
+        plan = C.launch_plan(cp, nc, max_rows=SPLIT_LIMIT)
+        assert len(plan) == 4
+        v = x
+        for launch in plan:
+            got = C.colpass_launch(v, cp, launch)
+            torch.cuda.synchronize()
+            assert torch.equal(got, C.launch_plain(v, cp, launch)), (
+                name, launch["key"])
+            v = got
+        assert torch.equal(v, C.colpass_plain(x, cp)), name
+
+
+@pytest.mark.parametrize("nn", [16384, 32768])
+@pytest.mark.parametrize("arm", TALL_ARMS)
+def test_gl_split_launches_match_plain(cuda, nn, arm):
+    rng = np.random.default_rng([nn, 7, TALL_ARMS.index(arm)])
+    passes = _tall_passes(gl_fold_passes, FS.gl_dist_passes, T.GOLDILOCKS,
+                          nn, arm, 8, device=cuda)
+    for name, (cp, nc) in passes.items():
+        x = M.gl_from_u64(_gl_values(rng, (3, nn, nc)), cuda)
+        plan = C.launch_plan(cp, nc, itemsize=8, max_rows=SPLIT_LIMIT)
+        v = x
+        for launch in plan:
+            got = G.gl_colpass_launch(v, cp, launch)
+            torch.cuda.synchronize()
+            want = G.gl_launch_plain(v, cp, launch)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                name, launch["key"])
+            v = got
+        want = G.gl_colpass_plain(x, cp)
+        assert all(torch.equal(a, b) for a, b in zip(v, want)), name
+
+
+def test_split_kernel_info(cuda):
+    """A phase above the row limit reports its two launches' kernels."""
+    cp = C.make_colpass(T.P_469762049, 16384, direction="dif",
+                        wmat=np.ones((4, 16384), np.int64), transpose_out=True,
+                        device=cuda)
+    plan = C.launch_plan(cp, 4, max_rows=SPLIT_LIMIT)
+    lib = C._library("harvey4")
+    for launch in plan:
+        kfuse, regs, per_sm = (C.ctypes.c_int() for _ in range(3))
+        err = lib.ntt_colpass_kernel_info(
+            launch["tall"], int(bool(launch["log_hq"] or launch["log_lp"])),
+            0, int(launch["transpose_out"]),
+            int(launch["mat"] is not None), launch["pre_form"],
+            launch["post_form"], launch["rows"],
+            launch["tile_cols"].bit_length() - 1, kfuse, regs, per_sm)
+        assert err == 0 and regs.value > 0 and per_sm.value >= 1, launch["key"]
+
+
+ONE_ROW_ARMS = {"fold": {}, "entry": {"wmat_fold": False},
+                "factored": {"wmat_factored": True}}
+
+
+@pytest.mark.parametrize("arm", list(ONE_ROW_ARMS))
+@pytest.mark.parametrize("kind,field", [("harvey4", T.P_469762049),
+                                        ("montgomery", T.P_2013265921),
+                                        ("goldilocks", T.GOLDILOCKS)])
+def test_one_row_passes_match_plain(cuda, kind, field, arm):
+    """A column pass of one row (the split (1, n)'s cp1, icp1, ncp1,
+    nicp1: no stage, its operands alone) equals its plain version raw, one
+    launch of colpass_empty_kernel; at batch 1 and 3."""
+    n2 = 4096
+    gl = kind == "goldilocks"
+    if gl:
+        passes = gl_fold_passes(field, 1, n2, device=cuda, **{
+            k: v for k, v in ONE_ROW_ARMS[arm].items()})
+    else:
+        passes = fold_passes(field, 1, n2, negacyclic=True, reduction=kind,
+                             device=cuda, **ONE_ROW_ARMS[arm])
+    rng = np.random.default_rng([len(arm), len(kind)])
+    for name in ("cp1", "icp1", "ncp1", "nicp1"):
+        if name not in passes:
+            continue
+        cp = passes[name]
+        assert cp.nn == 1
+        for B in (1, 3):
+            if gl:
+                x = M.gl_from_u64(_gl_values(rng, (B, 1, n2)), cuda)
+                before = G.gl_colpass.launches
+                got = G.gl_colpass(x, cp)
+                torch.cuda.synchronize()
+                assert G.gl_colpass.launches == before + 1
+                want = G.gl_colpass_plain(x, cp)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+                continue
+            x = torch.from_numpy(rng.integers(
+                0, RED_TOP.get(kind, 4) * field.p, (B, 1, n2)).astype(
+                    np.uint32).view(np.int32)).to(cuda)
+            before = C.colpass.launches
+            got = C.colpass(x, cp)
+            torch.cuda.synchronize()
+            assert C.colpass.launches == before + 1
+            assert torch.equal(got, C.colpass_plain(x, cp)), (name, B)
+
+
+@pytest.mark.parametrize("name,log_n,kw", [
+    ("p469762049", 12, {}), ("p469762049", 12, {"fused": True}),
+    ("p2013265921", 12, {"wmat_factored": True}),
+    ("p2013265921", 12, {"wmat_fold": False}), ("goldilocks", 10, {}),
+    ("p469762049", 20, {}), ("p469762049", 20, {"fused": True})])
+def test_one_row_plan_matches_plain(cuda, name, log_n, kw):
+    """The split (1, n) on the card equals the plain plan (the same plan on
+    the CPU) on every callable."""
+    cfg = T.NTTConfig(field=T.FIELDS[name], log_n=log_n, rows_log2=0,
+                      negacyclic=True)
+    card = T.build_plan(cfg, device=cuda, **kw).make_batched(2)
+    plain = T.build_plan(cfg, device="cpu", **kw).make_batched(2)
+    rng = np.random.default_rng(log_n + len(kw))
+    n = cfg.n
+    if name == "goldilocks":
+        a, b = (_gl_values(rng, (2, n)) for _ in range(2))
+        for key in ("fwd", "inv", "polymul", "negacyclic_polymul"):
+            args = (a,) if key in ("fwd", "inv") else (a, b)
+            assert np.array_equal(card[key](*args), plain[key](*args)), key
+        return
+    a, b = (torch.from_numpy(rng.integers(0, T.FIELDS[name].p, (2, n))
+                             .astype(np.int32)) for _ in range(2))
+    for key in sorted(card):
+        mat = key.endswith("_mat")
+        shape = (2, 1, n) if mat and key != "inv_mat" else (2, n, 1) if mat \
+            else (2, n)
+        args = [v.reshape(shape) for v in
+                ((a,) if key in ("fwd", "inv", "fwd_mat", "inv_mat")
+                 else (a, b))]
+        got = card[key](*(v.to(cuda) for v in args))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain[key](*args)), key
+
+
+def _fused_case(kind, field, n1, n2, inverse, cuda):
+    tabs = tw.fourstep_tables(field, n1, n2)
+    n = n1 * n2
+    if inverse:
+        return FF.make_fused_fourstep(
+            field, n1, n2, inverse=True, wmid=tabs["iwmat_scaled"],
+            post=tw.negacyclic_psi_powers(field, n, inverse=True)
+            .reshape(n1, n2), reduction=kind, device=cuda)
+    return FF.make_fused_fourstep(
+        field, n1, n2, wmid=np.ascontiguousarray(tabs["wmat"].T),
+        pre=tw.negacyclic_psi_powers(field, n).reshape(n1, n2),
+        reduction=kind, device=cuda)
+
+
+@pytest.mark.parametrize("max_rows", [C.MAX_ROWS, SPLIT_LIMIT])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n1,n2", [(8, 16384), (16384, 8), (1, 16384),
+                                   (16384, 1)])
+@pytest.mark.parametrize("kind,field", [("harvey4", T.P_469762049),
+                                        ("montgomery", T.P_2013265921)])
+def test_fused_steps_match_plain(cuda, kind, field, n1, n2, inverse,
+                                 max_rows):
+    """The fused kernel's step list (a tall side's phases, split ones at a
+    row limit of 64, with a grid sync between steps) equals the plain
+    transform raw, at batch 1 and 3, over a chain of launches that share
+    the counters (step 0's left at zero); one launch a call."""
+    ff = _fused_case(kind, field, n1, n2, inverse, cuda)
+    steps = FF.fused_steps(ff, max_rows=max_rows)
+    assert len(steps) >= 3
+    g = torch.Generator(device=cuda).manual_seed(n1 + n2 + int(inverse))
+    xs = [torch.randint(0, field.p, (B,) + ff.shape_in, dtype=torch.int64,
+                        device=cuda, generator=g).to(torch.int32)
+          for B in (1, 3)]
+    before = FF.fused_fourstep.launches
+    for i in range(6):
+        FF._launch(xs[i % 2], ff, steps)
+    torch.cuda.synchronize()
+    assert FF.fused_fourstep.launches == before + 6
+    stream = torch.cuda.current_stream().cuda_stream
+    assert ff.counters(stream, len(steps))[0].item() == 0
+    for x in xs:
+        got = FF._launch(x, ff, steps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, FF.fused_fourstep_plain(x, ff))
+    info = FF.kernel_info(ff, 3)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    assert info["steps"] == [st["name"] for st in FF.fused_steps(ff)]
+
+
+@pytest.mark.parametrize("rows_log2", [3, 14])
+def test_fused_tall_plan_matches_plain(cuda, rows_log2):
+    """BabyBear's fused plan at n = 2^17, 8 x 16384 and 16384 x 8, on the
+    card equals the plain plan on every callable; each transform one
+    launch, under its step list's key."""
+    cfg = T.NTTConfig(field=T.P_2013265921, log_n=17, rows_log2=rows_log2,
+                      negacyclic=True)
+    card = T.build_plan(cfg, device=cuda, fused=True).make_batched(2)
+    plain = T.build_plan(cfg, device="cpu", fused=True).make_batched(2)
+    n1, n2 = cfg.split
+    rng = np.random.default_rng(rows_log2)
+    a, b = (torch.from_numpy(rng.integers(0, T.P_2013265921.p, (2, n1, n2))
+                             .astype(np.int32)) for _ in range(2))
+    for key in sorted(card):
+        one = key in ("fwd", "inv", "fwd_mat", "inv_mat")
+        args = [a if key != "inv_mat" else plain["fwd_mat"](a)]
+        if not one:
+            args.append(b)
+        if not key.endswith("_mat"):
+            args = [v.reshape(2, -1) for v in args]
+        before = FF.fused_fourstep.launches
+        got = card[key](*(v.to(cuda) for v in args))
+        torch.cuda.synchronize()
+        assert FF.fused_fourstep.launches == before + (1 if one else 3), key
+        assert torch.equal(got.cpu(), plain[key](*args)), key

@@ -129,14 +129,16 @@ def test_fused_rejects_bad_input():
     (2048, 512, 4, (4, 16)),
     (32, 64, 1, (32, 32)),
     (C.MAX_ROWS, 16, 1, (4, 32)),
+    # a side above the H100 tile limit: its tall route's two steps, each
+    # 128 rows over 128 * 16 view columns
+    (2 * C.MAX_ROWS, 16, 1, (32, 32, 32)),
+    (16, 2 * C.MAX_ROWS, 1, (32, 32, 32)),
 ])
 def test_fused_shape_check_tiles(nn_a, nn_b, batch, tiles):
     assert FF.fused_shape_check(nn_a, nn_b, batch) == tiles
 
 
 @pytest.mark.parametrize("nn_a,nn_b,batch", [
-    (2 * C.MAX_ROWS, 16, 1),   # a side above the H100 tile limit
-    (16, 2 * C.MAX_ROWS, 1),
     (48, 64, 1),               # not a power of two
     (1024, 1024, 0),
     (1024, 1024, 1 << 24),     # more than 2^30 tiles a phase

@@ -325,14 +325,21 @@ def test_transposing_phase_b_tile(nn, ncols, itemsize):
 
 
 def test_a_phase_above_a_tile_is_refused():
-    """A column above MAX_ROWS^2 = 2^26 rows would have a phase taller than
-    a tile: the launch plan refuses it (on a CPU tensor the plain version
-    runs)."""
+    """A column above MAX_ROWS^2 = 2^26 rows has a phase taller than a
+    tile: its launch plan is no longer refused, and no launch of it has
+    more than MAX_ROWS rows (the phase runs as two launches split by stage
+    group, colpass.phase_groups)."""
     cp = C.make_colpass(T.P_469762049, 16384, direction="dif", device="cpu")
-    phases = tuple(dataclasses.replace(ph, rows=ph.rows << 7)
-                   for ph in cp.tall)
-    with pytest.raises(ValueError, match="two phases of at most 8192 rows"):
-        C.launch_plan(dataclasses.replace(cp, tall=phases), 4)
+    phases = []
+    for ph in cp.tall:  # a 2^28-row column's: 16,384-row phases
+        ts = tuple(1 << s for s in range(13, -1, -1))
+        phases.append(dataclasses.replace(ph, rows=ph.rows << 7,
+                                          inner=ph.inner << 7, ts=ts,
+                                          offsets=C.stage_offsets(ts)))
+    plan = C.launch_plan(dataclasses.replace(cp, tall=tuple(phases)), 4)
+    assert len(plan) == 4
+    assert max(p["rows"] for p in plan) <= C.MAX_ROWS
+    assert [p["group"] for p in plan] == ["hi", "lo", "hi", "lo"]
 
 
 # ---- the slice against the JAX package -------------------------------------
