@@ -43,12 +43,16 @@ Phases, one JSON object per line:
                  ring_layers; colpass and
                  fused_fourstep once for each of harvey4, harvey,
                  montgomery and barrett) with nvcc into build/, one
-                 process each, all at once, and times it;
+                 process each, all started at once, while phases 3-4 run
+                 on the harvey4 column library (the script waits for
+                 that build first); its line, the seconds to the last
+                 build's end, follows phase 4, before any timing;
   3. kernel    — the 32-bit kernel against its plain PyTorch version on the
                  card, bit-exact, for cp1/cp2/icp2/icp1 at the 1024x1024
                  split, 128x512, 2048x512 and 512x2048 (nested, TL 8, 16
                  and 4) and 32x64 and 64x32 (plain, TL 32), B = 1 and 4,
-                 and DIF and DIT over 8,192 rows at (1, 8192, 64);
+                 and DIF and DIT over 8,192 rows at (1, 8192, 64) (the
+                 tall route's two launches);
   4. slice     — fwd_mat on a 1 GiB int32 batch (B = 256) gated against the
                  native C++ oracle on row 0 plus 8 random rows (the NumPy
                  oracle if the library cannot build); inv_mat(fwd_mat(x)) ==
@@ -378,7 +382,9 @@ at B = 8, launches summed over phase 32's ranks, launches a transform,
 bytes with the operand tables. Each row's launches are its own path's;
 the flat phases' (phases 20 and 22's driven calls) are under
 "flat_launches". Phase 40 (tall, tall_done) runs the column passes
-above 8,192 rows, each as its two launches (ops/colpass.py tall_phases),
+above one launch's rows (32-bit: above ops/colpass.py LAUNCH_ROWS =
+4,096, so BabyBear's 8,192-row cp1 and icp1 too; Goldilocks: above
+8,192), each as its two launches (ops/colpass.py tall_phases),
 on BabyBear at n = 2^27 and Goldilocks at n = 2^27 (8192 x 16384) and at
 2^28 on the factored arm (16384 x 16384, dropped if its set-up passes
 60 s), B = 1, through make_batched(1)'s fwd_mat, inv_mat and polymul_mat:
@@ -393,18 +399,25 @@ the array once), the pass's bytes and butterflies beside it. Phase 41
 (splits, splits_done) runs every split the JAX package computes that
 raised on the card before: the split (1, n) (a column pass of one row, no
 stage: colpass_empty_kernel) at n = 2^20 over p = 469762049 on the fold
-and fused plans and over Goldilocks at n = 2^16; the fused plan's sides
-above 8,192 rows (its step list) at n = 2^17, 8 x 16384 and 16384 x 8,
-B = 2, on every callable, and BabyBear n = 2^27 at 8192 x 16384; and tall
-phases above 8,192 rows (two launches split by stage group) on
-Goldilocks n = 2^28 at (2, 2^27) on the factored arm and BabyBear (1,
-2^27): launches counted from 0 a call, every column-pass launch on the
-path's own input equal to its plain version raw (column slices) and the
+and fused plans and over Goldilocks at n = 2^16; the fused plan's step
+lists (sides above one launch's rows, sides of one row) at n = 2^17,
+8 x 16384 and 16384 x 8, B = 2, on every callable, at (1, 2^20), and
+BabyBear n = 2^27 at 8192 x 16384 (aA, aB, bA, bB) and at (1, 2^27) (a
+one-row step, then side b's four split-phase steps); and tall phases above
+one launch's rows (two launches split by stage group) on Goldilocks
+n = 2^28 at (2, 2^27) on the factored arm and BabyBear (1, 2^27):
+launches counted from 0 a call, every column-pass launch on the path's
+own input equal to its plain version raw (column slices) and the
 launches to the whole pass's, every fused transform to
-fused_fourstep_plain, every callable to the plain passes' chain, fwd's
-rows on the native oracle (in worker threads beside the card's work),
-the round trips; ms a launch or a fused call, and the fused BabyBear 2^27
-fwd_mat in turns with the fold plan's. It adds a
+fused_fourstep_plain and every step of a step list (the list's prefix up
+to it, fused_fourstep.step_prefix, launched on the card at the whole
+list's kernel, grid and shared memory) to its plain
+versions' chain (fused_step_plain), raw, every callable to the plain
+passes' chain, fwd's rows on the native oracle (in worker threads beside
+the card's work), the round trips; ms a launch, a fused call or a step,
+fwd_mat's µs as one call (the call the oracle gates, at (1, 2^20) and
+(1, 2^27) too), and each fused plan's fwd_mat in turns with the fold
+plan's. It adds a
 colpass[split:<case>:<pass><launch>] row (PERF.md 1s, 1t),
 gl_colpass[...] row (3s, 3t) or fused_fourstep[split:<case>:<ff|fi|nf|ni>]
 row (2t) for each. Last, the result line
@@ -637,22 +650,12 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
-    # 2. build: one nvcc per source, all at once
+    # 2. build: one nvcc per source, all started at once; phases 3-4 run
+    # on the harvey4 column library while the others compile, and every
+    # build is waited for before phase 5's timings
     t0 = time.perf_counter()
-    libs = C.build_libraries()
-    C._library()
-    G._library()
-    F._library()
-    N._library()
-    RL._library()
-    from ntt_aie_tpu_torch import dilithium, kyber
-    from ntt_aie_tpu_torch.ops import ring_layers as LR
-
-    for scheme in (kyber.SCHEME, dilithium.SCHEME):
-        LR.check_constants(scheme)
-    emit({"phase": "build", "ok": True,
-          "seconds": time.perf_counter() - t0,
-          "libraries": sorted(p.name for p in libs.values())})
+    builds = C.start_builds()
+    builds["colpass[harvey4]"].result()
 
     # 3. kernel against plain, on the card
     cases = [(name, cp, (B,) + ((n1, n2) if name in ("cp1", "icp1")
@@ -737,6 +740,23 @@ def main() -> int:
           "ok": gate_ok and roundtrip_ok and poly_ok and counts_ok})
     if not (gate_ok and roundtrip_ok and poly_ok and counts_ok):
         return fail("slice", "the main path disagrees with its oracles")
+
+    libs = {key: fut.result() for key, fut in builds.items()}
+    build_s = time.perf_counter() - t0
+    C._library()
+    G._library()
+    F._library()
+    N._library()
+    RL._library()
+    from ntt_aie_tpu_torch import dilithium, kyber
+    from ntt_aie_tpu_torch.ops import ring_layers as LR
+
+    for scheme in (kyber.SCHEME, dilithium.SCHEME):
+        LR.check_constants(scheme)
+    emit({"phase": "build", "ok": True, "seconds": build_s,
+          "libraries": sorted(p.name for p in libs.values()),
+          "method": "every nvcc started at once at phase 2; seconds to "
+                    "the last build's end, beside phases 3-4"})
 
     # 5. time: kernel path at B = 256, plain path at B = 256 or less
     cp1, cp2 = plan.passes["cp1"], plan.passes["cp2"]
@@ -4993,17 +5013,19 @@ SPLIT_CASES = (
      _MAT3, "3t", False),
     ("babybear_one_row", "p2013265921", 27, 0, {}, False, 1, _MAT3, "1t",
      False),
+    ("fused_babybear_one_row", "p2013265921", 27, 0, {"fused": True}, False,
+     1, _MAT3, "2t", False),
     ("fused_babybear", "p2013265921", 27, None, {"fused": True}, False, 1,
      _MAT3, "2t", True),
     ("one_row", "p469762049", 20, 0, {}, True, 1,
      _MAT3 + ("negacyclic_polymul_mat",), "1s", False),
     ("one_row_fused", "p469762049", 20, 0, {"fused": True}, True, 1,
-     _MAT3 + ("negacyclic_polymul_mat",), "2t", False),
+     _MAT3 + ("negacyclic_polymul_mat",), "2t", True),
     ("gl_one_row", "goldilocks", 16, 0, {}, False, 1, _MAT3, "3s", False),
     ("fused_8x16384", "p2013265921", 17, 3, {"fused": True}, True, 2,
-     _EVERY, "2t", False),
+     _EVERY, "2t", True),
     ("fused_16384x8", "p2013265921", 17, 14, {"fused": True}, True, 2,
-     _EVERY, "2t", False),
+     _EVERY, "2t", True),
 )
 # each plan's chains: the forward and inverse transforms' passes (or fused
 # transforms), and the negacyclic product's; a callable runs fwd (fwd_mat,
@@ -5194,6 +5216,7 @@ def _split_case(spec, dev, card, gen, pool, shared):
     launch_plain = G.gl_launch_plain if gl else C.launch_plain
     item = ops["itemsize"]
     errs, launch_ms, plain_ms, infos, rows = {}, {}, {}, {}, []
+    step_ms, step_rows, limits_ok = {}, {}, {}
 
     def check_pass(k, v):
         """Every launch of pass k on its input v on the card against its
@@ -5223,7 +5246,11 @@ def _split_case(spec, dev, card, gen, pool, shared):
 
     def check_fused(k, v):
         """Fused transform k on v on the card against its plain version,
-        timed. Returns the plain output."""
+        timed; a step list's every step too: the list's steps up to it
+        (fused_fourstep.step_prefix, run at the whole list's kernel, grid
+        and shared memory) launched on the card against the steps' plain
+        versions' chain (fused_step_plain), raw, and timed (a step's ms:
+        its prefix's less the one before). Returns the plain output."""
         ff = passes[k]
         got = F.fused_fourstep(v, ff)
         torch.cuda.synchronize()
@@ -5234,6 +5261,33 @@ def _split_case(spec, dev, card, gen, pool, shared):
                                    v, iters=5, repeats=3)["us_per_iter"] / 1e3
         infos[k] = F.kernel_info(ff, B)
         rows.append({"tag": k, "ff": ff})
+        steps = F.fused_steps(ff)
+        # no step's tile above one launch's rows; a step list's kernel at
+        # more than one block an SM
+        step_rows[k] = max(st["launch"]["rows"] for st in steps)
+        limits_ok[k] = bool(step_rows[k] <= C.LAUNCH_ROWS and (
+            F._whole(steps) or infos[k]["blocks_per_sm"] > 1))
+        if F._whole(steps):
+            return want
+        del got
+        u, prev_ms, step_ms[k] = v, 0.0, {}
+        for j, st in enumerate(steps):
+            u = F.fused_step_plain(u, ff, j)
+            ms = launch_ms[k]
+            if j < len(steps) - 1:
+                prefix = F.step_prefix(ff, j)
+                got = F._launch(v, ff, prefix, run=j + 1)
+                torch.cuda.synchronize()
+                errs[f"{k}:{st['name']}"] = _max_err(got.reshape(-1),
+                                                     u.reshape(-1))
+                del got
+                ms = time_device(lambda _, v=v, prefix=prefix, j=j: F._launch(
+                    v, ff, prefix, run=j + 1), v, iters=5,
+                    repeats=3)["us_per_iter"] / 1e3
+            step_ms[k][st["name"]] = ms - prev_ms
+            prev_ms = ms
+        errs[f"{k}:steps"] = _max_err(u.reshape(-1), want.reshape(-1))
+        del u
         return want
 
     checked = set()
@@ -5276,6 +5330,10 @@ def _split_case(spec, dev, card, gen, pool, shared):
     got_rows = [(M.gl_to_u64(*(t[r].reshape(n) for t in fwd_out)) if gl
                  else fwd_out[r].reshape(n).cpu().numpy().astype(np.uint64))
                 [plan.spectral_to_natural] for r in range(B)]
+    # fwd_mat as one call on CUDA events (each call on the same input);
+    # the call's output is the one the oracle gates
+    line["fwd_mat_us_per_call"] = time_device(
+        lambda _: bat["fwd_mat"](x), x, iters=5, repeats=3)["us_per_iter"]
     if turns:  # fwd_mat in turns with the fold plan's at this split
         fold = T.build_plan(cfg, device=dev).make_batched(B)
         both = {"fold": fold, "fused": bat}
@@ -5293,18 +5351,22 @@ def _split_case(spec, dev, card, gen, pool, shared):
                  "roundtrip_ok": all(results[k] == 0 for k in results
                                      if k.startswith("inv")),
                  "launch_ms": launch_ms, "plain_launch_ms": plain_ms,
+                 "step_ms": step_ms, "step_max_rows": step_rows,
+                 "step_limits_ok": limits_ok,
                  "kernel_info": infos, "plain_chunks": chunks,
                  "method": "CUDA events (utils/timing.time_device), a "
-                           "launch or a fused call 3 repeats of 5, "
-                           "trimmed mean, on the path's own input; a "
-                           "plain launch one reading, its check's own "
-                           "call, over plain_chunks column slices",
+                           "launch, a fused call or a step list's prefix "
+                           "3 repeats of 5, trimmed mean, on the path's "
+                           "own input; a plain launch one reading, its "
+                           "check's own call, over plain_chunks column "
+                           "slices",
                  "seconds": time.perf_counter() - t_case})
-    ok = bool(counts_ok and ok_launches and ok_calls)
+    ok = bool(counts_ok and ok_launches and ok_calls
+              and all(limits_ok.values()))
     if not ok:
         emit(dict(line, ok=False))
-        fail("splits", f"{label}: a launch, a callable or the launch "
-             "counts failed")
+        fail("splits", f"{label}: a launch, a step, a callable, the launch "
+             "counts or a step list's limits failed")
         return None
 
     arithmetic = "goldilocks" if gl else plan.reduction
@@ -5328,6 +5390,8 @@ def _split_case(spec, dev, card, gen, pool, shared):
                 launches=sum(v.get(key, 0) for v in by.values()),
                 bytes=2 * B * n * 4 + tables,
                 butterflies=B * n // 2 * log_n, steps=infos[tag]["steps"],
+                kernel=infos[tag]["kernel"],
+                tile_cols=infos[tag]["tile_cols"],
                 registers=infos[tag]["registers"],
                 blocks_per_sm=infos[tag]["blocks_per_sm"],
                 grid=infos[tag]["grid"]))

@@ -46,6 +46,10 @@
 //     output: 'post', the transpose, 'post_t' and canonicalize on store.
 // Each phase is a plain network of R or S points (at most kMaxRows), so
 // its tiles are the kernels' own and every group is column_tile_io's.
+// The plans take this route from above ops/colpass.py LAUNCH_ROWS = 4,096
+// rows: an 8,192-row column fits one tile (TL = 4, 128 KB), but at one
+// block an SM it took longer than its route's two launches of 16 KB tiles
+// (BabyBear n = 2^27's cp1 and icp1, PERF.md section 6).
 // pick_tall takes the combinations pick_kernel takes, with their phase
 // A by the direction and 'pre' form and their phase B by the direction,
 // store options and 'post' form. Each launch reads and writes the whole
@@ -58,9 +62,9 @@
 // is 8 of them by 4 columns (colpass_tile.cuh tile_col0, kTallStoreLogCols)
 // so a warp writes whole sectors: with the plain tile, one word a
 // sector, it took 13.9 ms at n = 2^27, 13x the other launches (PERF.md).
-// A phase of more than kMaxRows rows (a column above 2^26 rows: Goldilocks
-// n = 2^28 - 2^30 at a split with a side of at most 8, BabyBear (1, 2^27))
-// runs as two launches of its own, split by stage group (colpass_tile.cuh
+// A phase of more than LAUNCH_ROWS rows (a 32-bit column above 2^24 rows,
+// BabyBear (1, 2^27); Goldilocks's gl_colpass.cu: above 8,192 rows) runs
+// as two launches of its own, split by stage group (colpass_tile.cuh
 // Tall, ops/colpass.py phase_groups): its rows p * Q + q, the stages of
 // half size t >= Q a P-row network over the view (P, Q * inner * ncols)
 // with the twiddle taken by the view column, the stages t < Q a Q-row

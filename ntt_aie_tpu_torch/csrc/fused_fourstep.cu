@@ -63,28 +63,52 @@
 //     is slower than 3 (PERF.md section 6 gives the readings and how they
 //     were taken).
 //
-// Sides above one tile (a side of more than kMaxRows = 8,192 rows:
-// BabyBear n = 2^27 at 8192 x 16384, n = 2^17 at 8 x 16384 or 16384 x 8,
-// a flat split's inner 2^14 x 2^13 from n = 2^27) do not fit a block's
-// shared memory. Then the launch runs a short list of steps instead of
-// the two phases above, with a grid sync between consecutive steps
-// (fused_steps_kernel). Each side runs the launches its column pass would
-// run on the card (ops/colpass.py launch_plan, ops/fused_fourstep.py
-// fused_steps): one whole-column step (column_tile, as above), or its
-// tall route's phase A and phase B, each one step or, above 8,192 rows,
-// two (colpass_tile.cuh Tall), on column_tile_io's swizzled tile. Side a
-// is DIF (DIT) over nn_a with 'pre' on its first step's load and wmid, the
-// transposing store's 'post_t', on its last step's; side b over nn_b with
-// 'post' and canonicalize on its last step's store. The buffers
-// ping-pong between out and scratch so that the last step writes out
-// (forward with side b tall: a: x -> out, bA: out -> scratch, bB: scratch
-// -> out). Every step after the first reads what other blocks of the
-// launch wrote, through L2 only (Load::kL2, column_tile_io's kL2:
-// __ldcg): L1 keeps no line of it across the grid sync. A side of one row
-// (the split (1, n)) is a whole step of zero stages (column_tile's loops
-// run none). The launch with two whole sides is fused_kernel, whose code
-// and times are the ones above.
+// Sides above one launch (a side of more than ops/colpass.py LAUNCH_ROWS
+// = 4,096 rows: BabyBear n = 2^27 at 8192 x 16384, n = 2^17 at 8 x 16384
+// or 16384 x 8, a flat split's inner 2^14 x 2^13 from n = 2^27), and sides
+// of one row (the split (1, n)), make the launch a short list of steps
+// instead of the two phases above, with a grid sync between consecutive
+// steps (fused_steps_kernel). Each side runs the launches its column pass
+// would run on the card (ops/colpass.py launch_plan, ops/fused_fourstep.py
+// fused_steps): one whole-column step (column_tile, as above), or its tall
+// route's phase A and phase B, each one step or, above LAUNCH_ROWS rows,
+// two (colpass_tile.cuh Tall), on column_tile_io's swizzled tile; a side
+// of one row is one elementwise step (row_step). Side a is DIF (DIT) over
+// nn_a with 'pre' on its first step's load and wmid, the transposing
+// store's 'post_t', on its last step's; side b over nn_b with 'post' and
+// canonicalize on its last step's store. The buffers ping-pong between
+// out and scratch so that the last step writes out (forward with both
+// sides tall: aA: x -> scratch, aB: scratch -> out, bA: out -> scratch,
+// bB: scratch -> out). Every step after the first reads what other blocks
+// of the launch wrote, through L2 only (Load::kL2, column_tile_io's kL2,
+// row_step: __ldcg): L1 keeps no line of it across the grid sync. The
+// launch with two whole sides is fused_kernel, whose code and times are
+// the ones above.
 //
+// What held the step list's first design back, 8.5x its bound at BabyBear
+// n = 2^27 and 26-69x at n = 2^17-2^20 (PERF.md section 6, row 2t), and
+// what this one does about each:
+//   - the launch's shared memory is its largest step's, and an 8,192-row
+//     whole side took 128 KB, so every step ran one block an SM: no step
+//     holds a tile above LAUNCH_ROWS rows now (an 8,192-row side is its
+//     tall route's two steps, 16 KB tiles), and the launch is sized from
+//     the steps it has;
+//   - one kernel a direction held the code of every step kind, 64 / 80
+//     registers (DIF / DIT): a list's kernel is the instantiation of the
+//     step kinds it holds (StepSet), so a list of whole tall phases
+//     carries neither the whole side's row-major code nor the split
+//     phases' index arithmetic, and every instantiation has a minimum of
+//     blocks an SM (kStepMinBlocks);
+//   - a one-row side was a whole step of zero stages at TL = 32, a
+//     counter add and two barriers for every 32 values (32,768 tiles at
+//     (1, 2^20)): it is one grid-stride loop with no counter; and a whole
+//     side of 2 or 4 rows takes a tile as wide as makes 256 values (up to
+//     256 columns), one counter add for as many values as the block has
+//     threads.
+// PERF.md section 6 gives what a grid sync costs, read with
+// scripts/grid_sync.cu (python -m ntt_aie_tpu_torch.scripts.fused_turns
+// --sync).
+
 // The tile counters. fused_kernel's two, and fused_steps_kernel's one a
 // step (the wrapper's buffer, at most kMaxSteps), follow one rule: block 0
 // zeroes every counter but step 0's as the launch starts (no block takes
@@ -112,7 +136,8 @@ constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 227 * 1024;  // an H100 block's limit
 constexpr int kFuse = 3;  // radix-2 stages a register group (see above)
 constexpr int kMaxSteps = 8;  // a side's launches: at most 4 (two split
-                              // phases)
+                              // phases); a list at most 5 (a 2^27 side and
+                              // a one-row side)
 
 struct Params {
   Network a, b;     // side a over nn_a rows, side b over nn_b rows
@@ -172,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params P) {
 
 using KernelFn = void (*)(Params);
 
-// ---- the step list (sides above one tile) ----
+// ---- the step list (sides above one launch) ----
 
 // What a step runs: a whole side (column_tile: side a with or without the
 // 'pre' operand, side b with or without 'post'), or one launch of a side's
@@ -180,8 +205,8 @@ using KernelFn = void (*)(Params);
 // the 'pre' operand, a split A's first launch with it, an in-place launch
 // (a split phase's first; side b's last without 'post', canonicalizing),
 // side a's transposing last launch (wmid as 'post_t'), side b's last with
-// 'post' and canonicalize. Whether the transform has 'pre' and 'post' is a
-// code, not a template parameter: one kernel a direction.
+// 'post' and canonicalize; or a side of one row (row_step). Whether the
+// transform has 'pre' and 'post' is a code, not a template parameter.
 enum StepCode : int {
   kStepWholeA = 0,
   kStepWholeAPre = 1,
@@ -193,12 +218,30 @@ enum StepCode : int {
   kStepInPlace = 7,
   kStepTallBT = 8,
   kStepTallBPost = 9,
+  kStepRow = 10,
 };
+
+// The step kernel's instantiations, by the steps a list holds, so that the
+// main path's lists carry only the code (and the registers) their steps
+// need: kSetTall, launches of whole tall phases and sides of one row
+// (BabyBear n = 2^27 at 8192 x 16384, any split (1, n) of a side up to
+// 2^24 rows); kSetAll, also whole sides (n = 2^17 at 8 x 16384) and the
+// launches of split phases (colpass_tile.cuh run_group_io's kGroup).
+enum StepSet : int { kSetTall = 0, kSetAll = 1 };
+
+// The instantiations' __launch_bounds__ minimum of blocks an SM: 4, at
+// most 64 registers a thread. Read in turns on an H100 at BabyBear
+// n = 2^27 (PERF.md section 6): with no minimum nvcc gave the step
+// kernels 96-112 registers, 2 blocks an SM (fused fwd_mat 4.16 ms); at 5
+// (48 registers) the DIF kernel spilled in its loops and took 3.92 ms; at
+// 4, 3.47 ms.
+constexpr int kStepMinBlocks = 4;
 
 enum StepBuf : int { kBufX = 0, kBufOut = 1, kBufScratch = 2 };
 
 // One step: a whole side's network with its table planes and TileOps
-// (column_tile's), or a tall launch's network over its view with its pair
+// (column_tile's; a one-row side's operands as planes in ops.pre_* and
+// ops.mat_*), or a tall launch's network over its view with its pair
 // tables (column_tile_io's).
 struct Step {
   Network net;
@@ -212,7 +255,7 @@ struct Step {
 
 struct StepParams {
   Step steps[kMaxSteps];
-  int nsteps;
+  int nsteps;  // the steps the launch runs (a prefix, for the checks)
   const uint32_t* x;
   uint32_t* scratch;
   uint32_t* out;
@@ -222,8 +265,10 @@ struct StepParams {
 };
 
 // One tile (block x of batch row y of the step's launch view) of a tall
-// step.
-template <bool kDit>
+// step. kGroup: the list holds a launch of a split phase, and every tall
+// step runs the split kind (one instantiation takes a whole phase's and a
+// split one's); without it the view's group parts are compile-time zeros.
+template <bool kDit, bool kGroup>
 __device__ __forceinline__ void tall_tile(uint32_t* tile, const Step& S,
                                           const uint32_t* src, uint32_t* dst,
                                           int bx, int y, Red R) {
@@ -233,62 +278,119 @@ __device__ __forceinline__ void tall_tile(uint32_t* tile, const Step& S,
   using colpass_tile::kTallA;
   using colpass_tile::kTallB;
   using colpass_tile::kTallPre;
-  const int p = y & ((1 << S.view.log_lp) - 1);  // a 'lo' launch's array
-  const size_t col0 = colpass_tile::tall_col0<kTallB, false, true>(
+  const int p = kGroup ? y & ((1 << S.view.log_lp) - 1) : 0;  // 'lo' array
+  const size_t col0 = colpass_tile::tall_col0<kTallB, false, kGroup>(
       bx, S.ops.log_tl, S.tables, S.view);
   const size_t col0_a =  // a 'hi' phase A's split tile
-      colpass_tile::tall_col0<kTallA, false, true>(bx, S.ops.log_tl,
-                                                   S.tables, S.view);
+      colpass_tile::tall_col0<kTallA, false, kGroup>(bx, S.ops.log_tl,
+                                                     S.tables, S.view);
   const auto& N = S.net;
   const auto& O = S.ops;
   const auto& T = S.tables;
-  // every step's launch is a split phase's kind (kGroup): one instantiation
-  // takes a whole phase's and a split one's
   switch (S.code) {
     case kStepTallAPre:
       column_tile_io<kDit, false, false, kFuse, false, kOpMat, kOpNone,
-                     kTallA, true, true>(tile, N, O, T, src, dst, col0_a,
-                                         S.shift, R, S.view, p);
+                     kTallA, true, kGroup>(tile, N, O, T, src, dst, col0_a,
+                                           S.shift, R, S.view, p);
       break;
     case kStepTallA:
       column_tile_io<kDit, false, false, kFuse, false, kOpNone, kOpNone,
-                     kTallA, true, true>(tile, N, O, T, src, dst, col0_a,
-                                         S.shift, R, S.view, p);
-      break;
-    case kStepTallPre:
-      column_tile_io<kDit, false, false, kFuse, false, kOpMat, kOpNone,
-                     kTallPre, true, true>(tile, N, O, T, src, dst, col0,
+                     kTallA, true, kGroup>(tile, N, O, T, src, dst, col0_a,
                                            S.shift, R, S.view, p);
+      break;
+    case kStepTallPre:  // a split phase A's first launch only
+      if constexpr (kGroup)
+        column_tile_io<kDit, false, false, kFuse, false, kOpMat, kOpNone,
+                       kTallPre, true, true>(tile, N, O, T, src, dst, col0,
+                                             S.shift, R, S.view, p);
       break;
     case kStepInPlace:
       column_tile_io<kDit, false, false, kFuse, false, kOpNone, kOpNone,
-                     kTallB, true, true>(tile, N, O, T, src, dst, col0,
-                                         S.shift, R, S.view, p);
+                     kTallB, true, kGroup>(tile, N, O, T, src, dst, col0,
+                                           S.shift, R, S.view, p);
       break;
     case kStepTallBT:
       column_tile_io<kDit, true, true, kFuse, false, kOpNone, kOpNone,
-                     kTallB, true, true>(
+                     kTallB, true, kGroup>(
           tile, N, O, T, src, dst,
-          colpass_tile::tall_col0<kTallB, true, true>(bx, O.log_tl, T,
-                                                      S.view),
+          colpass_tile::tall_col0<kTallB, true, kGroup>(bx, O.log_tl, T,
+                                                        S.view),
           S.shift, R, S.view, p);
       break;
     case kStepTallBPost:
       column_tile_io<kDit, false, false, kFuse, false, kOpNone, kOpMat,
-                     kTallB, true, true>(tile, N, O, T, src, dst, col0,
-                                         S.shift, R, S.view, p);
+                     kTallB, true, kGroup>(tile, N, O, T, src, dst, col0,
+                                           S.shift, R, S.view, p);
       break;
   }
 }
 
-// The launch of a step list: each step's tiles from its own counter, a grid
-// sync between steps (the counters' rule: the top of this file).
-template <bool kDit>
-__global__ void __launch_bounds__(kThreads)
-    fused_steps_kernel(const __grid_constant__ StepParams P) {
+// One tile of a whole-side step (column_tile, row-major).
+__device__ __forceinline__ void whole_tile(uint32_t* tile, const Step& S,
+                                           const uint32_t* s, uint32_t* d,
+                                           size_t col0, Red R) {
   using colpass_tile::Load;
+  switch (S.code) {
+    case kStepWholeA:
+      colpass_tile::column_tile<Load::kPlain, true, true, kFuse>(
+          tile, S.net, S.ops, s, d, col0, R);
+      break;
+    case kStepWholeAPre:
+      colpass_tile::column_tile<Load::kPre, true, true, kFuse>(
+          tile, S.net, S.ops, s, d, col0, R);
+      break;
+    case kStepWholeB:
+      colpass_tile::column_tile<Load::kL2, false, false, kFuse>(
+          tile, S.net, S.ops, s, d, col0, R);
+      break;
+    case kStepWholeBPost:
+      colpass_tile::column_tile<Load::kL2, false, true, kFuse>(
+          tile, S.net, S.ops, s, d, col0, R);
+      break;
+  }
+}
+
+// A side of one row (the split (1, n); no stage): every value of every
+// batch row times the side's operands, each indexed by its column c (side
+// a: 'pre', then wmid, whose transposed store keeps a one-row side's
+// index; side b: 'post'), then canonicalize where side b's store does. A
+// grid-stride loop over the launch's threads: no tile, no counter, no
+// barrier. Every load goes through L2 only (__ldcg): side b's reads what
+// other blocks wrote in the step before.
+__device__ __forceinline__ void row_step(const Step& S, const uint32_t* src,
+                                         uint32_t* dst, int batch, Red R) {
+  const TileOps& O = S.ops;
+  const size_t n = (size_t)batch * O.ncols;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const size_t c = i & (size_t)(O.ncols - 1);
+    uint32_t v = __ldcg(src + i);
+    if (O.pre_w) v = R.mulc(v, __ldg(O.pre_w + c), __ldg(O.pre_s + c));
+    if (O.mat_w) v = R.mulc(v, __ldg(O.mat_w + c), __ldg(O.mat_s + c));
+    if (O.canonicalize) v = R.canon(v);
+    dst[i] = v;
+  }
+}
+
+// The launch of a step list, a grid sync between steps. A step takes its
+// tiles from its own counter (the counters' rule: the top of this file),
+// each block adding for its next tile before it runs the current one: the
+// add's result waits in thread 0's register and reaches the block through
+// one of two shared slots in turn, so its latency hides behind the tile
+// (a block of a step with fewer tiles than blocks taking tile b on block
+// b instead was no faster on an H100, PERF.md section 6). A
+// one-row step takes no tile. P.nsteps is the steps the launch runs: a
+// list's all, or for the card's checks a prefix of it (ntt_fused_steps'
+// nrun), at the whole list's instantiation, grid and shared memory. A
+// list has at least two steps; a launch of one step, a prefix that only
+// the checks run, ends with a grid sync so that block 0 can reset step
+// 0's counter after it.
+template <bool kDit, int kSet>
+__global__ void __launch_bounds__(kThreads, kStepMinBlocks)
+    fused_steps_kernel(const __grid_constant__ StepParams P) {
   extern __shared__ uint32_t tile[];
-  __shared__ int slot;
+  __shared__ int slot[2];
   if (blockIdx.x == 0 && threadIdx.x == 0)
     for (int k = 1; k < P.nsteps; ++k) atomicExch(P.counters + k, 0);
   for (int k = 0; k < P.nsteps; ++k) {
@@ -302,43 +404,45 @@ __global__ void __launch_bounds__(kThreads)
                           : S.src == kBufOut ? P.out
                                              : P.scratch;
     uint32_t* dst = S.dst == kBufOut ? P.out : P.scratch;
+    if (S.code == kStepRow) {
+      row_step(S, src, dst, P.batch, P.red);
+      continue;
+    }
     const size_t plane = (size_t)S.net.nn * S.ops.ncols;
     const int per_row = S.ops.ncols >> S.ops.log_tl;
     const int tiles = P.batch * S.batch_mult * per_row;
-    for (int t; (t = take_tile(P.counters + k, &slot)) < tiles;) {
+    int t = take_tile(P.counters + k, slot);
+    for (int i = 1; t < tiles; ++i) {
+      int next = 0;
+      if (threadIdx.x == 0) next = atomicAdd(P.counters + k, 1);
       const int y = t / per_row, bx = t % per_row;
       const uint32_t* s = src + (size_t)y * plane;
       uint32_t* d = dst + (size_t)y * plane;
-      const size_t col0 = (size_t)bx << S.ops.log_tl;
-      switch (S.code) {
-        case kStepWholeA:
-          colpass_tile::column_tile<Load::kPlain, true, true, kFuse>(
-              tile, S.net, S.ops, s, d, col0, P.red);
-          break;
-        case kStepWholeAPre:
-          colpass_tile::column_tile<Load::kPre, true, true, kFuse>(
-              tile, S.net, S.ops, s, d, col0, P.red);
-          break;
-        case kStepWholeB:
-          colpass_tile::column_tile<Load::kL2, false, false, kFuse>(
-              tile, S.net, S.ops, s, d, col0, P.red);
-          break;
-        case kStepWholeBPost:
-          colpass_tile::column_tile<Load::kL2, false, true, kFuse>(
-              tile, S.net, S.ops, s, d, col0, P.red);
-          break;
-        default:
-          tall_tile<kDit>(tile, S, s, d, bx, y, P.red);
-      }
-      __syncthreads();
+      if (kSet == kSetAll && S.code < kStepTallAPre)
+        whole_tile(tile, S, s, d, (size_t)bx << S.ops.log_tl, P.red);
+      else
+        tall_tile<kDit, kSet == kSetAll>(tile, S, s, d, bx, y, P.red);
+      if (threadIdx.x == 0) slot[i & 1] = next;
+      __syncthreads();  // also: every thread is done with the tile
+      t = slot[i & 1];
     }
+  }
+  if (P.nsteps == 1) {
+    cooperative_groups::this_grid().sync();
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicExch(P.counters, 0);
   }
 }
 
 using StepsFn = void (*)(StepParams);
 
-StepsFn pick_steps(bool dit) {
-  return dit ? fused_steps_kernel<true> : fused_steps_kernel<false>;
+template <bool kDit>
+StepsFn pick_steps(int set) {
+  return set == kSetTall ? fused_steps_kernel<kDit, kSetTall>
+                         : fused_steps_kernel<kDit, kSetAll>;
+}
+
+StepsFn pick_steps(bool dit, int set) {
+  return dit ? pick_steps<true>(set) : pick_steps<false>(set);
 }
 
 // The instantiation for these operands.
@@ -387,25 +491,33 @@ enum StepPtr : int {
   kStepPtrs,
 };
 
-bool is_tall(int code) { return code >= kStepTallAPre; }
+bool is_tall(int code) {
+  return code >= kStepTallAPre && code <= kStepTallBPost;
+}
 
-// Fills P's steps from the host description; false for one the kernel
-// does not take (then P is not launched).
+// Fills P's steps from the host description and *set with the kernel
+// instantiation they need (StepSet); false for one the kernel does not
+// take (then P is not launched). A whole side's tile may be wider than a
+// column kernel's (up to 256 columns: a tile of a side of 2 or 4 rows
+// holds as many values as the block has threads); a one-row side's step
+// has no tile.
 bool make_steps(StepParams* P, int dit, int nsteps, const int* ints,
                 const void* const* ptrs, int batch, size_t* smem,
-                long long* tiles) {
-  if (nsteps < 2 || nsteps > kMaxSteps || batch < 1) return false;
+                long long* tiles, int* set) {
+  if (nsteps < 1 || nsteps > kMaxSteps || batch < 1) return false;
   *smem = 0;
   *tiles = 0;
+  *set = kSetTall;
   for (int k = 0; k < nsteps; ++k) {
     const int* I = ints + k * kStepInts;
     const void* const* Q = ptrs + k * kStepPtrs;
     Step& S = P->steps[k];
     const int code = I[kICode], rows = I[kIRows], ncols = I[kINcols];
     const int log_tl = I[kILogTl];
-    const bool tall = is_tall(code);
-    if (code < kStepWholeA || code > kStepTallBPost || rows > 8192 ||
-        log_tl < 0 || log_tl > 5 || (ncols >> log_tl) < 1 ||
+    const bool tall = is_tall(code), row = code == kStepRow;
+    if (code < kStepWholeA || code > kStepRow || rows > 8192 ||
+        (row && (rows != 1 || (ncols & (ncols - 1)))) || log_tl < 0 ||
+        log_tl > (tall ? 5 : 8) || (ncols >> log_tl) < 1 ||
         I[kIBatchMult] < 1 || I[kISrc] < kBufX || I[kISrc] > kBufScratch ||
         I[kIDst] < kBufOut || I[kIDst] > kBufScratch ||
         (k == 0) != (I[kISrc] == kBufX) || I[kISrc] == I[kIDst] ||
@@ -461,15 +573,44 @@ bool make_steps(StepParams* P, int dit, int nsteps, const int* ints,
                  log_tl - S.tables.log_tlc > split_inner))
       return false;
     if (!tall && (log_hq || log_lp || I[kIBatchMult] != 1)) return false;
-    const size_t step_smem = (size_t)rows << log_tl << 2;
+    if ((tall && (log_hq || log_lp)) || code == kStepTallPre ||
+        (!tall && !row))
+      *set = kSetAll;
+    const size_t step_smem = row ? 0 : (size_t)rows << log_tl << 2;
     if (step_smem > *smem) *smem = step_smem;
     const long long t = (long long)batch * I[kIBatchMult] * (ncols >> log_tl);
     if (t > (1ll << 30)) return false;
-    if (t > *tiles) *tiles = t;
+    if (!row && t > *tiles) *tiles = t;
   }
   P->nsteps = nsteps;
   P->batch = batch;
   return *smem <= (size_t)kMaxSmemBytes;
+}
+
+// Launches P (filled by make_steps) cooperatively on `stream`: the
+// instantiation of its set, the grid the smaller of its largest step's
+// tiles and the co-resident blocks.
+int launch_steps(StepParams* P, int dit, int set, size_t smem,
+                 long long tiles, void* stream) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const StepsFn kernel = pick_steps(dit != 0, set);
+  err = occupancy(kernel, smem, &per_sm, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const long long capacity = (long long)per_sm * sms;
+  const int grid = static_cast<int>(tiles > 0 && tiles < capacity ? tiles
+                                                                  : capacity);
+  void* args[] = {P};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kThreads),
+      args, smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -503,19 +644,19 @@ int ntt_fused_kernel_info(int pre, int post, int nn_a, int nn_b,
 
 // This build's register group size, and for the step kernel of this
 // direction over these steps (the host description of ntt_fused_steps):
-// its registers a thread and its co-resident blocks per SM at the steps'
-// largest tile. Returns 0 or a cudaError_t.
+// its instantiation (*set: StepSet), registers a thread and co-resident
+// blocks per SM at the steps' largest tile. Returns 0 or a cudaError_t.
 int ntt_fused_steps_info(int dit, int nsteps, const int* ints,
-                         const void* const* ptrs, int* kfuse, int* regs,
-                         int* per_sm) {
+                         const void* const* ptrs, int* kfuse, int* set,
+                         int* regs, int* per_sm) {
   StepParams P;  // the host description's check only
   size_t smem = 0;
   long long tiles = 0;
   *kfuse = kFuse;
   *regs = 0;
-  if (!make_steps(&P, dit, nsteps, ints, ptrs, 1, &smem, &tiles))
+  if (!make_steps(&P, dit, nsteps, ints, ptrs, 1, &smem, &tiles, set))
     return static_cast<int>(cudaErrorInvalidValue);
-  const StepsFn kernel = pick_steps(dit != 0);
+  const StepsFn kernel = pick_steps(dit != 0, *set);
   cudaFuncAttributes attr = {};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   int sms = 0;
@@ -524,49 +665,37 @@ int ntt_fused_steps_info(int dit, int nsteps, const int* ints,
   return static_cast<int>(err);
 }
 
-// Launches one fused transform of sides above one tile on `stream`,
+// Launches one fused transform of sides above one launch on `stream`,
 // cooperatively, as a step list (fused_steps_kernel). x: (batch, nn_a,
 // nn_b) uint32; scratch and out: (batch, nn_b, nn_a). counters: one int32 a
 // step on the device, zero before the first launch (the rule at the top).
 // nsteps steps, each kStepInts ints and kStepPtrs pointers (StepInt,
 // StepPtr; ops/fused_fourstep.py _step_args); dit: the transform's
-// direction. p, c1, c2: the reduction's prime and constants. Returns 0
-// when launched, else a cudaError_t: cudaErrorInvalidValue for steps the
-// kernel does not take, cudaErrorNotSupported for a device without
-// cooperative launch, or the launch's own error.
+// direction. nrun: the steps to run, nsteps for the transform; a smaller
+// count runs that prefix of the list at the whole list's instantiation,
+// grid and shared memory (the card's checks of each step). p, c1, c2: the
+// reduction's prime and constants. Returns 0 when launched, else a
+// cudaError_t: cudaErrorInvalidValue for steps the kernel does not take,
+// cudaErrorNotSupported for a device without cooperative launch, or the
+// launch's own error.
 int ntt_fused_steps(const void* x, void* scratch, void* out, void* counters,
-                    int batch, int dit, int nsteps, const int* ints,
-                    const void* const* ptrs, unsigned int p, unsigned int c1,
-                    unsigned int c2, void* stream) {
+                    int batch, int dit, int nsteps, int nrun,
+                    const int* ints, const void* const* ptrs, unsigned int p,
+                    unsigned int c1, unsigned int c2, void* stream) {
   StepParams P;  // the launch copies its arguments
   size_t smem = 0;
   long long tiles = 0;
-  if (!counters ||
-      !make_steps(&P, dit, nsteps, ints, ptrs, batch, &smem, &tiles))
+  int set = kSetTall;
+  if (!counters || nrun < 1 || nrun > nsteps ||
+      !make_steps(&P, dit, nsteps, ints, ptrs, batch, &smem, &tiles, &set))
     return static_cast<int>(cudaErrorInvalidValue);
+  P.nsteps = nrun;
   P.x = static_cast<const uint32_t*>(x);
   P.scratch = static_cast<uint32_t*>(scratch);
   P.out = static_cast<uint32_t*>(out);
   P.counters = static_cast<int*>(counters);
   P.red = Red::make(p, c1, c2);
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  const StepsFn kernel = pick_steps(dit != 0);
-  err = occupancy(kernel, smem, &per_sm, &sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const long long capacity = (long long)per_sm * sms;
-  const int grid = static_cast<int>(tiles < capacity ? tiles : capacity);
-  void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kThreads),
-      args, smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_steps(&P, dit, set, smem, tiles, stream);
 }
 
 // Launches one fused transform on `stream`, cooperatively. x: (batch,

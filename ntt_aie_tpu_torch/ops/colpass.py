@@ -17,20 +17,21 @@ matrix, the 'pre' wfac and the 'pre' rank-1 operand, the stages, then the
 'post' matrix, wfac and rank-1 operand, then the transpose, 'post_t' and
 canonicalize.
 
-A column of more than MAX_ROWS rows (a tall column: nn = 16,384 and up,
-BabyBear's and Goldilocks's largest transforms, or a pinned split) does
-not fit one block's tile. ``make_colpass`` gives its ColPass the two
-phases of its nested R x S network (``tall_phases``), and on the card
-the pass runs as two launches, phase A over the view (B, rows, inner *
-ncols) of the input and phase B over the same kind of view of A's
-output (``csrc/colpass_tile.cuh`` Tall); ``tall_phase_plain`` is each
-launch's plain version. Nothing runs between them. A phase of more than
-MAX_ROWS rows (a column above MAX_ROWS^2 = 2^26 rows) runs as two
-launches of its own, split by stage group (``phase_groups``): the stages
-whose half size is at least Q over the view (B, P, Q * inner * ncols),
-their twiddle taken by the view's column, and the others over B * P
-arrays of (Q, inner * ncols). ``launch_plan`` lists a pass's launches and
-``launch_plain`` is any launch's plain version.
+A column of more than LAUNCH_ROWS rows (a tall column: nn = 8,192 and
+up, BabyBear's largest transforms or a pinned split; a Goldilocks column
+from 16,384 rows) runs on the card as the launches of its tall route:
+``make_colpass`` gives its ColPass the two phases of its nested R x S
+network (``tall_phases``), and the pass runs as two launches, phase A
+over the view (B, rows, inner * ncols) of the input and phase B over the
+same kind of view of A's output (``csrc/colpass_tile.cuh`` Tall);
+``tall_phase_plain`` is each launch's plain version. Nothing runs between
+them. A phase of more than LAUNCH_ROWS rows (a column above LAUNCH_ROWS^2
+= 2^24 rows) runs as two launches of its own, split by stage group
+(``phase_groups``): the stages whose half size is at least Q over the
+view (B, P, Q * inner * ncols), their twiddle taken by the view's column,
+and the others over B * P arrays of (Q, inner * ncols). ``launch_plan``
+lists a pass's launches and ``launch_plain`` is any launch's plain
+version.
 
 A column of one row (the split (1, n)) is a network of zero stages: its
 pass still multiplies by its operands, transposes and canonicalizes, one
@@ -83,7 +84,13 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "ntt_aie_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-MAX_ROWS = 8192       # csrc/colpass.cu kMaxRows
+MAX_ROWS = 8192       # csrc/colpass.cu kMaxRows: the tallest tile
+# The tallest 32-bit column, or phase of a tall column, that runs as one
+# launch; a taller one runs as its tall route's launches (launch_plan).
+# At 8,192 rows a launch's 4-column tile takes 128 KB and one block an SM
+# (PERF.md section 6 gives the readings that set it). Goldilocks
+# keeps MAX_ROWS (route_rows).
+LAUNCH_ROWS = 4096
 # 8,192 elements a tile where the column allows it: 32 KB of uint32, 64 KB
 # of uint64 (at 1024 rows, 8 columns: 32 bytes a row, and a plane)
 _TILE_ELEMS = 8192
@@ -125,7 +132,7 @@ class ColPass:
     tw_pairs, wmid_pairs: tw and wmid with each pair adjacent,
       (sum(ts), 2) and (nn, 2) or None: the CUDA column and nested kernels
       load a pair as one 8-byte word (the fused kernel reads tw and wmid).
-    tall: for nn > MAX_ROWS, the two phases of the tall route
+    tall: for nn > LAUNCH_ROWS, the two phases of the tall route
       (``tall_phases``), else None.
     """
 
@@ -332,7 +339,7 @@ def _assemble(red, nn, direction, phases_ts, mid_rs, stage_tabs, mid_tab,
                  pre=mats.get("pre"), post=mats.get("post"),
                  wfac=wfac, wfac_pos=wfac_pos, rank1=rank1,
                  rank1_pos=rank1_pos)
-    if nn > MAX_ROWS:
+    if nn > LAUNCH_ROWS:
         cp = dataclasses.replace(cp, tall=tall_phases(cp))
     return cp
 
@@ -710,21 +717,30 @@ def build_library(name: str = "colpass",
     return so
 
 
-def build_libraries() -> dict:
-    """Build every csrc/*.cu at once, the sources in PER_REDUCTION once per
-    reduction, one nvcc process each; returns {name: library path}, the
-    per-reduction ones named "<name>[<reduction>]". Raises the first
-    build's failure."""
+def start_builds() -> dict:
+    """Start building every csrc/*.cu at once, the sources in
+    PER_REDUCTION once per reduction, one nvcc process each, and return
+    at once: {name: future of its library path}, the per-reduction ones
+    named "<name>[<reduction>]". Wait for a library's future before its
+    first use: build_library called meanwhile for the same library would
+    run a second nvcc into the same temporary file."""
     jobs = {}
     for name in sorted(p.stem for p in CSRC_DIR.glob("*.cu")):
         if name in PER_REDUCTION:
             jobs.update({f"{name}[{r}]": (name, r) for r in REDUCTIONS})
         else:
             jobs[name] = (name, "harvey4")
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {key: pool.submit(build_library, *job)
-                   for key, job in jobs.items()}
-        return {key: f.result() for key, f in futures.items()}
+    pool = concurrent.futures.ThreadPoolExecutor(len(jobs))
+    futures = {key: pool.submit(build_library, *job)
+               for key, job in jobs.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def build_libraries() -> dict:
+    """Build every csrc/*.cu at once (start_builds) and wait: {name:
+    library path}. Raises the first build's failure."""
+    return {key: f.result() for key, f in start_builds().items()}
 
 
 @functools.cache
@@ -887,8 +903,14 @@ def tall_shape(nn: int, direction: str) -> tuple:
     return (a, nn // a), (b, nn // b)
 
 
+def route_rows(itemsize: int = 4) -> int:
+    """The tallest column or phase one launch runs, by value width:
+    LAUNCH_ROWS for uint32, MAX_ROWS for Goldilocks's uint64."""
+    return LAUNCH_ROWS if itemsize == 4 else MAX_ROWS
+
+
 def phase_groups(rows: int, direction: str,
-                 max_rows: int = MAX_ROWS) -> list:
+                 max_rows: int = LAUNCH_ROWS) -> list:
     """The launches of one tall phase, a plain network of `rows` points:
     [(group, s0, s1, log_p, log_q)], stages s0 .. s1 - 1 of the phase
     each. A phase of at most max_rows rows is one launch (group None,
@@ -916,16 +938,19 @@ def phase_groups(rows: int, direction: str,
 
 
 def launch_shapes(nn: int, ncols: int, direction: str, *, itemsize: int = 4,
-                  max_rows: int = MAX_ROWS) -> list:
+                  max_rows: int | None = None) -> list:
     """[(rows, ncols, batch multiple, tile columns)] of each launch of a
     pass over (.., nn, ncols), from the shapes alone (``launch_plan``'s
-    launches, without building a pass): a column of at most MAX_ROWS rows
-    is one launch, a taller one its phases' groups (``phase_groups``).
+    launches, without building a pass): a column of at most
+    route_rows(itemsize) rows is one launch, a taller one its phases'
+    groups (``phase_groups`` at max_rows, by default the same limit).
     Raises ValueError for a non-power-of-two side."""
     for what, v in (("nn", nn), ("ncols", ncols)):
         if v < 1 or v & (v - 1):
             raise ValueError(f"{what} must be a power of two, got {v}")
-    if nn <= MAX_ROWS:
+    if max_rows is None:
+        max_rows = route_rows(itemsize)
+    if nn <= route_rows(itemsize):
         return [(nn, ncols, 1, tile_cols(nn, ncols, itemsize))]
     out = []
     for rows, inner in tall_shape(nn, direction):
@@ -941,7 +966,7 @@ def launch_shapes(nn: int, ncols: int, direction: str, *, itemsize: int = 4,
 
 
 def launch_plan(cp, ncols: int, *, itemsize: int = 4,
-                max_rows: int = MAX_ROWS) -> list:
+                max_rows: int | None = None) -> list:
     """The launches of one pass of cp (a ColPass or a GLColPass) over
     (.., cp.nn, ncols), each a dict of what its kernel takes: "tall"
     (TALL_WHOLE, TALL_A, TALL_B, TALL_PRE), "key" (``variant``), "rows"
@@ -958,15 +983,18 @@ def launch_plan(cp, ncols: int, *, itemsize: int = 4,
     network's mid vector, which a TALL_A launch's store multiplies by),
     and "store_ops" (whether it stores with the pass's store operations).
 
-    One launch for a column of up to MAX_ROWS rows (a one-row column's
-    is its operands alone); a tall cp's phases' launches: a phase of up
-    to max_rows rows is one (A: the 'pre' operands on load, the mid
-    multiply and the row move on store; B: the 'post' operands, the
-    transpose, 'post_t' and canonicalize on store), a taller one two
-    (``phase_groups``; A's first takes the 'pre' operands and stores in
-    place, its last the mid step; B's first stores in place, its last
-    the store operations). max_rows: the limit on a phase's launch (the
-    kernels' MAX_ROWS; the CPU tests lower it)."""
+    One launch for a column without a tall route (cp.tall None: up to
+    route_rows(itemsize) rows; a one-row column's is its operands alone);
+    a tall cp's phases' launches: a phase of up to max_rows rows is one
+    (A: the 'pre' operands on load, the mid multiply and the row move on
+    store; B: the 'post' operands, the transpose, 'post_t' and
+    canonicalize on store), a taller one two (``phase_groups``; A's first
+    takes the 'pre' operands and stores in place, its last the mid step;
+    B's first stores in place, its last the store operations). max_rows:
+    the limit on a phase's launch (by default route_rows(itemsize); the
+    CPU tests lower it)."""
+    if max_rows is None:
+        max_rows = route_rows(itemsize)
     (pre_form, pre, pre2), (post_form, post, post2) = _operand_forms(cp)
     mid = cp.wmid_pairs if isinstance(cp, ColPass) else cp.wmid
     canon = getattr(cp, "canonicalize", False)
@@ -1026,9 +1054,10 @@ def launch_keys(cp) -> list:
     launch's key."""
     if cp.tall is None:
         return []
+    max_rows = route_rows(4 if isinstance(cp, ColPass) else 8)
     out = []
     for ph in cp.tall:
-        n = len(phase_groups(ph.rows, cp.direction))
+        n = len(phase_groups(ph.rows, cp.direction, max_rows))
         out += [ph.phase] if n == 1 else [f"{ph.phase}{i + 1}"
                                           for i in range(n)]
     return out

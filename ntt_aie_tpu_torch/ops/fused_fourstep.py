@@ -25,18 +25,19 @@ switch to two launches. Tensors are ``torch.int32`` holding uint32 bit
 patterns: (B, nn_a, nn_b) in, (B, nn_b, nn_a) canonical out; a 2-D input
 is a batch of one.
 
-A side above one tile (more than colpass.MAX_ROWS rows) does not fit a
-block's shared memory: the one cooperative launch then runs a short list
-of steps with a grid sync between them (``fused_steps``): each side the
-launches its column pass would run on the card (``colpass.launch_plan``:
-a whole column, or its tall route's phases, a phase above MAX_ROWS rows
-split in two), side a with 'pre' on its first load and wmid on its
-transposing store, side b with 'post' and canonicalize on its last store.
-``fused_step_plain`` is one step's plain version. The kernel takes each
-step's tiles from its own counter and resets them itself (step 0's is zero
-after every launch, the others are zeroed as it starts), so two launches
-that overlap must not share them: ``FusedFourstep.counters`` keeps one
-buffer per CUDA stream, and launches on one stream run one after another.
+A side above one launch (more than colpass.LAUNCH_ROWS rows), or of one
+row, makes the one cooperative launch a short list of steps with a grid
+sync between them (``fused_steps``): each side the launches its column
+pass would run on the card (``colpass.launch_plan``: a whole column, or
+its tall route's phases, a phase above LAUNCH_ROWS rows split in two),
+side a with 'pre' on its first load and wmid on its transposing store,
+side b with 'post' and canonicalize on its last store; a side of one row
+is one elementwise step of its operands. ``fused_step_plain`` is one
+step's plain version. The kernel takes each step's tiles from its own
+counter and resets them itself (step 0's is zero after every launch, the
+others are zeroed as it starts), so two launches that overlap must not
+share them: ``FusedFourstep.counters`` keeps one buffer per CUDA stream,
+and launches on one stream run one after another.
 """
 
 from __future__ import annotations
@@ -56,8 +57,11 @@ from ntt_aie_tpu_torch.utils.device import resolve_device
 # csrc/fused_fourstep.cu StepCode
 (STEP_WHOLE_A, STEP_WHOLE_A_PRE, STEP_WHOLE_B, STEP_WHOLE_B_POST,
  STEP_TALL_A_PRE, STEP_TALL_A, STEP_TALL_PRE, STEP_IN_PLACE, STEP_TALL_BT,
- STEP_TALL_B_POST) = range(10)
+ STEP_TALL_B_POST, STEP_ROW) = range(11)
 _WHOLE = (STEP_WHOLE_A, STEP_WHOLE_A_PRE, STEP_WHOLE_B, STEP_WHOLE_B_POST)
+# csrc/fused_fourstep.cu StepSet: the step kernel's instantiations
+STEP_SETS = ("tall", "all")
+_THREADS = 256  # csrc/fused_fourstep.cu kThreads
 # csrc/fused_fourstep.cu StepBuf
 _BUFS = {"x": 0, "out": 1, "scratch": 2}
 _STAGES = 16  # colpass_tile.cuh kMaxStages
@@ -196,17 +200,23 @@ def fused_fourstep_plain(x: torch.Tensor, ff: FusedFourstep) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
-def fused_steps(ff: FusedFourstep, *, max_rows: int = C.MAX_ROWS) -> list:
+def fused_steps(ff: FusedFourstep, *, max_rows: int | None = None) -> list:
     """The steps of ff's launch, in order: side a's launches
     (colpass.launch_plan of ff.sides[0] over nn_b columns), then side b's
-    (of ff.sides[1] over nn_a): two whole-side steps where both sides fit
-    a tile, else a side's tall route's. Each a dict: "name" (the side, and
-    a tall launch's suffix: 'a', 'bA', 'bB1', ...), "side", "cp" (the
-    side's pass), "launch", "code" (csrc/fused_fourstep.cu StepCode), and
-    its buffers "src" ('x', then the previous step's "dst") and "dst"
-    ('out' and 'scratch' in turn, so the last step writes 'out').
-    max_rows: launch_plan's (the card's checks lower it to run split
-    phases at small sizes). Made once a row limit (ff.steps)."""
+    (of ff.sides[1] over nn_a): a whole side's one step, a one-row side's
+    one elementwise step (STEP_ROW), a tall side's its tall route's. Each a
+    dict: "name" (the side, and a tall launch's suffix: 'a', 'bA', 'bB1',
+    ...), "side", "cp" (the side's pass), "launch", "code"
+    (csrc/fused_fourstep.cu StepCode), "tile_cols" (the launch's, or for a
+    whole side whose tile would hold fewer values than a block has
+    threads, as many columns as make it hold that many, up to the side's
+    columns), and its buffers "src" ('x', then the previous step's "dst")
+    and "dst" ('out' and 'scratch' in turn, so the last step writes
+    'out'). max_rows: launch_plan's (by default colpass.LAUNCH_ROWS; the
+    card's checks lower it to run split phases at small sizes). Made once
+    a row limit (ff.steps)."""
+    if max_rows is None:
+        max_rows = C.LAUNCH_ROWS
     if max_rows in ff.steps:
         return ff.steps[max_rows]
     nn_a, nn_b = ff.shape_in
@@ -218,7 +228,10 @@ def fused_steps(ff: FusedFourstep, *, max_rows: int = C.MAX_ROWS) -> list:
     out = []
     for k, (side, cp, launch) in enumerate(plan):
         tall = launch["tall"]
-        if tall == C.TALL_WHOLE and side == "a":
+        tl = launch["tile_cols"]
+        if tall == C.TALL_WHOLE and cp.nn == 1:
+            code = STEP_ROW
+        elif tall == C.TALL_WHOLE and side == "a":
             code = STEP_WHOLE_A_PRE if ff.pre is not None else STEP_WHOLE_A
         elif tall == C.TALL_WHOLE:
             code = STEP_WHOLE_B_POST if ff.post is not None else STEP_WHOLE_B
@@ -233,13 +246,39 @@ def fused_steps(ff: FusedFourstep, *, max_rows: int = C.MAX_ROWS) -> list:
             code = STEP_TALL_B_POST
         else:  # in place, or side b's last without 'post'
             code = STEP_IN_PLACE
+        if code in _WHOLE:
+            tl = max(tl, min(launch["ncols"], _THREADS // cp.nn))
         suffix = launch["key"].rpartition("+tall")[2] if tall else ""
         out.append({"name": side + suffix, "side": side, "cp": cp,
-                    "launch": launch, "code": code,
+                    "launch": launch, "code": code, "tile_cols": tl,
                     "src": out[-1]["dst"] if out else "x",
                     "dst": "out" if (len(plan) - 1 - k) % 2 == 0
                     else "scratch"})
     return ff.steps.setdefault(max_rows, out)
+
+
+def step_prefix(ff: FusedFourstep, k: int, *,
+                max_rows: int | None = None) -> list:
+    """fused_steps(ff, max_rows=...) with its buffers bound again so that
+    step k writes 'out', for the card's checks of each step: they launch
+    its steps 0 .. k alone (``_launch(..., run=k + 1)``: the step kernel
+    at the whole list's instantiation, grid and shared memory) and hold
+    the output, viewed as step k's, against fused_step_plain's chain up to
+    k. Made once a prefix (ff.steps)."""
+    if max_rows is None:
+        max_rows = C.LAUNCH_ROWS
+    steps = fused_steps(ff, max_rows=max_rows)
+    if not 0 <= k < len(steps):
+        raise ValueError(f"no step {k} of a list of {len(steps)}")
+    key = ("prefix", max_rows, k)
+    got = ff.steps.get(key)
+    if got is not None:
+        return got
+    out = []
+    for j, st in enumerate(steps):
+        out.append(dict(st, src=out[-1]["dst"] if out else "x",
+                        dst="out" if (k - j) % 2 == 0 else "scratch"))
+    return ff.steps.setdefault(key, out)
 
 
 def fused_key(ff: FusedFourstep, steps: list | None = None) -> str:
@@ -254,7 +293,7 @@ def fused_key(ff: FusedFourstep, steps: list | None = None) -> str:
 
 
 def fused_step_plain(x: torch.Tensor, ff: FusedFourstep, k: int, *,
-                     max_rows: int = C.MAX_ROWS) -> torch.Tensor:
+                     max_rows: int | None = None) -> torch.Tensor:
     """Step k of ff's launch (``fused_steps``) in plain PyTorch ops, in its
     own view: x holds the step's input (B * n values: the transform's
     input for step 0, the previous step's output after it), viewed as its
@@ -309,10 +348,10 @@ def _library(reduction: str = "harvey4") -> ctypes.CDLL:
     lib.ntt_fused_kernel_info.restype = ci
     lib.ntt_fused_kernel_info.argtypes = [ci] * 6 + [pi] * 3
     lib.ntt_fused_steps.restype = ci
-    lib.ntt_fused_steps.argtypes = ([vp] * 4 + [ci] * 3 + [pi, vp]
+    lib.ntt_fused_steps.argtypes = ([vp] * 4 + [ci] * 4 + [pi, vp]
                                     + [ctypes.c_uint] * 3 + [vp])
     lib.ntt_fused_steps_info.restype = ci
-    lib.ntt_fused_steps_info.argtypes = [ci, ci, pi, vp] + [pi] * 3
+    lib.ntt_fused_steps_info.argtypes = [ci, ci, pi, vp] + [pi] * 4
     lib.ntt_fused_error_string.restype = ctypes.c_char_p
     lib.ntt_fused_error_string.argtypes = [ci]
     lib.ntt_reduction_name.restype = ctypes.c_char_p
@@ -330,7 +369,7 @@ def _check(err: int, lib, what: str) -> None:
 
 def _whole(steps) -> bool:
     """Whether a step list is two whole sides (fused_kernel's launch)."""
-    return all(st["code"] in _WHOLE for st in steps)
+    return len(steps) == 2 and all(st["code"] in _WHOLE for st in steps)
 
 
 def _planes(t):
@@ -348,11 +387,11 @@ def _step_args(ff: FusedFourstep, steps: list) -> tuple:
     ints, ptrs = [], []
     for st in steps:
         cp, launch, code = st["cp"], st["launch"], st["code"]
-        whole = code in _WHOLE
+        whole = code in _WHOLE or code == STEP_ROW
         ts, offs = list(launch["ts"]), list(launch["offsets"])
         n = len(ts)
         ints += [code, _BUFS[st["src"]], _BUFS[st["dst"]], launch["rows"],
-                 launch["ncols"], launch["tile_cols"].bit_length() - 1,
+                 launch["ncols"], st["tile_cols"].bit_length() - 1,
                  launch["batch_mult"], n,
                  len(cp.phases_ts[0]) if whole else n,
                  C._log_a(cp) if whole else -1,
@@ -384,15 +423,18 @@ def kernel_info(ff: FusedFourstep, batch: int = 1) -> dict:
     """What the card gives ff's kernel at this batch, in the library of
     ff's reduction: the build's register group size (kfuse), its registers
     a thread, its co-resident blocks per SM under the cooperative launch,
-    the grid it launches with, and its steps' names (``fused_steps``; two
-    whole sides run fused_kernel, any other list fused_steps_kernel)."""
+    the grid it launches with, its steps' names and tile widths
+    (``fused_steps``), and its kernel: two whole sides run fused_kernel
+    ("kernel": "fused"), any other list an instantiation of
+    fused_steps_kernel ("steps:<set>", STEP_SETS)."""
     nn_a, nn_b = ff.shape_in
     tls = fused_shape_check(nn_a, nn_b, batch, inverse=ff.inverse)
     steps = fused_steps(ff)
     lib = _library(ff.red.name)
-    kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
+    kfuse, kset, regs, per_sm = (ctypes.c_int() for _ in range(4))
     with torch.cuda.device(ff.wmid.device):
         if _whole(steps):
+            kernel = "fused"
             _check(lib.ntt_fused_kernel_info(
                 int(ff.pre is not None), int(ff.post is not None), nn_a,
                 nn_b, tls[0].bit_length() - 1, tls[1].bit_length() - 1,
@@ -400,22 +442,25 @@ def kernel_info(ff: FusedFourstep, batch: int = 1) -> dict:
         else:
             ints, ptrs = _step_args(ff, steps)
             _check(lib.ntt_fused_steps_info(
-                int(ff.inverse), len(steps), ints, ptrs, kfuse, regs,
+                int(ff.inverse), len(steps), ints, ptrs, kfuse, kset, regs,
                 per_sm), lib, "occupancy query")
+            kernel = "steps:" + STEP_SETS[kset.value]
         sms = torch.cuda.get_device_properties(
             ff.wmid.device).multi_processor_count
     tiles = max(batch * st["launch"]["batch_mult"] * st["launch"]["ncols"]
-                // st["launch"]["tile_cols"] for st in steps)
-    return {"kfuse": kfuse.value, "registers": regs.value,
-            "blocks_per_sm": per_sm.value, "sms": sms,
-            "grid": min(tiles, per_sm.value * sms),
-            "steps": [st["name"] for st in steps]}
+                // st["tile_cols"] for st in steps if st["code"] != STEP_ROW)
+    return {"kernel": kernel, "kfuse": kfuse.value,
+            "registers": regs.value, "blocks_per_sm": per_sm.value,
+            "sms": sms, "grid": min(tiles, per_sm.value * sms),
+            "steps": [st["name"] for st in steps],
+            "tile_cols": [st["tile_cols"] for st in steps]}
 
 
-def _launch(xb: torch.Tensor, ff: FusedFourstep,
-            steps: list | None = None) -> torch.Tensor:
-    """ff's launch on xb: its fused_steps, or these (a list of
-    fused_steps(ff, max_rows=...), which the card's checks run)."""
+def _launch(xb: torch.Tensor, ff: FusedFourstep, steps: list | None = None,
+            run: int | None = None) -> torch.Tensor:
+    """ff's launch on xb: its fused_steps, or these (fused_steps(ff,
+    max_rows=...) or a step_prefix, which the card's checks run); run: the
+    steps to run (the list's all; a prefix for the checks)."""
     tables = {"net_a.tw": ff.net_a.tw, "net_a.wmid": ff.net_a.wmid,
               "net_b.tw": ff.net_b.tw, "net_b.wmid": ff.net_b.wmid,
               "wmid": ff.wmid, "pre": ff.pre, "post": ff.post}
@@ -438,7 +483,7 @@ def _launch(xb: torch.Tensor, ff: FusedFourstep,
     lib = _library(ff.red.name)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
-        if _whole(steps):
+        if run is None and _whole(steps):
             err = lib.ntt_fused_fourstep(
                 xb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
                 ff.counters(stream).data_ptr(), B, nn_a, nn_b,
@@ -452,10 +497,10 @@ def _launch(xb: torch.Tensor, ff: FusedFourstep,
             err = lib.ntt_fused_steps(
                 xb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
                 ff.counters(stream, len(steps)).data_ptr(), B,
-                int(ff.inverse), len(steps), ints, ptrs, ff.red.p,
-                *ff.red.consts, stream)
+                int(ff.inverse), len(steps), run or len(steps), ints, ptrs,
+                ff.red.p, *ff.red.consts, stream)
     _check(err, lib, "launch")
-    key = fused_key(ff, steps)
+    key = fused_key(ff, steps[:run])
     fused_fourstep.launches += 1
     by = fused_fourstep.launches_by
     by[key] = by.get(key, 0) + 1

@@ -2,7 +2,9 @@
 of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
-        [--nested] [--gl] [--crt] [--ring] [--tall] [--reduction KIND]
+        [--nested] [--gl] [--crt] [--ring] [--tall] [--limit] [--steps]
+        [--reduction KIND]
+    python -m ntt_aie_tpu_torch.scripts.fused_turns --sync
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
 such as an unpacked ``git archive`` of another commit, or of this one with
@@ -53,16 +55,36 @@ operand of random canonical values in the plan's (n1, n2) shape) over
 16,384 rows, under BabyBear's montgomery and over Goldilocks, each launch
 alone (``colpass_phase``, ``gl_colpass_phase``) and the whole pass, us
 per call, and hashes the passes' outputs, which must agree across every
-reading of every root that has the route. The readings go in turns: the
+reading of every root that has the route. With ``--limit`` each reading
+also times BabyBear's cp1 (DIF, 'post_t', transpose_out) and icp1 (DIT,
+canonicalize) under montgomery at 8192 x 16384 and 4096 x 32768, B = 1,
+each as one whole-column launch and through its tall route's two
+launches, the pass and each launch alone (us per call), compares the two
+routes' outputs bit for bit and reads kernel_info of each (and times
+Goldilocks's cp1 and icp1 at 8192 x 16384, one whole-column launch). With
+``--steps`` each reading also times the fused plan against the fold plan
+at BabyBear n = 2^27 (8192 x 16384, B = 1), p = 469762049 at (1, 2^20),
+B = 1, and BabyBear n = 2^17 at 8 x 16384 and 16384 x 8, B = 2:
+``fwd_mat`` and ``inv_mat`` a call (CUDA events, each call on the same
+input), each fused transform's device time alone (a chain enqueued
+behind a sleep kernel), its kernel_info, and the fused ``fwd_mat``
+compared with the fold's bit for bit. The readings go in turns: the
 roots in order, then in reverse (a b c c b a).
+
+``--sync`` times nothing else: it builds ``scripts/grid_sync.cu`` and
+times cooperative launches of 1, 2 and 4 empty steps (a counter add a
+block a step, a grid sync between steps) at 4 blocks of 256 threads an
+SM, the step kernel's grid at BabyBear n = 2^27 (528 blocks on an H100),
+each alone on the device (behind a sleep kernel); one sync's cost is the
+slope, (t4 - t1) / 3. It prints one line.
 
 Prints one JSON line per reading, then one summary line: per root, the
 mean of its readings in us per NTT (us per pass per NTT for cp1 and cp2;
 us per call for the nested bench shape), and the card's name and power
 limit (nvidia-smi). Exits 1 if a reading failed, a fused output differed
 from the fold plan's, a nested one from the column pass's, or two
-readings' Goldilocks outputs, CRT limbs or ring outputs from each other.
-Needs a CUDA card.
+readings' Goldilocks outputs, CRT limbs or ring outputs from each other,
+or a tall route's output from the whole column's. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -93,6 +115,15 @@ REDUCTION_FIELDS = {"harvey4": "p469762049", "harvey": "p998244353",
                     "montgomery": "p2013265921"}
 # the tall route's split: n = 2^27 at 8192 x 16384, cp2 and icp2 tall
 TALL_N1, TALL_N2 = 8192, 16384
+# --limit: the 32-bit whole-column launch against the tall route at the
+# two heights a launch limit could fall between, over BabyBear n = 2^27
+LIMIT_SHAPES = ((8192, 16384), (4096, 32768))
+# --steps: the fused plan's step lists against the fold plan's calls,
+# (field, log_n, rows_log2 (None: the default split), batch)
+STEP_CASES = (("p2013265921", 27, None, 1), ("p469762049", 20, 0, 1),
+              ("p2013265921", 17, 3, 2), ("p2013265921", 17, 14, 2))
+SYNC_STEPS = (1, 2, 4)  # --sync: the empty step lists' lengths
+SYNC_BLOCKS_PER_SM = 4  # --sync: the step kernel's (kStepMinBlocks)
 
 
 def _emit(obj) -> None:
@@ -310,6 +341,223 @@ def _measure_tall() -> dict:
     return out
 
 
+def _sleep_ahead_us(fn, x, *, iters=20, repeats=3, cycles=20_000_000):
+    """Device us a call of fn(x), the host's enqueue hidden: `iters` calls
+    enqueued behind a sleep kernel (torch.cuda._sleep) and timed between
+    two CUDA events recorded after it, the median of `repeats`. Returns (us,
+    whether every repeat's enqueue finished inside the sleep)."""
+    import time
+
+    import torch
+
+    fn(x)
+    torch.cuda.synchronize()
+    runs, hidden = [], True
+    for _ in range(repeats):
+        e0, start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(x)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        hidden = hidden and enqueue_ms < e0.elapsed_time(start)
+        runs.append(start.elapsed_time(end) * 1e3 / iters)
+    return sorted(runs)[len(runs) // 2], hidden
+
+
+def _measure_limit() -> dict:
+    """The BabyBear fold plan's cp1 (DIF, 'post_t' of random canonical
+    values, transpose_out) and icp1 (DIT, canonicalize) at LIMIT_SHAPES,
+    B = 1, under montgomery: each pass as one whole-column launch and
+    through its tall route (colpass.tall_phases, whichever route the
+    root's launch_plan gives the pass), us per call of the pass and of
+    each launch, the two routes' outputs compared bit for bit, and
+    kernel_info of each route; and Goldilocks's cp1 and icp1 at the first
+    shape, whose whole-column launch the plans keep, us per call."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    field = T.P_2013265921
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"limit_equal": {}, "limit_kernel_info": {}}
+    for nn, ncols in LIMIT_SHAPES:
+        wmat = rng.integers(0, field.p, (ncols, nn), dtype=np.uint64)
+        passes = {
+            "cp1": C.make_colpass(field, nn, direction="dif", wmat=wmat,
+                                  transpose_out=True, reduction="montgomery",
+                                  device=dev),
+            "icp1": C.make_colpass(field, nn, direction="dit",
+                                   inverse_tw=True, canonicalize=True,
+                                   reduction="montgomery", device=dev)}
+        del wmat
+        x = torch.randint(0, field.p, (1, nn, ncols), dtype=torch.int64,
+                          device=dev, generator=gen).to(torch.int32)
+        for key, cp in passes.items():
+            tag = f"limit_{nn}_{key}"
+            routes = {"whole": dataclasses.replace(cp, tall=None),
+                      "tall": dataclasses.replace(
+                          cp, tall=cp.tall or C.tall_phases(cp))}
+            ys = {}
+            for route, c in routes.items():
+                ys[route] = C.colpass(x, c)
+                out[f"{tag}_{route}_us_per_call"] = time_device(
+                    lambda _, c=c: C.colpass(x, c), x, iters=5,
+                    repeats=5)["us_per_iter"]
+                out["limit_kernel_info"][f"{tag}_{route}"] = C.kernel_info(
+                    c, ncols)
+            out["limit_equal"][tag] = bool(torch.equal(ys["whole"],
+                                                       ys["tall"]))
+            u = x
+            for launch in C.launch_plan(routes["tall"], ncols):
+                suffix = launch["key"].rpartition("+tall")[2]
+                out[f"{tag}_tall{suffix}_us_per_call"] = time_device(
+                    lambda _, u=u, launch=launch: C.colpass_launch(
+                        u, routes["tall"], launch), u, iters=5,
+                    repeats=5)["us_per_iter"]
+                u = C.colpass_launch(u, routes["tall"], launch)
+            del ys, u
+        del passes, x
+        torch.cuda.empty_cache()
+    # Goldilocks keeps its 8,192-row whole-column launch: cp1 and icp1 at
+    # the first shape, timed alone
+    gfield = T.GOLDILOCKS
+    wmat = rng.integers(0, 1 << 63, LIMIT_SHAPES[0][::-1], dtype=np.uint64)
+    nn, ncols = LIMIT_SHAPES[0]
+    gl_passes = {"cp1": G.make_gl_colpass(gfield, nn, direction="dif",
+                                          wmat=wmat, transpose_out=True,
+                                          device=dev),
+                 "icp1": G.make_gl_colpass(gfield, nn, direction="dit",
+                                           inverse_tw=True, device=dev)}
+    del wmat
+    hi = torch.randint(0, (1 << 32) - 1, (1, nn, ncols), dtype=torch.int64,
+                       device=dev, generator=gen)
+    x = (M.from_carrier(hi), M.from_carrier(torch.randint(
+        0, 1 << 32, hi.shape, dtype=torch.int64, device=dev,
+        generator=gen)))
+    del hi
+    for key, cp in gl_passes.items():
+        out[f"limit_gl_{nn}_{key}_whole_us_per_call"] = time_device(
+            lambda _, cp=cp: G.gl_colpass(x, cp), x, iters=5,
+            repeats=5)["us_per_iter"]
+        out["limit_kernel_info"][f"limit_gl_{nn}_{key}_whole"] = (
+            G.kernel_info(cp, ncols))
+    del gl_passes, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _measure_steps() -> dict:
+    """The fused plan against the fold plan at STEP_CASES: us per call of
+    fwd_mat and inv_mat of each (on CUDA events, each call on the same
+    input), the fused transforms' device us alone (_sleep_ahead_us), the
+    fused fwd_mat compared with the fold's bit for bit, kernel_info of the
+    fused transforms."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {"steps_equal": {}, "steps_kernel_info": {}}
+    for name, log_n, rows_log2, batch in STEP_CASES:
+        field = T.FIELDS[name]
+        cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2)
+        n1, n2 = cfg.split
+        tag = f"steps_{name}_{n1}x{n2}_b{batch}"
+        fold = T.build_plan(cfg, device=dev)
+        fused = T.build_plan(cfg, device=dev, fused=True)
+        bats = {"fold": fold.make_batched(batch),
+                "fused": fused.make_batched(batch)}
+        x = torch.randint(0, field.p, (batch, n1, n2), dtype=torch.int64,
+                          device=dev, generator=gen).to(torch.int32)
+        y = bats["fold"]["fwd_mat"](x)
+        out["steps_equal"][tag] = bool(torch.equal(
+            y, bats["fused"]["fwd_mat"](x)))
+        for plan_name, bat in bats.items():
+            for key, v in (("fwd_mat", x), ("inv_mat", y)):
+                out[f"{tag}_{plan_name}_{key}_us_per_call"] = time_device(
+                    lambda _, key=key, v=v, bat=bat: bat[key](v), v,
+                    iters=5, repeats=5)["us_per_iter"]
+        for key, v in (("ff", x), ("fi", y)):
+            ff = fused.passes[key]
+            us, hidden = _sleep_ahead_us(lambda u, ff=ff: F.fused_fourstep(
+                u, ff), v)
+            out[f"{tag}_{key}_device_us_per_call"] = us
+            out[f"{tag}_{key}_enqueue_hidden"] = hidden
+            out["steps_kernel_info"][f"{tag}_{key}"] = F.kernel_info(
+                ff, batch)
+        del fold, fused, bats, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def _measure_sync() -> dict:
+    """Device us a cooperative launch of SYNC_STEPS empty steps
+    (scripts/grid_sync.cu, built here with the package's nvcc flags) at
+    SYNC_BLOCKS_PER_SM blocks an SM, and one grid sync's cost, the slope
+    between the shortest and the longest list."""
+    import ctypes
+    import hashlib
+
+    import torch
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from ntt_aie_tpu_torch.ops import colpass as C
+
+    src = pathlib.Path(__file__).with_name("grid_sync.cu")
+    key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = C.BUILD_DIR / f"grid_sync-{key}.so"
+    if not so.exists():
+        C.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+        subprocess.run([os.path.join(CUDA_HOME or "/usr/local/cuda", "bin",
+                                     "nvcc"), *C.NVCC_FLAGS, "-o", str(tmp),
+                        str(src)], check=True, capture_output=True)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    lib.grid_sync_steps.restype = ctypes.c_int
+    lib.grid_sync_steps.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]
+    lib.grid_sync_error_string.restype = ctypes.c_char_p
+    dev = torch.device("cuda", 0)
+    grid = (SYNC_BLOCKS_PER_SM
+            * torch.cuda.get_device_properties(dev).multi_processor_count)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {"sync_grid": grid}
+    for k in SYNC_STEPS:
+        counters = torch.zeros(k, dtype=torch.int32, device=dev)
+
+        def launch(_, k=k, c=counters):
+            err = lib.grid_sync_steps(c.data_ptr(), k, grid, stream)
+            if err:
+                raise RuntimeError(lib.grid_sync_error_string(err).decode())
+
+        out[f"sync_{k}_steps_device_us_per_call"] = _sleep_ahead_us(
+            launch, counters)[0]
+    lo, hi = SYNC_STEPS[0], SYNC_STEPS[-1]
+    out["sync_us"] = ((out[f"sync_{hi}_steps_device_us_per_call"]
+                       - out[f"sync_{lo}_steps_device_us_per_call"])
+                      / (hi - lo))
+    return out
+
+
 def _measure_nested() -> dict:
     """The column pass and the nested pass at fuse 1 to 5 at the nested
     bench shape, us per call."""
@@ -405,11 +653,27 @@ def main(argv=None) -> int:
                     help="also time the tall route's launches at the "
                          "8192 x 16384 split of n = 2^27, B = 1 (roots "
                          "with the route)")
+    ap.add_argument("--limit", action="store_true",
+                    help="also time BabyBear cp1 and icp1 at 8192 x 16384 "
+                         "and 4096 x 32768, B = 1, as one whole-column "
+                         "launch and through the tall route")
+    ap.add_argument("--steps", action="store_true",
+                    help="also time the fused plan's step lists against "
+                         "the fold plan at BabyBear n = 2^27, (1, 2^20) "
+                         "and n = 2^17 (8 x 16384, 16384 x 8)")
+    ap.add_argument("--sync", action="store_true",
+                    help="only time the grid sync (scripts/grid_sync.cu) "
+                         "and print one line")
     ap.add_argument("--reduction", default="harvey4",
                     choices=sorted(REDUCTION_FIELDS),
                     help="the reduction (and its field) of the transforms")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.sync:
+        _emit(dict(_measure_sync(), card=_card(),
+                   method="CUDA events around 20 launches enqueued behind "
+                          "a sleep kernel, median of 3"))
+        return 0
     if args.child:
         reading = _measure(args.reduction)
         if args.nested:
@@ -425,6 +689,10 @@ def main(argv=None) -> int:
 
             if hasattr(C, "colpass_phase"):
                 reading.update(_measure_tall())
+        if args.limit:
+            reading.update(_measure_limit())
+        if args.steps:
+            reading.update(_measure_steps())
         _emit(reading)
         return 0
 
@@ -437,9 +705,11 @@ def main(argv=None) -> int:
     roots["this"] = THIS_ROOT
 
     libs = (("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
-            + ("gl_colpass",) * (args.gl or args.tall) + ("crt",) * args.crt
+            + ("gl_colpass",) * (args.gl or args.tall or args.limit)
+            + ("crt",) * args.crt
             + ("ring_layers",) * args.ring)
-    reds = {args.reduction} | ({"montgomery"} if args.tall else set())
+    reds = {args.reduction} | ({"montgomery"} if args.tall or args.limit
+                               or args.steps else set())
     reds = sorted(reds - {"harvey4"})
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
              f"[C.build_library(n) for n in {libs!r}]; "
@@ -460,7 +730,8 @@ def main(argv=None) -> int:
     readings = {name: [] for name in roots}
     flags = (["--nested"] * args.nested + ["--gl"] * args.gl
              + ["--crt"] * args.crt + ["--ring"] * args.ring
-             + ["--tall"] * args.tall + ["--reduction", args.reduction])
+             + ["--tall"] * args.tall + ["--limit"] * args.limit
+             + ["--steps"] * args.steps + ["--reduction", args.reduction])
     ok = True
     gl_hashes = crt_hash = ring_hashes = tall_hashes = None
     for name in order:
@@ -478,7 +749,9 @@ def main(argv=None) -> int:
               and reading.get("gl_hashes") == gl_hashes
               and reading.get("crt_hash") == crt_hash
               and reading.get("ring_hashes") == ring_hashes
-              and reading.get("tall_hashes", tall_hashes) == tall_hashes)
+              and reading.get("tall_hashes", tall_hashes) == tall_hashes
+              and all(reading.get("limit_equal", {}).values())
+              and all(reading.get("steps_equal", {}).values()))
         readings[name].append(reading)
         _emit(dict(reading, root=name))
 

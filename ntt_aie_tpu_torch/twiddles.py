@@ -41,13 +41,31 @@ def _tw_dtype(field: PrimeField):
         "no plan)")
 
 
+# _gl_mulmod_vec's block: its two dozen temporaries of this many values
+# stay in cache (a whole 2^27-value table's each took a fresh GiB)
+_GL_BLOCK = 1 << 14
+
+
 def _gl_mulmod_vec(a, b) -> np.ndarray:
     """Elementwise a*b mod p for Goldilocks on uint64 arrays: 4 x 32-bit
     partial products assembled into a 128-bit (hi, lo) pair with explicit
     carries, then reduced with 2^64 = 2^32 - 1, 2^96 = -1 (the algorithm
-    of native/oracle.cc ntt_goldilocks_reduce128)."""
-    a = np.asarray(a, dtype=np.uint64)
-    b = np.asarray(b, dtype=np.uint64)
+    of native/oracle.cc ntt_goldilocks_reduce128). Runs in blocks of
+    _GL_BLOCK values."""
+    a, b = np.broadcast_arrays(np.asarray(a, dtype=np.uint64),
+                               np.asarray(b, dtype=np.uint64))
+    if a.size <= _GL_BLOCK:
+        return _gl_mulmod_block(a, b)
+    out = np.empty(a.shape, dtype=np.uint64)
+    fa, fb, fo = a.reshape(-1), b.reshape(-1), out.reshape(-1)
+    for i in range(0, a.size, _GL_BLOCK):
+        fo[i:i + _GL_BLOCK] = _gl_mulmod_block(fa[i:i + _GL_BLOCK],
+                                               fb[i:i + _GL_BLOCK])
+    return out
+
+
+def _gl_mulmod_block(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """_gl_mulmod_vec on one block of uint64 arrays of one shape."""
     mask = np.uint64(0xFFFFFFFF)
     s32 = np.uint64(32)
     ah, al = a >> s32, a & mask

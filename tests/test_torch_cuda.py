@@ -112,18 +112,26 @@ def test_kernel_matches_plain(cuda, n1, n2, B):
 
 @pytest.mark.parametrize("direction", ["dif", "dit"])
 def test_kernel_takes_8192_rows(cuda, direction):
-    """8,192 rows in 4-column tiles (128 KB): the tallest column."""
+    """8,192 rows in 4-column tiles (128 KB): the tallest column one launch
+    holds. The plans run a column above LAUNCH_ROWS as its tall route's two
+    launches; the whole-column launch (a pass without its route) still
+    takes it."""
+    import dataclasses
+
     assert C.tile_cols(8192, 64) == 4
     cp = C.make_colpass(T.P_469762049, 8192, direction=direction,
                         inverse_tw=direction == "dit", device=cuda)
     g = torch.Generator(device=cuda).manual_seed(8192)
     x = torch.randint(0, 4 * P, (1, 8192, 64), dtype=torch.int64,
                       device=cuda, generator=g).to(torch.int32)
-    before = C.colpass.launches
-    got = C.colpass(x, cp)
-    torch.cuda.synchronize()
-    assert C.colpass.launches == before + 1
-    assert torch.equal(got, C.colpass_plain(x, cp))
+    want = C.colpass_plain(x, cp)
+    for route, launches in ((dataclasses.replace(cp, tall=None), 1),
+                            (cp, 2)):
+        before = C.colpass.launches
+        got = C.colpass(x, route)
+        torch.cuda.synchronize()
+        assert C.colpass.launches == before + launches
+        assert torch.equal(got, want)
 
 
 def test_colpass_kernel_info(cuda):
@@ -134,10 +142,15 @@ def test_colpass_kernel_info(cuda):
         assert info["layout"] == "swizzled"
         assert info["tile_cols"] == 8
         assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
-    # a 4-column tile of 8,192 rows takes 128 KB: one block per SM
+    # a 4-column tile of 8,192 rows takes 128 KB: one block per SM; the
+    # plans run such a column as its tall route's 32-column launches
+    import dataclasses
+
     cp = C.make_colpass(T.P_469762049, 8192, direction="dif", device=cuda)
-    info = C.kernel_info(cp, 64)
+    info = C.kernel_info(dataclasses.replace(cp, tall=None), 64)
     assert info["tile_cols"] == 4 and info["blocks_per_sm"] == 1
+    for ph in C.kernel_info(cp, 64)["phases"]:
+        assert ph["tile_cols"] == 32 and ph["blocks_per_sm"] > 1
 
 
 def test_kernel_plan_matches_oracle(cuda):
@@ -1656,7 +1669,7 @@ def _fused_case(kind, field, n1, n2, inverse, cuda):
         reduction=kind, device=cuda)
 
 
-@pytest.mark.parametrize("max_rows", [C.MAX_ROWS, SPLIT_LIMIT])
+@pytest.mark.parametrize("max_rows", [C.LAUNCH_ROWS, SPLIT_LIMIT])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n1,n2", [(8, 16384), (16384, 8), (1, 16384),
                                    (16384, 1)])
@@ -1716,3 +1729,73 @@ def test_fused_tall_plan_matches_plain(cuda, rows_log2):
         torch.cuda.synchronize()
         assert FF.fused_fourstep.launches == before + (1 if one else 3), key
         assert torch.equal(got.cpu(), plain[key](*args)), key
+
+
+# ---- 32-bit columns above LAUNCH_ROWS rows, and the redesigned step list ----
+
+@pytest.mark.parametrize("nn", [4096, 8192])
+@pytest.mark.parametrize("arm", TALL_ARMS)
+@pytest.mark.parametrize("kind,field", [("harvey4", T.P_469762049),
+                                        ("montgomery", T.P_2013265921)])
+def test_route_at_launch_limit_matches_plain(cuda, kind, field, nn, arm):
+    """Columns of 4,096 and 8,192 rows through the tall route (the plans'
+    route above LAUNCH_ROWS; forced at 4,096): each launch of every
+    instantiation the plans' arms run equals its plain version raw, and
+    the two compose to the whole column's plain pass."""
+    import dataclasses
+
+    g = torch.Generator(device=cuda).manual_seed(nn + TALL_ARMS.index(arm))
+
+    def fold(field, n1, n2, **kw):
+        return fold_passes(field, n1, n2, negacyclic=True, **kw)
+
+    passes = _tall_passes(fold, FS.dist_passes, field, nn, arm, 8,
+                          reduction=kind, device=cuda)
+    for name, (cp, nc) in passes.items():
+        assert (cp.tall is not None) == (nn > C.LAUNCH_ROWS), name
+        cp = dataclasses.replace(cp, tall=cp.tall or C.tall_phases(cp))
+        x = torch.randint(0, RED_TOP.get(kind, 4) * field.p, (2, nn, nc),
+                          dtype=torch.int64, device=cuda,
+                          generator=g).to(torch.int32)
+        u = x
+        for launch in C.launch_plan(cp, nc):
+            got = C.colpass_launch(u, cp, launch)
+            torch.cuda.synchronize()
+            assert torch.equal(got, C.launch_plain(u, cp, launch)), name
+            u = got
+        assert torch.equal(u, C.colpass_plain(x, cp)), name
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n1,n2", [(8192, 64), (64, 8192), (1, 8192),
+                                   (8192, 1), (2, 8192), (8192, 8192)])
+def test_fused_launch_limit_steps_match_plain(cuda, n1, n2, inverse):
+    """The step lists of sides above LAUNCH_ROWS rows (an 8,192-row side:
+    its tall route's two steps, never a tile of more than LAUNCH_ROWS
+    rows), of one-row sides (an elementwise step) and of 2-row sides (a
+    widened whole tile), under montgomery: each step against its plain
+    version raw (fused_step_plain), the launch against the plain
+    transform over a chain of launches; kernel_info: more than one block
+    an SM."""
+    field = T.P_2013265921
+    ff = _fused_case("montgomery", field, n1, n2, inverse, cuda)
+    steps = FF.fused_steps(ff)
+    assert max(st["launch"]["rows"] for st in steps) <= C.LAUNCH_ROWS
+    g = torch.Generator(device=cuda).manual_seed(n1 * 3 + n2 + int(inverse))
+    x = torch.randint(0, field.p, (1,) + ff.shape_in, dtype=torch.int64,
+                      device=cuda, generator=g).to(torch.int32)
+    for _ in range(3):
+        got = FF.fused_fourstep(x, ff)
+    torch.cuda.synchronize()
+    assert torch.equal(got, FF.fused_fourstep_plain(x, ff))
+    u = x
+    for k, st in enumerate(steps):  # the list up to each step, raw
+        u = FF.fused_step_plain(u, ff, k)
+        got = FF._launch(x, ff, FF.step_prefix(ff, k), run=k + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got.reshape(-1), u.reshape(-1)), st["name"]
+    info = FF.kernel_info(ff)
+    assert info["kernel"].startswith("steps:")
+    assert info["blocks_per_sm"] > 1
+    assert info["steps"] == [st["name"] for st in steps]
+

@@ -128,7 +128,10 @@ def test_fused_rejects_bad_input():
     (512, 2048, 4, (16, 4)),
     (2048, 512, 4, (4, 16)),
     (32, 64, 1, (32, 32)),
-    (C.MAX_ROWS, 16, 1, (4, 32)),
+    # a side above one launch (LAUNCH_ROWS < 8192 <= MAX_ROWS rows): its
+    # tall route's two steps, 64 and 128 rows over 128 * 16 and 64 * 16
+    # view columns
+    (C.MAX_ROWS, 16, 1, (32, 32, 32)),
     # a side above the H100 tile limit: its tall route's two steps, each
     # 128 rows over 128 * 16 view columns
     (2 * C.MAX_ROWS, 16, 1, (32, 32, 32)),

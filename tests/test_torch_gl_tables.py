@@ -31,6 +31,26 @@ def test_gl_power_series_and_mulmod_match():
                               jtw.root_powers(JGL, n))
 
 
+@pytest.mark.parametrize("shape", [(1,), (ttw._GL_BLOCK,),
+                                   (ttw._GL_BLOCK + 3,),
+                                   (3, ttw._GL_BLOCK // 2 + 5)])
+def test_gl_mulmod_blocks_match_the_reference(shape):
+    """The blocked product equals the reference's whole-array one across
+    block edges, over a 2-D array, and against a scalar operand, values
+    up to 2^64 - 1 (not only canonical ones) included."""
+    rng = np.random.default_rng(list(shape))
+    a = rng.integers(0, 1 << 64, shape, dtype=np.uint64)
+    b = rng.integers(0, 1 << 64, shape, dtype=np.uint64)
+    a.flat[0], b.flat[-1] = np.uint64((1 << 64) - 1), np.uint64(TGL.p)
+    got = ttw._gl_mulmod_vec(a, b)
+    assert got.shape == shape and got.dtype == np.uint64
+    assert np.array_equal(got, jtw._gl_mulmod_vec(a, b))
+    w = int(rng.integers(2, TGL.p, dtype=np.uint64))
+    assert np.array_equal(ttw._gl_mulmod_vec(a, w), jtw._gl_mulmod_vec(a, w))
+    i = a.size // 2
+    assert int(got.flat[i]) == int(a.flat[i]) * int(b.flat[i]) % TGL.p
+
+
 @pytest.mark.parametrize("nn", [16, 256, 512, 1024])
 @pytest.mark.parametrize("direction", ["dif", "dit"])
 @pytest.mark.parametrize("inverse", [False, True])

@@ -1,7 +1,7 @@
-"""The fused transform's sides above one tile, on the CPU.
+"""The fused transform's sides above one launch, on the CPU.
 
-A fused side of more than colpass.MAX_ROWS rows does not fit a block's
-shared memory: the one cooperative launch then runs a list of steps with a
+A fused side of more than colpass.LAUNCH_ROWS rows runs as its tall
+route: the one cooperative launch then runs a list of steps with a
 grid sync between them (ops/fused_fourstep.py fused_steps), each side the
 launches its column pass would run on the card (a whole column, or its
 tall route's phases, a phase above the row limit split in two). Here:
@@ -86,7 +86,7 @@ def test_fused_steps_compose_to_the_transform(red, split, inverse, max_rows):
     x = torch.from_numpy(rng.integers(0, field.p, (2,) + ff.shape_in)
                          .astype(np.uint32).view(np.int32))
     steps = F.fused_steps(ff, max_rows=max_rows)
-    tall_side = "b" if ff.shape_in[1] > C.MAX_ROWS else "a"
+    tall_side = "b" if ff.shape_in[1] > C.LAUNCH_ROWS else "a"
     names = [st["name"] for st in steps]
     tall_names = (["A", "B"] if max_rows == C.MAX_ROWS
                   else ["A1", "A2", "B1", "B2"])
@@ -111,7 +111,7 @@ def test_fused_steps_compose_to_the_transform(red, split, inverse, max_rows):
     (16384, 8, True, (32, 32, 32)),
     (1, 1 << 20, False, (32, 8, 8)),
     (1 << 20, 1, True, (8, 8, 32)),
-    (1 << 27, 1, False, (4, 32, 32, 32)),
+    (1 << 27, 1, False, (32, 32, 32, 32, 32)),
 ])
 def test_fused_shape_check_steps(nn_a, nn_b, inverse, tiles):
     assert F.fused_shape_check(nn_a, nn_b, 2, inverse=inverse) == tiles
@@ -120,7 +120,7 @@ def test_fused_shape_check_steps(nn_a, nn_b, inverse, tiles):
 @pytest.mark.parametrize("log_side", range(14, 33, 3))
 def test_fused_shape_check_takes_every_side(log_side):
     """No power-of-two side up to 2^32 rows is refused, whichever side it
-    is and at either direction; every step at most MAX_ROWS rows."""
+    is and at either direction; every step at most LAUNCH_ROWS rows."""
     for nn_a, nn_b in ((1 << log_side, 1), (1, 1 << log_side),
                        (1 << log_side, 8)):
         for inverse in (False, True):
@@ -129,7 +129,7 @@ def test_fused_shape_check_takes_every_side(log_side):
             shapes = (C.launch_shapes(nn_a, nn_b, d)
                       + C.launch_shapes(nn_b, nn_a, d))
             assert tiles == tuple(s[-1] for s in shapes)
-            assert max(s[0] for s in shapes) <= C.MAX_ROWS
+            assert max(s[0] for s in shapes) <= C.LAUNCH_ROWS
 
 
 @pytest.mark.parametrize("nn_a,nn_b,batch", [

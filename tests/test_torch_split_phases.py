@@ -1,7 +1,8 @@
 """Tall phases above a launch's rows, on the CPU.
 
-A column above colpass.MAX_ROWS^2 = 2^26 rows has tall phases of more than
-MAX_ROWS rows; each runs on the card as two launches split by stage group
+A 32-bit column above colpass.LAUNCH_ROWS^2 = 2^24 rows (Goldilocks:
+MAX_ROWS^2 = 2^26) has tall phases of more than a launch's rows; each runs
+on the card as two launches split by stage group
 (colpass.phase_groups): with the phase's rows p * Q + q, the stages of half
 size t >= Q ('hi') over the view (B, P, Q * inner * ncols), their twiddle
 taken by the view's column, and the stages t < Q ('lo') over B * P arrays
@@ -21,7 +22,7 @@ split runs here at 16,384- and 32,768-row columns with a limit of 64
   view column j, the operands at F, phase A's moved store and phase B's
   transposed store) equals each launch's plain version;
 - the limits: no launch of any power-of-two column up to 2^32 rows has
-  more than MAX_ROWS rows.
+  more than LAUNCH_ROWS rows.
 
 The card's launches against these plain versions: tests/test_torch_cuda.py
 (-m cuda) and chip_smoke.py phase 41.
@@ -309,17 +310,18 @@ def _fake_tall(cp, nn):
 @pytest.mark.parametrize("log_nn", range(14, 33))
 def test_no_launch_above_a_tile(log_nn):
     """Every power-of-two column up to 2^32 rows: its launches (the plan
-    of a pass, and launch_shapes) have at most MAX_ROWS rows; a column above
-    2^26 rows splits its tall phases, to three or four launches."""
+    of a pass, and launch_shapes) have at most LAUNCH_ROWS rows; a column
+    above LAUNCH_ROWS^2 = 2^24 rows splits its tall phases, to three or
+    four launches."""
     for direction in ("dif", "dit"):
         shapes = C.launch_shapes(1 << log_nn, 4, direction)
-        assert max(r for r, *_ in shapes) <= C.MAX_ROWS
+        assert max(r for r, *_ in shapes) <= C.LAUNCH_ROWS
         cp = C.make_colpass(T.P_469762049, 16384, direction=direction,
                             transpose_out=True, device="cpu")
         plan = C.launch_plan(_fake_tall(cp, 1 << log_nn), 4)
         assert [(p["rows"], p["ncols"], p["batch_mult"], p["tile_cols"])
                 for p in plan] == shapes
-        assert len(plan) == (2 if log_nn <= 26 else 3 if log_nn == 27
+        assert len(plan) == (2 if log_nn <= 24 else 3 if log_nn == 25
                              else 4)
         assert sum(len(p["ts"]) for p in plan) == log_nn
         assert plan[-1]["transpose_out"] and not any(

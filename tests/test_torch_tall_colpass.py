@@ -1,6 +1,6 @@
 """The tall route of the column passes, on the CPU.
 
-A column of more than colpass.MAX_ROWS rows runs on the card as two
+A column of more than colpass.LAUNCH_ROWS rows runs on the card as two
 launches, phase A and phase B of its nested R x S network
 (colpass.tall_phases, csrc/colpass_tile.cuh Tall). Here:
 
@@ -215,7 +215,7 @@ def test_two_phases_compose_to_the_whole_column(red, nn, arm):
     field = FIELDS[red]
     rng = np.random.default_rng([nn, ARMS.index(arm), field.p])
     for name, (cp, nc) in _passes32(red, nn, arm).items():
-        assert (cp.tall is not None) == (nn > C.MAX_ROWS), name
+        assert (cp.tall is not None) == (nn > C.LAUNCH_ROWS), name
         x = torch.from_numpy(rng.integers(0, TOP[red] * field.p, (1, nn, nc))
                              .astype(np.uint32).view(np.int32))
         want = C.colpass_plain(x, cp)
@@ -223,7 +223,7 @@ def test_two_phases_compose_to_the_whole_column(red, nn, arm):
         got = C.tall_phase_plain(a, cp, "B")
         assert a.shape == x.shape and got.shape == want.shape, name
         assert torch.equal(got, want), (name, C.variant(cp))
-        if nn > C.MAX_ROWS:  # the launches' index arithmetic
+        if nn > C.LAUNCH_ROWS:  # the launches' index arithmetic
             assert torch.equal(_kernel_model(x, cp, "A"), a), name
             assert torch.equal(_kernel_model(a, cp, "B"), got), name
 
@@ -262,7 +262,7 @@ def test_tall_phases_are_the_network_phases():
                                            f"{direction}+tallB"]
         assert [(p["rows"], p["ncols"], p["tile_cols"]) for p in plan] == [
             (a.rows, a.inner * 8, 32), (b.rows, b.inner * 8, 32)]
-    assert C.make_colpass(T.P_469762049, C.MAX_ROWS, direction="dif",
+    assert C.make_colpass(T.P_469762049, C.LAUNCH_ROWS, direction="dif",
                           device="cpu").tall is None
     assert len(C.launch_plan(fold_passes(T.P_469762049, 1024, 1024,
                                          device="cpu")["cp1"], 1024)) == 1
@@ -338,7 +338,7 @@ def test_a_phase_above_a_tile_is_refused():
                                           offsets=C.stage_offsets(ts)))
     plan = C.launch_plan(dataclasses.replace(cp, tall=tuple(phases)), 4)
     assert len(plan) == 4
-    assert max(p["rows"] for p in plan) <= C.MAX_ROWS
+    assert max(p["rows"] for p in plan) <= C.LAUNCH_ROWS
     assert [p["group"] for p in plan] == ["hi", "lo", "hi", "lo"]
 
 
