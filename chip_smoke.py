@@ -65,8 +65,9 @@ Phases, one JSON object per line:
                  SM);
   6. gl_kernel — the Goldilocks kernel against its plain version for
                  cp1/cp2/icp2/icp1 at 1024x1024, 128x512 and 2048x256, B = 4,
-                 and DIF and DIT over 8,192 rows (2-column tiles) at
-                 (1, 8192, 64), both limb planes bit-exact, at the register
+                 and DIF and DIT over 8,192 rows at (1, 8192, 64), as the
+                 whole-column launch (2-column tiles) and as the plans'
+                 tall route, both limb planes bit-exact, at the register
                  group size the build compiles (kernel_info's kfuse, on
                  each line); the pointwise product kernel against its
                  plain version on random values and the edges;
@@ -366,7 +367,8 @@ pipeline's call, its launches by call, its bytes the input and output
 once, its butterflies 128 a layer a polynomial over the barrett (ML-KEM)
 or montgomery (ML-DSA) probe rate. Phases 31-33 drive the distributed
 four-step plan (parallel/fourstep.py): phase 31 holds every column pass
-of its two arms (rank 0 of D = 4, C = 2, at the 4096 x 4096 split)
+of its two arms (rank 0 of D = 4, C = 2, at the 4096 x 4096 split; the
+Goldilocks passes there on their tall route, above GL_LAUNCH_ROWS)
 against its plain version and times the instantiations it added; phase 32
 runs the path on four ranks that share the card (run_spmd, gloo's
 all_to_all_single on CUDA tensors): the factored and full-matrix arms at
@@ -384,15 +386,17 @@ the flat phases' (phases 20 and 22's driven calls) are under
 "flat_launches". Phase 40 (tall, tall_done) runs the column passes
 above one launch's rows (32-bit: above ops/colpass.py LAUNCH_ROWS =
 4,096, so BabyBear's 8,192-row cp1 and icp1 too; Goldilocks: above
-8,192), each as its two launches (ops/colpass.py tall_phases),
-on BabyBear at n = 2^27 and Goldilocks at n = 2^27 (8192 x 16384) and at
-2^28 on the factored arm (16384 x 16384, dropped if its set-up passes
-60 s), B = 1, through make_batched(1)'s fwd_mat, inv_mat and polymul_mat:
-launches by instantiation counted from 0 a call, every tall launch on the
-path's own input equal to its plain version raw and the pair to the
-whole pass's, BabyBear's fwd_mat on the native oracle (row 0) and
-Goldilocks's on the plain passes on the card, the round trip and
-polymul_mat exact, µs a call and ms a launch; it adds a
+GL_LAUNCH_ROWS = 2,048), each as its two launches (ops/colpass.py
+tall_phases), on BabyBear at n = 2^27 and Goldilocks at n = 2^27
+(8192 x 16384), at 2^24 (4096 x 4096) and at 2^28 on the factored arm
+(16384 x 16384, dropped if its set-up passes 60 s), B = 1, through
+make_batched(1)'s fwd_mat, inv_mat and polymul_mat: launches by
+instantiation counted from 0 a call, every tall launch on the path's own
+input equal to its plain version raw and the pair to the whole pass's,
+fwd_mat and polymul_mat equal to the plain passes' chain on the card,
+BabyBear's fwd_mat and Goldilocks 2^24's fwd_mat and polymul_mat on the
+native oracle (row 0, in worker threads), the round trip, µs a call and
+ms a launch, every pass's kernel_info; it adds a
 colpass[tall:<case>:<pass><A|B>] row (PERF.md 1t) or a gl_colpass[...]
 row (3t) for each launch, its bound its own (the launch reads and writes
 the array once), the pass's bytes and butterflies beside it. Phase 41
@@ -405,7 +409,9 @@ lists (sides above one launch's rows, sides of one row) at n = 2^17,
 BabyBear n = 2^27 at 8192 x 16384 (aA, aB, bA, bB) and at (1, 2^27) (a
 one-row step, then side b's four split-phase steps); and tall phases above
 one launch's rows (two launches split by stage group) on Goldilocks
-n = 2^28 at (2, 2^27) on the factored arm and BabyBear (1, 2^27):
+n = 2^28 at (2, 2^27) on the factored arm (its 2-row cp1 and icp1 on
+the short kernel) and BabyBear (1, 2^27); and Goldilocks n = 2^20 at
+(8, 2^17) (the short kernel's 8-row cp1 and icp1):
 launches counted from 0 a call, every column-pass launch on the path's
 own input equal to its plain version raw (column slices) and the
 launches to the whole pass's, every fused transform to
@@ -419,8 +425,9 @@ fwd_mat's µs as one call (the call the oracle gates, at (1, 2^20) and
 (1, 2^27) too), and each fused plan's fwd_mat in turns with the fold
 plan's. It adds a
 colpass[split:<case>:<pass><launch>] row (PERF.md 1s, 1t),
-gl_colpass[...] row (3s, 3t) or fused_fourstep[split:<case>:<ff|fi|nf|ni>]
-row (2t) for each. Last, the result line
+gl_colpass[...] row (3s, 3t, 3q: a short launch) or
+fused_fourstep[split:<case>:<ff|fi|nf|ni>] row (2t) for each, a column
+launch's rows, tile columns, registers and blocks an SM beside it. Last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -655,6 +662,10 @@ def main() -> int:
     # build is waited for before phase 5's timings
     t0 = time.perf_counter()
     builds = C.start_builds()
+    build_end = {}  # each library's seconds from the start to its end
+    for key, fut in builds.items():
+        fut.add_done_callback(lambda _, key=key: build_end.setdefault(
+            key, time.perf_counter() - t0))
     builds["colpass[harvey4]"].result()
 
     # 3. kernel against plain, on the card
@@ -754,6 +765,8 @@ def main() -> int:
     for scheme in (kyber.SCHEME, dilithium.SCHEME):
         LR.check_constants(scheme)
     emit({"phase": "build", "ok": True, "seconds": build_s,
+          "library_seconds": dict(sorted(build_end.items(),
+                                         key=lambda kv: kv[1])),
           "libraries": sorted(p.name for p in libs.values()),
           "method": "every nvcc started at once at phase 2; seconds to "
                     "the last build's end, beside phases 3-4"})
@@ -1069,6 +1082,8 @@ def _plain_batch_time(fn, x, batch):
 def goldilocks_phases(args, dev, card, rng):
     """Phases 6-8: the Goldilocks path. Returns its rows of the kernels
     line, or None after emitting the failure."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1118,22 +1133,29 @@ def goldilocks_phases(args, dev, card, rng):
                 fail("gl_kernel", f"{name} {rows}x{cols} differs from its "
                      "plain version")
                 return None
-    for direction in ("dif", "dit"):  # 8,192 rows: 2-column tiles
+    # 8,192 rows: the whole-column launch (2-column tiles, which the plans
+    # no longer run) and the plans' tall route
+    for direction in ("dif", "dit"):
         cp = G.make_gl_colpass(field, 8192, direction=direction,
                                inverse_tw=direction == "dit", device=dev)
         x = planes((1, 8192, 64))
-        got = G.gl_colpass(x, cp)
-        torch.cuda.synchronize()
-        err = pair_err(got, G.gl_colpass_plain(x, cp))
-        max_err = max(max_err, err)
-        info = G.kernel_info(cp, 64)
-        emit({"phase": "gl_kernel", "pass": direction, "shape": [1, 8192, 64],
-              "tile_cols": info["tile_cols"], "kfuse": info["kfuse"],
-              "max_abs_err": err})
-        if err:
-            fail("gl_kernel", f"{direction} over 8192 rows differs from its "
-                 "plain version")
-            return None
+        want = G.gl_colpass_plain(x, cp)
+        for route in (dataclasses.replace(cp, tall=None), cp):
+            got = G.gl_colpass(x, route)
+            torch.cuda.synchronize()
+            err = pair_err(got, want)
+            max_err = max(max_err, err)
+            info = G.kernel_info(route, 64)
+            emit({"phase": "gl_kernel", "pass": direction,
+                  "shape": [1, 8192, 64],
+                  "route": "whole" if route.tall is None else "tall",
+                  "tile_cols": [i["tile_cols"] for i in
+                                info.get("phases", [info])],
+                  "max_abs_err": err})
+            if err:
+                fail("gl_kernel", f"{direction} over 8192 rows differs from "
+                     "its plain version")
+                return None
     edges = np.array([0, 1, p - 1, p - 2, (1 << 32) - 1, 1 << 32,
                       0xFFFFFFFF << 32], dtype=np.uint64)
     ea, eb = (M.gl_from_u64(v.ravel(), dev) for v in np.meshgrid(edges, edges))
@@ -3972,7 +3994,10 @@ def _dist_rows(errs, timing, launches):
     ranks, launches a transform (pass 1: one a rank; pass 2: one a chunk
     a rank), bytes the input and output once and the operand tables once
     (pairs of 8 bytes for the 32-bit kernel, uint64 for Goldilocks), the
-    column network's butterflies."""
+    column network's butterflies. A pass on its tall route (Goldilocks's
+    4,096-row columns, above GL_LAUNCH_ROWS) is timed whole, its launches
+    a call under "pass_launches", its largest registers and fewest blocks
+    an SM."""
     import ntt_aie_tpu_torch as T
     from ntt_aie_tpu_torch import twiddles as tw
 
@@ -3989,6 +4014,7 @@ def _dist_rows(errs, timing, launches):
                   "dit+rank1_post": (nn + cols) * 8,
                   "dit+wfac_post": (DIST_N2 // s + s) * cols * 8}[variant]
         info = t["kernel_info"]
+        phases = info.get("phases", [info])
         rows.append({
             "name": row, "perf_row": "3d" if gl else "1d", "route": "cuda",
             "source": f"ntt_aie_tpu_torch/csrc/{kern}.cu",
@@ -4006,8 +4032,9 @@ def _dist_rows(errs, timing, launches):
             "butterflies": B * cols * nn // 2 * (nn.bit_length() - 1),
             "arithmetic": "goldilocks" if gl else "harvey4",
             "field": (T.GOLDILOCKS if gl else T.P_469762049).name,
-            "registers": info["registers"],
-            "blocks_per_sm": info["blocks_per_sm"]})
+            "pass_launches": len(phases),
+            "registers": max(i["registers"] for i in phases),
+            "blocks_per_sm": min(i["blocks_per_sm"] for i in phases)})
     return rows
 
 
@@ -4647,18 +4674,23 @@ def examples_phase(dev, card, rng):
     return totals
 
 
-# Phase 40: the tall route (a column pass above 8,192 rows as two launches,
-# ops/colpass.py tall_phases) on the largest transforms of BabyBear and
-# Goldilocks, through build_plan and make_batched(1) at their default
-# splits: (label, field name, log_n, plan keywords, PERF.md row, dropped
-# when its set-up passes TALL_SETUP_LIMIT_S). BabyBear and Goldilocks at
-# 2^27 run 8192 x 16384 (cp2 and icp2 tall); Goldilocks at 2^28 runs
-# 16384 x 16384 on the factored arm (all four passes tall, no n1 x n2 host
-# matrix).
-TALL_CASES = (("babybear", "p2013265921", 27, {}, "1t", False),
-              ("goldilocks", "goldilocks", 27, {}, "3t", False),
+# Phase 40: the tall route (a column pass above one launch's rows as two
+# launches, ops/colpass.py tall_phases: 32-bit above 4,096 rows, Goldilocks
+# above 2,048) on the largest transforms of BabyBear and Goldilocks,
+# through build_plan and make_batched(1) at their default splits: (label,
+# field name, log_n, plan keywords, PERF.md row, dropped when its set-up
+# passes TALL_SETUP_LIMIT_S, the callables whose row 0 the native oracle
+# gates, in worker threads from the case's start). BabyBear and Goldilocks
+# at 2^27 run 8192 x 16384 (every pass tall); Goldilocks at 2^28 runs
+# 16384 x 16384 on the factored arm (no n1 x n2 host matrix); Goldilocks
+# at 2^24 runs 4096 x 4096 (every pass tall).
+TALL_CASES = (("babybear", "p2013265921", 27, {}, "1t", False,
+               ("fwd_mat",)),
+              ("goldilocks", "goldilocks", 27, {}, "3t", False, ()),
               ("goldilocks_factored", "goldilocks", 28,
-               {"wmat_factored": True}, "3t", True))
+               {"wmat_factored": True}, "3t", True, ()),
+              ("goldilocks_2^24", "goldilocks", 24, {}, "3t", False,
+               ("fwd_mat", "polymul_mat")))
 TALL_SETUP_LIMIT_S = 60.0
 # the plain versions run on 2^TALL_PLAIN_LOG-point column slices: at 2^28
 # their int64 carriers would not fit the card's 80 GB at once
@@ -4711,6 +4743,29 @@ def _tall_input(field, shape, dev, gen):
     if field.is_goldilocks:
         return draw((1 << 32) - 1), draw(1 << 32)
     return draw(field.p)
+
+
+def _tall_oracle(key, field, a, b):
+    """Row 0 of a plan's callable `key` on the native oracle (the NumPy
+    one where the library cannot build), from row 0 of its inputs a and b
+    (uint64): fwd_mat's spectrum in natural order, or polymul_mat's cyclic
+    product. Returns (values, oracle name)."""
+    import numpy as np
+
+    from ntt_aie_tpu_torch import native_oracle, reference
+    from ntt_aie_tpu_torch import twiddles as tw
+
+    n = len(a)
+    w = field.root_of_unity(n)
+    try:
+        if key == "fwd_mat":
+            return (native_oracle.ntt_dif(a, w, field.p)[
+                tw.bit_reverse_indices(n)], "native")
+        return native_oracle.cyclic_polymul(a, b, w, field.p), "native"
+    except (native_oracle.NativeOracleUnavailable, OSError):
+        want = (reference.ntt_forward(a, field) if key == "fwd_mat"
+                else reference.cyclic_polymul(a, b, field))
+        return np.asarray(want, np.uint64), "numpy"
 
 
 def _column_slice(cp, cols):
@@ -4774,22 +4829,24 @@ def _tall_case(spec, dev, card, gen):
     read just after, equal to the passes' instantiations (a tall pass's
     two keys); every tall launch on the path's own input against its
     plain version, raw, and the two against the whole pass's plain
-    version; fwd_mat gated (BabyBear: row 0 on the native oracle;
-    Goldilocks: the plain passes' chain on the card), the round trip and
-    polymul_mat against the plain passes' chain; µs a call and ms a
-    launch on CUDA events. Returns (its line, its kernels-line rows), ([],
-    []) when dropped, or None after the failure."""
+    version; fwd_mat and polymul_mat against the plain passes' chain on
+    the card, and where the spec asks, row 0 on the native oracle; the
+    round trip; µs a call and ms a launch on CUDA events; kernel_info of every
+    pass (each launch's rows, tile columns, registers, blocks an SM).
+    Returns (its line, its kernels-line rows), ([], []) when dropped, or
+    None after the failure."""
+    import concurrent.futures
+
     import numpy as np
     import torch
 
     import ntt_aie_tpu_torch as T
-    from ntt_aie_tpu_torch import native_oracle, reference
-    from ntt_aie_tpu_torch import twiddles as tw
     from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
     from ntt_aie_tpu_torch.utils.timing import time_device
 
-    label, name, log_n, kw, perf_row, optional = spec
+    label, name, log_n, kw, perf_row, optional, native = spec
     field = T.FIELDS[name]
     gl = field.is_goldilocks
     ops = _tall_ops(gl)
@@ -4812,6 +4869,18 @@ def _tall_case(spec, dev, card, gen):
     tall = [k for k, cp in passes.items() if cp.tall is not None]
     x = _tall_input(field, (1, n1, n2), dev, gen)
     y = _tall_input(field, (1, n1, n2), dev, gen)
+
+    def host_row(v):
+        """Row 0 of a (1, ...) array as uint64 values, flat."""
+        if gl:
+            return M.gl_to_u64(*(t.reshape(n) for t in v))
+        return v.reshape(n).cpu().numpy().astype(np.uint64)
+
+    # the native oracle's rows, in worker threads beside the card's work
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    oracle = {key: pool.submit(_tall_oracle, key, field, host_row(x),
+                               host_row(y)) for key in native}
+    pool.shutdown(wait=False)
 
     # the main path, each call's launches counted from 0
     by, outs = {}, {}
@@ -4891,33 +4960,33 @@ def _tall_case(spec, dev, card, gen):
             launch_ms[f"{k}{ph}"] = time_device(
                 lambda _, u=u, ph=ph, cp=cp: ops["phase"](u, cp, ph), u,
                 iters=5, repeats=3)["us_per_iter"] / 1e3
-        infos[k] = ops["info"](cp, n2 if k in ("cp1", "icp1") else n1)
         del a, b
         torch.cuda.empty_cache()
+    infos = {k: ops["info"](cp, n2 if k in ("cp1", "icp1") else n1)
+             for k, cp in passes.items()}
 
-    # the gates: fwd_mat, the round trip, polymul_mat
+    # the gates: fwd_mat and polymul_mat against the plain chain and, where
+    # the spec asks, row 0 on the native oracle; the round trip
     y_fwd = outs["fwd_mat"]
-    if gl:
-        gate = "plain passes on the card"
-        gate_ok = _max_err(y_fwd, plain_fwd) == 0
-    else:
-        row_in = x.reshape(1, n).cpu().numpy().astype(np.uint64)
-        try:
-            want = native_oracle.ntt_dif_batch(
-                row_in, field.root_of_unity(n), field.p)[
-                    :, tw.bit_reverse_indices(n)]
-            gate = "native"
-        except (native_oracle.NativeOracleUnavailable, OSError):
-            want = reference.ntt_forward(row_in[0], field)[None]
-            gate = "numpy"
-        got = y_fwd.reshape(n).cpu().numpy()[plan.spectral_to_natural]
-        gate_ok = bool(np.array_equal(got.astype(np.uint64),
-                                      np.asarray(want, np.uint64)[0]))
-        del row_in, want, got
-    roundtrip_ok = _max_err(outs["inv_mat"], x) == 0
     fb = run_plain("cp2", run_plain("cp1", y))
     prod = run_plain("icp1", run_plain("icp2", pointwise(plain_fwd, fb)))
     polymul_ok = _max_err(outs["polymul_mat"], prod) == 0
+    gate_ok = _max_err(y_fwd, plain_fwd) == 0
+    gates = {"fwd_mat": host_row(y_fwd)[plan.spectral_to_natural]
+             if "fwd_mat" in native else None,
+             "polymul_mat": host_row(outs["polymul_mat"])
+             if "polymul_mat" in native else None}
+    oracles = {}
+    for key, fut in oracle.items():
+        want, oracles[key] = fut.result()
+        ok_key = bool(np.array_equal(gates[key], want))
+        if key == "fwd_mat":
+            gate_ok = gate_ok and ok_key
+        else:
+            polymul_ok = polymul_ok and ok_key
+    gate = oracles.get("fwd_mat", "plain passes on the card")
+    del gates, oracle
+    roundtrip_ok = _max_err(outs["inv_mat"], x) == 0
     del fb, prod, f1, i2, plain_fwd, inputs, wholes
     torch.cuda.empty_cache()
 
@@ -4932,7 +5001,7 @@ def _tall_case(spec, dev, card, gen):
               and all(pass_equal.values()))
     line.update({"tall_passes": tall, "launches_by": by,
                  "launches_ok": counts_ok, "launch_max_abs_err": errs,
-                 "oracle": gate, "gate_ok": gate_ok,
+                 "oracle": gate, "oracles": oracles, "gate_ok": gate_ok,
                  "roundtrip_ok": roundtrip_ok, "polymul_ok": polymul_ok,
                  "us_per_call": call_us, "launch_ms": launch_ms,
                  "plain_launch_ms": plain_ms, "kernel_info": infos,
@@ -4998,8 +5067,9 @@ def tall_phase(dev, card, gen):
 
 
 # Phase 41: every split the JAX package computes, on the card (a column of
-# one row: a pass of zero stages; the fused plan's sides above 8,192 rows:
-# its step list; a tall phase above 8,192 rows: two launches split by stage
+# one row: a pass of zero stages; a Goldilocks column of 2 to 8 rows: the
+# short kernel; the fused plan's sides above 4,096 rows: its step list; a
+# tall phase above one launch's rows: two launches split by stage
 # group). (label, field name, log_n, rows_log2 (None: the default split),
 # plan keywords, negacyclic, batch, callables, PERF.md row, whether its
 # fwd_mat is timed in turns with the fold plan's.) The largest first, so
@@ -5011,6 +5081,7 @@ _EVERY = ("fwd", "inv", "polymul", "negacyclic_polymul", "fwd_mat",
 SPLIT_CASES = (
     ("gl_2x2^27", "goldilocks", 28, 1, {"wmat_factored": True}, False, 1,
      _MAT3, "3t", False),
+    ("gl_8x2^17", "goldilocks", 20, 3, {}, False, 1, _MAT3, "3t", False),
     ("babybear_one_row", "p2013265921", 27, 0, {}, False, 1, _MAT3, "1t",
      False),
     ("fused_babybear_one_row", "p2013265921", 27, 0, {"fused": True}, False,
@@ -5225,6 +5296,9 @@ def _split_case(spec, dev, card, gen, pool, shared):
         cp = passes[k]
         ncols = v[0].shape[-1] if gl else v.shape[-1]
         whole = _by_columns(ops["plain"], v, cp, chunks, cp.transpose_out)
+        infos[k] = ops["info"](cp, ncols)
+        info_of = {i["variant"]: i for i in infos[k].get("phases",
+                                                         [infos[k]])}
         u = v
         for launch in C.launch_plan(cp, ncols, itemsize=item):
             got = launch_fn(u, cp, launch)
@@ -5238,7 +5312,8 @@ def _split_case(spec, dev, card, gen, pool, shared):
             launch_ms[tag] = time_device(
                 lambda _, u=u, launch=launch: launch_fn(u, cp, launch), u,
                 iters=5, repeats=3)["us_per_iter"] / 1e3
-            rows.append({"tag": tag, "launch": launch})
+            rows.append({"tag": tag, "launch": launch,
+                         "info": info_of[launch["key"]]})
             del want
             u = got
         errs[f"{k}:pass"] = _max_err(u, whole)
@@ -5396,7 +5471,7 @@ def _split_case(spec, dev, card, gen, pool, shared):
                 blocks_per_sm=infos[tag]["blocks_per_sm"],
                 grid=infos[tag]["grid"]))
             continue
-        launch = r["launch"]
+        launch, info = r["launch"], r["info"]
         key = launch["key"]
         krows.append(dict(
             base, name=f"{ops['name']}[split:{label}:{tag}]",
@@ -5406,7 +5481,10 @@ def _split_case(spec, dev, card, gen, pool, shared):
             butterflies=B * n // 2 * len(launch["ts"]),
             rows=launch["rows"], view_cols=launch["ncols"],
             batch_mult=launch["batch_mult"], group=launch["group"],
-            tile_cols=launch["tile_cols"]))
+            tile_cols=launch["tile_cols"], short=launch["short"],
+            registers=info["registers"],
+            blocks_per_sm=info["blocks_per_sm"],
+            **({"perf_row": "3q"} if launch["short"] else {})))
     return line, krows, (oracles, got_rows)
 
 

@@ -82,19 +82,33 @@
 // constexpr: the fold plan's instantiations keep their code.
 //
 // The tall route (colpass.cu states it; colpass_tile.cuh Tall): a column of
-// more than kMaxRows rows runs as two launches of its nested network's
-// phases, each a plain network over a view of the (nn, ncols) planes in
-// which the other factor of nn rides the columns; launch A applies 'pre'
-// on load and the mid multiply and the row move on store, launch B the
-// rest on store. Goldilocks needs it most: a 16,384-row column is 128 KB a
-// column, and a 32,768-row one (n = 2^29, 2^30) 256 KB, more than a
-// block's 227 KB of shared memory, so no one-block tile holds it; a phase
-// of 128 or 256 rows takes a tile of 32 columns (32 or 64 KB). A phase of
-// more than kMaxRows rows (Goldilocks n = 2^28 - 2^30 at a split with a
-// side of at most 8) runs as two launches split by stage group, as
-// colpass.cu's (colpass_tile.cuh Tall: the 'hi' launch's twiddle by its
-// view column, the 'lo' launch's P arrays a batch row), and a one-row
-// column (the split (1, n)) as gl_colpass_empty_kernel, its operands alone.
+// more than 2,048 rows (ops/colpass.py GL_LAUNCH_ROWS; one launch still
+// takes kMaxRows, off the plans' path) runs as two launches of its nested
+// network's phases, each a plain network over a view of the (nn, ncols)
+// planes in which the other factor of nn rides the columns; launch A
+// applies 'pre' on load and the mid multiply and the row move on store,
+// launch B the rest on store. Goldilocks needs it most: a 16,384-row
+// column is 128 KB a column, and a 32,768-row one (n = 2^29, 2^30) 256 KB,
+// more than a block's 227 KB of shared memory, so no one-block tile holds
+// it; an 8,192-row column's 2-column tile takes 128 KB, one block an SM
+// (5.1 / 6.2 ms a pass at GL 2^27 against its route's 3.4 / 2.8 ms), and a
+// 4,096-row column's DIT launch in 2-column tiles read 1.7x its route
+// (PERF.md section 6); a phase of 64 to 128 rows takes a tile of 32
+// columns (16 or 32 KB). A phase of more than 2,048 rows (Goldilocks
+// n = 2^24 and up at a split with a side of at most 8) runs as two
+// launches split by stage group, as colpass.cu's (colpass_tile.cuh Tall:
+// the 'hi' launch's twiddle by its view column, the 'lo' launch's P arrays
+// a batch row), and a one-row column (the split (1, n)) as
+// gl_colpass_empty_kernel, its operands alone.
+//
+// A column of 2 to 8 rows (a split with a side of at most 8: n = 2^28 at
+// (2, 2^27)) has one group of at most 3 stages, so on the tile a
+// 32-column block of 256 threads keeps one warp busy and leaves seven
+// idle (8.1 ms a pass at (2, 2^27), 6.4x its bytes). It runs on
+// gl_colpass_short_kernel instead: one thread a column, its values in
+// registers through every stage, no shared memory and no barrier, the
+// loads and the transposed stores whole sectors a warp, so it is bound by
+// its bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,6 +146,11 @@ constexpr int kMinBlocks = 3;
 constexpr int kTallStoreLogCols = 2;
 // The most blocks a batch row of a one-row column's launch takes (grid.x)
 constexpr int kEmptyBlocks = 132 * 8;
+// The tallest column gl_colpass_short_kernel takes (ops/colpass.py
+// SHORT_ROWS), and its log2
+constexpr int kShortRows = 8;
+constexpr int kShortLog = 3;
+static_assert(kShortRows == 1 << kShortLog, "kShortLog is log2 kShortRows");
 
 struct Params {
   Network net;          // table pointers null: the kernel reads tw and mid
@@ -556,52 +575,176 @@ __global__ void __launch_bounds__(kThreads) gl_colpass_empty_kernel(
   }
 }
 
-using KernelFn = void (*)(Params);
-
-template <bool kDit>
-KernelFn pick_kernel(bool transpose_out, bool mat) {
-  return !transpose_out ? gl_colpass_kernel<kDit, false, false>
-                        : (mat ? gl_colpass_kernel<kDit, true, true>
-                               : gl_colpass_kernel<kDit, true, false>);
+// A column's 2^K values, stored as one run of each plane from hi and lo
+// (a transposed store's (col, 0) of (ncols, 2^K)): one 8-byte vector a
+// plane at K = 1, 16-byte ones above.
+template <int K>
+__device__ __forceinline__ void store_run(uint32_t* hi, uint32_t* lo,
+                                          const uint64_t (&v)[1 << K]) {
+  if constexpr (K == 1) {
+    *reinterpret_cast<uint2*>(hi) =
+        make_uint2((uint32_t)(v[0] >> 32), (uint32_t)(v[1] >> 32));
+    *reinterpret_cast<uint2*>(lo) = make_uint2((uint32_t)v[0], (uint32_t)v[1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < (1 << K); q += 4) {
+      *reinterpret_cast<uint4*>(hi + q) =
+          make_uint4((uint32_t)(v[q] >> 32), (uint32_t)(v[q + 1] >> 32),
+                     (uint32_t)(v[q + 2] >> 32), (uint32_t)(v[q + 3] >> 32));
+      *reinterpret_cast<uint4*>(lo + q) =
+          make_uint4((uint32_t)v[q], (uint32_t)v[q + 1], (uint32_t)v[q + 2],
+                     (uint32_t)v[q + 3]);
+    }
+  }
 }
 
-// The instantiation for this direction, these store options (mat only
-// with transpose_out) and these operands (pre, post: Operand forms), or
-// null for a combination no plan runs (see the top).
+// A whole column of 2^K rows, 2 <= 2^K <= kShortRows (ops/colpass.py
+// SHORT_ROWS): on the tile, such a column leaves 7 of a block's 8 warps
+// idle (a 32-column tile holds 32 * 2^K values for 256 threads; its one
+// group of K stages takes 32 of them). Here one thread holds one (batch
+// row, column)'s 2^K values in registers as uint64 from its load through
+// every stage to its store; no shared memory and no barrier. Blocks on
+// grid.x stride over the batch row's columns, as gl_colpass_empty_kernel's
+// (as many as are resident at once: short_grid), batch rows on grid.y. A
+// warp's load of a row is 32 consecutive words of each plane (and of each
+// 'pre' table's row); the operands apply in the tile kernel's order ('pre'
+// on load, the stages (dif_stages or dit_stages over the whole column),
+// then 'post', the transpose, 'post_t'), every value canonical, so its bits
+// are gl_colpass_plain's. Transposed, a column's 2^K values are one run a
+// plane (store_run), a warp's 32 runs adjacent, and its 'post_t' operands
+// one run of 16-byte loads.
+template <int K, bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
+          int kPost = kOpNone>
+__global__ void __launch_bounds__(kThreads) gl_colpass_short_kernel(
+    const Params P) {
+  static_assert(K >= 1 && K <= kShortLog, "a short column");
+  constexpr int kRows = 1 << K;
+  const size_t row = (size_t)blockIdx.y * ((size_t)P.ncols << K);
+  const uint32_t* x_hi = P.x_hi + row;
+  const uint32_t* x_lo = P.x_lo + row;
+  uint32_t* out_hi = P.out_hi + row;
+  uint32_t* out_lo = P.out_lo + row;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t c = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       c < (size_t)P.ncols; c += stride) {
+    uint64_t v[kRows];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      const size_t o = (size_t)m * P.ncols + c;
+      v[m] = ((uint64_t)x_hi[o] << 32) | x_lo[o];
+      if constexpr (kPre != kOpNone)
+        v[m] = mul_operand<kPre>(v[m], P, P.pre, P.pre2, m, c, P.ncols);
+    }
+    if constexpr (kDit)
+      dit_stages<K>(v, P.net, P.tw, 0, 0, 0);
+    else
+      dif_stages<K>(v, P.net, P.tw, 0, 0, 0);
+    if constexpr (kPost != kOpNone) {
+#pragma unroll
+      for (int m = 0; m < kRows; ++m)
+        v[m] = mul_operand<kPost>(v[m], P, P.post, P.post2, m, c, P.ncols);
+    }
+    if constexpr (kTranspose) {
+      const size_t o = c << K;  // (c, 0) of (ncols, 2^K)
+      if constexpr (kMat) {
+        const ulonglong2* mat = reinterpret_cast<const ulonglong2*>(P.mat + o);
+#pragma unroll
+        for (int q = 0; q < kRows / 2; ++q) {
+          const ulonglong2 w = __ldg(mat + q);
+          v[2 * q] = gl_mul(v[2 * q], w.x);
+          v[2 * q + 1] = gl_mul(v[2 * q + 1], w.y);
+        }
+      }
+      store_run<K>(out_hi + o, out_lo + o, v);
+    } else {
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        const size_t o = (size_t)m * P.ncols + c;
+        out_hi[o] = (uint32_t)(v[m] >> 32);
+        out_lo[o] = (uint32_t)v[m];
+      }
+    }
+  }
+}
+
+using KernelFn = void (*)(Params);
+
+// The whole-column kernels of one family, by their options: the tile
+// kernel's, and the short kernel's of 2^K-row columns.
+struct TileKernels {
+  template <bool kDit, bool kTranspose, bool kMat, int kPre, int kPost>
+  static KernelFn get() {
+    return gl_colpass_kernel<kDit, kTranspose, kMat, kPre, kPost>;
+  }
+};
+
+template <int K>
+struct ShortKernels {
+  template <bool kDit, bool kTranspose, bool kMat, int kPre, int kPost>
+  static KernelFn get() {
+    return gl_colpass_short_kernel<K, kDit, kTranspose, kMat, kPre, kPost>;
+  }
+};
+
+template <class Ks, bool kDit>
+KernelFn pick_kernel(bool transpose_out, bool mat) {
+  return !transpose_out
+             ? Ks::template get<kDit, false, false, kOpNone, kOpNone>()
+             : (mat ? Ks::template get<kDit, true, true, kOpNone, kOpNone>()
+                    : Ks::template get<kDit, true, false, kOpNone, kOpNone>());
+}
+
+// The instantiation of family Ks for this direction, these store options
+// (mat only with transpose_out) and these operands (pre, post: Operand
+// forms), or null for a combination no plan runs (see the top).
+template <class Ks>
 KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
                      int post) {
   if (pre == kOpNone && post == kOpNone)
-    return dit ? pick_kernel<true>(transpose_out, mat)
-               : pick_kernel<false>(transpose_out, mat);
+    return dit ? pick_kernel<Ks, true>(transpose_out, mat)
+               : pick_kernel<Ks, false>(transpose_out, mat);
   if (mat) return nullptr;
   if (!transpose_out && post == kOpNone) {  // the entry arm, factored cp2
     if (pre == kOpMat)
-      return dit ? gl_colpass_kernel<true, false, false, kOpMat>
-                 : gl_colpass_kernel<false, false, false, kOpMat>;
+      return dit ? Ks::template get<true, false, false, kOpMat, kOpNone>()
+                 : Ks::template get<false, false, false, kOpMat, kOpNone>();
     if (pre == kOpFac && !dit)
-      return gl_colpass_kernel<false, false, false, kOpFac>;
+      return Ks::template get<false, false, false, kOpFac, kOpNone>();
     if (pre == kOpRank1 && !dit)  // distributed factored lcp1n
-      return gl_colpass_kernel<false, false, false, kOpRank1>;
+      return Ks::template get<false, false, false, kOpRank1, kOpNone>();
   }
-  if (dit && transpose_out && pre == kOpNone && post == kOpFac)
-    return gl_colpass_kernel<true, true, false, kOpNone, kOpFac>;  // icp2
+  if (dit && transpose_out && pre == kOpNone && post == kOpFac)  // icp2
+    return Ks::template get<true, true, false, kOpNone, kOpFac>();
   if (transpose_out) return nullptr;
   // the distributed plan's passes with a 'post' operand
   if (!dit && post == kOpMat) {  // full-matrix lcp1, lcp1n
-    if (pre == kOpNone) return gl_colpass_kernel<false, false, false,
-                                                 kOpNone, kOpMat>;
-    if (pre == kOpMat) return gl_colpass_kernel<false, false, false, kOpMat,
-                                                kOpMat>;
+    if (pre == kOpNone)
+      return Ks::template get<false, false, false, kOpNone, kOpMat>();
+    if (pre == kOpMat)
+      return Ks::template get<false, false, false, kOpMat, kOpMat>();
   }
   if (dit && pre == kOpMat && post == kOpMat)  // full-matrix licp1n
-    return gl_colpass_kernel<true, false, false, kOpMat, kOpMat>;
+    return Ks::template get<true, false, false, kOpMat, kOpMat>();
   if (dit && pre == kOpNone) {  // factored licp2, licp1n
     if (post == kOpFac)
-      return gl_colpass_kernel<true, false, false, kOpNone, kOpFac>;
+      return Ks::template get<true, false, false, kOpNone, kOpFac>();
     if (post == kOpRank1)
-      return gl_colpass_kernel<true, false, false, kOpNone, kOpRank1>;
+      return Ks::template get<true, false, false, kOpNone, kOpRank1>();
   }
   return nullptr;
+}
+
+// The short kernel of a 2^k-row column (1 <= k <= K), or null.
+template <int K>
+KernelFn pick_short(int k, bool dit, bool transpose_out, bool mat, int pre,
+                    int post) {
+  if constexpr (K > 1) {
+    if (k < K)
+      return pick_short<K - 1>(k, dit, transpose_out, mat, pre, post);
+  }
+  return k == K ? pick_kernel<ShortKernels<K>>(dit, transpose_out, mat, pre,
+                                               post)
+                : nullptr;
 }
 
 // The tall route's launch `tall` (kTallA, kTallB or kTallPre) of these
@@ -692,15 +835,24 @@ KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
 }
 
 // The kernel of a launch: a one-row column's (nn = 1)
-// gl_colpass_empty_kernel, pick_kernel for a whole column (tall = kWhole),
-// pick_tall for a launch of a tall one.
+// gl_colpass_empty_kernel, the short kernel for a whole column of at most
+// kShortRows rows where the launch asks for it (short_col), pick_kernel for
+// a whole column (tall = kWhole), pick_tall for a launch of a tall one.
 KernelFn pick(int tall, bool dit, bool transpose_out, bool mat, int pre,
-              int post, int nn, bool group) {
+              int post, int nn, bool group, bool short_col) {
+  if (short_col)
+    return tall == kWhole && nn > 1 && nn <= kShortRows
+               ? pick_short<kShortLog>(colpass_tile::ilog2(nn), dit,
+                                       transpose_out, mat, pre, post)
+               : nullptr;
   if (nn == 1)
-    return tall == kWhole && pick_kernel(dit, transpose_out, mat, pre, post)
+    return tall == kWhole &&
+                   pick_kernel<TileKernels>(dit, transpose_out, mat, pre,
+                                            post)
                ? gl_colpass_empty_kernel
                : nullptr;
-  if (tall == kWhole) return pick_kernel(dit, transpose_out, mat, pre, post);
+  if (tall == kWhole)
+    return pick_kernel<TileKernels>(dit, transpose_out, mat, pre, post);
   return group ? pick_tall<true>(tall, dit, transpose_out, mat, pre, post)
                : pick_tall<false>(tall, dit, transpose_out, mat, pre, post);
 }
@@ -733,11 +885,48 @@ __global__ void __launch_bounds__(kThreads) gl_mul_kernel(
   }
 }
 
+// Whether a short launch (ntt_gl_colpass's short_col) has what
+// gl_colpass_short_kernel takes: a whole column of 2 to kShortRows rows,
+// log_tl 0, the plain network's stages in order (DIF half sizes nn/2 ..
+// 1, DIT 1 .. nn/2), and the output planes and 'post_t' table aligned for
+// its vector stores and loads (the wrapper's fresh outputs are).
+bool short_ok(int nn, int log_tl, int dit, int nstages, const int* ts,
+              int log_a, int tall, const void* out_hi, const void* out_lo,
+              const void* mat) {
+  if (nn < 2 || nn > kShortRows || log_tl != 0 || log_a >= 0 ||
+      tall != kWhole || nstages != colpass_tile::ilog2(nn))
+    return false;
+  for (int s = 0; s < nstages; ++s)
+    if (ts[s] != (dit ? 1 << s : nn >> (s + 1))) return false;
+  const uintptr_t run = nn == 2 ? 8 : 16;
+  return (reinterpret_cast<uintptr_t>(out_hi) % run) == 0 &&
+         (reinterpret_cast<uintptr_t>(out_lo) % run) == 0 &&
+         (reinterpret_cast<uintptr_t>(mat) % 16) == 0;
+}
+
+// The blocks of a batch row of a short launch (grid.x): enough for its
+// columns, at most as many as the card holds at once.
+cudaError_t short_grid(KernelFn kernel, int ncols, int* blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  const int need = (ncols + kThreads - 1) / kThreads;
+  const int most = sms * per_sm > 0 ? sms * per_sm : 1;
+  *blocks = need < most ? need : most;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
 int ntt_gl_colpass_max_rows() { return kMaxRows; }
+
+int ntt_gl_colpass_short_rows() { return kShortRows; }
 
 const char* ntt_gl_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -746,19 +935,20 @@ const char* ntt_gl_error_string(int err) {
 // This build's register group size, and for the kernel of this direction,
 // these store options and these operands (pre, post: Operand forms), of a
 // whole column or one launch of a tall one (tall: colpass_tile::Tall;
-// group: of a split phase), at an nn x 2^log_tl tile (a launch's rows):
-// its registers a thread and its co-resident blocks per SM. Returns 0 or a
-// cudaError_t.
-int ntt_gl_colpass_kernel_info(int tall, int group, int dit,
+// group: of a split phase; short_col: the short kernel's), at an nn x
+// 2^log_tl tile (a launch's rows): its registers a thread and its
+// co-resident blocks per SM. Returns 0 or a cudaError_t.
+int ntt_gl_colpass_kernel_info(int short_col, int tall, int group, int dit,
                                int transpose_out, int mat, int pre, int post,
                                int nn, int log_tl, int* kfuse, int* regs,
                                int* per_sm) {
   const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0, mat != 0,
-                               pre, post, nn, group != 0);
+                               pre, post, nn, group != 0, short_col != 0);
   *kfuse = kFuse;
   *regs = 0;
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = nn == 1 ? 0 : (size_t)nn << log_tl << 3;
+  const size_t smem =
+      nn == 1 || short_col ? 0 : (size_t)nn << log_tl << 3;
   cudaFuncAttributes attr = {};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) err = allow_smem(kernel, smem);
@@ -788,7 +978,9 @@ int ntt_gl_colpass_kernel_info(int tall, int group, int dit,
 // columns, the operands are those the launch applies, and mid is the tall
 // network's (nn_tall,) vector; a split phase's launch has log_hq ('hi')
 // or log_lp ('lo', batch the planes' batch rows times P), as colpass.cu's
-// ntt_colpass. Returns cudaGetLastError() after the launch (0 =
+// ntt_colpass. short_col: a whole column of 2 to kShortRows rows on
+// gl_colpass_short_kernel (log_tl 0; its network the plain one, every
+// stage in order). Returns cudaGetLastError() after the launch (0 =
 // launched), or cudaErrorInvalidValue for a shape or an operand
 // combination the kernels do not take.
 int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
@@ -799,13 +991,15 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
                    const void* pre, const void* pre2, int post_form,
                    const void* post, const void* post2, int log_s,
                    int transpose_out, int tall, int log_inner, int log_hq,
-                   int log_lp, void* stream) {
+                   int log_lp, int short_col, void* stream) {
   const bool empty = nn == 1;
-  const size_t smem = empty ? 0 : (size_t)nn << log_tl << 3;
+  const size_t smem = empty || short_col ? 0 : (size_t)nn << log_tl << 3;
   const bool nested = log_a >= 0;
   const bool phase = tall != kWhole;
   Params P;
-  if (nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
+  if ((short_col && !short_ok(nn, log_tl, dit, nstages, ts, log_a, tall,
+                              out_hi, out_lo, mat)) ||
+      nn > kMaxRows || smem > (size_t)kMaxSmemBytes || log_tl < 0 ||
       log_tl > 5 || (ncols >> log_tl) < 1 || batch < 1 || batch > 65535 ||
       nstages != colpass_tile::ilog2(nn) || (empty && (phase || nested)) ||
       (!empty && (nested || phase) != (mid != nullptr)) ||
@@ -854,14 +1048,24 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
            : (form == kOpFac || form == kOpRank1) && a && b;
   };
   const bool fac = pre_form == kOpFac || post_form == kOpFac;
+  // a factored operand's split S = 2^log_s: S = 1 only on a short column
+  // (n2 = 2's, twiddles.default_wfac_split)
   if (!tables_ok(pre_form, pre, pre2) || !tables_ok(post_form, post, post2) ||
-      log_s < 0 || (fac && (log_s < 1 || log_s >= P.log_tall)) ||
+      log_s < 0 || (fac && (log_s < !short_col || log_s >= P.log_tall)) ||
       (phase && log_tl - P.log_tlc > split_inner))
     return static_cast<int>(cudaErrorInvalidValue);
   const KernelFn kernel =
       pick(tall, dit != 0, transpose_out != 0, mat != nullptr, pre_form,
-           post_form, nn, log_hq != 0 || log_lp != 0);
+           post_form, nn, log_hq != 0 || log_lp != 0, short_col != 0);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+  if (short_col) {
+    int blocks = 0;
+    const cudaError_t err = short_grid(kernel, ncols, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(blocks, batch), kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(P);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (empty) {
     const int blocks = (ncols + kThreads - 1) / kThreads;
     dim3 grid(blocks < kEmptyBlocks ? blocks : kEmptyBlocks, batch);

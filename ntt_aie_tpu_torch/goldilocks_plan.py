@@ -28,6 +28,8 @@ and returns a tuple, or a NumPy ``uint64`` array and returns ``uint64``
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -36,7 +38,7 @@ from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.gl_colpass import gl_mul, make_gl_colpass
 from ntt_aie_tpu_torch.plan import (Plan, flat_inner_split, flat_n2_plan,
-                                    public_order, wfac_tables)
+                                    public_order, side_by_side, wfac_tables)
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
 
@@ -69,16 +71,16 @@ def gl_fold_passes(field, n1: int, n2: int, *, wmat_fold: bool = True,
         else:
             cp2_op = dict(wmat=wmat_t, twiddle_pos="pre")
             icp1_op = dict(wmat=tabs["iwmat_scaled"], twiddle_pos="pre")
-    return {
-        "cp1": make_gl_colpass(field, n1, direction="dif", transpose_out=True,
-                               device=device, **cp1_op),
-        "cp2": make_gl_colpass(field, n2, direction="dif", device=device,
-                               **cp2_op),
-        "icp2": make_gl_colpass(field, n2, direction="dit", inverse_tw=True,
-                                transpose_out=True, device=device, **icp2_op),
-        "icp1": make_gl_colpass(field, n1, direction="dit", inverse_tw=True,
-                                device=device, **icp1_op),
-    }
+    make = functools.partial(make_gl_colpass, field, device=device)
+    return side_by_side({
+        "cp1": functools.partial(make, n1, direction="dif",
+                                 transpose_out=True, **cp1_op),
+        "cp2": functools.partial(make, n2, direction="dif", **cp2_op),
+        "icp2": functools.partial(make, n2, direction="dit", inverse_tw=True,
+                                  transpose_out=True, **icp2_op),
+        "icp1": functools.partial(make, n1, direction="dit", inverse_tw=True,
+                                  **icp1_op),
+    }, device)
 
 
 def value_io(device) -> tuple:

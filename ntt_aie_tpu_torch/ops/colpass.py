@@ -19,7 +19,8 @@ canonicalize.
 
 A column of more than LAUNCH_ROWS rows (a tall column: nn = 8,192 and
 up, BabyBear's largest transforms or a pinned split; a Goldilocks column
-from 16,384 rows) runs on the card as the launches of its tall route:
+from GL_LAUNCH_ROWS = 2,048 rows, ``route_rows``) runs on the card as the
+launches of its tall route:
 ``make_colpass`` gives its ColPass the two phases of its nested R x S
 network (``tall_phases``), and the pass runs as two launches, phase A
 over the view (B, rows, inner * ncols) of the input and phase B over the
@@ -36,7 +37,9 @@ version.
 A column of one row (the split (1, n)) is a network of zero stages: its
 pass still multiplies by its operands, transposes and canonicalizes, one
 launch of an elementwise kernel (``csrc/colpass_tile.cuh``
-``column_empty``).
+``column_empty``). A Goldilocks column of 2 to SHORT_ROWS rows runs on a
+kernel of its own, one thread a column, its values in registers
+(``is_short``; ``csrc/gl_colpass.cu`` ``gl_colpass_short_kernel``).
 
 ``colpass(x, cp)`` is the entry point. On a CPU tensor it runs the plain
 version, ``colpass_plain``; on a CUDA tensor it launches the kernel in
@@ -88,9 +91,17 @@ MAX_ROWS = 8192       # csrc/colpass.cu kMaxRows: the tallest tile
 # The tallest 32-bit column, or phase of a tall column, that runs as one
 # launch; a taller one runs as its tall route's launches (launch_plan).
 # At 8,192 rows a launch's 4-column tile takes 128 KB and one block an SM
-# (PERF.md section 6 gives the readings that set it). Goldilocks
-# keeps MAX_ROWS (route_rows).
+# (PERF.md section 6 gives the readings that set it).
 LAUNCH_ROWS = 4096
+# Goldilocks's (route_rows): at 4,096 rows its whole launch lost to the
+# route in the DIT direction (2-column tiles) and at 8,192 rows in both
+# (PERF.md section 6)
+GL_LAUNCH_ROWS = 2048
+# The tallest Goldilocks column (of more than one row) that runs on the
+# register kernel, one thread a column (csrc/gl_colpass.cu
+# gl_colpass_short_kernel, kShortRows), instead of a column tile whose one
+# group of stages leaves most of its threads idle (PERF.md section 6)
+SHORT_ROWS = 8
 # 8,192 elements a tile where the column allows it: 32 KB of uint32, 64 KB
 # of uint64 (at 1024 rows, 8 columns: 32 bytes a row, and a plane)
 _TILE_ELEMS = 8192
@@ -780,13 +791,15 @@ def kernel_info(cp: ColPass, ncols: int) -> dict:
 def launch_info(cp, ncols: int, query, error_string, *,
                 itemsize: int = 4) -> dict:
     """kernel_info of a ColPass or a GLColPass from its library's
-    kernel-info query and error-string functions."""
+    kernel-info query and error-string functions (the Goldilocks query
+    takes a launch's "short" first)."""
     infos = []
     for launch in launch_plan(cp, ncols, itemsize=itemsize):
         log_tl = launch["tile_cols"].bit_length() - 1
         kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
+        first = [int(launch["short"])] if itemsize == 8 else []
         with torch.cuda.device(cp.tw.device):
-            err = query(launch["tall"],
+            err = query(*first, launch["tall"],
                         int(bool(launch["log_hq"] or launch["log_lp"])),
                         int(cp.direction == "dit"),
                         int(launch["transpose_out"]),
@@ -798,7 +811,9 @@ def launch_info(cp, ncols: int, query, error_string, *,
                                f"({launch['key']}): "
                                + error_string(err).decode())
         infos.append({"variant": launch["key"], "kfuse": kfuse.value,
-                      "tile_cols": launch["tile_cols"], "layout": "swizzled",
+                      "tile_cols": launch["tile_cols"],
+                      "layout": "registers" if launch["short"]
+                      else "swizzled", "rows": launch["rows"],
                       "shift": launch["shift"], "registers": regs.value,
                       "blocks_per_sm": per_sm.value})
     if cp.tall is None:
@@ -905,8 +920,14 @@ def tall_shape(nn: int, direction: str) -> tuple:
 
 def route_rows(itemsize: int = 4) -> int:
     """The tallest column or phase one launch runs, by value width:
-    LAUNCH_ROWS for uint32, MAX_ROWS for Goldilocks's uint64."""
-    return LAUNCH_ROWS if itemsize == 4 else MAX_ROWS
+    LAUNCH_ROWS for uint32, GL_LAUNCH_ROWS for Goldilocks's uint64."""
+    return LAUNCH_ROWS if itemsize == 4 else GL_LAUNCH_ROWS
+
+
+def is_short(nn: int, itemsize: int = 4) -> bool:
+    """Whether a whole column of nn rows of `itemsize`-byte values runs on
+    the short kernel: a Goldilocks column of 2 to SHORT_ROWS rows."""
+    return itemsize == 8 and 1 < nn <= SHORT_ROWS
 
 
 def phase_groups(rows: int, direction: str,
@@ -942,14 +963,17 @@ def launch_shapes(nn: int, ncols: int, direction: str, *, itemsize: int = 4,
     """[(rows, ncols, batch multiple, tile columns)] of each launch of a
     pass over (.., nn, ncols), from the shapes alone (``launch_plan``'s
     launches, without building a pass): a column of at most
-    route_rows(itemsize) rows is one launch, a taller one its phases'
-    groups (``phase_groups`` at max_rows, by default the same limit).
-    Raises ValueError for a non-power-of-two side."""
+    route_rows(itemsize) rows is one launch (a short one's tile columns
+    1: a column a thread), a taller one its phases' groups
+    (``phase_groups`` at max_rows, by default the same limit). Raises
+    ValueError for a non-power-of-two side."""
     for what, v in (("nn", nn), ("ncols", ncols)):
         if v < 1 or v & (v - 1):
             raise ValueError(f"{what} must be a power of two, got {v}")
     if max_rows is None:
         max_rows = route_rows(itemsize)
+    if is_short(nn, itemsize):
+        return [(nn, ncols, 1, 1)]
     if nn <= route_rows(itemsize):
         return [(nn, ncols, 1, tile_cols(nn, ncols, itemsize))]
     out = []
@@ -976,7 +1000,8 @@ def launch_plan(cp, ncols: int, *, itemsize: int = 4,
     (its TallPhase, or None), "group", "stages" (the phase's stages it
     runs), "ts"/"offsets" (its network: a 'hi' group's half sizes t / Q
     at the phase table's offsets), "log_hq"/"log_lp" (a 'hi' group's
-    log2 Q, a 'lo' group's log2 P, else 0), "tile_cols", "shift", and the
+    log2 Q, a 'lo' group's log2 P, else 0), "tile_cols", "shift", "short"
+    (a launch of the short kernel, ``is_short``: tile columns 1), and the
     operands it applies: "pre_form"/"pre"/"pre2" on load,
     "post_form"/"post"/"post2", "mat", "transpose_out" and
     "canonicalize" on store (``_operand_forms``), "mid" (the tall
@@ -984,7 +1009,8 @@ def launch_plan(cp, ncols: int, *, itemsize: int = 4,
     and "store_ops" (whether it stores with the pass's store operations).
 
     One launch for a column without a tall route (cp.tall None: up to
-    route_rows(itemsize) rows; a one-row column's is its operands alone);
+    route_rows(itemsize) rows; a one-row column's is its operands alone, a
+    short Goldilocks column's the short kernel's);
     a tall cp's phases' launches: a phase of up to max_rows rows is one
     (A: the 'pre' operands on load, the mid multiply and the row move on
     store; B: the 'post' operands, the transpose, 'post_t' and
@@ -1007,12 +1033,13 @@ def launch_plan(cp, ncols: int, *, itemsize: int = 4,
                     transpose_out=False, canonicalize=False, store_ops=False)
     ts_all = tuple(t for ph in cp.phases_ts for t in ph)
     if cp.tall is None:
-        tl = tile_cols(cp.nn, ncols, itemsize)
+        short = is_short(cp.nn, itemsize)
+        tl = 1 if short else tile_cols(cp.nn, ncols, itemsize)
         return [dict(loads, **stores, mid=mid, tall=TALL_WHOLE,
                      key=variant(cp), rows=cp.nn, ncols=ncols, inner=1,
                      batch_mult=1, phase=None, group=None,
                      stages=(0, len(ts_all)), ts=ts_all, offsets=cp.offsets,
-                     log_hq=0, log_lp=0, tile_cols=tl,
+                     log_hq=0, log_lp=0, tile_cols=tl, short=short,
                      shift=tile_shift(cp, tl.bit_length() - 1))]
     if ncols & (ncols - 1):
         raise ValueError(f"ncols must be a power of two, got {ncols}")
@@ -1043,8 +1070,9 @@ def launch_plan(cp, ncols: int, *, itemsize: int = 4,
                 ncols=vc, inner=inner, batch_mult=mult, phase=ph,
                 group=group, stages=(s0, s1), ts=ts,
                 offsets=ph.offsets[s0:s1], log_hq=log_hq, log_lp=log_lp,
-                tile_cols=tl, shift=max(5 - (tl.bit_length() - 1),
-                                        rows.bit_length() - 1)))
+                tile_cols=tl, short=False,
+                shift=max(5 - (tl.bit_length() - 1),
+                          rows.bit_length() - 1)))
     return out
 
 

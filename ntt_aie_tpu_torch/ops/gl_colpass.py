@@ -33,15 +33,20 @@ kernel is a helper in the same library (the reference leaves this product
 to XLA).
 ``kernel_info(cp, ncols)`` says what the card gives the column kernel.
 
-A column of more than MAX_ROWS rows runs on the card as two launches, the
-two phases of its nested network, as the 32-bit pass's tall route
-(``colpass.tall_phases``; ``gl_tall_phase_plain`` is each launch's plain
-version), a phase above MAX_ROWS rows as two launches of its own, split
-by stage group (``colpass.phase_groups``; ``gl_launch_plain`` is any
-launch's plain version). Goldilocks needs it most: a 32,768-row column of
-uint64 values takes 256 KB, more than a block's shared memory. A column
-of one row (the split (1, n)) has no stage: its pass is one elementwise
-launch of its operands.
+A column of more than colpass.GL_LAUNCH_ROWS = 2,048 rows runs on the
+card as two launches, the two phases of its nested network, as the
+32-bit pass's tall route (``colpass.tall_phases``;
+``gl_tall_phase_plain`` is each launch's plain version), a phase above
+GL_LAUNCH_ROWS rows as two launches of its own, split by stage group
+(``colpass.phase_groups``; ``gl_launch_plain`` is any launch's plain
+version). Goldilocks needs it most: a 32,768-row column of uint64 values
+takes 256 KB, more than a block's shared memory, an 8,192-row one a
+2-column tile of 128 KB, one block an SM, and a 4,096-row one's DIT
+network lost to its route on the card (PERF.md section 6). A column of
+one row (the split (1, n)) has no stage: its pass is one elementwise
+launch of its operands. A column of 2 to colpass.SHORT_ROWS rows runs on
+the short kernel, one thread a column, its values in registers through
+every stage.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
-MAX_ROWS = 8192  # csrc/gl_colpass.cu kMaxRows
+MAX_ROWS = 8192  # csrc/gl_colpass.cu kMaxRows: the tallest tile
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -76,7 +81,7 @@ class GLColPass:
     wfac: (T1 (nn/S, ncols), T2 (S, ncols)), the factored four-step matrix
       at wfac_pos ('pre' or 'post'), or None.
     rank1: (row (nn,), col (ncols,)) at rank1_pos, or None.
-    tall: for nn > MAX_ROWS, the two phases of the tall route
+    tall: for nn > colpass.GL_LAUNCH_ROWS, the two phases of the tall route
       (``colpass.tall_phases``), else None.
     """
 
@@ -181,7 +186,7 @@ def make_gl_colpass(field, nn: int, *, direction: str,
               if net["mid"] is not None else None),
         wmat=mats.get("post_t"), pre=mats.get("pre"), post=mats.get("post"),
         wfac=wfac_t, wfac_pos=wfac_pos, rank1=rank1_t, rank1_pos=rank1_pos)
-    if nn > MAX_ROWS:
+    if nn > C.GL_LAUNCH_ROWS:
         cp = dataclasses.replace(cp, tall=C.tall_phases(cp))
     return cp
 
@@ -395,27 +400,33 @@ def _library() -> ctypes.CDLL:
     ll = ctypes.c_longlong
     lib.ntt_gl_colpass.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                    ci, pi, pi, vp, ci, vp, vp, ci, vp, vp,
-                                   ci, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+                                   ci, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                   vp]
     lib.ntt_gl_mul.restype = ci
     lib.ntt_gl_mul.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, vp]
     lib.ntt_gl_error_string.restype = ctypes.c_char_p
     lib.ntt_gl_error_string.argtypes = [ci]
     lib.ntt_gl_colpass_max_rows.restype = ci
+    lib.ntt_gl_colpass_short_rows.restype = ci
     lib.ntt_gl_colpass_kernel_info.restype = ci
-    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 9 + [pi] * 3
+    lib.ntt_gl_colpass_kernel_info.argtypes = [ci] * 10 + [pi] * 3
     if lib.ntt_gl_colpass_max_rows() != MAX_ROWS:
         raise RuntimeError("csrc/gl_colpass.cu kMaxRows disagrees with "
                            "MAX_ROWS")
+    if lib.ntt_gl_colpass_short_rows() != C.SHORT_ROWS:
+        raise RuntimeError("csrc/gl_colpass.cu kShortRows disagrees with "
+                           "colpass.SHORT_ROWS")
     return lib
 
 
 def kernel_info(cp: GLColPass, ncols: int) -> dict:
     """What the card gives cp's kernel over (.., cp.nn, ncols): the build's
     register group size (kfuse), the tile width TL, its layout and shift
-    (two uint32 planes, each on ``colpass.tile_address``'s swizzled map),
-    and the kernel's registers a thread and co-resident blocks per SM; a
-    tall cp's two launches under "phases" (colpass.launch_plan). cp must
-    lie on the card."""
+    (two uint32 planes, each on ``colpass.tile_address``'s swizzled map;
+    a short column's layout "registers", TL 1), the launch's rows, and the
+    kernel's registers a thread and co-resident blocks per SM; a tall cp's
+    launches under "phases" (colpass.launch_plan). cp must lie on the
+    card."""
     if cp.tw.device.type != "cuda":
         raise ValueError(f"kernel_info reads the card: cp's tables are on "
                          f"{cp.tw.device}")
@@ -502,7 +513,8 @@ def _launch(hi: torch.Tensor, lo: torch.Tensor, cp: GLColPass,
                     (ctypes.c_int * n)(*ts), (ctypes.c_int * n)(*offs),
                     tw_ptr, log_a, *ops, int(launch["transpose_out"]),
                     launch["tall"], launch["inner"].bit_length() - 1,
-                    launch["log_hq"], launch["log_lp"], stream)
+                    launch["log_hq"], launch["log_lp"], int(launch["short"]),
+                    stream)
                 _check_launch(err, f"GL column pass ({key})", lib)
                 gl_colpass.launches += 1
                 gl_colpass.launches_by[key] = (

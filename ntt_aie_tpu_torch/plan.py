@@ -68,6 +68,7 @@ returns the same ``Plan`` over (hi, lo) limb planes.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 from typing import Callable, Optional
@@ -224,6 +225,34 @@ def wfac_tables(field, n1: int, n2: int) -> tuple:
                                _pows=pows))
 
 
+def side_by_side(makers: dict, device: torch.device) -> dict:
+    """{name: maker()} of a plan's passes on `device`, each maker run in a
+    thread of its own: a pass's set-up is NumPy and torch work on its
+    tables, which leaves the interpreter lock free on large arrays, so the
+    passes of a 2^27-point plan build side by side (its set-up is the most
+    of a plan's first call). A new thread starts on card 0 and its default
+    stream, so on the card each maker runs on the caller's card (device's
+    index, else the caller's current card: a rank that called
+    torch.cuda.set_device(r) gets its tables on card r) and the caller's
+    current stream, as a serial build would. A maker's exception is
+    raised here."""
+    index = stream = None
+    if device.type == "cuda":
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        stream = torch.cuda.current_stream(index)
+
+    def run(fn):
+        if index is None:
+            return fn()
+        with torch.cuda.device(index), torch.cuda.stream(stream):
+            return fn()
+
+    with concurrent.futures.ThreadPoolExecutor(len(makers)) as pool:
+        futures = {k: pool.submit(run, fn) for k, fn in makers.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def fold_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
                 wmat_fold: bool = True, wmat_factored: bool = False,
                 negacyclic: bool = False, device=None) -> dict:
@@ -270,31 +299,33 @@ def fold_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
         cp2_op = dict(wmat=np.ascontiguousarray(tabs["wmat"].T),
                       twiddle_pos="pre")
         icp2_op = {}
-    out = {
-        "cp1": make_colpass(field, n1, **cp1_kw),
-        "cp2": make_colpass(field, n2, direction="dif", canonicalize=True,
-                            **cp2_op, **kw),
-        "icp2": make_colpass(field, n2, direction="dit", inverse_tw=True,
-                             transpose_out=True, **icp2_op, **kw),
-        "icp1": make_colpass(field, n1, **icp1_kw),
+    make = functools.partial(make_colpass, field)
+    makers = {
+        "cp1": functools.partial(make, n1, **cp1_kw),
+        "cp2": functools.partial(make, n2, direction="dif",
+                                 canonicalize=True, **cp2_op, **kw),
+        "icp2": functools.partial(make, n2, direction="dit", inverse_tw=True,
+                                  transpose_out=True, **icp2_op, **kw),
+        "icp1": functools.partial(make, n1, **icp1_kw),
     }
     if negacyclic and wmat_factored:
-        out["ncp1"] = make_colpass(
-            field, n1, rank1=tw.negacyclic_psi_factors(field, n1, n2),
+        makers["ncp1"] = functools.partial(
+            make, n1, rank1=tw.negacyclic_psi_factors(field, n1, n2),
             rank1_pos="pre", **cp1_kw)
-        out["nicp1"] = make_colpass(
-            field, n1, rank1=tw.negacyclic_psi_factors(field, n1, n2,
-                                                       inverse=True),
+        makers["nicp1"] = functools.partial(
+            make, n1, rank1=tw.negacyclic_psi_factors(field, n1, n2,
+                                                      inverse=True),
             rank1_pos="post", **icp1_kw)
     elif negacyclic:
         n = n1 * n2
         psi = tw.negacyclic_psi_powers(field, n).reshape(n1, n2)
         ipsi = tw.negacyclic_psi_powers(field, n, inverse=True)
-        out["ncp1"] = make_colpass(field, n1, wmat2=psi, twiddle_pos2="pre",
-                                   **cp1_kw)
-        out["nicp1"] = make_colpass(field, n1, wmat2=ipsi.reshape(n1, n2),
-                                    twiddle_pos2="post", **icp1_kw)
-    return out
+        makers["ncp1"] = functools.partial(make, n1, wmat2=psi,
+                                           twiddle_pos2="pre", **cp1_kw)
+        makers["nicp1"] = functools.partial(
+            make, n1, wmat2=ipsi.reshape(n1, n2), twiddle_pos2="post",
+            **icp1_kw)
+    return side_by_side(makers, device)
 
 
 def fused_passes(field, n1: int, n2: int, *, negacyclic: bool = False,
@@ -307,16 +338,16 @@ def fused_passes(field, n1: int, n2: int, *, negacyclic: bool = False,
     device = resolve_device(device)
     tabs = tw.fourstep_tables(field, n1, n2)
     kw = dict(reduction=reduction, device=device)
-    out = {
-        "ff": make_fused_fourstep(field, n1, n2,
-                                  wmid=np.ascontiguousarray(tabs["wmat"].T),
-                                  **kw),
-        "fi": make_fused_fourstep(field, n1, n2, inverse=True,
-                                  wmid=tabs["iwmat_scaled"], **kw),
+    make = functools.partial(make_fused_fourstep, field, n1, n2, **kw)
+    makers = {
+        "ff": functools.partial(make,
+                                wmid=np.ascontiguousarray(tabs["wmat"].T)),
+        "fi": functools.partial(make, inverse=True,
+                                wmid=tabs["iwmat_scaled"]),
     }
     if negacyclic:
-        out.update(negacyclic_passes(field, n1, n2, **kw))
-    return out
+        makers.update(_negacyclic_makers(field, n1, n2, tabs, kw))
+    return side_by_side(makers, device)
 
 
 def negacyclic_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
@@ -325,18 +356,23 @@ def negacyclic_passes(field, n1: int, n2: int, *, reduction: str = "harvey4",
     split: nf = ff with psi^i as 'pre', ni = fi with psi^-i as 'post'
     (reference plan.py:685-689). device: None is the card."""
     device = resolve_device(device)
-    tabs = tw.fourstep_tables(field, n1, n2)
-    n = n1 * n2
     kw = dict(reduction=reduction, device=device)
+    return side_by_side(_negacyclic_makers(
+        field, n1, n2, tw.fourstep_tables(field, n1, n2), kw), device)
+
+
+def _negacyclic_makers(field, n1: int, n2: int, tabs: dict, kw: dict) -> dict:
+    """negacyclic_passes' nf and ni as makers (side_by_side's)."""
+    n = n1 * n2
+    make = functools.partial(make_fused_fourstep, field, n1, n2, **kw)
     return {
-        "nf": make_fused_fourstep(
-            field, n1, n2, wmid=np.ascontiguousarray(tabs["wmat"].T),
-            pre=tw.negacyclic_psi_powers(field, n).reshape(n1, n2), **kw),
-        "ni": make_fused_fourstep(
-            field, n1, n2, inverse=True, wmid=tabs["iwmat_scaled"],
+        "nf": functools.partial(
+            make, wmid=np.ascontiguousarray(tabs["wmat"].T),
+            pre=tw.negacyclic_psi_powers(field, n).reshape(n1, n2)),
+        "ni": functools.partial(
+            make, inverse=True, wmid=tabs["iwmat_scaled"],
             post=tw.negacyclic_psi_powers(field, n,
-                                          inverse=True).reshape(n1, n2),
-            **kw),
+                                          inverse=True).reshape(n1, n2)),
     }
 
 

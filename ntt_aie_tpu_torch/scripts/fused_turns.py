@@ -60,8 +60,13 @@ also times BabyBear's cp1 (DIF, 'post_t', transpose_out) and icp1 (DIT,
 canonicalize) under montgomery at 8192 x 16384 and 4096 x 32768, B = 1,
 each as one whole-column launch and through its tall route's two
 launches, the pass and each launch alone (us per call), compares the two
-routes' outputs bit for bit and reads kernel_info of each (and times
-Goldilocks's cp1 and icp1 at 8192 x 16384, one whole-column launch). With
+routes' outputs bit for bit and reads kernel_info of each; and times
+Goldilocks's cp1 and icp1 at 8192 x 16384, 4096 x 32768, 2048 x 65536
+and 4096 x 4096 as one whole-column launch at each tile width of 2 and 4
+columns that fits (128 KB at most) and through the tall route, and its
+factored arm's cp1 and icp1 on columns of 2, 4 and 8 rows at n = 2^28 on
+the column tile and on the short kernel (where the root has it), the
+routes' outputs compared bit for bit (``_measure_gl_limit``). With
 ``--steps`` each reading also times the fused plan against the fold plan
 at BabyBear n = 2^27 (8192 x 16384, B = 1), p = 469762049 at (1, 2^20),
 B = 1, and BabyBear n = 2^17 at 8 x 16384 and 16384 x 8, B = 2:
@@ -91,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import os
 import pathlib
@@ -118,6 +124,14 @@ TALL_N1, TALL_N2 = 8192, 16384
 # --limit: the 32-bit whole-column launch against the tall route at the
 # two heights a launch limit could fall between, over BabyBear n = 2^27
 LIMIT_SHAPES = ((8192, 16384), (4096, 32768))
+# --limit, Goldilocks: its whole-column launch at each tile width against
+# the tall route at n = 2^27 (8192 x 16384, 4096 x 32768, 2048 x 65536)
+# and 2^24 (4096 x 4096); and its column tile against the short kernel on
+# columns of 2, 4 and 8 rows at n = 2^28
+GL_LIMIT_SHAPES = ((8192, 16384), (4096, 32768), (2048, 65536),
+                   (4096, 4096))
+GL_TILE_COLS = (2, 4)
+GL_SHORT_SHAPES = ((2, 1 << 27), (4, 1 << 26), (8, 1 << 25))
 # --steps: the fused plan's step lists against the fold plan's calls,
 # (field, log_n, rows_log2 (None: the default split), batch)
 STEP_CASES = (("p2013265921", 27, None, 1), ("p469762049", 20, 0, 1),
@@ -377,8 +391,7 @@ def _measure_limit() -> dict:
     through its tall route (colpass.tall_phases, whichever route the
     root's launch_plan gives the pass), us per call of the pass and of
     each launch, the two routes' outputs compared bit for bit, and
-    kernel_info of each route; and Goldilocks's cp1 and icp1 at the first
-    shape, whose whole-column launch the plans keep, us per call."""
+    kernel_info of each route; and Goldilocks's (_measure_gl_limit)."""
     import dataclasses
 
     import numpy as np
@@ -386,8 +399,6 @@ def _measure_limit() -> dict:
 
     import ntt_aie_tpu_torch as T
     from ntt_aie_tpu_torch.ops import colpass as C
-    from ntt_aie_tpu_torch.ops import gl_colpass as G
-    from ntt_aie_tpu_torch.ops import modops as M
     from ntt_aie_tpu_torch.utils.timing import time_device
 
     dev = torch.device("cuda", 0)
@@ -433,32 +444,107 @@ def _measure_limit() -> dict:
             del ys, u
         del passes, x
         torch.cuda.empty_cache()
-    # Goldilocks keeps its 8,192-row whole-column launch: cp1 and icp1 at
-    # the first shape, timed alone
-    gfield = T.GOLDILOCKS
-    wmat = rng.integers(0, 1 << 63, LIMIT_SHAPES[0][::-1], dtype=np.uint64)
-    nn, ncols = LIMIT_SHAPES[0]
-    gl_passes = {"cp1": G.make_gl_colpass(gfield, nn, direction="dif",
-                                          wmat=wmat, transpose_out=True,
-                                          device=dev),
-                 "icp1": G.make_gl_colpass(gfield, nn, direction="dit",
-                                           inverse_tw=True, device=dev)}
-    del wmat
-    hi = torch.randint(0, (1 << 32) - 1, (1, nn, ncols), dtype=torch.int64,
-                       device=dev, generator=gen)
-    x = (M.from_carrier(hi), M.from_carrier(torch.randint(
-        0, 1 << 32, hi.shape, dtype=torch.int64, device=dev,
-        generator=gen)))
-    del hi
-    for key, cp in gl_passes.items():
-        out[f"limit_gl_{nn}_{key}_whole_us_per_call"] = time_device(
-            lambda _, cp=cp: G.gl_colpass(x, cp), x, iters=5,
-            repeats=5)["us_per_iter"]
-        out["limit_kernel_info"][f"limit_gl_{nn}_{key}_whole"] = (
-            G.kernel_info(cp, ncols))
-    del gl_passes, x
-    torch.cuda.empty_cache()
+    _measure_gl_limit(out, rng, gen)
     return out
+
+
+@contextlib.contextmanager
+def _patched(module, **values):
+    """module's attributes set to values inside the block (a reading's
+    forced tile width or route), restored after it."""
+    old = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def _measure_gl_limit(out: dict, rng, gen) -> None:
+    """Goldilocks's cp1 (DIF, 'post_t' of random canonical values,
+    transpose_out) and icp1 (DIT) at GL_LIMIT_SHAPES, B = 1, each as one
+    whole-column launch at every tile width GL_TILE_COLS a block's shared
+    memory takes and through its tall route (colpass.tall_phases); and the
+    factored arm's cp1 (DIF, transpose_out) and icp1 (DIT) at
+    GL_SHORT_SHAPES on the column tile and, where the root's package has
+    it, on the short kernel (colpass.SHORT_ROWS). us per call, every
+    route's output compared bit for bit with the first's, and kernel_info
+    of each route, into out (_measure_limit's)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    field = T.GOLDILOCKS
+    tile_cols = C.tile_cols
+
+    def planes(nn, ncols):
+        hi = torch.randint(0, (1 << 32) - 1, (1, nn, ncols),
+                           dtype=torch.int64, device=dev, generator=gen)
+        return (M.from_carrier(hi), M.from_carrier(torch.randint(
+            0, 1 << 32, hi.shape, dtype=torch.int64, device=dev,
+            generator=gen)))
+
+    def forced(tl):
+        return lambda nn, ncols, itemsize=4: (
+            min(tl, ncols) if itemsize == 8 else tile_cols(nn, ncols,
+                                                           itemsize))
+
+    def read(tag, routes, x, ncols):
+        ys = {}
+        for route, (cp, patch) in routes.items():
+            with _patched(C, **patch):
+                ys[route] = G.gl_colpass(x, cp)
+                out[f"{tag}_{route}_us_per_call"] = time_device(
+                    lambda _, cp=cp: G.gl_colpass(x, cp), x, iters=5,
+                    repeats=5)["us_per_iter"]
+                out["limit_kernel_info"][f"{tag}_{route}"] = G.kernel_info(
+                    cp, ncols)
+        first = next(iter(ys.values()))
+        out["limit_equal"][tag] = all(
+            torch.equal(a, b) for y in ys.values() for a, b in zip(first, y))
+
+    for nn, ncols in GL_LIMIT_SHAPES:
+        wmat = rng.integers(0, 1 << 63, (ncols, nn), dtype=np.uint64)
+        passes = {"cp1": G.make_gl_colpass(field, nn, direction="dif",
+                                           wmat=wmat, transpose_out=True,
+                                           device=dev),
+                  "icp1": G.make_gl_colpass(field, nn, direction="dit",
+                                            inverse_tw=True, device=dev)}
+        del wmat
+        x = planes(nn, ncols)
+        for key, cp in passes.items():
+            whole = dataclasses.replace(cp, tall=None)
+            routes = {f"whole_tl{tl}": (whole, {"tile_cols": forced(tl)})
+                      for tl in GL_TILE_COLS if nn * tl * 8 <= 131072}
+            routes["tall"] = (dataclasses.replace(
+                cp, tall=cp.tall or C.tall_phases(cp)), {})
+            read(f"limit_gl_{nn}x{ncols}_{key}", routes, x, ncols)
+        del passes, x
+        torch.cuda.empty_cache()
+    for nn, ncols in GL_SHORT_SHAPES:
+        passes = {"cp1": G.make_gl_colpass(field, nn, direction="dif",
+                                           transpose_out=True, device=dev),
+                  "icp1": G.make_gl_colpass(field, nn, direction="dit",
+                                            inverse_tw=True, device=dev)}
+        x = planes(nn, ncols)
+        for key, cp in passes.items():
+            routes = {"tile": (cp, {"SHORT_ROWS": 1}
+                               if hasattr(C, "SHORT_ROWS") else {})}
+            if hasattr(C, "SHORT_ROWS"):
+                routes["short"] = (cp, {"SHORT_ROWS": GL_SHORT_SHAPES[-1][0]})
+            read(f"limit_gl_{nn}x{ncols}_{key}", routes, x, ncols)
+        del passes, x
+        torch.cuda.empty_cache()
 
 
 def _measure_steps() -> dict:

@@ -34,7 +34,10 @@ row limit of 64, so at 16,384 and 32,768 rows) and the one-row passes of
 the split (1, n) against their plain versions, its plans against the
 plain plans on every callable, and the fused kernel's step lists (a tall
 side's phases, split ones too) against the plain transform over a chain
-of launches, with the fused plan at n = 2^17 (8 x 16384, 16384 x 8).
+of launches, with the fused plan at n = 2^17 (8 x 16384, 16384 x 8); and
+Goldilocks columns of 2-8 rows on the short kernel (every instantiation
+the plans run) and of 4,096 and 8,192 rows on the tall route, against
+their plain versions raw.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -321,6 +324,51 @@ def test_gl_mul_kernel_matches_plain(cuda):
     assert M.gl_to_u64(*got)[-49:].tolist() == want
 
 
+def _pass_tensors(obj):
+    """Every tensor a plan's passes hold (one level of fields)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in _pass_tensors(v)]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _pass_tensors(v)]
+    if hasattr(obj, "__dataclass_fields__"):
+        return [t for k in obj.__dataclass_fields__
+                for t in _pass_tensors(getattr(obj, k))]
+    return []
+
+
+@pytest.mark.parametrize("field,kw", [(T.P_469762049, {}),
+                                      (T.P_469762049, {"fused": True}),
+                                      (T.GOLDILOCKS, {})])
+def test_plan_builds_on_the_current_card(cuda, field, kw):
+    """After torch.cuda.set_device(k), a plan built with device=None holds
+    every table on card k (its passes are made in worker threads, which
+    start on card 0) and transforms there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (card 0 is every thread's default)")
+    k = torch.cuda.device_count() - 1
+    old = torch.cuda.current_device()
+    cfg = T.NTTConfig(field=field, log_n=12, rows_log2=6, negacyclic=True)
+    a = np.random.default_rng(k).integers(0, field.p, cfg.n,
+                                          dtype=np.uint64)
+    torch.cuda.set_device(k)
+    try:
+        plan = T.build_plan(cfg, **kw)
+        tensors = _pass_tensors(plan.passes)
+        f = plan.fwd(a)
+    finally:
+        torch.cuda.set_device(old)
+    assert tensors and {t.device for t in tensors} == {
+        torch.device("cuda", k)}
+    if isinstance(f, torch.Tensor):
+        assert f.device == torch.device("cuda", k)
+        f = f.cpu().numpy()
+    f = np.asarray(f, np.uint64)
+    assert np.array_equal(f[plan.spectral_to_natural].astype(object),
+                          ref.ntt_forward(a.astype(object), field))
+
+
 def test_gl_plan_matches_oracle(cuda):
     cfg = T.NTTConfig(field=T.GOLDILOCKS, log_n=16, rows_log2=8)
     plan = T.build_plan(cfg, device=cuda)
@@ -343,18 +391,24 @@ def test_gl_plan_matches_oracle(cuda):
 @pytest.mark.parametrize("direction", ["dif", "dit"])
 def test_gl_kernel_takes_8192_rows(cuda, direction):
     """8,192 rows of uint64 in 2-column tiles (128 KB), the GL columns of
-    the default 8192 x 8192 split at n = 2^26."""
+    the default 8192 x 8192 split at n = 2^26: the plans run a column
+    above GL_LAUNCH_ROWS as its tall route's two launches; the
+    whole-column launch (a pass without its route) still takes it."""
+    import dataclasses
+
     assert C.tile_cols(8192, 64, itemsize=8) == 2
     cp = G.make_gl_colpass(T.GOLDILOCKS, 8192, direction=direction,
                            inverse_tw=direction == "dit", device=cuda)
     x = M.gl_from_u64(_gl_values(np.random.default_rng(8192), (1, 8192, 64)),
                       cuda)
-    before = G.gl_colpass.launches
-    got = G.gl_colpass(x, cp)
-    torch.cuda.synchronize()
-    assert G.gl_colpass.launches == before + 1
     want = G.gl_colpass_plain(x, cp)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for route, launches in ((dataclasses.replace(cp, tall=None), 1),
+                            (cp, 2)):
+        before = G.gl_colpass.launches
+        got = G.gl_colpass(x, route)
+        torch.cuda.synchronize()
+        assert G.gl_colpass.launches == before + launches
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_gl_colpass_kernel_info(cuda):
@@ -365,9 +419,12 @@ def test_gl_colpass_kernel_info(cuda):
         assert info["layout"] == "swizzled"
         assert info["tile_cols"] == 8 and info["shift"] == 5
         assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
-    # a 2-column tile of 8,192 rows takes 128 KB: one block per SM
+    # a 2-column tile of 8,192 rows takes 128 KB: one block per SM (the
+    # whole-column launch, off the plans' path)
+    import dataclasses
+
     cp = G.make_gl_colpass(T.GOLDILOCKS, 8192, direction="dit", device=cuda)
-    info = G.kernel_info(cp, 64)
+    info = G.kernel_info(dataclasses.replace(cp, tall=None), 64)
     assert info["tile_cols"] == 2 and info["blocks_per_sm"] == 1
 
 
@@ -1799,3 +1856,80 @@ def test_fused_launch_limit_steps_match_plain(cuda, n1, n2, inverse):
     assert info["blocks_per_sm"] > 1
     assert info["steps"] == [st["name"] for st in steps]
 
+
+# ---- Goldilocks columns of 2-8 rows (the short kernel), and of 4,096 and
+# 8,192 rows (the tall route) -----------------------------------------------
+
+@pytest.mark.parametrize("nn", [2, 4, 8])
+@pytest.mark.parametrize("arm", TALL_ARMS)
+def test_gl_short_kernel_matches_plain(cuda, nn, arm):
+    """Every instantiation the plans run on a column of at most SHORT_ROWS
+    rows (the fold, entry and factored arms' four passes and the
+    distributed plan's) launches the short kernel once, under the pass's
+    key, and equals its plain version raw; kernel_info: registers, no
+    tile."""
+    assert C.SHORT_ROWS == 8
+    rng = np.random.default_rng([nn, 11, TALL_ARMS.index(arm)])
+    passes = _tall_passes(gl_fold_passes, FS.gl_dist_passes, T.GOLDILOCKS,
+                          nn, arm, 512, device=cuda)
+    for name, (cp, nc) in passes.items():
+        (launch,) = C.launch_plan(cp, nc, itemsize=8)
+        assert launch["short"] and launch["tile_cols"] == 1, name
+        x = M.gl_from_u64(_gl_values(rng, (3, nn, nc)), cuda)
+        before, total = dict(G.gl_colpass.launches_by), G.gl_colpass.launches
+        got = G.gl_colpass(x, cp)
+        torch.cuda.synchronize()
+        assert G.gl_colpass.launches == total + 1, name
+        key = G.variant(cp)
+        assert G.gl_colpass.launches_by[key] == before.get(key, 0) + 1
+        want = G.gl_colpass_plain(x, cp)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (name,
+                                                                   key)
+        info = G.kernel_info(cp, nc)
+        assert info["layout"] == "registers" and info["rows"] == nn
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("nn", [2, 8])
+def test_gl_short_kernel_strides_over_columns(cuda, nn):
+    """More columns than the card's resident threads (each thread strides
+    over several), at a column count no block width divides, against the
+    plain version, raw."""
+    ncols = (1 << 20) + 96
+    rng = np.random.default_rng(nn)
+    for direction, kw in (("dif", {"transpose_out": True}),
+                          ("dit", {"inverse_tw": True})):
+        cp = G.make_gl_colpass(T.GOLDILOCKS, nn, direction=direction,
+                               device=cuda, **kw)
+        x = M.gl_from_u64(_gl_values(rng, (1, nn, ncols)), cuda)
+        got = G.gl_colpass(x, cp)
+        torch.cuda.synchronize()
+        want = G.gl_colpass_plain(x, cp)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), direction
+
+
+@pytest.mark.parametrize("nn", [4096, 8192])
+@pytest.mark.parametrize("arm", TALL_ARMS)
+def test_gl_route_at_launch_limit_matches_plain(cuda, nn, arm):
+    """Goldilocks columns of 4,096 and 8,192 rows, above GL_LAUNCH_ROWS,
+    through the tall route: each launch of every instantiation the plans'
+    arms run equals its plain version raw, and the launches compose to the
+    whole column's plain pass."""
+    rng = np.random.default_rng([nn, 13, TALL_ARMS.index(arm)])
+    passes = _tall_passes(gl_fold_passes, FS.gl_dist_passes, T.GOLDILOCKS,
+                          nn, arm, 8, device=cuda)
+    for name, (cp, nc) in passes.items():
+        assert cp.tall is not None, name
+        x = M.gl_from_u64(_gl_values(rng, (2, nn, nc)), cuda)
+        plan = C.launch_plan(cp, nc, itemsize=8)
+        assert max(p["rows"] for p in plan) <= C.GL_LAUNCH_ROWS
+        u = x
+        for launch in plan:
+            got = G.gl_colpass_launch(u, cp, launch)
+            torch.cuda.synchronize()
+            want = G.gl_launch_plain(u, cp, launch)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                name, launch["key"])
+            u = got
+        want = G.gl_colpass_plain(x, cp)
+        assert all(torch.equal(a, b) for a, b in zip(u, want)), name

@@ -4,8 +4,10 @@ raise RuntimeError (no CPU fallback); device="cpu" takes the plain PyTorch
 route. The CUDA check is patched here, so the tests say the same on any
 machine; the card tests (test_torch_cuda.py) build on the real card."""
 
+import contextlib
 import os
 import tempfile
+import threading
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from ntt_aie_tpu_torch import dilithium, kyber
 from ntt_aie_tpu_torch.examples import (bigint_multiply, distributed_demo,
                                         pqc_serving_demo, rlwe_demo,
                                         serving_matform_demo)
+from ntt_aie_tpu_torch import goldilocks_plan as GP
+from ntt_aie_tpu_torch import plan as PL
 from ntt_aie_tpu_torch.goldilocks_plan import gl_fold_passes
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import fused_fourstep as FF
@@ -184,6 +188,88 @@ def test_default_resolves_to_cuda(monkeypatch):
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+
+
+@pytest.fixture
+def card_state(monkeypatch):
+    """A model of CUDA's per-thread state: each thread has a current card
+    (a new thread starts on card 0) and a current stream a card (its
+    default stream until one is set), read and set through
+    torch.cuda.current_device, current_stream, device and stream."""
+    state = threading.local()
+
+    def current_device():
+        return getattr(state, "card", 0)
+
+    def current_stream(index=None):
+        index = current_device() if index is None else index
+        return getattr(state, "streams", {}).get(index, f"default:{index}")
+
+    @contextlib.contextmanager
+    def device(index):
+        old, state.card = current_device(), index
+        try:
+            yield
+        finally:
+            state.card = old
+
+    @contextlib.contextmanager
+    def stream(s):
+        streams = dict(getattr(state, "streams", {}))
+        state.streams = {**streams, int(s.split(":")[1]): s}
+        try:
+            yield
+        finally:
+            state.streams = streams
+
+    for name, fn in (("current_device", current_device),
+                     ("current_stream", current_stream), ("device", device),
+                     ("stream", stream)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+
+    def on(card, s=None):
+        state.card = card
+        state.streams = {} if s is None else {card: s}
+
+    return on
+
+
+def _where():
+    return torch.cuda.current_device(), torch.cuda.current_stream()
+
+
+@pytest.mark.parametrize("builder", ["fold", "fold_negacyclic", "fused",
+                                     "negacyclic", "gl_fold"])
+def test_plan_passes_build_on_the_callers_card(card_state, monkeypatch,
+                                               builder):
+    """A plan's passes are made in worker threads (plan.side_by_side),
+    which start on card 0: each maker must run on the caller's current
+    card and stream, as a serial build does, so a rank that called
+    torch.cuda.set_device(r) gets its tables on card r (and an explicit
+    cuda:k on card k)."""
+    here = []
+    t = threading.Thread(target=lambda: here.append(_where()))
+    card_state(3, "side:3")
+    t.start()
+    t.join()
+    assert here == [(0, "default:0")]  # what a bare worker thread sees
+    for name in ("make_colpass", "make_fused_fourstep"):
+        monkeypatch.setattr(PL, name, lambda *a, **k: _where())
+    monkeypatch.setattr(GP, "make_gl_colpass", lambda *a, **k: _where())
+    build = {
+        "fold": lambda d: fold_passes(F32, 32, 32, device=d),
+        "fold_negacyclic": lambda d: fold_passes(F32, 32, 32, device=d,
+                                                 negacyclic=True),
+        "fused": lambda d: fused_passes(F32, 32, 32, device=d,
+                                        negacyclic=True),
+        "negacyclic": lambda d: PL.negacyclic_passes(F32, 32, 32, device=d),
+        "gl_fold": lambda d: gl_fold_passes(T.GOLDILOCKS, 32, 32, device=d),
+    }[builder]
+    got = build("cuda")
+    assert len(got) >= 2 and set(got.values()) == {(3, "side:3")}
+    card_state(1)
+    got = build(torch.device("cuda", 2))
+    assert set(got.values()) == {(2, "default:2")}
 
 
 def test_mesh_default_raises_without_cuda(no_cuda):

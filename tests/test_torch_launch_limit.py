@@ -4,7 +4,9 @@ A 32-bit column of more than colpass.LAUNCH_ROWS = 4,096 rows (8,192 rows:
 BabyBear n = 2^27's cp1 and icp1 at its 8192 x 16384 split) runs on the
 card as its tall route's two launches instead of one 128 KB tile; a fused
 side of that height runs as the route's two steps of the step list, and a
-one-row fused side as one elementwise step. Here:
+one-row fused side as one elementwise step. A Goldilocks column takes its
+route above colpass.GL_LAUNCH_ROWS = 2,048 rows (test_launch_limit;
+tests/test_torch_gl_short.py). Here:
 
 - the route at 4,096 rows (forced: the plans keep the whole column there)
   and 8,192 rows: each launch's plain version (colpass.launch_plain) and
@@ -40,6 +42,7 @@ import ntt_aie_tpu_torch as T
 from ntt_aie_tpu_torch import twiddles as tw
 from ntt_aie_tpu_torch.ops import colpass as C
 from ntt_aie_tpu_torch.ops import fused_fourstep as F
+from ntt_aie_tpu_torch.ops import gl_colpass as G
 
 import test_torch_tall_colpass as TT
 
@@ -55,15 +58,20 @@ def _one_torch_thread():
 
 
 def test_launch_limit():
-    """The limit the readings set (PERF.md section 6), below the
-    tallest tile the kernels hold; Goldilocks keeps MAX_ROWS."""
-    assert C.LAUNCH_ROWS == 4096 < C.MAX_ROWS == 8192
+    """The limits the readings set (PERF.md section 6), below the
+    tallest tile the kernels hold: 4,096 rows for 32-bit values, 2,048
+    for Goldilocks's (its 4,096-row DIT launch lost to the route)."""
+    assert C.LAUNCH_ROWS == 4096 < C.MAX_ROWS == G.MAX_ROWS == 8192
     assert C.route_rows(4) == C.LAUNCH_ROWS
-    assert C.route_rows(8) == C.MAX_ROWS
+    assert C.route_rows(8) == C.GL_LAUNCH_ROWS == 2048
     for nn in (4096, 8192):
         cp = C.make_colpass(BABYBEAR, nn, direction="dif",
                             reduction="montgomery", device="cpu")
         assert (cp.tall is not None) == (nn == 8192)
+    for nn in (2048, 4096, 8192):
+        cp = G.make_gl_colpass(T.GOLDILOCKS, nn, direction="dit",
+                               device="cpu")
+        assert (cp.tall is not None) == (nn > 2048)
     # BabyBear n = 2^27 at 8192 x 16384: cp1's two launches, cp2's two
     assert C.launch_shapes(8192, 16384, "dif") == [
         (64, 128 * 16384, 1, 32), (128, 64 * 16384, 1, 32)]
