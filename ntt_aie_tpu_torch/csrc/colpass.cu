@@ -71,6 +71,32 @@
 // network over P arrays a batch row (the launch's batch B * P). Every
 // launch of the route reads and writes the array once, so a split phase
 // pays one more sweep of device memory.
+// The DIF split phase A's last launch ('lo') moves the rows: a thread of
+// its groups holds one view column iq, whose moved rows iq * rows + lp
+// are a run of rows * ncols words, so a warp of the group's mapping
+// stores 32 runs apart, one word a sector at ncols = 1 (BabyBear (1,
+// 2^27): 2.42 ms, 3.8x its bound). At one column (colpass_tile.cuh
+// kStagedLogCols; pick_tall takes the kStaged instantiation where
+// colpass_tile::staged_store says)
+// it stages the store instead: the last group runs its
+// stages and the mid multiply in the group's mapping (the mid reads stay
+// coalesced; all its values' before any store), writes the values back to
+// the tile, and after one barrier store_moved reads the tile across the
+// rows, so consecutive threads write consecutive moved words (whole
+// 128-byte lines at TL = 32); the launch's tile XORs each row's columns
+// with the row (moved_xor) so that both the group's accesses and the
+// store's transposing reads meet 32 banks: 1.09-1.10 ms. The staging
+// takes the tile the launch already holds: no shared memory more, no other
+// kernel, the same grid. Readings in turns (PERF.md section 6) chose it
+// over its variants: 16-byte vector stores, a whole last group (3, 1, 3
+// stages) and no barrier (racy, for the reading) each moved it by 4 % or
+// less, and a launch with no global store at all took 1.02 ms, so what is
+// left is the launch's stages and mid multiply, not the store; at 2 and 4
+// columns the staging costs more than the direct store's 8 and 16 bytes a
+// sector saves, and they keep the instantiation they had. A TMA 2-D bulk
+// store (cp.async.bulk.tensor from a [TL][Q * ncols] box, a tensor map
+// built in the wrapper) would replace only the store, the part those
+// readings found cheap, and was not built.
 //
 // A column of one row (the split (1, n): cp1, icp1, ncp1, nicp1 over one
 // row) is a network of zero stages: colpass_empty_kernel applies its
@@ -193,9 +219,11 @@ using colpass_tile::kWhole;
 
 // One thread block per (batch row, tile of TL columns). kPre, kPost:
 // colpass_tile::Operand forms; kTall: colpass_tile::Tall; kGroup: a launch
-// of a split phase (column_tile_io's).
+// of a split phase; kStaged: a DIF split phase A's 'lo' launch that stages
+// its moved store (column_tile_io's).
 template <bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
-          int kPost = kOpNone, int kTall = kWhole, bool kGroup = false>
+          int kPost = kOpNone, int kTall = kWhole, bool kGroup = false,
+          bool kStaged = false>
 __global__ void __launch_bounds__(kThreads) colpass_kernel(const Params P) {
   extern __shared__ uint32_t tile[];
   const size_t plane = (size_t)P.net.nn * P.ops.ncols;
@@ -212,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) colpass_kernel(const Params P) {
     const int p =
         kGroup ? (int)(blockIdx.y & ((1u << P.view.log_lp) - 1)) : 0;
     colpass_tile::column_tile_io<kDit, kTranspose, kMat, kFuse, false, kPre,
-                                 kPost, kTall, false, kGroup>(
+                                 kPost, kTall, false, kGroup, kStaged>(
         tile, P.net, P.ops, P.tables, P.x + (size_t)blockIdx.y * plane,
         P.out + (size_t)blockIdx.y * plane,
         colpass_tile::tall_col0<kTall, kTranspose, kGroup>(
@@ -298,10 +326,12 @@ KernelFn pick_kernel(bool dit, bool transpose_out, bool mat, int pre,
 // direction and its 'pre' form; kTallB by the direction, the store options
 // and the 'post' form (a split phase's in-place launch has none). Every
 // 'pre' and 'post' form and store option a plan's pass runs has its
-// launches here. kG: a launch of a split phase (colpass_kernel's kGroup).
+// launches here. kG: a launch of a split phase (colpass_kernel's kGroup);
+// staged: a DIF split phase A's 'lo' launch that stages its moved store
+// (colpass_tile::staged_store).
 template <bool kG>
 KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
-                   int post) {
+                   int post, bool staged) {
   if (tall == kTallA || tall == kTallPre) {
     if (transpose_out || mat || post != kOpNone) return nullptr;
     if (tall == kTallPre) {  // a split phase A's first launch only
@@ -334,6 +364,11 @@ KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
     }
     switch (pre) {
       case kOpNone:
+        if constexpr (kG) {
+          if (staged)
+            return colpass_kernel<false, false, false, kOpNone, kOpNone,
+                                  kTallA, kG, true>;
+        }
         return colpass_kernel<false, false, false, kOpNone, kOpNone, kTallA,
                               kG>;
       case kOpMat:
@@ -386,14 +421,16 @@ KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
 // pick_kernel for a whole column (tall = kWhole), pick_tall for a launch of
 // a tall one.
 KernelFn pick(int tall, bool dit, bool transpose_out, bool mat, int pre,
-              int post, int nn, bool group) {
+              int post, int nn, bool group, bool staged) {
   if (nn == 1)
     return tall == kWhole && pick_kernel(dit, transpose_out, mat, pre, post)
                ? colpass_empty_kernel
                : nullptr;
   if (tall == kWhole) return pick_kernel(dit, transpose_out, mat, pre, post);
-  return group ? pick_tall<true>(tall, dit, transpose_out, mat, pre, post)
-               : pick_tall<false>(tall, dit, transpose_out, mat, pre, post);
+  return group ? pick_tall<true>(tall, dit, transpose_out, mat, pre, post,
+                                 staged)
+               : pick_tall<false>(tall, dit, transpose_out, mat, pre, post,
+                                  false);
 }
 
 // Opts kernel in to smem dynamic bytes above 48 KB.
@@ -415,14 +452,18 @@ const char* ntt_reduction_name() { return reductions::kBuiltName; }
 
 // This build's register group size, and for the kernel of this direction
 // and these operands (pre, post: Operand forms), of a whole column or one
-// launch of a tall one (tall: colpass_tile::Tall; group: of a split phase),
-// at an nn x 2^log_tl tile (a launch's rows): its registers a thread and
-// its co-resident blocks per SM. Returns 0 or a cudaError_t.
+// launch of a tall one (tall: colpass_tile::Tall; group: 0, or for a
+// launch of a split phase 1 + log2 of the tall array's columns, which
+// colpass_tile::staged_store reads), at an nn x 2^log_tl tile (a launch's
+// rows): its registers a thread and its co-resident blocks per SM.
+// Returns 0 or a cudaError_t.
 int ntt_colpass_kernel_info(int tall, int group, int dit, int transpose_out,
                             int mat, int pre, int post, int nn, int log_tl,
                             int* kfuse, int* regs, int* per_sm) {
-  const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0, mat != 0,
-                               pre, post, nn, group != 0);
+  const KernelFn kernel =
+      pick(tall, dit != 0, transpose_out != 0, mat != 0, pre, post, nn,
+           group > 0,
+           colpass_tile::staged_store(tall, dit != 0, group > 0, group - 1));
   *kfuse = kFuse;
   *regs = 0;
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
@@ -531,9 +572,12 @@ int ntt_colpass(const void* x, void* out, int batch, int nn, int ncols,
       log_s < 0 || (fac && (log_s < 1 || log_s >= P.view.log_tall)) ||
       (phase && log_tl - P.tables.log_tlc > split_inner))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool group = log_hq != 0 || log_lp != 0;
   const KernelFn kernel =
       pick(tall, dit != 0, transpose_out != 0, mat != nullptr, pre_form,
-           post_form, nn, log_hq != 0 || log_lp != 0);
+           post_form, nn, group,
+           colpass_tile::staged_store(tall, dit != 0, group,
+                                      P.tables.log_ncols));
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   if (empty) {
     const int blocks = (ncols + kThreads - 1) / kThreads;

@@ -634,6 +634,70 @@ __device__ __forceinline__ size_t tall_store_index(int lp, const TallCols& X,
     return (X.tc << V.log_tall) + tall_row(lp, X, V);
 }
 
+// A DIF split phase A's last launch ('lo': log_hq = 0) moves tall row
+// lp * inner + iq of column tc to word (iq * rows + lp) * ncols + tc: a run
+// of ncols words a moved row, the runs of one view column iq (its rows lp)
+// consecutive. In the group's mapping, a thread a view column, a warp's
+// store lands its 32 words in 32 runs, rows * ncols words apart: one word
+// a 32-byte sector at ncols = 1. Below 2^kStagedLogCols columns
+// (staged_store) the launch's wrapper (colpass.cu pick_tall,
+// fused_fourstep.cu make_steps) takes the staged instantiation
+// (run_group_io's kStaged): its last group
+// multiplies all its values by the mid vector in that mapping (the mid
+// reads stay coalesced, and in flight together) and writes them back to
+// the tile, and after one barrier store_moved reads the tile across the
+// rows so that consecutive threads write consecutive words of the moved
+// array (a warp whole 128-byte lines at TL = 32). The launch's tile then
+// XORs each row's columns with the row, (l << lc) mod TL at lc = log2
+// ncols (moved_xor): a warp of the group mapping (32 columns of one row at
+// TL = 32) and a warp of the store's (32 consecutive words: 2^lc columns
+// of 32 / 2^lc rows) each meet 32 banks. Wider arrays take the launch's
+// other instantiation, which stores from its last group.
+// kStagedLogCols = 1, from readings in turns (H100, PERF.md section 6):
+// staged, the BabyBear (1, 2^27) launch took 1.09-1.10 ms against 2.40-2.42
+// stored directly, but at 2 and 4 columns the staging costs more than it
+// saves (1.08 and 2.14-2.15 ms against 1.00 and 1.91-1.94 at (2, 2^26) and
+// (4, 2^26)), so those keep their direct store of 8 and 16 bytes a sector.
+// (gl_colpass.cu has its own: 2.)
+constexpr int kStagedLogCols = 1;
+
+// Whether a launch (tall: a Tall) of a split phase (group) stages its
+// moved store: a DIF phase A's last launch ('lo') over a tall array of
+// 2^log_ncols columns, below 2^log_cols (kStagedLogCols; gl_colpass.cu's
+// own for its planes).
+inline bool staged_store(int tall, bool dit, bool group, int log_ncols,
+                         int log_cols = kStagedLogCols) {
+  return tall == kTallA && !dit && group && log_ncols < log_cols;
+}
+
+// The column XOR of logical row l in a staged launch's tile.
+__device__ __forceinline__ int moved_xor(int l, int lc, int log_tl) {
+  return (l << lc) & ((1 << log_tl) - 1);
+}
+
+// The staged store of a 'lo' phase A launch (see kStagedLogCols) over a
+// tall array of 2^lc <= TL columns: the tile holds the launch's values
+// after the mid multiply, logical row l, column c at word word_of(l) ^
+// moved_xor(l) ^ c. The tile's 2^lc-column groups are its view columns,
+// each one run of nn * 2^lc consecutive moved words (rows l, then columns
+// c mod 2^lc): thread e of the block takes run e >> (log_nn + lc), place
+// e mod 2^(log_nn + lc) in it, and move(run, place, w) stores tile word w
+// there.
+template <class Move>
+__device__ __forceinline__ void store_moved(int log_nn, int log_a,
+                                            int log_tl, int shift, int lc,
+                                            Move move) {
+  const int log_run = log_nn + lc;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < (1 << (log_nn + log_tl)); e += blockDim.x) {
+    const int run = e >> log_run, place = e & ((1 << log_run) - 1);
+    const int l = place >> lc;
+    move(run, place, word_of(l, log_a, log_nn, log_tl, shift) ^
+                         moved_xor(l, lc, log_tl) ^ (run << lc) ^
+                         (place & ((1 << lc) - 1)));
+  }
+}
+
 // What one group of column_tile_io does beyond the tile: load its rows
 // from device memory instead of the tile (the network's first group: rows
 // where physical and logical rows agree), multiply by the nested mid
@@ -681,9 +745,11 @@ __device__ __forceinline__ void mid_multiply(uint32_t (&v)[1 << K],
 // 'lo' group); without it the view's group parts are zero at compile time,
 // so PR 19's tall launches keep their code. kL2: the
 // loading group reads through L2 only (__ldcg: data that other blocks of
-// the same launch wrote, the fused kernel's steps).
+// the same launch wrote, the fused kernel's steps). kStaged: a DIF split
+// phase A's 'lo' launch that stages its moved store (kStagedLogCols).
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, int kTall, bool kL2, bool kGroup, class Red>
+          int kPre, int kPost, int kTall, bool kL2, bool kGroup,
+          bool kStaged, class Red>
 __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
                                              const TileOps& O,
                                              const PairTables& T,
@@ -692,6 +758,8 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
                                              const TallView& V, int p,
                                              Red R) {
   constexpr bool kSplit = kTall == kTallB && kTranspose;
+  static_assert(!kStaged || (kTall == kTallA && kGroup && !kDit),
+                "the staged store is a DIF split phase A's 'lo' launch's");
   // a split phase's launch: a 'hi' launch's log2 Q; a 'lo' launch's array,
   // its offset in the batch row and its first row
   const int log_hq = kGroup ? V.log_hq : 0;
@@ -704,6 +772,13 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
   const int total = (N.nn >> K) << log_tl;
   int dw[1 << K];
   group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, shift);
+  // a staged launch's tile: each row's columns XORed (moved_xor) by lc
+  [[maybe_unused]] const int lc = T.log_ncols;
+  if constexpr (kStaged) {
+#pragma unroll
+    for (int m = 1; m < (1 << K); ++m)
+      dw[m] ^= moved_xor(m << log_t, lc, log_tl);
+  }
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     // the tile column c, and the launch's column col0 + cc (a split tile
     // where tall_col0 takes one: a transposing phase B, a 'hi' phase A)
@@ -721,7 +796,11 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
     const int g = i >> log_tl;
     const int j = g & (t - 1);
     const int base = ((g >> log_t) << (log_t + K)) | j;
-    const int w0 = word_of(base, log_a, N.log_nn, log_tl, shift) + c;
+    int w0 = word_of(base, log_a, N.log_nn, log_tl, shift);
+    if constexpr (kStaged)
+      w0 ^= moved_xor(base, lc, log_tl) ^ c;
+    else
+      w0 += c;
     uint32_t v[1 << K];
     if (E.src) {
 #pragma unroll
@@ -779,6 +858,20 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
     } else {
       dif_stages<K>(v, N, T.tw, s0, log_t, j, R);
     }
+    if constexpr (kStaged) {
+      if (E.dst) {  // every value's mid multiply, then back to the tile
+        const TallCols X = tall_cols<kGroup>(col0 + cc, T, V);
+#pragma unroll
+        for (int m = 0; m < (1 << K); ++m) {
+          const int lp = phase_row(base + (m << log_t), row_base, log_hq, X);
+          v[m] = R.mulc(v[m], __ldg(T.mid + tall_row(lp, X, V)));
+          if (O.canonicalize) v[m] = R.canon(v[m]);
+        }
+#pragma unroll
+        for (int m = 0; m < (1 << K); ++m) tile[w0 ^ dw[m]] = v[m];
+        continue;
+      }
+    }
     if (E.dst) {
       TallCols X = {};  // the storing thread's column parts (tall_cols)
       if constexpr (kTall != kWhole) X = tall_cols<kGroup>(col0 + cc, T, V);
@@ -826,12 +919,29 @@ __device__ __forceinline__ void run_group_io(uint32_t* tile, const Network& N,
       for (int m = 0; m < (1 << K); ++m) tile[w0 ^ dw[m]] = v[m];
     }
   }
+  if constexpr (kStaged) {
+    if (E.dst) {  // store_moved, after every thread's values
+      __syncthreads();
+      // the moved word of the tile's first view column's row l = 0 in this
+      // batch row of the tall array (tall_store_index), and the distance
+      // between two view columns' runs
+      uint32_t* dst = E.dst - sub +
+                      (((col0 >> lc << V.log_rows) | row_base) << lc);
+      const int log_stride = V.log_rows + lc;
+      store_moved(N.log_nn, log_a, log_tl, shift, lc,
+                  [&](int run, int place, int w) {
+                    dst[((size_t)run << log_stride) + place] = tile[w];
+                  });
+      return;
+    }
+  }
   if (!E.dst) __syncthreads();
 }
 
 // run_group_io for a runtime k <= K stages.
 template <int K, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, int kTall, bool kL2, bool kGroup, class Red>
+          int kPre, int kPost, int kTall, bool kL2, bool kGroup,
+          bool kStaged, class Red>
 __device__ __forceinline__ void run_group_io_upto(
     int k, uint32_t* tile, const Network& N, const TileOps& O,
     const PairTables& T, const GroupEnds& E, size_t col0, int s0, int log_a,
@@ -839,13 +949,14 @@ __device__ __forceinline__ void run_group_io_upto(
   if constexpr (K > 1) {
     if (k < K) {
       run_group_io_upto<K - 1, kDit, kTranspose, kMat, kMayEmpty, kPre,
-                        kPost, kTall, kL2, kGroup>(k, tile, N, O, T, E, col0,
-                                                   s0, log_a, shift, V, p, R);
+                        kPost, kTall, kL2, kGroup, kStaged>(
+          k, tile, N, O, T, E, col0, s0, log_a, shift, V, p, R);
       return;
     }
   }
   run_group_io<K, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost, kTall, kL2,
-               kGroup>(tile, N, O, T, E, col0, s0, log_a, shift, V, p, R);
+               kGroup, kStaged>(tile, N, O, T, E, col0, s0, log_a, shift, V,
+                                p, R);
 }
 
 // One phase of column_tile_io in groups of min(kFuse, stages left), each
@@ -854,7 +965,8 @@ __device__ __forceinline__ void run_group_io_upto(
 // first (DIT) when mid, mid_swap on its first when mid_swap. An empty
 // phase runs no group.
 template <int kFuse, bool kDit, bool kTranspose, bool kMat, bool kMayEmpty,
-          int kPre, int kPost, int kTall, bool kL2, bool kGroup, class Red>
+          int kPre, int kPost, int kTall, bool kL2, bool kGroup,
+          bool kStaged, class Red>
 __device__ __forceinline__ void run_phase_io(
     uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
     const uint32_t* src, uint32_t* dst, size_t col0, int s_begin, int s_end,
@@ -868,8 +980,8 @@ __device__ __forceinline__ void run_phase_io(
                          mid && (kDit ? first : last),
                          mid_swap && first};
     run_group_io_upto<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost,
-                      kTall, kL2, kGroup>(k, tile, N, O, T, E, col0, s, log_a,
-                                          shift, V, p, R);
+                      kTall, kL2, kGroup, kStaged>(k, tile, N, O, T, E, col0,
+                                                   s, log_a, shift, V, p, R);
     s += k;
   }
 }
@@ -902,10 +1014,12 @@ __device__ __forceinline__ void run_phase_io(
 // operand nor
 // store option, kTallB no 'pre' operand, kTallPre neither. kL2: read src
 // through L2 only. kGroup: a launch of a split phase (run_group_io).
+// kStaged: a DIF split phase A's 'lo' launch staging its moved store
+// (kStagedLogCols).
 template <bool kDit, bool kTranspose, bool kMat, int kFuse,
           bool kMayEmpty = false, int kPre = kOpNone, int kPost = kOpNone,
           int kTall = kWhole, bool kL2 = false, bool kGroup = false,
-          class Red>
+          bool kStaged = false, class Red>
 __device__ __forceinline__ void column_tile_io(
     uint32_t* tile, const Network& N, const TileOps& O, const PairTables& T,
     const uint32_t* src, uint32_t* dst, size_t col0, int shift, Red R,
@@ -928,11 +1042,12 @@ __device__ __forceinline__ void column_tile_io(
   const bool has0 = !kMayEmpty || N.k0 > 0;
   const bool has1 = kMayEmpty ? N.k0 < N.nstages : nested;
   run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost, kTall,
-               kL2, kGroup>(tile, N, O, T, src, dst, col0, 0, N.k0, -1, shift,
-                            true, !has1, nested && !kDit, false, V, p, R);
+               kL2, kGroup, kStaged>(tile, N, O, T, src, dst, col0, 0, N.k0,
+                                     -1, shift, true, !has1, nested && !kDit,
+                                     false, V, p, R);
   if (has1)
     run_phase_io<kFuse, kDit, kTranspose, kMat, kMayEmpty, kPre, kPost,
-                 kTall, kL2, kGroup>(
+                 kTall, kL2, kGroup, kStaged>(
         tile, N, O, T, src, dst, col0, N.k0, N.nstages, N.log_a, shift,
         !has0, true, kDit, !has0, V, p, R);
 }

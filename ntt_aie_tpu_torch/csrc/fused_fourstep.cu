@@ -219,6 +219,10 @@ enum StepCode : int {
   kStepTallBT = 8,
   kStepTallBPost = 9,
   kStepRow = 10,
+  // not a host code: make_steps gives it a DIF split phase A's 'lo' step
+  // (kStepTallA) that stages its moved store (colpass_tile.cuh
+  // kStagedLogCols)
+  kStepTallALo = 11,
 };
 
 // The step kernel's instantiations, by the steps a list holds, so that the
@@ -297,6 +301,13 @@ __device__ __forceinline__ void tall_tile(uint32_t* tile, const Step& S,
       column_tile_io<kDit, false, false, kFuse, false, kOpNone, kOpNone,
                      kTallA, true, kGroup>(tile, N, O, T, src, dst, col0_a,
                                            S.shift, R, S.view, p);
+      break;
+    case kStepTallALo:  // a DIF split phase A's 'lo' launch, staged
+      if constexpr (kGroup && !kDit)
+        column_tile_io<kDit, false, false, kFuse, false, kOpNone, kOpNone,
+                       kTallA, true, true, true>(tile, N, O, T, src, dst,
+                                                 col0_a, S.shift, R, S.view,
+                                                 p);
       break;
     case kStepTallPre:  // a split phase A's first launch only
       if constexpr (kGroup)
@@ -573,6 +584,10 @@ bool make_steps(StepParams* P, int dit, int nsteps, const int* ints,
                  log_tl - S.tables.log_tlc > split_inner))
       return false;
     if (!tall && (log_hq || log_lp || I[kIBatchMult] != 1)) return false;
+    if (code == kStepTallA &&
+        colpass_tile::staged_store(colpass_tile::kTallA, dit != 0,
+                                   log_hq || log_lp, S.tables.log_ncols))
+      S.code = kStepTallALo;
     if ((tall && (log_hq || log_lp)) || code == kStepTallPre ||
         (!tall && !row))
       *set = kSetAll;

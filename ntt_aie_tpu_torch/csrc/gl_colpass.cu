@@ -99,7 +99,10 @@
 // launches split by stage group, as colpass.cu's (colpass_tile.cuh Tall:
 // the 'hi' launch's twiddle by its view column, the 'lo' launch's P arrays
 // a batch row), and a one-row column (the split (1, n)) as
-// gl_colpass_empty_kernel, its operands alone.
+// gl_colpass_empty_kernel, its operands alone. A DIF split phase A's 'lo'
+// launch over one or two tall columns takes the kStaged instantiation
+// (colpass_tile::staged_store), which stages its moved store through the
+// tile, each plane as colpass.cu states it for uint32 (kStagedLogCols).
 //
 // A column of 2 to 8 rows (a split with a side of at most 8: n = 2^28 at
 // (2, 2^27)) has one group of at most 3 stages, so on the tile a
@@ -146,6 +149,13 @@ constexpr int kMinBlocks = 3;
 constexpr int kTallStoreLogCols = 2;
 // The most blocks a batch row of a one-row column's launch takes (grid.x)
 constexpr int kEmptyBlocks = 132 * 8;
+// A DIF split phase A's 'lo' launch stages its moved store through the
+// tile (colpass_tile.cuh store_moved) below 2^kStagedLogCols tall columns:
+// staged, Goldilocks (1, 2^27) and (2, 2^27) took 2.04-2.05 and 4.00-4.04
+// ms against 4.77-4.78 and 4.99 stored directly, (4, 2^26) 3.99-4.00
+// against 3.86-3.87 (in turns on an H100, PERF.md section 6), so 4
+// columns and up store directly.
+constexpr int kStagedLogCols = 2;
 // The tallest column gl_colpass_short_kernel takes (ops/colpass.py
 // SHORT_ROWS), and its log2
 constexpr int kShortRows = 8;
@@ -337,14 +347,18 @@ struct Ends {
 // group's kMat multiply. kTall: a phase of a tall column (colpass_tile.cuh
 // Tall): phase A's store multiplies by the mid vector (DIF at the row the
 // value leaves, DIT at the row it reaches) and moves the row; kGroup: a
-// launch of a split phase (colpass_tile.cuh run_group_io's).
+// launch of a split phase; kStaged: a DIF split phase A's 'lo' launch that
+// stages its moved store through each plane of the tile (kStagedLogCols)
+// (colpass_tile.cuh run_group_io's).
 template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
-          int kTall, bool kGroup>
+          int kTall, bool kGroup, bool kStaged>
 __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
                                           const Rows& R, const Ends E,
                                           size_t col0, int s0, int log_a,
                                           int p) {
   constexpr bool kSplit = kTall == kTallB && kTranspose;
+  static_assert(!kStaged || (kTall == kTallA && kGroup && !kDit),
+                "the staged store is a DIF split phase A's 'lo' launch's");
   // a split phase's launch: a 'hi' launch's log2 Q; a 'lo' launch's array
   // p, its offset in the batch row and its first row
   const int log_hq = kGroup ? P.log_hq : 0;
@@ -359,6 +373,13 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
   uint32_t* tile_lo = tile + (N.nn << log_tl);
   int dw[1 << K];
   group_offsets<K>(dw, log_t, log_a, N.log_nn, log_tl, P.shift);
+  // a staged launch's tile: each row's columns XORed (moved_xor) by lc
+  [[maybe_unused]] const int lc = P.log_ncols;
+  if constexpr (kStaged) {
+#pragma unroll
+    for (int m = 1; m < (1 << K); ++m)
+      dw[m] ^= colpass_tile::moved_xor(m << log_t, lc, log_tl);
+  }
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     // the tile column c, and the launch's column col0 + cc
     const int c = kSplit || (kTall == kTallA && log_hq > 0)
@@ -377,7 +398,11 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
     const int g = i >> log_tl;
     const int j = g & (t - 1);
     const int base = ((g >> log_t) << (log_t + K)) | j;
-    const int w0 = word_of(base, log_a, N.log_nn, log_tl, P.shift) + c;
+    int w0 = word_of(base, log_a, N.log_nn, log_tl, P.shift);
+    if constexpr (kStaged)
+      w0 ^= colpass_tile::moved_xor(base, lc, log_tl) ^ c;
+    else
+      w0 += c;
     uint64_t v[1 << K];
     if (E.load) {
 #pragma unroll
@@ -418,6 +443,22 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
       dit_stages<K>(v, N, P.tw, s0, log_t, j);
     } else {
       dif_stages<K>(v, N, P.tw, s0, log_t, j);
+    }
+    if constexpr (kStaged) {
+      if (E.store) {  // every value's mid multiply, then back to the tile
+        const TallCols X = tall_cols<kGroup>(col0 + cc, P);
+#pragma unroll
+        for (int m = 0; m < (1 << K); ++m) {
+          const int lp = phase_row(base + (m << log_t), row_base, log_hq, X);
+          v[m] = gl_mul(v[m], __ldg(P.mid + tall_row(lp, X, P)));
+        }
+#pragma unroll
+        for (int m = 0; m < (1 << K); ++m) {
+          tile[w0 ^ dw[m]] = (uint32_t)(v[m] >> 32);
+          tile_lo[w0 ^ dw[m]] = (uint32_t)v[m];
+        }
+        continue;
+      }
     }
     if (E.store) {
       TallCols X = {};  // the storing thread's column parts (tall_cols)
@@ -464,12 +505,32 @@ __device__ __forceinline__ void run_group(uint32_t* tile, const Params& P,
       }
     }
   }
+  if constexpr (kStaged) {
+    if (E.store) {  // store_moved, after every thread's values
+      __syncthreads();
+      // the moved word of the tile's first view column's row l = 0 in this
+      // batch row of the planes (tall_store_index), and the distance
+      // between two view columns' runs
+      const size_t o0 = ((col0 >> lc << P.log_rows) | row_base) << lc;
+      uint32_t* dst_hi = R.dst_hi - sub + o0;
+      uint32_t* dst_lo = R.dst_lo - sub + o0;
+      const int log_stride = P.log_rows + lc;
+      colpass_tile::store_moved(
+          N.log_nn, log_a, log_tl, P.shift, lc,
+          [&](int run, int place, int w) {
+            const size_t o = ((size_t)run << log_stride) + place;
+            dst_hi[o] = tile[w];
+            dst_lo[o] = tile_lo[w];
+          });
+      return;
+    }
+  }
   if (!E.store) __syncthreads();
 }
 
 // run_group for a runtime k <= K stages.
 template <int K, bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
-          int kTall, bool kGroup>
+          int kTall, bool kGroup, bool kStaged>
 __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
                                                const Params& P,
                                                const Rows& R, const Ends E,
@@ -478,11 +539,11 @@ __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
   if constexpr (K > 1) {
     if (k < K) {
       run_group_upto<K - 1, kDit, kTranspose, kMat, kPre, kPost, kTall,
-                     kGroup>(k, tile, P, R, E, col0, s0, log_a, p);
+                     kGroup, kStaged>(k, tile, P, R, E, col0, s0, log_a, p);
       return;
     }
   }
-  run_group<K, kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup>(
+  run_group<K, kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup, kStaged>(
       tile, P, R, E, col0, s0, log_a, p);
 }
 
@@ -490,7 +551,7 @@ __device__ __forceinline__ void run_group_upto(int k, uint32_t* tile,
 // left): the first loads when load, the last stores when store, and the
 // mid multiply rides on the last (DIF) or the first (DIT) when mid.
 template <bool kDit, bool kTranspose, bool kMat, int kPre, int kPost,
-          int kTall, bool kGroup>
+          int kTall, bool kGroup, bool kStaged>
 __device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
                                           const Rows& R, size_t col0,
                                           int s_begin, int s_end, int log_a,
@@ -502,7 +563,7 @@ __device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
     const Ends E = {load && first, mid && (kDit ? first : last),
                     store && last};
     run_group_upto<kFuse, kDit, kTranspose, kMat, kPre, kPost, kTall,
-                   kGroup>(k, tile, P, R, E, col0, s, log_a, p);
+                   kGroup, kStaged>(k, tile, P, R, E, col0, s, log_a, p);
     s += k;
   }
 }
@@ -510,9 +571,10 @@ __device__ __forceinline__ void run_phase(uint32_t* tile, const Params& P,
 // One thread block per (batch row, tile of TL columns). A nested network
 // has two phases of at least one stage each; a plain one, one phase (a
 // launch of a tall column's route under kTall: a 'lo' launch's block
-// takes array p = blockIdx.y mod P of its batch row).
+// takes array p = blockIdx.y mod P of its batch row; kStaged: run_group's).
 template <bool kDit, bool kTranspose, bool kMat, int kPre = kOpNone,
-          int kPost = kOpNone, int kTall = kWhole, bool kGroup = false>
+          int kPost = kOpNone, int kTall = kWhole, bool kGroup = false,
+          bool kStaged = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     gl_colpass_kernel(const Params P) {
   static_assert((kTall != kTallA && kTall != kTallPre) ||
@@ -538,10 +600,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const bool nested = P.net.log_a >= 0;
   int p = 0;  // a 'lo' launch's array p of its batch row: row b * P + p
   if constexpr (kGroup) p = (int)(blockIdx.y & ((1u << P.log_lp) - 1));
-  run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup>(
+  run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup, kStaged>(
       tile, P, R, col0, 0, P.net.k0, -1, true, !nested, nested && !kDit, p);
   if (nested)
-    run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup>(
+    run_phase<kDit, kTranspose, kMat, kPre, kPost, kTall, kGroup, kStaged>(
         tile, P, R, col0, P.net.k0, P.net.nstages, P.net.log_a, false, true,
         kDit, p);
 }
@@ -749,10 +811,11 @@ KernelFn pick_short(int k, bool dit, bool transpose_out, bool mat, int pre,
 
 // The tall route's launch `tall` (kTallA, kTallB or kTallPre) of these
 // options, the launch's own (ops/colpass.py launch_plan), or null; as
-// colpass.cu's pick_tall (kG: a launch of a split phase).
+// colpass.cu's pick_tall (kG: a launch of a split phase; staged: a DIF
+// split phase A's 'lo' launch that stages its moved store).
 template <bool kG>
 KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
-                   int post) {
+                   int post, bool staged) {
   if (tall == kTallA || tall == kTallPre) {
     if (transpose_out || mat || post != kOpNone) return nullptr;
     if (tall == kTallPre) {  // a split phase A's first launch only
@@ -785,6 +848,11 @@ KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
     }
     switch (pre) {
       case kOpNone:
+        if constexpr (kG) {
+          if (staged)
+            return gl_colpass_kernel<false, false, false, kOpNone, kOpNone,
+                                     kTallA, kG, true>;
+        }
         return gl_colpass_kernel<false, false, false, kOpNone, kOpNone,
                                  kTallA, kG>;
       case kOpMat:
@@ -839,7 +907,7 @@ KernelFn pick_tall(int tall, bool dit, bool transpose_out, bool mat, int pre,
 // kShortRows rows where the launch asks for it (short_col), pick_kernel for
 // a whole column (tall = kWhole), pick_tall for a launch of a tall one.
 KernelFn pick(int tall, bool dit, bool transpose_out, bool mat, int pre,
-              int post, int nn, bool group, bool short_col) {
+              int post, int nn, bool group, bool staged, bool short_col) {
   if (short_col)
     return tall == kWhole && nn > 1 && nn <= kShortRows
                ? pick_short<kShortLog>(colpass_tile::ilog2(nn), dit,
@@ -853,8 +921,10 @@ KernelFn pick(int tall, bool dit, bool transpose_out, bool mat, int pre,
                : nullptr;
   if (tall == kWhole)
     return pick_kernel<TileKernels>(dit, transpose_out, mat, pre, post);
-  return group ? pick_tall<true>(tall, dit, transpose_out, mat, pre, post)
-               : pick_tall<false>(tall, dit, transpose_out, mat, pre, post);
+  return group ? pick_tall<true>(tall, dit, transpose_out, mat, pre, post,
+                                 staged)
+               : pick_tall<false>(tall, dit, transpose_out, mat, pre, post,
+                                  false);
 }
 
 // Opts kernel in to smem dynamic bytes above 48 KB.
@@ -935,15 +1005,21 @@ const char* ntt_gl_error_string(int err) {
 // This build's register group size, and for the kernel of this direction,
 // these store options and these operands (pre, post: Operand forms), of a
 // whole column or one launch of a tall one (tall: colpass_tile::Tall;
-// group: of a split phase; short_col: the short kernel's), at an nn x
-// 2^log_tl tile (a launch's rows): its registers a thread and its
-// co-resident blocks per SM. Returns 0 or a cudaError_t.
+// group: 0, or for a launch of a split phase 1 + log2 of the tall planes'
+// columns, which colpass_tile::staged_store reads at kStagedLogCols;
+// short_col: the short kernel's), at an nn x 2^log_tl tile (a launch's
+// rows): its registers a thread and its co-resident blocks per SM.
+// Returns 0 or a cudaError_t.
 int ntt_gl_colpass_kernel_info(int short_col, int tall, int group, int dit,
                                int transpose_out, int mat, int pre, int post,
                                int nn, int log_tl, int* kfuse, int* regs,
                                int* per_sm) {
-  const KernelFn kernel = pick(tall, dit != 0, transpose_out != 0, mat != 0,
-                               pre, post, nn, group != 0, short_col != 0);
+  const KernelFn kernel =
+      pick(tall, dit != 0, transpose_out != 0, mat != 0, pre, post, nn,
+           group > 0,
+           colpass_tile::staged_store(tall, dit != 0, group > 0, group - 1,
+                                      kStagedLogCols),
+           short_col != 0);
   *kfuse = kFuse;
   *regs = 0;
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
@@ -1054,9 +1130,13 @@ int ntt_gl_colpass(const void* x_hi, const void* x_lo, void* out_hi,
       log_s < 0 || (fac && (log_s < !short_col || log_s >= P.log_tall)) ||
       (phase && log_tl - P.log_tlc > split_inner))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool group = log_hq != 0 || log_lp != 0;
   const KernelFn kernel =
       pick(tall, dit != 0, transpose_out != 0, mat != nullptr, pre_form,
-           post_form, nn, log_hq != 0 || log_lp != 0, short_col != 0);
+           post_form, nn, group,
+           colpass_tile::staged_store(tall, dit != 0, group, P.log_ncols,
+                                      kStagedLogCols),
+           short_col != 0);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
   if (short_col) {
     int blocks = 0;

@@ -799,8 +799,11 @@ def launch_info(cp, ncols: int, query, error_string, *,
         kfuse, regs, per_sm = (ctypes.c_int() for _ in range(3))
         first = [int(launch["short"])] if itemsize == 8 else []
         with torch.cuda.device(cp.tw.device):
-            err = query(*first, launch["tall"],
-                        int(bool(launch["log_hq"] or launch["log_lp"])),
+            # a split phase's launch: 1 + log2 of the tall array's columns
+            # (the kernel picks the 'lo' phase A's staged store by them)
+            group = (ncols.bit_length() if launch["log_hq"] or launch["log_lp"]
+                     else 0)
+            err = query(*first, launch["tall"], group,
                         int(cp.direction == "dit"),
                         int(launch["transpose_out"]),
                         int(launch["mat"] is not None), launch["pre_form"],

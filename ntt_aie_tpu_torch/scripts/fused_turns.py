@@ -3,7 +3,7 @@ of several checkouts, timed in turns on one card.
 
     python -m ntt_aie_tpu_torch.scripts.fused_turns [--root NAME=DIR ...]
         [--nested] [--gl] [--crt] [--ring] [--tall] [--limit] [--steps]
-        [--reduction KIND]
+        [--split] [--reduction KIND]
     python -m ntt_aie_tpu_torch.scripts.fused_turns --sync
 
 Each root is a checkout: a directory that holds ``ntt_aie_tpu_torch/``,
@@ -73,7 +73,17 @@ B = 1, and BabyBear n = 2^17 at 8 x 16384 and 16384 x 8, B = 2:
 ``fwd_mat`` and ``inv_mat`` a call (CUDA events, each call on the same
 input), each fused transform's device time alone (a chain enqueued
 behind a sleep kernel), its kernel_info, and the fused ``fwd_mat``
-compared with the fold's bit for bit. The readings go in turns: the
+compared with the fold's bit for bit. With ``--split`` each reading also
+times, at B = 1, each launch alone (us per call) of the passes whose tall
+phases split by stage group: BabyBear (1, 2^27)'s cp2 and icp2 and
+Goldilocks (2, 2^27)'s factored cp2 and icp2 (their plans' own passes),
+and DIF passes (``SPLIT_PASSES``) over 32-bit (1, 2^26, 2) and (1, 2^26,
+4) under montgomery and Goldilocks (1, 2^27, 1) and (1, 2^26, 4), whose
+phase A 'lo' launch moves runs of 1, 2 and 4 words; each pass whole, its
+kernel_info and its output's hash (which must agree across every reading
+of every root); and the callables of those plans and of the fused (1,
+2^27) plan (``SPLIT_PLANS``: its ff also on the device alone). The
+readings go in turns: the
 roots in order, then in reverse (a b c c b a).
 
 ``--sync`` times nothing else: it builds ``scripts/grid_sync.cu`` and
@@ -88,8 +98,9 @@ mean of its readings in us per NTT (us per pass per NTT for cp1 and cp2;
 us per call for the nested bench shape), and the card's name and power
 limit (nvidia-smi). Exits 1 if a reading failed, a fused output differed
 from the fold plan's, a nested one from the column pass's, or two
-readings' Goldilocks outputs, CRT limbs or ring outputs from each other,
-or a tall route's output from the whole column's. Needs a CUDA card.
+readings' Goldilocks outputs, CRT limbs, ring outputs or split passes'
+outputs from each other, or a tall route's output from the whole
+column's. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -136,6 +147,21 @@ GL_SHORT_SHAPES = ((2, 1 << 27), (4, 1 << 26), (8, 1 << 25))
 # (field, log_n, rows_log2 (None: the default split), batch)
 STEP_CASES = (("p2013265921", 27, None, 1), ("p469762049", 20, 0, 1),
               ("p2013265921", 17, 3, 2), ("p2013265921", 17, 14, 2))
+# --split: the plans whose passes split a tall phase by stage group, B = 1,
+# (tag, field, log_n, rows_log2, build_plan keywords, passes, callables);
+# and DIF passes over (1, nn, ncols) whose phase A's 'lo' launch moves runs
+# of 1, 2 and 4 words, (tag, field, nn, ncols)
+SPLIT_PLANS = (
+    ("babybear_1x2^27", "p2013265921", 27, 0, {}, ("cp2", "icp2"),
+     ("fwd_mat", "polymul_mat")),
+    ("fused_babybear_1x2^27", "p2013265921", 27, 0, {"fused": True}, (),
+     ("fwd_mat",)),
+    ("gl_2x2^27_factored", "goldilocks", 28, 1, {"wmat_factored": True},
+     ("cp2", "icp2"), ("fwd_mat",)))
+SPLIT_PASSES = (("babybear_2x2^26", "p2013265921", 1 << 26, 2),
+                ("babybear_4x2^26", "p2013265921", 1 << 26, 4),
+                ("gl_1x2^27", "goldilocks", 1 << 27, 1),
+                ("gl_4x2^26", "goldilocks", 1 << 26, 4))
 SYNC_STEPS = (1, 2, 4)  # --sync: the empty step lists' lengths
 SYNC_BLOCKS_PER_SM = 4  # --sync: the step kernel's (kStepMinBlocks)
 
@@ -594,6 +620,94 @@ def _measure_steps() -> dict:
     return out
 
 
+def _measure_split() -> dict:
+    """The split passes at B = 1: each launch of SPLIT_PLANS' passes and
+    of SPLIT_PASSES alone (us per call, each launch on the output of the
+    one before it), the passes' output hashes and kernel_info, and the
+    plans' callables (us per call; a fused plan's ff also on the device
+    alone, _sleep_ahead_us)."""
+    import hashlib
+
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import colpass as C
+    from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {"split_hashes": {}, "split_kernel_info": {}}
+
+    def values(field, shape):
+        if field.is_goldilocks:  # (hi, lo), hi below 2^32 - 1: below p
+            return tuple(M.from_carrier(torch.randint(
+                0, top, shape, dtype=torch.int64, device=dev,
+                generator=gen)) for top in ((1 << 32) - 1, 1 << 32))
+        return torch.randint(0, field.p, shape, dtype=torch.int64,
+                             device=dev, generator=gen).to(torch.int32)
+
+    def time_call(fn):
+        return time_device(lambda _: fn(), torch.empty(0, device=dev),
+                           iters=5, repeats=5)["us_per_iter"]
+
+    def read_pass(tag, cp, field, ncols):
+        gl = field.is_goldilocks
+        mod = G if gl else C
+        run = G.gl_colpass_launch if gl else C.colpass_launch
+        x = values(field, (1, cp.nn, ncols))
+        u = x
+        for launch in C.launch_plan(cp, ncols, itemsize=8 if gl else 4):
+            suffix = launch["key"].rpartition("+tall")[2]
+            out[f"{tag}_{suffix}_us_per_call"] = time_call(
+                lambda u=u, launch=launch: run(u, cp, launch))
+            u = run(u, cp, launch)
+        h = hashlib.sha256()
+        for v in (u if gl else (u,)):
+            h.update(v.cpu().numpy())
+        out["split_hashes"][tag] = h.hexdigest()
+        out[f"{tag}_us_per_call"] = time_call(lambda: cp(x))
+        out["split_kernel_info"][tag] = mod.kernel_info(cp, ncols)
+
+    for tag, name, log_n, rows_log2, kw, passes, calls in SPLIT_PLANS:
+        field = T.FIELDS[name]
+        cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2)
+        n1, n2 = cfg.split
+        plan = T.build_plan(cfg, device=dev, **kw)
+        for key in passes:
+            read_pass(f"split_{tag}_{key}", plan.passes[key], field, n1)
+        bat = plan.make_batched(1)
+        x = values(field, (1, n1, n2))
+        for key in calls:
+            fn = bat[key]
+            out[f"split_{tag}_{key}_us_per_call"] = time_call(
+                (lambda fn=fn: fn(x, x)) if key == "polymul_mat"
+                else (lambda fn=fn: fn(x)))
+        if kw.get("fused"):
+            ff = plan.passes["ff"]
+            us, hidden = _sleep_ahead_us(
+                lambda u, ff=ff: F.fused_fourstep(u, ff), x)
+            out[f"split_{tag}_ff_device_us_per_call"] = us
+            out[f"split_{tag}_ff_enqueue_hidden"] = hidden
+            out["split_kernel_info"][f"split_{tag}_ff"] = F.kernel_info(ff,
+                                                                        1)
+        del plan, bat, x
+        torch.cuda.empty_cache()
+    for tag, name, nn, ncols in SPLIT_PASSES:
+        field = T.FIELDS[name]
+        if field.is_goldilocks:
+            cp = G.make_gl_colpass(field, nn, direction="dif", device=dev)
+        else:
+            cp = C.make_colpass(field, nn, direction="dif", canonicalize=True,
+                                reduction="montgomery", device=dev)
+        read_pass(f"split_{tag}_cp2", cp, field, ncols)
+        del cp
+        torch.cuda.empty_cache()
+    return out
+
+
 def _measure_sync() -> dict:
     """Device us a cooperative launch of SYNC_STEPS empty steps
     (scripts/grid_sync.cu, built here with the package's nvcc flags) at
@@ -747,6 +861,11 @@ def main(argv=None) -> int:
                     help="also time the fused plan's step lists against "
                          "the fold plan at BabyBear n = 2^27, (1, 2^20) "
                          "and n = 2^17 (8 x 16384, 16384 x 8)")
+    ap.add_argument("--split", action="store_true",
+                    help="also time each launch of the split passes at "
+                         "B = 1: BabyBear (1, 2^27), Goldilocks (2, 2^27) "
+                         "factored, (2, 2^26), (4, 2^26), GL (1, 2^27) and "
+                         "GL (4, 2^26) cp2")
     ap.add_argument("--sync", action="store_true",
                     help="only time the grid sync (scripts/grid_sync.cu) "
                          "and print one line")
@@ -779,6 +898,8 @@ def main(argv=None) -> int:
             reading.update(_measure_limit())
         if args.steps:
             reading.update(_measure_steps())
+        if args.split:
+            reading.update(_measure_split())
         _emit(reading)
         return 0
 
@@ -791,11 +912,12 @@ def main(argv=None) -> int:
     roots["this"] = THIS_ROOT
 
     libs = (("colpass", "fused_fourstep") + ("nested_colpass",) * args.nested
-            + ("gl_colpass",) * (args.gl or args.tall or args.limit)
+            + ("gl_colpass",) * (args.gl or args.tall or args.limit
+                                 or args.split)
             + ("crt",) * args.crt
             + ("ring_layers",) * args.ring)
     reds = {args.reduction} | ({"montgomery"} if args.tall or args.limit
-                               or args.steps else set())
+                               or args.steps or args.split else set())
     reds = sorted(reds - {"harvey4"})
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
              f"[C.build_library(n) for n in {libs!r}]; "
@@ -817,9 +939,10 @@ def main(argv=None) -> int:
     flags = (["--nested"] * args.nested + ["--gl"] * args.gl
              + ["--crt"] * args.crt + ["--ring"] * args.ring
              + ["--tall"] * args.tall + ["--limit"] * args.limit
-             + ["--steps"] * args.steps + ["--reduction", args.reduction])
+             + ["--steps"] * args.steps + ["--split"] * args.split
+             + ["--reduction", args.reduction])
     ok = True
-    gl_hashes = crt_hash = ring_hashes = tall_hashes = None
+    gl_hashes = crt_hash = ring_hashes = tall_hashes = split_hashes = None
     for name in order:
         res = _run_child(roots[name], flags)
         if res.returncode != 0:
@@ -830,12 +953,14 @@ def main(argv=None) -> int:
         crt_hash = crt_hash or reading.get("crt_hash")
         ring_hashes = ring_hashes or reading.get("ring_hashes")
         tall_hashes = tall_hashes or reading.get("tall_hashes")
+        split_hashes = split_hashes or reading.get("split_hashes")
         ok = (ok and reading["fused_equals_fold"]
               and reading.get("nested_equals_colpass", True)
               and reading.get("gl_hashes") == gl_hashes
               and reading.get("crt_hash") == crt_hash
               and reading.get("ring_hashes") == ring_hashes
               and reading.get("tall_hashes", tall_hashes) == tall_hashes
+              and reading.get("split_hashes") == split_hashes
               and all(reading.get("limit_equal", {}).values())
               and all(reading.get("steps_equal", {}).values()))
         readings[name].append(reading)

@@ -19,9 +19,13 @@ it with ``cuobjdump -sass`` and prints one JSON line per root and library:
     branch back to a lower address) with its instructions and their
     opcodes, innermost first.
 
-Then one summary line: for each library, the kernels whose hash differs
-between roots, and the card's name and power limit. Needs nvcc and
-cuobjdump (``CUDA_HOME``); a card is not used.
+Then one summary line: for each library (``compare``), the kernels that
+every root has whose hash differs between roots ("differ"), the kernels
+only some roots have, by root, whose hash every other root has under
+another name ("renamed": a template parameter added to a kernel renames
+each of its instantiations) or not ("unmatched"); and the card's name and
+power limit. Needs nvcc and cuobjdump (``CUDA_HOME``); a card is not
+used.
 """
 
 from __future__ import annotations
@@ -99,6 +103,21 @@ def loops(insns: list) -> list:
     return sorted(out, key=lambda lp: lp["instructions"])
 
 
+def compare(by_root: dict) -> dict:
+    """The summary of one library from {root: {kernel: hash}}: "differ",
+    "renamed" and "unmatched" (see the top)."""
+    common = set.intersection(*(set(sha) for sha in by_root.values()))
+    differ = sorted(k for k in common
+                    if len({sha[k] for sha in by_root.values()}) > 1)
+    renamed, unmatched = {}, {}
+    for root, sha in by_root.items():
+        others = [set(o.values()) for r, o in by_root.items() if r != root]
+        for k in sorted(set(sha) - common):
+            into = renamed if all(sha[k] in o for o in others) else unmatched
+            into.setdefault(root, []).append(k)
+    return {"differ": differ, "renamed": renamed, "unmatched": unmatched}
+
+
 def _card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -138,10 +157,9 @@ def main(argv=None) -> int:
                 line["loops"] = {k: loops(v) for k, v in kernels.items()
                                  if args.loops in k}
             print(json.dumps(line), flush=True)
-    differ = {lib: sorted({k for sha in by_root.values() for k in sha
-                           if len({s.get(k) for s in by_root.values()}) > 1})
-              for lib, by_root in shas.items()}
-    print(json.dumps({"summary": {"differ": differ, "roots": list(roots)},
+    summary = {lib: compare(by_root) for lib, by_root in shas.items()}
+    print(json.dumps({"summary": {"libraries": summary,
+                                  "roots": list(roots)},
                       "card": _card()}), flush=True)
     return 0
 

@@ -1933,3 +1933,130 @@ def test_gl_route_at_launch_limit_matches_plain(cuda, nn, arm):
             u = got
         want = G.gl_colpass_plain(x, cp)
         assert all(torch.equal(a, b) for a, b in zip(u, want)), name
+
+
+# ---- the DIF split phase A's 'lo' launch: its moved store staged through
+# the tile at one column (32-bit) and one or two (Goldilocks) ---------------
+
+def _by_tall_column(plain, x, cp, launch):
+    """A launch's plain version (colpass.launch_plain or
+    gl_colpass.gl_launch_plain; a launch that keeps the layout) on each
+    tall column of x alone, joined: a column's launch reads no other, and
+    the plain versions' int64 carriers of a 2^27-2^28-value array would
+    take tens of GB at once."""
+    planes = x if isinstance(x, tuple) else (x,)
+    outs = []
+    for c in range(planes[0].shape[-1]):
+        part = tuple(t[..., c:c + 1].contiguous() for t in planes)
+        out = plain(part if isinstance(x, tuple) else part[0], cp, launch)
+        outs.append(out if isinstance(out, tuple) else (out,))
+    joined = tuple(torch.cat(ps, dim=-1) for ps in zip(*outs))
+    return joined if isinstance(x, tuple) else joined[0]
+
+
+@pytest.mark.parametrize("nc", [1, 2, 4])
+@pytest.mark.parametrize("gl", [False, True])
+def test_lo_phase_a_staged_store_matches_plain(cuda, gl, nc):
+    """At a row limit of 64 (16,384-row columns: phase A's 'lo' launches
+    of 16 rows, 8 arrays a batch row, at batch 3), a DIF pass of 1, 2 and 4
+    columns, whose phase A 'lo' launch stages its moved store (32-bit: at
+    one column; Goldilocks: one and two) or stores from its last group:
+    each launch equals its plain version raw, and the four compose to the
+    pass."""
+    nn = 16384
+    if gl:
+        cp = G.make_gl_colpass(T.GOLDILOCKS, nn, direction="dif",
+                               device=cuda)
+        x = M.gl_from_u64(_gl_values(np.random.default_rng(nc),
+                                     (3, nn, nc)), cuda)
+        run, plain = G.gl_colpass_launch, G.gl_launch_plain
+        whole = G.gl_colpass_plain(x, cp)
+    else:
+        cp = C.make_colpass(T.P_2013265921, nn, direction="dif",
+                            canonicalize=True, reduction="montgomery",
+                            device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(nc)
+        x = torch.randint(0, T.P_2013265921.p, (3, nn, nc), dtype=torch.int64,
+                          device=cuda, generator=g).to(torch.int32)
+        run, plain = C.colpass_launch, C.launch_plain
+        whole = C.colpass_plain(x, cp)
+    plan = C.launch_plan(cp, nc, itemsize=8 if gl else 4,
+                         max_rows=SPLIT_LIMIT)
+    assert (plan[1]["group"], plan[1]["tall"]) == ("lo", C.TALL_A)
+    v = x
+    for launch in plan:
+        got = run(v, cp, launch)
+        torch.cuda.synchronize()
+        want = plain(v, cp, launch)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got if gl else (got,), want if gl else (want,))), launch["key"]
+        v = got
+    assert all(torch.equal(a, b) for a, b in zip(
+        v if gl else (v,), whole if gl else (whole,)))
+
+
+@pytest.mark.parametrize("gl,nn,nc", [(False, 1 << 26, 2),
+                                      (True, 1 << 26, 4)])
+def test_lo_phase_a_narrow_matches_plain(cuda, gl, nn, nc):
+    """The DIF pass over 32-bit (2, 2^26) under montgomery and over
+    Goldilocks (4, 2^26) (a GLColPass), B = 1, at the plans' row limits:
+    its four launches, phase A's 'lo' one moving runs of 2 and 4 words
+    (from its last group: the widths where staging read slower), each
+    equal to its plain version raw (tall column by tall column)."""
+    if gl:
+        cp = G.make_gl_colpass(T.GOLDILOCKS, nn, direction="dif",
+                               device=cuda)
+        x = M.gl_from_u64(_gl_values(np.random.default_rng(nn + nc),
+                                     (1, nn, nc)), cuda)
+        run, plain = G.gl_colpass_launch, G.gl_launch_plain
+    else:
+        cp = C.make_colpass(T.P_2013265921, nn, direction="dif",
+                            canonicalize=True, reduction="montgomery",
+                            device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(nn + nc)
+        x = torch.randint(0, T.P_2013265921.p, (1, nn, nc), dtype=torch.int64,
+                          device=cuda, generator=g).to(torch.int32)
+        run, plain = C.colpass_launch, C.launch_plain
+    plan = C.launch_plan(cp, nc, itemsize=8 if gl else 4)
+    assert [(p["group"], p["tall"]) for p in plan[:2]] == [
+        ("hi", C.TALL_B), ("lo", C.TALL_A)]
+    assert plan[1]["tile_cols"] == 32
+    v = x
+    for launch in plan:
+        got = run(v, cp, launch)
+        torch.cuda.synchronize()
+        want = _by_tall_column(plain, v, cp, launch)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got if gl else (got,), want if gl else (want,))), launch["key"]
+        del want
+        v = got
+
+
+def test_fused_lo_phase_a_steps_match_plain(cuda):
+    """The fused step list's DIF phase A 'lo' step at two columns (fused
+    (2, 2^26): side b's phase A split by stage group; the step list runs
+    the column kernel's group code, colpass_tile.cuh run_group_io), under
+    montgomery, B = 1: each step's prefix launched on the card (at the
+    whole list's instantiation) against fused_step_plain's chain, raw.
+    chip_smoke.py phase 41 holds fused (1, 2^27), whose 'lo' step stages
+    its store, step by step."""
+    field, n1, n2 = T.P_2013265921, 2, 1 << 26
+    ff = FF.make_fused_fourstep(
+        field, n1, n2, wmid=np.ascontiguousarray(
+            tw.fourstep_tables(field, n1, n2)["wmat"].T),
+        reduction="montgomery", device=cuda)
+    steps = FF.fused_steps(ff)
+    moved = [st for st in steps if st["side"] == "b"
+             and st["launch"]["tall"] == C.TALL_A]
+    assert len(moved) == 1 and moved[0]["launch"]["group"] == "lo"
+    g = torch.Generator(device=cuda).manual_seed(n1 + n2)
+    x = torch.randint(0, T.P_2013265921.p, (1,) + ff.shape_in,
+                      dtype=torch.int64, device=cuda,
+                      generator=g).to(torch.int32)
+    u = x
+    for k, st in enumerate(steps):
+        u = FF.fused_step_plain(u, ff, k)
+        got = FF._launch(x, ff, FF.step_prefix(ff, k), run=k + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got.reshape(-1), u.reshape(-1)), st["name"]
+    assert FF.kernel_info(ff)["kernel"] == "steps:all"

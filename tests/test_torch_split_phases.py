@@ -377,3 +377,143 @@ def test_hi_phase_a_split_tile(log_nn, ncols):
     assert len(np.unique(words)) == len(words)
     if ncols <= 2:
         assert len(np.unique(words * 4 // 32)) == (1 << log_tl) * 4 // 32
+
+
+def _source_int(name, pattern):
+    """An integer constant of a kernel source (csrc/<name>)."""
+    return int(re.search(pattern, (C.CSRC_DIR / name).read_text()).group(1))
+
+
+def _tile_word(l, c, log_tl, shift, lc):
+    """The shared-memory word of a plain network's row l, tile column c in
+    a 'lo' phase A launch's tile (colpass_tile.cuh word_of at log_a = -1,
+    XOR moved_xor(l, lc, log_tl))."""
+    b = 5 - log_tl
+    row = (l ^ ((l >> shift) & ((1 << b) - 1))) << log_tl
+    return row ^ ((l << lc) & ((1 << log_tl) - 1)) ^ c
+
+
+def _whole_sectors(words, per_sector):
+    """Whether each row of words (one store instruction of a warp, 32
+    lanes) writes distinct words that fill each sector it touches."""
+    w = np.sort(words.reshape(-1, 32), axis=1)
+    sectors = (w // per_sector).reshape(len(w), -1, per_sector)
+    return bool(np.all(np.diff(w, axis=1) > 0)
+                and np.all(sectors == sectors[:, :, :1]))
+
+
+@pytest.mark.parametrize("itemsize,log_nn,ncols", [
+    (4, 27, 1), (4, 26, 2), (4, 26, 4), (4, 26, 8),
+    (8, 27, 1), (8, 27, 2), (8, 26, 4)])
+def test_lo_phase_a_staged_store(itemsize, log_nn, ncols):
+    """A DIF split phase A's 'lo' launch (the one that moves the rows): the
+    last group multiplies each value by the mid vector in the group's
+    mapping, a thread a view column (each value's mid index the tall row
+    launch_plain's mid step multiplies it by; a warp's reads one run of
+    consecutive rows). Where the tall array has fewer than 2^kStagedLogCols
+    columns (colpass_tile.cuh for 32 bits: one; gl_colpass.cu: one or two)
+    it writes the values back to the tile and store_moved writes each
+    element once, at the moved word of launch_plain's mid step (the row
+    r * S + s to s * R + r), each warp's store instruction whole 32-byte
+    sectors of a uint32 plane, each warp's tile accesses 32 banks; wider
+    arrays store from the group, each element once at that word too (a
+    warp's store whole sectors from 8 columns; at 2 and 4 runs of 8 and 16
+    bytes, which readings kept). Index arithmetic of the kernels, for
+    arrays p = 0 and P - 1 of batch row 0, every block."""
+    src = "colpass.cu" if itemsize == 4 else "gl_colpass.cu"
+    kfuse = _source_int(src, r"constexpr int kFuse = (\d+);")
+    staged_log = _source_int("colpass_tile.cuh" if itemsize == 4 else src,
+                             r"constexpr int kStagedLogCols = (\d+);")
+    threads = _source_int(src, r"constexpr int kThreads = (\d+);")
+    if itemsize == 4:
+        cp = C.make_colpass(T.P_469762049, 16384, direction="dif",
+                            device="cpu")
+    else:
+        cp = G.make_gl_colpass(T.GOLDILOCKS, 16384, direction="dif",
+                               device="cpu")
+    plan = C.launch_plan(_fake_tall(cp, 1 << log_nn), ncols,
+                         itemsize=itemsize)
+    (launch,) = [p for p in plan if p["tall"] == C.TALL_A]
+    assert launch["group"] == "lo" and launch["log_hq"] == 0
+    rows, vc, P = launch["rows"], launch["ncols"], launch["batch_mult"]
+    log_tl, shift, log_nc = _log(launch["tile_cols"]), launch["shift"], \
+        _log(ncols)
+    assert log_tl == 5
+    log_q, inner = _log(rows), launch["inner"]
+    R, S = rows * P, inner  # the tall network's (R, S): phase A's rows
+    staged = log_nc < staged_log
+    assert staged == (ncols < (2 if itemsize == 4 else 4))
+    lc = log_nc if staged else log_tl
+
+    def word(l, c):
+        return _tile_word(l, c, log_tl, shift, lc)
+
+    # the last group: K stages ending at half size t
+    ts = launch["ts"]
+    K = len(ts) - kfuse * ((len(ts) - 1) // kfuse)
+    t = ts[-1]
+    log_t = _log(t)
+    i = np.arange((rows >> K) << log_tl)
+    c, g = i & 31, i >> log_tl
+    base = ((g >> log_t) << (log_t + K)) | (g & (t - 1))
+    m = np.arange(1 << K)
+    l = base[:, None] + (m[None, :] << log_t)  # (thread, m)
+    c = np.broadcast_to(c[:, None], l.shape)
+    w_group = word(l, c)
+    # a group's words from one base word and K XOR offsets
+    assert np.array_equal(
+        w_group, word(base, c[:, 0])[:, None] ^ word(m << log_t, 0)[None, :])
+    assert np.array_equal(np.sort(w_group.ravel()), np.arange(rows << log_tl))
+    warps = w_group.reshape(-1, 32, 1 << K)
+    assert all(len(np.unique(warps[k, :, j] % 32)) == 32
+               for k in range(len(warps)) for j in range(1 << K))
+    # the store's mapping: thread e (in turns of `threads`), run e >>
+    # (log_q + lc) and place e mod 2^(log_q + lc) in it
+    e = np.arange(rows << log_tl)
+    run, place = e >> (log_q + lc), e & ((1 << (log_q + lc)) - 1)
+    le, ce = place >> lc, (run << lc) | (place & ((1 << lc) - 1))
+    w_store = word(le, ce)
+    tile = np.empty(rows << log_tl, np.int64)  # element (l, c) as l * 32 + c
+    tile[w_group.ravel()] = (l * 32 + c).ravel()
+    assert np.array_equal(tile[w_store], le * 32 + ce)
+    if staged:
+        assert all(len(np.unique(w % 32)) == 32
+                   for w in w_store.reshape(-1, 32))
+    per_sector = 32 // 4  # uint32 words a sector of one plane
+    for p in (0, P - 1):
+        col0 = np.arange(vc >> log_tl)[:, None, None] << log_tl
+        # launch_plain's mid step: element (p, l, col) is the tall row
+        # r = F // ncols of F = (p * rows + l) * vc + col; the row
+        # r = rr * S + s moves to s * R + rr
+        F = lambda l, col: (p * rows + l) * vc + col  # noqa: E731
+        col_g = col0 + c[None]
+        r = F(l[None], col_g) // ncols
+        iq = col_g >> log_nc
+        lp = p * rows + l[None]
+        assert np.array_equal((lp << (_log(inner))) | iq, r)  # tall_row
+        mids = np.sort(r.reshape(len(col0), -1, 32, 1 << K), axis=2)
+        span = 32 >> log_nc  # the distinct rows of a warp's 32 columns
+        assert np.all(mids[:, :, -1] - mids[:, :, 0] == span - 1)
+        assert np.all((np.diff(mids, axis=2) != 0).sum(axis=2) == span - 1)
+
+        def moved(l, col):
+            f = F(l, col)
+            rr, s = (f // ncols) // S, (f // ncols) % S
+            return (s * R + rr) * ncols + f % ncols
+
+        if staged:
+            words = moved(le[None], col0[:, :, 0] + ce[None])
+            # the kernel's word: its tile's first run's row 0, then
+            # run * 2^log_stride + place (store_moved's caller)
+            log_stride = _log(R) + lc
+            first = (((col0[:, :, 0] >> lc) << _log(R)) | (p * rows)) << lc
+            assert np.array_equal(
+                words, first + (run[None] << log_stride) + place[None])
+            lanes = words.reshape(len(col0), -1, threads)
+        else:  # each m of the group: a warp's lanes are 32 columns
+            words = moved(l[None], col_g)
+            lanes = np.moveaxis(words, 2, 1).reshape(len(col0), -1,
+                                                     i.size)
+        every = moved(np.arange(rows)[:, None], np.arange(vc)[None, :])
+        assert np.array_equal(np.sort(words.ravel()), np.sort(every.ravel()))
+        assert _whole_sectors(lanes, per_sector) == (staged or ncols >= 8)
