@@ -40,7 +40,7 @@ Phases, one JSON object per line:
                  as its own line), torch and CUDA versions;
   2. build     — compiles every csrc/*.cu (colpass, gl_colpass,
                  fused_fourstep, nested_colpass, bfly_probe, crt,
-                 ring_layers; colpass and
+                 ring_layers, pointwise; colpass and
                  fused_fourstep once for each of harvey4, harvey,
                  montgomery and barrett) with nvcc into build/, one
                  process each, all started at once, while phases 3-4 run
@@ -57,7 +57,8 @@ Phases, one JSON object per line:
                  native C++ oracle on row 0 plus 8 random rows (the NumPy
                  oracle if the library cannot build); inv_mat(fwd_mat(x)) ==
                  x on the whole batch; polymul_mat against the NumPy cyclic
-                 product; kernel launch counts 2 / 2 / 6;
+                 product; kernel launch counts 2 / 2 / 6 column passes
+                 and 0 / 0 / 1 pointwise products;
   5. time      — us/NTT of fwd_mat through the kernel and through the plain
                  version, and us/pass of cp1 and cp2, on CUDA events; the
                  column kernel's kernel_info for cp1 and cp2 (register
@@ -93,7 +94,8 @@ Phases, one JSON object per line:
                  native cyclic product; negacyclic_polymul_mat (B = 2)
                  against the native negacyclic product and a direct O(n)
                  sum at 8 random coefficients; fused launches 1 / 1 / 1 /
-                 3 / 3 and no column-pass launch;
+                 3 / 3, 32-bit pointwise products 0 / 0 / 0 / 1 / 1 and
+                 no column-pass launch;
  11. fused_time — us/NTT of the fused fwd_mat and inv_mat at B = 1 and
                  256, beside the fold plan's (timed in turns: fold, fused,
                  fused, fold) and the plain fused version's at B = 1 and
@@ -142,7 +144,8 @@ Phases, one JSON object per line:
                  both rows, the fused negacyclic_polymul_mat (B = 2;
                  barrett at n = 128) against the native negacyclic
                  product; launch counts 2 / 2 / 6 column passes (fold)
-                 and 1 / 1 / 3 / 3 fused launches;
+                 and 1 / 1 / 3 / 3 fused launches, and one 32-bit
+                 pointwise product a polymul_mat on each;
  19. red_time  — per reduction, us/NTT of fwd_mat, inv_mat and
                  polymul_mat of both plans, cp1 and cp2 us/pass/NTT, the
                  plain versions' at a batch of 4 (n = 2^20) or the full
@@ -165,6 +168,7 @@ Phases, one JSON object per line:
                  call: fold 2 / 2 / 6 / 0 column passes and 0 / 0 / 0 /
                  3 fused launches (the negacyclic product is the fused
                  plan's on both), fused 0 / 0 / 0 / 0 and 1 / 1 / 3 / 3,
+                 and 0 / 0 / 1 / 1 32-bit pointwise products on both;
                  Goldilocks 2 / 2 / 6 / 6 and 0 / 0 / 1 / 4 pointwise
                  products; then us/NTT of each callable, of the gather
                  alone, of the internal four-step alone and of the plain
@@ -174,7 +178,8 @@ Phases, one JSON object per line:
                  negacyclic_polymul batched against the native oracle on
                  row 0 plus 8 random rows, the roundtrip, the flat
                  callables on row 0, no column pass or fused launch
-                 (Goldilocks: 0 / 0 / 1 / 4 gl_mul);
+                 (products: 0 / 0 / 1 / 4 of the 32-bit kernel, or of
+                 gl_mul for Goldilocks);
  21. flat_route_a — route (a) of the flat forward (one column pass over
                  (1, n, B), the batch as columns, after a torch
                  transpose and before the colperm -> bit-reversal
@@ -211,11 +216,11 @@ Phases, one JSON object per line:
                  negacyclic_polymul_mat gated against the native oracle
                  on row 0 plus 8 random rows, equal to the wmat_fold=False
                  plan's, launches 6 column passes (2 ncp1, 2 cp2, icp2,
-                 nicp1) and 0 fused; at n = 2^20 over p = 469762049 equal
-                 to the fused plan's, and us/NTT of it beside the cyclic
-                 polymul_mat and the fused negacyclic product, ncp1 and
-                 nicp1 alone beside cp1 and icp1, their plain versions at
-                 B = 4, kernel_info;
+                 nicp1), 0 fused and 1 pointwise product; at n = 2^20
+                 over p = 469762049 equal to the fused plan's, and us/NTT
+                 of it beside the cyclic polymul_mat and the fused
+                 negacyclic product, ncp1 and nicp1 alone beside cp1 and
+                 icp1, their plain versions at B = 4, kernel_info;
  25. wmat_entry, wmat_entry_time — the wmat_fold=False plan at n = 2^20,
                  B = 256 over p = 469762049 equal to the fold plan on
                  every callable (fwd_mat, inv_mat, polymul_mat,
@@ -231,7 +236,8 @@ Phases, one JSON object per line:
                  limbs (csrc/crt.cu) against the host's object-math CRT of
                  the same residues on those rows and against the plain
                  combine on every coefficient, launches (18 column passes
-                 or 9 fused launches, and 1 combine); RNSPolymul(10)
+                 or 9 fused launches, 3 pointwise products and 1
+                 combine); RNSPolymul(10)
                  against the schoolbook integer product; the host-to-limbs
                  time of polymul_limbs, its device part and the combine
                  alone beside its byte bound.
@@ -427,7 +433,19 @@ plan's. It adds a
 colpass[split:<case>:<pass><launch>] row (PERF.md 1s, 1t),
 gl_colpass[...] row (3s, 3t, 3q: a short launch) or
 fused_fourstep[split:<case>:<ff|fi|nf|ni>] row (2t) for each, a column
-launch's rows, tile columns, registers and blocks an SM beside it. Last, the result line
+launch's rows, tile columns, registers and blocks an SM beside it. Phase 42
+(pointwise) holds the 32-bit pointwise product (csrc/pointwise.cu,
+ops.pointwise.mul32: every 32-bit ring product's step between the
+transforms) against its plain version raw for every 32-bit prime of the
+port and 2^31 - 1: random uint32 values and the edges, an odd size (one
+value a thread), (4, 2^20) (16-byte vectors), b broadcast over a batch
+(a power-of-two and another row length) and an unaligned view; then times
+it at n = 2^20, B = 256 over the primes of harvey4, harvey and
+montgomery and at n = 256, B = 16,384 over Kyber's, the plain version
+beside it and its byte bound (12 bytes a value). Its pointwise32 row's
+launches are the main paths' (the products of phases 4, 10, 18 and 26;
+phase 20's in "flat_launches"), its time and bound those of harvey4's
+prime at B = 256. Last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it prints no result and exits 2.
 """
@@ -600,6 +618,15 @@ PQC_REPLACES = {
                           "kernel)"}
     for name, lines in (("kyber", (84, 68, 101)),
                         ("dilithium", (70, 61, 87)))}
+# Phase 42, the 32-bit pointwise product: the moduli it is held at (every
+# 32-bit field of the port, and 2^31 - 1, the largest montgomery takes),
+# and its timed cases, (field name, n, batch): the main path's n = 2^20 at
+# B = 256 under harvey4, harvey and montgomery, and Kyber's n = 256 at
+# B = 16,384 (barrett's phase 18 batch)
+PW_MODULI = ("kyber", "dilithium", "p469762049", "p998244353",
+             "p2013265921", (1 << 31) - 1)
+PW_TIMED = (("p469762049", 1 << 20, 256), ("p998244353", 1 << 20, 256),
+            ("p2013265921", 1 << 20, 256), ("kyber", 256, 16384))
 # Reference parity (phase 30): (field name, log_n, ordering): the paper's
 # configuration (Kyber, n = 2048, the device's 16-block layout) and
 # harvey4 at n = 2^20
@@ -636,6 +663,7 @@ def main() -> int:
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
     from ntt_aie_tpu_torch.ops import gl_colpass as G
     from ntt_aie_tpu_torch.ops import nested_colpass as N
+    from ntt_aie_tpu_torch.ops import pointwise as PW
     from ntt_aie_tpu_torch.plan import fold_passes
     from ntt_aie_tpu_torch.profiling import roofline as RL
     from ntt_aie_tpu_torch.utils.timing import time_device
@@ -704,10 +732,12 @@ def main() -> int:
     x = torch.randint(0, p, (B, n1, n2), dtype=torch.int32, device=dev,
                       generator=gen)
     launches = {}
-    C.colpass.launches = 0
+    pw_launches = {}
+    C.colpass.launches = PW.mul32.launches = 0
     y = bat["fwd_mat"](x)
     torch.cuda.synchronize()
     launches["fwd_mat"] = C.colpass.launches
+    pw_launches["fwd_mat"] = PW.mul32.launches
 
     gate_rows = np.concatenate(
         [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
@@ -725,29 +755,34 @@ def main() -> int:
         got[:, plan.spectral_to_natural].astype(np.uint64),
         want.astype(np.uint64))
 
-    C.colpass.launches = 0
+    C.colpass.launches = PW.mul32.launches = 0
     back = bat["inv_mat"](y)
     torch.cuda.synchronize()
     launches["inv_mat"] = C.colpass.launches
+    pw_launches["inv_mat"] = PW.mul32.launches
     roundtrip_ok = bool(torch.equal(back, x))
     del back, y
 
     bat2 = plan.make_batched(2)
     a, b = x[:2], x[2:4]
-    C.colpass.launches = 0
+    C.colpass.launches = PW.mul32.launches = 0
     c = bat2["polymul_mat"](a, b)
     torch.cuda.synchronize()
     launches["polymul_mat"] = C.colpass.launches
+    pw_launches["polymul_mat"] = PW.mul32.launches
     want_c = reference.cyclic_polymul(a[0].reshape(n).cpu().numpy(),
                                       b[0].reshape(n).cpu().numpy(), field)
     poly_ok = np.array_equal(c[0].reshape(n).cpu().numpy().astype(np.int64),
                              want_c)
-    counts_ok = launches == {"fwd_mat": 2, "inv_mat": 2, "polymul_mat": 6}
+    counts_ok = (launches == {"fwd_mat": 2, "inv_mat": 2, "polymul_mat": 6}
+                 and pw_launches == {"fwd_mat": 0, "inv_mat": 0,
+                                     "polymul_mat": 1})
     emit({"phase": "slice", "n": n, "split": [n1, n2], "batch": B,
           "reduction": plan.reduction, "oracle": oracle,
           "gate_rows": gate_rows.tolist(), "gate_ok": bool(gate_ok),
           "roundtrip_ok": roundtrip_ok, "polymul_ok": bool(poly_ok),
-          "launches": launches, "launches_ok": counts_ok,
+          "launches": launches, "pointwise32_launches": pw_launches,
+          "launches_ok": counts_ok,
           "ok": gate_ok and roundtrip_ok and poly_ok and counts_ok})
     if not (gate_ok and roundtrip_ok and poly_ok and counts_ok):
         return fail("slice", "the main path disagrees with its oracles")
@@ -759,6 +794,7 @@ def main() -> int:
     F._library()
     N._library()
     RL._library()
+    PW._library()
     from ntt_aie_tpu_torch import dilithium, kyber
     from ntt_aie_tpu_torch.ops import ring_layers as LR
 
@@ -896,6 +932,17 @@ def main() -> int:
     split_rows = split_phase(dev, card, gen)
     if split_rows is None:
         return 1
+    torch.cuda.empty_cache()
+    pw_row = pointwise_phase(dev, card, gen)
+    if pw_row is None:
+        return 1
+    # the product's launches on the main paths: the slice's, the fused
+    # slice's, the reductions' slices and the RNS products'
+    pw_row["launches"] = (sum(pw_launches.values())
+                          + fused_row.pop("pointwise32_launches")
+                          + sum(r.pop("pointwise32_launches", 0)
+                                for r in red_rows)
+                          + crt_row["pointwise32_launches"])
     # the probe's time is one launch of phase 15's harvey4 r = 64 reading
     nested_rows[1].update(
         ms=roof["probe"]["harvey4"]["us_per_pass"] / 1e3,
@@ -933,6 +980,7 @@ def main() -> int:
     rows += dist_rows
     rows += tall_rows
     rows += split_rows
+    rows.append(pw_row)
     # the launches of the entry points of phases 34-38, by kernel
     for row in rows:
         if row["name"] in entry_point_launches:
@@ -1308,6 +1356,7 @@ def fused_phases(args, dev, card, rng):
     from ntt_aie_tpu_torch import twiddles as tw
     from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import pointwise as PW
     from ntt_aie_tpu_torch.plan import fused_passes
     from ntt_aie_tpu_torch.utils.timing import time_device
 
@@ -1380,9 +1429,11 @@ def fused_phases(args, dev, card, rng):
 
     def drive(key, fn, *operands):
         C.colpass.launches = F.fused_fourstep.launches = 0
+        PW.mul32.launches = 0
         out = fn(*operands)
         torch.cuda.synchronize()
-        launches[key] = [F.fused_fourstep.launches, C.colpass.launches]
+        launches[key] = [F.fused_fourstep.launches, C.colpass.launches,
+                         PW.mul32.launches]
         return out
 
     y1 = drive("fwd_mat", plan.fwd_mat, x[0])
@@ -1430,9 +1481,9 @@ def fused_phases(args, dev, card, rng):
     direct = [int((ai[:k + 1] * bi[k::-1] % p).sum()
                   - (ai[k + 1:] * bi[:k:-1] % p).sum()) % p for k in coeffs]
     direct_ok = direct == [int(d0[k]) for k in coeffs]
-    counts_ok = launches == {"fwd_mat": [1, 0], "fwd_mat_b256": [1, 0],
-                             "inv_mat": [1, 0], "polymul_mat": [3, 0],
-                             "negacyclic_polymul_mat": [3, 0]}
+    counts_ok = launches == {"fwd_mat": [1, 0, 0], "fwd_mat_b256": [1, 0, 0],
+                             "inv_mat": [1, 0, 0], "polymul_mat": [3, 0, 1],
+                             "negacyclic_polymul_mat": [3, 0, 1]}
     ok = bool(fold_ok and roundtrip_ok and gate_ok and poly_ok and nega_ok
               and direct_ok and counts_ok)
     emit({"phase": "fused_slice", "n": n, "split": [n1, n2], "batch": B,
@@ -1497,7 +1548,8 @@ def fused_phases(args, dev, card, rng):
             # x and out at B = 256 and the (w, packed) wmid; the scratch
             # between the phases is the kernel's own traffic
             "bytes": 2 * B * n * 4 + 2 * n * 4,
-            "butterflies": B * n // 2 * 20, "arithmetic": "harvey4"}
+            "butterflies": B * n // 2 * 20, "arithmetic": "harvey4",
+            "pointwise32_launches": sum(v[2] for v in launches.values())}
 
 
 def nested_phases(args, dev, card):
@@ -1789,6 +1841,7 @@ def red_slice_phase(kind, field, log_n, rows_log2, B, dev, gen, rng):
     from ntt_aie_tpu_torch import twiddles as tw
     from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import pointwise as PW
 
     p = field.p
     cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2,
@@ -1807,9 +1860,11 @@ def red_slice_phase(kind, field, log_n, rows_log2, B, dev, gen, rng):
 
     def drive(key, fn, *operands):
         C.colpass.launches = F.fused_fourstep.launches = 0
+        PW.mul32.launches = 0
         out = fn(*operands)
         torch.cuda.synchronize()
-        launches[key] = [C.colpass.launches, F.fused_fourstep.launches]
+        launches[key] = [C.colpass.launches, F.fused_fourstep.launches,
+                         PW.mul32.launches]
         return out
 
     fb, ub = fold.make_batched(B), fused.make_batched(B)
@@ -1863,10 +1918,10 @@ def red_slice_phase(kind, field, log_n, rows_log2, B, dev, gen, rng):
             nb[r].reshape(nn_).cpu().numpy(), psi, p).astype(np.uint64))
         for r in range(2))
     counts_ok = launches == {
-        "fold_fwd_mat": [2, 0], "fused_fwd_mat": [0, 1],
-        "fold_inv_mat": [2, 0], "fused_inv_mat": [0, 1],
-        "fold_polymul_mat": [6, 0], "fused_polymul_mat": [0, 3],
-        "fused_negacyclic_polymul_mat": [0, 3]}
+        "fold_fwd_mat": [2, 0, 0], "fused_fwd_mat": [0, 1, 0],
+        "fold_inv_mat": [2, 0, 0], "fused_inv_mat": [0, 1, 0],
+        "fold_polymul_mat": [6, 0, 1], "fused_polymul_mat": [0, 3, 1],
+        "fused_negacyclic_polymul_mat": [0, 3, 1]}
     ok = bool(gate_ok and fused_ok and roundtrip_ok and poly_ok and nega_ok
               and counts_ok)
     emit({"phase": "red_slice", "reduction": kind, "p": p, "n": n,
@@ -1974,7 +2029,8 @@ def reduction_phases(args, dev, card, rng):
              "bytes": (4 * B * n * 4 + 2 * n * 4) / 2,
              "butterflies": B * n // 2 * log_nn, "arithmetic": kind,
              "p": field.p, "registers": info["cp1"]["registers"],
-             "blocks_per_sm": info["cp1"]["blocks_per_sm"]},
+             "blocks_per_sm": info["cp1"]["blocks_per_sm"],
+             "pointwise32_launches": sum(v[2] for v in launches.values())},
             {"name": f"fused_fourstep[{kind}]", "route": "cuda",
              "source": "ntt_aie_tpu_torch/csrc/fused_fourstep.cu",
              "replaces": "ntt_aie_tpu/ops/pallas_ntt.py:693",
@@ -2056,6 +2112,7 @@ def flat_phase(spec, dev, card, gen, rng):
     from ntt_aie_tpu_torch import twiddles as tw
     from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import pointwise as PW
     from ntt_aie_tpu_torch.ops import gl_colpass as G
     from ntt_aie_tpu_torch.ops import modops as M
     from ntt_aie_tpu_torch.ops import stages as S
@@ -2096,7 +2153,8 @@ def flat_phase(spec, dev, card, gen, rng):
     nn_ = 1 << (nega_log_n or log_n)
     xa, xb = (x, x2) if nn_ == n else (batch(B, nn_), batch(B, nn_))
     counters = (G.gl_colpass, G.gl_mul) if gl else (C.colpass,
-                                                    F.fused_fourstep)
+                                                    F.fused_fourstep,
+                                                    PW.mul32)
     launches = {}
 
     def drive(key, fn, *operands):
@@ -2156,12 +2214,14 @@ def flat_phase(spec, dev, card, gen, rng):
         rows = {"gl_colpass": 0, "gl_mul": 1}
     else:
         # the negacyclic product is the fused plan's on both plans
-        expect = {"fwd": [2, 0], "inv": [2, 0], "polymul": [6, 0],
-                  "negacyclic_polymul": [0, 3]}
-        expect.update({f"fused_{k}": [0, 3 if "polymul" in k else 1]
+        expect = {"fwd": [2, 0, 0], "inv": [2, 0, 0], "polymul": [6, 0, 1],
+                  "negacyclic_polymul": [0, 3, 1]}
+        expect.update({f"fused_{k}": ([0, 3, 1] if "polymul" in k
+                                      else [0, 1, 0])
                        for k in list(expect)})
         suffix = "" if kind == "harvey4" else f"[{kind}]"
-        rows = {f"colpass{suffix}": 0, f"fused_fourstep{suffix}": 1}
+        rows = {f"colpass{suffix}": 0, f"fused_fourstep{suffix}": 1,
+                "pointwise32": 2}
     expect = {(k if k.startswith("fused_") else f"fold_{k}"): v
               for k, v in expect.items()}
     checks["launches"] = all(expect[k] == v for k, v in launches.items())
@@ -2563,6 +2623,7 @@ def nega_fold_phase(args, dev, card, rng):
     import ntt_aie_tpu_torch as T
     from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import pointwise as PW
     from ntt_aie_tpu_torch.utils.timing import time_device
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
@@ -2578,9 +2639,11 @@ def nega_fold_phase(args, dev, card, rng):
                               device=dev, generator=gen) for _ in range(2))
         C.colpass.launches = F.fused_fourstep.launches = 0
         C.colpass.launches_by = {}
+        PW.mul32.launches = 0
         d = bat["negacyclic_polymul_mat"](a, b)
         torch.cuda.synchronize()
-        launches = [C.colpass.launches, F.fused_fourstep.launches]
+        launches = [C.colpass.launches, F.fused_fourstep.launches,
+                    PW.mul32.launches]
         by = dict(C.colpass.launches_by)
         gate_rows = np.concatenate(
             [[0], rng.choice(np.arange(1, B), size=8, replace=False)])
@@ -2589,7 +2652,7 @@ def nega_fold_phase(args, dev, card, rng):
         entry_ok = bool(torch.equal(
             entry.make_batched(B)["negacyclic_polymul_mat"](a, b), d))
         del d
-        counts_ok = launches == [6, 0] and by == {
+        counts_ok = launches == [6, 0, 1] and by == {
             "dif+pre+post_t+T": 2, "dif": 2, "dit+post_t+T": 1,
             "dit+post": 1}
         ok = bool(gate_ok and entry_ok and counts_ok)
@@ -2602,7 +2665,7 @@ def nega_fold_phase(args, dev, card, rng):
         if not ok:
             fail("nega_fold", f"the fold plan's negacyclic product over "
                  f"{name} disagrees with the native oracle or the entry "
-                 "arm, or did not launch 6 column passes")
+                 "arm, or did not launch 6 column passes and 1 product")
             return None
         if main_launches is None:
             main_launches = by
@@ -3005,6 +3068,7 @@ def rns_phase(args, dev, card, rng):
     from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import crt
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
+    from ntt_aie_tpu_torch.ops import pointwise as PW
     from ntt_aie_tpu_torch.utils.timing import time_device
 
     row = None
@@ -3015,13 +3079,14 @@ def rns_phase(args, dev, card, rng):
         a, b = (rng.integers(-bound, bound + 1, (B, n)) for _ in range(2))
         ra, rb = rns._residues(a), rns._residues(b)
         C.colpass.launches = F.fused_fourstep.launches = 0
-        crt.crt_combine.launches = 0
+        crt.crt_combine.launches = PW.mul32.launches = 0
         pending, mat = rns._residue_products(a, b)
         limbs = rns._combine(*pending)
         torch.cuda.synchronize()
         launches = {"colpass": C.colpass.launches,
                     "fused_fourstep": F.fused_fourstep.launches,
-                    "crt": crt.crt_combine.launches}
+                    "crt": crt.crt_combine.launches,
+                    "pointwise32": PW.mul32.launches}
         rows = np.concatenate(
             [[0], rng.choice(np.arange(1, B), size=2, replace=False)])
         idx = torch.from_numpy(rows).to(dev)
@@ -3050,11 +3115,13 @@ def rns_phase(args, dev, card, rng):
         max_err = max(max_err, err)
         del plain
         nf = len(rns.fields)
-        want_launches = ({"colpass": 6 * nf, "fused_fourstep": 0, "crt": 1}
+        # one product a prime
+        want_launches = ({"colpass": 6 * nf, "fused_fourstep": 0, "crt": 1,
+                          "pointwise32": nf}
                          if mat else
                          {"colpass": 0 if negacyclic else 6 * nf,
                           "fused_fourstep": 3 * nf if negacyclic else 0,
-                          "crt": 1})
+                          "crt": 1, "pointwise32": nf})
         counts_ok = launches == want_launches
         ok = bool(res_ok and crt_ok and err == 0 and counts_ok)
         emit({"phase": "rns", "log_n": log_n, "negacyclic": negacyclic,
@@ -3116,6 +3183,7 @@ def rns_phase(args, dev, card, rng):
         emit(line)
         if row is None:
             row = {"launches": launches["crt"], "ms": comb_us / 1e3,
+                   "pointwise32_launches": launches["pointwise32"],
                    "plain_ms": plain_us / 1e3, "bytes": nbytes,
                    "count": count, "k": nf, "nwords": rns.nwords,
                    "batch": B, "log_n": log_n}
@@ -3529,7 +3597,8 @@ def flat_n2_phase(dev, gen, rng):
     fwd, inv (the roundtrip), polymul and negacyclic_polymul through
     make_batched against the native oracle on row 0 plus 8 random rows,
     and the flat callables on row 0; launches (no column pass or fused
-    transform; Goldilocks' products gl_mul). Returns {kernel row:
+    transform; the products the 32-bit pointwise kernel's, or gl_mul's
+    for Goldilocks). Returns {kernel row:
     launches}, or None after emitting the failure."""
     import numpy as np
     import torch
@@ -3540,6 +3609,7 @@ def flat_n2_phase(dev, gen, rng):
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
     from ntt_aie_tpu_torch.ops import gl_colpass as G
     from ntt_aie_tpu_torch.ops import modops as M
+    from ntt_aie_tpu_torch.ops import pointwise as PW
 
     launches = {}
     B = FLAT_N2_BATCH
@@ -3558,7 +3628,8 @@ def flat_n2_phase(dev, gen, rng):
             x, y = (torch.randint(0, p, (B, 2), dtype=torch.int32,
                                   device=dev, generator=gen)
                     for _ in range(2))
-        counters = (C.colpass, F.fused_fourstep, G.gl_colpass, G.gl_mul)
+        counters = (C.colpass, F.fused_fourstep, G.gl_colpass, G.gl_mul,
+                    PW.mul32)
         by = {}
 
         def drive(call, fn, *operands):
@@ -3598,8 +3669,11 @@ def flat_n2_phase(dev, gen, rng):
                          native_oracle.negacyclic_polymul(xin[0], yin[0],
                                                           psi, p))),
         }
-        gl_mul = {"fwd": 0, "inv": 0, "polymul": 1, "negacyclic_polymul": 4}
-        want = {k: [0, 0, 0, v if gl else 0] for k, v in gl_mul.items()}
+        # the products: gl_mul for Goldilocks, the 32-bit kernel otherwise
+        products = {"fwd": 0, "inv": 0, "polymul": 1,
+                    "negacyclic_polymul": 4}
+        want = {k: [0, 0, 0, v if gl else 0, 0 if gl else v]
+                for k, v in products.items()}
         checks["launches"] = by == want
         checks = {k: bool(v) for k, v in checks.items()}
         ok = all(checks.values())
@@ -3611,9 +3685,9 @@ def flat_n2_phase(dev, gen, rng):
             fail("flat", f"n = 2 over {name}: the flat plan disagrees with "
                  "the native oracle or launched a kernel it should not")
             return None
-        if gl:
-            launches["gl_mul"] = launches.get("gl_mul", 0) + sum(
-                v[3] for v in by.values())
+        row, col = ("gl_mul", 3) if gl else ("pointwise32", 4)
+        launches[row] = launches.get(row, 0) + sum(v[col]
+                                                   for v in by.values())
     return launches
 
 
@@ -4538,9 +4612,12 @@ EXAMPLE_RUNS = (("rlwe", {"log_n": 10}), ("rlwe", {"log_n": 16}),
                 ("distributed", {}),
                 ("distributed", {"world": 4, "backend": "gloo"}))
 # the kernels each example must launch (its kernels-line rows)
-EXAMPLE_KERNELS = {"rlwe": ("fused_fourstep",), "bigint": ("colpass", "crt"),
-                   "matform": ("colpass",), "pqc": ("ring_layers",),
-                   "distributed": ("colpass", "fused_fourstep", "crt")}
+EXAMPLE_KERNELS = {"rlwe": ("fused_fourstep", "pointwise32"),
+                   "bigint": ("colpass", "crt", "pointwise32"),
+                   "matform": ("colpass", "pointwise32"),
+                   "pqc": ("ring_layers",),
+                   "distributed": ("colpass", "fused_fourstep", "crt",
+                                   "pointwise32")}
 # the pqc example's ring-kernel launches a run, by instantiation: each
 # scheme's serving_step with a batch of matrices one fused launch, ML-KEM's
 # fixed-A step the key's transform and one fused launch
@@ -5524,6 +5601,105 @@ def split_phase(dev, card, gen):
     emit({"phase": "splits_done", "ok": True, "rows": len(rows),
           "seconds": time.perf_counter() - t_phase})
     return rows
+
+
+def pointwise_phase(dev, card, gen):
+    """Phase 42: the 32-bit pointwise product against its plain version
+    for each of PW_MODULI (raw, every form the kernel takes), then timed
+    at PW_TIMED beside the plain version and its byte bound. Returns its
+    kernels-line row (launches filled in by main), or None after emitting
+    the failure."""
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch.ops import pointwise as PW
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    def values(shape, p):
+        """Random uint32 bits as int32, the first values the edges."""
+        v = torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int64,
+                          device=dev, generator=gen)
+        edges = [e for e in (0, 1, p - 1, p, 2 * p, 4 * p - 1,
+                             (1 << 31) - 1, 1 << 31, (1 << 32) - 1)
+                 if e < 1 << 32]
+        flat = v.view(-1)
+        flat[:len(edges)] = torch.tensor(
+            [e - (1 << 32) if e >= 1 << 31 else e for e in edges],
+            dtype=torch.int64, device=dev)
+        return v.to(torch.int32)
+
+    max_err = 0
+    forms = (((1 << 20) + 3,), None), ((4, 1 << 20), None), \
+        ((4, 1 << 20), (1 << 20,)), ((6, 3 * 1024), (3 * 1024,)), \
+        ((4097,), "unaligned")
+    for modulus in PW_MODULI:
+        p = modulus if isinstance(modulus, int) else T.FIELDS[modulus].p
+        errs = {}
+        for shape_a, form in forms:
+            a = values(shape_a, p)
+            if form == "unaligned":
+                b = values(shape_a, p)
+                a, b = a[1:], b[1:]
+            else:
+                b = values(form or shape_a, p)
+            got = PW.mul32(a, b, p)
+            torch.cuda.synchronize()
+            want = PW.mul32_plain(a, b, p)
+            err = int((got.long() - want.long()).abs().max())
+            key = "x".join(map(str, shape_a)) + (
+                f"*{form}" if isinstance(form, str) else
+                f"*{'x'.join(map(str, form))}" if form else "")
+            errs[key] = {"max_abs_err": err,
+                         "vectorized": PW.vectorized(a, b, got)}
+            max_err = max(max_err, err)
+            if err or not torch.equal(got, want):
+                emit({"phase": "pointwise", "p": p, "errors": errs})
+                fail("pointwise", f"mul32 over p = {p} at {key} differs "
+                     "from its plain version")
+                return None
+        emit({"phase": "pointwise", "p": p, "forms": errs,
+              "max_abs_err": 0})
+
+    times = {}
+    for name, n, B in PW_TIMED:
+        p = T.FIELDS[name].p
+        a, b = (torch.randint(0, p, (B, n), dtype=torch.int32, device=dev,
+                              generator=gen) for _ in range(2))
+        k_us = time_device(lambda v: PW.mul32(v, b, p), a)["us_per_iter"]
+        k_bc = time_device(lambda v: PW.mul32(v, b[0], p),
+                           a)["us_per_iter"]
+        p_us, pb = _plain_batch_time(
+            lambda v: (PW.mul32_plain(v[0], v[1], p), v[1]), (a, b), B)
+        nbytes = 12 * B * n
+        bound_us = nbytes / (SPEC_HBM_GBPS * 1e3)
+        times[name] = {
+            "p": p, "n": n, "batch": B, "kernel_us_per_call": k_us,
+            "kernel_us_per_ntt": k_us / B,
+            "kernel_broadcast_us_per_call": k_bc,
+            "plain_us_per_call": p_us * B / pb, "plain_batch": pb,
+            "plain_us_per_ntt": p_us / pb, "bytes": nbytes,
+            "byte_bound_us_per_ntt": bound_us / B,
+            "time_over_bound": k_us / bound_us}
+        del a, b
+        torch.cuda.empty_cache()
+    emit({"phase": "pointwise", "card": card, "times": times,
+          "method": "CUDA events; kernel: 5 repeats of a dependent chain of "
+                    "10 (a * b with b of a's shape; broadcast: b one row), "
+                    "plain: 3 repeats of 2 (b of a's shape); trimmed mean; "
+                    "the bound 12 bytes a value (a and b read, o written) at "
+                    f"{SPEC_HBM_GBPS} GB/s"})
+    main = times["p469762049"]
+    return {"name": "pointwise32", "route": "cuda",
+            "source": "ntt_aie_tpu_torch/csrc/pointwise.cu",
+            "replaces": "ntt_aie_tpu/plan.py:175 (XLA pointwise product, "
+                        "not a TPU kernel)",
+            "launches": 0, "max_abs_err": max_err,
+            "ms": main["kernel_us_per_call"] / 1e3,
+            "plain_ms": main["plain_us_per_call"] / 1e3,
+            "batch": main["batch"], "plain_batch": main["plain_batch"],
+            "bytes": main["bytes"], "butterflies": 0, "arithmetic": None,
+            "times": times}
+
 
 if __name__ == "__main__":
     sys.exit(main())

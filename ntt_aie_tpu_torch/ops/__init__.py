@@ -4,18 +4,19 @@
 def launch_counters() -> dict:
     """The kernel wrappers whose ``launches`` attribute counts the launches
     of their kernel, by kernel name (colpass, gl_colpass, fused_fourstep,
-    crt, ring_layers). Each wrapper adds one where it launches its kernel
-    and nowhere else; the column passes and the ring layers also keep
-    ``launches_by``, per instantiation."""
+    crt, ring_layers, pointwise32). Each wrapper adds one where it launches
+    its kernel and nowhere else; the column passes and the ring layers
+    also keep ``launches_by``, per instantiation."""
     from ntt_aie_tpu_torch.ops import colpass as C
     from ntt_aie_tpu_torch.ops import crt
     from ntt_aie_tpu_torch.ops import fused_fourstep as F
     from ntt_aie_tpu_torch.ops import gl_colpass as G
+    from ntt_aie_tpu_torch.ops import pointwise as P
     from ntt_aie_tpu_torch.ops import ring_layers as LR
 
     return {"colpass": C.colpass, "gl_colpass": G.gl_colpass,
             "fused_fourstep": F.fused_fourstep, "crt": crt.crt_combine,
-            "ring_layers": LR.layered}
+            "ring_layers": LR.layered, "pointwise32": P.mul32}
 
 
 def reset_launches() -> None:

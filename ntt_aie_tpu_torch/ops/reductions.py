@@ -85,7 +85,9 @@ class Reduction:
         return tuple(np.ascontiguousarray(v) for v in tabs)
 
 
-def _canonical_product(p):
+def canonical_product(p):
+    """Every 32-bit kind's mul_data, and the plain version of
+    ops.pointwise.mul32: the exact product on int64 carriers."""
     def muld(x, y):
         # exact canonical product: (x mod p) * (y mod p) < 2^62
         return (x % p) * (y % p) % p
@@ -99,7 +101,7 @@ def _canonical(name, field, prep, mulc, consts) -> Reduction:
     return Reduction(
         name=name, p=p, lazy=False, n_tables=1,
         prepare_table=prep, mul_const=mulc,
-        mul_data=_canonical_product(p),
+        mul_data=canonical_product(p),
         add=lambda a, b: M.add_mod(a, b, p),
         sub=lambda a, b: M.sub_mod(a, b, p),
         canonicalize=lambda x: x,
@@ -176,7 +178,7 @@ def _harvey(field) -> Reduction:
     return Reduction(
         name="harvey", p=p, lazy=True, n_tables=2,
         prepare_table=prep, mul_const=mulc,
-        mul_data=_canonical_product(p),
+        mul_data=canonical_product(p),
         add=add, sub=sub, canonicalize=canon, sub_for_mul=sub_lazy,
         add_for_mul=add_lazy,
     )
@@ -233,7 +235,7 @@ def _harvey4(field) -> Reduction:
     return Reduction(
         name="harvey4", p=p, lazy=True, n_tables=3,
         prepare_table=prep, mul_const=mulc,
-        mul_data=_canonical_product(p),
+        mul_data=canonical_product(p),
         add=add, sub=sub, canonicalize=canon, sub_for_mul=sub_lazy,
         add_for_mul=add_lazy,
         n_tables_mat=2, prepare_table_mat=prep_mat, mul_const_mat=mulc_mat,

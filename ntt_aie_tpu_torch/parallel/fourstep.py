@@ -56,6 +56,7 @@ from ntt_aie_tpu_torch.config import NTTConfig
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops.colpass import make_colpass
 from ntt_aie_tpu_torch.ops.gl_colpass import gl_mul, make_gl_colpass
+from ntt_aie_tpu_torch.ops.pointwise import mul32
 from ntt_aie_tpu_torch.ops.reductions import make_reduction, resolve_kind
 from ntt_aie_tpu_torch.parallel.mesh import axis_index, axis_size
 from ntt_aie_tpu_torch.plan import flat_inner_split, fold_passes, wfac_tables
@@ -466,9 +467,7 @@ def build_distributed_plan(config: NTTConfig, mesh, *, device=None,
         return v[0] if dp_axis is not None else v[0][0]
 
     def pointwise(fa, fb):
-        return tuple(M.from_carrier(red.mul_data(M.to_carrier(a),
-                                                 M.to_carrier(b)))
-                     for a, b in zip(fa, fb))
+        return tuple(mul32(a, b, red.p) for a, b in zip(fa, fb))
 
     def product(fwd_body, inv_body):
         def call(a, b):

@@ -43,11 +43,12 @@ runs the transforms. Its plain version, the oracle of that route, is
 
 Every reduction of ``ops.reductions`` runs both plans (harvey4, harvey,
 montgomery, barrett; ``NTTConfig.reduction``, 'auto' by the prime). The
-pointwise product is ``Reduction.mul_data``, the exact canonical product
-for every kind, so the polymul inverse is the plain inverse. (The
-reference's montgomery product is one REDC, which leaves an R^-1 that its
-polymul inverse takes back with iwmat_poly; the canonical outputs are the
-same.)
+pointwise product is ``ops.pointwise.mul32``, the exact canonical product
+(``Reduction.mul_data``'s) for every kind, one launch of
+``csrc/pointwise.cu`` on the card, so the polymul inverse is the plain
+inverse. (The reference's montgomery product is one REDC, which leaves an
+R^-1 that its polymul inverse takes back with iwmat_poly; the canonical
+outputs are the same.)
 
 n = 2 on the flat split has no two-factor split: its plan
 (``flat_n2_plan``) runs the one butterfly as torch ops (``ops.stages``
@@ -83,6 +84,7 @@ from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops import stages as S
 from ntt_aie_tpu_torch.ops.colpass import make_colpass
 from ntt_aie_tpu_torch.ops.fused_fourstep import make_fused_fourstep
+from ntt_aie_tpu_torch.ops.pointwise import mul32
 from ntt_aie_tpu_torch.ops.reductions import make_reduction, resolve_kind
 from ntt_aie_tpu_torch.utils.device import resolve_device
 
@@ -107,7 +109,8 @@ class Plan:
     passes ncp1, nicp1 of a four-step fold plan, or the fused nf, ni (on a
     flat fold plan at the fused plan's internal split). pointwise(x, y)
     is the spectral product polymul runs between its transforms: x * y
-    mod p of canonical spectra of any one shape (Reduction.mul_data for
+    mod p of canonical spectra of one shape, or y of x's trailing shape
+    (ops.pointwise.mul32 for
     the 32-bit kinds, ops.gl_colpass.gl_mul on (hi, lo) pairs for
     Goldilocks), so inv(pointwise(fwd(a), fwd(b))) is polymul(a, b) bit
     for bit, and inv_mat(pointwise(fwd_mat(a), fwd_mat(b))) polymul_mat(a,
@@ -471,8 +474,7 @@ def build_plan(config: NTTConfig, *, device=None, fused: bool = False,
             return icp1(icp2(x))
 
     def pointwise(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
-        return M.from_carrier(red.mul_data(M.to_carrier(fa),
-                                           M.to_carrier(fb)))
+        return mul32(fa, fb, red.p)
 
     def fwd2d(a, shape):
         return fwd_t(as_i32(a).reshape(shape))
@@ -567,7 +569,7 @@ def flat_n2_plan(config: NTTConfig, kind: str, device, *, wrap1,
     polymul and with NTTConfig(negacyclic=True) negacyclic_polymul (each
     operand times psi^i, the cyclic product, times psi^-i), flat and
     through make_batched, canonical. The pointwise products are
-    Reduction.mul_data (32-bit) or ops.gl_colpass.gl_mul (the kind
+    ops.pointwise.mul32 (32-bit) or ops.gl_colpass.gl_mul (the kind
     'goldilocks'). wrap1/wrap2 put the caller's values on the device in
     the plan's value form (an int32 tensor, or a Goldilocks (hi, lo)
     pair) and back."""
@@ -580,12 +582,12 @@ def flat_n2_plan(config: NTTConfig, kind: str, device, *, wrap1,
 
         psi = [M.gl_from_u64(v, device) for v in psi]
     else:
-        red = fs.red
-        psi = [torch.from_numpy(v.astype(np.int64)).to(device) for v in psi]
+        p = field.p
+        psi = [torch.from_numpy(v.astype(np.uint32).view(np.int32)).to(device)
+               for v in psi]
 
         def mul(a, b):
-            return M.from_carrier(red.mul_data(M.to_carrier(a),
-                                               M.to_carrier(b)))
+            return mul32(a, b, p)
 
     def polymul(a, b):
         return fs.inv(mul(fs.fwd(a), fs.fwd(b)))

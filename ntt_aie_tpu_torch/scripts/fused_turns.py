@@ -162,6 +162,13 @@ SPLIT_PASSES = (("babybear_2x2^26", "p2013265921", 1 << 26, 2),
                 ("babybear_4x2^26", "p2013265921", 1 << 26, 4),
                 ("gl_1x2^27", "goldilocks", 1 << 27, 1),
                 ("gl_4x2^26", "goldilocks", 1 << 26, 4))
+# --pointwise: the 32-bit ring products, (reduction, field, log_n,
+# rows_log2, batch): the main path's n = 2^20 at B = 256 under harvey4,
+# harvey and montgomery, and barrett on Kyber's 16 x 16 split at B = 16,384
+POINTWISE_CASES = (("harvey4", "p469762049", 20, 10, 256),
+                   ("harvey", "p998244353", 20, 10, 256),
+                   ("montgomery", "p2013265921", 20, 10, 256),
+                   ("barrett", "kyber", 8, 4, 16384))
 SYNC_STEPS = (1, 2, 4)  # --sync: the empty step lists' lengths
 SYNC_BLOCKS_PER_SM = 4  # --sync: the step kernel's (kStepMinBlocks)
 
@@ -708,6 +715,71 @@ def _measure_split() -> dict:
     return out
 
 
+def _measure_pointwise() -> dict:
+    """POINTWISE_CASES' fold and fused plans: ``Plan.pointwise`` of two
+    spectra alone, ``fwd_mat``, ``inv_mat`` and ``polymul_mat`` (of x with
+    itself), and under harvey4 the matrix-form example's cached loop
+    (``serving_matform_demo.serve`` against cached spectra), us per NTT;
+    hashes of the product's and of polymul_mat's bits (equal across every
+    reading of every root: the products are exact); the pointwise
+    kernel's launches per call where the root has one."""
+    import hashlib
+
+    import torch
+
+    import ntt_aie_tpu_torch as T
+    from ntt_aie_tpu_torch import ops
+    from ntt_aie_tpu_torch.examples import serving_matform_demo as SM
+    from ntt_aie_tpu_torch.utils.timing import time_device
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {"pointwise_hashes": {}, "pointwise_launches": {}}
+
+    def digest(t):  # the first 2^24 values (64 MB)
+        return hashlib.sha256(t.reshape(-1)[:1 << 24].cpu().numpy()
+                              ).hexdigest()
+
+    for kind, name, log_n, rows_log2, batch in POINTWISE_CASES:
+        field = T.FIELDS[name]
+        cfg = T.NTTConfig(field=field, log_n=log_n, rows_log2=rows_log2,
+                          reduction=kind)
+        n1, n2 = cfg.split
+        x, k = (torch.randint(0, field.p, (batch, n1, n2), dtype=torch.int32,
+                              device=dev, generator=gen) for _ in range(2))
+        for arm in ("fold", "fused"):
+            plan = T.build_plan(cfg, device=dev, fused=arm == "fused")
+            bat = plan.make_batched(batch)
+            k_spec = bat["fwd_mat"](k)
+            fns = {"fwd_mat": bat["fwd_mat"], "inv_mat": bat["inv_mat"],
+                   "polymul_mat": lambda v: bat["polymul_mat"](v, v)}
+            if arm == "fold":
+                fns["pointwise"] = lambda v: plan.pointwise(v, k_spec)
+                out["pointwise_hashes"][kind] = digest(
+                    plan.pointwise(bat["fwd_mat"](x), k_spec))
+                if kind == "harvey4":
+                    fns["cached_loop"] = lambda v: SM.serve(
+                        bat, plan.pointwise, k_spec, v)
+            out["pointwise_hashes"][f"{kind}_{arm}_polymul_mat"] = digest(
+                bat["polymul_mat"](x, k))
+            counters = ops.launch_counters()
+            if "pointwise32" in counters:
+                for key in ("polymul_mat", "pointwise"):
+                    if key not in fns:
+                        continue
+                    ops.reset_launches()
+                    fns[key](x)
+                    torch.cuda.synchronize()
+                    out["pointwise_launches"][f"{kind}_{arm}_{key}"] = {
+                        k_: v for k_, v in ops.read_launches().items() if v}
+            for key, fn in fns.items():
+                us = time_device(fn, x)["us_per_iter"]
+                out[f"pw_{kind}_{arm}_{key}_us_per_ntt"] = us / batch
+            del plan, bat, k_spec, fns
+            torch.cuda.empty_cache()
+    return out
+
+
 def _measure_sync() -> dict:
     """Device us a cooperative launch of SYNC_STEPS empty steps
     (scripts/grid_sync.cu, built here with the package's nvcc flags) at
@@ -866,6 +938,12 @@ def main(argv=None) -> int:
                          "B = 1: BabyBear (1, 2^27), Goldilocks (2, 2^27) "
                          "factored, (2, 2^26), (4, 2^26), GL (1, 2^27) and "
                          "GL (4, 2^26) cp2")
+    ap.add_argument("--pointwise", action="store_true",
+                    help="also time the 32-bit pointwise product, the "
+                         "fold and fused plans' fwd_mat, inv_mat and "
+                         "polymul_mat (harvey4, harvey, montgomery at "
+                         "n = 2^20, B = 256; barrett on Kyber at B = "
+                         "16,384) and the matrix-form cached loop")
     ap.add_argument("--sync", action="store_true",
                     help="only time the grid sync (scripts/grid_sync.cu) "
                          "and print one line")
@@ -900,6 +978,8 @@ def main(argv=None) -> int:
             reading.update(_measure_steps())
         if args.split:
             reading.update(_measure_split())
+        if args.pointwise:
+            reading.update(_measure_pointwise())
         _emit(reading)
         return 0
 
@@ -915,12 +995,17 @@ def main(argv=None) -> int:
             + ("gl_colpass",) * (args.gl or args.tall or args.limit
                                  or args.split)
             + ("crt",) * args.crt
-            + ("ring_layers",) * args.ring)
+            + ("ring_layers",) * args.ring
+            + ("pointwise",) * args.pointwise)
     reds = {args.reduction} | ({"montgomery"} if args.tall or args.limit
                                or args.steps or args.split else set())
+    if args.pointwise:
+        reds |= {kind for kind, *_ in POINTWISE_CASES}
     reds = sorted(reds - {"harvey4"})
+    # a root without a library's source (an older commit) skips its build
     build = ("from ntt_aie_tpu_torch.ops import colpass as C; "
-             f"[C.build_library(n) for n in {libs!r}]; "
+             f"[C.build_library(n) for n in {libs!r} "
+             "if (C.CSRC_DIR / f'{n}.cu').exists()]; "
              f"[C.build_library(n, r) for r in {reds!r} for n in "
              "('colpass', 'fused_fourstep')]")
     with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:
@@ -940,9 +1025,11 @@ def main(argv=None) -> int:
              + ["--crt"] * args.crt + ["--ring"] * args.ring
              + ["--tall"] * args.tall + ["--limit"] * args.limit
              + ["--steps"] * args.steps + ["--split"] * args.split
+             + ["--pointwise"] * args.pointwise
              + ["--reduction", args.reduction])
     ok = True
     gl_hashes = crt_hash = ring_hashes = tall_hashes = split_hashes = None
+    pw_hashes = None
     for name in order:
         res = _run_child(roots[name], flags)
         if res.returncode != 0:
@@ -954,6 +1041,7 @@ def main(argv=None) -> int:
         ring_hashes = ring_hashes or reading.get("ring_hashes")
         tall_hashes = tall_hashes or reading.get("tall_hashes")
         split_hashes = split_hashes or reading.get("split_hashes")
+        pw_hashes = pw_hashes or reading.get("pointwise_hashes")
         ok = (ok and reading["fused_equals_fold"]
               and reading.get("nested_equals_colpass", True)
               and reading.get("gl_hashes") == gl_hashes
@@ -961,6 +1049,7 @@ def main(argv=None) -> int:
               and reading.get("ring_hashes") == ring_hashes
               and reading.get("tall_hashes", tall_hashes) == tall_hashes
               and reading.get("split_hashes") == split_hashes
+              and reading.get("pointwise_hashes") == pw_hashes
               and all(reading.get("limit_equal", {}).values())
               and all(reading.get("steps_equal", {}).values()))
         readings[name].append(reading)

@@ -37,7 +37,10 @@ side's phases, split ones too) against the plain transform over a chain
 of launches, with the fused plan at n = 2^17 (8 x 16384, 16384 x 8); and
 Goldilocks columns of 2-8 rows on the short kernel (every instantiation
 the plans run) and of 4,096 and 8,192 rows on the tall route, against
-their plain versions raw.
+their plain versions raw; and the 32-bit pointwise product
+(csrc/pointwise.cu) against its plain version for every 32-bit prime, on
+any uint32 input, at sizes off the block and vector widths, broadcast, above
+2^31 values, with its refusals, and launched once a product by the plans.
 
 Needs an NVIDIA GPU and nvcc: every test here skips without CUDA. The file
 imports no jax, so it runs where only the port is installed:
@@ -58,6 +61,7 @@ from ntt_aie_tpu_torch.ops import fused_fourstep as FF
 from ntt_aie_tpu_torch.ops import gl_colpass as G
 from ntt_aie_tpu_torch.ops import modops as M
 from ntt_aie_tpu_torch.ops import nested_colpass as N
+from ntt_aie_tpu_torch.ops import pointwise as PW
 from ntt_aie_tpu_torch.parallel import fourstep as FS
 from ntt_aie_tpu_torch.parallel import launch, runs
 from ntt_aie_tpu_torch.plan import fold_passes, fused_passes
@@ -1378,12 +1382,15 @@ def test_stream_transform_on_the_card(cuda):
 # the worked examples (ntt_aie_tpu_torch/examples) at the CPU tests'
 # sizes: (run, the launch counters that must move)
 EXAMPLE_CASES = {
-    "rlwe_demo": (lambda ex: ex.run(), ("fused_fourstep",)),
-    "bigint_multiply": (lambda ex: ex.run(4096), ("colpass", "crt")),
-    "serving_matform_demo": (lambda ex: ex.run(8, 4), ("colpass",)),
+    "rlwe_demo": (lambda ex: ex.run(), ("fused_fourstep", "pointwise32")),
+    "bigint_multiply": (lambda ex: ex.run(4096),
+                        ("colpass", "crt", "pointwise32")),
+    "serving_matform_demo": (lambda ex: ex.run(8, 4),
+                             ("colpass", "pointwise32")),
     "pqc_serving_demo": (lambda ex: ex.run(4), ("ring_layers",)),
     "distributed_demo": (lambda ex: ex.run(10, world=4, backend="gloo"),
-                         ("colpass", "fused_fourstep", "crt")),
+                         ("colpass", "fused_fourstep", "crt",
+                          "pointwise32")),
 }
 
 
@@ -2060,3 +2067,148 @@ def test_fused_lo_phase_a_steps_match_plain(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got.reshape(-1), u.reshape(-1)), st["name"]
     assert FF.kernel_info(ff)["kernel"] == "steps:all"
+
+
+# the 32-bit pointwise product: every 32-bit field of the port and the
+# largest modulus montgomery accepts (2^31 - 1)
+PW_PRIMES = [f.p for f in (T.KYBER, T.DILITHIUM, T.P_469762049,
+                           T.P_998244353, T.P_2013265921)] + [(1 << 31) - 1]
+
+
+def _pw_values(gen, shape, p, device):
+    """Random uint32 bits as int32, the first values the edges."""
+    v = torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int64,
+                      device=device, generator=gen)
+    edges = [0, 1, p - 1, p, 2 * p, 4 * p - 1, (1 << 31) - 1, 1 << 31,
+             (1 << 32) - 1]
+    edges = [e - (1 << 32) if e >= 1 << 31 else e for e in edges
+             if e < 1 << 32]
+    flat = v.view(-1)
+    k = min(len(edges), flat.numel())
+    flat[:k] = torch.tensor(edges[:k], dtype=torch.int64, device=device)
+    return v.to(torch.int32)
+
+
+def _pw_held(a, b, p):
+    """mul32 on the card, one launch, equal to its plain version."""
+    before = PW.mul32.launches
+    got = PW.mul32(a, b, p)
+    torch.cuda.synchronize()
+    assert PW.mul32.launches == before + 1
+    assert torch.equal(got, PW.mul32_plain(a, b, p))
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 257, 1021, 4096, 1000003])
+@pytest.mark.parametrize("p", PW_PRIMES)
+def test_pointwise_kernel_matches_plain(cuda, p, n):
+    g = torch.Generator(device=cuda).manual_seed(p % 1000 + n)
+    a, b = (_pw_values(g, (n,), p, cuda) for _ in range(2))
+    _pw_held(a, b, p)
+    assert PW.vectorized(a, b, a) == (n % 4 == 0)
+    # every edge against every edge
+    e = _pw_values(g, (9,), p, cuda)
+    _pw_held(e.repeat_interleave(9), e.repeat(9), p)
+
+
+@pytest.mark.parametrize("p", [T.KYBER.p, T.P_2013265921.p])
+def test_pointwise_kernel_unaligned(cuda, p):
+    """Contiguous views 4 bytes off a 16-byte boundary take the scalar
+    loop."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a, b = (_pw_values(g, (4097,), p, cuda) for _ in range(2))
+    a1, b1 = a[1:], b[1:]
+    assert not PW.vectorized(a1, b1, torch.empty_like(a1))
+    _pw_held(a1, b1, p)
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [
+    ((8, 1 << 12), (1 << 12,)), ((4, 64, 32), (64, 32)),
+    ((7, 12), (12,)), ((5, 6), (6,)), ((3, 1), (1,))])
+def test_pointwise_kernel_broadcast(cuda, shape_a, shape_b):
+    """b over a's leading axes: a power-of-two nb (a mask; nb = 1
+    too), others (`%`), vector and scalar."""
+    p = T.P_998244353.p
+    g = torch.Generator(device=cuda).manual_seed(len(shape_a))
+    a = _pw_values(g, shape_a, p, cuda)
+    b = _pw_values(g, shape_b, p, cuda)
+    got = _pw_held(a, b, p)
+    assert got.shape == a.shape
+    want = (a.long() & 0xFFFFFFFF) % p * ((b.long() & 0xFFFFFFFF) % p) % p
+    assert torch.equal(got.long() & 0xFFFFFFFF, want)
+
+
+def test_pointwise_kernel_above_2_31_values(cuda):
+    """2^31 + 2^20 values (64-bit indices) against psi-like (2^20,)
+    broadcast; the plain version on the first and last rows."""
+    p = T.P_2013265921.p
+    rows, n = (1 << 11) + 1, 1 << 20
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.randint(0, p, (rows, n), dtype=torch.int32, device=cuda,
+                      generator=g)
+    b = torch.randint(0, p, (n,), dtype=torch.int32, device=cuda,
+                      generator=g)
+    got = PW.mul32(a, b, p)
+    torch.cuda.synchronize()
+    assert a.numel() > (1 << 31)
+    for r in (0, rows // 2, rows - 1):
+        assert torch.equal(got[r], PW.mul32_plain(a[r], b, p))
+    del a, got
+    torch.cuda.empty_cache()
+
+
+def test_pointwise_kernel_refusals(cuda):
+    p = T.P_469762049.p
+    x = torch.zeros(64, 32, dtype=torch.int32, device=cuda)
+    before = PW.mul32.launches
+    with pytest.raises(ValueError):  # not contiguous
+        PW.mul32(x.t(), x.t(), p)
+    with pytest.raises(ValueError):  # sizes that do not broadcast
+        PW.mul32(x, x[:, :16].contiguous(), p)
+    with pytest.raises(ValueError):  # two devices
+        PW.mul32(x, x.cpu(), p)
+    with pytest.raises(ValueError):  # not int32
+        PW.mul32(x, x.long(), p)
+    with pytest.raises(ValueError):  # no modulus the kernel takes
+        PW.mul32(x, x, 1 << 31)
+    assert PW.mul32.launches == before
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("name", ["p469762049", "p998244353",
+                                  "p2013265921"])
+def test_plan_products_launch_pointwise(cuda, name, fused):
+    """polymul_mat and Plan.pointwise launch the kernel once a product,
+    and polymul_mat equals the NumPy cyclic product."""
+    field = T.FIELDS[name]
+    cfg = T.NTTConfig(field=field, log_n=12, rows_log2=6)
+    plan = T.build_plan(cfg, device=cuda, fused=fused)
+    bat = plan.make_batched(2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a, b = (torch.randint(0, field.p, (2, 64, 64), dtype=torch.int32,
+                          device=cuda, generator=g) for _ in range(2))
+    PW.mul32.launches = 0
+    c = bat["polymul_mat"](a, b)
+    torch.cuda.synchronize()
+    assert PW.mul32.launches == 1
+    want = ref.cyclic_polymul(a[1].reshape(-1).cpu().numpy(),
+                              b[1].reshape(-1).cpu().numpy(), field)
+    assert np.array_equal(c[1].reshape(-1).cpu().numpy().astype(np.int64),
+                          want)
+    fa = bat["fwd_mat"](a)
+    _pw_held(fa, fa, field.p)
+    PW.mul32.launches = 0
+    plan.pointwise(fa, fa)
+    assert PW.mul32.launches == 1
+
+
+def test_rns_products_launch_pointwise_once_a_prime(cuda):
+    rns = T.RNSPolymul(10, device=cuda)
+    rng = np.random.default_rng(4)
+    a, b = (rng.integers(-1000, 1000, (2, 1024)) for _ in range(2))
+    PW.mul32.launches = 0
+    got = rns.polymul(a, b)
+    assert PW.mul32.launches == len(rns.fields)
+    want = [[sum(int(a[r][i]) * int(b[r][(k - i) % 1024])
+                 for i in range(1024)) for k in range(4)] for r in range(2)]
+    assert [[int(v) for v in row[:4]] for row in got] == want

@@ -37,6 +37,7 @@ MODULES = [
     "ntt_aie_tpu_torch.ops.gl_colpass",
     "ntt_aie_tpu_torch.ops.modops",
     "ntt_aie_tpu_torch.ops.nested_colpass",
+    "ntt_aie_tpu_torch.ops.pointwise",
     "ntt_aie_tpu_torch.ops.reductions",
     "ntt_aie_tpu_torch.ops.ring_layers",
     "ntt_aie_tpu_torch.ops.stages",
